@@ -1,0 +1,250 @@
+"""Multi-head self-attention layer — port of
+deeplearning4j_tpu/nn/layers/attention.py.
+
+Two paths, as in the JAX package:
+
+  - ``forward``: full-sequence attention (no cache), the solo
+    `generate_transformer` path and `ComputationGraph.output`;
+  - ``_paged_step``: the paged-KV inference step the decode engine runs
+    (inference/engine.py). K/V rows live in pool-wide page arrays
+    ``k_pages``/``v_pages`` [pages, block, Hkv, Dh] (page 0 the scratch
+    page), reached through an int32 block ``table`` [B, nb] injected per
+    call. The contiguous per-slot cache step comes with a later slice.
+
+The paged step updates the page arrays IN PLACE (the JAX step returns
+new arrays; the engine owns the only reference to its pages, so the
+port saves a copy of the pool per step) and returns them in its state.
+
+Layout: x [B, T, F]; q [B, T, H, Dh]; K/V [B, T, Hkv, Dh] with query
+head h = hkv * G + g (G = H / Hkv), RoPE half-split ("rotate-half":
+dim i pairs with i + Dh/2).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .base import BaseRecurrentImpl, register_impl
+from .. import weights as winit
+from ...ops import helpers as ophelpers
+from ...ops.kvquant import dequantize_kv_rows, quantize_kv_rows
+
+# the overflow sentinel: an absolute position past every table bucket
+# the scheduler may present later (JAX attention.py:374)
+OVERFLOW_POS = 1 << 30
+
+
+@register_impl("SelfAttentionLayer")
+class SelfAttentionLayerImpl(BaseRecurrentImpl):
+
+    def _kv_heads(self) -> int:
+        conf = self.conf
+        kv = getattr(conf, "n_kv_heads", None)
+        if kv is None:
+            return conf.n_heads
+        if kv <= 0 or conf.n_heads % kv:
+            raise ValueError(f"n_kv_heads={kv} must be a positive divisor "
+                             f"of n_heads={conf.n_heads}")
+        return kv
+
+    def init_params(self, gen, dtype=torch.float32, device=torch.device("cpu")):
+        conf = self.conf
+        model = conf.n_out
+        kv_dim = self._kv_heads() * (model // conf.n_heads)
+
+        def mk(i, o):
+            return winit.init_weights(gen, (i, o),
+                                      conf.weight_init or winit.XAVIER,
+                                      dtype, device)
+        return {
+            "Wq": mk(conf.n_in, model),
+            "Wk": mk(conf.n_in, kv_dim),
+            "Wv": mk(conf.n_in, kv_dim),
+            "Wo": mk(model, model),
+            "b": torch.full((model,), float(conf.bias_init or 0.0),
+                            dtype=dtype, device=device),
+        }
+
+    def _qkv(self, params, x, pos0=0):
+        """Projections as [B, T, heads, Dh]; K/V keep their n_kv_heads."""
+        conf = self.conf
+        B, T, _ = x.shape
+        H = conf.n_heads
+        Dh = conf.n_out // H
+        Hkv = self._kv_heads()
+        q = (x @ params["Wq"]).reshape(B, T, H, Dh)
+        k = (x @ params["Wk"]).reshape(B, T, Hkv, Dh)
+        v = (x @ params["Wv"]).reshape(B, T, Hkv, Dh)
+        if getattr(conf, "rope", False):
+            q = self._rope(q, pos0)
+            k = self._rope(k, pos0)
+        return q, k, v
+
+    def _rope(self, a, pos0):
+        """Rotary position embedding on [B, T, H, Dh], half-split pairing.
+        ``pos0``: an int (whole batch at one depth) or a [B] tensor (each
+        row at its own depth)."""
+        B, T, H, Dh = a.shape
+        if Dh % 2:
+            raise ValueError(f"rope requires an even head dim, got {Dh}")
+        half = Dh // 2
+        dev = a.device
+        freq = torch.tensor(self.conf.rope_base, dtype=torch.float32,
+                            device=dev) ** (
+            -torch.arange(half, dtype=torch.float32, device=dev) / half)
+        t = torch.arange(T, dtype=torch.float32, device=dev)
+        if isinstance(pos0, torch.Tensor) and pos0.dim():
+            ang = (pos0.to(torch.float32)[:, None]
+                   + t[None, :])[:, :, None] * freq[None, None]
+            cos = torch.cos(ang)[:, :, None, :].to(a.dtype)
+            sin = torch.sin(ang)[:, :, None, :].to(a.dtype)
+        else:
+            ang = (float(pos0) + t)[:, None] * freq[None]
+            cos = torch.cos(ang)[None, :, None, :].to(a.dtype)
+            sin = torch.sin(ang)[None, :, None, :].to(a.dtype)
+        a1, a2 = a[..., :half], a[..., half:]
+        return torch.cat([a1 * cos - a2 * sin, a1 * sin + a2 * cos], dim=-1)
+
+    def _out(self, params, o, B, T):
+        out = o.reshape(B, T, self.conf.n_out) @ params["Wo"] + params["b"]
+        return self.activation_fn()(out)
+
+    def _grouped_attention(self, q, k, v, *, causal, qpos0=0):
+        """Dense attention with q grouped over compact KV heads.
+        q: [B, T, H, Dh]; k, v: [B, L, Hkv, Dh] -> [B, T, H, Dh].
+        ``qpos0``: int, or [B] tensor of per-row depths."""
+        B, T, H, Dh = q.shape
+        L, Hkv = k.shape[1], k.shape[2]
+        dev = q.device
+        qg = q.reshape(B, T, Hkv, H // Hkv, Dh)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) / math.sqrt(Dh)
+        if causal:
+            ar = torch.arange(L, device=dev)
+            tt = torch.arange(T, device=dev)
+            if isinstance(qpos0, torch.Tensor) and qpos0.dim():
+                valid = ar[None, None, :] <= (qpos0.long()[:, None, None]
+                                              + tt[None, :, None])
+                valid = valid[:, None, None]
+            else:
+                valid = (ar[None, :] <= int(qpos0) + tt[:, None])[
+                    None, None, None]
+            s = torch.where(valid, s.to(torch.float32),
+                            torch.finfo(torch.float32).min)
+        p = torch.softmax(s.to(torch.float32), dim=-1).to(q.dtype)
+        return torch.einsum("bhgqk,bkhd->bqhgd", p, v).reshape(B, T, H, Dh)
+
+    @staticmethod
+    def _full_attention(q, k, v, *, causal):
+        """Dense attention with equal head counts (the JAX default of the
+        ``attention`` seam, parallel/ring.full_attention): scale folded
+        in as a product, f32-min causal mask."""
+        D = q.shape[-1]
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(D))
+        if causal:
+            Lq, Lk = q.shape[1], k.shape[1]
+            mask = torch.tril(torch.ones((Lq, Lk), dtype=torch.bool,
+                                         device=q.device))
+            s = torch.where(mask[None, None], s, torch.finfo(s.dtype).min)
+        p = torch.softmax(s, dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", p, v)
+
+    def forward(self, params, x, *, mask=None):
+        conf = self.conf
+        B, T, _ = x.shape
+        q, k, v = self._qkv(params, x)
+        if k.shape[2] != q.shape[2]:
+            o = self._grouped_attention(q, k, v, causal=conf.causal)
+        else:
+            o = self._full_attention(q, k, v, causal=conf.causal)
+        if mask is not None:
+            o = o * mask[:, :, None, None].to(o.dtype)
+        return self._out(params, o, B, T)
+
+    def forward_with_state(self, params, x, state0, *, mask=None):
+        """Full-sequence attention when no cache state is given; the paged
+        step when the state carries pages."""
+        if state0 is None:
+            return self.forward(params, x, mask=mask), None
+        if not self.conf.causal:
+            raise NotImplementedError(
+                "KV-cached decode requires causal=True")
+        if "k_pages" not in state0:
+            raise NotImplementedError(
+                "the contiguous per-slot KV cache comes with a later slice; "
+                "the port's decode engine runs the paged layout")
+        return self._paged_step(params, x, state0, mask=mask)
+
+    def _paged_step(self, params, x, state0, *, mask=None):
+        """Paged-KV inference step (JAX attention.py:263).
+
+        ``state0``: {"k_pages", "v_pages", ["k_scales", "v_scales"], "pos"
+        [B] int32, "table" [B, nb] int32, optional "wmask" [B, T] bool,
+        optional "paged_kernel" "on"|"off"}. The write at absolute
+        position p lands in ``pages[table[b, p // block], p % block]``;
+        lanes masked off by ``wmask`` (idle slots, padded prefill lanes)
+        are redirected to the scratch page AND zeroed — a non-finite row
+        in page 0 would leak into every reader. int8 pages quantize on
+        write. T=1 reads through the ``paged_decode_attention`` seam (the
+        CUDA kernel on the card); otherwise, or with paged_kernel "off",
+        the gather body below reads the whole table back in logical order.
+        Rows whose write would pass the table get NaN output and the
+        overflow sentinel as their next position."""
+        B, T, _ = x.shape
+        pos = state0["pos"]
+        table = state0["table"]
+        kp, vp = state0["k_pages"], state0["v_pages"]
+        Bk = kp.shape[1]
+        nb = table.shape[1]
+        L = nb * Bk
+        wmask = state0.get("wmask")
+        ks, vs = state0.get("k_scales"), state0.get("v_scales")
+        quantized = ks is not None
+        overflow = (pos + T) > L
+        q, k_new, v_new = self._qkv(params, x, pos0=pos)
+        p = pos.long()[:, None] + torch.arange(T, device=x.device)[None, :]
+        blk = torch.gather(table.long(), 1, torch.clamp(p // Bk, max=nb - 1))
+        if wmask is not None:
+            blk = torch.where(wmask, blk, 0)
+            keep = wmask[..., None, None]
+            k_new = torch.where(keep, k_new, 0.0)
+            v_new = torch.where(keep, v_new, 0.0)
+        blk = torch.where(p // Bk < nb, blk, 0)
+        off = p % Bk
+        if quantized:
+            kq, ksc = quantize_kv_rows(k_new)
+            vq, vsc = quantize_kv_rows(v_new)
+            kp[blk, off] = kq
+            vp[blk, off] = vq
+            ks[blk, off] = ksc
+            vs[blk, off] = vsc
+        else:
+            kp[blk, off] = k_new
+            vp[blk, off] = v_new
+        o = None
+        if T == 1:
+            o = ophelpers.paged_decode_attention(
+                q.contiguous(), kp, vp, table, pos, k_scales=ks, v_scales=vs,
+                mode=state0.get("paged_kernel", "on"))
+        if o is None:
+            dt = q.dtype
+            tl = table.long()
+            if quantized:
+                kc = dequantize_kv_rows(kp[tl], ks[tl], dt).reshape(
+                    B, L, kp.shape[2], kp.shape[3])
+                vc = dequantize_kv_rows(vp[tl], vs[tl], dt).reshape(
+                    B, L, vp.shape[2], vp.shape[3])
+            else:
+                kc = kp[tl].reshape(B, L, kp.shape[2], kp.shape[3])
+                vc = vp[tl].reshape(B, L, vp.shape[2], vp.shape[3])
+            o = self._grouped_attention(q, kc, vc, causal=True, qpos0=pos)
+        if mask is not None:
+            o = o * mask[:, :, None, None].to(o.dtype)
+        y = self._out(params, o, B, T)
+        y = torch.where(overflow[:, None, None], float("nan"), y)
+        next_pos = torch.where(overflow, OVERFLOW_POS, pos + T).to(torch.int32)
+        out_state = {"k_pages": kp, "v_pages": vp, "pos": next_pos}
+        if quantized:
+            out_state["k_scales"] = ks
+            out_state["v_scales"] = vs
+        return y, out_state

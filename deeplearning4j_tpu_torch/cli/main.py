@@ -1,21 +1,55 @@
-"""Command line — port of the ``serve --generate`` path of
-deeplearning4j_tpu/cli/main.py.
+"""Command line — port of the ``train`` (local runtime) and ``serve
+--generate`` paths of deeplearning4j_tpu/cli/main.py.
 
+    python -m deeplearning4j_tpu_torch.cli.main train --conf net.json \
+        --input data.csv --output model.zip [--epochs N] [--batch B] \
+        [--label-index I] [--num-classes C] [--regression] \
+        [--skip-lines K] [--print-every P] [--device cuda|cpu]
     python -m deeplearning4j_tpu_torch.cli.main serve --model lm.zip \
         --generate --kv-pool-mb M --kv-block 16 --decode-slots N \
         --prefill-chunk C [--kv-dtype int8] [--paged-kernel on|off] \
         [--device cuda|cpu] [--port P]
 
-The model zip is the shared format (a JAX-written zip serves as is).
-``--device`` defaults to cuda and fails without a CUDA device. The
-train/test/predict, telemetry and router commands come with later slices.
+The config JSON and the model zip are the shared formats (a JAX-written
+config trains here, a zip written here restores in the JAX package, and
+back). ``--device`` defaults to cuda and fails without a CUDA device. The
+test/predict, telemetry and router commands and the data-parallel
+runtime come with later slices.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 import time
+from pathlib import Path
 from typing import List, Optional
+
+
+def _build_iterator(args):
+    from ..datasets.records import CSVRecordReader, RecordReaderDataSetIterator
+    reader = CSVRecordReader(skip_lines=args.skip_lines).initialize(args.input)
+    return RecordReaderDataSetIterator(
+        reader, batch_size=args.batch, label_index=args.label_index,
+        num_classes=args.num_classes, regression=args.regression)
+
+
+def cmd_train(args) -> int:
+    from ..datasets.iterators import MultipleEpochsIterator
+    from ..nn.conf.config import MultiLayerConfiguration
+    from ..nn.multilayer import MultiLayerNetwork
+    from ..optimize.listeners import ScoreIterationListener
+    from ..util.model_serializer import write_model
+
+    conf = MultiLayerConfiguration.from_json(Path(args.conf).read_text())
+    net = MultiLayerNetwork(conf, device=args.device).init()
+    net.set_listeners(ScoreIterationListener(args.print_every, log_fn=print))
+    iterator = _build_iterator(args)
+    if args.epochs > 1:
+        iterator = MultipleEpochsIterator(args.epochs, iterator)
+    net.fit(iterator)
+    write_model(net, args.output)
+    print(f"Model saved to {args.output} (final score {net.score_:.6f})")
+    return 0
 
 
 def cmd_serve(args) -> int:
@@ -53,6 +87,23 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="dl4j-torch",
                                  description="deeplearning4j_tpu_torch CLI")
     sub = ap.add_subparsers(dest="cmd", required=True)
+    t = sub.add_parser("train", help="train a MultiLayerNetwork from a JSON "
+                                     "configuration on CSV records")
+    t.add_argument("--conf", required=True,
+                   help="MultiLayerConfiguration JSON")
+    t.add_argument("--input", required=True, help="input CSV path")
+    t.add_argument("--output", required=True, help="output model zip")
+    t.add_argument("--epochs", type=int, default=1)
+    t.add_argument("--batch", type=int, default=32)
+    t.add_argument("--label-index", type=int, default=-1,
+                   help="label column (-1 = last)")
+    t.add_argument("--num-classes", type=int, default=None)
+    t.add_argument("--regression", action="store_true")
+    t.add_argument("--skip-lines", type=int, default=0)
+    t.add_argument("--print-every", type=int, default=10)
+    t.add_argument("--device", default="cuda",
+                   help="cuda (default; fails without a CUDA device) or cpu")
+    t.set_defaults(fn=cmd_train)
     s = sub.add_parser("serve", help="serve a saved LM over HTTP")
     s.add_argument("--model", required=True, help="model zip")
     s.add_argument("--port", type=int, default=0)

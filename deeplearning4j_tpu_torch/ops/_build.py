@@ -10,7 +10,8 @@ and is loaded with `ctypes`. The build happens at the first launch on a
 CUDA tensor (or in `build_all`), never at import: the CPU tests import
 every module on machines without nvcc. The library name carries a digest
 of the source and the flags, so an edited source never loads a stale
-build; `ops/_build/` is listed in .gitignore. A failed build raises —
+build (the digest also covers the shared ``csrc/*.cuh`` headers);
+`ops/_build/` is listed in .gitignore. A failed build raises —
 there is no fallback.
 
 nvcc is found through ``$CUDA_HOME/bin/nvcc``, then ``PATH``, then the
@@ -52,7 +53,9 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # the digest covers the source, every shared header and the flags
+    src = (CSRC_DIR / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

@@ -138,7 +138,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert r.stdout.startswith("0 []"), r.stdout
 
 
-def test_entry_points_default_to_cuda():
+def test_entry_points_default_to_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default is valid here")
     conf = tlm(**_kw())
@@ -153,3 +153,16 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(["serve", "--model", "unused.zip", "--generate",
               "--kv-pool-mb", "1"])
+    from deeplearning4j_tpu_torch.models.zoo import alexnet_cifar10
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        MultiLayerNetwork(alexnet_cifar10())
+    path = tmp_path / "alexnet.zip"
+    tms.write_model(MultiLayerNetwork(alexnet_cifar10(), device="cpu"), path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tms.restore_model(path)
+    conf_path = tmp_path / "alexnet.json"
+    conf_path.write_text(alexnet_cifar10().to_json())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["train", "--conf", str(conf_path), "--input", "unused.csv",
+              "--output", str(tmp_path / "unused.zip")])

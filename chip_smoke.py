@@ -71,7 +71,32 @@ non-zero without them, or when any phase fails. Phases:
   7. trains LeNet-MNIST (Nesterovs, l2 5e-4) for 5 steps at B=512: one
      conv launch per step (conv1's kw*c = 5 < 8 declines, as in the JAX
      package), finite losses;
-  8. prints the kernels line.
+  8. (folded into 11);
+  9. holds the three flash-attention kernels (forward, dK/dV, dQ) against
+     their plain versions on the card at the LM training shapes [32, 256,
+     8, 64] and [1, 8192, 4, 128] (causal) and an edge set (L = 1, 7, 129,
+     300 at D=32, full attention with B*H = 3 and causal): max |diff| /
+     max |plain| <= 1e-5 for o and lse, and for dq, dk and dv over the
+     largest plain gradient; the gradients bitwise equal on a second
+     launch. Times (as in phase 2) beside the f32 bound (operations of the
+     kept (query, key) pairs at 67 TFLOP/s, or bytes) and, at the two
+     main shapes, F.scaled_dot_product_attention forward and
+     forward+backward (f32, TF32 off). Then the attention seam under
+     autograd against the dense default's autograd (1e-4; one launch of
+     each kernel);
+ 10. trains transformer_lm at full width (vocab 128, d_model 512, 4
+     blocks, Adam 3e-4, f32, random weights from seed 7) on seeded one-hot
+     next-token batches: 8 heads at T=256, B=32 for 20 steps, and 4 heads
+     (Dh 128) at T=8192, B=1 for 10: every loss finite, the last below the
+     first, launches exactly 4 forward + 4 dK/dV + 4 dQ per step;
+     tokens/s and step ms; the busy share over 5 profiled steps; the
+     gradients of one more step through the kernels and through their
+     plain versions (loss 1e-5 relative, worst leaf's relative L2 1e-3);
+     the same seeds through the plain versions: no kernel launch, losses
+     within 1e-6 (relative) over steps 1-2 and 1e-5 over all (the LM's
+     losses fall smoothly, without AlexNet's early spike that amplifies
+     rounding);
+ 11. prints the kernels line.
 
 The last line is {"ok": true, "device": {...}}. Every number printed is
 measured in this run; a "[details]" JSON line before the kernels line
@@ -209,6 +234,25 @@ def edge_case(ck, torch, *, H, Hkv, quantized):
     return float((got - want).abs().max())
 
 
+def divergence(net, reqs, tokens, solo):
+    """Each diverging request's first divergent token, and the solo
+    model's top-2 log-probability margin at that position."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.sampling import onehot
+    out = []
+    for i, (a, s) in enumerate(zip(tokens, solo)):
+        if a == s:
+            continue
+        j = next((j for j, (x, y) in enumerate(zip(a, s)) if x != y),
+                 min(len(a), len(s)))
+        ids = list(reqs[i]["prompt"]) + list(s[:j])
+        p = net.output(onehot(ids, VOCAB))[0][0, -1].double().cpu().numpy()
+        top = np.sort(np.log(np.maximum(p, 1e-300)))[::-1]
+        out.append(f"request {i} token {j}: served {a[j:j + 1]} solo "
+                   f"{s[j:j + 1]}, top-2 margin {top[0] - top[1]:.3e}")
+    return "; ".join(out)
+
+
 def post(port, body):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/generate?timeout_ms=900000",
@@ -255,7 +299,9 @@ def serve_run(ck, model_path, reqs, kv_dtype):
             outs = list(ex.map(lambda b: post(srv.port, b), reqs))
         wall = time.monotonic() - t0
         launches = ck.LAUNCHES["paged_decode_attention"]
+        flash_launches = ck.LAUNCHES["flash_attention_fwd"]
         stats = {"launches": launches, "decode_steps": dec.decode_steps,
+                 "flash_fwd_launches": flash_launches,
                  "prefill_chunks": dec.prefill_chunks,
                  "tokens": sum(len(o["tokens"]) for o in outs),
                  "wall_s": wall,
@@ -275,6 +321,9 @@ def serve_run(ck, model_path, reqs, kv_dtype):
     if launches <= 0 or launches != n_attn * stats["decode_steps"]:
         raise SystemExit(f"launch count {launches} != {n_attn} attention "
                          f"layers x {stats['decode_steps']} decode steps")
+    if flash_launches:
+        raise SystemExit(f"the decode engine launched the full-sequence "
+                         f"attention kernel {flash_launches} times")
     return [o["tokens"] for o in outs], stats, net
 
 
@@ -549,6 +598,209 @@ def train_profile(torch, net, x, y, steps):
             "top_kernels_ms": [[k[:80], ms] for k, ms in top]}
 
 
+def flash_bound(B, L, H, D, causal):
+    """(pairs, bytes of one [B, L, H, D] f32 tensor, of one [B, H, L]
+    one): the (query, key) pairs this run's mask keeps, and the sizes the
+    byte bounds count."""
+    pairs = B * H * (L * (L + 1) // 2 if causal else L * L)
+    return pairs, 4 * B * L * H * D, 4 * B * H * L
+
+
+def flash_case(ck, torch, flush, *, B, L, H, D, causal, seed, library):
+    """The three flash kernels against their plain versions at one shape.
+    The backward kernels take the plain forward's lse and o (di = sum_d o
+    * dO), so each kernel is held alone. Errors are max |diff| over max
+    |plain|: of o, of lse, and of each gradient over the largest of the
+    three plain gradients (at L=1, dq and dk are 0 up to rounding).
+    With ``library``, F.scaled_dot_product_attention on [B, H, L, D]
+    views of the same tensors, forward and forward+backward."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn((B, L, H, D), generator=g).to(dev)
+                   for _ in range(4))
+    kw = dict(causal=causal, scale=D ** -0.5)
+    o, lse = ck.flash_attention_fwd(q, k, v, **kw)
+    ro, rlse = ck.flash_attention_fwd_ref(q, k, v, **kw)
+    di = (ro * do).sum(dim=-1).permute(0, 2, 1).contiguous()
+    bwd = (q, k, v, do, rlse, di)
+    dk, dv = ck.flash_attention_bwd_dkv(*bwd, **kw)
+    dq = ck.flash_attention_bwd_dq(*bwd, **kw)
+    dk2, dv2 = ck.flash_attention_bwd_dkv(*bwd, **kw)
+    dq2 = ck.flash_attention_bwd_dq(*bwd, **kw)
+    rdk, rdv = ck.flash_attention_bwd_dkv_ref(*bwd, **kw)
+    rdq = ck.flash_attention_bwd_dq_ref(*bwd, **kw)
+    torch.cuda.synchronize()
+    gscale = max(float(t.abs().max()) for t in (rdq, rdk, rdv))
+
+    def err(a, b, scale=None):
+        return float((a - b).abs().max()) / (
+            scale if scale is not None else float(b.abs().max()))
+    r = {"shape": [B, L, H, D], "causal": causal,
+         "rel_err": {"o": err(o, ro), "lse": err(lse, rlse),
+                     "dq": err(dq, rdq, gscale), "dk": err(dk, rdk, gscale),
+                     "dv": err(dv, rdv, gscale)},
+         "max_abs_err": {"o": float((o - ro).abs().max()),
+                         "dkv": max(float((dk - rdk).abs().max()),
+                                    float((dv - rdv).abs().max())),
+                         "dq": float((dq - rdq).abs().max())},
+         "repeat_bitwise": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2)
+                                and torch.equal(dq, dq2)),
+         "finite": bool(all(torch.isfinite(t).all()
+                            for t in (o, lse, dq, dk, dv)))}
+    del o, lse, dk, dv, dq, dk2, dv2, dq2, rdk, rdv, rdq
+    reps = 10 if L >= 4096 else 25
+    for name, fn in (
+            ("fwd", lambda: ck.flash_attention_fwd(q, k, v, **kw)),
+            ("dkv", lambda: ck.flash_attention_bwd_dkv(*bwd, **kw)),
+            ("dq", lambda: ck.flash_attention_bwd_dq(*bwd, **kw))):
+        r[name + "_ms"] = time_ms(fn, reps=reps, flush=flush)
+    for name, fn in (
+            ("fwd", lambda: ck.flash_attention_fwd_ref(q, k, v, **kw)),
+            ("dkv", lambda: ck.flash_attention_bwd_dkv_ref(*bwd, **kw)),
+            ("dq", lambda: ck.flash_attention_bwd_dq_ref(*bwd, **kw))):
+        r[name + "_plain_ms"] = time_ms(fn, reps=reps, flush=flush)
+    # least work (f32 operations of this run's mask, 2 per multiply-add):
+    # the forward's two products, q k^T and p v; the dK/dV kernel's four
+    # (s recomputed, dO v^T, p^T dO, ds^T q); the dQ kernel's three
+    pairs, big, small = flash_bound(B, L, H, D, causal)
+    for name, n_ops, n_bytes in (
+            ("fwd", 4 * D * pairs, 4 * big + small),
+            ("dkv", 8 * D * pairs, 6 * big + 2 * small),
+            ("dq", 6 * D * pairs, 5 * big + 2 * small)):
+        r[name + "_bound_ms"], r[name + "_bound_by"] = bound(n_bytes, n_ops)
+    r["sdpa_fwd_ms"] = r["sdpa_fwd_bwd_ms"] = None
+    if library:
+        qt, kt, vt = (t.transpose(1, 2).requires_grad_(True)
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  scale=kw["scale"])
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+        with torch.no_grad():
+            r["sdpa_rel_err"] = err(sdpa().transpose(1, 2), ro)
+            r["sdpa_fwd_ms"] = time_ms(sdpa, reps=reps, flush=flush)
+        r["sdpa_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd, reps=reps, flush=flush)
+    return r
+
+
+def attention_seam_case(ck, torch, seed):
+    """The training seam helpers.attention (the forward kernel, then the
+    two backward kernels under autograd) against the autograd of the
+    dense default on the card at [2, 100, 4, 64], causal: max |diff| /
+    max |plain| of the output and of dq, dk, dv; and the launches of each
+    kernel in the forward and in the backward."""
+    from deeplearning4j_tpu_torch.ops import helpers
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(seed)
+    ins = [torch.randn((2, 100, 4, 64), generator=g).to(dev)
+           for _ in range(3)]
+    gy = torch.randn((2, 100, 4, 64), generator=g).to(dev)
+
+    def run(fn):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        n0 = dict(ck.LAUNCHES)
+        y = fn(*leaves, causal=True)
+        n1 = dict(ck.LAUNCHES)
+        (y * gy).sum().backward()
+        torch.cuda.synchronize()
+        fwd = {k: n1[k] - n0[k] for k in n0 if n1[k] != n0[k]}
+        bwd = {k: ck.LAUNCHES[k] - n1[k] for k in n1
+               if ck.LAUNCHES[k] != n1[k]}
+        return [y.detach()] + [t.grad for t in leaves], fwd, bwd
+    got, fwd, bwd = run(helpers.attention)
+    want, _, _ = run(helpers._attention_default)
+    rel = [float((a - b).abs().max() / b.abs().max()) for a, b in
+           zip(got, want)]
+    return {"rel_err_y_dq_dk_dv": rel, "fwd_launches": fwd,
+            "bwd_launches": bwd}
+
+
+def lm_batch(torch, T, B, seed=0):
+    """Seeded one-hot next-token pairs [B, T, vocab] (bench.py _lm_onehot)."""
+    import numpy as np
+    ids = np.random.default_rng(seed).integers(0, VOCAB, (B, T + 1))
+    eye = np.eye(VOCAB, dtype=np.float32)
+    return (torch.from_numpy(eye[ids[:, :-1]]).cuda(),
+            torch.from_numpy(eye[ids[:, 1:]]).cuda())
+
+
+def lm_train_run(ck, torch, heads, x, y, steps, *, plain=False):
+    """``steps`` fit_batch steps of a fresh transformer_lm graph (vocab
+    128, d_model 512, ``heads`` heads, 4 blocks, Adam 3e-4, f32, seed 7),
+    each timed on the host clock up to its loss on the host; ``plain``
+    registers the attention kernels' plain versions instead. Returns (net,
+    losses, step seconds, launch counts of exactly these steps)."""
+    from deeplearning4j_tpu_torch.models.zoo import transformer_lm
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.ops import helpers
+    net = ComputationGraph(transformer_lm(
+        vocab_size=VOCAB, d_model=D_MODEL, n_heads=heads, n_blocks=BLOCKS),
+        device="cuda").init()
+    if plain:
+        helpers.register_helper("attention",
+                                helpers.PLAIN_OVERRIDES["attention"])
+    try:
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        losses, secs = [], []
+        for _ in range(steps):
+            t0 = time.monotonic()
+            net.fit_batch(x, y)
+            losses.append(net.score_)
+            secs.append(time.monotonic() - t0)
+        launches = dict(ck.LAUNCHES)
+    finally:
+        helpers.register_helper("attention", None)
+    if not all(l == l and abs(l) != float("inf") for l in losses):
+        raise SystemExit(f"non-finite LM training loss: {losses}")
+    return net, losses, secs, launches
+
+
+def lm_grad_check(torch, net, x, y):
+    """One compute_gradient_and_score through the attention kernels and
+    one through their plain versions, on the net's current params: (loss
+    relative difference, {leaf: ||g_kernel - g_plain|| / ||g_plain||})."""
+    from deeplearning4j_tpu_torch.ops import helpers
+    lk, gk = net.compute_gradient_and_score(x, y)
+    helpers.register_helper("attention", helpers.PLAIN_OVERRIDES["attention"])
+    try:
+        lp, gp = net.compute_gradient_and_score(x, y)
+    finally:
+        helpers.register_helper("attention", None)
+    rel = {f"{n}.{k}": float((gk[n][k] - gp[n][k]).norm()
+                             / gp[n][k].norm().clamp_min(1e-30))
+           for n in gk for k in gk[n]}
+    return float((lk - lp).abs() / lp.abs()), rel
+
+
+def lm_profile(torch, net, x, y, steps):
+    """``steps`` more steps under torch.profiler: the device's busy share
+    of the wall time, the three attention kernels' device ms and the top
+    kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(steps):
+            net.fit_batch(x, y)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    kernels = device_kernels_ms(prof)
+    busy = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    ours = {k: sum(ms for n, ms in kernels.items() if k in n)
+            for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    return {"steps": steps, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_busy_share": busy / (wall * 1e3), "kernels_ms": ours,
+            "top_kernels_ms": [[k[:80], ms] for k, ms in top]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -613,14 +865,19 @@ def main():
         write_model(net, zpath)
         tokens, e2e, snet = serve_run(ck, zpath, reqs, None)
         solo = []
+        n0 = ck.LAUNCHES["flash_attention_fwd"]
         for b in reqs:
             kw = {k: b[k] for k in ("temperature", "top_k", "seed") if k in b}
             solo.append(generate_transformer(snet, b["prompt"], NEW_TOKENS,
                                              VOCAB, **kw))
+        e2e["solo_flash_fwd_launches"] = ck.LAUNCHES["flash_attention_fwd"] - n0
         if tokens != solo:
-            bad = [i for i, (a, s) in enumerate(zip(tokens, solo)) if a != s]
-            raise SystemExit(f"served tokens differ from solo decode for "
-                             f"requests {bad}")
+            raise SystemExit("served tokens differ from solo decode: "
+                             + divergence(snet, reqs, tokens, solo))
+        if e2e["solo_flash_fwd_launches"] != BLOCKS * NEW_TOKENS * len(reqs):
+            raise SystemExit(f"the solo reference launched the forward "
+                             f"kernel {e2e['solo_flash_fwd_launches']} times, "
+                             f"want {BLOCKS} x {NEW_TOKENS} x {len(reqs)}")
         phase(3, f"flagship LM ({net.num_params()} params) served 8 "
                  f"concurrent /generate, prompts "
                  f"{[len(b['prompt']) for b in reqs]}: tokens identical to "
@@ -629,8 +886,10 @@ def main():
                  f"decode steps, mean {e2e['mean_decode_step_ms']:.3f} ms, "
                  f"{e2e['prefill_chunks']} prefill chunks, mean "
                  f"{e2e['mean_prefill_chunk_ms']:.3f} ms, kernel launches "
-                 f"{e2e['launches']} = {BLOCKS} x {e2e['decode_steps']} "
-                 f"[{card}]")
+                 f"{e2e['launches']} = {BLOCKS} x {e2e['decode_steps']}; "
+                 f"the solo reference launched flash_attention_fwd "
+                 f"{e2e['solo_flash_fwd_launches']} times = {BLOCKS} x "
+                 f"{NEW_TOKENS} x {len(reqs)}, the server none [{card}]")
 
         tokens8, e2e8, snet8 = serve_run(ck, zpath, reqs, "int8")
         ref = DecodeScheduler(snet8, VOCAB, n_slots=SLOTS, prefill_chunk=CHUNK,
@@ -780,8 +1039,9 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     anet, losses, secs, alex_launches = train_run(
         ck, torch, alexnet_cifar10(), xa, ya, STEPS)
-    want = {"paged_decode_attention": 0, "conv2d_bias_act": 3 * STEPS,
-            "bnap_sums": 3 * STEPS, "bnap_dx": 3 * STEPS}
+    want = dict.fromkeys(ck.LAUNCHES, 0)
+    want.update(conv2d_bias_act=3 * STEPS, bnap_sums=3 * STEPS,
+                bnap_dx=3 * STEPS)
     if alex_launches != want:
         raise SystemExit(f"AlexNet launches {alex_launches}, want {want}")
     if not losses[-1] < losses[0]:
@@ -854,8 +1114,8 @@ def main():
         np.float32)).cuda()
     _, lenet_losses, lenet_secs, lenet_launches = train_run(
         ck, torch, lenet_mnist(), xl, ya, 5)
-    if lenet_launches != {"paged_decode_attention": 0, "conv2d_bias_act": 5,
-                          "bnap_sums": 0, "bnap_dx": 0}:
+    if lenet_launches != {**dict.fromkeys(ck.LAUNCHES, 0),
+                          "conv2d_bias_act": 5}:
         raise SystemExit(f"LeNet launches {lenet_launches}, want 1 conv per "
                          f"step")
     lenet = {"losses": lenet_losses, "step_s": lenet_secs,
@@ -864,6 +1124,127 @@ def main():
     phase(7, f"LeNet-MNIST B={B}, 5 steps: losses {lenet_losses}, launches "
              f"{lenet_launches} (conv1 declines: kw*c = 5 < 8); steps 2-5 "
              f"mean {lenet['mean_step_ms']:.3f} ms [{card}]")
+
+    # -- 9. the flash-attention kernels against their plain versions -------
+    # phases 9-10 gather their failures and stop after phase 10, so one run
+    # reports every figure
+    failures = []
+    flash_main = [dict(B=32, L=256, H=8, D=64, causal=True),
+                  dict(B=1, L=8192, H=4, D=128, causal=True)]
+    flash_edge = [dict(B=b, L=L, H=h, D=32, causal=c)
+                  for L in (1, 7, 129, 300)
+                  for b, h, c in ((3, 1, False), (1, 3, True))]
+    flash_cases = []
+    for i, c in enumerate(flash_main + flash_edge):
+        r = flash_case(ck, torch, flush, seed=400 + i,
+                       library=i < len(flash_main), **c)
+        flash_cases.append(r)
+        e = r["rel_err"]
+        lib = "" if r["sdpa_fwd_ms"] is None else (
+            f"; SDPA (f32, TF32 off) fwd {r['sdpa_fwd_ms']:.4f} ms, fwd+bwd "
+            f"{r['sdpa_fwd_bwd_ms']:.4f} ms, its o vs plain "
+            f"{r['sdpa_rel_err']:.3e}")
+        phase(9, f"flash {r['shape']} {'causal' if r['causal'] else 'full'}: "
+                 f"max|diff|/max|plain| o {e['o']:.3e} lse {e['lse']:.3e} "
+                 f"dq {e['dq']:.3e} dk {e['dk']:.3e} dv {e['dv']:.3e} (gates "
+                 f"1e-5; gradients over the largest plain gradient), "
+                 f"bitwise repeatable {r['repeat_bitwise']}; kernel / plain / "
+                 f"bound ms: fwd {r['fwd_ms']:.4f} / {r['fwd_plain_ms']:.4f} / "
+                 f"{r['fwd_bound_ms']:.4f} ({r['fwd_bound_by']}), dkv "
+                 f"{r['dkv_ms']:.4f} / {r['dkv_plain_ms']:.4f} / "
+                 f"{r['dkv_bound_ms']:.4f} ({r['dkv_bound_by']}), dq "
+                 f"{r['dq_ms']:.4f} / {r['dq_plain_ms']:.4f} / "
+                 f"{r['dq_bound_ms']:.4f} ({r['dq_bound_by']}){lib} [{card}]")
+        if not (max(e.values()) <= 1e-5 and r["repeat_bitwise"]
+                and r["finite"]):
+            failures.append(f"flash kernels disagree with the plain versions "
+                            f"at {r['shape']} causal={r['causal']}: {r}")
+        if r["sdpa_fwd_ms"] is not None and not r["sdpa_rel_err"] <= 1e-4:
+            failures.append(f"the SDPA yardstick computes another function "
+                            f"at {r['shape']}: {r['sdpa_rel_err']}")
+    seam = attention_seam_case(ck, torch, seed=500)
+    phase(9, f"attention seam [2, 100, 4, 64] causal vs the dense default's "
+             f"autograd: max|diff|/max|plain| of y, dq, dk, dv = "
+             f"{seam['rel_err_y_dq_dk_dv']} (gate 1e-4); launches forward "
+             f"{seam['fwd_launches']}, backward {seam['bwd_launches']}")
+    if not (max(seam["rel_err_y_dq_dk_dv"]) <= 1e-4
+            and seam["fwd_launches"] == {"flash_attention_fwd": 1}
+            and seam["bwd_launches"] == {"flash_attention_bwd_dkv": 1,
+                                         "flash_attention_bwd_dq": 1}):
+        failures.append(f"attention seam disagrees: {seam}")
+
+    # -- 10. transformer_lm training at full width, kernels then plain ------
+    flash_keys = ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                  "flash_attention_bwd_dq")
+    lm = {}
+    for key, heads, T, Bn, steps in (("transformer_lm", HEADS, 256, 32, 20),
+                                     ("transformer_lm_long", 4, 8192, 1, 10)):
+        xt, yt = lm_batch(torch, T, Bn)
+        torch.cuda.reset_peak_memory_stats()
+        net, losses, secs, launches = lm_train_run(ck, torch, heads, xt, yt,
+                                                   steps)
+        want = dict.fromkeys(ck.LAUNCHES, 0)
+        want.update(dict.fromkeys(flash_keys, BLOCKS * steps))
+        if launches != want:
+            failures.append(f"{key} launches {launches}, want {want}")
+        if not losses[-1] < losses[0]:
+            failures.append(f"{key} loss did not fall: {losses}")
+        steady = secs[1:]
+        r = {"heads": heads, "T": T, "batch": Bn, "steps": steps,
+             "losses": losses, "step_s": secs, "first_step_ms": secs[0] * 1e3,
+             "mean_step_ms": 1e3 * sum(steady) / len(steady),
+             "tokens_per_s": Bn * T * len(steady) / sum(steady),
+             "launches": launches, "params": net.num_params(),
+             "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        phase(10, f"{key} ({r['params']} params) {heads} heads T={T} B={Bn},"
+                  f" {steps} fit_batch steps: loss {losses[0]:.6f} -> "
+                  f"{losses[-1]:.6f}, all finite; launches "
+                  f"{ {k: launches[k] for k in flash_keys} }; steps 2-{steps}:"
+                  f" mean {r['mean_step_ms']:.3f} ms = "
+                  f"{r['tokens_per_s']:.1f} tokens/s (first step "
+                  f"{r['first_step_ms']:.1f} ms) [{card}]")
+        r["profile"] = lm_profile(torch, net, xt, yt, 5)
+        pr = r["profile"]
+        phase(10, f"{key} under torch.profiler, 5 more steps: wall "
+                  f"{pr['wall_ms']:.3f} ms, device busy "
+                  f"{pr['device_busy_ms']:.3f} ms "
+                  f"({100 * pr['device_busy_share']:.2f}%); the three kernels "
+                  f"{pr['kernels_ms']}; top {pr['top_kernels_ms'][:5]} "
+                  f"[{card}]")
+        r["grad_loss_rel"], r["grad_leaf_rel"] = lm_grad_check(torch, net,
+                                                               xt, yt)
+        worst = max(r["grad_leaf_rel"].items(), key=lambda kv: kv[1])
+        phase(10, f"{key} gradients at step {steps + 5}'s params through "
+                  f"the kernels and through their plain versions: loss rel "
+                  f"diff {r['grad_loss_rel']:.3e} (gate 1e-5), worst leaf "
+                  f"{worst[0]} ||diff||/||plain|| {worst[1]:.3e} (gate 1e-3)")
+        if not (r["grad_loss_rel"] <= 1e-5 and worst[1] <= 1e-3):
+            failures.append(f"{key} kernel and plain gradients differ: "
+                            f"{r['grad_loss_rel']} {worst}")
+        del net
+        torch.cuda.empty_cache()
+        _, plain_losses, plain_secs, plain_launches = lm_train_run(
+            ck, torch, heads, xt, yt, steps, plain=True)
+        rel = [abs(a - b) / abs(b) for a, b in zip(plain_losses, losses)]
+        r.update(plain_losses=plain_losses, plain_step_s=plain_secs,
+                 plain_mean_step_ms=1e3 * sum(plain_secs[1:]) / (steps - 1),
+                 loss_rel_diff=rel)
+        if any(plain_launches[k] for k in flash_keys):
+            failures.append(f"{key}: the plain run launched kernels: "
+                            f"{plain_launches}")
+        if not (max(rel[:2]) <= 1e-6 and max(rel) <= 1e-5):
+            failures.append(f"{key} kernel and plain runs' losses differ by "
+                            f"{rel} (relative): {losses} vs {plain_losses}")
+        phase(10, f"{key} same seeds through the plain versions: losses "
+                  f"agree step for step, relative diff {max(rel[:2]):.3e} "
+                  f"over steps 1-2 (gate 1e-6), {max(rel):.3e} over all "
+                  f"{steps} (gate 1e-5); plain mean step "
+                  f"{r['plain_mean_step_ms']:.3f} ms [{card}]")
+        lm[key] = r
+        del xt, yt
+        torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit("phases 9-10 failed: " + " | ".join(failures))
 
     src = "deeplearning4j_tpu_torch/ops/csrc/paged_decode_attention.cu"
     kernels = []
@@ -910,14 +1291,41 @@ def main():
             "plain_ms": sum(c[k + "plain_ms"] for c in alex_bnap),
             "bound_ms": sum(c[k + "bound_ms"] for c in alex_bnap),
             "bound_by": by(alex_bnap, k), "library_ms": None})
+    # the flash kernels: per transformer_lm_long (T=8192) train step, four
+    # launches at [1, 8192, 4, 128]; launches from both LM runs; max |diff|
+    # over the two main-path shapes
+    long_case = flash_cases[1]
+    for name, key, err_key, src_name, lib_line in (
+            ("flash_attention_fwd", "fwd", "o", "flash_attention_fwd.cu",
+             "758 _flash_attention_impl"),
+            ("flash_attention_bwd_dkv", "dkv", "dkv", "flash_attention_bwd.cu",
+             "1121 _flash_attention_bwd_dkv"),
+            ("flash_attention_bwd_dq", "dq", "dq", "flash_attention_bwd.cu",
+             "1456 _flash_attention_bwd_dq")):
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{csrc}/{src_name}",
+            "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:589 "
+                        "(_flash_call -> jax/experimental/pallas/ops/tpu/"
+                        f"flash_attention.py:{lib_line}, JAX 0.9.0)",
+            "launches": sum(r["launches"][name] for r in lm.values()),
+            "max_abs_err": max(c["max_abs_err"][err_key]
+                               for c in flash_cases[:2]),
+            "ms": BLOCKS * long_case[key + "_ms"],
+            "plain_ms": BLOCKS * long_case[key + "_plain_ms"],
+            "bound_ms": BLOCKS * long_case[key + "_bound_ms"],
+            "bound_by": long_case[key + "_bound_by"],
+            "library_ms": (BLOCKS * long_case["sdpa_fwd_ms"] if key == "fwd"
+                           else None)})
     print("[details] " + json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
          "build_s": build_s, "ptxas": ptxas, "cases": cases, "e2e_fp32": e2e,
          "e2e_int8": e2e8, "profile": prof, "conv_cases": conv_cases,
          "conv_activation_rel_errs": act_errs, "conv_seam": seam_cases,
          "bnap_cases": bnap_cases, "alexnet_train": train,
-         "alexnet_profile": tprof, "lenet_train": lenet}))
-    phase(8, "kernels:")
+         "alexnet_profile": tprof, "lenet_train": lenet,
+         "flash_cases": flash_cases, "attention_seam": seam,
+         "lm_train": lm}))
+    phase(11, "kernels:")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

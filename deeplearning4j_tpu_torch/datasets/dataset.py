@@ -1,13 +1,14 @@
-"""DataSet container — port of deeplearning4j_tpu/datasets/dataset.py
-(the single-input DataSet that `MultiLayerNetwork.fit` and the CLI
-consume).
+"""DataSet and MultiDataSet containers — port of
+deeplearning4j_tpu/datasets/dataset.py (the single-input DataSet that
+`MultiLayerNetwork.fit` and the CLI consume, and the multi-input /
+multi-output MultiDataSet that `ComputationGraph.fit` takes).
 
 Arrays stay numpy on the host; the net moves each minibatch to its
 device in `fit_batch`.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -32,3 +33,17 @@ class DataSet:
             self.features[sl], self.labels[sl],
             None if self.features_mask is None else self.features_mask[sl],
             None if self.labels_mask is None else self.labels_mask[sl])
+
+
+class MultiDataSet:
+    """One array per network input and per network output, each with an
+    optional mask (JAX datasets/dataset.py :69)."""
+
+    def __init__(self, features: Sequence, labels: Sequence,
+                 features_masks=None, labels_masks=None):
+        self.features = [np.asarray(f) for f in features]
+        self.labels = [np.asarray(l) for l in labels]
+        self.features_masks = (None if features_masks is None
+                               else [_opt(m) for m in features_masks])
+        self.labels_masks = (None if labels_masks is None
+                             else [_opt(m) for m in labels_masks])

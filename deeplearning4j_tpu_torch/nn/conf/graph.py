@@ -2,8 +2,9 @@
 
 Port of deeplearning4j_tpu/nn/conf/graph.py: the vertex classes
 ``transformer_lm`` uses (layer, element-wise), the
-`ComputationGraphConfiguration` fields and `GraphBuilder`, so its graph
-config JSON round-trips between the packages. Merge, subset and scale
+`ComputationGraphConfiguration` fields and `GraphBuilder` (whose
+``backprop_type`` refuses truncated BPTT until the port trains it), so
+its graph config JSON round-trips between the packages. Merge, subset and scale
 vertices come with the slices whose models use them.
 """
 from __future__ import annotations
@@ -115,6 +116,13 @@ class GraphBuilder:
 
     def set_outputs(self, *names: str) -> "GraphBuilder":
         self._outputs = list(names)
+        return self
+
+    def backprop_type(self, t: str) -> "GraphBuilder":
+        if t != BACKPROP_STANDARD:
+            raise NotImplementedError(
+                f"backprop_type {t!r}: truncated BPTT comes with a later "
+                "slice")
         return self
 
     def build(self) -> ComputationGraphConfiguration:

@@ -1,14 +1,25 @@
 """ComputationGraph: DAG network runtime — port of deeplearning4j_tpu/nn/graph.py.
 
-This slice covers inference: ``init`` (seeded `torch.Generator`),
-``_forward_impl`` with explicit per-layer states (the decode engine's
-entry), ``output``, and ``params_flat``/``set_params_flat`` in the JAX
-flat order (layers by sorted name, then params by sorted name), which
-is the order of the model zip's ``coefficients.bin``. Training comes
-with a later slice.
+Inference: ``init`` (seeded `torch.Generator`), ``_forward_impl`` with
+explicit per-layer states (the decode engine's entry) and ``output``.
+Training: the train-mode forward (input dropout from a generator on the
+graph's device, seeded by the config), the multi-output loss with the
+fused from-logits path, l1/l2, autograd in place of `jax.value_and_grad`,
+the per-layer updater step shared with MultiLayerNetwork
+(nn/updater/apply.py), ``fit_batch`` and ``fit`` — one step per minibatch:
+PyTorch runs eagerly, so there is no jit cache and no ``fit_scan`` —
+``score``, listeners, and the flat views of params and updater state in
+the JAX flat order (layers by sorted name, then params by sorted name,
+then updater state by sorted name), the order of the model zip's
+``coefficients.bin`` and ``updater.bin``.
 
 Parameters live on ``device`` (default "cuda"; it raises when no CUDA
-device is present — pass device="cpu" to run on the CPU).
+device is present — pass device="cpu" to run on the CPU). The attention
+layers run the port's flash kernels there (ops/helpers.attention).
+Not ported yet, and raising where asked for: truncated BPTT, the
+line-search solvers, ``fit_batch_accumulated``, remat, mixed precision,
+vertex preprocessors, layers with non-trainable variables (BatchNorm),
+and the vertex types ``transformer_lm`` does not use.
 """
 from __future__ import annotations
 
@@ -17,6 +28,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .conf.config import BACKPROP_TBPTT
 from .conf.graph import (ComputationGraphConfiguration, ElementWiseVertex,
                          GraphVertex, LayerVertex)
 from .layers.base import BaseRecurrentImpl, LayerImpl, impl_for
@@ -24,23 +36,24 @@ from .layers.base import BaseRecurrentImpl, LayerImpl, impl_for
 from .layers import attention as _attention  # noqa: F401
 from .layers import feedforward as _feedforward  # noqa: F401
 from .layers import normalization as _normalization  # noqa: F401
+from .updater.apply import update_layer
+from ..ops import losses as losses_mod
 from ..util.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
 _DTYPES = {"float32": torch.float32}
+_SGD_ALGOS = ("stochastic_gradient_descent", "sgd")
 
 
 def _dtype_of(conf) -> torch.dtype:
     if conf.compute_dtype not in (None, conf.dtype):
-        raise NotImplementedError("mixed precision comes with the training "
-                                  "slice")
+        raise NotImplementedError("mixed precision comes with a later slice")
     try:
         return _DTYPES[conf.dtype]
     except KeyError:
         raise NotImplementedError(
-            f"dtype {conf.dtype!r}: the port serves float32 models "
-            "(the paged-decode kernel is f32, as in the JAX package)"
-        ) from None
+            f"dtype {conf.dtype!r}: the port runs float32 models (its "
+            "kernels are f32); bf16 comes with a later slice") from None
 
 
 class ComputationGraph:
@@ -56,9 +69,21 @@ class ComputationGraph:
                 if v.preprocessor is not None:
                     raise NotImplementedError(
                         "vertex preprocessors come with a later slice")
-                self._impls[name] = impl_for(v.layer)
+                impl = impl_for(v.layer)
+                if impl.init_variables():
+                    raise NotImplementedError(
+                        f"vertex {name!r}: layers with non-trainable "
+                        "variables (BatchNorm) in a ComputationGraph come "
+                        "with a later slice")
+                self._impls[name] = impl
         self.params: Dict[str, Dict[str, Tensor]] = {}
+        self.updater_state: Dict[str, Dict[str, Dict[str, Tensor]]] = {}
         self.step = 0
+        self._score_raw: Any = float("nan")
+        self.listeners: List[Any] = []
+        # dropout masks: a generator on the graph's device, seeded by the conf
+        self._gen = torch.Generator(device=self.device).manual_seed(
+            int(conf.conf.seed))
         self._initialized = False
 
     # -- init ------------------------------------------------------------------
@@ -66,12 +91,18 @@ class ComputationGraph:
              ) -> "ComputationGraph":
         """Draw every layer's params, in sorted layer-name order, from
         ``generator`` (default: a CPU generator seeded with the config's
-        seed), then place them on the graph's device."""
+        seed), place them on the graph's device, and zero the updater
+        state."""
         gen = generator if generator is not None else \
             torch.Generator().manual_seed(int(self.conf.conf.seed))
         for name in sorted(self._impls):
             self.params[name] = self._impls[name].init_params(
                 gen, self.dtype, self.device)
+            updater = self.conf.vertices[name].layer.updater
+            self.updater_state[name] = {
+                pname: updater.init_state(p)
+                for pname, p in self.params[name].items()}
+        self.step = 0
         self._initialized = True
         return self
 
@@ -79,17 +110,51 @@ class ComputationGraph:
         if not self._initialized:
             self.init()
 
+    @property
+    def score_(self) -> float:
+        """The last minibatch's loss; the train step keeps it on the
+        device and it is copied to the host only when read."""
+        v = self._score_raw
+        if not isinstance(v, float):
+            v = float(v)
+            self._score_raw = v
+        return v
+
+    def _as_tensor(self, a) -> Optional[Tensor]:
+        if a is None:
+            return None
+        t = a if isinstance(a, Tensor) else torch.as_tensor(np.asarray(a))
+        t = t.to(self.device)
+        return t.to(self.dtype) if t.is_floating_point() else t
+
+    def _as_tensors(self, arrays) -> Optional[List[Optional[Tensor]]]:
+        if arrays is None:
+            return None
+        if not isinstance(arrays, (list, tuple)):
+            arrays = [arrays]
+        return [self._as_tensor(a) for a in arrays]
+
     # -- forward ---------------------------------------------------------------
     def _vertex_forward(self, name: str, vertex: GraphVertex,
-                        inputs: List[Tensor], params, *, states, new_states):
+                        inputs: List[Tensor], params, *, train, gen, mask,
+                        states, new_states, preouts):
         if isinstance(vertex, LayerVertex):
             impl = self._impls[name]
+            x = inputs[0]
             if isinstance(impl, BaseRecurrentImpl):
                 y, st = impl.forward_with_state(
-                    params[name], inputs[0], (states or {}).get(name))
+                    params[name], x, (states or {}).get(name), train=train,
+                    gen=gen, mask=mask)
                 new_states[name] = st
                 return y
-            return impl.forward(params[name], inputs[0])
+            if preouts is not None and hasattr(impl, "forward_with_preout"):
+                # an output vertex on the loss path: keep its
+                # pre-activation for the stable from-logits losses
+                y, preouts[name] = impl.forward_with_preout(
+                    params[name], x, train=train, gen=gen, mask=mask)
+                return y
+            return impl.forward(params[name], x, train=train, gen=gen,
+                                mask=mask)
         if isinstance(vertex, ElementWiseVertex):
             op = vertex.op.lower()
             out = inputs[0]
@@ -114,34 +179,223 @@ class ComputationGraph:
             f"vertex type {type(vertex).__name__} comes with a later slice")
 
     def _forward_impl(self, params, inputs: Sequence[Tensor], *,
-                      states: Optional[Dict[str, Any]] = None):
+                      train: bool = False,
+                      gen: Optional[torch.Generator] = None,
+                      fmasks: Optional[Dict[str, Tensor]] = None,
+                      states: Optional[Dict[str, Any]] = None,
+                      want_preout: bool = False):
         """Topo-ordered DAG forward with explicit states (JAX graph.py:173).
         Returns (dict name -> activation, new states of the stateful
-        layers)."""
+        layers), plus a dict of the output vertices' pre-activations when
+        ``want_preout`` (the loss path). A vertex inherits the feature
+        mask of its inputs (several are combined by their minimum) while
+        its output keeps a time axis."""
         conf = self.conf
         acts: Dict[str, Tensor] = {}
+        vmasks: Dict[str, Optional[Tensor]] = {}
         for i, iname in enumerate(conf.network_inputs):
             x = inputs[i]
             if x.is_floating_point() and x.dtype != self.dtype:
                 x = x.to(self.dtype)
             acts[iname] = x
+            vmasks[iname] = (fmasks or {}).get(iname)
         new_states: Dict[str, Any] = {}
+        preouts: Dict[str, Tensor] = {}
+        out_names = set(conf.network_outputs) if want_preout else set()
         for name in self.topo:
-            vin = [acts[src] for src in conf.vertex_inputs[name]]
-            acts[name] = self._vertex_forward(
-                name, conf.vertices[name], vin, params, states=states,
-                new_states=new_states)
+            srcs = conf.vertex_inputs[name]
+            src_masks = [m for m in (vmasks.get(s) for s in srcs)
+                         if m is not None]
+            in_mask = src_masks[0] if src_masks else None
+            for m in src_masks[1:]:
+                in_mask = torch.minimum(in_mask, m)
+            y = self._vertex_forward(
+                name, conf.vertices[name], [acts[s] for s in srcs], params,
+                train=train, gen=gen, mask=in_mask, states=states,
+                new_states=new_states,
+                preouts=preouts if name in out_names else None)
+            acts[name] = y
+            vmasks[name] = in_mask if y.ndim == 3 else None
+        if want_preout:
+            return acts, new_states, preouts
         return acts, new_states
 
-    @torch.inference_mode()
-    def output(self, *inputs) -> List[Tensor]:
-        """Full-sequence forward of host or device inputs ([B, T, F]); the
-        network outputs, on the graph's device."""
+    # -- loss ------------------------------------------------------------------
+    def _loss(self, acts: Dict[str, Tensor], labels: Sequence[Tensor],
+              lmasks: Optional[Sequence[Optional[Tensor]]] = None,
+              preouts: Optional[Dict[str, Tensor]] = None) -> Tensor:
+        """Sum over the network outputs of each output layer's loss (JAX
+        graph.py:240), from the pre-activation where the activation and
+        loss pair has a fused from-logits form."""
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for i, out_name in enumerate(self.conf.network_outputs):
+            vertex = self.conf.vertices[out_name]
+            layer_conf = vertex.layer if isinstance(vertex, LayerVertex) \
+                else None
+            loss_name = getattr(layer_conf, "loss", None) or "mse"
+            fused = losses_mod.fused_from_logits(
+                getattr(layer_conf, "activation", None), loss_name)
+            if fused is not None and preouts and out_name in preouts:
+                loss_fn, out = fused, preouts[out_name]
+            else:
+                loss_fn, out = losses_mod.get(loss_name), acts[out_name]
+            y = labels[i]
+            m = lmasks[i] if lmasks else None
+            if out.ndim == 3:  # per-timestep output: flatten time
+                out = out.reshape(-1, out.shape[-1])
+                y = y.reshape(-1, y.shape[-1])
+            total = total + loss_fn(y, out, None if m is None
+                                    else m.reshape(-1)).float()
+        return total
+
+    def _reg_loss(self, params) -> Tensor:
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        for name, impl in self._impls.items():
+            total = total + impl.reg_loss(params[name]).float()
+        return total
+
+    # -- train step ------------------------------------------------------------
+    def _masks_by_input(self, fmasks) -> Optional[Dict[str, Tensor]]:
+        fm = self._as_tensors(fmasks)
+        return None if fm is None else dict(zip(self.conf.network_inputs, fm))
+
+    def compute_gradient_and_score(self, inputs, labels, fmasks=None,
+                                   lmasks=None):
+        """One train-mode forward and backward on a minibatch without
+        updating anything: (loss, {layer: {param: gradient}}). The loss is
+        the sum of the outputs' batch-mean losses plus regularization (JAX
+        `_build_loss_fn`, graph.py :312). ``inputs``/``labels`` (and the
+        masks): one array per network input/output, or a single array."""
         self._check_init()
-        ins = [torch.as_tensor(np.asarray(a) if not isinstance(a, Tensor)
-                               else a).to(self.device) for a in inputs]
-        acts, _ = self._forward_impl(self.params, ins)
+        if self.conf.conf.remat:
+            raise NotImplementedError("remat comes with a later slice")
+        ins, labs = self._as_tensors(inputs), self._as_tensors(labels)
+        params = {name: {k: v.detach().requires_grad_(True)
+                         for k, v in lp.items()}
+                  for name, lp in self.params.items()}
+        acts, _, preouts = self._forward_impl(
+            params, ins, train=True, gen=self._gen,
+            fmasks=self._masks_by_input(fmasks), want_preout=True)
+        loss = (self._loss(acts, labs, self._as_tensors(lmasks), preouts)
+                + self._reg_loss(params))
+        leaves = [p for lp in params.values() for p in lp.values()]
+        flat = iter(torch.autograd.grad(loss, leaves, allow_unused=True)
+                    if leaves else ())
+        grads = {}
+        for name, lp in params.items():
+            grads[name] = {}
+            for k, p in lp.items():
+                g = next(flat)
+                grads[name][k] = torch.zeros_like(p) if g is None else g
+        return loss.detach(), grads
+
+    def _apply_updaters(self, params, grads, ustates, step: int):
+        """(new params, new updater states) — JAX graph.py :275."""
+        new_params, new_ustates = {}, {}
+        for name in params:
+            if not grads[name]:
+                new_params[name] = params[name]
+                new_ustates[name] = ustates[name]
+                continue
+            new_params[name], new_ustates[name] = update_layer(
+                self.conf.vertices[name].layer, self.conf.conf,
+                self._impls[name].WEIGHT_KEYS, params[name], grads[name],
+                ustates[name], step)
+        return new_params, new_ustates
+
+    def fit_batch(self, inputs, labels, fmasks=None, lmasks=None):
+        """``conf.iterations`` optimization steps (at least one) on one
+        minibatch (JAX `_fit_one`, graph.py :589); the score stays on the
+        device until read."""
+        self._check_init()
+        algo = (self.conf.conf.optimization_algo
+                or "stochastic_gradient_descent").lower()
+        if algo not in _SGD_ALGOS:
+            raise NotImplementedError(
+                f"optimization_algo={algo!r}: the port trains with "
+                "SGD-family updaters; the line-search solvers come with a "
+                "later slice")
+        ins, labs = self._as_tensors(inputs), self._as_tensors(labels)
+        if (self.conf.backprop_type == BACKPROP_TBPTT
+                and any(a.ndim == 3 for a in ins)):
+            raise NotImplementedError("truncated BPTT comes with a later "
+                                      "slice")
+        for _ in range(max(1, self.conf.conf.iterations)):
+            loss, grads = self.compute_gradient_and_score(ins, labs, fmasks,
+                                                          lmasks)
+            self.params, self.updater_state = self._apply_updaters(
+                self.params, grads, self.updater_state, self.step)
+            self._score_raw = loss
+            self.step += 1
+            for listener in self.listeners:
+                listener.iteration_done(self, self.step)
+
+    def fit_batch_accumulated(self, inputs, labels, accumulation_steps: int):
+        raise NotImplementedError("gradient accumulation comes with a later "
+                                  "slice")
+
+    def fit(self, data, labels=None):
+        """fit(inputs, labels) | fit(DataSet | MultiDataSet) |
+        fit(iterator): one fit_batch per minibatch (iterating an iterator
+        resets it first). The JAX package's lax.scan chunks of the
+        iterator's minibatches have no counterpart here."""
+        self._check_init()
+        if labels is not None:
+            self.fit_batch(data, labels)
+        elif hasattr(data, "features"):
+            self._fit_dataset(data)
+        else:
+            for ds in data:
+                self._fit_dataset(ds)
+        return self
+
+    def _fit_dataset(self, ds):
+        if hasattr(ds, "features_masks"):  # MultiDataSet
+            self.fit_batch(ds.features, ds.labels, ds.features_masks,
+                           ds.labels_masks)
+            return
+        fm = getattr(ds, "features_mask", None)
+        lm = getattr(ds, "labels_mask", None)
+        self.fit_batch([ds.features], [ds.labels],
+                       None if fm is None else [fm],
+                       None if lm is None else [lm])
+
+    # -- inference -------------------------------------------------------------
+    @torch.inference_mode()
+    def output(self, *inputs, train: bool = False,
+               fmasks=None) -> List[Tensor]:
+        """Full-sequence forward of host or device inputs ([B, T, F]); the
+        network outputs, on the graph's device. train=True applies
+        train-mode dropout."""
+        self._check_init()
+        acts, _ = self._forward_impl(
+            self.params, self._as_tensors(list(inputs)), train=train,
+            gen=self._gen if train else None,
+            fmasks=self._masks_by_input(fmasks))
         return [acts[name] for name in self.conf.network_outputs]
+
+    @torch.no_grad()
+    def score(self, ds=None, inputs=None, labels=None, lmasks=None,
+              fmasks=None) -> float:
+        """Loss (with regularization) of a (Multi)DataSet or of inputs and
+        labels, in inference mode (JAX graph.py:748)."""
+        self._check_init()
+        if ds is not None:
+            if hasattr(ds, "features_masks"):
+                inputs, labels = ds.features, ds.labels
+                lmasks, fmasks = ds.labels_masks, ds.features_masks
+            else:
+                inputs, labels = [ds.features], [ds.labels]
+                lm = getattr(ds, "labels_mask", None)
+                fm = getattr(ds, "features_mask", None)
+                lmasks = None if lm is None else [lm]
+                fmasks = None if fm is None else [fm]
+        acts, _, preouts = self._forward_impl(
+            self.params, self._as_tensors(inputs),
+            fmasks=self._masks_by_input(fmasks), want_preout=True)
+        return float(self._loss(acts, self._as_tensors(labels),
+                                self._as_tensors(lmasks), preouts)
+                     + self._reg_loss(self.params))
 
     # -- params ----------------------------------------------------------------
     def num_params(self) -> int:
@@ -193,3 +447,36 @@ class ComputationGraph:
                                      f"{tuple(t.shape)} vs {tuple(cur.shape)}")
                 new[name][pname] = t.to(device=self.device, dtype=cur.dtype)
         self.params = new
+
+    def _updater_slots(self):
+        """(layer, param, state name) in the JAX flat order (graph.py
+        :823)."""
+        us = self.updater_state
+        return [(name, pname, sname) for name in sorted(us)
+                for pname in sorted(us[name]) for sname in sorted(us[name][pname])]
+
+    def updater_state_flat(self) -> np.ndarray:
+        chunks = [self.updater_state[n][p][s].detach().cpu().numpy()
+                  .reshape(-1) for n, p, s in self._updater_slots()]
+        return np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
+
+    def set_updater_state_flat(self, flat: np.ndarray):
+        self._check_init()
+        flat = np.asarray(flat)
+        slots = self._updater_slots()
+        total = sum(self.updater_state[n][p][s].numel() for n, p, s in slots)
+        if flat.size != total:
+            raise ValueError(f"Expected {total} updater values, got "
+                             f"{flat.size}")
+        off = 0
+        for n, p, s in slots:
+            t = self.updater_state[n][p][s]
+            k = t.numel()
+            self.updater_state[n][p][s] = torch.as_tensor(
+                flat[off:off + k].reshape(tuple(t.shape))).to(
+                device=t.device, dtype=t.dtype)
+            off += k
+
+    # -- misc ------------------------------------------------------------------
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)

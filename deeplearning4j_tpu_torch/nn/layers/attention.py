@@ -3,8 +3,10 @@ deeplearning4j_tpu/nn/layers/attention.py.
 
 Two paths, as in the JAX package:
 
-  - ``forward``: full-sequence attention (no cache), the solo
-    `generate_transformer` path and `ComputationGraph.output`;
+  - ``forward``: full-sequence attention (no cache) through the
+    ``attention`` seam (ops/helpers.py; the flash kernels on the card): the
+    training path, the solo `generate_transformer` path and
+    `ComputationGraph.output`;
   - ``_paged_step``: the paged-KV inference step the decode engine runs
     (inference/engine.py). K/V rows live in pool-wide page arrays
     ``k_pages``/``v_pages`` [pages, block, Hkv, Dh] (page 0 the scratch
@@ -111,8 +113,9 @@ class SelfAttentionLayerImpl(BaseRecurrentImpl):
         return self.activation_fn()(out)
 
     def _grouped_attention(self, q, k, v, *, causal, qpos0=0):
-        """Dense attention with q grouped over compact KV heads.
-        q: [B, T, H, Dh]; k, v: [B, L, Hkv, Dh] -> [B, T, H, Dh].
+        """Dense attention with q grouped over compact KV heads: the paged
+        step's gather body. q: [B, T, H, Dh]; k, v: [B, L, Hkv, Dh] -> [B,
+        T, H, Dh].
         ``qpos0``: int, or [B] tensor of per-row depths."""
         B, T, H, Dh = q.shape
         L, Hkv = k.shape[1], k.shape[2]
@@ -134,38 +137,34 @@ class SelfAttentionLayerImpl(BaseRecurrentImpl):
         p = torch.softmax(s.to(torch.float32), dim=-1).to(q.dtype)
         return torch.einsum("bhgqk,bkhd->bqhgd", p, v).reshape(B, T, H, Dh)
 
-    @staticmethod
-    def _full_attention(q, k, v, *, causal):
-        """Dense attention with equal head counts (the JAX default of the
-        ``attention`` seam, parallel/ring.full_attention): scale folded
-        in as a product, f32-min causal mask."""
-        D = q.shape[-1]
-        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * (1.0 / math.sqrt(D))
-        if causal:
-            Lq, Lk = q.shape[1], k.shape[1]
-            mask = torch.tril(torch.ones((Lq, Lk), dtype=torch.bool,
-                                         device=q.device))
-            s = torch.where(mask[None, None], s, torch.finfo(s.dtype).min)
-        p = torch.softmax(s, dim=-1)
-        return torch.einsum("bhqk,bkhd->bqhd", p, v)
+    def _expand_kv(self, a):
+        """Repeat [B, T, Hkv, Dh] K/V over the n_heads query heads (head h
+        reads kv-head h // G, G = H / Hkv)."""
+        G = self.conf.n_heads // a.shape[2]
+        return a if G == 1 else torch.repeat_interleave(a, G, dim=2)
 
-    def forward(self, params, x, *, mask=None):
+    def forward(self, params, x, *, train=False, gen=None, mask=None):
+        """Full-sequence attention through the ``attention`` seam (the
+        flash kernels on the card), GQA's K/V repeated to the query heads
+        first — what the JAX forward does when an attention helper is
+        registered (attention.py :160-168). Input dropout at train time."""
         conf = self.conf
+        x = self._dropout(x, train, gen)
         B, T, _ = x.shape
         q, k, v = self._qkv(params, x)
-        if k.shape[2] != q.shape[2]:
-            o = self._grouped_attention(q, k, v, causal=conf.causal)
-        else:
-            o = self._full_attention(q, k, v, causal=conf.causal)
+        o = ophelpers.attention(q, self._expand_kv(k), self._expand_kv(v),
+                                causal=conf.causal)
         if mask is not None:
             o = o * mask[:, :, None, None].to(o.dtype)
         return self._out(params, o, B, T)
 
-    def forward_with_state(self, params, x, state0, *, mask=None):
-        """Full-sequence attention when no cache state is given; the paged
-        step when the state carries pages."""
-        if state0 is None:
-            return self.forward(params, x, mask=mask), None
+    def forward_with_state(self, params, x, state0, *, train=False, gen=None,
+                           mask=None):
+        """Full-sequence attention when training or when no cache state is
+        given; the paged step when the state carries pages."""
+        if train or state0 is None:
+            return self.forward(params, x, train=train, gen=gen,
+                                mask=mask), state0
         if not self.conf.causal:
             raise NotImplementedError(
                 "KV-cached decode requires causal=True")

@@ -118,9 +118,11 @@ class LayerImpl:
 class BaseRecurrentImpl(LayerImpl):
     """Layers that carry inference state between calls (the attention KV
     cache). ``forward_with_state(params, x, state0)`` returns (y, state);
-    state0 None runs the stateless full-sequence forward."""
+    train mode, or state0 None, runs the stateless full-sequence forward."""
 
     def forward_with_state(self, params: Params, x: Tensor, state0, *,
+                           train: bool = False,
+                           gen: Optional[torch.Generator] = None,
                            mask: Optional[Tensor] = None
                            ) -> Tuple[Tensor, Optional[dict]]:
         raise NotImplementedError

@@ -34,8 +34,7 @@ from .layers.base import BaseRecurrentImpl, LayerImpl, impl_for
 from .layers import convolution as _convolution
 from .layers import feedforward as _feedforward  # noqa: F401
 from .layers import normalization as _normalization
-from .updater.gradnorm import apply_gradient_normalization
-from .updater.schedules import effective_lr
+from .updater.apply import update_layer
 from ..ops import losses as losses_mod
 from ..util.device import DeviceLike, resolve_device
 
@@ -260,42 +259,17 @@ class MultiLayerNetwork:
             grads.append(g)
         return loss.detach(), grads, new_vars
 
-    @torch.no_grad()
     def _apply_updaters(self, params, grads, ustates, step: int):
         """(new params, new updater states) — JAX multilayer.py :262."""
-        gconf = self.conf.conf
         new_params, new_ustates = [], []
         for i, layer_conf in enumerate(self.conf.layers):
-            lgrads = grads[i]
-            if not lgrads:
+            if not grads[i]:
                 new_params.append(params[i])
                 new_ustates.append(ustates[i])
                 continue
-            lgrads = apply_gradient_normalization(
-                lgrads, layer_conf.gradient_normalization or "none",
-                layer_conf.gradient_normalization_threshold or 1.0)
-            updater = layer_conf.updater
-            base_lr = updater_lr = getattr(updater, "learning_rate", -1.0)
-            if updater_lr is None or updater_lr < 0:
-                base_lr = layer_conf.learning_rate
-            bias_lr = layer_conf.bias_learning_rate or base_lr
-            wd = float(getattr(updater, "weight_decay", 0.0) or 0.0)
-            wkeys = self._impls[i].WEIGHT_KEYS
-            lp, lu = {}, {}
-            for name, g in lgrads.items():
-                lr0 = bias_lr if name in ("b", "vb", "beta") else base_lr
-                lr = effective_lr(lr0, step, gconf.lr_policy,
-                                  gconf.lr_policy_decay_rate,
-                                  gconf.lr_policy_power,
-                                  gconf.lr_policy_steps,
-                                  gconf.max_num_iterations,
-                                  gconf.lr_schedule)
-                delta, new_state = updater.apply(ustates[i][name], g, lr, step)
-                p = params[i][name]
-                if wd and name in wkeys:  # decoupled (AdamW-style) decay
-                    delta = delta - float(np.float32(lr) * np.float32(wd)) * p
-                lp[name] = p + delta
-                lu[name] = new_state
+            lp, lu = update_layer(layer_conf, self.conf.conf,
+                                  self._impls[i].WEIGHT_KEYS, params[i],
+                                  grads[i], ustates[i], step)
             new_params.append(lp)
             new_ustates.append(lu)
         return new_params, new_ustates

@@ -7,7 +7,10 @@ use and bound with ctypes (``ops/_build.py``):
   - ``paged_decode_attention`` (paged-KV decode, fp32 and int8 pages);
   - ``conv2d_bias_act`` (NHWC conv + bias + activation, forward);
   - ``bnap_sums`` and ``bnap_dx`` (the two passes of the fused BN +
-    activation + 2x2/s2 max-pool backward).
+    activation + 2x2/s2 max-pool backward);
+  - ``flash_attention_fwd``, ``flash_attention_bwd_dkv`` and
+    ``flash_attention_bwd_dq`` (full-sequence attention and its gradients;
+    the last two share ``flash_attention_bwd.cu``).
 
 Rule of every wrapper here:
 
@@ -17,8 +20,9 @@ Rule of every wrapper here:
   - each launch adds one to ``LAUNCHES[<kernel>]`` — and nothing else
     does — so a run can show its main path went through the kernel.
 
-The wrappers compute values only; the gradients of the conv and of the
-BN+act+pool composite are `torch.autograd.Function`s in ``ops/helpers.py``.
+The wrappers compute values only; the gradients of the conv, of the
+BN+act+pool composite and of attention are `torch.autograd.Function`s in
+``ops/helpers.py``.
 """
 from __future__ import annotations
 
@@ -34,7 +38,8 @@ from . import activations
 from .kvquant import dequantize_kv_rows
 
 LAUNCHES = {"paged_decode_attention": 0, "conv2d_bias_act": 0,
-            "bnap_sums": 0, "bnap_dx": 0}
+            "bnap_sums": 0, "bnap_dx": 0, "flash_attention_fwd": 0,
+            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
 
 # the kernel keeps G * Dh accumulators in registers: 128 threads x 16
 _MAX_GROUP_DIM = 128 * 16
@@ -42,6 +47,7 @@ _SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
+_FLOAT = ctypes.c_float
 
 # C entry points of each source: name -> argtypes (every one returns a
 # cudaError_t as int, 0 on success)
@@ -56,6 +62,11 @@ _SIGNATURES = {
         "dl4j_bnap_sums_f32": [_PTR] * 6 + [_INT] * 6 + [_PTR]},
     "bnap_dx": {
         "dl4j_bnap_dx_f32": [_PTR] * 5 + [_INT] * 5 + [_PTR]},
+    "flash_attention_fwd": {
+        "dl4j_flash_fwd_f32": [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _PTR]},
+    "flash_attention_bwd": {
+        "dl4j_flash_bwd_dkv_f32": [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _PTR],
+        "dl4j_flash_bwd_dq_f32": [_PTR] * 7 + [_INT] * 5 + [_FLOAT, _PTR]},
 }
 
 # activation codes of csrc/activations.cuh; "softmax" is not elementwise
@@ -436,3 +447,146 @@ def bnap_dx(x, g, p, s, *, activation):
     _raise_on(rc, lib, "bnap_dx")
     LAUNCHES["bnap_dx"] += 1
     return dx
+
+
+# -- flash attention: forward, dK/dV backward, dQ backward -------------------
+
+# head dims the kernels are instantiated for (64 x D f32 tiles in shared memory)
+FLASH_HEAD_DIMS = (16, 32, 64, 128)
+
+
+def attention_scores(q, k, causal, scale):
+    """s = q k^T * scale [B, H, L, L] of q, k [B, L, H, D], with the dense
+    default's fill of the dtype's min above the diagonal when ``causal``
+    (parallel/ring.full_attention)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if causal:
+        L = q.shape[1]
+        mask = torch.tril(torch.ones((L, L), dtype=torch.bool, device=q.device))
+        s = torch.where(mask, s, torch.finfo(s.dtype).min)
+    return s
+
+
+def flash_attention_fwd_ref(q, k, v, *, causal, scale):
+    """Plain version of the forward kernel: the dense default attention (the
+    same ops, so the same values) and the rows' log-sum-exp. q, k, v [B, L,
+    H, D] -> (o [B, L, H, D], lse [B, H, L])."""
+    s = attention_scores(q, k, causal, scale)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+    return o, torch.logsumexp(s, dim=-1)
+
+
+def _probs_and_ds(q, k, v, do, lse, di, causal, scale):
+    s = attention_scores(q, k, causal, scale)
+    p = torch.exp(s - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    return p, p * (dp - di[..., None])
+
+
+def flash_attention_bwd_dkv_ref(q, k, v, do, lse, di, *, causal, scale):
+    """Plain version of the dK/dV kernel: p = exp(s - lse), ds = p (dO v^T -
+    di); (dk, dv) = (scale ds^T q, p^T dO)."""
+    p, ds = _probs_and_ds(q, k, v, do, lse, di, causal, scale)
+    return (torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", p, do))
+
+
+def flash_attention_bwd_dq_ref(q, k, v, do, lse, di, *, causal, scale):
+    """Plain version of the dQ kernel: dq = scale ds k."""
+    _, ds = _probs_and_ds(q, k, v, do, lse, di, causal, scale)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+
+
+def _flash_checks(name, q, k, v):
+    """Shapes, dtypes and contiguity the kernels take: q, k, v [B, L, H, D]
+    f32 with D in FLASH_HEAD_DIMS."""
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q, k, v [B, L, H, D]")
+    B, L, H, D = q.shape
+    if D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D} is not one of "
+                         f"{FLASH_HEAD_DIMS}")
+    if min(B, L, H) < 1 or max(B, H) > 65535:
+        raise ValueError(f"{name}: unsupported shape {tuple(q.shape)}")
+    for n, t in (("q", q), ("k", k), ("v", v)):
+        _check(n, t, torch.float32, (B, L, H, D))
+    return B, L, H, D
+
+
+def flash_attention_fwd(q, k, v, *, causal, scale):
+    """Attention forward. q, k, v [B, L, H, D] f32 -> (o [B, L, H, D], lse
+    [B, H, L]) f32, D in FLASH_HEAD_DIMS, any L >= 1.
+
+    CPU tensors run :func:`flash_attention_fwd_ref`. CUDA tensors launch
+    the kernel on the current stream, or raise."""
+    dev = _device_of("flash_attention_fwd", [q, k, v])
+    if dev.type == "cpu":
+        return flash_attention_fwd_ref(q, k, v, causal=causal, scale=scale)
+    B, L, H, D = _flash_checks("flash_attention_fwd", q, k, v)
+    lib = _lib("flash_attention_fwd")
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, L), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = lib.dl4j_flash_fwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), B, L, H, D, int(bool(causal)), float(scale),
+            _stream(dev))
+    _raise_on(rc, lib, "flash_attention_fwd")
+    LAUNCHES["flash_attention_fwd"] += 1
+    return o, lse
+
+
+def _bwd_checks(name, q, k, v, do, lse, di):
+    B, L, H, D = _flash_checks(name, q, k, v)
+    for n, t, shape in (("do", do, (B, L, H, D)), ("lse", lse, (B, H, L)),
+                        ("di", di, (B, H, L))):
+        _check(n, t, torch.float32, shape)
+    return B, L, H, D
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal, scale):
+    """dK/dV backward. q, k, v, do [B, L, H, D] f32, lse and di = sum_d o *
+    do [B, H, L] f32 -> (dk, dv) [B, L, H, D] f32, the same bits on every
+    launch.
+
+    CPU tensors run :func:`flash_attention_bwd_dkv_ref`. CUDA tensors
+    launch the kernel on the current stream, or raise."""
+    dev = _device_of("flash_attention_bwd_dkv", [q, k, v, do, lse, di])
+    if dev.type == "cpu":
+        return flash_attention_bwd_dkv_ref(q, k, v, do, lse, di,
+                                           causal=causal, scale=scale)
+    B, L, H, D = _bwd_checks("flash_attention_bwd_dkv", q, k, v, do, lse, di)
+    lib = _lib("flash_attention_bwd")
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(dev):
+        rc = lib.dl4j_flash_bwd_dkv_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, L,
+            H, D, int(bool(causal)), float(scale), _stream(dev))
+    _raise_on(rc, lib, "flash_attention_bwd_dkv")
+    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal, scale):
+    """dQ backward: inputs as :func:`flash_attention_bwd_dkv` -> dq [B, L,
+    H, D] f32, the same bits on every launch.
+
+    CPU tensors run :func:`flash_attention_bwd_dq_ref`. CUDA tensors launch
+    the kernel on the current stream, or raise."""
+    dev = _device_of("flash_attention_bwd_dq", [q, k, v, do, lse, di])
+    if dev.type == "cpu":
+        return flash_attention_bwd_dq_ref(q, k, v, do, lse, di,
+                                          causal=causal, scale=scale)
+    B, L, H, D = _bwd_checks("flash_attention_bwd_dq", q, k, v, do, lse, di)
+    lib = _lib("flash_attention_bwd")
+    dq = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        rc = lib.dl4j_flash_bwd_dq_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dq.data_ptr(), B, L, H, D,
+            int(bool(causal)), float(scale), _stream(dev))
+    _raise_on(rc, lib, "flash_attention_bwd_dq")
+    LAUNCHES["flash_attention_bwd_dq"] += 1
+    return dq

@@ -1,7 +1,7 @@
 """Accelerated-op helper seam — port of deeplearning4j_tpu/ops/helpers.py
 (the registry and the conv / pool / batch-norm / BN+act+pool /
-paged-decode seams; the LSTM and full-sequence attention seams come with
-the slices that run them).
+full-sequence attention / paged-decode seams; the LSTM seam comes with
+the slice that runs it).
 
 A registry of op implementations: `register_helper(name, fn)` overrides
 an op, `register_helper(name, None)` restores its default. Where the JAX
@@ -18,6 +18,7 @@ permute, for `F.conv2d` and `F.max_pool2d`.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -304,10 +305,82 @@ def bn_act_pool(x, gamma, beta, *, eps=1e-5, activation="relu"):
                             ck.bnap_sums, ck.bnap_dx)
 
 
+# -- full-sequence multi-head attention ----------------------------------------
+
+def _attention_default(q: Tensor, k: Tensor, v: Tensor, *, causal=False,
+                       scale=None) -> Tensor:
+    """Dense attention, the JAX seam's default (helpers.py :246,
+    parallel/ring.full_attention): the scale as a product, the dtype's min
+    above the diagonal, softmax, autograd's gradient. Register it as
+    "attention" to run the JAX package's default path."""
+    scale = scale or 1.0 / math.sqrt(q.shape[-1])
+    s = ck.attention_scores(q, k, causal, scale)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: ``fwd`` (the forward kernel's wrapper, or its plain
+    version), saving q, k, v, o and the rows' log-sum-exp. Backward: di =
+    sum_d o * dO, one plain reduction (the JAX library computes it in XLA
+    outside its kernels, flash_attention.py :273), then ``dkv`` and ``dq``
+    (the backward kernels' wrappers, or their plain versions), as the
+    library's custom_vjp runs its two backward kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, fwd, dkv, dq):
+        o, lse = fwd(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.conf = (causal, scale, dkv, dq)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, scale, dkv, dq = ctx.conf
+        do = do.contiguous()
+        di = (o * do).sum(dim=-1).permute(0, 2, 1).contiguous()
+        dk, dv = dkv(q, k, v, do, lse, di, causal=causal, scale=scale)
+        dq_ = dq(q, k, v, do, lse, di, causal=causal, scale=scale)
+        return dq_, dk, dv, None, None, None, None, None
+
+
+def _flash(q, k, v, causal, scale, fwd, dkv, dq):
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(
+        q.shape[-1])
+    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
+                                 v.contiguous(), bool(causal), scale, fwd,
+                                 dkv, dq)
+
+
+def attention_plain(q, k, v, *, causal=False, scale=None):
+    """The attention seam's Function over the PLAIN versions of its three
+    kernels: what the kernels compute, in PyTorch ops, on any device."""
+    return _flash(q, k, v, causal, scale, ck.flash_attention_fwd_ref,
+                  ck.flash_attention_bwd_dkv_ref, ck.flash_attention_bwd_dq_ref)
+
+
+def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
+              scale=None) -> Tensor:
+    """Multi-head attention seam (JAX helpers.py :253). q, k, v [B, L, H,
+    D] with equal head counts (the layer repeats GQA's K/V heads first) ->
+    [B, L, H, D]; ``scale`` defaults to 1/sqrt(D). Runs the flash
+    kernels — the forward, and the dK/dV and dQ backward under autograd —
+    on CUDA tensors, their plain versions on CPU tensors, or the override
+    the caller registered. On the card it raises for what the kernels do
+    not take (a dtype other than f32, a head dim outside
+    ``cuda_kernels.FLASH_HEAD_DIMS``): no autotune, no silent fallback."""
+    impl = _HELPERS.get("attention")
+    if impl is not None:
+        return impl(q, k, v, causal=causal, scale=scale)
+    return _flash(q, k, v, causal, scale, ck.flash_attention_fwd,
+                  ck.flash_attention_bwd_dkv, ck.flash_attention_bwd_dq)
+
+
 # The caller's explicit way around every training kernel: register these to
 # run each kernel's plain version instead, on any device.
 PLAIN_OVERRIDES = {"conv2d_bias_act": _conv2d_bias_act_default,
-                   "bn_act_pool": bn_act_pool_plain}
+                   "bn_act_pool": bn_act_pool_plain,
+                   "attention": attention_plain}
 
 
 # -- fused paged-attention decode ----------------------------------------------

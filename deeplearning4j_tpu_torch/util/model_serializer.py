@@ -6,15 +6,15 @@ The zip format is shared with the JAX package:
   - ``coefficients.bin``: npz ``params`` — every parameter flattened in
     the net's `params_flat` order, float32;
   - ``updater.bin``: npz ``state`` — the updater state flattened in
-    `updater_state_flat` order (MultiLayerNetwork zips);
+    `updater_state_flat` order;
   - ``variables.bin``: npz of the non-trainable variables (the BatchNorm
     running ``mean``/``var``), keyed ``"<layer index>:<name>"``;
   - ``meta.json``: step counter, model type, format version.
 
 A zip written by the JAX package's `write_model` restores here, and one
 written here restores in the JAX package, for MultiLayerNetworks and
-ComputationGraphs. A ComputationGraph zip written here holds no
-``updater.bin``: the port's graph serves and keeps no updater state.
+ComputationGraphs, updater state included, so training resumes where
+it stopped on either side.
 
 `params_from_jax` carries a JAX net's ``params`` (as numpy) into the
 port's layout, which is the same layout: it only changes the array type.
@@ -67,8 +67,8 @@ def params_from_jax(params):
 
 def write_model(net, path: Union[str, Path]) -> None:
     """Serialize a MultiLayerNetwork (config, params, updater state,
-    variables) or a ComputationGraph (config, params) to a zip the JAX
-    package can read."""
+    variables) or a ComputationGraph (config, params, updater state) to a
+    zip the JAX package can read."""
     net._check_init()
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -76,9 +76,8 @@ def write_model(net, path: Union[str, Path]) -> None:
         zf.writestr(CONFIG_JSON, net.conf.to_json())
         zf.writestr(COEFFICIENTS_BIN,
                     _save_npz({"params": net.params_flat().astype(np.float32)}))
-        if hasattr(net, "updater_state_flat"):
-            zf.writestr(UPDATER_BIN, _save_npz(
-                {"state": net.updater_state_flat().astype(np.float32)}))
+        zf.writestr(UPDATER_BIN, _save_npz(
+            {"state": net.updater_state_flat().astype(np.float32)}))
         var_arrays = {f"{i}:{name}": arr.detach().cpu().numpy()
                       for i, lv in enumerate(getattr(net, "variables", []))
                       for name, arr in lv.items()}
@@ -92,8 +91,10 @@ def write_model(net, path: Union[str, Path]) -> None:
 
 
 def restore_computation_graph(path: Union[str, Path], *,
-                              device: DeviceLike = "cuda"):
-    """Restore a ComputationGraph zip onto ``device``."""
+                              device: DeviceLike = "cuda",
+                              load_updater: bool = True):
+    """Restore a ComputationGraph zip onto ``device``: params, updater
+    state (unless ``load_updater`` is False), step."""
     from ..nn.conf.graph import ComputationGraphConfiguration
     from ..nn.graph import ComputationGraph
 
@@ -103,10 +104,13 @@ def restore_computation_graph(path: Union[str, Path], *,
             zf.read(CONFIG_JSON).decode())
         net = ComputationGraph(conf, device=device).init()
         net.set_params_flat(_load_npz(zf.read(COEFFICIENTS_BIN))["params"])
+        if load_updater and UPDATER_BIN in names:
+            net.set_updater_state_flat(
+                _load_npz(zf.read(UPDATER_BIN))["state"])
         if VARIABLES_BIN in names:
             raise NotImplementedError(
                 "ComputationGraphs with non-trainable variables (BatchNorm) "
-                "come with the ComputationGraph training slice")
+                "come with a later slice")
         if META_JSON in names:
             net.step = json.loads(zf.read(META_JSON).decode()).get("step", 0)
     return net

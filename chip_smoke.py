@@ -96,7 +96,35 @@ non-zero without them, or when any phase fails. Phases:
      within 1e-6 (relative) over steps 1-2 and 1e-5 over all (the LM's
      losses fall smoothly, without AlexNet's early spike that amplifies
      rounding);
- 11. prints the kernels line.
+ 11. holds the three splash-attention kernels (forward, dK/dV, dQ; loops
+     driven by the block tables of ops/splash_mask.py) against their
+     plain versions (chunked over query rows, so they run at L = 32768)
+     at [1, 32768, 4, 128] causal (the long-context LM's shape), [1,
+     32768, 8, 128] causal (the JAX bench row's), [4, 2048, 4, 64] full
+     and an edge set (L = 128 and 256, D = 16 and 32, B*H = 3): o and lse
+     within 1e-5 of max |plain|, dq, dk and dv within 1e-5 of the largest
+     plain gradient, the gradients bitwise equal on a second launch; and
+     against the flash kernels on the same inputs, two independent
+     kernels (1e-4: the splash path folds the scale into q, flash scales
+     the scores). Times as in phase 2 (5 calls at L = 32768) beside the
+     bound, the flash kernels' time at the same shape and, at the three
+     main shapes, F.scaled_dot_product_attention forward and
+     forward+backward (f32, TF32 off);
+ 12. trains transformer_lm at T = 32768, B = 1 (vocab 128, d_model 512, 4
+     heads, Dh 128, 4 blocks, Adam 3e-4, f32, remat on, random weights
+     from seed 7) for 4 steps: every loss finite, the last below the
+     first, launches exactly 8 splash forward (4, and 4 recomputed by
+     remat) + 4 dK/dV + 4 dQ per step and no flash launch; tokens/s and
+     step ms; the busy share over 2 profiled steps; the gradients of one
+     step through the kernels and through their plain versions (loss
+     1e-5 relative, worst leaf's relative L2 1e-3); the same step with
+     remat off (4 + 4 + 4 launches): loss and every gradient within 1e-6
+     (relative L2) of the remat run's;
+ 13. KV-cache generation on the serving flagship of phase 3: a 300-token
+     prompt and 32 new tokens, greedy and seeded, through
+     generate_transformer(use_cache=True) (the contiguous cache of
+     rnn_time_step): tokens identical to the uncached solo generate;
+ 14. prints the kernels line.
 
 The last line is {"ok": true, "device": {...}}. Every number printed is
 measured in this run; a "[details]" JSON line before the kernels line
@@ -729,18 +757,25 @@ def lm_batch(torch, T, B, seed=0):
             torch.from_numpy(eye[ids[:, 1:]]).cuda())
 
 
-def lm_train_run(ck, torch, heads, x, y, steps, *, plain=False):
-    """``steps`` fit_batch steps of a fresh transformer_lm graph (vocab
-    128, d_model 512, ``heads`` heads, 4 blocks, Adam 3e-4, f32, seed 7),
-    each timed on the host clock up to its loss on the host; ``plain``
-    registers the attention kernels' plain versions instead. Returns (net,
-    losses, step seconds, launch counts of exactly these steps)."""
+def lm_net(heads, *, remat=False):
+    """A fresh transformer_lm graph on the card: vocab 128, d_model 512,
+    ``heads`` heads, 4 blocks, Adam 3e-4, f32, seed 7."""
     from deeplearning4j_tpu_torch.models.zoo import transformer_lm
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    conf = transformer_lm(vocab_size=VOCAB, d_model=D_MODEL, n_heads=heads,
+                          n_blocks=BLOCKS)
+    conf.conf.remat = remat
+    return ComputationGraph(conf, device="cuda").init()
+
+
+def lm_train_run(ck, torch, heads, x, y, steps, *, plain=False,
+                 remat=False):
+    """``steps`` fit_batch steps of a fresh `lm_net`, each timed on the
+    host clock up to its loss on the host; ``plain`` registers the
+    attention kernels' plain versions instead. Returns (net, losses, step
+    seconds, launch counts of exactly these steps)."""
     from deeplearning4j_tpu_torch.ops import helpers
-    net = ComputationGraph(transformer_lm(
-        vocab_size=VOCAB, d_model=D_MODEL, n_heads=heads, n_blocks=BLOCKS),
-        device="cuda").init()
+    net = lm_net(heads, remat=remat)
     if plain:
         helpers.register_helper("attention",
                                 helpers.PLAIN_OVERRIDES["attention"])
@@ -778,10 +813,11 @@ def lm_grad_check(torch, net, x, y):
     return float((lk - lp).abs() / lp.abs()), rel
 
 
-def lm_profile(torch, net, x, y, steps):
+def lm_profile(torch, net, x, y, steps,
+               keys=("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")):
     """``steps`` more steps under torch.profiler: the device's busy share
-    of the wall time, the three attention kernels' device ms and the top
-    kernels."""
+    of the wall time, the device ms of the kernels named by ``keys`` and
+    the top kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -794,11 +830,115 @@ def lm_profile(torch, net, x, y, steps):
     kernels = device_kernels_ms(prof)
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    ours = {k: sum(ms for n, ms in kernels.items() if k in n)
-            for k in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")}
+    ours = {k: sum(ms for n, ms in kernels.items() if k in n) for k in keys}
     return {"steps": steps, "wall_ms": wall * 1e3, "device_busy_ms": busy,
             "device_busy_share": busy / (wall * 1e3), "kernels_ms": ours,
             "top_kernels_ms": [[k[:80], ms] for k, ms in top]}
+
+
+def splash_case(ck, torch, flush, *, B, L, H, D, causal, seed, library):
+    """The three splash kernels against their plain versions at one shape,
+    on q pre-scaled as `_splash_call` scales it; each backward kernel
+    takes the plain forward's lse and o (di = sum_d o * dO), so each
+    kernel is held alone. Errors are max |diff| over max |plain| (the
+    gradients over the largest of the three plain gradients). Then the
+    flash kernels on the same inputs (unscaled q, the scale in the
+    kernel; their dq is the scale times splash's): errors over the flash
+    outputs, and their times. With ``library``, SDPA forward and
+    forward+backward on [B, H, L, D] views."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.ops import splash_mask
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn((B, L, H, D), generator=g).to(dev)
+                   for _ in range(4))
+    scale = D ** -0.5
+    qs = q * scale
+    tb = splash_mask.splash_tables(L, H, causal)
+    o, lse = ck.splash_attention_fwd(qs, k, v, tb)
+    ro, rlse = ck.splash_attention_fwd_ref(qs, k, v, tb)
+    di = (ro * do).sum(dim=-1).permute(0, 2, 1).contiguous()
+    bwd = (qs, k, v, do, rlse, di, tb)
+    dk, dv = ck.splash_attention_bwd_dkv(*bwd)
+    dq = ck.splash_attention_bwd_dq(*bwd)
+    dk2, dv2 = ck.splash_attention_bwd_dkv(*bwd)
+    dq2 = ck.splash_attention_bwd_dq(*bwd)
+    rdk, rdv = ck.splash_attention_bwd_dkv_ref(*bwd)
+    rdq = ck.splash_attention_bwd_dq_ref(*bwd)
+    torch.cuda.synchronize()
+    gscale = max(float(t.abs().max()) for t in (rdq, rdk, rdv))
+
+    def err(a, b, s=None):
+        return float((a - b).abs().max()) / (
+            s if s is not None else float(b.abs().max()))
+    r = {"shape": [B, L, H, D], "causal": causal,
+         "rel_err": {"o": err(o, ro), "lse": err(lse, rlse),
+                     "dq": err(dq, rdq, gscale), "dk": err(dk, rdk, gscale),
+                     "dv": err(dv, rdv, gscale)},
+         "max_abs_err": {"o": float((o - ro).abs().max()),
+                         "dkv": max(float((dk - rdk).abs().max()),
+                                    float((dv - rdv).abs().max())),
+                         "dq": float((dq - rdq).abs().max())},
+         "repeat_bitwise": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2)
+                                and torch.equal(dq, dq2)),
+         "finite": bool(all(torch.isfinite(t).all()
+                            for t in (o, lse, dq, dk, dv)))}
+    del dk2, dv2, dq2, rdk, rdv, rdq
+    fkw = dict(causal=causal, scale=scale)
+    fbwd = (q, k, v, do, rlse, di)
+    fo, flse = ck.flash_attention_fwd(q, k, v, **fkw)
+    fdk, fdv = ck.flash_attention_bwd_dkv(*fbwd, **fkw)
+    fdq = ck.flash_attention_bwd_dq(*fbwd, **fkw)
+    torch.cuda.synchronize()
+    fscale = max(float(t.abs().max()) for t in (fdq, fdk, fdv))
+    r["vs_flash_rel_err"] = {"o": err(o, fo), "lse": err(lse, flse),
+                             "dq": err(dq * scale, fdq, fscale),
+                             "dk": err(dk, fdk, fscale),
+                             "dv": err(dv, fdv, fscale)}
+    del o, lse, dk, dv, dq, fo, flse, fdk, fdv, fdq, ro
+    reps = 5 if L >= 32768 else (10 if L >= 4096 else 25)
+    runs = (
+        ("", (lambda: ck.splash_attention_fwd(qs, k, v, tb),
+              lambda: ck.splash_attention_bwd_dkv(*bwd),
+              lambda: ck.splash_attention_bwd_dq(*bwd))),
+        ("_plain", (lambda: ck.splash_attention_fwd_ref(qs, k, v, tb),
+                    lambda: ck.splash_attention_bwd_dkv_ref(*bwd),
+                    lambda: ck.splash_attention_bwd_dq_ref(*bwd))),
+        ("_flash", (lambda: ck.flash_attention_fwd(q, k, v, **fkw),
+                    lambda: ck.flash_attention_bwd_dkv(*fbwd, **fkw),
+                    lambda: ck.flash_attention_bwd_dq(*fbwd, **fkw))))
+    for suffix, fns in runs:
+        for name, fn in zip(("fwd", "dkv", "dq"), fns):
+            r[f"{name}{suffix}_ms"] = time_ms(fn, reps=reps, flush=flush)
+    # least work: the operations of the pairs this run's mask keeps (the
+    # kernels skip empty blocks; partial blocks' masked pairs are not
+    # counted), and each input read, each output written once
+    pairs, big, small = flash_bound(B, L, H, D, causal)
+    for name, n_ops, n_bytes in (
+            ("fwd", 4 * D * pairs, 4 * big + small),
+            ("dkv", 8 * D * pairs, 6 * big + 2 * small),
+            ("dq", 6 * D * pairs, 5 * big + 2 * small)):
+        r[name + "_bound_ms"], r[name + "_bound_by"] = bound(n_bytes, n_ops)
+    r["sdpa_fwd_ms"] = r["sdpa_fwd_bwd_ms"] = None
+    if library:
+        qt, kt, vt = (t.transpose(1, 2).requires_grad_(True)
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal,
+                                                  scale=scale)
+
+        def sdpa_fwd_bwd():
+            return torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+        with torch.no_grad():
+            ro = ck.splash_attention_fwd_ref(qs, k, v, tb)[0]
+            r["sdpa_rel_err"] = err(sdpa().transpose(1, 2), ro)
+            del ro
+            r["sdpa_fwd_ms"] = time_ms(sdpa, reps=reps, flush=flush)
+        r["sdpa_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd, reps=reps, flush=flush)
+    return r
 
 
 def main():
@@ -1243,8 +1383,153 @@ def main():
         lm[key] = r
         del xt, yt
         torch.cuda.empty_cache()
+
+    # -- 11. the splash-attention kernels against their plain versions ------
+    from deeplearning4j_tpu_torch.ops import helpers
+    splash_main = [dict(B=1, L=32768, H=4, D=128, causal=True),
+                   dict(B=1, L=32768, H=8, D=128, causal=True),
+                   dict(B=4, L=2048, H=4, D=64, causal=False)]
+    splash_edge = [dict(B=b, L=L, H=h, D=d, causal=c)
+                   for L in (128, 256) for d in (16, 32)
+                   for b, h, c in ((3, 1, False), (1, 3, True))]
+    splash_cases = []
+    for i, c in enumerate(splash_main + splash_edge):
+        r = splash_case(ck, torch, flush, seed=600 + i,
+                        library=i < len(splash_main), **c)
+        splash_cases.append(r)
+        torch.cuda.empty_cache()
+        e, f = r["rel_err"], r["vs_flash_rel_err"]
+        lib = "" if r["sdpa_fwd_ms"] is None else (
+            f"; SDPA (f32, TF32 off) fwd {r['sdpa_fwd_ms']:.4f} ms, fwd+bwd "
+            f"{r['sdpa_fwd_bwd_ms']:.4f} ms, its o vs plain "
+            f"{r['sdpa_rel_err']:.3e}")
+        phase(11, f"splash {r['shape']} {'causal' if r['causal'] else 'full'}:"
+                  f" max|diff|/max|plain| o {e['o']:.3e} lse {e['lse']:.3e} "
+                  f"dq {e['dq']:.3e} dk {e['dk']:.3e} dv {e['dv']:.3e} (gates "
+                  f"1e-5), bitwise repeatable {r['repeat_bitwise']}; vs the "
+                  f"flash kernels {max(f.values()):.3e} (gate 1e-4); kernel / "
+                  f"plain / flash / bound ms: fwd {r['fwd_ms']:.4f} / "
+                  f"{r['fwd_plain_ms']:.4f} / {r['fwd_flash_ms']:.4f} / "
+                  f"{r['fwd_bound_ms']:.4f} ({r['fwd_bound_by']}), dkv "
+                  f"{r['dkv_ms']:.4f} / {r['dkv_plain_ms']:.4f} / "
+                  f"{r['dkv_flash_ms']:.4f} / {r['dkv_bound_ms']:.4f} "
+                  f"({r['dkv_bound_by']}), dq {r['dq_ms']:.4f} / "
+                  f"{r['dq_plain_ms']:.4f} / {r['dq_flash_ms']:.4f} / "
+                  f"{r['dq_bound_ms']:.4f} ({r['dq_bound_by']}){lib} [{card}]")
+        if not (max(e.values()) <= 1e-5 and r["repeat_bitwise"]
+                and r["finite"] and max(f.values()) <= 1e-4):
+            failures.append(f"splash kernels disagree at {r['shape']} "
+                            f"causal={r['causal']}: {r}")
+        if r["sdpa_fwd_ms"] is not None and not r["sdpa_rel_err"] <= 1e-4:
+            failures.append(f"the SDPA yardstick computes another function "
+                            f"at {r['shape']}: {r['sdpa_rel_err']}")
+
+    # -- 12. transformer_lm at T = 32768 through the splash kernels ---------
+    splash_keys = ("splash_attention_fwd", "splash_attention_bwd_dkv",
+                   "splash_attention_bwd_dq")
+    T32, STEPS32 = 32768, 4
+    if helpers.attention_route(T32) != "splash":
+        failures.append(f"attention_route({T32}) is not splash")
+    xt, yt = lm_batch(torch, T32, 1)
+    torch.cuda.reset_peak_memory_stats()
+    net, losses, secs, launches = lm_train_run(ck, torch, 4, xt, yt, STEPS32,
+                                               remat=True)
+    want = dict.fromkeys(ck.LAUNCHES, 0)
+    want.update({"splash_attention_fwd": 2 * BLOCKS * STEPS32,
+                 "splash_attention_bwd_dkv": BLOCKS * STEPS32,
+                 "splash_attention_bwd_dq": BLOCKS * STEPS32})
+    if launches != want:
+        failures.append(f"transformer_lm_32k launches {launches}, want {want}")
+    if not losses[-1] < losses[0]:
+        failures.append(f"transformer_lm_32k loss did not fall: {losses}")
+    steady = secs[1:]
+    lc = {"heads": 4, "T": T32, "batch": 1, "steps": STEPS32, "remat": True,
+          "losses": losses, "step_s": secs, "first_step_ms": secs[0] * 1e3,
+          "mean_step_ms": 1e3 * sum(steady) / len(steady),
+          "tokens_per_s": T32 * len(steady) / sum(steady),
+          "launches": launches, "params": net.num_params(),
+          "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    phase(12, f"transformer_lm_32k ({lc['params']} params) 4 heads T={T32} "
+              f"B=1, remat, {STEPS32} fit_batch steps: loss {losses[0]:.6f} "
+              f"-> {losses[-1]:.6f}, all finite; launches "
+              f"{ {k: launches[k] for k in splash_keys + flash_keys} }; steps "
+              f"2-{STEPS32}: mean {lc['mean_step_ms']:.3f} ms = "
+              f"{lc['tokens_per_s']:.1f} tokens/s (first step "
+              f"{lc['first_step_ms']:.1f} ms), peak memory "
+              f"{lc['peak_mem_bytes']} B [{card}]")
+    lc["profile"] = lm_profile(torch, net, xt, yt, 2, keys=(
+        "splash_fwd", "splash_bwd_dkv", "splash_bwd_dq"))
+    pr = lc["profile"]
+    phase(12, f"transformer_lm_32k under torch.profiler, 2 more steps: wall "
+              f"{pr['wall_ms']:.3f} ms, device busy {pr['device_busy_ms']:.3f}"
+              f" ms ({100 * pr['device_busy_share']:.2f}%); the three kernels "
+              f"{pr['kernels_ms']}; top {pr['top_kernels_ms'][:5]} [{card}]")
+    lc["grad_loss_rel"], lc["grad_leaf_rel"] = lm_grad_check(torch, net, xt,
+                                                             yt)
+    worst = max(lc["grad_leaf_rel"].items(), key=lambda kv: kv[1])
+    phase(12, f"transformer_lm_32k gradients at step {STEPS32 + 2}'s params "
+              f"through the kernels and through their plain versions: loss "
+              f"rel diff {lc['grad_loss_rel']:.3e} (gate 1e-5), worst leaf "
+              f"{worst[0]} ||diff||/||plain|| {worst[1]:.3e} (gate 1e-3)")
+    if not (lc["grad_loss_rel"] <= 1e-5 and worst[1] <= 1e-3):
+        failures.append(f"transformer_lm_32k kernel and plain gradients "
+                        f"differ: {lc['grad_loss_rel']} {worst}")
+    lr_, gr_ = net.compute_gradient_and_score(xt, yt)
+    flat = lm_net(4, remat=False)
+    flat.set_params(net.params)
+    del net
+    torch.cuda.empty_cache()
+    ck.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    lf, gf = flat.compute_gradient_and_score(xt, yt)
+    flat_launches = {k: ck.LAUNCHES[k] for k in splash_keys + flash_keys}
+    lc["no_remat"] = {
+        "loss_rel": float((lf - lr_).abs() / lr_.abs()),
+        "leaf_rel": {f"{n}.{k}": float((gf[n][k] - gr_[n][k]).norm()
+                                       / gr_[n][k].norm().clamp_min(1e-30))
+                     for n in gf for k in gf[n]},
+        "launches": flat_launches,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    nr = lc["no_remat"]
+    worst = max(nr["leaf_rel"].items(), key=lambda kv: kv[1])
+    phase(12, f"transformer_lm_32k the same step with remat off: loss rel "
+              f"diff {nr['loss_rel']:.3e}, worst leaf {worst[0]} "
+              f"{worst[1]:.3e} (gates 1e-6); launches {flat_launches}; peak "
+              f"memory {nr['peak_mem_bytes']} B, with remat "
+              f"{lc['peak_mem_bytes']} B [{card}]")
+    want_flat = dict.fromkeys(splash_keys + flash_keys, 0)
+    want_flat.update(dict.fromkeys(splash_keys, BLOCKS))
+    if not (nr["loss_rel"] <= 1e-6 and worst[1] <= 1e-6
+            and flat_launches == want_flat):
+        failures.append(f"transformer_lm_32k remat off differs: {nr}")
+    del flat, gf, gr_, xt, yt
+    torch.cuda.empty_cache()
+
+    # -- 13. KV-cache generation on the serving flagship ----------------------
+    gnet = ComputationGraph(conf, device="cuda").init()  # phase 3's model
+    prompt = [int(t) for t in np.random.default_rng(3).integers(0, VOCAB,
+                                                                300)]
+    gen = {}
+    for label, kw in (("greedy", {}),
+                      ("seeded", dict(temperature=0.8, top_k=20, seed=9))):
+        t0 = time.monotonic()
+        cached = generate_transformer(gnet, prompt, NEW_TOKENS, VOCAB,
+                                      use_cache=True, **kw)
+        t1 = time.monotonic()
+        solo = generate_transformer(gnet, prompt, NEW_TOKENS, VOCAB, **kw)
+        t2 = time.monotonic()
+        gen[label] = {"cached_s": t1 - t0, "uncached_s": t2 - t1,
+                      "identical": cached == solo, "tokens": cached}
+        phase(13, f"KV-cache generation {label}, prompt 300, {NEW_TOKENS} new "
+                  f"tokens: tokens identical to the uncached solo generate "
+                  f"{cached == solo}; cached {t1 - t0:.3f} s, uncached "
+                  f"{t2 - t1:.3f} s [{card}]")
+        if cached != solo:
+            failures.append(f"cached generation ({label}) differs from the "
+                            f"uncached: {cached} vs {solo}")
+    del gnet
     if failures:
-        raise SystemExit("phases 9-10 failed: " + " | ".join(failures))
+        raise SystemExit("phases 9-13 failed: " + " | ".join(failures))
 
     src = "deeplearning4j_tpu_torch/ops/csrc/paged_decode_attention.cu"
     kernels = []
@@ -1316,6 +1601,34 @@ def main():
             "bound_by": long_case[key + "_bound_by"],
             "library_ms": (BLOCKS * long_case["sdpa_fwd_ms"] if key == "fwd"
                            else None)})
+    # the splash kernels: per transformer_lm_32k train step at [1, 32768,
+    # 4, 128] (8 forward launches under remat, 4 dK/dV, 4 dQ); launches of
+    # the whole 32k run; max |diff| over the two L = 32768 shapes
+    path_case = splash_cases[0]
+    per_step = {"fwd": 2 * BLOCKS, "dkv": BLOCKS, "dq": BLOCKS}
+    for name, key, err_key, src_name, lib_line in (
+            ("splash_attention_fwd", "fwd", "o", "splash_attention_fwd.cu",
+             "1137"),
+            ("splash_attention_bwd_dkv", "dkv", "dkv",
+             "splash_attention_bwd.cu", "2196"),
+            ("splash_attention_bwd_dq", "dq", "dq", "splash_attention_bwd.cu",
+             "1635")):
+        n = per_step[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": f"{csrc}/{src_name}",
+            "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:609 "
+                        "(_splash_call -> jax/experimental/pallas/ops/tpu/"
+                        "splash_attention/splash_attention_kernel.py:"
+                        f"{lib_line}, JAX 0.9.0)",
+            "launches": lc["launches"][name],
+            "max_abs_err": max(c["max_abs_err"][err_key]
+                               for c in splash_cases[:2]),
+            "ms": n * path_case[key + "_ms"],
+            "plain_ms": n * path_case[key + "_plain_ms"],
+            "bound_ms": n * path_case[key + "_bound_ms"],
+            "bound_by": path_case[key + "_bound_by"],
+            "library_ms": (n * path_case["sdpa_fwd_ms"] if key == "fwd"
+                           else None)})
     print("[details] " + json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
          "build_s": build_s, "ptxas": ptxas, "cases": cases, "e2e_fp32": e2e,
@@ -1324,8 +1637,9 @@ def main():
          "bnap_cases": bnap_cases, "alexnet_train": train,
          "alexnet_profile": tprof, "lenet_train": lenet,
          "flash_cases": flash_cases, "attention_seam": seam,
-         "lm_train": lm}))
-    phase(11, "kernels:")
+         "lm_train": lm, "splash_cases": splash_cases,
+         "lm_train_32k": lc, "kv_cache_generation": gen}))
+    phase(14, "kernels:")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -51,23 +51,69 @@ def onehot(ids: Sequence[int], vocab_size: int) -> np.ndarray:
     return x
 
 
+def _cache_capacity_check(net, needed: int, prompt_len: int,
+                          n_tokens: int) -> None:
+    """Refuse up front a cached generation that would overflow an attention
+    layer's ``max_cache_len``, before any token is consumed."""
+    layer_confs = list(getattr(net.conf, "layers", []) or [])
+    for v in getattr(net.conf, "vertices", {}).values():  # graph nets
+        if getattr(v, "layer", None) is not None:
+            layer_confs.append(v.layer)
+    for conf in layer_confs:
+        cap = getattr(conf, "max_cache_len", None)
+        if (type(conf).__name__ == "SelfAttentionLayer" and cap is not None
+                and needed > int(cap)):
+            raise ValueError(
+                f"prompt ({prompt_len}) + n_tokens ({n_tokens}) needs a KV "
+                f"cache of {needed} but max_cache_len={int(cap)}; raise "
+                f"max_cache_len or generate fewer tokens (checked upfront "
+                f"so no tokens are consumed before the failure)")
+
+
 def generate_transformer(net, prompt_ids: Sequence[int], n_tokens: int,
                          vocab_size: int, *, temperature: float = 0.0,
                          top_k: Optional[int] = None,
-                         top_p: Optional[float] = None,
-                         seed: int = 0) -> list:
+                         top_p: Optional[float] = None, seed: int = 0,
+                         max_context: Optional[int] = None,
+                         use_cache: bool = False) -> list:
     """Continue ``prompt_ids`` by ``n_tokens`` with a transformer_lm
-    ComputationGraph, re-forwarding the full context per token on the
-    net's device. (The JAX function's context window and KV-cached solo
-    path come with the contiguous-cache slice.)"""
+    ComputationGraph on the net's device (JAX sampling.py :65).
+
+    use_cache=False re-forwards the context (its last ``max_context``
+    tokens when given) per token; use_cache=True streams through the
+    attention layers' contiguous KV cache (`rnn_time_step`: the prompt
+    once, then one token per step; it needs prompt + n_tokens - 1 <=
+    max_cache_len, and resets, and on exit clears, the net's streaming
+    state)."""
     if not len(prompt_ids):
         raise ValueError("prompt_ids must be non-empty (the model needs at "
                          "least one token of context)")
+    if use_cache and max_context is not None:
+        raise ValueError("max_context (sliding window) is not supported "
+                         "with use_cache=True: the KV cache never evicts; "
+                         "use the re-forward path for windowed generation")
     rng = np.random.default_rng(seed)
-    ids = [int(i) for i in prompt_ids]
     out = []
+    if use_cache:
+        _cache_capacity_check(net, len(prompt_ids) + max(n_tokens - 1, 0),
+                              len(prompt_ids), n_tokens)
+        net.rnn_clear_previous_state()
+        try:
+            probs = net.rnn_time_step(onehot(prompt_ids, vocab_size))[0][
+                0, -1].cpu().numpy()
+            for i in range(n_tokens):
+                nxt = _sample_logits(probs, temperature, top_k, rng, top_p)
+                out.append(nxt)
+                if i + 1 < n_tokens:  # the final token needs no forward
+                    probs = net.rnn_time_step(onehot([nxt], vocab_size))[0][
+                        0, -1].cpu().numpy()
+        finally:
+            net.rnn_clear_previous_state()
+        return out
+    ids = [int(i) for i in prompt_ids]
     for _ in range(n_tokens):
-        probs = net.output(onehot(ids, vocab_size))[0][0, -1].cpu().numpy()
+        ctx = ids if max_context is None else ids[-max_context:]
+        probs = net.output(onehot(ctx, vocab_size))[0][0, -1].cpu().numpy()
         nxt = _sample_logits(probs, temperature, top_k, rng, top_p)
         ids.append(nxt)
         out.append(nxt)

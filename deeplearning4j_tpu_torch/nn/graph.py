@@ -13,13 +13,20 @@ the JAX flat order (layers by sorted name, then params by sorted name,
 then updater state by sorted name), the order of the model zip's
 ``coefficients.bin`` and ``updater.bin``.
 
+Remat (``conf.remat``) checkpoints each layer vertex of the train-mode
+forward but the loss path's output layer (nn/layers/base.remat_forward).
+``rnn_time_step`` streams inputs through the attention layers'
+contiguous KV cache, kept between calls until
+``rnn_clear_previous_state``.
+
 Parameters live on ``device`` (default "cuda"; it raises when no CUDA
 device is present — pass device="cpu" to run on the CPU). The attention
-layers run the port's flash kernels there (ops/helpers.attention).
+layers run the port's flash or splash kernels there
+(ops/helpers.attention).
 Not ported yet, and raising where asked for: truncated BPTT, the
-line-search solvers, ``fit_batch_accumulated``, remat, mixed precision,
-vertex preprocessors, layers with non-trainable variables (BatchNorm),
-and the vertex types ``transformer_lm`` does not use.
+line-search solvers, ``fit_batch_accumulated``, mixed precision, vertex
+preprocessors, layers with non-trainable variables (BatchNorm), and the
+vertex types ``transformer_lm`` does not use.
 """
 from __future__ import annotations
 
@@ -31,7 +38,8 @@ import torch
 from .conf.config import BACKPROP_TBPTT
 from .conf.graph import (ComputationGraphConfiguration, ElementWiseVertex,
                          GraphVertex, LayerVertex)
-from .layers.base import BaseRecurrentImpl, LayerImpl, impl_for
+from .layers.base import (BaseRecurrentImpl, LayerImpl, impl_for,
+                          materialize_rnn_states, remat_forward)
 # importing the impl modules registers them
 from .layers import attention as _attention  # noqa: F401
 from .layers import feedforward as _feedforward  # noqa: F401
@@ -84,6 +92,7 @@ class ComputationGraph:
         # dropout masks: a generator on the graph's device, seeded by the conf
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(conf.conf.seed))
+        self._rnn_state: Dict[str, Any] = {}
         self._initialized = False
 
     # -- init ------------------------------------------------------------------
@@ -141,20 +150,24 @@ class ComputationGraph:
         if isinstance(vertex, LayerVertex):
             impl = self._impls[name]
             x = inputs[0]
+            ckpt = train and bool(self.conf.conf.remat)
             if isinstance(impl, BaseRecurrentImpl):
-                y, st = impl.forward_with_state(
-                    params[name], x, (states or {}).get(name), train=train,
-                    gen=gen, mask=mask)
+                y, st = remat_forward(impl, train=train, ckpt=ckpt,
+                                      recurrent=True)(
+                    params[name], x, (states or {}).get(name), gen, mask)
                 new_states[name] = st
                 return y
             if preouts is not None and hasattr(impl, "forward_with_preout"):
                 # an output vertex on the loss path: keep its
-                # pre-activation for the stable from-logits losses
+                # pre-activation for the stable from-logits losses (no
+                # remat: the loss consumes it at once)
                 y, preouts[name] = impl.forward_with_preout(
                     params[name], x, train=train, gen=gen, mask=mask)
                 return y
-            return impl.forward(params[name], x, train=train, gen=gen,
-                                mask=mask)
+            y, _ = remat_forward(impl, train=train, ckpt=ckpt,
+                                 recurrent=False)(params[name], x, {}, gen,
+                                                  mask)
+            return y
         if isinstance(vertex, ElementWiseVertex):
             op = vertex.op.lower()
             out = inputs[0]
@@ -267,8 +280,6 @@ class ComputationGraph:
         `_build_loss_fn`, graph.py :312). ``inputs``/``labels`` (and the
         masks): one array per network input/output, or a single array."""
         self._check_init()
-        if self.conf.conf.remat:
-            raise NotImplementedError("remat comes with a later slice")
         ins, labs = self._as_tensors(inputs), self._as_tensors(labels)
         params = {name: {k: v.detach().requires_grad_(True)
                          for k, v in lp.items()}
@@ -373,6 +384,28 @@ class ComputationGraph:
             gen=self._gen if train else None,
             fmasks=self._masks_by_input(fmasks))
         return [acts[name] for name in self.conf.network_outputs]
+
+    @torch.inference_mode()
+    def rnn_time_step(self, *inputs) -> List[Tensor]:
+        """Stateful streaming inference (JAX graph.py :776): each input
+        ([B, T, F], or [B, F] for one step) continues where the last call
+        ended, through the attention layers' contiguous KV caches, which
+        the first call makes (capacity ``max_cache_len``). Returns the
+        network outputs for these steps."""
+        self._check_init()
+        ins = [a[:, None, :] if a.ndim == 2 else a
+               for a in self._as_tensors(list(inputs))]
+        states = materialize_rnn_states(self._impls.items(), self._rnn_state,
+                                        ins[0].shape[0], self.dtype,
+                                        self.device)
+        acts, self._rnn_state = self._forward_impl(self.params, ins,
+                                                   states=states)
+        return [acts[name] for name in self.conf.network_outputs]
+
+    def rnn_clear_previous_state(self):
+        """Drop the streaming state: the next ``rnn_time_step`` starts at
+        position 0 with fresh caches."""
+        self._rnn_state = {}
 
     @torch.no_grad()
     def score(self, ds=None, inputs=None, labels=None, lmasks=None,

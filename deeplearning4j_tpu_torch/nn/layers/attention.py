@@ -1,21 +1,25 @@
 """Multi-head self-attention layer — port of
 deeplearning4j_tpu/nn/layers/attention.py.
 
-Two paths, as in the JAX package:
+Three paths, as in the JAX package:
 
   - ``forward``: full-sequence attention (no cache) through the
-    ``attention`` seam (ops/helpers.py; the flash kernels on the card): the
-    training path, the solo `generate_transformer` path and
-    `ComputationGraph.output`;
+    ``attention`` seam (ops/helpers.py; the flash or splash kernels on the
+    card): the training path, the uncached `generate_transformer` path
+    and `ComputationGraph.output`;
+  - ``_contiguous_step``: the KV-cached step of `rnn_time_step` and
+    `generate_transformer(use_cache=True)`, over a per-row cache ``k``/
+    ``v`` [B, max_cache_len, Hkv, Dh] from ``init_state``, at a scalar or
+    [B] position, any T (decode or a prefill chunk);
   - ``_paged_step``: the paged-KV inference step the decode engine runs
     (inference/engine.py). K/V rows live in pool-wide page arrays
     ``k_pages``/``v_pages`` [pages, block, Hkv, Dh] (page 0 the scratch
     page), reached through an int32 block ``table`` [B, nb] injected per
-    call. The contiguous per-slot cache step comes with a later slice.
+    call.
 
-The paged step updates the page arrays IN PLACE (the JAX step returns
-new arrays; the engine owns the only reference to its pages, so the
-port saves a copy of the pool per step) and returns them in its state.
+Both cached steps update their K/V arrays IN PLACE (the JAX steps return
+new arrays; the caller owns the only reference to its cache, so the port
+saves a copy of the cache per step) and return them in their state.
 
 Layout: x [B, T, F]; q [B, T, H, Dh]; K/V [B, T, Hkv, Dh] with query
 head h = hkv * G + g (G = H / Hkv), RoPE half-split ("rotate-half":
@@ -35,6 +39,14 @@ from ...ops.kvquant import dequantize_kv_rows, quantize_kv_rows
 # the overflow sentinel: an absolute position past every table bucket
 # the scheduler may present later (JAX attention.py:374)
 OVERFLOW_POS = 1 << 30
+
+
+def _tracing() -> bool:
+    """Whether the step is being captured (a CUDA graph) or compiled, where
+    a position cannot be read on the host: the counterpart of a JAX
+    tracer."""
+    return torch.compiler.is_compiling() or (
+        torch.cuda.is_available() and torch.cuda.is_current_stream_capturing())
 
 
 @register_impl("SelfAttentionLayer")
@@ -67,6 +79,19 @@ class SelfAttentionLayerImpl(BaseRecurrentImpl):
             "b": torch.full((model,), float(conf.bias_init or 0.0),
                             dtype=dtype, device=device),
         }
+
+    def init_state(self, batch: int, dtype=torch.float32,
+                   device=torch.device("cpu")):
+        """An empty contiguous KV cache (JAX attention.py :80): K/V [batch,
+        max_cache_len, Hkv, Dh] zeros (GQA's cache holds the compact KV
+        heads) and the scalar position 0."""
+        conf = self.conf
+        Dh = conf.n_out // conf.n_heads
+        L = int(getattr(conf, "max_cache_len", 1024))
+        shape = (batch, L, self._kv_heads(), Dh)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device),
+                "pos": torch.zeros((), dtype=torch.int32, device=device)}
 
     def _qkv(self, params, x, pos0=0):
         """Projections as [B, T, heads, Dh]; K/V keep their n_kv_heads."""
@@ -113,10 +138,11 @@ class SelfAttentionLayerImpl(BaseRecurrentImpl):
         return self.activation_fn()(out)
 
     def _grouped_attention(self, q, k, v, *, causal, qpos0=0):
-        """Dense attention with q grouped over compact KV heads: the paged
-        step's gather body. q: [B, T, H, Dh]; k, v: [B, L, Hkv, Dh] -> [B,
-        T, H, Dh].
-        ``qpos0``: int, or [B] tensor of per-row depths."""
+        """Dense attention with q grouped over compact KV heads (JAX
+        attention.py :173): the body of both cached steps. q: [B, T, H,
+        Dh]; k, v: [B, L, Hkv, Dh] -> [B, T, H, Dh]. ``qpos0``: an int or
+        0-dim tensor (the batch at one depth), or a [B] tensor of per-row
+        depths; query t of row b sees keys up to qpos0[b] + t."""
         B, T, H, Dh = q.shape
         L, Hkv = k.shape[1], k.shape[2]
         dev = q.device
@@ -161,18 +187,66 @@ class SelfAttentionLayerImpl(BaseRecurrentImpl):
     def forward_with_state(self, params, x, state0, *, train=False, gen=None,
                            mask=None):
         """Full-sequence attention when training or when no cache state is
-        given; the paged step when the state carries pages."""
+        given; the paged step when the state carries pages; else the
+        contiguous step (JAX attention.py :199). Positions past the cache
+        are unsupported: where the position can be read (always, unless
+        the step is being captured or compiled) a write past
+        ``max_cache_len`` raises here; the step itself poisons it."""
         if train or state0 is None:
             return self.forward(params, x, train=train, gen=gen,
                                 mask=mask), state0
         if not self.conf.causal:
             raise NotImplementedError(
-                "KV-cached decode requires causal=True")
-        if "k_pages" not in state0:
-            raise NotImplementedError(
-                "the contiguous per-slot KV cache comes with a later slice; "
-                "the port's decode engine runs the paged layout")
-        return self._paged_step(params, x, state0, mask=mask)
+                "KV-cached decode requires causal=True: a non-causal "
+                "layer's full forward attends to future positions the "
+                "cache cannot know yet")
+        if "k_pages" in state0:
+            return self._paged_step(params, x, state0, mask=mask)
+        pos = state0["pos"]
+        L_cap = state0["k"].shape[1]
+        T = x.shape[1]
+        if not _tracing():
+            deepest = int(pos.max())
+            if deepest + T > L_cap:
+                raise ValueError(
+                    f"KV cache overflow: position {deepest}+{T} exceeds "
+                    f"max_cache_len={L_cap}; raise SelfAttentionLayer."
+                    f"max_cache_len or rnn_clear_previous_state()")
+        return self._contiguous_step(params, x, state0, mask=mask)
+
+    def _contiguous_step(self, params, x, state0, *, mask=None):
+        """KV-cached incremental attention (JAX attention.py :214-261):
+        ``state0`` {"k", "v" [B, L_cap, Hkv, Dh], "pos" scalar or [B]
+        int32}. The T new K/V rows land at pos (clamped to [0, L_cap - T],
+        as `dynamic_update_slice` clamps), then the grouped contraction
+        reads the compact cache. A row whose write passes the cache gets
+        NaN output, and its next position is frozen at L_cap + 1, so every
+        later step poisons it too; only a fresh state (the graph's
+        ``rnn_clear_previous_state``) recovers."""
+        B, T, _ = x.shape
+        pos = state0["pos"]
+        kc, vc = state0["k"], state0["v"]
+        L_cap = kc.shape[1]
+        per_slot = pos.dim() > 0
+        overflow = (pos + T) > L_cap
+        q, k_new, v_new = self._qkv(params, x, pos0=pos)
+        start = torch.clamp(pos.long(), min=0, max=max(L_cap - T, 0))
+        at = start[..., None] + torch.arange(T, device=x.device)
+        if per_slot:
+            rows = torch.arange(B, device=x.device)[:, None]
+            kc[rows, at] = k_new
+            vc[rows, at] = v_new
+        else:
+            kc[:, at] = k_new
+            vc[:, at] = v_new
+        o = self._grouped_attention(q, kc, vc, causal=True, qpos0=pos)
+        if mask is not None:
+            o = o * mask[:, :, None, None].to(o.dtype)
+        y = self._out(params, o, B, T)
+        y = torch.where(overflow[:, None, None] if per_slot else overflow,
+                        float("nan"), y)
+        next_pos = torch.where(overflow, L_cap + 1, pos + T).to(torch.int32)
+        return y, {"k": kc, "v": vc, "pos": next_pos}
 
     def _paged_step(self, params, x, state0, *, mask=None):
         """Paged-KV inference step (JAX attention.py:263).

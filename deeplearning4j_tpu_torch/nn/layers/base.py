@@ -12,18 +12,64 @@ returns the updated dict.
 Randomness (dropout) takes an explicit `torch.Generator` on the tensor's
 device: the port's masks are not the JAX package's, so tests that
 compare the two set dropout to 0.
+
+`remat_forward` is the layer-granularity rematerialization of
+``NeuralNetConfiguration.remat``: `torch.utils.checkpoint` in place of
+`jax.checkpoint`.
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple, Type
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 Tensor = torch.Tensor
 Params = Dict[str, Tensor]
 Variables = Dict[str, Tensor]
 
 LAYER_IMPLS: Dict[str, Type["LayerImpl"]] = {}
+
+
+def remat_forward(impl, *, train: bool, ckpt: bool, recurrent: bool):
+    """A layer impl's forward in positional form (JAX base.py :28) —
+    recurrent: f(params, x, state0, gen, mask) -> (y, state); otherwise
+    f(params, x, variables, gen, mask) -> (y, variables) — and, when
+    ``ckpt``, under `torch.utils.checkpoint` (non-reentrant): the backward
+    recomputes the layer's internals instead of keeping them.
+
+    Dropout draws from an explicit generator, whose state checkpoint does
+    not restore (it restores only the global RNGs). The recomputation
+    therefore rewinds ``gen`` to its state at the forward, so it draws the
+    same mask — what `jax.checkpoint` gets by replaying the same key — and
+    then puts the generator back where the rest of the step left it."""
+    if recurrent:
+        def fwd(p, x, s, gen, m):
+            return impl.forward_with_state(p, x, s, train=train, gen=gen,
+                                           mask=m)
+    else:
+        def fwd(p, x, v, gen, m):
+            return impl.forward_with_variables(p, x, v, train=train, gen=gen,
+                                               mask=m)
+    if not ckpt:
+        return fwd
+
+    def run(p, x, s, gen, m):
+        at_forward = None if gen is None else gen.get_state()
+        calls = [0]
+
+        def body(p, x):
+            calls[0] += 1
+            if calls[0] == 1 or gen is None:
+                return fwd(p, x, s, gen, m)
+            now = gen.get_state()
+            gen.set_state(at_forward)
+            try:
+                return fwd(p, x, s, gen, m)
+            finally:
+                gen.set_state(now)
+        return checkpoint(body, p, x, use_reentrant=False)
+    return run
 
 
 def register_impl(conf_cls_name: str):
@@ -118,7 +164,12 @@ class LayerImpl:
 class BaseRecurrentImpl(LayerImpl):
     """Layers that carry inference state between calls (the attention KV
     cache). ``forward_with_state(params, x, state0)`` returns (y, state);
-    train mode, or state0 None, runs the stateless full-sequence forward."""
+    train mode, or state0 None, runs the stateless full-sequence forward.
+    ``init_state(batch, dtype, device)`` makes a fresh state."""
+
+    def init_state(self, batch: int, dtype=torch.float32,
+                   device=torch.device("cpu")) -> dict:
+        raise NotImplementedError
 
     def forward_with_state(self, params: Params, x: Tensor, state0, *,
                            train: bool = False,
@@ -126,3 +177,14 @@ class BaseRecurrentImpl(LayerImpl):
                            mask: Optional[Tensor] = None
                            ) -> Tuple[Tensor, Optional[dict]]:
         raise NotImplementedError
+
+
+def materialize_rnn_states(impl_items, existing, batch: int, dtype, device
+                           ) -> dict:
+    """Initial states of the stateful layers (JAX recurrent.py :59): the
+    existing entries kept, the rest made with ``init_state``."""
+    states = dict(existing or {})
+    for key, impl in impl_items:
+        if isinstance(impl, BaseRecurrentImpl) and states.get(key) is None:
+            states[key] = impl.init_state(batch, dtype, device)
+    return states

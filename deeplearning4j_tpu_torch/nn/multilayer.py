@@ -12,12 +12,16 @@ rule, decoupled weight decay), not `torch.optim`. PyTorch runs eagerly,
 so there is no jit cache and no `fit_scan`: `fit` runs one `fit_batch`
 per minibatch.
 
+Remat (``conf.remat``) checkpoints each layer of the train-mode forward
+but the loss path's last layer (nn/layers/base.remat_forward), and then,
+as in the JAX package, leaves the BN+pool pairs unfused.
+
 Parameters live on ``device`` (default "cuda"; it raises when no CUDA
 device is present — pass device="cpu" to run on the CPU). The conv and
 BN+act+pool layers run the port's CUDA kernels there (ops/helpers.py).
 Not ported yet, and raising where a config asks for them: solvers other
-than SGD, truncated BPTT, layerwise pretraining, remat, recurrent layers,
-and any dtype but float32.
+than SGD, truncated BPTT, layerwise pretraining, recurrent layers, and
+any dtype but float32.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ import torch
 from .conf.config import BACKPROP_TBPTT, MultiLayerConfiguration
 from .conf.preprocessors import (CnnToRnnPreProcessor,
                                  FeedForwardToRnnPreProcessor)
-from .layers.base import BaseRecurrentImpl, LayerImpl, impl_for
+from .layers.base import BaseRecurrentImpl, LayerImpl, impl_for, \
+    remat_forward
 # importing the impl modules registers them
 from .layers import convolution as _convolution
 from .layers import feedforward as _feedforward  # noqa: F401
@@ -50,8 +55,6 @@ def _check_supported(conf: MultiLayerConfiguration) -> None:
             f"dtype {g.dtype!r} / compute_dtype {g.compute_dtype!r}: the "
             "port trains float32 nets; bf16 and mixed precision come with "
             "a later slice")
-    if g.remat:
-        raise NotImplementedError("remat comes with a later slice")
     if conf.pretrain:
         raise NotImplementedError("layerwise pretraining comes with a later "
                                   "slice")
@@ -158,7 +161,8 @@ class MultiLayerNetwork:
         ``fuse_pairs`` (set only by the train step, whose activations feed
         nothing but the loss) runs each [BatchNormalization -> 2x2/s2 max
         pool] pair as the one composite op of ops/helpers.bn_act_pool, as
-        the JAX package does (multilayer.py :186-210)."""
+        the JAX package does (multilayer.py :186-210), unless remat
+        checkpoints the layers."""
         conf = self.conf
         n = len(self._impls) if upto is None else upto
         cur = self._adapt_input(x)
@@ -166,6 +170,7 @@ class MultiLayerNetwork:
         acts: List[Tensor] = []
         new_vars = list(variables)
         preout = None
+        ckpt = train and bool(conf.conf.remat)
         i = 0
         while i < n:
             proc = conf.preprocessor(i)
@@ -179,7 +184,7 @@ class MultiLayerNetwork:
                 timesteps = cur.shape[1]
             impl = self._impls[i]
             mask = fmask if cur.ndim == 3 else None
-            if (train and fuse_pairs and i + 1 < n
+            if (train and fuse_pairs and not ckpt and i + 1 < n
                     and isinstance(impl, _normalization.BatchNormalizationImpl)
                     and isinstance(self._impls[i + 1],
                                    _convolution.SubsamplingLayerImpl)
@@ -197,9 +202,9 @@ class MultiLayerNetwork:
                 y, preout = impl.forward_with_preout(
                     params[i], cur, train=train, gen=gen, mask=mask)
             else:
-                y, new_vars[i] = impl.forward_with_variables(
-                    params[i], cur, variables[i], train=train, gen=gen,
-                    mask=mask)
+                y, new_vars[i] = remat_forward(
+                    impl, train=train, ckpt=ckpt, recurrent=False)(
+                    params[i], cur, variables[i], gen, mask)
             acts.append(y)
             cur = y
             i += 1

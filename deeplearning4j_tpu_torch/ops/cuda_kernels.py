@@ -10,7 +10,11 @@ use and bound with ctypes (``ops/_build.py``):
     activation + 2x2/s2 max-pool backward);
   - ``flash_attention_fwd``, ``flash_attention_bwd_dkv`` and
     ``flash_attention_bwd_dq`` (full-sequence attention and its gradients;
-    the last two share ``flash_attention_bwd.cu``).
+    the last two share ``flash_attention_bwd.cu``);
+  - ``splash_attention_fwd``, ``splash_attention_bwd_dkv`` and
+    ``splash_attention_bwd_dq`` (the same function walked through the
+    block tables of ``ops/splash_mask.py``, for long sequences; the last
+    two share ``splash_attention_bwd.cu``).
 
 Rule of every wrapper here:
 
@@ -27,6 +31,7 @@ BN+act+pool composite and of attention are `torch.autograd.Function`s in
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -35,11 +40,14 @@ import torch.nn.functional as F
 
 from . import _build
 from . import activations
+from . import splash_mask
 from .kvquant import dequantize_kv_rows
 
 LAUNCHES = {"paged_decode_attention": 0, "conv2d_bias_act": 0,
             "bnap_sums": 0, "bnap_dx": 0, "flash_attention_fwd": 0,
-            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0}
+            "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
+            "splash_attention_fwd": 0, "splash_attention_bwd_dkv": 0,
+            "splash_attention_bwd_dq": 0}
 
 # the kernel keeps G * Dh accumulators in registers: 128 threads x 16
 _MAX_GROUP_DIM = 128 * 16
@@ -67,6 +75,11 @@ _SIGNATURES = {
     "flash_attention_bwd": {
         "dl4j_flash_bwd_dkv_f32": [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _PTR],
         "dl4j_flash_bwd_dq_f32": [_PTR] * 7 + [_INT] * 5 + [_FLOAT, _PTR]},
+    "splash_attention_fwd": {
+        "dl4j_splash_fwd_f32": [_PTR] * 8 + [_INT] * 6 + [_PTR]},
+    "splash_attention_bwd": {
+        "dl4j_splash_bwd_dkv_f32": [_PTR] * 11 + [_INT] * 6 + [_PTR],
+        "dl4j_splash_bwd_dq_f32": [_PTR] * 10 + [_INT] * 6 + [_PTR]},
 }
 
 # activation codes of csrc/activations.cuh; "softmax" is not elementwise
@@ -536,8 +549,10 @@ def flash_attention_fwd(q, k, v, *, causal, scale):
     return o, lse
 
 
-def _bwd_checks(name, q, k, v, do, lse, di):
-    B, L, H, D = _flash_checks(name, q, k, v)
+def _bwd_checks(name, q, k, v, do, lse, di, checks=_flash_checks):
+    """``checks`` on q, k, v, then do [B, L, H, D], lse and di [B, H, L],
+    all f32 and contiguous."""
+    B, L, H, D = checks(name, q, k, v)
     for n, t, shape in (("do", do, (B, L, H, D)), ("lse", lse, (B, H, L)),
                         ("di", di, (B, H, L))):
         _check(n, t, torch.float32, shape)
@@ -589,4 +604,202 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal, scale):
             int(bool(causal)), float(scale), _stream(dev))
     _raise_on(rc, lib, "flash_attention_bwd_dq")
     LAUNCHES["flash_attention_bwd_dq"] += 1
+    return dq
+
+
+# -- splash attention: the same three passes, walked through block tables ----
+
+SPLASH_HEAD_DIMS = FLASH_HEAD_DIMS
+# score elements [B, H, chunk, L] one chunk of the plain versions holds: at
+# [1, 32768, 4, 128] a chunk is 1024 query rows, 512 MiB of f32 scores
+SPLASH_PLAIN_CHUNK_ELEMS = 1 << 27
+
+
+def _splash_q_chunk(B, L, H, q_chunk=None) -> int:
+    """Query rows per chunk of the plain versions: ``q_chunk`` or what fits
+    SPLASH_PLAIN_CHUNK_ELEMS, a multiple of the table's block."""
+    if q_chunk is None:
+        q_chunk = SPLASH_PLAIN_CHUNK_ELEMS // max(B * H * L, 1)
+    blk = splash_mask.BLOCK
+    return min(L, max(blk, int(q_chunk) // blk * blk))
+
+
+def _splash_masked_scores(q, k, grid, r0, r1):
+    """Scores q[:, r0:r1] k^T [B, H, r1 - r0, L] with the block table's mask
+    applied: kind-0 and the masked part of kind-1 blocks at
+    DEFAULT_MASK_VALUE. ``grid`` [R, q blocks, kv blocks] int8 on q's
+    device holds the kinds the kernel's block list encodes."""
+    blk = splash_mask.BLOCK
+    L = k.shape[1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q[:, r0:r1], k)
+    kinds = grid[:, r0 // blk:r1 // blk].repeat_interleave(
+        blk, dim=1).repeat_interleave(blk, dim=2)[None]  # [1, R, C, L]
+    qpos = torch.arange(r0, r1, device=q.device)
+    causal = qpos[:, None] >= torch.arange(L, device=q.device)[None, :]
+    keep = (kinds == 2) | ((kinds == 1) & causal)
+    return torch.where(keep, s, splash_mask.DEFAULT_MASK_VALUE)
+
+
+def splash_attention_fwd_ref(q, k, v, tables, *, q_chunk=None):
+    """Plain version of the splash forward kernel: the masked scores of one
+    chunk of query rows at a time (the forward block list, rebuilt as block
+    kinds), their softmax against v and their log-sum-exp. q is pre-scaled.
+    Never forms more than one chunk of scores, so it runs at L = 32768 on
+    the card. q, k, v [B, L, H, D] -> (o [B, L, H, D], lse [B, H, L])."""
+    B, L, H, _ = q.shape
+    grid = tables.grid_on(q.device, "fwd")
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, L), dtype=q.dtype, device=q.device)
+    step = _splash_q_chunk(B, L, H, q_chunk)
+    for r0 in range(0, L, step):
+        r1 = min(L, r0 + step)
+        s = _splash_masked_scores(q, k, grid, r0, r1)
+        o[:, r0:r1] = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+        lse[:, :, r0:r1] = torch.logsumexp(s, dim=-1)
+    return o, lse
+
+
+def _splash_probs_and_ds(q, k, v, do, lse, di, grid, r0, r1):
+    s = _splash_masked_scores(q, k, grid, r0, r1)
+    p = torch.exp(s - lse[:, :, r0:r1, None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do[:, r0:r1], v)
+    return p, p * (dp - di[:, :, r0:r1, None])
+
+
+def splash_attention_bwd_dkv_ref(q, k, v, do, lse, di, tables, *,
+                                 q_chunk=None):
+    """Plain version of the dK/dV kernel, over the dK/dV block list: p =
+    exp(s - lse), ds = p (dO v^T - di); dk = sum over query chunks of ds^T
+    q, dv of p^T dO (no scale: q is pre-scaled)."""
+    B, L, H, _ = q.shape
+    grid = tables.grid_on(q.device, "dkv")
+    dk = torch.zeros_like(k)
+    dv = torch.zeros_like(v)
+    step = _splash_q_chunk(B, L, H, q_chunk)
+    for r0 in range(0, L, step):
+        r1 = min(L, r0 + step)
+        p, ds = _splash_probs_and_ds(q, k, v, do, lse, di, grid, r0, r1)
+        dk += torch.einsum("bhqk,bqhd->bkhd", ds, q[:, r0:r1])
+        dv += torch.einsum("bhqk,bqhd->bkhd", p, do[:, r0:r1])
+    return dk, dv
+
+
+def splash_attention_bwd_dq_ref(q, k, v, do, lse, di, tables, *,
+                                q_chunk=None):
+    """Plain version of the dQ kernel, over the dQ block list: dq = ds k,
+    one chunk of query rows at a time."""
+    B, L, H, _ = q.shape
+    grid = tables.grid_on(q.device, "dq")
+    dq = torch.empty_like(q)
+    step = _splash_q_chunk(B, L, H, q_chunk)
+    for r0 in range(0, L, step):
+        r1 = min(L, r0 + step)
+        _, ds = _splash_probs_and_ds(q, k, v, do, lse, di, grid, r0, r1)
+        dq[:, r0:r1] = torch.einsum("bhqk,bkhd->bqhd", ds, k)
+    return dq
+
+
+def _splash_checks(name, q, k, v, *, tables):
+    """What the splash kernels take: q, k, v [B, L, H, D] f32, contiguous,
+    D in SPLASH_HEAD_DIMS, L % 128 == 0, and tables made for (L, H)."""
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q, k, v [B, L, H, D]")
+    B, L, H, D = q.shape
+    blk = splash_mask.BLOCK
+    if L % blk or L < blk:
+        raise ValueError(f"{name}: L={L} is not a multiple of {blk}")
+    if D not in SPLASH_HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {D} is not one of "
+                         f"{SPLASH_HEAD_DIMS}")
+    if min(B, H) < 1 or max(B, H) > 65535:
+        raise ValueError(f"{name}: unsupported shape {tuple(q.shape)}")
+    for n, t in (("q", q), ("k", k), ("v", v)):
+        _check(n, t, torch.float32, (B, L, H, D))
+    if tables.L != L or tables.rows not in (1, H):
+        raise ValueError(f"{name}: tables for L={tables.L} with "
+                         f"{tables.rows} head rows do not fit {tuple(q.shape)}")
+    return B, L, H, D
+
+
+def _table_args(tables, which, dev):
+    counts, blocks, kinds = tables.on(dev, which)
+    return ([counts.data_ptr(), blocks.data_ptr(), kinds.data_ptr()],
+            [tables.rows, blocks.shape[2]])
+
+
+def splash_attention_fwd(q, k, v, tables):
+    """Splash forward. q (pre-scaled), k, v [B, L, H, D] f32, L % 128 == 0,
+    ``tables`` from `splash_mask.splash_tables(L, H, causal)` -> (o [B, L,
+    H, D], lse [B, H, L]) f32.
+
+    CPU tensors run :func:`splash_attention_fwd_ref`. CUDA tensors launch
+    the kernel on the current stream, or raise."""
+    dev = _device_of("splash_attention_fwd", [q, k, v])
+    if dev.type == "cpu":
+        return splash_attention_fwd_ref(q, k, v, tables)
+    B, L, H, D = _splash_checks("splash_attention_fwd", q, k, v,
+                                tables=tables)
+    lib = _lib("splash_attention_fwd")
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, L), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        ptrs, dims = _table_args(tables, "fwd", dev)
+        rc = lib.dl4j_splash_fwd_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), *ptrs, B, L, H, D, *dims, _stream(dev))
+    _raise_on(rc, lib, "splash_attention_fwd")
+    LAUNCHES["splash_attention_fwd"] += 1
+    return o, lse
+
+
+def splash_attention_bwd_dkv(q, k, v, do, lse, di, tables):
+    """Splash dK/dV backward. q (pre-scaled), k, v, do [B, L, H, D] f32,
+    lse and di = sum_d o * do [B, H, L] f32 -> (dk, dv) [B, L, H, D] f32,
+    the same bits on every launch.
+
+    CPU tensors run :func:`splash_attention_bwd_dkv_ref`. CUDA tensors
+    launch the kernel on the current stream, or raise."""
+    dev = _device_of("splash_attention_bwd_dkv", [q, k, v, do, lse, di])
+    if dev.type == "cpu":
+        return splash_attention_bwd_dkv_ref(q, k, v, do, lse, di, tables)
+    B, L, H, D = _bwd_checks(
+        "splash_attention_bwd_dkv", q, k, v, do, lse, di,
+        checks=functools.partial(_splash_checks, tables=tables))
+    lib = _lib("splash_attention_bwd")
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(dev):
+        ptrs, dims = _table_args(tables, "dkv", dev)
+        rc = lib.dl4j_splash_bwd_dkv_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *ptrs, B, L, H, D, *dims, _stream(dev))
+    _raise_on(rc, lib, "splash_attention_bwd_dkv")
+    LAUNCHES["splash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+def splash_attention_bwd_dq(q, k, v, do, lse, di, tables):
+    """Splash dQ backward: inputs as :func:`splash_attention_bwd_dkv` ->
+    dq [B, L, H, D] f32 (the gradient of the pre-scaled q), the same bits
+    on every launch.
+
+    CPU tensors run :func:`splash_attention_bwd_dq_ref`. CUDA tensors
+    launch the kernel on the current stream, or raise."""
+    dev = _device_of("splash_attention_bwd_dq", [q, k, v, do, lse, di])
+    if dev.type == "cpu":
+        return splash_attention_bwd_dq_ref(q, k, v, do, lse, di, tables)
+    B, L, H, D = _bwd_checks(
+        "splash_attention_bwd_dq", q, k, v, do, lse, di,
+        checks=functools.partial(_splash_checks, tables=tables))
+    lib = _lib("splash_attention_bwd")
+    dq = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        ptrs, dims = _table_args(tables, "dq", dev)
+        rc = lib.dl4j_splash_bwd_dq_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dq.data_ptr(), *ptrs, B, L, H, D,
+            *dims, _stream(dev))
+    _raise_on(rc, lib, "splash_attention_bwd_dq")
+    LAUNCHES["splash_attention_bwd_dq"] += 1
     return dq

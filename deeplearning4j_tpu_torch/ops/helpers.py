@@ -1,7 +1,7 @@
 """Accelerated-op helper seam — port of deeplearning4j_tpu/ops/helpers.py
 (the registry and the conv / pool / batch-norm / BN+act+pool /
-full-sequence attention / paged-decode seams; the LSTM seam comes with
-the slice that runs it).
+full-sequence attention (flash below SPLASH_MIN_LEN, splash from it) /
+paged-decode seams; the LSTM seam comes with the slice that runs it).
 
 A registry of op implementations: `register_helper(name, fn)` overrides
 an op, `register_helper(name, None)` restores its default. Where the JAX
@@ -18,6 +18,7 @@ permute, for `F.conv2d` and `F.max_pool2d`.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable, Dict, Optional, Tuple
 
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 
 from . import activations
 from . import cuda_kernels as ck
+from . import splash_mask
 
 Tensor = torch.Tensor
 
@@ -318,43 +320,100 @@ def _attention_default(q: Tensor, k: Tensor, v: Tensor, *, causal=False,
     return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
 
 
-class _FlashAttention(torch.autograd.Function):
-    """Forward: ``fwd`` (the forward kernel's wrapper, or its plain
-    version), saving q, k, v, o and the rows' log-sum-exp. Backward: di =
-    sum_d o * dO, one plain reduction (the JAX library computes it in XLA
-    outside its kernels, flash_attention.py :273), then ``dkv`` and ``dq``
-    (the backward kernels' wrappers, or their plain versions), as the
-    library's custom_vjp runs its two backward kernels."""
+class _Attention(torch.autograd.Function):
+    """Forward: ``fwd(q, k, v)`` -> (o, lse), a forward kernel's wrapper
+    (or its plain version) with its mask and scale bound, saving q, k, v,
+    o and the rows' log-sum-exp. Backward: di = sum_d o * dO, one plain
+    reduction (the JAX libraries compute it in XLA outside their kernels:
+    flash_attention.py :273, splash_attention_kernel.py :2241), then
+    ``dkv`` and ``dq`` (q, k, v, dO, lse, di), the backward kernels'
+    wrappers or their plain versions, in the libraries' order. Serves the
+    flash kernels and the splash kernels alike."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale, fwd, dkv, dq):
-        o, lse = fwd(q, k, v, causal=causal, scale=scale)
+    def forward(ctx, q, k, v, fwd, dkv, dq):
+        o, lse = fwd(q, k, v)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.conf = (causal, scale, dkv, dq)
+        ctx.conf = (dkv, dq)
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, scale, dkv, dq = ctx.conf
+        dkv, dq = ctx.conf
         do = do.contiguous()
         di = (o * do).sum(dim=-1).permute(0, 2, 1).contiguous()
-        dk, dv = dkv(q, k, v, do, lse, di, causal=causal, scale=scale)
-        dq_ = dq(q, k, v, do, lse, di, causal=causal, scale=scale)
-        return dq_, dk, dv, None, None, None, None, None
+        dk, dv = dkv(q, k, v, do, lse, di)
+        return dq(q, k, v, do, lse, di), dk, dv, None, None, None
 
 
 def _flash(q, k, v, causal, scale, fwd, dkv, dq):
-    scale = float(scale) if scale is not None else 1.0 / math.sqrt(
-        q.shape[-1])
-    return _FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                 v.contiguous(), bool(causal), scale, fwd,
-                                 dkv, dq)
+    """The flash kernels (or their plain versions ``fwd``, ``dkv``,
+    ``dq``) under `_Attention`, the scale applied to the scores."""
+    kw = dict(causal=bool(causal), scale=float(scale) if scale is not None
+              else 1.0 / math.sqrt(q.shape[-1]))
+    return _Attention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                            functools.partial(fwd, **kw),
+                            functools.partial(dkv, **kw),
+                            functools.partial(dq, **kw))
+
+
+def _splash(q, k, v, causal, scale, fwd, dkv, dq):
+    """`_splash_call` (JAX pallas_kernels.py :609): the splash kernels (or
+    their plain versions) under `_Attention`, over the tables of
+    MultiHeadMask([CausalMask | FullMask] * H) at block 128. The scale is
+    folded into q in q's dtype first (:626), outside the Function, so
+    autograd carries it into q's gradient; the batch is a dimension of the
+    kernels (the library vmaps it, :627)."""
+    B, L, H, D = q.shape
+    s = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    tables = splash_mask.splash_tables(L, H, bool(causal))
+    return _Attention.apply((q * s).contiguous(), k.contiguous(),
+                            v.contiguous(),
+                            functools.partial(fwd, tables=tables),
+                            functools.partial(dkv, tables=tables),
+                            functools.partial(dq, tables=tables))
+
+
+def splash_attention(q, k, v, *, causal=False, scale=None):
+    """Attention through the three splash kernels (the plain versions on
+    CPU tensors), at any L % 128 == 0; `attention` takes this route from
+    SPLASH_MIN_LEN on."""
+    return _splash(q, k, v, causal, scale, ck.splash_attention_fwd,
+                   ck.splash_attention_bwd_dkv, ck.splash_attention_bwd_dq)
+
+
+def splash_attention_plain(q, k, v, *, causal=False, scale=None):
+    """The splash Function over the PLAIN versions of its three kernels,
+    which work one chunk of query rows at a time and so never form the
+    [L, L] scores."""
+    return _splash(q, k, v, causal, scale, ck.splash_attention_fwd_ref,
+                   ck.splash_attention_bwd_dkv_ref,
+                   ck.splash_attention_bwd_dq_ref)
+
+
+# The one rule that puts each attention kernel family on a path: splash from
+# this length on (when the table's block divides L), flash below it. It is
+# fixed, not autotuned: the JAX seam's per-shape probe (pallas_kernels.py
+# :632) has no counterpart in the port, and a later change moves this
+# threshold on the card's own timings of both kernels (chip_smoke.py times
+# them at L = 32768).
+SPLASH_MIN_LEN = 32768
+
+
+def attention_route(L: int) -> str:
+    """"splash" or "flash": the kernels `attention` runs at sequence length
+    ``L``, a pure function of the shape."""
+    return ("splash" if L >= SPLASH_MIN_LEN and L % splash_mask.BLOCK == 0
+            else "flash")
 
 
 def attention_plain(q, k, v, *, causal=False, scale=None):
-    """The attention seam's Function over the PLAIN versions of its three
-    kernels: what the kernels compute, in PyTorch ops, on any device."""
+    """The attention seam's Function over the PLAIN versions of the kernels
+    its route takes (`attention_route`): what the kernels compute, in
+    PyTorch ops, on any device."""
+    if attention_route(q.shape[1]) == "splash":
+        return splash_attention_plain(q, k, v, causal=causal, scale=scale)
     return _flash(q, k, v, causal, scale, ck.flash_attention_fwd_ref,
                   ck.flash_attention_bwd_dkv_ref, ck.flash_attention_bwd_dq_ref)
 
@@ -363,15 +422,18 @@ def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
               scale=None) -> Tensor:
     """Multi-head attention seam (JAX helpers.py :253). q, k, v [B, L, H,
     D] with equal head counts (the layer repeats GQA's K/V heads first) ->
-    [B, L, H, D]; ``scale`` defaults to 1/sqrt(D). Runs the flash
-    kernels — the forward, and the dK/dV and dQ backward under autograd —
-    on CUDA tensors, their plain versions on CPU tensors, or the override
-    the caller registered. On the card it raises for what the kernels do
-    not take (a dtype other than f32, a head dim outside
+    [B, L, H, D]; ``scale`` defaults to 1/sqrt(D). Runs the kernels of
+    `attention_route(L)` — splash from SPLASH_MIN_LEN, flash below: the
+    forward, and the dK/dV and dQ backward under autograd — on CUDA
+    tensors, their plain versions on CPU tensors, or the override the
+    caller registered. On the card it raises for what the kernels do not
+    take (a dtype other than f32, a head dim outside
     ``cuda_kernels.FLASH_HEAD_DIMS``): no autotune, no silent fallback."""
     impl = _HELPERS.get("attention")
     if impl is not None:
         return impl(q, k, v, causal=causal, scale=scale)
+    if attention_route(q.shape[1]) == "splash":
+        return splash_attention(q, k, v, causal=causal, scale=scale)
     return _flash(q, k, v, causal, scale, ck.flash_attention_fwd,
                   ck.flash_attention_bwd_dkv, ck.flash_attention_bwd_dq)
 

@@ -7,7 +7,9 @@ non-zero without them, or when any phase fails. Phases:
 
   0. the card's name and power limit, torch and CUDA versions;
   1. builds every kernel source under deeplearning4j_tpu_torch/ops/csrc
-     (one nvcc per source, all started together);
+     (one nvcc per source, all started together); prints ptxas's register
+     and spill lines, and the registers, local (spill) bytes and dynamic
+     shared memory of the two forward attention kernels as loaded;
   2. holds the paged-decode kernel against its plain PyTorch version on
      the card at the serving shapes (fp32 and int8 pages, MHA and GQA):
      max |diff| < 1e-4; times both with CUDA events (median of 25; before
@@ -79,11 +81,14 @@ non-zero without them, or when any phase fails. Phases:
      max |plain| <= 1e-5 for o and lse, and for dq, dk and dv over the
      largest plain gradient; the gradients bitwise equal on a second
      launch. Times (as in phase 2) beside the f32 bound (operations of the
-     kept (query, key) pairs at 67 TFLOP/s, or bytes) and, at the two
-     main shapes, F.scaled_dot_product_attention forward and
-     forward+backward (f32, TF32 off). Then the attention seam under
-     autograd against the dense default's autograd (1e-4; one launch of
-     each kernel);
+     kept (query, key) pairs at 67 TFLOP/s, or bytes), for the forward
+     also beside its 3xTF32 bound (three tf32 products per product at 495
+     TFLOP/s: it runs on the tensor cores) with the kernel's share of each,
+     and, at the two main shapes, F.scaled_dot_product_attention forward
+     and forward+backward (f32, TF32 off) and the splash forward on the
+     same inputs (within 1e-4 of the flash plain version). Then the
+     attention seam under autograd against the dense default's autograd
+     (1e-4; one launch of each kernel);
  10. trains transformer_lm at full width (vocab 128, d_model 512, 4
      blocks, Adam 3e-4, f32, random weights from seed 7) on seeded one-hot
      next-token batches: 8 heads at T=256, B=32 for 20 steps, and 4 heads
@@ -107,7 +112,8 @@ non-zero without them, or when any phase fails. Phases:
      against the flash kernels on the same inputs, two independent
      kernels (1e-4: the splash path folds the scale into q, flash scales
      the scores). Times as in phase 2 (5 calls at L = 32768) beside the
-     bound, the flash kernels' time at the same shape and, at the three
+     bound (the forward's 3xTF32 bound and shares as in phase 9), the
+     flash kernels' time at the same shape and, at the three
      main shapes, F.scaled_dot_product_attention forward and
      forward+backward (f32, TF32 off);
  12. trains transformer_lm at T = 32768, B = 1 (vocab 128, d_model 512, 4
@@ -144,6 +150,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12    # H100 SXM f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM tf32 on the tensor cores, dense
 SPIN_CYCLES = 10_000_000   # about 5 ms at the H100's 1.98 GHz boost clock
 
 VOCAB, D_MODEL, HEADS, BLOCKS = 128, 512, 8, 4
@@ -406,11 +413,22 @@ def device_kernels_ms(prof):
     return kernels
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, flops_per_s=F32_FLOPS_PER_S):
     """(bound ms, "bytes" or "operations") at the H100's published rates."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / F32_FLOPS_PER_S * 1e3
+    t_ops = n_ops / flops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def fwd_tc_bound(r, D, pairs, n_bytes):
+    """The forward kernels run both products on the tensor cores in 3xTF32:
+    three tf32 products for each f32 one, so their least time there is 3 x
+    4 D per kept pair at 495 TFLOP/s (or the bytes, if more). Adds it, and
+    the kernel's share of each bound (bound / kernel ms), to ``r``."""
+    r["fwd_tc_bound_ms"] = bound(n_bytes, 3 * 4 * D * pairs,
+                                 TF32_FLOPS_PER_S)[0]
+    r["fwd_bound_share"] = r["fwd_bound_ms"] / r["fwd_ms"]
+    r["fwd_tc_bound_share"] = r["fwd_tc_bound_ms"] / r["fwd_ms"]
 
 
 def conv_case(ck, torch, flush, *, B, H, W, C, K, OC, stride, padding,
@@ -643,6 +661,7 @@ def flash_case(ck, torch, flush, *, B, L, H, D, causal, seed, library):
     With ``library``, F.scaled_dot_product_attention on [B, H, L, D]
     views of the same tensors, forward and forward+backward."""
     import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.ops import splash_mask
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(seed)
     q, k, v, do = (torch.randn((B, L, H, D), generator=g).to(dev)
@@ -697,7 +716,19 @@ def flash_case(ck, torch, flush, *, B, L, H, D, causal, seed, library):
             ("dkv", 8 * D * pairs, 6 * big + 2 * small),
             ("dq", 6 * D * pairs, 5 * big + 2 * small)):
         r[name + "_bound_ms"], r[name + "_bound_by"] = bound(n_bytes, n_ops)
-    r["sdpa_fwd_ms"] = r["sdpa_fwd_bwd_ms"] = None
+    fwd_tc_bound(r, D, pairs, 4 * big + small)
+    r["sdpa_fwd_ms"] = r["sdpa_fwd_bwd_ms"] = r["fwd_splash_ms"] = None
+    if library and L % splash_mask.BLOCK == 0:
+        # the splash forward (the same core) at this shape, on q pre-scaled
+        tb = splash_mask.splash_tables(L, H, causal)
+        qs = q * kw["scale"]
+        so, slse = ck.splash_attention_fwd(qs, k, v, tb)
+        r["fwd_splash_vs_plain"] = max(err(so, ro), err(slse, rlse))
+        del so, slse
+        r["fwd_splash_ms"] = time_ms(
+            lambda: ck.splash_attention_fwd(qs, k, v, tb), reps=reps,
+            flush=flush)
+        del qs
     if library:
         qt, kt, vt = (t.transpose(1, 2).requires_grad_(True)
                       for t in (q, k, v))
@@ -919,6 +950,7 @@ def splash_case(ck, torch, flush, *, B, L, H, D, causal, seed, library):
             ("dkv", 8 * D * pairs, 6 * big + 2 * small),
             ("dq", 6 * D * pairs, 5 * big + 2 * small)):
         r[name + "_bound_ms"], r[name + "_bound_by"] = bound(n_bytes, n_ops)
+    fwd_tc_bound(r, D, pairs, 4 * big + small)
     r["sdpa_fwd_ms"] = r["sdpa_fwd_bwd_ms"] = None
     if library:
         qt, kt, vt = (t.transpose(1, 2).requires_grad_(True)
@@ -970,6 +1002,10 @@ def main():
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
     phase(1, f"built {sources} in {build_s:.3f} s; ptxas: {ptxas}")
+    # the tensor-core forward kernels as loaded: registers (ptxas's count),
+    # local bytes per thread (spills and stack), dynamic shared memory
+    fwd_build = {D: ck.attention_fwd_attrs(D) for D in ck.FLASH_HEAD_DIMS}
+    phase(1, f"forward attention kernels by head dim: {fwd_build}")
 
     cases = {}
     for name, H, Hkv in (("mha", 8, 8), ("gqa", 8, 2)):
@@ -1284,13 +1320,19 @@ def main():
             f"; SDPA (f32, TF32 off) fwd {r['sdpa_fwd_ms']:.4f} ms, fwd+bwd "
             f"{r['sdpa_fwd_bwd_ms']:.4f} ms, its o vs plain "
             f"{r['sdpa_rel_err']:.3e}")
+        if r["fwd_splash_ms"] is not None:
+            lib += (f"; the splash forward here {r['fwd_splash_ms']:.4f} ms, "
+                    f"vs plain {r['fwd_splash_vs_plain']:.3e} (gate 1e-4)")
         phase(9, f"flash {r['shape']} {'causal' if r['causal'] else 'full'}: "
                  f"max|diff|/max|plain| o {e['o']:.3e} lse {e['lse']:.3e} "
                  f"dq {e['dq']:.3e} dk {e['dk']:.3e} dv {e['dv']:.3e} (gates "
                  f"1e-5; gradients over the largest plain gradient), "
                  f"bitwise repeatable {r['repeat_bitwise']}; kernel / plain / "
                  f"bound ms: fwd {r['fwd_ms']:.4f} / {r['fwd_plain_ms']:.4f} / "
-                 f"{r['fwd_bound_ms']:.4f} ({r['fwd_bound_by']}), dkv "
+                 f"{r['fwd_bound_ms']:.4f} ({r['fwd_bound_by']}; 3xTF32 "
+                 f"{r['fwd_tc_bound_ms']:.4f}; shares "
+                 f"{r['fwd_bound_share']:.3f} and "
+                 f"{r['fwd_tc_bound_share']:.3f}), dkv "
                  f"{r['dkv_ms']:.4f} / {r['dkv_plain_ms']:.4f} / "
                  f"{r['dkv_bound_ms']:.4f} ({r['dkv_bound_by']}), dq "
                  f"{r['dq_ms']:.4f} / {r['dq_plain_ms']:.4f} / "
@@ -1302,6 +1344,11 @@ def main():
         if r["sdpa_fwd_ms"] is not None and not r["sdpa_rel_err"] <= 1e-4:
             failures.append(f"the SDPA yardstick computes another function "
                             f"at {r['shape']}: {r['sdpa_rel_err']}")
+        if (r["fwd_splash_ms"] is not None
+                and not r["fwd_splash_vs_plain"] <= 1e-4):
+            failures.append(f"the splash forward disagrees with the flash "
+                            f"plain version at {r['shape']}: "
+                            f"{r['fwd_splash_vs_plain']}")
     seam = attention_seam_case(ck, torch, seed=500)
     phase(9, f"attention seam [2, 100, 4, 64] causal vs the dense default's "
              f"autograd: max|diff|/max|plain| of y, dq, dk, dv = "
@@ -1410,7 +1457,10 @@ def main():
                   f"flash kernels {max(f.values()):.3e} (gate 1e-4); kernel / "
                   f"plain / flash / bound ms: fwd {r['fwd_ms']:.4f} / "
                   f"{r['fwd_plain_ms']:.4f} / {r['fwd_flash_ms']:.4f} / "
-                  f"{r['fwd_bound_ms']:.4f} ({r['fwd_bound_by']}), dkv "
+                  f"{r['fwd_bound_ms']:.4f} ({r['fwd_bound_by']}; 3xTF32 "
+                  f"{r['fwd_tc_bound_ms']:.4f}; shares "
+                  f"{r['fwd_bound_share']:.3f} and "
+                  f"{r['fwd_tc_bound_share']:.3f}), dkv "
                   f"{r['dkv_ms']:.4f} / {r['dkv_plain_ms']:.4f} / "
                   f"{r['dkv_flash_ms']:.4f} / {r['dkv_bound_ms']:.4f} "
                   f"({r['dkv_bound_by']}), dq {r['dq_ms']:.4f} / "
@@ -1601,6 +1651,8 @@ def main():
             "bound_by": long_case[key + "_bound_by"],
             "library_ms": (BLOCKS * long_case["sdpa_fwd_ms"] if key == "fwd"
                            else None)})
+        if key == "fwd":
+            kernels[-1]["tc_bound_ms"] = BLOCKS * long_case["fwd_tc_bound_ms"]
     # the splash kernels: per transformer_lm_32k train step at [1, 32768,
     # 4, 128] (8 forward launches under remat, 4 dK/dV, 4 dQ); launches of
     # the whole 32k run; max |diff| over the two L = 32768 shapes
@@ -1629,9 +1681,12 @@ def main():
             "bound_by": path_case[key + "_bound_by"],
             "library_ms": (n * path_case["sdpa_fwd_ms"] if key == "fwd"
                            else None)})
+        if key == "fwd":
+            kernels[-1]["tc_bound_ms"] = n * path_case["fwd_tc_bound_ms"]
     print("[details] " + json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "build_s": build_s, "ptxas": ptxas, "cases": cases, "e2e_fp32": e2e,
+         "build_s": build_s, "ptxas": ptxas, "fwd_build": fwd_build,
+         "cases": cases, "e2e_fp32": e2e,
          "e2e_int8": e2e8, "profile": prof, "conv_cases": conv_cases,
          "conv_activation_rel_errs": act_errs, "conv_seam": seam_cases,
          "bnap_cases": bnap_cases, "alexnet_train": train,

@@ -1,4 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), f32.
+// Flash-attention forward for Hopper (sm_90a), f32 in and out, both products
+// on the tensor cores in 3xTF32.
 //
 // Replaces the forward Pallas TPU kernel behind
 // deeplearning4j_tpu/ops/pallas_kernels.py `_flash_call` (:589): the library
@@ -12,138 +13,56 @@
 // K/V heads first). The TPU kernel saves the row max m and sum l apart; one
 // lse = m + log(l) is all the backward needs.
 //
-// Design: one block per (q tile of 64 rows, head, batch row), launched longest
-// causal row first. It keeps its q tile in shared memory, loops over the k/v
-// tiles with the online softmax (running max m and sum l per row in registers,
-// the 64 x D output accumulator in registers, the tile's probabilities in
-// shared memory), and with `causal` stops at the diagonal tile: tiles wholly
-// above the diagonal are never loaded, and only the diagonal tile is masked.
-// Rows and columns past L are masked at the tile edge and never loaded, so any
-// L >= 1 runs. A masked score takes no part in max or sum, which is what the
-// dense version's f32-min fill gives (exp(f32_min - m) is 0 in f32); a causal
-// row always keeps its diagonal, so no row is fully masked. expf and logf
-// (not __expf): the o and lse gates are 1e-4 of max |plain|.
+// Design (attn_fwd_tc.cuh): one block of 8 warps per (head, 128 query rows,
+// batch row), launched longest causal rows first across all heads (the grid is
+// (H, q tiles, B), x fastest: with the heads as the slowest index, the heavy
+// tiles of the last heads started late and left SMs idle at the end); q in a
+// shared tile, k and v through a 2-stage cp.async ring of 64-key tiles, s = q
+// k^T and o += p v with mma.sync m16n8k8 tf32 in 3xTF32, the online softmax on
+// the accumulator fragments, p in registers. With `causal` the walk stops at
+// the diagonal tile, and a warp skips the math of a tile wholly above its 16
+// rows. Masked scores (past L, above the diagonal) are -inf in registers and
+// take no part in max or sum, which is what the dense version's f32-min fill
+// gives; a row whose every score so far is masked keeps m = -inf and uses 0 in
+// its place (m_use), so nothing turns NaN. Rows and keys past L are zero-filled
+// and masked, so any L >= 1 runs. expf and logf, not __expf: the o and lse
+// gates are 1e-5 of max |plain|.
 //
-// What bounds it on this card: the f32 operations, 4 B H L^2 D (half that when
-// causal), far above its bytes at L >= 256; SIMT FMA from shared-memory tiles
-// here, with no tensor cores (TF32 wgmma is later work).
+// What bounds it on this card: operations, 4 D per kept (query, key) pair,
+// far above its bytes at L >= 256. Against f32 outside the tensor cores (67
+// TFLOP/s) that is 1.026 ms at [1, 8192, 4, 128] causal; the 3xTF32 split
+// runs three tf32 products per product (495 TFLOP/s), a least time of
+// 0.416 ms there. Why mma.sync and not wgmma, and the error of plain TF32:
+// attn_fwd_tc.cuh.
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "flash_common.cuh"
+#include "attn_fwd_tc.cuh"
+#include "flash_common.cuh"  // dl4j_cuda_error_string
 
 namespace {
 
-using namespace dl4j_flash;
+using namespace dl4j_attn_tc;
 
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
                      float* __restrict__ lse, int L, int H, float scale) {
-  constexpr int P = Dims<D>::kStride;
-  constexpr int kOut = Dims<D>::kOut;
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + Dims<D>::kTileFloats;
-  float* v_s = k_s + Dims<D>::kTileFloats;
-  float* p_s = v_s + Dims<D>::kTileFloats;  // [64][kSStride] probabilities
-  const int nt = (L + kTile - 1) / kTile;
-  const int qt = nt - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const long long rs = (long long)H * D;
-  const long long base = (long long)b * L * rs + (long long)h * D;
-  const int q0 = qt * kTile;
-  load_tile<D>(q_s, q, base, q0, L, rs);
-
-  float acc[kSub][kOut];
-  float m[kSub], l[kSub];
-#pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < kOut; ++jj) acc[i][jj] = 0.f;
-  }
-
-  const int nk = kCausal ? qt + 1 : nt;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's readers are done with k_s, v_s, p_s
-    load_tile<D>(k_s, k, base, k0, L, rs);
-    load_tile<D>(v_s, v, base, k0, L, rs);
-    __syncthreads();
-    float s[kSub][kSub];
-    tile_dot<D>(q_s, k_s, ty, tx, s);
-    const bool edge = (kCausal && kt == qt) || k0 + kTile > L;
-#pragma unroll
-    for (int i = 0; i < kSub; ++i) {
-      const int r = ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kSub; ++j) {
-        const bool keep = !edge || live<kCausal>(q0 + r, k0 + tx + 16 * j, L);
-        s[i][j] = keep ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = half_warp_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float alpha = expf(m[i] - m_use);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kSub; ++j) {
-        const float p = expf(s[i][j] - m_use);
-        p_s[r * kSStride + tx + 16 * j] = p;
-        sum += p;
-      }
-      sum = half_warp_sum(sum);
-      l[i] = l[i] * alpha + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < kOut; ++jj) acc[i][jj] *= alpha;
-    }
-    __syncthreads();
-    // acc[r][d] += sum_c p[r][c] * v[c][d]
-#pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
-      float pv[kSub], vv[kOut];
-#pragma unroll
-      for (int i = 0; i < kSub; ++i) pv[i] = p_s[(ty + 16 * i) * kSStride + c];
-#pragma unroll
-      for (int jj = 0; jj < kOut; ++jj) vv[jj] = v_s[c * P + tx + 16 * jj];
-#pragma unroll
-      for (int i = 0; i < kSub; ++i)
-#pragma unroll
-        for (int jj = 0; jj < kOut; ++jj) acc[i][jj] = fmaf(pv[i], vv[jj], acc[i][jj]);
-    }
-  }
-
-  const long long lbase = ((long long)b * H + h) * L;
-#pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row < L) {
-      const float inv = 1.f / l[i];
-#pragma unroll
-      for (int jj = 0; jj < kOut; ++jj)
-        o[base + (long long)row * rs + tx + 16 * jj] = acc[i][jj] * inv;
-      if (tx == 0) lse[lbase + row] = m[i] + logf(l[i]);
-    }
-  }
+  extern __shared__ __align__(16) float smem[];
+  const int nq = (L + kRows - 1) / kRows;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * kRows;
+  const FlashWalk<kCausal> walk(L, q0, scale);
+  attn_fwd<D>(q, k, v, o, lse, L, H, q0, blockIdx.x, blockIdx.z, walk,
+              -INFINITY, smem);
 }
 
 template <int D, bool kCausal>
 int run(const float* q, const float* k, const float* v, float* o, float* lse,
         int B, int L, int H, float scale, cudaStream_t stream) {
-  const size_t smem =
-      (3 * (size_t)Dims<D>::kTileFloats + (size_t)kTile * kSStride) * sizeof(float);
-  const dim3 grid((L + kTile - 1) / kTile, H, B);
-  return launch(flash_fwd_kernel<D, kCausal>, grid, smem, stream, q, k, v, o, lse,
-                L, H, scale);
+  const dim3 grid(H, (L + kRows - 1) / kRows, B);
+  return launch(flash_fwd_kernel<D, kCausal>, grid, Fwd<D>::kSmem, stream, q,
+                k, v, o, lse, L, H, scale);
 }
 
 template <int D>
@@ -154,13 +73,20 @@ int dispatch(bool causal, const float* q, const float* k, const float* v,
                 : run<D, false>(q, k, v, o, lse, B, L, H, scale, stream);
 }
 
+template <int D>
+int kernel_attrs(bool causal, int* out) {
+  return causal ? attrs(flash_fwd_kernel<D, true>, Fwd<D>::kSmem, out)
+                : attrs(flash_fwd_kernel<D, false>, Fwd<D>::kSmem, out);
+}
+
 }  // namespace
 
-// Shared memory per block: 116.75 KiB at D = 128, 68.75 KiB at D = 64.
+// Shared memory per block: 192 KiB at D = 128, 96 KiB at D = 64.
 extern "C" int dl4j_flash_fwd_f32(const float* q, const float* k, const float* v,
                                   float* o, float* lse, int B, int L, int H, int D,
                                   int causal, float scale, void* stream) {
-  if (B < 1 || L < 1 || H < 1 || B > 65535 || H > 65535)
+  if (B < 1 || L < 1 || H < 1 || B > 65535 || H > 65535 ||
+      (L + dl4j_attn_tc::kRows - 1) / dl4j_attn_tc::kRows > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
@@ -168,6 +94,18 @@ extern "C" int dl4j_flash_fwd_f32(const float* q, const float* k, const float* v
     case 32: return dispatch<32>(causal != 0, q, k, v, o, lse, B, L, H, scale, s);
     case 64: return dispatch<64>(causal != 0, q, k, v, o, lse, B, L, H, scale, s);
     case 128: return dispatch<128>(causal != 0, q, k, v, o, lse, B, L, H, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// {registers, local bytes per thread, dynamic shared bytes} of the kernel
+// for head dim D into out[3].
+extern "C" int dl4j_flash_fwd_attrs(int D, int causal, int* out) {
+  switch (D) {
+    case 16: return kernel_attrs<16>(causal != 0, out);
+    case 32: return kernel_attrs<32>(causal != 0, out);
+    case 64: return kernel_attrs<64>(causal != 0, out);
+    case 128: return kernel_attrs<128>(causal != 0, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

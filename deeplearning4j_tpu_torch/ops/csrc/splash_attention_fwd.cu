@@ -1,4 +1,5 @@
-// Splash-attention forward for Hopper (sm_90a), f32, driven by the block table.
+// Splash-attention forward for Hopper (sm_90a), f32 in and out, driven by the
+// block table, both products on the tensor cores in 3xTF32.
 //
 // Replaces the forward Pallas TPU kernel behind
 // deeplearning4j_tpu/ops/pallas_kernels.py `_splash_call` (:609): the
@@ -10,159 +11,117 @@
 //   o   [B, L, H, D] = softmax(q k^T, masked) v
 //   lse [B, H, L]    = m + log(l), the row max m and softmax sum l
 //
-// Design: one block per (q block of 128 rows, head, batch row), most table
-// entries first (the table lists i + 1 kv blocks for causal q block i). The
-// block reads its row of the forward block list (splash_common.cuh) and walks
-// only the kv blocks it names, in the library's order; empty blocks are never
-// loaded. It runs its q block as two 64-row halves, each with the online
-// softmax of the library kernel: m starts at the mask value, l at 0, and each
-// 64-key tile of a listed block updates m, l and the 64 x D output in
-// registers, the tile's probabilities in shared memory. Full (kind-2) blocks
+// Design (attn_fwd_tc.cuh): one block of 8 warps per row of the forward block
+// table, that is per (head, q block of 128 rows, batch row), most table
+// entries first across all heads (grid (H, q blocks, B); the table lists i +
+// 1 kv blocks for causal q block i). The
+// block reads its row of the block list (splash_common.cuh) and walks only
+// the kv blocks it names, in the library's order, as two 64-key tiles each;
+// every K/V tile is loaded once, through a 2-stage cp.async ring, for all
+// 128 rows. Each warp owns 16 rows and runs the library kernel's online
+// softmax on them: m starts at the mask value, l at 0; s = q k^T and o += p v
+// on mma.sync m16n8k8 tf32 in 3xTF32, p in registers. Full (kind-2) blocks
 // run no mask code; partial (kind-1) blocks evaluate q >= k and fill the rest
-// with the mask value, and skip a tile whose every key follows every query of
-// the half (it would add exp(mask - m) = 0). L % 128 == 0, so no tile is
-// ragged. expf and logf, not __expf.
+// with the mask value, and a warp skips the math of a tile whose every key
+// follows every one of its rows (it would add exp(mask - m) = 0). L % 128 ==
+// 0, so no tile is ragged. expf and logf, not __expf.
 //
-// What bounds it on this card: the f32 operations of the kept blocks, 4 D per
-// kept (query, key) pair, far above its bytes at L >= 1024; SIMT FMA from
-// shared-memory tiles (flash_common.cuh), no tensor cores.
+// What bounds it on this card: operations, 4 D per kept (query, key) pair,
+// far above its bytes at L >= 1024. Against f32 outside the tensor cores (67
+// TFLOP/s) that is 16.41 ms at [1, 32768, 4, 128] causal; the 3xTF32 split
+// runs three tf32 products per product (495 TFLOP/s), a least time of
+// 6.66 ms there. Why mma.sync and not wgmma, and the error of plain TF32:
+// attn_fwd_tc.cuh.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attn_fwd_tc.cuh"
 #include "splash_common.cuh"
 
 namespace {
 
-using namespace dl4j_splash;
+using namespace dl4j_attn_tc;
+using dl4j_splash::BlockRow;
+using dl4j_splash::kBlock;
+using dl4j_splash::kMaskValue;
+
+static_assert(kBlock == kRows, "one CUDA block per q block of the table");
+
+// The walk of one row of the forward block list: two 64-key tiles per listed
+// kv block; masked scores take the mask value, which takes part in max and
+// sum as in the library.
+struct SplashWalk {
+  static constexpr bool kFlash = false;
+  const int* blocks;
+  const int* kinds;
+  int n;
+  __device__ int count() const { return 2 * n; }
+  __device__ int key0(int i) const {
+    return __ldg(blocks + (i >> 1)) * kBlock + (i & 1) * kKeys;
+  }
+  __device__ int mode(int i, int w0) const {
+    if (__ldg(kinds + (i >> 1)) != 1) return 0;
+    const int k0 = key0(i);
+    if (k0 > w0 + 15) return -1;
+    return k0 + kKeys - 1 > w0 ? 1 : 0;
+  }
+  __device__ bool keep(int row, int col) const { return row >= col; }
+};
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     splash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
                       float* __restrict__ lse, const int* __restrict__ counts,
                       const int* __restrict__ blocks, const int* __restrict__ kinds,
                       int L, int H, int R, int W) {
-  constexpr int P = Dims<D>::kStride;
-  constexpr int kOut = Dims<D>::kOut;
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + Dims<D>::kTileFloats;
-  float* v_s = k_s + Dims<D>::kTileFloats;
-  float* p_s = v_s + Dims<D>::kTileFloats;  // [64][kSStride] probabilities
+  extern __shared__ __align__(16) float smem[];
   const int nq = L / kBlock;
-  const int qb = nq - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
-  const long long rs = (long long)H * D;
-  const long long base = (long long)b * L * rs + (long long)h * D;
-  const long long lbase = ((long long)b * H + h) * L;
-  const BlockRow row = block_row(counts, blocks, kinds, R, W, nq, h, qb);
-
-  for (int half = 0; half < kHalves; ++half) {
-    const int q0 = qb * kBlock + half * kTile;
-    __syncthreads();  // the previous half's readers are done with q_s
-    load_tile<D>(q_s, q, base, q0, L, rs);
-    float acc[kSub][kOut];
-    float m[kSub], l[kSub];
-#pragma unroll
-    for (int i = 0; i < kSub; ++i) {
-      m[i] = kMaskValue;
-      l[i] = 0.f;
-#pragma unroll
-      for (int jj = 0; jj < kOut; ++jj) acc[i][jj] = 0.f;
-    }
-    for (int e = 0; e < row.count; ++e) {
-      const int kind = row.kinds[e];
-      for (int sub = 0; sub < kHalves; ++sub) {
-        const int k0 = row.blocks[e] * kBlock + sub * kTile;
-        if (tile_masked(kind, q0, k0)) continue;
-        __syncthreads();  // the previous tile's readers are done
-        load_tile<D>(k_s, k, base, k0, L, rs);
-        load_tile<D>(v_s, v, base, k0, L, rs);
-        __syncthreads();
-        float s[kSub][kSub];
-        tile_dot<D>(q_s, k_s, ty, tx, s);
-#pragma unroll
-        for (int i = 0; i < kSub; ++i) {
-          const int r = ty + 16 * i;
-          float mx = -INFINITY;
-#pragma unroll
-          for (int j = 0; j < kSub; ++j) {
-            if (kind == 1 && q0 + r < k0 + tx + 16 * j) s[i][j] = kMaskValue;
-            mx = fmaxf(mx, s[i][j]);
-          }
-          mx = half_warp_max(mx);
-          const float m_new = fmaxf(m[i], mx);
-          const float alpha = expf(m[i] - m_new);
-          float sum = 0.f;
-#pragma unroll
-          for (int j = 0; j < kSub; ++j) {
-            const float p = expf(s[i][j] - m_new);
-            p_s[r * kSStride + tx + 16 * j] = p;
-            sum += p;
-          }
-          sum = half_warp_sum(sum);
-          l[i] = l[i] * alpha + sum;
-          m[i] = m_new;
-#pragma unroll
-          for (int jj = 0; jj < kOut; ++jj) acc[i][jj] *= alpha;
-        }
-        __syncthreads();
-        // acc[r][d] += sum_c p[r][c] * v[c][d]
-#pragma unroll 4
-        for (int c = 0; c < kTile; ++c) {
-          float pv[kSub], vv[kOut];
-#pragma unroll
-          for (int i = 0; i < kSub; ++i) pv[i] = p_s[(ty + 16 * i) * kSStride + c];
-#pragma unroll
-          for (int jj = 0; jj < kOut; ++jj) vv[jj] = v_s[c * P + tx + 16 * jj];
-#pragma unroll
-          for (int i = 0; i < kSub; ++i)
-#pragma unroll
-            for (int jj = 0; jj < kOut; ++jj) acc[i][jj] = fmaf(pv[i], vv[jj], acc[i][jj]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kSub; ++i) {
-      const int r = q0 + ty + 16 * i;
-      const float inv = 1.f / l[i];
-#pragma unroll
-      for (int jj = 0; jj < kOut; ++jj)
-        o[base + (long long)r * rs + tx + 16 * jj] = acc[i][jj] * inv;
-      if (tx == 0) lse[lbase + r] = m[i] + logf(l[i]);
-    }
-  }
+  const int qb = nq - 1 - (int)blockIdx.y;
+  const BlockRow row = dl4j_splash::block_row(counts, blocks, kinds, R, W, nq,
+                                              blockIdx.x, qb);
+  const SplashWalk walk{row.blocks, row.kinds, row.count};
+  attn_fwd<D>(q, k, v, o, lse, L, H, qb * kBlock, blockIdx.x, blockIdx.z, walk,
+              kMaskValue, smem);
 }
 
 template <int D>
 int run(const float* q, const float* k, const float* v, float* o, float* lse,
         const int* counts, const int* blocks, const int* kinds, int B, int L,
         int H, int R, int W, cudaStream_t stream) {
-  const size_t smem =
-      (3 * (size_t)Dims<D>::kTileFloats + (size_t)kTile * kSStride) * sizeof(float);
-  const dim3 grid(L / kBlock, H, B);
-  return launch(splash_fwd_kernel<D>, grid, smem, stream, q, k, v, o, lse, counts,
-                blocks, kinds, L, H, R, W);
+  const dim3 grid(H, L / kBlock, B);
+  return launch(splash_fwd_kernel<D>, grid, Fwd<D>::kSmem, stream, q, k, v, o,
+                lse, counts, blocks, kinds, L, H, R, W);
 }
 
 }  // namespace
 
-// Shared memory per block: 116.75 KiB at D = 128, 68.75 KiB at D = 64.
+// Shared memory per block: 192 KiB at D = 128, 96 KiB at D = 64.
 extern "C" int dl4j_splash_fwd_f32(const float* q, const float* k, const float* v,
                                    float* o, float* lse, const int* counts,
                                    const int* blocks, const int* kinds, int B,
                                    int L, int H, int D, int R, int W,
                                    void* stream) {
-  if (bad_dims(B, L, H, R, W)) return (int)cudaErrorInvalidValue;
+  if (dl4j_splash::bad_dims(B, L, H, R, W) || L / dl4j_splash::kBlock > 65535)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
     case 16: return run<16>(q, k, v, o, lse, counts, blocks, kinds, B, L, H, R, W, s);
     case 32: return run<32>(q, k, v, o, lse, counts, blocks, kinds, B, L, H, R, W, s);
     case 64: return run<64>(q, k, v, o, lse, counts, blocks, kinds, B, L, H, R, W, s);
     case 128: return run<128>(q, k, v, o, lse, counts, blocks, kinds, B, L, H, R, W, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// {registers, local bytes per thread, dynamic shared bytes} of the kernel
+// for head dim D into out[3].
+extern "C" int dl4j_splash_fwd_attrs(int D, int* out) {
+  switch (D) {
+    case 16: return attrs(splash_fwd_kernel<16>, Fwd<16>::kSmem, out);
+    case 32: return attrs(splash_fwd_kernel<32>, Fwd<32>::kSmem, out);
+    case 64: return attrs(splash_fwd_kernel<64>, Fwd<64>::kSmem, out);
+    case 128: return attrs(splash_fwd_kernel<128>, Fwd<128>::kSmem, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -71,12 +71,14 @@ _SIGNATURES = {
     "bnap_dx": {
         "dl4j_bnap_dx_f32": [_PTR] * 5 + [_INT] * 5 + [_PTR]},
     "flash_attention_fwd": {
-        "dl4j_flash_fwd_f32": [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _PTR]},
+        "dl4j_flash_fwd_f32": [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _PTR],
+        "dl4j_flash_fwd_attrs": [_INT, _INT, _PTR]},
     "flash_attention_bwd": {
         "dl4j_flash_bwd_dkv_f32": [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _PTR],
         "dl4j_flash_bwd_dq_f32": [_PTR] * 7 + [_INT] * 5 + [_FLOAT, _PTR]},
     "splash_attention_fwd": {
-        "dl4j_splash_fwd_f32": [_PTR] * 8 + [_INT] * 6 + [_PTR]},
+        "dl4j_splash_fwd_f32": [_PTR] * 8 + [_INT] * 6 + [_PTR],
+        "dl4j_splash_fwd_attrs": [_INT, _PTR]},
     "splash_attention_bwd": {
         "dl4j_splash_bwd_dkv_f32": [_PTR] * 11 + [_INT] * 6 + [_PTR],
         "dl4j_splash_bwd_dq_f32": [_PTR] * 10 + [_INT] * 6 + [_PTR]},
@@ -139,6 +141,16 @@ def _check(name, t, dtype, shape):
                          f"expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_aligned(name, *tensors):
+    """Raise unless every tensor starts on 16 bytes: kernels that copy
+    16-byte chunks (the attention forwards) need it. Fresh allocations
+    always do; a view with an odd storage offset may not."""
+    for i, t in enumerate(tensors):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: input {i} does not start on 16 bytes "
+                             f"(storage offset {t.storage_offset()})")
 
 
 def _lib(name: str):
@@ -536,6 +548,7 @@ def flash_attention_fwd(q, k, v, *, causal, scale):
     if dev.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, causal=causal, scale=scale)
     B, L, H, D = _flash_checks("flash_attention_fwd", q, k, v)
+    _check_aligned("flash_attention_fwd", q, k, v)
     lib = _lib("flash_attention_fwd")
     o = torch.empty_like(q)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=dev)
@@ -547,6 +560,28 @@ def flash_attention_fwd(q, k, v, *, causal, scale):
     _raise_on(rc, lib, "flash_attention_fwd")
     LAUNCHES["flash_attention_fwd"] += 1
     return o, lse
+
+
+def attention_fwd_attrs(D: int) -> dict:
+    """{kernel: {"registers", "local_bytes", "smem_bytes"}} of the flash
+    (causal and full) and splash forward kernels at head dim D, as the
+    loaded binaries have them: registers per thread, local memory per
+    thread (spills and stack), dynamic shared memory per block. Needs the
+    card."""
+    out = (ctypes.c_int * 3)()
+    res = {}
+    for key, lib_name, fn, args in (
+            ("flash_fwd_causal", "flash_attention_fwd", "dl4j_flash_fwd_attrs",
+             (D, 1)),
+            ("flash_fwd_full", "flash_attention_fwd", "dl4j_flash_fwd_attrs",
+             (D, 0)),
+            ("splash_fwd", "splash_attention_fwd", "dl4j_splash_fwd_attrs",
+             (D,))):
+        lib = _lib(lib_name)
+        _raise_on(getattr(lib, fn)(*args, out), lib, fn)
+        res[key] = dict(zip(("registers", "local_bytes", "smem_bytes"),
+                            list(out)))
+    return res
 
 
 def _bwd_checks(name, q, k, v, do, lse, di, checks=_flash_checks):
@@ -739,6 +774,7 @@ def splash_attention_fwd(q, k, v, tables):
         return splash_attention_fwd_ref(q, k, v, tables)
     B, L, H, D = _splash_checks("splash_attention_fwd", q, k, v,
                                 tables=tables)
+    _check_aligned("splash_attention_fwd", q, k, v)
     lib = _lib("splash_attention_fwd")
     o = torch.empty_like(q)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=dev)

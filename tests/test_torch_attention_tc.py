@@ -1,0 +1,259 @@
+"""The tensor-core attention forward kernels' arithmetic, emulated on the CPU.
+
+`ops/csrc/flash_attention_fwd.cu` and `splash_attention_fwd.cu` run both
+products of attention, s = q k^T and o += p v, on the tensor cores
+(`mma.sync` m16n8k8, tf32 in, f32 accumulators) with the 3xTF32 split: hi
+= tf32(x) rounded to nearest, ties away, lo = tf32(x - hi), and a b ~ hi_a
+hi_b + hi_a lo_b + lo_a hi_b. No kernel runs here (no card, no nvcc); this
+file repeats their arithmetic in numpy, in their order:
+
+  - one 128-row query tile at a time, keys in 64-key tiles, the online
+    softmax (running max m, sum l, the output scaled by exp(m - m_new)),
+    each tile's p v summed apart and added to the output, expf and logf,
+    o = acc * (1 / l), lse = m + log(l);
+  - each product as 8-wide k-steps, three tf32 products each (the two lo
+    terms first), summed in f32; the head dims of q k^T in the kernels'
+    order (k-steps of d = 16i + 4t + {0, 1} and 16i + 4t + {2, 3});
+  - flash: the scale on the scores, -inf for masked scores, the m_use guard,
+    causal tiles up to the diagonal; splash: q pre-scaled, the forward
+    block list of `ops/splash_mask.py`, kind-1 blocks filled with the mask
+    value where q < k.
+
+The emulation is held against the JAX package on the CPU with inputs made by
+numpy from a seed: `_attention_default` for o and a JAX logsumexp of the same
+scores for lse, and the JAX splash kernel in the Pallas interpreter for o.
+Tolerance: 2e-6 of max |reference|, five times inside the chip gate of 1e-5
+(chip_smoke.py phases 9 and 11). The tensor cores truncate inside an mma
+where numpy rounds, hence the headroom. Plain TF32 (hi only) misses the chip
+gate, which is why the kernels split.
+
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_attention_tc.py
+
+prints the emulation's errors, 3xTF32 and plain TF32, at L = 1024, D = 128.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from deeplearning4j_tpu.ops import helpers as jhelpers
+from deeplearning4j_tpu.ops import pallas_kernels as pk
+from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
+from deeplearning4j_tpu_torch.ops import splash_mask
+
+ROWS, KEYS = 128, 64  # query rows per CUDA block, keys per K/V tile
+TOL = 2e-6            # of max |reference|, for o and lse
+MASK = np.float32(splash_mask.DEFAULT_MASK_VALUE)
+
+
+def tf32(x):
+    """float32 rounded to tf32 (10 mantissa bits), to nearest, ties away
+    from zero: cvt.rna.tf32.f32."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def split(x):
+    hi = tf32(x)
+    return hi, tf32(x - hi)
+
+
+def mma(acc, a, b, plain=False):
+    """acc [M, N] + a [M, K] b [K, N] in 8-wide k-steps of three tf32
+    products each (lo_a hi_b, hi_a lo_b, hi_a hi_b), every sum in f32;
+    ``plain`` keeps hi_a hi_b alone."""
+    ah, al = split(a)
+    bh, bl = split(b)
+    for k0 in range(0, a.shape[1], 8):
+        s = slice(k0, k0 + 8)
+        if not plain:
+            acc = acc + al[:, s] @ bh[s]
+            acc = acc + ah[:, s] @ bl[s]
+        acc = acc + ah[:, s] @ bh[s]
+    return acc
+
+
+def head_dim_order(D):
+    """The head dims of q k^T in the kernels' k-step order: for each 16
+    dims, d = 4t + {0, 1} (t < 4), then 4t + {2, 3}."""
+    return np.array([16 * i + 4 * t + 2 * half + e for i in range(D // 16)
+                     for half in (0, 1) for t in range(4) for e in (0, 1)])
+
+
+def emulate_fwd(q, k, v, *, scale=None, causal=False, tables=None,
+                plain=False):
+    """(o [B, L, H, D], lse [B, H, L]) as the forward kernels compute them:
+    flash with ``scale`` when ``tables`` is None, else splash (q
+    pre-scaled) over ``tables``' forward block list."""
+    B, L, H, D = q.shape
+    order = head_dim_order(D)
+    nq = -(-L // ROWS)
+    pad = nq * ROWS - L
+    o = np.zeros((B, L, H, D), np.float32)
+    lse = np.zeros((B, H, L), np.float32)
+    bl = None if tables is None else tables.lists["fwd"]
+    for b in range(B):
+        for h in range(H):
+            Q, K, V = (np.pad(x[b, :, h], ((0, pad), (0, 0))) for x in (q, k, v))
+            Q, K = Q[:, order], K[:, order]
+            for qt in range(nq):
+                q0 = qt * ROWS
+                rows = q0 + np.arange(ROWS)
+                if bl is None:
+                    nk = -(-L // KEYS)
+                    if causal:
+                        nk = min(nk, 2 * qt + 2)
+                    tiles = [(KEYS * j, 0) for j in range(nk)]
+                    m = np.full(ROWS, -np.inf, np.float32)
+                else:
+                    r = 0 if bl.counts.shape[0] == 1 else h
+                    tiles = [(int(bl.blocks[r, qt, e]) * ROWS + sub * KEYS,
+                              int(bl.kinds[r, qt, e]))
+                             for e in range(bl.counts[r, qt])
+                             for sub in (0, 1)]
+                    m = np.full(ROWS, MASK, np.float32)
+                l = np.zeros(ROWS, np.float32)
+                acc = np.zeros((ROWS, D), np.float32)
+                for k0, kind in tiles:
+                    cols = k0 + np.arange(KEYS)
+                    s = mma(np.zeros((ROWS, KEYS), np.float32),
+                            Q[q0:q0 + ROWS], K[k0:k0 + KEYS].T, plain)
+                    if bl is None:
+                        s = s * np.float32(scale)
+                        keep = cols[None, :] < L
+                        if causal:
+                            keep = keep & (cols[None, :] <= rows[:, None])
+                        s = np.where(keep, s, np.float32(-np.inf))
+                    elif kind == 1:
+                        s = np.where(rows[:, None] >= cols[None, :], s, MASK)
+                    m_new = np.maximum(m, s.max(axis=1))
+                    m_use = m_new
+                    if bl is None:
+                        m_use = np.where(m_new == -np.inf, np.float32(0),
+                                         m_new)
+                    alpha = np.exp(m - m_use)
+                    p = np.exp(s - m_use[:, None])
+                    l = l * alpha + p.sum(axis=1, dtype=np.float32)
+                    acc = acc * alpha[:, None] + mma(
+                        np.zeros((ROWS, D), np.float32), p, V[k0:k0 + KEYS],
+                        plain)
+                    m = m_new
+                live = min(ROWS, L - q0)
+                o[b, q0:q0 + live, h] = (acc * (np.float32(1) / l)[:, None]
+                                         )[:live]
+                lse[b, h, q0:q0 + live] = (m + np.log(l))[:live]
+    return o, lse
+
+
+def _qkv(B, L, H, D, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=(B, L, H, D)).astype(np.float32)
+            for _ in range(3)]
+
+
+def jax_reference(q, k, v, causal, scale):
+    """o from the JAX package's dense default, lse the logsumexp of the
+    same masked scores."""
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    o = jhelpers._attention_default(jq, jk, jv, causal=causal, scale=scale)
+    s = jnp.einsum("bqhd,bkhd->bhqk", jq, jk) * scale
+    if causal:
+        L = q.shape[1]
+        s = jnp.where(jnp.tril(jnp.ones((L, L), bool)), s,
+                      jnp.finfo(s.dtype).min)
+    return np.asarray(o), np.asarray(jax.nn.logsumexp(s, axis=-1))
+
+
+def rel_err(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def flash_errors(B, L, H, D, causal, seed, plain=False):
+    q, k, v = _qkv(B, L, H, D, seed)
+    scale = D ** -0.5
+    o, lse = emulate_fwd(q, k, v, scale=scale, causal=causal, plain=plain)
+    ro, rlse = jax_reference(q, k, v, causal, scale)
+    return rel_err(o, ro), rel_err(lse, rlse)
+
+
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("L", [1, 7, 129, 300, 1024])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_3xtf32_matches_jax_default(causal, L, D):
+    B, H = (1, 3) if causal else (3, 1)
+    eo, el = flash_errors(B, L, H, D, causal, seed=L * 10 + D)
+    assert eo <= TOL and el <= TOL, (eo, el)
+
+
+def _splash_inputs(L, causal, seed, H=2, D=128):
+    q, k, v = _qkv(1, L, H, D, seed)
+    scale = D ** -0.5
+    qs = q * np.float32(scale)
+    tables = splash_mask.splash_tables(L, H, causal)
+    return q, k, v, qs, scale, tables
+
+
+@pytest.mark.parametrize("L", [128, 256, 1024])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_splash_3xtf32_matches_jax_default(causal, L):
+    q, k, v, qs, scale, tables = _splash_inputs(L, causal, seed=L)
+    o, lse = emulate_fwd(qs, k, v, tables=tables)
+    ro, rlse = jax_reference(q, k, v, causal, scale)
+    assert rel_err(o, ro) <= TOL and rel_err(lse, rlse) <= TOL, (
+        rel_err(o, ro), rel_err(lse, rlse))
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_splash_3xtf32_matches_jax_splash_kernel_interpreted(causal):
+    q, k, v, qs, _, tables = _splash_inputs(256, causal, seed=5)
+    o, _ = emulate_fwd(qs, k, v, tables=tables)
+    old = pk._INTERPRET
+    pk._INTERPRET = True
+    try:
+        want = np.asarray(pk._splash_call(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v), causal, None))
+    finally:
+        pk._INTERPRET = old
+    assert rel_err(o, want) <= TOL, rel_err(o, want)
+
+
+def test_plain_tf32_misses_the_chip_gate():
+    """hi alone rounds each product's inputs to 11 significant bits: the
+    error lands far over chip_smoke.py's 1e-5, so the kernels split."""
+    eo, el = flash_errors(1, 1024, 1, 128, True, seed=0, plain=True)
+    assert max(eo, el) > 1e-5, (eo, el)
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    one = np.float32(1)
+    ulp = np.float32(2.0 ** -10)  # tf32's spacing at 1
+    x = np.array([1 + 2.0 ** -11, 1 + 2.0 ** -11 - 2.0 ** -20,
+                  -(1 + 2.0 ** -11), 1 + 3 * 2.0 ** -11], np.float32)
+    np.testing.assert_array_equal(
+        tf32(x), np.array([one + ulp, one, -(one + ulp), one + 2 * ulp],
+                          np.float32))
+    x = np.float32(np.pi)
+    hi, lo = split(np.array([x]))
+    assert hi[0] == np.float32(3.140625) and lo[0] != 0
+    assert abs(float(hi[0]) + float(lo[0]) - float(x)) <= 2.0 ** -22 * x
+
+
+def test_forward_wrappers_raise_for_misaligned_inputs():
+    """The kernels copy 16-byte chunks: every input must start on 16
+    bytes. A view offset by one float does not."""
+    ok = torch.zeros(1, 3, 2, 64)
+    ck._check_aligned("flash_attention_fwd", ok, ok, ok)
+    shifted = torch.zeros(ok.numel() + 1)[1:].view(1, 3, 2, 64)
+    assert shifted.is_contiguous()
+    for name in ("flash_attention_fwd", "splash_attention_fwd"):
+        with pytest.raises(ValueError, match="16 bytes"):
+            ck._check_aligned(name, ok, shifted, ok)
+
+
+if __name__ == "__main__":
+    for plain in (False, True):
+        eo, el = flash_errors(1, 1024, 1, 128, True, seed=0, plain=plain)
+        print(f"{'plain TF32' if plain else '3xTF32'} flash causal [1, 1024, "
+              f"1, 128]: max|diff|/max|ref| o {eo!r}, lse {el!r}")

@@ -9,7 +9,9 @@ non-zero without them, or when any phase fails. Phases:
   1. builds every kernel source under deeplearning4j_tpu_torch/ops/csrc
      (one nvcc per source, all started together); prints ptxas's register
      and spill lines, and the registers, local (spill) bytes and dynamic
-     shared memory of the two forward attention kernels as loaded;
+     shared memory, as loaded, of the kernels on the tensor cores: the two
+     forward attention kernels and splash dQ at each head dim, and the conv
+     kernel's variants at AlexNet's and LeNet's channel counts;
   2. holds the paged-decode kernel against its plain PyTorch version on
      the card at the serving shapes (fp32 and int8 pages, MHA and GQA):
      max |diff| < 1e-4; times both with CUDA events (median of 25; before
@@ -46,9 +48,12 @@ non-zero without them, or when any phase fails. Phases:
      1e-4 x max |plain| (f32 sums of up to 1152 products in another
      order); sums <= 1e-4 x max |plain| (sums over up to 131072 window
      positions in another order), and bitwise equal on a second launch;
-     dx <= 1e-5. Times (as in phase 2) beside the bound and,
-     for conv, beside F.conv2d on channels-last with bias and the
-     activation (TF32 off);
+     dx <= 1e-5; the conv bitwise equal on a second launch too (it runs
+     on the tensor cores in 3xTF32). Times (as in phase 2) beside the
+     bound and, for conv, beside its 3xTF32 bound (three tf32 products per
+     product at 495 TFLOP/s, or the bytes) with the kernel's share of each
+     bound, and F.conv2d on channels-last with bias and the activation
+     (TF32 off);
   6. trains AlexNet-CIFAR10 at full width (64/128/256 conv channels,
      Dense 512 with dropout 0.5, Adam, l2 1e-4, f32, random weights from
      the config's seed) on one seeded synthetic CIFAR-shaped batch of
@@ -112,7 +117,8 @@ non-zero without them, or when any phase fails. Phases:
      against the flash kernels on the same inputs, two independent
      kernels (1e-4: the splash path folds the scale into q, flash scales
      the scores). Times as in phase 2 (5 calls at L = 32768) beside the
-     bound (the forward's 3xTF32 bound and shares as in phase 9), the
+     bound (the forward's and dQ's 3xTF32 bounds and shares as in phase 9;
+     dQ runs on the tensor cores too: 3 x 6 D per kept pair), the
      flash kernels' time at the same shape and, at the three
      main shapes, F.scaled_dot_product_attention forward and
      forward+backward (f32, TF32 off);
@@ -420,15 +426,15 @@ def bound(n_bytes, n_ops, flops_per_s=F32_FLOPS_PER_S):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def fwd_tc_bound(r, D, pairs, n_bytes):
-    """The forward kernels run both products on the tensor cores in 3xTF32:
-    three tf32 products for each f32 one, so their least time there is 3 x
-    4 D per kept pair at 495 TFLOP/s (or the bytes, if more). Adds it, and
-    the kernel's share of each bound (bound / kernel ms), to ``r``."""
-    r["fwd_tc_bound_ms"] = bound(n_bytes, 3 * 4 * D * pairs,
-                                 TF32_FLOPS_PER_S)[0]
-    r["fwd_bound_share"] = r["fwd_bound_ms"] / r["fwd_ms"]
-    r["fwd_tc_bound_share"] = r["fwd_tc_bound_ms"] / r["fwd_ms"]
+def tc_bound(r, key, n_ops, n_bytes):
+    """Kernel ``key`` (the attention forwards, splash dQ) runs its products
+    on the tensor cores in 3xTF32: three tf32 products for each f32 one, so
+    its least time there is 3 x ``n_ops`` at 495 TFLOP/s (or the bytes, if
+    more). Adds it, and the kernel's share of each bound (bound / kernel
+    ms), to ``r``."""
+    r[key + "_tc_bound_ms"] = bound(n_bytes, 3 * n_ops, TF32_FLOPS_PER_S)[0]
+    r[key + "_bound_share"] = r[key + "_bound_ms"] / r[key + "_ms"]
+    r[key + "_tc_bound_share"] = r[key + "_tc_bound_ms"] / r[key + "_ms"]
 
 
 def conv_case(ck, torch, flush, *, B, H, W, C, K, OC, stride, padding,
@@ -445,6 +451,7 @@ def conv_case(ck, torch, flush, *, B, H, W, C, K, OC, stride, padding,
     b = (torch.randn((OC,), generator=g) * 0.1).to(dev)
     kw = dict(stride=stride, padding=padding, activation=act)
     got = ck.conv2d_bias_act(x, w, b, **kw)
+    got2 = ck.conv2d_bias_act(x, w, b, **kw)
     want = ck.conv2d_bias_act_ref(x, w, b, **kw)
     torch.cuda.synchronize()
     oh, ow, pads = ck.conv_geometry(H, W, K, K, stride, padding)
@@ -452,13 +459,20 @@ def conv_case(ck, torch, flush, *, B, H, W, C, K, OC, stride, padding,
          "pads": [list(p) for p in pads], "activation": act,
          "max_abs_err": float((got - want).abs().max()),
          "max_abs_plain": float(want.abs().max()),
+         "repeat_bitwise": bool(torch.equal(got, got2)),
          "ms": time_ms(lambda: ck.conv2d_bias_act(x, w, b, **kw), flush=flush),
          "plain_ms": time_ms(lambda: ck.conv2d_bias_act_ref(x, w, b, **kw),
                              flush=flush),
          "library_ms": None}
-    r["bound_ms"], r["bound_by"] = bound(
-        4 * (x.numel() + w.numel() + b.numel() + B * oh * ow * OC),
-        2 * B * oh * ow * OC * K * K * C)
+    n_bytes = 4 * (x.numel() + w.numel() + b.numel() + B * oh * ow * OC)
+    n_ops = 2 * B * oh * ow * OC * K * K * C
+    r["bound_ms"], r["bound_by"] = bound(n_bytes, n_ops)
+    # the kernel runs on the tensor cores in 3xTF32: three tf32 products
+    # for each f32 one at 495 TFLOP/s (or the bytes, if more)
+    r["tc_bound_ms"], r["tc_bound_by"] = bound(n_bytes, 3 * n_ops,
+                                               TF32_FLOPS_PER_S)
+    r["bound_share"] = r["bound_ms"] / r["ms"]
+    r["tc_bound_share"] = r["tc_bound_ms"] / r["ms"]
     if library:
         act_fn = activations.get(act)
         xc = x.permute(0, 3, 1, 2)  # NHWC memory is channels-last NCHW
@@ -716,7 +730,7 @@ def flash_case(ck, torch, flush, *, B, L, H, D, causal, seed, library):
             ("dkv", 8 * D * pairs, 6 * big + 2 * small),
             ("dq", 6 * D * pairs, 5 * big + 2 * small)):
         r[name + "_bound_ms"], r[name + "_bound_by"] = bound(n_bytes, n_ops)
-    fwd_tc_bound(r, D, pairs, 4 * big + small)
+    tc_bound(r, "fwd", 4 * D * pairs, 4 * big + small)
     r["sdpa_fwd_ms"] = r["sdpa_fwd_bwd_ms"] = r["fwd_splash_ms"] = None
     if library and L % splash_mask.BLOCK == 0:
         # the splash forward (the same core) at this shape, on q pre-scaled
@@ -950,7 +964,8 @@ def splash_case(ck, torch, flush, *, B, L, H, D, causal, seed, library):
             ("dkv", 8 * D * pairs, 6 * big + 2 * small),
             ("dq", 6 * D * pairs, 5 * big + 2 * small)):
         r[name + "_bound_ms"], r[name + "_bound_by"] = bound(n_bytes, n_ops)
-    fwd_tc_bound(r, D, pairs, 4 * big + small)
+    tc_bound(r, "fwd", 4 * D * pairs, 4 * big + small)
+    tc_bound(r, "dq", 6 * D * pairs, 5 * big + 2 * small)
     r["sdpa_fwd_ms"] = r["sdpa_fwd_bwd_ms"] = None
     if library:
         qt, kt, vt = (t.transpose(1, 2).requires_grad_(True)
@@ -1002,10 +1017,14 @@ def main():
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln]
     phase(1, f"built {sources} in {build_s:.3f} s; ptxas: {ptxas}")
-    # the tensor-core forward kernels as loaded: registers (ptxas's count),
-    # local bytes per thread (spills and stack), dynamic shared memory
-    fwd_build = {D: ck.attention_fwd_attrs(D) for D in ck.FLASH_HEAD_DIMS}
-    phase(1, f"forward attention kernels by head dim: {fwd_build}")
+    # the tensor-core kernels as loaded: registers (ptxas's count), local
+    # bytes per thread (spills and stack), dynamic shared memory
+    attn_build = {D: ck.attention_tc_attrs(D) for D in ck.FLASH_HEAD_DIMS}
+    phase(1, f"tensor-core attention kernels by head dim: {attn_build}")
+    conv_build = {f"C={c} OC={oc}": ck.conv2d_bias_act_attrs(c, oc)
+                  for c, oc in ((3, 64), (64, 128), (128, 256), (20, 50))}
+    phase(1, f"conv2d_bias_act variants at AlexNet's and LeNet's channels: "
+             f"{conv_build}")
 
     cases = {}
     for name, H, Hkv in (("mha", 8, 8), ("gqa", 8, 2)):
@@ -1131,16 +1150,32 @@ def main():
         gate = 1e-4 * r["max_abs_plain"]
         phase(5, f"conv2d_bias_act {r['shape']} stride {r['stride']} pads "
                  f"{r['pads']} {r['activation']}: max|diff|="
-                 f"{r['max_abs_err']:.3e} (gate {gate:.3e}); kernel "
-                 f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-                 f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library "
-                 f"{r['library_ms']} ms [{card}]")
-        if not r["max_abs_err"] <= gate:
+                 f"{r['max_abs_err']:.3e} (gate {gate:.3e}), bitwise "
+                 f"repeatable {r['repeat_bitwise']}; kernel {r['ms']:.4f} ms, "
+                 f"plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                 f"({r['bound_by']}; 3xTF32 {r['tc_bound_ms']:.4f}, "
+                 f"{r['tc_bound_by']}; shares {r['bound_share']:.3f} and "
+                 f"{r['tc_bound_share']:.3f}), library {r['library_ms']} ms "
+                 f"[{card}]")
+        if not (r["max_abs_err"] <= gate and r["repeat_bitwise"]):
             raise SystemExit(f"conv kernel disagrees with the plain version "
-                             f"at {r['shape']}: {r['max_abs_err']}")
+                             f"or with itself at {r['shape']}: {r}")
         if r["library_ms"] is not None and not r["library_err"] <= gate:
             raise SystemExit(f"F.conv2d yardstick computes another function "
                              f"at {r['shape']}: {r['library_err']}")
+    # AlexNet's three convs summed: one train step's conv forward
+    conv_sum = {k: sum(c[k] for c in conv_cases[:3])
+                for k in ("ms", "bound_ms", "tc_bound_ms", "library_ms")}
+    conv_sum["bound_share"] = conv_sum["bound_ms"] / conv_sum["ms"]
+    conv_sum["tc_bound_share"] = conv_sum["tc_bound_ms"] / conv_sum["ms"]
+    phase(5, f"conv2d_bias_act, AlexNet's three convs summed: kernel "
+             f"{conv_sum['ms']:.4f} ms, F.conv2d (TF32 off) "
+             f"{conv_sum['library_ms']:.4f} ms (kernel / library "
+             f"{conv_sum['ms'] / conv_sum['library_ms']:.3f}); f32 bound "
+             f"{conv_sum['bound_ms']:.4f} ms (share "
+             f"{conv_sum['bound_share']:.3f}), 3xTF32 bound "
+             f"{conv_sum['tc_bound_ms']:.4f} ms (share "
+             f"{conv_sum['tc_bound_share']:.3f}) [{card}]")
     # every activation the epilogue has, at one small shape
     g = torch.Generator().manual_seed(99)
     xs = torch.randn((2, 6, 5, 3), generator=g).cuda() * 2
@@ -1465,7 +1500,10 @@ def main():
                   f"{r['dkv_flash_ms']:.4f} / {r['dkv_bound_ms']:.4f} "
                   f"({r['dkv_bound_by']}), dq {r['dq_ms']:.4f} / "
                   f"{r['dq_plain_ms']:.4f} / {r['dq_flash_ms']:.4f} / "
-                  f"{r['dq_bound_ms']:.4f} ({r['dq_bound_by']}){lib} [{card}]")
+                  f"{r['dq_bound_ms']:.4f} ({r['dq_bound_by']}; 3xTF32 "
+                  f"{r['dq_tc_bound_ms']:.4f}; shares "
+                  f"{r['dq_bound_share']:.3f} and "
+                  f"{r['dq_tc_bound_share']:.3f}){lib} [{card}]")
         if not (max(e.values()) <= 1e-5 and r["repeat_bitwise"]
                 and r["finite"] and max(f.values()) <= 1e-4):
             failures.append(f"splash kernels disagree at {r['shape']} "
@@ -1614,7 +1652,9 @@ def main():
         "plain_ms": sum(c["plain_ms"] for c in alex_conv),
         "bound_ms": sum(c["bound_ms"] for c in alex_conv),
         "bound_by": by(alex_conv, ""),
-        "library_ms": sum(c["library_ms"] for c in alex_conv)})
+        "library_ms": sum(c["library_ms"] for c in alex_conv),
+        "tc_bound_ms": conv_sum["tc_bound_ms"],
+        "tc_bound_share": conv_sum["tc_bound_share"]})
     for name, line in (("bnap_sums", 286), ("bnap_dx", 301)):
         k = "sums_" if name == "bnap_sums" else "dx_"
         kernels.append({
@@ -1681,11 +1721,13 @@ def main():
             "bound_by": path_case[key + "_bound_by"],
             "library_ms": (n * path_case["sdpa_fwd_ms"] if key == "fwd"
                            else None)})
-        if key == "fwd":
-            kernels[-1]["tc_bound_ms"] = n * path_case["fwd_tc_bound_ms"]
+        if key in ("fwd", "dq"):
+            kernels[-1]["tc_bound_ms"] = n * path_case[key + "_tc_bound_ms"]
+            kernels[-1]["tc_bound_share"] = path_case[key + "_tc_bound_share"]
     print("[details] " + json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
-         "build_s": build_s, "ptxas": ptxas, "fwd_build": fwd_build,
+         "build_s": build_s, "ptxas": ptxas, "attn_build": attn_build,
+         "conv_build": conv_build, "conv_alexnet_sum": conv_sum,
          "cases": cases, "e2e_fp32": e2e,
          "e2e_int8": e2e8, "profile": prof, "conv_cases": conv_cases,
          "conv_activation_rel_errs": act_errs, "conv_seam": seam_cases,

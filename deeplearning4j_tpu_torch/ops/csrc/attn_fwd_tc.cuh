@@ -38,21 +38,14 @@
 // 128-byte line: no bank conflicts. At D = 16 (four chunks a row) f(r) = (r /
 // 2) & 3. The q tile [128][D] keeps the same swizzle.
 //
-// 3xTF32: x = hi + lo with hi = rna(x) and lo = rna(x - hi), rna the
-// rounding of cvt.rna.tf32.f32 (to nearest, ties away) computed as (bits +
-// 0x1000) & ~0x1fff; a b ~ lo_a hi_b + hi_a lo_b + hi_a hi_b, in that order,
-// into the f32 accumulator (lo_a lo_b, about 2^-22 relative, is dropped).
-// The tensor cores truncate as they accumulate, so no accumulator chains
-// across tiles (tile_pv). Plain TF32 keeps
-// 11 significant bits: an error of about 4e-4 of max |o| at L = 1024, D =
-// 128 (tests/test_torch_attention_tc.py), over the 1e-5 the kernels are held
-// to; the split keeps f32-class accuracy (5e-7 there).
-//
-// Why mma.sync and not wgmma: wgmma takes tf32 operands only K-major from
-// shared memory, so p v would need v transposed into shared memory, and the
-// split needs lo tiles of k and v beside the hi ones, which at D = 128
-// doubles the ring past the 227 KB a block may use. mma.sync takes its
-// operands from registers, where the split is made.
+// 3xTF32 and why mma.sync, not wgmma: tc_common.cuh. The tensor cores
+// truncate as they accumulate, so no accumulator chains across tiles
+// (tile_pv). Plain TF32 keeps 11 significant bits: an error of about 4e-4
+// of max |o| at L = 1024, D = 128 (tests/test_torch_attention_tc.py), over
+// the 1e-5 the kernels are held to; the split keeps f32-class accuracy (5e-7
+// there). At D = 128 the split's lo tiles of k and v would double the ring
+// past the 227 KB a block may use, one more reason the split is made in
+// registers.
 //
 // The ring: kStages K+V tile pairs behind the q tile; tile i + kStages - 1 is
 // fetched with cp.async.cg (16 bytes, L1 bypassed) right after the barrier
@@ -62,13 +55,18 @@
 //
 // The two kernels differ in their walk (which tiles, which masks) and in how
 // they treat masked scores; each keeps its own __global__ so the profiler
-// sums them apart (chip_smoke.py keys "flash_fwd" and "splash_fwd").
+// sums them apart (chip_smoke.py keys "flash_fwd" and "splash_fwd"). The dQ
+// core (attn_dq_tc.cuh) reuses the tiles, the ring and both products here.
 #pragma once
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "tc_common.cuh"
+
 namespace dl4j_attn_tc {
+
+using namespace dl4j_tc;
 
 constexpr int kRows = 128;          // query rows per block
 constexpr int kKeys = 64;           // keys per K/V tile
@@ -90,29 +88,6 @@ struct Fwd {
   static constexpr int kVM = kNT / kG;      // v loads per key row
 };
 
-template <int D>
-__device__ __forceinline__ int at(int row, int chunk) {
-  const int f = D >= 32 ? ((row & 6) ^ ((row & 1) << 2)) : ((row >> 1) & 3);
-  return row * D + 4 * (chunk ^ f);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool in) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(in ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // Rows [row0, row0 + N) of one (b, h) slice (src points at its row 0) into
 // a swizzled [N][D] tile; rows past L are zeros.
 template <int D, int N>
@@ -132,47 +107,15 @@ __device__ __forceinline__ void copy_tile(float* tile,
   }
 }
 
-// x rounded to tf32, to nearest with ties away from zero: the bits of
-// cvt.rna.tf32.f32 for every finite x, in two integer operations (ptxas
-// expands the cvt into four, with a NaN test these inputs never need)
-__device__ __forceinline__ uint32_t tf32(float x) {
-  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += a b in 3xTF32, a = ah + al split already, b = (b0, b1) split here
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
-                                     const uint32_t (&al)[4], float b0,
-                                     float b1) {
-  uint32_t h0, l0, h1, l1;
-  split(b0, h0, l0);
-  split(b1, h1, l1);
-  mma(d, al, h0, h1);
-  mma(d, ah, l0, l1);
-  mma(d, ah, h0, h1);
-}
-
-// s = q k^T of the warp's 16 rows (from row w of the q tile) and one 64-key
-// tile, two k-steps (one float4 of q and of k) per iteration. The loop stays
-// rolled: unrolled twice, it took the same time with the same spills.
-template <int D>
+// s = q k^T of the warp's 16 rows (from row w of the q tile) and one tile of
+// 8 NK keys, two k-steps (one float4 of q and of k) per iteration. The loop
+// stays rolled: unrolled twice, it took the same time with the same spills.
+template <int D, int NK = kKeys / 8>
 __device__ __forceinline__ void tile_scores(const float* q_s, int w,
                                             const float* k_s, int g, int t,
-                                            float (&s)[8][4]) {
+                                            float (&s)[NK][4]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < NK; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll 1
@@ -191,7 +134,7 @@ __device__ __forceinline__ void tile_scores(const float* q_s, int w,
     split(q0.w, ah[1][2], al[1][2]);
     split(q1.w, ah[1][3], al[1][3]);
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NK; ++j) {
       const float4 kv =
           *reinterpret_cast<const float4*>(k_s + at<D>(8 * j + g, 4 * i + t));
       mma3(s[j], ah[0], al[0], kv.x, kv.y);
@@ -200,13 +143,13 @@ __device__ __forceinline__ void tile_scores(const float* q_s, int w,
   }
 }
 
-// acc = acc * alpha + p v of the warp's 16 rows and one 64-key tile, p in s,
-// alpha[r] the rescale of row g + 8 r. Each tile's p v sums in fresh
+// acc = acc * alpha + p v of the warp's 16 rows and one tile of 8 NK keys, p
+// in s, alpha[r] the rescale of row g + 8 r. Each tile's p v sums in fresh
 // accumulators and meets acc in one rounded f32 fma: the tensor cores
 // truncate as they accumulate, and a chain through every tile of a long row
 // drifts past the 1e-5 gate (L = 2048, full), a chain of one tile does not.
-template <int D>
-__device__ __forceinline__ void tile_pv(const float (&s)[8][4],
+template <int D, int NK = kKeys / 8>
+__device__ __forceinline__ void tile_pv(const float (&s)[NK][4],
                                         const float* v_s, int g, int t,
                                         const float (&alpha)[2],
                                         float (&acc)[D / 8][4]) {
@@ -220,7 +163,7 @@ __device__ __forceinline__ void tile_pv(const float (&s)[8][4],
 #pragma unroll
       for (int e = 0; e < 4; ++e) part[p][e] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int j = 0; j < NK; ++j) {
       uint32_t ph[4], pl[4];
       split(s[j][0], ph[0], pl[0]);
       split(s[j][2], ph[1], pl[1]);
@@ -288,17 +231,26 @@ int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
-// Registers, local (spill) bytes per thread and dynamic shared bytes of a
-// kernel as the loaded binary has them.
-template <typename Kernel>
-int attrs(Kernel kernel, size_t smem, int* out) {
-  cudaFuncAttributes a;
-  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)smem;
-  return 0;
+// Row g + 8 r of the warp's output fragments acc (the head dims of p v's
+// relabelling), times mul, into out[0 .. D): dims 8 G mm + 2 G t + x, x < 2 G,
+// are n-tile G mm + x % G, column 2t (x < G) or 2t + 1, so each lane writes
+// 2 G consecutive floats per mm.
+template <int D>
+__device__ __forceinline__ void store_row(float* out,
+                                          const float (&acc)[D / 8][4],
+                                          int r, int t, float mul) {
+  constexpr int G = Fwd<D>::kG;
+#pragma unroll
+  for (int mm = 0; mm < Fwd<D>::kVM; ++mm) {
+    float w[2 * G];
+#pragma unroll
+    for (int x = 0; x < 2 * G; ++x)
+      w[x] = acc[G * mm + x % G][2 * r + x / G] * mul;
+#pragma unroll
+    for (int x = 0; x < 2 * G; x += 4)
+      *reinterpret_cast<float4*>(out + 8 * G * mm + 2 * G * t + x) =
+          make_float4(w[x], w[x + 1], w[x + 2], w[x + 3]);
+  }
 }
 
 // The forward of the block's 128 query rows from q0 of head h, batch row b,
@@ -315,7 +267,6 @@ __device__ __forceinline__ void attn_fwd(
     const Walk& walk, float mask, float* smem) {
   constexpr int T = Fwd<D>::kTile;
   constexpr int NT = Fwd<D>::kNT;
-  constexpr int G = Fwd<D>::kG;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
@@ -401,21 +352,7 @@ __device__ __forceinline__ void attn_fwd(
     lr += __shfl_xor_sync(0xffffffffu, lr, 2);
     const int row = w0 + g + 8 * r;
     if (row >= L) continue;
-    const float inv = 1.f / lr;
-    float* out = o + base + row * rs;
-#pragma unroll
-    for (int mm = 0; mm < Fwd<D>::kVM; ++mm) {
-      // dims 8 G mm + 2 G t + x, x < 2 G: n-tile G mm + x % G, column 2t
-      // (x < G) or 2t + 1
-      float w[2 * G];
-#pragma unroll
-      for (int x = 0; x < 2 * G; ++x)
-        w[x] = acc[G * mm + x % G][2 * r + x / G] * inv;
-#pragma unroll
-      for (int x = 0; x < 2 * G; x += 4)
-        *reinterpret_cast<float4*>(out + 8 * G * mm + 2 * G * t + x) =
-            make_float4(w[x], w[x + 1], w[x + 2], w[x + 3]);
-    }
+    store_row<D>(o + base + row * rs, acc, r, t, 1.f / lr);
     if (t == 0) lse[lbase + row] = m[r] + logf(lr);
   }
 }

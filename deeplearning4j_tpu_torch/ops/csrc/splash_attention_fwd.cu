@@ -44,29 +44,9 @@ using namespace dl4j_attn_tc;
 using dl4j_splash::BlockRow;
 using dl4j_splash::kBlock;
 using dl4j_splash::kMaskValue;
+using SplashWalk = dl4j_splash::SplashWalk<kKeys>;
 
 static_assert(kBlock == kRows, "one CUDA block per q block of the table");
-
-// The walk of one row of the forward block list: two 64-key tiles per listed
-// kv block; masked scores take the mask value, which takes part in max and
-// sum as in the library.
-struct SplashWalk {
-  static constexpr bool kFlash = false;
-  const int* blocks;
-  const int* kinds;
-  int n;
-  __device__ int count() const { return 2 * n; }
-  __device__ int key0(int i) const {
-    return __ldg(blocks + (i >> 1)) * kBlock + (i & 1) * kKeys;
-  }
-  __device__ int mode(int i, int w0) const {
-    if (__ldg(kinds + (i >> 1)) != 1) return 0;
-    const int k0 = key0(i);
-    if (k0 > w0 + 15) return -1;
-    return k0 + kKeys - 1 > w0 ? 1 : 0;
-  }
-  __device__ bool keep(int row, int col) const { return row >= col; }
-};
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)

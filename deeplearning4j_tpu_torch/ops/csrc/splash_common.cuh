@@ -1,6 +1,7 @@
 // What the splash-attention kernels (splash_attention_fwd.cu,
 // splash_attention_bwd.cu) share beyond the flash tiles of flash_common.cuh:
-// the block list a CUDA block walks, the mask value, and p / ds of one tile.
+// the block list a CUDA block walks, the walk of the tensor-core cores, the
+// mask value, and p / ds of one tile for the SIMT dK/dV kernel.
 //
 // Block lists (ops/splash_mask.py `BlockList`): counts [R, n], blocks and
 // kinds [R, n, W] int32, R = 1 when every head shares the mask (else one row
@@ -39,6 +40,36 @@ __device__ __forceinline__ BlockRow block_row(const int* __restrict__ counts,
   return {blocks + at * W, kinds + at * W, counts[at]};
 }
 
+// The walk of one row of a forward or dQ block list in tiles of KT keys
+// (kBlock / KT tiles per listed kv block), in the library's order, for the
+// tensor-core cores (attn_fwd_tc.cuh, attn_dq_tc.cuh): masked scores take the
+// mask value (q is pre-scaled, so no scale), which takes part in the
+// forward's max and sum as in the library. mode(i, w0): -1 when the tile
+// adds nothing to rows w0 .. w0 + 15 (a kind-1 tile whose every key follows
+// every one of those rows), 0 when none of their scores is masked, 1 when
+// some are.
+template <int KT>
+struct SplashWalk {
+  static_assert(kBlock % KT == 0, "tiles split a block evenly");
+  static constexpr bool kFlash = false;
+  static constexpr unsigned kPer = kBlock / KT;
+  const int* blocks;
+  const int* kinds;
+  int n;
+  __device__ int count() const { return (int)kPer * n; }
+  __device__ int key0(int i) const {
+    return __ldg(blocks + (unsigned)i / kPer) * kBlock +
+           (int)((unsigned)i % kPer) * KT;
+  }
+  __device__ int mode(int i, int w0) const {
+    if (__ldg(kinds + (unsigned)i / kPer) != 1) return 0;
+    const int k0 = key0(i);
+    if (k0 > w0 + 15) return -1;
+    return k0 + KT - 1 > w0 ? 1 : 0;
+  }
+  __device__ bool keep(int row, int col) const { return row >= col; }
+};
+
 // Whether a 64 x 64 tile of a kind-1 block lies wholly above the diagonal
 // (every key after every query): its scores are all the mask value, and it
 // adds nothing where the row has any live key, which every causal row has.
@@ -48,7 +79,7 @@ __device__ __forceinline__ bool tile_masked(int kind, int q0, int k0) {
 
 // p = exp(s - lse) and ds = p (dO v^T - di) of one 64 x 64 tile at the
 // thread's rows ty + 16 i (queries from q0) and columns tx + 16 j (keys from
-// k0), into p_s (when given) and ds_s. q is pre-scaled, so s = q k^T.
+// k0), into p_s and ds_s. q is pre-scaled, so s = q k^T.
 template <int D>
 __device__ __forceinline__ void probs_and_ds(
     const float* q_s, const float* k_s, const float* v_s, const float* do_s,
@@ -67,7 +98,7 @@ __device__ __forceinline__ void probs_and_ds(
       const int c = tx + 16 * j;
       const float x = !partial || q0 + r >= k0 + c ? s[i][j] : kMaskValue;
       const float p = expf(x - lr);
-      if (p_s != nullptr) p_s[r * kSStride + c] = p;
+      p_s[r * kSStride + c] = p;
       ds_s[r * kSStride + c] = p * (dp[i][j] - dr);
     }
   }

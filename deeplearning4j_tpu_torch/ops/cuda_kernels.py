@@ -64,7 +64,8 @@ _SIGNATURES = {
         "dl4j_paged_decode_f32": [_PTR] * 6 + [_INT] * 6 + [_PTR],
         "dl4j_paged_decode_i8": [_PTR] * 8 + [_INT] * 6 + [_PTR]},
     "conv2d_bias_act": {
-        "dl4j_conv2d_bias_act_f32": [_PTR] * 5 + [_INT] * 14 + [_PTR]},
+        "dl4j_conv2d_bias_act_f32": [_PTR] * 5 + [_INT] * 14 + [_PTR],
+        "dl4j_conv2d_bias_act_attrs": [_INT, _INT, _PTR]},
     "bnap_sums": {
         "dl4j_bnap_sums_rows": [_INT] * 4,
         "dl4j_bnap_sums_f32": [_PTR] * 6 + [_INT] * 6 + [_PTR]},
@@ -81,7 +82,8 @@ _SIGNATURES = {
         "dl4j_splash_fwd_attrs": [_INT, _PTR]},
     "splash_attention_bwd": {
         "dl4j_splash_bwd_dkv_f32": [_PTR] * 11 + [_INT] * 6 + [_PTR],
-        "dl4j_splash_bwd_dq_f32": [_PTR] * 10 + [_INT] * 6 + [_PTR]},
+        "dl4j_splash_bwd_dq_f32": [_PTR] * 10 + [_INT] * 6 + [_PTR],
+        "dl4j_splash_bwd_dq_attrs": [_INT, _PTR]},
 }
 
 # activation codes of csrc/activations.cuh; "softmax" is not elementwise
@@ -145,7 +147,7 @@ def _check(name, t, dtype, shape):
 
 def _check_aligned(name, *tensors):
     """Raise unless every tensor starts on 16 bytes: kernels that copy
-    16-byte chunks (the attention forwards) need it. Fresh allocations
+    16-byte chunks (the attention forwards and splash dQ) need it. Fresh allocations
     always do; a view with an odd storage offset may not."""
     for i, t in enumerate(tensors):
         if t.data_ptr() % 16:
@@ -562,26 +564,36 @@ def flash_attention_fwd(q, k, v, *, causal, scale):
     return o, lse
 
 
-def attention_fwd_attrs(D: int) -> dict:
-    """{kernel: {"registers", "local_bytes", "smem_bytes"}} of the flash
-    (causal and full) and splash forward kernels at head dim D, as the
-    loaded binaries have them: registers per thread, local memory per
-    thread (spills and stack), dynamic shared memory per block. Needs the
-    card."""
+def _kernel_attrs(lib_name: str, fn: str, *args) -> dict:
+    """{"registers", "local_bytes", "smem_bytes"} of one kernel as the
+    loaded binary has it: registers per thread, local memory per thread
+    (spills and stack), dynamic shared memory per block."""
     out = (ctypes.c_int * 3)()
-    res = {}
-    for key, lib_name, fn, args in (
-            ("flash_fwd_causal", "flash_attention_fwd", "dl4j_flash_fwd_attrs",
-             (D, 1)),
-            ("flash_fwd_full", "flash_attention_fwd", "dl4j_flash_fwd_attrs",
-             (D, 0)),
-            ("splash_fwd", "splash_attention_fwd", "dl4j_splash_fwd_attrs",
-             (D,))):
-        lib = _lib(lib_name)
-        _raise_on(getattr(lib, fn)(*args, out), lib, fn)
-        res[key] = dict(zip(("registers", "local_bytes", "smem_bytes"),
-                            list(out)))
-    return res
+    lib = _lib(lib_name)
+    _raise_on(getattr(lib, fn)(*args, out), lib, fn)
+    return dict(zip(("registers", "local_bytes", "smem_bytes"), list(out)))
+
+
+def attention_tc_attrs(D: int) -> dict:
+    """{kernel: attrs} (as `_kernel_attrs`) of the flash (causal and full)
+    and splash forward kernels and the splash dQ kernel at head dim D, the
+    four attention kernels on the tensor cores. Needs the card."""
+    return {"flash_fwd_causal": _kernel_attrs(
+                "flash_attention_fwd", "dl4j_flash_fwd_attrs", D, 1),
+            "flash_fwd_full": _kernel_attrs(
+                "flash_attention_fwd", "dl4j_flash_fwd_attrs", D, 0),
+            "splash_fwd": _kernel_attrs(
+                "splash_attention_fwd", "dl4j_splash_fwd_attrs", D),
+            "splash_bwd_dq": _kernel_attrs(
+                "splash_attention_bwd", "dl4j_splash_bwd_dq_attrs", D)}
+
+
+def conv2d_bias_act_attrs(C: int, OC: int) -> dict:
+    """Attrs (as `_kernel_attrs`) of the conv kernel variant that C input
+    and OC output channels launch (16-byte aligned x and w). Needs the
+    card."""
+    return _kernel_attrs("conv2d_bias_act", "dl4j_conv2d_bias_act_attrs",
+                         C, OC)
 
 
 def _bwd_checks(name, q, k, v, do, lse, di, checks=_flash_checks):
@@ -828,6 +840,7 @@ def splash_attention_bwd_dq(q, k, v, do, lse, di, tables):
     B, L, H, D = _bwd_checks(
         "splash_attention_bwd_dq", q, k, v, do, lse, di,
         checks=functools.partial(_splash_checks, tables=tables))
+    _check_aligned("splash_attention_bwd_dq", q, k, v, do)
     lib = _lib("splash_attention_bwd")
     dq = torch.empty_like(q)
     with torch.cuda.device(dev):

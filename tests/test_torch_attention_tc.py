@@ -27,6 +27,19 @@ Tolerance: 2e-6 of max |reference|, five times inside the chip gate of 1e-5
 where numpy rounds, hence the headroom. Plain TF32 (hi only) misses the chip
 gate, which is why the kernels split.
 
+The splash dQ kernel (`splash_attention_bwd.cu` over `attn_dq_tc.cuh`) is
+emulated the same way: per 128-row query block the kv blocks of the dQ block
+list in tiles of 32 keys at D = 128 (64 below), s = q k^T and dp = dO v^T in
+3xTF32 (head dims in the kernels' order), kind-1 tiles filled with the mask
+value where q < k, p = exp(s - lse), ds = p (dp - di), and each tile's ds k
+summed apart and added to dq. It takes lse and o from the forward's
+emulation, as the kernels take them from the forward kernel, and is held
+against `jax.grad` of the dense default evaluated in f64 at the same 2e-6 of
+max |reference|, and against `jax.grad` of the JAX splash kernel in the
+Pallas interpreter (f32) at 4e-6: at L = 1024, full, an f32 reference's own
+error reaches 1.8e-6 of max |dq| against f64 (the emulation's 8.5e-7). The
+chip gate is 1e-5 of the largest plain gradient.
+
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_attention_tc.py
 
 prints the emulation's errors, 3xTF32 and plain TF32, at L = 1024, D = 128.
@@ -43,7 +56,8 @@ from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
 from deeplearning4j_tpu_torch.ops import splash_mask
 
 ROWS, KEYS = 128, 64  # query rows per CUDA block, keys per K/V tile
-TOL = 2e-6            # of max |reference|, for o and lse
+TOL = 2e-6            # of max |reference|, for o and lse (and dq vs f64)
+TOL_F32_DQ = 4e-6     # of max |dq| against an f32 reference of dq
 MASK = np.float32(splash_mask.DEFAULT_MASK_VALUE)
 
 
@@ -147,6 +161,48 @@ def emulate_fwd(q, k, v, *, scale=None, causal=False, tables=None,
     return o, lse
 
 
+def dq_keys(D):
+    """Keys per K/V tile of the dQ kernel (attn_dq_tc.cuh `Dq<D>::kKeys`)."""
+    return 32 if D == 128 else 64
+
+
+def emulate_splash_dq(qs, k, v, do, lse, di, tables, plain=False):
+    """dq [B, L, H, D], the gradient of the pre-scaled q, as the splash dQ
+    kernel computes it over ``tables``' dQ block list."""
+    B, L, H, D = qs.shape
+    order = head_dim_order(D)
+    keys = dq_keys(D)
+    bl = tables.lists["dq"]
+    dq = np.zeros((B, L, H, D), np.float32)
+    for b in range(B):
+        for h in range(H):
+            Q, dO = qs[b, :, h][:, order], do[b, :, h][:, order]
+            K, V = k[b, :, h], v[b, :, h]
+            Ko, Vo = K[:, order], V[:, order]
+            r = 0 if bl.counts.shape[0] == 1 else h
+            for qb in range(L // ROWS):
+                rows = qb * ROWS + np.arange(ROWS)
+                lr = lse[b, h, rows][:, None]
+                dr = di[b, h, rows][:, None]
+                acc = np.zeros((ROWS, D), np.float32)
+                for e in range(bl.counts[r, qb]):
+                    kind = int(bl.kinds[r, qb, e])
+                    for sub in range(ROWS // keys):
+                        k0 = int(bl.blocks[r, qb, e]) * ROWS + sub * keys
+                        cols = k0 + np.arange(keys)
+                        zero = np.zeros((ROWS, keys), np.float32)
+                        s = mma(zero, Q[rows], Ko[cols].T, plain)
+                        dp = mma(zero, dO[rows], Vo[cols].T, plain)
+                        if kind == 1:
+                            s = np.where(rows[:, None] >= cols[None, :], s,
+                                         MASK)
+                        ds = np.exp(s - lr) * (dp - dr)
+                        acc = acc + mma(np.zeros((ROWS, D), np.float32), ds,
+                                        K[cols], plain)
+                dq[b, rows, h] = acc
+    return dq
+
+
 def _qkv(B, L, H, D, seed):
     rng = np.random.default_rng(seed)
     return [rng.normal(size=(B, L, H, D)).astype(np.float32)
@@ -219,6 +275,43 @@ def test_splash_3xtf32_matches_jax_splash_kernel_interpreted(causal):
     assert rel_err(o, want) <= TOL, rel_err(o, want)
 
 
+def splash_dq_errors(L, causal, seed, plain=False):
+    """max |diff| / max |reference| of the dQ emulation's gradient of q
+    against jax.grad of the JAX splash kernel in the Pallas interpreter (f32)
+    and of the dense default in f64, at [1, L, 1, 128]."""
+    q, k, v, qs, scale, tables = _splash_inputs(L, causal, seed, H=1)
+    do = np.random.default_rng(seed + 1).normal(size=q.shape).astype(
+        np.float32)
+    o, lse = emulate_fwd(qs, k, v, tables=tables)
+    di = np.einsum("blhd,blhd->bhl", o, do).astype(np.float32)
+    got = emulate_splash_dq(qs, k, v, do, lse, di, tables, plain) * np.float32(
+        scale)
+    jq, jk, jv, jdo = (jnp.asarray(x) for x in (q, k, v, do))
+
+    def dense(q, k, v, do):
+        return jnp.sum(jhelpers._attention_default(
+            q, k, v, causal=causal, scale=scale) * do)
+
+    def splash(q):
+        return jnp.sum(pk._splash_call(q, jk, jv, causal, None) * jdo)
+    old = pk._INTERPRET
+    pk._INTERPRET = True
+    try:
+        want_splash = np.asarray(jax.grad(splash)(jq))
+    finally:
+        pk._INTERPRET = old
+    with jax.enable_x64(True):
+        want_dense = np.asarray(jax.grad(dense)(
+            *(jnp.asarray(x, jnp.float64) for x in (q, k, v, do))))
+    return rel_err(got, want_splash), rel_err(got, want_dense)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_splash_dq_3xtf32_matches_jax(causal):
+    e_splash, e_dense = splash_dq_errors(1024, causal, seed=9)
+    assert e_splash <= TOL_F32_DQ and e_dense <= TOL, (e_splash, e_dense)
+
+
 def test_plain_tf32_misses_the_chip_gate():
     """hi alone rounds each product's inputs to 11 significant bits: the
     error lands far over chip_smoke.py's 1e-5, so the kernels split."""
@@ -257,3 +350,9 @@ if __name__ == "__main__":
         eo, el = flash_errors(1, 1024, 1, 128, True, seed=0, plain=plain)
         print(f"{'plain TF32' if plain else '3xTF32'} flash causal [1, 1024, "
               f"1, 128]: max|diff|/max|ref| o {eo!r}, lse {el!r}")
+        for causal in (True, False):
+            es, ed = splash_dq_errors(1024, causal, seed=9, plain=plain)
+            print(f"{'plain TF32' if plain else '3xTF32'} splash dq "
+                  f"{'causal' if causal else 'full'} [1, 1024, 1, 128]: "
+                  f"max|diff|/max|ref| vs the JAX splash kernel {es!r}, vs "
+                  f"the dense default in f64 {ed!r}")

@@ -10,8 +10,9 @@ non-zero without them, or when any phase fails. Phases:
      (one nvcc per source, all started together); prints ptxas's register
      and spill lines, and the registers, local (spill) bytes and dynamic
      shared memory, as loaded, of the kernels on the tensor cores: the two
-     forward attention kernels and splash dQ at each head dim, and the conv
-     kernel's variants at AlexNet's and LeNet's channel counts;
+     forward attention kernels, the two dK/dV kernels and splash dQ at each
+     head dim, and the conv kernel's variants at AlexNet's and LeNet's
+     channel counts;
   2. holds the paged-decode kernel against its plain PyTorch version on
      the card at the serving shapes (fp32 and int8 pages, MHA and GQA):
      max |diff| < 1e-4; times both with CUDA events (median of 25; before
@@ -82,13 +83,15 @@ non-zero without them, or when any phase fails. Phases:
   9. holds the three flash-attention kernels (forward, dK/dV, dQ) against
      their plain versions on the card at the LM training shapes [32, 256,
      8, 64] and [1, 8192, 4, 128] (causal) and an edge set (L = 1, 7, 129,
-     300 at D=32, full attention with B*H = 3 and causal): max |diff| /
+     300 at D=32, and L = 7, 129, 300 at D = 16, 64 and 128, full attention
+     with B*H = 3 and causal): max |diff| /
      max |plain| <= 1e-5 for o and lse, and for dq, dk and dv over the
      largest plain gradient; the gradients bitwise equal on a second
      launch. Times (as in phase 2) beside the f32 bound (operations of the
      kept (query, key) pairs at 67 TFLOP/s, or bytes), for the forward
-     also beside its 3xTF32 bound (three tf32 products per product at 495
-     TFLOP/s: it runs on the tensor cores) with the kernel's share of each,
+     and dK/dV also beside their 3xTF32 bound (three tf32 products per
+     product at 495 TFLOP/s: they run on the tensor cores) with the
+     kernel's share of each,
      and, at the two main shapes, F.scaled_dot_product_attention forward
      and forward+backward (f32, TF32 off) and the splash forward on the
      same inputs (within 1e-4 of the flash plain version). Then the
@@ -117,8 +120,8 @@ non-zero without them, or when any phase fails. Phases:
      against the flash kernels on the same inputs, two independent
      kernels (1e-4: the splash path folds the scale into q, flash scales
      the scores). Times as in phase 2 (5 calls at L = 32768) beside the
-     bound (the forward's and dQ's 3xTF32 bounds and shares as in phase 9;
-     dQ runs on the tensor cores too: 3 x 6 D per kept pair), the
+     bound (the 3xTF32 bounds and shares of all three as in phase 9: dK/dV
+     3 x 8 D per kept pair, dQ 3 x 6 D), the
      flash kernels' time at the same shape and, at the three
      main shapes, F.scaled_dot_product_attention forward and
      forward+backward (f32, TF32 off);
@@ -427,11 +430,11 @@ def bound(n_bytes, n_ops, flops_per_s=F32_FLOPS_PER_S):
 
 
 def tc_bound(r, key, n_ops, n_bytes):
-    """Kernel ``key`` (the attention forwards, splash dQ) runs its products
-    on the tensor cores in 3xTF32: three tf32 products for each f32 one, so
-    its least time there is 3 x ``n_ops`` at 495 TFLOP/s (or the bytes, if
-    more). Adds it, and the kernel's share of each bound (bound / kernel
-    ms), to ``r``."""
+    """Kernel ``key`` (the attention forwards, the dK/dV kernels, splash dQ)
+    runs its products on the tensor cores in 3xTF32: three tf32 products
+    for each f32 one, so its least time there is 3 x ``n_ops`` at 495
+    TFLOP/s (or the bytes, if more). Adds it, and the kernel's share of
+    each bound (bound / kernel ms), to ``r``."""
     r[key + "_tc_bound_ms"] = bound(n_bytes, 3 * n_ops, TF32_FLOPS_PER_S)[0]
     r[key + "_bound_share"] = r[key + "_bound_ms"] / r[key + "_ms"]
     r[key + "_tc_bound_share"] = r[key + "_tc_bound_ms"] / r[key + "_ms"]
@@ -731,6 +734,7 @@ def flash_case(ck, torch, flush, *, B, L, H, D, causal, seed, library):
             ("dq", 6 * D * pairs, 5 * big + 2 * small)):
         r[name + "_bound_ms"], r[name + "_bound_by"] = bound(n_bytes, n_ops)
     tc_bound(r, "fwd", 4 * D * pairs, 4 * big + small)
+    tc_bound(r, "dkv", 8 * D * pairs, 6 * big + 2 * small)
     r["sdpa_fwd_ms"] = r["sdpa_fwd_bwd_ms"] = r["fwd_splash_ms"] = None
     if library and L % splash_mask.BLOCK == 0:
         # the splash forward (the same core) at this shape, on q pre-scaled
@@ -965,6 +969,7 @@ def splash_case(ck, torch, flush, *, B, L, H, D, causal, seed, library):
             ("dq", 6 * D * pairs, 5 * big + 2 * small)):
         r[name + "_bound_ms"], r[name + "_bound_by"] = bound(n_bytes, n_ops)
     tc_bound(r, "fwd", 4 * D * pairs, 4 * big + small)
+    tc_bound(r, "dkv", 8 * D * pairs, 6 * big + 2 * small)
     tc_bound(r, "dq", 6 * D * pairs, 5 * big + 2 * small)
     r["sdpa_fwd_ms"] = r["sdpa_fwd_bwd_ms"] = None
     if library:
@@ -1342,8 +1347,10 @@ def main():
     failures = []
     flash_main = [dict(B=32, L=256, H=8, D=64, causal=True),
                   dict(B=1, L=8192, H=4, D=128, causal=True)]
-    flash_edge = [dict(B=b, L=L, H=h, D=32, causal=c)
-                  for L in (1, 7, 129, 300)
+    # every head dim of the tensor-core dK/dV walk meets its odd-L masks
+    flash_edge = [dict(B=b, L=L, H=h, D=d, causal=c)
+                  for d in (32, 16, 64, 128)
+                  for L in ((1, 7, 129, 300) if d == 32 else (7, 129, 300))
                   for b, h, c in ((3, 1, False), (1, 3, True))]
     flash_cases = []
     for i, c in enumerate(flash_main + flash_edge):
@@ -1369,7 +1376,10 @@ def main():
                  f"{r['fwd_bound_share']:.3f} and "
                  f"{r['fwd_tc_bound_share']:.3f}), dkv "
                  f"{r['dkv_ms']:.4f} / {r['dkv_plain_ms']:.4f} / "
-                 f"{r['dkv_bound_ms']:.4f} ({r['dkv_bound_by']}), dq "
+                 f"{r['dkv_bound_ms']:.4f} ({r['dkv_bound_by']}; 3xTF32 "
+                 f"{r['dkv_tc_bound_ms']:.4f}; shares "
+                 f"{r['dkv_bound_share']:.3f} and "
+                 f"{r['dkv_tc_bound_share']:.3f}), dq "
                  f"{r['dq_ms']:.4f} / {r['dq_plain_ms']:.4f} / "
                  f"{r['dq_bound_ms']:.4f} ({r['dq_bound_by']}){lib} [{card}]")
         if not (max(e.values()) <= 1e-5 and r["repeat_bitwise"]
@@ -1498,7 +1508,9 @@ def main():
                   f"{r['fwd_tc_bound_share']:.3f}), dkv "
                   f"{r['dkv_ms']:.4f} / {r['dkv_plain_ms']:.4f} / "
                   f"{r['dkv_flash_ms']:.4f} / {r['dkv_bound_ms']:.4f} "
-                  f"({r['dkv_bound_by']}), dq {r['dq_ms']:.4f} / "
+                  f"({r['dkv_bound_by']}; 3xTF32 {r['dkv_tc_bound_ms']:.4f}; "
+                  f"shares {r['dkv_bound_share']:.3f} and "
+                  f"{r['dkv_tc_bound_share']:.3f}), dq {r['dq_ms']:.4f} / "
                   f"{r['dq_plain_ms']:.4f} / {r['dq_flash_ms']:.4f} / "
                   f"{r['dq_bound_ms']:.4f} ({r['dq_bound_by']}; 3xTF32 "
                   f"{r['dq_tc_bound_ms']:.4f}; shares "
@@ -1691,8 +1703,10 @@ def main():
             "bound_by": long_case[key + "_bound_by"],
             "library_ms": (BLOCKS * long_case["sdpa_fwd_ms"] if key == "fwd"
                            else None)})
-        if key == "fwd":
-            kernels[-1]["tc_bound_ms"] = BLOCKS * long_case["fwd_tc_bound_ms"]
+        if key in ("fwd", "dkv"):
+            kernels[-1]["tc_bound_ms"] = (BLOCKS
+                                          * long_case[key + "_tc_bound_ms"])
+            kernels[-1]["tc_bound_share"] = long_case[key + "_tc_bound_share"]
     # the splash kernels: per transformer_lm_32k train step at [1, 32768,
     # 4, 128] (8 forward launches under remat, 4 dK/dV, 4 dQ); launches of
     # the whole 32k run; max |diff| over the two L = 32768 shapes
@@ -1721,7 +1735,7 @@ def main():
             "bound_by": path_case[key + "_bound_by"],
             "library_ms": (n * path_case["sdpa_fwd_ms"] if key == "fwd"
                            else None)})
-        if key in ("fwd", "dq"):
+        if key in ("fwd", "dkv", "dq"):
             kernels[-1]["tc_bound_ms"] = n * path_case[key + "_tc_bound_ms"]
             kernels[-1]["tc_bound_share"] = path_case[key + "_tc_bound_share"]
     print("[details] " + json.dumps(

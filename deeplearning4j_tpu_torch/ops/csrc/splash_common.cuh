@@ -1,7 +1,6 @@
 // What the splash-attention kernels (splash_attention_fwd.cu,
-// splash_attention_bwd.cu) share beyond the flash tiles of flash_common.cuh:
-// the block list a CUDA block walks, the walk of the tensor-core cores, the
-// mask value, and p / ds of one tile for the SIMT dK/dV kernel.
+// splash_attention_bwd.cu) share: the block list a CUDA block walks, the
+// walks of the tensor-core cores over it, and the mask value.
 //
 // Block lists (ops/splash_mask.py `BlockList`): counts [R, n], blocks and
 // kinds [R, n, W] int32, R = 1 when every head shares the mask (else one row
@@ -15,14 +14,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "flash_common.cuh"
+#include "flash_common.cuh"  // dl4j_cuda_error_string
 
 namespace dl4j_splash {
 
-using namespace dl4j_flash;
-
 constexpr int kBlock = 128;  // the table's block (BlockSizes.get_default())
-constexpr int kHalves = kBlock / kTile;  // 64-row compute tiles per block
 // -0.7 * float32 max, rounded once to float as the library's jnp.where does
 constexpr float kMaskValue = (float)(-0.7 * 3.4028234663852886e38);
 
@@ -70,39 +66,22 @@ struct SplashWalk {
   __device__ bool keep(int row, int col) const { return row >= col; }
 };
 
-// Whether a 64 x 64 tile of a kind-1 block lies wholly above the diagonal
-// (every key after every query): its scores are all the mask value, and it
-// adds nothing where the row has any live key, which every causal row has.
-__device__ __forceinline__ bool tile_masked(int kind, int q0, int k0) {
-  return kind == 1 && k0 > q0 + kTile - 1;
-}
-
-// p = exp(s - lse) and ds = p (dO v^T - di) of one 64 x 64 tile at the
-// thread's rows ty + 16 i (queries from q0) and columns tx + 16 j (keys from
-// k0), into p_s and ds_s. q is pre-scaled, so s = q k^T.
-template <int D>
-__device__ __forceinline__ void probs_and_ds(
-    const float* q_s, const float* k_s, const float* v_s, const float* do_s,
-    const float* lse_s, const float* di_s, float* p_s, float* ds_s, int q0,
-    int k0, bool partial, int ty, int tx) {
-  float s[kSub][kSub], dp[kSub][kSub];
-  tile_dot<D>(q_s, k_s, ty, tx, s);
-  tile_dot<D>(do_s, v_s, ty, tx, dp);
-#pragma unroll
-  for (int i = 0; i < kSub; ++i) {
-    const int r = ty + 16 * i;
-    const float lr = lse_s[r];
-    const float dr = di_s[r];
-#pragma unroll
-    for (int j = 0; j < kSub; ++j) {
-      const int c = tx + 16 * j;
-      const float x = !partial || q0 + r >= k0 + c ? s[i][j] : kMaskValue;
-      const float p = expf(x - lr);
-      p_s[r * kSStride + c] = p;
-      ds_s[r * kSStride + c] = p * (dp[i][j] - dr);
-    }
+// The walk of one row of the dK/dV block list for the dK/dV core
+// (attn_dkv_tc.cuh): SplashWalk's tiles, here of QT query rows (kBlock / QT
+// per listed q block), with the axes of mode() swapped. mode(i, kw0): -1
+// when the tile adds nothing to keys kw0 .. kw0 + 15 (a kind-1 tile whose
+// every query precedes all of those keys: their scores are all the mask
+// value, p = 0), 0 when none of their pairs is masked, 1 when some are.
+template <int QT>
+struct SplashDkvWalk : SplashWalk<QT> {
+  __device__ int q0(int i) const { return this->key0(i); }
+  __device__ int mode(int i, int kw0) const {
+    if (__ldg(this->kinds + (unsigned)i / this->kPer) != 1) return 0;
+    const int first = q0(i);
+    if (first + QT - 1 < kw0) return -1;
+    return first < kw0 + 15 ? 1 : 0;
   }
-}
+};
 
 inline bool bad_dims(int B, int L, int H, int R, int W) {
   return B < 1 || L < kBlock || L % kBlock || H < 1 || B > 65535 ||

@@ -76,14 +76,16 @@ _SIGNATURES = {
         "dl4j_flash_fwd_attrs": [_INT, _INT, _PTR]},
     "flash_attention_bwd": {
         "dl4j_flash_bwd_dkv_f32": [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _PTR],
-        "dl4j_flash_bwd_dq_f32": [_PTR] * 7 + [_INT] * 5 + [_FLOAT, _PTR]},
+        "dl4j_flash_bwd_dq_f32": [_PTR] * 7 + [_INT] * 5 + [_FLOAT, _PTR],
+        "dl4j_flash_bwd_dkv_attrs": [_INT, _INT, _PTR]},
     "splash_attention_fwd": {
         "dl4j_splash_fwd_f32": [_PTR] * 8 + [_INT] * 6 + [_PTR],
         "dl4j_splash_fwd_attrs": [_INT, _PTR]},
     "splash_attention_bwd": {
         "dl4j_splash_bwd_dkv_f32": [_PTR] * 11 + [_INT] * 6 + [_PTR],
         "dl4j_splash_bwd_dq_f32": [_PTR] * 10 + [_INT] * 6 + [_PTR],
-        "dl4j_splash_bwd_dq_attrs": [_INT, _PTR]},
+        "dl4j_splash_bwd_dq_attrs": [_INT, _PTR],
+        "dl4j_splash_bwd_dkv_attrs": [_INT, _PTR]},
 }
 
 # activation codes of csrc/activations.cuh; "softmax" is not elementwise
@@ -147,8 +149,9 @@ def _check(name, t, dtype, shape):
 
 def _check_aligned(name, *tensors):
     """Raise unless every tensor starts on 16 bytes: kernels that copy
-    16-byte chunks (the attention forwards and splash dQ) need it. Fresh allocations
-    always do; a view with an odd storage offset may not."""
+    16-byte chunks (the attention forwards, the dK/dV kernels and splash dQ)
+    need it. Fresh allocations always do; a view with an odd storage offset
+    may not."""
     for i, t in enumerate(tensors):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: input {i} does not start on 16 bytes "
@@ -575,15 +578,21 @@ def _kernel_attrs(lib_name: str, fn: str, *args) -> dict:
 
 
 def attention_tc_attrs(D: int) -> dict:
-    """{kernel: attrs} (as `_kernel_attrs`) of the flash (causal and full)
-    and splash forward kernels and the splash dQ kernel at head dim D, the
-    four attention kernels on the tensor cores. Needs the card."""
+    """{kernel: attrs} (as `_kernel_attrs`) of the attention kernels on the
+    tensor cores at head dim D: the flash forward and dK/dV (causal and
+    full), the splash forward, dK/dV and dQ. Needs the card."""
     return {"flash_fwd_causal": _kernel_attrs(
                 "flash_attention_fwd", "dl4j_flash_fwd_attrs", D, 1),
             "flash_fwd_full": _kernel_attrs(
                 "flash_attention_fwd", "dl4j_flash_fwd_attrs", D, 0),
             "splash_fwd": _kernel_attrs(
                 "splash_attention_fwd", "dl4j_splash_fwd_attrs", D),
+            "flash_bwd_dkv_causal": _kernel_attrs(
+                "flash_attention_bwd", "dl4j_flash_bwd_dkv_attrs", D, 1),
+            "flash_bwd_dkv_full": _kernel_attrs(
+                "flash_attention_bwd", "dl4j_flash_bwd_dkv_attrs", D, 0),
+            "splash_bwd_dkv": _kernel_attrs(
+                "splash_attention_bwd", "dl4j_splash_bwd_dkv_attrs", D),
             "splash_bwd_dq": _kernel_attrs(
                 "splash_attention_bwd", "dl4j_splash_bwd_dq_attrs", D)}
 
@@ -618,6 +627,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal, scale):
         return flash_attention_bwd_dkv_ref(q, k, v, do, lse, di,
                                            causal=causal, scale=scale)
     B, L, H, D = _bwd_checks("flash_attention_bwd_dkv", q, k, v, do, lse, di)
+    _check_aligned("flash_attention_bwd_dkv", q, k, v, do)
     lib = _lib("flash_attention_bwd")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -813,6 +823,7 @@ def splash_attention_bwd_dkv(q, k, v, do, lse, di, tables):
     B, L, H, D = _bwd_checks(
         "splash_attention_bwd_dkv", q, k, v, do, lse, di,
         checks=functools.partial(_splash_checks, tables=tables))
+    _check_aligned("splash_attention_bwd_dkv", q, k, v, do)
     lib = _lib("splash_attention_bwd")
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)

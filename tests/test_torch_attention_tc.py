@@ -40,6 +40,19 @@ Pallas interpreter (f32) at 4e-6: at L = 1024, full, an f32 reference's own
 error reaches 1.8e-6 of max |dq| against f64 (the emulation's 8.5e-7). The
 chip gate is 1e-5 of the largest plain gradient.
 
+The dK/dV kernels (`splash_attention_bwd.cu` and `flash_attention_bwd.cu`
+over `attn_dkv_tc.cuh`) are emulated with the axes swapped: per block of
+128 keys the query tiles of the kernel's walk, 32 rows at D = 128 (64
+below) — splash: the dK/dV block list, kind-1 tiles filled with the mask
+value where q < k; flash: from the diagonal tile on when causal, the scale
+on s and on dk, -inf for pairs past L or above the diagonal — s^T = k q^T
+and dp^T = v dO^T in 3xTF32 (head dims in the kernels' order), p^T =
+exp(s^T - lse), ds^T = p^T (dp^T - di), and each tile's p^T dO and ds^T q
+summed apart and added to dv and dk. Held, over the larger of max |dk| and
+max |dv| of the reference, against `jax.grad` of the dense default in f64
+at 2e-6 (flash and splash) and of the JAX splash kernel in the Pallas
+interpreter (f32) at 4e-6 (the JAX flash kernel runs on a TPU only).
+
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_attention_tc.py
 
 prints the emulation's errors, 3xTF32 and plain TF32, at L = 1024, D = 128.
@@ -161,8 +174,10 @@ def emulate_fwd(q, k, v, *, scale=None, causal=False, tables=None,
     return o, lse
 
 
-def dq_keys(D):
-    """Keys per K/V tile of the dQ kernel (attn_dq_tc.cuh `Dq<D>::kKeys`)."""
+def streamed_rows(D):
+    """Rows per streamed tile of the backward kernels: keys per K/V tile of
+    dQ (attn_dq_tc.cuh `Dq<D>::kKeys`), query rows per q/dO tile of dK/dV
+    (attn_dkv_tc.cuh `Dkv<D>::kQT`)."""
     return 32 if D == 128 else 64
 
 
@@ -171,7 +186,7 @@ def emulate_splash_dq(qs, k, v, do, lse, di, tables, plain=False):
     kernel computes it over ``tables``' dQ block list."""
     B, L, H, D = qs.shape
     order = head_dim_order(D)
-    keys = dq_keys(D)
+    keys = streamed_rows(D)
     bl = tables.lists["dq"]
     dq = np.zeros((B, L, H, D), np.float32)
     for b in range(B):
@@ -201,6 +216,64 @@ def emulate_splash_dq(qs, k, v, do, lse, di, tables, plain=False):
                                         K[cols], plain)
                 dq[b, rows, h] = acc
     return dq
+
+
+def emulate_dkv(q, k, v, do, lse, di, *, scale=None, causal=False,
+                tables=None, plain=False):
+    """(dk, dv) [B, L, H, D] as the dK/dV kernels compute them: flash with
+    ``scale`` when ``tables`` is None, else splash (q pre-scaled) over
+    ``tables``' dK/dV block list."""
+    B, L, H, D = q.shape
+    order = head_dim_order(D)
+    qt = streamed_rows(D)
+    nk = -(-L // ROWS)
+    pad = nk * ROWS - L
+    bl = None if tables is None else tables.lists["dkv"]
+    dk = np.zeros((B, L, H, D), np.float32)
+    dv = np.zeros((B, L, H, D), np.float32)
+    for b in range(B):
+        for h in range(H):
+            Q, K, V, dO = (np.pad(x[b, :, h], ((0, pad), (0, 0)))
+                           for x in (q, k, v, do))
+            lr, dr = (np.pad(x[b, h], (0, pad)) for x in (lse, di))
+            Qo, Ko, Vo, dOo = (x[:, order] for x in (Q, K, V, dO))
+            for kb in range(nk):
+                keys = kb * ROWS + np.arange(ROWS)
+                if bl is None:
+                    first = kb * ROWS // qt if causal else 0
+                    tiles = [(qt * i, 0) for i in range(first, -(-L // qt))]
+                else:
+                    r = 0 if bl.counts.shape[0] == 1 else h
+                    tiles = [(int(bl.blocks[r, kb, e]) * ROWS + sub * qt,
+                              int(bl.kinds[r, kb, e]))
+                             for e in range(bl.counts[r, kb])
+                             for sub in range(ROWS // qt)]
+                adk = np.zeros((ROWS, D), np.float32)
+                adv = np.zeros((ROWS, D), np.float32)
+                for q0, kind in tiles:
+                    rows = q0 + np.arange(qt)
+                    zero = np.zeros((ROWS, qt), np.float32)
+                    s = mma(zero, Ko[keys], Qo[rows].T, plain)
+                    dp = mma(zero, Vo[keys], dOo[rows].T, plain)
+                    if bl is None:
+                        s = s * np.float32(scale)
+                        keep = (rows[None, :] < L) & (keys[:, None] < L)
+                        if causal:
+                            keep = keep & (rows[None, :] >= keys[:, None])
+                        s = np.where(keep, s, np.float32(-np.inf))
+                    elif kind == 1:
+                        s = np.where(rows[None, :] >= keys[:, None], s, MASK)
+                    p = np.exp(s - lr[rows][None, :])
+                    ds = p * (dp - dr[rows][None, :])
+                    zero = np.zeros((ROWS, D), np.float32)
+                    adv = adv + mma(zero, p, dO[rows], plain)
+                    adk = adk + mma(zero, ds, Q[rows], plain)
+                if bl is None:
+                    adk = adk * np.float32(scale)
+                live = min(ROWS, L - kb * ROWS)
+                dk[b, kb * ROWS:kb * ROWS + live, h] = adk[:live]
+                dv[b, kb * ROWS:kb * ROWS + live, h] = adv[:live]
+    return dk, dv
 
 
 def _qkv(B, L, H, D, seed):
@@ -312,6 +385,92 @@ def test_splash_dq_3xtf32_matches_jax(causal):
     assert e_splash <= TOL_F32_DQ and e_dense <= TOL, (e_splash, e_dense)
 
 
+def grad_err(got, want):
+    """max |diff| of dk and of dv over the larger of max |dk| and max |dv|
+    of the reference (at L = 1 dk is 0 up to rounding)."""
+    top = max(float(np.abs(w).max()) for w in want)
+    return max(float(np.abs(g - w).max()) / top for g, w in zip(got, want))
+
+
+def dense_dkv_f64(q, k, v, do, causal, scale):
+    """jax.grad w.r.t. k and v of the JAX dense default, in f64 (jitted:
+    one compile per shape instead of one per operation)."""
+    def f(q, k, v, do):
+        return jnp.sum(jhelpers._attention_default(
+            q, k, v, causal=causal, scale=scale) * do)
+    with jax.enable_x64(True):
+        return [np.asarray(x) for x in jax.jit(jax.grad(f, (1, 2)))(
+            *(jnp.asarray(x, jnp.float64) for x in (q, k, v, do)))]
+
+
+def flash_dkv_error(B, L, H, D, causal, seed, plain=False):
+    q, k, v = _qkv(B, L, H, D, seed)
+    do = np.random.default_rng(seed + 1).normal(size=q.shape).astype(
+        np.float32)
+    scale = D ** -0.5
+    o, lse = emulate_fwd(q, k, v, scale=scale, causal=causal)
+    di = np.einsum("blhd,blhd->bhl", o, do).astype(np.float32)
+    got = emulate_dkv(q, k, v, do, lse, di, scale=scale, causal=causal,
+                      plain=plain)
+    return grad_err(got, dense_dkv_f64(q, k, v, do, causal, scale))
+
+
+@pytest.mark.parametrize(
+    "causal, L, D", [(c, L, D) for c in (True, False)
+                     for L in (1, 7, 129, 300) for D in (16, 64, 128)]
+    + [(True, 1024, 128)],
+    ids=lambda x: ("causal" if x else "full") if isinstance(x, bool)
+    else str(x))
+def test_flash_dkv_3xtf32_matches_jax_default(causal, L, D):
+    B, H = ((1, 3) if causal else (3, 1)) if L < 1024 else (1, 1)
+    err = flash_dkv_error(B, L, H, D, causal, seed=L * 10 + D)
+    assert err <= TOL, err
+
+
+def splash_dkv_errors(L, causal, seed, D=128, plain=False):
+    """The dK/dV emulation's (dk, dv) against jax.grad of the JAX splash
+    kernel in the Pallas interpreter (f32) and of the dense default in f64,
+    at [1, L, 1, D]."""
+    q, k, v, qs, scale, tables = _splash_inputs(L, causal, seed, H=1, D=D)
+    kinds = tables.lists["dkv"].kinds[tables.lists["dkv"].kinds > 0]
+    assert set(kinds.tolist()) == ({1, 2} if causal else {2})
+    do = np.random.default_rng(seed + 1).normal(size=q.shape).astype(
+        np.float32)
+    o, lse = emulate_fwd(qs, k, v, tables=tables)
+    di = np.einsum("blhd,blhd->bhl", o, do).astype(np.float32)
+    got = emulate_dkv(qs, k, v, do, lse, di, tables=tables, plain=plain)
+    jq, jdo = jnp.asarray(q), jnp.asarray(do)
+
+    def splash(k, v):
+        return jnp.sum(pk._splash_call(jq, k, v, causal, None) * jdo)
+    old = pk._INTERPRET
+    pk._INTERPRET = True
+    try:
+        want = [np.asarray(x) for x in jax.grad(splash, (0, 1))(
+            jnp.asarray(k), jnp.asarray(v))]
+    finally:
+        pk._INTERPRET = old
+    return (grad_err(got, want),
+            grad_err(got, dense_dkv_f64(q, k, v, do, causal, scale)))
+
+
+@pytest.mark.parametrize("L, D, causal", [(1024, 128, True),
+                                          (1024, 128, False),
+                                          (512, 64, True)],
+                         ids=["causal-1024-128", "full-1024-128",
+                              "causal-512-64"])
+def test_splash_dkv_3xtf32_matches_jax(L, D, causal):
+    e_splash, e_dense = splash_dkv_errors(L, causal, seed=13 + D, D=D)
+    assert e_splash <= TOL_F32_DQ and e_dense <= TOL, (e_splash, e_dense)
+
+
+def test_plain_tf32_dkv_misses_the_chip_gate():
+    """hi alone: the dK/dV emulation lands over chip_smoke.py's 1e-5 of
+    the largest gradient, as the forward's does."""
+    err = flash_dkv_error(1, 1024, 1, 128, True, seed=10368, plain=True)
+    assert err > 1e-5, err
+
+
 def test_plain_tf32_misses_the_chip_gate():
     """hi alone rounds each product's inputs to 11 significant bits: the
     error lands far over chip_smoke.py's 1e-5, so the kernels split."""
@@ -335,12 +494,14 @@ def test_tf32_rounds_to_nearest_ties_away():
 
 def test_forward_wrappers_raise_for_misaligned_inputs():
     """The kernels copy 16-byte chunks: every input must start on 16
-    bytes. A view offset by one float does not."""
+    bytes. A view offset by one float does not. The dK/dV wrappers check
+    the same (q, k, v and dO)."""
     ok = torch.zeros(1, 3, 2, 64)
     ck._check_aligned("flash_attention_fwd", ok, ok, ok)
     shifted = torch.zeros(ok.numel() + 1)[1:].view(1, 3, 2, 64)
     assert shifted.is_contiguous()
-    for name in ("flash_attention_fwd", "splash_attention_fwd"):
+    for name in ("flash_attention_fwd", "splash_attention_fwd",
+                 "flash_attention_bwd_dkv", "splash_attention_bwd_dkv"):
         with pytest.raises(ValueError, match="16 bytes"):
             ck._check_aligned(name, ok, shifted, ok)
 
@@ -349,10 +510,17 @@ if __name__ == "__main__":
     for plain in (False, True):
         eo, el = flash_errors(1, 1024, 1, 128, True, seed=0, plain=plain)
         print(f"{'plain TF32' if plain else '3xTF32'} flash causal [1, 1024, "
-              f"1, 128]: max|diff|/max|ref| o {eo!r}, lse {el!r}")
+              f"1, 128]: max|diff|/max|ref| o {eo!r}, lse {el!r}; dk/dv "
+              f"{flash_dkv_error(1, 1024, 1, 128, True, 10368, plain)!r} "
+              f"of max(|dk|, |dv|) against the dense default in f64")
         for causal in (True, False):
             es, ed = splash_dq_errors(1024, causal, seed=9, plain=plain)
             print(f"{'plain TF32' if plain else '3xTF32'} splash dq "
                   f"{'causal' if causal else 'full'} [1, 1024, 1, 128]: "
                   f"max|diff|/max|ref| vs the JAX splash kernel {es!r}, vs "
                   f"the dense default in f64 {ed!r}")
+            es, ed = splash_dkv_errors(1024, causal, seed=141, plain=plain)
+            print(f"{'plain TF32' if plain else '3xTF32'} splash dk/dv "
+                  f"{'causal' if causal else 'full'} [1, 1024, 1, 128]: "
+                  f"max|diff|/max(|dk|, |dv|) vs the JAX splash kernel "
+                  f"{es!r}, vs the dense default in f64 {ed!r}")

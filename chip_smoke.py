@@ -10,19 +10,25 @@ non-zero without them, or when any phase fails. Phases:
      (one nvcc per source, all started together); prints ptxas's register
      and spill lines, and the registers, local (spill) bytes and dynamic
      shared memory, as loaded, of the kernels on the tensor cores: the two
-     forward attention kernels, the two dK/dV kernels and splash dQ at each
-     head dim, and the conv kernel's variants at AlexNet's and LeNet's
-     channel counts;
-  2. holds the paged-decode kernel against its plain PyTorch version on
-     the card at the serving shapes (fp32 and int8 pages, MHA and GQA):
-     max |diff| < 1e-4; times both with CUDA events (median of 25; before
-     each call the L2 is flushed and the device spins for about 5 ms, so
-     the host has queued the call when the first event runs, and the
-     events hold device time, not the host's launch path) beside the
-     least time the card could take (live K/V bytes at 3.35 TB/s, or f32
-     flops at 67 TFLOP/s);
-     and again at the loop bound's edge depths (0, either side of a page
-     boundary, full depth, the overflow sentinel 1 << 30);
+     forward attention kernels, the two dK/dV kernels and the two dQ
+     kernels at each head dim (flash causal and full), of the paged
+     decode kernels (page walk over fp32 and int8 pages, combine) at the
+     serving head dim, MHA and GQA, and the conv kernel's variants at
+     AlexNet's and LeNet's channel counts;
+  2. holds the paged-decode kernels (the page walk split over S blocks per
+     (row, kv-head), S = cuda_kernels._paged_splits of the shapes, then
+     the combine) against their plain PyTorch version on the card at the
+     serving shapes (fp32 and int8 pages, MHA and GQA): max |diff| < 1e-4
+     and the same bits on a second launch; prints S; times both with CUDA
+     events (median of 25; before each call the L2 is flushed and the
+     device spins for about 5 ms, so the host has queued the call when
+     the first event runs, and the events hold device time, not the
+     host's launch path) beside the least time the card could take (live
+     K/V bytes at 3.35 TB/s, or f32 flops at 67 TFLOP/s);
+     and again at the loop bound's and the splits' edge depths (0, either
+     side of a page boundary, either side of split 0's end, full depth,
+     the overflow sentinel 1 << 30) and at a one-page table bucket, where
+     S = 1 and the walk writes the output itself (same gates);
   3. serves the flagship transformer LM (vocab 128, d_model 512, 8 heads,
      4 blocks, RoPE, f32, random weights from a seed) through the port's
      InferenceServer: after one short warm-up request, 8 concurrent POST
@@ -80,18 +86,17 @@ non-zero without them, or when any phase fails. Phases:
      conv launch per step (conv1's kw*c = 5 < 8 declines, as in the JAX
      package), finite losses;
   8. (folded into 11);
-  9. holds the three flash-attention kernels (forward, dK/dV, dQ) against
-     their plain versions on the card at the LM training shapes [32, 256,
-     8, 64] and [1, 8192, 4, 128] (causal) and an edge set (L = 1, 7, 129,
-     300 at D=32, and L = 7, 129, 300 at D = 16, 64 and 128, full attention
-     with B*H = 3 and causal): max |diff| /
-     max |plain| <= 1e-5 for o and lse, and for dq, dk and dv over the
-     largest plain gradient; the gradients bitwise equal on a second
-     launch. Times (as in phase 2) beside the f32 bound (operations of the
-     kept (query, key) pairs at 67 TFLOP/s, or bytes), for the forward
-     and dK/dV also beside their 3xTF32 bound (three tf32 products per
-     product at 495 TFLOP/s: they run on the tensor cores) with the
-     kernel's share of each,
+  9. holds the three flash-attention kernels (forward, dK/dV, dQ, all on
+     the tensor cores in 3xTF32) against their plain versions on the card
+     at the LM training shapes [32, 256, 8, 64] and [1, 8192, 4, 128]
+     (causal) and an edge set (L = 1, 7, 129, 300 at D=32, and L = 7, 129,
+     300 at D = 16, 64 and 128, full attention with B*H = 3 and causal):
+     max |diff| / max |plain| <= 1e-5 for o and lse, and for dq, dk and dv
+     over the largest plain gradient; the gradients bitwise equal on a
+     second launch. Times (as in phase 2) beside the f32 bound (operations
+     of the kept (query, key) pairs at 67 TFLOP/s, or bytes) and the
+     3xTF32 bound (three tf32 products per product at 495 TFLOP/s) with
+     the kernel's share of each,
      and, at the two main shapes, F.scaled_dot_product_attention forward
      and forward+backward (f32, TF32 off) and the splash forward on the
      same inputs (within 1e-4 of the flash plain version). Then the
@@ -124,7 +129,10 @@ non-zero without them, or when any phase fails. Phases:
      3 x 8 D per kept pair, dQ 3 x 6 D), the
      flash kernels' time at the same shape and, at the three
      main shapes, F.scaled_dot_product_attention forward and
-     forward+backward (f32, TF32 off);
+     forward+backward (f32, TF32 off). Then, for the attention route's
+     SPLASH_MIN_LEN, the forward, dK/dV and dQ of both families at [1, L,
+     4, 128] causal for L = 8192, 16384 and 32768, timed in turns in one
+     run (no gate: the route stays as it is);
  12. trains transformer_lm at T = 32768, B = 1 (vocab 128, d_model 512, 4
      heads, Dh 128, 4 blocks, Adam 3e-4, f32, remat on, random weights
      from seed 7) for 4 steps: every loss finite, the last below the
@@ -205,17 +213,21 @@ def time_ms(fn, reps=25, warmup=3, flush=None):
     return statistics.median(times)
 
 
-def kernel_case(ck, torch, *, H, Hkv, quantized, seed):
-    """Serving shape: B=8 slots, Dh=64, block 16, table bucket nb=64,
-    random per-row depths up to 1023 over a permuted table."""
+def paged_inputs(torch, *, B, H, Hkv, nb, pos, quantized, seed):
+    """Seeded paged-decode inputs on the card, Dh = 64, block 16, over a
+    permuted table: (args, kwargs) of the wrapper. ``pos`` None draws
+    random per-row depths below nb * block."""
     from deeplearning4j_tpu_torch.ops.kvquant import quantize_kv_rows
-    B, Dh, block, nb = SLOTS, D_MODEL // HEADS, KV_BLOCK, 64
+    Dh, block = D_MODEL // HEADS, KV_BLOCK
     g = torch.Generator().manual_seed(seed)
     P = B * nb + 1
     kp = torch.randn((P, block, Hkv, Dh), generator=g)
     vp = torch.randn((P, block, Hkv, Dh), generator=g)
     table = (1 + torch.randperm(B * nb, generator=g)).reshape(B, nb).int()
-    pos = torch.randint(0, nb * block, (B,), generator=g).int()
+    if pos is None:
+        pos = torch.randint(0, nb * block, (B,), generator=g).int()
+    else:
+        pos = torch.tensor(pos, dtype=torch.int32)
     q = torch.randn((B, 1, H, Dh), generator=g)
     dev = torch.device("cuda")
     kw = {}
@@ -223,12 +235,29 @@ def kernel_case(ck, torch, *, H, Hkv, quantized, seed):
         kp, ks = quantize_kv_rows(kp)
         vp, vs = quantize_kv_rows(vp)
         kw = dict(k_scales=ks.to(dev), v_scales=vs.to(dev))
-    args = [t.to(dev) for t in (q, kp, vp, table, pos)]
+    return [t.to(dev) for t in (q, kp, vp, table, pos)], kw
+
+
+def paged_check(ck, torch, args, kw):
+    """The kernels against the plain version, and a second launch against
+    the first: (max |diff|, bitwise repeatable, finite)."""
     got = ck.paged_decode_attention(*args, **kw)
+    got2 = ck.paged_decode_attention(*args, **kw)
     want = ck.paged_decode_attention_ref(*args, **kw)
     torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    return (float((got - want).abs().max()), bool(torch.equal(got, got2)),
+            bool(torch.isfinite(got).all()))
+
+
+def kernel_case(ck, torch, *, H, Hkv, quantized, seed):
+    """Serving shape: B=8 slots, Dh=64, block 16, table bucket nb=64,
+    random per-row depths up to 1023 over a permuted table."""
+    B, Dh, nb = SLOTS, D_MODEL // HEADS, 64
+    args, kw = paged_inputs(torch, B=B, H=H, Hkv=Hkv, nb=nb, pos=None,
+                            quantized=quantized, seed=seed)
+    q, _, _, table, pos = args
+    err, repeat, finite = paged_check(ck, torch, args, kw)
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     flush = flush_buf.zero_
     ms = time_ms(lambda: ck.paged_decode_attention(*args, **kw), flush=flush)
     plain_ms = time_ms(lambda: ck.paged_decode_attention_ref(*args, **kw),
@@ -242,40 +271,37 @@ def kernel_case(ck, torch, *, H, Hkv, quantized, seed):
     flops = 4 * live * H * Dh
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS_PER_S * 1e3
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
+    return {"max_abs_err": err, "repeat_bitwise": repeat, "finite": finite,
+            "splits": ck._paged_splits(B, Hkv, nb), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "live_positions": live}
 
 
-def edge_case(ck, torch, *, H, Hkv, quantized):
-    """The kernel's loop bound on the card: rows at depth 0, either side
-    of a page boundary (15, 16), full depth, and one at the overflow
-    sentinel 1 << 30, which must walk no further than the table's nb
-    pages. Returns max |kernel - plain| over all rows."""
-    from deeplearning4j_tpu_torch.ops.kvquant import quantize_kv_rows
-    B, Dh, block, nb = 5, D_MODEL // HEADS, KV_BLOCK, 4
-    g = torch.Generator().manual_seed(11)
-    P = B * nb + 1
-    kp = torch.randn((P, block, Hkv, Dh), generator=g)
-    vp = torch.randn((P, block, Hkv, Dh), generator=g)
-    table = (1 + torch.randperm(B * nb, generator=g)).reshape(B, nb).int()
-    pos = torch.tensor([0, block - 1, block, nb * block - 1, 1 << 30],
-                       dtype=torch.int32)
-    q = torch.randn((B, 1, H, Dh), generator=g)
-    dev = torch.device("cuda")
-    kw = {}
-    if quantized:
-        kp, ks = quantize_kv_rows(kp)
-        vp, vs = quantize_kv_rows(vp)
-        kw = dict(k_scales=ks.to(dev), v_scales=vs.to(dev))
-    args = [t.to(dev) for t in (q, kp, vp, table, pos)]
-    got = ck.paged_decode_attention(*args, **kw)
-    want = ck.paged_decode_attention_ref(*args, **kw)
-    torch.cuda.synchronize()
-    if not bool(torch.isfinite(got).all()):
-        raise SystemExit("kernel output is not finite at the edge depths")
-    return float((got - want).abs().max())
+def edge_cases(ck, torch, *, H, Hkv, quantized):
+    """The kernels' loop bounds on the card, three table buckets of 5 rows:
+    nb = 4 at depths 0, either side of a page boundary (15, 16), full depth
+    and the overflow sentinel 1 << 30, which must walk no further than the
+    table's nb pages; nb = 64 at depths 0, either side of split 0's end (P
+    pages), full depth and the sentinel (rows whose later splits hold no
+    live page); nb = 1, where S = 1 and the page walk writes the output
+    itself. Returns {bucket: {depths, splits, max_abs_err, repeat_bitwise,
+    finite}}."""
+    B, block = 5, KV_BLOCK
+    out = {}
+    for nb in (4, 64, 1):
+        S = ck._paged_splits(B, Hkv, nb)
+        end = ck._paged_split_pages(nb, S) * block
+        depths = {4: [0, block - 1, block, nb * block - 1, 1 << 30],
+                  64: [0, end - 1, end, nb * block - 1, 1 << 30],
+                  1: [0, 7, block - 1, block - 1, 1 << 30]}[nb]
+        args, kw = paged_inputs(torch, B=B, H=H, Hkv=Hkv, nb=nb, pos=depths,
+                                quantized=quantized, seed=11 + nb)
+        err, repeat, finite = paged_check(ck, torch, args, kw)
+        out[f"nb={nb}"] = {"depths": depths, "splits": S,
+                           "max_abs_err": err, "repeat_bitwise": repeat,
+                           "finite": finite}
+    return out
 
 
 def divergence(net, reqs, tokens, solo):
@@ -735,6 +761,7 @@ def flash_case(ck, torch, flush, *, B, L, H, D, causal, seed, library):
         r[name + "_bound_ms"], r[name + "_bound_by"] = bound(n_bytes, n_ops)
     tc_bound(r, "fwd", 4 * D * pairs, 4 * big + small)
     tc_bound(r, "dkv", 8 * D * pairs, 6 * big + 2 * small)
+    tc_bound(r, "dq", 6 * D * pairs, 5 * big + 2 * small)
     r["sdpa_fwd_ms"] = r["sdpa_fwd_bwd_ms"] = r["fwd_splash_ms"] = None
     if library and L % splash_mask.BLOCK == 0:
         # the splash forward (the same core) at this shape, on q pre-scaled
@@ -993,6 +1020,44 @@ def splash_case(ck, torch, flush, *, B, L, H, D, causal, seed, library):
     return r
 
 
+def route_case(ck, torch, flush, L, seed, H=4, D=128):
+    """The forward, dK/dV and dQ of both attention families at [1, L, H,
+    D] causal on the same inputs (flash: q and the scale; splash: q
+    pre-scaled), each timed as in phase 2 (5 calls), the two families in
+    turns: the figures that set the route's SPLASH_MIN_LEN. Returns
+    {"L", "flash_ms": {fwd, dkv, dq, total}, "splash_ms": {...}}."""
+    from deeplearning4j_tpu_torch.ops import splash_mask
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn((1, L, H, D), generator=g).to(dev)
+                   for _ in range(4))
+    scale = D ** -0.5
+    qs = q * scale
+    tb = splash_mask.splash_tables(L, H, True)
+    o, lse = ck.flash_attention_fwd(q, k, v, causal=True, scale=scale)
+    di = (o * do).sum(dim=-1).permute(0, 2, 1).contiguous()
+    fkw = dict(causal=True, scale=scale)
+    fams = {
+        "flash": (lambda: ck.flash_attention_fwd(q, k, v, **fkw),
+                  lambda: ck.flash_attention_bwd_dkv(q, k, v, do, lse, di,
+                                                     **fkw),
+                  lambda: ck.flash_attention_bwd_dq(q, k, v, do, lse, di,
+                                                    **fkw)),
+        "splash": (lambda: ck.splash_attention_fwd(qs, k, v, tb),
+                   lambda: ck.splash_attention_bwd_dkv(qs, k, v, do, lse, di,
+                                                       tb),
+                   lambda: ck.splash_attention_bwd_dq(qs, k, v, do, lse, di,
+                                                      tb))}
+    r = {"L": L, "flash_ms": {}, "splash_ms": {}}
+    for i, name in enumerate(("fwd", "dkv", "dq")):
+        for fam in ("flash", "splash") if i % 2 == 0 else ("splash",
+                                                           "flash"):
+            r[fam + "_ms"][name] = time_ms(fams[fam][i], reps=5, flush=flush)
+    for fam in ("flash", "splash"):
+        r[fam + "_ms"]["total"] = sum(r[fam + "_ms"].values())
+    return r
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1026,6 +1091,10 @@ def main():
     # bytes per thread (spills and stack), dynamic shared memory
     attn_build = {D: ck.attention_tc_attrs(D) for D in ck.FLASH_HEAD_DIMS}
     phase(1, f"tensor-core attention kernels by head dim: {attn_build}")
+    paged_build = {f"G={g} Dh=64": ck.paged_decode_attrs(g, D_MODEL // HEADS)
+                   for g in (1, 4)}
+    phase(1, f"paged decode kernels at the serving head dim, MHA and GQA: "
+             f"{paged_build}")
     conv_build = {f"C={c} OC={oc}": ck.conv2d_bias_act_attrs(c, oc)
                   for c, oc in ((3, 64), (64, 128), (128, 256), (20, 50))}
     phase(1, f"conv2d_bias_act variants at AlexNet's and LeNet's channels: "
@@ -1038,23 +1107,30 @@ def main():
             r = kernel_case(ck, torch, H=H, Hkv=Hkv, quantized=quantized,
                             seed=len(cases))
             cases[key] = r
-            ok = r["max_abs_err"] < 1e-4
             phase(2, f"{key}: B={SLOTS} H={H} Hkv={Hkv} Dh=64 block=16 nb=64 "
-                     f"live={r['live_positions']} max|diff|={r['max_abs_err']:.3e} "
-                     f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                     f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}); library "
-                     "call: none (no single PyTorch op gathers pages and "
-                     f"attends) [{card}]")
-            if not ok:
-                raise SystemExit(f"kernel disagrees with the plain version: "
-                                 f"{key} max|diff|={r['max_abs_err']}")
-            err = edge_case(ck, torch, H=H, Hkv=Hkv, quantized=quantized)
-            cases[key]["edge_max_abs_err"] = err
-            phase(2, f"{key} edges: depths 0, 15, 16, 63 and 1 << 30 over "
-                     f"nb=4 pages: max|diff|={err:.3e}")
-            if not err < 1e-4:
+                     f"S={r['splits']} live={r['live_positions']} "
+                     f"max|diff|={r['max_abs_err']:.3e}, bitwise repeatable "
+                     f"{r['repeat_bitwise']}; kernel {r['ms']:.4f} ms, plain "
+                     f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                     f"({r['bound_by']}); library call: none (no single "
+                     f"PyTorch op gathers pages and attends) [{card}]")
+            if not (r["max_abs_err"] < 1e-4 and r["repeat_bitwise"]
+                    and r["finite"]):
                 raise SystemExit(f"kernel disagrees with the plain version "
-                                 f"at the edge depths: {key} max|diff|={err}")
+                                 f"or with itself: {key} {r}")
+            edges = edge_cases(ck, torch, H=H, Hkv=Hkv, quantized=quantized)
+            r["edges"] = edges
+            r["edge_max_abs_err"] = max(e["max_abs_err"]
+                                        for e in edges.values())
+            for bucket, e in edges.items():
+                phase(2, f"{key} edges, {bucket} (S={e['splits']}), depths "
+                         f"{e['depths']}: max|diff|={e['max_abs_err']:.3e}, "
+                         f"bitwise repeatable {e['repeat_bitwise']}")
+                if not (e["max_abs_err"] < 1e-4 and e["repeat_bitwise"]
+                        and e["finite"]):
+                    raise SystemExit(f"kernel disagrees with the plain "
+                                     f"version or with itself at the edge "
+                                     f"depths: {key} {bucket} {e}")
 
     conf = transformer_lm(vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS,
                           n_blocks=BLOCKS, rope=True, seed=7)
@@ -1381,7 +1457,10 @@ def main():
                  f"{r['dkv_bound_share']:.3f} and "
                  f"{r['dkv_tc_bound_share']:.3f}), dq "
                  f"{r['dq_ms']:.4f} / {r['dq_plain_ms']:.4f} / "
-                 f"{r['dq_bound_ms']:.4f} ({r['dq_bound_by']}){lib} [{card}]")
+                 f"{r['dq_bound_ms']:.4f} ({r['dq_bound_by']}; 3xTF32 "
+                 f"{r['dq_tc_bound_ms']:.4f}; shares "
+                 f"{r['dq_bound_share']:.3f} and "
+                 f"{r['dq_tc_bound_share']:.3f}){lib} [{card}]")
         if not (max(e.values()) <= 1e-5 and r["repeat_bitwise"]
                 and r["finite"]):
             failures.append(f"flash kernels disagree with the plain versions "
@@ -1523,6 +1602,19 @@ def main():
         if r["sdpa_fwd_ms"] is not None and not r["sdpa_rel_err"] <= 1e-4:
             failures.append(f"the SDPA yardstick computes another function "
                             f"at {r['shape']}: {r['sdpa_rel_err']}")
+
+    # the attention route's crossover: both families at three lengths
+    route = [route_case(ck, torch, flush, L, seed=700 + i)
+             for i, L in enumerate((8192, 16384, 32768))]
+    torch.cuda.empty_cache()
+    for r in route:
+        phase(11, f"SPLASH_MIN_LEN timings at [1, {r['L']}, 4, 128] causal, "
+                  f"fwd / dkv / dq / sum ms: flash "
+                  f"{' / '.join(f'{x:.4f}' for x in r['flash_ms'].values())}"
+                  f"; splash "
+                  f"{' / '.join(f'{x:.4f}' for x in r['splash_ms'].values())}"
+                  f" (route today: {helpers.attention_route(r['L'])}) "
+                  f"[{card}]")
 
     # -- 12. transformer_lm at T = 32768 through the splash kernels ---------
     splash_keys = ("splash_attention_fwd", "splash_attention_bwd_dkv",
@@ -1703,10 +1795,8 @@ def main():
             "bound_by": long_case[key + "_bound_by"],
             "library_ms": (BLOCKS * long_case["sdpa_fwd_ms"] if key == "fwd"
                            else None)})
-        if key in ("fwd", "dkv"):
-            kernels[-1]["tc_bound_ms"] = (BLOCKS
-                                          * long_case[key + "_tc_bound_ms"])
-            kernels[-1]["tc_bound_share"] = long_case[key + "_tc_bound_share"]
+        kernels[-1]["tc_bound_ms"] = BLOCKS * long_case[key + "_tc_bound_ms"]
+        kernels[-1]["tc_bound_share"] = long_case[key + "_tc_bound_share"]
     # the splash kernels: per transformer_lm_32k train step at [1, 32768,
     # 4, 128] (8 forward launches under remat, 4 dK/dV, 4 dQ); launches of
     # the whole 32k run; max |diff| over the two L = 32768 shapes
@@ -1735,12 +1825,12 @@ def main():
             "bound_by": path_case[key + "_bound_by"],
             "library_ms": (n * path_case["sdpa_fwd_ms"] if key == "fwd"
                            else None)})
-        if key in ("fwd", "dkv", "dq"):
-            kernels[-1]["tc_bound_ms"] = n * path_case[key + "_tc_bound_ms"]
-            kernels[-1]["tc_bound_share"] = path_case[key + "_tc_bound_share"]
+        kernels[-1]["tc_bound_ms"] = n * path_case[key + "_tc_bound_ms"]
+        kernels[-1]["tc_bound_share"] = path_case[key + "_tc_bound_share"]
     print("[details] " + json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
          "build_s": build_s, "ptxas": ptxas, "attn_build": attn_build,
+         "paged_build": paged_build,
          "conv_build": conv_build, "conv_alexnet_sum": conv_sum,
          "cases": cases, "e2e_fp32": e2e,
          "e2e_int8": e2e8, "profile": prof, "conv_cases": conv_cases,
@@ -1749,6 +1839,7 @@ def main():
          "alexnet_profile": tprof, "lenet_train": lenet,
          "flash_cases": flash_cases, "attention_seam": seam,
          "lm_train": lm, "splash_cases": splash_cases,
+         "splash_min_len_timings": route,
          "lm_train_32k": lc, "kv_cache_generation": gen}))
     phase(14, "kernels:")
     print(json.dumps({"kernels": kernels}))

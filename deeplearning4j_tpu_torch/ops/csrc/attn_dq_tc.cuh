@@ -1,31 +1,35 @@
 // The dQ core of the attention backward on the tensor cores, Hopper (sm_90a):
-// dq = ds k for one block's 128 query rows, in 3xTF32, under the splash dQ
-// kernel (splash_attention_bwd.cu).
+// dq for one block's 128 query rows, in 3xTF32, under the splash and flash
+// dQ kernels (splash_attention_bwd.cu, flash_attention_bwd.cu).
 //
 // Layout as the forward core (attn_fwd_tc.cuh): q, k, v, dO, dq [B, L, H, D]
-// f32, contiguous, 16-byte aligned (the wrapper checks it), row stride H * D;
-// lse and di [B, H, L] f32. q comes pre-scaled and dq is written without a
-// scale (autograd applies it), as the plain version computes them:
+// f32, contiguous, 16-byte aligned (the wrappers check it), row stride H * D;
+// lse and di [B, H, L] f32. Per kept (query, key) pair:
 //
-//   p  = exp(q k^T - lse)       (masked scores at the mask value: p = 0)
+//   p  = exp(s - lse)        s = q k^T (splash: q pre-scaled; flash: times
+//                            scale); masked pairs: p = 0
 //   ds = p * (dO v^T - di)
-//   dq = ds k
+//   dq = ds k                (splash: unscaled, autograd applies the scale;
+//                            flash: times scale at the store)
 //
 // A CUDA block of 8 warps owns 128 query rows, warp w the 16 rows w0 = q0 +
-// 16 w ... w0 + 15, with lse and di of its rows g and g + 8 in registers. q
-// and dO sit in swizzled shared tiles; K and V come through the forward's
-// 2-stage cp.async ring in tiles of KT keys. For each tile a warp computes
-// s = q k^T and dp = dO v^T on the forward's q k^T path (tile_scores, head
-// dims relabelled so each shared load is 16 bytes), p = exp(s - lse) and ds
-// = p (dp - di) on the C fragments, then dq += ds k with ds as the A operand
-// as it lies: the forward's p v (tile_pv), with k's rows read in the order
-// the forward reads v's (key 2t as column t, key 2t + 1 as column t + 4 of
-// each 8-key step). Each tile's ds k sums in fresh accumulators and joins dq
-// in one rounded f32 fma (the tensor cores truncate as they accumulate). A
-// warp skips the math of a tile the walk marks as adding nothing to its
-// rows; kind-1 tiles evaluate the walk's keep() and give the rest the mask
-// value. expf, not __expf. No atomics: each dq element is written once, after
-// a loop in a fixed order, so a launch gives the same bits every time.
+// 16 w ... w0 + 15, with lse and di of its rows g and g + 8 in registers
+// (read once, only for rows below L). q and dO sit in swizzled shared tiles;
+// K and V come through the forward's 2-stage cp.async ring in tiles of KT
+// keys. For each tile a warp computes s = q k^T and dp = dO v^T on the
+// forward's q k^T path (tile_scores, head dims relabelled so each shared
+// load is 16 bytes), p = exp(s - lse) and ds = p (dp - di) on the C
+// fragments, then dq += ds k with ds as the A operand as it lies: the
+// forward's p v (tile_pv), with k's rows read in the order the forward reads
+// v's (key 2t as column t, key 2t + 1 as column t + 4 of each 8-key step).
+// Each tile's ds k sums in fresh accumulators and joins dq in one rounded f32
+// fma (the tensor cores truncate as they accumulate). A warp skips the math
+// of a tile the walk marks as adding nothing to its rows; tiles with some
+// masked pair evaluate the walk's keep() and give the rest the mask value.
+// The flash walk's scale (on s, and on dq at the store) is compiled in only
+// for it (if constexpr), so the splash kernel's code is unchanged by it.
+// expf, not __expf. No atomics: each dq element is written once, after a
+// loop in a fixed order, so a launch gives the same bits every time.
 //
 // The tile: 32 keys at D = 128, 64 at D <= 64. With 64-key tiles at D = 128,
 // q (64 KiB) + dO (64 KiB) + a 2-stage ring of K+V tiles (128 KiB) is 256
@@ -52,10 +56,11 @@ struct Dq {
 };
 
 // dq of the block's 128 query rows from q0 of head h, batch row b, over the
-// tiles ``walk`` lists (count(), key0(i), mode(i, w0), keep(row, col), tiles
-// of Dq<D>::kKeys keys); masked scores take ``mask``. The splash walk only:
-// q is pre-scaled and dq unscaled, so a flash walk would also need its scale
-// on s and dq.
+// tiles ``walk`` lists: count(), key0(i), mode(i, w0) (-1: the tile adds
+// nothing to rows w0 ... w0 + 15; 0: none of their pairs is masked; 1: some
+// are), keep(row, col), kFlash and, for flash, scale (on s and on dq), in
+// tiles of Dq<D>::kKeys keys. Masked scores take ``mask`` (the library's mask
+// value for splash, -inf for flash): p = 0 either way.
 template <int D, class Walk>
 __device__ __forceinline__ void attn_dq(
     const float* __restrict__ q, const float* __restrict__ k,
@@ -63,7 +68,6 @@ __device__ __forceinline__ void attn_dq(
     const float* __restrict__ lse, const float* __restrict__ di,
     float* __restrict__ dq, int L, int H, int q0, int h, int b,
     const Walk& walk, float mask, float* smem) {
-  static_assert(!Walk::kFlash, "the dQ core takes q pre-scaled");
   constexpr int KT = Dq<D>::kKeys;
   constexpr int NK = Dq<D>::kNK;
   constexpr int T = Dq<D>::kTile;
@@ -125,6 +129,7 @@ __device__ __forceinline__ void attn_dq(
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1;
         float x = s[j][e];
+        if constexpr (Walk::kFlash) x *= walk.scale;
         if (mode == 1 && !walk.keep(w0 + g + 8 * r, k0 + 8 * j + 2 * t + (e & 1)))
           x = mask;
         s[j][e] = expf(x - lr[r]) * (dp[j][e] - dr[r]);  // ds
@@ -133,10 +138,12 @@ __device__ __forceinline__ void attn_dq(
   }
   cp_async_wait<0>();
 
+  float dq_mul = 1.f;
+  if constexpr (Walk::kFlash) dq_mul = walk.scale;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = w0 + g + 8 * r;
-    if (row < L) store_row<D>(dq + base + row * rs, acc, r, t, 1.f);
+    if (row < L) store_row<D>(dq + base + row * rs, acc, r, t, dq_mul);
   }
 }
 

@@ -49,9 +49,12 @@ LAUNCHES = {"paged_decode_attention": 0, "conv2d_bias_act": 0,
             "splash_attention_fwd": 0, "splash_attention_bwd_dkv": 0,
             "splash_attention_bwd_dq": 0}
 
-# the kernel keeps G * Dh accumulators in registers: 128 threads x 16
-_MAX_GROUP_DIM = 128 * 16
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
+# the paged kernel's lanes hold at most 8 head dims each (32 lanes)
+_PAGED_MAX_DH = 256
+# paged decode: blocks of the page walk to aim for, two per SM of an H100
+_PAGED_TARGET_BLOCKS = 2 * 132
+_PAGED_WARPS = 4  # warps (work items at a time) of one page-walk block
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -61,8 +64,9 @@ _FLOAT = ctypes.c_float
 # cudaError_t as int, 0 on success)
 _SIGNATURES = {
     "paged_decode_attention": {
-        "dl4j_paged_decode_f32": [_PTR] * 6 + [_INT] * 6 + [_PTR],
-        "dl4j_paged_decode_i8": [_PTR] * 8 + [_INT] * 6 + [_PTR]},
+        "dl4j_paged_decode_f32": [_PTR] * 7 + [_INT] * 7 + [_PTR],
+        "dl4j_paged_decode_i8": [_PTR] * 9 + [_INT] * 7 + [_PTR],
+        "dl4j_paged_decode_attrs": [_INT] * 4 + [_PTR]},
     "conv2d_bias_act": {
         "dl4j_conv2d_bias_act_f32": [_PTR] * 5 + [_INT] * 14 + [_PTR],
         "dl4j_conv2d_bias_act_attrs": [_INT, _INT, _PTR]},
@@ -77,7 +81,8 @@ _SIGNATURES = {
     "flash_attention_bwd": {
         "dl4j_flash_bwd_dkv_f32": [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _PTR],
         "dl4j_flash_bwd_dq_f32": [_PTR] * 7 + [_INT] * 5 + [_FLOAT, _PTR],
-        "dl4j_flash_bwd_dkv_attrs": [_INT, _INT, _PTR]},
+        "dl4j_flash_bwd_dkv_attrs": [_INT, _INT, _PTR],
+        "dl4j_flash_bwd_dq_attrs": [_INT, _INT, _PTR]},
     "splash_attention_fwd": {
         "dl4j_splash_fwd_f32": [_PTR] * 8 + [_INT] * 6 + [_PTR],
         "dl4j_splash_fwd_attrs": [_INT, _PTR]},
@@ -149,9 +154,9 @@ def _check(name, t, dtype, shape):
 
 def _check_aligned(name, *tensors):
     """Raise unless every tensor starts on 16 bytes: kernels that copy
-    16-byte chunks (the attention forwards, the dK/dV kernels and splash dQ)
-    need it. Fresh allocations always do; a view with an odd storage offset
-    may not."""
+    16-byte chunks (every attention kernel: the forwards, the dK/dV and the
+    dQ kernels) need it. Fresh allocations always do; a view with an odd
+    storage offset may not."""
     for i, t in enumerate(tensors):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: input {i} does not start on 16 bytes "
@@ -193,6 +198,20 @@ def _device_of(name: str, tensors) -> torch.device:
     return dev
 
 
+def _paged_splits(B: int, Hkv: int, nb: int) -> int:
+    """S, the page-walk blocks per (row, kv-head) of the paged kernel: about
+    two blocks per SM over the B * Hkv pairs, at most one per page. A fixed
+    formula of the shapes (pos lives on the device), not a timed search: the
+    same shapes give the same S, so the same bits."""
+    return max(1, min(nb, -(-_PAGED_TARGET_BLOCKS // max(B * Hkv, 1))))
+
+
+def _paged_split_pages(nb: int, S: int) -> int:
+    """P, the pages of one split: split s walks the live pages among [s P,
+    (s + 1) P)."""
+    return -(-nb // S)
+
+
 def paged_decode_attention(q, k_pages, v_pages, table, pos, *,
                            k_scales: Optional[torch.Tensor] = None,
                            v_scales: Optional[torch.Tensor] = None):
@@ -201,7 +220,9 @@ def paged_decode_attention(q, k_pages, v_pages, table, pos, *,
     int32; pos [B] int32 -> [B, 1, H, Dh] f32.
 
     CPU tensors run :func:`paged_decode_attention_ref`. CUDA tensors
-    launch the kernel on the current stream, or raise."""
+    launch the kernels on the current stream (the page walk over
+    `_paged_splits` splits, then the combine when there is more than one),
+    or raise."""
     quantized = k_scales is not None
     if quantized != (v_scales is not None):
         raise ValueError("k_scales and v_scales come together")
@@ -225,13 +246,15 @@ def paged_decode_attention(q, k_pages, v_pages, table, pos, *,
         raise ValueError(f"paged_decode_attention: H={H} is not a multiple "
                          f"of Hkv={Hkv}")
     G = H // Hkv
-    if G * Dh > _MAX_GROUP_DIM or B > 65535 or nb < 1:
+    if Dh > _PAGED_MAX_DH or B > 65535 or Hkv > 65535 or nb < 1:
         raise ValueError(f"paged_decode_attention: unsupported shape "
-                         f"G*Dh={G * Dh}, B={B}, nb={nb}")
-    smem = 4 * (G * Dh + 2 * block * Dh + G * block + 3 * G)
+                         f"Dh={Dh}, B={B}, Hkv={Hkv}, nb={nb}")
+    # one page-walk block holds (acc, m, l) of its G C work items, C =
+    # max(1, 4 // G) page classes per query head
+    smem = 4 * G * max(1, _PAGED_WARPS // G) * (Dh + 2)
     if smem > _SMEM_LIMIT:
-        raise ValueError(f"paged_decode_attention: block={block}, Dh={Dh} "
-                         f"need {smem} B of shared memory")
+        raise ValueError(f"paged_decode_attention: G={G}, Dh={Dh} need "
+                         f"{smem} B of shared memory")
     page_dtype = torch.int8 if quantized else torch.float32
     _check("q", q, torch.float32, (B, 1, H, Dh))
     _check("k_pages", k_pages, page_dtype, (P, block, Hkv, Dh))
@@ -242,20 +265,24 @@ def paged_decode_attention(q, k_pages, v_pages, table, pos, *,
         _check("k_scales", k_scales, torch.float32, (P, block, Hkv))
         _check("v_scales", v_scales, torch.float32, (P, block, Hkv))
     lib = _lib("paged_decode_attention")
+    S = _paged_splits(B, Hkv, nb)
     out = torch.empty_like(q)
+    # the splits' (acc, m, l); never read when S == 1
+    ws = torch.empty((B, Hkv, S, G, Dh + 2) if S > 1 else (1,),
+                     dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = _stream(dev)
-        dims = (B, H, Hkv, Dh, block, nb)
+        dims = (B, H, Hkv, Dh, block, nb, S)
         if quantized:
             rc = lib.dl4j_paged_decode_i8(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                 k_scales.data_ptr(), v_scales.data_ptr(), table.data_ptr(),
-                pos.data_ptr(), out.data_ptr(), *dims, stream)
+                pos.data_ptr(), out.data_ptr(), ws.data_ptr(), *dims, stream)
         else:
             rc = lib.dl4j_paged_decode_f32(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                table.data_ptr(), pos.data_ptr(), out.data_ptr(), *dims,
-                stream)
+                table.data_ptr(), pos.data_ptr(), out.data_ptr(),
+                ws.data_ptr(), *dims, stream)
     _raise_on(rc, lib, "paged_decode_attention")
     LAUNCHES["paged_decode_attention"] += 1
     return out
@@ -579,7 +606,7 @@ def _kernel_attrs(lib_name: str, fn: str, *args) -> dict:
 
 def attention_tc_attrs(D: int) -> dict:
     """{kernel: attrs} (as `_kernel_attrs`) of the attention kernels on the
-    tensor cores at head dim D: the flash forward and dK/dV (causal and
+    tensor cores at head dim D: the flash forward, dK/dV and dQ (causal and
     full), the splash forward, dK/dV and dQ. Needs the card."""
     return {"flash_fwd_causal": _kernel_attrs(
                 "flash_attention_fwd", "dl4j_flash_fwd_attrs", D, 1),
@@ -591,10 +618,26 @@ def attention_tc_attrs(D: int) -> dict:
                 "flash_attention_bwd", "dl4j_flash_bwd_dkv_attrs", D, 1),
             "flash_bwd_dkv_full": _kernel_attrs(
                 "flash_attention_bwd", "dl4j_flash_bwd_dkv_attrs", D, 0),
+            "flash_bwd_dq_causal": _kernel_attrs(
+                "flash_attention_bwd", "dl4j_flash_bwd_dq_attrs", D, 1),
+            "flash_bwd_dq_full": _kernel_attrs(
+                "flash_attention_bwd", "dl4j_flash_bwd_dq_attrs", D, 0),
             "splash_bwd_dkv": _kernel_attrs(
                 "splash_attention_bwd", "dl4j_splash_bwd_dkv_attrs", D),
             "splash_bwd_dq": _kernel_attrs(
                 "splash_attention_bwd", "dl4j_splash_bwd_dq_attrs", D)}
+
+
+def paged_decode_attrs(G: int, Dh: int) -> dict:
+    """{kernel: attrs} (as `_kernel_attrs`) of the paged decode kernels that
+    G query heads per kv-head at head dim Dh launch: the page walk over
+    fp32 and over int8 pages, and the combine. Needs the card."""
+    return {name: _kernel_attrs("paged_decode_attention",
+                                "dl4j_paged_decode_attrs", quant, combine, G,
+                                Dh)
+            for name, quant, combine in (("walk_fp32", 0, 0),
+                                         ("walk_int8", 1, 0),
+                                         ("combine", 0, 1))}
 
 
 def conv2d_bias_act_attrs(C: int, OC: int) -> dict:
@@ -652,6 +695,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal, scale):
         return flash_attention_bwd_dq_ref(q, k, v, do, lse, di,
                                           causal=causal, scale=scale)
     B, L, H, D = _bwd_checks("flash_attention_bwd_dq", q, k, v, do, lse, di)
+    _check_aligned("flash_attention_bwd_dq", q, k, v, do)
     lib = _lib("flash_attention_bwd")
     dq = torch.empty_like(q)
     with torch.cuda.device(dev):

@@ -53,6 +53,15 @@ max |dv| of the reference, against `jax.grad` of the dense default in f64
 at 2e-6 (flash and splash) and of the JAX splash kernel in the Pallas
 interpreter (f32) at 4e-6 (the JAX flash kernel runs on a TPU only).
 
+The flash dQ kernel (`flash_attention_bwd.cu` over the same `attn_dq_tc.cuh`
+as splash dQ) is emulated by `emulate_flash_dq`: per 128-row query block the
+key tiles of the flash walk (32 keys at D = 128, 64 below; up to the block's
+last row when causal), s = q k^T times the scale, -inf for keys past L or
+above the diagonal, rows past L zero-filled with lse = di = 0, and dq times
+the scale. It is held against `jax.grad` w.r.t. q of the dense default in
+f64 at 2e-6 of the largest of the three reference gradients (at L = 1, dq is
+0 up to rounding), the denominator chip_smoke.py's gate uses.
+
     JAX_PLATFORMS=cpu PYTHONPATH=. python tests/test_torch_attention_tc.py
 
 prints the emulation's errors, 3xTF32 and plain TF32, at L = 1024, D = 128.
@@ -215,6 +224,48 @@ def emulate_splash_dq(qs, k, v, do, lse, di, tables, plain=False):
                         acc = acc + mma(np.zeros((ROWS, D), np.float32), ds,
                                         K[cols], plain)
                 dq[b, rows, h] = acc
+    return dq
+
+
+def emulate_flash_dq(q, k, v, do, lse, di, *, scale, causal, plain=False):
+    """dq [B, L, H, D] as the flash dQ kernel computes it: per 128-row query
+    block the key tiles of its walk, the scale on s and on dq."""
+    B, L, H, D = q.shape
+    order = head_dim_order(D)
+    keys = streamed_rows(D)
+    nq = -(-L // ROWS)
+    all_tiles = -(-L // keys)
+    pad = max(nq * ROWS, all_tiles * keys) - L
+    dq = np.zeros((B, L, H, D), np.float32)
+    for b in range(B):
+        for h in range(H):
+            Q, K, V, dO = (np.pad(x[b, :, h], ((0, pad), (0, 0)))
+                           for x in (q, k, v, do))
+            lr, dr = (np.pad(x[b, h], (0, pad)) for x in (lse, di))
+            Qo, Ko, Vo, dOo = (x[:, order] for x in (Q, K, V, dO))
+            for qb in range(nq):
+                rows = qb * ROWS + np.arange(ROWS)
+                n = all_tiles
+                if causal:
+                    n = min(n, -(-(qb * ROWS + ROWS) // keys))
+                acc = np.zeros((ROWS, D), np.float32)
+                for i in range(n):
+                    cols = i * keys + np.arange(keys)
+                    zero = np.zeros((ROWS, keys), np.float32)
+                    s = mma(zero, Qo[rows], Ko[cols].T, plain) * np.float32(
+                        scale)
+                    dp = mma(zero, dOo[rows], Vo[cols].T, plain)
+                    keep = cols[None, :] < L
+                    if causal:
+                        keep = keep & (cols[None, :] <= rows[:, None])
+                    s = np.where(keep, s, np.float32(-np.inf))
+                    ds = np.exp(s - lr[rows][:, None]) * (
+                        dp - dr[rows][:, None])
+                    acc = acc + mma(np.zeros((ROWS, D), np.float32), ds,
+                                    K[cols], plain)
+                live = min(ROWS, L - qb * ROWS)
+                dq[b, qb * ROWS:qb * ROWS + live, h] = (
+                    acc * np.float32(scale))[:live]
     return dq
 
 
@@ -392,38 +443,70 @@ def grad_err(got, want):
     return max(float(np.abs(g - w).max()) / top for g, w in zip(got, want))
 
 
-def dense_dkv_f64(q, k, v, do, causal, scale):
-    """jax.grad w.r.t. k and v of the JAX dense default, in f64 (jitted:
-    one compile per shape instead of one per operation)."""
+def dense_grads_f64(q, k, v, do, causal, scale, argnums=(0, 1, 2)):
+    """jax.grad w.r.t. ``argnums`` of (q, k, v) of the JAX dense default, in
+    f64 (jitted: one compile per shape instead of one per operation)."""
     def f(q, k, v, do):
         return jnp.sum(jhelpers._attention_default(
             q, k, v, causal=causal, scale=scale) * do)
     with jax.enable_x64(True):
-        return [np.asarray(x) for x in jax.jit(jax.grad(f, (1, 2)))(
+        return [np.asarray(x) for x in jax.jit(jax.grad(f, argnums))(
             *(jnp.asarray(x, jnp.float64) for x in (q, k, v, do)))]
 
 
-def flash_dkv_error(B, L, H, D, causal, seed, plain=False):
+def dense_dkv_f64(q, k, v, do, causal, scale):
+    """jax.grad w.r.t. k and v of the JAX dense default, in f64."""
+    return dense_grads_f64(q, k, v, do, causal, scale, (1, 2))
+
+
+def flash_bwd_error(which, B, L, H, D, causal, seed, plain=False):
+    """The flash backward emulation's error against the dense default in
+    f64: ``which`` "dkv", max |diff| of dk and dv over the larger of max
+    |dk| and max |dv| (`grad_err`); "dq", max |diff| of dq over the largest
+    of max |dq|, max |dk| and max |dv|."""
     q, k, v = _qkv(B, L, H, D, seed)
     do = np.random.default_rng(seed + 1).normal(size=q.shape).astype(
         np.float32)
     scale = D ** -0.5
     o, lse = emulate_fwd(q, k, v, scale=scale, causal=causal)
     di = np.einsum("blhd,blhd->bhl", o, do).astype(np.float32)
-    got = emulate_dkv(q, k, v, do, lse, di, scale=scale, causal=causal,
-                      plain=plain)
-    return grad_err(got, dense_dkv_f64(q, k, v, do, causal, scale))
+    if which == "dkv":
+        got = emulate_dkv(q, k, v, do, lse, di, scale=scale, causal=causal,
+                          plain=plain)
+        return grad_err(got, dense_dkv_f64(q, k, v, do, causal, scale))
+    got = emulate_flash_dq(q, k, v, do, lse, di, scale=scale, causal=causal,
+                           plain=plain)
+    want = dense_grads_f64(q, k, v, do, causal, scale)
+    top = max(float(np.abs(w).max()) for w in want)
+    return float(np.abs(got - want[0]).max()) / top
 
 
-@pytest.mark.parametrize(
-    "causal, L, D", [(c, L, D) for c in (True, False)
-                     for L in (1, 7, 129, 300) for D in (16, 64, 128)]
-    + [(True, 1024, 128)],
-    ids=lambda x: ("causal" if x else "full") if isinstance(x, bool)
-    else str(x))
+# every head dim of the flash backward walks meets its odd-L masks, causal
+# and full, plus one long causal case
+FLASH_BWD_CASES = [(c, L, D) for c in (True, False)
+                   for L in (1, 7, 129, 300) for D in (16, 64, 128)] + [
+                       (True, 1024, 128)]
+
+
+def _flash_bwd_ids(x):
+    return ("causal" if x else "full") if isinstance(x, bool) else str(x)
+
+
+def _flash_bwd_shape(causal, L):
+    return ((1, 3) if causal else (3, 1)) if L < 1024 else (1, 1)
+
+
+@pytest.mark.parametrize("causal, L, D", FLASH_BWD_CASES, ids=_flash_bwd_ids)
 def test_flash_dkv_3xtf32_matches_jax_default(causal, L, D):
-    B, H = ((1, 3) if causal else (3, 1)) if L < 1024 else (1, 1)
-    err = flash_dkv_error(B, L, H, D, causal, seed=L * 10 + D)
+    B, H = _flash_bwd_shape(causal, L)
+    err = flash_bwd_error("dkv", B, L, H, D, causal, seed=L * 10 + D)
+    assert err <= TOL, err
+
+
+@pytest.mark.parametrize("causal, L, D", FLASH_BWD_CASES, ids=_flash_bwd_ids)
+def test_flash_dq_3xtf32_matches_jax_default(causal, L, D):
+    B, H = _flash_bwd_shape(causal, L)
+    err = flash_bwd_error("dq", B, L, H, D, causal, seed=L * 10 + D)
     assert err <= TOL, err
 
 
@@ -467,7 +550,8 @@ def test_splash_dkv_3xtf32_matches_jax(L, D, causal):
 def test_plain_tf32_dkv_misses_the_chip_gate():
     """hi alone: the dK/dV emulation lands over chip_smoke.py's 1e-5 of
     the largest gradient, as the forward's does."""
-    err = flash_dkv_error(1, 1024, 1, 128, True, seed=10368, plain=True)
+    err = flash_bwd_error("dkv", 1, 1024, 1, 128, True, seed=10368,
+                          plain=True)
     assert err > 1e-5, err
 
 
@@ -494,14 +578,15 @@ def test_tf32_rounds_to_nearest_ties_away():
 
 def test_forward_wrappers_raise_for_misaligned_inputs():
     """The kernels copy 16-byte chunks: every input must start on 16
-    bytes. A view offset by one float does not. The dK/dV wrappers check
-    the same (q, k, v and dO)."""
+    bytes. A view offset by one float does not. The dK/dV and dQ wrappers
+    check the same (q, k, v and dO)."""
     ok = torch.zeros(1, 3, 2, 64)
     ck._check_aligned("flash_attention_fwd", ok, ok, ok)
     shifted = torch.zeros(ok.numel() + 1)[1:].view(1, 3, 2, 64)
     assert shifted.is_contiguous()
     for name in ("flash_attention_fwd", "splash_attention_fwd",
-                 "flash_attention_bwd_dkv", "splash_attention_bwd_dkv"):
+                 "flash_attention_bwd_dkv", "splash_attention_bwd_dkv",
+                 "flash_attention_bwd_dq", "splash_attention_bwd_dq"):
         with pytest.raises(ValueError, match="16 bytes"):
             ck._check_aligned(name, ok, shifted, ok)
 
@@ -511,8 +596,10 @@ if __name__ == "__main__":
         eo, el = flash_errors(1, 1024, 1, 128, True, seed=0, plain=plain)
         print(f"{'plain TF32' if plain else '3xTF32'} flash causal [1, 1024, "
               f"1, 128]: max|diff|/max|ref| o {eo!r}, lse {el!r}; dk/dv "
-              f"{flash_dkv_error(1, 1024, 1, 128, True, 10368, plain)!r} "
-              f"of max(|dk|, |dv|) against the dense default in f64")
+              f"{flash_bwd_error('dkv', 1, 1024, 1, 128, True, 10368, plain)!r}"
+              f" of max(|dk|, |dv|), dq "
+              f"{flash_bwd_error('dq', 1, 1024, 1, 128, True, 10368, plain)!r}"
+              f" of max(|dq|, |dk|, |dv|) against the dense default in f64")
         for causal in (True, False):
             es, ed = splash_dq_errors(1024, causal, seed=9, plain=plain)
             print(f"{'plain TF32' if plain else '3xTF32'} splash dq "

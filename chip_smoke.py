@@ -13,8 +13,9 @@ non-zero without them, or when any phase fails. Phases:
      forward attention kernels, the two dK/dV kernels and the two dQ
      kernels at each head dim (flash causal and full), of the paged
      decode kernels (page walk over fp32 and int8 pages, combine) at the
-     serving head dim, MHA and GQA, and the conv kernel's variants at
-     AlexNet's and LeNet's channel counts;
+     serving head dim, MHA and GQA, the conv kernel's variants at
+     AlexNet's and LeNet's channel counts, and the bnap_sums kernel's two
+     lane widths (float4 and scalar);
   2. holds the paged-decode kernels (the page walk split over S blocks per
      (row, kv-head), S = cuda_kernels._paged_splits of the shapes, then
      the combine) against their plain PyTorch version on the card at the
@@ -60,7 +61,8 @@ non-zero without them, or when any phase fails. Phases:
      bound and, for conv, beside its 3xTF32 bound (three tf32 products per
      product at 495 TFLOP/s, or the bytes) with the kernel's share of each
      bound, and F.conv2d on channels-last with bias and the activation
-     (TF32 off);
+     (TF32 off); the sums and dx kernels' times summed over AlexNet's three
+     shapes beside their bounds and shares;
   6. trains AlexNet-CIFAR10 at full width (64/128/256 conv channels,
      Dense 512 with dropout 0.5, Adam, l2 1e-4, f32, random weights from
      the config's seed) on one seeded synthetic CIFAR-shaped batch of
@@ -85,7 +87,24 @@ non-zero without them, or when any phase fails. Phases:
   7. trains LeNet-MNIST (Nesterovs, l2 5e-4) for 5 steps at B=512: one
      conv launch per step (conv1's kw*c = 5 < 8 declines, as in the JAX
      package), finite losses;
-  8. (folded into 11);
+  8. prefix reuse, copy-on-write and preemption on the serving flagship of
+     phase 3, through the same InferenceServer, over fp32 and int8 pages:
+     after the first wave (phase 3's 8 requests, which publishes their
+     prompts' full blocks to the prefix trie), a second wave of 8: seven
+     requests on the first 256 tokens of a first-wave prompt with new
+     suffixes (prefix hits: the table points at the cached pages, no K/V
+     copy), and an exact repeat of the block-aligned 384-token first-wave
+     prompt (a full-prompt hit whose refeed copies the last shared page);
+     it runs under torch.profiler (CUDA activity only) for the device's
+     busy share; then the first wave again, posted in order, on a pool cut
+     to 0.41 (then 0.33) of the wave's peak block need until a request is
+     preempted and resumed. Gates: tokens identical to solo
+     generate_transformer (fp32) or to a paged_kernel="off" engine on the
+     same waves (int8), the rerun's to the first wave's; prefix hits and a
+     COW copy in the second wave, a preemption in the rerun; no trie pin
+     left; paged-kernel launches = 4 layers x decode steps in both. Prints
+     each wave's wall time, tokens/s, prefill chunks (beside a cold
+     wave's), restored positions and busy share;
   9. holds the three flash-attention kernels (forward, dK/dV, dQ, all on
      the tensor cores in 3xTF32) against their plain versions on the card
      at the LM training shapes [32, 256, 8, 64] and [1, 8192, 4, 128]
@@ -153,6 +172,7 @@ The last line is {"ok": true, "device": {...}}. Every number printed is
 measured in this run; a "[details]" JSON line before the kernels line
 holds them all, unrounded.
 """
+import contextlib
 import json
 import os
 import statistics
@@ -175,6 +195,11 @@ KV_BLOCK, SLOTS, CHUNK, NEW_TOKENS = 16, 8, 64, 32
 # f32 K+V of 4 layers x 8 heads x 64 dims = 256 KiB per 16-position
 # block; 516 blocks = 515 usable (8 x 1024 positions fit) + scratch
 KV_POOL_MB = 129
+# phase 8: the tokens of a first-wave prompt that a second-wave request
+# shares, and the pools (shares of the first wave's peak block need) its
+# rerun of the first wave tries in turn until one preempts
+PREFIX_HEAD = 256
+PREEMPT_CUTS = (0.41, 0.33)
 
 
 def phase(n, msg):
@@ -345,6 +370,146 @@ def requests_for(seed):
     return out
 
 
+def post_all(port, bodies, stagger=0.0):
+    """POST every body at once (body i after i * ``stagger`` s, so that
+    they queue in order); the responses in order."""
+    def one(ib):
+        time.sleep(ib[0] * stagger)
+        return post(port, ib[1])
+    with ThreadPoolExecutor(len(bodies)) as ex:
+        return list(ex.map(one, enumerate(bodies)))
+
+
+def prefix_wave(reqs, seed):
+    """Phase 8's second wave: seven requests that share the first
+    PREFIX_HEAD tokens of a first-wave prompt (those at least that long,
+    in turn) and go on with new tokens, half greedy, half seeded sampling;
+    then an exact repeat of the first block-aligned first-wave prompt,
+    whose every block is cached: a full-prompt hit, whose refeed of the
+    last token copies the shared last page first."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    heads = [b["prompt"][:PREFIX_HEAD] for b in reqs
+             if len(b["prompt"]) >= PREFIX_HEAD]
+    out = []
+    for i in range(SLOTS - 1):
+        tail = rng.integers(0, VOCAB, int(rng.integers(32, 301)))
+        body = {"prompt": heads[i % len(heads)] + [int(t) for t in tail],
+                "max_new_tokens": NEW_TOKENS}
+        if i % 2:
+            body.update(temperature=0.8, top_k=20, seed=200 + i)
+        out.append(body)
+    aligned = [b for b in reqs if len(b["prompt"]) % KV_BLOCK == 0]
+    if not heads or not aligned:
+        raise SystemExit("the first wave has no prompt of PREFIX_HEAD tokens "
+                         "or none of whole blocks")
+    out.append(dict(aligned[0]))
+    return out
+
+
+def sampling_kw(body):
+    """The sampling arguments of a /generate body, for the engine and for
+    generate_transformer."""
+    return {k: body[k] for k in ("temperature", "top_k", "seed") if k in body}
+
+
+def serve_waves(ck, kw, pool_mb, waves, *, stagger=0.0, profiled=False):
+    """A fresh InferenceServer (``kw`` and a ``pool_mb`` MiB pool) serves
+    one short warm-up request, then each wave in turn, every request of a
+    wave posted at once (body i after i * ``stagger`` s). Returns per wave
+    its tokens and counts; the launch and engine counts start at 0 with
+    each wave. ``profiled``: the last wave runs under torch.profiler (CUDA
+    activity only, so the host pays little for it), and its counts carry
+    the device's busy ms and share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning4j_tpu_torch.serving.server import InferenceServer
+    srv = InferenceServer(kv_pool_mb=pool_mb, **kw).start()
+    out = []
+    try:
+        dec = srv.decoder
+        post(srv.port, {"prompt": waves[0][0]["prompt"][:CHUNK + 3],
+                        "max_new_tokens": 4})
+        for w, bodies in enumerate(waves):
+            ck.reset_launches()
+            dec.reset_counters()
+            before = dict(dec.pool.stats()["prefix"])
+            prof = profile(activities=[ProfilerActivity.CUDA]) \
+                if profiled and w == len(waves) - 1 else None
+            with prof if prof is not None else contextlib.nullcontext():
+                t0 = time.monotonic()
+                outs = post_all(srv.port, bodies, stagger)
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+            after = dec.pool.stats()["prefix"]
+            n_tok = sum(len(o["tokens"]) for o in outs)
+            st = {"wall_s": wall, "tokens": n_tok,
+                  "tokens_per_s": n_tok / wall,
+                  "decode_steps": dec.decode_steps,
+                  "prefill_chunks": dec.prefill_chunks,
+                  "prefill_chunks_cold": sum(-(-len(b["prompt"]) // CHUNK)
+                                             for b in bodies),
+                  "restored_tokens": dec.restored_tokens,
+                  "cow_copies": dec.cow_copies,
+                  "preemptions": dec.preemptions,
+                  "hits": after["hits"] - before["hits"],
+                  "hit_blocks": after["hit_blocks"] - before["hit_blocks"],
+                  "launches": ck.LAUNCHES["paged_decode_attention"],
+                  "outstanding_refs": dec.pool.outstanding_refs(),
+                  "capacity_blocks": dec.pool.capacity_blocks,
+                  "bytes_per_block": dec.pool.bytes_per_block}
+            if prof is not None:
+                busy = sum(device_kernels_ms(prof).values())
+                st.update(device_busy_ms=busy,
+                          device_busy_share=busy / (wall * 1e3))
+            out.append(([o["tokens"] for o in outs], st))
+        net = srv.net
+    finally:
+        srv.stop()
+    n_attn = sum(type(i).__name__ == "SelfAttentionLayerImpl"
+                 for i in net._impls.values())
+    for w, (_, st) in enumerate(out):
+        if st["launches"] <= 0 or st["launches"] != n_attn * st["decode_steps"]:
+            raise SystemExit(f"wave {w}: launch count {st['launches']} != "
+                             f"{n_attn} attention layers x "
+                             f"{st['decode_steps']} decode steps")
+    return out, net
+
+
+def prefix_run(ck, model_path, reqs, wave2, kv_dtype):
+    """Phase 8 at one page dtype. A server on phase 3's pool serves the
+    first wave (its prompts' full blocks are published to the prefix
+    trie), then ``wave2``, timed; a second server serves ``wave2`` cold,
+    timed; a third serves both waves again, the second under the profiler.
+    Then servers whose pools are cut to PREEMPT_CUTS of the first wave's
+    peak block need serve the first wave again, posted in order, until one
+    preempts. Returns the tokens of every wave served, their counts and
+    the first server's net."""
+    from deeplearning4j_tpu_torch.inference.kvpool import blocks_for
+    kw = dict(model_path=model_path, decode_slots=SLOTS, prefill_chunk=CHUNK,
+              kv_block=KV_BLOCK, kv_dtype=kv_dtype, paged_kernel="on",
+              device="cuda")
+    out, net = serve_waves(ck, kw, KV_POOL_MB, [reqs, wave2])
+    (w1, _), (w2, warm) = out
+    [(w2_cold, cold)], _ = serve_waves(ck, kw, KV_POOL_MB, [wave2])
+    [_, (w2_prof, prof)], _ = serve_waves(ck, kw, KV_POOL_MB, [reqs, wave2],
+                                          profiled=True)
+    peak = sum(blocks_for(len(b["prompt"]) + NEW_TOKENS - 1, KV_BLOCK)
+               for b in reqs)
+    for cut in PREEMPT_CUTS:
+        cap = round(peak * cut)
+        [(rerun, pre)], _ = serve_waves(
+            ck, kw, (cap + 1) * warm["bytes_per_block"] / (1 << 20), [reqs],
+            stagger=0.05)
+        pre.update(cut=cut, peak_blocks=peak)
+        if pre["preemptions"]:
+            break
+    return ({"wave1": w1, "wave2": w2, "wave2_cold": w2_cold,
+             "wave2_profiled": w2_prof, "rerun": rerun},
+            {"wave2": warm, "wave2_cold": cold, "wave2_profiled": prof,
+             "rerun": pre}, net)
+
+
 def serve_run(ck, model_path, reqs, kv_dtype):
     """8 concurrent /generate through a fresh server; returns (tokens,
     stats) with the launch count of exactly this run."""
@@ -413,9 +578,7 @@ def profile_run(net, reqs):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
-            hs = [eng.submit(b["prompt"], NEW_TOKENS,
-                             **{k: b[k] for k in ("temperature", "top_k",
-                                                  "seed") if k in b})
+            hs = [eng.submit(b["prompt"], NEW_TOKENS, **sampling_kw(b))
                   for b in reqs]
             for h in hs:
                 h.result(timeout=900)
@@ -1099,6 +1262,8 @@ def main():
                   for c, oc in ((3, 64), (64, 128), (128, 256), (20, 50))}
     phase(1, f"conv2d_bias_act variants at AlexNet's and LeNet's channels: "
              f"{conv_build}")
+    bnap_build = ck.bnap_sums_attrs()
+    phase(1, f"bnap_sums (relu) by lane width: {bnap_build}")
 
     cases = {}
     for name, H, Hkv in (("mha", 8, 8), ("gqa", 8, 2)):
@@ -1143,9 +1308,8 @@ def main():
         solo = []
         n0 = ck.LAUNCHES["flash_attention_fwd"]
         for b in reqs:
-            kw = {k: b[k] for k in ("temperature", "top_k", "seed") if k in b}
             solo.append(generate_transformer(snet, b["prompt"], NEW_TOKENS,
-                                             VOCAB, **kw))
+                                             VOCAB, **sampling_kw(b)))
         e2e["solo_flash_fwd_launches"] = ck.LAUNCHES["flash_attention_fwd"] - n0
         if tokens != solo:
             raise SystemExit("served tokens differ from solo decode: "
@@ -1173,9 +1337,7 @@ def main():
                               kv_dtype="int8", paged_kernel="off",
                               device="cuda").start()
         try:
-            hs = [ref.submit(b["prompt"], NEW_TOKENS,
-                             **{k: b[k] for k in ("temperature", "top_k",
-                                                  "seed") if k in b})
+            hs = [ref.submit(b["prompt"], NEW_TOKENS, **sampling_kw(b))
                   for b in reqs]
             ref_tokens = [h.result(timeout=900) for h in hs]
         finally:
@@ -1308,7 +1470,8 @@ def main():
                  f"repeatable {r['sums_repeat_bitwise']}; dx max|diff|="
                  f"{r['dx_max_abs_err']:.3e} (gate 1e-5); sums "
                  f"{r['sums_ms']:.4f} ms (plain {r['sums_plain_ms']:.4f}, "
-                 f"bound {r['sums_bound_ms']:.4f} {r['sums_bound_by']}), dx "
+                 f"bound {r['sums_bound_ms']:.4f} {r['sums_bound_by']}, "
+                 f"share {r['sums_bound_ms'] / r['sums_ms']:.3f}), dx "
                  f"{r['dx_ms']:.4f} ms (plain {r['dx_plain_ms']:.4f}, bound "
                  f"{r['dx_bound_ms']:.4f} {r['dx_bound_by']}); library call: "
                  "none (no single PyTorch op routes a pooled gradient "
@@ -1317,6 +1480,16 @@ def main():
                 and r["dx_max_abs_err"] <= 1e-5):
             raise SystemExit(f"BN+act+pool backward kernels disagree with "
                              f"the plain versions at {r['shape']}: {r}")
+    # AlexNet's three BN+pool layers summed: one train step's backward
+    bnap_sum = {k: sum(c[k] for c in bnap_cases[:3])
+                for k in ("sums_ms", "sums_bound_ms", "dx_ms", "dx_bound_ms")}
+    phase(5, f"bnap, AlexNet's three layers summed: sums "
+             f"{bnap_sum['sums_ms']:.4f} ms, bound "
+             f"{bnap_sum['sums_bound_ms']:.4f} ms (share "
+             f"{bnap_sum['sums_bound_ms'] / bnap_sum['sums_ms']:.3f}); dx "
+             f"{bnap_sum['dx_ms']:.4f} ms, bound {bnap_sum['dx_bound_ms']:.4f} "
+             f"ms (share {bnap_sum['dx_bound_ms'] / bnap_sum['dx_ms']:.3f}) "
+             f"[{card}]")
 
     # -- 6. AlexNet-CIFAR10 training, kernels then plain versions ------------
     import numpy as np
@@ -1416,6 +1589,79 @@ def main():
     phase(7, f"LeNet-MNIST B={B}, 5 steps: losses {lenet_losses}, launches "
              f"{lenet_launches} (conv1 declines: kw*c = 5 < 8); steps 2-5 "
              f"mean {lenet['mean_step_ms']:.3f} ms [{card}]")
+
+    # -- 8. prefix reuse, COW and preemption on the serving flagship -------
+    wave2 = prefix_wave(reqs, seed=2)
+    prefix = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        zpath = os.path.join(tmp, "lm.zip")
+        write_model(net, zpath)
+        for kv_dtype in (None, "int8"):
+            label = kv_dtype or "fp32"
+            toks, st, pnet = prefix_run(ck, zpath, reqs, wave2, kv_dtype)
+            if kv_dtype is None:  # solo generate on the card, as phase 3
+                want1 = solo
+                want2 = [generate_transformer(pnet, b["prompt"], NEW_TOKENS,
+                                              VOCAB, **sampling_kw(b))
+                         for b in wave2]
+                against = "solo generate_transformer"
+            else:  # the layer's gather body on the same two waves
+                ref = DecodeScheduler(pnet, VOCAB, n_slots=SLOTS,
+                                      prefill_chunk=CHUNK, kv_block=KV_BLOCK,
+                                      kv_pool_mb=KV_POOL_MB, kv_dtype="int8",
+                                      paged_kernel="off", device="cuda").start()
+                try:
+                    want1, want2 = (
+                        [h.result(timeout=900) for h in
+                         [ref.submit(b["prompt"], NEW_TOKENS, **sampling_kw(b))
+                          for b in wave]] for wave in (reqs, wave2))
+                finally:
+                    ref.stop()
+                against = "paged_kernel='off'"
+            del pnet
+            prefix[label] = st
+            w, c, p, r = (st[k] for k in ("wave2", "wave2_cold",
+                                          "wave2_profiled", "rerun"))
+            wrong = [k for k, want in (("wave1", want1), ("wave2", want2),
+                                       ("wave2_cold", want2),
+                                       ("wave2_profiled", want2),
+                                       ("rerun", want1)) if toks[k] != want]
+            phase(8, f"{label} pages, second wave (7 requests on "
+                     f"{PREFIX_HEAD}-token heads of the first wave's prompts, "
+                     f"1 exact repeat of a {len(wave2[-1]['prompt'])}-token "
+                     f"block-aligned one) after the first: {w['tokens']} "
+                     f"tokens in {w['wall_s']:.3f} s = {w['tokens_per_s']:.2f}"
+                     f" tokens/s, prefix hits {w['hits']} ({w['hit_blocks']} "
+                     f"blocks, {w['restored_tokens']} positions restored), COW "
+                     f"copies {w['cow_copies']}, {w['prefill_chunks']} prefill "
+                     f"chunks, {w['decode_steps']} decode steps, launches "
+                     f"{w['launches']}; the same wave cold: {c['wall_s']:.3f} "
+                     f"s = {c['tokens_per_s']:.2f} tokens/s, "
+                     f"{c['prefill_chunks']} prefill chunks, "
+                     f"{c['decode_steps']} decode steps; under the profiler "
+                     f"(after the first wave): device busy "
+                     f"{p['device_busy_ms']:.3f} ms of {p['wall_s']:.3f} s "
+                     f"({100 * p['device_busy_share']:.2f}%); tokens of every "
+                     f"wave identical to {against} {not wrong}; pins left "
+                     f"{w['outstanding_refs']} [{card}]")
+            phase(8, f"{label} pages, the first wave again on a pool cut to "
+                     f"{r['cut']} of its peak need ({r['capacity_blocks']} of "
+                     f"{r['peak_blocks']} blocks), posted in order: "
+                     f"preemptions {r['preemptions']}, {r['prefill_chunks']} "
+                     f"prefill chunks, {r['decode_steps']} decode steps, "
+                     f"launches {r['launches']}, {r['wall_s']:.3f} s, pins "
+                     f"left {r['outstanding_refs']} [{card}]")
+            bad = []
+            if wrong:
+                bad.append(f"tokens differ from {against} in {wrong}")
+            if not (w["hits"] > 0 and w["cow_copies"] > 0):
+                bad.append(f"no prefix hit or no COW copy: {w}")
+            if not r["preemptions"]:
+                bad.append(f"no cut of the pool preempted: {r}")
+            if any(x["outstanding_refs"] for x in (w, c, p, r)):
+                bad.append("trie pins left after the waves")
+            if bad:
+                raise SystemExit(f"phase 8 ({label}): " + "; ".join(bad))
 
     # -- 9. the flash-attention kernels against their plain versions -------
     # phases 9-10 gather their failures and stop after phase 10, so one run
@@ -1830,8 +2076,9 @@ def main():
     print("[details] " + json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
          "build_s": build_s, "ptxas": ptxas, "attn_build": attn_build,
-         "paged_build": paged_build,
+         "paged_build": paged_build, "bnap_sums_build": bnap_build,
          "conv_build": conv_build, "conv_alexnet_sum": conv_sum,
+         "bnap_alexnet_sum": bnap_sum,
          "cases": cases, "e2e_fp32": e2e,
          "e2e_int8": e2e8, "profile": prof, "conv_cases": conv_cases,
          "conv_activation_rel_errs": act_errs, "conv_seam": seam_cases,
@@ -1840,7 +2087,8 @@ def main():
          "flash_cases": flash_cases, "attention_seam": seam,
          "lm_train": lm, "splash_cases": splash_cases,
          "splash_min_len_timings": route,
-         "lm_train_32k": lc, "kv_cache_generation": gen}))
+         "lm_train_32k": lc, "kv_cache_generation": gen,
+         "prefix_serving": prefix}))
     phase(14, "kernels:")
     print(json.dumps({"kernels": kernels}))
     print(card)

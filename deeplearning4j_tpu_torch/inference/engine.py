@@ -3,7 +3,9 @@ deeplearning4j_tpu/inference/engine.py (`DecodeScheduler`, paged mode).
 
 One scheduler thread loops over iterations. Each iteration:
 
-  1. evicts cancelled requests and admits queued ones into free slots;
+  1. evicts cancelled requests, re-matches mid-prefill slots against the
+     prefix trie, and admits queued requests into free slots, each
+     restoring its longest cached prefix;
   2. runs at most one prefill chunk (round-robin over prefilling slots),
      padded to a pow2 chunk bucket: lanes past the real tokens write to
      the scratch page, and the slot's position advances by the real
@@ -15,25 +17,38 @@ One scheduler thread loops over iterations. Each iteration:
 
 Positions and block tables are host-authoritative: the host holds each
 slot's depth (``written``) and its table row, and ships both with every
-dispatch; a masked row's position simply is not advanced. Blocks are
-allocated lazily as a slot's depth crosses a block boundary, and tables
-are sliced to a pow2 bucket covering the deepest live slot, as in the JAX
+dispatch; a masked row's position simply is not advanced. Tables are
+sliced to a pow2 bucket covering the deepest live slot, as in the JAX
 engine. Every request samples on the host from its own
 ``np.random.default_rng(seed)``, so its tokens do not depend on the
 schedule.
 
-Admission reserves a request's whole block need (prompt plus
-``max_new_tokens``) up front: a request is admitted only when the pool
-can hold it to the end, and refused with `PromptTooLongError` when the
-whole pool cannot. That stands in for the JAX engine's preemption.
+The pool (`kvpool.KVPool`) is the live cache and the prefix cache at once:
+
+  - prefix restore is a table remap (JAX `_try_restore_paged` :1952): the
+    slot's table points at the trie's pages, pinned through the deepest
+    matched node, and its position jumps past the hit; no K/V is copied.
+    A hit may cover the whole prompt: the last prompt token is re-fed;
+  - copy-on-write (`_ensure_writable` :1837): the first write into a
+    shared (trie-owned) page copies that page into a fresh one first;
+  - publish is an ownership transfer (`_publish_paged` :2018): at finish
+    the prompt's full blocks are adopted by the trie where they lie;
+  - blocks are allocated lazily as a slot's depth crosses a block
+    boundary. Admission is by pool bytes (free plus evictable blocks
+    against the prompt's blocks); when allocation fails even after LRU
+    eviction, the latest-submitted live slot is preempted: its blocks
+    and pin are released, its generated tokens folded into its prompt,
+    and it is requeued at the front, to re-prefill on resume with its
+    RNG untouched (`_preempt` :1884).
 
 ``paged_kernel``: "on" (default) reads decode attention through the
 hand-written CUDA kernel (the plain version on CPU tensors); "off" is
 the caller's explicit choice of the layer's gather body.
 
-Still to come (listed in ROADMAP.md): prefix restore/publish, COW,
-preemption, speculation, logit processors and masks, tiering,
-supervisor, mesh, metrics, profiler, trace and failpoints.
+Still to come (listed in ROADMAP.md): contiguous mode, `warmup()`,
+metrics, trace, the CUDA-graph capture of the decode step, speculation,
+logit processors and masks, tiering, supervisor, mesh, profiler and
+failpoints.
 """
 from __future__ import annotations
 
@@ -122,12 +137,12 @@ class DecodeHandle:
 class _ActiveSeq:
     """Book-keeping for one request."""
     __slots__ = ("handle", "prompt", "fed", "rng", "temperature", "top_k",
-                 "top_p", "eos_id", "block_ids", "written", "need_blocks")
+                 "top_p", "eos_id", "pool_node", "block_ids", "shared",
+                 "written", "folded", "cow_starved")
 
     def __init__(self, handle: DecodeHandle, prompt: Sequence[int],
                  temperature: float, top_k: Optional[int],
-                 top_p: Optional[float], seed: int, eos_id: Optional[int],
-                 need_blocks: int):
+                 top_p: Optional[float], seed: int, eos_id: Optional[int]):
         self.handle = handle
         self.prompt = [int(t) for t in prompt]
         self.fed = 0  # prompt tokens fed so far
@@ -136,9 +151,15 @@ class _ActiveSeq:
         self.top_k = top_k
         self.top_p = top_p
         self.eos_id = eos_id
+        self.pool_node = None  # pinned trie node of the restored prefix
         self.block_ids: List[int] = []  # table entries, logical order
+        self.shared: List[bool] = []  # True = trie-owned (COW on write)
         self.written = 0  # positions written to the slot's KV pages
-        self.need_blocks = need_blocks  # reserved at admission
+        self.folded = 0  # generated tokens folded into `prompt` by preempts
+        # set when a COW page could not be had even by preempting (every
+        # page backs this very prompt's pinned prefix): the resume's
+        # restore then stops one block short, once
+        self.cow_starved = False
 
     def next_input(self) -> int:
         if self.fed < len(self.prompt):
@@ -247,6 +268,7 @@ class DecodeScheduler:
         self._running = False
         self._thread: Optional[threading.Thread] = None
         self._prefill_next = 0
+        self._published_seen = 0  # pool.published_blocks at the last upgrade
         self.crashed: Optional[BaseException] = None
         # scheduler-thread counters, read by callers between runs
         self.decode_steps = 0
@@ -254,6 +276,9 @@ class DecodeScheduler:
         self.prefill_chunks = 0
         self.prefill_seconds = 0.0
         self.tokens_emitted = 0
+        self.preemptions = 0
+        self.cow_copies = 0
+        self.restored_tokens = 0  # prompt positions skipped by prefix hits
 
     # -- submission --------------------------------------------------------
     def submit(self, prompt_ids: Sequence[int], max_new_tokens: int, *,
@@ -269,7 +294,9 @@ class DecodeScheduler:
         if bad:
             raise ValueError(f"prompt ids out of range [0, {self.vocab_size}): "
                              f"{bad[:5]}")
-        # the last sampled token is never fed back, so it needs no row
+        # the last sampled token is never fed back, so it needs no row.
+        # Pool-bytes admission: "too long" means more blocks than the
+        # whole pool has (there is no per-slot stripe to outgrow)
         needed = len(prompt_ids) + max_new_tokens - 1
         need_blocks = blocks_for(needed, self.kv_block)
         if need_blocks > self.pool.capacity_blocks:
@@ -284,7 +311,7 @@ class DecodeScheduler:
         handle = DecodeHandle(len(prompt_ids), max_new_tokens,
                               request_id=request_id)
         seq = _ActiveSeq(handle, prompt_ids, float(temperature), top_k, top_p,
-                         int(seed), eos_id, need_blocks)
+                         int(seed), eos_id)
         with self._cond:
             if not self._running:
                 raise RuntimeError("scheduler is not running (call start())")
@@ -338,7 +365,7 @@ class DecodeScheduler:
             seq.handle._finish(RuntimeError("scheduler stopped"))
         for i, seq in enumerate(self._slots):
             if seq is not None:
-                self._free_slot(i, seq)
+                self._drop_slot(i, seq)
                 seq.handle._finish(RuntimeError("scheduler stopped"))
 
     def reset_counters(self) -> None:
@@ -347,6 +374,9 @@ class DecodeScheduler:
         self.prefill_chunks = 0
         self.prefill_seconds = 0.0
         self.tokens_emitted = 0
+        self.preemptions = 0
+        self.cow_copies = 0
+        self.restored_tokens = 0
 
     def _loop(self) -> None:
         while True:
@@ -378,31 +408,198 @@ class DecodeScheduler:
             seq.handle._finish(err)
         for i, seq in enumerate(self._slots):
             if seq is not None:
-                self._free_slot(i, seq)
+                self._drop_slot(i, seq)
                 seq.handle._finish(err)
 
-    # -- pool bookkeeping --------------------------------------------------
-    def _outstanding_blocks(self) -> int:
-        """Blocks reserved by resident requests but not yet allocated."""
-        return sum(s.need_blocks - len(s.block_ids)
-                   for s in self._slots if s is not None)
+    # -- pool bookkeeping: lazy growth, COW, preemption --------------------
+    def _alloc_or_preempt(self, slot: int, seq: _ActiveSeq) -> Optional[int]:
+        """One pool block under the preempt policy (JAX :1792): when even
+        LRU eviction frees none, preempt the latest-submitted live slot
+        and retry. None means ``seq`` itself was the victim (already
+        requeued: the caller skips its dispatch)."""
+        while True:
+            bid = self.pool.alloc()
+            if bid is not None:
+                return bid
+            victim = self._pick_victim()
+            if victim is None or victim[1] is seq:
+                self._preempt(slot, seq)
+                return None
+            self._preempt(*victim)
 
-    def _ensure_blocks(self, slot: int, seq: _ActiveSeq, upto_pos: int) -> None:
-        """Grow the slot's table to cover positions [0, upto_pos)."""
+    def _ensure_blocks(self, slot: int, seq: _ActiveSeq, upto_pos: int) -> bool:
+        """Grow the slot's table to cover positions [0, upto_pos) (JAX
+        :1811). False means ``seq`` was preempted by its own allocation."""
         need = blocks_for(upto_pos, self.kv_block)
         while len(seq.block_ids) < need:
-            bid = self.pool.alloc()
-            if bid is None:  # admission reserved every block a request uses
-                raise RuntimeError("KV pool exhausted despite reservation")
+            bid = self._alloc_or_preempt(slot, seq)
+            if bid is None:
+                return False
             self._table[slot, len(seq.block_ids)] = bid
             seq.block_ids.append(bid)
+            seq.shared.append(False)
+        return True
 
-    def _free_slot(self, slot: int, seq: _ActiveSeq) -> None:
-        for bid in seq.block_ids:
-            self.pool.free_block(bid)
-        seq.block_ids = []
-        self._table[slot, :] = SCRATCH_BLOCK
+    def _ensure_writable(self, slot: int, seq: _ActiveSeq, pos: int) -> bool:
+        """Copy-on-write before the first write into a shared block (JAX
+        :1837): the block holding ``pos`` — the one a full-prompt hit's
+        refeed writes — is copied into a fresh page and the table
+        repointed, so the cached original stays intact for its other
+        readers. Only the first block of a write can be shared."""
+        j = pos // self.kv_block
+        if j >= len(seq.block_ids) or not seq.shared[j]:
+            return True
+        bid = self._alloc_or_preempt(slot, seq)
+        if bid is None:
+            # every page backs this prompt's own pinned prefix: the resume
+            # must restore one block short instead
+            seq.cow_starved = True
+            return False
+        src = seq.block_ids[j]
+        for st in self._states.values():
+            for pages in st.values():  # K/V pages, and int8 scales
+                pages[bid].copy_(pages[src])
+        self.cow_copies += 1
+        seq.block_ids[j] = bid
+        seq.shared[j] = False
+        self._table[slot, j] = bid
+        return True
+
+    def _pick_victim(self) -> Optional[Tuple[int, _ActiveSeq]]:
+        """The latest-submitted live slot (JAX :1870): the earliest request
+        keeps its progress. May be the requester itself."""
+        cands = [(s.handle.t_submit, i, s)
+                 for i, s in enumerate(self._slots) if s is not None]
+        if not cands:
+            return None
+        _, i, s = max(cands, key=lambda c: c[:2])
+        return i, s
+
+    def _preempt(self, slot: int, seq: _ActiveSeq) -> None:
+        """Swap a sequence out under pool pressure (JAX :1884): release its
+        blocks and trie pin (K/V is dropped: the resume re-prefills it),
+        fold its generated tokens into its prompt, and requeue it at the
+        front. The host RNG is untouched, so the resumed output is the
+        same tokens as an unpreempted run."""
+        self.preemptions += 1
+        self._release_pool(seq)
+        self._release_slot_blocks(slot, seq)
+        h = seq.handle
+        seq.prompt.extend(h.tokens[seq.folded:])
+        seq.folded = len(h.tokens)
+        seq.fed = 0
+        seq.written = 0
         self._slots[slot] = None
+        with self._cond:
+            self._queue.insert(0, seq)
+
+    def _release_pool(self, seq: _ActiveSeq) -> None:
+        """Drop the sequence's trie pin (every slot-freeing path comes
+        through here, or the matched blocks stay pinned forever)."""
+        if seq.pool_node is not None:
+            self.pool.release(seq.pool_node)
+            seq.pool_node = None
+
+    def _release_slot_blocks(self, slot: int, seq: _ActiveSeq,
+                             keep: frozenset = frozenset()) -> None:
+        """Return the slot's owned blocks to the pool (shared ones belong
+        to the trie; ``keep``: ids the trie adopted at publish) and reset
+        its table row to scratch (JAX :1935)."""
+        for bid, sh in zip(seq.block_ids, seq.shared):
+            if not sh and bid not in keep:
+                self.pool.free_block(bid)
+        seq.block_ids = []
+        seq.shared = []
+        self._table[slot, :] = SCRATCH_BLOCK
+
+    def _drop_slot(self, slot: int, seq: _ActiveSeq) -> None:
+        """Free a slot without publishing (cancel, stop, crash: the prompt
+        may be half-written)."""
+        self._release_pool(seq)
+        self._release_slot_blocks(slot, seq)
+        self._slots[slot] = None
+
+    def _try_restore_paged(self, slot: int, seq: _ActiveSeq) -> None:
+        """Prefix restore as a table remap (JAX :1952): point the slot's
+        table at the cached blocks, pinned through the trie, and set its
+        position past the hit; no K/V is copied. The hit may cover the
+        whole prompt: the last token is then re-fed, and its write
+        copy-on-writes the last shared block."""
+        B = self.kv_block
+        max_hit = len(seq.prompt) // B
+        if seq.cow_starved:
+            # the last attempt's full hit left no page for the refeed's COW
+            # copy: leave the tail block unpinned (evictable) this time
+            max_hit -= 1
+            seq.cow_starved = False
+        if max_hit < 1:
+            return
+        n_blk, ids, node = self.pool.match(seq.prompt, max_hit)
+        seq.pool_node = node
+        if not n_blk:
+            return
+        seq.block_ids = [int(b) for b in ids]
+        seq.shared = [True] * n_blk
+        self._table[slot, :n_blk] = ids
+        seq.fed = seq.written = min(n_blk * B, len(seq.prompt) - 1)
+        self.restored_tokens += seq.fed
+
+    def _try_upgrade_slots(self) -> None:
+        """Re-match mid-prefill slots against the trie (JAX :3123): a slot
+        whose next blocks were published since it was admitted swaps its
+        pin to the deeper node, remaps its table onto those blocks and
+        skips past them. A COW-starved slot is left alone, so a full-pool
+        full-prompt hit converges instead of starving again. Only blocks
+        published since the last pass can deepen a hit, so a pass with
+        none is skipped."""
+        if self.pool.published_blocks == self._published_seen:
+            return
+        self._published_seen = self.pool.published_blocks
+        B = self.kv_block
+        for i, seq in enumerate(self._slots):
+            if seq is None or seq.fed >= len(seq.prompt) or seq.cow_starved:
+                continue
+            cur = seq.fed // B
+            max_hit = len(seq.prompt) // B
+            if max_hit <= cur or \
+                    self.pool.cached_blocks(seq.prompt, max_hit) * B <= seq.fed:
+                continue
+            n2, ids2, node2 = self.pool.match(seq.prompt, max_hit)
+            self._release_pool(seq)
+            seq.pool_node = node2
+            for j in range(cur, n2):
+                if j < len(seq.block_ids):
+                    if not seq.shared[j] and seq.block_ids[j] != ids2[j]:
+                        self.pool.free_block(seq.block_ids[j])
+                    seq.block_ids[j] = ids2[j]
+                    seq.shared[j] = True
+                else:
+                    seq.block_ids.append(ids2[j])
+                    seq.shared.append(True)
+                self._table[i, j] = ids2[j]
+            fed = min(n2 * B, len(seq.prompt) - 1)
+            self.restored_tokens += fed - seq.fed
+            seq.fed = seq.written = fed
+
+    def _publish_paged(self, seq: _ActiveSeq) -> frozenset:
+        """Publish as ownership transfer (JAX :2018): the finished prompt's
+        full blocks are adopted by the trie where they lie. Returns the
+        adopted ids; blocks the trie already indexes (the restored prefix,
+        or a COW copy of one) are freed as usual."""
+        n_full = len(seq.prompt) // self.kv_block
+        if n_full < 1 or n_full > len(seq.block_ids):
+            return frozenset()
+        return frozenset(self.pool.adopt(seq.prompt[:n_full * self.kv_block],
+                                         seq.block_ids[:n_full]))
+
+    def _retire(self, slot: int, seq: _ActiveSeq) -> None:
+        """Finish a sequence: publish its prompt's blocks for the next
+        request sharing the prefix, drop its pin, free the rest."""
+        adopted = self._publish_paged(seq)
+        self._release_pool(seq)
+        self._release_slot_blocks(slot, seq, keep=adopted)
+        self._slots[slot] = None
+        seq.handle._finish()
 
     def _table_for(self, max_pos: int) -> np.ndarray:
         """The host table sliced to the pow2 bucket covering ``max_pos``."""
@@ -414,13 +611,23 @@ class DecodeScheduler:
     def _evict_cancelled(self) -> None:
         for i, seq in enumerate(self._slots):
             if seq is not None and seq.handle.cancelled():
-                self._free_slot(i, seq)
+                self._drop_slot(i, seq)
                 seq.handle.finish_reason = "cancelled"
                 seq.handle._finish()
 
     def _admit(self) -> None:
+        """Fill free slots from the queue head by pool bytes (JAX :2420):
+        with any slot live, a prompt is admitted only when the free plus
+        evictable blocks, less the prompt blocks already promised to
+        resident slots, cover its prompt. Decode growth is not reserved:
+        that is what preemption is for. The oldest request waits rather
+        than being overtaken (a preempted one is back at the front)."""
+        B = self.kv_block
+        pending = sum(max(0, blocks_for(len(s.prompt), B) - len(s.block_ids))
+                      for s in self._slots if s is not None)
+        reclaim = None
+        admitted = []
         with self._cond:
-            free = self.pool.free_blocks - self._outstanding_blocks()
             for i in range(self.n_slots):
                 if self._slots[i] is not None:
                     continue
@@ -428,13 +635,21 @@ class DecodeScheduler:
                     seq = self._queue.pop(0)
                     seq.handle.finish_reason = "cancelled"
                     seq.handle._finish()
-                if not self._queue or self._queue[0].need_blocks > free:
-                    # head-of-line: the oldest request waits for blocks
-                    # rather than being overtaken by smaller ones
+                if not self._queue:
                     break
-                seq = self._queue.pop(0)
-                free -= seq.need_blocks
+                seq = self._queue[0]
+                need = blocks_for(len(seq.prompt), B)
+                if any(s is not None for s in self._slots):
+                    if reclaim is None:
+                        reclaim = self.pool.reclaimable_blocks()
+                    if reclaim - pending < need:
+                        break
+                self._queue.pop(0)
                 self._slots[i] = seq
+                pending += need
+                admitted.append((i, seq))
+        for i, seq in admitted:
+            self._try_restore_paged(i, seq)
 
     def _pick_chunk(self, seq: _ActiveSeq) -> Tuple[int, int]:
         """(bucket, n_real) of this sequence's next prefill chunk, or
@@ -477,7 +692,11 @@ class DecodeScheduler:
             if not n_real:
                 continue  # no headroom: token-by-token through decode
             t0 = time.monotonic()
-            self._ensure_blocks(i, seq, seq.written + n_real)
+            # lazy allocation and COW before the dispatch: every block the
+            # chunk writes is allocated and owned by the slot
+            if not self._ensure_blocks(i, seq, seq.written + n_real) \
+                    or not self._ensure_writable(i, seq, seq.written):
+                continue  # seq itself was preempted for blocks
             ids = np.zeros((bucket,), np.int32)
             ids[:n_real] = seq.prompt[seq.fed:seq.fed + n_real]
             dev = self.device
@@ -511,25 +730,31 @@ class DecodeScheduler:
         eos = seq.eos_id is not None and tok == seq.eos_id
         if len(h.tokens) >= h.max_new_tokens or eos:
             h.finish_reason = "eos" if eos else "length"
-            self._free_slot(slot, seq)
-            h._finish()
+            self._retire(slot, seq)
 
     def _step_once(self) -> bool:
         """One iteration: admission, at most one prefill chunk, then the
         all-slots decode step. Returns False when it idled."""
         self._evict_cancelled()
+        self._try_upgrade_slots()
         self._admit()
         if all(s is None for s in self._slots):
             return False
         chunked = self._run_prefill_chunk()
         fed: List[Tuple[int, _ActiveSeq]] = []
-        for i, seq in enumerate(self._slots):
-            if seq is None or i == chunked:
-                continue
+        # oldest first: a preemption takes the latest-submitted slot, which
+        # comes last here, so a slot already in `fed` never loses its blocks
+        active = sorted(((i, s) for i, s in enumerate(self._slots)
+                         if s is not None), key=lambda e: e[1].handle.t_submit)
+        for i, seq in active:
+            if self._slots[i] is not seq or i == chunked:
+                continue  # preempted above, or had its chunk turn
             if not seq.sampling and self.prefill_buckets \
                     and self._pick_chunk(seq)[1]:
                 continue  # mid-prefill: waits for its chunk turn
-            self._ensure_blocks(i, seq, seq.written + 1)
+            if not self._ensure_blocks(i, seq, seq.written + 1) \
+                    or not self._ensure_writable(i, seq, seq.written):
+                continue  # seq itself was preempted for blocks
             fed.append((i, seq))
         if fed:
             self._decode(fed)

@@ -1,21 +1,55 @@
-"""Paged KV pool metadata — port of the paged mode of
-deeplearning4j_tpu/inference/kvpool.py.
+"""Paged KV pool metadata and its prefix trie — port of the paged mode of
+deeplearning4j_tpu/inference/kvpool.py (`_Node` :97, `KVPool` :121).
 
 The engine owns the page arrays; this object is pure host metadata: the
-pool's sizing from a byte budget, and the free list of page ids. Page 0
-is the scratch page (masked and padded writes land there, padded table
-entries read it), so real pages are numbered from 1. The prefix trie,
-refcounts and eviction come with a later slice.
+pool's sizing from a byte budget, the free list of page ids, and a radix
+trie over full blocks of prompt tokens (one node per block, children keyed
+by the block's token tuple), whose nodes own the pages of cached prefixes.
+Page 0 is the scratch page (masked and padded writes land there, padded
+table entries read it), so real pages are numbered from 1.
+
+A page is in exactly one of three places: the free list, a slot (owned by
+the slot that `alloc`-ed it, until `free_block` or `adopt`), or a trie
+node. A slot that restores a prefix reads the trie's pages where they lie
+and pins the deepest matched node (`match` ... `release`); locked nodes and
+interior nodes are never evicted, unlocked leaves are LRU-evicted when the
+free list runs dry.
+
+Reuse is valid only for prefixes anchored at position 0: cached keys are
+stored rotated at their absolute positions, so a prefix from position 0 is
+the same bits in every request that shares it.
+
+Threading: every mutation happens on the engine's scheduler thread,
+between steps, so the pool takes no lock of its own.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+import heapq
+from typing import Dict, List, Optional, Sequence, Tuple
 
 SCRATCH_BLOCK = 0
 
 
+class _Node:
+    """One full block of a cached prefix: ``key`` is the block's token
+    tuple (the edge label from the parent), ``block_id`` its page.
+    ``lock`` counts live sequences pinning this node."""
+
+    __slots__ = ("key", "block_id", "parent", "children", "last_access",
+                 "lock")
+
+    def __init__(self, key: Tuple[int, ...], block_id: int,
+                 parent: Optional["_Node"]):
+        self.key = key
+        self.block_id = block_id
+        self.parent = parent
+        self.children: Dict[Tuple[int, ...], "_Node"] = {}
+        self.last_access = 0
+        self.lock = 0
+
+
 class KVPool:
-    """Free-list block pool over per-layer K/V page arrays.
+    """Refcounted block pool + trie prefix index over per-layer K/V pages.
 
     ``layers``: {layer: (Hkv, Dh, itemsize)} of the model dtype.
     ``cache_dtype="int8"`` sizes int8 rows plus one f32 scale per
@@ -45,33 +79,224 @@ class KVPool:
         total = self.budget_bytes // per_block if per_block else 0
         self.capacity_blocks = max(0, int(total) - 1)
         self._free: List[int] = list(range(1, self.capacity_blocks + 1))
+        self._root = _Node((), SCRATCH_BLOCK, None)
+        self._clock = 0  # logical LRU clock
+        # prefix-cache counters, read through stats()
+        self.lookups = 0
+        self.hits = 0
+        self.hit_blocks = 0
+        self.evicted_blocks = 0
+        self.published_blocks = 0  # blocks indexed by adopt and insert
 
+    # -- accounting ---------------------------------------------------------
     @property
     def free_blocks(self) -> int:
         return len(self._free)
 
     @property
     def used_blocks(self) -> int:
+        """Every allocated block: slot-owned and trie-cached."""
         return self.capacity_blocks - len(self._free)
 
-    def alloc(self) -> Optional[int]:
-        """One free page id, owned by the caller until `free_block`; None
-        when the pool is empty."""
-        return self._free.pop() if self._free else None
+    def _walk(self):
+        stack = list(self._root.children.values())
+        while stack:
+            n = stack.pop()
+            yield n
+            stack.extend(n.children.values())
 
-    def free_block(self, block_id: int) -> None:
-        if block_id == SCRATCH_BLOCK:
-            raise ValueError("the scratch block is never owned")
-        self._free.append(block_id)
+    def outstanding_refs(self) -> int:
+        """Live sequence references across the trie: zero when no admitted
+        sequence holds a prefix pin."""
+        return sum(n.lock for n in self._walk())
+
+    def refcounts(self) -> Dict[int, int]:
+        """block_id -> live sequence references on its node."""
+        return {n.block_id: n.lock for n in self._walk() if n.lock}
 
     def stats(self) -> dict:
+        """Occupancy, the trie's shape (nodes = indexed blocks, pinned
+        refs, deepest chain) and the prefix-cache counters."""
+        nodes = depth = refs = 0
+        # list() copies each child dict in one step under the GIL, so a
+        # reader on another thread (the server's /info) never iterates a
+        # dict the scheduler is changing
+        stack = [(c, 1) for c in list(self._root.children.values())]
+        while stack:
+            n, d = stack.pop()
+            nodes += 1
+            refs += n.lock
+            depth = max(depth, d)
+            stack.extend((c, d + 1) for c in list(n.children.values()))
         return {"capacity_blocks": self.capacity_blocks,
                 "block_positions": self.block,
                 "bytes_per_block": self.bytes_per_block,
                 "free_blocks": len(self._free),
                 "used_blocks": self.used_blocks,
                 "utilization": round(self.used_blocks / self.capacity_blocks, 4)
-                if self.capacity_blocks else 0.0}
+                if self.capacity_blocks else 0.0,
+                "trie": {"nodes": nodes, "max_depth_blocks": depth,
+                         "pinned_refs": refs},
+                "prefix": {"lookups": self.lookups, "hits": self.hits,
+                           "hit_blocks": self.hit_blocks,
+                           "published_blocks": self.published_blocks,
+                           "evicted_blocks": self.evicted_blocks}}
+
+    # -- prefix lookup ------------------------------------------------------
+    def _tick(self) -> int:
+        self._clock += 1
+        return self._clock
+
+    def _walk_prefix(self, tokens: Sequence[int], max_blocks: int
+                     ) -> Tuple[_Node, List[int]]:
+        """The deepest cached prefix of ``tokens`` (full blocks only, at
+        most ``max_blocks``), ticking ``last_access`` on the path: the
+        deepest node and the block ids along the path."""
+        node, ids = self._root, []
+        B = self.block
+        while len(ids) < max_blocks:
+            child = node.children.get(
+                tuple(int(t) for t in tokens[len(ids) * B:(len(ids) + 1) * B]))
+            if child is None:
+                break
+            node = child
+            node.last_access = self._tick()
+            ids.append(node.block_id)
+        return node, ids
+
+    def cached_blocks(self, tokens: Sequence[int], max_blocks: int) -> int:
+        """How many full blocks of ``tokens`` are cached (at most
+        ``max_blocks``), taking no reference and counting no lookup."""
+        return len(self._walk_prefix(tokens, max_blocks)[1])
+
+    def match(self, tokens: Sequence[int], max_blocks: int
+              ) -> Tuple[int, List[int], Optional[_Node]]:
+        """Longest cached prefix of ``tokens``, at most ``max_blocks`` full
+        blocks: ``(n_blocks, block_ids, node)``, taking one reference on
+        the deepest matched node (give it back with `release`). No hit
+        returns ``(0, [], None)`` and takes no reference."""
+        node, ids = self._walk_prefix(tokens, max_blocks)
+        self.lookups += 1
+        if not ids:
+            return 0, [], None
+        self.hits += 1
+        self.hit_blocks += len(ids)
+        node.lock += 1
+        return len(ids), ids, node
+
+    def release(self, node: _Node) -> None:
+        if node.lock <= 0:
+            raise AssertionError("release() without a matching reference")
+        node.lock -= 1
+
+    # -- the pool as the live decode cache ----------------------------------
+    def alloc(self) -> Optional[int]:
+        """One free page for a slot's table, LRU-evicting unreferenced
+        cached blocks when the free list is empty. ``None`` means every
+        page is owned by a live slot or pinned: the scheduler must
+        preempt. The page is owned by the caller until `free_block` or
+        `adopt`."""
+        if not self._free:
+            self._evict_lru()
+        return self._free.pop() if self._free else None
+
+    def free_block(self, block_id: int) -> None:
+        """Return a slot-owned page (never a trie-owned one: eviction
+        frees those) to the free list."""
+        if block_id == SCRATCH_BLOCK:
+            raise ValueError("the scratch block is never owned")
+        self._free.append(block_id)
+
+    def adopt(self, tokens: Sequence[int], block_ids: Sequence[int]
+              ) -> List[int]:
+        """Publish by reference: index the full blocks of ``tokens``, where
+        ``block_ids[j]`` is the slot-owned page already holding block
+        ``j``'s K/V. Walks the cached prefix, attaches a node for each
+        missing block that takes over the caller's page, and returns the
+        adopted ids: the caller must not free those (the trie owns them
+        now)."""
+        B = self.block
+        n_total = len(tokens) // B
+        node, matched = self._walk_prefix(tokens, n_total)
+        adopted: List[int] = []
+        for j in range(len(matched), n_total):
+            key = tuple(int(t) for t in tokens[j * B:(j + 1) * B])
+            child = _Node(key, int(block_ids[j]), node)
+            node.children[key] = child
+            node = child
+            node.last_access = self._tick()
+            adopted.append(int(block_ids[j]))
+        self.published_blocks += len(adopted)
+        return adopted
+
+    def reclaimable_blocks(self) -> int:
+        """Free blocks plus the cached blocks eviction could free (all but
+        those on a pinned path): the scheduler's admission gate."""
+        pinned = set()
+        for n in self._walk():
+            if n.lock:
+                p = n
+                while p is not None and id(p) not in pinned:
+                    pinned.add(id(p))
+                    p = p.parent
+        return len(self._free) + sum(
+            1 for n in self._walk() if id(n) not in pinned)
+
+    # -- insertion / eviction -----------------------------------------------
+    def insert(self, tokens: Sequence[int]) -> Tuple[int, List[int]]:
+        """Index ``tokens`` (a multiple of ``block`` long) on fresh pages:
+        walk the cached prefix, then allocate a page for each missing
+        block. Returns ``(start_block, new_block_ids)``; the caller fills
+        those pages. Best effort: when eviction cannot free a page, the
+        rest of the suffix is not cached."""
+        B = self.block
+        n_total = len(tokens) // B
+        node, matched = self._walk_prefix(tokens, n_total)
+        start, new_ids, pinned = len(matched), [], []
+        if node is not self._root:
+            node.lock += 1  # the extension point stays out of eviction
+            pinned.append(node)
+        try:
+            need = (n_total - start) - len(self._free)
+            if need > 0:
+                self._evict_lru(need)
+            for j in range(start, n_total):
+                bid = self.alloc()
+                if bid is None:
+                    break
+                key = tuple(int(t) for t in tokens[j * B:(j + 1) * B])
+                child = _Node(key, bid, node)
+                node.children[key] = child
+                node = child
+                node.last_access = self._tick()
+                node.lock += 1  # and so does the fresh chain
+                pinned.append(node)
+                new_ids.append(bid)
+        finally:
+            for n in pinned:
+                n.lock -= 1
+        self.published_blocks += len(new_ids)
+        return start, new_ids
+
+    def _evict_lru(self, want: int = 1) -> None:
+        """Free up to ``want`` pages, least recently used unlocked leaves
+        first, in one trie walk (a parent whose last child goes becomes a
+        candidate). Interior nodes are never evicted directly: their
+        children would become unreachable."""
+        heap = [(n.last_access, id(n), n) for n in self._walk()
+                if not n.children and not n.lock]
+        heapq.heapify(heap)
+        freed = 0
+        while heap and freed < want:
+            _, _, victim = heapq.heappop(heap)
+            parent = victim.parent
+            del parent.children[victim.key]
+            self._free.append(victim.block_id)
+            freed += 1
+            if parent is not self._root and not parent.children \
+                    and not parent.lock:
+                heapq.heappush(heap, (parent.last_access, id(parent), parent))
+        self.evicted_blocks += freed
 
 
 def blocks_for(positions: int, block: int) -> int:

@@ -48,4 +48,34 @@ __device__ __forceinline__ void bnap_recompute(const float* __restrict__ x, floa
     win.gz[j] = (a[j] == m ? share : 0.f) * activate_grad(act, z[j]);
 }
 
+// The same recompute on a window already loaded (bnap_sums.cu loads a lane's
+// four window inputs as float4s and calls this once per channel of the
+// lane): x_hat and g_z of the four inputs xv[j], in the order of Window.
+// Every step rounds as bnap_recompute rounds it, so both decide the same
+// maxima and ties and give the same bits. The tie share g / cnt is taken by
+// a multiply where cnt is 1, 2 or 4 (exact, so the same bits as the
+// division) and divided only for a 3-way tie.
+__device__ __forceinline__ void bnap_recompute_vals(const float xv[4], float g,
+                                                    float mean, float inv, float gam,
+                                                    float bet, int act, float xh[4],
+                                                    float gz[4]) {
+  float z[4], a[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    xh[j] = __fmul_rn(__fsub_rn(xv[j], mean), inv);
+    z[j] = __fadd_rn(__fmul_rn(xh[j], gam), bet);
+    a[j] = activate(act, z[j]);
+  }
+  const float m = fmaxf(fmaxf(a[0], a[1]), fmaxf(a[2], a[3]));
+  float cnt = 0.f;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) cnt += a[j] == m ? 1.f : 0.f;
+  const float share =
+      cnt == 3.f ? __fdiv_rn(g, 3.f)
+                 : __fmul_rn(g, cnt == 1.f ? 1.f : (cnt == 2.f ? 0.5f : 0.25f));
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    gz[j] = __fmul_rn(a[j] == m ? share : 0.f, activate_grad(act, z[j]));
+}
+
 }  // namespace dl4j

@@ -12,111 +12,293 @@
 //
 // with g_z recomputed per element as bnap_common.cuh describes.
 //
-// Design: a block of 32 x 8 threads owns 32 consecutive channels (so a warp
-// reads 128 contiguous bytes of NHWC memory) and walks the pooled positions
-// blockIdx.y * 8 + threadIdx.y, stepping by gridDim.y * 8, keeping its two
-// running sums in registers. The block then adds its 8 rows in a fixed order
-// and writes one partial per (block row, channel); a second kernel adds the
-// gridDim.y partials of each channel in order. No float atomics: the sums are
-// bitwise the same from run to run (the TPU kernel carried them in its
-// resident output block across the sequential grid, which CUDA blocks cannot).
-//
 // What bounds it on this card: the bytes of x and g, read once each (x is
-// four times g); the arithmetic is a few operations per element.
+// four times g); the arithmetic is a few operations per element. The design
+// keeps the loads wide and many, and the loop free of anything else:
+//
+//   - a lane owns VEC = 4 consecutive channels (one float4 of x or g, 16 B;
+//     VEC = 1 where C % 4 != 0 or an input is not 16-byte aligned), and a
+//     block is cl x pl threads: cl lanes across the channels, pl threads
+//     along the pooled positions;
+//   - pooled row r = b * H/2 + ph starts at x + 2 r W C and g + r W/2 C, so
+//     a block owns a run of rpb pooled rows and each thread walks them with
+//     incremented pointers, pw = pwl, pwl + pwn, ... inside a row: no
+//     division or modulo in the loop. Thread row ty is (ry, pwl) =
+//     (ty / pwn, ty % pwn), rl = pl / pwn rows at a time; at AlexNet's three
+//     shapes pwn = W/2 and rl = 1. Two rows are in flight per iteration:
+//     ten 16-byte loads per lane;
+//   - the grid is (channel blocks, ceil(R / rpb)) with rpb from a fixed
+//     formula (cuda_kernels.bnap_sums_plan): about two blocks per SM, one
+//     wave of equal blocks, every AlexNet shape included (conv3 has only
+//     8 x 8 positions per image, so its blocks own 8 rows of 4);
+//   - the sums are the same bits on every run, with no float atomics: a
+//     block adds its thread rows in order in shared memory and writes one
+//     partial row; the last block of each group of `group` row blocks
+//     (found by a ticket counter after __threadfence) adds the group's
+//     partial rows in a fixed order, and the last group does the same over
+//     the group rows into dg and db, all in this one launch. Each counter
+//     is back at 0 when its last block leaves, so the wrapper allocates
+//     them once per stream.
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #include "bnap_common.cuh"
 
 namespace {
 
-constexpr int kCh = 32;    // channels per block
-constexpr int kRows = 8;   // pooled-position rows per block
+constexpr int kThreads = 256;
 
-__global__ void __launch_bounds__(kCh * kRows)
-    bnap_sums_partial(const float* __restrict__ x, const float* __restrict__ g,
-                      const float* __restrict__ p, float* __restrict__ part, int B,
-                      int H, int W, int C, int act) {
-  __shared__ float sb[kRows][kCh + 1];
-  __shared__ float sg[kRows][kCh + 1];
-  const int c = blockIdx.x * kCh + threadIdx.x;
-  const int H2 = H / 2, W2 = W / 2;
-  const long long P = (long long)B * H2 * W2;
-  float db = 0.f, dg = 0.f;
-  if (c < C) {
-    const float mean = p[c], inv = p[C + c], gam = p[2 * C + c], bet = p[3 * C + c];
-    const long long row = (long long)W * C;
-    for (long long pp = (long long)blockIdx.y * kRows + threadIdx.y; pp < P;
-         pp += (long long)gridDim.y * kRows) {
-      const int pw = (int)(pp % W2);
-      const long long t = pp / W2;
-      const int ph = (int)(t % H2);
-      const long long b = t / H2;
-      const long long base = ((b * H + 2 * ph) * W + 2 * pw) * C + c;
-      dl4j::Window win;
-      dl4j::bnap_recompute(x, g[pp * C + c], base, row, C, mean, inv, gam, bet, act,
-                           win);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        db += win.gz[j];
-        dg += win.gz[j] * win.xh[j];
-      }
-    }
+// VEC consecutive floats of one lane.
+template <int VEC>
+struct Lane;
+
+template <>
+struct Lane<4> {
+  float v[4];
+  __device__ __forceinline__ void ldg(const float* p) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
   }
-  sb[threadIdx.y][threadIdx.x] = db;
-  sg[threadIdx.y][threadIdx.x] = dg;
-  __syncthreads();
-  if (threadIdx.y == 0 && c < C) {
-    float tb = 0.f, tg = 0.f;
+  // rows written by other blocks of this launch: read through L2
+  __device__ __forceinline__ void ldcg(const float* p) {
+    const float4 t = __ldcg(reinterpret_cast<const float4*>(p));
+    v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+  }
+};
+
+template <>
+struct Lane<1> {
+  float v[1];
+  __device__ __forceinline__ void ldg(const float* p) { v[0] = __ldg(p); }
+  __device__ __forceinline__ void ldcg(const float* p) { v[0] = __ldcg(p); }
+};
+
+template <int VEC>
+struct Params {
+  Lane<VEC> mean, inv, gam, bet;
+};
+
+// One pooled position: load its 2x2 window (row stride wc) and g, recompute
+// and add to the lane's sums in window order.
+template <int VEC>
+__device__ __forceinline__ void load_window(const float* xw, const float* gw, int C, int wc,
+                                            Lane<VEC> (&w)[4], Lane<VEC>& gv) {
+  w[0].ldg(xw);
+  w[1].ldg(xw + C);
+  w[2].ldg(xw + wc);
+  w[3].ldg(xw + wc + C);
+  gv.ldg(gw);
+}
+
+template <int VEC, int ACT>
+__device__ __forceinline__ void add_window(const Lane<VEC> (&w)[4], const Lane<VEC>& gv,
+                                           const Params<VEC>& pr, float (&sb)[VEC],
+                                           float (&sg)[VEC]) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      tb += sb[r][threadIdx.x];
-      tg += sg[r][threadIdx.x];
+  for (int v = 0; v < VEC; ++v) {
+    const float xv[4] = {w[0].v[v], w[1].v[v], w[2].v[v], w[3].v[v]};
+    float xh[4], gz[4];
+    dl4j::bnap_recompute_vals(xv, gv.v[v], pr.mean.v[v], pr.inv.v[v], pr.gam.v[v],
+                              pr.bet.v[v], ACT, xh, gz);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      sb[v] = __fadd_rn(sb[v], gz[j]);
+      sg[v] = __fmaf_rn(gz[j], xh[j], sg[v]);
     }
-    part[(long long)(2 * blockIdx.y) * C + c] = tb;
-    part[(long long)(2 * blockIdx.y + 1) * C + c] = tg;
   }
 }
 
-__global__ void bnap_sums_final(const float* __restrict__ part, float* __restrict__ dg,
-                                float* __restrict__ db, int C, int rows) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float tb = 0.f, tg = 0.f;
-  for (int r = 0; r < rows; ++r) {
-    tb += part[(long long)(2 * r) * C + c];
-    tg += part[(long long)(2 * r + 1) * C + c];
+// The block's pl thread rows of (sb, sg), added in order (row 0 first) per
+// channel, into out_b[c] and out_g[c] for the block's channels c >= cbase.
+template <int VEC>
+__device__ __forceinline__ void block_sum(const float (&sb)[VEC], const float (&sg)[VEC],
+                                          float* red, int C, int cbase, float* out_b,
+                                          float* out_g) {
+  const int cl = blockDim.x, pl = blockDim.y;
+  const int clv = cl * VEC;
+  const int at = threadIdx.y * clv + threadIdx.x * VEC;
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) {
+    red[at + v] = sb[v];
+    red[pl * clv + at + v] = sg[v];
   }
-  db[c] = tb;
-  dg[c] = tg;
+  __syncthreads();
+  for (int f = threadIdx.y * cl + threadIdx.x; f < 2 * clv; f += cl * pl) {
+    const int k = f >= clv;
+    const int j = f - k * clv;
+    if (cbase + j < C) {
+      const float* col = red + k * pl * clv + j;
+      float t = 0.f;
+      for (int r = 0; r < pl; ++r) t = __fadd_rn(t, col[r * clv]);
+      (k ? out_g : out_b)[cbase + j] = t;
+    }
+  }
+  __syncthreads();  // red is written again by the next level
+}
+
+// Thread row ty adds partial rows ty, ty + pl, ... of rows [n][2][C] in
+// order, for the lane's channels c0.. (block_sum then adds the thread rows).
+template <int VEC>
+__device__ __forceinline__ void fold_rows(const float* rows, int n, int C, int c0, bool ok,
+                                          float (&sb)[VEC], float (&sg)[VEC]) {
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) sb[v] = sg[v] = 0.f;
+  if (!ok) return;
+#pragma unroll 4
+  for (int q = threadIdx.y; q < n; q += blockDim.y) {
+    Lane<VEC> b, g;
+    b.ldcg(rows + 2LL * q * C + c0);
+    g.ldcg(rows + (2LL * q + 1) * C + c0);
+#pragma unroll
+    for (int v = 0; v < VEC; ++v) {
+      sb[v] = __fadd_rn(sb[v], b.v[v]);
+      sg[v] = __fadd_rn(sg[v], g.v[v]);
+    }
+  }
+}
+
+// Arrival of this block at `counter`, one of n: true in the last block to
+// arrive, which also sets the counter back to 0. Every thread's writes are
+// fenced first, so the last block reads them all.
+__device__ __forceinline__ bool arrive(unsigned* counter, unsigned n, bool& last) {
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0 && threadIdx.y == 0) {
+    last = atomicAdd(counter, 1u) + 1 == n;
+    if (last) *counter = 0;
+  }
+  __syncthreads();
+  return last;
+}
+
+template <int VEC, int ACT>
+__global__ void __launch_bounds__(kThreads, 2)
+    bnap_sums_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                     const float* __restrict__ p, float* __restrict__ part,
+                     float* __restrict__ dg, float* __restrict__ db,
+                     unsigned* __restrict__ ticket, int C, int W, int R, int rpb, int pwn,
+                     int rl, int group, int ngroups) {
+  __shared__ float red[2 * kThreads * 4];
+  __shared__ bool last;
+  const int W2 = W / 2;
+  const int cbase = blockIdx.x * blockDim.x * VEC;
+  const int c0 = cbase + threadIdx.x * VEC;
+  const bool lane_ok = c0 < C;
+  const int ry = threadIdx.y / pwn, pwl = threadIdx.y - ry * pwn;
+  float sb[VEC], sg[VEC];
+#pragma unroll
+  for (int v = 0; v < VEC; ++v) sb[v] = sg[v] = 0.f;
+  if (lane_ok && ry < rl) {
+    Params<VEC> pr;
+    pr.mean.ldg(p + c0);
+    pr.inv.ldg(p + C + c0);
+    pr.gam.ldg(p + 2 * C + c0);
+    pr.bet.ldg(p + 3 * C + c0);
+    const long long xrow = 2LL * W * C, grow = (long long)W2 * C;
+    const int wc = W * C;
+    const int r_end = min(R, (int)(blockIdx.y + 1) * rpb);
+    int r = blockIdx.y * rpb + ry;
+    const float* xr = x + r * xrow + 2 * pwl * C + c0;
+    const float* gr = g + r * grow + pwl * C + c0;
+    // two rows (r, r + rl) per iteration, then the odd row
+    for (; r + rl < r_end; r += 2 * rl, xr += 2 * rl * xrow, gr += 2 * rl * grow) {
+      int xo = 0, go = 0;
+      for (int pw = pwl; pw < W2; pw += pwn, xo += 2 * pwn * C, go += pwn * C) {
+        Lane<VEC> a[4], b[4], ga, gb;
+        load_window(xr + xo, gr + go, C, wc, a, ga);
+        load_window(xr + rl * xrow + xo, gr + rl * grow + go, C, wc, b, gb);
+        add_window<VEC, ACT>(a, ga, pr, sb, sg);
+        add_window<VEC, ACT>(b, gb, pr, sb, sg);
+      }
+    }
+    if (r < r_end) {
+      int xo = 0, go = 0;
+      for (int pw = pwl; pw < W2; pw += pwn, xo += 2 * pwn * C, go += pwn * C) {
+        Lane<VEC> a[4], ga;
+        load_window(xr + xo, gr + go, C, wc, a, ga);
+        add_window<VEC, ACT>(a, ga, pr, sb, sg);
+      }
+    }
+  }
+  // level 1: this block's partial row
+  block_sum(sb, sg, red, C, cbase, part + 2LL * blockIdx.y * C,
+            part + (2LL * blockIdx.y + 1) * C);
+  // level 2: the last block of the group adds the group's rows
+  const int grp = blockIdx.y / group;
+  const int first = grp * group;
+  const int n = min(group, (int)gridDim.y - first);
+  unsigned* tk = ticket + blockIdx.x * (ngroups + 1);
+  if (!arrive(tk + grp, n, last)) return;
+  float* gpart = part + 2LL * gridDim.y * C;
+  fold_rows(part + 2LL * first * C, n, C, c0, lane_ok, sb, sg);
+  block_sum(sb, sg, red, C, cbase, gpart + 2LL * grp * C, gpart + (2LL * grp + 1) * C);
+  // level 3: the last group's block adds the group rows
+  if (!arrive(tk + ngroups, ngroups, last)) return;
+  fold_rows(gpart, ngroups, C, c0, lane_ok, sb, sg);
+  block_sum(sb, sg, red, C, cbase, db, dg);
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+using Kernel = void (*)(const float*, const float*, const float*, float*, float*, float*,
+                        unsigned*, int, int, int, int, int, int, int, int);
+
+// The kernel of a lane width and an activation code (the four the fused
+// backward recomputes: identity, relu, tanh, sigmoid), or nullptr. The
+// activation is a template parameter, so its switch folds away in the loop.
+template <int VEC>
+Kernel kernel_for(int act) {
+  switch (act) {
+    case dl4j::kIdentity: return bnap_sums_kernel<VEC, dl4j::kIdentity>;
+    case dl4j::kRelu: return bnap_sums_kernel<VEC, dl4j::kRelu>;
+    case dl4j::kTanh: return bnap_sums_kernel<VEC, dl4j::kTanh>;
+    case dl4j::kSigmoid: return bnap_sums_kernel<VEC, dl4j::kSigmoid>;
+    default: return nullptr;
+  }
 }
 
 }  // namespace
 
-// part: scratch of [rows, 2, C] f32, rows = dl4j_bnap_sums_rows(...)
-extern "C" int dl4j_bnap_sums_rows(int B, int H, int W, int C) {
-  const long long P = (long long)B * (H / 2) * (W / 2);
-  const int cblocks = (C + kCh - 1) / kCh;
-  // about 1024 blocks in all (8 per SM on 132 SMs), each row of blocks
-  // walking at least one position per thread
-  long long rows = 1024 / cblocks;
-  const long long need = (P + kRows - 1) / kRows;
-  if (rows > need) rows = need;
-  if (rows < 1) rows = 1;
-  return (int)rows;
+// part: scratch of [rblocks + ngroups, 2, C] f32. ticket: cblocks x
+// (ngroups + 1) counters, all 0 before the launch and after it. The plan
+// (vec, cl, pl, pwn, rl, rpb, rblocks, group, ngroups) is
+// cuda_kernels.bnap_sums_plan's; cblocks = ceil(C / vec / cl).
+extern "C" int dl4j_bnap_sums_f32(const float* x, const float* g, const float* p,
+                                  float* part, float* dg, float* db, unsigned* ticket,
+                                  int B, int H, int W, int C, int act, int vec, int cl,
+                                  int pl, int pwn, int rl, int rpb, int rblocks, int group,
+                                  int ngroups, void* stream) {
+  if (B < 1 || H < 2 || W < 2 || (H & 1) || (W & 1) || C < 1 || 2LL * W * C > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  if ((vec != 1 && vec != 4) || C % vec || cl < 1 || pl < 1 || cl * pl > kThreads ||
+      pwn < 1 || rl < 1 || pwn * rl > pl || rpb < 1 || group < 1)
+    return (int)cudaErrorInvalidValue;
+  const Kernel kernel = vec == 4 ? kernel_for<4>(act) : kernel_for<1>(act);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  if (vec == 4 && !(aligned16(x) && aligned16(g) && aligned16(p) && aligned16(part)))
+    return (int)cudaErrorMisalignedAddress;
+  const long long R = (long long)B * (H / 2);
+  if (R > INT_MAX || rblocks != (R + rpb - 1) / rpb || rblocks > 65535 ||
+      ngroups != (rblocks + group - 1) / group)
+    return (int)cudaErrorInvalidValue;
+  const int cblocks = (C / vec + cl - 1) / cl;
+  kernel<<<dim3(cblocks, rblocks), dim3(cl, pl), 0, (cudaStream_t)stream>>>(
+      x, g, p, part, dg, db, ticket, C, W, (int)R, rpb, pwn, rl, group, ngroups);
+  return (int)cudaGetLastError();
 }
 
-extern "C" int dl4j_bnap_sums_f32(const float* x, const float* g, const float* p,
-                                  float* part, float* dg, float* db, int B, int H, int W,
-                                  int C, int act, int rows, void* stream) {
-  if (B < 1 || H < 2 || W < 2 || (H & 1) || (W & 1) || C < 1 || rows < 1 ||
-      rows > 65535 || act < 0 || act >= dl4j::kNumActs)
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  bnap_sums_partial<<<dim3((C + kCh - 1) / kCh, rows), dim3(kCh, kRows), 0, s>>>(
-      x, g, p, part, B, H, W, C, act);
-  cudaError_t e = cudaGetLastError();
+// Registers, local (spill) bytes per thread and static shared bytes of the
+// kernel of lane width vec and activation code act as the loaded binary has
+// them, into out[3].
+extern "C" int dl4j_bnap_sums_attrs(int vec, int act, int* out) {
+  const Kernel kernel = vec == 4 ? kernel_for<4>(act) : kernel_for<1>(act);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
   if (e != cudaSuccess) return (int)e;
-  bnap_sums_final<<<(C + 127) / 128, 128, 0, s>>>(part, dg, db, C, rows);
-  return (int)cudaGetLastError();
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  return 0;
 }

@@ -55,6 +55,10 @@ _PAGED_MAX_DH = 256
 # paged decode: blocks of the page walk to aim for, two per SM of an H100
 _PAGED_TARGET_BLOCKS = 2 * 132
 _PAGED_WARPS = 4  # warps (work items at a time) of one page-walk block
+# bnap_sums: threads of a block, and blocks to aim for: two resident per SM
+# of an H100 (the kernel's launch bounds), so one wave of equal blocks
+_BNAP_THREADS = 256
+_BNAP_TARGET_BLOCKS = 2 * 132
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -71,8 +75,8 @@ _SIGNATURES = {
         "dl4j_conv2d_bias_act_f32": [_PTR] * 5 + [_INT] * 14 + [_PTR],
         "dl4j_conv2d_bias_act_attrs": [_INT, _INT, _PTR]},
     "bnap_sums": {
-        "dl4j_bnap_sums_rows": [_INT] * 4,
-        "dl4j_bnap_sums_f32": [_PTR] * 6 + [_INT] * 6 + [_PTR]},
+        "dl4j_bnap_sums_f32": [_PTR] * 7 + [_INT] * 14 + [_PTR],
+        "dl4j_bnap_sums_attrs": [_INT, _INT, _PTR]},
     "bnap_dx": {
         "dl4j_bnap_dx_f32": [_PTR] * 5 + [_INT] * 5 + [_PTR]},
     "flash_attention_fwd": {
@@ -458,6 +462,42 @@ def _bnap_checks(name, x, g, p, activation):
     return B, H, W, C
 
 
+def bnap_sums_plan(B, H, W, C, vec):
+    """The sums kernel's partition (csrc/bnap_sums.cu), a fixed formula of
+    the shape: ``vec`` channels per lane, blocks of ``cl`` lanes across the
+    channels by ``pl`` thread rows; thread row ty walks pooled columns
+    ty % pwn, + pwn, ... of rows ty // pwn, + rl, ... of its block's run of
+    ``rpb`` pooled rows; ``rblocks`` row blocks (about _BNAP_TARGET_BLOCKS
+    blocks in all), whose partial rows are added by groups of ``group``,
+    then the ``ngroups`` group rows."""
+    lanes = C // vec
+    cl = min(lanes, 64)
+    pl = _BNAP_THREADS // cl
+    pwn = min(pl, W // 2)
+    cblocks = -(-lanes // cl)
+    R = B * (H // 2)
+    rpb = max(1, -(-R * cblocks // _BNAP_TARGET_BLOCKS))
+    rblocks = -(-R // rpb)
+    group = math.isqrt(rblocks - 1) + 1  # ceil(sqrt(rblocks))
+    return {"vec": vec, "cl": cl, "pl": pl, "pwn": pwn, "rl": pl // pwn,
+            "cblocks": cblocks, "rpb": rpb, "rblocks": rblocks,
+            "group": group, "ngroups": -(-rblocks // group)}
+
+
+# the sums kernel's ticket counters, by (device, stream): each is back at 0
+# when the launch that used it ends, and launches on one stream run in turn
+_BNAP_TICKETS = {}
+
+
+def _bnap_tickets(dev, n):
+    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    t = _BNAP_TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = _BNAP_TICKETS[key] = torch.zeros(max(n, 64), dtype=torch.int32,
+                                             device=dev)
+    return t
+
+
 def bnap_sums(x, g, p, *, activation):
     """Pass 1 of the fused backward. x [B, H, W, C] f32, g [B, H/2, W/2, C]
     f32 (the pooled output's gradient), p [4, C] f32 = (mean, inv, gamma,
@@ -469,19 +509,34 @@ def bnap_sums(x, g, p, *, activation):
     if dev.type == "cpu":
         return bnap_sums_ref(x, g, p, activation=activation)
     B, H, W, C = _bnap_checks("bnap_sums", x, g, p, activation)
+    vec = 4 if C % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                  for t in (x, g, p)) else 1
+    plan = bnap_sums_plan(B, H, W, C, vec)
     lib = _lib("bnap_sums")
-    rows = lib.dl4j_bnap_sums_rows(B, H, W, C)
-    part = torch.empty((rows, 2, C), dtype=torch.float32, device=dev)
+    part = torch.empty((plan["rblocks"] + plan["ngroups"], 2, C),
+                       dtype=torch.float32, device=dev)
     dg = torch.empty((C,), dtype=torch.float32, device=dev)
     db = torch.empty((C,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        ticket = _bnap_tickets(dev, plan["cblocks"] * (plan["ngroups"] + 1))
         rc = lib.dl4j_bnap_sums_f32(
             x.data_ptr(), g.data_ptr(), p.data_ptr(), part.data_ptr(),
-            dg.data_ptr(), db.data_ptr(), B, H, W, C, ACT_CODES[activation],
-            rows, _stream(dev))
+            dg.data_ptr(), db.data_ptr(), ticket.data_ptr(), B, H, W, C,
+            ACT_CODES[activation], *(plan[k] for k in (
+                "vec", "cl", "pl", "pwn", "rl", "rpb", "rblocks", "group",
+                "ngroups")), _stream(dev))
     _raise_on(rc, lib, "bnap_sums")
     LAUNCHES["bnap_sums"] += 1
     return dg, db
+
+
+def bnap_sums_attrs() -> dict:
+    """{"vec4", "vec1"}: attrs (as `_kernel_attrs`; smem_bytes is the
+    static shared memory) of the sums kernel's two lane widths at relu,
+    AlexNet's activation. Needs the card."""
+    return {f"vec{v}": _kernel_attrs("bnap_sums", "dl4j_bnap_sums_attrs", v,
+                                     ACT_CODES["relu"])
+            for v in (4, 1)}
 
 
 def bnap_dx(x, g, p, s, *, activation):

@@ -156,7 +156,13 @@ def test_engine_admission(nets):
     try:
         hs = [eng.submit([1, 2, 3] * 6, 5), eng.submit([4, 5] * 9, 5)]
         assert [len(h.result(timeout=120)) for h in hs] == [5, 5]
-        assert eng.pool.free_blocks == 4
+        # the finished prompts' full blocks stay cached in the trie: no
+        # pin is left, and every block is free or evictable
+        pool = eng.pool
+        assert pool.outstanding_refs() == 0
+        assert pool.reclaimable_blocks() == pool.capacity_blocks
+        assert pool.free_blocks + pool.stats()["trie"]["nodes"] \
+            == pool.capacity_blocks
     finally:
         eng.stop()
 

@@ -32,15 +32,22 @@ non-zero without them, or when any phase fails. Phases:
      S = 1 and the walk writes the output itself (same gates);
   3. serves the flagship transformer LM (vocab 128, d_model 512, 8 heads,
      4 blocks, RoPE, f32, random weights from a seed) through the port's
-     InferenceServer: after one short warm-up request, 8 concurrent POST
-     /generate (prompts of 100-700
-     tokens, 32 new tokens, half greedy, half seeded sampling); tokens
-     must equal the port's solo generate_transformer on the card, and the
-     kernel's launch count must equal 4 layers x the decode steps taken;
+     InferenceServer on a paged pool, its decode step captured into CUDA
+     graphs (one per table bucket, by the server's warmup() before it
+     answers; decode_graphs "on", the default): after one short warm-up
+     request, 8 concurrent POST /generate (prompts of 100-700 tokens, 32
+     new tokens, half greedy, half seeded sampling); tokens must equal the
+     port's solo generate_transformer on the card and the same requests on
+     a decode_graphs="off" server (the eager step), the kernel's launch
+     count (counted at capture, added on every replay) must equal 4
+     layers x the decode steps taken, and the captures at most the table
+     buckets, all made by warmup() (none under traffic); prints the mean
+     decode step, captured and eager;
   4. the same with int8 KV pages, held against a paged_kernel="off" int8
-     engine on the card (the layer's gather body); then a breakdown of
-     the fp32 serving run under torch.profiler (the device's busy share,
-     the top kernels);
+     engine on the card (the layer's gather body) and the eager step;
+     then a breakdown of the fp32 and int8 serving runs under
+     torch.profiler, captured and eager (the device's busy share, the top
+     kernels), printed side by side (no speed gate);
   5. holds the three training kernels against their plain PyTorch
      versions on the card: the conv kernel at AlexNet-CIFAR10's three
      conv shapes and LeNet-MNIST's conv2 (B=512), the BN+act+pool
@@ -98,13 +105,17 @@ non-zero without them, or when any phase fails. Phases:
      it runs under torch.profiler (CUDA activity only) for the device's
      busy share; then the first wave again, posted in order, on a pool cut
      to 0.41 (then 0.33) of the wave's peak block need until a request is
-     preempted and resumed. Gates: tokens identical to solo
-     generate_transformer (fp32) or to a paged_kernel="off" engine on the
-     same waves (int8), the rerun's to the first wave's; prefix hits and a
-     COW copy in the second wave, a preemption in the rerun; no trie pin
-     left; paged-kernel launches = 4 layers x decode steps in both. Prints
+     preempted and resumed. Every server captures its decode steps in
+     warmup(); one more serves both waves with the eager step
+     (decode_graphs "off"), its second wave profiled too. Gates: tokens
+     identical to solo generate_transformer (fp32) or to a
+     paged_kernel="off" engine on the same waves (int8), and to the eager
+     step's, the rerun's to the first wave's; prefix hits and a COW copy
+     in the second wave, a preemption in the rerun; no trie pin left;
+     paged-kernel launches = 4 layers x decode steps in every wave; the
+     captures at most the table buckets and none under traffic. Prints
      each wave's wall time, tokens/s, prefill chunks (beside a cold
-     wave's), restored positions and busy share;
+     wave's), restored positions and busy share (captured and eager);
   9. holds the three flash-attention kernels (forward, dK/dV, dQ, all on
      the tensor cores in 3xTF32) against their plain versions on the card
      at the LM training shapes [32, 256, 8, 64] and [1, 8192, 4, 128]
@@ -166,7 +177,15 @@ non-zero without them, or when any phase fails. Phases:
      prompt and 32 new tokens, greedy and seeded, through
      generate_transformer(use_cache=True) (the contiguous cache of
      rnn_time_step): tokens identical to the uncached solo generate;
- 14. prints the kernels line.
+ 14. contiguous serving on the flagship (kv_pool_mb 0, the default: per-
+     slot stripes of max_cache_len 1024, 8 slots, a 64 MiB side prefix
+     pool), decode captured: phase 3's first wave, then phase 8's second
+     wave (prefix hits restored into the stripes). Gates: both waves'
+     tokens identical to solo generate_transformer, prefix hits > 0,
+     exactly one decode capture, no kernel launch (contiguous decode has
+     no kernel, in JAX either); prints the registry's step-time and time-
+     to-first-token quantiles;
+ 15. prints the kernels line.
 
 The last line is {"ok": true, "device": {...}}. Every number printed is
 measured in this run; a "[details]" JSON line before the kernels line
@@ -200,6 +219,8 @@ KV_POOL_MB = 129
 # rerun of the first wave tries in turn until one preempts
 PREFIX_HEAD = 256
 PREEMPT_CUTS = (0.41, 0.33)
+# phase 14: the contiguous mode's side prefix pool
+PREFIX_CACHE_MB = 64
 
 
 def phase(n, msg):
@@ -414,13 +435,16 @@ def sampling_kw(body):
 
 
 def serve_waves(ck, kw, pool_mb, waves, *, stagger=0.0, profiled=False):
-    """A fresh InferenceServer (``kw`` and a ``pool_mb`` MiB pool) serves
-    one short warm-up request, then each wave in turn, every request of a
+    """A fresh InferenceServer (``kw`` and a ``pool_mb`` MiB pool; its
+    start() runs warmup(), which captures the decode steps) serves one
+    short warm-up request, then each wave in turn, every request of a
     wave posted at once (body i after i * ``stagger`` s). Returns per wave
     its tokens and counts; the launch and engine counts start at 0 with
     each wave. ``profiled``: the last wave runs under torch.profiler (CUDA
     activity only, so the host pays little for it), and its counts carry
-    the device's busy ms and share."""
+    the device's busy ms and share. Raises when a wave's launches are not
+    4 layers x its decode steps, or when a capture happened after
+    warmup() or past one per table bucket."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from deeplearning4j_tpu_torch.serving.server import InferenceServer
@@ -428,6 +452,7 @@ def serve_waves(ck, kw, pool_mb, waves, *, stagger=0.0, profiled=False):
     out = []
     try:
         dec = srv.decoder
+        warm_captures = dec.decode_captures
         post(srv.port, {"prompt": waves[0][0]["prompt"][:CHUNK + 3],
                         "max_new_tokens": 4})
         for w, bodies in enumerate(waves):
@@ -457,7 +482,13 @@ def serve_waves(ck, kw, pool_mb, waves, *, stagger=0.0, profiled=False):
                   "launches": ck.LAUNCHES["paged_decode_attention"],
                   "outstanding_refs": dec.pool.outstanding_refs(),
                   "capacity_blocks": dec.pool.capacity_blocks,
-                  "bytes_per_block": dec.pool.bytes_per_block}
+                  "bytes_per_block": dec.pool.bytes_per_block,
+                  "mean_decode_step_ms": 1e3 * dec.decode_seconds
+                  / max(dec.decode_steps, 1),
+                  "decode_graphs": dec.decode_graphs,
+                  "warmup_captures": warm_captures,
+                  "captures": dec.decode_captures,
+                  "table_buckets": len(dec.table_buckets)}
             if prof is not None:
                 busy = sum(device_kernels_ms(prof).values())
                 st.update(device_busy_ms=busy,
@@ -473,7 +504,19 @@ def serve_waves(ck, kw, pool_mb, waves, *, stagger=0.0, profiled=False):
             raise SystemExit(f"wave {w}: launch count {st['launches']} != "
                              f"{n_attn} attention layers x "
                              f"{st['decode_steps']} decode steps")
+        capture_gate(st)
     return out, net
+
+
+def capture_gate(st):
+    """The capture budget: captured servers make one capture per table
+    bucket at most, all in warmup(); eager ones none."""
+    want = st["table_buckets"] if st["decode_graphs"] == "on" else 0
+    if not (st["warmup_captures"] == st["captures"] == want):
+        raise SystemExit(f"decode captures {st['captures']} (after warmup "
+                         f"{st['warmup_captures']}), want {want} "
+                         f"({st['table_buckets']} table buckets, graphs "
+                         f"{st['decode_graphs']})")
 
 
 def prefix_run(ck, model_path, reqs, wave2, kv_dtype):
@@ -494,6 +537,9 @@ def prefix_run(ck, model_path, reqs, wave2, kv_dtype):
     [(w2_cold, cold)], _ = serve_waves(ck, kw, KV_POOL_MB, [wave2])
     [_, (w2_prof, prof)], _ = serve_waves(ck, kw, KV_POOL_MB, [reqs, wave2],
                                           profiled=True)
+    [(w1_eager, _), (w2_eager, eager)], _ = serve_waves(
+        ck, dict(kw, decode_graphs="off"), KV_POOL_MB, [reqs, wave2],
+        profiled=True)
     peak = sum(blocks_for(len(b["prompt"]) + NEW_TOKENS - 1, KV_BLOCK)
                for b in reqs)
     for cut in PREEMPT_CUTS:
@@ -505,20 +551,24 @@ def prefix_run(ck, model_path, reqs, wave2, kv_dtype):
         if pre["preemptions"]:
             break
     return ({"wave1": w1, "wave2": w2, "wave2_cold": w2_cold,
-             "wave2_profiled": w2_prof, "rerun": rerun},
+             "wave2_profiled": w2_prof, "rerun": rerun, "wave1_eager": w1_eager,
+             "wave2_eager": w2_eager},
             {"wave2": warm, "wave2_cold": cold, "wave2_profiled": prof,
-             "rerun": pre}, net)
+             "rerun": pre, "wave2_eager": eager}, net)
 
 
-def serve_run(ck, model_path, reqs, kv_dtype):
-    """8 concurrent /generate through a fresh server; returns (tokens,
-    stats) with the launch count of exactly this run."""
+def serve_run(ck, model_path, reqs, kv_dtype, graphs="on"):
+    """8 concurrent /generate through a fresh server (``graphs``: its
+    decode_graphs); returns (tokens, stats) with the launch count of
+    exactly this run."""
     from deeplearning4j_tpu_torch.serving.server import InferenceServer
     srv = InferenceServer(model_path=model_path, decode_slots=SLOTS,
                           prefill_chunk=CHUNK, kv_block=KV_BLOCK,
                           kv_pool_mb=KV_POOL_MB, kv_dtype=kv_dtype,
-                          paged_kernel="on", device="cuda").start()
+                          paged_kernel="on", decode_graphs=graphs,
+                          device="cuda").start()
     try:
+        warm_captures = srv.decoder.decode_captures
         with urllib.request.urlopen(
                 f"http://127.0.0.1:{srv.port}/healthz", timeout=60) as r:
             assert r.status == 200
@@ -547,7 +597,10 @@ def serve_run(ck, model_path, reqs, kv_dtype):
                  "prefill_s": dec.prefill_seconds,
                  "mean_prefill_chunk_ms": 1e3 * dec.prefill_seconds
                  / max(dec.prefill_chunks, 1),
-                 "capacity_blocks": dec.pool.capacity_blocks}
+                 "capacity_blocks": dec.pool.capacity_blocks,
+                 "decode_graphs": graphs, "warmup_captures": warm_captures,
+                 "captures": dec.decode_captures,
+                 "table_buckets": len(dec.table_buckets)}
         net = srv.net
     finally:
         srv.stop()
@@ -559,19 +612,68 @@ def serve_run(ck, model_path, reqs, kv_dtype):
     if flash_launches:
         raise SystemExit(f"the decode engine launched the full-sequence "
                          f"attention kernel {flash_launches} times")
+    capture_gate(stats)
     return [o["tokens"] for o in outs], stats, net
 
 
-def profile_run(net, reqs):
-    """The fp32 serving run again, straight on a DecodeScheduler, under
-    torch.profiler: the device's busy share of the wall time and the
-    kernels that take it, by device time."""
+def contiguous_run(ck, model_path, waves):
+    """Phase 14: a server in contiguous mode (no kv_pool_mb: per-slot
+    stripes of the model's max_cache_len, a PREFIX_CACHE_MB side prefix
+    pool; start() captures the one decode step) serves each wave in turn.
+    Returns the tokens and counts of each wave, the launches of the whole
+    run, the captures, and the registry's text exposition."""
+    from deeplearning4j_tpu_torch.serving.server import InferenceServer
+    srv = InferenceServer(model_path=model_path, decode_slots=SLOTS,
+                          prefill_chunk=CHUNK, kv_block=KV_BLOCK,
+                          prefix_cache_mb=PREFIX_CACHE_MB,
+                          device="cuda").start()
+    out = []
+    try:
+        dec = srv.decoder
+        info = srv.info()["decode"]
+        warm_captures = dec.decode_captures
+        ck.reset_launches()
+        for bodies in waves:
+            dec.reset_counters()
+            before = dict(dec.pool.stats()["prefix"])
+            t0 = time.monotonic()
+            outs = post_all(srv.port, bodies)
+            wall = time.monotonic() - t0
+            after = dec.pool.stats()["prefix"]
+            n_tok = sum(len(o["tokens"]) for o in outs)
+            out.append(([o["tokens"] for o in outs], {
+                "wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
+                "decode_steps": dec.decode_steps,
+                "mean_decode_step_ms": 1e3 * dec.decode_seconds
+                / max(dec.decode_steps, 1),
+                "prefill_chunks": dec.prefill_chunks,
+                "restored_tokens": dec.restored_tokens,
+                "hits": after["hits"] - before["hits"]}))
+        return {"waves": out, "launches": dict(ck.LAUNCHES), "net": srv.net,
+                "warmup_captures": warm_captures,
+                "captures": dec.decode_captures, "kv_mode": info["kv_mode"],
+                "cache_positions": dec._cache_cap,
+                "pool_blocks": dec.pool.capacity_blocks,
+                "outstanding_refs": dec.pool.outstanding_refs(),
+                "metrics_text": srv.metrics.render_text()}
+    finally:
+        srv.stop()
+
+
+def profile_run(net, reqs, kv_dtype=None, graphs="on"):
+    """The serving run again, straight on a warmed DecodeScheduler (its
+    decode_graphs ``graphs``), under torch.profiler: the device's busy
+    share of the wall time and the kernels that take it, by device time,
+    and the mean decode step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from deeplearning4j_tpu_torch.inference.engine import DecodeScheduler
     eng = DecodeScheduler(net, VOCAB, n_slots=SLOTS, prefill_chunk=CHUNK,
                           kv_block=KV_BLOCK, kv_pool_mb=KV_POOL_MB,
-                          device="cuda").start()
+                          kv_dtype=kv_dtype, decode_graphs=graphs,
+                          device="cuda")
+    eng.warmup()
+    eng.start()
     try:
         eng.generate(reqs[0]["prompt"][:CHUNK + 3], 4, timeout=900)
         eng.reset_counters()
@@ -594,7 +696,10 @@ def profile_run(net, reqs):
             "device_busy_share": busy_ms / (wall * 1e3),
             "paged_kernel_ms": paged_ms, "decode_steps": eng.decode_steps,
             "decode_s": eng.decode_seconds, "prefill_s": eng.prefill_seconds,
+            "mean_decode_step_ms": 1e3 * eng.decode_seconds
+            / max(eng.decode_steps, 1),
             "prefill_chunks": eng.prefill_chunks,
+            "tokens_per_s": len(reqs) * NEW_TOKENS / wall,
             "top_kernels_ms": [[k[:80], ms] for k, ms in top]}
 
 
@@ -1237,6 +1342,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    t_start = time.monotonic()
     card = card_line()
     phase(0, f"card: {card}; torch {torch.__version__}, CUDA "
              f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
@@ -1305,6 +1411,8 @@ def main():
         zpath = os.path.join(tmp, "lm.zip")
         write_model(net, zpath)
         tokens, e2e, snet = serve_run(ck, zpath, reqs, None)
+        tokens_eager, e2e_eager, _ = serve_run(ck, zpath, reqs, None, "off")
+        e2e["eager"] = e2e_eager
         solo = []
         n0 = ck.LAUNCHES["flash_attention_fwd"]
         for b in reqs:
@@ -1314,6 +1422,10 @@ def main():
         if tokens != solo:
             raise SystemExit("served tokens differ from solo decode: "
                              + divergence(snet, reqs, tokens, solo))
+        if tokens_eager != tokens:
+            raise SystemExit("captured and eager decode steps served "
+                             "different tokens: "
+                             + divergence(snet, reqs, tokens_eager, solo))
         if e2e["solo_flash_fwd_launches"] != BLOCKS * NEW_TOKENS * len(reqs):
             raise SystemExit(f"the solo reference launched the forward "
                              f"kernel {e2e['solo_flash_fwd_launches']} times, "
@@ -1321,17 +1433,27 @@ def main():
         phase(3, f"flagship LM ({net.num_params()} params) served 8 "
                  f"concurrent /generate, prompts "
                  f"{[len(b['prompt']) for b in reqs]}: tokens identical to "
-                 f"solo; {e2e['tokens']} tokens in {e2e['wall_s']:.3f} s = "
+                 f"solo and to the eager step; captured: {e2e['tokens']} "
+                 f"tokens in {e2e['wall_s']:.3f} s = "
                  f"{e2e['tokens_per_s']:.2f} tokens/s, {e2e['decode_steps']} "
-                 f"decode steps, mean {e2e['mean_decode_step_ms']:.3f} ms, "
+                 f"decode steps, mean {e2e['mean_decode_step_ms']:.3f} ms "
+                 f"(eager: {e2e_eager['tokens_per_s']:.2f} tokens/s, "
+                 f"{e2e_eager['decode_steps']} steps, mean "
+                 f"{e2e_eager['mean_decode_step_ms']:.3f} ms), "
                  f"{e2e['prefill_chunks']} prefill chunks, mean "
                  f"{e2e['mean_prefill_chunk_ms']:.3f} ms, kernel launches "
-                 f"{e2e['launches']} = {BLOCKS} x {e2e['decode_steps']}; "
-                 f"the solo reference launched flash_attention_fwd "
-                 f"{e2e['solo_flash_fwd_launches']} times = {BLOCKS} x "
-                 f"{NEW_TOKENS} x {len(reqs)}, the server none [{card}]")
+                 f"{e2e['launches']} = {BLOCKS} x {e2e['decode_steps']} "
+                 f"(eager {e2e_eager['launches']}); decode captures "
+                 f"{e2e['captures']} for {e2e['table_buckets']} table "
+                 f"buckets, all in warmup(); the solo reference launched "
+                 f"flash_attention_fwd {e2e['solo_flash_fwd_launches']} "
+                 f"times = {BLOCKS} x {NEW_TOKENS} x {len(reqs)}, the server "
+                 f"none [{card}]")
 
         tokens8, e2e8, snet8 = serve_run(ck, zpath, reqs, "int8")
+        tokens8_eager, e2e8_eager, _ = serve_run(ck, zpath, reqs, "int8",
+                                                 "off")
+        e2e8["eager"] = e2e8_eager
         ref = DecodeScheduler(snet8, VOCAB, n_slots=SLOTS, prefill_chunk=CHUNK,
                               kv_block=KV_BLOCK, kv_pool_mb=KV_POOL_MB,
                               kv_dtype="int8", paged_kernel="off",
@@ -1342,28 +1464,47 @@ def main():
             ref_tokens = [h.result(timeout=900) for h in hs]
         finally:
             ref.stop()
-        if tokens8 != ref_tokens:
-            bad = [i for i, (a, s) in enumerate(zip(tokens8, ref_tokens))
-                   if a != s]
-            raise SystemExit(f"int8 kernel tokens differ from the gather "
-                             f"body for requests {bad}")
-        phase(4, f"int8 KV: tokens identical to paged_kernel='off'; "
-                 f"{e2e8['tokens_per_s']:.2f} tokens/s, mean decode step "
-                 f"{e2e8['mean_decode_step_ms']:.3f} ms, kernel launches "
-                 f"{e2e8['launches']} = {BLOCKS} x {e2e8['decode_steps']} "
-                 f"[{card}]")
+        for label, got in (("kernel", tokens8), ("eager step", tokens8_eager)):
+            if got != ref_tokens:
+                bad = [i for i, (a, s) in enumerate(zip(got, ref_tokens))
+                       if a != s]
+                raise SystemExit(f"int8 {label} tokens differ from the "
+                                 f"gather body for requests {bad}")
+        phase(4, f"int8 KV: tokens identical to paged_kernel='off' and to "
+                 f"the eager step; captured {e2e8['tokens_per_s']:.2f} "
+                 f"tokens/s, mean decode step "
+                 f"{e2e8['mean_decode_step_ms']:.3f} ms (eager "
+                 f"{e2e8_eager['tokens_per_s']:.2f} tokens/s, "
+                 f"{e2e8_eager['mean_decode_step_ms']:.3f} ms), kernel "
+                 f"launches {e2e8['launches']} = {BLOCKS} x "
+                 f"{e2e8['decode_steps']}; decode captures "
+                 f"{e2e8['captures']} for {e2e8['table_buckets']} table "
+                 f"buckets, all in warmup() [{card}]")
 
-    prof = profile_run(snet, reqs)
-    if prof["device_busy_ms"] > 0:
-        print(f"[profile] fp32 serving run under torch.profiler: wall "
-              f"{prof['wall_ms']:.3f} ms, device busy {prof['device_busy_ms']:.3f}"
-              f" ms ({100 * prof['device_busy_share']:.2f}%), paged kernel "
-              f"{prof['paged_kernel_ms']:.3f} ms, decode {prof['decode_s']:.3f} s"
-              f" / prefill {prof['prefill_s']:.3f} s of host time; top "
-              f"kernels {prof['top_kernels_ms'][:4]} [{card}]", flush=True)
-    else:
-        print("[profile] the profiler saw no device time: not measured",
-              flush=True)
+    prof = {}
+    for kv_dtype in (None, "int8"):
+        for graphs in ("on", "off"):
+            prof[f"{kv_dtype or 'fp32'}_{graphs}"] = profile_run(
+                snet, reqs, kv_dtype, graphs)
+    for kv_label in ("fp32", "int8"):
+        on, off = prof[f"{kv_label}_on"], prof[f"{kv_label}_off"]
+        if on["device_busy_ms"] > 0 and off["device_busy_ms"] > 0:
+            print(f"[profile] {kv_label} serving run under torch.profiler, "
+                  f"captured | eager: wall {on['wall_ms']:.3f} | "
+                  f"{off['wall_ms']:.3f} ms, device busy "
+                  f"{on['device_busy_ms']:.3f} | {off['device_busy_ms']:.3f}"
+                  f" ms ({100 * on['device_busy_share']:.2f}% | "
+                  f"{100 * off['device_busy_share']:.2f}%), mean decode step "
+                  f"{on['mean_decode_step_ms']:.3f} | "
+                  f"{off['mean_decode_step_ms']:.3f} ms, paged kernel "
+                  f"{on['paged_kernel_ms']:.3f} | {off['paged_kernel_ms']:.3f}"
+                  f" ms, decode {on['decode_s']:.3f} | {off['decode_s']:.3f} s"
+                  f" / prefill {on['prefill_s']:.3f} | {off['prefill_s']:.3f}"
+                  f" s of host time; top kernels captured "
+                  f"{on['top_kernels_ms'][:4]} [{card}]", flush=True)
+        else:
+            print(f"[profile] {kv_label}: the profiler saw no device time: "
+                  "not measured", flush=True)
 
     # -- 5. the training kernels against their plain versions --------------
     flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
@@ -1593,75 +1734,88 @@ def main():
     # -- 8. prefix reuse, COW and preemption on the serving flagship -------
     wave2 = prefix_wave(reqs, seed=2)
     prefix = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        zpath = os.path.join(tmp, "lm.zip")
-        write_model(net, zpath)
-        for kv_dtype in (None, "int8"):
-            label = kv_dtype or "fp32"
-            toks, st, pnet = prefix_run(ck, zpath, reqs, wave2, kv_dtype)
-            if kv_dtype is None:  # solo generate on the card, as phase 3
-                want1 = solo
-                want2 = [generate_transformer(pnet, b["prompt"], NEW_TOKENS,
-                                              VOCAB, **sampling_kw(b))
-                         for b in wave2]
-                against = "solo generate_transformer"
-            else:  # the layer's gather body on the same two waves
-                ref = DecodeScheduler(pnet, VOCAB, n_slots=SLOTS,
-                                      prefill_chunk=CHUNK, kv_block=KV_BLOCK,
-                                      kv_pool_mb=KV_POOL_MB, kv_dtype="int8",
-                                      paged_kernel="off", device="cuda").start()
-                try:
-                    want1, want2 = (
-                        [h.result(timeout=900) for h in
-                         [ref.submit(b["prompt"], NEW_TOKENS, **sampling_kw(b))
-                          for b in wave]] for wave in (reqs, wave2))
-                finally:
-                    ref.stop()
-                against = "paged_kernel='off'"
-            del pnet
-            prefix[label] = st
-            w, c, p, r = (st[k] for k in ("wave2", "wave2_cold",
-                                          "wave2_profiled", "rerun"))
-            wrong = [k for k, want in (("wave1", want1), ("wave2", want2),
-                                       ("wave2_cold", want2),
-                                       ("wave2_profiled", want2),
-                                       ("rerun", want1)) if toks[k] != want]
-            phase(8, f"{label} pages, second wave (7 requests on "
-                     f"{PREFIX_HEAD}-token heads of the first wave's prompts, "
-                     f"1 exact repeat of a {len(wave2[-1]['prompt'])}-token "
-                     f"block-aligned one) after the first: {w['tokens']} "
-                     f"tokens in {w['wall_s']:.3f} s = {w['tokens_per_s']:.2f}"
-                     f" tokens/s, prefix hits {w['hits']} ({w['hit_blocks']} "
-                     f"blocks, {w['restored_tokens']} positions restored), COW "
-                     f"copies {w['cow_copies']}, {w['prefill_chunks']} prefill "
-                     f"chunks, {w['decode_steps']} decode steps, launches "
-                     f"{w['launches']}; the same wave cold: {c['wall_s']:.3f} "
-                     f"s = {c['tokens_per_s']:.2f} tokens/s, "
-                     f"{c['prefill_chunks']} prefill chunks, "
-                     f"{c['decode_steps']} decode steps; under the profiler "
-                     f"(after the first wave): device busy "
-                     f"{p['device_busy_ms']:.3f} ms of {p['wall_s']:.3f} s "
-                     f"({100 * p['device_busy_share']:.2f}%); tokens of every "
-                     f"wave identical to {against} {not wrong}; pins left "
-                     f"{w['outstanding_refs']} [{card}]")
-            phase(8, f"{label} pages, the first wave again on a pool cut to "
-                     f"{r['cut']} of its peak need ({r['capacity_blocks']} of "
-                     f"{r['peak_blocks']} blocks), posted in order: "
-                     f"preemptions {r['preemptions']}, {r['prefill_chunks']} "
-                     f"prefill chunks, {r['decode_steps']} decode steps, "
-                     f"launches {r['launches']}, {r['wall_s']:.3f} s, pins "
-                     f"left {r['outstanding_refs']} [{card}]")
-            bad = []
-            if wrong:
-                bad.append(f"tokens differ from {against} in {wrong}")
-            if not (w["hits"] > 0 and w["cow_copies"] > 0):
-                bad.append(f"no prefix hit or no COW copy: {w}")
-            if not r["preemptions"]:
-                bad.append(f"no cut of the pool preempted: {r}")
-            if any(x["outstanding_refs"] for x in (w, c, p, r)):
-                bad.append("trie pins left after the waves")
-            if bad:
-                raise SystemExit(f"phase 8 ({label}): " + "; ".join(bad))
+    # the serving flagship's zip, kept for phase 14
+    serving_dir = tempfile.TemporaryDirectory()
+    serving_zip = os.path.join(serving_dir.name, "lm.zip")
+    write_model(net, serving_zip)
+    for kv_dtype in (None, "int8"):
+        label = kv_dtype or "fp32"
+        toks, st, pnet = prefix_run(ck, serving_zip, reqs, wave2, kv_dtype)
+        if kv_dtype is None:  # solo generate on the card, as phase 3
+            want1 = solo
+            want2 = [generate_transformer(pnet, b["prompt"], NEW_TOKENS,
+                                          VOCAB, **sampling_kw(b))
+                     for b in wave2]
+            against = "solo generate_transformer"
+        else:  # the layer's gather body on the same two waves
+            ref = DecodeScheduler(pnet, VOCAB, n_slots=SLOTS,
+                                  prefill_chunk=CHUNK, kv_block=KV_BLOCK,
+                                  kv_pool_mb=KV_POOL_MB, kv_dtype="int8",
+                                  paged_kernel="off", device="cuda").start()
+            try:
+                want1, want2 = (
+                    [h.result(timeout=900) for h in
+                     [ref.submit(b["prompt"], NEW_TOKENS, **sampling_kw(b))
+                      for b in wave]] for wave in (reqs, wave2))
+            finally:
+                ref.stop()
+            against = "paged_kernel='off'"
+        del pnet
+        prefix[label] = st
+        w, c, p, r, e = (st[k] for k in ("wave2", "wave2_cold",
+                                         "wave2_profiled", "rerun",
+                                         "wave2_eager"))
+        wrong = [k for k, want in (("wave1", want1), ("wave2", want2),
+                                   ("wave2_cold", want2),
+                                   ("wave2_profiled", want2),
+                                   ("rerun", want1),
+                                   ("wave1_eager", toks["wave1"]),
+                                   ("wave2_eager", toks["wave2"]))
+                 if toks[k] != want]
+        if kv_dtype is None:
+            prefix_want = (want1, want2)
+        phase(8, f"{label} pages, second wave (7 requests on "
+                 f"{PREFIX_HEAD}-token heads of the first wave's prompts, "
+                 f"1 exact repeat of a {len(wave2[-1]['prompt'])}-token "
+                 f"block-aligned one) after the first: {w['tokens']} "
+                 f"tokens in {w['wall_s']:.3f} s = {w['tokens_per_s']:.2f}"
+                 f" tokens/s, prefix hits {w['hits']} ({w['hit_blocks']} "
+                 f"blocks, {w['restored_tokens']} positions restored), COW "
+                 f"copies {w['cow_copies']}, {w['prefill_chunks']} prefill "
+                 f"chunks, {w['decode_steps']} decode steps, launches "
+                 f"{w['launches']}; the same wave cold: {c['wall_s']:.3f} "
+                 f"s = {c['tokens_per_s']:.2f} tokens/s, "
+                 f"{c['prefill_chunks']} prefill chunks, "
+                 f"{c['decode_steps']} decode steps; under the profiler "
+                 f"(after the first wave): device busy "
+                 f"{p['device_busy_ms']:.3f} ms of {p['wall_s']:.3f} s "
+                 f"({100 * p['device_busy_share']:.2f}%), mean decode "
+                 f"step {p['mean_decode_step_ms']:.3f} ms; eager step: "
+                 f"{e['device_busy_ms']:.3f} ms of {e['wall_s']:.3f} s "
+                 f"({100 * e['device_busy_share']:.2f}%), mean decode "
+                 f"step {e['mean_decode_step_ms']:.3f} ms; tokens of "
+                 f"every wave identical to {against} and to the eager "
+                 f"step {not wrong}; decode captures {w['captures']} "
+                 f"for {w['table_buckets']} table buckets, all in "
+                 f"warmup(); pins left {w['outstanding_refs']} [{card}]")
+        phase(8, f"{label} pages, the first wave again on a pool cut to "
+                 f"{r['cut']} of its peak need ({r['capacity_blocks']} of "
+                 f"{r['peak_blocks']} blocks), posted in order: "
+                 f"preemptions {r['preemptions']}, {r['prefill_chunks']} "
+                 f"prefill chunks, {r['decode_steps']} decode steps, "
+                 f"launches {r['launches']}, {r['wall_s']:.3f} s, pins "
+                 f"left {r['outstanding_refs']} [{card}]")
+        bad = []
+        if wrong:
+            bad.append(f"tokens differ from {against} in {wrong}")
+        if not (w["hits"] > 0 and w["cow_copies"] > 0):
+            bad.append(f"no prefix hit or no COW copy: {w}")
+        if not r["preemptions"]:
+            bad.append(f"no cut of the pool preempted: {r}")
+        if any(x["outstanding_refs"] for x in (w, c, p, r)):
+            bad.append("trie pins left after the waves")
+        if bad:
+            raise SystemExit(f"phase 8 ({label}): " + "; ".join(bad))
 
     # -- 9. the flash-attention kernels against their plain versions -------
     # phases 9-10 gather their failures and stop after phase 10, so one run
@@ -1969,6 +2123,48 @@ def main():
     if failures:
         raise SystemExit("phases 9-13 failed: " + " | ".join(failures))
 
+    # -- 14. contiguous serving, with its side prefix pool, on phase 3's
+    # model and phase 8's waves -------------------------------------------
+    cont = contiguous_run(ck, serving_zip, [reqs, wave2])
+    cnet = cont.pop("net")
+    (c1, c1_st), (c2, c2_st) = cont["waves"]
+    quantiles = [ln for ln in cont.pop("metrics_text").splitlines()
+                 if ln.startswith(("decode_step_time_sec",
+                                   "decode_time_to_first_token_sec"))]
+    cont["metrics_quantiles"] = quantiles
+    bad = []
+    if c1 != prefix_want[0]:
+        bad.append("first wave's tokens differ from solo generate: "
+                   + divergence(cnet, reqs, c1, prefix_want[0]))
+    if c2 != prefix_want[1]:
+        bad.append("prefix wave's tokens differ from solo generate: "
+                   + divergence(cnet, wave2, c2, prefix_want[1]))
+    if not c2_st["hits"]:
+        bad.append(f"no prefix hit in the second wave: {c2_st}")
+    if not (cont["warmup_captures"] == cont["captures"] == 1):
+        bad.append(f"decode captures {cont['captures']} (warmup "
+                   f"{cont['warmup_captures']}), want exactly 1")
+    if any(cont["launches"].values()) or cont["kv_mode"] != "contiguous" \
+            or cont["outstanding_refs"]:
+        bad.append(f"kernel launches {cont['launches']}, mode "
+                   f"{cont['kv_mode']}, pins left {cont['outstanding_refs']}")
+    phase(14, f"contiguous serving ({cont['cache_positions']} positions a "
+              f"slot, {SLOTS} slots, a {PREFIX_CACHE_MB} MiB prefix pool of "
+              f"{cont['pool_blocks']} blocks), decode captured "
+              f"({cont['captures']} capture): first wave "
+              f"{c1_st['tokens_per_s']:.2f} tokens/s, mean decode step "
+              f"{c1_st['mean_decode_step_ms']:.3f} ms, {c1_st['prefill_chunks']}"
+              f" prefill chunks; prefix wave {c2_st['tokens_per_s']:.2f} "
+              f"tokens/s, {c2_st['hits']} hits, {c2_st['restored_tokens']} "
+              f"positions restored, {c2_st['prefill_chunks']} prefill chunks; "
+              f"tokens of both identical to solo {not bad}; registry: "
+              f"{quantiles} [{card}]")
+    if bad:
+        raise SystemExit("phase 14: " + "; ".join(bad))
+    del cnet
+    serving_dir.cleanup()
+
+
     src = "deeplearning4j_tpu_torch/ops/csrc/paged_decode_attention.cu"
     kernels = []
     for name, key, run, replaces in (
@@ -2088,8 +2284,9 @@ def main():
          "lm_train": lm, "splash_cases": splash_cases,
          "splash_min_len_timings": route,
          "lm_train_32k": lc, "kv_cache_generation": gen,
-         "prefix_serving": prefix}))
-    phase(14, "kernels:")
+         "prefix_serving": prefix, "contiguous_serving": cont,
+         "elapsed_s": time.monotonic() - t_start}))
+    phase(15, "kernels:")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

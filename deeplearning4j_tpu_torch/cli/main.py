@@ -6,9 +6,10 @@
         [--label-index I] [--num-classes C] [--regression] \
         [--skip-lines K] [--print-every P] [--device cuda|cpu]
     python -m deeplearning4j_tpu_torch.cli.main serve --model lm.zip \
-        --generate --kv-pool-mb M --kv-block 16 --decode-slots N \
-        --prefill-chunk C [--kv-dtype int8] [--paged-kernel on|off] \
-        [--device cuda|cpu] [--port P]
+        --generate [--kv-pool-mb M] [--prefix-cache-mb M] [--kv-block 16] \
+        [--decode-slots N] [--prefill-chunk C] [--kv-dtype int8] \
+        [--paged-kernel on|off] [--decode-graphs on|off] \
+        [--trace-buffer N] [--device cuda|cpu] [--port P]
 
 The config JSON and the model zip are the shared formats (a JAX-written
 config trains here, a zip written here restores in the JAX package, and
@@ -62,16 +63,27 @@ def cmd_serve(args) -> int:
         model_path=args.model, port=args.port, host=args.host,
         default_timeout_ms=args.timeout_ms, decode_vocab=args.vocab_size,
         decode_slots=args.decode_slots, prefill_chunk=args.prefill_chunk,
-        decode_queue=args.queue_size, kv_block=args.kv_block,
-        kv_pool_mb=args.kv_pool_mb, kv_dtype=args.kv_dtype,
-        paged_kernel=args.paged_kernel, device=args.device).start()
+        decode_queue=args.queue_size, prefix_cache_mb=args.prefix_cache_mb,
+        kv_block=args.kv_block, kv_pool_mb=args.kv_pool_mb,
+        kv_dtype=args.kv_dtype, paged_kernel=args.paged_kernel,
+        decode_graphs=args.decode_graphs, trace_buffer=args.trace_buffer,
+        device=args.device).start()
     dec = server.decoder
+    if dec.paged:
+        kv = (f"paged KV pool {args.kv_pool_mb}MB ({dec.pool.capacity_blocks}"
+              f" blocks of {dec.kv_block}"
+              f"{', int8 KV' if dec.kv_dtype else ''}), decode kernel "
+              f"{dec.paged_kernel}")
+    else:
+        kv = (f"contiguous KV ({dec._cache_cap} positions a slot"
+              + (f", prefix pool {args.prefix_cache_mb}MB "
+                 f"({dec.pool.capacity_blocks} blocks of {dec.kv_block})"
+                 if dec.pool else "") + ")")
     print(f"Serving {args.model} on http://{args.host}:{server.port} "
           f"(device {server.device}; /generate: {dec.n_slots} slots, "
-          f"prefill chunk {dec.prefill_chunk}, paged KV pool "
-          f"{args.kv_pool_mb}MB ({dec.pool.capacity_blocks} blocks of "
-          f"{dec.kv_block}{', int8 KV' if dec.kv_dtype else ''}), decode "
-          f"kernel {dec.paged_kernel}; GET /healthz, /info)", flush=True)
+          f"prefill chunk {dec.prefill_chunk}, {kv}, decode graphs "
+          f"{dec.decode_graphs} ({dec.decode_captures} captured); GET "
+          f"/healthz, /info)", flush=True)
     if args.once:  # start, report, stop
         server.stop()
         return 0
@@ -111,21 +123,32 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a CUDA device) or cpu")
     s.add_argument("--generate", action="store_true",
-                   help="serve POST /generate through the paged decode "
-                        "engine")
+                   help="serve POST /generate through the decode engine")
     s.add_argument("--vocab-size", type=int, default=None,
                    help="token space (default: the output layer's width)")
     s.add_argument("--decode-slots", type=int, default=4)
     s.add_argument("--prefill-chunk", type=int, default=64)
     s.add_argument("--queue-size", type=int, default=64)
     s.add_argument("--timeout-ms", type=float, default=None)
-    s.add_argument("--kv-pool-mb", type=float, required=True,
-                   help="byte budget (MiB) of the paged KV pool")
+    s.add_argument("--kv-pool-mb", type=float, default=0.0,
+                   help="byte budget (MiB) of the paged KV pool (0 = "
+                        "contiguous per-slot caches)")
+    s.add_argument("--prefix-cache-mb", type=float, default=0.0,
+                   help="byte budget (MiB) of the contiguous mode's prefix "
+                        "KV pool: finished prompts' blocks are kept and "
+                        "repeated prefixes restored instead of re-prefilled "
+                        "(0 = disabled; the paged pool is its own)")
     s.add_argument("--kv-block", type=int, default=16)
     s.add_argument("--kv-dtype", choices=["int8"], default=None)
     s.add_argument("--paged-kernel", choices=["on", "off"], default="on",
                    help="on: decode attention through the CUDA kernel; "
                         "off: the layer's gather body")
+    s.add_argument("--decode-graphs", choices=["on", "off"], default="on",
+                   help="on: the decode step captured into CUDA graphs (one "
+                        "per table bucket), replayed; off: the eager step")
+    s.add_argument("--trace-buffer", type=int, default=8192,
+                   help="span flight-recorder ring capacity (events) behind "
+                        "the per-request timings; 0 disables tracing")
     s.add_argument("--once", action="store_true",
                    help="start, print the banner, stop")
     s.set_defaults(fn=cmd_serve)

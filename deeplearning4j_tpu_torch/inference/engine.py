@@ -1,60 +1,77 @@
-"""Continuous-batching decode over a paged KV pool — a reduced port of
-deeplearning4j_tpu/inference/engine.py (`DecodeScheduler`, paged mode).
+"""Continuous-batching decode over a paged KV pool or per-slot stripes — a
+reduced port of deeplearning4j_tpu/inference/engine.py (`DecodeScheduler`).
 
 One scheduler thread loops over iterations. Each iteration:
 
   1. evicts cancelled requests, re-matches mid-prefill slots against the
-     prefix trie, and admits queued requests into free slots, each
-     restoring its longest cached prefix;
+     prefix trie (paged), and admits queued requests into free slots,
+     each restoring its longest cached prefix;
   2. runs at most one prefill chunk (round-robin over prefilling slots),
-     padded to a pow2 chunk bucket: lanes past the real tokens write to
-     the scratch page, and the slot's position advances by the real
-     token count only (JAX `_prefill_paged_fn`, engine.py:1420);
+     padded to a pow2 chunk bucket; the slot's position advances by the
+     real token count only (JAX `_prefill_fn` :1352, `_prefill_paged_fn`
+     :1420);
   3. runs one decode step over all slots ([n_slots, 1] tokens) with the
-     ``live`` mask as write mask: idle and mid-prefill slots write to
-     the scratch page and do not advance (JAX `_step_paged_fn` :1241 and
-     `_freeze_states` :1182).
+     ``live`` mask: idle and mid-prefill rows are batch padding whose
+     position does not advance (JAX `_step_fn` :1208, `_step_paged_fn`
+     :1241, `_freeze_states` :1182).
 
-Positions and block tables are host-authoritative: the host holds each
-slot's depth (``written``) and its table row, and ships both with every
-dispatch; a masked row's position simply is not advanced. Tables are
-sliced to a pow2 bucket covering the deepest live slot, as in the JAX
-engine. Every request samples on the host from its own
+Two KV layouts, as in the JAX package:
+
+  - **contiguous** (``kv_pool_mb=0``, the default): each slot owns a
+    stripe of every attention layer's cache (``init_state(batch=
+    n_slots)``: K/V [n_slots, max_cache_len, Hkv, Dh]). A masked row
+    writes at its own frozen position, which the slot's next real write
+    overwrites. Prefix reuse goes through a side pool
+    (``prefix_cache_mb``): a hit is copied into the stripe
+    (`kvpool.gather_blocks`), a finished prompt is copied out
+    (`kvpool.scatter_blocks`). A prompt longer than the stripe is refused
+    at submit;
+  - **paged** (``kv_pool_mb > 0``): the pool (`kvpool.KVPool`) is the
+    live cache and the prefix cache at once. Restore is a table remap,
+    the first write into a shared page copies it (COW), publish is an
+    ownership transfer, blocks are allocated lazily, admission is by pool
+    bytes, and a pool that runs dry preempts the latest-submitted slot,
+    which re-prefills on resume with its RNG untouched (JAX `_preempt`
+    :1884). Masked rows write to the scratch page.
+
+Positions (and, paged, block tables) are host-authoritative: the host
+holds each slot's depth (``written``) and ships it with every dispatch.
+Every request samples on the host from its own
 ``np.random.default_rng(seed)``, so its tokens do not depend on the
 schedule.
 
-The pool (`kvpool.KVPool`) is the live cache and the prefix cache at once:
+The decode step (``decode_graphs``): "on" (the default) runs it on static
+buffers (`_DecodeRunner`), one per table bucket (paged) or one
+(contiguous) — the counterpart of the JAX package's one jitted program
+per bucket. On CUDA tensors each runner's step is captured once into a
+CUDA graph and replayed: the host fills a pinned staging buffer, ships
+it with one copy, replays the graph and copies ``probs`` back for
+sampling. On CPU tensors the same static-buffer step runs eagerly. "off"
+is the caller's explicit choice of the eager step. A capture that fails
+raises; there is no quiet fallback. ``decode_captures`` counts runners
+built: at most one per table bucket over the engine's life, none once
+`warmup()` has run. Prefill chunks, restores, publishes and COW copies
+run eagerly.
 
-  - prefix restore is a table remap (JAX `_try_restore_paged` :1952): the
-    slot's table points at the trie's pages, pinned through the deepest
-    matched node, and its position jumps past the hit; no K/V is copied.
-    A hit may cover the whole prompt: the last prompt token is re-fed;
-  - copy-on-write (`_ensure_writable` :1837): the first write into a
-    shared (trie-owned) page copies that page into a fresh one first;
-  - publish is an ownership transfer (`_publish_paged` :2018): at finish
-    the prompt's full blocks are adopted by the trie where they lie;
-  - blocks are allocated lazily as a slot's depth crosses a block
-    boundary. Admission is by pool bytes (free plus evictable blocks
-    against the prompt's blocks); when allocation fails even after LRU
-    eviction, the latest-submitted live slot is preempted: its blocks
-    and pin are released, its generated tokens folded into its prompt,
-    and it is requeued at the front, to re-prefill on resume with its
-    RNG untouched (`_preempt` :1884).
+``paged_kernel``: "on" (default) reads paged decode attention through the
+hand-written CUDA kernel (the plain version on CPU tensors); "off" is the
+caller's explicit choice of the layer's gather body.
 
-``paged_kernel``: "on" (default) reads decode attention through the
-hand-written CUDA kernel (the plain version on CPU tensors); "off" is
-the caller's explicit choice of the layer's gather body.
+``metrics`` / ``tracer``: the JAX engine's series (`inference/metrics.py`)
+and request spans (`inference/trace.py`): queued, prefix_restore,
+prefill (per-chunk spans on the slot track), decode, finish or cancel,
+preempted; admit/free, block_alloc, block_cow, preempt/resume and capture
+instants.
 
-Still to come (listed in ROADMAP.md): contiguous mode, `warmup()`,
-metrics, trace, the CUDA-graph capture of the decode step, speculation,
-logit processors and masks, tiering, supervisor, mesh, profiler and
+Still to come (listed in ROADMAP.md): recurrent nets, speculation, logit
+processors and masks, tiering, supervisor, mesh, profiler and
 failpoints.
 """
 from __future__ import annotations
 
-import itertools
 import threading
 import time
+import warnings
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -63,17 +80,25 @@ import torch.nn.functional as F
 
 from ..models.sampling import sample_logits
 from ..nn.layers.attention import SelfAttentionLayerImpl
+from ..ops import cuda_kernels as ck
 from ..util.device import DeviceLike, resolve_device
 from .batcher import bucket_for, pow2_buckets
-from .kvpool import SCRATCH_BLOCK, KVPool, blocks_for
+from .kvpool import (SCRATCH_BLOCK, KVPool, blocks_for, gather_blocks,
+                     scatter_blocks)
+from .metrics import MetricsRegistry, default_registry
+from .trace import FlightRecorder, default_recorder, new_request_id
 
 # smallest prefill chunk bucket (JAX engine.py:122)
 _MIN_CHUNK_BUCKET = 16
-_REQUEST_IDS = itertools.count(1)
 
 
 class PromptTooLongError(ValueError):
-    """The request's prompt plus max_new_tokens cannot fit the KV pool."""
+    """The request cannot fit the KV cache: contiguous mode ``len(prompt)
+    + max_new_tokens - 1 > max_cache_len``; paged mode more blocks than
+    the whole pool (``blocks_needed`` / ``blocks_available``)."""
+
+    blocks_needed: Optional[int] = None
+    blocks_available: Optional[int] = None
 
 
 class QueueFullError(RuntimeError):
@@ -91,21 +116,36 @@ class DecodeHandle:
                  request_id: Optional[str] = None):
         self.prompt_len = prompt_len
         self.max_new_tokens = max_new_tokens
-        self.request_id = request_id or f"r{next(_REQUEST_IDS):06d}"
+        self.request_id = request_id or new_request_id()
         self.tokens: List[int] = []
         self.finish_reason: Optional[str] = None  # "length" | "eos" | "cancelled"
         self._done = threading.Event()
         self._cancel = threading.Event()
         self._error: Optional[BaseException] = None
         self.t_submit = time.monotonic()
+        # stamped by the scheduler thread: queued [submit, admitted],
+        # restore [admitted, restored], prefill [restored, first token],
+        # decode [first token, done] are contiguous, so timings() sums
+        self.t_admitted: Optional[float] = None
+        self.t_restored: Optional[float] = None
         self.t_first_token: Optional[float] = None
         self.t_done: Optional[float] = None
+        # engine iterations this sequence was stepped before its first token
+        self.steps_to_first_token: Optional[int] = None
 
     def timings(self) -> Dict[str, float]:
-        """Wall-time breakdown (ms): submit -> first token -> done."""
+        """Per-phase wall time (ms), JAX engine.py:206: ``queue_ms +
+        restore_ms + prefill_ms + decode_ms == total_ms`` (a request that
+        never reached a boundary reports 0 for the phases past it)."""
         end = self.t_done if self.t_done is not None else time.monotonic()
+        admitted = self.t_admitted if self.t_admitted is not None else end
+        restored = self.t_restored if self.t_restored is not None \
+            else admitted
         first = self.t_first_token if self.t_first_token is not None else end
-        return {"ttft_ms": round((first - self.t_submit) * 1e3, 3),
+        first = max(first, restored)
+        return {"queue_ms": round((admitted - self.t_submit) * 1e3, 3),
+                "restore_ms": round((restored - admitted) * 1e3, 3),
+                "prefill_ms": round((first - restored) * 1e3, 3),
                 "decode_ms": round((end - first) * 1e3, 3),
                 "total_ms": round((end - self.t_submit) * 1e3, 3)}
 
@@ -137,8 +177,9 @@ class DecodeHandle:
 class _ActiveSeq:
     """Book-keeping for one request."""
     __slots__ = ("handle", "prompt", "fed", "rng", "temperature", "top_k",
-                 "top_p", "eos_id", "pool_node", "block_ids", "shared",
-                 "written", "folded", "cow_starved")
+                 "top_p", "eos_id", "steps", "pool_node", "block_ids",
+                 "shared", "written", "phase", "resumed", "folded",
+                 "cow_starved")
 
     def __init__(self, handle: DecodeHandle, prompt: Sequence[int],
                  temperature: float, top_k: Optional[int],
@@ -151,10 +192,15 @@ class _ActiveSeq:
         self.top_k = top_k
         self.top_p = top_p
         self.eos_id = eos_id
+        self.steps = 0  # engine iterations that advanced this sequence
         self.pool_node = None  # pinned trie node of the restored prefix
-        self.block_ids: List[int] = []  # table entries, logical order
+        self.block_ids: List[int] = []  # paged: table entries, logical order
         self.shared: List[bool] = []  # True = trie-owned (COW on write)
-        self.written = 0  # positions written to the slot's KV pages
+        self.written = 0  # positions written to the slot's KV rows
+        # the request-track span open now: "queued" -> "prefill" ->
+        # "decode", with "preempted" bridging a swap-out
+        self.phase = "queued"
+        self.resumed = False  # preempted at least once
         self.folded = 0  # generated tokens folded into `prompt` by preempts
         # set when a COW page could not be had even by preempting (every
         # page backs this very prompt's pinned prefix): the resume's
@@ -172,23 +218,70 @@ class _ActiveSeq:
         return self.fed >= len(self.prompt)
 
 
+class _DecodeRunner:
+    """The decode step of one table bucket (``nb`` blocks; None in
+    contiguous mode) on static buffers: the counterpart of one jitted
+    decode program of the JAX engine.
+
+    The inputs live in one int32 vector ``packed`` = [ids | live | pos |
+    table rows], filled from the host buffer ``stage`` (pinned on the
+    card) by one copy per step; ``probs`` [n_slots, vocab] is the one
+    output. ``graph`` is the captured step on the card (None on the CPU,
+    where the step runs eagerly on the same buffers), and ``launches``
+    the kernel launches one replay makes, counted at capture."""
+
+    def __init__(self, n_slots: int, nb: Optional[int],
+                 device: torch.device):
+        s = n_slots
+        n = s * (3 + (nb or 0))
+        self.nb = nb
+        self.stage = torch.zeros(n, dtype=torch.int32,
+                                 pin_memory=device.type == "cuda")
+        self.host = self.stage.numpy()
+        self.packed = torch.zeros(n, dtype=torch.int32, device=device)
+        self.ids = self.packed[:s]
+        self.live = self.packed[s:2 * s]
+        self.pos = self.packed[2 * s:3 * s]
+        self.table = self.packed[3 * s:].view(s, nb) if nb else None
+        self.probs: Optional[torch.Tensor] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches: Dict[str, int] = {}
+
+    def fill(self, ids: np.ndarray, live: np.ndarray, pos: np.ndarray,
+             table: Optional[np.ndarray]) -> None:
+        s = ids.shape[0]
+        h = self.host
+        h[:s] = ids
+        h[s:2 * s] = live
+        h[2 * s:3 * s] = pos
+        if self.nb:
+            h[3 * s:] = table.reshape(-1)
+        self.packed.copy_(self.stage, non_blocking=True)
+
+
 class DecodeScheduler:
-    """Continuous-batching paged decode over a transformer ComputationGraph.
+    """Continuous-batching decode over a transformer ComputationGraph.
 
     ``net``: a port `ComputationGraph` (e.g. `models/zoo.transformer_lm`)
     whose output is a next-token distribution; it must live on
-    ``device``. ``kv_pool_mb``: byte budget (MiB) of the paged KV pool,
-    required (> 0: the port's engine is paged only). ``kv_block``:
-    positions per page. ``kv_dtype="int8"`` stores int8 pages with f32
-    per-(position, head) scales. ``prefill_chunk``: max prompt tokens per
-    prefill dispatch (<= 1 feeds prompts token by token through the
-    decode step). ``device`` defaults to "cuda" and raises without one.
+    ``device``. ``kv_pool_mb``: byte budget (MiB) of the paged KV pool;
+    0 (default) gives contiguous per-slot stripes, with a side prefix
+    pool of ``prefix_cache_mb`` MiB when that is > 0. ``kv_block``:
+    positions per page or pool block. ``kv_dtype="int8"`` stores int8
+    pages with f32 per-(position, head) scales (paged only).
+    ``prefill_chunk``: max prompt tokens per prefill dispatch (<= 1 feeds
+    prompts token by token through the decode step). ``decode_graphs``:
+    "on" or "off" (see the module docstring). ``device`` defaults to
+    "cuda" and raises without one.
     """
 
     def __init__(self, net, vocab_size: int, *, n_slots: int = 4,
                  max_queue: int = 64, prefill_chunk: int = 64,
-                 kv_block: int = 16, kv_pool_mb: float = 0.0,
-                 kv_dtype: Optional[str] = None, paged_kernel: str = "on",
+                 prefix_cache_mb: float = 0.0, kv_block: int = 16,
+                 kv_pool_mb: float = 0.0, kv_dtype: Optional[str] = None,
+                 paged_kernel: str = "on", decode_graphs: str = "on",
+                 metrics: Optional[MetricsRegistry] = None,
+                 tracer: Optional[FlightRecorder] = None,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         if net.device != self.device:
@@ -201,13 +294,14 @@ class DecodeScheduler:
         if paged_kernel not in ("on", "off"):
             raise ValueError(f"paged_kernel must be 'on' or 'off', got "
                              f"{paged_kernel!r}")
-        if not kv_pool_mb or kv_pool_mb <= 0:
-            raise ValueError("kv_pool_mb must be > 0: the engine decodes "
-                             "from a paged KV pool")
+        if decode_graphs not in ("on", "off"):
+            raise ValueError(f"decode_graphs must be 'on' or 'off', got "
+                             f"{decode_graphs!r}")
         if self.device.type == "cuda":
             # f32 matmuls at full f32 precision: TF32 keeps ~10 mantissa
             # bits, enough to flip near-tied tokens against the reference
-            # decode. Process-wide switches, set before any dispatch.
+            # decode. Process-wide switches, set before any dispatch or
+            # capture.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         net._check_init()
@@ -217,8 +311,13 @@ class DecodeScheduler:
         self.max_queue = int(max_queue)
         self.prefill_chunk = int(prefill_chunk)
         self.kv_block = int(kv_block)
-        self.kv_dtype = kv_dtype
         self.paged_kernel = paged_kernel
+        self.decode_graphs = decode_graphs
+        self.metrics = metrics if metrics is not None else default_registry()
+        self.tracer = tracer if tracer is not None else default_recorder()
+        sfx = self.tracer.track_scope("engine")
+        self._sched_track = "scheduler" + sfx
+        self._slot_tracks = [f"slot {i}{sfx}" for i in range(self.n_slots)]
         self._out_name = net.conf.network_outputs[0]
         attn = {name: impl for name, impl in sorted(net._impls.items())
                 if isinstance(impl, SelfAttentionLayerImpl)}
@@ -228,34 +327,85 @@ class DecodeScheduler:
         itemsize = torch.empty((), dtype=net.dtype).element_size()
         shapes = {name: (impl._kv_heads(), impl.conf.n_out // impl.conf.n_heads)
                   for name, impl in attn.items()}
-        self.pool = KVPool({n: (h, d, itemsize) for n, (h, d) in shapes.items()},
-                           block=self.kv_block,
-                           budget_bytes=int(kv_pool_mb * (1 << 20)),
-                           cache_dtype=kv_dtype)
-        if self.pool.capacity_blocks < 1:
-            raise ValueError(f"kv_pool_mb={kv_pool_mb} holds fewer than two "
-                             f"{self.kv_block}-position blocks")
-        pages = self.pool.capacity_blocks + 1  # page 0 = scratch
+        layers = {n: (h, d, itemsize) for n, (h, d) in shapes.items()}
         dev = self.device
+        self.paged = bool(kv_pool_mb and kv_pool_mb > 0)
+        self.kv_dtype: Optional[str] = None
+        self.pool: Optional[KVPool] = None
+        self.restore_buckets: List[int] = []
+        self.table_buckets: List[int] = []
+        self._table: Optional[np.ndarray] = None
         self._states: Dict[str, Dict[str, torch.Tensor]] = {}
-        for name, (hkv, dh) in shapes.items():
-            shape = (pages, self.kv_block, hkv, dh)
-            if kv_dtype == "int8":
-                self._states[name] = {
-                    "k_pages": torch.zeros(shape, dtype=torch.int8, device=dev),
-                    "v_pages": torch.zeros(shape, dtype=torch.int8, device=dev),
-                    "k_scales": torch.zeros(shape[:-1], dtype=torch.float32,
-                                            device=dev),
-                    "v_scales": torch.zeros(shape[:-1], dtype=torch.float32,
-                                            device=dev)}
-            else:
-                self._states[name] = {
-                    "k_pages": torch.zeros(shape, dtype=net.dtype, device=dev),
-                    "v_pages": torch.zeros(shape, dtype=net.dtype, device=dev)}
-        self._cache_cap = self.pool.capacity_blocks * self.kv_block
-        self.table_buckets = pow2_buckets(self.pool.capacity_blocks)
-        self._table = np.full((self.n_slots, self.pool.capacity_blocks),
-                              SCRATCH_BLOCK, np.int32)
+        if self.paged:
+            self.kv_dtype = kv_dtype
+            self.pool = KVPool(layers, block=self.kv_block,
+                               budget_bytes=int(kv_pool_mb * (1 << 20)),
+                               cache_dtype=kv_dtype, metrics=self.metrics,
+                               tracer=self.tracer)
+            if self.pool.capacity_blocks < 1:
+                raise ValueError(f"kv_pool_mb={kv_pool_mb} holds fewer than "
+                                 f"two {self.kv_block}-position blocks")
+            if prefix_cache_mb and prefix_cache_mb > 0:
+                warnings.warn(
+                    "prefix_cache_mb is ignored when kv_pool_mb is set: the "
+                    "paged pool IS the prefix cache", RuntimeWarning,
+                    stacklevel=2)
+            pages = self.pool.capacity_blocks + 1  # page 0 = scratch
+            for name, (hkv, dh) in shapes.items():
+                shape = (pages, self.kv_block, hkv, dh)
+                if kv_dtype == "int8":
+                    self._states[name] = {
+                        "k_pages": torch.zeros(shape, dtype=torch.int8,
+                                               device=dev),
+                        "v_pages": torch.zeros(shape, dtype=torch.int8,
+                                               device=dev),
+                        "k_scales": torch.zeros(shape[:-1],
+                                                dtype=torch.float32, device=dev),
+                        "v_scales": torch.zeros(shape[:-1],
+                                                dtype=torch.float32, device=dev)}
+                else:
+                    self._states[name] = {
+                        "k_pages": torch.zeros(shape, dtype=net.dtype,
+                                               device=dev),
+                        "v_pages": torch.zeros(shape, dtype=net.dtype,
+                                               device=dev)}
+            self._cache_cap = self.pool.capacity_blocks * self.kv_block
+            self.table_buckets = pow2_buckets(self.pool.capacity_blocks)
+            self._table = np.full((self.n_slots, self.pool.capacity_blocks),
+                                  SCRATCH_BLOCK, np.int32)
+        else:
+            if kv_dtype:
+                warnings.warn(
+                    "kv_dtype='int8' requested but the paged KV pool did not "
+                    "engage (int8 KV lives in the pool's pages); serving "
+                    "with the model-dtype cache instead", RuntimeWarning,
+                    stacklevel=2)
+            # per-slot stripes; positions stay on the host
+            for name, impl in attn.items():
+                st = impl.init_state(self.n_slots, dtype=net.dtype, device=dev)
+                self._states[name] = {"k": st["k"], "v": st["v"]}
+            self._cache_cap = min(int(st["k"].shape[1])
+                                  for st in self._states.values())
+            if prefix_cache_mb and prefix_cache_mb > 0:
+                pool = None
+                if self._cache_cap >= self.kv_block:
+                    pool = KVPool(layers, block=self.kv_block,
+                                  budget_bytes=int(prefix_cache_mb * (1 << 20)),
+                                  paged=False, dtype=net.dtype, device=dev,
+                                  metrics=self.metrics, tracer=self.tracer)
+                if pool is not None and pool.capacity_blocks > 0:
+                    self.pool = pool
+                    self.restore_buckets = pow2_buckets(
+                        self._cache_cap // self.kv_block)
+                else:
+                    warnings.warn(
+                        f"prefix_cache_mb={prefix_cache_mb} requested but the "
+                        "prefix KV pool is DISABLED: "
+                        + (f"kv_block={kv_block} exceeds max_cache_len="
+                           f"{self._cache_cap}" if pool is None
+                           else "the byte budget is smaller than two "
+                                f"{self.kv_block}-position blocks"),
+                        RuntimeWarning, stacklevel=2)
         if self.prefill_chunk > 1:
             lo = min(_MIN_CHUNK_BUCKET, self.prefill_chunk)
             self.prefill_buckets = [b for b in pow2_buckets(self.prefill_chunk)
@@ -269,23 +419,72 @@ class DecodeScheduler:
         self._thread: Optional[threading.Thread] = None
         self._prefill_next = 0
         self._published_seen = 0  # pool.published_blocks at the last upgrade
+        self._emitted_this_iter = 0
         self.crashed: Optional[BaseException] = None
+        # the captured decode steps: one runner per table bucket (paged)
+        # or one (contiguous, key None), sharing one graph memory pool
+        self._runners: Dict[Optional[int], _DecodeRunner] = {}
+        self._graph_pool = None
+        self._capture_stream: Optional[torch.cuda.Stream] = None
+        self.decode_captures = 0
+        self._warmed = False
         # scheduler-thread counters, read by callers between runs
         self.decode_steps = 0
         self.decode_seconds = 0.0
         self.prefill_chunks = 0
         self.prefill_seconds = 0.0
-        self.tokens_emitted = 0
         self.preemptions = 0
         self.cow_copies = 0
         self.restored_tokens = 0  # prompt positions skipped by prefix hits
+        m = self.metrics
+        self._m_queue_depth = m.gauge("decode_queue_depth")
+        self._m_active = m.gauge("decode_active_slots")
+        self._m_occupancy = m.histogram("decode_slot_occupancy", lo=1.0,
+                                        hi=float(self.n_slots) + 1,
+                                        per_decade=12)
+        self._m_tokens = m.counter("decode_tokens_total")
+        self._m_seqs = m.counter("decode_sequences_total")
+        self._m_rejected = m.counter("decode_rejected_total")
+        self._m_cancelled = m.counter("decode_cancelled_total")
+        self._m_latency = m.histogram("decode_seq_latency_sec")
+        self._m_ttft = m.histogram("decode_time_to_first_token_sec")
+        self._m_step_time = m.histogram("decode_step_time_sec")
+        self._m_prefill_tokens = m.counter("prefill_tokens_total")
+        self._m_first_token = m.histogram(
+            "generate_first_token_seconds",
+            help="submit -> first output token (TTFT), seconds")
+        self._m_prefill_chunk = m.histogram(
+            "prefill_chunk_size", lo=1.0,
+            hi=float(max(self.prefill_buckets or [1])) + 1, per_decade=12)
+        if self.paged:
+            m.gauge("paged_kernel_engaged",
+                    help="paged decode attention runs through the "
+                         "hand-written kernel").set(
+                1.0 if paged_kernel == "on" else 0.0)
+            self._m_preempted = m.counter("decode_preempted_total")
+        if self.pool is not None:
+            self._m_prefix_lookups = m.counter("prefix_cache_lookups_total")
+            self._m_prefix_hits = m.counter("prefix_cache_hits_total")
+            self._m_prefix_lookup_tokens = m.counter(
+                "prefix_cache_lookup_tokens_total")
+            self._m_prefix_hit_tokens = m.counter(
+                "prefix_cache_hit_tokens_total")
+            m.ratio("prefix_cache_hit_rate", self._m_prefix_hit_tokens,
+                    self._m_prefix_lookup_tokens)
 
     # -- submission --------------------------------------------------------
+    def _reject(self, rid: str, msg: str, **args) -> PromptTooLongError:
+        self._m_rejected.inc()
+        self.tracer.instant("reject", req=rid, args={
+            "request_id": rid, "reason": "prompt_too_long", **args})
+        return PromptTooLongError(msg)
+
     def submit(self, prompt_ids: Sequence[int], max_new_tokens: int, *,
                temperature: float = 0.0, top_k: Optional[int] = None,
                top_p: Optional[float] = None, seed: int = 0,
                eos_id: Optional[int] = None,
                request_id: Optional[str] = None) -> DecodeHandle:
+        rid = request_id or new_request_id()
         if not len(prompt_ids):
             raise ValueError("prompt_ids must be non-empty")
         if max_new_tokens < 1:
@@ -294,31 +493,49 @@ class DecodeScheduler:
         if bad:
             raise ValueError(f"prompt ids out of range [0, {self.vocab_size}): "
                              f"{bad[:5]}")
-        # the last sampled token is never fed back, so it needs no row.
-        # Pool-bytes admission: "too long" means more blocks than the
-        # whole pool has (there is no per-slot stripe to outgrow)
+        # the last sampled token is never fed back, so it needs no row
         needed = len(prompt_ids) + max_new_tokens - 1
-        need_blocks = blocks_for(needed, self.kv_block)
-        if need_blocks > self.pool.capacity_blocks:
-            err = PromptTooLongError(
-                f"prompt ({len(prompt_ids)}) + max_new_tokens "
-                f"({max_new_tokens}) needs {need_blocks} KV blocks of "
-                f"{self.kv_block} positions but the pool has "
-                f"{self.pool.capacity_blocks}")
-            err.blocks_needed = need_blocks
-            err.blocks_available = self.pool.capacity_blocks
-            raise err
-        handle = DecodeHandle(len(prompt_ids), max_new_tokens,
-                              request_id=request_id)
+        if self.paged:
+            # pool-bytes admission: "too long" means more blocks than the
+            # whole pool has (there is no per-slot stripe to outgrow)
+            need_blocks = blocks_for(needed, self.kv_block)
+            if need_blocks > self.pool.capacity_blocks:
+                err = self._reject(
+                    rid, f"prompt ({len(prompt_ids)}) + max_new_tokens "
+                    f"({max_new_tokens}) needs {need_blocks} KV blocks of "
+                    f"{self.kv_block} positions but the pool has "
+                    f"{self.pool.capacity_blocks}",
+                    blocks_needed=need_blocks,
+                    blocks_available=self.pool.capacity_blocks)
+                err.blocks_needed = need_blocks
+                err.blocks_available = self.pool.capacity_blocks
+                raise err
+        elif needed > self._cache_cap:
+            raise self._reject(
+                rid, f"prompt ({len(prompt_ids)}) + max_new_tokens "
+                f"({max_new_tokens}) needs a KV cache of {needed} but "
+                f"max_cache_len={self._cache_cap}",
+                needed=needed, cache=self._cache_cap)
+        handle = DecodeHandle(len(prompt_ids), max_new_tokens, request_id=rid)
         seq = _ActiveSeq(handle, prompt_ids, float(temperature), top_k, top_p,
                          int(seed), eos_id)
         with self._cond:
             if not self._running:
                 raise RuntimeError("scheduler is not running (call start())")
             if len(self._queue) >= self.max_queue:
+                self._m_rejected.inc()
+                self.tracer.instant("reject", req=rid, args={
+                    "request_id": rid, "reason": "queue_full",
+                    "waiting": len(self._queue)})
                 raise QueueFullError(f"decode queue full ({self.max_queue} "
                                      "waiting)")
             self._queue.append(seq)
+            self._m_queue_depth.set(len(self._queue))
+            # opened under the queue lock, so the scheduler's end("queued")
+            # can never come first
+            self.tracer.begin("queued", req=rid,
+                              args={"prompt_tokens": len(seq.prompt),
+                                    "max_new_tokens": max_new_tokens})
             self._cond.notify()
         return handle
 
@@ -361,19 +578,32 @@ class DecodeScheduler:
             if self._thread.is_alive():
                 raise RuntimeError("decode scheduler thread did not stop")
             self._thread = None
+        # a preemption racing the drain above can requeue a sequence after
+        # the queue was cleared: drain again now that the thread is joined
+        with self._cond:
+            pending += self._queue
+            self._queue.clear()
+        self._fail_all(pending, RuntimeError("scheduler stopped"))
+
+    def _fail_all(self, pending: List[_ActiveSeq],
+                  err: BaseException) -> None:
+        """Finish every queued and slot-resident handle with ``err``."""
         for seq in pending:
-            seq.handle._finish(RuntimeError("scheduler stopped"))
+            seq.handle._finish(err)
+            self._trace_done("cancel", seq)
         for i, seq in enumerate(self._slots):
             if seq is not None:
                 self._drop_slot(i, seq)
-                seq.handle._finish(RuntimeError("scheduler stopped"))
+                seq.handle._finish(err)
+                self._trace_done("cancel", seq, slot=i)
+        self._m_queue_depth.set(0)
+        self._m_active.set(0)
 
     def reset_counters(self) -> None:
         self.decode_steps = 0
         self.decode_seconds = 0.0
         self.prefill_chunks = 0
         self.prefill_seconds = 0.0
-        self.tokens_emitted = 0
         self.preemptions = 0
         self.cow_copies = 0
         self.restored_tokens = 0
@@ -404,14 +634,39 @@ class DecodeScheduler:
             self._running = False
             pending = self._queue[:]
             self._queue.clear()
-        for seq in pending:
-            seq.handle._finish(err)
-        for i, seq in enumerate(self._slots):
-            if seq is not None:
-                self._drop_slot(i, seq)
-                seq.handle._finish(err)
+        self.tracer.instant("engine_crash", track=self._sched_track,
+                            args={"error": type(exc).__name__,
+                                  "detail": str(exc)[:200]})
+        self._fail_all(pending, err)
 
-    # -- pool bookkeeping: lazy growth, COW, preemption --------------------
+    # -- trace ---------------------------------------------------------------
+    def _trace_done(self, outcome: str, seq: _ActiveSeq,
+                    slot: Optional[int] = None) -> None:
+        """Close the request's open phase span, then stamp the
+        ``finish``/``cancel`` instant with its timings (JAX :2357); call
+        after ``handle._finish()``."""
+        tr = self.tracer
+        if not tr.enabled:
+            return
+        h = seq.handle
+        rid = h.request_id
+        if seq.phase == "queued":
+            tr.end("queued", req=rid)
+        elif seq.phase == "prefill":
+            tr.end("prefill", req=rid, args={"fed_tokens": seq.fed})
+        elif seq.phase == "preempted":
+            tr.end("preempted", req=rid)
+        else:
+            tr.end("decode", req=rid,
+                   args={"tokens": len(h.tokens), "iterations": seq.steps})
+        tr.instant(outcome, req=rid, args={"request_id": rid,
+                                           "tokens": len(h.tokens),
+                                           **h.timings()})
+        if slot is not None:
+            tr.instant("free", track=self._slot_tracks[slot],
+                       args={"request": rid})
+
+    # -- pool bookkeeping: lazy growth, COW, preemption (paged) ------------
     def _alloc_or_preempt(self, slot: int, seq: _ActiveSeq) -> Optional[int]:
         """One pool block under the preempt policy (JAX :1792): when even
         LRU eviction frees none, preempt the latest-submitted live slot
@@ -431,6 +686,7 @@ class DecodeScheduler:
         """Grow the slot's table to cover positions [0, upto_pos) (JAX
         :1811). False means ``seq`` was preempted by its own allocation."""
         need = blocks_for(upto_pos, self.kv_block)
+        added = 0
         while len(seq.block_ids) < need:
             bid = self._alloc_or_preempt(slot, seq)
             if bid is None:
@@ -438,7 +694,18 @@ class DecodeScheduler:
             self._table[slot, len(seq.block_ids)] = bid
             seq.block_ids.append(bid)
             seq.shared.append(False)
+            added += 1
+        if added and self.tracer.enabled:
+            self.tracer.instant("block_alloc", track=self._slot_tracks[slot],
+                                args={"request": seq.handle.request_id,
+                                      "blocks": added,
+                                      "free": self.pool.free_blocks})
         return True
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        for st in self._states.values():
+            for pages in st.values():  # K/V pages, and int8 scales
+                pages[dst].copy_(pages[src])
 
     def _ensure_writable(self, slot: int, seq: _ActiveSeq, pos: int) -> bool:
         """Copy-on-write before the first write into a shared block (JAX
@@ -456,13 +723,16 @@ class DecodeScheduler:
             seq.cow_starved = True
             return False
         src = seq.block_ids[j]
-        for st in self._states.values():
-            for pages in st.values():  # K/V pages, and int8 scales
-                pages[bid].copy_(pages[src])
+        self._copy_page(src, bid)
         self.cow_copies += 1
         seq.block_ids[j] = bid
         seq.shared[j] = False
         self._table[slot, j] = bid
+        if self.tracer.enabled:
+            self.tracer.instant("block_cow", track=self._slot_tracks[slot],
+                                args={"request": seq.handle.request_id,
+                                      "src": src, "dst": bid,
+                                      "block_index": j})
         return True
 
     def _pick_victim(self) -> Optional[Tuple[int, _ActiveSeq]]:
@@ -482,16 +752,35 @@ class DecodeScheduler:
         front. The host RNG is untouched, so the resumed output is the
         same tokens as an unpreempted run."""
         self.preemptions += 1
+        self._m_preempted.inc()
+        h = seq.handle
+        tr = self.tracer
+        if tr.enabled:
+            if seq.phase == "prefill":
+                tr.end("prefill", req=h.request_id,
+                       args={"fed_tokens": seq.fed})
+            elif seq.phase == "decode":
+                tr.end("decode", req=h.request_id,
+                       args={"tokens": len(h.tokens), "preempted": True})
+            tr.instant("preempt", track=self._slot_tracks[slot],
+                       args={"request": h.request_id,
+                             "blocks_released": sum(
+                                 1 for sh in seq.shared if not sh),
+                             "tokens_done": len(h.tokens)})
+            tr.begin("preempted", req=h.request_id)
         self._release_pool(seq)
         self._release_slot_blocks(slot, seq)
-        h = seq.handle
         seq.prompt.extend(h.tokens[seq.folded:])
         seq.folded = len(h.tokens)
         seq.fed = 0
         seq.written = 0
+        seq.phase = "preempted"
+        seq.resumed = True
         self._slots[slot] = None
         with self._cond:
             self._queue.insert(0, seq)
+            self._m_queue_depth.set(len(self._queue))
+        self._m_active.set(sum(s is not None for s in self._slots))
 
     def _release_pool(self, seq: _ActiveSeq) -> None:
         """Drop the sequence's trie pin (every slot-freeing path comes
@@ -515,9 +804,49 @@ class DecodeScheduler:
     def _drop_slot(self, slot: int, seq: _ActiveSeq) -> None:
         """Free a slot without publishing (cancel, stop, crash: the prompt
         may be half-written)."""
-        self._release_pool(seq)
-        self._release_slot_blocks(slot, seq)
+        if self.pool is not None:
+            self._release_pool(seq)
+            if self.paged:
+                self._release_slot_blocks(slot, seq)
         self._slots[slot] = None
+
+    # -- prefix reuse --------------------------------------------------------
+    def _reset_slot_state(self, slot: int) -> None:
+        """Zero a contiguous slot's stripe rows at admission (JAX
+        `_reset_slot_state` :1699, `_zero_fn` :1598). Paged pages are
+        shared storage and stay; a fresh paged slot starts from a scratch
+        table row and position 0."""
+        if not self.paged:
+            for st in self._states.values():
+                st["k"][slot].zero_()
+                st["v"][slot].zero_()
+
+    def _try_restore(self, slot: int, seq: _ActiveSeq) -> None:
+        """Contiguous prefix restore (JAX :1714): copy the longest cached
+        block chain into the freshly zeroed stripe and start the sequence
+        past it. The hit is capped one token short of the prompt: the
+        last prompt token must run through the model to give the first
+        output's distribution."""
+        B = self.pool.block
+        max_hit = (len(seq.prompt) - 1) // B
+        self._m_prefix_lookups.inc()
+        self._m_prefix_lookup_tokens.inc(len(seq.prompt))
+        if max_hit < 1:
+            return
+        n_blk, ids, node = self.pool.match(seq.prompt, max_hit)
+        seq.pool_node = node
+        if not n_blk:
+            return
+        bucket = bucket_for(n_blk, self.restore_buckets)
+        idx = np.full((bucket,), SCRATCH_BLOCK, np.int64)
+        idx[:n_blk] = ids
+        gather_blocks(self._states, slot,
+                      torch.from_numpy(idx).to(self.device),
+                      self.pool.storage, block=B)
+        seq.fed = seq.written = n_blk * B
+        self.restored_tokens += seq.fed
+        self._m_prefix_hits.inc()
+        self._m_prefix_hit_tokens.inc(seq.fed)
 
     def _try_restore_paged(self, slot: int, seq: _ActiveSeq) -> None:
         """Prefix restore as a table remap (JAX :1952): point the slot's
@@ -526,6 +855,8 @@ class DecodeScheduler:
         whole prompt: the last token is then re-fed, and its write
         copy-on-writes the last shared block."""
         B = self.kv_block
+        self._m_prefix_lookups.inc()
+        self._m_prefix_lookup_tokens.inc(len(seq.prompt))
         max_hit = len(seq.prompt) // B
         if seq.cow_starved:
             # the last attempt's full hit left no page for the refeed's COW
@@ -543,6 +874,8 @@ class DecodeScheduler:
         self._table[slot, :n_blk] = ids
         seq.fed = seq.written = min(n_blk * B, len(seq.prompt) - 1)
         self.restored_tokens += seq.fed
+        self._m_prefix_hits.inc()
+        self._m_prefix_hit_tokens.inc(seq.fed)
 
     def _try_upgrade_slots(self) -> None:
         """Re-match mid-prefill slots against the trie (JAX :3123): a slot
@@ -580,6 +913,7 @@ class DecodeScheduler:
             fed = min(n2 * B, len(seq.prompt) - 1)
             self.restored_tokens += fed - seq.fed
             seq.fed = seq.written = fed
+            self._m_prefix_hits.inc()
 
     def _publish_paged(self, seq: _ActiveSeq) -> frozenset:
         """Publish as ownership transfer (JAX :2018): the finished prompt's
@@ -592,39 +926,64 @@ class DecodeScheduler:
         return frozenset(self.pool.adopt(seq.prompt[:n_full * self.kv_block],
                                          seq.block_ids[:n_full]))
 
+    def _publish_prompt(self, slot: int, seq: _ActiveSeq) -> None:
+        """Contiguous publish (JAX :1753): index the finished prompt's
+        full blocks in the trie (allocating, LRU-evicting when full) and
+        copy the slot's stripe rows into the new blocks, covering them
+        with a greedy walk over descending restore buckets."""
+        B = self.pool.block
+        n_full = len(seq.prompt) // B
+        if n_full < 1:
+            return
+        start, new_ids = self.pool.insert(seq.prompt[:n_full * B])
+        off = 0
+        while off < len(new_ids):
+            b = max(k for k in self.restore_buckets
+                    if k <= len(new_ids) - off)
+            idx = torch.tensor(new_ids[off:off + b], dtype=torch.int64)
+            scatter_blocks(self._states, slot, start + off,
+                           idx.to(self.device), self.pool.storage, block=B)
+            off += b
+
     def _retire(self, slot: int, seq: _ActiveSeq) -> None:
         """Finish a sequence: publish its prompt's blocks for the next
         request sharing the prefix, drop its pin, free the rest."""
-        adopted = self._publish_paged(seq)
-        self._release_pool(seq)
-        self._release_slot_blocks(slot, seq, keep=adopted)
+        now = time.monotonic()
+        if self.pool is not None:
+            if self.paged:
+                adopted = self._publish_paged(seq)
+                self._release_pool(seq)
+                self._release_slot_blocks(slot, seq, keep=adopted)
+            else:
+                self._publish_prompt(slot, seq)
+                self._release_pool(seq)
+        h = seq.handle
+        h._finish()
+        self._trace_done("finish", seq, slot=slot)
+        self._m_latency.record(now - h.t_submit)
         self._slots[slot] = None
-        seq.handle._finish()
-
-    def _table_for(self, max_pos: int) -> np.ndarray:
-        """The host table sliced to the pow2 bucket covering ``max_pos``."""
-        nb = bucket_for(max(1, blocks_for(max_pos, self.kv_block)),
-                        self.table_buckets)
-        return np.ascontiguousarray(self._table[:, :nb])
 
     # -- scheduler iteration ----------------------------------------------
     def _evict_cancelled(self) -> None:
         for i, seq in enumerate(self._slots):
             if seq is not None and seq.handle.cancelled():
+                self._m_cancelled.inc()
                 self._drop_slot(i, seq)
                 seq.handle.finish_reason = "cancelled"
                 seq.handle._finish()
+                self._trace_done("cancel", seq, slot=i)
 
     def _admit(self) -> None:
-        """Fill free slots from the queue head by pool bytes (JAX :2420):
-        with any slot live, a prompt is admitted only when the free plus
-        evictable blocks, less the prompt blocks already promised to
+        """Fill free slots from the queue head (JAX :2449). Paged, by pool
+        bytes: with any slot live, a prompt is admitted only when the free
+        plus evictable blocks, less the prompt blocks already promised to
         resident slots, cover its prompt. Decode growth is not reserved:
         that is what preemption is for. The oldest request waits rather
         than being overtaken (a preempted one is back at the front)."""
         B = self.kv_block
         pending = sum(max(0, blocks_for(len(s.prompt), B) - len(s.block_ids))
-                      for s in self._slots if s is not None)
+                      for s in self._slots if s is not None) \
+            if self.paged else 0
         reclaim = None
         admitted = []
         with self._cond:
@@ -633,30 +992,67 @@ class DecodeScheduler:
                     continue
                 while self._queue and self._queue[0].handle.cancelled():
                     seq = self._queue.pop(0)
+                    self._m_cancelled.inc()
                     seq.handle.finish_reason = "cancelled"
                     seq.handle._finish()
+                    self._trace_done("cancel", seq)
                 if not self._queue:
                     break
                 seq = self._queue[0]
-                need = blocks_for(len(seq.prompt), B)
-                if any(s is not None for s in self._slots):
-                    if reclaim is None:
-                        reclaim = self.pool.reclaimable_blocks()
-                    if reclaim - pending < need:
-                        break
+                if self.paged:
+                    need = blocks_for(len(seq.prompt), B)
+                    if any(s is not None for s in self._slots):
+                        if reclaim is None:
+                            reclaim = self.pool.reclaimable_blocks()
+                        if reclaim - pending < need:
+                            break
+                    pending += need
                 self._queue.pop(0)
                 self._slots[i] = seq
-                pending += need
+                if not seq.resumed:
+                    self._m_seqs.inc()
                 admitted.append((i, seq))
+            self._m_queue_depth.set(len(self._queue))
+            self._m_active.set(sum(s is not None for s in self._slots))
+        tr = self.tracer
         for i, seq in admitted:
-            self._try_restore_paged(i, seq)
+            h = seq.handle
+            rid = h.request_id
+            h.t_admitted = time.monotonic()
+            if seq.phase == "preempted":
+                tr.end("preempted", req=rid)
+                tr.instant("resume", track=self._slot_tracks[i],
+                           args={"request": rid,
+                                 "refeed_tokens": len(seq.prompt)})
+            else:
+                tr.end("queued", req=rid)
+            tr.instant("admit", track=self._slot_tracks[i],
+                       args={"request": rid})
+            tr.begin("prefix_restore", req=rid)
+            self._reset_slot_state(i)
+            if self.pool is not None:
+                if self.paged:
+                    self._try_restore_paged(i, seq)
+                else:
+                    self._try_restore(i, seq)
+            h.t_restored = time.monotonic()
+            tr.end("prefix_restore", req=rid,
+                   args={"hit_tokens": seq.fed, "slot": i,
+                         **({"remap_blocks": len(seq.block_ids),
+                             "kv_copies": 0} if self.paged else {})})
+            tr.begin("prefill", req=rid,
+                     args={"prompt_tokens": len(seq.prompt),
+                           "restored_tokens": seq.fed, "slot": i})
+            seq.phase = "prefill"
 
     def _pick_chunk(self, seq: _ActiveSeq) -> Tuple[int, int]:
         """(bucket, n_real) of this sequence's next prefill chunk, or
-        (0, 0) when no bucket fits under the pool's depth."""
+        (0, 0) when no bucket fits under the cache's depth."""
         n_real = min(len(seq.prompt) - seq.fed, self.prefill_chunk)
         bucket = bucket_for(n_real, self.prefill_buckets)
         if seq.fed + bucket > self._cache_cap:
+            # padded writes past the cap would trip the layer's overflow
+            # guard: shrink to the largest bucket inside the headroom
             fitting = [b for b in self.prefill_buckets
                        if seq.fed + b <= self._cache_cap]
             if not fitting:
@@ -669,14 +1065,52 @@ class DecodeScheduler:
         t = torch.from_numpy(ids.astype(np.int64)).to(self.device)
         return F.one_hot(t, self.vocab_size).to(self.net.dtype)
 
-    def _forward(self, x, pos, table, wmask):
-        """One forward of one-hots ``x`` [B, T, vocab] with the paged
-        states; returns the output distributions [B, T, vocab]."""
-        sts = {name: {**st, "pos": pos, "table": table, "wmask": wmask,
-                      "paged_kernel": self.paged_kernel}
-               for name, st in self._states.items()}
-        acts, _ = self.net._forward_impl(self.net.params, [x], states=sts)
+    def _dispatch_states(self, pos, table=None, wmask=None,
+                         slot: Optional[int] = None):
+        """The attention states of one dispatch: paged, the page arrays
+        with this call's positions, table and write mask; contiguous, the
+        stripes (``slot``: a view of that slot's rows, so the step's
+        in-place write lands in its stripe) with this call's positions."""
+        out = {}
+        for name, st in self._states.items():
+            if self.paged:
+                out[name] = {**st, "pos": pos, "table": table,
+                             "wmask": wmask, "paged_kernel": self.paged_kernel}
+            elif slot is None:
+                out[name] = {**st, "pos": pos}
+            else:
+                out[name] = {"k": st["k"][slot:slot + 1],
+                             "v": st["v"][slot:slot + 1], "pos": pos}
+        return out
+
+    def _forward(self, x, states):
+        """One forward of one-hots ``x`` [B, T, vocab] through the net with
+        the given attention states: the output distributions [B, T,
+        vocab]. The layers write their K/V in place."""
+        acts, _ = self.net._forward_impl(self.net.params, [x], states=states)
         return acts[self._out_name]
+
+    def _prefill_forward(self, slot: int, ids: np.ndarray, written: int,
+                         n_real: int, nb: Optional[int] = None) -> torch.Tensor:
+        """One padded prefill chunk of ``slot`` at depth ``written``; its
+        output distributions [bucket, vocab]. Paged: the table bucket
+        covers the padded chunk end (``nb`` forces one), so the layer's
+        overflow guard never fires on padding lanes, which write to the
+        scratch page; contiguous: padding rows land past the position,
+        causally invisible until the next real write overwrites them."""
+        dev = self.device
+        bucket = ids.shape[0]
+        pos = torch.tensor([written], dtype=torch.int32, device=dev)
+        if self.paged:
+            rows = self._table_for(written + bucket) if nb is None \
+                else self._table[:, :nb]
+            table = torch.from_numpy(
+                np.ascontiguousarray(rows[slot:slot + 1])).to(dev)
+            wmask = (torch.arange(bucket, device=dev) < n_real)[None, :]
+            sts = self._dispatch_states(pos, table, wmask)
+        else:
+            sts = self._dispatch_states(pos, slot=slot)
+        return self._forward(self._onehot(ids)[None], sts)[0]
 
     def _run_prefill_chunk(self) -> Optional[int]:
         """At most one prefill chunk per iteration, round-robin over
@@ -694,26 +1128,28 @@ class DecodeScheduler:
             t0 = time.monotonic()
             # lazy allocation and COW before the dispatch: every block the
             # chunk writes is allocated and owned by the slot
-            if not self._ensure_blocks(i, seq, seq.written + n_real) \
-                    or not self._ensure_writable(i, seq, seq.written):
+            if self.paged and (
+                    not self._ensure_blocks(i, seq, seq.written + n_real)
+                    or not self._ensure_writable(i, seq, seq.written)):
                 continue  # seq itself was preempted for blocks
             ids = np.zeros((bucket,), np.int32)
             ids[:n_real] = seq.prompt[seq.fed:seq.fed + n_real]
-            dev = self.device
-            # the table bucket covers the PADDED chunk end, so the layer's
-            # overflow guard never fires on padding lanes
-            table = torch.from_numpy(
-                self._table_for(seq.written + bucket)[i:i + 1]).to(dev)
-            pos = torch.tensor([seq.written], dtype=torch.int32, device=dev)
-            wmask = (torch.arange(bucket, device=dev) < n_real)[None, :]
-            out = self._forward(self._onehot(ids)[None], pos, table, wmask)
-            last = out[0, n_real - 1].cpu().numpy()
+            if self.tracer.enabled:
+                self.tracer.begin("prefill_chunk", track=self._slot_tracks[i],
+                                  args={"request": seq.handle.request_id,
+                                        "bucket": bucket, "tokens": n_real})
+            out = self._prefill_forward(i, ids, seq.written, n_real)
+            last = out[n_real - 1].cpu().numpy()
             self.prefill_chunks += 1
             self.prefill_seconds += time.monotonic() - t0
             seq.written += n_real
             seq.fed += n_real
+            seq.steps += 1
+            self._m_prefill_tokens.inc(n_real)
+            self._m_prefill_chunk.record(n_real)
             if seq.sampling:  # final chunk: its output is the first token
                 self._consume(i, seq, last)
+            self.tracer.end("prefill_chunk", track=self._slot_tracks[i])
             self._prefill_next = (i + 1) % self.n_slots
             return i
         return None
@@ -724,9 +1160,25 @@ class DecodeScheduler:
                             seq.top_p)
         h = seq.handle
         h.tokens.append(tok)
-        self.tokens_emitted += 1
+        self._emitted_this_iter += 1
         if h.t_first_token is None:
-            h.t_first_token = time.monotonic()
+            now = time.monotonic()
+            h.t_first_token = now
+            h.steps_to_first_token = seq.steps
+            ttft = now - h.t_submit
+            self._m_ttft.record(ttft)
+            self._m_first_token.record(ttft, exemplar=h.request_id)
+            if self.tracer.enabled:
+                self.tracer.instant("first_token", req=h.request_id,
+                                    args={"request_id": h.request_id,
+                                          "ttft_ms": round(ttft * 1e3, 3)})
+        if seq.phase == "prefill":
+            # keyed on the phase: a resumed sequence re-runs prefill with
+            # its first token long stamped
+            self.tracer.end("prefill", req=h.request_id,
+                            args={"steps": seq.steps})
+            self.tracer.begin("decode", req=h.request_id)
+            seq.phase = "decode"
         eos = seq.eos_id is not None and tok == seq.eos_id
         if len(h.tokens) >= h.max_new_tokens or eos:
             h.finish_reason = "eos" if eos else "length"
@@ -736,49 +1188,162 @@ class DecodeScheduler:
         """One iteration: admission, at most one prefill chunk, then the
         all-slots decode step. Returns False when it idled."""
         self._evict_cancelled()
-        self._try_upgrade_slots()
+        if self.paged:
+            self._try_upgrade_slots()
         self._admit()
-        if all(s is None for s in self._slots):
+        active = [(i, s) for i, s in enumerate(self._slots) if s is not None]
+        if not active:
             return False
+        t0 = time.monotonic()
+        self._emitted_this_iter = 0
         chunked = self._run_prefill_chunk()
         fed: List[Tuple[int, _ActiveSeq]] = []
         # oldest first: a preemption takes the latest-submitted slot, which
         # comes last here, so a slot already in `fed` never loses its blocks
-        active = sorted(((i, s) for i, s in enumerate(self._slots)
-                         if s is not None), key=lambda e: e[1].handle.t_submit)
-        for i, seq in active:
+        for i, seq in sorted(active, key=lambda e: e[1].handle.t_submit):
             if self._slots[i] is not seq or i == chunked:
                 continue  # preempted above, or had its chunk turn
             if not seq.sampling and self.prefill_buckets \
                     and self._pick_chunk(seq)[1]:
                 continue  # mid-prefill: waits for its chunk turn
-            if not self._ensure_blocks(i, seq, seq.written + 1) \
-                    or not self._ensure_writable(i, seq, seq.written):
+            if self.paged and (
+                    not self._ensure_blocks(i, seq, seq.written + 1)
+                    or not self._ensure_writable(i, seq, seq.written)):
                 continue  # seq itself was preempted for blocks
             fed.append((i, seq))
         if fed:
             self._decode(fed)
+        if self._emitted_this_iter:
+            self._m_tokens.inc(self._emitted_this_iter)
+        self._m_occupancy.record(len(active))
+        self._m_step_time.record(time.monotonic() - t0)
         return True
+
+    # -- the decode step ------------------------------------------------------
+    def _table_for(self, max_pos: int) -> np.ndarray:
+        """The host table sliced to the pow2 bucket covering ``max_pos``."""
+        nb = bucket_for(max(1, blocks_for(max_pos, self.kv_block)),
+                        self.table_buckets)
+        return np.ascontiguousarray(self._table[:, :nb])
+
+    def _decode_inputs(self, fed: List[Tuple[int, _ActiveSeq]]):
+        """(ids, live, pos) [n_slots] of one decode step. A masked row
+        keeps its slot's position (contiguous: it writes there, and the
+        slot's next real write overwrites it; paged: it writes to the
+        scratch page); an idle slot sits at 0."""
+        ids = np.zeros((self.n_slots,), np.int32)
+        live = np.zeros((self.n_slots,), np.int32)
+        pos = np.zeros((self.n_slots,), np.int32)
+        for i, seq in enumerate(self._slots):
+            if seq is not None:
+                pos[i] = seq.written
+        for i, seq in fed:
+            ids[i] = seq.next_input()
+            live[i] = 1
+        return ids, live, pos
+
+    def _step_body(self, r: _DecodeRunner) -> torch.Tensor:
+        """The decode step on ``r``'s static buffers — what a capture
+        records: the one-hot is built here, from the ids on the device, as
+        JAX `_step_fn` does in-program. Returns [n_slots, vocab]."""
+        ids = r.ids.long()
+        x = (ids[:, None] == torch.arange(self.vocab_size,
+                                          device=ids.device)[None, :])
+        x = x.to(self.net.dtype)[:, None]
+        live = (r.live != 0)[:, None]
+        sts = self._dispatch_states(r.pos, r.table, live)
+        return self._forward(x, sts)[:, -1, :]
+
+    def _new_runner(self, nb: Optional[int]) -> _DecodeRunner:
+        """Static buffers for table bucket ``nb`` (None: contiguous),
+        under the capture budget: one runner per bucket over the engine's
+        life, none once warmup() has run."""
+        if nb in self._runners or self._warmed:
+            raise RuntimeError(f"capture budget spent: the decode step of "
+                               f"bucket {nb} was built already or warmup() "
+                               "has run")
+        return _DecodeRunner(self.n_slots, nb, self.device)
+
+    def _build(self, r: _DecodeRunner, trace: bool = True) -> None:
+        """Capture ``r``'s step on the card (on the inputs it holds now) and
+        register it; stamps a ``capture`` instant when ``trace``."""
+        if self.device.type == "cuda":
+            self._capture(r)
+        self._runners[r.nb] = r
+        self.decode_captures += 1
+        if trace and self.tracer.enabled:
+            self.tracer.instant("capture", track=self._sched_track,
+                                args={"bucket": r.nb,
+                                      "graph": r.graph is not None,
+                                      "captures": self.decode_captures})
+
+    def _capture(self, r: _DecodeRunner) -> None:
+        """Record ``r``'s step into a CUDA graph. The step runs eagerly
+        once on a side stream first, as capture requires (the kernel
+        libraries load, cuBLAS makes its handles, the allocator its
+        blocks); on the inputs staged now it writes what the replay will
+        write again, so it changes nothing. Kernel launches of the two
+        runs are taken back out of ``LAUNCHES``; the capture's own count
+        is added on every replay. A failure raises."""
+        dev = self.device
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(dev)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        s = self._capture_stream
+        before = dict(ck.LAUNCHES)
+        s.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(s):
+            self._step_body(r)
+        torch.cuda.current_stream(dev).wait_stream(s)
+        g = torch.cuda.CUDAGraph()
+        mark = dict(ck.LAUNCHES)
+        with torch.cuda.graph(g, pool=self._graph_pool, stream=s,
+                              capture_error_mode="thread_local"):
+            r.probs = self._step_body(r)
+        r.launches = {k: ck.LAUNCHES[k] - mark[k] for k in mark
+                      if ck.LAUNCHES[k] != mark[k]}
+        ck.LAUNCHES.update(before)
+        r.graph = g
+
+    def _replay(self, r: _DecodeRunner) -> np.ndarray:
+        if r.graph is None:
+            r.probs = self._step_body(r)
+        else:
+            r.graph.replay()
+            for k, n in r.launches.items():
+                ck.LAUNCHES[k] += n
+        return r.probs.cpu().numpy()
 
     def _decode(self, fed: List[Tuple[int, _ActiveSeq]]) -> None:
         t0 = time.monotonic()
-        ids = np.zeros((self.n_slots,), np.int32)
-        live = np.zeros((self.n_slots,), bool)
-        pos = np.zeros((self.n_slots,), np.int32)
-        for i, seq in fed:
-            ids[i] = seq.next_input()
-            live[i] = True
-            pos[i] = seq.written
-        dev = self.device
-        table = torch.from_numpy(
-            self._table_for(max(s.written + 1 for _, s in fed))).to(dev)
-        out = self._forward(self._onehot(ids)[:, None],
-                            torch.from_numpy(pos).to(dev), table,
-                            torch.from_numpy(live).to(dev)[:, None])
-        probs = out[:, -1, :].cpu().numpy()
+        ids, live, pos = self._decode_inputs(fed)
+        deepest = max(s.written + 1 for _, s in fed)
+        if self.decode_graphs == "on":
+            table = self._table_for(deepest) if self.paged else None
+            nb = table.shape[1] if self.paged else None
+            r = self._runners.get(nb)
+            new = r is None
+            if new:
+                r = self._new_runner(nb)
+            r.fill(ids, live, pos, table)
+            if new:
+                # captured on this step's inputs: the capture's eager run
+                # writes just what the replay writes
+                self._build(r)
+            probs = self._replay(r)
+        else:
+            dev = self.device
+            table = torch.from_numpy(self._table_for(deepest)).to(dev) \
+                if self.paged else None
+            sts = self._dispatch_states(
+                torch.from_numpy(pos).to(dev), table,
+                torch.from_numpy(live != 0).to(dev)[:, None])
+            out = self._forward(self._onehot(ids)[:, None], sts)
+            probs = out[:, -1, :].cpu().numpy()
         self.decode_steps += 1
         self.decode_seconds += time.monotonic() - t0
         for i, seq in fed:
+            seq.steps += 1
             seq.written += 1
             was_sampling = seq.sampling
             if seq.fed < len(seq.prompt):
@@ -786,3 +1351,50 @@ class DecodeScheduler:
             if not was_sampling and not seq.sampling:
                 continue  # still prefilling token by token
             self._consume(i, seq, probs[i])
+
+    def warmup(self) -> None:
+        """Build everything the serving loop would otherwise build under
+        traffic (JAX :3496): the kernels, every decode step (paged: one
+        per table bucket; contiguous: the one, captured on the card), and
+        one run of every (chunk bucket x table bucket) prefill pair, with
+        all lanes masked to the scratch page (paged) or on slot 0 followed
+        by its reset (contiguous), and one scratch -> scratch COW copy.
+        Nothing observable changes: no metrics, no trace records, no pool
+        state, no slot bookkeeping. Call it before traffic (no slot
+        resident); once it has run, live traffic captures nothing."""
+        if any(s is not None for s in self._slots):
+            raise RuntimeError("warmup() runs before traffic: a slot is "
+                               "resident")
+        s = self.n_slots
+        zeros = np.zeros((s,), np.int32)
+        with torch.no_grad():
+            if self.device.type == "cuda" and self.paged \
+                    and self.paged_kernel == "on":
+                ck._lib("paged_decode_attention")
+            for nb in (self.table_buckets if self.paged else [None]):
+                if self.decode_graphs != "on" or nb in self._runners:
+                    continue
+                # every lane masked at position 0: paged rows write to the
+                # scratch page, contiguous rows into idle stripes, which
+                # admission zeroes
+                r = self._new_runner(nb)
+                r.fill(zeros, zeros, zeros,
+                       np.full((s, nb), SCRATCH_BLOCK, np.int32)
+                       if nb else None)
+                self._build(r, trace=False)
+            # no slot is resident: every table row is scratch, and no lane
+            # is real (n_real 0), so paged writes go to the scratch page
+            for b in self.prefill_buckets:
+                ids = np.zeros((b,), np.int32)
+                if self.paged:
+                    for nb in self.table_buckets:
+                        self._prefill_forward(0, ids, 0, 0, nb)
+                else:
+                    self._prefill_forward(0, ids, 0, 1)
+                    self._reset_slot_state(0)
+            if self.paged:
+                self._copy_page(SCRATCH_BLOCK, SCRATCH_BLOCK)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        if self.decode_graphs == "on":
+            self._warmed = True

@@ -1,23 +1,42 @@
-"""Paged KV pool metadata and its prefix trie — port of the paged mode of
-deeplearning4j_tpu/inference/kvpool.py (`_Node` :97, `KVPool` :121).
+"""Block-pooled KV store: the paged pool's metadata and the contiguous
+mode's side prefix pool, both indexed by one prefix trie — port of
+deeplearning4j_tpu/inference/kvpool.py (`_Node` :97, `KVPool` :121,
+`gather_blocks` :517, `scatter_blocks` :545).
 
-The engine owns the page arrays; this object is pure host metadata: the
-pool's sizing from a byte budget, the free list of page ids, and a radix
-trie over full blocks of prompt tokens (one node per block, children keyed
-by the block's token tuple), whose nodes own the pages of cached prefixes.
-Page 0 is the scratch page (masked and padded writes land there, padded
-table entries read it), so real pages are numbered from 1.
+Two modes, as in the JAX package:
 
-A page is in exactly one of three places: the free list, a slot (owned by
-the slot that `alloc`-ed it, until `free_block` or `adopt`), or a trie
-node. A slot that restores a prefix reads the trie's pages where they lie
-and pins the deepest matched node (`match` ... `release`); locked nodes and
-interior nodes are never evicted, unlocked leaves are LRU-evicted when the
-free list runs dry.
+**Paged** (``paged=True``): the engine owns the page arrays; this object
+is pure host metadata: the pool's sizing from a byte budget, the free
+list of page ids, and a radix trie over full blocks of prompt tokens (one
+node per block, children keyed by the block's token tuple), whose nodes
+own the pages of cached prefixes. Page 0 is the scratch page (masked and
+padded writes land there, padded table entries read it), so real pages
+are numbered from 1. A page is in exactly one of three places: the free
+list, a slot (owned by the slot that `alloc`-ed it, until `free_block`
+or `adopt`), or a trie node.
+
+**Contiguous** (``paged=False``): each decode slot has its own stripe of
+K/V rows, and the pool is a side cache of finished prompts: ``storage``
+holds per-layer K/V blocks ``[capacity + 1, block, Hkv, Dh]`` (row 0
+scratch) on the engine's device. `gather_blocks` restores a matched chain
+into a slot's stripe rows ``[0, n * block)``; `scatter_blocks` publishes
+a finished prompt's stripe rows into the blocks `insert` allocated. Both
+are eager indexed copies on the engine's stream.
+
+A slot that restores a prefix pins the deepest matched node (`match` ...
+`release`); locked nodes and interior nodes are never evicted, unlocked
+leaves are LRU-evicted when the free list runs dry.
 
 Reuse is valid only for prefixes anchored at position 0: cached keys are
 stored rotated at their absolute positions, so a prefix from position 0 is
 the same bits in every request that shares it.
+
+Observability: with a ``metrics`` registry the pool keeps the JAX
+package's series (``prefix_cache_evicted_blocks_total``; paged: the
+``kv_pool_blocks_*`` gauges, ``kv_pool_utilization``, the device bytes;
+contiguous: ``prefix_cache_used_bytes`` and ``_capacity_bytes``), and
+with a ``tracer`` it stamps ``pool_publish`` and ``pool_evict`` instants
+on the ``kvpool`` track.
 
 Threading: every mutation happens on the engine's scheduler thread,
 between steps, so the pool takes no lock of its own.
@@ -26,6 +45,8 @@ from __future__ import annotations
 
 import heapq
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
 
 SCRATCH_BLOCK = 0
 
@@ -52,20 +73,29 @@ class KVPool:
     """Refcounted block pool + trie prefix index over per-layer K/V pages.
 
     ``layers``: {layer: (Hkv, Dh, itemsize)} of the model dtype.
-    ``cache_dtype="int8"`` sizes int8 rows plus one f32 scale per
-    (position, head). The budget covers every page the engine allocates,
+    ``cache_dtype="int8"`` (paged only) sizes int8 rows plus one f32 scale
+    per (position, head). The budget covers every block the pool holds,
     scratch included: ``(capacity_blocks + 1) * bytes_per_block <=
-    budget_bytes``."""
+    budget_bytes``. ``paged=False`` allocates ``storage`` in ``dtype`` on
+    ``device``; the paged pool allocates nothing."""
 
     def __init__(self, layers: Dict[str, Tuple[int, int, int]], *,
                  block: int, budget_bytes: int,
-                 cache_dtype: Optional[str] = None):
+                 cache_dtype: Optional[str] = None, paged: bool = True,
+                 dtype: torch.dtype = torch.float32,
+                 device: torch.device = torch.device("cpu"),
+                 metrics=None, tracer=None):
         if block < 1:
             raise ValueError(f"block must be >= 1, got {block}")
         if cache_dtype not in (None, "int8"):
             raise ValueError(f"cache_dtype must be None or 'int8', got "
                              f"{cache_dtype!r}")
+        if cache_dtype and not paged:
+            raise ValueError("cache_dtype='int8' requires paged mode (the "
+                             "contiguous side pool stores the model's own "
+                             "K/V dtype)")
         self.block = int(block)
+        self.paged = bool(paged)
         self.cache_dtype = cache_dtype
         self.budget_bytes = int(budget_bytes)
         per_block = 0
@@ -78,6 +108,13 @@ class KVPool:
         self.bytes_per_block = per_block
         total = self.budget_bytes // per_block if per_block else 0
         self.capacity_blocks = max(0, int(total) - 1)
+        self.storage: Dict[str, Dict[str, torch.Tensor]] = {}
+        if self.capacity_blocks > 0 and not self.paged:
+            n = self.capacity_blocks + 1
+            self.storage = {
+                name: {kv: torch.zeros((n, self.block, hkv, dh), dtype=dtype,
+                                       device=device) for kv in ("k", "v")}
+                for name, (hkv, dh, _) in layers.items()}
         self._free: List[int] = list(range(1, self.capacity_blocks + 1))
         self._root = _Node((), SCRATCH_BLOCK, None)
         self._clock = 0  # logical LRU clock
@@ -87,6 +124,37 @@ class KVPool:
         self.hit_blocks = 0
         self.evicted_blocks = 0
         self.published_blocks = 0  # blocks indexed by adopt and insert
+        self._tracer = tracer
+        self._metrics = metrics
+        self._g_live = self._m_used = None
+        if metrics is not None:
+            self._m_evicted = metrics.counter(
+                "prefix_cache_evicted_blocks_total")
+            if self.paged:
+                # live = every allocated block (slot-owned and cached),
+                # free = the free list; the ratio is taken at snapshot time
+                self._g_live = metrics.gauge("kv_pool_blocks_live")
+                self._g_free = metrics.gauge("kv_pool_blocks_free")
+                cap = metrics.gauge("kv_pool_blocks_capacity")
+                cap.set(self.capacity_blocks)
+                metrics.ratio("kv_pool_utilization", self._g_live, cap)
+                metrics.gauge("kv_pool_device_bytes").set(
+                    (self.capacity_blocks + 1) * per_block)
+                self._g_dev_used = metrics.gauge("kv_pool_device_used_bytes")
+                self._sync_gauges()
+            else:
+                self._m_used = metrics.gauge("prefix_cache_used_bytes")
+                metrics.gauge("prefix_cache_capacity_bytes").set(
+                    (self.capacity_blocks + 1) * per_block
+                    if self.capacity_blocks else 0)
+
+    def _sync_gauges(self) -> None:
+        if self._g_live is not None:
+            self._g_live.set(self.used_blocks)
+            self._g_free.set(len(self._free))
+            self._g_dev_used.set(self.used_blocks * self.bytes_per_block)
+        elif self._m_used is not None:
+            self._m_used.set(self.used_bytes)
 
     # -- accounting ---------------------------------------------------------
     @property
@@ -97,6 +165,11 @@ class KVPool:
     def used_blocks(self) -> int:
         """Every allocated block: slot-owned and trie-cached."""
         return self.capacity_blocks - len(self._free)
+
+    @property
+    def used_bytes(self) -> int:
+        """Bytes of the allocated blocks (the eviction pressure signal)."""
+        return self.used_blocks * self.bytes_per_block
 
     def _walk(self):
         stack = list(self._root.children.values())
@@ -198,7 +271,9 @@ class KVPool:
         `adopt`."""
         if not self._free:
             self._evict_lru()
-        return self._free.pop() if self._free else None
+        bid = self._free.pop() if self._free else None
+        self._sync_gauges()
+        return bid
 
     def free_block(self, block_id: int) -> None:
         """Return a slot-owned page (never a trie-owned one: eviction
@@ -206,6 +281,7 @@ class KVPool:
         if block_id == SCRATCH_BLOCK:
             raise ValueError("the scratch block is never owned")
         self._free.append(block_id)
+        self._sync_gauges()
 
     def adopt(self, tokens: Sequence[int], block_ids: Sequence[int]
               ) -> List[int]:
@@ -227,6 +303,11 @@ class KVPool:
             node.last_access = self._tick()
             adopted.append(int(block_ids[j]))
         self.published_blocks += len(adopted)
+        if adopted and self._tracer is not None:
+            self._tracer.instant("pool_publish", track="kvpool",
+                                 args={"blocks": len(adopted),
+                                       "used_blocks": self.used_blocks,
+                                       "zero_copy": True})
         return adopted
 
     def reclaimable_blocks(self) -> int:
@@ -276,6 +357,11 @@ class KVPool:
             for n in pinned:
                 n.lock -= 1
         self.published_blocks += len(new_ids)
+        self._sync_gauges()
+        if new_ids and self._tracer is not None:
+            self._tracer.instant("pool_publish", track="kvpool",
+                                 args={"blocks": len(new_ids),
+                                       "used_blocks": self.used_blocks})
         return start, new_ids
 
     def _evict_lru(self, want: int = 1) -> None:
@@ -297,6 +383,45 @@ class KVPool:
                     and not parent.lock:
                 heapq.heappush(heap, (parent.last_access, id(parent), parent))
         self.evicted_blocks += freed
+        if freed and self._metrics is not None:
+            self._m_evicted.inc(freed)
+            self._sync_gauges()
+        if freed and self._tracer is not None:
+            self._tracer.instant("pool_evict", track="kvpool",
+                                 args={"blocks": freed,
+                                       "used_blocks": self.used_blocks})
+
+
+def gather_blocks(states, slot: int, idx: torch.Tensor, storage, *,
+                  block: int) -> None:
+    """Contiguous prefix restore (JAX `gather_blocks` :517): copy pool
+    blocks ``idx`` (a long tensor on the storage's device, padded past
+    the hit with `SCRATCH_BLOCK`) into ``slot``'s stripe rows ``[0,
+    len(idx) * block)`` of every layer, in place. Padded rows land past
+    the restored position, causally invisible until the cold suffix's
+    prefill overwrites them. The position itself is the engine's host
+    mirror (positions ship with every dispatch)."""
+    n = idx.shape[0] * block
+    for name, store in storage.items():
+        st = states[name]
+        for kv in ("k", "v"):
+            st[kv][slot, :n] = store[kv][idx].reshape(
+                (n,) + tuple(st[kv].shape[2:]))
+
+
+def scatter_blocks(states, slot: int, start: int, idx: torch.Tensor,
+                   storage, *, block: int) -> None:
+    """Contiguous publish (JAX `scatter_blocks` :545): copy ``slot``'s
+    stripe rows ``[start * block, (start + len(idx)) * block)`` of every
+    layer into pool blocks ``idx`` (exact, no padding), in place. A
+    restore gathered from those blocks earlier was ordered before this
+    write on the same stream, so no reader sees a half-written block."""
+    nb = idx.shape[0]
+    for name, store in storage.items():
+        st = states[name]
+        for kv in ("k", "v"):
+            rows = st[kv][slot, start * block:(start + nb) * block]
+            store[kv][idx] = rows.reshape((nb, block) + tuple(rows.shape[1:]))
 
 
 def blocks_for(positions: int, block: int) -> int:

@@ -117,8 +117,10 @@ class SelfAttentionLayerImpl(BaseRecurrentImpl):
             raise ValueError(f"rope requires an even head dim, got {Dh}")
         half = Dh // 2
         dev = a.device
-        freq = torch.tensor(self.conf.rope_base, dtype=torch.float32,
-                            device=dev) ** (
+        # the base is filled on the device (no host copy), so the step can
+        # be captured into a CUDA graph
+        freq = torch.full((), self.conf.rope_base, dtype=torch.float32,
+                          device=dev) ** (
             -torch.arange(half, dtype=torch.float32, device=dev) / half)
         t = torch.arange(T, dtype=torch.float32, device=dev)
         if isinstance(pos0, torch.Tensor) and pos0.dim():

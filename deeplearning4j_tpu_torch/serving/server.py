@@ -1,12 +1,19 @@
 """HTTP serving endpoint — a reduced port of deeplearning4j_tpu/serving/server.py.
 
 `InferenceServer` loads a model (a port `ComputationGraph`, or a model
-zip restored onto ``device``), runs a paged `DecodeScheduler` behind
-``POST /generate``, and answers on a stdlib ThreadingHTTPServer.
+zip restored onto ``device``), runs a `DecodeScheduler` behind ``POST
+/generate`` — contiguous per-slot stripes by default (``kv_pool_mb=0``,
+with a side prefix pool of ``prefix_cache_mb``), or a paged pool of
+``kv_pool_mb`` MiB — and answers on a stdlib ThreadingHTTPServer. The
+server owns a `MetricsRegistry` and a span `FlightRecorder`
+(``trace_buffer`` events; 0 disables recording) that the engine writes,
+and calls the engine's `warmup()` before it answers, so the decode steps
+are captured before any traffic.
 
 Endpoints:
   GET  /healthz    liveness: {"status": "up"} (always 200)
-  GET  /info       model summary, config JSON, device, engine and pool state
+  GET  /info       model summary, config JSON, device, engine (KV mode,
+                   decode captures) and pool state
   POST /generate   {"prompt": [ids], "max_new_tokens": N, "temperature"?,
                    "top_k"?, "top_p"?, "seed"?, "eos_id"?} -> {"tokens":
                    [ids], "request_id", "finish_reason", "timings"};
@@ -30,6 +37,8 @@ import torch
 
 from ..inference.engine import (DecodeScheduler, PromptTooLongError,
                                 QueueFullError)
+from ..inference.metrics import MetricsRegistry
+from ..inference.trace import FlightRecorder
 from ..util.device import DeviceLike, resolve_device
 
 
@@ -39,8 +48,12 @@ class InferenceServer:
                  default_timeout_ms: Optional[float] = None,
                  decode_vocab: Optional[int] = None, decode_slots: int = 4,
                  prefill_chunk: int = 64, decode_queue: int = 64,
-                 kv_block: int = 16, kv_pool_mb: float = 0.0,
-                 kv_dtype: Optional[str] = None, paged_kernel: str = "on",
+                 prefix_cache_mb: float = 0.0, kv_block: int = 16,
+                 kv_pool_mb: float = 0.0, kv_dtype: Optional[str] = None,
+                 paged_kernel: str = "on", decode_graphs: str = "on",
+                 metrics: Optional[MetricsRegistry] = None,
+                 trace_buffer: int = 8192,
+                 tracer: Optional[FlightRecorder] = None,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         if net is None:
@@ -54,11 +67,16 @@ class InferenceServer:
             decode_vocab = int(net.conf.vertices[out].layer.n_out)
         self.decode_vocab = int(decode_vocab)
         self.default_timeout_ms = default_timeout_ms
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.tracer = tracer if tracer is not None else FlightRecorder(
+            trace_buffer, enabled=trace_buffer > 0)
         self.decoder = DecodeScheduler(
             net, self.decode_vocab, n_slots=decode_slots,
             max_queue=decode_queue, prefill_chunk=prefill_chunk,
-            kv_block=kv_block, kv_pool_mb=kv_pool_mb, kv_dtype=kv_dtype,
-            paged_kernel=paged_kernel, device=self.device)
+            prefix_cache_mb=prefix_cache_mb, kv_block=kv_block,
+            kv_pool_mb=kv_pool_mb, kv_dtype=kv_dtype,
+            paged_kernel=paged_kernel, decode_graphs=decode_graphs,
+            metrics=self.metrics, tracer=self.tracer, device=self.device)
         self._host = host
         self._port = port
         self._httpd: Optional[ThreadingHTTPServer] = None
@@ -79,9 +97,12 @@ class InferenceServer:
                                     if dev.type == "cuda" else "cpu")},
                 "decode": {"slots": dec.n_slots,
                            "prefill_chunk": dec.prefill_chunk,
+                           "kv_mode": "paged" if dec.paged else "contiguous",
                            "kv_dtype": dec.kv_dtype,
                            "paged_kernel": dec.paged_kernel,
-                           "pool": dec.pool.stats()}}
+                           "decode_graphs": dec.decode_graphs,
+                           "decode_captures": dec.decode_captures,
+                           "pool": dec.pool.stats() if dec.pool else None}}
 
     def _generate(self, payload: dict, timeout_ms: Optional[float]) -> dict:
         if not isinstance(payload, dict) or "prompt" not in payload:
@@ -101,6 +122,7 @@ class InferenceServer:
 
     def start(self) -> "InferenceServer":
         server = self
+        self.decoder.warmup()
         self.decoder.start()
 
         class Handler(BaseHTTPRequestHandler):

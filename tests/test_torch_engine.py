@@ -148,8 +148,9 @@ def test_engine_admission(nets):
     assert e.value.blocks_needed == 5 and e.value.blocks_available == 4
     with pytest.raises(ValueError, match="out of range"):
         eng.submit([V], 1)
-    with pytest.raises(ValueError, match="paged"):
-        DecodeScheduler(tnet, V, kv_pool_mb=0, device="cpu")
+    # kv_pool_mb=0 is contiguous mode (per-slot stripes), as in JAX
+    contiguous = DecodeScheduler(tnet, V, kv_pool_mb=0, device="cpu")
+    assert not contiguous.paged and contiguous.pool is None
     # two requests of 3 blocks each cannot both hold the 4-block pool:
     # the second waits for the first instead of failing
     eng.start()

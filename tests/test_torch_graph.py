@@ -124,7 +124,9 @@ def test_init_is_seeded_and_xavier_distributed():
 def test_port_imports_neither_jax_nor_the_jax_package():
     names = [m.name for m in pkgutil.walk_packages(
         deeplearning4j_tpu_torch.__path__, "deeplearning4j_tpu_torch.")]
-    assert "deeplearning4j_tpu_torch.ops.cuda_kernels" in names
+    assert {"deeplearning4j_tpu_torch.ops.cuda_kernels",
+            "deeplearning4j_tpu_torch.inference.metrics",
+            "deeplearning4j_tpu_torch.inference.trace"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}:\n"

@@ -32,17 +32,22 @@ non-zero without them, or when any phase fails. Phases:
      S = 1 and the walk writes the output itself (same gates);
   3. serves the flagship transformer LM (vocab 128, d_model 512, 8 heads,
      4 blocks, RoPE, f32, random weights from a seed) through the port's
-     InferenceServer on a paged pool, its decode step captured into CUDA
-     graphs (one per table bucket, by the server's warmup() before it
-     answers; decode_graphs "on", the default): after one short warm-up
-     request, 8 concurrent POST /generate (prompts of 100-700 tokens, 32
-     new tokens, half greedy, half seeded sampling); tokens must equal the
-     port's solo generate_transformer on the card and the same requests on
-     a decode_graphs="off" server (the eager step), the kernel's launch
-     count (counted at capture, added on every replay) must equal 4
-     layers x the decode steps taken, and the captures at most the table
-     buckets, all made by warmup() (none under traffic); prints the mean
-     decode step, captured and eager;
+     InferenceServer (supervised, the default) on a paged pool, its decode
+     step and its prefill chunks captured into CUDA graphs (one step per
+     table bucket and one chunk per (chunk bucket, table bucket), by the
+     server's warmup() before it answers; decode_graphs "on", the
+     default): after one short warm-up request, 8 concurrent POST
+     /generate (prompts of 100-700 tokens, 32 new tokens, half greedy,
+     half seeded sampling); tokens must equal the port's solo
+     generate_transformer on the card and the same requests on a
+     decode_graphs="off" server (the eager step and chunks), the kernel's
+     launch count (counted at capture, added on every replay) must equal
+     4 layers x the decode steps taken, the captures exactly those
+     buckets, all made by warmup() (none under traffic), the chunk rows
+     read back to the host exactly one per final chunk (none for the
+     others), and no engine restart; prints the mean decode step and
+     prefill chunk, captured and eager, the time to first token (p50,
+     p99), the warmup seconds and the graph pool's bytes;
   4. the same with int8 KV pages, held against a paged_kernel="off" int8
      engine on the card (the layer's gather body) and the eager step;
      then a breakdown of the fp32 and int8 serving runs under
@@ -105,15 +110,17 @@ non-zero without them, or when any phase fails. Phases:
      it runs under torch.profiler (CUDA activity only) for the device's
      busy share; then the first wave again, posted in order, on a pool cut
      to 0.41 (then 0.33) of the wave's peak block need until a request is
-     preempted and resumed. Every server captures its decode steps in
-     warmup(); one more serves both waves with the eager step
-     (decode_graphs "off"), its second wave profiled too. Gates: tokens
+     preempted and resumed. Every server captures its decode steps and
+     prefill chunks in warmup(); one more serves both waves with the
+     eager step and chunks (decode_graphs "off"), its second wave profiled
+     too. Gates: tokens
      identical to solo generate_transformer (fp32) or to a
      paged_kernel="off" engine on the same waves (int8), and to the eager
      step's, the rerun's to the first wave's; prefix hits and a COW copy
      in the second wave, a preemption in the rerun; no trie pin left;
      paged-kernel launches = 4 layers x decode steps in every wave; the
-     captures at most the table buckets and none under traffic. Prints
+     captures exactly the buckets and none under traffic; one host read
+     per final chunk; no engine restart. Prints
      each wave's wall time, tokens/s, prefill chunks (beside a cold
      wave's), restored positions and busy share (captured and eager);
   9. holds the three flash-attention kernels (forward, dK/dV, dQ, all on
@@ -179,26 +186,62 @@ non-zero without them, or when any phase fails. Phases:
      rnn_time_step): tokens identical to the uncached solo generate;
  14. contiguous serving on the flagship (kv_pool_mb 0, the default: per-
      slot stripes of max_cache_len 1024, 8 slots, a 64 MiB side prefix
-     pool), decode captured: phase 3's first wave, then phase 8's second
-     wave (prefix hits restored into the stripes). Gates: both waves'
-     tokens identical to solo generate_transformer, prefix hits > 0,
-     exactly one decode capture, no kernel launch (contiguous decode has
-     no kernel, in JAX either); prints the registry's step-time and time-
-     to-first-token quantiles;
- 15. prints the kernels line.
+     pool), decode and chunks captured: phase 3's first wave, then phase
+     8's second wave (prefix hits restored into the stripes). Gates: both
+     waves' tokens identical to solo generate_transformer, prefix hits >
+     0, exactly one decode capture and one chunk capture per chunk bucket
+     (the slot a device index), one host read per final chunk, no kernel
+     launch (contiguous decode has no kernel, in JAX either); prints the
+     registry's step-time and time-to-first-token quantiles;
+ 15. phase 3's wave again on a server with decode_transfer_guard
+     "disallow" (every scheduler iteration under
+     torch.cuda.set_sync_debug_mode("error"), the probs and final-row
+     reads declared; the server takes /generate traffic only, as the mode
+     is process-wide): no undeclared sync (no engine crash, no restart),
+     tokens identical to phase 3's;
+ 16. the same wave as SSE streams, all at once: every streamed token list
+     equal to the buffered one; then a client that hangs up mid-stream:
+     its decode is cancelled, its slot and blocks freed, no pin left;
+ 17. the chaos drill on the card (paged fp32, full width, hang timeout
+     HANG_TIMEOUT_S): the wave with no fault, then with each of
+     CHAOS_FAULTS armed in turn (crash and oom at dispatch.decode,
+     dispatch.prefill, scheduler.iteration and pool.alloc, and a hang
+     past the timeout), the 8 requests posted at once by a retrying
+     client, while another client posts /predict forwards through the
+     recoveries (the rebuilt engines capture while it runs) and another
+     polls /readyz. Gates: every completion's tokens identical to the
+     no-fault run, none lost or finished twice, each fault fired once and
+     restarted the engine once, /readyz 503 during each recovery and 200
+     after, the paged launches 4 x the decode steps of every engine built,
+     each rebuilt engine on the same device, kernel and graph modes, and
+     torch.cuda.memory_allocated() after the last restart within one
+     engine's footprint of its value before the first; prints both and
+     each fault's recovery seconds;
+ 18. POST /admin/drain on the same server with all 8 requests in flight:
+     none dropped, tokens identical, the engine swapped, ready again;
+ 19. /predict on alexnet_cifar10 at full width from a zip, micro-batched:
+     64 concurrent single-row posts; every answer within 1e-4 of the net's
+     plain-version output, conv kernel launches = 3 x the batches the
+     batcher dispatched; prints the batch occupancy and the p50/p99
+     latency;
+ 20. prints the kernels line.
 
 The last line is {"ok": true, "device": {...}}. Every number printed is
 measured in this run; a "[details]" JSON line before the kernels line
 holds them all, unrounded.
 """
 import contextlib
+import gc
+import http.client
 import json
 import os
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -219,8 +262,25 @@ KV_POOL_MB = 129
 # rerun of the first wave tries in turn until one preempts
 PREFIX_HEAD = 256
 PREEMPT_CUTS = (0.41, 0.33)
+# the rerun's posts arrive in order this far apart, close enough that the
+# requests overlap (a captured prefill takes a request through its chunks
+# in a few ms) and so need more blocks at once than the cut pool holds
+PREEMPT_STAGGER_S = 0.005
 # phase 14: the contiguous mode's side prefix pool
 PREFIX_CACHE_MB = 64
+# phase 17: one fault at a time, each firing once mid-wave (the n-th hit of
+# its seam after arming; the wave's prompts are cached in the prefix trie
+# by then, so a wave makes about 38 decode steps, 8 chunks and 20 block
+# allocations); the hang outlasts the watchdog's timeout
+HANG_TIMEOUT_S = 1.5
+CHAOS_FAULTS = (("dispatch.decode", "crash@n:12"),
+                ("dispatch.prefill", "crash@n:3"),
+                ("scheduler.iteration", "oom@n:20"),
+                ("pool.alloc", "oom@n:4"),
+                ("pool.alloc", "crash@n:10"),
+                ("scheduler.iteration", "hang:3000@n:25"))
+# phase 19: concurrent single-row /predict posts on AlexNet-CIFAR10
+PREDICT_POSTS = 64
 
 
 def phase(n, msg):
@@ -434,6 +494,399 @@ def sampling_kw(body):
     return {k: body[k] for k in ("temperature", "top_k", "seed") if k in body}
 
 
+def post_retry(port, body, max_retries=12):
+    """The chaos client: POST /generate, retrying 5xx and connection
+    errors with a capped backoff (Retry-After honoured); a request is lost
+    only if even this gives up. Returns (response, attempts)."""
+    for attempt in range(max_retries + 1):
+        try:
+            return post(port, body), attempt + 1
+        except urllib.error.HTTPError as e:
+            if e.code < 500:
+                raise
+            delay = min(1.0, 0.05 * 2 ** attempt)
+            ra = e.headers.get("Retry-After") if e.headers else None
+            if ra:
+                delay = max(delay, float(ra))
+            e.read()
+        except urllib.error.URLError:
+            delay = min(1.0, 0.05 * 2 ** attempt)
+        time.sleep(delay)
+    raise SystemExit(f"request lost: {max_retries} retries exhausted")
+
+
+def sse_post(port, body):
+    """POST /generate as SSE; the events, the terminal one last."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=900)
+    try:
+        conn.request("POST", "/generate?timeout_ms=900000",
+                     json.dumps({**body, "stream": True}).encode(),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise SystemExit(f"SSE /generate answered {resp.status}: "
+                             f"{resp.read()[:200]}")
+        buf, events = b"", []
+        while True:
+            chunk = resp.read1(65536)
+            if not chunk:
+                break
+            buf += chunk
+            while b"\n\n" in buf:
+                line, buf = buf.split(b"\n\n", 1)
+                events.append(json.loads(line[len(b"data: "):]))
+        return events
+    finally:
+        conn.close()
+
+
+def get_code(port, path):
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=60) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        e.read()
+        return e.code
+
+
+def finish_counts(tracer):
+    """request_id -> number of terminal ``finish`` records."""
+    counts = {}
+    for ev in tracer.events():
+        if ev["ph"] == "i" and ev["name"] == "finish":
+            rid = ev.get("args", {}).get("request_id")
+            counts[rid] = counts.get(rid, 0) + 1
+    return counts
+
+
+def streaming_run(model_path, reqs, want):
+    """Phase 16: a paged fp32 server streams the wave as SSE (8 at once);
+    then a client hangs up mid-stream. Returns the figures; raises when
+    the streamed tokens differ from the buffered ``want`` or the hang-up
+    leaves its slot, blocks or pin behind."""
+    from deeplearning4j_tpu_torch.serving.server import InferenceServer
+    srv = InferenceServer(model_path=model_path, decode_slots=SLOTS,
+                          prefill_chunk=CHUNK, kv_block=KV_BLOCK,
+                          kv_pool_mb=KV_POOL_MB, device="cuda").start()
+    try:
+        dec = srv.decoder
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(len(reqs)) as ex:
+            streams = list(ex.map(lambda b: sse_post(srv.port, b), reqs))
+        wall = time.monotonic() - t0
+        got = [[e["token"] for e in ev if not e.get("done")]
+               for ev in streams]
+        done = [ev[-1] for ev in streams]
+        bad = [i for i, (g, d, w) in enumerate(zip(got, done, want))
+               if not (g == d.get("tokens") == w)]
+        if bad:
+            raise SystemExit(f"phase 16: streamed tokens differ from the "
+                             f"buffered ones for requests {bad}")
+        d0 = srv.metrics.counter("stream_disconnects_total").value
+        free0 = dec.pool.free_blocks
+        reclaim0 = dec.pool.reclaimable_blocks()
+        import socket
+        sock = socket.create_connection(("127.0.0.1", srv.port), timeout=60)
+        body = json.dumps({"prompt": reqs[0]["prompt"][:200],
+                           "max_new_tokens": 400, "stream": True}).encode()
+        sock.sendall(b"POST /generate HTTP/1.1\r\nHost: x\r\n"
+                     b"Content-Type: application/json\r\nContent-Length: "
+                     + str(len(body)).encode() + b"\r\n\r\n" + body)
+        head = b""
+        while head.count(b"data: ") < 2:  # mid-decode: a few tokens out
+            chunk = sock.recv(4096)
+            if not chunk:
+                raise SystemExit(f"phase 16: the stream ended early: {head}")
+            head += chunk
+        sock.close()
+        t1 = time.monotonic()
+        while time.monotonic() - t1 < 60:
+            if (srv.metrics.counter("stream_disconnects_total").value > d0
+                    and dec.inflight() == 0
+                    and dec.pool.free_blocks == free0):
+                break
+            time.sleep(0.01)
+        st = {"wall_s": wall, "tokens": sum(map(len, got)),
+              "tokens_per_s": sum(map(len, got)) / wall,
+              "disconnects": srv.metrics.counter(
+                  "stream_disconnects_total").value - d0,
+              "freed_s": time.monotonic() - t1,
+              "inflight_after": dec.inflight(),
+              "free_blocks": [free0, dec.pool.free_blocks],
+              "reclaimable": [reclaim0, dec.pool.reclaimable_blocks()],
+              "pins_left": dec.pool.outstanding_refs(),
+              "cancelled": srv.metrics.counter(
+                  "decode_cancelled_total").value,
+              "stream_requests": srv.metrics.counter(
+                  "stream_requests_total").value}
+    finally:
+        srv.stop()
+    if not (st["disconnects"] == 1 and st["inflight_after"] == 0
+            and st["free_blocks"][0] == st["free_blocks"][1]
+            and st["reclaimable"][0] == st["reclaimable"][1]
+            and st["pins_left"] == 0 and st["cancelled"] >= 1):
+        raise SystemExit(f"phase 16: the hang-up left state behind: {st}")
+    return st
+
+
+def chaos_run(ck, model_path, reqs, want):
+    """Phase 17, then phase 18 on the same server. A supervised paged fp32
+    server (hang timeout HANG_TIMEOUT_S) serves the wave with no fault,
+    then once per CHAOS_FAULTS entry with that fault armed, every request
+    posted at once by the retrying client, while one more client posts
+    /predict forwards (the flagship on one-hot inputs, [1, 64, 128]) the
+    whole time and another polls /readyz. Then the wave again with POST
+    /admin/drain sent once every request is in flight. Returns the
+    figures; raises on any lost, duplicated or different completion, a
+    fault not fired once, a restart count off the faults, a /readyz that
+    never flipped or did not come back, a launch count off the decode
+    steps, or memory not bounded across the restarts."""
+    import numpy as np
+    import torch
+    from deeplearning4j_tpu_torch.inference import failpoints
+    from deeplearning4j_tpu_torch.serving.server import InferenceServer
+    srv = InferenceServer(model_path=model_path, decode_slots=SLOTS,
+                          prefill_chunk=CHUNK, kv_block=KV_BLOCK,
+                          kv_pool_mb=KV_POOL_MB, hang_timeout_s=HANG_TIMEOUT_S,
+                          trace_buffer=1 << 17, device="cuda")
+    engines = []
+    build = srv._decoder_factory
+
+    def factory():  # every engine the supervisor builds, for its counts
+        engines.append(build())
+        return engines[-1]
+    srv._decoder_factory = factory
+    n_attn = sum(type(i).__name__ == "SelfAttentionLayerImpl"
+                 for i in srv.net._impls.values())
+    # the baseline leaves out what earlier phases left for the collector
+    gc.collect()
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    srv.start()
+    torch.cuda.synchronize()
+    footprint = torch.cuda.memory_allocated() - mem0
+    sup = srv.supervisor
+    out = {"engine_footprint_bytes": footprint, "faults": []}
+    stop_side = threading.Event()
+    side = {"predict": [], "readyz": []}
+    x = np.eye(VOCAB, dtype=np.float32)[
+        np.random.default_rng(5).integers(0, VOCAB, (1, 64))]
+    body = json.dumps({"data": x.tolist()}).encode()
+
+    def predict_loop():
+        while not stop_side.is_set():
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{srv.port}/predict", data=body,
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                side["predict"].append(
+                    np.asarray(json.loads(r.read())["predictions"]))
+
+    def readyz_loop():
+        while not stop_side.is_set():
+            side["readyz"].append((time.monotonic(),
+                                   get_code(srv.port, "/readyz")))
+            time.sleep(0.01)
+
+    threads = [threading.Thread(target=predict_loop, daemon=True),
+               threading.Thread(target=readyz_loop, daemon=True)]
+    try:
+        post(srv.port, {"prompt": reqs[0]["prompt"][:CHUNK + 3],
+                        "max_new_tokens": 4})
+        with ThreadPoolExecutor(len(reqs)) as ex:
+            base = [o["tokens"] for o in ex.map(
+                lambda b: post(srv.port, b), reqs)]
+        if base != want:
+            raise SystemExit("phase 17: the no-fault run differs from "
+                             "phase 3's tokens")
+        for t in threads:
+            t.start()
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        ck.reset_launches()
+        first = len(engines) - 1
+        engines[-1].reset_counters()
+        trig = srv.metrics.counter("failpoint_triggers_total")
+        for seam, spec in CHAOS_FAULTS:
+            r0, t0_trig = sup.restarts, trig.value
+            n_ready = len(side["readyz"])
+            t0 = time.monotonic()
+            failpoints.arm(seam, spec)
+            try:
+                with ThreadPoolExecutor(len(reqs)) as ex:
+                    res = list(ex.map(lambda b: post_retry(srv.port, b),
+                                      reqs))
+            finally:
+                failpoints.disarm()
+            wall = time.monotonic() - t0
+            while not srv.ready()[0] and time.monotonic() - t0 < 120:
+                time.sleep(0.01)
+            time.sleep(0.05)  # one more /readyz sample after recovery
+            codes = [c for _, c in side["readyz"][n_ready:]]
+            toks = [o["tokens"] for o, _ in res]
+            f = {"seam": seam, "spec": spec, "wall_s": wall,
+                 "fired": trig.value - t0_trig,
+                 "restarts": sup.restarts - r0,
+                 "recovery_s": sup.recovery_seconds[r0:],
+                 "retries": [o.get("retries", 0) for o, _ in res],
+                 "client_attempts": [a for _, a in res],
+                 "rebuilt_warmup_s": engines[-1].warmup_seconds,
+                 "readyz_503": codes.count(503), "readyz_last": codes[-1:],
+                 "identical": toks == want}
+            out["faults"].append(f)
+            bad = []
+            if toks != want:
+                bad.append("tokens differ from the no-fault run")
+            if f["fired"] != 1 or f["restarts"] != f["fired"]:
+                bad.append(f"fired {f['fired']}, restarts {f['restarts']}")
+            if not (f["readyz_503"] and f["readyz_last"] == [200]):
+                bad.append(f"/readyz never went 503 or did not come back "
+                           f"({f['readyz_503']} 503s, last {codes[-1:]})")
+            if not any(f["retries"]):
+                bad.append("no request reports surviving the restart")
+            if bad:
+                raise SystemExit(f"phase 17 ({seam} {spec}): "
+                                 + "; ".join(bad) + f" {f}")
+        for e in engines[:-1]:  # a hung engine's thread exits on waking
+            if e._thread is not None:
+                e._thread.join(timeout=30)
+        stop_side.set()
+        for t in threads:
+            t.join(timeout=300)
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+        steps = sum(e.decode_steps for e in engines[first:])
+        launches = ck.LAUNCHES["paged_decode_attention"]
+        dups = {k: n for k, n in finish_counts(srv.tracer).items() if n > 1}
+        preds = side["predict"]
+        out.update(
+            memory_allocated_before=mem_before,
+            memory_allocated_after=mem_after,
+            engines_built=len(engines), decode_steps=steps,
+            launches=launches, duplicated_finishes=dups,
+            predict_posts=len(preds),
+            predict_max_diff=max((float(np.abs(p - preds[0]).max())
+                                  for p in preds), default=None),
+            restarts_total=srv.metrics.counter(
+                "engine_restarts_total").value,
+            modes=sorted({(str(e.device), e.paged_kernel, e.decode_graphs)
+                          for e in engines}))
+        bad = []
+        if dups:
+            bad.append(f"requests finished twice: {dups}")
+        if launches != n_attn * steps or launches <= 0:
+            bad.append(f"paged launches {launches} != {n_attn} x {steps} "
+                       "decode steps")
+        if mem_after - mem_before > footprint:
+            bad.append(f"memory grew {mem_after - mem_before} B across the "
+                       f"restarts, past one engine's {footprint} B")
+        if out["modes"] != [("cuda:0", "on", "on")]:
+            bad.append(f"a rebuilt engine changed modes: {out['modes']}")
+        if not preds or not all(np.isfinite(p).all() and p.shape
+                                == (1, 64, VOCAB) for p in preds) \
+                or out["predict_max_diff"] > 1e-5:
+            bad.append(f"/predict during the drill: {len(preds)} posts, "
+                       f"max diff {out['predict_max_diff']}")
+        if bad:
+            raise SystemExit("phase 17: " + "; ".join(bad))
+        # -- 18. a draining restart with every request in flight ----------
+        old = srv.decoder
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(len(reqs)) as ex:
+            futs = [ex.submit(post, srv.port, b) for b in reqs]
+            while old.inflight() < len(reqs) and time.monotonic() - t0 < 60:
+                time.sleep(0.002)
+            inflight = old.inflight()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{srv.port}/admin/drain", data=b"{}",
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=60) as r:
+                code = r.status
+            toks = [f.result()["tokens"] for f in futs]
+        while (srv.decoder is old or not srv.ready()[0]) \
+                and time.monotonic() - t0 < 120:
+            time.sleep(0.01)
+        out["drain"] = {"inflight_at_drain": inflight, "answer": code,
+                        "identical": toks == want,
+                        "swapped": srv.decoder is not old,
+                        "ready_after": srv.ready()[0],
+                        "wall_s": time.monotonic() - t0}
+        if not (code == 202 and toks == want and srv.decoder is not old
+                and srv.ready()[0] and inflight == len(reqs)):
+            raise SystemExit(f"phase 18: {out['drain']}")
+    finally:
+        stop_side.set()
+        failpoints.disarm()
+        srv.stop()
+    return out
+
+
+def predict_run(ck, torch):
+    """Phase 19: AlexNet-CIFAR10 at full width from a zip behind /predict
+    (micro-batched), PREDICT_POSTS concurrent single-row posts. Returns
+    the figures; raises when an answer is off the net's plain-version
+    output by more than 1e-4 or the conv launches are not 3 per
+    dispatched batch."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.zoo import alexnet_cifar10
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import helpers
+    from deeplearning4j_tpu_torch.serving.server import InferenceServer
+    from deeplearning4j_tpu_torch.util.model_serializer import write_model
+    x = np.random.default_rng(19).normal(
+        size=(PREDICT_POSTS, 32, 32, 3)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "alexnet.zip")
+        write_model(MultiLayerNetwork(alexnet_cifar10(), device="cuda")
+                    .init(), path)
+        srv = InferenceServer(model_path=path, device="cuda").start()
+    try:
+        def one(i):
+            body = json.dumps({"data": x[i:i + 1].tolist()}).encode()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{srv.port}/predict", data=body,
+                headers={"Content-Type": "application/json"})
+            t0 = time.monotonic()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                pred = json.loads(r.read())["predictions"][0]
+            return pred, time.monotonic() - t0
+        one(0)  # the first forward's one-off costs stay out of the run
+        batches = srv.metrics.counter("predict_batches_total")
+        b0 = batches.value
+        ck.reset_launches()
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(PREDICT_POSTS) as ex:
+            res = list(ex.map(one, range(PREDICT_POSTS)))
+        wall = time.monotonic() - t0
+        launches = dict(ck.LAUNCHES)
+        n_batches = batches.value - b0
+        snap = srv.metrics.snapshot()["histograms"]
+        for name, fn in helpers.PLAIN_OVERRIDES.items():
+            helpers.register_helper(name, fn)
+        try:
+            plain = srv.net.output(x).cpu().numpy()
+        finally:
+            for name in helpers.PLAIN_OVERRIDES:
+                helpers.register_helper(name, None)
+    finally:
+        srv.stop()
+    got = np.asarray([p for p, _ in res])
+    lat = [t * 1e3 for _, t in res]
+    st = {"posts": PREDICT_POSTS, "wall_s": wall,
+          "batches": n_batches, "launches": launches,
+          "max_abs_err": float(np.abs(got - plain).max()),
+          "occupancy_mean": snap["predict_batch_occupancy"]["mean"],
+          "server_latency_p50_ms": 1e3 * snap["predict_latency_sec"]["p50"],
+          "server_latency_p99_ms": 1e3 * snap["predict_latency_sec"]["p99"],
+          "client_latency_p50_ms": float(np.percentile(lat, 50)),
+          "client_latency_p99_ms": float(np.percentile(lat, 99))}
+    if not (st["max_abs_err"] <= 1e-4 and np.isfinite(got).all()
+            and launches["conv2d_bias_act"] == 3 * n_batches > 0):
+        raise SystemExit(f"phase 19: {st}")
+    return st
+
+
 def serve_waves(ck, kw, pool_mb, waves, *, stagger=0.0, profiled=False):
     """A fresh InferenceServer (``kw`` and a ``pool_mb`` MiB pool; its
     start() runs warmup(), which captures the decode steps) serves one
@@ -452,7 +905,7 @@ def serve_waves(ck, kw, pool_mb, waves, *, stagger=0.0, profiled=False):
     out = []
     try:
         dec = srv.decoder
-        warm_captures = dec.decode_captures
+        warm = warm_counts(dec)
         post(srv.port, {"prompt": waves[0][0]["prompt"][:CHUNK + 3],
                         "max_new_tokens": 4})
         for w, bodies in enumerate(waves):
@@ -485,10 +938,7 @@ def serve_waves(ck, kw, pool_mb, waves, *, stagger=0.0, profiled=False):
                   "bytes_per_block": dec.pool.bytes_per_block,
                   "mean_decode_step_ms": 1e3 * dec.decode_seconds
                   / max(dec.decode_steps, 1),
-                  "decode_graphs": dec.decode_graphs,
-                  "warmup_captures": warm_captures,
-                  "captures": dec.decode_captures,
-                  "table_buckets": len(dec.table_buckets)}
+                  **engine_stats(srv, dec, warm)}
             if prof is not None:
                 busy = sum(device_kernels_ms(prof).values())
                 st.update(device_busy_ms=busy,
@@ -508,15 +958,66 @@ def serve_waves(ck, kw, pool_mb, waves, *, stagger=0.0, profiled=False):
     return out, net
 
 
+def warm_counts(dec):
+    """The engine's captures right after the server's warmup()."""
+    return {"warmup_captures": dec.decode_captures,
+            "warmup_prefill_captures": dec.prefill_captures}
+
+
+def engine_stats(srv, dec, warm):
+    """The captures, the chunk host reads and the supervisor's restarts of
+    a serving run (the counts since the last reset_counters())."""
+    return {**warm, "decode_graphs": dec.decode_graphs,
+            "captures": dec.decode_captures,
+            "prefill_captures": dec.prefill_captures,
+            "table_buckets": len(dec.table_buckets) or 1,
+            "chunk_buckets": len(dec.prefill_buckets),
+            "prefill_chunks": dec.prefill_chunks,
+            "final_chunks": dec.final_chunks,
+            "chunk_row_reads": dec.chunk_row_reads,
+            "warmup_s": dec.warmup_seconds,
+            "restarts": srv.supervisor.restarts}
+
+
+def graph_pool_bytes(dec):
+    """Bytes of the device memory segments of the engine's CUDA graph
+    pool (its captured steps' and chunks' private pool)."""
+    import torch
+    pool = dec._graph_pool
+    if pool is None:
+        return 0
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
 def capture_gate(st):
-    """The capture budget: captured servers make one capture per table
-    bucket at most, all in warmup(); eager ones none."""
-    want = st["table_buckets"] if st["decode_graphs"] == "on" else 0
-    if not (st["warmup_captures"] == st["captures"] == want):
-        raise SystemExit(f"decode captures {st['captures']} (after warmup "
-                         f"{st['warmup_captures']}), want {want} "
-                         f"({st['table_buckets']} table buckets, graphs "
+    """The capture budget: a captured server makes one decode capture per
+    table bucket and one prefill chunk capture per (chunk bucket, table
+    bucket), all in warmup(); an eager one none. Every chunk's host read
+    is a final chunk's row (non-final chunks read nothing back), and no
+    serving phase restarted its engine (a recovery would hide a fault)."""
+    on = st["decode_graphs"] == "on"
+    want = st["table_buckets"] if on else 0
+    want_p = st["chunk_buckets"] * st["table_buckets"] if on else 0
+    if not (st["warmup_captures"] == st["captures"] == want
+            and st["warmup_prefill_captures"] == st["prefill_captures"]
+            == want_p):
+        raise SystemExit(f"captures: decode {st['captures']} (after warmup "
+                         f"{st['warmup_captures']}), want {want}; prefill "
+                         f"{st['prefill_captures']} (after warmup "
+                         f"{st['warmup_prefill_captures']}), want {want_p} "
+                         f"({st['table_buckets']} table buckets, "
+                         f"{st['chunk_buckets']} chunk buckets, graphs "
                          f"{st['decode_graphs']})")
+    if not (st["chunk_row_reads"] == st["final_chunks"]
+            and 0 < st["final_chunks"] < st["prefill_chunks"]):
+        raise SystemExit(f"chunk host reads {st['chunk_row_reads']} for "
+                         f"{st['final_chunks']} final of "
+                         f"{st['prefill_chunks']} chunks: want one per "
+                         "final chunk and none for the others")
+    if st["restarts"]:
+        raise SystemExit(f"the engine restarted {st['restarts']} times in a "
+                         "serving phase")
 
 
 def prefix_run(ck, model_path, reqs, wave2, kv_dtype):
@@ -546,7 +1047,7 @@ def prefix_run(ck, model_path, reqs, wave2, kv_dtype):
         cap = round(peak * cut)
         [(rerun, pre)], _ = serve_waves(
             ck, kw, (cap + 1) * warm["bytes_per_block"] / (1 << 20), [reqs],
-            stagger=0.05)
+            stagger=PREEMPT_STAGGER_S)
         pre.update(cut=cut, peak_blocks=peak)
         if pre["preemptions"]:
             break
@@ -557,22 +1058,27 @@ def prefix_run(ck, model_path, reqs, wave2, kv_dtype):
              "rerun": pre, "wave2_eager": eager}, net)
 
 
-def serve_run(ck, model_path, reqs, kv_dtype, graphs="on"):
-    """8 concurrent /generate through a fresh server (``graphs``: its
-    decode_graphs); returns (tokens, stats) with the launch count of
-    exactly this run."""
+def serve_run(ck, model_path, reqs, kv_dtype, graphs="on", guard=None):
+    """8 concurrent /generate through a fresh supervised server
+    (``graphs``: its decode_graphs, for the step and the chunks;
+    ``guard``: its decode_transfer_guard); returns (tokens, stats) with
+    the launch count of exactly this run, the chunk and TTFT figures, the
+    warmup seconds and the graph pool's bytes."""
+    import numpy as np
     from deeplearning4j_tpu_torch.serving.server import InferenceServer
     srv = InferenceServer(model_path=model_path, decode_slots=SLOTS,
                           prefill_chunk=CHUNK, kv_block=KV_BLOCK,
                           kv_pool_mb=KV_POOL_MB, kv_dtype=kv_dtype,
                           paged_kernel="on", decode_graphs=graphs,
+                          decode_transfer_guard=guard,
                           device="cuda").start()
     try:
-        warm_captures = srv.decoder.decode_captures
+        dec = srv.decoder
+        warm = warm_counts(dec)
+        pool_bytes = graph_pool_bytes(dec)
         with urllib.request.urlopen(
                 f"http://127.0.0.1:{srv.port}/healthz", timeout=60) as r:
             assert r.status == 200
-        dec = srv.decoder
         # one short request first, so the timed run holds no one-off
         # start-up cost (cuBLAS handles, the allocator's first blocks)
         post(srv.port, {"prompt": reqs[0]["prompt"][:CHUNK + 3],
@@ -585,9 +1091,12 @@ def serve_run(ck, model_path, reqs, kv_dtype, graphs="on"):
         wall = time.monotonic() - t0
         launches = ck.LAUNCHES["paged_decode_attention"]
         flash_launches = ck.LAUNCHES["flash_attention_fwd"]
+        ttft = [o["timings"]["queue_ms"] + o["timings"]["restore_ms"]
+                + o["timings"]["prefill_ms"] for o in outs]
+        crashes = sum(e["name"] in ("engine_crash", "engine_hang")
+                      for e in srv.tracer.events())
         stats = {"launches": launches, "decode_steps": dec.decode_steps,
                  "flash_fwd_launches": flash_launches,
-                 "prefill_chunks": dec.prefill_chunks,
                  "tokens": sum(len(o["tokens"]) for o in outs),
                  "wall_s": wall,
                  "tokens_per_s": sum(len(o["tokens"]) for o in outs) / wall,
@@ -597,10 +1106,13 @@ def serve_run(ck, model_path, reqs, kv_dtype, graphs="on"):
                  "prefill_s": dec.prefill_seconds,
                  "mean_prefill_chunk_ms": 1e3 * dec.prefill_seconds
                  / max(dec.prefill_chunks, 1),
+                 "ttft_ms": ttft,
+                 "ttft_p50_ms": float(np.percentile(ttft, 50)),
+                 "ttft_p99_ms": float(np.percentile(ttft, 99)),
                  "capacity_blocks": dec.pool.capacity_blocks,
-                 "decode_graphs": graphs, "warmup_captures": warm_captures,
-                 "captures": dec.decode_captures,
-                 "table_buckets": len(dec.table_buckets)}
+                 "graph_pool_bytes": pool_bytes,
+                 "transfer_guard": guard, "engine_crash_records": crashes,
+                 **engine_stats(srv, dec, warm)}
         net = srv.net
     finally:
         srv.stop()
@@ -613,15 +1125,18 @@ def serve_run(ck, model_path, reqs, kv_dtype, graphs="on"):
         raise SystemExit(f"the decode engine launched the full-sequence "
                          f"attention kernel {flash_launches} times")
     capture_gate(stats)
+    if crashes:
+        raise SystemExit(f"{crashes} engine crash records in a serving run")
     return [o["tokens"] for o in outs], stats, net
 
 
 def contiguous_run(ck, model_path, waves):
-    """Phase 14: a server in contiguous mode (no kv_pool_mb: per-slot
-    stripes of the model's max_cache_len, a PREFIX_CACHE_MB side prefix
-    pool; start() captures the one decode step) serves each wave in turn.
-    Returns the tokens and counts of each wave, the launches of the whole
-    run, the captures, and the registry's text exposition."""
+    """Phase 14: a supervised server in contiguous mode (no kv_pool_mb:
+    per-slot stripes of the model's max_cache_len, a PREFIX_CACHE_MB side
+    prefix pool; start() captures the one decode step and one prefill
+    chunk per chunk bucket) serves each wave in turn. Returns the tokens
+    and counts of each wave (each gated as capture_gate does), the
+    launches of the whole run, and the registry's text exposition."""
     from deeplearning4j_tpu_torch.serving.server import InferenceServer
     srv = InferenceServer(model_path=model_path, decode_slots=SLOTS,
                           prefill_chunk=CHUNK, kv_block=KV_BLOCK,
@@ -631,7 +1146,7 @@ def contiguous_run(ck, model_path, waves):
     try:
         dec = srv.decoder
         info = srv.info()["decode"]
-        warm_captures = dec.decode_captures
+        warm = warm_counts(dec)
         ck.reset_launches()
         for bodies in waves:
             dec.reset_counters()
@@ -646,12 +1161,15 @@ def contiguous_run(ck, model_path, waves):
                 "decode_steps": dec.decode_steps,
                 "mean_decode_step_ms": 1e3 * dec.decode_seconds
                 / max(dec.decode_steps, 1),
-                "prefill_chunks": dec.prefill_chunks,
                 "restored_tokens": dec.restored_tokens,
-                "hits": after["hits"] - before["hits"]}))
+                "hits": after["hits"] - before["hits"],
+                **engine_stats(srv, dec, warm)}))
+            capture_gate(out[-1][1])
         return {"waves": out, "launches": dict(ck.LAUNCHES), "net": srv.net,
-                "warmup_captures": warm_captures,
-                "captures": dec.decode_captures, "kv_mode": info["kv_mode"],
+                **warm, "captures": dec.decode_captures,
+                "prefill_captures": dec.prefill_captures,
+                "graph_pool_bytes": graph_pool_bytes(dec),
+                "kv_mode": info["kv_mode"],
                 "cache_positions": dec._cache_cap,
                 "pool_blocks": dec.pool.capacity_blocks,
                 "outstanding_refs": dec.pool.outstanding_refs(),
@@ -1440,12 +1958,22 @@ def main():
                  f"(eager: {e2e_eager['tokens_per_s']:.2f} tokens/s, "
                  f"{e2e_eager['decode_steps']} steps, mean "
                  f"{e2e_eager['mean_decode_step_ms']:.3f} ms), "
-                 f"{e2e['prefill_chunks']} prefill chunks, mean "
-                 f"{e2e['mean_prefill_chunk_ms']:.3f} ms, kernel launches "
+                 f"{e2e['prefill_chunks']} prefill chunks "
+                 f"({e2e['final_chunks']} final, {e2e['chunk_row_reads']} "
+                 f"rows read back), mean {e2e['mean_prefill_chunk_ms']:.3f} "
+                 f"ms captured against {e2e_eager['mean_prefill_chunk_ms']:.3f}"
+                 f" ms eager; time to first token p50 "
+                 f"{e2e['ttft_p50_ms']:.3f} / p99 {e2e['ttft_p99_ms']:.3f} ms "
+                 f"(eager {e2e_eager['ttft_p50_ms']:.3f} / "
+                 f"{e2e_eager['ttft_p99_ms']:.3f} ms); kernel launches "
                  f"{e2e['launches']} = {BLOCKS} x {e2e['decode_steps']} "
-                 f"(eager {e2e_eager['launches']}); decode captures "
-                 f"{e2e['captures']} for {e2e['table_buckets']} table "
-                 f"buckets, all in warmup(); the solo reference launched "
+                 f"(eager {e2e_eager['launches']}); captures: "
+                 f"{e2e['captures']} decode for {e2e['table_buckets']} table "
+                 f"buckets + {e2e['prefill_captures']} prefill for "
+                 f"{e2e['chunk_buckets']} chunk x {e2e['table_buckets']} "
+                 f"table buckets, all in warmup() ({e2e['warmup_s']:.3f} s, "
+                 f"graph pool {e2e['graph_pool_bytes']} B); the solo "
+                 f"reference launched "
                  f"flash_attention_fwd {e2e['solo_flash_fwd_launches']} "
                  f"times = {BLOCKS} x {NEW_TOKENS} x {len(reqs)}, the server "
                  f"none [{card}]")
@@ -1477,9 +2005,11 @@ def main():
                  f"{e2e8_eager['tokens_per_s']:.2f} tokens/s, "
                  f"{e2e8_eager['mean_decode_step_ms']:.3f} ms), kernel "
                  f"launches {e2e8['launches']} = {BLOCKS} x "
-                 f"{e2e8['decode_steps']}; decode captures "
-                 f"{e2e8['captures']} for {e2e8['table_buckets']} table "
-                 f"buckets, all in warmup() [{card}]")
+                 f"{e2e8['decode_steps']}; mean prefill chunk "
+                 f"{e2e8['mean_prefill_chunk_ms']:.3f} ms (eager "
+                 f"{e2e8_eager['mean_prefill_chunk_ms']:.3f} ms); captures "
+                 f"{e2e8['captures']} decode + {e2e8['prefill_captures']} "
+                 f"prefill, all in warmup() [{card}]")
 
     prof = {}
     for kv_dtype in (None, "int8"):
@@ -2141,9 +2671,14 @@ def main():
                    + divergence(cnet, wave2, c2, prefix_want[1]))
     if not c2_st["hits"]:
         bad.append(f"no prefix hit in the second wave: {c2_st}")
-    if not (cont["warmup_captures"] == cont["captures"] == 1):
-        bad.append(f"decode captures {cont['captures']} (warmup "
-                   f"{cont['warmup_captures']}), want exactly 1")
+    if not (cont["warmup_captures"] == cont["captures"] == 1
+            and cont["warmup_prefill_captures"] == cont["prefill_captures"]
+            == 3):
+        bad.append(f"captures: decode {cont['captures']} (warmup "
+                   f"{cont['warmup_captures']}), want exactly 1; prefill "
+                   f"{cont['prefill_captures']} (warmup "
+                   f"{cont['warmup_prefill_captures']}), want 3 (one per "
+                   "chunk bucket)")
     if any(cont["launches"].values()) or cont["kv_mode"] != "contiguous" \
             or cont["outstanding_refs"]:
         bad.append(f"kernel launches {cont['launches']}, mode "
@@ -2151,10 +2686,13 @@ def main():
     phase(14, f"contiguous serving ({cont['cache_positions']} positions a "
               f"slot, {SLOTS} slots, a {PREFIX_CACHE_MB} MiB prefix pool of "
               f"{cont['pool_blocks']} blocks), decode captured "
-              f"({cont['captures']} capture): first wave "
+              f"({cont['captures']} capture) and prefill chunks captured "
+              f"({cont['prefill_captures']}, graph pool "
+              f"{cont['graph_pool_bytes']} B): first wave "
               f"{c1_st['tokens_per_s']:.2f} tokens/s, mean decode step "
               f"{c1_st['mean_decode_step_ms']:.3f} ms, {c1_st['prefill_chunks']}"
-              f" prefill chunks; prefix wave {c2_st['tokens_per_s']:.2f} "
+              f" prefill chunks ({c1_st['final_chunks']} final, "
+              f"{c1_st['chunk_row_reads']} rows read); prefix wave {c2_st['tokens_per_s']:.2f} "
               f"tokens/s, {c2_st['hits']} hits, {c2_st['restored_tokens']} "
               f"positions restored, {c2_st['prefill_chunks']} prefill chunks; "
               f"tokens of both identical to solo {not bad}; registry: "
@@ -2162,7 +2700,75 @@ def main():
     if bad:
         raise SystemExit("phase 14: " + "; ".join(bad))
     del cnet
+
+    # -- 15. phase 3's wave with the transfer guard on ----------------------
+    tokens_g, guarded, _ = serve_run(ck, serving_zip, reqs, None,
+                                     guard="disallow")
+    if tokens_g != tokens:
+        raise SystemExit("phase 15: the guarded wave's tokens differ from "
+                         "phase 3's: " + divergence(snet, reqs, tokens_g,
+                                                    tokens))
+    phase(15, f"phase 3's wave with decode_transfer_guard='disallow' "
+              f"(torch.cuda.set_sync_debug_mode('error') around every "
+              f"scheduler iteration; the probs and final-row reads "
+              f"declared): no undeclared sync raised (0 engine crashes, 0 "
+              f"restarts), tokens identical to phase 3; "
+              f"{guarded['tokens_per_s']:.2f} tokens/s, mean decode step "
+              f"{guarded['mean_decode_step_ms']:.3f} ms, mean prefill chunk "
+              f"{guarded['mean_prefill_chunk_ms']:.3f} ms [{card}]")
+
+    # -- 16. the wave as SSE streams, and a client that hangs up -----------
+    stream = streaming_run(serving_zip, reqs, tokens)
+    phase(16, f"SSE: the 8 requests streamed at once, every streamed token "
+              f"list identical to the buffered one, {stream['tokens']} "
+              f"tokens in {stream['wall_s']:.3f} s = "
+              f"{stream['tokens_per_s']:.2f} tokens/s; a client that hung "
+              f"up mid-stream: decode cancelled, slot and blocks freed in "
+              f"{stream['freed_s']:.3f} s (free blocks "
+              f"{stream['free_blocks']}, pins left {stream['pins_left']}) "
+              f"[{card}]")
+
+    # -- 17-18. the chaos drill and a draining restart, full width ----------
+    chaos = chaos_run(ck, serving_zip, reqs, tokens)
+    for f in chaos["faults"]:
+        phase(17, f"{f['seam']} {f['spec']}: fired {f['fired']}, restarts "
+                  f"{f['restarts']}, recovery {f['recovery_s']} s (the "
+                  f"rebuilt engine's warmup {f['rebuilt_warmup_s']:.3f} s), wave "
+                  f"{f['wall_s']:.3f} s, retries reported {f['retries']}, "
+                  f"/readyz 503 x{f['readyz_503']} then "
+                  f"{f['readyz_last']}; tokens identical to the no-fault "
+                  f"run {f['identical']} [{card}]")
+    phase(17, f"drill: {chaos['engines_built']} engines built (same device, "
+              f"kernel and graph modes {chaos['modes']}), "
+              f"engine_restarts_total {chaos['restarts_total']}, no "
+              f"request lost or finished twice; paged launches "
+              f"{chaos['launches']} = {BLOCKS} x {chaos['decode_steps']} "
+              f"decode steps over every engine; memory_allocated "
+              f"{chaos['memory_allocated_before']} B before the first fault,"
+              f" {chaos['memory_allocated_after']} B after the last (one "
+              f"engine's footprint {chaos['engine_footprint_bytes']} B); "
+              f"{chaos['predict_posts']} /predict forwards ran through the "
+              f"recoveries (max diff {chaos['predict_max_diff']}) [{card}]")
+    d = chaos["drain"]
+    phase(18, f"POST /admin/drain with {d['inflight_at_drain']} requests in "
+              f"flight: {d['answer']}, none dropped, tokens identical "
+              f"{d['identical']}, engine swapped {d['swapped']}, ready "
+              f"again {d['ready_after']} after {d['wall_s']:.3f} s [{card}]")
     serving_dir.cleanup()
+
+    # -- 19. /predict on AlexNet-CIFAR10 through the micro-batcher ----------
+    pred = predict_run(ck, torch)
+    phase(19, f"/predict on alexnet_cifar10 from a zip, {pred['posts']} "
+              f"concurrent single-row posts: {pred['batches']} batches "
+              f"(occupancy mean {pred['occupancy_mean']:.2f}), conv launches "
+              f"{pred['launches']['conv2d_bias_act']} = 3 x "
+              f"{pred['batches']}, max |diff| against the plain versions "
+              f"{pred['max_abs_err']:.3e} (gate 1e-4); latency p50 / p99: "
+              f"server {pred['server_latency_p50_ms']:.3f} / "
+              f"{pred['server_latency_p99_ms']:.3f} ms, client "
+              f"{pred['client_latency_p50_ms']:.3f} / "
+              f"{pred['client_latency_p99_ms']:.3f} ms; {pred['wall_s']:.3f}"
+              f" s [{card}]")
 
 
     src = "deeplearning4j_tpu_torch/ops/csrc/paged_decode_attention.cu"
@@ -2285,8 +2891,10 @@ def main():
          "splash_min_len_timings": route,
          "lm_train_32k": lc, "kv_cache_generation": gen,
          "prefix_serving": prefix, "contiguous_serving": cont,
+         "guarded_serving": guarded, "streaming": stream, "chaos": chaos,
+         "predict_alexnet": pred,
          "elapsed_s": time.monotonic() - t_start}))
-    phase(15, "kernels:")
+    phase(20, "kernels:")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,21 +1,30 @@
-"""Command line — port of the ``train`` (local runtime) and ``serve
---generate`` paths of deeplearning4j_tpu/cli/main.py.
+"""Command line — port of the ``train`` (local runtime), ``predict`` and
+``serve`` commands of deeplearning4j_tpu/cli/main.py.
 
     python -m deeplearning4j_tpu_torch.cli.main train --conf net.json \
         --input data.csv --output model.zip [--epochs N] [--batch B] \
         [--label-index I] [--num-classes C] [--regression] \
         [--skip-lines K] [--print-every P] [--device cuda|cpu]
-    python -m deeplearning4j_tpu_torch.cli.main serve --model lm.zip \
-        --generate [--kv-pool-mb M] [--prefix-cache-mb M] [--kv-block 16] \
-        [--decode-slots N] [--prefill-chunk C] [--kv-dtype int8] \
-        [--paged-kernel on|off] [--decode-graphs on|off] \
-        [--trace-buffer N] [--device cuda|cpu] [--port P]
+    python -m deeplearning4j_tpu_torch.cli.main predict --model model.zip \
+        --input data.csv [--output preds.csv] [--batch B] \
+        [--label-index I] [--skip-lines K] [--device cuda|cpu]
+    python -m deeplearning4j_tpu_torch.cli.main serve --model model.zip \
+        [--max-batch N] [--no-batching] [--batch-window-ms MS] \
+        [--queue-size N] [--timeout-ms MS] [--trace-buffer N] \
+        [--generate [--kv-pool-mb M] [--prefix-cache-mb M] [--kv-block 16] \
+         [--decode-slots N] [--prefill-chunk C] [--kv-dtype int8] \
+         [--paged-kernel on|off] [--decode-graphs on|off]] \
+        [--no-supervise] [--hang-timeout S] [--retry-budget N] \
+        [--failpoint NAME=SPEC ...] [--failpoint-endpoint] \
+        [--device cuda|cpu] [--port P]
 
 The config JSON and the model zip are the shared formats (a JAX-written
 config trains here, a zip written here restores in the JAX package, and
-back). ``--device`` defaults to cuda and fails without a CUDA device. The
-test/predict, telemetry and router commands and the data-parallel
-runtime come with later slices.
+back). ``--device`` defaults to cuda and fails without a CUDA device.
+``serve`` answers /predict for any zip and, with ``--generate``,
+/generate through the supervised decode engine. The test command (it
+needs ``evaluate``), the telemetry and router commands and the
+data-parallel runtime come with later slices.
 """
 from __future__ import annotations
 
@@ -53,37 +62,84 @@ def cmd_train(args) -> int:
     return 0
 
 
+def cmd_predict(args) -> int:
+    """Predicted classes of CSV records (JAX cli/main.py:93)."""
+    from ..util.model_serializer import restore_multi_layer_network
+    net = restore_multi_layer_network(args.model, device=args.device)
+    preds = []
+    for ds in _build_iterator(args):
+        preds.extend(net.predict(ds.features).tolist())
+    if args.output:
+        Path(args.output).write_text("\n".join(str(p) for p in preds) + "\n")
+        print(f"{len(preds)} predictions written to {args.output}")
+    else:
+        for p in preds:
+            print(p)
+    return 0
+
+
 def cmd_serve(args) -> int:
-    if not args.generate:
-        print("error: the port serves /generate only (pass --generate); "
-              "/predict comes with a later slice", file=sys.stderr)
-        return 2
+    from ..inference import failpoints
     from ..serving.server import InferenceServer
+    # chaos seams: --failpoint flags, then the environment
+    # (DL4J_FAILPOINTS="name=spec;..."), both through the same parser, so
+    # a typo'd seam or spec fails startup loudly
+    armed = []
+    for entry in args.failpoint or []:
+        name, sep, spec = entry.partition("=")
+        if not sep:
+            print(f"error: bad --failpoint {entry!r} (want name=spec)",
+                  file=sys.stderr)
+            return 2
+        failpoints.arm(name.strip(), spec.strip())
+        armed.append(name.strip())
+    armed += failpoints.arm_from_env()
     server = InferenceServer(
         model_path=args.model, port=args.port, host=args.host,
-        default_timeout_ms=args.timeout_ms, decode_vocab=args.vocab_size,
+        max_batch=args.max_batch, batching=not args.no_batching,
+        batch_window_ms=args.batch_window_ms, max_queue=args.queue_size,
+        default_timeout_ms=args.timeout_ms,
+        decode_vocab=(args.vocab_size if args.generate else 0),
         decode_slots=args.decode_slots, prefill_chunk=args.prefill_chunk,
-        decode_queue=args.queue_size, prefix_cache_mb=args.prefix_cache_mb,
+        prefix_cache_mb=args.prefix_cache_mb,
         kv_block=args.kv_block, kv_pool_mb=args.kv_pool_mb,
         kv_dtype=args.kv_dtype, paged_kernel=args.paged_kernel,
         decode_graphs=args.decode_graphs, trace_buffer=args.trace_buffer,
+        supervise=not args.no_supervise, hang_timeout_s=args.hang_timeout,
+        retry_budget=args.retry_budget,
+        failpoint_endpoint=args.failpoint_endpoint,
         device=args.device).start()
+    batch_mode = ("lock-serialized" if args.no_batching else
+                  f"micro-batched, window {args.batch_window_ms}ms, "
+                  f"queue {args.queue_size}")
     dec = server.decoder
-    if dec.paged:
-        kv = (f"paged KV pool {args.kv_pool_mb}MB ({dec.pool.capacity_blocks}"
-              f" blocks of {dec.kv_block}"
-              f"{', int8 KV' if dec.kv_dtype else ''}), decode kernel "
-              f"{dec.paged_kernel}")
-    else:
-        kv = (f"contiguous KV ({dec._cache_cap} positions a slot"
-              + (f", prefix pool {args.prefix_cache_mb}MB "
-                 f"({dec.pool.capacity_blocks} blocks of {dec.kv_block})"
-                 if dec.pool else "") + ")")
+    gen_mode = ""
+    if dec is not None:
+        if dec.paged:
+            kv = (f"paged KV pool {args.kv_pool_mb}MB ({dec.pool.capacity_blocks}"
+                  f" blocks of {dec.kv_block}"
+                  f"{', int8 KV' if dec.kv_dtype else ''}), decode kernel "
+                  f"{dec.paged_kernel}")
+        else:
+            kv = (f"contiguous KV ({dec._cache_cap} positions a slot"
+                  + (f", prefix pool {args.prefix_cache_mb}MB "
+                     f"({dec.pool.capacity_blocks} blocks of {dec.kv_block})"
+                     if dec.pool else "") + ")")
+        gen_mode = (f"; /generate: {dec.n_slots} slots, prefill chunk "
+                    f"{dec.prefill_chunk}, {kv}, decode graphs "
+                    f"{dec.decode_graphs} ({dec.decode_captures} captured),"
+                    f" prefill graphs {dec.prefill_captures}, SSE streaming"
+                    + (f", supervised (hang timeout {args.hang_timeout}s, "
+                       f"retry budget {args.retry_budget})"
+                       if not args.no_supervise else ", UNSUPERVISED"))
+    chaos = f"; failpoints ARMED: {', '.join(armed)}" if armed else ""
     print(f"Serving {args.model} on http://{args.host}:{server.port} "
-          f"(device {server.device}; /generate: {dec.n_slots} slots, "
-          f"prefill chunk {dec.prefill_chunk}, {kv}, decode graphs "
-          f"{dec.decode_graphs} ({dec.decode_captures} captured); GET "
-          f"/healthz, /info)", flush=True)
+          f"(device {server.device}; /predict {batch_mode}{gen_mode}{chaos};"
+          f" POST /predict, /predict/csv"
+          + (", /generate" if dec is not None else "")
+          + (", /admin/drain" if server.supervisor is not None else "")
+          + "; GET /health, /healthz, /readyz, /info, /metrics, /trace)",
+          flush=True)
     if args.once:  # start, report, stop
         server.stop()
         return 0
@@ -95,6 +151,18 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def _add_data_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--input", required=True, help="input CSV path")
+    p.add_argument("--batch", type=int, default=32)
+    p.add_argument("--label-index", type=int, default=-1,
+                   help="label column (-1 = last)")
+    p.add_argument("--num-classes", type=int, default=None)
+    p.add_argument("--regression", action="store_true")
+    p.add_argument("--skip-lines", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; fails without a CUDA device) or cpu")
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="dl4j-torch",
                                  description="deeplearning4j_tpu_torch CLI")
@@ -103,33 +171,44 @@ def build_parser() -> argparse.ArgumentParser:
                                      "configuration on CSV records")
     t.add_argument("--conf", required=True,
                    help="MultiLayerConfiguration JSON")
-    t.add_argument("--input", required=True, help="input CSV path")
     t.add_argument("--output", required=True, help="output model zip")
     t.add_argument("--epochs", type=int, default=1)
-    t.add_argument("--batch", type=int, default=32)
-    t.add_argument("--label-index", type=int, default=-1,
-                   help="label column (-1 = last)")
-    t.add_argument("--num-classes", type=int, default=None)
-    t.add_argument("--regression", action="store_true")
-    t.add_argument("--skip-lines", type=int, default=0)
     t.add_argument("--print-every", type=int, default=10)
-    t.add_argument("--device", default="cuda",
-                   help="cuda (default; fails without a CUDA device) or cpu")
+    _add_data_args(t)
     t.set_defaults(fn=cmd_train)
-    s = sub.add_parser("serve", help="serve a saved LM over HTTP")
+    p = sub.add_parser("predict", help="predict classes with a saved "
+                                       "MultiLayerNetwork")
+    p.add_argument("--model", required=True, help="model zip")
+    p.add_argument("--output", default=None,
+                   help="write the predictions here (default: stdout)")
+    _add_data_args(p)
+    p.set_defaults(fn=cmd_predict)
+    s = sub.add_parser("serve", help="serve a saved model over HTTP")
     s.add_argument("--model", required=True, help="model zip")
     s.add_argument("--port", type=int, default=0)
     s.add_argument("--host", default="127.0.0.1")
     s.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a CUDA device) or cpu")
+    s.add_argument("--max-batch", type=int, default=1024,
+                   help="rows per /predict batch")
+    s.add_argument("--no-batching", action="store_true",
+                   help="disable /predict micro-batching (the "
+                        "lock-serialized direct path)")
+    s.add_argument("--batch-window-ms", type=float, default=2.0,
+                   help="how long the collator waits for more requests "
+                        "after the first arrival (latency/occupancy knob)")
+    s.add_argument("--queue-size", type=int, default=256,
+                   help="bounded /predict request queue; beyond it "
+                        "requests get HTTP 503 (backpressure)")
+    s.add_argument("--timeout-ms", type=float, default=None,
+                   help="default per-request deadline (504 past it; "
+                        "?timeout_ms= overrides per request)")
     s.add_argument("--generate", action="store_true",
                    help="serve POST /generate through the decode engine")
     s.add_argument("--vocab-size", type=int, default=None,
                    help="token space (default: the output layer's width)")
     s.add_argument("--decode-slots", type=int, default=4)
     s.add_argument("--prefill-chunk", type=int, default=64)
-    s.add_argument("--queue-size", type=int, default=64)
-    s.add_argument("--timeout-ms", type=float, default=None)
     s.add_argument("--kv-pool-mb", type=float, default=0.0,
                    help="byte budget (MiB) of the paged KV pool (0 = "
                         "contiguous per-slot caches)")
@@ -144,11 +223,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="on: decode attention through the CUDA kernel; "
                         "off: the layer's gather body")
     s.add_argument("--decode-graphs", choices=["on", "off"], default="on",
-                   help="on: the decode step captured into CUDA graphs (one "
-                        "per table bucket), replayed; off: the eager step")
+                   help="on: the decode step and the prefill chunks "
+                        "captured into CUDA graphs (one per bucket), "
+                        "replayed; off: eager")
     s.add_argument("--trace-buffer", type=int, default=8192,
                    help="span flight-recorder ring capacity (events) behind "
-                        "the per-request timings; 0 disables tracing")
+                        "the per-request timings and GET /trace; 0 "
+                        "disables tracing")
+    s.add_argument("--no-supervise", action="store_true",
+                   help="run the decode engine without the crash-recovery "
+                        "supervisor (no watchdog, no engine restarts, no "
+                        "/readyz gating, no /admin/drain)")
+    s.add_argument("--hang-timeout", type=float, default=5.0,
+                   help="watchdog heartbeat staleness (seconds) that "
+                        "declares the scheduler loop hung and restarts the "
+                        "engine")
+    s.add_argument("--retry-budget", type=int, default=3,
+                   help="submissions allowed per request across engine "
+                        "crashes before it fails with a structured 503")
+    s.add_argument("--failpoint", action="append", metavar="NAME=SPEC",
+                   help="arm a chaos seam, e.g. dispatch.decode=crash@n:3 "
+                        "(repeatable; see inference/failpoints.py)")
+    s.add_argument("--failpoint-endpoint", action="store_true",
+                   help="TEST ONLY: expose POST /admin/failpoints so "
+                        "clients can arm and disarm chaos seams over HTTP")
     s.add_argument("--once", action="store_true",
                    help="start, print the banner, stop")
     s.set_defaults(fn=cmd_serve)

@@ -40,18 +40,36 @@ Every request samples on the host from its own
 ``np.random.default_rng(seed)``, so its tokens do not depend on the
 schedule.
 
-The decode step (``decode_graphs``): "on" (the default) runs it on static
-buffers (`_DecodeRunner`), one per table bucket (paged) or one
-(contiguous) — the counterpart of the JAX package's one jitted program
-per bucket. On CUDA tensors each runner's step is captured once into a
-CUDA graph and replayed: the host fills a pinned staging buffer, ships
-it with one copy, replays the graph and copies ``probs`` back for
-sampling. On CPU tensors the same static-buffer step runs eagerly. "off"
-is the caller's explicit choice of the eager step. A capture that fails
-raises; there is no quiet fallback. ``decode_captures`` counts runners
-built: at most one per table bucket over the engine's life, none once
-`warmup()` has run. Prefill chunks, restores, publishes and COW copies
-run eagerly.
+The decode step and the prefill chunks (``decode_graphs``): "on" (the
+default) runs each on static buffers — the counterpart of the JAX
+package's one jitted program per bucket: one decode runner
+(`_DecodeRunner`) per table bucket (paged) or one (contiguous), and one
+chunk runner (`_ChunkRunner`) per (chunk bucket, table bucket) pair
+(paged) or per chunk bucket (contiguous; the slot is a device index, so
+one graph serves every slot). On CUDA tensors each runner is captured
+once into a CUDA graph and replayed: the host stages the inputs in one
+pinned vector, ships it with one copy, and replays. A decode replay's
+``probs`` come back for sampling; a chunk's one output row [vocab] (the
+row of its last real token, picked on the device) is copied to the host
+only when the chunk ends the prompt (JAX `host_read` under ``if
+seq.sampling``, :2768): a non-final chunk makes no device->host copy and
+no sync. On CPU tensors the same static-buffer steps run eagerly. "off"
+is the caller's explicit choice of the eager step and chunk. A capture
+that fails raises; there is no quiet fallback. ``decode_captures`` and
+``prefill_captures`` count runners built: at most one per bucket (pair)
+over the engine's life, none once `warmup()` has run. Restores,
+publishes and COW copies run eagerly.
+
+``transfer_guard``: the counterpart of the JAX engine's device-residency
+audit (JAX :479-502). "disallow" runs every scheduler iteration under
+``torch.cuda.set_sync_debug_mode("error")``: any synchronizing copy or
+read in the loop raises, except the declared ones
+— a decode step's probs and a final chunk's row. torch's mode is
+process-wide, not per thread: while a guarded engine runs, a sync by any
+other thread of the process (a ``/predict`` forward, another engine)
+raises too, so a guarded server takes ``/generate`` traffic only. The
+guard needs ``decode_graphs="on"`` (the eager step reads positions on
+the host); it does nothing on CPU tensors.
 
 ``paged_kernel``: "on" (default) reads paged decode attention through the
 hand-written CUDA kernel (the plain version on CPU tensors); "off" is the
@@ -63,16 +81,28 @@ prefill (per-chunk spans on the slot track), decode, finish or cancel,
 preempted; admit/free, block_alloc, block_cow, preempt/resume and capture
 instants.
 
+The supervisor's surface (`inference/supervisor.py`, JAX :559-582,
+:3350-3441): the loop stamps ``heartbeat`` once per pass, idle passes
+included, and counts ``iterations``; a crash is recorded in ``crashed``
+and, supervised (``_on_crash`` set), leaves the handles open for the
+supervisor to requeue (unsupervised, it fails them fast); ``fence()``
+disowns the engine, so a thread that wakes from a hang exits without
+touching a handle; ``shed_queued`` and ``chunk_cap`` are the degradation
+ladder's hooks; ``submit(_handle=, _front=)`` is the requeue path. The
+failpoint seams ``scheduler.iteration``, ``dispatch.prefill`` and
+``dispatch.decode`` fire on the host before the work they guard, and the
+fence is checked after each.
+
 Still to come (listed in ROADMAP.md): recurrent nets, speculation, logit
-processors and masks, tiering, supervisor, mesh, profiler and
-failpoints.
+processors and masks, tiering, mesh and profiler.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 import warnings
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -82,7 +112,8 @@ from ..models.sampling import sample_logits
 from ..nn.layers.attention import SelfAttentionLayerImpl
 from ..ops import cuda_kernels as ck
 from ..util.device import DeviceLike, resolve_device
-from .batcher import bucket_for, pow2_buckets
+from . import failpoints
+from .batcher import QueueFullError, bucket_for, pow2_buckets
 from .kvpool import (SCRATCH_BLOCK, KVPool, blocks_for, gather_blocks,
                      scatter_blocks)
 from .metrics import MetricsRegistry, default_registry
@@ -90,6 +121,26 @@ from .trace import FlightRecorder, default_recorder, new_request_id
 
 # smallest prefill chunk bucket (JAX engine.py:122)
 _MIN_CHUNK_BUCKET = 16
+
+# transfer_guard level -> torch.cuda.set_sync_debug_mode level
+_GUARD_MODES = {None: None, "disallow": "error"}
+
+# one side stream per device for every engine's captures: cuBLAS keeps a
+# workspace for each stream it has run on for the life of the process, so
+# a stream per engine would keep one more workspace per engine restart
+_CAPTURE_STREAMS: Dict[torch.device, "torch.cuda.Stream"] = {}
+_CAPTURE_STREAMS_LOCK = threading.Lock()
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    with _CAPTURE_STREAMS_LOCK:
+        s = _CAPTURE_STREAMS.get(device)
+        if s is None:
+            s = _CAPTURE_STREAMS[device] = torch.cuda.Stream(device)
+        return s
+
+__all__ = ["DecodeScheduler", "DecodeHandle", "PromptTooLongError",
+           "QueueFullError", "LoadSheddedError", "EngineCrashedError"]
 
 
 class PromptTooLongError(ValueError):
@@ -101,24 +152,37 @@ class PromptTooLongError(ValueError):
     blocks_available: Optional[int] = None
 
 
-class QueueFullError(RuntimeError):
-    """The decode queue is full."""
+class LoadSheddedError(QueueFullError):
+    """The request was dropped from the queue by the degradation ladder
+    (`inference/supervisor.py` level >= 1). A QueueFullError, so the
+    server's retryable 503 applies unchanged."""
 
 
 class EngineCrashedError(RuntimeError):
-    """The scheduler loop died with this request in flight."""
+    """The scheduler loop died with this request in flight and no
+    supervisor attached to recover it."""
+
+
+class _EngineFenced(Exception):
+    """Raised inside a fenced engine's thread: a supervisor disowned it,
+    so it must exit without touching a handle."""
 
 
 class DecodeHandle:
     """Completion handle for one submitted generation request."""
 
     def __init__(self, prompt_len: int, max_new_tokens: int,
-                 request_id: Optional[str] = None):
+                 request_id: Optional[str] = None, priority: int = 0):
         self.prompt_len = prompt_len
         self.max_new_tokens = max_new_tokens
         self.request_id = request_id or new_request_id()
+        self.priority = int(priority)  # shedding order (higher lasts)
+        self.retries = 0  # crash-recovery resubmissions (supervisor)
         self.tokens: List[int] = []
         self.finish_reason: Optional[str] = None  # "length" | "eos" | "cancelled"
+        # the SSE backing (logitproc.TokenStream): the scheduler pushes
+        # each token as it decodes, _finish() closes it
+        self.stream = None
         self._done = threading.Event()
         self._cancel = threading.Event()
         self._error: Optional[BaseException] = None
@@ -151,10 +215,30 @@ class DecodeHandle:
 
     def _finish(self, err: Optional[BaseException] = None) -> None:
         if self._done.is_set():
-            return
+            return  # first finisher wins (a supervisor's shutdown can
+            # race the engine's own teardown over the same handle)
         self._error = err
         self.t_done = time.monotonic()
         self._done.set()
+        if self.stream is not None:
+            self.stream.close(self, err)
+
+    def _reset_for_retry(self) -> None:
+        """Crash recovery (JAX :238): wipe the partial progress so the
+        resubmission re-runs the request from scratch on the rebuilt
+        engine. The resubmitted sequence reseeds its RNG, so the re-run
+        gives the same tokens; ``t_submit`` survives (latency counts from
+        the original submit). The stream is kept: its pushes dedupe by
+        index, so a streaming client sees no restart."""
+        if self._done.is_set():
+            raise RuntimeError("cannot retry a handle that already finished")
+        self.retries += 1
+        self.tokens = []
+        self._error = None
+        self.t_admitted = self.t_restored = None
+        self.t_first_token = self.t_done = None
+        self.steps_to_first_token = None
+        self.finish_reason = None
 
     def done(self) -> bool:
         return self._done.is_set()
@@ -225,16 +309,20 @@ class _DecodeRunner:
 
     The inputs live in one int32 vector ``packed`` = [ids | live | pos |
     table rows], filled from the host buffer ``stage`` (pinned on the
-    card) by one copy per step; ``probs`` [n_slots, vocab] is the one
-    output. ``graph`` is the captured step on the card (None on the CPU,
-    where the step runs eagerly on the same buffers), and ``launches``
-    the kernel launches one replay makes, counted at capture."""
+    card) by one copy per step; ``out`` [n_slots, vocab] (the probs) is
+    the one output. Every step ends with the probs copy to the host,
+    which waits for the staging copy too, so the next fill never
+    overwrites a stage still being read. ``graph`` is the captured step
+    on the card (None on the CPU, where the step runs eagerly on the
+    same buffers), and ``launches`` the kernel launches one replay
+    makes, counted at capture."""
 
     def __init__(self, n_slots: int, nb: Optional[int],
                  device: torch.device):
         s = n_slots
         n = s * (3 + (nb or 0))
         self.nb = nb
+        self.key = nb
         self.stage = torch.zeros(n, dtype=torch.int32,
                                  pin_memory=device.type == "cuda")
         self.host = self.stage.numpy()
@@ -243,7 +331,7 @@ class _DecodeRunner:
         self.live = self.packed[s:2 * s]
         self.pos = self.packed[2 * s:3 * s]
         self.table = self.packed[3 * s:].view(s, nb) if nb else None
-        self.probs: Optional[torch.Tensor] = None
+        self.out: Optional[torch.Tensor] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Dict[str, int] = {}
 
@@ -259,6 +347,53 @@ class _DecodeRunner:
         self.packed.copy_(self.stage, non_blocking=True)
 
 
+class _ChunkRunner:
+    """One prefill chunk of ``bucket`` positions at table bucket ``nb``
+    (None in contiguous mode) on static buffers: the counterpart of one
+    jitted prefill program of the JAX engine (`_prefill_paged_fn` :1420,
+    `_prefill_fn` :1352).
+
+    The inputs live in one int32 vector ``packed`` = [ids (bucket) |
+    n_real | pos | slot | table row (nb)]: the write mask, the one-hot
+    and the pick of the last real row are built from them on the device,
+    and the contiguous slot is a device index (an indexed read and write
+    of its stripe rows), so one graph serves every slot. ``out`` [vocab]
+    is the one output. A non-final chunk is not followed by any host
+    read, so each fill stages into a fresh pinned block of the caching
+    host allocator, which keeps the block until its copy has run (a
+    static stage could be overwritten under a copy still queued)."""
+
+    def __init__(self, bucket: int, nb: Optional[int], device: torch.device):
+        self.bucket = bucket
+        self.nb = nb
+        self.key = (bucket, nb)
+        self.device = device
+        b = bucket
+        self.packed = torch.zeros(b + 3 + (nb or 0), dtype=torch.int32,
+                                  device=device)
+        self.ids = self.packed[:b]
+        self.n_real = self.packed[b:b + 1]
+        self.pos = self.packed[b + 1:b + 2]
+        self.slot = self.packed[b + 2:b + 3]
+        self.table = self.packed[b + 3:].view(1, nb) if nb else None
+        self.out: Optional[torch.Tensor] = None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.launches: Dict[str, int] = {}
+
+    def fill(self, ids: np.ndarray, n_real: int, pos: int, slot: int,
+             table_row: Optional[np.ndarray]) -> None:
+        b = self.bucket
+        h = np.empty(self.packed.shape[0], np.int32)
+        h[:b] = ids
+        h[b:b + 3] = (n_real, pos, slot)
+        if self.nb:
+            h[b + 3:] = table_row
+        src = torch.from_numpy(h)
+        if self.device.type == "cuda":
+            src = src.pin_memory()
+        self.packed.copy_(src, non_blocking=True)
+
+
 class DecodeScheduler:
     """Continuous-batching decode over a transformer ComputationGraph.
 
@@ -271,8 +406,9 @@ class DecodeScheduler:
     pages with f32 per-(position, head) scales (paged only).
     ``prefill_chunk``: max prompt tokens per prefill dispatch (<= 1 feeds
     prompts token by token through the decode step). ``decode_graphs``:
-    "on" or "off" (see the module docstring). ``device`` defaults to
-    "cuda" and raises without one.
+    "on" or "off", for the decode step and the prefill chunks alike;
+    ``transfer_guard``: None or "disallow" (see the module docstring). ``device`` defaults to "cuda" and raises without
+    one.
     """
 
     def __init__(self, net, vocab_size: int, *, n_slots: int = 4,
@@ -282,6 +418,7 @@ class DecodeScheduler:
                  paged_kernel: str = "on", decode_graphs: str = "on",
                  metrics: Optional[MetricsRegistry] = None,
                  tracer: Optional[FlightRecorder] = None,
+                 transfer_guard: Optional[str] = None,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         if net.device != self.device:
@@ -297,6 +434,12 @@ class DecodeScheduler:
         if decode_graphs not in ("on", "off"):
             raise ValueError(f"decode_graphs must be 'on' or 'off', got "
                              f"{decode_graphs!r}")
+        if transfer_guard not in _GUARD_MODES:
+            raise ValueError(f"transfer_guard must be None or 'disallow', "
+                             f"got {transfer_guard!r}")
+        if _GUARD_MODES[transfer_guard] and decode_graphs != "on":
+            raise ValueError("transfer_guard needs decode_graphs='on': the "
+                             "eager step reads positions on the host")
         if self.device.type == "cuda":
             # f32 matmuls at full f32 precision: TF32 keeps ~10 mantissa
             # bits, enough to flip near-tied tokens against the reference
@@ -313,6 +456,10 @@ class DecodeScheduler:
         self.kv_block = int(kv_block)
         self.paged_kernel = paged_kernel
         self.decode_graphs = decode_graphs
+        self.transfer_guard = transfer_guard
+        # torch's sync debug level while the loop runs (CUDA only)
+        self._guard_mode = (_GUARD_MODES[transfer_guard]
+                            if self.device.type == "cuda" else None)
         self.metrics = metrics if metrics is not None else default_registry()
         self.tracer = tracer if tracer is not None else default_recorder()
         sfx = self.tracer.track_scope("engine")
@@ -420,19 +567,39 @@ class DecodeScheduler:
         self._prefill_next = 0
         self._published_seen = 0  # pool.published_blocks at the last upgrade
         self._emitted_this_iter = 0
+        # -- the supervisor's surface (inference/supervisor.py) --
+        # stamped once per loop pass, idle passes included (the idle wait
+        # wakes every 0.1 s), so staleness means stuck, not quiet
+        self.heartbeat = time.monotonic()
+        self.iterations = 0  # loop passes completed
         self.crashed: Optional[BaseException] = None
-        # the captured decode steps: one runner per table bucket (paged)
-        # or one (contiguous, key None), sharing one graph memory pool
+        # set by fence(): a disowned engine's thread exits at its next
+        # check without touching a handle its replacement now owns
+        self._fenced = False
+        # the supervisor's crash hook; None: a crash fails handles fast
+        self._on_crash: Optional[Callable[[BaseException], None]] = None
+        # degradation level >= 2 caps prefill chunks (the smaller
+        # buckets' runners exist already: nothing new is captured)
+        self.chunk_cap: Optional[int] = None
+        # the captured steps: one decode runner per table bucket (paged)
+        # or one (contiguous, key None), one chunk runner per (chunk
+        # bucket, table bucket) (contiguous: (chunk bucket, None)), all
+        # sharing one graph memory pool
         self._runners: Dict[Optional[int], _DecodeRunner] = {}
+        self._chunk_runners: Dict[Tuple[int, Optional[int]],
+                                  _ChunkRunner] = {}
         self._graph_pool = None
-        self._capture_stream: Optional[torch.cuda.Stream] = None
         self.decode_captures = 0
+        self.prefill_captures = 0
         self._warmed = False
+        self.warmup_seconds: Optional[float] = None
         # scheduler-thread counters, read by callers between runs
         self.decode_steps = 0
         self.decode_seconds = 0.0
         self.prefill_chunks = 0
         self.prefill_seconds = 0.0
+        self.final_chunks = 0  # chunks that ended a prompt
+        self.chunk_row_reads = 0  # chunk output rows copied to the host
         self.preemptions = 0
         self.cow_copies = 0
         self.restored_tokens = 0  # prompt positions skipped by prefix hits
@@ -483,8 +650,18 @@ class DecodeScheduler:
                temperature: float = 0.0, top_k: Optional[int] = None,
                top_p: Optional[float] = None, seed: int = 0,
                eos_id: Optional[int] = None,
-               request_id: Optional[str] = None) -> DecodeHandle:
-        rid = request_id or new_request_id()
+               request_id: Optional[str] = None, priority: int = 0,
+               stream=None, _handle: Optional[DecodeHandle] = None,
+               _front: bool = False) -> DecodeHandle:
+        """Queue one request. ``priority``: the degradation ladder's
+        shedding order (higher survives longer). ``stream``: a
+        `logitproc.TokenStream` the scheduler pushes each token into (the
+        SSE backing). ``_handle``/``_front``: the supervisor's requeue
+        path (JAX :2094): reuse the original (reset) handle, so the
+        caller blocked in ``result()`` never sees the restart, and queue
+        it at the front."""
+        rid = _handle.request_id if _handle is not None \
+            else (request_id or new_request_id())
         if not len(prompt_ids):
             raise ValueError("prompt_ids must be non-empty")
         if max_new_tokens < 1:
@@ -516,7 +693,11 @@ class DecodeScheduler:
                 f"({max_new_tokens}) needs a KV cache of {needed} but "
                 f"max_cache_len={self._cache_cap}",
                 needed=needed, cache=self._cache_cap)
-        handle = DecodeHandle(len(prompt_ids), max_new_tokens, request_id=rid)
+        handle = _handle if _handle is not None else DecodeHandle(
+            len(prompt_ids), max_new_tokens, request_id=rid,
+            priority=priority)
+        if stream is not None:
+            handle.stream = stream
         seq = _ActiveSeq(handle, prompt_ids, float(temperature), top_k, top_p,
                          int(seed), eos_id)
         with self._cond:
@@ -529,7 +710,10 @@ class DecodeScheduler:
                     "waiting": len(self._queue)})
                 raise QueueFullError(f"decode queue full ({self.max_queue} "
                                      "waiting)")
-            self._queue.append(seq)
+            if _front:
+                self._queue.insert(0, seq)
+            else:
+                self._queue.append(seq)
             self._m_queue_depth.set(len(self._queue))
             # opened under the queue lock, so the scheduler's end("queued")
             # can never come first
@@ -568,6 +752,20 @@ class DecodeScheduler:
         return self
 
     def stop(self) -> None:
+        if self._fenced:
+            # a fenced engine's handles are disowned (the supervisor
+            # requeued them onto a replacement): finishing them here would
+            # fail requests another engine is serving. Drop the
+            # references; a stuck thread exits at its next fence check
+            with self._cond:
+                self._running = False
+                self._queue.clear()
+                self._cond.notify_all()
+            if self._thread is not None:
+                self._thread.join(timeout=1)
+                self._thread = None
+            self._slots = [None] * self.n_slots
+            return
         with self._cond:
             self._running = False
             pending = self._queue[:]
@@ -604,21 +802,65 @@ class DecodeScheduler:
         self.decode_seconds = 0.0
         self.prefill_chunks = 0
         self.prefill_seconds = 0.0
+        self.final_chunks = 0
+        self.chunk_row_reads = 0
         self.preemptions = 0
         self.cow_copies = 0
         self.restored_tokens = 0
 
+    @contextlib.contextmanager
+    def _sync_guard(self):
+        """The transfer guard around one iteration (a no-op when off)."""
+        if self._guard_mode is None:
+            yield
+            return
+        torch.cuda.set_sync_debug_mode(self._guard_mode)
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    @contextlib.contextmanager
+    def _allow_sync(self):
+        """A declared sync inside a guarded iteration."""
+        if self._guard_mode is None:
+            yield
+            return
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            yield
+        finally:
+            torch.cuda.set_sync_debug_mode(self._guard_mode)
+
+    def _host_read(self, t: torch.Tensor) -> np.ndarray:
+        """A declared device->host read: allowed under the guard."""
+        with self._allow_sync():
+            return t.cpu().numpy()
+
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the engine's device: on the card through a
+        pinned block, without a sync (the caching host allocator keeps the
+        block until the copy has run)."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _loop(self) -> None:
         while True:
+            self.heartbeat = time.monotonic()
             with self._cond:
                 if not self._running:
                     return
             try:
-                with torch.no_grad():
+                with torch.no_grad(), self._sync_guard():
                     stepped = self._step_once()
-            except Exception as e:  # the loop's boundary: fail in-flight
+            except _EngineFenced:
+                return  # a supervisor already disowned this engine
+            except Exception as e:  # the loop's boundary: report the crash
                 self._crash(e)
                 return
+            self.iterations += 1
             if not stepped:
                 with self._cond:
                     if not self._running:
@@ -627,17 +869,100 @@ class DecodeScheduler:
                         self._cond.wait(timeout=0.1)
 
     def _crash(self, exc: BaseException) -> None:
+        """Terminal bookkeeping on the dying loop thread (JAX :3386).
+        Supervised (``_on_crash`` set): the handles stay open, the
+        supervisor requeues each onto a rebuilt engine. Unsupervised:
+        every in-flight and queued handle fails fast with
+        EngineCrashedError."""
+        if self._fenced:
+            return  # declared dead and disowned already
         self.crashed = exc
+        with self._cond:
+            self._running = False
+            self._cond.notify_all()
+        self.tracer.instant("engine_crash", track=self._sched_track,
+                            args={"error": type(exc).__name__,
+                                  "detail": str(exc)[:200],
+                                  "iterations": self.iterations})
+        if self._on_crash is not None:
+            self._close_request_spans()
+            self._on_crash(exc)
+            return
         err = EngineCrashedError(f"decode scheduler crashed: {exc!r}")
         err.__cause__ = exc
         with self._cond:
-            self._running = False
             pending = self._queue[:]
             self._queue.clear()
-        self.tracer.instant("engine_crash", track=self._sched_track,
-                            args={"error": type(exc).__name__,
-                                  "detail": str(exc)[:200]})
         self._fail_all(pending, err)
+
+    def _close_request_spans(self) -> None:
+        """Close every in-flight request's open phase span without
+        finishing its handle (a supervised crash: the supervisor bridges
+        the gap with a ``recovered`` span)."""
+        if not self.tracer.enabled:
+            return
+        with self._cond:
+            seqs = self._queue[:]
+        for seq in seqs + [s for s in self._slots if s is not None]:
+            self._close_phase_span(seq)
+
+    def fence(self) -> None:
+        """Disown this engine (JAX :3425): a supervisor that declared it
+        dead fences it before requeueing its work elsewhere. A stuck loop
+        thread that wakes sees the fence at its next iteration, seam or
+        emission and exits without touching a handle. A lock-free bool:
+        the thread it must reach may be stuck in a device call."""
+        self._fenced = True
+        with self._cond:
+            self._running = False
+            self._cond.notify_all()
+
+    def _release_device(self) -> None:
+        """Drop a fenced engine's device state — the KV pages or stripes,
+        the side pool's storage, every runner and its CUDA graph, the
+        graph pool — so that a restart does not keep one engine's memory
+        per fault. A thread still running (a real hang) keeps what its
+        frames hold until it exits; once it wakes it fails at the fence."""
+        self._states = {}
+        self._runners = {}
+        self._chunk_runners = {}
+        self._graph_pool = None
+        self.pool = None
+
+    def inflight(self) -> int:
+        """Queued + slot-resident requests (the drain condition)."""
+        with self._cond:
+            n = len(self._queue)
+        return n + sum(s is not None for s in self._slots)
+
+    def queue_depth(self) -> int:
+        """Waiting (not yet admitted) requests: the ladder's pressure."""
+        with self._cond:
+            return len(self._queue)
+
+    def shed_queued(self, target_depth: int) -> int:
+        """Degradation level >= 1 (JAX :3839): drop queued requests until
+        at most ``target_depth`` wait, lowest priority first, newest first
+        within a priority, each failed with LoadSheddedError (a retryable
+        503). Returns how many were shed."""
+        shed: List[_ActiveSeq] = []
+        with self._cond:
+            excess = len(self._queue) - max(0, int(target_depth))
+            if excess > 0:
+                shed = sorted(self._queue,
+                              key=lambda s: (s.handle.priority,
+                                             -s.handle.t_submit))[:excess]
+                doomed = set(map(id, shed))
+                self._queue[:] = [s for s in self._queue
+                                  if id(s) not in doomed]
+                self._m_queue_depth.set(len(self._queue))
+        for seq in shed:
+            self._m_rejected.inc()
+            seq.handle._finish(LoadSheddedError(
+                "request shed by the degradation ladder (queue under "
+                "sustained pressure); retry with backoff"))
+            self._trace_done("cancel", seq)
+        return len(shed)
 
     # -- trace ---------------------------------------------------------------
     def _trace_done(self, outcome: str, seq: _ActiveSeq,
@@ -650,6 +975,22 @@ class DecodeScheduler:
             return
         h = seq.handle
         rid = h.request_id
+        self._close_phase_span(seq)
+        tr.instant(outcome, req=rid, args={"request_id": rid,
+                                           **({"retries": h.retries}
+                                              if h.retries else {}),
+                                           "tokens": len(h.tokens),
+                                           **h.timings()})
+        if slot is not None:
+            tr.instant("free", track=self._slot_tracks[slot],
+                       args={"request": rid})
+
+    def _close_phase_span(self, seq: _ActiveSeq) -> None:
+        """End the request-track span open now (queued, prefill,
+        preempted or decode)."""
+        tr = self.tracer
+        h = seq.handle
+        rid = h.request_id
         if seq.phase == "queued":
             tr.end("queued", req=rid)
         elif seq.phase == "prefill":
@@ -659,12 +1000,6 @@ class DecodeScheduler:
         else:
             tr.end("decode", req=rid,
                    args={"tokens": len(h.tokens), "iterations": seq.steps})
-        tr.instant(outcome, req=rid, args={"request_id": rid,
-                                           "tokens": len(h.tokens),
-                                           **h.timings()})
-        if slot is not None:
-            tr.instant("free", track=self._slot_tracks[slot],
-                       args={"request": rid})
 
     # -- pool bookkeeping: lazy growth, COW, preemption (paged) ------------
     def _alloc_or_preempt(self, slot: int, seq: _ActiveSeq) -> Optional[int]:
@@ -840,8 +1175,7 @@ class DecodeScheduler:
         bucket = bucket_for(n_blk, self.restore_buckets)
         idx = np.full((bucket,), SCRATCH_BLOCK, np.int64)
         idx[:n_blk] = ids
-        gather_blocks(self._states, slot,
-                      torch.from_numpy(idx).to(self.device),
+        gather_blocks(self._states, slot, self._to_device(idx),
                       self.pool.storage, block=B)
         seq.fed = seq.written = n_blk * B
         self.restored_tokens += seq.fed
@@ -940,9 +1274,9 @@ class DecodeScheduler:
         while off < len(new_ids):
             b = max(k for k in self.restore_buckets
                     if k <= len(new_ids) - off)
-            idx = torch.tensor(new_ids[off:off + b], dtype=torch.int64)
+            idx = np.asarray(new_ids[off:off + b], np.int64)
             scatter_blocks(self._states, slot, start + off,
-                           idx.to(self.device), self.pool.storage, block=B)
+                           self._to_device(idx), self.pool.storage, block=B)
             off += b
 
     def _retire(self, slot: int, seq: _ActiveSeq) -> None:
@@ -1048,7 +1382,12 @@ class DecodeScheduler:
     def _pick_chunk(self, seq: _ActiveSeq) -> Tuple[int, int]:
         """(bucket, n_real) of this sequence's next prefill chunk, or
         (0, 0) when no bucket fits under the cache's depth."""
-        n_real = min(len(seq.prompt) - seq.fed, self.prefill_chunk)
+        cap = self.prefill_chunk
+        if self.chunk_cap:
+            # degradation level >= 2: smaller chunks shorten each
+            # iteration's device hold; their runners exist already
+            cap = max(1, min(cap, int(self.chunk_cap)))
+        n_real = min(len(seq.prompt) - seq.fed, cap)
         bucket = bucket_for(n_real, self.prefill_buckets)
         if seq.fed + bucket > self._cache_cap:
             # padded writes past the cap would trip the layer's overflow
@@ -1092,12 +1431,13 @@ class DecodeScheduler:
 
     def _prefill_forward(self, slot: int, ids: np.ndarray, written: int,
                          n_real: int, nb: Optional[int] = None) -> torch.Tensor:
-        """One padded prefill chunk of ``slot`` at depth ``written``; its
-        output distributions [bucket, vocab]. Paged: the table bucket
-        covers the padded chunk end (``nb`` forces one), so the layer's
-        overflow guard never fires on padding lanes, which write to the
-        scratch page; contiguous: padding rows land past the position,
-        causally invisible until the next real write overwrites them."""
+        """The eager prefill chunk (``decode_graphs="off"``): one padded
+        chunk of ``slot`` at depth ``written``; its output distributions
+        [bucket, vocab]. Paged: the table bucket covers the padded chunk
+        end (``nb`` forces one), so the layer's overflow guard never fires
+        on padding lanes, which write to the scratch page; contiguous:
+        padding rows land past the position, causally invisible until the
+        next real write overwrites them."""
         dev = self.device
         bucket = ids.shape[0]
         pos = torch.tensor([written], dtype=torch.int32, device=dev)
@@ -1111,6 +1451,75 @@ class DecodeScheduler:
         else:
             sts = self._dispatch_states(pos, slot=slot)
         return self._forward(self._onehot(ids)[None], sts)[0]
+
+    def _chunk_body(self, r: _ChunkRunner) -> torch.Tensor:
+        """One prefill chunk on ``r``'s static buffers — what a capture
+        records (JAX `_prefill_paged_fn` :1420, `_prefill_fn` :1352): the
+        one-hot from the ids, the write mask from ``n_real`` (paged), the
+        slot's stripe by a device index (contiguous), and the output row
+        of the last real token, all on the device. Returns [vocab]."""
+        dev = r.packed.device
+        ids = r.ids.long()
+        x = (ids[:, None] == torch.arange(self.vocab_size,
+                                          device=dev)[None, :])
+        x = x.to(self.net.dtype)[None]
+        if self.paged:
+            wmask = (torch.arange(r.bucket, device=dev) < r.n_real)[None, :]
+            sts = self._dispatch_states(r.pos, r.table, wmask)
+        else:
+            sts = {name: {"k": st["k"], "v": st["v"], "pos": r.pos,
+                          "slot": r.slot}
+                   for name, st in self._states.items()}
+        out = self._forward(x, sts)[0]
+        last = torch.clamp(r.n_real.long() - 1, min=0)
+        return out.index_select(0, last)[0]
+
+    def _new_chunk_runner(self, bucket: int, nb: Optional[int]
+                          ) -> _ChunkRunner:
+        """Static buffers for chunk bucket ``bucket`` at table bucket
+        ``nb`` (None: contiguous), under the capture budget: one runner
+        per pair over the engine's life, none once warmup() has run."""
+        if (bucket, nb) in self._chunk_runners or self._warmed:
+            raise RuntimeError(f"capture budget spent: the prefill chunk of "
+                               f"bucket {(bucket, nb)} was built already or "
+                               "warmup() has run")
+        return _ChunkRunner(bucket, nb, self.device)
+
+    def _chunk_row(self, slot: int, seq: _ActiveSeq, ids: np.ndarray,
+                   n_real: int) -> Optional[np.ndarray]:
+        """Run one chunk; its last real row on the host when the chunk
+        ends the prompt (the only read), else None (no copy, no sync)."""
+        bucket = ids.shape[0]
+        written = seq.written
+        final = seq.fed + n_real >= len(seq.prompt)
+        if written + bucket > self._cache_cap:
+            # the replay cannot check the position: the host does, first
+            raise ValueError(f"KV cache overflow: chunk at {written}+"
+                             f"{bucket} exceeds {self._cache_cap} positions")
+        if self.decode_graphs != "on":
+            out = self._prefill_forward(slot, ids, written, n_real)
+            return self._read_row(out[n_real - 1]) if final else None
+        table_row = None
+        nb = None
+        if self.paged:
+            rows = self._table_for(written + bucket)
+            nb = rows.shape[1]
+            table_row = rows[slot]
+        r = self._chunk_runners.get((bucket, nb))
+        new = r is None
+        if new:
+            r = self._new_chunk_runner(bucket, nb)
+        r.fill(ids, n_real, written, slot, table_row)
+        if new:
+            # captured on this chunk's inputs: the capture's eager run
+            # writes just what the replay writes
+            self._build(r)
+        self._replay(r)
+        return self._read_row(r.out) if final else None
+
+    def _read_row(self, row: torch.Tensor) -> np.ndarray:
+        self.chunk_row_reads += 1
+        return self._host_read(row)
 
     def _run_prefill_chunk(self) -> Optional[int]:
         """At most one prefill chunk per iteration, round-robin over
@@ -1134,12 +1543,14 @@ class DecodeScheduler:
                 continue  # seq itself was preempted for blocks
             ids = np.zeros((bucket,), np.int32)
             ids[:n_real] = seq.prompt[seq.fed:seq.fed + n_real]
+            failpoints.fire("dispatch.prefill")  # chaos seam
+            if self._fenced:
+                raise _EngineFenced
             if self.tracer.enabled:
                 self.tracer.begin("prefill_chunk", track=self._slot_tracks[i],
                                   args={"request": seq.handle.request_id,
                                         "bucket": bucket, "tokens": n_real})
-            out = self._prefill_forward(i, ids, seq.written, n_real)
-            last = out[n_real - 1].cpu().numpy()
+            last = self._chunk_row(i, seq, ids, n_real)
             self.prefill_chunks += 1
             self.prefill_seconds += time.monotonic() - t0
             seq.written += n_real
@@ -1148,6 +1559,7 @@ class DecodeScheduler:
             self._m_prefill_tokens.inc(n_real)
             self._m_prefill_chunk.record(n_real)
             if seq.sampling:  # final chunk: its output is the first token
+                self.final_chunks += 1
                 self._consume(i, seq, last)
             self.tracer.end("prefill_chunk", track=self._slot_tracks[i])
             self._prefill_next = (i + 1) % self.n_slots
@@ -1156,10 +1568,16 @@ class DecodeScheduler:
 
     def _consume(self, slot: int, seq: _ActiveSeq, probs_row: np.ndarray) -> None:
         """Sample one token; finish and free the slot on max tokens / EOS."""
+        if self._fenced:
+            # a fenced thread woke mid-iteration: this handle may be
+            # requeued on the replacement already
+            raise _EngineFenced
         tok = sample_logits(probs_row, seq.temperature, seq.top_k, seq.rng,
                             seq.top_p)
         h = seq.handle
         h.tokens.append(tok)
+        if h.stream is not None:
+            h.stream.push(len(h.tokens) - 1, tok)
         self._emitted_this_iter += 1
         if h.t_first_token is None:
             now = time.monotonic()
@@ -1187,6 +1605,11 @@ class DecodeScheduler:
     def _step_once(self) -> bool:
         """One iteration: admission, at most one prefill chunk, then the
         all-slots decode step. Returns False when it idled."""
+        if self._fenced:
+            raise _EngineFenced
+        failpoints.fire("scheduler.iteration")  # chaos seam
+        if self._fenced:
+            raise _EngineFenced
         self._evict_cancelled()
         if self.paged:
             self._try_upgrade_slots()
@@ -1264,57 +1687,83 @@ class DecodeScheduler:
                                "has run")
         return _DecodeRunner(self.n_slots, nb, self.device)
 
-    def _build(self, r: _DecodeRunner, trace: bool = True) -> None:
-        """Capture ``r``'s step on the card (on the inputs it holds now) and
-        register it; stamps a ``capture`` instant when ``trace``."""
+    def _body(self, r):
+        return self._chunk_body(r) if isinstance(r, _ChunkRunner) \
+            else self._step_body(r)
+
+    def _build(self, r, trace: bool = True) -> None:
+        """Capture runner ``r`` (a decode step or a prefill chunk) on the
+        card, on the inputs it holds now, and register it; stamps a
+        ``capture`` instant when ``trace``. A capture is a one-off setup
+        event: the transfer guard lets its eager run read positions."""
         if self.device.type == "cuda":
-            self._capture(r)
-        self._runners[r.nb] = r
-        self.decode_captures += 1
+            with self._allow_sync():
+                self._capture(r)
+        chunk = isinstance(r, _ChunkRunner)
+        if chunk:
+            self._chunk_runners[r.key] = r
+            self.prefill_captures += 1
+        else:
+            self._runners[r.key] = r
+            self.decode_captures += 1
         if trace and self.tracer.enabled:
             self.tracer.instant("capture", track=self._sched_track,
-                                args={"bucket": r.nb,
+                                args={"bucket": r.key,
+                                      "kind": "prefill" if chunk else "decode",
                                       "graph": r.graph is not None,
-                                      "captures": self.decode_captures})
+                                      "captures": self.decode_captures
+                                      + self.prefill_captures})
 
-    def _capture(self, r: _DecodeRunner) -> None:
-        """Record ``r``'s step into a CUDA graph. The step runs eagerly
+    def _capture(self, r) -> None:
+        """Record ``r``'s body into a CUDA graph. The body runs eagerly
         once on a side stream first, as capture requires (the kernel
         libraries load, cuBLAS makes its handles, the allocator its
         blocks); on the inputs staged now it writes what the replay will
         write again, so it changes nothing. Kernel launches of the two
         runs are taken back out of ``LAUNCHES``; the capture's own count
-        is added on every replay. A failure raises."""
+        is added on every replay. A failure raises.
+
+        The capture is begun and ended on the graph itself, not through
+        the ``torch.cuda.graph`` context, whose entry synchronizes the
+        device and empties the allocator's cache on every capture: for
+        warmup()'s dozens of captures that was most of their time."""
         dev = self.device
-        if self._capture_stream is None:
-            self._capture_stream = torch.cuda.Stream(dev)
+        if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-        s = self._capture_stream
+        s = _capture_stream(dev)
         before = dict(ck.LAUNCHES)
         s.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(s):
-            self._step_body(r)
+            self._body(r)
         torch.cuda.current_stream(dev).wait_stream(s)
         g = torch.cuda.CUDAGraph()
         mark = dict(ck.LAUNCHES)
-        with torch.cuda.graph(g, pool=self._graph_pool, stream=s,
-                              capture_error_mode="thread_local"):
-            r.probs = self._step_body(r)
+        with torch.cuda.stream(s):
+            g.capture_begin(pool=self._graph_pool,
+                            capture_error_mode="thread_local")
+            try:
+                r.out = self._body(r)
+            finally:
+                g.capture_end()
         r.launches = {k: ck.LAUNCHES[k] - mark[k] for k in mark
                       if ck.LAUNCHES[k] != mark[k]}
         ck.LAUNCHES.update(before)
         r.graph = g
 
-    def _replay(self, r: _DecodeRunner) -> np.ndarray:
+    def _replay(self, r) -> None:
+        """Run ``r``'s body: replay its graph (adding its launches), or run
+        it eagerly on the CPU; the output lands in ``r.out``."""
         if r.graph is None:
-            r.probs = self._step_body(r)
+            r.out = self._body(r)
         else:
             r.graph.replay()
             for k, n in r.launches.items():
                 ck.LAUNCHES[k] += n
-        return r.probs.cpu().numpy()
 
     def _decode(self, fed: List[Tuple[int, _ActiveSeq]]) -> None:
+        failpoints.fire("dispatch.decode")  # chaos seam
+        if self._fenced:
+            raise _EngineFenced
         t0 = time.monotonic()
         ids, live, pos = self._decode_inputs(fed)
         deepest = max(s.written + 1 for _, s in fed)
@@ -1330,7 +1779,8 @@ class DecodeScheduler:
                 # captured on this step's inputs: the capture's eager run
                 # writes just what the replay writes
                 self._build(r)
-            probs = self._replay(r)
+            self._replay(r)
+            probs = self._host_read(r.out)
         else:
             dev = self.device
             table = torch.from_numpy(self._table_for(deepest)).to(dev) \
@@ -1355,24 +1805,28 @@ class DecodeScheduler:
     def warmup(self) -> None:
         """Build everything the serving loop would otherwise build under
         traffic (JAX :3496): the kernels, every decode step (paged: one
-        per table bucket; contiguous: the one, captured on the card), and
-        one run of every (chunk bucket x table bucket) prefill pair, with
-        all lanes masked to the scratch page (paged) or on slot 0 followed
-        by its reset (contiguous), and one scratch -> scratch COW copy.
+        per table bucket; contiguous: the one) and every prefill chunk
+        (paged: one per (chunk bucket, table bucket) pair; contiguous: one
+        per chunk bucket), captured on the card, with all lanes masked to
+        the scratch page (paged) or on slot 0 followed by its reset
+        (contiguous), and one scratch -> scratch COW copy. With
+        ``decode_graphs="off"`` the chunks run once eagerly instead.
         Nothing observable changes: no metrics, no trace records, no pool
         state, no slot bookkeeping. Call it before traffic (no slot
         resident); once it has run, live traffic captures nothing."""
         if any(s is not None for s in self._slots):
             raise RuntimeError("warmup() runs before traffic: a slot is "
                                "resident")
+        t0 = time.monotonic()
         s = self.n_slots
         zeros = np.zeros((s,), np.int32)
+        graphs = self.decode_graphs == "on"
         with torch.no_grad():
             if self.device.type == "cuda" and self.paged \
                     and self.paged_kernel == "on":
                 ck._lib("paged_decode_attention")
             for nb in (self.table_buckets if self.paged else [None]):
-                if self.decode_graphs != "on" or nb in self._runners:
+                if not graphs or nb in self._runners:
                     continue
                 # every lane masked at position 0: paged rows write to the
                 # scratch page, contiguous rows into idle stripes, which
@@ -1386,15 +1840,26 @@ class DecodeScheduler:
             # is real (n_real 0), so paged writes go to the scratch page
             for b in self.prefill_buckets:
                 ids = np.zeros((b,), np.int32)
-                if self.paged:
-                    for nb in self.table_buckets:
-                        self._prefill_forward(0, ids, 0, 0, nb)
-                else:
-                    self._prefill_forward(0, ids, 0, 1)
+                for nb in (self.table_buckets if self.paged else [None]):
+                    if not graphs:
+                        if self.paged:
+                            self._prefill_forward(0, ids, 0, 0, nb)
+                        else:
+                            self._prefill_forward(0, ids, 0, 1)
+                        continue
+                    if (b, nb) in self._chunk_runners:
+                        continue
+                    r = self._new_chunk_runner(b, nb)
+                    r.fill(ids, 0, 0, 0,
+                           np.full((nb,), SCRATCH_BLOCK, np.int32)
+                           if nb else None)
+                    self._build(r, trace=False)
+                if not self.paged:
                     self._reset_slot_state(0)
             if self.paged:
                 self._copy_page(SCRATCH_BLOCK, SCRATCH_BLOCK)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
-        if self.decode_graphs == "on":
+        if graphs:
             self._warmed = True
+        self.warmup_seconds = time.monotonic() - t0

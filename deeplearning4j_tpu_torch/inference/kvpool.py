@@ -36,7 +36,8 @@ package's series (``prefix_cache_evicted_blocks_total``; paged: the
 ``kv_pool_blocks_*`` gauges, ``kv_pool_utilization``, the device bytes;
 contiguous: ``prefix_cache_used_bytes`` and ``_capacity_bytes``), and
 with a ``tracer`` it stamps ``pool_publish`` and ``pool_evict`` instants
-on the ``kvpool`` track.
+on the ``kvpool`` track. `alloc` fires the ``pool.alloc`` failpoint
+seam (`failpoints.py`).
 
 Threading: every mutation happens on the engine's scheduler thread,
 between steps, so the pool takes no lock of its own.
@@ -47,6 +48,8 @@ import heapq
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from . import failpoints
 
 SCRATCH_BLOCK = 0
 
@@ -269,6 +272,7 @@ class KVPool:
         page is owned by a live slot or pinned: the scheduler must
         preempt. The page is owned by the caller until `free_block` or
         `adopt`."""
+        failpoints.fire("pool.alloc")  # chaos seam: injected OOM/crash
         if not self._free:
             self._evict_lru()
         bid = self._free.pop() if self._free else None

@@ -224,31 +224,49 @@ class SelfAttentionLayerImpl(BaseRecurrentImpl):
         reads the compact cache. A row whose write passes the cache gets
         NaN output, and its next position is frozen at L_cap + 1, so every
         later step poisons it too; only a fresh state (the graph's
-        ``rnn_clear_previous_state``) recovers."""
+        ``rnn_clear_previous_state``) recovers.
+
+        An optional ``state0["slot"]`` ([B] int tensor) names the cache
+        rows the batch owns: the write goes into those rows in place and
+        the attention reads a gathered copy of them — the decode engine's
+        captured prefill chunk, whose slot is a device index (JAX
+        `_slice_slot`/`_scatter_slot`, engine.py:1352)."""
         B, T, _ = x.shape
         pos = state0["pos"]
         kc, vc = state0["k"], state0["v"]
+        slot = state0.get("slot")
         L_cap = kc.shape[1]
         per_slot = pos.dim() > 0
         overflow = (pos + T) > L_cap
         q, k_new, v_new = self._qkv(params, x, pos0=pos)
         start = torch.clamp(pos.long(), min=0, max=max(L_cap - T, 0))
         at = start[..., None] + torch.arange(T, device=x.device)
-        if per_slot:
+        if slot is not None:
+            rows = slot.long()[:, None]
+            kc[rows, at] = k_new
+            vc[rows, at] = v_new
+            ka, va = kc.index_select(0, slot.long()), \
+                vc.index_select(0, slot.long())
+        elif per_slot:
             rows = torch.arange(B, device=x.device)[:, None]
             kc[rows, at] = k_new
             vc[rows, at] = v_new
+            ka, va = kc, vc
         else:
             kc[:, at] = k_new
             vc[:, at] = v_new
-        o = self._grouped_attention(q, kc, vc, causal=True, qpos0=pos)
+            ka, va = kc, vc
+        o = self._grouped_attention(q, ka, va, causal=True, qpos0=pos)
         if mask is not None:
             o = o * mask[:, :, None, None].to(o.dtype)
         y = self._out(params, o, B, T)
         y = torch.where(overflow[:, None, None] if per_slot else overflow,
                         float("nan"), y)
         next_pos = torch.where(overflow, L_cap + 1, pos + T).to(torch.int32)
-        return y, {"k": kc, "v": vc, "pos": next_pos}
+        out = {"k": kc, "v": vc, "pos": next_pos}
+        if slot is not None:
+            out["slot"] = slot
+        return y, out
 
     def _paged_step(self, params, x, state0, *, mask=None):
         """Paged-KV inference step (JAX attention.py:263).

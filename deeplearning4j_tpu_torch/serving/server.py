@@ -1,50 +1,156 @@
-"""HTTP serving endpoint — a reduced port of deeplearning4j_tpu/serving/server.py.
+"""HTTP serving endpoint — a port of deeplearning4j_tpu/serving/server.py.
 
-`InferenceServer` loads a model (a port `ComputationGraph`, or a model
-zip restored onto ``device``), runs a `DecodeScheduler` behind ``POST
-/generate`` — contiguous per-slot stripes by default (``kv_pool_mb=0``,
-with a side prefix pool of ``prefix_cache_mb``), or a paged pool of
-``kv_pool_mb`` MiB — and answers on a stdlib ThreadingHTTPServer. The
-server owns a `MetricsRegistry` and a span `FlightRecorder`
-(``trace_buffer`` events; 0 disables recording) that the engine writes,
-and calls the engine's `warmup()` before it answers, so the decode steps
-are captured before any traffic.
+`InferenceServer` loads a model (a port net, or a model zip restored onto
+``device``) and answers on a stdlib ThreadingHTTPServer:
+
+  - ``/predict`` and ``/predict/csv`` run the net's forward. By default
+    every request goes through a `MicroBatcher` (one per input signature,
+    at most ``max_signatures``; past the cap a signature takes the
+    lock-serialized path): concurrent clients' rows become one padded
+    pow2-bucketed batch on the net's device, with one device->host copy
+    per batch. ``batching=False`` serializes forwards under one lock.
+  - ``/generate`` runs a `DecodeScheduler` — contiguous per-slot stripes
+    by default (``kv_pool_mb=0``, with a side prefix pool of
+    ``prefix_cache_mb``), or a paged pool of ``kv_pool_mb`` MiB; its
+    decode steps and prefill chunks captured into CUDA graphs before the
+    server answers (``decode_graphs="on"``). The engine runs under an
+    `EngineSupervisor` by default (``supervise=False`` opts out): a
+    watchdog reads the loop's heartbeat, and a crashed or hung engine is
+    fenced, rebuilt by the server's factory — with the same device,
+    ``paged_kernel`` and ``decode_graphs`` — warmed, and every in-flight
+    request resubmitted with its original handle and seed (the same
+    tokens; a bounded backoff and a per-request ``retry_budget``, whose
+    exhaustion is a structured 503 naming the ``request_id``). Queue
+    pressure walks the degradation ladder. ``decode_transfer_guard``
+    ("disallow") runs the scheduler loop under torch's sync debug mode
+    (process-wide: serve ``/generate`` traffic only under it).
+
+The decode engine serves a ComputationGraph: ``decode_vocab=None`` takes
+its vocabulary from the output layer's width (the JAX server needs it
+given); ``decode_vocab=0``, or a MultiLayerNetwork, serves no
+``/generate``. The server owns a `MetricsRegistry` and a span
+`FlightRecorder` (``trace_buffer`` events; 0 disables recording) that the
+engine, the supervisor and the batchers write.
+
+Every POST carries an ``X-Request-Id`` response header: a well-formed
+client-supplied id (``[A-Za-z0-9._:-]{1,128}``) becomes the prefix of a
+server-uniquified one, anything else is replaced by a fresh id; error
+bodies quote it.
 
 Endpoints:
-  GET  /healthz    liveness: {"status": "up"} (always 200)
-  GET  /info       model summary, config JSON, device, engine (KV mode,
-                   decode captures) and pool state
-  POST /generate   {"prompt": [ids], "max_new_tokens": N, "temperature"?,
-                   "top_k"?, "top_p"?, "seed"?, "eos_id"?} -> {"tokens":
-                   [ids], "request_id", "finish_reason", "timings"};
-                   ?timeout_ms=N (expiry cancels the decode -> 504); a
-                   full queue -> 503; a prompt the pool cannot hold -> 413;
-                   malformed input -> 400.
+  GET  /health            {"status": "ok", "model", "params"}
+  GET  /healthz           liveness: the process answers (always 200)
+  GET  /readyz            readiness: 200 while the heartbeat is fresh and
+                          nothing drains or recovers, else 503 (+ status)
+  GET  /info              model summary, config JSON, device, batching,
+                          the engine (KV mode, captures, pool) and the
+                          supervisor's state
+  GET  /metrics           JSON snapshot; ?format=prometheus (or an Accept:
+                          application/openmetrics-text scrape) for the
+                          OpenMetrics exposition with exemplars; Accept:
+                          text/plain for Prometheus text 0.0.4;
+                          ?format=text for the summary text
+  GET  /trace             flight-recorder dump (?limit=N newest events;
+                          ?since=CURSOR tails from a previous next_cursor;
+                          ?format=chrome for Perfetto)
+  GET  /trace/clock       the clock-alignment handshake (monotonic, wall,
+                          trace_t0, pid)
+  POST /predict           {"data": [[...], ...]} -> {"predictions",
+                          "classes"} (?timeout_ms=N: an expired request
+                          gets 504, a full queue 503)
+  POST /predict/csv       text/plain CSV rows -> the same
+  POST /generate          {"prompt": [ids], "max_new_tokens"?,
+                          "temperature"?, "top_k"?, "top_p"?, "seed"?,
+                          "eos_id"?, "priority"?, "stream"?} -> {"tokens",
+                          "request_id", "finish_reason", "timings",
+                          "retries"? (engine restarts it survived)};
+                          ?timeout_ms=N (expiry cancels the decode ->
+                          504); a full queue -> 503; a prompt the cache
+                          cannot hold -> 413; any other field (grammar,
+                          stop, penalties, n: not ported yet, ROADMAP A4)
+                          or a malformed body -> 400. {"stream": true} ->
+                          text/event-stream: one `data: {"token",
+                          "index"}` event per token, then `data: {"done":
+                          true, request_id, tokens, finish_reason,
+                          timings}`; a client that hangs up cancels the
+                          decode (slot and blocks reclaimed,
+                          stream_disconnects_total)
+  POST /admin/drain       draining restart (202; watch /readyz flip)
+  GET/POST /admin/failpoints  chaos control (opt-in failpoint_endpoint):
+                          {"name": seam, "spec": "crash@n:3"} arms, spec
+                          null disarms, name "*" disarms all
 
-The supervisor, streaming (SSE), /predict, /metrics, /trace and the
-admin endpoints of the JAX server come with later slices.
+Not ported yet, answered with 404 and a pointer: ``/debug/engine`` and
+the ``/info`` profiler headline (ROADMAP A4), ``/prefix/*`` (A4, A8).
 """
 from __future__ import annotations
 
 import json
+import os
+import re
+import select
+import socket
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
-from typing import Optional, Union
+from typing import Dict, Optional, Tuple, Union
 from urllib.parse import parse_qs, urlparse
 
+import numpy as np
 import torch
 
-from ..inference.engine import (DecodeScheduler, PromptTooLongError,
-                                QueueFullError)
+from ..inference import failpoints
+from ..inference.batcher import MicroBatcher, QueueFullError, _to_host
+from ..inference.engine import (DecodeScheduler, EngineCrashedError,
+                                PromptTooLongError)
+from ..inference.failpoints import InjectedFault
+from ..inference.logitproc import TokenStream
 from ..inference.metrics import MetricsRegistry
-from ..inference.trace import FlightRecorder
+from ..inference.supervisor import (AdmissionRejectedError, EngineSupervisor,
+                                    RetryBudgetExceededError,
+                                    ShuttingDownError)
+from ..inference.trace import FlightRecorder, new_request_id
 from ..util.device import DeviceLike, resolve_device
+from .streaming import RecordToDataSetConverter
+
+__all__ = ["InferenceServer"]
+
+# what a client-supplied X-Request-Id may look like before it is echoed
+# into a response HEADER: an obs-folded header reaches `headers.get()`
+# with embedded CR/LF, and an unvalidated id would be header injection
+_REQUEST_ID_RE = re.compile(r"[A-Za-z0-9._:\-]{1,128}")
+
+# the /generate fields the port serves; grammar, stop sequences,
+# penalties and best-of-n wait for ROADMAP A4 and are refused, not ignored
+_GENERATE_FIELDS = frozenset({"prompt", "max_new_tokens", "temperature",
+                              "top_k", "top_p", "seed", "eos_id", "priority",
+                              "stream"})
+_DECODE_KWARGS = ("temperature", "top_k", "top_p", "seed", "eos_id",
+                  "priority")
+
+
+def _peer_gone(sock) -> bool:
+    """True when the SSE client hung up: the socket is readable and a
+    zero-byte MSG_PEEK confirms EOF (an RST raises OSError, also True).
+    Polled between events, so a silent disconnect is noticed even when
+    the send buffer would absorb the next write."""
+    try:
+        readable, _, _ = select.select([sock], [], [], 0)
+        if not readable:
+            return False
+        return sock.recv(1, socket.MSG_PEEK) == b""
+    except (OSError, ValueError):
+        return True
 
 
 class InferenceServer:
     def __init__(self, net=None, model_path: Union[str, Path, None] = None,
                  port: int = 0, host: str = "127.0.0.1",
+                 max_batch: int = 1024,
+                 converter: Optional[RecordToDataSetConverter] = None,
+                 batching: bool = True, batch_window_ms: float = 2.0,
+                 max_queue: int = 256,
                  default_timeout_ms: Optional[float] = None,
                  decode_vocab: Optional[int] = None, decode_slots: int = 4,
                  prefill_chunk: int = 64, decode_queue: int = 64,
@@ -54,6 +160,10 @@ class InferenceServer:
                  metrics: Optional[MetricsRegistry] = None,
                  trace_buffer: int = 8192,
                  tracer: Optional[FlightRecorder] = None,
+                 supervise: bool = True, hang_timeout_s: float = 5.0,
+                 retry_budget: int = 3,
+                 decode_transfer_guard: Optional[str] = None,
+                 failpoint_endpoint: bool = False,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         if net is None:
@@ -62,112 +172,535 @@ class InferenceServer:
             from ..util.model_serializer import restore_model
             net = restore_model(model_path, device=self.device)
         self.net = net
-        if decode_vocab is None:
+        if decode_vocab is None and hasattr(net.conf, "vertices"):
             out = net.conf.network_outputs[0]
             decode_vocab = int(net.conf.vertices[out].layer.n_out)
-        self.decode_vocab = int(decode_vocab)
+        self.decode_vocab = int(decode_vocab or 0)
+        self.max_batch = int(max_batch)
+        self.converter = converter or RecordToDataSetConverter(label_index=None)
+        self.batching = bool(batching)
+        self.batch_window_ms = float(batch_window_ms)
+        self.max_queue = int(max_queue)
         self.default_timeout_ms = default_timeout_ms
+        self._decode_kw = dict(
+            n_slots=decode_slots, max_queue=decode_queue,
+            prefill_chunk=prefill_chunk, prefix_cache_mb=prefix_cache_mb,
+            kv_block=kv_block, kv_pool_mb=kv_pool_mb, kv_dtype=kv_dtype,
+            paged_kernel=paged_kernel, decode_graphs=decode_graphs,
+            transfer_guard=decode_transfer_guard)
+        self.supervise = bool(supervise)
+        self.hang_timeout_s = float(hang_timeout_s)
+        self.retry_budget = int(retry_budget)
+        # the chaos control plane must be opted into: a production server
+        # must not let clients arm crash seams
+        self.failpoint_endpoint = bool(failpoint_endpoint)
+        self.supervisor: Optional[EngineSupervisor] = None
+        self._decoder_direct: Optional[DecodeScheduler] = None
+        self._shutting_down = False
         self.metrics = metrics if metrics is not None else MetricsRegistry()
         self.tracer = tracer if tracer is not None else FlightRecorder(
             trace_buffer, enabled=trace_buffer > 0)
-        self.decoder = DecodeScheduler(
-            net, self.decode_vocab, n_slots=decode_slots,
-            max_queue=decode_queue, prefill_chunk=prefill_chunk,
-            prefix_cache_mb=prefix_cache_mb, kv_block=kv_block,
-            kv_pool_mb=kv_pool_mb, kv_dtype=kv_dtype,
-            paged_kernel=paged_kernel, decode_graphs=decode_graphs,
-            metrics=self.metrics, tracer=self.tracer, device=self.device)
         self._host = host
         self._port = port
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
+        self._lock = threading.Lock()  # the unbatched /predict path
+        # one batcher per trailing input signature, bounded: a client
+        # controls the signature, and each batcher costs a thread
+        self._batchers: Dict[Tuple, MicroBatcher] = {}
+        self._batchers_lock = threading.Lock()
+        self.max_signatures = 16
+        self._m_stream_reqs = self.metrics.counter(
+            "stream_requests_total",
+            help="/generate requests served as SSE token streams")
+        self._m_stream_disconnects = self.metrics.counter(
+            "stream_disconnects_total",
+            help="SSE clients that hung up mid-stream (decode "
+                 "cancelled, slot reclaimed)")
 
     @property
     def port(self) -> int:
         return self._httpd.server_address[1] if self._httpd else self._port
 
+    @property
+    def decoder(self) -> Optional[DecodeScheduler]:
+        """The live decode engine: a supervised server swaps engines on
+        recovery and drain, so this resolves through the supervisor."""
+        if self.supervisor is not None:
+            return self.supervisor.engine
+        return self._decoder_direct
+
+    def _decoder_factory(self) -> DecodeScheduler:
+        """Every (re)build: the same device and modes (kernel, graphs)."""
+        return DecodeScheduler(self.net, self.decode_vocab,
+                               metrics=self.metrics, tracer=self.tracer,
+                               device=self.device, **self._decode_kw)
+
+    def ready(self) -> Tuple[bool, dict]:
+        """`/readyz` verdict + body. An unsupervised server is ready while
+        not shutting down."""
+        if self._shutting_down:
+            return False, {"ready": False, "reason": "shutting_down"}
+        if self.supervisor is not None:
+            status = self.supervisor.status()
+            return status["ready"], status
+        return True, {"ready": True}
+
     def info(self) -> dict:
-        dec = self.decoder
         dev = self.device
-        return {"model": type(self.net).__name__,
+        body = {"model": type(self.net).__name__,
                 "config": json.loads(self.net.conf.to_json()),
                 "params": self.net.num_params(),
+                "batching": self.batching,
                 "device": {"type": dev.type,
                            "name": (torch.cuda.get_device_name(dev)
-                                    if dev.type == "cuda" else "cpu")},
-                "decode": {"slots": dec.n_slots,
-                           "prefill_chunk": dec.prefill_chunk,
-                           "kv_mode": "paged" if dec.paged else "contiguous",
-                           "kv_dtype": dec.kv_dtype,
-                           "paged_kernel": dec.paged_kernel,
-                           "decode_graphs": dec.decode_graphs,
-                           "decode_captures": dec.decode_captures,
-                           "pool": dec.pool.stats() if dec.pool else None}}
+                                    if dev.type == "cuda" else "cpu")}}
+        dec = self.decoder
+        if dec is not None:
+            body["decode"] = {
+                "slots": dec.n_slots, "prefill_chunk": dec.prefill_chunk,
+                "kv_mode": "paged" if dec.paged else "contiguous",
+                "kv_dtype": dec.kv_dtype, "paged_kernel": dec.paged_kernel,
+                "decode_graphs": dec.decode_graphs,
+                "decode_captures": dec.decode_captures,
+                "prefill_captures": dec.prefill_captures,
+                "transfer_guard": dec.transfer_guard,
+                "pool": dec.pool.stats() if dec.pool else None}
+        if self.supervisor is not None:
+            body["supervisor"] = self.supervisor.status()
+        return body
 
-    def _generate(self, payload: dict, timeout_ms: Optional[float]) -> dict:
-        if not isinstance(payload, dict) or "prompt" not in payload:
-            raise ValueError("body must be a JSON object with a 'prompt'")
-        kw = {k: payload[k] for k in ("temperature", "top_k", "top_p", "seed",
-                                      "eos_id") if k in payload}
-        prompt = [int(t) for t in payload["prompt"]]
-        max_new = int(payload.get("max_new_tokens", 16))
+    # -- /predict ------------------------------------------------------------
+    def _net_output(self, arr: np.ndarray):
+        """One forward; a ComputationGraph's first output (its output() is
+        a list, and /predict answers one tensor)."""
+        out = self.net.output(arr)
+        if isinstance(out, (list, tuple)):
+            out = out[0]
+        return out
+
+    def _batcher_for(self, arr: np.ndarray) -> Optional[MicroBatcher]:
+        sig = (arr.shape[1:], str(arr.dtype))
+        with self._batchers_lock:
+            b = self._batchers.get(sig)
+            if b is None:
+                if len(self._batchers) >= self.max_signatures:
+                    return None  # signature-cap overflow: direct path
+                b = MicroBatcher(
+                    self._net_output, max_batch=self.max_batch,
+                    max_queue=self.max_queue,
+                    batch_window_s=self.batch_window_ms / 1e3,
+                    metrics=self.metrics, tracer=self.tracer,
+                    name="predict").start()
+                self._batchers[sig] = b
+            return b
+
+    def _forward(self, arr: np.ndarray,
+                 timeout_ms: Optional[float]) -> np.ndarray:
+        if self.batching:
+            batcher = self._batcher_for(arr)
+            if batcher is not None:
+                timeout_s = (timeout_ms / 1e3 if timeout_ms is not None
+                             else None)
+                return batcher.predict(arr, timeout_s=timeout_s)
+        outs = []
+        with self._lock, torch.no_grad():
+            for off in range(0, arr.shape[0], self.max_batch):
+                outs.append(_to_host(self._net_output(
+                    arr[off:off + self.max_batch])))
+        return np.concatenate(outs)
+
+    def _predict(self, arr: np.ndarray,
+                 timeout_ms: Optional[float] = None) -> dict:
         if timeout_ms is None:
             timeout_ms = self.default_timeout_ms
-        timeout = timeout_ms / 1e3 if timeout_ms is not None else 120.0
-        handle = self.decoder.generate_handle(prompt, max_new,
-                                              timeout=timeout, **kw)
-        return {"tokens": handle.tokens, "request_id": handle.request_id,
-                "finish_reason": handle.finish_reason,
-                "timings": handle.timings()}
+        out = (self._forward(arr, timeout_ms) if arr.shape[0]
+               else np.zeros((0, 0), np.float32))
+        return {"predictions": out.astype(float).tolist(),
+                "classes": np.argmax(out, axis=-1).astype(int).tolist()
+                if out.ndim >= 2 and out.shape[-1] > 0 else []}
 
+    # -- /generate -----------------------------------------------------------
+    def _generation(self):
+        gen = self.supervisor if self.supervisor is not None \
+            else self._decoder_direct
+        if gen is None:
+            raise ValueError("generation is disabled: this server has no "
+                             "decode engine (a ComputationGraph LM, or "
+                             "decode_vocab > 0; CLI: --generate)")
+        return gen
+
+    def _parse_generate(self, payload) -> Tuple[list, int, dict]:
+        if not isinstance(payload, dict) or "prompt" not in payload:
+            raise ValueError("body must be a JSON object with a 'prompt'")
+        unknown = sorted(set(payload) - _GENERATE_FIELDS)
+        if unknown:
+            raise ValueError(
+                f"unknown /generate field(s) {unknown}: grammar, stop "
+                "sequences, penalties and best-of-n are not ported yet")
+        kw = {k: payload[k] for k in _DECODE_KWARGS if k in payload}
+        prompt = [int(t) for t in payload["prompt"]]
+        return prompt, int(payload.get("max_new_tokens", 16)), kw
+
+    def _timeout_s(self, timeout_ms: Optional[float]) -> float:
+        if timeout_ms is None:
+            timeout_ms = self.default_timeout_ms
+        return timeout_ms / 1e3 if timeout_ms is not None else 120.0
+
+    def _generate(self, payload: dict, timeout_ms: Optional[float],
+                  request_id: Optional[str] = None) -> dict:
+        gen = self._generation()
+        prompt, max_new, kw = self._parse_generate(payload)
+        # supervised: tracked for crash recovery (a restart resubmits it
+        # with the same handle and seed; the client never sees the crash)
+        handle = gen.generate_handle(prompt, max_new,
+                                     timeout=self._timeout_s(timeout_ms),
+                                     request_id=request_id, **kw)
+        out = {"tokens": handle.tokens, "request_id": handle.request_id,
+               "finish_reason": handle.finish_reason,
+               "timings": handle.timings()}
+        if handle.retries:
+            out["retries"] = handle.retries  # survived engine crash(es)
+        return out
+
+    def _generate_stream(self, handler, payload: dict,
+                         timeout_ms: Optional[float], rid: str) -> str:
+        """POST /generate with ``"stream": true`` — SSE token emission,
+        written directly on ``handler``: one ``data: {"token", "index"}``
+        event per decoded token, then the terminal ``data: {"done": true,
+        ...}`` event. Submit-time failures (413/503/400) raise before any
+        byte is written, so do_POST's error mapping answers them as JSON;
+        after the headers, failures are reported in-band. A client
+        disconnect (EOF peek between events, or EPIPE) cancels the decode
+        — the slot, its blocks and its prefix pin are reclaimed at the
+        scheduler's next sweep. Returns "ok" | "disconnect"."""
+        gen = self._generation()
+        prompt, max_new, kw = self._parse_generate(payload)
+        timeout = self._timeout_s(timeout_ms)
+        stream = TokenStream()
+        handle = gen.submit(prompt, max_new, request_id=rid, stream=stream,
+                            **kw)
+        self._m_stream_reqs.inc()
+        status = "ok"
+        try:
+            handler.send_response(200)
+            handler.send_header("Content-Type", "text/event-stream")
+            handler.send_header("Cache-Control", "no-cache")
+            handler.send_header("X-Request-Id", rid)
+            handler.end_headers()
+            deadline = time.monotonic() + timeout
+            conn = handler.connection
+            try:
+                for evt in stream.events(deadline=deadline):
+                    if _peer_gone(conn):
+                        raise BrokenPipeError("SSE client hung up")
+                    handler.wfile.write(
+                        b"data: " + json.dumps(evt).encode() + b"\n\n")
+                    handler.wfile.flush()
+            except TimeoutError:
+                # the request's own deadline (buffered mode's 504),
+                # reported in-band: the headers are out already
+                handle.cancel()
+                self.metrics.counter("http_errors_total").inc()
+                self.tracer.instant("reject", track="http", args={
+                    "request_id": rid, "reason": "stream_timeout"})
+                handler.wfile.write(
+                    b"data: " + json.dumps(
+                        {"done": True, "request_id": rid,
+                         "error": "deadline exceeded",
+                         "finish_reason": "timeout"}).encode() + b"\n\n")
+                handler.wfile.flush()
+        except OSError:  # BrokenPipeError, ConnectionResetError, ...
+            # cancel-on-disconnect: the slot is reclaimed instead of
+            # decoding to max_new_tokens for a client that left
+            status = "disconnect"
+            handle.cancel()
+            self._m_stream_disconnects.inc()
+            self.tracer.instant("stream_disconnect", req=rid,
+                                args={"request_id": rid,
+                                      "streamed": stream.sent})
+        except Exception as e:  # post-header: report in-band, never a
+            handle.cancel()     # second status line into the stream
+            try:
+                handler.wfile.write(
+                    b"data: " + json.dumps(
+                        {"done": True, "request_id": rid,
+                         "error": str(e)}).encode() + b"\n\n")
+                handler.wfile.flush()
+            except OSError:
+                status = "disconnect"
+        finally:
+            if self.supervisor is not None:
+                # a client that got its stream (or gave up) must not have
+                # the request replayed by a later restart
+                self.supervisor.untrack(rid)
+        return status
+
+    # -- lifecycle -----------------------------------------------------------
     def start(self) -> "InferenceServer":
         server = self
-        self.decoder.warmup()
-        self.decoder.start()
+        self._shutting_down = False
+        failpoints.bind_metrics(self.metrics)
+        if self.decode_vocab and self.decoder is None:
+            if self.supervise:
+                # the supervisor builds, warms (every graph captured
+                # before traffic) and starts the engine
+                self.supervisor = EngineSupervisor(
+                    self._decoder_factory,
+                    hang_timeout_s=self.hang_timeout_s,
+                    retry_budget=self.retry_budget,
+                    metrics=self.metrics, tracer=self.tracer)
+            else:
+                eng = self._decoder_factory()
+                eng.warmup()
+                self._decoder_direct = eng.start()
+        m_http = self.metrics.counter("http_requests_total")
+        m_err = self.metrics.counter("http_errors_total")
 
         class Handler(BaseHTTPRequestHandler):
             def log_message(self, *args):  # quiet
                 pass
 
-            def _send(self, obj, code=200):
-                body = json.dumps(obj).encode()
+            def _send(self, obj, code=200, content_type="application/json",
+                      request_id=None, headers=None):
+                body = (obj if isinstance(obj, bytes)
+                        else json.dumps(obj).encode())
                 self.send_response(code)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", content_type)
                 self.send_header("Content-Length", str(len(body)))
+                if request_id:
+                    self.send_header("X-Request-Id", request_id)
+                for name, value in (headers or {}).items():
+                    self.send_header(name, value)
                 self.end_headers()
                 self.wfile.write(body)
 
+            def _metrics(self, q):
+                fmt = q.get("format", [""])[0]
+                accept = self.headers.get("Accept", "") or ""
+                reg = server.metrics
+                if fmt == "text":
+                    self._send(reg.render_text().encode(),
+                               content_type="text/plain; version=0.0.4")
+                elif fmt == "prometheus" or (
+                        not fmt and "openmetrics" in accept):
+                    # the full exposition, exemplars and '# EOF' included
+                    self._send(reg.render_prometheus().encode(),
+                               content_type="application/openmetrics-text; "
+                                            "version=1.0.0; charset=utf-8")
+                elif not fmt and "text/plain" in accept:
+                    # a 0.0.4 scraper: the same families, no exemplars
+                    self._send(reg.render_prometheus(
+                        openmetrics=False).encode(),
+                        content_type="text/plain; version=0.0.4; "
+                                     "charset=utf-8")
+                else:
+                    self._send(reg.snapshot())
+
+            def _trace(self, q):
+                try:
+                    limit = int(q.get("limit", ["0"])[0]) or None
+                    # presence, not truthiness: ?since=0 is the initial
+                    # cursor, distinct from no cursor
+                    since = int(q["since"][0]) if "since" in q else None
+                except ValueError:
+                    return self._send(
+                        {"error": "limit/since must be integers"}, 400)
+                if q.get("format", [""])[0] == "chrome":
+                    self._send(server.tracer.chrome_trace(limit=limit))
+                else:
+                    self._send(server.tracer.snapshot(limit=limit,
+                                                      since=since))
+
             def do_GET(self):
-                path = urlparse(self.path).path
-                if path == "/healthz":
+                m_http.inc()
+                url = urlparse(self.path)
+                q = parse_qs(url.query)
+                path = url.path
+                if path == "/health":
+                    self._send({"status": "ok",
+                                "model": type(server.net).__name__,
+                                "params": server.net.num_params()})
+                elif path == "/healthz":
+                    # liveness only: a recovering engine is still a live
+                    # process; /readyz tells the two apart
                     self._send({"status": "up"})
+                elif path == "/readyz":
+                    ok, body = server.ready()
+                    self._send(body, 200 if ok else 503)
                 elif path == "/info":
                     self._send(server.info())
+                elif path == "/metrics":
+                    self._metrics(q)
+                elif path == "/trace/clock":
+                    self._send({**server.tracer.clock(), "pid": os.getpid()})
+                elif path == "/trace":
+                    self._trace(q)
+                elif path == "/admin/failpoints":
+                    if not server.failpoint_endpoint:
+                        return self._send(
+                            {"error": "failpoint endpoint disabled (start "
+                             "the server with failpoint_endpoint=True)"},
+                            403)
+                    self._send({"armed": failpoints.snapshot(),
+                                "seams": list(failpoints.SEAMS)})
+                elif path == "/debug/engine" or path.startswith("/prefix/"):
+                    self._send({"error": f"{path} is not ported yet "
+                                "(ROADMAP A4/A8)"}, 404)
                 else:
-                    self._send({"error": f"unknown path {path}"}, 404)
+                    self._send({"error": "not found"}, 404)
 
             def do_POST(self):
+                m_http.inc()
                 url = urlparse(self.path)
-                if url.path != "/generate":
-                    return self._send({"error": f"unknown path {url.path}"},
-                                      404)
+                q = parse_qs(url.query)
+                # a well-formed client id is kept as the PREFIX of a
+                # server-uniquified id (two live retries sharing one id
+                # must not merge onto one trace track); anything else,
+                # length-capped before matching, gets a fresh id
+                rid = (self.headers.get("X-Request-Id") or "")[:256]
+                rid = (f"{rid}.{new_request_id()}"
+                       if _REQUEST_ID_RE.fullmatch(rid)
+                       else new_request_id())
+                timeout_ms = None
+                if "timeout_ms" in q:
+                    try:
+                        timeout_ms = float(q["timeout_ms"][0])
+                    except ValueError:
+                        m_err.inc()
+                        return self._send(
+                            {"error": "timeout_ms must be a number",
+                             "request_id": rid}, 400, request_id=rid)
+                n = int(self.headers.get("Content-Length", 0))
+                raw = self.rfile.read(n)
+                if server._shutting_down:
+                    # stop() raced this POST: a structured 503 instead of
+                    # running into half-torn-down components
+                    m_err.inc()
+                    return self._send({"error": "shutting_down",
+                                       "request_id": rid}, 503,
+                                      request_id=rid)
                 try:
-                    q = parse_qs(url.query)
-                    timeout_ms = (float(q["timeout_ms"][0])
-                                  if "timeout_ms" in q else None)
-                    n = int(self.headers.get("Content-Length", 0))
-                    payload = json.loads(self.rfile.read(n) or b"{}")
-                    self._send(server._generate(payload, timeout_ms))
+                    if url.path == "/admin/drain":
+                        if server.supervisor is None:
+                            return self._send(
+                                {"error": "draining needs a supervised "
+                                 "decode engine", "request_id": rid},
+                                400, request_id=rid)
+                        server.supervisor.drain_async()
+                        return self._send(
+                            {"status": "draining", "request_id": rid,
+                             **server.supervisor.status()}, 202,
+                            request_id=rid)
+                    if url.path == "/admin/failpoints":
+                        if not server.failpoint_endpoint:
+                            return self._send(
+                                {"error": "failpoint endpoint disabled",
+                                 "request_id": rid}, 403, request_id=rid)
+                        payload = json.loads(raw.decode())
+                        name = payload["name"]
+                        spec = payload.get("spec")
+                        if spec:
+                            failpoints.arm(name, spec)
+                        else:
+                            failpoints.disarm(None if name == "*" else name)
+                        return self._send(
+                            {"armed": failpoints.snapshot(),
+                             "request_id": rid}, request_id=rid)
+                    # the seam comes AFTER the /admin/* branches: an armed
+                    # http.handler must not block its own disarm path
+                    failpoints.fire("http.handler")
+                    if url.path == "/predict/csv":
+                        rows = [line.split(",") for line in
+                                raw.decode().strip().splitlines()
+                                if line.strip()]
+                        ds = server.converter.convert(rows)
+                        self._send(server._predict(np.asarray(ds.features),
+                                                   timeout_ms),
+                                   request_id=rid)
+                    elif url.path == "/predict":
+                        payload = json.loads(raw.decode())
+                        arr = np.asarray(payload["data"], np.float32)
+                        self._send(server._predict(arr, timeout_ms),
+                                   request_id=rid)
+                    elif url.path == "/generate":
+                        payload = json.loads(raw.decode())
+                        if isinstance(payload, dict) and payload.get("stream"):
+                            # writes the response itself; submit-time
+                            # errors raise before any byte is written
+                            server._generate_stream(self, payload,
+                                                    timeout_ms, rid)
+                        else:
+                            self._send(server._generate(
+                                payload, timeout_ms, request_id=rid),
+                                request_id=rid)
+                    else:
+                        self._send({"error": "not found",
+                                    "request_id": rid}, 404, request_id=rid)
                 except PromptTooLongError as e:
-                    self._send({"error": str(e),
-                                "blocks_needed": e.blocks_needed,
-                                "blocks_available": e.blocks_available}, 413)
-                except QueueFullError as e:
-                    self._send({"error": str(e)}, 503)
-                except TimeoutError:
-                    self._send({"error": "deadline exceeded"}, 504)
-                except (ValueError, TypeError, KeyError) as e:
-                    self._send({"error": str(e)}, 400)
+                    # refused before queueing: the payload itself is the
+                    # problem (paged: the body carries the pool's math)
+                    body = {"error": f"prompt too long: {e}",
+                            "request_id": rid}
+                    if e.blocks_needed is not None:
+                        body["blocks_needed"] = e.blocks_needed
+                        body["blocks_available"] = e.blocks_available
+                    m_err.inc()
+                    self._send(body, 413, request_id=rid)
+                except TimeoutError as e:  # RequestTimeoutError too; a
+                    # timed-out decode was cancelled before this
+                    m_err.inc()
+                    server.tracer.instant("reject", track="http", args={
+                        "request_id": rid, "reason": "timeout_504"})
+                    self._send({"error": f"deadline exceeded: {e}",
+                                "request_id": rid}, 504, request_id=rid)
+                except RetryBudgetExceededError as e:
+                    # every attempt saw the engine die: a structured 503
+                    # naming the request, never silence
+                    m_err.inc()
+                    server.tracer.instant("reject", track="http", args={
+                        "request_id": rid,
+                        "reason": "retry_budget_exhausted"})
+                    self._send({"error": "retry_budget_exhausted",
+                                "detail": str(e), "request_id": rid},
+                               503, request_id=rid)
+                except ShuttingDownError:
+                    m_err.inc()
+                    self._send({"error": "shutting_down",
+                                "request_id": rid}, 503, request_id=rid)
+                except AdmissionRejectedError as e:
+                    # ladder level 3 or a drain: Retry-After tells a client
+                    # how long to back off
+                    m_err.inc()
+                    server.tracer.instant("reject", track="http", args={
+                        "request_id": rid, "reason": "degraded_503"})
+                    self._send(
+                        {"error": "not_admitting", "detail": str(e),
+                         "retry_after_s": e.retry_after_s,
+                         "request_id": rid}, 503, request_id=rid,
+                        headers={"Retry-After":
+                                 str(max(1, int(e.retry_after_s)))})
+                except QueueFullError as e:  # LoadSheddedError too
+                    m_err.inc()
+                    server.tracer.instant("reject", track="http", args={
+                        "request_id": rid, "reason": "backpressure_503"})
+                    self._send({"error": f"over capacity: {e}",
+                                "request_id": rid}, 503, request_id=rid)
+                except InjectedFault as e:
+                    # a chaos seam fired: a retryable server fault
+                    m_err.inc()
+                    self._send({"error": "injected_fault",
+                                "seam": e.seam, "request_id": rid}, 500,
+                               request_id=rid)
+                except EngineCrashedError as e:
+                    # an unsupervised engine died with this request
+                    m_err.inc()
+                    self._send({"error": "engine_crashed", "detail": str(e),
+                                "request_id": rid}, 500, request_id=rid)
+                except Exception as e:  # bad payloads must not kill the server
+                    m_err.inc()
+                    self._send({"error": str(e), "request_id": rid}, 400,
+                               request_id=rid)
 
         self._httpd = ThreadingHTTPServer((self._host, self._port), Handler)
         self._httpd.daemon_threads = True
@@ -177,6 +710,9 @@ class InferenceServer:
         return self
 
     def stop(self) -> None:
+        # flag FIRST: handler threads past accept answer a structured 503
+        # instead of racing the teardown below
+        self._shutting_down = True
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -184,4 +720,14 @@ class InferenceServer:
         if self._thread is not None:
             self._thread.join(timeout=10)
             self._thread = None
-        self.decoder.stop()
+        if self.supervisor is not None:
+            # fails every tracked in-flight request fast with
+            # ShuttingDownError: the blocked handlers answer 503
+            self.supervisor.stop()
+        if self._decoder_direct is not None:
+            self._decoder_direct.stop()
+        with self._batchers_lock:
+            batchers = list(self._batchers.values())
+            self._batchers.clear()
+        for b in batchers:
+            b.stop()

@@ -221,5 +221,8 @@ def test_cli_serve_starts_on_a_jax_written_zip(nets, tmp_path, capsys):
                  "--device", "cpu", "--once"]) == 0
     banner = capsys.readouterr().out
     assert "device cpu" in banner and "16 blocks of 8, int8 KV" in banner
+    # without --generate the zip is served on /predict alone
     assert main(["serve", "--model", str(path), "--kv-pool-mb", "1",
-                 "--device", "cpu"]) == 2  # /predict is not ported yet
+                 "--device", "cpu", "--once"]) == 0
+    banner = capsys.readouterr().out
+    assert "POST /predict" in banner and "/generate" not in banner

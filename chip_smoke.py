@@ -224,7 +224,34 @@ non-zero without them, or when any phase fails. Phases:
      plain-version output, conv kernel launches = 3 x the batches the
      batcher dispatched; prints the batch occupancy and the p50/p99
      latency;
- 20. prints the kernels line.
+ 20. holds the six bf16 attention kernels (bf16 mma.sync over
+     attn_{fwd,dkv,dq}_bf16.cuh, in the same four .cu files) against their
+     plain versions at bf16, which make the roundings of the library each
+     replaces (flash rounds p to bf16 before p v, splash keeps it f32; both
+     round p and ds before the backward products): flash causal at [32,
+     256, 8, 64], flash causal and full at [1, 8192, 4, 128], splash causal
+     at [1, 32768, 4, 128] and [1, 32768, 8, 128]. Gates: max |diff| of o,
+     dq, dk and dv within 2^-7 of each one's max |plain| (one bf16 ulp of
+     the largest element), mean |diff| within 1e-3 of it, lse within 1e-4
+     absolute, outputs bf16 and lse f32. Times (as in phase 2) beside the
+     bf16 bound (the kept pairs' operations at 989 TFLOP/s, or bf16 bytes)
+     and SDPA at bf16, forward and forward+backward (its o within 2^-5 of
+     the plain version's); phase 1 prints the kernels' registers, local
+     bytes and shared memory;
+ 21. trains transformer_lm in bf16 at full width, as phases 10 and 12
+     train it in f32 (same seeds, the same data, the f32 init rounded):
+     bf16 params at T=256 B=32 (20 steps), T=8192 B=1 (10), T=32768 B=1
+     with remat (4), and f32 masters with compute_dtype bf16 at T=8192
+     (10). Gates: losses finite and falling; launches exactly 4 forward +
+     4 dK/dV + 4 dQ bf16 kernels per step (splash: 8 forward under remat)
+     and no other kernel; params at their dtype, updater state f32, the
+     output bf16; the loss curve within 0.1 max(1, |loss|) of the f32
+     row's at every step; one step's loss (2e-3 relative) and every
+     leaf's gradient (max |diff| within 5e-2 of its max |plain|) through
+     the kernels against the plain versions. Prints step ms, tokens/s and
+     the busy share beside the f32 row's;
+ 22. prints the kernels line (the six bf16 kernels as rows of their own,
+     named "<kernel>_bf16").
 
 The last line is {"ok": true, "device": {...}}. Every number printed is
 measured in this run; a "[details]" JSON line before the kernels line
@@ -250,6 +277,20 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 F32_FLOPS_PER_S = 67e12    # H100 SXM f32 outside the tensor cores
 TF32_FLOPS_PER_S = 495e12  # H100 SXM tf32 on the tensor cores, dense
+BF16_FLOPS_PER_S = 989e12  # H100 SXM bf16 on the tensor cores, dense
+# phase 20: a bf16 kernel against its plain version (the library's roundings
+# in PyTorch): max |diff| within one bf16 ulp of the largest element (the
+# two sum in f32 in other orders, so a rounding may flip), mean |diff|
+# within 1e-3 of it (a wrong rounding rule cannot hide under the max), lse
+# (f32 from f32 sums) within 1e-4
+BF16_MAX_REL, BF16_MEAN_REL, BF16_LSE_ABS = 2.0 ** -7, 1e-3, 1e-4
+# phase 21: one bf16 LM step through the kernels against the plain
+# versions (loss relative; every leaf's max |diff| over the largest plain
+# gradient of the step), each path's distance from the same step in f32
+# (the kernel path no more than BF16_VS_F32 times the plain path's, per
+# leaf), and the bf16 loss curve against the f32 one (0.1 max(1, |loss|),
+# the JAX package's test_mixed_precision criterion)
+BF16_LOSS_REL, BF16_GRAD_REL, BF16_VS_F32, BF16_CURVE = 2e-3, 5e-2, 2.0, 0.1
 SPIN_CYCLES = 10_000_000   # about 5 ms at the H100's 1.98 GHz boost clock
 
 VOCAB, D_MODEL, HEADS, BLOCKS = 128, 512, 8, 4
@@ -1619,25 +1660,28 @@ def lm_batch(torch, T, B, seed=0):
             torch.from_numpy(eye[ids[:, 1:]]).cuda())
 
 
-def lm_net(heads, *, remat=False):
+def lm_net(heads, *, remat=False, dtype="float32", compute_dtype=None):
     """A fresh transformer_lm graph on the card: vocab 128, d_model 512,
-    ``heads`` heads, 4 blocks, Adam 3e-4, f32, seed 7."""
+    ``heads`` heads, 4 blocks, Adam 3e-4, seed 7, params at ``dtype``
+    (drawn in f32, then cast: a bf16 net starts from the f32 net's weights
+    rounded), computing at ``compute_dtype`` when given."""
     from deeplearning4j_tpu_torch.models.zoo import transformer_lm
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     conf = transformer_lm(vocab_size=VOCAB, d_model=D_MODEL, n_heads=heads,
-                          n_blocks=BLOCKS)
+                          n_blocks=BLOCKS, dtype=dtype)
     conf.conf.remat = remat
+    conf.conf.compute_dtype = compute_dtype
     return ComputationGraph(conf, device="cuda").init()
 
 
 def lm_train_run(ck, torch, heads, x, y, steps, *, plain=False,
-                 remat=False):
+                 remat=False, dtype="float32", compute_dtype=None):
     """``steps`` fit_batch steps of a fresh `lm_net`, each timed on the
     host clock up to its loss on the host; ``plain`` registers the
     attention kernels' plain versions instead. Returns (net, losses, step
     seconds, launch counts of exactly these steps)."""
     from deeplearning4j_tpu_torch.ops import helpers
-    net = lm_net(heads, remat=remat)
+    net = lm_net(heads, remat=remat, dtype=dtype, compute_dtype=compute_dtype)
     if plain:
         helpers.register_helper("attention",
                                 helpers.PLAIN_OVERRIDES["attention"])
@@ -1844,6 +1888,150 @@ def route_case(ck, torch, flush, L, seed, H=4, D=128):
     return r
 
 
+def bf16_grad_check(torch, net, x, y, heads, remat):
+    """One step's gradients of a bf16 (or mixed-precision) LM through the
+    bf16 kernels, through their plain versions, and of the same params in
+    f32 through the f32 kernels. Returns (the loss's relative difference,
+    kernel against plain; per leaf: max |g_kernel - g_plain| over the
+    largest plain gradient of any leaf ("global") and over the leaf's own
+    ("leaf"), and ||g - g_f32|| / ||g_f32|| of each path)."""
+    from deeplearning4j_tpu_torch.ops import helpers
+    lk, gk = net.compute_gradient_and_score(x, y)
+    helpers.register_helper("attention", helpers.PLAIN_OVERRIDES["attention"])
+    try:
+        lp, gp = net.compute_gradient_and_score(x, y)
+    finally:
+        helpers.register_helper("attention", None)
+    ref = lm_net(heads, remat=remat)
+    ref.set_params(net.params)
+    _, g32 = ref.compute_gradient_and_score(x, y)
+    del ref
+    gmax = max(float(g.float().abs().max()) for lg in gp.values()
+               for g in lg.values())
+    leaves = {}
+    for n in gk:
+        for k in gk[n]:
+            a, b, c = (g[n][k].float() for g in (gk, gp, g32))
+            d = float((a - b).abs().max())
+            cn = float(c.norm().clamp_min(1e-30))
+            leaves[f"{n}.{k}"] = {
+                "global": d / gmax,
+                "leaf": d / float(b.abs().max().clamp_min(1e-30)),
+                "kernel_vs_f32": float((a - c).norm()) / cn,
+                "plain_vs_f32": float((b - c).norm()) / cn}
+    return float((lk - lp).abs() / lp.abs()), leaves
+
+
+def bf16_case(ck, torch, flush, *, family, B, L, H, D, causal, seed,
+              timed=True):
+    """The three bf16 kernels of ``family`` ("flash", or "splash" on q
+    pre-scaled in bf16 as `_splash` scales it) against their plain versions
+    at one shape, on bf16 inputs; each backward kernel takes the plain
+    forward's lse and o (di = sum_d o * dO in f32), so each kernel is held
+    alone. Errors of o, dq, dk and dv over each one's max |plain| (max and
+    mean |diff|), of lse absolute. Times (as in phase 2) beside the bf16
+    bound (the pairs the mask keeps at 989 TFLOP/s, or bf16 bytes), and
+    SDPA at bf16 on [B, H, L, D] views, forward and forward+backward,
+    unless ``timed`` is False (the edge set: values only)."""
+    import functools
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.ops import splash_mask
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator().manual_seed(seed)
+    q, k, v, do = (torch.randn((B, L, H, D), generator=g).to(dev, bf)
+                   for _ in range(4))
+    scale = D ** -0.5
+    if family == "flash":
+        kw = dict(causal=causal, scale=scale)
+        qin = q
+        fns = [functools.partial(f, **kw) for f in (
+            ck.flash_attention_fwd, ck.flash_attention_bwd_dkv,
+            ck.flash_attention_bwd_dq, ck.flash_attention_fwd_ref,
+            ck.flash_attention_bwd_dkv_ref, ck.flash_attention_bwd_dq_ref)]
+    else:
+        tb = splash_mask.splash_tables(L, H, causal)
+        qin = q * torch.full((), scale, dtype=bf, device=dev)
+        fns = [functools.partial(f, tables=tb) for f in (
+            ck.splash_attention_fwd, ck.splash_attention_bwd_dkv,
+            ck.splash_attention_bwd_dq, ck.splash_attention_fwd_ref,
+            ck.splash_attention_bwd_dkv_ref, ck.splash_attention_bwd_dq_ref)]
+    fwd, dkv, dq, rfwd, rdkv, rdq = fns
+    o, lse = fwd(qin, k, v)
+    ro, rlse = rfwd(qin, k, v)
+    di = (ro.float() * do.float()).sum(dim=-1).permute(0, 2, 1).contiguous()
+    bwd = (qin, k, v, do, rlse, di)
+    dk, dv = dkv(*bwd)
+    dq_ = dq(*bwd)
+    dk2, dv2 = dkv(*bwd)
+    dq2 = dq(*bwd)
+    rdk, rdv = rdkv(*bwd)
+    rdq_ = rdq(*bwd)
+    torch.cuda.synchronize()
+    outs = {"o": (o, ro), "dq": (dq_, rdq_), "dk": (dk, rdk), "dv": (dv, rdv)}
+    rel, mean = {}, {}
+    for n, (a, b) in outs.items():
+        d = (a.float() - b.float()).abs()
+        m = float(b.float().abs().max())
+        rel[n], mean[n] = float(d.max()) / m, float(d.mean()) / m
+    r = {"family": family, "shape": [B, L, H, D], "causal": causal,
+         "rel_err": rel, "mean_rel_err": mean,
+         "lse_abs_err": float((lse - rlse).abs().max()),
+         "max_abs_err": {
+             "o": float((o.float() - ro.float()).abs().max()),
+             "dkv": max(float((dk.float() - rdk.float()).abs().max()),
+                        float((dv.float() - rdv.float()).abs().max())),
+             "dq": float((dq_.float() - rdq_.float()).abs().max())},
+         "repeat_bitwise": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2)
+                                and torch.equal(dq_, dq2)),
+         "dtypes": [str(t.dtype) for t in (o, lse, dq_, dk, dv)],
+         "finite": bool(all(torch.isfinite(t).all()
+                            for t in (o, lse, dq_, dk, dv)))}
+    r["ok"] = bool(max(rel.values()) <= BF16_MAX_REL
+                   and max(mean.values()) <= BF16_MEAN_REL
+                   and r["lse_abs_err"] <= BF16_LSE_ABS and r["finite"]
+                   and r["dtypes"] == ["torch.bfloat16", "torch.float32"]
+                   + ["torch.bfloat16"] * 3)
+    del o, lse, dk, dv, dq_, dk2, dv2, dq2, rdk, rdv, rdq_
+    if not timed:
+        return r
+    reps = 5 if L >= 32768 else (10 if L >= 4096 else 25)
+    for suffix, trio in (("", (lambda: fwd(qin, k, v), lambda: dkv(*bwd),
+                               lambda: dq(*bwd))),
+                         ("_plain", (lambda: rfwd(qin, k, v),
+                                     lambda: rdkv(*bwd), lambda: rdq(*bwd)))):
+        for name, fn in zip(("fwd", "dkv", "dq"), trio):
+            r[f"{name}{suffix}_ms"] = time_ms(fn, reps=reps, flush=flush)
+    # least work: the operations of the pairs the mask keeps, in bf16 on
+    # the tensor cores; each bf16 input read, each output written once (lse
+    # and di f32)
+    pairs, _, small = flash_bound(B, L, H, D, causal)
+    big = 2 * B * L * H * D
+    for name, n_ops, n_bytes in (
+            ("fwd", 4 * D * pairs, 4 * big + small),
+            ("dkv", 8 * D * pairs, 6 * big + 2 * small),
+            ("dq", 6 * D * pairs, 5 * big + 2 * small)):
+        r[name + "_bound_ms"], r[name + "_bound_by"] = bound(
+            n_bytes, n_ops, BF16_FLOPS_PER_S)
+        r[name + "_bound_share"] = r[name + "_bound_ms"] / r[name + "_ms"]
+    qt, kt, vt = (t.transpose(1, 2).requires_grad_(True) for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                              scale=scale)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+    with torch.no_grad():
+        so = sdpa().transpose(1, 2).float()
+        r["sdpa_rel_err"] = float((so - ro.float()).abs().max()
+                                  / ro.float().abs().max())
+        del so
+        r["sdpa_fwd_ms"] = time_ms(sdpa, reps=reps, flush=flush)
+    r["sdpa_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd, reps=reps, flush=flush)
+    return r
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1878,6 +2066,9 @@ def main():
     # bytes per thread (spills and stack), dynamic shared memory
     attn_build = {D: ck.attention_tc_attrs(D) for D in ck.FLASH_HEAD_DIMS}
     phase(1, f"tensor-core attention kernels by head dim: {attn_build}")
+    attn_bf16_build = {D: ck.attention_bf16_attrs(D)
+                       for D in ck.FLASH_HEAD_DIMS}
+    phase(1, f"bf16 attention kernels by head dim: {attn_bf16_build}")
     paged_build = {f"G={g} Dh=64": ck.paged_decode_attrs(g, D_MODEL // HEADS)
                    for g in (1, 4)}
     phase(1, f"paged decode kernels at the serving head dim, MHA and GQA: "
@@ -2770,6 +2961,180 @@ def main():
               f"{pred['client_latency_p99_ms']:.3f} ms; {pred['wall_s']:.3f}"
               f" s [{card}]")
 
+    # -- 20. the bf16 attention kernels against their plain versions --------
+    # phases 20-21 gather their failures and stop after phase 21
+    failures = []
+    bf16_main = [dict(family="flash", B=32, L=256, H=8, D=64, causal=True),
+                 dict(family="flash", B=1, L=8192, H=4, D=128, causal=True),
+                 dict(family="flash", B=1, L=8192, H=4, D=128, causal=False),
+                 dict(family="splash", B=1, L=32768, H=4, D=128, causal=True),
+                 dict(family="splash", B=1, L=32768, H=8, D=128, causal=True)]
+    # the masks' edges: odd L at every head dim (flash), the smallest
+    # tables (splash); values only
+    bf16_edge = ([dict(family="flash", B=b, L=L, H=h, D=d, causal=c)
+                  for d in (16, 32, 64, 128) for L in (7, 129, 300)
+                  for b, h, c in ((3, 1, False), (1, 3, True))]
+                 + [dict(family="splash", B=b, L=L, H=h, D=d, causal=c)
+                    for L in (128, 256) for d in (16, 32)
+                    for b, h, c in ((3, 1, False), (1, 3, True))])
+    bf16_edges = []
+    for i, c in enumerate(bf16_edge):
+        r = bf16_case(ck, torch, flush, seed=850 + i, timed=False, **c)
+        bf16_edges.append(r)
+        if not (r["ok"] and r["repeat_bitwise"]):
+            failures.append(f"bf16 {r['family']} kernels disagree with the "
+                            f"plain versions at the edge {r['shape']} "
+                            f"causal={r['causal']}: {r}")
+    phase(20, f"bf16 edge set, {len(bf16_edges)} cases (flash L = 7, 129, "
+              f"300 at D = 16-128; splash L = 128, 256 at D = 16, 32; full "
+              f"B*H = 3 and causal): worst max|diff|/max|plain| "
+              f"{max(max(r['rel_err'].values()) for r in bf16_edges):.3e}, "
+              f"mean {max(max(r['mean_rel_err'].values()) for r in bf16_edges):.3e}"
+              f", lse abs {max(r['lse_abs_err'] for r in bf16_edges):.3e}; "
+              f"all bitwise repeatable "
+              f"{all(r['repeat_bitwise'] for r in bf16_edges)}")
+    bf16_cases = []
+    for i, c in enumerate(bf16_main):
+        r = bf16_case(ck, torch, flush, seed=800 + i, **c)
+        bf16_cases.append(r)
+        torch.cuda.empty_cache()
+        e, m = r["rel_err"], r["mean_rel_err"]
+        times = ", ".join(
+            f"{n} {r[n + '_ms']:.4f} / {r[n + '_plain_ms']:.4f} / "
+            f"{r[n + '_bound_ms']:.4f} ({r[n + '_bound_by']}; share "
+            f"{r[n + '_bound_share']:.3f})" for n in ("fwd", "dkv", "dq"))
+        phase(20, f"bf16 {r['family']} {r['shape']} "
+                  f"{'causal' if r['causal'] else 'full'}: max|diff|/max|plain|"
+                  f" o {e['o']:.3e} dq {e['dq']:.3e} dk {e['dk']:.3e} dv "
+                  f"{e['dv']:.3e} (gate {BF16_MAX_REL:.3e}), mean "
+                  f"{max(m.values()):.3e} (gate {BF16_MEAN_REL}), lse abs "
+                  f"{r['lse_abs_err']:.3e} (gate {BF16_LSE_ABS}); bitwise "
+                  f"repeatable {r['repeat_bitwise']}; kernel / plain / bf16 "
+                  f"bound ms: {times}; SDPA (bf16) fwd {r['sdpa_fwd_ms']:.4f} "
+                  f"ms, fwd+bwd {r['sdpa_fwd_bwd_ms']:.4f} ms, its o vs plain "
+                  f"{r['sdpa_rel_err']:.3e} [{card}]")
+        if not r["ok"]:
+            failures.append(f"bf16 {r['family']} kernels disagree with the "
+                            f"plain versions at {r['shape']} "
+                            f"causal={r['causal']}: {r}")
+        if not r["sdpa_rel_err"] <= 2.0 ** -5:
+            failures.append(f"the bf16 SDPA yardstick computes another "
+                            f"function at {r['shape']}: {r['sdpa_rel_err']}")
+
+    # -- 21. transformer_lm training in bf16 (params, and mixed precision) ---
+    bf16_flash = tuple(f"{k}_bf16" for k in flash_keys)
+    bf16_splash = tuple(f"{k}_bf16" for k in splash_keys)
+    f32_rows = dict(lm, transformer_lm_32k=lc)
+    lm16 = {}
+    for key, ref, heads, T, Bn, steps, dtype, cdt, remat in (
+            ("transformer_lm_bf16", "transformer_lm", HEADS, 256, 32, 20,
+             "bfloat16", None, False),
+            ("transformer_lm_long_bf16", "transformer_lm_long", 4, 8192, 1,
+             10, "bfloat16", None, False),
+            ("transformer_lm_long_mixed", "transformer_lm_long", 4, 8192, 1,
+             10, "float32", "bfloat16", False),
+            ("transformer_lm_32k_bf16", "transformer_lm_32k", 4, T32, 1,
+             STEPS32, "bfloat16", None, True)):
+        xt, yt = lm_batch(torch, T, Bn)
+        torch.cuda.reset_peak_memory_stats()
+        net, losses, secs, launches = lm_train_run(
+            ck, torch, heads, xt, yt, steps, remat=remat, dtype=dtype,
+            compute_dtype=cdt)
+        want = dict.fromkeys(ck.LAUNCHES, 0)
+        if remat:
+            want.update({bf16_splash[0]: 2 * BLOCKS * steps,
+                         bf16_splash[1]: BLOCKS * steps,
+                         bf16_splash[2]: BLOCKS * steps})
+        else:
+            want.update(dict.fromkeys(bf16_flash, BLOCKS * steps))
+        if launches != want:
+            failures.append(f"{key} launches {launches}, want {want}")
+        if not losses[-1] < losses[0]:
+            failures.append(f"{key} loss did not fall: {losses}")
+        f32_losses = f32_rows[ref]["losses"][:steps]
+        curve = [abs(a - b) / max(1.0, abs(b))
+                 for a, b in zip(losses, f32_losses)]
+        if not max(curve) <= BF16_CURVE:
+            failures.append(f"{key} left the f32 curve: {losses} vs "
+                            f"{f32_losses}")
+        pdt = {str(p.dtype) for lp in net.params.values()
+               for p in lp.values()}
+        sdt = {str(t.dtype) for lu in net.updater_state.values()
+               for st in lu.values() for t in st.values()}
+        odt = str(net.output(xt[:1])[0].dtype)
+        want_dt = ({f"torch.{dtype}"}, {"torch.float32"}, "torch.bfloat16")
+        if (pdt, sdt, odt) != want_dt:
+            failures.append(f"{key} dtypes: params {pdt}, updater state "
+                            f"{sdt}, output {odt}; want {want_dt}")
+        steady = secs[1:]
+        r = {"heads": heads, "T": T, "batch": Bn, "steps": steps,
+             "dtype": dtype, "compute_dtype": cdt, "remat": remat,
+             "losses": losses, "f32_losses": f32_losses,
+             "curve_rel": curve, "step_s": secs,
+             "first_step_ms": secs[0] * 1e3,
+             "mean_step_ms": 1e3 * sum(steady) / len(steady),
+             "tokens_per_s": Bn * T * len(steady) / sum(steady),
+             "f32_mean_step_ms": f32_rows[ref]["mean_step_ms"],
+             "f32_tokens_per_s": f32_rows[ref]["tokens_per_s"],
+             "launches": launches, "params": net.num_params(),
+             "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        ours = bf16_splash if remat else bf16_flash
+        phase(21, f"{key} ({r['params']} params, {dtype} params"
+                  f"{', compute ' + cdt if cdt else ''}) {heads} heads T={T} "
+                  f"B={Bn}{', remat' if remat else ''}, {steps} fit_batch "
+                  f"steps: loss {losses[0]:.6f} -> {losses[-1]:.6f}, all "
+                  f"finite; vs the f32 row's curve max "
+                  f"{max(curve):.3e} of max(1, |loss|) (gate {BF16_CURVE}); "
+                  f"launches { {k: launches[k] for k in ours} }; steps "
+                  f"2-{steps}: mean {r['mean_step_ms']:.3f} ms = "
+                  f"{r['tokens_per_s']:.1f} tokens/s against f32 "
+                  f"{r['f32_mean_step_ms']:.3f} ms = "
+                  f"{r['f32_tokens_per_s']:.1f} (first step "
+                  f"{r['first_step_ms']:.1f} ms), peak memory "
+                  f"{r['peak_mem_bytes']} B [{card}]")
+        r["profile"] = lm_profile(
+            torch, net, xt, yt, 2 if remat else 5,
+            keys=(("splash_fwd", "splash_bwd_dkv", "splash_bwd_dq") if remat
+                  else ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")))
+        pr = r["profile"]
+        f32_busy = f32_rows[ref]["profile"]["device_busy_share"]
+        phase(21, f"{key} under torch.profiler, {pr['steps']} more steps: "
+                  f"wall {pr['wall_ms']:.3f} ms, device busy "
+                  f"{pr['device_busy_ms']:.3f} ms "
+                  f"({100 * pr['device_busy_share']:.2f}%; the f32 row "
+                  f"{100 * f32_busy:.2f}%); the three kernels "
+                  f"{pr['kernels_ms']}; top {pr['top_kernels_ms'][:5]} "
+                  f"[{card}]")
+        r["grad_loss_rel"], r["grad_leaves"] = bf16_grad_check(
+            torch, net, xt, yt, heads, remat)
+        gl = r["grad_leaves"]
+
+        def worst(fn):
+            return max(((n, fn(v)) for n, v in gl.items()),
+                       key=lambda kv: kv[1])
+        wg, wl = worst(lambda v: v["global"]), worst(lambda v: v["leaf"])
+        wr = worst(lambda v: v["kernel_vs_f32"]
+                   / max(v["plain_vs_f32"], 1e-30))
+        phase(21, f"{key} gradients at step {steps + pr['steps']}'s params "
+                  f"through the kernels and through their plain versions: "
+                  f"loss rel diff {r['grad_loss_rel']:.3e} (gate "
+                  f"{BF16_LOSS_REL}); worst leaf {wg[0]} max|diff| "
+                  f"{wg[1]:.3e} of the largest plain gradient (gate "
+                  f"{BF16_GRAD_REL}); over its own max, worst {wl[0]} "
+                  f"{wl[1]:.3e} (kernel / plain distance from f32 there "
+                  f"{gl[wl[0]]['kernel_vs_f32']:.3e} / "
+                  f"{gl[wl[0]]['plain_vs_f32']:.3e}); the kernel path's "
+                  f"distance from the f32 step over the plain path's, worst "
+                  f"leaf {wr[0]} {wr[1]:.3f} (gate {BF16_VS_F32})")
+        if not (r["grad_loss_rel"] <= BF16_LOSS_REL
+                and wg[1] <= BF16_GRAD_REL and wr[1] <= BF16_VS_F32):
+            failures.append(f"{key} kernel and plain gradients differ: "
+                            f"{r['grad_loss_rel']} {wg} {wr}")
+        lm16[key] = r
+        del net, xt, yt
+        torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit("phases 20-21 failed: " + " | ".join(failures))
 
     src = "deeplearning4j_tpu_torch/ops/csrc/paged_decode_attention.cu"
     kernels = []
@@ -2875,6 +3240,43 @@ def main():
                            else None)})
         kernels[-1]["tc_bound_ms"] = n * path_case[key + "_tc_bound_ms"]
         kernels[-1]["tc_bound_share"] = path_case[key + "_tc_bound_share"]
+    # the bf16 kernels: per bf16 LM step as the f32 rows (flash at [1, 8192,
+    # 4, 128] causal, four launches; splash at [1, 32768, 4, 128], 8 + 4 +
+    # 4 under remat); launches of the phase-21 runs; max |diff| over the
+    # family's phase-20 shapes
+    flash16 = [c for c in bf16_cases if c["family"] == "flash"]
+    splash16 = [c for c in bf16_cases if c["family"] == "splash"]
+    for fam, cases16, case, per, lines in (
+            ("flash", flash16, flash16[1],
+             {"fwd": BLOCKS, "dkv": BLOCKS, "dq": BLOCKS},
+             ("589 (_flash_call -> jax/experimental/pallas/ops/tpu/"
+              "flash_attention.py:", ("758", "1121", "1456"))),
+            ("splash", splash16, splash16[0], per_step,
+             ("609 (_splash_call -> jax/experimental/pallas/ops/tpu/"
+              "splash_attention/splash_attention_kernel.py:",
+              ("1137", "2196", "1635")))):
+        for key, err_key, src_name, lib_line in zip(
+                ("fwd", "dkv", "dq"), ("o", "dkv", "dq"),
+                (f"{fam}_attention_fwd.cu", f"{fam}_attention_bwd.cu",
+                 f"{fam}_attention_bwd.cu"), lines[1]):
+            name = f"{fam}_attention_{'fwd' if key == 'fwd' else 'bwd_' + key}"
+            n = per[key]
+            kernels.append({
+                "name": name + "_bf16", "route": "cuda",
+                "source": f"{csrc}/{src_name}",
+                "replaces": f"deeplearning4j_tpu/ops/pallas_kernels.py:"
+                            f"{lines[0]}{lib_line}, JAX 0.9.0, at bf16)",
+                "launches": sum(r["launches"][name + "_bf16"]
+                                for r in lm16.values()),
+                "max_abs_err": max(c["max_abs_err"][err_key]
+                                   for c in cases16),
+                "ms": n * case[key + "_ms"],
+                "plain_ms": n * case[key + "_plain_ms"],
+                "bound_ms": n * case[key + "_bound_ms"],
+                "bound_by": case[key + "_bound_by"],
+                "library_ms": (n * case["sdpa_fwd_ms"] if key == "fwd"
+                               else None),
+                "bound_share": case[key + "_bound_share"]})
     print("[details] " + json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
          "build_s": build_s, "ptxas": ptxas, "attn_build": attn_build,
@@ -2892,9 +3294,11 @@ def main():
          "lm_train_32k": lc, "kv_cache_generation": gen,
          "prefix_serving": prefix, "contiguous_serving": cont,
          "guarded_serving": guarded, "streaming": stream, "chaos": chaos,
-         "predict_alexnet": pred,
+         "predict_alexnet": pred, "attn_bf16_build": attn_bf16_build,
+         "bf16_cases": bf16_cases, "bf16_edges": bf16_edges,
+         "lm_train_bf16": lm16,
          "elapsed_s": time.monotonic() - t_start}))
-    phase(20, "kernels:")
+    phase(22, "kernels:")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,13 +5,19 @@ synthetic copy task (repeat the prompt after a separator: position-
 sensitive, so RoPE matters), then streams a completion through the
 contiguous KV cache. On the card, sequences of 32768 tokens and more take
 the splash kernels (ops/helpers.attention_route); this toy's take flash.
+``--dtype bfloat16`` trains bf16 parameters, ``--compute-dtype bfloat16``
+f32 master weights with bf16 compute; either runs the bf16 attention
+kernels, and the completion then re-forwards its context (bf16 decode
+through the KV cache is not ported yet).
 
 Run: python -m deeplearning4j_tpu_torch.examples.long_context_lm \\
-         [--steps N] [--device cuda|cpu]
+         [--steps N] [--device cuda|cpu] [--dtype float32|bfloat16] \\
+         [--compute-dtype bfloat16]
 """
 import argparse
 
 import numpy as np
+import torch
 
 from ..models.sampling import generate_transformer
 from ..models.zoo import transformer_lm
@@ -27,11 +33,13 @@ def make_batch(rng, vocab, half, batch):
 
 
 def main(steps: int = 300, vocab: int = 12, half: int = 8, batch: int = 32,
-         device: str = "cuda") -> float:
+         device: str = "cuda", dtype: str = "float32",
+         compute_dtype=None) -> float:
     """Train, report and return the copy accuracy on a fresh batch."""
     conf = transformer_lm(vocab_size=vocab, d_model=64, n_heads=4,
-                          n_blocks=2, lr=3e-3, rope=True,
+                          n_blocks=2, lr=3e-3, rope=True, dtype=dtype,
                           n_kv_heads=2)  # grouped-query attention
+    conf.conf.compute_dtype = compute_dtype
     conf.conf.remat = True  # rematerialize layer internals
     net = ComputationGraph(conf, device=device).init()
     rng = np.random.default_rng(0)
@@ -49,8 +57,9 @@ def main(steps: int = 300, vocab: int = 12, half: int = 8, batch: int = 32,
 
     # stream a completion through the KV cache
     prompt = [int(t) for t in seq[0, :half + 1]]  # prompt + SEP
-    completion = generate_transformer(net, prompt, half, vocab,
-                                      use_cache=True)
+    completion = generate_transformer(
+        net, prompt, half, vocab,
+        use_cache=net.compute_dtype == torch.float32)
     print("prompt:", prompt[:-1], "-> completion:", completion)
     return acc
 
@@ -59,5 +68,9 @@ if __name__ == "__main__":
     p = argparse.ArgumentParser()
     p.add_argument("--steps", type=int, default=300)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--dtype", default="float32",
+                   choices=("float32", "bfloat16"))
+    p.add_argument("--compute-dtype", default=None, choices=("bfloat16",))
     a = p.parse_args()
-    main(a.steps, device=a.device)
+    main(a.steps, device=a.device, dtype=a.dtype,
+         compute_dtype=a.compute_dtype)

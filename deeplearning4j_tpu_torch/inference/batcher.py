@@ -101,9 +101,11 @@ def bucket_for(n: int, buckets: List[int]) -> int:
 
 
 def _to_host(out) -> np.ndarray:
-    """The dispatch's one device->host copy (a no-op for numpy)."""
+    """The dispatch's one device->host copy (a no-op for numpy); a bf16
+    net's output comes as f32, which holds it exactly."""
     if isinstance(out, torch.Tensor):
-        return out.detach().cpu().numpy()
+        out = out.detach().cpu()
+        return (out.float() if out.dtype == torch.bfloat16 else out).numpy()
     return np.asarray(out)
 
 

@@ -109,6 +109,7 @@ import torch
 import torch.nn.functional as F
 
 from ..models.sampling import sample_logits
+from ..nn.graph import check_f32_decode
 from ..nn.layers.attention import SelfAttentionLayerImpl
 from ..ops import cuda_kernels as ck
 from ..util.device import DeviceLike, resolve_device
@@ -448,6 +449,7 @@ class DecodeScheduler:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         net._check_init()
+        check_f32_decode(net, "the decode engine")
         self.net = net
         self.vocab_size = int(vocab_size)
         self.n_slots = int(n_slots)

@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 
 def _sample_logits(probs: np.ndarray, temperature: float, top_k: Optional[int],
@@ -70,6 +71,13 @@ def _cache_capacity_check(net, needed: int, prompt_len: int,
                 f"so no tokens are consumed before the failure)")
 
 
+def _host_probs(t) -> np.ndarray:
+    """A next-token distribution on the host; bf16 (a bf16 net's output)
+    comes as f32, which holds it exactly."""
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
 def generate_transformer(net, prompt_ids: Sequence[int], n_tokens: int,
                          vocab_size: int, *, temperature: float = 0.0,
                          top_k: Optional[int] = None,
@@ -99,21 +107,21 @@ def generate_transformer(net, prompt_ids: Sequence[int], n_tokens: int,
                               len(prompt_ids), n_tokens)
         net.rnn_clear_previous_state()
         try:
-            probs = net.rnn_time_step(onehot(prompt_ids, vocab_size))[0][
-                0, -1].cpu().numpy()
+            probs = _host_probs(net.rnn_time_step(
+                onehot(prompt_ids, vocab_size))[0][0, -1])
             for i in range(n_tokens):
                 nxt = _sample_logits(probs, temperature, top_k, rng, top_p)
                 out.append(nxt)
                 if i + 1 < n_tokens:  # the final token needs no forward
-                    probs = net.rnn_time_step(onehot([nxt], vocab_size))[0][
-                        0, -1].cpu().numpy()
+                    probs = _host_probs(net.rnn_time_step(
+                        onehot([nxt], vocab_size))[0][0, -1])
         finally:
             net.rnn_clear_previous_state()
         return out
     ids = [int(i) for i in prompt_ids]
     for _ in range(n_tokens):
         ctx = ids if max_context is None else ids[-max_context:]
-        probs = net.output(onehot(ctx, vocab_size))[0][0, -1].cpu().numpy()
+        probs = _host_probs(net.output(onehot(ctx, vocab_size))[0][0, -1])
         nxt = _sample_logits(probs, temperature, top_k, rng, top_p)
         ids.append(nxt)
         out.append(nxt)

@@ -19,14 +19,25 @@ forward but the loss path's output layer (nn/layers/base.remat_forward).
 contiguous KV cache, kept between calls until
 ``rnn_clear_previous_state``.
 
+Precision (JAX graph.py :173-227, multilayer.py :42-60): parameters are
+made at ``conf.dtype`` (float32, bfloat16 or float64) and the forward runs
+at ``conf.compute_dtype`` when it is set (mixed precision: f32 master
+weights cast to the compute dtype in the forward, so autograd hands f32
+gradients back to the masters), else at the parameter dtype. Inputs and
+every vertex output are cast to the compute dtype; losses and the
+regularisation sum are f32; ``output`` and ``score`` follow the compute
+dtype. An unsupported ``compute_dtype`` raises ValueError.
+
 Parameters live on ``device`` (default "cuda"; it raises when no CUDA
 device is present — pass device="cpu" to run on the CPU). The attention
-layers run the port's flash or splash kernels there
-(ops/helpers.attention).
+layers run the port's flash or splash kernels there, f32 or bf16 by the
+compute dtype (ops/helpers.attention).
 Not ported yet, and raising where asked for: truncated BPTT, the
-line-search solvers, ``fit_batch_accumulated``, mixed precision, vertex
-preprocessors, layers with non-trainable variables (BatchNorm), and the
-vertex types ``transformer_lm`` does not use.
+line-search solvers, ``fit_batch_accumulated``, vertex preprocessors,
+layers with non-trainable variables (BatchNorm), the vertex types
+``transformer_lm`` does not use, and ``rnn_time_step`` (with it
+``generate_transformer(use_cache=True)``) when the compute dtype is not
+f32 (ROADMAP A4, bf16 decode).
 """
 from __future__ import annotations
 
@@ -49,19 +60,52 @@ from ..ops import losses as losses_mod
 from ..util.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
-_DTYPES = {"float32": torch.float32}
 _SGD_ALGOS = ("stochastic_gradient_descent", "sgd")
 
 
 def _dtype_of(conf) -> torch.dtype:
-    if conf.compute_dtype not in (None, conf.dtype):
-        raise NotImplementedError("mixed precision comes with a later slice")
-    try:
-        return _DTYPES[conf.dtype]
-    except KeyError:
+    """The parameter dtype (JAX multilayer.py :42): bfloat16 and float64
+    by name, float32 for anything else."""
+    return {"bfloat16": torch.bfloat16,
+            "float64": torch.float64}.get(conf.dtype, torch.float32)
+
+
+_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                   "float64": torch.float64}
+
+
+def _compute_dtype_of(conf) -> torch.dtype:
+    """Forward/backward compute dtype: ``compute_dtype`` when set (mixed
+    precision with the masters at the parameter dtype), else the
+    parameter dtype (JAX multilayer.py :50)."""
+    cd = getattr(conf, "compute_dtype", None)
+    if cd:
+        if cd not in _COMPUTE_DTYPES:
+            raise ValueError(f"Unsupported compute_dtype '{cd}' "
+                             f"(supported: {sorted(_COMPUTE_DTYPES)})")
+        return _COMPUTE_DTYPES[cd]
+    return _dtype_of(conf)
+
+
+def _cast_floats(params, dtype):
+    """{layer: {name: tensor}} with every floating tensor cast to dtype (a
+    differentiable cast: the gradient flows back to the masters)."""
+    return {name: {k: v.to(dtype) if v.is_floating_point() else v
+                   for k, v in lp.items()}
+            for name, lp in params.items()}
+
+
+def check_f32_decode(net, what: str) -> None:
+    """Raise NotImplementedError unless ``net`` computes in f32: the KV-cached
+    paths (``rnn_time_step``, ``generate_transformer(use_cache=True)``, the
+    decode engine) run f32 only until bf16 decode lands (ROADMAP A4; the
+    JAX package serves such a net through its gather body, since its paged
+    kernel declines a query that is not f32)."""
+    cd = getattr(net, "compute_dtype", torch.float32)
+    if cd != torch.float32:
         raise NotImplementedError(
-            f"dtype {conf.dtype!r}: the port runs float32 models (its "
-            "kernels are f32); bf16 comes with a later slice") from None
+            f"{what} on a net computing in {cd}: bf16 decode is queued as "
+            "ROADMAP A4")
 
 
 class ComputationGraph:
@@ -70,6 +114,7 @@ class ComputationGraph:
         self.conf = conf
         self.device = resolve_device(device)
         self.dtype = _dtype_of(conf.conf)
+        self.compute_dtype = _compute_dtype_of(conf.conf)
         self.topo = conf.topological_order()
         self._impls: Dict[str, LayerImpl] = {}
         for name, v in conf.vertices.items():
@@ -134,7 +179,13 @@ class ComputationGraph:
             return None
         t = a if isinstance(a, Tensor) else torch.as_tensor(np.asarray(a))
         t = t.to(self.device)
-        return t.to(self.dtype) if t.is_floating_point() else t
+        if not t.is_floating_point():
+            return t
+        # floats arrive at f32 (f64 for an f64 graph), as JAX arrays do;
+        # the forward casts its inputs to the compute dtype, the losses take
+        # the labels as they are
+        return t.to(torch.float64 if self.dtype == torch.float64
+                    else torch.float32)
 
     def _as_tensors(self, arrays) -> Optional[List[Optional[Tensor]]]:
         if arrays is None:
@@ -204,12 +255,15 @@ class ComputationGraph:
         mask of its inputs (several are combined by their minimum) while
         its output keeps a time axis."""
         conf = self.conf
+        dtype = self.compute_dtype
+        if dtype != self.dtype:  # mixed precision: compute on cast masters
+            params = _cast_floats(params, dtype)
         acts: Dict[str, Tensor] = {}
         vmasks: Dict[str, Optional[Tensor]] = {}
         for i, iname in enumerate(conf.network_inputs):
             x = inputs[i]
-            if x.is_floating_point() and x.dtype != self.dtype:
-                x = x.to(self.dtype)
+            if x.is_floating_point() and x.dtype != dtype:
+                x = x.to(dtype)
             acts[iname] = x
             vmasks[iname] = (fmasks or {}).get(iname)
         new_states: Dict[str, Any] = {}
@@ -227,6 +281,8 @@ class ComputationGraph:
                 train=train, gen=gen, mask=in_mask, states=states,
                 new_states=new_states,
                 preouts=preouts if name in out_names else None)
+            if y.is_floating_point() and y.dtype != dtype:
+                y = y.to(dtype)  # stop f32 creep under mixed precision
             acts[name] = y
             vmasks[name] = in_mask if y.ndim == 3 else None
         if want_preout:
@@ -391,12 +447,14 @@ class ComputationGraph:
         ([B, T, F], or [B, F] for one step) continues where the last call
         ended, through the attention layers' contiguous KV caches, which
         the first call makes (capacity ``max_cache_len``). Returns the
-        network outputs for these steps."""
+        network outputs for these steps. Refused when the compute dtype is
+        not f32: bf16 decode is queued (ROADMAP A4)."""
         self._check_init()
+        check_f32_decode(self, "rnn_time_step")
         ins = [a[:, None, :] if a.ndim == 2 else a
                for a in self._as_tensors(list(inputs))]
         states = materialize_rnn_states(self._impls.items(), self._rnn_state,
-                                        ins[0].shape[0], self.dtype,
+                                        ins[0].shape[0], self.compute_dtype,
                                         self.device)
         acts, self._rnn_state = self._forward_impl(self.params, ins,
                                                    states=states)
@@ -436,15 +494,23 @@ class ComputationGraph:
                        for p in lp.values()))
 
     def params_flat(self) -> np.ndarray:
+        """Every parameter flattened in the JAX flat order; bf16 parameters
+        come as f32 (exact), numpy having no bf16 of its own."""
         chunks = []
         for name in sorted(self.params):
             for pname in sorted(self.params[name]):
-                chunks.append(self.params[name][pname].detach().cpu()
-                              .numpy().reshape(-1))
+                t = self.params[name][pname].detach().cpu()
+                if t.dtype == torch.bfloat16:
+                    t = t.float()
+                chunks.append(t.numpy().reshape(-1))
         return np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
 
     def set_params_flat(self, flat: np.ndarray):
+        """Load ``flat`` (any float dtype numpy holds, bf16 included), cast
+        to each parameter's dtype."""
         flat = np.asarray(flat)
+        if flat.dtype.name == "bfloat16":  # a JAX bf16 net's params_flat
+            flat = flat.astype(np.float32)
         total = sum(p.numel() for lp in self.params.values()
                     for p in lp.values())
         if flat.size != total:

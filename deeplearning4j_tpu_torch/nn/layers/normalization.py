@@ -118,7 +118,11 @@ class LayerNormalizationImpl(LayerImpl):
         x = self._dropout(x, train, gen)
         mean = torch.mean(x, dim=-1, keepdim=True)
         var = torch.var(x, dim=-1, keepdim=True, unbiased=False)
-        y = (x - mean) * torch.rsqrt(var + conf.eps)
+        # eps in x's dtype, as JAX adds it (normalization.py :130); an f32
+        # x takes the Python float, the same f32 scalar
+        eps = conf.eps if x.dtype == torch.float32 else torch.full(
+            (), conf.eps, dtype=x.dtype, device=x.device)
+        y = (x - mean) * torch.rsqrt(var + eps)
         y = y * params["gain"] + params["beta"]
         if conf.activation not in (None, "identity", "linear"):
             y = self.activation_fn()(y)

@@ -21,7 +21,8 @@ device is present — pass device="cpu" to run on the CPU). The conv and
 BN+act+pool layers run the port's CUDA kernels there (ops/helpers.py).
 Not ported yet, and raising where a config asks for them: solvers other
 than SGD, truncated BPTT, layerwise pretraining, recurrent layers, and
-any dtype but float32.
+any dtype or compute dtype but float32 (the bf16 conv and BN+act+pool
+kernels come first: ROADMAP B2, B3).
 """
 from __future__ import annotations
 
@@ -53,8 +54,9 @@ def _check_supported(conf: MultiLayerConfiguration) -> None:
     if g.dtype != "float32" or g.compute_dtype not in (None, g.dtype):
         raise NotImplementedError(
             f"dtype {g.dtype!r} / compute_dtype {g.compute_dtype!r}: the "
-            "port trains float32 nets; bf16 and mixed precision come with "
-            "a later slice")
+            "port's MultiLayerNetwork trains float32 nets; bf16 and mixed "
+            "precision need the bf16 conv and BN+act+pool kernels, queued "
+            "as ROADMAP B2 and B3")
     if conf.pretrain:
         raise NotImplementedError("layerwise pretraining comes with a later "
                                   "slice")

@@ -2,6 +2,9 @@
 `_apply_updaters` (multilayer.py :262, graph.py :275), shared by the
 port's MultiLayerNetwork and ComputationGraph: gradient normalization,
 the lr schedule, the bias lr, the updater's rule, decoupled weight decay.
+Updater state is f32 whatever the parameter dtype; a bf16 parameter takes
+its lr rounded to bf16 and a delta computed in f32 and cast to bf16, as in
+the JAX package (updaters.py :33-37).
 """
 from __future__ import annotations
 
@@ -39,10 +42,20 @@ def update_layer(layer_conf, gconf, weight_keys, params: Dict[str, Tensor],
                           gconf.lr_policy_decay_rate, gconf.lr_policy_power,
                           gconf.lr_policy_steps, gconf.max_num_iterations,
                           gconf.lr_schedule)
-        delta, new_state = updater.apply(ustates[name], g, lr, step)
         p = params[name]
+        if g.dtype != torch.float32:
+            # the lr in the gradient's dtype, as JAX rounds it (graph.py
+            # :301), and the decay in the param's (:305); the updaters then
+            # compute in f32 and cast the delta to the gradient's dtype
+            lr = float(torch.tensor(lr, dtype=g.dtype))
+        delta, new_state = updater.apply(ustates[name], g, lr, step)
         if wd and name in weight_keys:  # decoupled (AdamW-style) decay
-            delta = delta - float(np.float32(lr) * np.float32(wd)) * p
+            if p.dtype == torch.float32:
+                delta = delta - float(np.float32(lr) * np.float32(wd)) * p
+            else:
+                delta = delta - (torch.tensor(lr, dtype=p.dtype)
+                                 * torch.tensor(wd, dtype=p.dtype)).to(
+                                     p.device) * p
         new_params[name] = p + delta
         new_states[name] = new_state
     return new_params, new_states

@@ -43,10 +43,20 @@
 // least times of 0.8331 ms (dK/dV) and 0.6248 ms (dQ) at [1, 8192, 4, 128]
 // causal (2.0516 and 1.5387 ms against f32 outside the tensor cores, 67
 // TFLOP/s).
+//
+// bf16 (dl4j_flash_bwd_dkv_bf16, dl4j_flash_bwd_dq_bf16): the same blocks
+// and walks over attn_dkv_bf16.cuh and attn_dq_bf16.cuh, bf16 q, k, v, dO
+// and outputs, f32 lse and di, bf16 mma.sync with f32 accumulators. As the
+// library rounds: ds takes the scale in f32, then p and ds go to bf16
+// before p^T dO, ds^T q and ds k (flash_attention.py :900, :918, :1258).
+// Bounds at 989 TFLOP/s: 0.1390 ms (dK/dV) and 0.1042 ms (dQ) at
+// [1, 8192, 4, 128] causal.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attn_dkv_bf16.cuh"
 #include "attn_dkv_tc.cuh"
+#include "attn_dq_bf16.cuh"
 #include "attn_dq_tc.cuh"
 #include "flash_common.cuh"  // dl4j_cuda_error_string
 
@@ -185,6 +195,82 @@ int dq_attrs(bool causal, int* out) {
                 : dl4j_tc::attrs(flash_bwd_dq_kernel<D, false>, Dq<D>::kSmem, out);
 }
 
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(dl4j_attn_tc::kThreads, 1)
+    flash_bwd_dkv_bf16_kernel(
+        const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+        const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ di,
+        uint16_t* __restrict__ dk, uint16_t* __restrict__ dv, int L, int H,
+        float scale) {
+  extern __shared__ __align__(16) uint16_t smem_h[];
+  const int k0 = blockIdx.y * dl4j_attn_tc::kRows;
+  const FlashDkvWalk<kCausal, dl4j_attn_tc::DkvBf16<D>::kQT> walk(L, k0, scale);
+  dl4j_attn_tc::attn_dkv_bf16<D>(q, k, v, dout, lse, di, dk, dv, L, H, k0,
+                                 blockIdx.x, blockIdx.z, walk, -INFINITY,
+                                 smem_h);
+}
+
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(dl4j_attn_tc::kThreads, 1)
+    flash_bwd_dq_bf16_kernel(
+        const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+        const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ di,
+        uint16_t* __restrict__ dq, int L, int H, float scale) {
+  extern __shared__ __align__(16) uint16_t smem_h[];
+  const int nq = (L + dl4j_attn_tc::kRows - 1) / dl4j_attn_tc::kRows;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * dl4j_attn_tc::kRows;
+  const FlashDqWalk<kCausal, dl4j_attn_tc::DqBf16<D>::kKeys> walk(L, q0, scale);
+  dl4j_attn_tc::attn_dq_bf16<D>(q, k, v, dout, lse, di, dq, L, H, q0,
+                                blockIdx.x, blockIdx.z, walk, -INFINITY,
+                                smem_h);
+}
+
+template <int D>
+int dkv_bf16(bool causal, const uint16_t* q, const uint16_t* k,
+             const uint16_t* v, const uint16_t* dout, const float* lse,
+             const float* di, uint16_t* dk, uint16_t* dv, int B, int L, int H,
+             float scale, cudaStream_t s) {
+  const dim3 grid(H, (L + dl4j_attn_tc::kRows - 1) / dl4j_attn_tc::kRows, B);
+  constexpr size_t smem = dl4j_attn_tc::DkvBf16<D>::kSmem;
+  return causal ? dl4j_attn_tc::launch(flash_bwd_dkv_bf16_kernel<D, true>, grid,
+                                       smem, s, q, k, v, dout, lse, di, dk, dv,
+                                       L, H, scale)
+                : dl4j_attn_tc::launch(flash_bwd_dkv_bf16_kernel<D, false>,
+                                       grid, smem, s, q, k, v, dout, lse, di,
+                                       dk, dv, L, H, scale);
+}
+
+template <int D>
+int dq_bf16(bool causal, const uint16_t* q, const uint16_t* k,
+            const uint16_t* v, const uint16_t* dout, const float* lse,
+            const float* di, uint16_t* dq_, int B, int L, int H, float scale,
+            cudaStream_t s) {
+  const dim3 grid(H, (L + dl4j_attn_tc::kRows - 1) / dl4j_attn_tc::kRows, B);
+  constexpr size_t smem = dl4j_attn_tc::DqBf16<D>::kSmem;
+  return causal ? dl4j_attn_tc::launch(flash_bwd_dq_bf16_kernel<D, true>, grid,
+                                       smem, s, q, k, v, dout, lse, di, dq_, L,
+                                       H, scale)
+                : dl4j_attn_tc::launch(flash_bwd_dq_bf16_kernel<D, false>, grid,
+                                       smem, s, q, k, v, dout, lse, di, dq_, L,
+                                       H, scale);
+}
+
+template <int D>
+int dkv_bf16_attrs(bool causal, int* out) {
+  constexpr size_t smem = dl4j_attn_tc::DkvBf16<D>::kSmem;
+  return causal ? dl4j_tc::attrs(flash_bwd_dkv_bf16_kernel<D, true>, smem, out)
+                : dl4j_tc::attrs(flash_bwd_dkv_bf16_kernel<D, false>, smem, out);
+}
+
+template <int D>
+int dq_bf16_attrs(bool causal, int* out) {
+  constexpr size_t smem = dl4j_attn_tc::DqBf16<D>::kSmem;
+  return causal ? dl4j_tc::attrs(flash_bwd_dq_bf16_kernel<D, true>, smem, out)
+                : dl4j_tc::attrs(flash_bwd_dq_bf16_kernel<D, false>, smem, out);
+}
+
 bool bad_dims(int B, int L, int H) {
   return B < 1 || L < 1 || H < 1 || B > 65535 || H > 65535 ||
          (L + dl4j_attn_tc::kRows - 1) / dl4j_attn_tc::kRows > 65535;
@@ -248,6 +334,68 @@ extern "C" int dl4j_flash_bwd_dq_attrs(int D, int causal, int* out) {
     case 32: return dq_attrs<32>(causal != 0, out);
     case 64: return dq_attrs<64>(causal != 0, out);
     case 128: return dq_attrs<128>(causal != 0, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bf16 q, k, v, dO, dk, dv (raw bf16 bits), f32 lse and di. Shared memory per
+// block at D = 128: dK/dV 96.5 KiB, dQ 128 KiB.
+extern "C" int dl4j_flash_bwd_dkv_bf16(const uint16_t* q, const uint16_t* k,
+                                       const uint16_t* v, const uint16_t* dout,
+                                       const float* lse, const float* di,
+                                       uint16_t* dk, uint16_t* dv, int B, int L,
+                                       int H, int D, int causal, float scale,
+                                       void* stream) {
+  if (bad_dims(B, L, H)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool c = causal != 0;
+  switch (D) {
+    case 16: return dkv_bf16<16>(c, q, k, v, dout, lse, di, dk, dv, B, L, H, scale, s);
+    case 32: return dkv_bf16<32>(c, q, k, v, dout, lse, di, dk, dv, B, L, H, scale, s);
+    case 64: return dkv_bf16<64>(c, q, k, v, dout, lse, di, dk, dv, B, L, H, scale, s);
+    case 128: return dkv_bf16<128>(c, q, k, v, dout, lse, di, dk, dv, B, L, H, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int dl4j_flash_bwd_dq_bf16(const uint16_t* q, const uint16_t* k,
+                                      const uint16_t* v, const uint16_t* dout,
+                                      const float* lse, const float* di,
+                                      uint16_t* dq_out, int B, int L, int H,
+                                      int D, int causal, float scale,
+                                      void* stream) {
+  if (bad_dims(B, L, H)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool c = causal != 0;
+  switch (D) {
+    case 16: return dq_bf16<16>(c, q, k, v, dout, lse, di, dq_out, B, L, H, scale, s);
+    case 32: return dq_bf16<32>(c, q, k, v, dout, lse, di, dq_out, B, L, H, scale, s);
+    case 64: return dq_bf16<64>(c, q, k, v, dout, lse, di, dq_out, B, L, H, scale, s);
+    case 128: return dq_bf16<128>(c, q, k, v, dout, lse, di, dq_out, B, L, H, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// {registers, local bytes per thread, dynamic shared bytes} of the bf16
+// dK/dV kernel for head dim D into out[3].
+extern "C" int dl4j_flash_bwd_dkv_bf16_attrs(int D, int causal, int* out) {
+  switch (D) {
+    case 16: return dkv_bf16_attrs<16>(causal != 0, out);
+    case 32: return dkv_bf16_attrs<32>(causal != 0, out);
+    case 64: return dkv_bf16_attrs<64>(causal != 0, out);
+    case 128: return dkv_bf16_attrs<128>(causal != 0, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// {registers, local bytes per thread, dynamic shared bytes} of the bf16 dQ
+// kernel for head dim D into out[3].
+extern "C" int dl4j_flash_bwd_dq_bf16_attrs(int D, int causal, int* out) {
+  switch (D) {
+    case 16: return dq_bf16_attrs<16>(causal != 0, out);
+    case 32: return dq_bf16_attrs<32>(causal != 0, out);
+    case 64: return dq_bf16_attrs<64>(causal != 0, out);
+    case 128: return dq_bf16_attrs<128>(causal != 0, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -34,9 +34,16 @@
 // runs three tf32 products per product (495 TFLOP/s), a least time of
 // 0.416 ms there. Why mma.sync and not wgmma, and the error of plain TF32:
 // attn_fwd_tc.cuh.
+//
+// bf16 (dl4j_flash_fwd_bf16): the same block, walk and masks over
+// attn_fwd_bf16.cuh, bf16 q, k, v and o, bf16 mma.sync with f32
+// accumulators, p rounded to bf16 before p v as the library rounds it
+// (flash_attention.py :471). Bound: 4 D operations per kept pair at 989
+// TFLOP/s, 0.0695 ms at [1, 8192, 4, 128] causal.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attn_fwd_bf16.cuh"
 #include "attn_fwd_tc.cuh"
 #include "flash_common.cuh"  // dl4j_cuda_error_string
 
@@ -79,15 +86,52 @@ int kernel_attrs(bool causal, int* out) {
                 : attrs(flash_fwd_kernel<D, false>, Fwd<D>::kSmem, out);
 }
 
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
+                          const uint16_t* __restrict__ k,
+                          const uint16_t* __restrict__ v,
+                          uint16_t* __restrict__ o, float* __restrict__ lse,
+                          int L, int H, float scale) {
+  extern __shared__ __align__(16) uint16_t smem_h[];
+  const int nq = (L + kRows - 1) / kRows;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * kRows;
+  const FlashWalk<kCausal> walk(L, q0, scale);
+  attn_fwd_bf16<D>(q, k, v, o, lse, L, H, q0, blockIdx.x, blockIdx.z, walk,
+                   -INFINITY, smem_h);
+}
+
+template <int D>
+int dispatch_bf16(bool causal, const uint16_t* q, const uint16_t* k,
+                  const uint16_t* v, uint16_t* o, float* lse, int B, int L,
+                  int H, float scale, cudaStream_t stream) {
+  const dim3 grid(H, (L + kRows - 1) / kRows, B);
+  return causal ? launch(flash_fwd_bf16_kernel<D, true>, grid,
+                         FwdBf16<D>::kSmem, stream, q, k, v, o, lse, L, H,
+                         scale)
+                : launch(flash_fwd_bf16_kernel<D, false>, grid,
+                         FwdBf16<D>::kSmem, stream, q, k, v, o, lse, L, H,
+                         scale);
+}
+
+template <int D>
+int kernel_attrs_bf16(bool causal, int* out) {
+  return causal ? attrs(flash_fwd_bf16_kernel<D, true>, FwdBf16<D>::kSmem, out)
+                : attrs(flash_fwd_bf16_kernel<D, false>, FwdBf16<D>::kSmem, out);
+}
+
+bool bad_dims(int B, int L, int H) {
+  return B < 1 || L < 1 || H < 1 || B > 65535 || H > 65535 ||
+         (L + kRows - 1) / kRows > 65535;
+}
+
 }  // namespace
 
 // Shared memory per block: 192 KiB at D = 128, 96 KiB at D = 64.
 extern "C" int dl4j_flash_fwd_f32(const float* q, const float* k, const float* v,
                                   float* o, float* lse, int B, int L, int H, int D,
                                   int causal, float scale, void* stream) {
-  if (B < 1 || L < 1 || H < 1 || B > 65535 || H > 65535 ||
-      (L + dl4j_attn_tc::kRows - 1) / dl4j_attn_tc::kRows > 65535)
-    return (int)cudaErrorInvalidValue;
+  if (bad_dims(B, L, H)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (D) {
     case 16: return dispatch<16>(causal != 0, q, k, v, o, lse, B, L, H, scale, s);
@@ -106,6 +150,36 @@ extern "C" int dl4j_flash_fwd_attrs(int D, int causal, int* out) {
     case 32: return kernel_attrs<32>(causal != 0, out);
     case 64: return kernel_attrs<64>(causal != 0, out);
     case 128: return kernel_attrs<128>(causal != 0, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bf16 q, k, v, o (raw bf16 bits), f32 lse. Shared memory per block: 96 KiB
+// at D = 128, 48 KiB at D = 64.
+extern "C" int dl4j_flash_fwd_bf16(const uint16_t* q, const uint16_t* k,
+                                   const uint16_t* v, uint16_t* o, float* lse,
+                                   int B, int L, int H, int D, int causal,
+                                   float scale, void* stream) {
+  if (bad_dims(B, L, H)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool c = causal != 0;
+  switch (D) {
+    case 16: return dispatch_bf16<16>(c, q, k, v, o, lse, B, L, H, scale, s);
+    case 32: return dispatch_bf16<32>(c, q, k, v, o, lse, B, L, H, scale, s);
+    case 64: return dispatch_bf16<64>(c, q, k, v, o, lse, B, L, H, scale, s);
+    case 128: return dispatch_bf16<128>(c, q, k, v, o, lse, B, L, H, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// {registers, local bytes per thread, dynamic shared bytes} of the bf16
+// kernel for head dim D into out[3].
+extern "C" int dl4j_flash_fwd_bf16_attrs(int D, int causal, int* out) {
+  switch (D) {
+    case 16: return kernel_attrs_bf16<16>(causal != 0, out);
+    case 32: return kernel_attrs_bf16<32>(causal != 0, out);
+    case 64: return kernel_attrs_bf16<64>(causal != 0, out);
+    case 128: return kernel_attrs_bf16<128>(causal != 0, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

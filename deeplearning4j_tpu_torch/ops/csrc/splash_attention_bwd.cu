@@ -42,10 +42,19 @@
 // three tf32 products per product at 495 TFLOP/s: least times of 13.328 ms
 // (dK/dV) and 9.996 ms (dQ) at [1, 32768, 4, 128] causal (32.822 and 24.617
 // ms against f32 outside the tensor cores, 67 TFLOP/s).
+//
+// bf16 (dl4j_splash_bwd_dkv_bf16, dl4j_splash_bwd_dq_bf16): the same blocks
+// and table walks over attn_dkv_bf16.cuh and attn_dq_bf16.cuh, bf16 q, k, v,
+// dO and outputs, f32 lse and di, bf16 mma.sync with f32 accumulators; p
+// and ds go to bf16 before p^T dO, ds^T q and ds k, as the library rounds
+// them (splash_attention_kernel.py :1788, :1804, :1395). Bounds at 989
+// TFLOP/s: 2.224 ms (dK/dV) and 1.668 ms (dQ) at [1, 32768, 4, 128] causal.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attn_dkv_bf16.cuh"
 #include "attn_dkv_tc.cuh"
+#include "attn_dq_bf16.cuh"
 #include "attn_dq_tc.cuh"
 #include "splash_common.cuh"
 
@@ -112,6 +121,72 @@ int run_dq(const float* q, const float* k, const float* v, const float* dout,
   return dl4j_attn_tc::launch(splash_bwd_dq_kernel<D>, grid,
                               dl4j_attn_tc::Dq<D>::kSmem, stream, q, k, v, dout,
                               lse, di, dq, counts, blocks, kinds, L, H, R, W);
+}
+
+template <int D>
+__global__ void __launch_bounds__(dl4j_attn_tc::kThreads, 1)
+    splash_bwd_dkv_bf16_kernel(
+        const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+        const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ di,
+        uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
+        const int* __restrict__ counts, const int* __restrict__ blocks,
+        const int* __restrict__ kinds, int L, int H, int R, int W) {
+  extern __shared__ __align__(16) uint16_t smem_h[];
+  const int kb = blockIdx.y;
+  const BlockRow row = block_row(counts, blocks, kinds, R, W, L / kBlock,
+                                 blockIdx.x, kb);
+  const SplashDkvWalk<dl4j_attn_tc::DkvBf16<D>::kQT> walk{
+      {row.blocks, row.kinds, row.count}};
+  dl4j_attn_tc::attn_dkv_bf16<D>(q, k, v, dout, lse, di, dk, dv, L, H,
+                                 kb * kBlock, blockIdx.x, blockIdx.z, walk,
+                                 kMaskValue, smem_h);
+}
+
+template <int D>
+__global__ void __launch_bounds__(dl4j_attn_tc::kThreads, 1)
+    splash_bwd_dq_bf16_kernel(
+        const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+        const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ di,
+        uint16_t* __restrict__ dq, const int* __restrict__ counts,
+        const int* __restrict__ blocks, const int* __restrict__ kinds, int L,
+        int H, int R, int W) {
+  extern __shared__ __align__(16) uint16_t smem_h[];
+  const int nq = L / kBlock;
+  const int qb = nq - 1 - (int)blockIdx.y;
+  const BlockRow row = block_row(counts, blocks, kinds, R, W, nq, blockIdx.x, qb);
+  const SplashWalk<dl4j_attn_tc::DqBf16<D>::kKeys> walk{row.blocks, row.kinds,
+                                                        row.count};
+  dl4j_attn_tc::attn_dq_bf16<D>(q, k, v, dout, lse, di, dq, L, H,
+                                qb * kBlock, blockIdx.x, blockIdx.z, walk,
+                                kMaskValue, smem_h);
+}
+
+template <int D>
+int run_dkv_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+                 const uint16_t* dout, const float* lse, const float* di,
+                 uint16_t* dk, uint16_t* dv, const int* counts,
+                 const int* blocks, const int* kinds, int B, int L, int H,
+                 int R, int W, cudaStream_t stream) {
+  const dim3 grid(H, L / kBlock, B);
+  return dl4j_attn_tc::launch(splash_bwd_dkv_bf16_kernel<D>, grid,
+                              dl4j_attn_tc::DkvBf16<D>::kSmem, stream, q, k, v,
+                              dout, lse, di, dk, dv, counts, blocks, kinds, L,
+                              H, R, W);
+}
+
+template <int D>
+int run_dq_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+                const uint16_t* dout, const float* lse, const float* di,
+                uint16_t* dq, const int* counts, const int* blocks,
+                const int* kinds, int B, int L, int H, int R, int W,
+                cudaStream_t stream) {
+  const dim3 grid(H, L / kBlock, B);
+  return dl4j_attn_tc::launch(splash_bwd_dq_bf16_kernel<D>, grid,
+                              dl4j_attn_tc::DqBf16<D>::kSmem, stream, q, k, v,
+                              dout, lse, di, dq, counts, blocks, kinds, L, H,
+                              R, W);
 }
 
 }  // namespace
@@ -185,6 +260,82 @@ extern "C" int dl4j_splash_bwd_dkv_attrs(int D, int* out) {
     case 32: return attrs(splash_bwd_dkv_kernel<32>, Dkv<32>::kSmem, out);
     case 64: return attrs(splash_bwd_dkv_kernel<64>, Dkv<64>::kSmem, out);
     case 128: return attrs(splash_bwd_dkv_kernel<128>, Dkv<128>::kSmem, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bf16 q (pre-scaled), k, v, dO, dk, dv (raw bf16 bits), f32 lse and di.
+// Shared memory per block at D = 128: dK/dV 96.5 KiB, dQ 128 KiB.
+extern "C" int dl4j_splash_bwd_dkv_bf16(const uint16_t* q, const uint16_t* k,
+                                        const uint16_t* v, const uint16_t* dout,
+                                        const float* lse, const float* di,
+                                        uint16_t* dk, uint16_t* dv,
+                                        const int* counts, const int* blocks,
+                                        const int* kinds, int B, int L, int H,
+                                        int D, int R, int W, void* stream) {
+  if (bad_dims(B, L, H, R, W) || L / kBlock > 65535)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define DL4J_DKV(DIM)                                                       \
+  run_dkv_bf16<DIM>(q, k, v, dout, lse, di, dk, dv, counts, blocks, kinds, B, \
+                    L, H, R, W, s)
+  switch (D) {
+    case 16: return DL4J_DKV(16);
+    case 32: return DL4J_DKV(32);
+    case 64: return DL4J_DKV(64);
+    case 128: return DL4J_DKV(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DL4J_DKV
+}
+
+extern "C" int dl4j_splash_bwd_dq_bf16(const uint16_t* q, const uint16_t* k,
+                                       const uint16_t* v, const uint16_t* dout,
+                                       const float* lse, const float* di,
+                                       uint16_t* dq_out, const int* counts,
+                                       const int* blocks, const int* kinds,
+                                       int B, int L, int H, int D, int R, int W,
+                                       void* stream) {
+  if (bad_dims(B, L, H, R, W) || L / kBlock > 65535)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define DL4J_DQ(DIM)                                                          \
+  run_dq_bf16<DIM>(q, k, v, dout, lse, di, dq_out, counts, blocks, kinds, B, L, \
+                   H, R, W, s)
+  switch (D) {
+    case 16: return DL4J_DQ(16);
+    case 32: return DL4J_DQ(32);
+    case 64: return DL4J_DQ(64);
+    case 128: return DL4J_DQ(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DL4J_DQ
+}
+
+// {registers, local bytes per thread, dynamic shared bytes} of the bf16 dQ
+// kernel for head dim D into out[3].
+extern "C" int dl4j_splash_bwd_dq_bf16_attrs(int D, int* out) {
+  using dl4j_attn_tc::DqBf16;
+  using dl4j_tc::attrs;
+  switch (D) {
+    case 16: return attrs(splash_bwd_dq_bf16_kernel<16>, DqBf16<16>::kSmem, out);
+    case 32: return attrs(splash_bwd_dq_bf16_kernel<32>, DqBf16<32>::kSmem, out);
+    case 64: return attrs(splash_bwd_dq_bf16_kernel<64>, DqBf16<64>::kSmem, out);
+    case 128: return attrs(splash_bwd_dq_bf16_kernel<128>, DqBf16<128>::kSmem, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// {registers, local bytes per thread, dynamic shared bytes} of the bf16
+// dK/dV kernel for head dim D into out[3].
+extern "C" int dl4j_splash_bwd_dkv_bf16_attrs(int D, int* out) {
+  using dl4j_attn_tc::DkvBf16;
+  using dl4j_tc::attrs;
+  switch (D) {
+    case 16: return attrs(splash_bwd_dkv_bf16_kernel<16>, DkvBf16<16>::kSmem, out);
+    case 32: return attrs(splash_bwd_dkv_bf16_kernel<32>, DkvBf16<32>::kSmem, out);
+    case 64: return attrs(splash_bwd_dkv_bf16_kernel<64>, DkvBf16<64>::kSmem, out);
+    case 128: return attrs(splash_bwd_dkv_bf16_kernel<128>, DkvBf16<128>::kSmem, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

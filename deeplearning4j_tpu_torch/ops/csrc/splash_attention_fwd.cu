@@ -32,9 +32,17 @@
 // runs three tf32 products per product (495 TFLOP/s), a least time of
 // 6.66 ms there. Why mma.sync and not wgmma, and the error of plain TF32:
 // attn_fwd_tc.cuh.
+//
+// bf16 (dl4j_splash_fwd_bf16): the same block, table walk and masks over
+// attn_fwd_bf16.cuh, bf16 q, k, v and o, bf16 mma.sync with f32
+// accumulators; p stays f32 for p v, as the library keeps it
+// (splash_attention_kernel.py :819), taken as bf16(p) + bf16(p - bf16(p))
+// in two bf16 products. Bound: 4 D operations per kept pair at 989
+// TFLOP/s, 1.112 ms at [1, 32768, 4, 128] causal.
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attn_fwd_bf16.cuh"
 #include "attn_fwd_tc.cuh"
 #include "splash_common.cuh"
 
@@ -74,6 +82,36 @@ int run(const float* q, const float* k, const float* v, float* o, float* lse,
                 lse, counts, blocks, kinds, L, H, R, W);
 }
 
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    splash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
+                           const uint16_t* __restrict__ k,
+                           const uint16_t* __restrict__ v,
+                           uint16_t* __restrict__ o, float* __restrict__ lse,
+                           const int* __restrict__ counts,
+                           const int* __restrict__ blocks,
+                           const int* __restrict__ kinds, int L, int H, int R,
+                           int W) {
+  extern __shared__ __align__(16) uint16_t smem_h[];
+  const int nq = L / kBlock;
+  const int qb = nq - 1 - (int)blockIdx.y;
+  const BlockRow row = dl4j_splash::block_row(counts, blocks, kinds, R, W, nq,
+                                              blockIdx.x, qb);
+  const SplashWalk walk{row.blocks, row.kinds, row.count};
+  attn_fwd_bf16<D>(q, k, v, o, lse, L, H, qb * kBlock, blockIdx.x,
+                   blockIdx.z, walk, kMaskValue, smem_h);
+}
+
+template <int D>
+int run_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
+             uint16_t* o, float* lse, const int* counts, const int* blocks,
+             const int* kinds, int B, int L, int H, int R, int W,
+             cudaStream_t stream) {
+  const dim3 grid(H, L / kBlock, B);
+  return launch(splash_fwd_bf16_kernel<D>, grid, FwdBf16<D>::kSmem, stream, q,
+                k, v, o, lse, counts, blocks, kinds, L, H, R, W);
+}
+
 }  // namespace
 
 // Shared memory per block: 192 KiB at D = 128, 96 KiB at D = 64.
@@ -102,6 +140,40 @@ extern "C" int dl4j_splash_fwd_attrs(int D, int* out) {
     case 32: return attrs(splash_fwd_kernel<32>, Fwd<32>::kSmem, out);
     case 64: return attrs(splash_fwd_kernel<64>, Fwd<64>::kSmem, out);
     case 128: return attrs(splash_fwd_kernel<128>, Fwd<128>::kSmem, out);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bf16 q (pre-scaled), k, v, o (raw bf16 bits), f32 lse. Shared memory per
+// block: 96 KiB at D = 128, 48 KiB at D = 64.
+extern "C" int dl4j_splash_fwd_bf16(const uint16_t* q, const uint16_t* k,
+                                    const uint16_t* v, uint16_t* o, float* lse,
+                                    const int* counts, const int* blocks,
+                                    const int* kinds, int B, int L, int H,
+                                    int D, int R, int W, void* stream) {
+  if (dl4j_splash::bad_dims(B, L, H, R, W) || L / dl4j_splash::kBlock > 65535)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define DL4J_FWD(DIM) \
+  run_bf16<DIM>(q, k, v, o, lse, counts, blocks, kinds, B, L, H, R, W, s)
+  switch (D) {
+    case 16: return DL4J_FWD(16);
+    case 32: return DL4J_FWD(32);
+    case 64: return DL4J_FWD(64);
+    case 128: return DL4J_FWD(128);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef DL4J_FWD
+}
+
+// {registers, local bytes per thread, dynamic shared bytes} of the bf16
+// kernel for head dim D into out[3].
+extern "C" int dl4j_splash_fwd_bf16_attrs(int D, int* out) {
+  switch (D) {
+    case 16: return attrs(splash_fwd_bf16_kernel<16>, FwdBf16<16>::kSmem, out);
+    case 32: return attrs(splash_fwd_bf16_kernel<32>, FwdBf16<32>::kSmem, out);
+    case 64: return attrs(splash_fwd_bf16_kernel<64>, FwdBf16<64>::kSmem, out);
+    case 128: return attrs(splash_fwd_bf16_kernel<128>, FwdBf16<128>::kSmem, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -16,6 +16,11 @@ use and bound with ctypes (``ops/_build.py``):
     block tables of ``ops/splash_mask.py``, for long sequences; the last
     two share ``splash_attention_bwd.cu``).
 
+The six attention wrappers take f32 or bf16 (`ATTN_DTYPES`) and launch
+the kernel of that dtype; a bf16 launch counts under the kernel's name
+with ``_bf16`` appended. Their plain versions at bf16 make the roundings
+of the library each kernel replaces (`_bf16_round` and its callers).
+
 Rule of every wrapper here:
 
   - a tensor on the CPU runs the plain PyTorch version (the tests' path);
@@ -48,6 +53,11 @@ LAUNCHES = {"paged_decode_attention": 0, "conv2d_bias_act": 0,
             "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
             "splash_attention_fwd": 0, "splash_attention_bwd_dkv": 0,
             "splash_attention_bwd_dq": 0}
+# the bf16 attention kernels count apart: "<kernel>_bf16"
+LAUNCHES.update({f"{name}_bf16": 0 for name in (
+    "flash_attention_fwd", "flash_attention_bwd_dkv",
+    "flash_attention_bwd_dq", "splash_attention_fwd",
+    "splash_attention_bwd_dkv", "splash_attention_bwd_dq")})
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 # the paged kernel's lanes hold at most 8 head dims each (32 lanes)
@@ -81,20 +91,32 @@ _SIGNATURES = {
         "dl4j_bnap_dx_f32": [_PTR] * 5 + [_INT] * 5 + [_PTR]},
     "flash_attention_fwd": {
         "dl4j_flash_fwd_f32": [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _PTR],
-        "dl4j_flash_fwd_attrs": [_INT, _INT, _PTR]},
+        "dl4j_flash_fwd_bf16": [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _PTR],
+        "dl4j_flash_fwd_attrs": [_INT, _INT, _PTR],
+        "dl4j_flash_fwd_bf16_attrs": [_INT, _INT, _PTR]},
     "flash_attention_bwd": {
         "dl4j_flash_bwd_dkv_f32": [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _PTR],
         "dl4j_flash_bwd_dq_f32": [_PTR] * 7 + [_INT] * 5 + [_FLOAT, _PTR],
+        "dl4j_flash_bwd_dkv_bf16": [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _PTR],
+        "dl4j_flash_bwd_dq_bf16": [_PTR] * 7 + [_INT] * 5 + [_FLOAT, _PTR],
         "dl4j_flash_bwd_dkv_attrs": [_INT, _INT, _PTR],
-        "dl4j_flash_bwd_dq_attrs": [_INT, _INT, _PTR]},
+        "dl4j_flash_bwd_dq_attrs": [_INT, _INT, _PTR],
+        "dl4j_flash_bwd_dkv_bf16_attrs": [_INT, _INT, _PTR],
+        "dl4j_flash_bwd_dq_bf16_attrs": [_INT, _INT, _PTR]},
     "splash_attention_fwd": {
         "dl4j_splash_fwd_f32": [_PTR] * 8 + [_INT] * 6 + [_PTR],
-        "dl4j_splash_fwd_attrs": [_INT, _PTR]},
+        "dl4j_splash_fwd_bf16": [_PTR] * 8 + [_INT] * 6 + [_PTR],
+        "dl4j_splash_fwd_attrs": [_INT, _PTR],
+        "dl4j_splash_fwd_bf16_attrs": [_INT, _PTR]},
     "splash_attention_bwd": {
         "dl4j_splash_bwd_dkv_f32": [_PTR] * 11 + [_INT] * 6 + [_PTR],
         "dl4j_splash_bwd_dq_f32": [_PTR] * 10 + [_INT] * 6 + [_PTR],
+        "dl4j_splash_bwd_dkv_bf16": [_PTR] * 11 + [_INT] * 6 + [_PTR],
+        "dl4j_splash_bwd_dq_bf16": [_PTR] * 10 + [_INT] * 6 + [_PTR],
         "dl4j_splash_bwd_dq_attrs": [_INT, _PTR],
-        "dl4j_splash_bwd_dkv_attrs": [_INT, _PTR]},
+        "dl4j_splash_bwd_dkv_attrs": [_INT, _PTR],
+        "dl4j_splash_bwd_dq_bf16_attrs": [_INT, _PTR],
+        "dl4j_splash_bwd_dkv_bf16_attrs": [_INT, _PTR]},
 }
 
 # activation codes of csrc/activations.cuh; "softmax" is not elementwise
@@ -563,8 +585,31 @@ def bnap_dx(x, g, p, s, *, activation):
 
 # -- flash attention: forward, dK/dV backward, dQ backward -------------------
 
-# head dims the kernels are instantiated for (64 x D f32 tiles in shared memory)
+# head dims the kernels are instantiated for (64 x D tiles in shared memory)
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
+# the dtypes of q, k, v and dO the attention kernels take (lse and di are
+# always f32); each has its own kernel
+ATTN_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _attn_dtype(name, *tensors) -> torch.dtype:
+    """The one dtype of q, k, v (and dO): f32 or bf16, else TypeError."""
+    dt = tensors[0].dtype
+    if dt not in ATTN_DTYPES or any(t.dtype != dt for t in tensors):
+        raise TypeError(f"{name}: dtypes {[t.dtype for t in tensors]}; the "
+                        f"kernels take q, k, v and dO all in one of "
+                        f"{ATTN_DTYPES}")
+    return dt
+
+
+def _launch_key(name: str, dtype: torch.dtype) -> str:
+    return name if dtype == torch.float32 else f"{name}_bf16"
+
+
+def _bf16_round(x):
+    """x (f32) rounded to bf16 and back: the libraries' ``astype(bf16)`` of
+    p or ds before a product whose operands are bf16."""
+    return x.to(torch.bfloat16).float()
 
 
 def attention_scores(q, k, causal, scale):
@@ -582,7 +627,21 @@ def attention_scores(q, k, causal, scale):
 def flash_attention_fwd_ref(q, k, v, *, causal, scale):
     """Plain version of the forward kernel: the dense default attention (the
     same ops, so the same values) and the rows' log-sum-exp. q, k, v [B, L,
-    H, D] -> (o [B, L, H, D], lse [B, H, L])."""
+    H, D] -> (o [B, L, H, D], lse [B, H, L]).
+
+    At bf16, the library's roundings (flash_attention.py :471): the scores
+    and softmax statistics in f32 from the bf16 operands, p = exp(s - m)
+    rounded to bf16 before p v, o summed in f32 and divided by the f32 row
+    sum, then written in bf16; lse f32."""
+    if q.dtype == torch.bfloat16:
+        v32 = v.float()
+        s = attention_scores(q.float(), k.float(), causal, scale)
+        m = s.amax(dim=-1, keepdim=True)
+        p = torch.exp(s - m)
+        l = p.sum(dim=-1, keepdim=True)
+        o = torch.einsum("bhqk,bkhd->bhqd", _bf16_round(p), v32) / l
+        return (o.permute(0, 2, 1, 3).to(q.dtype).contiguous(),
+                (m + torch.log(l)).squeeze(-1))
     s = attention_scores(q, k, causal, scale)
     o = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, dim=-1), v)
     return o, torch.logsumexp(s, dim=-1)
@@ -597,21 +656,40 @@ def _probs_and_ds(q, k, v, do, lse, di, causal, scale):
 
 def flash_attention_bwd_dkv_ref(q, k, v, do, lse, di, *, causal, scale):
     """Plain version of the dK/dV kernel: p = exp(s - lse), ds = p (dO v^T -
-    di); (dk, dv) = (scale ds^T q, p^T dO)."""
+    di); (dk, dv) = (scale ds^T q, p^T dO). At bf16, as the library rounds
+    (flash_attention.py :900, :918): all in f32 from the bf16 operands, ds
+    scaled, then p and ds rounded to bf16 before the products; dk and dv
+    written in bf16."""
+    if q.dtype == torch.bfloat16:
+        q32, do32 = q.float(), do.float()
+        p, ds = _probs_and_ds(q32, k.float(), v.float(), do32, lse, di,
+                              causal, scale)
+        return (torch.einsum("bhqk,bqhd->bkhd", _bf16_round(ds * scale),
+                             q32).to(q.dtype),
+                torch.einsum("bhqk,bqhd->bkhd", _bf16_round(p),
+                             do32).to(q.dtype))
     p, ds = _probs_and_ds(q, k, v, do, lse, di, causal, scale)
     return (torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale,
             torch.einsum("bhqk,bqhd->bkhd", p, do))
 
 
 def flash_attention_bwd_dq_ref(q, k, v, do, lse, di, *, causal, scale):
-    """Plain version of the dQ kernel: dq = scale ds k."""
+    """Plain version of the dQ kernel: dq = scale ds k. At bf16 the scaled
+    ds is rounded to bf16 before ds k (flash_attention.py :1258), dq summed
+    in f32 and written in bf16."""
+    if q.dtype == torch.bfloat16:
+        k32 = k.float()
+        _, ds = _probs_and_ds(q.float(), k32, v.float(), do.float(), lse, di,
+                              causal, scale)
+        return torch.einsum("bhqk,bkhd->bqhd", _bf16_round(ds * scale),
+                            k32).to(q.dtype)
     _, ds = _probs_and_ds(q, k, v, do, lse, di, causal, scale)
     return torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
 
 
 def _flash_checks(name, q, k, v):
     """Shapes, dtypes and contiguity the kernels take: q, k, v [B, L, H, D]
-    f32 with D in FLASH_HEAD_DIMS."""
+    in one of ATTN_DTYPES, with D in FLASH_HEAD_DIMS."""
     if q.dim() != 4:
         raise ValueError(f"{name}: q, k, v [B, L, H, D]")
     B, L, H, D = q.shape
@@ -620,18 +698,26 @@ def _flash_checks(name, q, k, v):
                          f"{FLASH_HEAD_DIMS}")
     if min(B, L, H) < 1 or max(B, H) > 65535:
         raise ValueError(f"{name}: unsupported shape {tuple(q.shape)}")
+    dt = _attn_dtype(name, q, k, v)
     for n, t in (("q", q), ("k", k), ("v", v)):
-        _check(n, t, torch.float32, (B, L, H, D))
+        _check(n, t, dt, (B, L, H, D))
     return B, L, H, D
 
 
+def _entry(dtype: torch.dtype) -> str:
+    """The suffix of the C entry point for ``dtype``."""
+    return "f32" if dtype == torch.float32 else "bf16"
+
+
 def flash_attention_fwd(q, k, v, *, causal, scale):
-    """Attention forward. q, k, v [B, L, H, D] f32 -> (o [B, L, H, D], lse
-    [B, H, L]) f32, D in FLASH_HEAD_DIMS, any L >= 1.
+    """Attention forward. q, k, v [B, L, H, D], all f32 or all bf16 ->
+    (o [B, L, H, D] in their dtype, lse [B, H, L] f32), D in
+    FLASH_HEAD_DIMS, any L >= 1. Other dtypes raise TypeError.
 
     CPU tensors run :func:`flash_attention_fwd_ref`. CUDA tensors launch
-    the kernel on the current stream, or raise."""
+    the kernel of their dtype on the current stream, or raise."""
     dev = _device_of("flash_attention_fwd", [q, k, v])
+    dt = _attn_dtype("flash_attention_fwd", q, k, v)
     if dev.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, causal=causal, scale=scale)
     B, L, H, D = _flash_checks("flash_attention_fwd", q, k, v)
@@ -640,12 +726,12 @@ def flash_attention_fwd(q, k, v, *, causal, scale):
     o = torch.empty_like(q)
     lse = torch.empty((B, H, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
-        rc = lib.dl4j_flash_fwd_f32(
+        rc = getattr(lib, f"dl4j_flash_fwd_{_entry(dt)}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), B, L, H, D, int(bool(causal)), float(scale),
             _stream(dev))
     _raise_on(rc, lib, "flash_attention_fwd")
-    LAUNCHES["flash_attention_fwd"] += 1
+    LAUNCHES[_launch_key("flash_attention_fwd", dt)] += 1
     return o, lse
 
 
@@ -683,6 +769,30 @@ def attention_tc_attrs(D: int) -> dict:
                 "splash_attention_bwd", "dl4j_splash_bwd_dq_attrs", D)}
 
 
+def attention_bf16_attrs(D: int) -> dict:
+    """{kernel: attrs} (as `_kernel_attrs`) of the bf16 attention kernels at
+    head dim D, named as in `attention_tc_attrs`. Needs the card."""
+    fl, sp = "flash_attention", "splash_attention"
+    return {"flash_fwd_causal": _kernel_attrs(
+                f"{fl}_fwd", "dl4j_flash_fwd_bf16_attrs", D, 1),
+            "flash_fwd_full": _kernel_attrs(
+                f"{fl}_fwd", "dl4j_flash_fwd_bf16_attrs", D, 0),
+            "splash_fwd": _kernel_attrs(
+                f"{sp}_fwd", "dl4j_splash_fwd_bf16_attrs", D),
+            "flash_bwd_dkv_causal": _kernel_attrs(
+                f"{fl}_bwd", "dl4j_flash_bwd_dkv_bf16_attrs", D, 1),
+            "flash_bwd_dkv_full": _kernel_attrs(
+                f"{fl}_bwd", "dl4j_flash_bwd_dkv_bf16_attrs", D, 0),
+            "flash_bwd_dq_causal": _kernel_attrs(
+                f"{fl}_bwd", "dl4j_flash_bwd_dq_bf16_attrs", D, 1),
+            "flash_bwd_dq_full": _kernel_attrs(
+                f"{fl}_bwd", "dl4j_flash_bwd_dq_bf16_attrs", D, 0),
+            "splash_bwd_dkv": _kernel_attrs(
+                f"{sp}_bwd", "dl4j_splash_bwd_dkv_bf16_attrs", D),
+            "splash_bwd_dq": _kernel_attrs(
+                f"{sp}_bwd", "dl4j_splash_bwd_dq_bf16_attrs", D)}
+
+
 def paged_decode_attrs(G: int, Dh: int) -> dict:
     """{kernel: attrs} (as `_kernel_attrs`) of the paged decode kernels that
     G query heads per kv-head at head dim Dh launch: the page walk over
@@ -704,23 +814,25 @@ def conv2d_bias_act_attrs(C: int, OC: int) -> dict:
 
 
 def _bwd_checks(name, q, k, v, do, lse, di, checks=_flash_checks):
-    """``checks`` on q, k, v, then do [B, L, H, D], lse and di [B, H, L],
-    all f32 and contiguous."""
+    """``checks`` on q, k, v, then do [B, L, H, D] in q's dtype, lse and di
+    [B, H, L] f32, all contiguous."""
     B, L, H, D = checks(name, q, k, v)
-    for n, t, shape in (("do", do, (B, L, H, D)), ("lse", lse, (B, H, L)),
-                        ("di", di, (B, H, L))):
-        _check(n, t, torch.float32, shape)
+    for n, t, shape, dt in (("do", do, (B, L, H, D), q.dtype),
+                            ("lse", lse, (B, H, L), torch.float32),
+                            ("di", di, (B, H, L), torch.float32)):
+        _check(n, t, dt, shape)
     return B, L, H, D
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal, scale):
-    """dK/dV backward. q, k, v, do [B, L, H, D] f32, lse and di = sum_d o *
-    do [B, H, L] f32 -> (dk, dv) [B, L, H, D] f32, the same bits on every
-    launch.
+    """dK/dV backward. q, k, v, do [B, L, H, D], all f32 or all bf16, lse
+    and di = sum_d o * do [B, H, L] f32 -> (dk, dv) [B, L, H, D] in q's
+    dtype, the same bits on every launch.
 
     CPU tensors run :func:`flash_attention_bwd_dkv_ref`. CUDA tensors
-    launch the kernel on the current stream, or raise."""
+    launch the kernel of their dtype on the current stream, or raise."""
     dev = _device_of("flash_attention_bwd_dkv", [q, k, v, do, lse, di])
+    dt = _attn_dtype("flash_attention_bwd_dkv", q, k, v, do)
     if dev.type == "cpu":
         return flash_attention_bwd_dkv_ref(q, k, v, do, lse, di,
                                            causal=causal, scale=scale)
@@ -730,22 +842,23 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal, scale):
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(dev):
-        rc = lib.dl4j_flash_bwd_dkv_f32(
+        rc = getattr(lib, f"dl4j_flash_bwd_dkv_{_entry(dt)}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, L,
             H, D, int(bool(causal)), float(scale), _stream(dev))
     _raise_on(rc, lib, "flash_attention_bwd_dkv")
-    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    LAUNCHES[_launch_key("flash_attention_bwd_dkv", dt)] += 1
     return dk, dv
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal, scale):
     """dQ backward: inputs as :func:`flash_attention_bwd_dkv` -> dq [B, L,
-    H, D] f32, the same bits on every launch.
+    H, D] in q's dtype, the same bits on every launch.
 
     CPU tensors run :func:`flash_attention_bwd_dq_ref`. CUDA tensors launch
-    the kernel on the current stream, or raise."""
+    the kernel of their dtype on the current stream, or raise."""
     dev = _device_of("flash_attention_bwd_dq", [q, k, v, do, lse, di])
+    dt = _attn_dtype("flash_attention_bwd_dq", q, k, v, do)
     if dev.type == "cpu":
         return flash_attention_bwd_dq_ref(q, k, v, do, lse, di,
                                           causal=causal, scale=scale)
@@ -754,12 +867,12 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal, scale):
     lib = _lib("flash_attention_bwd")
     dq = torch.empty_like(q)
     with torch.cuda.device(dev):
-        rc = lib.dl4j_flash_bwd_dq_f32(
+        rc = getattr(lib, f"dl4j_flash_bwd_dq_{_entry(dt)}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), di.data_ptr(), dq.data_ptr(), B, L, H, D,
             int(bool(causal)), float(scale), _stream(dev))
     _raise_on(rc, lib, "flash_attention_bwd_dq")
-    LAUNCHES["flash_attention_bwd_dq"] += 1
+    LAUNCHES[_launch_key("flash_attention_bwd_dq", dt)] += 1
     return dq
 
 
@@ -801,7 +914,15 @@ def splash_attention_fwd_ref(q, k, v, tables, *, q_chunk=None):
     chunk of query rows at a time (the forward block list, rebuilt as block
     kinds), their softmax against v and their log-sum-exp. q is pre-scaled.
     Never forms more than one chunk of scores, so it runs at L = 32768 on
-    the card. q, k, v [B, L, H, D] -> (o [B, L, H, D], lse [B, H, L])."""
+    the card. q, k, v [B, L, H, D] -> (o [B, L, H, D], lse [B, H, L]).
+
+    At bf16 the library computes in f32 throughout, p and v included
+    (splash_attention_kernel.py :819): the f32 function of the upcast
+    operands, o written in bf16, lse f32."""
+    if q.dtype == torch.bfloat16:
+        o, lse = splash_attention_fwd_ref(q.float(), k.float(), v.float(),
+                                          tables, q_chunk=q_chunk)
+        return o.to(q.dtype), lse
     B, L, H, _ = q.shape
     grid = tables.grid_on(q.device, "fwd")
     o = torch.empty_like(q)
@@ -822,11 +943,24 @@ def _splash_probs_and_ds(q, k, v, do, lse, di, grid, r0, r1):
     return p, p * (dp - di[:, :, r0:r1, None])
 
 
+def _plain_operands(q, k, v, do):
+    """(q, k, v, do, rnd, dtype): bf16 operands upcast to f32 with ``rnd``
+    the bf16 rounding of p and ds before a product, as the library rounds
+    them; any other dtype as given, with ``rnd`` the identity."""
+    dt = q.dtype
+    if dt == torch.bfloat16:
+        return q.float(), k.float(), v.float(), do.float(), _bf16_round, dt
+    return q, k, v, do, (lambda x: x), dt
+
+
 def splash_attention_bwd_dkv_ref(q, k, v, do, lse, di, tables, *,
                                  q_chunk=None):
     """Plain version of the dK/dV kernel, over the dK/dV block list: p =
     exp(s - lse), ds = p (dO v^T - di); dk = sum over query chunks of ds^T
-    q, dv of p^T dO (no scale: q is pre-scaled)."""
+    q, dv of p^T dO (no scale: q is pre-scaled). At bf16, in f32 from the
+    bf16 operands with p and ds rounded to bf16 before the products
+    (splash_attention_kernel.py :1788, :1804); dk and dv written in bf16."""
+    q, k, v, do, rnd, dt = _plain_operands(q, k, v, do)
     B, L, H, _ = q.shape
     grid = tables.grid_on(q.device, "dkv")
     dk = torch.zeros_like(k)
@@ -835,15 +969,17 @@ def splash_attention_bwd_dkv_ref(q, k, v, do, lse, di, tables, *,
     for r0 in range(0, L, step):
         r1 = min(L, r0 + step)
         p, ds = _splash_probs_and_ds(q, k, v, do, lse, di, grid, r0, r1)
-        dk += torch.einsum("bhqk,bqhd->bkhd", ds, q[:, r0:r1])
-        dv += torch.einsum("bhqk,bqhd->bkhd", p, do[:, r0:r1])
-    return dk, dv
+        dk += torch.einsum("bhqk,bqhd->bkhd", rnd(ds), q[:, r0:r1])
+        dv += torch.einsum("bhqk,bqhd->bkhd", rnd(p), do[:, r0:r1])
+    return dk.to(dt), dv.to(dt)
 
 
 def splash_attention_bwd_dq_ref(q, k, v, do, lse, di, tables, *,
                                 q_chunk=None):
     """Plain version of the dQ kernel, over the dQ block list: dq = ds k,
-    one chunk of query rows at a time."""
+    one chunk of query rows at a time. At bf16 ds is rounded to bf16 before
+    ds k (splash_attention_kernel.py :1395), dq written in bf16."""
+    q, k, v, do, rnd, dt = _plain_operands(q, k, v, do)
     B, L, H, _ = q.shape
     grid = tables.grid_on(q.device, "dq")
     dq = torch.empty_like(q)
@@ -851,13 +987,14 @@ def splash_attention_bwd_dq_ref(q, k, v, do, lse, di, tables, *,
     for r0 in range(0, L, step):
         r1 = min(L, r0 + step)
         _, ds = _splash_probs_and_ds(q, k, v, do, lse, di, grid, r0, r1)
-        dq[:, r0:r1] = torch.einsum("bhqk,bkhd->bqhd", ds, k)
-    return dq
+        dq[:, r0:r1] = torch.einsum("bhqk,bkhd->bqhd", rnd(ds), k)
+    return dq.to(dt)
 
 
 def _splash_checks(name, q, k, v, *, tables):
-    """What the splash kernels take: q, k, v [B, L, H, D] f32, contiguous,
-    D in SPLASH_HEAD_DIMS, L % 128 == 0, and tables made for (L, H)."""
+    """What the splash kernels take: q, k, v [B, L, H, D] in one of
+    ATTN_DTYPES, contiguous, D in SPLASH_HEAD_DIMS, L % 128 == 0, and tables
+    made for (L, H)."""
     if q.dim() != 4:
         raise ValueError(f"{name}: q, k, v [B, L, H, D]")
     B, L, H, D = q.shape
@@ -869,8 +1006,9 @@ def _splash_checks(name, q, k, v, *, tables):
                          f"{SPLASH_HEAD_DIMS}")
     if min(B, H) < 1 or max(B, H) > 65535:
         raise ValueError(f"{name}: unsupported shape {tuple(q.shape)}")
+    dt = _attn_dtype(name, q, k, v)
     for n, t in (("q", q), ("k", k), ("v", v)):
-        _check(n, t, torch.float32, (B, L, H, D))
+        _check(n, t, dt, (B, L, H, D))
     if tables.L != L or tables.rows not in (1, H):
         raise ValueError(f"{name}: tables for L={tables.L} with "
                          f"{tables.rows} head rows do not fit {tuple(q.shape)}")
@@ -884,13 +1022,14 @@ def _table_args(tables, which, dev):
 
 
 def splash_attention_fwd(q, k, v, tables):
-    """Splash forward. q (pre-scaled), k, v [B, L, H, D] f32, L % 128 == 0,
-    ``tables`` from `splash_mask.splash_tables(L, H, causal)` -> (o [B, L,
-    H, D], lse [B, H, L]) f32.
+    """Splash forward. q (pre-scaled), k, v [B, L, H, D], all f32 or all
+    bf16, L % 128 == 0, ``tables`` from `splash_mask.splash_tables(L, H,
+    causal)` -> (o [B, L, H, D] in their dtype, lse [B, H, L] f32).
 
     CPU tensors run :func:`splash_attention_fwd_ref`. CUDA tensors launch
-    the kernel on the current stream, or raise."""
+    the kernel of their dtype on the current stream, or raise."""
     dev = _device_of("splash_attention_fwd", [q, k, v])
+    dt = _attn_dtype("splash_attention_fwd", q, k, v)
     if dev.type == "cpu":
         return splash_attention_fwd_ref(q, k, v, tables)
     B, L, H, D = _splash_checks("splash_attention_fwd", q, k, v,
@@ -901,22 +1040,23 @@ def splash_attention_fwd(q, k, v, tables):
     lse = torch.empty((B, H, L), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         ptrs, dims = _table_args(tables, "fwd", dev)
-        rc = lib.dl4j_splash_fwd_f32(
+        rc = getattr(lib, f"dl4j_splash_fwd_{_entry(dt)}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), *ptrs, B, L, H, D, *dims, _stream(dev))
     _raise_on(rc, lib, "splash_attention_fwd")
-    LAUNCHES["splash_attention_fwd"] += 1
+    LAUNCHES[_launch_key("splash_attention_fwd", dt)] += 1
     return o, lse
 
 
 def splash_attention_bwd_dkv(q, k, v, do, lse, di, tables):
-    """Splash dK/dV backward. q (pre-scaled), k, v, do [B, L, H, D] f32,
-    lse and di = sum_d o * do [B, H, L] f32 -> (dk, dv) [B, L, H, D] f32,
-    the same bits on every launch.
+    """Splash dK/dV backward. q (pre-scaled), k, v, do [B, L, H, D], all f32
+    or all bf16, lse and di = sum_d o * do [B, H, L] f32 -> (dk, dv) [B, L,
+    H, D] in q's dtype, the same bits on every launch.
 
     CPU tensors run :func:`splash_attention_bwd_dkv_ref`. CUDA tensors
-    launch the kernel on the current stream, or raise."""
+    launch the kernel of their dtype on the current stream, or raise."""
     dev = _device_of("splash_attention_bwd_dkv", [q, k, v, do, lse, di])
+    dt = _attn_dtype("splash_attention_bwd_dkv", q, k, v, do)
     if dev.type == "cpu":
         return splash_attention_bwd_dkv_ref(q, k, v, do, lse, di, tables)
     B, L, H, D = _bwd_checks(
@@ -928,23 +1068,24 @@ def splash_attention_bwd_dkv(q, k, v, do, lse, di, tables):
     dv = torch.empty_like(v)
     with torch.cuda.device(dev):
         ptrs, dims = _table_args(tables, "dkv", dev)
-        rc = lib.dl4j_splash_bwd_dkv_f32(
+        rc = getattr(lib, f"dl4j_splash_bwd_dkv_{_entry(dt)}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *ptrs, B, L, H, D, *dims, _stream(dev))
     _raise_on(rc, lib, "splash_attention_bwd_dkv")
-    LAUNCHES["splash_attention_bwd_dkv"] += 1
+    LAUNCHES[_launch_key("splash_attention_bwd_dkv", dt)] += 1
     return dk, dv
 
 
 def splash_attention_bwd_dq(q, k, v, do, lse, di, tables):
     """Splash dQ backward: inputs as :func:`splash_attention_bwd_dkv` ->
-    dq [B, L, H, D] f32 (the gradient of the pre-scaled q), the same bits
-    on every launch.
+    dq [B, L, H, D] in q's dtype (the gradient of the pre-scaled q), the
+    same bits on every launch.
 
     CPU tensors run :func:`splash_attention_bwd_dq_ref`. CUDA tensors
-    launch the kernel on the current stream, or raise."""
+    launch the kernel of their dtype on the current stream, or raise."""
     dev = _device_of("splash_attention_bwd_dq", [q, k, v, do, lse, di])
+    dt = _attn_dtype("splash_attention_bwd_dq", q, k, v, do)
     if dev.type == "cpu":
         return splash_attention_bwd_dq_ref(q, k, v, do, lse, di, tables)
     B, L, H, D = _bwd_checks(
@@ -955,10 +1096,10 @@ def splash_attention_bwd_dq(q, k, v, do, lse, di, tables):
     dq = torch.empty_like(q)
     with torch.cuda.device(dev):
         ptrs, dims = _table_args(tables, "dq", dev)
-        rc = lib.dl4j_splash_bwd_dq_f32(
+        rc = getattr(lib, f"dl4j_splash_bwd_dq_{_entry(dt)}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), di.data_ptr(), dq.data_ptr(), *ptrs, B, L, H, D,
             *dims, _stream(dev))
     _raise_on(rc, lib, "splash_attention_bwd_dq")
-    LAUNCHES["splash_attention_bwd_dq"] += 1
+    LAUNCHES[_launch_key("splash_attention_bwd_dq", dt)] += 1
     return dq

@@ -323,9 +323,10 @@ def _attention_default(q: Tensor, k: Tensor, v: Tensor, *, causal=False,
 class _Attention(torch.autograd.Function):
     """Forward: ``fwd(q, k, v)`` -> (o, lse), a forward kernel's wrapper
     (or its plain version) with its mask and scale bound, saving q, k, v,
-    o and the rows' log-sum-exp. Backward: di = sum_d o * dO, one plain
-    reduction (the JAX libraries compute it in XLA outside their kernels:
-    flash_attention.py :273, splash_attention_kernel.py :2241), then
+    o and the rows' log-sum-exp. Backward: di = sum_d o * dO in f32 from o
+    and dO upcast, one plain reduction (the JAX libraries compute it so in
+    XLA outside their kernels: flash_attention.py :274,
+    splash_attention_kernel.py :2285), then
     ``dkv`` and ``dq`` (q, k, v, dO, lse, di), the backward kernels'
     wrappers or their plain versions, in the libraries' order. Serves the
     flash kernels and the splash kernels alike."""
@@ -342,7 +343,7 @@ class _Attention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         dkv, dq = ctx.conf
         do = do.contiguous()
-        di = (o * do).sum(dim=-1).permute(0, 2, 1).contiguous()
+        di = (o.float() * do.float()).sum(dim=-1).permute(0, 2, 1).contiguous()
         dk, dv = dkv(q, k, v, do, lse, di)
         return dq(q, k, v, do, lse, di), dk, dv, None, None, None
 
@@ -362,11 +363,14 @@ def _splash(q, k, v, causal, scale, fwd, dkv, dq):
     """`_splash_call` (JAX pallas_kernels.py :609): the splash kernels (or
     their plain versions) under `_Attention`, over the tables of
     MultiHeadMask([CausalMask | FullMask] * H) at block 128. The scale is
-    folded into q in q's dtype first (:626), outside the Function, so
-    autograd carries it into q's gradient; the batch is a dimension of the
-    kernels (the library vmaps it, :627)."""
+    folded into q in q's dtype first (:626: the scale itself rounded to
+    that dtype, then the product), outside the Function, so autograd
+    carries it into q's gradient; the batch is a dimension of the kernels
+    (the library vmaps it, :627)."""
     B, L, H, D = q.shape
     s = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    if q.dtype != torch.float32:  # f32: a Python float is the same f32 scalar
+        s = torch.full((), s, dtype=q.dtype, device=q.device)
     tables = splash_mask.splash_tables(L, H, bool(causal))
     return _Attention.apply((q * s).contiguous(), k.contiguous(),
                             v.contiguous(),
@@ -426,9 +430,11 @@ def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
     `attention_route(L)` — splash from SPLASH_MIN_LEN, flash below: the
     forward, and the dK/dV and dQ backward under autograd — on CUDA
     tensors, their plain versions on CPU tensors, or the override the
-    caller registered. On the card it raises for what the kernels do not
-    take (a dtype other than f32, a head dim outside
-    ``cuda_kernels.FLASH_HEAD_DIMS``): no autotune, no silent fallback."""
+    caller registered. q, k and v in f32 run the f32 kernels, in bf16 the
+    bf16 kernels (the output, and the gradients, in their dtype); any other
+    dtype raises TypeError, and on the card so does what the kernels do not
+    take (a head dim outside ``cuda_kernels.FLASH_HEAD_DIMS``): no autotune,
+    no silent fallback."""
     impl = _HELPERS.get("attention")
     if impl is not None:
         return impl(q, k, v, causal=causal, scale=scale)

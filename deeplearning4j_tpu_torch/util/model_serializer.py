@@ -4,7 +4,9 @@ The zip format is shared with the JAX package:
 
   - ``configuration.json``: the network config JSON (nn/conf/serde.py);
   - ``coefficients.bin``: npz ``params`` — every parameter flattened in
-    the net's `params_flat` order, float32;
+    the net's `params_flat` order, float32 whatever the parameter dtype
+    (a bf16 net's values are exact in f32; on load they are cast back to
+    the parameter dtype, as the JAX package does);
   - ``updater.bin``: npz ``state`` — the updater state flattened in
     `updater_state_flat` order;
   - ``variables.bin``: npz of the non-trainable variables (the BatchNorm
@@ -49,14 +51,20 @@ def _load_npz(data: bytes) -> dict:
     return dict(np.load(io.BytesIO(data), allow_pickle=False))
 
 
+def _tensor(arr) -> torch.Tensor:
+    arr = np.array(arr, copy=True)
+    if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16, which torch lacks
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def _tensors(lp) -> Dict[str, torch.Tensor]:
-    return {name: torch.from_numpy(np.array(arr, copy=True))
-            for name, arr in lp.items()}
+    return {name: _tensor(arr) for name, arr in lp.items()}
 
 
 def params_from_jax(params):
-    """A JAX net's ``params`` (arrays converted with ``np.asarray``) as CPU
-    tensors in the port's layout: a ComputationGraph's {layer: {name:
+    """A JAX net's ``params`` (arrays converted with ``np.asarray``; bf16
+    arrays become bf16 tensors) as CPU tensors in the port's layout: a ComputationGraph's {layer: {name:
     array}} gives {layer: {name: tensor}}, a MultiLayerNetwork's list of
     per-layer dicts a list. Load them with the net's ``set_params``,
     which places them on its device."""

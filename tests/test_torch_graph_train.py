@@ -213,9 +213,9 @@ def test_what_the_slice_leaves_out_raises():
     with pytest.raises(NotImplementedError, match="solvers"):
         TGraph(conf, device="cpu").fit(x, y)
     conf = tlm(**_kw("mha"))
-    conf.conf.compute_dtype = "bfloat16"
-    with pytest.raises(NotImplementedError, match="mixed precision"):
-        TGraph(conf, device="cpu")
+    conf.conf.compute_dtype = "float16"
+    with pytest.raises(ValueError, match="compute_dtype"):
+        TGraph(conf, device="cpu").init().fit(x, y)
     with pytest.raises(NotImplementedError, match="accumulation"):
         TGraph(tlm(**_kw("mha")), device="cpu").fit_batch_accumulated(
             x, y, 3)

@@ -15,7 +15,8 @@ non-zero without them, or when any phase fails. Phases:
      decode kernels (page walk over fp32 and int8 pages, combine) at the
      serving head dim, MHA and GQA, the conv kernel's variants at
      AlexNet's and LeNet's channel counts, and the bnap_sums kernel's two
-     lane widths (float4 and scalar);
+     lane widths (float4 and scalar); and the same of the three bf16 CNN
+     kernels (conv by channel counts, bnap_sums by lane width, bnap_dx);
   2. holds the paged-decode kernels (the page walk split over S blocks per
      (row, kv-head), S = cuda_kernels._paged_splits of the shapes, then
      the combine) against their plain PyTorch version on the card at the
@@ -250,7 +251,42 @@ non-zero without them, or when any phase fails. Phases:
      leaf's gradient (max |diff| within 5e-2 of its max |plain|) through
      the kernels against the plain versions. Prints step ms, tokens/s and
      the busy share beside the f32 row's;
- 22. prints the kernels line (the six bf16 kernels as rows of their own,
+ 22. holds the three bf16 CNN kernels (conv2d_bias_act over
+     conv_bf16.cuh: bf16 mma.sync, f32 accumulation, one rounding at the
+     store; bnap_sums and bnap_dx with bf16 x, g and dx, the window's
+     activations rounded to bf16 before the max and the tie count) against
+     their plain versions at bf16: the conv at AlexNet's three conv shapes
+     and LeNet's conv2 (B=512), the BN+act+pool backward at AlexNet's three
+     BN+pool shapes (B=512), and an edge set (stride 2 SAME, OC not a
+     multiple of the tile, C = 3, 4, 20, the smallest B, every activation
+     of the epilogue with its pre-activation output; windows of four
+     adjacent bf16 values whose activations tie only after the rounding,
+     the smallest B, a C that takes the scalar lanes). Gates: conv output,
+     pre-activation and dx within 2^-7 of max |plain| (one bf16 ulp of the
+     largest element), mean |diff| within 1e-3 of it, outputs bf16; sums
+     (f32) within 1e-4 of max |plain| and bitwise on a second launch; the
+     conv bitwise on a second launch; the tied windows' dx bitwise the
+     plain version's. Times (as in phase 2) beside the bf16 bound
+     (operations at 989 TFLOP/s for the conv, bf16 bytes at 3.35 TB/s)
+     and its share, and F.conv2d at bf16 on channels-last with the bias and
+     the activation (its output within 2^-5 of the plain version's);
+ 23. trains AlexNet-CIFAR10 in bf16 at full width, B=512, 20 fit_batch
+     steps on phase 6's seeds and data: bf16 params (the f32 init
+     rounded), and f32 masters with compute_dtype bf16; then LeNet-MNIST
+     bf16, 5 steps. Gates: losses finite and falling; launches exactly 3
+     bf16 conv + 3 bf16 sums + 3 bf16 dx per AlexNet step and no f32 CNN
+     kernel (LeNet: one bf16 conv); params and BN variables at their
+     dtype, the updater state f32 (and the masters and variables f32 under
+     mixed precision), output() bf16; each loss within 0.1 max(1, |loss|)
+     of phase 6's f32 loss at every step; one step's loss through the
+     kernels within 2e-3 (relative) of the plain versions' on the same
+     params and dropout masks, every leaf's gradient within 5e-2 of the
+     largest plain gradient, and each leaf's distance from the same step
+     in f32 through the f32 kernels no more than 2x the plain path's (a
+     conv bias that feeds a BatchNorm against its layer's whole
+     gradient). Prints step ms, examples/s and the busy share (5 profiled
+     steps) beside phase 6's f32 row;
+ 24. prints the kernels line (the bf16 kernels as rows of their own,
      named "<kernel>_bf16").
 
 The last line is {"ok": true, "device": {...}}. Every number printed is
@@ -2032,6 +2068,211 @@ def bf16_case(ck, torch, flush, *, family, B, L, H, D, causal, seed,
     return r
 
 
+def conv_bf16_case(ck, torch, flush, *, B, H, W, C, K, OC, stride, padding,
+                   act, seed, timed, want_pre=False):
+    """The bf16 conv kernel against its plain version at bf16 (the conv of
+    the upcast operands in f32, bias and activation in f32, one rounding)
+    at one shape, on bf16 inputs: max and mean |diff| over max |plain| of
+    the output (and of the pre-activation with ``want_pre``), bitwise on a
+    second launch, outputs bf16. With ``timed``: times (as in phase 2)
+    beside the bf16 bound (operations at 989 TFLOP/s, or bf16 bytes) and
+    F.conv2d at bf16 on channels-last with the bias and the activation."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.ops import activations
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, H, W, C), generator=g).to(dev, bf)
+    w = (torch.randn((K, K, C, OC), generator=g) / (K * K * C) ** 0.5).to(
+        dev, bf)
+    b = (torch.randn((OC,), generator=g) * 0.1).to(dev, bf)
+    kw = dict(stride=stride, padding=padding, activation=act,
+              want_pre=want_pre)
+    got = ck.conv2d_bias_act(x, w, b, **kw)
+    got2 = ck.conv2d_bias_act(x, w, b, **kw)
+    want = ck.conv2d_bias_act_ref(x, w, b, **kw)
+    torch.cuda.synchronize()
+    pairs = list(zip(got, want)) if want_pre else [(got, want)]
+    rel, mean = [], []
+    for a, r_ in pairs:
+        d = (a.float() - r_.float()).abs()
+        m = float(r_.float().abs().max())
+        rel.append(float(d.max()) / m)
+        mean.append(float(d.mean()) / m)
+    oh, ow, pads = ck.conv_geometry(H, W, K, K, stride, padding)
+    outs = got if want_pre else (got,)
+    r = {"shape": [B, H, W, C, K, OC], "stride": list(stride),
+         "pads": [list(p) for p in pads], "activation": act,
+         "want_pre": want_pre, "rel_err": rel, "mean_rel_err": mean,
+         "max_abs_err": max(float((a.float() - r_.float()).abs().max())
+                            for a, r_ in pairs),
+         "repeat_bitwise": bool(all(
+             torch.equal(a, b_) for a, b_ in zip(
+                 outs, got2 if want_pre else (got2,)))),
+         "dtypes": sorted({str(t.dtype) for t in outs}),
+         "library_ms": None}
+    r["ok"] = bool(max(rel) <= BF16_MAX_REL and max(mean) <= BF16_MEAN_REL
+                   and r["repeat_bitwise"]
+                   and r["dtypes"] == ["torch.bfloat16"])
+    if not timed:
+        return r
+    kw.pop("want_pre")
+    r["ms"] = time_ms(lambda: ck.conv2d_bias_act(x, w, b, **kw), flush=flush)
+    r["plain_ms"] = time_ms(lambda: ck.conv2d_bias_act_ref(x, w, b, **kw),
+                            flush=flush)
+    n_bytes = 2 * (x.numel() + w.numel() + b.numel() + B * oh * ow * OC)
+    n_ops = 2 * B * oh * ow * OC * K * K * C
+    r["bound_ms"], r["bound_by"] = bound(n_bytes, n_ops, BF16_FLOPS_PER_S)
+    r["bound_share"] = r["bound_ms"] / r["ms"]
+    act_fn = activations.get(act)
+    xc = x.permute(0, 3, 1, 2)  # NHWC memory is channels-last NCHW
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    pad = (pads[0][0], pads[1][0])
+
+    def lib():
+        return act_fn(F.conv2d(xc, wc, b, stride=stride, padding=pad))
+    r["library_rel_err"] = float(
+        (lib().permute(0, 2, 3, 1).float() - want.float()).abs().max()
+        / want.float().abs().max())
+    r["library_ms"] = time_ms(lib, flush=flush)
+    r["ok"] = r["ok"] and r["library_rel_err"] <= 2.0 ** -5
+    return r
+
+
+def bnap_bf16_case(ck, torch, flush, *, B, H, W, C, act, tied, seed, timed):
+    """The bf16 BN+act+pool backward kernels against their plain versions
+    at one shape, on bf16 x and g, from the forward's own f32 batch stats.
+    ``tied``: each 2x2 window holds four adjacent bf16 values (distinct
+    inputs and distinct f32 activations) under gamma 0.05 and beta 3,
+    where the activations round to one bf16 value: ties that exist only
+    after the rounding; the dx there must be the plain version's bits.
+    The dx pass takes the plain sums, so it is held alone. Sums (f32)
+    within 1e-4 of max |plain| and bitwise on a second launch; dx (bf16)
+    within one bf16 ulp of max |plain|, mean 1e-3."""
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    g = torch.Generator().manual_seed(seed)
+    if tied:
+        base = torch.randn((B, H // 2, W // 2, C), generator=g).to(bf)
+        base = base.view(torch.int16) & ~3  # room for + 0..3 in the bits
+        base = base.repeat_interleave(2, 1).repeat_interleave(2, 2)
+        offs = torch.stack([torch.randperm(4, generator=g)
+                            for _ in range(B * (H // 2) * (W // 2) * C)])
+        offs = offs.reshape(B, H // 2, W // 2, C, 2, 2).permute(
+            0, 1, 4, 2, 5, 3).reshape(B, H, W, C).to(torch.int16)
+        x = (base + offs).view(bf).contiguous().to(dev)
+        gamma = torch.full((C,), 0.05, device=dev)
+        beta = torch.full((C,), 3.0, device=dev)
+    else:
+        x = torch.randn((B, H, W, C), generator=g).to(dev, bf)
+        gamma = (torch.rand((C,), generator=g) + 0.5).to(dev)
+        beta = (torch.randn((C,), generator=g) * 0.1).to(dev)
+    gp = torch.randn((B, H // 2, W // 2, C), generator=g).to(dev, bf)
+    _, mean, _, inv = ck.bnap_forward_ref(x, gamma, beta, eps=1e-5,
+                                          activation=act)
+    p = torch.stack([mean, inv, gamma, beta]).contiguous()
+    dg, db = ck.bnap_sums(x, gp, p, activation=act)
+    dg2, db2 = ck.bnap_sums(x, gp, p, activation=act)
+    rg, rb = ck.bnap_sums_ref(x, gp, p, activation=act)
+    s = torch.stack([rb, rg]).contiguous()
+    dx = ck.bnap_dx(x, gp, p, s, activation=act)
+    rdx = ck.bnap_dx_ref(x, gp, p, s, activation=act)
+    torch.cuda.synchronize()
+    # windows whose rounded activations tie, 4-way and at all
+    a = ck.activations.get(act)(
+        (x.float() - mean) * inv * gamma + beta).to(bf).float()
+    a = a.reshape(B, H // 2, 2, W // 2, 2, C)
+    cnt = (a == a.amax(dim=(2, 4), keepdim=True)).sum(dim=(2, 4))
+    d = (dx.float() - rdx.float()).abs()
+    m = float(rdx.float().abs().max())
+    r = {"shape": [B, H, W, C], "activation": act, "tied": tied,
+         "tie_share": float((cnt > 1).float().mean()),
+         "tie4_share": float((cnt == 4).float().mean()),
+         "sums_max_abs_err": max(float((dg - rg).abs().max()),
+                                 float((db - rb).abs().max())),
+         "sums_max_abs_plain": max(float(rg.abs().max()),
+                                   float(rb.abs().max())),
+         "sums_repeat_bitwise": bool(torch.equal(dg, dg2)
+                                     and torch.equal(db, db2)),
+         "dx_max_abs_err": float(d.max()), "dx_rel_err": float(d.max()) / m,
+         "dx_mean_rel_err": float(d.mean()) / m,
+         "dx_bitwise": bool(torch.equal(dx, rdx)),
+         "dtypes": [str(t.dtype) for t in (dg, db, dx)]}
+    r["ok"] = bool(
+        r["sums_max_abs_err"] <= 1e-4 * r["sums_max_abs_plain"]
+        and r["sums_repeat_bitwise"] and r["dx_rel_err"] <= BF16_MAX_REL
+        and r["dx_mean_rel_err"] <= BF16_MEAN_REL
+        and r["dtypes"] == ["torch.float32"] * 2 + ["torch.bfloat16"]
+        and (r["dx_bitwise"] and r["tie_share"] >= 0.5 if tied else True))
+    if not timed:
+        return r
+    for k, fn in (("sums_ms", lambda: ck.bnap_sums(x, gp, p, activation=act)),
+                  ("sums_plain_ms",
+                   lambda: ck.bnap_sums_ref(x, gp, p, activation=act)),
+                  ("dx_ms", lambda: ck.bnap_dx(x, gp, p, s, activation=act)),
+                  ("dx_plain_ms",
+                   lambda: ck.bnap_dx_ref(x, gp, p, s, activation=act))):
+        r[k] = time_ms(fn, flush=flush)
+    # bf16 x and g read once, dx (bf16) written once, p and s f32; the
+    # arithmetic is f32 outside the tensor cores
+    n_x, n_g = x.numel(), gp.numel()
+    for k, n_bytes, n_ops in (("sums", 2 * (n_x + n_g) + 4 * 6 * C, 12 * n_x),
+                              ("dx", 2 * (2 * n_x + n_g) + 4 * 6 * C,
+                               14 * n_x)):
+        r[k + "_bound_ms"], r[k + "_bound_by"] = bound(n_bytes, n_ops)
+        r[k + "_bound_share"] = r[k + "_bound_ms"] / r[k + "_ms"]
+    return r
+
+
+def cnn_bf16_grad_check(torch, net, x, y):
+    """One step's gradients of a bf16 (or mixed-precision) CNN through the
+    bf16 kernels, through their plain versions (PLAIN_OVERRIDES), and of
+    the same params and variables in f32 through the f32 kernels, all on
+    the same dropout masks. Returns (the loss's relative difference,
+    kernel against plain; per leaf: max |g_kernel - g_plain| over the
+    largest plain gradient of the step ("global"), and ||g - g_f32|| of
+    each path over ||g_f32||, or over its layer's whole f32 gradient for a
+    conv bias that feeds a BatchNormalization, whose exact gradient is 0,
+    as phase 6 measures it)."""
+    from deeplearning4j_tpu_torch.nn.conf.layers import BatchNormalization
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.ops import helpers
+    state = net._gen.get_state()
+    lk, gk, _ = net.compute_gradient_and_score(x, y)
+    net._gen.set_state(state)
+    for name, fn in helpers.PLAIN_OVERRIDES.items():
+        helpers.register_helper(name, fn)
+    try:
+        lp, gp, _ = net.compute_gradient_and_score(x, y)
+    finally:
+        for name in helpers.PLAIN_OVERRIDES:
+            helpers.register_helper(name, None)
+    conf = net.conf.from_json(net.conf.to_json())
+    conf.conf.dtype, conf.conf.compute_dtype = "float32", None
+    ref = MultiLayerNetwork(conf, device="cuda").init()
+    ref.set_params(net.params)
+    ref.variables = [{k: v.float() for k, v in lv.items()}
+                     for lv in net.variables]
+    ref._gen.set_state(state)
+    _, g32, _ = ref.compute_gradient_and_score(x, y)
+    del ref
+    net._gen.set_state(state)
+    layers = net.conf.layers
+    gmax = max(float(g.float().abs().max()) for lg in gp for g in lg.values())
+    leaves = {}
+    for i, (a_, b_, c_) in enumerate(zip(gk, gp, g32)):
+        whole = (torch.cat([t.flatten() for t in c_.values()]).norm()
+                 if c_ else None)
+        for k in a_:
+            a, b, c = (t[k].float() for t in (a_, b_, c_))
+            zero = (k == "b" and i + 1 < len(layers)
+                    and isinstance(layers[i + 1], BatchNormalization))
+            cn = float((whole if zero else c.norm()).clamp_min(1e-30))
+            leaves[f"{i}.{k}"] = {
+                "global": float((a - b).abs().max()) / gmax,
+                "kernel_vs_f32": float((a - c).norm()) / cn,
+                "plain_vs_f32": float((b - c).norm()) / cn}
+    return float((lk - lp).abs() / lp.abs()), leaves
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2079,6 +2320,14 @@ def main():
              f"{conv_build}")
     bnap_build = ck.bnap_sums_attrs()
     phase(1, f"bnap_sums (relu) by lane width: {bnap_build}")
+    cnn16_build = {
+        "conv2d_bias_act": {f"C={c} OC={oc}": ck.conv2d_bias_act_attrs(
+            c, oc, torch.bfloat16) for c, oc in ((3, 64), (64, 128),
+                                                 (128, 256), (20, 50))},
+        "bnap_sums": ck.bnap_sums_attrs(torch.bfloat16),
+        "bnap_dx": ck.bnap_dx_bf16_attrs()}
+    phase(1, f"bf16 CNN kernels (conv by AlexNet's and LeNet's channels, "
+             f"bnap_sums (relu) by lane width, bnap_dx): {cnn16_build}")
 
     cases = {}
     for name, H, Hkv in (("mha", 8, 8), ("gqa", 8, 2)):
@@ -3136,6 +3385,225 @@ def main():
     if failures:
         raise SystemExit("phases 20-21 failed: " + " | ".join(failures))
 
+    # -- 22. the bf16 CNN kernels against their plain versions ---------------
+    # phases 22-23 gather their failures and stop after phase 23
+    failures = []
+    conv16_edge = [
+        dict(B=3, H=13, W=11, C=8, K=5, OC=50, stride=(2, 2),
+             padding="SAME", act="relu"),   # stride 2 SAME, OC off the tile
+        dict(B=1, H=7, W=7, C=4, K=3, OC=33, stride=(2, 2), padding="SAME",
+             act="tanh"),                   # smallest B, odd OC
+        dict(B=2, H=9, W=10, C=3, K=3, OC=70, stride=(1, 2),
+             padding=((2, 0), (1, 1)), act="sigmoid"),  # C = 3
+        dict(B=2, H=9, W=9, C=20, K=5, OC=50, stride=(1, 1),
+             padding="VALID", act="relu")]  # C = 20: 4-byte A copies
+    # every activation of the epilogue, with its pre-activation output, at
+    # C = 3 (scalar A copies) and C = 16 (16-byte copies)
+    conv16_acts = [dict(B=2, H=6, W=5, C=c, K=3, OC=9, stride=(1, 1),
+                        padding="SAME", act=a, want_pre=True)
+                   for a in sorted(set(ck.ACT_CODES) - {"linear"})
+                   for c in (3, 16)]
+    conv16_cases, conv16_edges = [], []
+    for i, c in enumerate(conv16_edge + conv16_acts):
+        r = conv_bf16_case(ck, torch, flush, seed=900 + i, timed=False, **c)
+        conv16_edges.append(r)
+        if not r["ok"]:
+            failures.append(f"bf16 conv kernel disagrees with the plain "
+                            f"version at the edge {r['shape']} "
+                            f"{r['activation']}: {r}")
+    phase(22, f"bf16 conv2d_bias_act edge set, {len(conv16_edges)} cases "
+              f"(stride 2 SAME, OC 50/33/70/9, C = 3/4/8/16/20, B = 1, every "
+              f"activation with its pre-activation): worst max|diff|/max|"
+              f"plain| {max(max(r['rel_err']) for r in conv16_edges):.3e} "
+              f"(gate {BF16_MAX_REL:.3e}), mean "
+              f"{max(max(r['mean_rel_err']) for r in conv16_edges):.3e} (gate "
+              f"{BF16_MEAN_REL}); all bitwise repeatable "
+              f"{all(r['repeat_bitwise'] for r in conv16_edges)}")
+    for i, c in enumerate(conv_main):
+        r = conv_bf16_case(ck, torch, flush, seed=100 + i, timed=True, **c)
+        conv16_cases.append(r)
+        phase(22, f"bf16 conv2d_bias_act {r['shape']} stride {r['stride']} "
+                  f"pads {r['pads']}: max|diff|/max|plain| "
+                  f"{r['rel_err'][0]:.3e} (gate {BF16_MAX_REL:.3e}), mean "
+                  f"{r['mean_rel_err'][0]:.3e} (gate {BF16_MEAN_REL}), "
+                  f"bitwise repeatable {r['repeat_bitwise']}; kernel "
+                  f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bf16 "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}; share "
+                  f"{r['bound_share']:.3f}), F.conv2d (bf16) "
+                  f"{r['library_ms']:.4f} ms (its output vs plain "
+                  f"{r['library_rel_err']:.3e}) [{card}]")
+        if not r["ok"]:
+            failures.append(f"bf16 conv kernel disagrees with the plain "
+                            f"version (or F.conv2d computes another "
+                            f"function) at {r['shape']}: {r}")
+    conv16_sum = {k: sum(c[k] for c in conv16_cases[:3])
+                  for k in ("ms", "plain_ms", "bound_ms", "library_ms")}
+    conv16_sum["bound_share"] = conv16_sum["bound_ms"] / conv16_sum["ms"]
+    phase(22, f"bf16 conv2d_bias_act, AlexNet's three convs summed: kernel "
+              f"{conv16_sum['ms']:.4f} ms (f32 kernel {conv_sum['ms']:.4f}), "
+              f"F.conv2d (bf16) {conv16_sum['library_ms']:.4f} ms (kernel / "
+              f"library {conv16_sum['ms'] / conv16_sum['library_ms']:.3f}); "
+              f"bf16 bound {conv16_sum['bound_ms']:.4f} ms (share "
+              f"{conv16_sum['bound_share']:.3f}) [{card}]")
+    bnap16_edge = [dict(B=2, H=4, W=4, C=8, act="relu", tied=True),
+                   dict(B=1, H=4, W=4, C=8, act="sigmoid", tied=False),
+                   dict(B=3, H=6, W=10, C=40, act="tanh", tied=False),
+                   dict(B=4, H=8, W=6, C=16, act="identity", tied=True),
+                   dict(B=3, H=6, W=10, C=6, act="relu", tied=False)]
+    bnap16_cases, bnap16_edges = [], []
+    for i, c in enumerate(bnap16_edge):
+        r = bnap_bf16_case(ck, torch, flush, seed=950 + i, timed=False, **c)
+        bnap16_edges.append(r)
+        phase(22, f"bf16 bnap edge {r['shape']} {r['activation']}"
+                  f"{' tied' if r['tied'] else ''}: windows tied after the "
+                  f"rounding {r['tie_share']:.3f} (4-way "
+                  f"{r['tie4_share']:.3f}); sums max|diff| "
+                  f"{r['sums_max_abs_err']:.3e} of max|plain| "
+                  f"{r['sums_max_abs_plain']:.3e} (gate 1e-4 of it), bitwise "
+                  f"repeatable {r['sums_repeat_bitwise']}; dx max|diff|/max|"
+                  f"plain| {r['dx_rel_err']:.3e}, mean "
+                  f"{r['dx_mean_rel_err']:.3e}, bitwise {r['dx_bitwise']}"
+                  f"{' (gate: bitwise)' if r['tied'] else ''}")
+        if not r["ok"]:
+            failures.append(f"bf16 BN+act+pool backward kernels disagree "
+                            f"with the plain versions at the edge "
+                            f"{r['shape']}: {r}")
+    for i, c in enumerate(bnap_main):
+        r = bnap_bf16_case(ck, torch, flush, seed=200 + i, timed=True, **c)
+        bnap16_cases.append(r)
+        phase(22, f"bf16 bnap {r['shape']} {r['activation']}: sums "
+                  f"max|diff| {r['sums_max_abs_err']:.3e} (gate "
+                  f"{1e-4 * r['sums_max_abs_plain']:.3e}), bitwise repeatable "
+                  f"{r['sums_repeat_bitwise']}; dx max|diff|/max|plain| "
+                  f"{r['dx_rel_err']:.3e} (gate {BF16_MAX_REL:.3e}), mean "
+                  f"{r['dx_mean_rel_err']:.3e}; sums {r['sums_ms']:.4f} ms "
+                  f"(plain {r['sums_plain_ms']:.4f}, bf16 bound "
+                  f"{r['sums_bound_ms']:.4f} {r['sums_bound_by']}, share "
+                  f"{r['sums_bound_share']:.3f}), dx {r['dx_ms']:.4f} ms "
+                  f"(plain {r['dx_plain_ms']:.4f}, bound "
+                  f"{r['dx_bound_ms']:.4f} {r['dx_bound_by']}, share "
+                  f"{r['dx_bound_share']:.3f}); library call: none [{card}]")
+        if not r["ok"]:
+            failures.append(f"bf16 BN+act+pool backward kernels disagree "
+                            f"with the plain versions at {r['shape']}: {r}")
+    bnap16_sum = {k: sum(c[k] for c in bnap16_cases)
+                  for k in ("sums_ms", "sums_bound_ms", "dx_ms",
+                            "dx_bound_ms")}
+    phase(22, f"bf16 bnap, AlexNet's three layers summed: sums "
+              f"{bnap16_sum['sums_ms']:.4f} ms (f32 {bnap_sum['sums_ms']:.4f})"
+              f", bound {bnap16_sum['sums_bound_ms']:.4f} ms (share "
+              f"{bnap16_sum['sums_bound_ms'] / bnap16_sum['sums_ms']:.3f}); "
+              f"dx {bnap16_sum['dx_ms']:.4f} ms (f32 {bnap_sum['dx_ms']:.4f}),"
+              f" bound {bnap16_sum['dx_bound_ms']:.4f} ms (share "
+              f"{bnap16_sum['dx_bound_ms'] / bnap16_sum['dx_ms']:.3f}) "
+              f"[{card}]")
+
+    # -- 23. AlexNet-CIFAR10 and LeNet-MNIST training in bf16 ---------------
+    cnn16_keys = ("conv2d_bias_act_bf16", "bnap_sums_bf16", "bnap_dx_bf16")
+    alex16 = {}
+    for key, dtype, cdt in (("alexnet_bf16", "bfloat16", None),
+                            ("alexnet_mixed", "float32", "bfloat16")):
+        aconf = alexnet_cifar10(dtype=dtype)
+        aconf.conf.compute_dtype = cdt
+        torch.cuda.reset_peak_memory_stats()
+        net, losses16, secs16, launches16 = train_run(ck, torch, aconf, xa,
+                                                      ya, STEPS)
+        want = dict.fromkeys(ck.LAUNCHES, 0)
+        want.update(dict.fromkeys(cnn16_keys, 3 * STEPS))
+        if launches16 != want:
+            failures.append(f"{key} launches {launches16}, want {want}")
+        if not losses16[-1] < losses16[0]:
+            failures.append(f"{key} loss did not fall: {losses16}")
+        f32_losses = train["losses"]  # phase 6's run, same seeds and data
+        curve = [abs(a - b) / max(1.0, abs(b))
+                 for a, b in zip(losses16, f32_losses)]
+        if not max(curve) <= BF16_CURVE:
+            failures.append(f"{key} left the f32 curve: {losses16} vs "
+                            f"{f32_losses}")
+        pdt = {str(p.dtype) for lp in net.params for p in lp.values()}
+        vdt = {str(v.dtype) for lv in net.variables for v in lv.values()}
+        sdt = {str(t.dtype) for lu in net.updater_state
+               for st in lu.values() for t in st.values()}
+        odt = str(net.output(xa[:2]).dtype)
+        want_dt = ({f"torch.{dtype}"}, {f"torch.{dtype}"},
+                   {"torch.float32"}, "torch.bfloat16")
+        if (pdt, vdt, sdt, odt) != want_dt:
+            failures.append(f"{key} dtypes: params {pdt}, variables {vdt}, "
+                            f"updater state {sdt}, output {odt}; want "
+                            f"{want_dt}")
+        steady = secs16[1:]
+        r = {"dtype": dtype, "compute_dtype": cdt, "batch": B,
+             "steps": STEPS, "losses": losses16, "f32_losses": f32_losses,
+             "curve_rel": curve, "step_s": secs16,
+             "first_step_ms": secs16[0] * 1e3,
+             "mean_step_ms": 1e3 * sum(steady) / len(steady),
+             "examples_per_s": B * len(steady) / sum(steady),
+             "f32_mean_step_ms": train["mean_step_ms"],
+             "f32_examples_per_s": train["examples_per_s"],
+             "launches": launches16, "params": net.num_params(),
+             "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+        phase(23, f"{key} ({r['params']} params, {dtype} params"
+                  f"{', compute ' + cdt if cdt else ''}) B={B}, {STEPS} "
+                  f"fit_batch steps: loss {losses16[0]:.6f} -> "
+                  f"{losses16[-1]:.6f}, all finite; vs phase 6's f32 curve "
+                  f"max {max(curve):.3e} of max(1, |loss|) (gate "
+                  f"{BF16_CURVE}); launches "
+                  f"{ {k: launches16[k] for k in cnn16_keys} }; steps "
+                  f"2-{STEPS}: mean {r['mean_step_ms']:.3f} ms = "
+                  f"{r['examples_per_s']:.1f} examples/s against f32 "
+                  f"{r['f32_mean_step_ms']:.3f} ms = "
+                  f"{r['f32_examples_per_s']:.1f} (first step "
+                  f"{r['first_step_ms']:.1f} ms), peak memory "
+                  f"{r['peak_mem_bytes']} B [{card}]")
+        r["profile"] = pr = train_profile(torch, net, xa, ya, 5)
+        phase(23, f"{key} under torch.profiler, 5 more steps: wall "
+                  f"{pr['wall_ms']:.3f} ms, device busy "
+                  f"{pr['device_busy_ms']:.3f} ms "
+                  f"({100 * pr['device_busy_share']:.2f}%; phase 6's f32 "
+                  f"{100 * tprof['device_busy_share']:.2f}%); the three "
+                  f"kernels {pr['kernels_ms']}; top "
+                  f"{pr['top_kernels_ms'][:5]} [{card}]")
+        r["grad_loss_rel"], r["grad_leaves"] = cnn_bf16_grad_check(
+            torch, net, xa, ya)
+        gl = r["grad_leaves"]
+        wg = max(((n, v["global"]) for n, v in gl.items()),
+                 key=lambda kv: kv[1])
+        wr = max(((n, v["kernel_vs_f32"] / max(v["plain_vs_f32"], 1e-30))
+                  for n, v in gl.items()), key=lambda kv: kv[1])
+        phase(23, f"{key} gradients at step {STEPS + 5}'s params, same "
+                  f"dropout masks, through the kernels and through their "
+                  f"plain versions: loss rel diff {r['grad_loss_rel']:.3e} "
+                  f"(gate {BF16_LOSS_REL}); worst leaf {wg[0]} max|diff| "
+                  f"{wg[1]:.3e} of the largest plain gradient (gate "
+                  f"{BF16_GRAD_REL}); the kernel path's distance from the "
+                  f"f32 step over the plain path's, worst leaf {wr[0]} "
+                  f"{wr[1]:.3f} (gate {BF16_VS_F32}; there "
+                  f"{gl[wr[0]]['kernel_vs_f32']:.3e} / "
+                  f"{gl[wr[0]]['plain_vs_f32']:.3e})")
+        if not (r["grad_loss_rel"] <= BF16_LOSS_REL
+                and wg[1] <= BF16_GRAD_REL and wr[1] <= BF16_VS_F32):
+            failures.append(f"{key} kernel and plain gradients differ: "
+                            f"{r['grad_loss_rel']} {wg} {wr}")
+        alex16[key] = r
+        del net
+        torch.cuda.empty_cache()
+    _, lenet16_losses, lenet16_secs, lenet16_launches = train_run(
+        ck, torch, lenet_mnist(dtype="bfloat16"), xl, ya, 5)
+    if lenet16_launches != {**dict.fromkeys(ck.LAUNCHES, 0),
+                            "conv2d_bias_act_bf16": 5}:
+        failures.append(f"LeNet bf16 launches {lenet16_launches}, want 1 "
+                        f"bf16 conv per step")
+    lenet16 = {"losses": lenet16_losses, "step_s": lenet16_secs,
+               "launches": lenet16_launches,
+               "mean_step_ms": 1e3 * sum(lenet16_secs[1:]) / 4}
+    phase(23, f"LeNet-MNIST bf16 B={B}, 5 steps: losses {lenet16_losses}, "
+              f"launches { {k: v for k, v in lenet16_launches.items() if v} }"
+              f"; steps 2-5 mean {lenet16['mean_step_ms']:.3f} ms (f32 "
+              f"{lenet['mean_step_ms']:.3f}) [{card}]")
+    if failures:
+        raise SystemExit("phases 22-23 failed: " + " | ".join(failures))
+
+
     src = "deeplearning4j_tpu_torch/ops/csrc/paged_decode_attention.cu"
     kernels = []
     for name, key, run, replaces in (
@@ -3277,6 +3745,34 @@ def main():
                 "library_ms": (n * case["sdpa_fwd_ms"] if key == "fwd"
                                else None),
                 "bound_share": case[key + "_bound_share"]})
+    # the bf16 CNN kernels: per bf16 AlexNet step as the f32 rows (summed
+    # over its three launches); launches of phase 23's runs (both AlexNet
+    # runs, and LeNet's conv); max |diff| over the main-path shapes
+    for name, line, k, cases16 in (
+            ("conv2d_bias_act", 92, "", conv16_cases[:3]),
+            ("bnap_sums", 286, "sums_", bnap16_cases),
+            ("bnap_dx", 301, "dx_", bnap16_cases)):
+        key = name + "_bf16"
+        src_name = "conv2d_bias_act.cu (conv_bf16.cuh)" if k == "" \
+            else f"{name}.cu"
+        err = (max(c["max_abs_err"] for c in conv16_cases) if k == ""
+               else max(c[("sums_max_abs_err" if k == "sums_"
+                           else "dx_max_abs_err")] for c in cases16))
+        kernels.append({
+            "name": key, "route": "cuda", "source": f"{csrc}/{src_name}",
+            "replaces": f"deeplearning4j_tpu/ops/pallas_kernels.py:{line} "
+                        "(at bf16)",
+            "launches": (sum(r["launches"][key] for r in alex16.values())
+                         + lenet16_launches[key]),
+            "max_abs_err": err,
+            "ms": sum(c[k + "ms"] for c in cases16),
+            "plain_ms": sum(c[k + "plain_ms"] for c in cases16),
+            "bound_ms": sum(c[k + "bound_ms"] for c in cases16),
+            "bound_by": by(cases16, k),
+            "library_ms": (sum(c["library_ms"] for c in cases16) if k == ""
+                           else None)})
+        kernels[-1]["bound_share"] = kernels[-1]["bound_ms"] / kernels[-1][
+            "ms"]
     print("[details] " + json.dumps(
         {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda,
          "build_s": build_s, "ptxas": ptxas, "attn_build": attn_build,
@@ -3296,9 +3792,13 @@ def main():
          "guarded_serving": guarded, "streaming": stream, "chaos": chaos,
          "predict_alexnet": pred, "attn_bf16_build": attn_bf16_build,
          "bf16_cases": bf16_cases, "bf16_edges": bf16_edges,
-         "lm_train_bf16": lm16,
+         "lm_train_bf16": lm16, "cnn_bf16_build": cnn16_build,
+         "conv_bf16_cases": conv16_cases, "conv_bf16_edges": conv16_edges,
+         "conv_bf16_alexnet_sum": conv16_sum, "bnap_bf16_cases": bnap16_cases,
+         "bnap_bf16_edges": bnap16_edges, "bnap_bf16_alexnet_sum": bnap16_sum,
+         "alexnet_train_bf16": alex16, "lenet_train_bf16": lenet16,
          "elapsed_s": time.monotonic() - t_start}))
-    phase(22, "kernels:")
+    phase(24, "kernels:")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -19,14 +19,15 @@ forward but the loss path's output layer (nn/layers/base.remat_forward).
 contiguous KV cache, kept between calls until
 ``rnn_clear_previous_state``.
 
-Precision (JAX graph.py :173-227, multilayer.py :42-60): parameters are
-made at ``conf.dtype`` (float32, bfloat16 or float64) and the forward runs
-at ``conf.compute_dtype`` when it is set (mixed precision: f32 master
-weights cast to the compute dtype in the forward, so autograd hands f32
-gradients back to the masters), else at the parameter dtype. Inputs and
-every vertex output are cast to the compute dtype; losses and the
-regularisation sum are f32; ``output`` and ``score`` follow the compute
-dtype. An unsupported ``compute_dtype`` raises ValueError.
+Precision (JAX graph.py :173-227, multilayer.py :42-60; nn/precision.py):
+parameters are made at ``conf.dtype`` (float32, bfloat16 or float64) and
+the forward runs at ``conf.compute_dtype`` when it is set (mixed
+precision: f32 master weights cast to the compute dtype in the forward,
+so autograd hands f32 gradients back to the masters), else at the
+parameter dtype. Inputs and every vertex output are cast to the compute
+dtype; losses and the regularisation sum are f32; ``output`` and
+``score`` follow the compute dtype. An unsupported ``compute_dtype``
+raises ValueError.
 
 Parameters live on ``device`` (default "cuda"; it raises when no CUDA
 device is present — pass device="cpu" to run on the CPU). The attention
@@ -55,44 +56,14 @@ from .layers.base import (BaseRecurrentImpl, LayerImpl, impl_for,
 from .layers import attention as _attention  # noqa: F401
 from .layers import feedforward as _feedforward  # noqa: F401
 from .layers import normalization as _normalization  # noqa: F401
+from .precision import (cast_floats, compute_dtype_of, dtype_of, host_array,
+                        host_floats, input_dtype)
 from .updater.apply import update_layer
 from ..ops import losses as losses_mod
 from ..util.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
 _SGD_ALGOS = ("stochastic_gradient_descent", "sgd")
-
-
-def _dtype_of(conf) -> torch.dtype:
-    """The parameter dtype (JAX multilayer.py :42): bfloat16 and float64
-    by name, float32 for anything else."""
-    return {"bfloat16": torch.bfloat16,
-            "float64": torch.float64}.get(conf.dtype, torch.float32)
-
-
-_COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
-                   "float64": torch.float64}
-
-
-def _compute_dtype_of(conf) -> torch.dtype:
-    """Forward/backward compute dtype: ``compute_dtype`` when set (mixed
-    precision with the masters at the parameter dtype), else the
-    parameter dtype (JAX multilayer.py :50)."""
-    cd = getattr(conf, "compute_dtype", None)
-    if cd:
-        if cd not in _COMPUTE_DTYPES:
-            raise ValueError(f"Unsupported compute_dtype '{cd}' "
-                             f"(supported: {sorted(_COMPUTE_DTYPES)})")
-        return _COMPUTE_DTYPES[cd]
-    return _dtype_of(conf)
-
-
-def _cast_floats(params, dtype):
-    """{layer: {name: tensor}} with every floating tensor cast to dtype (a
-    differentiable cast: the gradient flows back to the masters)."""
-    return {name: {k: v.to(dtype) if v.is_floating_point() else v
-                   for k, v in lp.items()}
-            for name, lp in params.items()}
 
 
 def check_f32_decode(net, what: str) -> None:
@@ -113,8 +84,8 @@ class ComputationGraph:
                  device: DeviceLike = "cuda"):
         self.conf = conf
         self.device = resolve_device(device)
-        self.dtype = _dtype_of(conf.conf)
-        self.compute_dtype = _compute_dtype_of(conf.conf)
+        self.dtype = dtype_of(conf.conf)
+        self.compute_dtype = compute_dtype_of(conf.conf)
         self.topo = conf.topological_order()
         self._impls: Dict[str, LayerImpl] = {}
         for name, v in conf.vertices.items():
@@ -181,11 +152,7 @@ class ComputationGraph:
         t = t.to(self.device)
         if not t.is_floating_point():
             return t
-        # floats arrive at f32 (f64 for an f64 graph), as JAX arrays do;
-        # the forward casts its inputs to the compute dtype, the losses take
-        # the labels as they are
-        return t.to(torch.float64 if self.dtype == torch.float64
-                    else torch.float32)
+        return t.to(input_dtype(self.dtype))
 
     def _as_tensors(self, arrays) -> Optional[List[Optional[Tensor]]]:
         if arrays is None:
@@ -257,7 +224,7 @@ class ComputationGraph:
         conf = self.conf
         dtype = self.compute_dtype
         if dtype != self.dtype:  # mixed precision: compute on cast masters
-            params = _cast_floats(params, dtype)
+            params = cast_floats(params, dtype)
         acts: Dict[str, Tensor] = {}
         vmasks: Dict[str, Optional[Tensor]] = {}
         for i, iname in enumerate(conf.network_inputs):
@@ -496,21 +463,15 @@ class ComputationGraph:
     def params_flat(self) -> np.ndarray:
         """Every parameter flattened in the JAX flat order; bf16 parameters
         come as f32 (exact), numpy having no bf16 of its own."""
-        chunks = []
-        for name in sorted(self.params):
-            for pname in sorted(self.params[name]):
-                t = self.params[name][pname].detach().cpu()
-                if t.dtype == torch.bfloat16:
-                    t = t.float()
-                chunks.append(t.numpy().reshape(-1))
+        chunks = [host_array(self.params[name][pname]).reshape(-1)
+                  for name in sorted(self.params)
+                  for pname in sorted(self.params[name])]
         return np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
 
     def set_params_flat(self, flat: np.ndarray):
         """Load ``flat`` (any float dtype numpy holds, bf16 included), cast
         to each parameter's dtype."""
-        flat = np.asarray(flat)
-        if flat.dtype.name == "bfloat16":  # a JAX bf16 net's params_flat
-            flat = flat.astype(np.float32)
+        flat = host_floats(flat)
         total = sum(p.numel() for lp in self.params.values()
                     for p in lp.values())
         if flat.size != total:

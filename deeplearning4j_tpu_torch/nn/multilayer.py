@@ -16,13 +16,24 @@ Remat (``conf.remat``) checkpoints each layer of the train-mode forward
 but the loss path's last layer (nn/layers/base.remat_forward), and then,
 as in the JAX package, leaves the BN+pool pairs unfused.
 
+Precision (JAX multilayer.py :42-66, :165-172, :201-202, :228-229;
+nn/precision.py, shared with ComputationGraph): params and the BatchNorm
+variables are made at ``conf.dtype`` (float32, bfloat16 or float64); the
+forward runs at ``conf.compute_dtype`` when it is set (mixed precision:
+the masters cast to it in the forward, so autograd hands gradients at the
+masters' dtype back to them), else at the parameter dtype. The input and
+every layer's output (the fused BN+pool pair's included) are cast to the
+compute dtype; the loss and the regularisation sum are f32, and so is
+the updater state (nn/updater/apply.py). float64 runs on the CPU; on the
+card the kernel wrappers raise for it. An unsupported ``compute_dtype``
+raises ValueError.
+
 Parameters live on ``device`` (default "cuda"; it raises when no CUDA
 device is present — pass device="cpu" to run on the CPU). The conv and
-BN+act+pool layers run the port's CUDA kernels there (ops/helpers.py).
+BN+act+pool layers run the port's CUDA kernels there (ops/helpers.py),
+the f32 or the bf16 ones by the compute dtype.
 Not ported yet, and raising where a config asks for them: solvers other
-than SGD, truncated BPTT, layerwise pretraining, recurrent layers, and
-any dtype or compute dtype but float32 (the bf16 conv and BN+act+pool
-kernels come first: ROADMAP B2, B3).
+than SGD, truncated BPTT, layerwise pretraining and recurrent layers.
 """
 from __future__ import annotations
 
@@ -40,6 +51,8 @@ from .layers.base import BaseRecurrentImpl, LayerImpl, impl_for, \
 from .layers import convolution as _convolution
 from .layers import feedforward as _feedforward  # noqa: F401
 from .layers import normalization as _normalization
+from .precision import (cast_floats, compute_dtype_of, dtype_of, host_array,
+                        host_floats, input_dtype)
 from .updater.apply import update_layer
 from ..ops import losses as losses_mod
 from ..util.device import DeviceLike, resolve_device
@@ -51,12 +64,6 @@ _SGD_ALGOS = ("stochastic_gradient_descent", "sgd")
 
 def _check_supported(conf: MultiLayerConfiguration) -> None:
     g = conf.conf
-    if g.dtype != "float32" or g.compute_dtype not in (None, g.dtype):
-        raise NotImplementedError(
-            f"dtype {g.dtype!r} / compute_dtype {g.compute_dtype!r}: the "
-            "port's MultiLayerNetwork trains float32 nets; bf16 and mixed "
-            "precision need the bf16 conv and BN+act+pool kernels, queued "
-            "as ROADMAP B2 and B3")
     if conf.pretrain:
         raise NotImplementedError("layerwise pretraining comes with a later "
                                   "slice")
@@ -74,7 +81,8 @@ class MultiLayerNetwork:
         _check_supported(conf)
         self.conf = conf
         self.device = resolve_device(device)
-        self.dtype = torch.float32
+        self.dtype = dtype_of(conf.conf)
+        self.compute_dtype = compute_dtype_of(conf.conf)
         self._impls: List[LayerImpl] = [impl_for(l) for l in conf.layers]
         for i, impl in enumerate(self._impls):
             if isinstance(impl, BaseRecurrentImpl):
@@ -136,7 +144,7 @@ class MultiLayerNetwork:
             return None
         t = a if isinstance(a, Tensor) else torch.as_tensor(np.asarray(a))
         t = t.to(self.device)
-        return t.to(self.dtype) if t.is_floating_point() else t
+        return t.to(input_dtype(self.dtype)) if t.is_floating_point() else t
 
     def _adapt_input(self, x: Tensor) -> Tensor:
         """Flat [B, h*w*c] rows, or [B, h, w] grayscale, fed to a net
@@ -167,7 +175,12 @@ class MultiLayerNetwork:
         checkpoints the layers."""
         conf = self.conf
         n = len(self._impls) if upto is None else upto
+        dtype = self.compute_dtype
+        if dtype != self.dtype:  # mixed precision: compute on cast masters
+            params = cast_floats(params, dtype)
         cur = self._adapt_input(x)
+        if cur.is_floating_point() and cur.dtype != dtype:
+            cur = cur.to(dtype)
         timesteps = cur.shape[1] if cur.ndim == 3 else 1
         acts: List[Tensor] = []
         new_vars = list(variables)
@@ -195,6 +208,8 @@ class MultiLayerNetwork:
                                            self._impls[i + 1].conf, cur)):
                 y, new_vars[i] = impl.forward_fused_pool(
                     params[i], cur, variables=variables[i])
+                if y.is_floating_point() and y.dtype != dtype:
+                    y = y.to(dtype)
                 acts += [y, y]  # both fused layers record the pooled output
                 cur = y
                 i += 2
@@ -207,6 +222,8 @@ class MultiLayerNetwork:
                 y, new_vars[i] = remat_forward(
                     impl, train=train, ckpt=ckpt, recurrent=False)(
                     params[i], cur, variables[i], gen, mask)
+            if y.is_floating_point() and y.dtype != dtype:
+                y = y.to(dtype)  # stop f32 creep under mixed precision
             acts.append(y)
             cur = y
             i += 1
@@ -376,13 +393,14 @@ class MultiLayerNetwork:
 
     def params_flat(self) -> np.ndarray:
         """Flat parameter view in (layer, sorted name) order — the order of
-        the model zip's ``coefficients.bin``, shared with the JAX package."""
-        chunks = [lp[name].detach().cpu().numpy().reshape(-1)
+        the model zip's ``coefficients.bin``, shared with the JAX package;
+        bf16 parameters come as f32 (exact)."""
+        chunks = [host_array(lp[name]).reshape(-1)
                   for lp in self.params for name in sorted(lp)]
         return np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
 
     def _unflatten(self, flat, like):
-        flat = np.asarray(flat)
+        flat = host_floats(flat)
         off = 0
         out = []
         for d in like:
@@ -400,6 +418,8 @@ class MultiLayerNetwork:
         return out
 
     def set_params_flat(self, flat: np.ndarray):
+        """Load ``flat`` (any float dtype numpy holds, a JAX bf16 net's
+        included), cast to each parameter's dtype."""
         self._check_init()
         self.params = self._unflatten(flat, self.params)
 

@@ -48,6 +48,14 @@ __device__ __forceinline__ void bnap_recompute(const float* __restrict__ x, floa
     win.gz[j] = (a[j] == m ? share : 0.f) * activate_grad(act, z[j]);
 }
 
+// v rounded to bf16 (to nearest even) and back to f32: the activation as a
+// bf16 forward's pool compared it.
+__device__ __forceinline__ float bf16_round(float v) {
+  unsigned short h;
+  asm("cvt.rn.bf16.f32 %0, %1;\n" : "=h"(h) : "f"(v));
+  return __uint_as_float((unsigned)h << 16);
+}
+
 // The same recompute on a window already loaded (bnap_sums.cu loads a lane's
 // four window inputs as float4s and calls this once per channel of the
 // lane): x_hat and g_z of the four inputs xv[j], in the order of Window.
@@ -55,6 +63,12 @@ __device__ __forceinline__ void bnap_recompute(const float* __restrict__ x, floa
 // maxima and ties and give the same bits. The tie share g / cnt is taken by
 // a multiply where cnt is 1, 2 or 4 (exact, so the same bits as the
 // division) and divided only for a 3-way tie.
+//
+// With kRoundBf16 (a bf16 x, widened to f32), the activations are rounded to
+// bf16 before the maximum and the tie count (JAX pallas_kernels.py :272-275:
+// distinct f32 activations may tie once rounded, and then share the
+// gradient); act'(z) is still taken at the f32 z.
+template <bool kRoundBf16 = false>
 __device__ __forceinline__ void bnap_recompute_vals(const float xv[4], float g,
                                                     float mean, float inv, float gam,
                                                     float bet, int act, float xh[4],
@@ -65,6 +79,7 @@ __device__ __forceinline__ void bnap_recompute_vals(const float xv[4], float g,
     xh[j] = __fmul_rn(__fsub_rn(xv[j], mean), inv);
     z[j] = __fadd_rn(__fmul_rn(xh[j], gam), bet);
     a[j] = activate(act, z[j]);
+    if constexpr (kRoundBf16) a[j] = bf16_round(a[j]);
   }
   const float m = fmaxf(fmaxf(a[0], a[1]), fmaxf(a[2], a[3]));
   float cnt = 0.f;

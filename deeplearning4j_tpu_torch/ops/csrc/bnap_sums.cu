@@ -1,5 +1,5 @@
 // Fused BN + activation + 2x2/s2 max-pool backward, pass 1: the per-channel
-// sums, for Hopper (sm_90a), f32.
+// sums, for Hopper (sm_90a), x and g in f32 or in bf16, the sums in f32.
 //
 // Replaces the Pallas TPU kernel deeplearning4j_tpu/ops/pallas_kernels.py
 // `_bnap_sums_kernel` (:286, pallas_call :388 in `_get_bnap_fn.fn_bwd` :356):
@@ -11,6 +11,13 @@
 //   db   [C]                 f32 = sum over the batch of g_z          (d beta)
 //
 // with g_z recomputed per element as bnap_common.cuh describes.
+//
+// The bf16 kernel (dl4j_bnap_sums_bf16) is the same kernel with x and g
+// loaded as bf16 and widened to f32 (a lane's four channels are one 8-byte
+// load), and the window's activations rounded to bf16 before the maximum and
+// the tie count (bnap_recompute_vals<true>), as the JAX kernel compares them
+// after the cast to x.dtype (:272-275); p, the partial rows and the sums
+// stay f32. Its bound is the bytes of x and g at two bytes an element.
 //
 // What bounds it on this card: the bytes of x and g, read once each (x is
 // four times g); the arithmetic is a few operations per element. The design
@@ -43,6 +50,8 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "bnap_common.cuh"
 
 namespace {
@@ -55,6 +64,8 @@ struct Lane;
 
 template <>
 struct Lane<4> {
+  using T = float;
+  static constexpr bool kBf16 = false;
   float v[4];
   __device__ __forceinline__ void ldg(const float* p) {
     const float4 t = __ldg(reinterpret_cast<const float4*>(p));
@@ -69,9 +80,38 @@ struct Lane<4> {
 
 template <>
 struct Lane<1> {
+  using T = float;
+  static constexpr bool kBf16 = false;
   float v[1];
   __device__ __forceinline__ void ldg(const float* p) { v[0] = __ldg(p); }
   __device__ __forceinline__ void ldcg(const float* p) { v[0] = __ldcg(p); }
+};
+
+// VEC consecutive bf16 of one lane (x or g of the bf16 kernel), widened to
+// f32 (exact): four are one 8-byte load.
+template <int VEC>
+struct LaneBf16;
+
+template <>
+struct LaneBf16<4> {
+  using T = uint16_t;
+  static constexpr bool kBf16 = true;
+  float v[4];
+  __device__ __forceinline__ void ldg(const uint16_t* p) {
+    const uint2 t = __ldg(reinterpret_cast<const uint2*>(p));
+    v[0] = __uint_as_float(t.x << 16), v[1] = __uint_as_float(t.x & 0xffff0000u);
+    v[2] = __uint_as_float(t.y << 16), v[3] = __uint_as_float(t.y & 0xffff0000u);
+  }
+};
+
+template <>
+struct LaneBf16<1> {
+  using T = uint16_t;
+  static constexpr bool kBf16 = true;
+  float v[1];
+  __device__ __forceinline__ void ldg(const uint16_t* p) {
+    v[0] = __uint_as_float((unsigned)__ldg(p) << 16);
+  }
 };
 
 template <int VEC>
@@ -80,10 +120,12 @@ struct Params {
 };
 
 // One pooled position: load its 2x2 window (row stride wc) and g, recompute
-// and add to the lane's sums in window order.
-template <int VEC>
-__device__ __forceinline__ void load_window(const float* xw, const float* gw, int C, int wc,
-                                            Lane<VEC> (&w)[4], Lane<VEC>& gv) {
+// and add to the lane's sums in window order. L is Lane<VEC> (f32) or
+// LaneBf16<VEC>.
+template <class L>
+__device__ __forceinline__ void load_window(const typename L::T* xw,
+                                            const typename L::T* gw, int C, int wc,
+                                            L (&w)[4], L& gv) {
   w[0].ldg(xw);
   w[1].ldg(xw + C);
   w[2].ldg(xw + wc);
@@ -91,16 +133,16 @@ __device__ __forceinline__ void load_window(const float* xw, const float* gw, in
   gv.ldg(gw);
 }
 
-template <int VEC, int ACT>
-__device__ __forceinline__ void add_window(const Lane<VEC> (&w)[4], const Lane<VEC>& gv,
+template <class L, int VEC, int ACT>
+__device__ __forceinline__ void add_window(const L (&w)[4], const L& gv,
                                            const Params<VEC>& pr, float (&sb)[VEC],
                                            float (&sg)[VEC]) {
 #pragma unroll
   for (int v = 0; v < VEC; ++v) {
     const float xv[4] = {w[0].v[v], w[1].v[v], w[2].v[v], w[3].v[v]};
     float xh[4], gz[4];
-    dl4j::bnap_recompute_vals(xv, gv.v[v], pr.mean.v[v], pr.inv.v[v], pr.gam.v[v],
-                              pr.bet.v[v], ACT, xh, gz);
+    dl4j::bnap_recompute_vals<L::kBf16>(xv, gv.v[v], pr.mean.v[v], pr.inv.v[v],
+                                        pr.gam.v[v], pr.bet.v[v], ACT, xh, gz);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       sb[v] = __fadd_rn(sb[v], gz[j]);
@@ -172,9 +214,11 @@ __device__ __forceinline__ bool arrive(unsigned* counter, unsigned n, bool& last
   return last;
 }
 
-template <int VEC, int ACT>
+// L: the lane type of x and g, Lane<VEC> or LaneBf16<VEC>
+template <class L, int VEC, int ACT>
 __global__ void __launch_bounds__(kThreads, 2)
-    bnap_sums_kernel(const float* __restrict__ x, const float* __restrict__ g,
+    bnap_sums_kernel(const typename L::T* __restrict__ x,
+                     const typename L::T* __restrict__ g,
                      const float* __restrict__ p, float* __restrict__ part,
                      float* __restrict__ dg, float* __restrict__ db,
                      unsigned* __restrict__ ticket, int C, int W, int R, int rpb, int pwn,
@@ -199,25 +243,25 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int wc = W * C;
     const int r_end = min(R, (int)(blockIdx.y + 1) * rpb);
     int r = blockIdx.y * rpb + ry;
-    const float* xr = x + r * xrow + 2 * pwl * C + c0;
-    const float* gr = g + r * grow + pwl * C + c0;
+    const typename L::T* xr = x + r * xrow + 2 * pwl * C + c0;
+    const typename L::T* gr = g + r * grow + pwl * C + c0;
     // two rows (r, r + rl) per iteration, then the odd row
     for (; r + rl < r_end; r += 2 * rl, xr += 2 * rl * xrow, gr += 2 * rl * grow) {
       int xo = 0, go = 0;
       for (int pw = pwl; pw < W2; pw += pwn, xo += 2 * pwn * C, go += pwn * C) {
-        Lane<VEC> a[4], b[4], ga, gb;
+        L a[4], b[4], ga, gb;
         load_window(xr + xo, gr + go, C, wc, a, ga);
         load_window(xr + rl * xrow + xo, gr + rl * grow + go, C, wc, b, gb);
-        add_window<VEC, ACT>(a, ga, pr, sb, sg);
-        add_window<VEC, ACT>(b, gb, pr, sb, sg);
+        add_window<L, VEC, ACT>(a, ga, pr, sb, sg);
+        add_window<L, VEC, ACT>(b, gb, pr, sb, sg);
       }
     }
     if (r < r_end) {
       int xo = 0, go = 0;
       for (int pw = pwl; pw < W2; pw += pwn, xo += 2 * pwn * C, go += pwn * C) {
-        Lane<VEC> a[4], ga;
+        L a[4], ga;
         load_window(xr + xo, gr + go, C, wc, a, ga);
-        add_window<VEC, ACT>(a, ga, pr, sb, sg);
+        add_window<L, VEC, ACT>(a, ga, pr, sb, sg);
       }
     }
   }
@@ -239,23 +283,73 @@ __global__ void __launch_bounds__(kThreads, 2)
   block_sum(sb, sg, red, C, cbase, db, dg);
 }
 
-bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+bool aligned(const void* p, unsigned n) { return ((uintptr_t)p & (n - 1)) == 0; }
 
-using Kernel = void (*)(const float*, const float*, const float*, float*, float*, float*,
+template <typename T>
+using Kernel = void (*)(const T*, const T*, const float*, float*, float*, float*,
                         unsigned*, int, int, int, int, int, int, int, int);
 
-// The kernel of a lane width and an activation code (the four the fused
+// The kernel of a lane type and an activation code (the four the fused
 // backward recomputes: identity, relu, tanh, sigmoid), or nullptr. The
 // activation is a template parameter, so its switch folds away in the loop.
-template <int VEC>
-Kernel kernel_for(int act) {
+template <class L, int VEC>
+Kernel<typename L::T> kernel_for(int act) {
   switch (act) {
-    case dl4j::kIdentity: return bnap_sums_kernel<VEC, dl4j::kIdentity>;
-    case dl4j::kRelu: return bnap_sums_kernel<VEC, dl4j::kRelu>;
-    case dl4j::kTanh: return bnap_sums_kernel<VEC, dl4j::kTanh>;
-    case dl4j::kSigmoid: return bnap_sums_kernel<VEC, dl4j::kSigmoid>;
+    case dl4j::kIdentity: return bnap_sums_kernel<L, VEC, dl4j::kIdentity>;
+    case dl4j::kRelu: return bnap_sums_kernel<L, VEC, dl4j::kRelu>;
+    case dl4j::kTanh: return bnap_sums_kernel<L, VEC, dl4j::kTanh>;
+    case dl4j::kSigmoid: return bnap_sums_kernel<L, VEC, dl4j::kSigmoid>;
     default: return nullptr;
   }
+}
+
+// The f32 (T = float) or bf16 (T = uint16_t) kernel of lane width vec and
+// activation code act, or nullptr.
+template <typename T>
+Kernel<T> kernel_of(int vec, int act) {
+  using L4 = std::conditional_t<sizeof(T) == 4, Lane<4>, LaneBf16<4>>;
+  using L1 = std::conditional_t<sizeof(T) == 4, Lane<1>, LaneBf16<1>>;
+  if (vec == 4) return kernel_for<L4, 4>(act);
+  return vec == 1 ? kernel_for<L1, 1>(act) : nullptr;
+}
+
+// The checks and the launch shared by the f32 and bf16 entry points; x and g
+// take 4 elements' bytes of alignment for a lane of four.
+template <typename T>
+int launch(const T* x, const T* g, const float* p, float* part, float* dg, float* db,
+           unsigned* ticket, int B, int H, int W, int C, int act, int vec, int cl, int pl,
+           int pwn, int rl, int rpb, int rblocks, int group, int ngroups, void* stream) {
+  if (B < 1 || H < 2 || W < 2 || (H & 1) || (W & 1) || C < 1 || 2LL * W * C > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  if ((vec != 1 && vec != 4) || C % vec || cl < 1 || pl < 1 || cl * pl > kThreads ||
+      pwn < 1 || rl < 1 || pwn * rl > pl || rpb < 1 || group < 1)
+    return (int)cudaErrorInvalidValue;
+  const Kernel<T> kernel = kernel_of<T>(vec, act);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  const unsigned xalign = 4 * sizeof(T);
+  if (vec == 4 && !(aligned(x, xalign) && aligned(g, xalign) && aligned(p, 16) &&
+                    aligned(part, 16)))
+    return (int)cudaErrorMisalignedAddress;
+  const long long R = (long long)B * (H / 2);
+  if (R > INT_MAX || rblocks != (R + rpb - 1) / rpb || rblocks > 65535 ||
+      ngroups != (rblocks + group - 1) / group)
+    return (int)cudaErrorInvalidValue;
+  const int cblocks = (C / vec + cl - 1) / cl;
+  kernel<<<dim3(cblocks, rblocks), dim3(cl, pl), 0, (cudaStream_t)stream>>>(
+      x, g, p, part, dg, db, ticket, C, W, (int)R, rpb, pwn, rl, group, ngroups);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int kernel_attrs(Kernel<T> kernel, int* out) {
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes;
+  return 0;
 }
 
 }  // namespace
@@ -269,36 +363,28 @@ extern "C" int dl4j_bnap_sums_f32(const float* x, const float* g, const float* p
                                   int B, int H, int W, int C, int act, int vec, int cl,
                                   int pl, int pwn, int rl, int rpb, int rblocks, int group,
                                   int ngroups, void* stream) {
-  if (B < 1 || H < 2 || W < 2 || (H & 1) || (W & 1) || C < 1 || 2LL * W * C > INT_MAX)
-    return (int)cudaErrorInvalidValue;
-  if ((vec != 1 && vec != 4) || C % vec || cl < 1 || pl < 1 || cl * pl > kThreads ||
-      pwn < 1 || rl < 1 || pwn * rl > pl || rpb < 1 || group < 1)
-    return (int)cudaErrorInvalidValue;
-  const Kernel kernel = vec == 4 ? kernel_for<4>(act) : kernel_for<1>(act);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  if (vec == 4 && !(aligned16(x) && aligned16(g) && aligned16(p) && aligned16(part)))
-    return (int)cudaErrorMisalignedAddress;
-  const long long R = (long long)B * (H / 2);
-  if (R > INT_MAX || rblocks != (R + rpb - 1) / rpb || rblocks > 65535 ||
-      ngroups != (rblocks + group - 1) / group)
-    return (int)cudaErrorInvalidValue;
-  const int cblocks = (C / vec + cl - 1) / cl;
-  kernel<<<dim3(cblocks, rblocks), dim3(cl, pl), 0, (cudaStream_t)stream>>>(
-      x, g, p, part, dg, db, ticket, C, W, (int)R, rpb, pwn, rl, group, ngroups);
-  return (int)cudaGetLastError();
+  return launch(x, g, p, part, dg, db, ticket, B, H, W, C, act, vec, cl, pl, pwn, rl, rpb,
+                rblocks, group, ngroups, stream);
+}
+
+// The same with x and g as bf16 bits (8-byte aligned for vec = 4).
+extern "C" int dl4j_bnap_sums_bf16(const uint16_t* x, const uint16_t* g, const float* p,
+                                   float* part, float* dg, float* db, unsigned* ticket,
+                                   int B, int H, int W, int C, int act, int vec, int cl,
+                                   int pl, int pwn, int rl, int rpb, int rblocks,
+                                   int group, int ngroups, void* stream) {
+  return launch(x, g, p, part, dg, db, ticket, B, H, W, C, act, vec, cl, pl, pwn, rl, rpb,
+                rblocks, group, ngroups, stream);
 }
 
 // Registers, local (spill) bytes per thread and static shared bytes of the
 // kernel of lane width vec and activation code act as the loaded binary has
 // them, into out[3].
 extern "C" int dl4j_bnap_sums_attrs(int vec, int act, int* out) {
-  const Kernel kernel = vec == 4 ? kernel_for<4>(act) : kernel_for<1>(act);
-  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
-  cudaFuncAttributes a;
-  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
-  if (e != cudaSuccess) return (int)e;
-  out[0] = a.numRegs;
-  out[1] = (int)a.localSizeBytes;
-  out[2] = (int)a.sharedSizeBytes;
-  return 0;
+  return kernel_attrs(kernel_of<float>(vec, act), out);
+}
+
+// The same for the bf16 kernel.
+extern "C" int dl4j_bnap_sums_bf16_attrs(int vec, int act, int* out) {
+  return kernel_attrs(kernel_of<uint16_t>(vec, act), out);
 }

@@ -1,5 +1,7 @@
 // Fused NHWC conv2d + bias + activation, forward, for Hopper (sm_90a), f32 in
-// and out, the products on the tensor cores in 3xTF32.
+// and out, the products on the tensor cores in 3xTF32. The bf16 kernel (bf16
+// in and out, f32 accumulation) is its sibling in conv_bf16.cuh, with its
+// entry points at the end of this file.
 //
 // Replaces the Pallas TPU kernel deeplearning4j_tpu/ops/pallas_kernels.py
 // `_conv2d_bias_act_forward` (:119, pallas_call :144, body `_conv_kernel` :92):
@@ -73,6 +75,7 @@
 #include <stdint.h>
 
 #include "activations.cuh"
+#include "conv_bf16.cuh"
 #include "tc_common.cuh"
 
 namespace {
@@ -368,4 +371,35 @@ extern "C" int dl4j_conv2d_bias_act_attrs(int C, int OC, int* out) {
                  : attrs(conv2d_bias_act_kernel<true, false>, kSmem, out);
   return vec_b ? attrs(conv2d_bias_act_kernel<false, true>, kSmem, out)
                : attrs(conv2d_bias_act_kernel<false, false>, kSmem, out);
+}
+
+// The bf16 kernel (conv_bf16.cuh): x, w, b, out and pre as bf16 bits, the
+// arguments otherwise those of dl4j_conv2d_bias_act_f32. Shared memory per
+// block: 36 KiB.
+extern "C" int dl4j_conv2d_bias_act_bf16(const uint16_t* x, const uint16_t* w,
+                                         const uint16_t* b, uint16_t* out,
+                                         uint16_t* pre, int B, int H, int W, int C,
+                                         int KH, int KW, int OC, int OH, int OW,
+                                         int SH, int SW, int PT, int PL, int act,
+                                         void* stream) {
+  namespace cb = dl4j_conv_bf16;
+  if (B < 1 || H < 1 || W < 1 || C < 1 || KH < 1 || KW < 1 || OC < 1 || OH < 1 ||
+      OW < 1 || SH < 1 || SW < 1 || act < 0 || act >= dl4j::kNumActs)
+    return (int)cudaErrorInvalidValue;
+  const long long M = (long long)B * OH * OW;
+  const long long mt = (M + cb::kBM - 1) / cb::kBM;
+  const long long K = (long long)KH * KW * C;
+  if (mt > 2147483647LL || (OC + cb::kBN - 1) / cb::kBN > 65535 ||
+      K > 2147483647LL - cb::kBK)
+    return (int)cudaErrorInvalidValue;
+  const cb::Geom g{M, (int)K, B, H, W, C, KH, KW, OC, OH, OW, SH, SW, PT, PL, act};
+  return cb::launch(x, w, b, out, pre, g, mt, (cudaStream_t)stream);
+}
+
+// {registers, local bytes per thread, dynamic shared bytes} into out[3] of
+// the bf16 kernel variant that C input and OC output channels launch
+// (aligned x and w assumed).
+extern "C" int dl4j_conv2d_bias_act_bf16_attrs(int C, int OC, int* out) {
+  if (C < 1 || OC < 1) return (int)cudaErrorInvalidValue;
+  return dl4j_conv_bf16::variant_attrs(C, OC, out);
 }

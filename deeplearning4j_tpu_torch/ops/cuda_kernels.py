@@ -16,10 +16,12 @@ use and bound with ctypes (``ops/_build.py``):
     block tables of ``ops/splash_mask.py``, for long sequences; the last
     two share ``splash_attention_bwd.cu``).
 
-The six attention wrappers take f32 or bf16 (`ATTN_DTYPES`) and launch
-the kernel of that dtype; a bf16 launch counts under the kernel's name
-with ``_bf16`` appended. Their plain versions at bf16 make the roundings
-of the library each kernel replaces (`_bf16_round` and its callers).
+The six attention wrappers take f32 or bf16 (`KERNEL_DTYPES`), and so do
+the conv and the two BN+act+pool backward wrappers; each launches the kernel of that dtype, and a bf16 launch counts under the
+kernel's name with ``_bf16`` appended. Their plain versions at bf16 make
+the roundings of the TPU kernel or library each kernel replaces
+(`_bf16_round` and its callers; `conv2d_bias_act_ref`; the BN+act+pool
+plain versions compute in f32 and compare ties in x's dtype).
 
 Rule of every wrapper here:
 
@@ -53,8 +55,9 @@ LAUNCHES = {"paged_decode_attention": 0, "conv2d_bias_act": 0,
             "flash_attention_bwd_dkv": 0, "flash_attention_bwd_dq": 0,
             "splash_attention_fwd": 0, "splash_attention_bwd_dkv": 0,
             "splash_attention_bwd_dq": 0}
-# the bf16 attention kernels count apart: "<kernel>_bf16"
+# the bf16 kernels count apart: "<kernel>_bf16"
 LAUNCHES.update({f"{name}_bf16": 0 for name in (
+    "conv2d_bias_act", "bnap_sums", "bnap_dx",
     "flash_attention_fwd", "flash_attention_bwd_dkv",
     "flash_attention_bwd_dq", "splash_attention_fwd",
     "splash_attention_bwd_dkv", "splash_attention_bwd_dq")})
@@ -83,12 +86,18 @@ _SIGNATURES = {
         "dl4j_paged_decode_attrs": [_INT] * 4 + [_PTR]},
     "conv2d_bias_act": {
         "dl4j_conv2d_bias_act_f32": [_PTR] * 5 + [_INT] * 14 + [_PTR],
-        "dl4j_conv2d_bias_act_attrs": [_INT, _INT, _PTR]},
+        "dl4j_conv2d_bias_act_bf16": [_PTR] * 5 + [_INT] * 14 + [_PTR],
+        "dl4j_conv2d_bias_act_attrs": [_INT, _INT, _PTR],
+        "dl4j_conv2d_bias_act_bf16_attrs": [_INT, _INT, _PTR]},
     "bnap_sums": {
         "dl4j_bnap_sums_f32": [_PTR] * 7 + [_INT] * 14 + [_PTR],
-        "dl4j_bnap_sums_attrs": [_INT, _INT, _PTR]},
+        "dl4j_bnap_sums_bf16": [_PTR] * 7 + [_INT] * 14 + [_PTR],
+        "dl4j_bnap_sums_attrs": [_INT, _INT, _PTR],
+        "dl4j_bnap_sums_bf16_attrs": [_INT, _INT, _PTR]},
     "bnap_dx": {
-        "dl4j_bnap_dx_f32": [_PTR] * 5 + [_INT] * 5 + [_PTR]},
+        "dl4j_bnap_dx_f32": [_PTR] * 5 + [_INT] * 5 + [_PTR],
+        "dl4j_bnap_dx_bf16": [_PTR] * 5 + [_INT] * 5 + [_PTR],
+        "dl4j_bnap_dx_bf16_attrs": [_PTR]},
     "flash_attention_fwd": {
         "dl4j_flash_fwd_f32": [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _PTR],
         "dl4j_flash_fwd_bf16": [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _PTR],
@@ -178,6 +187,22 @@ def _check(name, t, dtype, shape):
         raise ValueError(f"{name}: must be contiguous")
 
 
+# the dtypes the f32/bf16 kernel pairs take for their data tensors (q, k,
+# v, dO of attention; x, w, b of the conv; x, g of the BN+act+pool
+# backward), one dtype for all of a call's; each has its own kernel (lse,
+# di, p and s are always f32)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _kernel_dtype(name, *tensors) -> torch.dtype:
+    """The one dtype of ``tensors``: f32 or bf16, else TypeError."""
+    dt = tensors[0].dtype
+    if dt not in KERNEL_DTYPES or any(t.dtype != dt for t in tensors):
+        raise TypeError(f"{name}: dtypes {[t.dtype for t in tensors]}; the "
+                        f"kernels take them all in one of {KERNEL_DTYPES}")
+    return dt
+
+
 def _check_aligned(name, *tensors):
     """Raise unless every tensor starts on 16 bytes: kernels that copy
     16-byte chunks (every attention kernel: the forwards, the dK/dV and the
@@ -187,6 +212,15 @@ def _check_aligned(name, *tensors):
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: input {i} does not start on 16 bytes "
                              f"(storage offset {t.storage_offset()})")
+
+
+def _launch_key(name: str, dtype: torch.dtype) -> str:
+    return name if dtype == torch.float32 else f"{name}_bf16"
+
+
+def _entry(dtype: torch.dtype) -> str:
+    """The suffix of the C entry point for ``dtype``."""
+    return "f32" if dtype == torch.float32 else "bf16"
 
 
 def _lib(name: str):
@@ -360,26 +394,42 @@ def conv2d_bias_act_ref(x, w, b, *, stride=(1, 1), padding="SAME",
                         activation="identity", want_pre=False):
     """Plain version of the conv kernel: act(conv2d_ref(x, w) + b), the
     XLA default of the JAX seam (helpers.py :64); with ``want_pre``, the
-    pair (act(z), z) of z = conv2d_ref(x, w) + b."""
+    pair (act(z), z) of z = conv2d_ref(x, w) + b.
+
+    At bf16, the JAX kernel's roundings (pallas_kernels.py :102, :116,
+    :158): the conv of the upcast operands in f32 (products of two bf16
+    values are exact in f32, so only the order of the sums differs from
+    the kernel's), the bias and the activation in f32, and one rounding
+    to bf16 at the end, of act(z) and of z."""
+    if x.dtype == torch.bfloat16:
+        out = conv2d_bias_act_ref(x.float(), w.float(), b.float(),
+                                  stride=stride, padding=padding,
+                                  activation=activation, want_pre=want_pre)
+        if want_pre:
+            return tuple(t.to(x.dtype) for t in out)
+        return out.to(x.dtype)
     z = conv2d_ref(x, w, stride=stride, padding=padding) + b
     y = activations.get(activation)(z)
     return (y, z) if want_pre else y
 
 
+
 def conv2d_bias_act(x, w, b, *, stride=(1, 1), padding="SAME",
                     activation="identity", want_pre=False):
-    """Fused NHWC conv + bias + activation. x [B, H, W, C] f32, w [KH, KW,
-    C, OC] f32 (HWIO), b [OC] f32 -> [B, OH, OW, OC] f32; stride (sh, sw);
-    padding "SAME", "VALID" or ((top, bottom), (left, right)). With
-    ``want_pre`` it returns (out, pre), ``pre`` the pre-activation conv +
-    bias, which the same launch writes.
+    """Fused NHWC conv + bias + activation. x [B, H, W, C], w [KH, KW, C,
+    OC] (HWIO), b [OC], all f32 or all bf16 -> [B, OH, OW, OC] in their
+    dtype; stride (sh, sw); padding "SAME", "VALID" or ((top, bottom),
+    (left, right)). With ``want_pre`` it returns (out, pre), ``pre`` the
+    pre-activation conv + bias, which the same launch writes. The bf16
+    kernel accumulates in f32 and rounds once, at the store.
 
     CPU tensors run :func:`conv2d_bias_act_ref`. CUDA tensors launch the
-    kernel on the current stream, or raise."""
+    kernel of their dtype on the current stream, or raise."""
     dev = _device_of("conv2d_bias_act", [x, w, b])
     if dev.type == "cpu":
         return conv2d_bias_act_ref(x, w, b, stride=stride, padding=padding,
                                    activation=activation, want_pre=want_pre)
+    dt = _kernel_dtype("conv2d_bias_act", x, w, b)
     if x.dim() != 4 or w.dim() != 4:
         raise ValueError("conv2d_bias_act: x [B,H,W,C], w [KH,KW,C,OC]")
     act = ACT_CODES.get(str(activation).lower())
@@ -388,38 +438,60 @@ def conv2d_bias_act(x, w, b, *, stride=(1, 1), padding="SAME",
                          "kernel epilogue")
     B, H, W, C = x.shape
     KH, KW, _, OC = w.shape
-    _check("x", x, torch.float32, (B, H, W, C))
-    _check("w", w, torch.float32, (KH, KW, C, OC))
-    _check("b", b, torch.float32, (OC,))
+    _check("x", x, dt, (B, H, W, C))
+    _check("w", w, dt, (KH, KW, C, OC))
+    _check("b", b, dt, (OC,))
     sh, sw = (int(s) for s in stride)
     oh, ow, pads = conv_geometry(H, W, KH, KW, (sh, sw), padding)
     if oh < 1 or ow < 1 or sh < 1 or sw < 1 or min(min(p) for p in pads) < 0:
         raise ValueError(f"conv2d_bias_act: invalid geometry: input {H}x{W}, "
                          f"kernel {KH}x{KW}, stride {stride}, pads {pads}")
     lib = _lib("conv2d_bias_act")
-    out = torch.empty((B, oh, ow, OC), dtype=torch.float32, device=dev)
+    out = torch.empty((B, oh, ow, OC), dtype=dt, device=dev)
     pre = torch.empty_like(out) if want_pre else None
     with torch.cuda.device(dev):
-        rc = lib.dl4j_conv2d_bias_act_f32(
+        rc = getattr(lib, f"dl4j_conv2d_bias_act_{_entry(dt)}")(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
             None if pre is None else pre.data_ptr(),
             B, H, W, C, KH, KW, OC, oh, ow, sh, sw, pads[0][0], pads[1][0],
             act, _stream(dev))
     _raise_on(rc, lib, "conv2d_bias_act")
-    LAUNCHES["conv2d_bias_act"] += 1
+    LAUNCHES[_launch_key("conv2d_bias_act", dt)] += 1
     return (out, pre) if want_pre else out
 
 
 # -- fused BN + activation + 2x2/s2 max-pool backward -------------------------
 
+def bn_batch_stats(x):
+    """Per-channel batch (mean, var) over all but the last axis (JAX
+    helpers.py :180): two-pass biased variance for f32 and f64; one-pass
+    E[x^2] - E[x]^2 in f32 for sub-f32 inputs."""
+    dims = tuple(range(x.ndim - 1))
+    if x.dtype in (torch.bfloat16, torch.float16):
+        xf = x.float()
+        mean = torch.mean(xf, dim=dims)
+        var = torch.clamp_min(torch.mean(xf * xf, dim=dims) - mean * mean,
+                              0.0)
+        return mean, var
+    return torch.mean(x, dim=dims), torch.var(x, dim=dims, unbiased=False)
+
+
+def _wide(t):
+    """t at f32, or at f64 when it is f64: the dtype the BN+act+pool
+    composite computes in (JAX `fwd_chain` :335 casts to f32)."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
+
+
 def bnap_forward_ref(x, gamma, beta, *, eps, activation):
     """The composite's forward (JAX `fwd_chain`, pallas_kernels.py :332):
-    batch stats, normalize, activation, 2x2/s2 max. Returns (pooled, mean,
-    var, inv) with f32 stats. x [B, H, W, C], H and W even."""
-    mean = torch.mean(x, dim=(0, 1, 2))
-    var = torch.var(x, dim=(0, 1, 2), unbiased=False)
+    f32 batch stats (`bn_batch_stats`), z normalized in f32 from x and the
+    f32 gamma and beta, act(z) rounded to x's dtype, then the 2x2/s2 max.
+    Returns (pooled in x's dtype, mean, var, inv in f32; f64 for an f64
+    x). x [B, H, W, C], H and W even."""
+    mean, var = bn_batch_stats(x)
     inv = torch.rsqrt(var + eps)
-    a = activations.get(activation)((x - mean) * inv * gamma + beta)
+    z = (_wide(x) - mean) * inv * _wide(gamma) + _wide(beta)
+    a = activations.get(activation)(z).to(x.dtype)
     B, H, W, C = x.shape
     pooled = a.reshape(B, H // 2, 2, W // 2, 2, C).amax(dim=(2, 4))
     return pooled, mean, var, inv
@@ -437,23 +509,25 @@ def _bnap_dact(z, activation):
 
 def _bnap_recompute_ref(x, g, p, activation):
     """Port of `_bnap_recompute` (pallas_kernels.py :250) on the 6-D view
-    [B, H/2, 2, W/2, 2, C]: x_hat and the routed gradient g_z, with the
-    pooled gradient split evenly among tied window maxima."""
+    [B, H/2, 2, W/2, 2, C], in f32 from x and g upcast (f64 stays f64):
+    x_hat and the routed gradient g_z (both f32), with the pooled gradient split evenly
+    among the window's maxima, compared after the activation is rounded to
+    x's dtype (:272-275), as the forward's pool compared them."""
     B, H, W, C = x.shape
-    xv = x.reshape(B, H // 2, 2, W // 2, 2, C)
+    xv = _wide(x).reshape(B, H // 2, 2, W // 2, 2, C)
     xh = (xv - p[0]) * p[1]
     z = xh * p[2] + p[3]
-    a = activations.get(activation)(z)
+    a = activations.get(activation)(z).to(x.dtype).to(z.dtype)
     m = a.amax(dim=(2, 4), keepdim=True)
-    eq = (a == m).to(x.dtype)
+    eq = (a == m).to(z.dtype)
     cnt = eq.sum(dim=(2, 4), keepdim=True)
-    ga = eq * (g.reshape(B, H // 2, 1, W // 2, 1, C) / cnt)
+    ga = eq * (_wide(g).reshape(B, H // 2, 1, W // 2, 1, C) / cnt)
     return xh, ga * _bnap_dact(z, activation)
 
 
 def bnap_sums_ref(x, g, p, *, activation):
     """Plain version of the sums pass: (d gamma, d beta) = (sum g_z *
-    x_hat, sum g_z) per channel."""
+    x_hat, sum g_z) per channel, f32."""
     xh, gz = _bnap_recompute_ref(x, g, p, activation)
     dims = (0, 1, 2, 3, 4)
     return (gz * xh).sum(dim=dims), gz.sum(dim=dims)
@@ -461,12 +535,13 @@ def bnap_sums_ref(x, g, p, *, activation):
 
 def bnap_dx_ref(x, g, p, s, *, activation):
     """Plain version of the dx pass: inv * gamma * (g_z - s[0] / n - x_hat
-    * s[1] / n), n = B * H * W, s = (d beta, d gamma)."""
+    * s[1] / n), n = B * H * W, s = (d beta, d gamma), in f32 and written
+    in x's dtype (:309)."""
     B, H, W, C = x.shape
     n = B * H * W
     xh, gz = _bnap_recompute_ref(x, g, p, activation)
     dx = p[1] * p[2] * (gz - s[0] / n - xh * (s[1] / n))
-    return dx.reshape(B, H, W, C)
+    return dx.reshape(B, H, W, C).to(x.dtype)
 
 
 def _bnap_checks(name, x, g, p, activation):
@@ -478,8 +553,9 @@ def _bnap_checks(name, x, g, p, activation):
     if activation not in BNAP_ACTS:
         raise ValueError(f"{name}: activation {activation!r} is not one of "
                          f"{BNAP_ACTS}")
-    _check("x", x, torch.float32, (B, H, W, C))
-    _check("g", g, torch.float32, (B, H // 2, W // 2, C))
+    dt = _kernel_dtype(name, x, g)
+    _check("x", x, dt, (B, H, W, C))
+    _check("g", g, dt, (B, H // 2, W // 2, C))
     _check("p", p, torch.float32, (4, C))
     return B, H, W, C
 
@@ -521,18 +597,24 @@ def _bnap_tickets(dev, n):
 
 
 def bnap_sums(x, g, p, *, activation):
-    """Pass 1 of the fused backward. x [B, H, W, C] f32, g [B, H/2, W/2, C]
-    f32 (the pooled output's gradient), p [4, C] f32 = (mean, inv, gamma,
-    beta) -> (d gamma [C], d beta [C]) f32, the same bits on every run.
+    """Pass 1 of the fused backward. x [B, H, W, C] and g [B, H/2, W/2, C]
+    (the pooled output's gradient), both f32 or both bf16, p [4, C] f32 =
+    (mean, inv, gamma, beta) -> (d gamma [C], d beta [C]) f32, the same
+    bits on every run. At bf16 the window's maxima and ties are those of
+    the activation rounded to bf16, as the forward's pool saw them.
 
     CPU tensors run :func:`bnap_sums_ref`. CUDA tensors launch the kernel
-    on the current stream, or raise."""
+    of their dtype on the current stream, or raise."""
     dev = _device_of("bnap_sums", [x, g, p])
     if dev.type == "cpu":
         return bnap_sums_ref(x, g, p, activation=activation)
     B, H, W, C = _bnap_checks("bnap_sums", x, g, p, activation)
-    vec = 4 if C % 4 == 0 and all(t.data_ptr() % 16 == 0
-                                  for t in (x, g, p)) else 1
+    dt = x.dtype
+    # four channels a lane: one 16-byte load of f32, one 8-byte load of
+    # bf16 (p is f32 either way)
+    vec = 4 if (C % 4 == 0 and p.data_ptr() % 16 == 0
+                and all(t.data_ptr() % (4 * t.element_size()) == 0
+                        for t in (x, g))) else 1
     plan = bnap_sums_plan(B, H, W, C, vec)
     lib = _lib("bnap_sums")
     part = torch.empty((plan["rblocks"] + plan["ngroups"], 2, C),
@@ -541,32 +623,39 @@ def bnap_sums(x, g, p, *, activation):
     db = torch.empty((C,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         ticket = _bnap_tickets(dev, plan["cblocks"] * (plan["ngroups"] + 1))
-        rc = lib.dl4j_bnap_sums_f32(
+        rc = getattr(lib, f"dl4j_bnap_sums_{_entry(dt)}")(
             x.data_ptr(), g.data_ptr(), p.data_ptr(), part.data_ptr(),
             dg.data_ptr(), db.data_ptr(), ticket.data_ptr(), B, H, W, C,
             ACT_CODES[activation], *(plan[k] for k in (
                 "vec", "cl", "pl", "pwn", "rl", "rpb", "rblocks", "group",
                 "ngroups")), _stream(dev))
     _raise_on(rc, lib, "bnap_sums")
-    LAUNCHES["bnap_sums"] += 1
+    LAUNCHES[_launch_key("bnap_sums", dt)] += 1
     return dg, db
 
 
-def bnap_sums_attrs() -> dict:
+def bnap_sums_attrs(dtype=torch.float32) -> dict:
     """{"vec4", "vec1"}: attrs (as `_kernel_attrs`; smem_bytes is the
     static shared memory) of the sums kernel's two lane widths at relu,
-    AlexNet's activation. Needs the card."""
-    return {f"vec{v}": _kernel_attrs("bnap_sums", "dl4j_bnap_sums_attrs", v,
-                                     ACT_CODES["relu"])
+    AlexNet's activation, for x and g in ``dtype``. Needs the card."""
+    fn = f"dl4j_bnap_sums_{'' if dtype == torch.float32 else 'bf16_'}attrs"
+    return {f"vec{v}": _kernel_attrs("bnap_sums", fn, v, ACT_CODES["relu"])
             for v in (4, 1)}
+
+
+def bnap_dx_bf16_attrs() -> dict:
+    """Attrs (as `bnap_sums_attrs`) of the bf16 dx kernel. Needs the
+    card."""
+    return _kernel_attrs("bnap_dx", "dl4j_bnap_dx_bf16_attrs")
 
 
 def bnap_dx(x, g, p, s, *, activation):
     """Pass 2 of the fused backward: inputs as :func:`bnap_sums`, plus s
-    [2, C] f32 = (d beta, d gamma) -> dx [B, H, W, C] f32.
+    [2, C] f32 = (d beta, d gamma) -> dx [B, H, W, C] in x's dtype,
+    computed in f32 and rounded once at the store.
 
-    CPU tensors run :func:`bnap_dx_ref`. CUDA tensors launch the kernel on
-    the current stream, or raise."""
+    CPU tensors run :func:`bnap_dx_ref`. CUDA tensors launch the kernel of
+    their dtype on the current stream, or raise."""
     dev = _device_of("bnap_dx", [x, g, p, s])
     if dev.type == "cpu":
         return bnap_dx_ref(x, g, p, s, activation=activation)
@@ -575,11 +664,11 @@ def bnap_dx(x, g, p, s, *, activation):
     lib = _lib("bnap_dx")
     dx = torch.empty_like(x)
     with torch.cuda.device(dev):
-        rc = lib.dl4j_bnap_dx_f32(
+        rc = getattr(lib, f"dl4j_bnap_dx_{_entry(x.dtype)}")(
             x.data_ptr(), g.data_ptr(), p.data_ptr(), s.data_ptr(),
             dx.data_ptr(), B, H, W, C, ACT_CODES[activation], _stream(dev))
     _raise_on(rc, lib, "bnap_dx")
-    LAUNCHES["bnap_dx"] += 1
+    LAUNCHES[_launch_key("bnap_dx", x.dtype)] += 1
     return dx
 
 
@@ -587,25 +676,6 @@ def bnap_dx(x, g, p, s, *, activation):
 
 # head dims the kernels are instantiated for (64 x D tiles in shared memory)
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
-# the dtypes of q, k, v and dO the attention kernels take (lse and di are
-# always f32); each has its own kernel
-ATTN_DTYPES = (torch.float32, torch.bfloat16)
-
-
-def _attn_dtype(name, *tensors) -> torch.dtype:
-    """The one dtype of q, k, v (and dO): f32 or bf16, else TypeError."""
-    dt = tensors[0].dtype
-    if dt not in ATTN_DTYPES or any(t.dtype != dt for t in tensors):
-        raise TypeError(f"{name}: dtypes {[t.dtype for t in tensors]}; the "
-                        f"kernels take q, k, v and dO all in one of "
-                        f"{ATTN_DTYPES}")
-    return dt
-
-
-def _launch_key(name: str, dtype: torch.dtype) -> str:
-    return name if dtype == torch.float32 else f"{name}_bf16"
-
-
 def _bf16_round(x):
     """x (f32) rounded to bf16 and back: the libraries' ``astype(bf16)`` of
     p or ds before a product whose operands are bf16."""
@@ -689,7 +759,7 @@ def flash_attention_bwd_dq_ref(q, k, v, do, lse, di, *, causal, scale):
 
 def _flash_checks(name, q, k, v):
     """Shapes, dtypes and contiguity the kernels take: q, k, v [B, L, H, D]
-    in one of ATTN_DTYPES, with D in FLASH_HEAD_DIMS."""
+    in one of KERNEL_DTYPES, with D in FLASH_HEAD_DIMS."""
     if q.dim() != 4:
         raise ValueError(f"{name}: q, k, v [B, L, H, D]")
     B, L, H, D = q.shape
@@ -698,15 +768,10 @@ def _flash_checks(name, q, k, v):
                          f"{FLASH_HEAD_DIMS}")
     if min(B, L, H) < 1 or max(B, H) > 65535:
         raise ValueError(f"{name}: unsupported shape {tuple(q.shape)}")
-    dt = _attn_dtype(name, q, k, v)
+    dt = _kernel_dtype(name, q, k, v)
     for n, t in (("q", q), ("k", k), ("v", v)):
         _check(n, t, dt, (B, L, H, D))
     return B, L, H, D
-
-
-def _entry(dtype: torch.dtype) -> str:
-    """The suffix of the C entry point for ``dtype``."""
-    return "f32" if dtype == torch.float32 else "bf16"
 
 
 def flash_attention_fwd(q, k, v, *, causal, scale):
@@ -717,7 +782,7 @@ def flash_attention_fwd(q, k, v, *, causal, scale):
     CPU tensors run :func:`flash_attention_fwd_ref`. CUDA tensors launch
     the kernel of their dtype on the current stream, or raise."""
     dev = _device_of("flash_attention_fwd", [q, k, v])
-    dt = _attn_dtype("flash_attention_fwd", q, k, v)
+    dt = _kernel_dtype("flash_attention_fwd", q, k, v)
     if dev.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, causal=causal, scale=scale)
     B, L, H, D = _flash_checks("flash_attention_fwd", q, k, v)
@@ -805,12 +870,13 @@ def paged_decode_attrs(G: int, Dh: int) -> dict:
                                          ("combine", 0, 1))}
 
 
-def conv2d_bias_act_attrs(C: int, OC: int) -> dict:
+def conv2d_bias_act_attrs(C: int, OC: int, dtype=torch.float32) -> dict:
     """Attrs (as `_kernel_attrs`) of the conv kernel variant that C input
-    and OC output channels launch (16-byte aligned x and w). Needs the
-    card."""
-    return _kernel_attrs("conv2d_bias_act", "dl4j_conv2d_bias_act_attrs",
-                         C, OC)
+    and OC output channels launch in ``dtype`` (16-byte aligned x and w).
+    Needs the card."""
+    fn = ("dl4j_conv2d_bias_act_attrs" if dtype == torch.float32
+          else "dl4j_conv2d_bias_act_bf16_attrs")
+    return _kernel_attrs("conv2d_bias_act", fn, C, OC)
 
 
 def _bwd_checks(name, q, k, v, do, lse, di, checks=_flash_checks):
@@ -832,7 +898,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal, scale):
     CPU tensors run :func:`flash_attention_bwd_dkv_ref`. CUDA tensors
     launch the kernel of their dtype on the current stream, or raise."""
     dev = _device_of("flash_attention_bwd_dkv", [q, k, v, do, lse, di])
-    dt = _attn_dtype("flash_attention_bwd_dkv", q, k, v, do)
+    dt = _kernel_dtype("flash_attention_bwd_dkv", q, k, v, do)
     if dev.type == "cpu":
         return flash_attention_bwd_dkv_ref(q, k, v, do, lse, di,
                                            causal=causal, scale=scale)
@@ -858,7 +924,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, di, *, causal, scale):
     CPU tensors run :func:`flash_attention_bwd_dq_ref`. CUDA tensors launch
     the kernel of their dtype on the current stream, or raise."""
     dev = _device_of("flash_attention_bwd_dq", [q, k, v, do, lse, di])
-    dt = _attn_dtype("flash_attention_bwd_dq", q, k, v, do)
+    dt = _kernel_dtype("flash_attention_bwd_dq", q, k, v, do)
     if dev.type == "cpu":
         return flash_attention_bwd_dq_ref(q, k, v, do, lse, di,
                                           causal=causal, scale=scale)
@@ -993,7 +1059,7 @@ def splash_attention_bwd_dq_ref(q, k, v, do, lse, di, tables, *,
 
 def _splash_checks(name, q, k, v, *, tables):
     """What the splash kernels take: q, k, v [B, L, H, D] in one of
-    ATTN_DTYPES, contiguous, D in SPLASH_HEAD_DIMS, L % 128 == 0, and tables
+    KERNEL_DTYPES, contiguous, D in SPLASH_HEAD_DIMS, L % 128 == 0, and tables
     made for (L, H)."""
     if q.dim() != 4:
         raise ValueError(f"{name}: q, k, v [B, L, H, D]")
@@ -1006,7 +1072,7 @@ def _splash_checks(name, q, k, v, *, tables):
                          f"{SPLASH_HEAD_DIMS}")
     if min(B, H) < 1 or max(B, H) > 65535:
         raise ValueError(f"{name}: unsupported shape {tuple(q.shape)}")
-    dt = _attn_dtype(name, q, k, v)
+    dt = _kernel_dtype(name, q, k, v)
     for n, t in (("q", q), ("k", k), ("v", v)):
         _check(n, t, dt, (B, L, H, D))
     if tables.L != L or tables.rows not in (1, H):
@@ -1029,7 +1095,7 @@ def splash_attention_fwd(q, k, v, tables):
     CPU tensors run :func:`splash_attention_fwd_ref`. CUDA tensors launch
     the kernel of their dtype on the current stream, or raise."""
     dev = _device_of("splash_attention_fwd", [q, k, v])
-    dt = _attn_dtype("splash_attention_fwd", q, k, v)
+    dt = _kernel_dtype("splash_attention_fwd", q, k, v)
     if dev.type == "cpu":
         return splash_attention_fwd_ref(q, k, v, tables)
     B, L, H, D = _splash_checks("splash_attention_fwd", q, k, v,
@@ -1056,7 +1122,7 @@ def splash_attention_bwd_dkv(q, k, v, do, lse, di, tables):
     CPU tensors run :func:`splash_attention_bwd_dkv_ref`. CUDA tensors
     launch the kernel of their dtype on the current stream, or raise."""
     dev = _device_of("splash_attention_bwd_dkv", [q, k, v, do, lse, di])
-    dt = _attn_dtype("splash_attention_bwd_dkv", q, k, v, do)
+    dt = _kernel_dtype("splash_attention_bwd_dkv", q, k, v, do)
     if dev.type == "cpu":
         return splash_attention_bwd_dkv_ref(q, k, v, do, lse, di, tables)
     B, L, H, D = _bwd_checks(
@@ -1085,7 +1151,7 @@ def splash_attention_bwd_dq(q, k, v, do, lse, di, tables):
     CPU tensors run :func:`splash_attention_bwd_dq_ref`. CUDA tensors
     launch the kernel of their dtype on the current stream, or raise."""
     dev = _device_of("splash_attention_bwd_dq", [q, k, v, do, lse, di])
-    dt = _attn_dtype("splash_attention_bwd_dq", q, k, v, do)
+    dt = _kernel_dtype("splash_attention_bwd_dq", q, k, v, do)
     if dev.type == "cpu":
         return splash_attention_bwd_dq_ref(q, k, v, do, lse, di, tables)
     B, L, H, D = _bwd_checks(

@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn.functional as F
@@ -145,7 +145,8 @@ def conv2d_bias_act(x: Tensor, w: Tensor, b: Tensor, *, stride=(1, 1),
                     padding="SAME", dilation=(1, 1),
                     activation="identity") -> Tensor:
     """Fused NHWC conv + bias + activation (JAX helpers.py :72): the CUDA
-    kernel, or the plain default where the JAX kernel declines too.
+    kernel of x's dtype (f32 or bf16), or the plain default where the JAX
+    kernel declines too.
     "softmax", the one activation that is not elementwise, runs the
     kernel's identity epilogue and then the channel softmax: the JAX
     kernel applies it to its whole-OC output block."""
@@ -163,6 +164,25 @@ def conv2d_bias_act(x: Tensor, w: Tensor, b: Tensor, *, stride=(1, 1),
         return activations.softmax(_ConvBiasAct.apply(x, w, b, *conv,
                                                       "identity"))
     return _ConvBiasAct.apply(x, w, b, *conv, act)
+
+
+def conv2d_bias_act_plain(x, w, b, *, stride=(1, 1), padding="SAME",
+                          dilation=(1, 1), activation="identity"):
+    """The seam with the kernel's PLAIN version in its place, on any
+    device, differentiated by autograd (independent of `_ConvBiasAct`'s
+    backward). At f32 it is the plain default; at bf16 it rounds as the
+    kernel does, once after the activation, where the plain default rounds
+    the conv and the bias too."""
+    if not conv_kernel_applies(w, dilation):
+        return _conv2d_bias_act_default(x, w, b, stride=stride,
+                                        padding=padding, dilation=dilation,
+                                        activation=activation)
+    act = str(activation).lower()
+    conv = dict(stride=tuple(int(s) for s in stride), padding=padding)
+    if act == "softmax":
+        return activations.softmax(ck.conv2d_bias_act_ref(
+            x, w, b, activation="identity", **conv))
+    return ck.conv2d_bias_act_ref(x, w, b, activation=act, **conv)
 
 
 # -- pool2d --------------------------------------------------------------------
@@ -223,18 +243,9 @@ def batch_norm(x, gamma, beta, mean, var, *, eps=1e-5) -> Tensor:
     return impl(x, gamma, beta, mean, var, eps=eps)
 
 
-def bn_batch_stats(x: Tensor) -> Tuple[Tensor, Tensor]:
-    """Per-channel batch (mean, var) over all but the last axis (JAX
-    helpers.py :180): two-pass biased variance for f32 and f64; one-pass
-    E[x^2] - E[x]^2 in f32 for sub-f32 inputs."""
-    dims = tuple(range(x.ndim - 1))
-    if x.dtype in (torch.bfloat16, torch.float16):
-        xf = x.float()
-        mean = torch.mean(xf, dim=dims)
-        var = torch.clamp_min(torch.mean(xf * xf, dim=dims) - mean * mean,
-                              0.0)
-        return mean, var
-    return torch.mean(x, dim=dims), torch.var(x, dim=dims, unbiased=False)
+# Per-channel batch (mean, var) over all but the last axis (JAX helpers.py
+# :180); the kernels' module holds it, as the composite's forward uses it.
+bn_batch_stats = ck.bn_batch_stats
 
 
 # -- fused train-mode BatchNorm + activation + 2x2/s2 max-pool ----------------
@@ -446,7 +457,7 @@ def attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = False,
 
 # The caller's explicit way around every training kernel: register these to
 # run each kernel's plain version instead, on any device.
-PLAIN_OVERRIDES = {"conv2d_bias_act": _conv2d_bias_act_default,
+PLAIN_OVERRIDES = {"conv2d_bias_act": conv2d_bias_act_plain,
                    "bn_act_pool": bn_act_pool_plain,
                    "attention": attention_plain}
 

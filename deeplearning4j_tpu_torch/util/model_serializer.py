@@ -10,7 +10,10 @@ The zip format is shared with the JAX package:
   - ``updater.bin``: npz ``state`` — the updater state flattened in
     `updater_state_flat` order;
   - ``variables.bin``: npz of the non-trainable variables (the BatchNorm
-    running ``mean``/``var``), keyed ``"<layer index>:<name>"``;
+    running ``mean``/``var``), keyed ``"<layer index>:<name>"``. bf16
+    variables are written as f32 (exact), which the JAX package reads back
+    into its bf16 slots; the JAX package writes them as ml_dtypes bf16,
+    which an npz holds as raw 2-byte records, read here as bf16 bits;
   - ``meta.json``: step counter, model type, format version.
 
 A zip written by the JAX package's `write_model` restores here, and one
@@ -32,6 +35,7 @@ from typing import Dict, Union
 import numpy as np
 import torch
 
+from ..nn.precision import host_array
 from ..util.device import DeviceLike
 
 CONFIG_JSON = "configuration.json"
@@ -56,6 +60,16 @@ def _tensor(arr) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16, which torch lacks
         return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def _variable(arr, dtype) -> torch.Tensor:
+    """A ``variables.bin`` array as a tensor of the slot's ``dtype``: raw
+    2-byte records (a JAX bf16 array saved by numpy) are bf16 bits."""
+    arr = np.asarray(arr)
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return torch.from_numpy(arr.view(np.int16).copy()).view(
+            torch.bfloat16).to(dtype)
+    return _tensor(arr).to(dtype)
 
 
 def _tensors(lp) -> Dict[str, torch.Tensor]:
@@ -86,7 +100,7 @@ def write_model(net, path: Union[str, Path]) -> None:
                     _save_npz({"params": net.params_flat().astype(np.float32)}))
         zf.writestr(UPDATER_BIN, _save_npz(
             {"state": net.updater_state_flat().astype(np.float32)}))
-        var_arrays = {f"{i}:{name}": arr.detach().cpu().numpy()
+        var_arrays = {f"{i}:{name}": host_array(arr)
                       for i, lv in enumerate(getattr(net, "variables", []))
                       for name, arr in lv.items()}
         if var_arrays:
@@ -145,9 +159,8 @@ def restore_multi_layer_network(path: Union[str, Path], *,
             for key, arr in _load_npz(zf.read(VARIABLES_BIN)).items():
                 i, name = key.rsplit(":", 1)
                 slot = net.variables[int(i)]
-                dtype = slot[name].dtype if name in slot else None
-                slot[name] = torch.as_tensor(arr).to(device=net.device,
-                                                     dtype=dtype)
+                dtype = slot[name].dtype if name in slot else net.dtype
+                slot[name] = _variable(arr, dtype).to(net.device)
         if META_JSON in names:
             net.step = json.loads(zf.read(META_JSON).decode()).get("step", 0)
     return net

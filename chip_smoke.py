@@ -17,6 +17,11 @@ non-zero without them, or when any phase fails. Phases:
      AlexNet's and LeNet's channel counts, and the bnap_sums kernel's two
      lane widths (float4 and scalar); and the same of the three bf16 CNN
      kernels (conv by channel counts, bnap_sums by lane width, bnap_dx);
+     and of the bf16 forward core (attn_fwd_bf16.cuh) by head dim: its
+     warp specialisation (threads, the registers setmaxnreg gives the
+     producer warpgroup and each consumer warpgroup, stages, tile), ptxas's
+     registers and spills of each forward kernel, and the count of ptxas
+     warnings that it serialised a wgmma;
   2. holds the paged-decode kernels (the page walk split over S blocks per
      (row, kv-head), S = cuda_kernels._paged_splits of the shapes, then
      the combine) against their plain PyTorch version on the card at the
@@ -225,8 +230,10 @@ non-zero without them, or when any phase fails. Phases:
      plain-version output, conv kernel launches = 3 x the batches the
      batcher dispatched; prints the batch occupancy and the p50/p99
      latency;
- 20. holds the six bf16 attention kernels (bf16 mma.sync over
-     attn_{fwd,dkv,dq}_bf16.cuh, in the same four .cu files) against their
+ 20. holds the six bf16 attention kernels (the forwards on the Hopper
+     core attn_fwd_bf16.cuh: wgmma fed by TMA through an mbarrier ring,
+     warp-specialised warpgroups; dK/dV and dQ on bf16 mma.sync over
+     attn_{dkv,dq}_bf16.cuh; in the same four .cu files) against their
      plain versions at bf16, which make the roundings of the library each
      replaces (flash rounds p to bf16 before p v, splash keeps it f32; both
      round p and ds before the backward products): flash causal at [32,
@@ -234,11 +241,13 @@ non-zero without them, or when any phase fails. Phases:
      at [1, 32768, 4, 128] and [1, 32768, 8, 128]. Gates: max |diff| of o,
      dq, dk and dv within 2^-7 of each one's max |plain| (one bf16 ulp of
      the largest element), mean |diff| within 1e-3 of it, lse within 1e-4
-     absolute, outputs bf16 and lse f32. Times (as in phase 2) beside the
-     bf16 bound (the kept pairs' operations at 989 TFLOP/s, or bf16 bytes)
-     and SDPA at bf16, forward and forward+backward (its o within 2^-5 of
-     the plain version's); phase 1 prints the kernels' registers, local
-     bytes and shared memory;
+     absolute, outputs bf16 and lse f32; every kernel, the forwards
+     included, bitwise repeatable over two launches. Times (as in phase 2)
+     beside the bf16 bound (the kept pairs' operations at 989 TFLOP/s, or
+     bf16 bytes), each forward's achieved TFLOP/s beside its share, and
+     SDPA at bf16, forward and forward+backward (its o within 2^-5 of the
+     plain version's); phase 1 prints the kernels' registers, local bytes
+     and shared memory;
  21. trains transformer_lm in bf16 at full width, as phases 10 and 12
      train it in f32 (same seeds, the same data, the f32 init rounded):
      bf16 params at T=256 B=32 (20 steps), T=8192 B=1 (10), T=32768 B=1
@@ -1958,6 +1967,36 @@ def bf16_grad_check(torch, net, x, y, heads, remat):
     return float((lk - lp).abs() / lp.abs()), leaves
 
 
+def fwd16_ptxas(logs):
+    """ptxas's report of the bf16 forward kernels in the build logs:
+    {kernel: {"registers", "spill_stores", "spill_loads"}} by family, head
+    dim (and causal for flash), and the count of its warnings that a
+    wgmma was serialised."""
+    import re
+    out, serialised, cur = {}, 0, None
+    for log in logs.values():
+        for ln in log.splitlines():
+            m = re.search(r"(flash|splash)_fwd_bf16_kernelILi(\d+)E(?:Lb(\d))?",
+                          ln)
+            if "serialized" in ln and m:
+                serialised += 1
+                continue
+            if "Compiling entry function" in ln:
+                cur = (f"{m.group(1)} D={m.group(2)}"
+                       + ("" if m.group(3) is None else
+                          f" causal={bool(int(m.group(3)))}")) if m else None
+                if cur:
+                    out[cur] = {}
+            elif cur and "spill stores" in ln:
+                st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+                out[cur].update(spill_stores=int(st), spill_loads=int(ld))
+            elif cur and "Used" in ln and "registers" in ln:
+                out[cur]["registers"] = int(
+                    re.search(r"Used (\d+) registers", ln).group(1))
+                cur = None
+    return out, serialised
+
+
 def bf16_case(ck, torch, flush, *, family, B, L, H, D, causal, seed,
               timed=True):
     """The three bf16 kernels of ``family`` ("flash", or "splash" on q
@@ -1993,6 +2032,7 @@ def bf16_case(ck, torch, flush, *, family, B, L, H, D, causal, seed,
             ck.splash_attention_bwd_dkv_ref, ck.splash_attention_bwd_dq_ref)]
     fwd, dkv, dq, rfwd, rdkv, rdq = fns
     o, lse = fwd(qin, k, v)
+    o2, lse2 = fwd(qin, k, v)
     ro, rlse = rfwd(qin, k, v)
     di = (ro.float() * do.float()).sum(dim=-1).permute(0, 2, 1).contiguous()
     bwd = (qin, k, v, do, rlse, di)
@@ -2019,6 +2059,8 @@ def bf16_case(ck, torch, flush, *, family, B, L, H, D, causal, seed,
              "dq": float((dq_.float() - rdq_.float()).abs().max())},
          "repeat_bitwise": bool(torch.equal(dk, dk2) and torch.equal(dv, dv2)
                                 and torch.equal(dq_, dq2)),
+         "fwd_repeat_bitwise": bool(torch.equal(o, o2)
+                                    and torch.equal(lse, lse2)),
          "dtypes": [str(t.dtype) for t in (o, lse, dq_, dk, dv)],
          "finite": bool(all(torch.isfinite(t).all()
                             for t in (o, lse, dq_, dk, dv)))}
@@ -2027,7 +2069,7 @@ def bf16_case(ck, torch, flush, *, family, B, L, H, D, causal, seed,
                    and r["lse_abs_err"] <= BF16_LSE_ABS and r["finite"]
                    and r["dtypes"] == ["torch.bfloat16", "torch.float32"]
                    + ["torch.bfloat16"] * 3)
-    del o, lse, dk, dv, dq_, dk2, dv2, dq2, rdk, rdv, rdq_
+    del o, lse, o2, lse2, dk, dv, dq_, dk2, dv2, dq2, rdk, rdv, rdq_
     if not timed:
         return r
     reps = 5 if L >= 32768 else (10 if L >= 4096 else 25)
@@ -2049,6 +2091,8 @@ def bf16_case(ck, torch, flush, *, family, B, L, H, D, causal, seed,
         r[name + "_bound_ms"], r[name + "_bound_by"] = bound(
             n_bytes, n_ops, BF16_FLOPS_PER_S)
         r[name + "_bound_share"] = r[name + "_bound_ms"] / r[name + "_ms"]
+        # the kept pairs' operations over the kernel's time
+        r[name + "_tflops"] = n_ops / r[name + "_ms"] / 1e9
     qt, kt, vt = (t.transpose(1, 2).requires_grad_(True) for t in (q, k, v))
     dot = do.transpose(1, 2)
 
@@ -2310,6 +2354,24 @@ def main():
     attn_bf16_build = {D: ck.attention_bf16_attrs(D)
                        for D in ck.FLASH_HEAD_DIMS}
     phase(1, f"bf16 attention kernels by head dim: {attn_bf16_build}")
+    fwd16_roles = ck.attention_bf16_fwd_roles()
+    fwd16_spills, fwd16_serialised = fwd16_ptxas(logs)
+    phase(1, f"bf16 forward core (attn_fwd_bf16.cuh: wgmma fed by TMA "
+             f"through an mbarrier ring, warp-specialised): "
+             f"{fwd16_roles['threads']} threads a block, "
+             f"{fwd16_roles['rows_per_block']} query rows, K/V tiles of "
+             f"{fwd16_roles['keys_per_tile']} keys in "
+             f"{fwd16_roles['stages']} stages; setmaxnreg gives the producer "
+             f"warpgroup (one thread issues every TMA load) "
+             f"{fwd16_roles['producer_registers']} registers a thread and "
+             f"each of the two consumer warpgroups (64 query rows: wgmma and "
+             f"the softmax) {fwd16_roles['consumer_registers']}; by head dim "
+             f"as loaded (registers at launch, local bytes, shared memory): "
+             + str({D: {k: a[k] for k in ("flash_fwd_causal", "flash_fwd_full",
+                                            "splash_fwd")}
+                    for D, a in attn_bf16_build.items()})
+             + f"; ptxas (registers, spills): {fwd16_spills}; wgmma "
+             f"serialised in {fwd16_serialised} ptxas warnings")
     paged_build = {f"G={g} Dh=64": ck.paged_decode_attrs(g, D_MODEL // HEADS)
                    for g in (1, 4)}
     phase(1, f"paged decode kernels at the serving head dim, MHA and GQA: "
@@ -3213,6 +3275,10 @@ def main():
     # -- 20. the bf16 attention kernels against their plain versions --------
     # phases 20-21 gather their failures and stop after phase 21
     failures = []
+    phase(20, "bf16 attention kernels: the forwards on the Hopper core "
+              "attn_fwd_bf16.cuh (wgmma fed by TMA through an mbarrier ring, "
+              "a producer and two consumer warpgroups in ping-pong), dK/dV "
+              "and dQ on bf16 mma.sync (attn_dkv_bf16.cuh, attn_dq_bf16.cuh)")
     bf16_main = [dict(family="flash", B=32, L=256, H=8, D=64, causal=True),
                  dict(family="flash", B=1, L=8192, H=4, D=128, causal=True),
                  dict(family="flash", B=1, L=8192, H=4, D=128, causal=False),
@@ -3230,7 +3296,8 @@ def main():
     for i, c in enumerate(bf16_edge):
         r = bf16_case(ck, torch, flush, seed=850 + i, timed=False, **c)
         bf16_edges.append(r)
-        if not (r["ok"] and r["repeat_bitwise"]):
+        if not (r["ok"] and r["repeat_bitwise"]
+                and r["fwd_repeat_bitwise"]):
             failures.append(f"bf16 {r['family']} kernels disagree with the "
                             f"plain versions at the edge {r['shape']} "
                             f"causal={r['causal']}: {r}")
@@ -3241,7 +3308,7 @@ def main():
               f"mean {max(max(r['mean_rel_err'].values()) for r in bf16_edges):.3e}"
               f", lse abs {max(r['lse_abs_err'] for r in bf16_edges):.3e}; "
               f"all bitwise repeatable "
-              f"{all(r['repeat_bitwise'] for r in bf16_edges)}")
+              f"{all(r['repeat_bitwise'] and r['fwd_repeat_bitwise'] for r in bf16_edges)}")
     bf16_cases = []
     for i, c in enumerate(bf16_main):
         r = bf16_case(ck, torch, flush, seed=800 + i, **c)
@@ -3258,11 +3325,13 @@ def main():
                   f"{e['dv']:.3e} (gate {BF16_MAX_REL:.3e}), mean "
                   f"{max(m.values()):.3e} (gate {BF16_MEAN_REL}), lse abs "
                   f"{r['lse_abs_err']:.3e} (gate {BF16_LSE_ABS}); bitwise "
-                  f"repeatable {r['repeat_bitwise']}; kernel / plain / bf16 "
-                  f"bound ms: {times}; SDPA (bf16) fwd {r['sdpa_fwd_ms']:.4f} "
+                  f"repeatable: forward {r['fwd_repeat_bitwise']}, backward "
+                  f"{r['repeat_bitwise']}; kernel / plain / bf16 "
+                  f"bound ms: {times}; forward {r['fwd_tflops']:.1f} TFLOP/s "
+                  f"(share {r['fwd_bound_share']:.3f}); SDPA (bf16) fwd {r['sdpa_fwd_ms']:.4f} "
                   f"ms, fwd+bwd {r['sdpa_fwd_bwd_ms']:.4f} ms, its o vs plain "
                   f"{r['sdpa_rel_err']:.3e} [{card}]")
-        if not r["ok"]:
+        if not (r["ok"] and r["fwd_repeat_bitwise"]):
             failures.append(f"bf16 {r['family']} kernels disagree with the "
                             f"plain versions at {r['shape']} "
                             f"causal={r['causal']}: {r}")
@@ -3745,6 +3814,11 @@ def main():
                 "library_ms": (n * case["sdpa_fwd_ms"] if key == "fwd"
                                else None),
                 "bound_share": case[key + "_bound_share"]})
+            if key == "fwd":
+                kernels[-1].update(
+                    core=f"{csrc}/attn_fwd_bf16.cuh (wgmma fed by TMA through "
+                         "an mbarrier ring, warp-specialised warpgroups)",
+                    tflops=case["fwd_tflops"])
     # the bf16 CNN kernels: per bf16 AlexNet step as the f32 rows (summed
     # over its three launches); launches of phase 23's runs (both AlexNet
     # runs, and LeNet's conv); max |diff| over the main-path shapes
@@ -3791,6 +3865,8 @@ def main():
          "prefix_serving": prefix, "contiguous_serving": cont,
          "guarded_serving": guarded, "streaming": stream, "chaos": chaos,
          "predict_alexnet": pred, "attn_bf16_build": attn_bf16_build,
+         "fwd16_roles": fwd16_roles, "fwd16_ptxas": fwd16_spills,
+         "fwd16_serialised_warnings": fwd16_serialised,
          "bf16_cases": bf16_cases, "bf16_edges": bf16_edges,
          "lm_train_bf16": lm16, "cnn_bf16_build": cnn16_build,
          "conv_bf16_cases": conv16_cases, "conv_bf16_edges": conv16_edges,

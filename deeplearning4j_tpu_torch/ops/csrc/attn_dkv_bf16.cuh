@@ -18,7 +18,7 @@
 // ring; the transposed products s^T = k q^T and dp^T = v dO^T come from
 // scores_bf16 with k and v as the A operand, and p^T dO, ds^T q from
 // pv_bf16 with p^T and ds^T as the A operands from registers and the B
-// fragments of dO and q by ldmatrix.trans (attn_fwd_bf16.cuh).
+// fragments of dO and q by ldmatrix.trans (attn_tile_bf16.cuh).
 //
 // The tile: 32 query rows at D = 128 (64 at D <= 64), the f32 core's rule
 // for the registers: dk and dv hold 2 (D / 8) 4 = 128 f32 a thread at D =
@@ -29,7 +29,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "attn_fwd_bf16.cuh"
+#include "attn_tile_bf16.cuh"
 
 namespace dl4j_attn_tc {
 

@@ -14,7 +14,7 @@
 // `ds.astype(k.dtype)` after its scale, flash_attention.py :1258; splash
 // :1395), q k^T and dO v^T are f32 dots of bf16 operands, dq accumulates in
 // f32. The block and its walk are the f32 core's; the products are bf16
-// mma.sync (attn_fwd_bf16.cuh: scores_bf16 for s and dp, pv_bf16 with ds as
+// mma.sync (attn_tile_bf16.cuh: scores_bf16 for s and dp, pv_bf16 with ds as
 // the A operand from registers and k's B fragments by ldmatrix.trans).
 //
 // The tile: 64 keys at every head dim. q (32 KiB) + dO (32 KiB) + a 2-stage
@@ -26,7 +26,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "attn_fwd_bf16.cuh"
+#include "attn_tile_bf16.cuh"
 
 namespace dl4j_attn_tc {
 

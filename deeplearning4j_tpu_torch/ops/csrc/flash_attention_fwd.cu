@@ -35,11 +35,14 @@
 // 0.416 ms there. Why mma.sync and not wgmma, and the error of plain TF32:
 // attn_fwd_tc.cuh.
 //
-// bf16 (dl4j_flash_fwd_bf16): the same block, walk and masks over
-// attn_fwd_bf16.cuh, bf16 q, k, v and o, bf16 mma.sync with f32
-// accumulators, p rounded to bf16 before p v as the library rounds it
-// (flash_attention.py :471). Bound: 4 D operations per kept pair at 989
-// TFLOP/s, 0.0695 ms at [1, 8192, 4, 128] causal.
+// bf16 (dl4j_flash_fwd_bf16): its own kernel over attn_fwd_bf16.cuh, designed
+// for Hopper: a producer warpgroup feeding K and V tiles of 128 keys by TMA
+// through an mbarrier ring, two consumer warpgroups of 64 query rows on
+// wgmma that take turns on the tensor cores, p rounded to bf16 before p v as
+// the library rounds it (flash_attention.py :471). Bound: 4 D operations per
+// kept pair at 989 TFLOP/s, 0.0695 ms at [1, 8192, 4, 128] causal on an
+// H100; the mma.sync kernel it replaces took 0.357 ms there (0.195 of it),
+// SDPA's bf16 forward 0.176 ms. What the design does about it: attn_fwd_bf16.cuh.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -86,38 +89,41 @@ int kernel_attrs(bool causal, int* out) {
                 : attrs(flash_fwd_kernel<D, false>, Fwd<D>::kSmem, out);
 }
 
+namespace ws = dl4j_attn_ws;
+
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads, 1)
-    flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
-                          const uint16_t* __restrict__ k,
-                          const uint16_t* __restrict__ v,
+__global__ void __launch_bounds__(ws::kThreads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
                           uint16_t* __restrict__ o, float* __restrict__ lse,
                           int L, int H, float scale) {
-  extern __shared__ __align__(16) uint16_t smem_h[];
-  const int nq = (L + kRows - 1) / kRows;
-  const int q0 = (nq - 1 - (int)blockIdx.y) * kRows;
-  const FlashWalk<kCausal> walk(L, q0, scale);
-  attn_fwd_bf16<D>(q, k, v, o, lse, L, H, q0, blockIdx.x, blockIdx.z, walk,
-                   -INFINITY, smem_h);
+  extern __shared__ __align__(1024) uint8_t smem_w[];
+  const int nq = (L + ws::kRows - 1) / ws::kRows;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * ws::kRows;
+  const ws::FlashWalk<kCausal> walk(L, q0);
+  ws::attn_fwd_ws<D>(&tq, &tk, &tv, o, lse, L, H, q0, blockIdx.x, blockIdx.z,
+                     walk, -INFINITY, scale * ws::kLog2e, scale, smem_w);
 }
 
 template <int D>
 int dispatch_bf16(bool causal, const uint16_t* q, const uint16_t* k,
                   const uint16_t* v, uint16_t* o, float* lse, int B, int L,
                   int H, float scale, cudaStream_t stream) {
-  const dim3 grid(H, (L + kRows - 1) / kRows, B);
-  return causal ? launch(flash_fwd_bf16_kernel<D, true>, grid,
-                         FwdBf16<D>::kSmem, stream, q, k, v, o, lse, L, H,
-                         scale)
-                : launch(flash_fwd_bf16_kernel<D, false>, grid,
-                         FwdBf16<D>::kSmem, stream, q, k, v, o, lse, L, H,
-                         scale);
+  const dim3 grid(H, (L + ws::kRows - 1) / ws::kRows, B);
+  return causal ? ws::launch_ws<D>(flash_fwd_bf16_kernel<D, true>, grid,
+                                   stream, q, k, v, B, L, H, o, lse, L, H,
+                                   scale)
+                : ws::launch_ws<D>(flash_fwd_bf16_kernel<D, false>, grid,
+                                   stream, q, k, v, B, L, H, o, lse, L, H,
+                                   scale);
 }
 
 template <int D>
 int kernel_attrs_bf16(bool causal, int* out) {
-  return causal ? attrs(flash_fwd_bf16_kernel<D, true>, FwdBf16<D>::kSmem, out)
-                : attrs(flash_fwd_bf16_kernel<D, false>, FwdBf16<D>::kSmem, out);
+  constexpr size_t smem = ws::Fwd<D>::kSmem;
+  return causal ? attrs(flash_fwd_bf16_kernel<D, true>, smem, out)
+                : attrs(flash_fwd_bf16_kernel<D, false>, smem, out);
 }
 
 bool bad_dims(int B, int L, int H) {
@@ -154,8 +160,8 @@ extern "C" int dl4j_flash_fwd_attrs(int D, int causal, int* out) {
   }
 }
 
-// bf16 q, k, v, o (raw bf16 bits), f32 lse. Shared memory per block: 96 KiB
-// at D = 128, 48 KiB at D = 64.
+// bf16 q, k, v, o (raw bf16 bits), f32 lse. Shared memory per block: 161
+// KiB at D = 128, 81 KiB at D = 64 (attn_fwd_bf16.cuh).
 extern "C" int dl4j_flash_fwd_bf16(const uint16_t* q, const uint16_t* k,
                                    const uint16_t* v, uint16_t* o, float* lse,
                                    int B, int L, int H, int D, int causal,
@@ -182,4 +188,18 @@ extern "C" int dl4j_flash_fwd_bf16_attrs(int D, int causal, int* out) {
     case 128: return kernel_attrs_bf16<128>(causal != 0, out);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The warp specialisation of the bf16 forward core (attn_fwd_bf16.cuh) into
+// out[6]: threads per block, the producer warpgroup's and each consumer
+// warpgroup's registers after setmaxnreg, the ring's stages, keys per K/V
+// tile and query rows per block.
+extern "C" int dl4j_attn_fwd_bf16_roles(int* out) {
+  out[0] = ws::kThreads;
+  out[1] = ws::kProducerRegs;
+  out[2] = ws::kConsumerRegs;
+  out[3] = ws::kStages;
+  out[4] = ws::kKeys;
+  out[5] = ws::kRows;
+  return 0;
 }

@@ -33,12 +33,17 @@
 // 6.66 ms there. Why mma.sync and not wgmma, and the error of plain TF32:
 // attn_fwd_tc.cuh.
 //
-// bf16 (dl4j_splash_fwd_bf16): the same block, table walk and masks over
-// attn_fwd_bf16.cuh, bf16 q, k, v and o, bf16 mma.sync with f32
-// accumulators; p stays f32 for p v, as the library keeps it
-// (splash_attention_kernel.py :819), taken as bf16(p) + bf16(p - bf16(p))
-// in two bf16 products. Bound: 4 D operations per kept pair at 989
-// TFLOP/s, 1.112 ms at [1, 32768, 4, 128] causal.
+// bf16 (dl4j_splash_fwd_bf16): its own kernel over attn_fwd_bf16.cuh, designed
+// for Hopper: the producer warpgroup reads the block's row of the table and
+// fetches by TMA only the kv blocks it lists, one 128-key tile each, through
+// an mbarrier ring; two consumer warpgroups of 64 query rows run wgmma in
+// turns. p stays f32 for p v, as the library keeps it
+// (splash_attention_kernel.py :819), taken as bf16(p) + bf16(p - bf16(p)) in
+// two bf16 products. Bound: 4 D operations per kept pair at 989 TFLOP/s,
+// 1.112 ms at [1, 32768, 4, 128] causal (the two products of p v cap the
+// share near 0.67); on an H100 the mma.sync kernel it replaces took 6.42 ms
+// there (0.173 of it), SDPA's bf16 forward 1.73 ms. What the design does about it:
+// attn_fwd_bf16.cuh.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -82,24 +87,29 @@ int run(const float* q, const float* k, const float* v, float* o, float* lse,
                 lse, counts, blocks, kinds, L, H, R, W);
 }
 
+namespace ws = dl4j_attn_ws;
+static_assert(kBlock == ws::kRows && kBlock == ws::kKeys,
+              "one CUDA block per q block, one tile per kv block");
+
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
-    splash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
-                           const uint16_t* __restrict__ k,
-                           const uint16_t* __restrict__ v,
+__global__ void __launch_bounds__(ws::kThreads, 1)
+    splash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
                            uint16_t* __restrict__ o, float* __restrict__ lse,
                            const int* __restrict__ counts,
                            const int* __restrict__ blocks,
                            const int* __restrict__ kinds, int L, int H, int R,
                            int W) {
-  extern __shared__ __align__(16) uint16_t smem_h[];
+  extern __shared__ __align__(1024) uint8_t smem_w[];
   const int nq = L / kBlock;
   const int qb = nq - 1 - (int)blockIdx.y;
   const BlockRow row = dl4j_splash::block_row(counts, blocks, kinds, R, W, nq,
                                               blockIdx.x, qb);
-  const SplashWalk walk{row.blocks, row.kinds, row.count};
-  attn_fwd_bf16<D>(q, k, v, o, lse, L, H, qb * kBlock, blockIdx.x,
-                   blockIdx.z, walk, kMaskValue, smem_h);
+  const dl4j_splash::SplashWalk<ws::kKeys, ws::kWgRows> walk{
+      row.blocks, row.kinds, row.count};
+  ws::attn_fwd_ws<D>(&tq, &tk, &tv, o, lse, L, H, qb * kBlock, blockIdx.x,
+                     blockIdx.z, walk, kMaskValue, ws::kLog2e, 1.f, smem_w);
 }
 
 template <int D>
@@ -108,8 +118,8 @@ int run_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
              const int* kinds, int B, int L, int H, int R, int W,
              cudaStream_t stream) {
   const dim3 grid(H, L / kBlock, B);
-  return launch(splash_fwd_bf16_kernel<D>, grid, FwdBf16<D>::kSmem, stream, q,
-                k, v, o, lse, counts, blocks, kinds, L, H, R, W);
+  return ws::launch_ws<D>(splash_fwd_bf16_kernel<D>, grid, stream, q, k, v, B,
+                          L, H, o, lse, counts, blocks, kinds, L, H, R, W);
 }
 
 }  // namespace
@@ -145,7 +155,7 @@ extern "C" int dl4j_splash_fwd_attrs(int D, int* out) {
 }
 
 // bf16 q (pre-scaled), k, v, o (raw bf16 bits), f32 lse. Shared memory per
-// block: 96 KiB at D = 128, 48 KiB at D = 64.
+// block: 161 KiB at D = 128, 81 KiB at D = 64 (attn_fwd_bf16.cuh).
 extern "C" int dl4j_splash_fwd_bf16(const uint16_t* q, const uint16_t* k,
                                     const uint16_t* v, uint16_t* o, float* lse,
                                     const int* counts, const int* blocks,
@@ -170,10 +180,10 @@ extern "C" int dl4j_splash_fwd_bf16(const uint16_t* q, const uint16_t* k,
 // kernel for head dim D into out[3].
 extern "C" int dl4j_splash_fwd_bf16_attrs(int D, int* out) {
   switch (D) {
-    case 16: return attrs(splash_fwd_bf16_kernel<16>, FwdBf16<16>::kSmem, out);
-    case 32: return attrs(splash_fwd_bf16_kernel<32>, FwdBf16<32>::kSmem, out);
-    case 64: return attrs(splash_fwd_bf16_kernel<64>, FwdBf16<64>::kSmem, out);
-    case 128: return attrs(splash_fwd_bf16_kernel<128>, FwdBf16<128>::kSmem, out);
+    case 16: return attrs(splash_fwd_bf16_kernel<16>, ws::Fwd<16>::kSmem, out);
+    case 32: return attrs(splash_fwd_bf16_kernel<32>, ws::Fwd<32>::kSmem, out);
+    case 64: return attrs(splash_fwd_bf16_kernel<64>, ws::Fwd<64>::kSmem, out);
+    case 128: return attrs(splash_fwd_bf16_kernel<128>, ws::Fwd<128>::kSmem, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -38,13 +38,14 @@ __device__ __forceinline__ BlockRow block_row(const int* __restrict__ counts,
 
 // The walk of one row of a forward or dQ block list in tiles of KT keys
 // (kBlock / KT tiles per listed kv block), in the library's order, for the
-// tensor-core cores (attn_fwd_tc.cuh, attn_dq_tc.cuh): masked scores take the
-// mask value (q is pre-scaled, so no scale), which takes part in the
-// forward's max and sum as in the library. mode(i, w0): -1 when the tile
-// adds nothing to rows w0 .. w0 + 15 (a kind-1 tile whose every key follows
-// every one of those rows), 0 when none of their scores is masked, 1 when
-// some are.
-template <int KT>
+// tensor-core cores (attn_fwd_tc.cuh, attn_dq_tc.cuh; R = 16 rows a warp)
+// and the bf16 forward core (attn_fwd_bf16.cuh; R = 64 rows a warpgroup):
+// masked scores take the mask value (q is pre-scaled, so no scale), which
+// takes part in the forward's max and sum as in the library. mode(i, w0):
+// -1 when the tile adds nothing to rows w0 .. w0 + R - 1 (a kind-1 tile
+// whose every key follows every one of those rows), 0 when none of their
+// scores is masked, 1 when some are.
+template <int KT, int R = 16>
 struct SplashWalk {
   static_assert(kBlock % KT == 0, "tiles split a block evenly");
   static constexpr bool kFlash = false;
@@ -60,7 +61,7 @@ struct SplashWalk {
   __device__ int mode(int i, int w0) const {
     if (__ldg(kinds + (unsigned)i / kPer) != 1) return 0;
     const int k0 = key0(i);
-    if (k0 > w0 + 15) return -1;
+    if (k0 > w0 + R - 1) return -1;
     return k0 + KT - 1 > w0 ? 1 : 0;
   }
   __device__ bool keep(int row, int col) const { return row >= col; }

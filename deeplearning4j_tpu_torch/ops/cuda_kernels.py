@@ -102,7 +102,8 @@ _SIGNATURES = {
         "dl4j_flash_fwd_f32": [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _PTR],
         "dl4j_flash_fwd_bf16": [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _PTR],
         "dl4j_flash_fwd_attrs": [_INT, _INT, _PTR],
-        "dl4j_flash_fwd_bf16_attrs": [_INT, _INT, _PTR]},
+        "dl4j_flash_fwd_bf16_attrs": [_INT, _INT, _PTR],
+        "dl4j_attn_fwd_bf16_roles": [_PTR]},
     "flash_attention_bwd": {
         "dl4j_flash_bwd_dkv_f32": [_PTR] * 8 + [_INT] * 5 + [_FLOAT, _PTR],
         "dl4j_flash_bwd_dq_f32": [_PTR] * 7 + [_INT] * 5 + [_FLOAT, _PTR],
@@ -856,6 +857,20 @@ def attention_bf16_attrs(D: int) -> dict:
                 f"{sp}_bwd", "dl4j_splash_bwd_dkv_bf16_attrs", D),
             "splash_bwd_dq": _kernel_attrs(
                 f"{sp}_bwd", "dl4j_splash_bwd_dq_bf16_attrs", D)}
+
+
+def attention_bf16_fwd_roles() -> dict:
+    """The warp specialisation of the bf16 forward kernels (flash and
+    splash share the core, ops/csrc/attn_fwd_bf16.cuh): threads per block,
+    registers of the producer warpgroup and of each consumer warpgroup
+    after setmaxnreg, the ring's stages, keys per K/V tile, query rows per
+    block. Needs the card."""
+    out = (ctypes.c_int * 6)()
+    lib = _lib("flash_attention_fwd")
+    _raise_on(lib.dl4j_attn_fwd_bf16_roles(out), lib,
+              "dl4j_attn_fwd_bf16_roles")
+    return dict(zip(("threads", "producer_registers", "consumer_registers",
+                     "stages", "keys_per_tile", "rows_per_block"), list(out)))
 
 
 def paged_decode_attrs(G: int, Dh: int) -> dict:

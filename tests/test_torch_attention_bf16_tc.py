@@ -1,20 +1,23 @@
 """The bf16 attention forward kernels' arithmetic, emulated on the CPU.
 
 `ops/csrc/flash_attention_fwd.cu` and `splash_attention_fwd.cu` at bf16
-run over `attn_fwd_bf16.cuh`: s = q k^T as bf16 mma.sync with f32
-accumulators (bf16 products are exact in f32, so s is an f32 sum of exact
-products), one 128-row query tile at a time, keys in 64-key tiles, the
-online softmax in f32 (running max m, sum l of the unrounded p, the output
-scaled by exp(m - m_new) before each tile's p v joins it), o = acc / l
-rounded to bf16, lse = m + log(l). What differs between the two walks is
-p v: flash rounds p (relative to the running max of the tiles so far) to
-bf16 for one product, as the library's `p.astype(v.dtype)`; splash takes
-p as bf16(p) + bf16(p - bf16(p)) in two products, which is p in f32 to
-about 2^-17. No kernel runs here (no card, no nvcc); this file repeats that
-arithmetic in torch, in the kernels' tile order, and holds it against the
-JAX package's splash kernel at bf16 in the Pallas interpreter and against
-the port's plain versions (the phase-20 chip gate's reference), on inputs
-made with numpy from a seed.
+run over `attn_fwd_bf16.cuh`: s = q k^T on wgmma with f32 accumulators
+(bf16 products are exact in f32, so s is an f32 sum of exact products),
+one 128-row query block at a time, keys in 128-key tiles, the online
+softmax in f32 in log2 units (running max m of the raw scores, p =
+exp2(fma(s, c, -m c)) with c = scale log2(e) for flash and log2(e) for
+splash, sum l of the unrounded p, the output scaled by exp2((m - m_new) c)
+before each tile's p v joins it), o = acc / l rounded to bf16, lse = m
+scale + log(l) in natural log. What differs between the two walks is p v:
+flash rounds p (relative to the running max of the tiles so far) to bf16
+for one product, as the library's `p.astype(v.dtype)`; splash takes p as
+bf16(p) + bf16(p - bf16(p)) in two products, which is p in f32 to about
+2^-17. No kernel runs here (no card, no nvcc); this file repeats that
+arithmetic in torch, in the kernels' tile order (the FMA emulated in
+float64 and rounded once to f32), and holds it against the JAX package's
+splash kernel at bf16 in the Pallas interpreter and against the port's
+plain versions (the phase-20 chip gate's reference), on inputs made with
+numpy from a seed.
 
 Gates, over max |reference| of o: splash 2^-7 and flash 2^-6 against the
 interpreted JAX splash kernel (flash rounds p, the splash library does
@@ -34,7 +37,8 @@ from deeplearning4j_tpu.ops import pallas_kernels as pk
 from deeplearning4j_tpu_torch.ops import cuda_kernels as ck
 from deeplearning4j_tpu_torch.ops import splash_mask
 
-ROWS, KEYS = 128, 64  # query rows per CUDA block, keys per K/V tile
+ROWS, KEYS = 128, 128  # query rows per CUDA block, keys per K/V tile
+LOG2E = np.float32(1.4426950408889634)
 BF = torch.bfloat16
 
 
@@ -55,12 +59,17 @@ def _bf(x):
 def emulate_fwd_bf16(q, k, v, *, flash, causal, scale=None):
     """The bf16 forward core on q, k, v [L, D] bf16 (one head): o [L, D]
     bf16 and lse [L] f32, tile by tile as the kernel walks them. ``flash``:
-    the scale on s, -inf for masked scores, p rounded for p v; splash: q
-    pre-scaled by the caller, the library's mask value, p split in two."""
+    the scale folded into the exponent's FMA, -inf for masked scores, p
+    rounded for p v; splash: q pre-scaled by the caller, the library's mask
+    value, p split in two."""
     L, D = q.shape
     qf, kf, vf = q.float(), k.float(), v.float()
     mask_value = float(np.float32(splash_mask.DEFAULT_MASK_VALUE))
     neg = -float("inf") if flash else mask_value
+    # c takes raw scores to log2 units; lse_scale takes m to natural units
+    c = np.float32(scale) * LOG2E if flash else LOG2E
+    lse_scale = np.float32(scale) if flash else np.float32(1.0)
+    c32 = torch.tensor(c, dtype=torch.float32)
     o = torch.empty(L, D)
     lse = torch.empty(L)
     for q0 in range(0, L, ROWS):
@@ -72,16 +81,16 @@ def emulate_fwd_bf16(q, k, v, *, flash, causal, scale=None):
         for k0 in range(0, last, KEYS):
             cols = torch.arange(k0, min(k0 + KEYS, L))
             s = qf[rows] @ kf[cols].T
-            if flash:
-                s = s * scale
             if causal:
                 s = torch.where(cols[None, :] <= rows[:, None], s,
                                 torch.tensor(neg))
             m_new = torch.maximum(m, s.amax(-1, keepdim=True))
             m_use = torch.where(m_new == -float("inf"), 0.0, m_new) \
                 if flash else m_new
-            alpha = torch.exp(m - m_use)
-            p = torch.exp(s - m_use)
+            mc = m_use * c32
+            alpha = torch.exp2((m - m_use) * c32)
+            # fma(s, c, -m c): one rounding of the exact value
+            p = torch.exp2((s.double() * float(c) - mc.double()).float())
             l = l * alpha + p.sum(-1, keepdim=True)
             hi = _bf(p)
             pv = hi @ vf[cols] if flash else \
@@ -89,7 +98,7 @@ def emulate_fwd_bf16(q, k, v, *, flash, causal, scale=None):
             acc = acc * alpha + pv
             m = m_new
         o[rows] = acc / l
-        lse[rows] = (m + torch.log(l))[:, 0]
+        lse[rows] = (m * torch.tensor(lse_scale) + torch.log(l))[:, 0]
     return o.to(BF), lse
 
 

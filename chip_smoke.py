@@ -21,7 +21,11 @@ non-zero without them, or when any phase fails. Phases:
      warp specialisation (threads, the registers setmaxnreg gives the
      producer warpgroup and each consumer warpgroup, stages, tile), ptxas's
      registers and spills of each forward kernel, and the count of ptxas
-     warnings that it serialised a wgmma;
+     warnings that it serialised a wgmma; the same of the bf16 wgmma conv
+     kernel (conv_bf16.cuh), and the conv route of AlexNet's and LeNet's
+     convs and of shapes at the route's limits as the built library decides
+     it (gated against cuda_kernels.conv_bf16_route, the rule the CPU tests
+     read);
   2. holds the paged-decode kernels (the page walk split over S blocks per
      (row, kv-head), S = cuda_kernels._paged_splits of the shapes, then
      the combine) against their plain PyTorch version on the card at the
@@ -261,14 +265,20 @@ non-zero without them, or when any phase fails. Phases:
      the kernels against the plain versions. Prints step ms, tokens/s and
      the busy share beside the f32 row's;
  22. holds the three bf16 CNN kernels (conv2d_bias_act over
-     conv_bf16.cuh: bf16 mma.sync, f32 accumulation, one rounding at the
-     store; bnap_sums and bnap_dx with bf16 x, g and dx, the window's
+     conv_bf16.cuh, f32 accumulation, one rounding at the store: the wgmma
+     kernel, A by TMA im2col, when C % 64 == 0 and OC % 8 == 0, AlexNet's
+     conv2 and conv3, the bf16 mma.sync kernel for other shapes, AlexNet's
+     conv1 and LeNet's conv2; bnap_sums and bnap_dx with bf16 x, g and dx, the window's
      activations rounded to bf16 before the max and the tie count) against
      their plain versions at bf16: the conv at AlexNet's three conv shapes
-     and LeNet's conv2 (B=512), the BN+act+pool backward at AlexNet's three
-     BN+pool shapes (B=512), and an edge set (stride 2 SAME, OC not a
-     multiple of the tile, C = 3, 4, 20, the smallest B, every activation
-     of the epilogue with its pre-activation output; windows of four
+     and LeNet's conv2 (B=512, each with its route and TFLOP/s), the
+     BN+act+pool backward at AlexNet's three BN+pool shapes (B=512), and an
+     edge set on each route (stride 2 SAME, OC not a multiple of the tile,
+     C = 3, 4, 8, 16, 20, 24, 32, the smallest B, every activation of the
+     epilogue with its pre-activation output; on the wgmma route C = 64,
+     128, 192, OC = 72, asymmetric pads, M tails, B = 1, every activation
+     with its pre-activation at C = 64, OC = 16; each case gated on its
+     route; windows of four
      adjacent bf16 values whose activations tie only after the rounding,
      the smallest B, a C that takes the scalar lanes). Gates: conv output,
      pre-activation and dx within 2^-7 of max |plain| (one bf16 ulp of the
@@ -1997,6 +2007,30 @@ def fwd16_ptxas(logs):
     return out, serialised
 
 
+def conv16_ptxas(logs):
+    """ptxas's report of the bf16 wgmma conv kernel in the build logs:
+    {"registers", "spill_stores", "spill_loads"}, and the count of its
+    warnings that a wgmma was serialised."""
+    import re
+    out, serialised, cur = {}, 0, False
+    for log in logs.values():
+        for ln in log.splitlines():
+            ours = "conv_bf16_wgmma_kernel" in ln
+            if "serialized" in ln and ours:
+                serialised += 1
+                continue
+            if "Compiling entry function" in ln:
+                cur = ours
+            elif cur and "spill stores" in ln:
+                st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+                out.update(spill_stores=int(st), spill_loads=int(ld))
+            elif cur and "Used" in ln and "registers" in ln:
+                out["registers"] = int(
+                    re.search(r"Used (\d+) registers", ln).group(1))
+                cur = False
+    return out, serialised
+
+
 def bf16_case(ck, torch, flush, *, family, B, L, H, D, causal, seed,
               timed=True):
     """The three bf16 kernels of ``family`` ("flash", or "splash" on q
@@ -2144,8 +2178,14 @@ def conv_bf16_case(ck, torch, flush, *, B, H, W, C, K, OC, stride, padding,
         mean.append(float(d.mean()) / m)
     oh, ow, pads = ck.conv_geometry(H, W, K, K, stride, padding)
     outs = got if want_pre else (got,)
+    where = dict(stride=stride, padding=padding, x_ptr=x.data_ptr(),
+                 w_ptr=w.data_ptr())
+    route = ck.conv_bf16_route_on_card(B, H, W, C, K, K, OC, **where)
     r = {"shape": [B, H, W, C, K, OC], "stride": list(stride),
          "pads": [list(p) for p in pads], "activation": act,
+         "route": route,
+         "route_ok": route == ck.conv_bf16_route(B, H, W, C, K, K, OC,
+                                                 **where),
          "want_pre": want_pre, "rel_err": rel, "mean_rel_err": mean,
          "max_abs_err": max(float((a.float() - r_.float()).abs().max())
                             for a, r_ in pairs),
@@ -2155,12 +2195,13 @@ def conv_bf16_case(ck, torch, flush, *, B, H, W, C, K, OC, stride, padding,
          "dtypes": sorted({str(t.dtype) for t in outs}),
          "library_ms": None}
     r["ok"] = bool(max(rel) <= BF16_MAX_REL and max(mean) <= BF16_MEAN_REL
-                   and r["repeat_bitwise"]
+                   and r["repeat_bitwise"] and r["route_ok"]
                    and r["dtypes"] == ["torch.bfloat16"])
     if not timed:
         return r
     kw.pop("want_pre")
     r["ms"] = time_ms(lambda: ck.conv2d_bias_act(x, w, b, **kw), flush=flush)
+    r["tflops"] = 2 * B * oh * ow * OC * K * K * C / r["ms"] / 1e9
     r["plain_ms"] = time_ms(lambda: ck.conv2d_bias_act_ref(x, w, b, **kw),
                             flush=flush)
     n_bytes = 2 * (x.numel() + w.numel() + b.numel() + B * oh * ow * OC)
@@ -2390,6 +2431,46 @@ def main():
         "bnap_dx": ck.bnap_dx_bf16_attrs()}
     phase(1, f"bf16 CNN kernels (conv by AlexNet's and LeNet's channels, "
              f"bnap_sums (relu) by lane width, bnap_dx): {cnn16_build}")
+    conv16_roles = ck.conv_bf16_wgmma_roles()
+    conv16_spills, conv16_serialised = conv16_ptxas(logs)
+    # (B, H, W, C, K, OC, stride, padding): AlexNet's three convs, LeNet's
+    # conv2, then shapes at each limit of the route (conv_bf16.cuh
+    # wgmma_route): C = 8, OC = 72; M = 2^31 - 129 and 2^31 - 128 (1 x 1
+    # convs of 1 x 1 images); stride 8 and 9; a corner at -128 and -129
+    route_shapes = {
+        "alexnet conv1": (512, 32, 32, 3, 3, 64, (1, 1), "SAME"),
+        "alexnet conv2": (512, 16, 16, 64, 3, 128, (1, 1), "SAME"),
+        "alexnet conv3": (512, 8, 8, 128, 3, 256, (1, 1), "SAME"),
+        "lenet conv2": (512, 12, 12, 20, 5, 50, (1, 1), "VALID"),
+        "C=8 OC=72": (2, 12, 11, 8, 5, 72, (2, 2), "SAME"),
+        "M=2^31-129": (2 ** 31 - 129, 1, 1, 64, 1, 64, (1, 1), "VALID"),
+        "M=2^31-128": (2 ** 31 - 128, 1, 1, 64, 1, 64, (1, 1), "VALID"),
+        "stride 8": (1, 64, 64, 64, 3, 64, (8, 8), "SAME"),
+        "stride 9": (1, 64, 64, 64, 3, 64, (9, 9), "SAME"),
+        "corner -128": (1, 8, 8, 64, 3, 64, (1, 1), ((128, 0), (1, 1))),
+        "corner -129": (1, 8, 8, 64, 3, 64, (1, 1), ((129, 0), (1, 1)))}
+    conv16_routes = {
+        k: ck.conv_bf16_route_on_card(B, H, W, C, K, K, OC, st, pad)
+        for k, (B, H, W, C, K, OC, st, pad) in route_shapes.items()}
+    phase(1, f"bf16 conv, wgmma kernel (conv_bf16.cuh: an implicit GEMM on "
+             f"wgmma fed through an mbarrier ring by a producer warpgroup; A "
+             f"by TMA im2col, B by TMA; a persistent grid): "
+             f"{conv16_roles['threads']} threads "
+             f"a block, tiles of {conv16_roles['tile_rows']} x "
+             f"{conv16_roles['tile_cols']}, K slices of "
+             f"{conv16_roles['k_per_slice']} in {conv16_roles['stages']} "
+             f"stages; setmaxnreg gives the producer warpgroup "
+             f"{conv16_roles['producer_registers']} registers a thread and "
+             f"each of the two consumer warpgroups (64 rows each: wgmma and "
+             f"the epilogue) {conv16_roles['consumer_registers']}; ptxas "
+             f"(registers, spills): {conv16_spills}; wgmma serialised in "
+             f"{conv16_serialised} ptxas warnings; the route as the built "
+             f"library decides it: {conv16_routes}")
+    if any(ck.conv_bf16_route(B, H, W, C, K, K, OC, st, pad)
+           != conv16_routes[k]
+           for k, (B, H, W, C, K, OC, st, pad) in route_shapes.items()):
+        raise SystemExit(f"the bf16 conv route of the built library is not "
+                         f"cuda_kernels.conv_bf16_route's: {conv16_routes}")
 
     cases = {}
     for name, H, Hkv in (("mha", 8, 8), ("gqa", 8, 2)):
@@ -3472,27 +3553,86 @@ def main():
                         padding="SAME", act=a, want_pre=True)
                    for a in sorted(set(ck.ACT_CODES) - {"linear"})
                    for c in (3, 16)]
+    # C a multiple of 8 but not of 64, OC of 8 (16-byte A chunks of one tap,
+    # 64-deep K slices would cross taps): the mma.sync route
+    conv16_c8 = [
+        dict(B=3, H=13, W=11, C=8, K=5, OC=72, stride=(2, 2),
+             padding="SAME", act="relu"),
+        dict(B=2, H=9, W=7, C=24, K=3, OC=40, stride=(1, 1),
+             padding="SAME", act="tanh"),
+        dict(B=1, H=5, W=5, C=8, K=3, OC=16, stride=(1, 1),
+             padding="SAME", act="identity"),
+        dict(B=3, H=11, W=10, C=16, K=3, OC=136, stride=(1, 2),
+             padding=((2, 0), (1, 1)), act="sigmoid"),
+        dict(B=5, H=7, W=9, C=32, K=3, OC=256, stride=(1, 1),
+             padding="VALID", act="relu")]
+    # the wgmma route (C % 64 == 0, OC % 8 == 0): stride 2 SAME (asymmetric
+    # pads at H = 12) with OC = 72, explicit asymmetric pads, M not a
+    # multiple of 128, B = 1, OC past one 128-column tile, a 1 x 1 conv;
+    # every activation with its pre-activation at C = 64, OC = 16
+    conv16_wg_edge = [
+        dict(B=3, H=13, W=11, C=64, K=5, OC=72, stride=(2, 2),
+             padding="SAME", act="relu"),
+        dict(B=3, H=12, W=11, C=64, K=3, OC=72, stride=(2, 2),
+             padding="SAME", act="relu"),
+        dict(B=2, H=9, W=7, C=64, K=3, OC=40, stride=(1, 1),
+             padding="SAME", act="tanh"),
+        dict(B=1, H=5, W=5, C=64, K=3, OC=16, stride=(1, 1),
+             padding="SAME", act="identity"),
+        dict(B=3, H=11, W=10, C=64, K=3, OC=136, stride=(1, 2),
+             padding=((2, 0), (1, 1)), act="sigmoid"),
+        dict(B=1, H=9, W=9, C=64, K=5, OC=64, stride=(2, 1),
+             padding=((2, 1), (0, 3)), act="relu"),
+        dict(B=5, H=7, W=9, C=128, K=3, OC=256, stride=(1, 1),
+             padding="VALID", act="relu"),
+        dict(B=3, H=7, W=7, C=64, K=3, OC=128, stride=(2, 2),
+             padding="VALID", act="identity"),
+        dict(B=2, H=12, W=10, C=128, K=3, OC=136, stride=(2, 2),
+             padding="SAME", act="tanh"),
+        dict(B=1, H=16, W=16, C=64, K=3, OC=128, stride=(1, 1),
+             padding=same, act="relu"),
+        dict(B=2, H=5, W=6, C=192, K=1, OC=40, stride=(1, 1),
+             padding="VALID", act="relu"),
+        dict(B=2, H=6, W=5, C=64, K=3, OC=16, stride=(1, 1),
+             padding="SAME", act="gelu", want_pre=True)]
+    conv16_wg_acts = [dict(B=2, H=6, W=5, C=64, K=3, OC=16, stride=(1, 1),
+                           padding="SAME", act=a, want_pre=True)
+                      for a in sorted(set(ck.ACT_CODES) - {"linear"})]
     conv16_cases, conv16_edges = [], []
-    for i, c in enumerate(conv16_edge + conv16_acts):
+    n_old = len(conv16_edge + conv16_acts + conv16_c8)
+    for i, c in enumerate(conv16_edge + conv16_acts + conv16_c8
+                          + conv16_wg_edge + conv16_wg_acts):
         r = conv_bf16_case(ck, torch, flush, seed=900 + i, timed=False, **c)
         conv16_edges.append(r)
+        if r["route"] != ("wgmma" if i >= n_old else "mma_sync"):
+            r["ok"] = False
         if not r["ok"]:
             failures.append(f"bf16 conv kernel disagrees with the plain "
-                            f"version at the edge {r['shape']} "
-                            f"{r['activation']}: {r}")
-    phase(22, f"bf16 conv2d_bias_act edge set, {len(conv16_edges)} cases "
-              f"(stride 2 SAME, OC 50/33/70/9, C = 3/4/8/16/20, B = 1, every "
-              f"activation with its pre-activation): worst max|diff|/max|"
-              f"plain| {max(max(r['rel_err']) for r in conv16_edges):.3e} "
-              f"(gate {BF16_MAX_REL:.3e}), mean "
-              f"{max(max(r['mean_rel_err']) for r in conv16_edges):.3e} (gate "
-              f"{BF16_MEAN_REL}); all bitwise repeatable "
-              f"{all(r['repeat_bitwise'] for r in conv16_edges)}")
+                            f"version (or takes another route) at the edge "
+                            f"{r['shape']} {r['activation']}: {r}")
+    for name, part, what in (
+            ("mma.sync route", conv16_edges[:n_old],
+             "stride 2 SAME, OC 50/33/70/9/72/40/16/136/256, C = "
+             "3/4/8/16/20/24/32, B = 1, every activation with its "
+             "pre-activation"),
+            ("wgmma route", conv16_edges[n_old:],
+             "C = 64/128/192, stride 2 SAME, OC 72/40/16/136/64/256/128, "
+             "asymmetric pads, M tails, B = 1, every activation with its "
+             "pre-activation")):
+        phase(22, f"bf16 conv2d_bias_act edge set, {name}, {len(part)} "
+                  f"cases (routes {sorted({r['route'] for r in part})}; "
+                  f"{what}): worst max|diff|/max|plain| "
+                  f"{max(max(r['rel_err']) for r in part):.3e} (gate "
+                  f"{BF16_MAX_REL:.3e}), mean "
+                  f"{max(max(r['mean_rel_err']) for r in part):.3e} (gate "
+                  f"{BF16_MEAN_REL}); all bitwise repeatable "
+                  f"{all(r['repeat_bitwise'] for r in part)}")
     for i, c in enumerate(conv_main):
         r = conv_bf16_case(ck, torch, flush, seed=100 + i, timed=True, **c)
         conv16_cases.append(r)
         phase(22, f"bf16 conv2d_bias_act {r['shape']} stride {r['stride']} "
-                  f"pads {r['pads']}: max|diff|/max|plain| "
+                  f"pads {r['pads']}, route {r['route']}, "
+                  f"{r['tflops']:.1f} TFLOP/s: max|diff|/max|plain| "
                   f"{r['rel_err'][0]:.3e} (gate {BF16_MAX_REL:.3e}), mean "
                   f"{r['mean_rel_err'][0]:.3e} (gate {BF16_MEAN_REL}), "
                   f"bitwise repeatable {r['repeat_bitwise']}; kernel "
@@ -3834,6 +3974,8 @@ def main():
                            else "dx_max_abs_err")] for c in cases16))
         kernels.append({
             "name": key, "route": "cuda", "source": f"{csrc}/{src_name}",
+            **({"conv_routes": [c["route"] for c in cases16]} if k == ""
+               else {}),
             "replaces": f"deeplearning4j_tpu/ops/pallas_kernels.py:{line} "
                         "(at bf16)",
             "launches": (sum(r["launches"][key] for r in alex16.values())
@@ -3870,6 +4012,10 @@ def main():
          "bf16_cases": bf16_cases, "bf16_edges": bf16_edges,
          "lm_train_bf16": lm16, "cnn_bf16_build": cnn16_build,
          "conv_bf16_cases": conv16_cases, "conv_bf16_edges": conv16_edges,
+         "conv_bf16_wgmma_roles": conv16_roles,
+         "conv_bf16_wgmma_ptxas": conv16_spills,
+         "conv_bf16_wgmma_serialised_warnings": conv16_serialised,
+         "conv_bf16_routes": conv16_routes,
          "conv_bf16_alexnet_sum": conv16_sum, "bnap_bf16_cases": bnap16_cases,
          "bnap_bf16_edges": bnap16_edges, "bnap_bf16_alexnet_sum": bnap16_sum,
          "alexnet_train_bf16": alex16, "lenet_train_bf16": lenet16,

@@ -1,7 +1,12 @@
 // Fused NHWC conv2d + bias + activation, forward, for Hopper (sm_90a), f32 in
-// and out, the products on the tensor cores in 3xTF32. The bf16 kernel (bf16
-// in and out, f32 accumulation) is its sibling in conv_bf16.cuh, with its
-// entry points at the end of this file.
+// and out, the products on the tensor cores in 3xTF32. The bf16 kernels (bf16
+// in and out, f32 accumulation) are its siblings in conv_bf16.cuh, with
+// their entry points at the end of this file: a rule on the shape (the
+// route, conv_bf16.cuh `wgmma_route`) gives C % 64 == 0 and OC % 8 == 0
+// within the encoding of TMA's im2col mode (AlexNet's conv2 and conv3) to an
+// implicit GEMM on wgmma fed through an mbarrier ring by a producer
+// warpgroup, bound by its operations (0.0195 ms at 989 TFLOP/s each); every
+// other shape to a bf16 mma.sync kernel.
 //
 // Replaces the Pallas TPU kernel deeplearning4j_tpu/ops/pallas_kernels.py
 // `_conv2d_bias_act_forward` (:119, pallas_call :144, body `_conv_kernel` :92):
@@ -373,9 +378,11 @@ extern "C" int dl4j_conv2d_bias_act_attrs(int C, int OC, int* out) {
                : attrs(conv2d_bias_act_kernel<false, false>, kSmem, out);
 }
 
-// The bf16 kernel (conv_bf16.cuh): x, w, b, out and pre as bf16 bits, the
-// arguments otherwise those of dl4j_conv2d_bias_act_f32. Shared memory per
-// block: 36 KiB.
+// The bf16 kernels (conv_bf16.cuh): x, w, b, out and pre as bf16 bits, the
+// arguments otherwise those of dl4j_conv2d_bias_act_f32. The route picks the
+// kernel; the wgmma kernel's tensor maps or launch failing returns the error
+// (no other kernel takes its shape). Shared memory per block: 225 KiB
+// (wgmma, one persistent block per SM) or 36 KiB (mma.sync).
 extern "C" int dl4j_conv2d_bias_act_bf16(const uint16_t* x, const uint16_t* w,
                                          const uint16_t* b, uint16_t* out,
                                          uint16_t* pre, int B, int H, int W, int C,
@@ -390,16 +397,46 @@ extern "C" int dl4j_conv2d_bias_act_bf16(const uint16_t* x, const uint16_t* w,
   const long long mt = (M + cb::kBM - 1) / cb::kBM;
   const long long K = (long long)KH * KW * C;
   if (mt > 2147483647LL || (OC + cb::kBN - 1) / cb::kBN > 65535 ||
-      K > 2147483647LL - cb::kBK)
+      K > 2147483647LL - cb::wg::kBK)
     return (int)cudaErrorInvalidValue;
   const cb::Geom g{M, (int)K, B, H, W, C, KH, KW, OC, OH, OW, SH, SW, PT, PL, act};
   return cb::launch(x, w, b, out, pre, g, mt, (cudaStream_t)stream);
 }
 
 // {registers, local bytes per thread, dynamic shared bytes} into out[3] of
-// the bf16 kernel variant that C input and OC output channels launch
-// (aligned x and w assumed).
+// the bf16 kernel that C input and OC output channels launch (aligned x and
+// w assumed).
 extern "C" int dl4j_conv2d_bias_act_bf16_attrs(int C, int OC, int* out) {
   if (C < 1 || OC < 1) return (int)cudaErrorInvalidValue;
   return dl4j_conv_bf16::variant_attrs(C, OC, out);
+}
+
+// The route of a bf16 launch (conv_bf16.cuh wgmma_route): 1 for the wgmma
+// kernel, 0 for the mma.sync kernel, with the arguments of
+// dl4j_conv2d_bias_act_bf16 (x and w as addresses).
+extern "C" int dl4j_conv2d_bias_act_bf16_route(const void* x, const void* w,
+                                               int B, int H, int W, int C,
+                                               int KH, int KW, int OC, int OH,
+                                               int OW, int SH, int SW, int PT,
+                                               int PL) {
+  const long long M = (long long)B * OH * OW;
+  const dl4j_conv_bf16::Geom g{M, (int)((long long)KH * KW * C), B, H, W, C,
+                               KH, KW, OC, OH, OW, SH, SW, PT, PL, 0};
+  return dl4j_conv_bf16::wgmma_route(g, (uintptr_t)x, (uintptr_t)w) ? 1 : 0;
+}
+
+// The warp specialisation of the bf16 wgmma kernel into out[7]: threads per
+// block, the producer warpgroup's and each consumer warpgroup's registers
+// after setmaxnreg, the ring's stages, the output tile's rows and columns,
+// K per slice.
+extern "C" int dl4j_conv_bf16_wgmma_roles(int* out) {
+  namespace wg = dl4j_conv_bf16::wg;
+  out[0] = wg::kThreads;
+  out[1] = wg::kProducerRegs;
+  out[2] = wg::kConsumerRegs;
+  out[3] = wg::kStages;
+  out[4] = wg::kBM;
+  out[5] = wg::kBN;
+  out[6] = wg::kBK;
+  return 0;
 }

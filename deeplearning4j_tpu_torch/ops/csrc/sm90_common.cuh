@@ -1,7 +1,8 @@
 // Hopper (sm_90a) primitives of the bf16 attention forward core
-// (attn_fwd_bf16.cuh), in inline PTX: mbarriers, TMA tensor loads and the
-// host encoder of their tensor maps, wgmma shared-memory descriptors and
-// instructions, setmaxnreg, named barriers, ex2.
+// (attn_fwd_bf16.cuh) and the bf16 wgmma conv (conv_bf16.cuh), in inline
+// PTX: mbarriers, TMA tensor loads (tiled and im2col) and stores and the host
+// encoders of their tensor maps, the proxy fence, wgmma shared-memory
+// descriptors and instructions, setmaxnreg, named barriers, ex2.
 //
 // wgmma layouts (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply"):
 //   - the f32 accumulator of m64nNk16: warp w of the warpgroup holds rows
@@ -153,6 +154,145 @@ inline int bf16_bthd_map(CUtensorMap* map, const void* base, int B, int L,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
+// A 2-d tensor map over a row-major [rows, cols] bf16 matrix (row stride
+// cols * 2 bytes, a multiple of 16: cols % 8 == 0) whose box is [box_rows]
+// [64] with rows of 128 bytes swizzled by 128 bytes; loads outside the
+// matrix arrive as zeros, stores there are dropped. Returns a cudaError_t.
+inline int bf16_2d_map(CUtensorMap* map, const void* base, long long rows,
+                       long long cols, int box_rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {2ull * (cuuint64_t)cols};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(base), dims, strides, box, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// libcuda's cuTensorMapEncodeIm2col, reached as encode_tiled reaches its
+// tiled sibling; null when the installed libcuda lacks it.
+typedef CUresult (*EncodeIm2colFn)(CUtensorMap*, CUtensorMapDataType,
+                                   cuuint32_t, void*, const cuuint64_t*,
+                                   const cuuint64_t*, const int*, const int*,
+                                   cuuint32_t, cuuint32_t, const cuuint32_t*,
+                                   CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+inline EncodeIm2colFn encode_im2col() {
+  static const EncodeIm2colFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeIm2col", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeIm2col", &p, cudaEnableDefault, &q);
+#endif
+    return (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+               ? reinterpret_cast<EncodeIm2colFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// An im2col tensor map over a contiguous NHWC [B, H, W, C] bf16 tensor
+// (dims innermost first: C, W, H, B). A load walks ``pixels`` window origins
+// from its start coordinate, W fastest then H then B, at the traversal
+// strides (sw, sh), inside the bounding box that the corners {lower W, lower
+// H, upper W, upper H} cut from the tensor (lower relative to 0, upper to the
+// last index); each origin, shifted by the load's tap offsets, gives one row
+// of ``channels`` channels (128 bytes: 128-byte swizzle). Positions outside
+// the tensor arrive as zeros. Returns a cudaError_t.
+inline int bf16_nhwc_im2col_map(CUtensorMap* map, const void* base, int B,
+                                int H, int W, int C, const int (&corners)[4],
+                                int sw, int sh, int channels, int pixels) {
+  const EncodeIm2colFn fn = encode_im2col();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {2ull * C, 2ull * W * C, 2ull * H * W * C};
+  const int lower[2] = {corners[0], corners[1]};
+  const int upper[2] = {corners[2], corners[3]};
+  const cuuint32_t step[4] = {1, (cuuint32_t)sw, (cuuint32_t)sh, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, lower, upper,
+                        (cuuint32_t)channels, (cuuint32_t)pixels, step,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// an im2col load of a 4-d map: the walk from {c, w, h, n} (channels from c),
+// each origin shifted by the tap offsets (ow, oh); completes ``bar``'s
+// expected bytes
+__device__ __forceinline__ void tma_load_im2col_4d(void* dst,
+                                                   const CUtensorMap* map,
+                                                   uint64_t* bar, int c, int w,
+                                                   int h, int n, int ow,
+                                                   int oh) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::
+          "r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c), "r"(w), "r"(h), "r"(n),
+      "h"((unsigned short)ow), "h"((unsigned short)oh)
+      : "memory");
+}
+
+// the box of a 2-d tensor map at {c0, c1} (innermost first) into shared
+// memory at dst; completes ``bar``'s expected bytes
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)map), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// the box at {c0, c1} from shared memory at src to the tensor; elements
+// outside it are not written. Joins this thread's open bulk group.
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], "
+      "[%1];\n" ::"l"((uint64_t)map),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until at most N of this thread's bulk groups still read shared memory
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// until at most N of this thread's bulk groups are incomplete
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// orders this thread's shared-memory accesses through the generic proxy
+// (st.shared) before its later ones through the async proxy (TMA stores)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // -- wgmma --------------------------------------------------------------------
 
 // a shared-memory operand descriptor; offsets in bytes, layout 1 / 2 / 3 for
@@ -201,6 +341,42 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (+)= a b, m64n128k16: a from shared memory, K-major; b from shared
+// memory, MN-major (transposed: a [k][n] tile)
+__device__ __forceinline__ void wgmma_ss_n128_tb(float (&d)[64], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),

@@ -88,7 +88,9 @@ _SIGNATURES = {
         "dl4j_conv2d_bias_act_f32": [_PTR] * 5 + [_INT] * 14 + [_PTR],
         "dl4j_conv2d_bias_act_bf16": [_PTR] * 5 + [_INT] * 14 + [_PTR],
         "dl4j_conv2d_bias_act_attrs": [_INT, _INT, _PTR],
-        "dl4j_conv2d_bias_act_bf16_attrs": [_INT, _INT, _PTR]},
+        "dl4j_conv2d_bias_act_bf16_attrs": [_INT, _INT, _PTR],
+        "dl4j_conv2d_bias_act_bf16_route": [_PTR] * 2 + [_INT] * 13,
+        "dl4j_conv_bf16_wgmma_roles": [_PTR]},
     "bnap_sums": {
         "dl4j_bnap_sums_f32": [_PTR] * 7 + [_INT] * 14 + [_PTR],
         "dl4j_bnap_sums_bf16": [_PTR] * 7 + [_INT] * 14 + [_PTR],
@@ -887,11 +889,89 @@ def paged_decode_attrs(G: int, Dh: int) -> dict:
 
 def conv2d_bias_act_attrs(C: int, OC: int, dtype=torch.float32) -> dict:
     """Attrs (as `_kernel_attrs`) of the conv kernel variant that C input
-    and OC output channels launch in ``dtype`` (16-byte aligned x and w).
-    Needs the card."""
+    and OC output channels launch in ``dtype`` (16-byte aligned x and w; at
+    bf16 the kernel that `conv_bf16_route` gives a 1 x 1 conv). Needs the
+    card."""
     fn = ("dl4j_conv2d_bias_act_attrs" if dtype == torch.float32
           else "dl4j_conv2d_bias_act_bf16_attrs")
     return _kernel_attrs("conv2d_bias_act", fn, C, OC)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_bf16_route_limits() -> dict:
+    """The limits of the bf16 conv route, read from the ``kRoute``
+    constants of ``csrc/conv_bf16.cuh``, their one table: {"kRouteC": 64,
+    "kRouteOC": 8, "kRouteAlign": 16, "kRouteMaxM": 2^31 - 129, ...}."""
+    import pathlib
+    import re
+    text = (pathlib.Path(__file__).with_name("csrc")
+            / "conv_bf16.cuh").read_text()
+    out = {}
+    for name, expr in re.findall(
+            r"constexpr (?:int|long long) (kRoute\w+) = ([^;]+);", text):
+        m = re.fullmatch(r"(-?\d+)(?:LL)?(?:\s*-\s*(\d+))?", expr.strip())
+        out[name] = int(m.group(1)) - int(m.group(2) or 0)
+    return out
+
+
+def conv_bf16_route(B: int, H: int, W: int, C: int, KH: int, KW: int,
+                    OC: int, stride=(1, 1), padding="SAME", x_ptr: int = 0,
+                    w_ptr: int = 0) -> str:
+    """The bf16 conv kernel that a launch of ``conv2d_bias_act`` (x [B, H,
+    W, C] at address ``x_ptr``, w [KH, KW, C, OC] at ``w_ptr``) takes, by
+    the rule of ``csrc/conv_bf16.cuh`` `wgmma_route` over the limits of
+    `conv_bf16_route_limits`: "wgmma" (the implicit GEMM on wgmma, A by TMA
+    im2col) when C is a multiple of 64 and OC of 8, x and w are 16-byte
+    aligned, M = B * OH * OW is at most 2^31 - 129, and TMA's im2col mode
+    encodes the geometry (strides at most 8, the bounding box's corners
+    -pad and pad - (k - 1) in [-128, 127], KH and KW at most 256);
+    "mma_sync" (the bf16 mma.sync kernel) otherwise. The CPU tests read the
+    rule here; `conv_bf16_route_on_card` asks the built library."""
+    lim = conv_bf16_route_limits()
+    sh, sw = (int(v) for v in stride)
+    oh, ow, pads = conv_geometry(H, W, KH, KW, (sh, sw), padding)
+    corners = (-pads[1][0], -pads[0][0],
+               (ow - 1) * sw - pads[1][0] - (W - 1),
+               (oh - 1) * sh - pads[0][0] - (H - 1))
+    wgmma = (C % lim["kRouteC"] == 0 and OC % lim["kRouteOC"] == 0
+             and x_ptr % lim["kRouteAlign"] == 0
+             and w_ptr % lim["kRouteAlign"] == 0
+             and B * oh * ow <= lim["kRouteMaxM"]
+             and max(sh, sw) <= lim["kRouteMaxStride"]
+             and max(KH, KW) <= lim["kRouteMaxTap"]
+             and all(lim["kRouteCornerLo"] <= c <= lim["kRouteCornerHi"]
+                     for c in corners))
+    return "wgmma" if wgmma else "mma_sync"
+
+
+def conv_bf16_route_on_card(B: int, H: int, W: int, C: int, KH: int,
+                            KW: int, OC: int, stride=(1, 1),
+                            padding="SAME", x_ptr: int = 0,
+                            w_ptr: int = 0) -> str:
+    """`conv_bf16_route` as the built kernel library decides it, the rule
+    that runs. Needs the card."""
+    sh, sw = (int(v) for v in stride)
+    oh, ow, pads = conv_geometry(H, W, KH, KW, (sh, sw), padding)
+    lib = _lib("conv2d_bias_act")
+    wgmma = lib.dl4j_conv2d_bias_act_bf16_route(
+        x_ptr or None, w_ptr or None, B, H, W, C, KH, KW, OC, oh, ow, sh,
+        sw, pads[0][0], pads[1][0])
+    return "wgmma" if wgmma else "mma_sync"
+
+
+def conv_bf16_wgmma_roles() -> dict:
+    """The warp specialisation of the bf16 wgmma conv kernel
+    (csrc/conv_bf16.cuh): threads per block, registers of the producer
+    warpgroup and of each consumer warpgroup after setmaxnreg, the ring's
+    stages, the output tile's rows and columns, K per slice. Needs the
+    card."""
+    out = (ctypes.c_int * 7)()
+    lib = _lib("conv2d_bias_act")
+    _raise_on(lib.dl4j_conv_bf16_wgmma_roles(out), lib,
+              "dl4j_conv_bf16_wgmma_roles")
+    return dict(zip(("threads", "producer_registers", "consumer_registers",
+                     "stages", "tile_rows", "tile_cols", "k_per_slice"),
+                    list(out)))
 
 
 def _bwd_checks(name, q, k, v, do, lse, di, checks=_flash_checks):

@@ -21,11 +21,12 @@ non-zero without them, or when any phase fails. Phases:
      warp specialisation (threads, the registers setmaxnreg gives the
      producer warpgroup and each consumer warpgroup, stages, tile), ptxas's
      registers and spills of each forward kernel, and the count of ptxas
-     warnings that it serialised a wgmma; the same of the bf16 wgmma conv
-     kernel (conv_bf16.cuh), and the conv route of AlexNet's and LeNet's
-     convs and of shapes at the route's limits as the built library decides
-     it (gated against cuda_kernels.conv_bf16_route, the rule the CPU tests
-     read);
+     warnings that it serialised a wgmma; the same of the bf16 dK/dV core
+     (attn_dkv_bf16.cuh: its block and ring) and its two kernels; the same of
+     the bf16 wgmma conv kernel (conv_bf16.cuh), and the conv route of
+     AlexNet's and LeNet's convs and of shapes at the route's limits as the
+     built library decides it (gated against cuda_kernels.conv_bf16_route,
+     the rule the CPU tests read);
   2. holds the paged-decode kernels (the page walk split over S blocks per
      (row, kv-head), S = cuda_kernels._paged_splits of the shapes, then
      the combine) against their plain PyTorch version on the card at the
@@ -236,8 +237,10 @@ non-zero without them, or when any phase fails. Phases:
      latency;
  20. holds the six bf16 attention kernels (the forwards on the Hopper
      core attn_fwd_bf16.cuh: wgmma fed by TMA through an mbarrier ring,
-     warp-specialised warpgroups; dK/dV and dQ on bf16 mma.sync over
-     attn_{dkv,dq}_bf16.cuh; in the same four .cu files) against their
+     warp-specialised warpgroups; both dK/dV kernels on attn_dkv_bf16.cuh:
+     wgmma, q and dO by TMA through an mbarrier ring, two warpgroups of 64
+     keys; dQ on bf16 mma.sync over attn_dq_bf16.cuh; in the same four .cu
+     files) against their
      plain versions at bf16, which make the roundings of the library each
      replaces (flash rounds p to bf16 before p v, splash keeps it f32; both
      round p and ds before the backward products): flash causal at [32,
@@ -248,10 +251,12 @@ non-zero without them, or when any phase fails. Phases:
      absolute, outputs bf16 and lse f32; every kernel, the forwards
      included, bitwise repeatable over two launches. Times (as in phase 2)
      beside the bf16 bound (the kept pairs' operations at 989 TFLOP/s, or
-     bf16 bytes), each forward's achieved TFLOP/s beside its share, and
-     SDPA at bf16, forward and forward+backward (its o within 2^-5 of the
-     plain version's); phase 1 prints the kernels' registers, local bytes
-     and shared memory;
+     bf16 bytes), each forward's and dK/dV kernel's achieved TFLOP/s
+     beside its share, and SDPA at bf16, forward and forward+backward (its
+     o within 2^-5 of the plain version's) against the three kernels' sum;
+     the edge set runs flash L = 7, 129, 300 and splash L = 128, 256 at
+     every head dim; phase 1 prints the kernels' registers, local bytes and
+     shared memory;
  21. trains transformer_lm in bf16 at full width, as phases 10 and 12
      train it in f32 (same seeds, the same data, the f32 init rounded):
      bf16 params at T=256 B=32 (20 steps), T=8192 B=1 (10), T=32768 B=1
@@ -1977,17 +1982,17 @@ def bf16_grad_check(torch, net, x, y, heads, remat):
     return float((lk - lp).abs() / lp.abs()), leaves
 
 
-def fwd16_ptxas(logs):
-    """ptxas's report of the bf16 forward kernels in the build logs:
-    {kernel: {"registers", "spill_stores", "spill_loads"}} by family, head
-    dim (and causal for flash), and the count of its warnings that a
-    wgmma was serialised."""
+def attn16_ptxas(logs, kind="fwd"):
+    """ptxas's report of the bf16 attention kernels of ``kind`` ("fwd", or
+    "bwd_dkv") in the build logs: {kernel: {"registers", "spill_stores",
+    "spill_loads"}} by family, head dim (and causal for flash), and the
+    count of its warnings that a wgmma was serialised."""
     import re
     out, serialised, cur = {}, 0, None
+    pat = rf"(flash|splash)_{kind}_bf16_kernelILi(\d+)E(?:Lb(\d))?"
     for log in logs.values():
         for ln in log.splitlines():
-            m = re.search(r"(flash|splash)_fwd_bf16_kernelILi(\d+)E(?:Lb(\d))?",
-                          ln)
+            m = re.search(pat, ln)
             if "serialized" in ln and m:
                 serialised += 1
                 continue
@@ -2143,6 +2148,8 @@ def bf16_case(ck, torch, flush, *, family, B, L, H, D, causal, seed,
         del so
         r["sdpa_fwd_ms"] = time_ms(sdpa, reps=reps, flush=flush)
     r["sdpa_fwd_bwd_ms"] = time_ms(sdpa_fwd_bwd, reps=reps, flush=flush)
+    r["three_ms"] = r["fwd_ms"] + r["dkv_ms"] + r["dq_ms"]
+    r["three_vs_sdpa"] = r["three_ms"] / r["sdpa_fwd_bwd_ms"]
     return r
 
 
@@ -2396,7 +2403,7 @@ def main():
                        for D in ck.FLASH_HEAD_DIMS}
     phase(1, f"bf16 attention kernels by head dim: {attn_bf16_build}")
     fwd16_roles = ck.attention_bf16_fwd_roles()
-    fwd16_spills, fwd16_serialised = fwd16_ptxas(logs)
+    fwd16_spills, fwd16_serialised = attn16_ptxas(logs)
     phase(1, f"bf16 forward core (attn_fwd_bf16.cuh: wgmma fed by TMA "
              f"through an mbarrier ring, warp-specialised): "
              f"{fwd16_roles['threads']} threads a block, "
@@ -2413,6 +2420,22 @@ def main():
                     for D, a in attn_bf16_build.items()})
              + f"; ptxas (registers, spills): {fwd16_spills}; wgmma "
              f"serialised in {fwd16_serialised} ptxas warnings")
+    dkv16_roles = ck.attention_bf16_dkv_roles()
+    dkv16_spills, dkv16_serialised = attn16_ptxas(logs, "bwd_dkv")
+    phase(1, f"bf16 dK/dV core (attn_dkv_bf16.cuh: wgmma, q and dO fed by "
+             f"TMA through an mbarrier ring): {dkv16_roles['threads']} "
+             f"threads a block, two warpgroups of 64 of its "
+             f"{dkv16_roles['keys_per_block']} keys, q and dO tiles of "
+             f"{dkv16_roles['rows_per_tile']} rows in "
+             f"{dkv16_roles['stages']} stages, refilled by the warpgroup "
+             f"done with a stage second; by head dim as loaded (registers, "
+             f"local bytes, shared memory): "
+             + str({D: {k: a[k] for k in ("flash_bwd_dkv_causal",
+                                            "flash_bwd_dkv_full",
+                                            "splash_bwd_dkv")}
+                    for D, a in attn_bf16_build.items()})
+             + f"; ptxas (registers, spills): {dkv16_spills}; wgmma "
+             f"serialised in {dkv16_serialised} ptxas warnings")
     paged_build = {f"G={g} Dh=64": ck.paged_decode_attrs(g, D_MODEL // HEADS)
                    for g in (1, 4)}
     phase(1, f"paged decode kernels at the serving head dim, MHA and GQA: "
@@ -3359,19 +3382,21 @@ def main():
     phase(20, "bf16 attention kernels: the forwards on the Hopper core "
               "attn_fwd_bf16.cuh (wgmma fed by TMA through an mbarrier ring, "
               "a producer and two consumer warpgroups in ping-pong), dK/dV "
-              "and dQ on bf16 mma.sync (attn_dkv_bf16.cuh, attn_dq_bf16.cuh)")
+              "on the Hopper core attn_dkv_bf16.cuh (wgmma, q and dO fed by "
+              "TMA through an mbarrier ring, two warpgroups of 64 keys), dQ "
+              "on bf16 mma.sync (attn_dq_bf16.cuh)")
     bf16_main = [dict(family="flash", B=32, L=256, H=8, D=64, causal=True),
                  dict(family="flash", B=1, L=8192, H=4, D=128, causal=True),
                  dict(family="flash", B=1, L=8192, H=4, D=128, causal=False),
                  dict(family="splash", B=1, L=32768, H=4, D=128, causal=True),
                  dict(family="splash", B=1, L=32768, H=8, D=128, causal=True)]
     # the masks' edges: odd L at every head dim (flash), the smallest
-    # tables (splash); values only
+    # tables at every head dim (splash); values only
     bf16_edge = ([dict(family="flash", B=b, L=L, H=h, D=d, causal=c)
                   for d in (16, 32, 64, 128) for L in (7, 129, 300)
                   for b, h, c in ((3, 1, False), (1, 3, True))]
                  + [dict(family="splash", B=b, L=L, H=h, D=d, causal=c)
-                    for L in (128, 256) for d in (16, 32)
+                    for L in (128, 256) for d in (16, 32, 64, 128)
                     for b, h, c in ((3, 1, False), (1, 3, True))])
     bf16_edges = []
     for i, c in enumerate(bf16_edge):
@@ -3383,7 +3408,7 @@ def main():
                             f"plain versions at the edge {r['shape']} "
                             f"causal={r['causal']}: {r}")
     phase(20, f"bf16 edge set, {len(bf16_edges)} cases (flash L = 7, 129, "
-              f"300 at D = 16-128; splash L = 128, 256 at D = 16, 32; full "
+              f"300 and splash L = 128, 256 at D = 16-128; full "
               f"B*H = 3 and causal): worst max|diff|/max|plain| "
               f"{max(max(r['rel_err'].values()) for r in bf16_edges):.3e}, "
               f"mean {max(max(r['mean_rel_err'].values()) for r in bf16_edges):.3e}"
@@ -3409,9 +3434,12 @@ def main():
                   f"repeatable: forward {r['fwd_repeat_bitwise']}, backward "
                   f"{r['repeat_bitwise']}; kernel / plain / bf16 "
                   f"bound ms: {times}; forward {r['fwd_tflops']:.1f} TFLOP/s "
-                  f"(share {r['fwd_bound_share']:.3f}); SDPA (bf16) fwd {r['sdpa_fwd_ms']:.4f} "
-                  f"ms, fwd+bwd {r['sdpa_fwd_bwd_ms']:.4f} ms, its o vs plain "
-                  f"{r['sdpa_rel_err']:.3e} [{card}]")
+                  f"(share {r['fwd_bound_share']:.3f}); dK/dV "
+                  f"{r['dkv_tflops']:.1f} TFLOP/s; SDPA (bf16) fwd "
+                  f"{r['sdpa_fwd_ms']:.4f} ms, fwd+bwd "
+                  f"{r['sdpa_fwd_bwd_ms']:.4f} ms against the three kernels' "
+                  f"{r['three_ms']:.4f} ms ({r['three_vs_sdpa']:.3f}x), its o "
+                  f"vs plain {r['sdpa_rel_err']:.3e} [{card}]")
         if not (r["ok"] and r["fwd_repeat_bitwise"]):
             failures.append(f"bf16 {r['family']} kernels disagree with the "
                             f"plain versions at {r['shape']} "
@@ -3954,11 +3982,13 @@ def main():
                 "library_ms": (n * case["sdpa_fwd_ms"] if key == "fwd"
                                else None),
                 "bound_share": case[key + "_bound_share"]})
-            if key == "fwd":
+            if key in ("fwd", "dkv"):
                 kernels[-1].update(
-                    core=f"{csrc}/attn_fwd_bf16.cuh (wgmma fed by TMA through "
-                         "an mbarrier ring, warp-specialised warpgroups)",
-                    tflops=case["fwd_tflops"])
+                    core=f"{csrc}/attn_{key}_bf16.cuh (wgmma fed by TMA "
+                         "through an mbarrier ring, "
+                         + ("warp-specialised warpgroups)" if key == "fwd"
+                            else "two warpgroups of 64 keys)"),
+                    tflops=case[key + "_tflops"])
     # the bf16 CNN kernels: per bf16 AlexNet step as the f32 rows (summed
     # over its three launches); launches of phase 23's runs (both AlexNet
     # runs, and LeNet's conv); max |diff| over the main-path shapes
@@ -4009,6 +4039,8 @@ def main():
          "predict_alexnet": pred, "attn_bf16_build": attn_bf16_build,
          "fwd16_roles": fwd16_roles, "fwd16_ptxas": fwd16_spills,
          "fwd16_serialised_warnings": fwd16_serialised,
+         "dkv16_roles": dkv16_roles, "dkv16_ptxas": dkv16_spills,
+         "dkv16_serialised_warnings": dkv16_serialised,
          "bf16_cases": bf16_cases, "bf16_edges": bf16_edges,
          "lm_train_bf16": lm16, "cnn_bf16_build": cnn16_build,
          "conv_bf16_cases": conv16_cases, "conv_bf16_edges": conv16_edges,

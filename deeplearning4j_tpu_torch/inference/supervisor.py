@@ -9,7 +9,11 @@ dead one can be rebuilt from scratch) and layers four mechanisms on top:
 pass, idle passes included, so staleness means stuck, not quiet. The
 watchdog thread polls it; a heartbeat older than ``hang_timeout_s``, or
 a recorded ``engine.crashed``, triggers recovery. An engine that has not
-finished its first pass is judged by ``warmup_timeout_s`` instead.
+finished its first pass is judged by ``warmup_timeout_s`` instead. Time
+in which the watchdog's own wake came a poll or more late is left out of
+the heartbeat's age: the whole process stood still then (a full garbage
+collection holds the GIL; the host's cores are taken), the engine's
+thread with it, so it is no sign that the loop is stuck.
 
 **Crash recovery.** The dead engine is fenced (a hung thread that wakes
 later sees the fence and exits instead of double-finishing requests),
@@ -63,9 +67,10 @@ clock with no real sleeps.
 """
 from __future__ import annotations
 
+import collections
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from typing import Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -202,6 +207,13 @@ class EngineSupervisor:
         # seconds from each fault's detection to the replacement serving
         # (fence, backoff, rebuild, warmup, requeue)
         self.recovery_seconds: List[float] = []
+        # each restart's cause: "crash" or "hang", the dead engine's loop
+        # passes and its heartbeat's age when the watchdog judged it
+        self.restart_log: List[dict] = []
+        # the watchdog's late wakes: (when it was due, seconds late), each a
+        # stall of the whole process that a heartbeat's age leaves out
+        self._stalls: Deque[Tuple[float, float]] = collections.deque(
+            maxlen=64)
         m = self.metrics
         self._m_restarts = m.counter("engine_restarts_total")
         self._m_recovered = m.counter("requests_recovered_total")
@@ -242,11 +254,13 @@ class EngineSupervisor:
         self._kick.set()
 
     def _watch(self) -> None:
+        due = self._clock() + self.poll_interval_s
         while not self._stopping:
             self._kick.wait(timeout=self.poll_interval_s)
             self._kick.clear()
             if self._stopping:
                 return
+            self.note_wake(due)
             try:
                 self.check()
             except Exception as e:
@@ -256,6 +270,16 @@ class EngineSupervisor:
                     "supervisor_error", track="supervisor",
                     args={"error": type(e).__name__,
                           "detail": str(e)[:200]})
+            due = self._clock() + self.poll_interval_s
+
+    def note_wake(self, due: float) -> None:
+        """The watchdog woke for the poll due at ``due``. A wake a poll or
+        more late is a stall of the whole process, which the heartbeat's
+        age leaves out (the watchdog thread calls this; tests driving
+        :meth:`check` on a fake clock may too)."""
+        late = self._clock() - due
+        if late > self.poll_interval_s:
+            self._stalls.append((due, late))
 
     def check(self) -> None:
         """One watchdog evaluation: crash/hang detection + the degradation
@@ -269,11 +293,18 @@ class EngineSupervisor:
                 return
             limit = (self.hang_timeout_s if eng.iterations > 0
                      else self.warmup_timeout_s)
-            if self._clock() - eng.heartbeat > limit:
+            if self._heartbeat_age(eng) > limit:
                 self._recover("hang", eng)
                 return
             self._evaluate_ladder(eng)
             self._prune_done()
+
+    def _heartbeat_age(self, eng: DecodeScheduler) -> float:
+        """Seconds since the engine's last heartbeat, less the process
+        stalls the watchdog saw begin after it."""
+        beat = eng.heartbeat
+        stalled = sum(d for due, d in list(self._stalls) if due >= beat)
+        return self._clock() - beat - stalled
 
     # -- crash recovery ----------------------------------------------------
     def _recover(self, reason: str, dead: DecodeScheduler) -> None:
@@ -293,6 +324,8 @@ class EngineSupervisor:
     def _recover_locked(self, reason: str, dead: DecodeScheduler) -> None:
         tr = self.tracer
         t_detect = self._clock()
+        cause = {"reason": reason, "iterations": dead.iterations,
+                 "heartbeat_age_s": round(t_detect - dead.heartbeat, 4)}
         tr.instant("engine_crash" if reason == "crash"
                    else "engine_hang", track="supervisor",
                    args={"reason": reason,
@@ -354,6 +387,7 @@ class EngineSupervisor:
                     self._abandon(t)
             raise
         self.restarts += 1
+        self.restart_log.append(cause)
         self._m_restarts.inc()
         tr.instant("engine_restart", track="supervisor",
                    args={"restart": self.restarts, "reason": reason,

@@ -44,13 +44,16 @@
 // causal (2.0516 and 1.5387 ms against f32 outside the tensor cores, 67
 // TFLOP/s).
 //
-// bf16 (dl4j_flash_bwd_dkv_bf16, dl4j_flash_bwd_dq_bf16): the same blocks
-// and walks over attn_dkv_bf16.cuh and attn_dq_bf16.cuh, bf16 q, k, v, dO
-// and outputs, f32 lse and di, bf16 mma.sync with f32 accumulators. As the
-// library rounds: ds takes the scale in f32, then p and ds go to bf16
-// before p^T dO, ds^T q and ds k (flash_attention.py :900, :918, :1258).
-// Bounds at 989 TFLOP/s: 0.1390 ms (dK/dV) and 0.1042 ms (dQ) at
-// [1, 8192, 4, 128] causal.
+// bf16 (dl4j_flash_bwd_dkv_bf16, dl4j_flash_bwd_dq_bf16): bf16 q, k, v, dO
+// and outputs, f32 lse and di. As the library rounds: ds takes the scale in
+// f32, then p and ds go to bf16 before p^T dO, ds^T q and ds k
+// (flash_attention.py :900, :918, :1258). dK/dV runs on the Hopper core
+// attn_dkv_bf16.cuh (the same grid, key block 0 first; q and dO in 64-row
+// tiles by TMA through an mbarrier ring, two warpgroups of 64 keys on
+// wgmma), dQ on the f32 blocks and walk over
+// attn_dq_bf16.cuh, bf16 mma.sync with f32 accumulators. Bounds at 989
+// TFLOP/s: 0.1390 ms (dK/dV) and 0.1042 ms (dQ) at [1, 8192, 4, 128]
+// causal.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -195,20 +198,52 @@ int dq_attrs(bool causal, int* out) {
                 : dl4j_tc::attrs(flash_bwd_dq_kernel<D, false>, Dq<D>::kSmem, out);
 }
 
+namespace dkv16 = dl4j_attn_dkv;
+
+// The walk of the Hopper bf16 dK/dV core (attn_dkv_bf16.cuh) over the q
+// tiles of kQT rows: from the diagonal tile of the block's keys on when
+// causal, all of them when not. mode(i, kw0) for the 64 keys kw0 .. kw0 + 63
+// of a consumer warpgroup: -1 when the tile adds nothing to them (all past
+// L, or every query before every key), 1 when the causal mask cuts some of
+// their pairs, 0 otherwise. Query rows past L need no mask: the core gives
+// them lse +inf and di 0, so p = ds = 0; keys past L are never stored.
+template <bool kCausal>
+struct FlashDkvWgWalk {
+  static constexpr bool kFlash = true;
+  int L, first, n;
+  float scale;
+  __device__ FlashDkvWgWalk(int L_, int k0, float scale_)
+      : L(L_), scale(scale_) {
+    first = kCausal ? k0 / dkv16::kQT : 0;
+    n = (L + dkv16::kQT - 1) / dkv16::kQT - first;
+  }
+  __device__ int count() const { return n; }
+  __device__ int q0(int i) const { return (first + i) * dkv16::kQT; }
+  __device__ int mode(int i, int kw0) const {
+    const int q = q0(i);
+    if (kw0 >= L || (kCausal && q + dkv16::kQT - 1 < kw0)) return -1;
+    return (kCausal && q < kw0 + dkv16::kWgKeys - 1) ? 1 : 0;
+  }
+  __device__ bool keep(int qrow, int key) const {
+    return !kCausal || qrow >= key;
+  }
+};
+
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(dl4j_attn_tc::kThreads, 1)
+__global__ void __launch_bounds__(dkv16::kThreads, 1)
     flash_bwd_dkv_bf16_kernel(
-        const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-        const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-        const float* __restrict__ lse, const float* __restrict__ di,
-        uint16_t* __restrict__ dk, uint16_t* __restrict__ dv, int L, int H,
-        float scale) {
-  extern __shared__ __align__(16) uint16_t smem_h[];
-  const int k0 = blockIdx.y * dl4j_attn_tc::kRows;
-  const FlashDkvWalk<kCausal, dl4j_attn_tc::DkvBf16<D>::kQT> walk(L, k0, scale);
-  dl4j_attn_tc::attn_dkv_bf16<D>(q, k, v, dout, lse, di, dk, dv, L, H, k0,
-                                 blockIdx.x, blockIdx.z, walk, -INFINITY,
-                                 smem_h);
+        const __grid_constant__ CUtensorMap tq,
+        const __grid_constant__ CUtensorMap tdo,
+        const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse,
+        const float* __restrict__ di, uint16_t* __restrict__ dk,
+        uint16_t* __restrict__ dv, int L, int H, float scale) {
+  extern __shared__ __align__(1024) uint8_t smem_w[];
+  const int k0 = blockIdx.y * dkv16::kKeys;
+  const FlashDkvWgWalk<kCausal> walk(L, k0, scale);
+  dkv16::attn_dkv_ws<D>(&tq, &tdo, &tk, &tv, lse, di, dk, dv, L, H, k0,
+                        blockIdx.x, blockIdx.z, walk, -INFINITY,
+                        scale * dkv16::kLog2e, smem_w);
 }
 
 template <int D, bool kCausal>
@@ -232,14 +267,15 @@ int dkv_bf16(bool causal, const uint16_t* q, const uint16_t* k,
              const uint16_t* v, const uint16_t* dout, const float* lse,
              const float* di, uint16_t* dk, uint16_t* dv, int B, int L, int H,
              float scale, cudaStream_t s) {
-  const dim3 grid(H, (L + dl4j_attn_tc::kRows - 1) / dl4j_attn_tc::kRows, B);
-  constexpr size_t smem = dl4j_attn_tc::DkvBf16<D>::kSmem;
-  return causal ? dl4j_attn_tc::launch(flash_bwd_dkv_bf16_kernel<D, true>, grid,
-                                       smem, s, q, k, v, dout, lse, di, dk, dv,
-                                       L, H, scale)
-                : dl4j_attn_tc::launch(flash_bwd_dkv_bf16_kernel<D, false>,
-                                       grid, smem, s, q, k, v, dout, lse, di,
-                                       dk, dv, L, H, scale);
+  static_assert(dkv16::kKeys == dl4j_attn_tc::kRows, "the f32 kernels' grid");
+  const dim3 grid(H, (L + dkv16::kKeys - 1) / dkv16::kKeys, B);
+  return causal
+             ? dkv16::launch_dkv<D>(flash_bwd_dkv_bf16_kernel<D, true>, grid,
+                                    s, q, k, v, dout, B, L, H, lse, di, dk, dv,
+                                    L, H, scale)
+             : dkv16::launch_dkv<D>(flash_bwd_dkv_bf16_kernel<D, false>, grid,
+                                    s, q, k, v, dout, B, L, H, lse, di, dk, dv,
+                                    L, H, scale);
 }
 
 template <int D>
@@ -259,7 +295,7 @@ int dq_bf16(bool causal, const uint16_t* q, const uint16_t* k,
 
 template <int D>
 int dkv_bf16_attrs(bool causal, int* out) {
-  constexpr size_t smem = dl4j_attn_tc::DkvBf16<D>::kSmem;
+  constexpr size_t smem = dkv16::Dkv<D>::kSmem;
   return causal ? dl4j_tc::attrs(flash_bwd_dkv_bf16_kernel<D, true>, smem, out)
                 : dl4j_tc::attrs(flash_bwd_dkv_bf16_kernel<D, false>, smem, out);
 }
@@ -339,7 +375,7 @@ extern "C" int dl4j_flash_bwd_dq_attrs(int D, int causal, int* out) {
 }
 
 // bf16 q, k, v, dO, dk, dv (raw bf16 bits), f32 lse and di. Shared memory per
-// block at D = 128: dK/dV 96.5 KiB, dQ 128 KiB.
+// block at D = 128: dK/dV 163 KiB (attn_dkv_bf16.cuh), dQ 128 KiB.
 extern "C" int dl4j_flash_bwd_dkv_bf16(const uint16_t* q, const uint16_t* k,
                                        const uint16_t* v, const uint16_t* dout,
                                        const float* lse, const float* di,
@@ -398,4 +434,16 @@ extern "C" int dl4j_flash_bwd_dq_bf16_attrs(int D, int causal, int* out) {
     case 128: return dq_bf16_attrs<128>(causal != 0, out);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The shape of the bf16 dK/dV core (attn_dkv_bf16.cuh, under this file's
+// and splash_attention_bwd.cu's dK/dV kernels) into out[4]: threads per
+// block (two warpgroups), the ring's stages, keys per block and query rows
+// per q / dO tile.
+extern "C" int dl4j_attn_dkv_bf16_roles(int* out) {
+  out[0] = dkv16::kThreads;
+  out[1] = dkv16::kStages;
+  out[2] = dkv16::kKeys;
+  out[3] = dkv16::kQT;
+  return 0;
 }

@@ -43,12 +43,16 @@
 // (dK/dV) and 9.996 ms (dQ) at [1, 32768, 4, 128] causal (32.822 and 24.617
 // ms against f32 outside the tensor cores, 67 TFLOP/s).
 //
-// bf16 (dl4j_splash_bwd_dkv_bf16, dl4j_splash_bwd_dq_bf16): the same blocks
-// and table walks over attn_dkv_bf16.cuh and attn_dq_bf16.cuh, bf16 q, k, v,
-// dO and outputs, f32 lse and di, bf16 mma.sync with f32 accumulators; p
-// and ds go to bf16 before p^T dO, ds^T q and ds k, as the library rounds
-// them (splash_attention_kernel.py :1788, :1804, :1395). Bounds at 989
-// TFLOP/s: 2.224 ms (dK/dV) and 1.668 ms (dQ) at [1, 32768, 4, 128] causal.
+// bf16 (dl4j_splash_bwd_dkv_bf16, dl4j_splash_bwd_dq_bf16): bf16 q, k, v,
+// dO and outputs, f32 lse and di; p and ds go to bf16 before p^T dO, ds^T
+// q and ds k, as the library rounds them (splash_attention_kernel.py
+// :1788, :1804, :1395). dK/dV runs on the Hopper core attn_dkv_bf16.cuh:
+// one block of two warpgroups per kv block, fetching by TMA only the q
+// blocks its column of the dK/dV table lists, in 64-row tiles through an
+// mbarrier ring, each warpgroup on 64 keys with wgmma. dQ keeps the f32
+// blocks and walk over attn_dq_bf16.cuh, bf16 mma.sync with f32
+// accumulators. Bounds at 989 TFLOP/s: 2.224 ms (dK/dV) and 1.668 ms (dQ)
+// at [1, 32768, 4, 128] causal.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -123,24 +127,30 @@ int run_dq(const float* q, const float* k, const float* v, const float* dout,
                               lse, di, dq, counts, blocks, kinds, L, H, R, W);
 }
 
+namespace dkv16 = dl4j_attn_dkv;
+static_assert(kBlock == dkv16::kKeys && kBlock % dkv16::kQT == 0,
+              "one CUDA block per kv block, whole q tiles per q block");
+
 template <int D>
-__global__ void __launch_bounds__(dl4j_attn_tc::kThreads, 1)
+__global__ void __launch_bounds__(dkv16::kThreads, 1)
     splash_bwd_dkv_bf16_kernel(
-        const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-        const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-        const float* __restrict__ lse, const float* __restrict__ di,
-        uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
-        const int* __restrict__ counts, const int* __restrict__ blocks,
-        const int* __restrict__ kinds, int L, int H, int R, int W) {
-  extern __shared__ __align__(16) uint16_t smem_h[];
+        const __grid_constant__ CUtensorMap tq,
+        const __grid_constant__ CUtensorMap tdo,
+        const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse,
+        const float* __restrict__ di, uint16_t* __restrict__ dk,
+        uint16_t* __restrict__ dv, const int* __restrict__ counts,
+        const int* __restrict__ blocks, const int* __restrict__ kinds, int L,
+        int H, int R, int W) {
+  extern __shared__ __align__(1024) uint8_t smem_w[];
   const int kb = blockIdx.y;
   const BlockRow row = block_row(counts, blocks, kinds, R, W, L / kBlock,
                                  blockIdx.x, kb);
-  const SplashDkvWalk<dl4j_attn_tc::DkvBf16<D>::kQT> walk{
-      {row.blocks, row.kinds, row.count}};
-  dl4j_attn_tc::attn_dkv_bf16<D>(q, k, v, dout, lse, di, dk, dv, L, H,
-                                 kb * kBlock, blockIdx.x, blockIdx.z, walk,
-                                 kMaskValue, smem_h);
+  const SplashDkvWgWalk<dkv16::kQT, dkv16::kWgKeys> walk{
+      {{row.blocks, row.kinds, row.count}}};
+  dkv16::attn_dkv_ws<D>(&tq, &tdo, &tk, &tv, lse, di, dk, dv, L, H,
+                        kb * kBlock, blockIdx.x, blockIdx.z, walk, kMaskValue,
+                        dkv16::kLog2e, smem_w);
 }
 
 template <int D>
@@ -170,10 +180,9 @@ int run_dkv_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
                  const int* blocks, const int* kinds, int B, int L, int H,
                  int R, int W, cudaStream_t stream) {
   const dim3 grid(H, L / kBlock, B);
-  return dl4j_attn_tc::launch(splash_bwd_dkv_bf16_kernel<D>, grid,
-                              dl4j_attn_tc::DkvBf16<D>::kSmem, stream, q, k, v,
-                              dout, lse, di, dk, dv, counts, blocks, kinds, L,
-                              H, R, W);
+  return dkv16::launch_dkv<D>(splash_bwd_dkv_bf16_kernel<D>, grid, stream, q, k,
+                              v, dout, B, L, H, lse, di, dk, dv, counts, blocks,
+                              kinds, L, H, R, W);
 }
 
 template <int D>
@@ -265,7 +274,8 @@ extern "C" int dl4j_splash_bwd_dkv_attrs(int D, int* out) {
 }
 
 // bf16 q (pre-scaled), k, v, dO, dk, dv (raw bf16 bits), f32 lse and di.
-// Shared memory per block at D = 128: dK/dV 96.5 KiB, dQ 128 KiB.
+// Shared memory per block at D = 128: dK/dV 163 KiB (attn_dkv_bf16.cuh), dQ
+// 128 KiB.
 extern "C" int dl4j_splash_bwd_dkv_bf16(const uint16_t* q, const uint16_t* k,
                                         const uint16_t* v, const uint16_t* dout,
                                         const float* lse, const float* di,
@@ -329,13 +339,13 @@ extern "C" int dl4j_splash_bwd_dq_bf16_attrs(int D, int* out) {
 // {registers, local bytes per thread, dynamic shared bytes} of the bf16
 // dK/dV kernel for head dim D into out[3].
 extern "C" int dl4j_splash_bwd_dkv_bf16_attrs(int D, int* out) {
-  using dl4j_attn_tc::DkvBf16;
+  using dkv16::Dkv;
   using dl4j_tc::attrs;
   switch (D) {
-    case 16: return attrs(splash_bwd_dkv_bf16_kernel<16>, DkvBf16<16>::kSmem, out);
-    case 32: return attrs(splash_bwd_dkv_bf16_kernel<32>, DkvBf16<32>::kSmem, out);
-    case 64: return attrs(splash_bwd_dkv_bf16_kernel<64>, DkvBf16<64>::kSmem, out);
-    case 128: return attrs(splash_bwd_dkv_bf16_kernel<128>, DkvBf16<128>::kSmem, out);
+    case 16: return attrs(splash_bwd_dkv_bf16_kernel<16>, Dkv<16>::kSmem, out);
+    case 32: return attrs(splash_bwd_dkv_bf16_kernel<32>, Dkv<32>::kSmem, out);
+    case 64: return attrs(splash_bwd_dkv_bf16_kernel<64>, Dkv<64>::kSmem, out);
+    case 128: return attrs(splash_bwd_dkv_bf16_kernel<128>, Dkv<128>::kSmem, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

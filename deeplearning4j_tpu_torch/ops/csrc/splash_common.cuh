@@ -84,6 +84,21 @@ struct SplashDkvWalk : SplashWalk<QT> {
   }
 };
 
+// The walk of one row of the dK/dV block list for the Hopper bf16 dK/dV
+// core (attn_dkv_bf16.cuh): SplashDkvWalk's tiles of QT query rows, with
+// mode() judged for the KR keys kw0 .. kw0 + KR - 1 of a consumer
+// warpgroup: -1 when every query of the tile precedes all of them, 0 when
+// none of their pairs is masked, 1 when some are.
+template <int QT, int KR>
+struct SplashDkvWgWalk : SplashDkvWalk<QT> {
+  __device__ int mode(int i, int kw0) const {
+    if (__ldg(this->kinds + (unsigned)i / this->kPer) != 1) return 0;
+    const int first = this->q0(i);
+    if (first + QT - 1 < kw0) return -1;
+    return first < kw0 + KR - 1 ? 1 : 0;
+  }
+};
+
 inline bool bad_dims(int B, int L, int H, int R, int W) {
   return B < 1 || L < kBlock || L % kBlock || H < 1 || B > 65535 ||
          H > 65535 || (R != 1 && R != H) || W < 1;

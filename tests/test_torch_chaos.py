@@ -181,6 +181,21 @@ def _warmed_only(eng):
             == len(eng.prefill_buckets) * len(tables))
 
 
+def _restart_report(srv, before_restarts, fired):
+    """What a failed restart count needs to name its cause: the restarts
+    and faults of this case, each restart's recorded reason (crash or
+    hang, with the dead engine's passes and heartbeat age) and the live
+    engine's captures against its buckets."""
+    sup = srv.supervisor
+    eng = sup.engine
+    tables = eng.table_buckets if eng.paged else [None]
+    return (f"restarts {before_restarts} -> {sup.restarts}, faults fired "
+            f"{fired}; reasons {sup.restart_log[before_restarts:]}; engine "
+            f"warmed {eng._warmed}, decode captures {eng.decode_captures} "
+            f"of {len(tables)}, prefill captures {eng.prefill_captures} of "
+            f"{len(eng.prefill_buckets) * len(tables)}")
+
+
 @pytest.fixture(scope="module")
 def decode_server(nets):
     """One supervised /generate server shared by the engine-seam cases
@@ -237,8 +252,9 @@ def test_seam_armed_no_loss_no_dup_token_identical(decode_server,
     assert not dups, f"double-finished requests under {seam}: {dups}"
     if seam != "http.handler":
         # one restart per fault fired
-        assert srv.supervisor.restarts - before_restarts == fired
-        assert _warmed_only(srv.supervisor.engine)
+        report = _restart_report(srv, before_restarts, fired)
+        assert srv.supervisor.restarts - before_restarts == fired, report
+        assert _warmed_only(srv.supervisor.engine), report
         assert any(o.get("retries") for o in outs), \
             "no request reports surviving the restart"
 

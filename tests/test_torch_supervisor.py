@@ -314,6 +314,38 @@ def test_watchdog_warmup_grace_for_fresh_engines():
     sup.stop()
 
 
+def test_watchdog_leaves_a_process_stall_out_of_the_heartbeat_age():
+    """A stall of the whole process (a full garbage collection holding the
+    GIL, the host's cores taken) stops the engine's loop and the watchdog
+    alike: the watchdog wakes late, and that time is no sign of a hang. A
+    loop that stays stuck after it is still declared hung, after
+    hang_timeout_s of time the watchdog saw."""
+    clock = FakeClock()
+    sup, spawned = _stub_supervisor(clock, hang_timeout_s=1.0,
+                                    poll_interval_s=0.05, backoff_base_s=0.0)
+    eng = sup.engine
+    eng.heartbeat = clock()
+
+    def poll(dt):
+        due = clock() + sup.poll_interval_s
+        clock.now += dt
+        sup.note_wake(due)
+        sup.check()
+
+    poll(0.05)
+    poll(3.0)  # the process stood still for 3 s, the watchdog with it
+    assert sup.restarts == 0 and sup.engine is eng and sup.restart_log == []
+    for _ in range(17):  # 0.1 s before the stall, 0.85 s after: not yet
+        poll(0.05)
+    assert sup.restarts == 0 and sup.engine is eng
+    poll(0.05)
+    poll(0.05)  # 1.05 s seen stuck: a hang
+    assert sup.restarts == 1 and sup.engine is spawned[1]
+    assert [c["reason"] for c in sup.restart_log] == ["hang"]
+    assert sup.restart_log[0]["heartbeat_age_s"] == pytest.approx(4.0)
+    sup.stop()
+
+
 def test_crash_recovery_resubmits_with_backoff_and_budget():
     clock = FakeClock()
     sup, spawned = _stub_supervisor(clock, hang_timeout_s=5.0,

@@ -1,5 +1,6 @@
 """Digests of the conv kernels' outputs, to show two trees build the same f32
-conv kernel, and the same bf16 mma.sync conv kernel, bit for bit.
+conv kernel, and the same bf16 mma.sync and wgmma conv kernels, bit for
+bit.
 
     python tools/conv_digest.py [--root TREE] [--out FILE]
 
@@ -13,7 +14,10 @@ seeds:
     conv1 and LeNet's conv2 (B = 512), and phase 22's edge set of that
     route (C = 3, 4, 8, 20 with OC = 50, 33, 70; C = 8, 16, 24, 32 with OC
     = 72, 136, 40, 256; every activation with its pre-activation at C = 3
-    and 16, OC = 9).
+    and 16, OC = 9);
+  - bf16, at shapes that take the wgmma kernel (C % 64 == 0, OC % 8 ==
+    0): AlexNet's conv2 and conv3 (B = 512) and a strided edge (C = 64, OC
+    = 72, stride 2).
 Prints one JSON object {case: sha256 of the raw bytes of out (and pre)}.
 Run it on two checkouts on one card and compare: equal digests mean equal
 bits. Needs a CUDA card.
@@ -47,6 +51,10 @@ BF16_MMA_SYNC = [
     ("bf16", 3, 11, 10, 16, 3, 136, (1, 2), ((2, 0), (1, 1)), "sigmoid",
      False),
     ("bf16", 5, 7, 9, 32, 3, 256, (1, 1), "VALID", "relu", False)]
+BF16_WGMMA = [
+    ("bf16", 512, 16, 16, 64, 3, 128, (1, 1), SAME, "relu", False),
+    ("bf16", 512, 8, 8, 128, 3, 256, (1, 1), SAME, "relu", False),
+    ("bf16", 3, 13, 11, 64, 3, 72, (2, 2), "SAME", "tanh", True)]
 
 
 def main() -> int:
@@ -63,7 +71,7 @@ def main() -> int:
     acts = sorted(set(ck.ACT_CODES) - {"linear"})
     cases = F32 + BF16_MMA_SYNC + [
         ("bf16", 2, 6, 5, c, 3, 9, (1, 1), "SAME", act, True)
-        for act in acts for c in (3, 16)]
+        for act in acts for c in (3, 16)] + BF16_WGMMA
     digests = {}
     for i, (dt, B, H, W, C, K, OC, stride, padding, act, pre) in enumerate(
             cases):

@@ -239,8 +239,9 @@ non-zero without them, or when any phase fails. Phases:
      core attn_fwd_bf16.cuh: wgmma fed by TMA through an mbarrier ring,
      warp-specialised warpgroups; both dK/dV kernels on attn_dkv_bf16.cuh:
      wgmma, q and dO by TMA through an mbarrier ring, two warpgroups of 64
-     keys; dQ on bf16 mma.sync over attn_dq_bf16.cuh; in the same four .cu
-     files) against their
+     keys; both dQ kernels on attn_dq_bf16.cuh: wgmma, k and v by TMA
+     through an mbarrier ring, two warpgroups of 64 query rows; in the
+     same four .cu files) against their
      plain versions at bf16, which make the roundings of the library each
      replaces (flash rounds p to bf16 before p v, splash keeps it f32; both
      round p and ds before the backward products): flash causal at [32,
@@ -1983,8 +1984,8 @@ def bf16_grad_check(torch, net, x, y, heads, remat):
 
 
 def attn16_ptxas(logs, kind="fwd"):
-    """ptxas's report of the bf16 attention kernels of ``kind`` ("fwd", or
-    "bwd_dkv") in the build logs: {kernel: {"registers", "spill_stores",
+    """ptxas's report of the bf16 attention kernels of ``kind`` ("fwd",
+    "bwd_dkv" or "bwd_dq") in the build logs: {kernel: {"registers", "spill_stores",
     "spill_loads"}} by family, head dim (and causal for flash), and the
     count of its warnings that a wgmma was serialised."""
     import re
@@ -2436,6 +2437,22 @@ def main():
                     for D, a in attn_bf16_build.items()})
              + f"; ptxas (registers, spills): {dkv16_spills}; wgmma "
              f"serialised in {dkv16_serialised} ptxas warnings")
+    dq16_roles = ck.attention_bf16_dq_roles()
+    dq16_spills, dq16_serialised = attn16_ptxas(logs, "bwd_dq")
+    phase(1, f"bf16 dQ core (attn_dq_bf16.cuh: wgmma, k and v fed by TMA "
+             f"through an mbarrier ring): {dq16_roles['threads']} threads "
+             f"a block, two warpgroups of 64 of its "
+             f"{dq16_roles['rows_per_block']} query rows, k and v tiles of "
+             f"{dq16_roles['keys_per_tile']} keys in "
+             f"{dq16_roles['stages']} stages, refilled by the warpgroup "
+             f"done with a stage second; by head dim as loaded (registers, "
+             f"local bytes, shared memory): "
+             + str({D: {k: a[k] for k in ("flash_bwd_dq_causal",
+                                            "flash_bwd_dq_full",
+                                            "splash_bwd_dq")}
+                    for D, a in attn_bf16_build.items()})
+             + f"; ptxas (registers, spills): {dq16_spills}; wgmma "
+             f"serialised in {dq16_serialised} ptxas warnings")
     paged_build = {f"G={g} Dh=64": ck.paged_decode_attrs(g, D_MODEL // HEADS)
                    for g in (1, 4)}
     phase(1, f"paged decode kernels at the serving head dim, MHA and GQA: "
@@ -3384,7 +3401,9 @@ def main():
               "a producer and two consumer warpgroups in ping-pong), dK/dV "
               "on the Hopper core attn_dkv_bf16.cuh (wgmma, q and dO fed by "
               "TMA through an mbarrier ring, two warpgroups of 64 keys), dQ "
-              "on bf16 mma.sync (attn_dq_bf16.cuh)")
+              "on the Hopper core attn_dq_bf16.cuh (wgmma, k and v fed by "
+              "TMA through an mbarrier ring, two warpgroups of 64 query "
+              "rows)")
     bf16_main = [dict(family="flash", B=32, L=256, H=8, D=64, causal=True),
                  dict(family="flash", B=1, L=8192, H=4, D=128, causal=True),
                  dict(family="flash", B=1, L=8192, H=4, D=128, causal=False),
@@ -4041,6 +4060,8 @@ def main():
          "fwd16_serialised_warnings": fwd16_serialised,
          "dkv16_roles": dkv16_roles, "dkv16_ptxas": dkv16_spills,
          "dkv16_serialised_warnings": dkv16_serialised,
+         "dq16_roles": dq16_roles, "dq16_ptxas": dq16_spills,
+         "dq16_serialised_warnings": dq16_serialised,
          "bf16_cases": bf16_cases, "bf16_edges": bf16_edges,
          "lm_train_bf16": lm16, "cnn_bf16_build": cnn16_build,
          "conv_bf16_cases": conv16_cases, "conv_bf16_edges": conv16_edges,

@@ -139,16 +139,6 @@ struct Bars {
       : kv_full(b), q_full(b + 1), do_full(b + 1 + kStages) {}
 };
 
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 16) wgmma_rs_n16(d, a, db);
-  else if constexpr (D == 32) wgmma_rs_n32(d, a, db);
-  else if constexpr (D == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
-}
-
 // The TMA loads of tile i's q and dO into stage st, each on its full
 // barrier (one thread).
 template <int D, class Walk>

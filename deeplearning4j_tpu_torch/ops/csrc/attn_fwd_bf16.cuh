@@ -127,16 +127,6 @@ struct FlashWalk {
   }
 };
 
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 16) wgmma_rs_n16(d, a, db);
-  else if constexpr (D == 32) wgmma_rs_n32(d, a, db);
-  else if constexpr (D == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
-}
-
 // The barriers after the tiles: q full, then K full, V full, K empty, V
 // empty, kStages each.
 struct Bars {

@@ -47,13 +47,14 @@
 // bf16 (dl4j_flash_bwd_dkv_bf16, dl4j_flash_bwd_dq_bf16): bf16 q, k, v, dO
 // and outputs, f32 lse and di. As the library rounds: ds takes the scale in
 // f32, then p and ds go to bf16 before p^T dO, ds^T q and ds k
-// (flash_attention.py :900, :918, :1258). dK/dV runs on the Hopper core
-// attn_dkv_bf16.cuh (the same grid, key block 0 first; q and dO in 64-row
-// tiles by TMA through an mbarrier ring, two warpgroups of 64 keys on
-// wgmma), dQ on the f32 blocks and walk over
-// attn_dq_bf16.cuh, bf16 mma.sync with f32 accumulators. Bounds at 989
-// TFLOP/s: 0.1390 ms (dK/dV) and 0.1042 ms (dQ) at [1, 8192, 4, 128]
-// causal.
+// (flash_attention.py :900, :918, :1258). Both run on Hopper cores with
+// the f32 kernels' grid: dK/dV on attn_dkv_bf16.cuh (key block 0 first; q
+// and dO in 64-row tiles by TMA through an mbarrier ring, two warpgroups
+// of 64 keys on wgmma), dQ on attn_dq_bf16.cuh (the last query block
+// first; k and v in 64-key tiles by TMA through an mbarrier ring, two
+// warpgroups of 64 query rows on wgmma, walked by FlashDqWgWalk). Bounds
+// at 989 TFLOP/s: 0.1390 ms (dK/dV) and 0.1042 ms (dQ) at [1, 8192, 4,
+// 128] causal.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -246,20 +247,54 @@ __global__ void __launch_bounds__(dkv16::kThreads, 1)
                         scale * dkv16::kLog2e, smem_w);
 }
 
+namespace dq16 = dl4j_attn_dq;
+
+// The walk of the Hopper bf16 dQ core (attn_dq_bf16.cuh) over the key
+// tiles of kKT keys: up to the block's last row, q0 + 127, when causal, all
+// of them when not. mode(i, w0) for the 64 rows w0 .. w0 + 63 of a
+// warpgroup: -1 when the tile adds nothing to them (all past L, or every
+// key after every row), 1 when some of their pairs are masked (keys past
+// L, or above the diagonal), 0 otherwise. Rows past L need no mask: the
+// core gives them lse +inf and di 0, so p = ds = 0, and never stores them.
+template <bool kCausal>
+struct FlashDqWgWalk {
+  static constexpr bool kFlash = true;
+  int L, n;
+  float scale;
+  __device__ FlashDqWgWalk(int L_, int q0, float scale_)
+      : L(L_), scale(scale_) {
+    const int all = (L + dq16::kKT - 1) / dq16::kKT;
+    n = kCausal ? min(all, (q0 + dq16::kRows) / dq16::kKT) : all;
+  }
+  __device__ int count() const { return n; }
+  __device__ int key0(int i) const { return i * dq16::kKT; }
+  __device__ int mode(int i, int w0) const {
+    const int k0 = i * dq16::kKT;
+    if (w0 >= L || (kCausal && k0 > w0 + dq16::kWgRows - 1)) return -1;
+    return (k0 + dq16::kKT > L || (kCausal && k0 + dq16::kKT - 1 > w0)) ? 1
+                                                                        : 0;
+  }
+  __device__ bool keep(int row, int col) const {
+    return col < L && (!kCausal || col <= row);
+  }
+};
+
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(dl4j_attn_tc::kThreads, 1)
+__global__ void __launch_bounds__(dq16::kThreads, 1)
     flash_bwd_dq_bf16_kernel(
-        const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-        const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-        const float* __restrict__ lse, const float* __restrict__ di,
-        uint16_t* __restrict__ dq, int L, int H, float scale) {
-  extern __shared__ __align__(16) uint16_t smem_h[];
-  const int nq = (L + dl4j_attn_tc::kRows - 1) / dl4j_attn_tc::kRows;
-  const int q0 = (nq - 1 - (int)blockIdx.y) * dl4j_attn_tc::kRows;
-  const FlashDqWalk<kCausal, dl4j_attn_tc::DqBf16<D>::kKeys> walk(L, q0, scale);
-  dl4j_attn_tc::attn_dq_bf16<D>(q, k, v, dout, lse, di, dq, L, H, q0,
-                                blockIdx.x, blockIdx.z, walk, -INFINITY,
-                                smem_h);
+        const __grid_constant__ CUtensorMap tq,
+        const __grid_constant__ CUtensorMap tdo,
+        const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse,
+        const float* __restrict__ di, uint16_t* __restrict__ dq, int L, int H,
+        float scale) {
+  extern __shared__ __align__(1024) uint8_t smem_w[];
+  const int nq = (L + dq16::kRows - 1) / dq16::kRows;
+  const int q0 = (nq - 1 - (int)blockIdx.y) * dq16::kRows;
+  const FlashDqWgWalk<kCausal> walk(L, q0, scale);
+  dq16::attn_dq_ws<D>(&tq, &tdo, &tk, &tv, lse, di, dq, L, H, q0, blockIdx.x,
+                      blockIdx.z, walk, -INFINITY, scale * dq16::kLog2e,
+                      smem_w);
 }
 
 template <int D>
@@ -283,14 +318,15 @@ int dq_bf16(bool causal, const uint16_t* q, const uint16_t* k,
             const uint16_t* v, const uint16_t* dout, const float* lse,
             const float* di, uint16_t* dq_, int B, int L, int H, float scale,
             cudaStream_t s) {
-  const dim3 grid(H, (L + dl4j_attn_tc::kRows - 1) / dl4j_attn_tc::kRows, B);
-  constexpr size_t smem = dl4j_attn_tc::DqBf16<D>::kSmem;
-  return causal ? dl4j_attn_tc::launch(flash_bwd_dq_bf16_kernel<D, true>, grid,
-                                       smem, s, q, k, v, dout, lse, di, dq_, L,
-                                       H, scale)
-                : dl4j_attn_tc::launch(flash_bwd_dq_bf16_kernel<D, false>, grid,
-                                       smem, s, q, k, v, dout, lse, di, dq_, L,
-                                       H, scale);
+  static_assert(dq16::kRows == dl4j_attn_tc::kRows, "the f32 kernels' grid");
+  const dim3 grid(H, (L + dq16::kRows - 1) / dq16::kRows, B);
+  return causal
+             ? dq16::launch_dq<D>(flash_bwd_dq_bf16_kernel<D, true>, grid, s,
+                                  q, k, v, dout, B, L, H, lse, di, dq_, L, H,
+                                  scale)
+             : dq16::launch_dq<D>(flash_bwd_dq_bf16_kernel<D, false>, grid, s,
+                                  q, k, v, dout, B, L, H, lse, di, dq_, L, H,
+                                  scale);
 }
 
 template <int D>
@@ -302,7 +338,7 @@ int dkv_bf16_attrs(bool causal, int* out) {
 
 template <int D>
 int dq_bf16_attrs(bool causal, int* out) {
-  constexpr size_t smem = dl4j_attn_tc::DqBf16<D>::kSmem;
+  constexpr size_t smem = dq16::Dq<D>::kSmem;
   return causal ? dl4j_tc::attrs(flash_bwd_dq_bf16_kernel<D, true>, smem, out)
                 : dl4j_tc::attrs(flash_bwd_dq_bf16_kernel<D, false>, smem, out);
 }
@@ -375,7 +411,8 @@ extern "C" int dl4j_flash_bwd_dq_attrs(int D, int causal, int* out) {
 }
 
 // bf16 q, k, v, dO, dk, dv (raw bf16 bits), f32 lse and di. Shared memory per
-// block at D = 128: dK/dV 163 KiB (attn_dkv_bf16.cuh), dQ 128 KiB.
+// block at D = 128: dK/dV 163 KiB (attn_dkv_bf16.cuh), dQ 225 KiB
+// (attn_dq_bf16.cuh).
 extern "C" int dl4j_flash_bwd_dkv_bf16(const uint16_t* q, const uint16_t* k,
                                        const uint16_t* v, const uint16_t* dout,
                                        const float* lse, const float* di,
@@ -445,5 +482,17 @@ extern "C" int dl4j_attn_dkv_bf16_roles(int* out) {
   out[1] = dkv16::kStages;
   out[2] = dkv16::kKeys;
   out[3] = dkv16::kQT;
+  return 0;
+}
+
+// The shape of the bf16 dQ core (attn_dq_bf16.cuh, under this file's and
+// splash_attention_bwd.cu's dQ kernels) into out[4]: threads per block (two
+// warpgroups), the ring's stages, query rows per block and keys per k / v
+// tile.
+extern "C" int dl4j_attn_dq_bf16_roles(int* out) {
+  out[0] = dq16::kThreads;
+  out[1] = dq16::kStages;
+  out[2] = dq16::kRows;
+  out[3] = dq16::kKT;
   return 0;
 }

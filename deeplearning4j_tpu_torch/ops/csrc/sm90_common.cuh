@@ -541,6 +541,18 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// d += a b, m64nDk16 for the attention cores' head dims D = 16-128: a from
+// registers (the A fragment), b from shared memory, MN-major (transposed)
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (D == 16) wgmma_rs_n16(d, a, db);
+  else if constexpr (D == 32) wgmma_rs_n32(d, a, db);
+  else if constexpr (D == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
 // -- warpgroups ---------------------------------------------------------------
 
 template <int R>

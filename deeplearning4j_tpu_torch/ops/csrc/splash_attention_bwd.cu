@@ -46,13 +46,15 @@
 // bf16 (dl4j_splash_bwd_dkv_bf16, dl4j_splash_bwd_dq_bf16): bf16 q, k, v,
 // dO and outputs, f32 lse and di; p and ds go to bf16 before p^T dO, ds^T
 // q and ds k, as the library rounds them (splash_attention_kernel.py
-// :1788, :1804, :1395). dK/dV runs on the Hopper core attn_dkv_bf16.cuh:
-// one block of two warpgroups per kv block, fetching by TMA only the q
-// blocks its column of the dK/dV table lists, in 64-row tiles through an
-// mbarrier ring, each warpgroup on 64 keys with wgmma. dQ keeps the f32
-// blocks and walk over attn_dq_bf16.cuh, bf16 mma.sync with f32
-// accumulators. Bounds at 989 TFLOP/s: 2.224 ms (dK/dV) and 1.668 ms (dQ)
-// at [1, 32768, 4, 128] causal.
+// :1788, :1804, :1395). Both run on Hopper cores, one block of two
+// warpgroups per row of their table, each warpgroup on 64 rows of the
+// launch axis with wgmma. dK/dV (attn_dkv_bf16.cuh): a kv block, fetching
+// by TMA only the q blocks its column of the dK/dV table lists, in 64-row
+// tiles through an mbarrier ring. dQ (attn_dq_bf16.cuh): a q block,
+// fetching by TMA only the kv blocks its row of the dQ table lists, in
+// 64-key tiles through an mbarrier ring (SplashWalk<64, 64>). Bounds at
+// 989 TFLOP/s: 2.224 ms (dK/dV) and 1.668 ms (dQ) at [1, 32768, 4, 128]
+// causal.
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -153,24 +155,29 @@ __global__ void __launch_bounds__(dkv16::kThreads, 1)
                         dkv16::kLog2e, smem_w);
 }
 
+namespace dq16 = dl4j_attn_dq;
+static_assert(kBlock == dq16::kRows && kBlock % dq16::kKT == 0,
+              "one CUDA block per q block, whole k / v tiles per kv block");
+
 template <int D>
-__global__ void __launch_bounds__(dl4j_attn_tc::kThreads, 1)
+__global__ void __launch_bounds__(dq16::kThreads, 1)
     splash_bwd_dq_bf16_kernel(
-        const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-        const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-        const float* __restrict__ lse, const float* __restrict__ di,
-        uint16_t* __restrict__ dq, const int* __restrict__ counts,
-        const int* __restrict__ blocks, const int* __restrict__ kinds, int L,
-        int H, int R, int W) {
-  extern __shared__ __align__(16) uint16_t smem_h[];
+        const __grid_constant__ CUtensorMap tq,
+        const __grid_constant__ CUtensorMap tdo,
+        const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv, const float* __restrict__ lse,
+        const float* __restrict__ di, uint16_t* __restrict__ dq,
+        const int* __restrict__ counts, const int* __restrict__ blocks,
+        const int* __restrict__ kinds, int L, int H, int R, int W) {
+  extern __shared__ __align__(1024) uint8_t smem_w[];
   const int nq = L / kBlock;
   const int qb = nq - 1 - (int)blockIdx.y;
   const BlockRow row = block_row(counts, blocks, kinds, R, W, nq, blockIdx.x, qb);
-  const SplashWalk<dl4j_attn_tc::DqBf16<D>::kKeys> walk{row.blocks, row.kinds,
-                                                        row.count};
-  dl4j_attn_tc::attn_dq_bf16<D>(q, k, v, dout, lse, di, dq, L, H,
-                                qb * kBlock, blockIdx.x, blockIdx.z, walk,
-                                kMaskValue, smem_h);
+  const SplashWalk<dq16::kKT, dq16::kWgRows> walk{row.blocks, row.kinds,
+                                                   row.count};
+  dq16::attn_dq_ws<D>(&tq, &tdo, &tk, &tv, lse, di, dq, L, H, qb * kBlock,
+                      blockIdx.x, blockIdx.z, walk, kMaskValue, dq16::kLog2e,
+                      smem_w);
 }
 
 template <int D>
@@ -192,10 +199,9 @@ int run_dq_bf16(const uint16_t* q, const uint16_t* k, const uint16_t* v,
                 const int* kinds, int B, int L, int H, int R, int W,
                 cudaStream_t stream) {
   const dim3 grid(H, L / kBlock, B);
-  return dl4j_attn_tc::launch(splash_bwd_dq_bf16_kernel<D>, grid,
-                              dl4j_attn_tc::DqBf16<D>::kSmem, stream, q, k, v,
-                              dout, lse, di, dq, counts, blocks, kinds, L, H,
-                              R, W);
+  return dq16::launch_dq<D>(splash_bwd_dq_bf16_kernel<D>, grid, stream, q, k,
+                            v, dout, B, L, H, lse, di, dq, counts, blocks,
+                            kinds, L, H, R, W);
 }
 
 }  // namespace
@@ -275,7 +281,7 @@ extern "C" int dl4j_splash_bwd_dkv_attrs(int D, int* out) {
 
 // bf16 q (pre-scaled), k, v, dO, dk, dv (raw bf16 bits), f32 lse and di.
 // Shared memory per block at D = 128: dK/dV 163 KiB (attn_dkv_bf16.cuh), dQ
-// 128 KiB.
+// 225 KiB (attn_dq_bf16.cuh).
 extern "C" int dl4j_splash_bwd_dkv_bf16(const uint16_t* q, const uint16_t* k,
                                         const uint16_t* v, const uint16_t* dout,
                                         const float* lse, const float* di,
@@ -325,13 +331,13 @@ extern "C" int dl4j_splash_bwd_dq_bf16(const uint16_t* q, const uint16_t* k,
 // {registers, local bytes per thread, dynamic shared bytes} of the bf16 dQ
 // kernel for head dim D into out[3].
 extern "C" int dl4j_splash_bwd_dq_bf16_attrs(int D, int* out) {
-  using dl4j_attn_tc::DqBf16;
+  using dq16::Dq;
   using dl4j_tc::attrs;
   switch (D) {
-    case 16: return attrs(splash_bwd_dq_bf16_kernel<16>, DqBf16<16>::kSmem, out);
-    case 32: return attrs(splash_bwd_dq_bf16_kernel<32>, DqBf16<32>::kSmem, out);
-    case 64: return attrs(splash_bwd_dq_bf16_kernel<64>, DqBf16<64>::kSmem, out);
-    case 128: return attrs(splash_bwd_dq_bf16_kernel<128>, DqBf16<128>::kSmem, out);
+    case 16: return attrs(splash_bwd_dq_bf16_kernel<16>, Dq<16>::kSmem, out);
+    case 32: return attrs(splash_bwd_dq_bf16_kernel<32>, Dq<32>::kSmem, out);
+    case 64: return attrs(splash_bwd_dq_bf16_kernel<64>, Dq<64>::kSmem, out);
+    case 128: return attrs(splash_bwd_dq_bf16_kernel<128>, Dq<128>::kSmem, out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

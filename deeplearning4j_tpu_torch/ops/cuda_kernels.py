@@ -115,7 +115,8 @@ _SIGNATURES = {
         "dl4j_flash_bwd_dq_attrs": [_INT, _INT, _PTR],
         "dl4j_flash_bwd_dkv_bf16_attrs": [_INT, _INT, _PTR],
         "dl4j_flash_bwd_dq_bf16_attrs": [_INT, _INT, _PTR],
-        "dl4j_attn_dkv_bf16_roles": [_PTR]},
+        "dl4j_attn_dkv_bf16_roles": [_PTR],
+        "dl4j_attn_dq_bf16_roles": [_PTR]},
     "splash_attention_fwd": {
         "dl4j_splash_fwd_f32": [_PTR] * 8 + [_INT] * 6 + [_PTR],
         "dl4j_splash_fwd_bf16": [_PTR] * 8 + [_INT] * 6 + [_PTR],
@@ -887,6 +888,19 @@ def attention_bf16_dkv_roles() -> dict:
               "dl4j_attn_dkv_bf16_roles")
     return dict(zip(("threads", "stages", "keys_per_block",
                      "rows_per_tile"), list(out)))
+
+
+def attention_bf16_dq_roles() -> dict:
+    """The shape of the bf16 dQ kernels (flash and splash share the core,
+    ops/csrc/attn_dq_bf16.cuh): threads per block (two warpgroups), the
+    ring's stages, query rows per block, keys per k and v tile. Needs the
+    card."""
+    out = (ctypes.c_int * 4)()
+    lib = _lib("flash_attention_bwd")
+    _raise_on(lib.dl4j_attn_dq_bf16_roles(out), lib,
+              "dl4j_attn_dq_bf16_roles")
+    return dict(zip(("threads", "stages", "rows_per_block",
+                     "keys_per_tile"), list(out)))
 
 
 def paged_decode_attrs(G: int, Dh: int) -> dict:

@@ -16,7 +16,10 @@ non-zero without them, or when any phase fails. Phases:
      serving head dim, MHA and GQA, the conv kernel's variants at
      AlexNet's and LeNet's channel counts, and the bnap_sums kernel's two
      lane widths (float4 and scalar); and the same of the three bf16 CNN
-     kernels (conv by channel counts, bnap_sums by lane width, bnap_dx);
+     kernels (conv by channel counts, bnap_sums by lane width, bnap_dx),
+     and of the two bf16 BN+act+pool ring kernels (bnap_common.cuh: bulk
+     copies through an mbarrier ring, 16-byte lanes) with ptxas's spills,
+     gated on 0 local bytes;
      and of the bf16 forward core (attn_fwd_bf16.cuh) by head dim: its
      warp specialisation (threads, the registers setmaxnreg gives the
      producer warpgroup and each consumer warpgroup, stages, tile), ptxas's
@@ -286,7 +289,11 @@ non-zero without them, or when any phase fails. Phases:
      with its pre-activation at C = 64, OC = 16; each case gated on its
      route; windows of four
      adjacent bf16 values whose activations tie only after the rounding,
-     the smallest B, a C that takes the scalar lanes). Gates: conv output,
+     the smallest B, a C that takes the scalar lanes; on the BN+act+pool
+     ring route, cuda_kernels.bnap_bf16_route, B = 1 with H = 2, rows wider
+     than a stage, a pooled-row count that is not a multiple of the grid,
+     C = 8 and C = 1024, tied windows, and a view 8 bytes off 16 that
+     takes the lane kernels; each case's route printed). Gates: conv output,
      pre-activation and dx within 2^-7 of max |plain| (one bf16 ulp of the
      largest element), mean |diff| within 1e-3 of it, outputs bf16; sums
      (f32) within 1e-4 of max |plain| and bitwise on a second launch; the
@@ -299,8 +306,9 @@ non-zero without them, or when any phase fails. Phases:
      steps on phase 6's seeds and data: bf16 params (the f32 init
      rounded), and f32 masters with compute_dtype bf16; then LeNet-MNIST
      bf16, 5 steps. Gates: losses finite and falling; launches exactly 3
-     bf16 conv + 3 bf16 sums + 3 bf16 dx per AlexNet step and no f32 CNN
-     kernel (LeNet: one bf16 conv); params and BN variables at their
+     bf16 conv + 3 bf16 sums + 3 bf16 dx per AlexNet step, every sums and
+     dx launch on the ring route, and no f32 CNN kernel (LeNet: one bf16
+     conv); params and BN variables at their
      dtype, the updater state f32 (and the masters and variables f32 under
      mixed precision), output() bf16; each loss within 0.1 max(1, |loss|)
      of phase 6's f32 loss at every step; one step's loss through the
@@ -2037,6 +2045,28 @@ def conv16_ptxas(logs):
     return out, serialised
 
 
+def bnap_ring_ptxas(logs):
+    """ptxas's report of the two bf16 BN+act+pool ring kernels in the build
+    logs: {"sums" | "dx": {activation code: {"registers", "spill_stores",
+    "spill_loads"}}}."""
+    import re
+    out, cur = {"sums": {}, "dx": {}}, None
+    for log in logs.values():
+        for ln in log.splitlines():
+            if "Compiling entry function" in ln:
+                m = re.search(r"bnap_(sums|dx)_ring_kernelILi(\d+)E", ln)
+                cur = (m.group(1), int(m.group(2))) if m else None
+            elif cur and "spill stores" in ln:
+                st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", ln)
+                out[cur[0]].setdefault(cur[1], {}).update(
+                    spill_stores=int(st), spill_loads=int(ld))
+            elif cur and "Used" in ln and "registers" in ln:
+                out[cur[0]].setdefault(cur[1], {})["registers"] = int(
+                    re.search(r"Used (\d+) registers", ln).group(1))
+                cur = None
+    return out
+
+
 def bf16_case(ck, torch, flush, *, family, B, L, H, D, causal, seed,
               timed=True):
     """The three bf16 kernels of ``family`` ("flash", or "splash" on q
@@ -2231,16 +2261,19 @@ def conv_bf16_case(ck, torch, flush, *, B, H, W, C, K, OC, stride, padding,
     return r
 
 
-def bnap_bf16_case(ck, torch, flush, *, B, H, W, C, act, tied, seed, timed):
+def bnap_bf16_case(ck, torch, flush, *, B, H, W, C, act, tied, seed, timed,
+                   misaligned=False):
     """The bf16 BN+act+pool backward kernels against their plain versions
     at one shape, on bf16 x and g, from the forward's own f32 batch stats.
     ``tied``: each 2x2 window holds four adjacent bf16 values (distinct
     inputs and distinct f32 activations) under gamma 0.05 and beta 3,
     where the activations round to one bf16 value: ties that exist only
     after the rounding; the dx there must be the plain version's bits.
-    The dx pass takes the plain sums, so it is held alone. Sums (f32)
-    within 1e-4 of max |plain| and bitwise on a second launch; dx (bf16)
-    within one bf16 ulp of max |plain|, mean 1e-3."""
+    ``misaligned``: x and g are views 8 bytes past 16 (the lane kernels'
+    route). The dx pass takes the plain sums, so it is held alone. Sums
+    (f32) within 1e-4 of max |plain| and bitwise on a second launch; dx
+    (bf16) within one bf16 ulp of max |plain|, mean 1e-3. Records the
+    route the launches took (cuda_kernels.bnap_bf16_route)."""
     dev, bf = torch.device("cuda"), torch.bfloat16
     g = torch.Generator().manual_seed(seed)
     if tied:
@@ -2259,6 +2292,11 @@ def bnap_bf16_case(ck, torch, flush, *, B, H, W, C, act, tied, seed, timed):
         gamma = (torch.rand((C,), generator=g) + 0.5).to(dev)
         beta = (torch.randn((C,), generator=g) * 0.1).to(dev)
     gp = torch.randn((B, H // 2, W // 2, C), generator=g).to(dev, bf)
+    if misaligned:  # a bf16 view 4 elements (8 bytes) into its buffer
+        def off(t):
+            v = torch.empty(t.numel() + 8, dtype=bf, device=dev)[4:]
+            return v[:t.numel()].view(t.shape).copy_(t)
+        x, gp = off(x), off(gp)
     _, mean, _, inv = ck.bnap_forward_ref(x, gamma, beta, eps=1e-5,
                                           activation=act)
     p = torch.stack([mean, inv, gamma, beta]).contiguous()
@@ -2269,6 +2307,8 @@ def bnap_bf16_case(ck, torch, flush, *, B, H, W, C, act, tied, seed, timed):
     dx = ck.bnap_dx(x, gp, p, s, activation=act)
     rdx = ck.bnap_dx_ref(x, gp, p, s, activation=act)
     torch.cuda.synchronize()
+    route = ck.bnap_bf16_route(B, H, W, C, x.data_ptr(), gp.data_ptr(),
+                               dx.data_ptr())
     # windows whose rounded activations tie, 4-way and at all
     a = ck.activations.get(act)(
         (x.float() - mean) * inv * gamma + beta).to(bf).float()
@@ -2277,6 +2317,7 @@ def bnap_bf16_case(ck, torch, flush, *, B, H, W, C, act, tied, seed, timed):
     d = (dx.float() - rdx.float()).abs()
     m = float(rdx.float().abs().max())
     r = {"shape": [B, H, W, C], "activation": act, "tied": tied,
+         "misaligned": misaligned, "route": route,
          "tie_share": float((cnt > 1).float().mean()),
          "tie4_share": float((cnt == 4).float().mean()),
          "sums_max_abs_err": max(float((dg - rg).abs().max()),
@@ -2471,6 +2512,22 @@ def main():
         "bnap_dx": ck.bnap_dx_bf16_attrs()}
     phase(1, f"bf16 CNN kernels (conv by AlexNet's and LeNet's channels, "
              f"bnap_sums (relu) by lane width, bnap_dx): {cnn16_build}")
+    bnap16_ring = ck.bnap_bf16_ring_attrs()
+    bnap16_ring_ptxas = bnap_ring_ptxas(logs)
+    ring_lim = ck.bnap_bf16_route_limits()
+    phase(1, f"bf16 BN+act+pool ring kernels (bnap_common.cuh: "
+             f"{ring_lim['kRingConsumers']} consumers and a producer warp a "
+             f"block, {ring_lim['kRingBlocksPerSm']} blocks an SM, "
+             f"{ring_lim['kRingSumsStages']} stages (sums) and "
+             f"{ring_lim['kRingDxStages']} (dx) of 10 KiB, 16-byte lanes), "
+             f"as loaded at relu (registers, local bytes, shared memory): "
+             f"{bnap16_ring}; ptxas (registers, spills) by activation: "
+             f"{bnap16_ring_ptxas}")
+    if any(a["local_bytes"] for a in bnap16_ring.values()) or any(
+            v.get("spill_stores", 0) for k in bnap16_ring_ptxas.values()
+            for v in k.values()):
+        raise SystemExit(f"bf16 BN+act+pool ring kernels use local memory: "
+                         f"{bnap16_ring} {bnap16_ring_ptxas}")
     conv16_roles = ck.conv_bf16_wgmma_roles()
     conv16_spills, conv16_serialised = conv16_ptxas(logs)
     # (B, H, W, C, K, OC, stride, padding): AlexNet's three convs, LeNet's
@@ -3701,17 +3758,32 @@ def main():
               f"library {conv16_sum['ms'] / conv16_sum['library_ms']:.3f}); "
               f"bf16 bound {conv16_sum['bound_ms']:.4f} ms (share "
               f"{conv16_sum['bound_share']:.3f}) [{card}]")
+    # the edges of the lane kernels' set, then those of the ring route
+    # (bnap_common.cuh): B = 1 with H = 2; rows wider than a stage (16 and
+    # 5 items a row, the latter tied); 455 pooled rows on 396 blocks; C = 8
+    # and C = 1024 (a pooled column an item); a view 8 bytes off 16, which
+    # takes the lane kernels
     bnap16_edge = [dict(B=2, H=4, W=4, C=8, act="relu", tied=True),
                    dict(B=1, H=4, W=4, C=8, act="sigmoid", tied=False),
                    dict(B=3, H=6, W=10, C=40, act="tanh", tied=False),
                    dict(B=4, H=8, W=6, C=16, act="identity", tied=True),
-                   dict(B=3, H=6, W=10, C=6, act="relu", tied=False)]
+                   dict(B=3, H=6, W=10, C=6, act="relu", tied=False),
+                   dict(B=1, H=2, W=16, C=64, act="relu", tied=False),
+                   dict(B=2, H=4, W=64, C=512, act="tanh", tied=False),
+                   dict(B=3, H=4, W=40, C=256, act="relu", tied=True),
+                   dict(B=7, H=130, W=8, C=16, act="relu", tied=False),
+                   dict(B=3, H=6, W=10, C=8, act="sigmoid", tied=False),
+                   dict(B=2, H=4, W=6, C=1024, act="identity", tied=False),
+                   dict(B=2, H=6, W=8, C=16, act="tanh", tied=False,
+                        misaligned=True)]
     bnap16_cases, bnap16_edges = [], []
     for i, c in enumerate(bnap16_edge):
         r = bnap_bf16_case(ck, torch, flush, seed=950 + i, timed=False, **c)
         bnap16_edges.append(r)
         phase(22, f"bf16 bnap edge {r['shape']} {r['activation']}"
-                  f"{' tied' if r['tied'] else ''}: windows tied after the "
+                  f"{' tied' if r['tied'] else ''}"
+                  f"{' misaligned' if r['misaligned'] else ''} (route "
+                  f"{r['route']}): windows tied after the "
                   f"rounding {r['tie_share']:.3f} (4-way "
                   f"{r['tie4_share']:.3f}); sums max|diff| "
                   f"{r['sums_max_abs_err']:.3e} of max|plain| "
@@ -3727,7 +3799,8 @@ def main():
     for i, c in enumerate(bnap_main):
         r = bnap_bf16_case(ck, torch, flush, seed=200 + i, timed=True, **c)
         bnap16_cases.append(r)
-        phase(22, f"bf16 bnap {r['shape']} {r['activation']}: sums "
+        phase(22, f"bf16 bnap {r['shape']} {r['activation']} (route "
+                  f"{r['route']}): sums "
                   f"max|diff| {r['sums_max_abs_err']:.3e} (gate "
                   f"{1e-4 * r['sums_max_abs_plain']:.3e}), bitwise repeatable "
                   f"{r['sums_repeat_bitwise']}; dx max|diff|/max|plain| "
@@ -3739,19 +3812,30 @@ def main():
                   f"(plain {r['dx_plain_ms']:.4f}, bound "
                   f"{r['dx_bound_ms']:.4f} {r['dx_bound_by']}, share "
                   f"{r['dx_bound_share']:.3f}); library call: none [{card}]")
-        if not r["ok"]:
+        if not r["ok"] or r["route"] != "ring":
             failures.append(f"bf16 BN+act+pool backward kernels disagree "
-                            f"with the plain versions at {r['shape']}: {r}")
+                            f"with the plain versions, or leave the ring "
+                            f"route, at {r['shape']}: {r}")
     bnap16_sum = {k: sum(c[k] for c in bnap16_cases)
                   for k in ("sums_ms", "sums_bound_ms", "dx_ms",
                             "dx_bound_ms")}
+    # the card's streaming rate as a yardstick: x.clone() of the first
+    # layer's bf16 x (x read once and written once), timed as the kernels
+    xc = torch.randn((512, 32, 32, 64), device="cuda").to(torch.bfloat16)
+    bnap16_sum["clone_ms"] = time_ms(lambda: xc.clone(), flush=flush)
+    bnap16_sum["clone_bound_ms"] = bound(2 * 2 * xc.numel(), 0)[0]
+    del xc
     phase(22, f"bf16 bnap, AlexNet's three layers summed: sums "
               f"{bnap16_sum['sums_ms']:.4f} ms (f32 {bnap_sum['sums_ms']:.4f})"
               f", bound {bnap16_sum['sums_bound_ms']:.4f} ms (share "
               f"{bnap16_sum['sums_bound_ms'] / bnap16_sum['sums_ms']:.3f}); "
               f"dx {bnap16_sum['dx_ms']:.4f} ms (f32 {bnap_sum['dx_ms']:.4f}),"
               f" bound {bnap16_sum['dx_bound_ms']:.4f} ms (share "
-              f"{bnap16_sum['dx_bound_ms'] / bnap16_sum['dx_ms']:.3f}) "
+              f"{bnap16_sum['dx_bound_ms'] / bnap16_sum['dx_ms']:.3f}); "
+              f"yardstick x.clone() of [512, 32, 32, 64] bf16 "
+              f"{bnap16_sum['clone_ms']:.4f} ms, bound "
+              f"{bnap16_sum['clone_bound_ms']:.4f} ms (share "
+              f"{bnap16_sum['clone_bound_ms'] / bnap16_sum['clone_ms']:.3f}) "
               f"[{card}]")
 
     # -- 23. AlexNet-CIFAR10 and LeNet-MNIST training in bf16 ---------------
@@ -3764,10 +3848,14 @@ def main():
         torch.cuda.reset_peak_memory_stats()
         net, losses16, secs16, launches16 = train_run(ck, torch, aconf, xa,
                                                       ya, STEPS)
+        routes16 = dict(ck.BNAP_BF16_ROUTES)  # of these steps' launches
         want = dict.fromkeys(ck.LAUNCHES, 0)
         want.update(dict.fromkeys(cnn16_keys, 3 * STEPS))
         if launches16 != want:
             failures.append(f"{key} launches {launches16}, want {want}")
+        if routes16 != {"ring": 2 * 3 * STEPS, "lanes": 0}:
+            failures.append(f"{key} bf16 BN+act+pool launches by route "
+                            f"{routes16}, want all on the ring route")
         if not losses16[-1] < losses16[0]:
             failures.append(f"{key} loss did not fall: {losses16}")
         f32_losses = train["losses"]  # phase 6's run, same seeds and data
@@ -3796,7 +3884,8 @@ def main():
              "examples_per_s": B * len(steady) / sum(steady),
              "f32_mean_step_ms": train["mean_step_ms"],
              "f32_examples_per_s": train["examples_per_s"],
-             "launches": launches16, "params": net.num_params(),
+             "launches": launches16, "bnap_routes": routes16,
+             "params": net.num_params(),
              "peak_mem_bytes": torch.cuda.max_memory_allocated()}
         phase(23, f"{key} ({r['params']} params, {dtype} params"
                   f"{', compute ' + cdt if cdt else ''}) B={B}, {STEPS} "
@@ -3804,7 +3893,8 @@ def main():
                   f"{losses16[-1]:.6f}, all finite; vs phase 6's f32 curve "
                   f"max {max(curve):.3e} of max(1, |loss|) (gate "
                   f"{BF16_CURVE}); launches "
-                  f"{ {k: launches16[k] for k in cnn16_keys} }; steps "
+                  f"{ {k: launches16[k] for k in cnn16_keys} } (BN+act+pool "
+                  f"by route {routes16}); steps "
                   f"2-{STEPS}: mean {r['mean_step_ms']:.3f} ms = "
                   f"{r['examples_per_s']:.1f} examples/s against f32 "
                   f"{r['f32_mean_step_ms']:.3f} ms = "
@@ -4024,7 +4114,7 @@ def main():
         kernels.append({
             "name": key, "route": "cuda", "source": f"{csrc}/{src_name}",
             **({"conv_routes": [c["route"] for c in cases16]} if k == ""
-               else {}),
+               else {"bnap_routes": [c["route"] for c in cases16]}),
             "replaces": f"deeplearning4j_tpu/ops/pallas_kernels.py:{line} "
                         "(at bf16)",
             "launches": (sum(r["launches"][key] for r in alex16.values())
@@ -4064,6 +4154,8 @@ def main():
          "dq16_serialised_warnings": dq16_serialised,
          "bf16_cases": bf16_cases, "bf16_edges": bf16_edges,
          "lm_train_bf16": lm16, "cnn_bf16_build": cnn16_build,
+         "bnap_bf16_ring_build": bnap16_ring,
+         "bnap_bf16_ring_ptxas": bnap16_ring_ptxas,
          "conv_bf16_cases": conv16_cases, "conv_bf16_edges": conv16_edges,
          "conv_bf16_wgmma_roles": conv16_roles,
          "conv_bf16_wgmma_ptxas": conv16_spills,

@@ -98,7 +98,136 @@ int check_dims(int B, int H, int W, int C, int act, long long* blocks) {
   return *blocks > 2147483647LL ? (int)cudaErrorInvalidValue : 0;
 }
 
+// -- the bf16 ring route (bnap_common.cuh dl4j_bnap_ring) ---------------------
+
+namespace ring = dl4j_bnap_ring;
+
+constexpr int kStages = ring::kRingDxStages;
+constexpr int kLaneC = ring::kRingLaneC;
+constexpr int kConsumers = ring::kRingConsumers;
+constexpr int kRingThreads = kConsumers + 32;  // and one producer warp
+
+// dx of a lane's window in its stage st, written over its x: each channel
+// recomputed by bnap_recompute_vals<true> and the formula rounded step by
+// step in the lane kernel's order, so dx is that kernel's bits; two
+// channels rounded to bf16 in one instruction (cvt.rn.bf16x2.f32 rounds
+// each half as cvt.rn.bf16.f32 does).
+template <int ACT>
+__device__ __forceinline__ void dx_lane_window(uint16_t* st, int xo, int go, int C,
+                                               const ring::LaneParams& pr,
+                                               const float (&scale)[kLaneC],
+                                               const float (&s_b)[kLaneC],
+                                               const float (&s_g)[kLaneC]) {
+  ring::LaneWindow win;
+  win.load(st, xo, go, C);
+  uint32_t out[4][kLaneC / 2];  // [input j][word]
+#pragma unroll
+  for (int v = 0; v < kLaneC; v += 2) {
+    float d[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float xv[4] = {win.x(0, v + h), win.x(1, v + h), win.x(2, v + h),
+                           win.x(3, v + h)};
+      float xh[4], gz[4];
+      dl4j::bnap_recompute_vals<true>(xv, win.g(v + h), pr.mean[v + h], pr.inv[v + h],
+                                      pr.gam[v + h], pr.bet[v + h], ACT, xh, gz);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        d[h][j] = __fmul_rn(scale[v + h], __fsub_rn(__fsub_rn(gz[j], s_b[v + h]),
+                                                    __fmul_rn(xh[j], s_g[v + h])));
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[j][v / 2] = ring::pack_bf16x2(d[0][j], d[1][j]);
+  }
+  const int at[4] = {xo, xo + C, ring::kRingRowCap + xo, ring::kRingRowCap + xo + C};
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    *reinterpret_cast<uint4*>(st + at[j]) =
+        make_uint4(out[j][0], out[j][1], out[j][2], out[j][3]);
+}
+
+// dx on the ring: consumer (slot, lane) recomputes each of its windows as
+// the lane kernel does, so dx is that kernel's bits, and writes the
+// window's dx over its x in the stage; the producer stores the stage's two
+// image rows to dx with bulk copies.
+template <int ACT>
+__global__ void __launch_bounds__(kRingThreads, ring::kRingBlocksPerSm)
+    bnap_dx_ring_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ g,
+                        const float* __restrict__ p, const float* __restrict__ s,
+                        uint16_t* __restrict__ dx, const ring::Walk w, float n) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const ring::Ring<kStages> rg(smem);
+  rg.init(kConsumers);
+  const int t = threadIdx.x;
+  if (t >= kConsumers) {
+    if (t == kConsumers) ring::produce<true>(x, g, dx, w, rg);
+    return;
+  }
+  const int C = w.C, lanes = C / kLaneC, P = kConsumers / lanes;
+  const int lane = t % lanes, slot = t / lanes;
+  const int c0 = kLaneC * lane;
+  ring::LaneParams pr;
+  pr.load(p, C, c0);
+  float scale[kLaneC], s_b[kLaneC], s_g[kLaneC];
+#pragma unroll
+  for (int v = 0; v < kLaneC; ++v) {
+    scale[v] = __fmul_rn(pr.inv[v], pr.gam[v]);
+    s_b[v] = __ldg(s + c0 + v) / n;
+    s_g[v] = __ldg(s + C + c0 + v) / n;
+  }
+  ring::consume<true>(w, rg, slot < P ? slot : ring::kRingRowCap, lane, P,
+                              [&](uint16_t* st, int xo, int go) {
+                                dx_lane_window<ACT>(st, xo, go, C, pr, scale, s_b, s_g);
+                              });
+}
+
+using RingKernel = void (*)(const uint16_t*, const uint16_t*, const float*, const float*,
+                            uint16_t*, const ring::Walk, float);
+
+RingKernel ring_kernel_for(int act) {
+  switch (act) {
+    case dl4j::kIdentity: return bnap_dx_ring_kernel<dl4j::kIdentity>;
+    case dl4j::kRelu: return bnap_dx_ring_kernel<dl4j::kRelu>;
+    case dl4j::kTanh: return bnap_dx_ring_kernel<dl4j::kTanh>;
+    case dl4j::kSigmoid: return bnap_dx_ring_kernel<dl4j::kSigmoid>;
+    default: return nullptr;
+  }
+}
+
 }  // namespace
+
+// The bf16 ring route (bnap_common.cuh: ring_route must hold); the plan
+// (wn, nchunks, grid) is cuda_kernels.bnap_bf16_plan's.
+extern "C" int dl4j_bnap_dx_bf16_ring(const uint16_t* x, const uint16_t* g, const float* p,
+                                      const float* s, uint16_t* dx, int B, int H, int W,
+                                      int C, int act, int wn, int nchunks, int grid,
+                                      void* stream) {
+  ring::Walk w;
+  const RingKernel kernel = ring_kernel_for(act);
+  if (kernel == nullptr || !ring::ring_route(B, H, W, C, x, g, dx) ||
+      !ring::ring_walk(B, H, W, C, wn, nchunks, grid, &w))
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t a = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ring::Ring<kStages>::kSmem);
+  if (a != cudaSuccess) return (int)a;
+  kernel<<<grid, kRingThreads, ring::Ring<kStages>::kSmem, (cudaStream_t)stream>>>(
+      x, g, p, s, dx, w, (float)((long long)B * H * W));
+  return (int)cudaGetLastError();
+}
+
+// Registers, local bytes per thread and shared bytes (static and dynamic)
+// of the ring kernel of activation code act, into out[3].
+extern "C" int dl4j_bnap_dx_bf16_ring_attrs(int act, int* out) {
+  const RingKernel kernel = ring_kernel_for(act);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes + ring::Ring<kStages>::kSmem;
+  return 0;
+}
 
 // The bf16 kernel: x, g and dx as bf16 bits; p and s f32.
 extern "C" int dl4j_bnap_dx_bf16(const uint16_t* x, const uint16_t* g, const float* p,

@@ -352,7 +352,229 @@ int kernel_attrs(Kernel<T> kernel, int* out) {
   return 0;
 }
 
+// -- the bf16 ring route (bnap_common.cuh dl4j_bnap_ring) ---------------------
+
+namespace ring = dl4j_bnap_ring;
+
+constexpr int kStages = ring::kRingSumsStages;
+constexpr int kLaneC = ring::kRingLaneC;
+constexpr int kConsumers = ring::kRingConsumers;
+constexpr int kRingThreads = kConsumers + 32;  // and one producer warp
+
+// Rows [n][2C] of rows (f32, written by other blocks of this launch: read
+// through L2), added in order per column by the block's consumers into
+// out_b[f] (f < C) and out_g[f - C]; a consumer takes 4 columns at a time
+// (C % 8 == 0: the 4 lie in one half), and keeps 8 rows' loads in flight.
+__device__ __forceinline__ void ring_fold(const float* rows, int n, int C, float* out_b,
+                                          float* out_g) {
+  const int C2 = 2 * C;
+  for (int f = 4 * threadIdx.x; f < C2; f += 4 * kConsumers) {
+    float4 t = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+    for (int q = 0; q < n; ++q) {
+      const float4 v = __ldcg(reinterpret_cast<const float4*>(rows + (long long)q * C2 + f));
+      t.x = __fadd_rn(t.x, v.x);
+      t.y = __fadd_rn(t.y, v.y);
+      t.z = __fadd_rn(t.z, v.z);
+      t.w = __fadd_rn(t.w, v.w);
+    }
+    *reinterpret_cast<float4*>(f < C ? out_b + f : out_g + (f - C)) = t;
+  }
+}
+
+// A lane's window (kLaneC channels) added to the lane's sums, with the
+// values of bnap_recompute_vals<true> taken with no branch: ties counted in
+// floats, a 3-way tie's share g / 3 as the division's fast path (one
+// product corrected by its residual: RN(g / 3) wherever g / 3 is a normal
+// f32, every bf16 g of magnitude 2^-124 or more), two channels'
+// activations rounded to bf16 in one instruction (cvt.rn.bf16x2.f32
+// rounds each half as cvt.rn.bf16.f32 does). A routed 0 may be -0 here,
+// which no sum sees. The window's elements are added in order: db += g_z,
+// dg = fma(g_z, x_hat, dg).
+template <int ACT>
+__device__ __forceinline__ void add_lane_window(const ring::LaneWindow& win,
+                                                const ring::LaneParams& pr,
+                                                float (&sb)[kLaneC], float (&sg)[kLaneC]) {
+  constexpr float kThird = 1.f / 3.f;
+#pragma unroll
+  for (int v = 0; v < kLaneC; v += 2) {
+    float xh[2][4], z[2][4], a[2][4];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        xh[h][j] = __fmul_rn(__fsub_rn(win.x(j, v + h), pr.mean[v + h]), pr.inv[v + h]);
+        z[h][j] = __fadd_rn(__fmul_rn(xh[h][j], pr.gam[v + h]), pr.bet[v + h]);
+        a[h][j] = dl4j::activate(ACT, z[h][j]);
+      }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t r = ring::pack_bf16x2(a[0][j], a[1][j]);
+      a[0][j] = __uint_as_float(r << 16);
+      a[1][j] = __uint_as_float(r & 0xffff0000u);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float m = fmaxf(fmaxf(a[h][0], a[h][1]), fmaxf(a[h][2], a[h][3]));
+      float e[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) e[j] = a[h][j] == m ? 1.f : 0.f;
+      const float cnt = __fadd_rn(__fadd_rn(e[0], e[1]), __fadd_rn(e[2], e[3]));
+      const float g = win.g(v + h);
+      const float q = __fmul_rn(g, kThird);
+      const float third = __fmaf_rn(__fmaf_rn(-3.f, q, g), kThird, q);
+      const float share =
+          cnt == 3.f ? third : __fmul_rn(g, cnt == 4.f ? 0.25f : (cnt == 2.f ? 0.5f : 1.f));
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float gz =
+            __fmul_rn(__fmul_rn(e[j], share), dl4j::activate_grad(ACT, z[h][j]));
+        sb[v + h] = __fadd_rn(sb[v + h], gz);
+        sg[v + h] = __fmaf_rn(gz, xh[h][j], sg[v + h]);
+      }
+    }
+  }
+}
+
+// Arrival of this block's consumers at `counter`, one of n: true in the
+// last block to arrive, which also sets the counter back to 0. The
+// consumers' writes are ordered before the arrival by the named barrier
+// and thread 0's fence (cumulative at device scope), so the last block
+// reads them all.
+__device__ __forceinline__ bool ring_arrive(unsigned* counter, unsigned n, bool& last) {
+  dl4j_sm90::bar_sync(1, kConsumers);
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(counter, 1u) + 1 == n;
+    if (last) *counter = 0;
+  }
+  dl4j_sm90::bar_sync(1, kConsumers);
+  return last;
+}
+
+// The sums on the ring: consumer (slot, lane) adds its windows' g_z and g_z
+// x_hat into kLaneC f32 pairs in the order of its walk (item by item,
+// column slot, slot + P, ... of each, window element by element: db +=
+// g_z, dg = fma(g_z, x_hat, dg)); the block adds its slots in order (slot 0 first)
+// into its partial row part[b] = (db, dg); the last block of each group of
+// `group` blocks adds the group's rows in order, and the last group's block
+// the group rows, into db and dg. No float atomics: the same bits on every
+// run. cuda_kernels.bnap_bf16_plan gives the plan; the CPU tests emulate
+// this order.
+template <int ACT>
+__global__ void __launch_bounds__(kRingThreads, ring::kRingBlocksPerSm)
+    bnap_sums_ring_kernel(const uint16_t* __restrict__ x, const uint16_t* __restrict__ g,
+                          const float* __restrict__ p, float* __restrict__ part,
+                          float* __restrict__ dg, float* __restrict__ db,
+                          unsigned* __restrict__ ticket, const ring::Walk w, int group,
+                          int ngroups) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  __shared__ bool last;
+  const ring::Ring<kStages> rg(smem);
+  rg.init(kConsumers);
+  const int t = threadIdx.x;
+  if (t >= kConsumers) {
+    if (t == kConsumers) ring::produce<false>(x, g, nullptr, w, rg);
+    return;
+  }
+  const int C = w.C, lanes = C / kLaneC, P = kConsumers / lanes;
+  const int lane = t % lanes, slot = t / lanes;
+  ring::LaneParams pr;
+  pr.load(p, C, kLaneC * lane);
+  float sb[kLaneC], sg[kLaneC];
+#pragma unroll
+  for (int v = 0; v < kLaneC; ++v) sb[v] = sg[v] = 0.f;
+  ring::consume<false>(w, rg, slot < P ? slot : ring::kRingRowCap, lane, P,
+                               [&](const uint16_t* st, int xo, int go) {
+                                 ring::LaneWindow win;
+                                 win.load(st, xo, go, C);
+                                 add_lane_window<ACT>(win, pr, sb, sg);
+                               });
+  // level 1: the block's slots, in order, into its partial row. Every stage
+  // has been waited for, so the ring's memory holds no copy in flight.
+  float* red = reinterpret_cast<float*>(smem);
+  const int C2 = 2 * C;
+  dl4j_sm90::bar_sync(1, kConsumers);
+  if (slot < P) {
+#pragma unroll
+    for (int v = 0; v < kLaneC; ++v) {
+      red[slot * C2 + kLaneC * lane + v] = sb[v];
+      red[slot * C2 + C + kLaneC * lane + v] = sg[v];
+    }
+  }
+  dl4j_sm90::bar_sync(1, kConsumers);
+  float* row = part + (long long)blockIdx.x * C2;
+  for (int f = t; f < C2; f += kConsumers) {
+    float acc = 0.f;
+    for (int q = 0; q < P; ++q) acc = __fadd_rn(acc, red[q * C2 + f]);
+    row[f] = acc;
+  }
+  // level 2: the last block of the group adds the group's rows
+  const int grp = blockIdx.x / group;
+  const int first = grp * group;
+  const int n = min(group, w.grid - first);
+  if (!ring_arrive(ticket + grp, n, last)) return;
+  float* gpart = part + (long long)w.grid * C2;
+  ring_fold(part + (long long)first * C2, n, C, gpart + (long long)grp * C2,
+            gpart + (long long)grp * C2 + C);
+  // level 3: the last group's block adds the group rows
+  if (!ring_arrive(ticket + ngroups, ngroups, last)) return;
+  ring_fold(gpart, ngroups, C, db, dg);
+}
+
+using RingKernel = void (*)(const uint16_t*, const uint16_t*, const float*, float*, float*,
+                            float*, unsigned*, const ring::Walk, int, int);
+
+RingKernel ring_kernel_for(int act) {
+  switch (act) {
+    case dl4j::kIdentity: return bnap_sums_ring_kernel<dl4j::kIdentity>;
+    case dl4j::kRelu: return bnap_sums_ring_kernel<dl4j::kRelu>;
+    case dl4j::kTanh: return bnap_sums_ring_kernel<dl4j::kTanh>;
+    case dl4j::kSigmoid: return bnap_sums_ring_kernel<dl4j::kSigmoid>;
+    default: return nullptr;
+  }
+}
+
 }  // namespace
+
+// The bf16 ring route (bnap_common.cuh: ring_route must hold). part:
+// scratch of [grid + ngroups, 2, C] f32, and dg and db, 16-byte aligned;
+// ticket: ngroups + 1 counters, all 0 before the launch and after it. The plan (wn, nchunks, grid, group,
+// ngroups) is cuda_kernels.bnap_bf16_plan's.
+extern "C" int dl4j_bnap_sums_bf16_ring(const uint16_t* x, const uint16_t* g,
+                                        const float* p, float* part, float* dg, float* db,
+                                        unsigned* ticket, int B, int H, int W, int C,
+                                        int act, int wn, int nchunks, int grid, int group,
+                                        int ngroups, void* stream) {
+  ring::Walk w;
+  const RingKernel kernel = ring_kernel_for(act);
+  if (kernel == nullptr || !ring::ring_route(B, H, W, C, x, g, nullptr) ||
+      !ring::ring_walk(B, H, W, C, wn, nchunks, grid, &w) || group < 1 ||
+      ngroups != (grid + group - 1) / group)
+    return (int)cudaErrorInvalidValue;
+  if (!(aligned(part, 16) && aligned(dg, 16) && aligned(db, 16)))
+    return (int)cudaErrorMisalignedAddress;
+  const cudaError_t a = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ring::Ring<kStages>::kSmem);
+  if (a != cudaSuccess) return (int)a;
+  kernel<<<grid, kRingThreads, ring::Ring<kStages>::kSmem, (cudaStream_t)stream>>>(
+      x, g, p, part, dg, db, ticket, w, group, ngroups);
+  return (int)cudaGetLastError();
+}
+
+// Registers, local bytes per thread and shared bytes (static and dynamic)
+// of the ring kernel of activation code act, into out[3].
+extern "C" int dl4j_bnap_sums_bf16_ring_attrs(int act, int* out) {
+  const RingKernel kernel = ring_kernel_for(act);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  const cudaError_t e = cudaFuncGetAttributes(&a, kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = (int)a.sharedSizeBytes + ring::Ring<kStages>::kSmem;
+  return 0;
+}
 
 // part: scratch of [rblocks + ngroups, 2, C] f32. ticket: cblocks x
 // (ngroups + 1) counters, all 0 before the launch and after it. The plan

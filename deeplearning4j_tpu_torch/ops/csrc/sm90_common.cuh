@@ -293,6 +293,50 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// -- 1-d bulk copies (no tensor map) ------------------------------------------
+
+// ``bytes`` (a multiple of 16) from global memory at src to shared memory at
+// dst, both 16-byte aligned; completes ``bar``'s expected bytes
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// an L2 cache policy that marks the lines an access brings in as the first
+// to evict: for data read once, so that it displaces no other line
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// bulk_load_1d under an L2 cache policy (l2_evict_first)
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src,
+                                             uint32_t bytes, uint64_t* bar,
+                                             uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"((uint64_t)src), "r"(bytes), "r"(smem_u32(bar)), "l"(policy)
+      : "memory");
+}
+
+// ``bytes`` (a multiple of 16) from shared memory at src to global memory at
+// dst, both 16-byte aligned. Joins this thread's open bulk group.
+__device__ __forceinline__ void bulk_store_1d(void* dst, const void* src,
+                                              uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          (uint64_t)dst),
+      "r"(smem_u32(src)), "r"(bytes)
+      : "memory");
+}
+
 // -- wgmma --------------------------------------------------------------------
 
 // a shared-memory operand descriptor; offsets in bytes, layout 1 / 2 / 3 for

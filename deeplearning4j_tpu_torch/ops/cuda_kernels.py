@@ -61,6 +61,9 @@ LAUNCHES.update({f"{name}_bf16": 0 for name in (
     "flash_attention_fwd", "flash_attention_bwd_dkv",
     "flash_attention_bwd_dq", "splash_attention_fwd",
     "splash_attention_bwd_dkv", "splash_attention_bwd_dq")})
+# the bf16 bnap_sums and bnap_dx launches (counted in LAUNCHES) by the
+# route they took (`bnap_bf16_route`)
+BNAP_BF16_ROUTES = {"ring": 0, "lanes": 0}
 
 _SMEM_LIMIT = 232448  # bytes of shared memory one block may use (H100)
 # the paged kernel's lanes hold at most 8 head dims each (32 lanes)
@@ -72,6 +75,7 @@ _PAGED_WARPS = 4  # warps (work items at a time) of one page-walk block
 # of an H100 (the kernel's launch bounds), so one wave of equal blocks
 _BNAP_THREADS = 256
 _BNAP_TARGET_BLOCKS = 2 * 132
+_H100_SMS = 132  # the bf16 ring route's persistent grid: kRingBlocksPerSm each
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -95,11 +99,15 @@ _SIGNATURES = {
         "dl4j_bnap_sums_f32": [_PTR] * 7 + [_INT] * 14 + [_PTR],
         "dl4j_bnap_sums_bf16": [_PTR] * 7 + [_INT] * 14 + [_PTR],
         "dl4j_bnap_sums_attrs": [_INT, _INT, _PTR],
-        "dl4j_bnap_sums_bf16_attrs": [_INT, _INT, _PTR]},
+        "dl4j_bnap_sums_bf16_attrs": [_INT, _INT, _PTR],
+        "dl4j_bnap_sums_bf16_ring": [_PTR] * 7 + [_INT] * 10 + [_PTR],
+        "dl4j_bnap_sums_bf16_ring_attrs": [_INT, _PTR]},
     "bnap_dx": {
         "dl4j_bnap_dx_f32": [_PTR] * 5 + [_INT] * 5 + [_PTR],
         "dl4j_bnap_dx_bf16": [_PTR] * 5 + [_INT] * 5 + [_PTR],
-        "dl4j_bnap_dx_bf16_attrs": [_PTR]},
+        "dl4j_bnap_dx_bf16_attrs": [_PTR],
+        "dl4j_bnap_dx_bf16_ring": [_PTR] * 5 + [_INT] * 8 + [_PTR],
+        "dl4j_bnap_dx_bf16_ring_attrs": [_INT, _PTR]},
     "flash_attention_fwd": {
         "dl4j_flash_fwd_f32": [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _PTR],
         "dl4j_flash_fwd_bf16": [_PTR] * 5 + [_INT] * 5 + [_FLOAT, _PTR],
@@ -148,6 +156,8 @@ BNAP_ACTS = ("relu", "identity", "linear", "tanh", "sigmoid")
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    for k in BNAP_BF16_ROUTES:
+        BNAP_BF16_ROUTES[k] = 0
 
 
 def paged_decode_attention_ref(q, k_pages, v_pages, table, pos, *,
@@ -587,6 +597,64 @@ def bnap_sums_plan(B, H, W, C, vec):
             "group": group, "ngroups": -(-rblocks // group)}
 
 
+@functools.lru_cache(maxsize=None)
+def bnap_bf16_route_limits() -> dict:
+    """The constants of the bf16 BN+act+pool ring route, read from the
+    ``kRing`` constants of ``csrc/bnap_common.cuh``, their one table:
+    {"kRingC": 8, "kRingMaxC": 1024, "kRingAlign": 16, "kRingMaxElems":
+    2^31 - 1, "kRingRowCap": 2048, "kRingConsumers": 128, ...}."""
+    import pathlib
+    import re
+    text = (pathlib.Path(__file__).with_name("csrc")
+            / "bnap_common.cuh").read_text()
+    return {name: int(value) for name, value in re.findall(
+        r"constexpr (?:int|long long) (kRing\w+) = (\d+)(?:LL)?;", text)}
+
+
+def bnap_bf16_route(B: int, H: int, W: int, C: int, x_ptr: int = 0,
+                    g_ptr: int = 0, dx_ptr: int = 0) -> str:
+    """The bf16 kernel pair that ``bnap_sums`` and ``bnap_dx`` launch for
+    x [B, H, W, C] at address ``x_ptr``, g at ``g_ptr`` and dx at
+    ``dx_ptr``, by the rule of ``csrc/bnap_common.cuh`` `ring_route` over
+    `bnap_bf16_route_limits`: "ring" (the persistent kernels fed by bulk
+    copies through an mbarrier ring, 16-byte lanes of 8 channels) when C
+    is a multiple of 8 and at most 1024, x, g and dx start on 16 bytes,
+    and B H W C is at most 2^31 - 1; "lanes" (a thread per pooled position
+    and channel for dx, lanes of 4 or 1 channels for the sums) otherwise.
+    A fixed rule on the shape, not a timed choice."""
+    lim = bnap_bf16_route_limits()
+    ring = (C % lim["kRingC"] == 0 and lim["kRingC"] <= C <= lim["kRingMaxC"]
+            and B * H * W * C <= lim["kRingMaxElems"]
+            and all(p % lim["kRingAlign"] == 0
+                    for p in (x_ptr, g_ptr, dx_ptr)))
+    return "ring" if ring else "lanes"
+
+
+def bnap_bf16_plan(B: int, H: int, W: int, C: int) -> dict:
+    """The bf16 ring kernels' walk (csrc/bnap_common.cuh), a fixed formula
+    of the shape: items of ``wn`` pooled columns of one pooled row
+    (``nchunks`` a row; ``items`` in all), a persistent grid of ``grid``
+    blocks, kRingBlocksPerSm per SM of an H100 (or one an item), block b
+    walking items b, b + grid, ...: ``per_block`` items, or one fewer,
+    so that every SM's three blocks take the same number of items within
+    one; ``lanes`` lanes of kRingLaneC = 8 channels, ``slots`` consumers a
+    lane; the sums' partial rows added by groups of ``group``, then the
+    ``ngroups`` group rows."""
+    lim = bnap_bf16_route_limits()
+    W2 = W // 2
+    wn = min(W2, lim["kRingRowCap"] // (2 * C))
+    nchunks = -(-W2 // wn)
+    items = B * (H // 2) * nchunks
+    grid = min(items, lim["kRingBlocksPerSm"] * _H100_SMS)
+    per_block = -(-items // grid)
+    group = math.isqrt(grid - 1) + 1  # ceil(sqrt(grid))
+    lanes = C // lim["kRingLaneC"]
+    return {"wn": wn, "nchunks": nchunks, "items": items,
+            "per_block": per_block, "grid": grid, "group": group,
+            "ngroups": -(-grid // group), "lanes": lanes,
+            "slots": lim["kRingConsumers"] // lanes}
+
+
 # the sums kernel's ticket counters, by (device, stream): each is back at 0
 # when the launch that used it ends, and launches on one stream run in turn
 _BNAP_TICKETS = {}
@@ -609,12 +677,16 @@ def bnap_sums(x, g, p, *, activation):
     the activation rounded to bf16, as the forward's pool saw them.
 
     CPU tensors run :func:`bnap_sums_ref`. CUDA tensors launch the kernel
-    of their dtype on the current stream, or raise."""
+    of their dtype on the current stream, or raise; at bf16, the kernel of
+    the shape's route (`bnap_bf16_route`)."""
     dev = _device_of("bnap_sums", [x, g, p])
     if dev.type == "cpu":
         return bnap_sums_ref(x, g, p, activation=activation)
     B, H, W, C = _bnap_checks("bnap_sums", x, g, p, activation)
     dt = x.dtype
+    if dt == torch.bfloat16 and bnap_bf16_route(
+            B, H, W, C, x.data_ptr(), g.data_ptr()) == "ring":
+        return _bnap_sums_ring(x, g, p, activation, dev)
     # four channels a lane: one 16-byte load of f32, one 8-byte load of
     # bf16 (p is f32 either way)
     vec = 4 if (C % 4 == 0 and p.data_ptr() % 16 == 0
@@ -636,7 +708,41 @@ def bnap_sums(x, g, p, *, activation):
                 "ngroups")), _stream(dev))
     _raise_on(rc, lib, "bnap_sums")
     LAUNCHES[_launch_key("bnap_sums", dt)] += 1
+    if dt == torch.bfloat16:
+        BNAP_BF16_ROUTES["lanes"] += 1
     return dg, db
+
+
+def _bnap_sums_ring(x, g, p, activation, dev):
+    B, H, W, C = x.shape
+    plan = bnap_bf16_plan(B, H, W, C)
+    lib = _lib("bnap_sums")
+    part = torch.empty((plan["grid"] + plan["ngroups"], 2, C),
+                       dtype=torch.float32, device=dev)
+    dg = torch.empty((C,), dtype=torch.float32, device=dev)
+    db = torch.empty((C,), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        ticket = _bnap_tickets(dev, plan["ngroups"] + 1)
+        rc = lib.dl4j_bnap_sums_bf16_ring(
+            x.data_ptr(), g.data_ptr(), p.data_ptr(), part.data_ptr(),
+            dg.data_ptr(), db.data_ptr(), ticket.data_ptr(), B, H, W, C,
+            ACT_CODES[activation], *(plan[k] for k in (
+                "wn", "nchunks", "grid", "group", "ngroups")), _stream(dev))
+    _raise_on(rc, lib, "bnap_sums")
+    LAUNCHES["bnap_sums_bf16"] += 1
+    BNAP_BF16_ROUTES["ring"] += 1
+    return dg, db
+
+
+def bnap_bf16_ring_attrs() -> dict:
+    """{"sums", "dx"}: attrs (as `_kernel_attrs`; smem_bytes is the static
+    and dynamic shared memory) of the two bf16 ring kernels at relu,
+    AlexNet's activation. Needs the card."""
+    relu = ACT_CODES["relu"]
+    return {"sums": _kernel_attrs("bnap_sums", "dl4j_bnap_sums_bf16_ring_attrs",
+                                  relu),
+            "dx": _kernel_attrs("bnap_dx", "dl4j_bnap_dx_bf16_ring_attrs",
+                                relu)}
 
 
 def bnap_sums_attrs(dtype=torch.float32) -> dict:
@@ -660,7 +766,8 @@ def bnap_dx(x, g, p, s, *, activation):
     computed in f32 and rounded once at the store.
 
     CPU tensors run :func:`bnap_dx_ref`. CUDA tensors launch the kernel of
-    their dtype on the current stream, or raise."""
+    their dtype on the current stream, or raise; at bf16, the kernel of the
+    shape's route (`bnap_bf16_route`)."""
     dev = _device_of("bnap_dx", [x, g, p, s])
     if dev.type == "cpu":
         return bnap_dx_ref(x, g, p, s, activation=activation)
@@ -668,12 +775,24 @@ def bnap_dx(x, g, p, s, *, activation):
     _check("s", s, torch.float32, (2, C))
     lib = _lib("bnap_dx")
     dx = torch.empty_like(x)
+    ring = x.dtype == torch.bfloat16 and bnap_bf16_route(
+        B, H, W, C, x.data_ptr(), g.data_ptr(), dx.data_ptr()) == "ring"
     with torch.cuda.device(dev):
-        rc = getattr(lib, f"dl4j_bnap_dx_{_entry(x.dtype)}")(
-            x.data_ptr(), g.data_ptr(), p.data_ptr(), s.data_ptr(),
-            dx.data_ptr(), B, H, W, C, ACT_CODES[activation], _stream(dev))
+        if ring:
+            plan = bnap_bf16_plan(B, H, W, C)
+            rc = lib.dl4j_bnap_dx_bf16_ring(
+                x.data_ptr(), g.data_ptr(), p.data_ptr(), s.data_ptr(),
+                dx.data_ptr(), B, H, W, C, ACT_CODES[activation],
+                plan["wn"], plan["nchunks"], plan["grid"], _stream(dev))
+        else:
+            rc = getattr(lib, f"dl4j_bnap_dx_{_entry(x.dtype)}")(
+                x.data_ptr(), g.data_ptr(), p.data_ptr(), s.data_ptr(),
+                dx.data_ptr(), B, H, W, C, ACT_CODES[activation],
+                _stream(dev))
     _raise_on(rc, lib, "bnap_dx")
     LAUNCHES[_launch_key("bnap_dx", x.dtype)] += 1
+    if x.dtype == torch.bfloat16:
+        BNAP_BF16_ROUTES["ring" if ring else "lanes"] += 1
     return dx
 
 

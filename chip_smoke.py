@@ -319,7 +319,33 @@ non-zero without them, or when any phase fails. Phases:
      conv bias that feeds a BatchNorm against its layer's whole
      gradient). Prints step ms, examples/s and the busy share (5 profiled
      steps) beside phase 6's f32 row;
- 24. prints the kernels line (the bf16 kernels as rows of their own,
+ 24. trains the GravesLSTM char-RNN (char_rnn_lstm: V=77, two GravesLSTM
+     layers of 256, TBPTT 50, Nesterovs 0.9, lr 0.1) at B=128 T=200 on
+     seeded walks of a Markov chain (three successors a character, 0.6 /
+     0.3 / 0.1): 10 fits on one batch, 4 windows each. No hand-written
+     kernel runs (JAX has none for the LSTM): the time loop is plain
+     PyTorch, torch.matmul for the products. Gates: every window's loss
+     finite and the last below the first; the first fit on the card and
+     on the CPU from the same params, each window's loss within 1e-4
+     relative and every leaf after it within 1e-4 of its max |value|;
+     64 one-token rnn_time_step calls against output() within 1e-5;
+     generate_rnn greedy (a 20-token prompt, 100 new) from the trained
+     params, the same tokens on the card and on the CPU (on a parting,
+     the step and the CPU's top-2 gap are printed); the bf16 net (the
+     f32 init rounded) for 10 fits, every window within 0.1 max(1, |loss|)
+     of the f32 one. Prints characters/s (B T over the mean fit wall,
+     fits 2-10), the mean window ms and the busy share over 2 profiled
+     fits, beside the card's name and power limit;
+ 25. trains MLP-Iris (mlp_iris() with Adam, lr 0.01, 60 epochs of batch
+     50, the packaged Iris copy) and evaluates it: accuracy above 0.9 and
+     the confusion matrix equal to the CPU run's from the same init; then
+     every layer of ROADMAP A3 (GRU, the bidirectional GravesLSTM, a
+     masked LSTM and GravesLSTM, Embedding by index and one-hot, each
+     GlobalPooling kind masked, unmasked and NHWC, LRN, Activation,
+     Dropout at p=0, Loss) on the card against the CPU, forward and
+     gradients, within 1e-5 of max |CPU|; every kernel launch counter
+     stands still over phases 24-25;
+ 26. prints the kernels line (the bf16 kernels as rows of their own,
      named "<kernel>_bf16").
 
 The last line is {"ok": true, "device": {...}}. Every number printed is
@@ -2407,6 +2433,378 @@ def cnn_bf16_grad_check(torch, net, x, y):
     return float((lk - lp).abs() / lp.abs()), leaves
 
 
+# -- phases 24-25: the recurrent training path, MLP-Iris and the A3 layers ---
+
+CHAR_V, CHAR_H, CHAR_B, CHAR_T, CHAR_L = 77, 256, 128, 200, 50
+CHAR_FITS = 10          # fits on one batch, 4 TBPTT windows each
+CHAR_CPU_REL = 1e-4     # card against CPU: each window's loss, relative
+CHAR_CPU_LEAF = 1e-4    # and every leaf after the fit, of its max |value|
+CHAR_STEP_TOL = 1e-5    # 64 rnn_time_step calls against output()
+CHAR_PROMPT, CHAR_NEW = 20, 100
+A3_LAYER_REL = 1e-5     # phase 25: card against CPU, of max |CPU|
+
+
+def char_batch(seed, B, T, V=CHAR_V):
+    """One-hot next-character pairs [B, T, V] of seeded walks on a Markov
+    chain: each character has three successors, taken with probabilities
+    0.6, 0.3 and 0.1, so the loss has somewhere to fall."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    succ = rng.integers(0, V, (V, 3))
+    pick = rng.choice(3, size=(B, T), p=[0.6, 0.3, 0.1])
+    ids = np.empty((B, T + 1), np.int64)
+    ids[:, 0] = rng.integers(0, V, B)
+    for t in range(T):
+        ids[:, t + 1] = succ[ids[:, t], pick[:, t]]
+    eye = np.eye(V, dtype=np.float32)
+    return eye[ids[:, :-1]], eye[ids[:, 1:]], ids
+
+
+class WindowLosses:
+    """Keeps each window's loss as the device scalar the step leaves
+    (reading it would sync the card once a window)."""
+
+    def __init__(self):
+        self.raw = []
+
+    def iteration_done(self, model, iteration):
+        self.raw.append(model._score_raw)
+
+    def values(self):
+        return [float(v) for v in self.raw]
+
+
+def char_net(torch, device, dtype="float32", params=None):
+    from deeplearning4j_tpu_torch.models.zoo import char_rnn_lstm
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    net = MultiLayerNetwork(char_rnn_lstm(dtype=dtype), device=device).init()
+    if params is not None:
+        net.set_params(params)
+    return net
+
+
+def params_cpu(net):
+    return [{k: v.detach().cpu().clone() for k, v in lp.items()}
+            for lp in net.params]
+
+
+def char_fit(torch, net, x, y, fits):
+    """``fits`` fits on one batch (TBPTT windows of 50): each window's
+    loss, and each fit's host seconds up to a synchronize."""
+    lis = WindowLosses()
+    net.set_listeners(lis)
+    secs = []
+    for _ in range(fits):
+        t0 = time.monotonic()
+        net.fit(x, y)
+        sync(torch, net.device.type)
+        secs.append(time.monotonic() - t0)
+    net.set_listeners()
+    return lis.values(), secs
+
+
+def sync(torch, dev):
+    if dev != "cpu":
+        torch.cuda.synchronize()
+
+
+def char_profile(torch, net, x, y, fits=2):
+    """``fits`` more fits under torch.profiler: the busy share and the
+    kernels that take it."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = net.device.type
+    sync(torch, dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(fits):
+            net.fit(x, y)
+        sync(torch, dev)
+        wall = time.monotonic() - t0
+    kernels = device_kernels_ms(prof)
+    busy = sum(kernels.values())
+    launches = sum(e.count for e in prof.key_averages()
+                   if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                "cudaLaunchKernelExC"))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return {"fits": fits, "wall_ms": wall * 1e3, "device_busy_ms": busy,
+            "device_busy_share": busy / (wall * 1e3),
+            "kernel_launches": launches,
+            "top_kernels_ms": [[k[:80], ms] for k, ms in top]}
+
+
+def generate_check(torch, net_card, net_cpu, prompt, n_new):
+    """generate_rnn greedy on the card and on the CPU from the same params:
+    (card tokens, CPU tokens, None or the first step where they part with
+    the CPU's top-2 probability gap there)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.sampling import generate_rnn
+    card = generate_rnn(net_card, prompt, n_new, CHAR_V)
+    cpu = generate_rnn(net_cpu, prompt, n_new, CHAR_V)
+    if card == cpu:
+        return card, cpu, None
+    k = next(i for i, (a, b) in enumerate(zip(card, cpu)) if a != b)
+    net_cpu.rnn_clear_previous_state()
+    ctx = list(prompt) + cpu[:k]
+    x = np.eye(CHAR_V, dtype=np.float32)[ctx][None]
+    row = np.sort(net_cpu.rnn_time_step(x)[0, -1].numpy())
+    return card, cpu, {"step": k, "cpu_top2_gap": float(row[-1] - row[-2])}
+
+
+def a3_layer_cases(torch):
+    """(name, port layer config, input maker, mask or None) of phase 25:
+    each layer of A3 at widths of the char-RNN and AlexNet."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nn.conf import layers as L
+    rng = np.random.default_rng(25)
+    B, T, V, H = 32, 32, CHAR_V, CHAR_H
+    seq = rng.normal(size=(B, T, V)).astype(np.float32)
+    hid = rng.normal(size=(B, T, H)).astype(np.float32)
+    img = rng.normal(size=(B, 16, 16, 64)).astype(np.float32)
+    mask = np.ones((B, T), np.float32)
+    mask[::3, T // 2:] = 0.0
+    mask[1::4, 5] = 0.0
+    idx = rng.integers(0, V, (4 * B,))
+    cases = [
+        ("GRU", L.GRU(n_in=V, n_out=H, activation="tanh"), seq, None),
+        ("GravesBidirectionalLSTM", L.GravesBidirectionalLSTM(
+            n_in=V, n_out=H, activation="tanh"), seq, None),
+        ("LSTM masked", L.LSTM(n_in=V, n_out=H, activation="tanh"), seq,
+         mask),
+        ("GravesLSTM masked", L.GravesLSTM(n_in=V, n_out=H,
+                                           activation="tanh"), seq, mask),
+        ("EmbeddingLayer index", L.EmbeddingLayer(
+            n_in=V, n_out=H, activation="identity"), idx[:, None], None),
+        ("EmbeddingLayer one-hot", L.EmbeddingLayer(
+            n_in=V, n_out=H, activation="identity"),
+         np.eye(V, dtype=np.float32)[idx], None),
+        ("LocalResponseNormalization", L.LocalResponseNormalization(), img,
+         None),
+        ("ActivationLayer", L.ActivationLayer(activation="tanh"), hid, None),
+        ("DropoutLayer p=0", L.DropoutLayer(dropout=0.0), hid, None),
+        ("LossLayer", L.LossLayer(activation="softmax", loss="mcxent"), hid,
+         None),
+    ]
+    for pool in ("max", "avg", "sum", "pnorm"):
+        conf = L.GlobalPoolingLayer(pooling_type=pool)
+        cases += [(f"GlobalPooling {pool}", conf, hid, None),
+                  (f"GlobalPooling {pool} masked", conf, hid, mask),
+                  (f"GlobalPooling {pool} NHWC", conf, img, None)]
+    return cases
+
+
+def a3_layer_check(torch, conf, x, mask, seed, dev="cuda"):
+    """One layer's forward and the gradients of sum(y R) (params and, for
+    float inputs, the input) on the card and on the CPU, same params:
+    {forward, worst leaf: max |diff| / max |CPU|}."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nn.conf.config import \
+        resolve_layer_defaults, NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers.base import (BaseRecurrentImpl,
+                                                         impl_for)
+    impl = impl_for(resolve_layer_defaults(conf, NeuralNetConfiguration()))
+    # the layer's own init (Xavier weights), with N(0, 0.1) added to the
+    # biases and peepholes so that their paths carry values
+    p0 = impl.init_params(torch.Generator().manual_seed(seed))
+    rng = np.random.default_rng(seed)
+    p0 = {k: v + torch.tensor((rng.normal(size=tuple(v.shape)) * 0.1)
+                              .astype(np.float32)) if v.ndim == 1 else v
+          for k, v in p0.items()}
+    out = {}
+    for d in ("cpu", dev):
+        p = {k: v.to(d).requires_grad_(True) for k, v in p0.items()}
+        xt = torch.tensor(x, device=d)
+        if xt.is_floating_point():
+            xt.requires_grad_(True)
+        m = None if mask is None else torch.tensor(mask, device=d)
+        if isinstance(impl, BaseRecurrentImpl):
+            y = impl.forward_with_state(p, xt, None, mask=m)[0]
+        else:
+            y = impl.forward(p, xt, train=True, mask=m,
+                             gen=torch.Generator(device=d).manual_seed(1))
+        R = torch.tensor(np.random.default_rng(seed + 1).normal(
+            size=tuple(y.shape)).astype(np.float32), device=d)
+        leaves = list(p.values()) + ([xt] if xt.requires_grad else [])
+        g = torch.autograd.grad((y * R).sum(), leaves) if leaves else []
+        out[d] = [y.detach().cpu()] + [t.cpu() for t in g]
+    rel = [float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+           for a, b in zip(out[dev], out["cpu"])]
+    return {"forward_rel": rel[0], "grad_rel": max(rel[1:], default=0.0)}
+
+
+def mlp_iris_run(torch, device, params=None):
+    """`mlp_iris()` with the recipe of the JAX test_iris_accuracy (Adam,
+    lr 0.01, 60 epochs of batch 50) on the packaged Iris copy: (net,
+    Evaluation over the 150 rows, host seconds of the fit, the params it
+    started from on the CPU)."""
+    from deeplearning4j_tpu_torch.datasets.fetchers import \
+        IrisDataSetIterator
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        MultipleEpochsIterator
+    from deeplearning4j_tpu_torch.models.zoo import mlp_iris
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updater.updaters import Adam
+    conf = mlp_iris(lr=0.01)
+    for layer in conf.layers:
+        layer.updater = Adam()
+    net = MultiLayerNetwork(conf, device=device).init()
+    if params is not None:
+        net.set_params(params)
+    init = params_cpu(net)
+    t0 = time.monotonic()
+    net.fit(MultipleEpochsIterator(60, IrisDataSetIterator(batch=50)))
+    secs = time.monotonic() - t0
+    return net, net.evaluate(IrisDataSetIterator(batch=150)), secs, init
+
+
+def a3_phases(torch, ck, card, dev="cuda"):
+    """Phases 24 (the GravesLSTM char-RNN at full width) and 25 (MLP-Iris
+    and the layers of A3 on the card against the CPU). No hand-written
+    kernel runs here: every launch counter must stand still. (``dev``
+    "cpu" rehearses the phases on the CPU, at the sizes the module's
+    CHAR_* constants are set to.)"""
+    import numpy as np
+    launches0 = dict(ck.LAUNCHES)
+    failures = []
+    x, y, ids = char_batch(24, CHAR_B, CHAR_T)
+    # -- phase 24: card against CPU, one fit from the same params
+    net = char_net(torch, dev)
+    init = params_cpu(net)
+    cpu = char_net(torch, "cpu", params=init)
+    t0 = time.monotonic()
+    cpu_losses, _ = char_fit(torch, cpu, x, y, 1)
+    cpu_s = time.monotonic() - t0
+    losses, secs = char_fit(torch, net, x, y, 1)
+    win_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    leaf_rel = max(float((a.cpu() - b).abs().max()
+                         / b.abs().max().clamp_min(1e-30))
+                   for la, lb in zip(net.params, cpu.params)
+                   for a, b in ((la[k], lb[k]) for k in la))
+    n_win = -(-CHAR_T // CHAR_L)
+    if len(losses) != n_win or win_rel > CHAR_CPU_REL \
+            or leaf_rel > CHAR_CPU_LEAF:
+        failures.append(f"char-RNN card vs CPU: windows {losses} vs "
+                        f"{cpu_losses} (rel {win_rel}), leaves {leaf_rel}")
+    phase(24, f"char_rnn_lstm ({net.num_params()} params: V={CHAR_V}, two "
+              f"GravesLSTM H={CHAR_H}, TBPTT {CHAR_L}) B={CHAR_B} "
+              f"T={CHAR_T}, first fit ({len(losses)} windows) on the card "
+              f"and on the CPU from the same params: window losses "
+              f"{losses}; max rel diff {win_rel:.3e} (gate {CHAR_CPU_REL}), "
+              f"every leaf after it within {leaf_rel:.3e} of its max "
+              f"|value| (gate {CHAR_CPU_LEAF}); the CPU fit took "
+              f"{cpu_s:.2f} s")
+    more, more_secs = char_fit(torch, net, x, y, CHAR_FITS - 1)
+    losses += more
+    secs += more_secs
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        failures.append(f"char-RNN losses {losses}")
+    steady = secs[1:]
+    fit_ms = 1e3 * sum(steady) / len(steady)
+    r = {"vocab": CHAR_V, "hidden": CHAR_H, "batch": CHAR_B, "T": CHAR_T,
+         "tbptt": CHAR_L, "fits": CHAR_FITS, "window_losses": losses,
+         "cpu_window_losses": cpu_losses, "card_vs_cpu_window_rel": win_rel,
+         "card_vs_cpu_leaf_rel": leaf_rel, "fit_s": secs,
+         "first_fit_ms": secs[0] * 1e3, "mean_fit_ms": fit_ms,
+         "mean_window_ms": fit_ms / n_win,
+         "chars_per_s": CHAR_B * CHAR_T * len(steady) / sum(steady),
+         "params": net.num_params()}
+    phase(24, f"char_rnn_lstm {CHAR_FITS} fits of B={CHAR_B} T={CHAR_T}: "
+              f"window loss {losses[0]:.6f} -> {losses[-1]:.6f}, all "
+              f"finite; fits 2-{CHAR_FITS}: mean {fit_ms:.3f} ms a fit, "
+              f"{r['mean_window_ms']:.3f} ms a window, "
+              f"{r['chars_per_s']:.1f} characters/s (first fit "
+              f"{r['first_fit_ms']:.1f} ms) [{card}]")
+    r["profile"] = pr = char_profile(torch, net, x, y, 2)
+    phase(24, f"char_rnn_lstm under torch.profiler, 2 more fits: wall "
+              f"{pr['wall_ms']:.3f} ms, device busy "
+              f"{pr['device_busy_ms']:.3f} ms "
+              f"({100 * pr['device_busy_share']:.2f}%), "
+              f"{pr['kernel_launches']} kernel launches; top "
+              f"{pr['top_kernels_ms'][:5]} [{card}]")
+    # streaming: 64 one-token rnn_time_step calls against output()
+    xs = x[:8, :64]
+    want = net.output(xs)
+    net.rnn_clear_previous_state()
+    got = torch.cat([net.rnn_time_step(xs[:, t]) for t in range(64)], dim=1)
+    r["rnn_time_step_max_abs"] = step_err = float((got - want).abs().max())
+    if not step_err <= CHAR_STEP_TOL:
+        failures.append(f"rnn_time_step vs output: {step_err}")
+    # greedy generation from the trained params, card against CPU
+    trained = params_cpu(net)
+    cpu.set_params(trained)
+    prompt = [int(t) for t in ids[0, :CHAR_PROMPT]]
+    t0 = time.monotonic()
+    gen_card, gen_cpu, part = generate_check(torch, net, cpu, prompt,
+                                             CHAR_NEW)
+    r["generate"] = {"tokens": gen_card, "identical": part is None,
+                     "parted": part, "s": time.monotonic() - t0}
+    if part is not None:
+        failures.append(f"generate_rnn card vs CPU part at step "
+                        f"{part['step']} (CPU top-2 gap "
+                        f"{part['cpu_top2_gap']:.3e}): {gen_card} vs "
+                        f"{gen_cpu}")
+    phase(24, f"64 one-token rnn_time_step calls against output(): max "
+              f"|diff| {step_err:.3e} (gate {CHAR_STEP_TOL}); generate_rnn "
+              f"greedy, prompt {CHAR_PROMPT}, {CHAR_NEW} new: card and CPU "
+              f"tokens {'identical' if part is None else 'DIFFER'} "
+              f"({gen_card[:16]}...)")
+    # bf16: the same init rounded, the same batch
+    net16 = char_net(torch, dev, dtype="bfloat16", params=init)
+    losses16, secs16 = char_fit(torch, net16, x, y, CHAR_FITS)
+    curve = [abs(a - b) / max(1.0, abs(b)) for a, b in zip(losses16, losses)]
+    if not (all(np.isfinite(losses16)) and len(losses16) == len(losses)
+            and max(curve) <= BF16_CURVE):
+        failures.append(f"char-RNN bf16 left the f32 curve: {losses16}")
+    steady16 = secs16[1:]
+    r["bf16"] = {"window_losses": losses16, "curve_rel": curve,
+                 "fit_s": secs16,
+                 "mean_fit_ms": 1e3 * sum(steady16) / len(steady16),
+                 "chars_per_s": CHAR_B * CHAR_T * len(steady16)
+                 / sum(steady16)}
+    phase(24, f"char_rnn_lstm bf16, {CHAR_FITS} fits: window loss "
+              f"{losses16[0]:.6f} -> {losses16[-1]:.6f}; vs f32 max "
+              f"{max(curve):.3e} of max(1, |loss|) (gate {BF16_CURVE}); "
+              f"{r['bf16']['mean_fit_ms']:.3f} ms a fit, "
+              f"{r['bf16']['chars_per_s']:.1f} characters/s [{card}]")
+    del net, net16, cpu
+    # -- phase 25: MLP-Iris, then every layer of A3 against the CPU
+    iris_net, ev, iris_s, iris_init = mlp_iris_run(torch, dev)
+    _, ev_cpu, _, _ = mlp_iris_run(torch, "cpu", params=iris_init)
+    same = bool(np.array_equal(ev.confusion.matrix, ev_cpu.confusion.matrix))
+    iris = {"accuracy": ev.accuracy(), "f1": ev.f1(),
+            "confusion": ev.confusion.matrix.tolist(),
+            "cpu_confusion": ev_cpu.confusion.matrix.tolist(),
+            "fit_s": iris_s, "steps": iris_net.step}
+    if not (ev.accuracy() > 0.9 and same):
+        failures.append(f"MLP-Iris: accuracy {ev.accuracy()}, confusion "
+                        f"{iris['confusion']} vs CPU {iris['cpu_confusion']}")
+    phase(25, f"MLP-Iris (mlp_iris(), Adam lr 0.01, 60 epochs of batch 50, "
+              f"{iris_net.step} steps in {iris_s:.2f} s): accuracy "
+              f"{ev.accuracy():.4f} (gate > 0.9), confusion "
+              f"{iris['confusion']} {'equal to' if same else 'UNLIKE'} the "
+              f"CPU run's from the same init [{card}]")
+    layers = {}
+    for i, (name, conf, xin, m) in enumerate(a3_layer_cases(torch)):
+        layers[name] = c = a3_layer_check(torch, conf, xin, m, 100 + i,
+                                          dev)
+        if not (c["forward_rel"] <= A3_LAYER_REL
+                and c["grad_rel"] <= A3_LAYER_REL):
+            failures.append(f"{name} card vs CPU: {c}")
+    worst = max(layers.items(), key=lambda kv: max(kv[1].values()))
+    phase(25, f"{len(layers)} layer cases on the card against the CPU, "
+              f"forward and gradients (f32): worst {worst[0]} forward "
+              f"{worst[1]['forward_rel']:.3e}, gradient "
+              f"{worst[1]['grad_rel']:.3e} of max |CPU| (gate "
+              f"{A3_LAYER_REL})")
+    moved = {k: v - launches0.get(k, 0) for k, v in ck.LAUNCHES.items()
+             if v != launches0.get(k, 0)}
+    if moved:
+        failures.append(f"kernel launches during phases 24-25: {moved}")
+    if failures:
+        raise SystemExit("phases 24-25 failed: " + " | ".join(failures))
+    return {"char_rnn": r, "mlp_iris": iris, "a3_layers": layers}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3948,6 +4346,7 @@ def main():
               f"{lenet['mean_step_ms']:.3f}) [{card}]")
     if failures:
         raise SystemExit("phases 22-23 failed: " + " | ".join(failures))
+    a3 = a3_phases(torch, ck, card)
 
 
     src = "deeplearning4j_tpu_torch/ops/csrc/paged_decode_attention.cu"
@@ -4164,8 +4563,8 @@ def main():
          "conv_bf16_alexnet_sum": conv16_sum, "bnap_bf16_cases": bnap16_cases,
          "bnap_bf16_edges": bnap16_edges, "bnap_bf16_alexnet_sum": bnap16_sum,
          "alexnet_train_bf16": alex16, "lenet_train_bf16": lenet16,
-         "elapsed_s": time.monotonic() - t_start}))
-    phase(24, "kernels:")
+         **a3, "elapsed_s": time.monotonic() - t_start}))
+    phase(26, "kernels:")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,13 @@
-"""Command line — port of the ``train`` (local runtime), ``predict`` and
-``serve`` commands of deeplearning4j_tpu/cli/main.py.
+"""Command line — port of the ``train`` (local runtime), ``test``,
+``predict`` and ``serve`` commands of deeplearning4j_tpu/cli/main.py.
 
     python -m deeplearning4j_tpu_torch.cli.main train --conf net.json \
         --input data.csv --output model.zip [--epochs N] [--batch B] \
         [--label-index I] [--num-classes C] [--regression] \
         [--skip-lines K] [--print-every P] [--device cuda|cpu]
+    python -m deeplearning4j_tpu_torch.cli.main test --model model.zip \
+        --input data.csv [--batch B] [--label-index I] [--num-classes C] \
+        [--skip-lines K] [--device cuda|cpu]
     python -m deeplearning4j_tpu_torch.cli.main predict --model model.zip \
         --input data.csv [--output preds.csv] [--batch B] \
         [--label-index I] [--skip-lines K] [--device cuda|cpu]
@@ -22,9 +25,10 @@ The config JSON and the model zip are the shared formats (a JAX-written
 config trains here, a zip written here restores in the JAX package, and
 back). ``--device`` defaults to cuda and fails without a CUDA device.
 ``serve`` answers /predict for any zip and, with ``--generate``,
-/generate through the supervised decode engine. The test command (it
-needs ``evaluate``), the telemetry and router commands and the
-data-parallel runtime come with later slices.
+/generate through the supervised decode engine; ``test`` prints the
+``Evaluation.stats()`` of a saved MultiLayerNetwork on labelled CSV
+records. The telemetry and router commands and the data-parallel runtime
+come with later slices.
 """
 from __future__ import annotations
 
@@ -59,6 +63,15 @@ def cmd_train(args) -> int:
     net.fit(iterator)
     write_model(net, args.output)
     print(f"Model saved to {args.output} (final score {net.score_:.6f})")
+    return 0
+
+
+def cmd_test(args) -> int:
+    """Evaluate a saved MultiLayerNetwork on CSV records and print
+    ``stats()`` (JAX cli/main.py :84)."""
+    from ..util.model_serializer import restore_multi_layer_network
+    net = restore_multi_layer_network(args.model, device=args.device)
+    print(net.evaluate(_build_iterator(args)).stats())
     return 0
 
 
@@ -176,6 +189,10 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--print-every", type=int, default=10)
     _add_data_args(t)
     t.set_defaults(fn=cmd_train)
+    e = sub.add_parser("test", help="evaluate a saved MultiLayerNetwork")
+    e.add_argument("--model", required=True, help="model zip")
+    _add_data_args(e)
+    e.set_defaults(fn=cmd_test)
     p = sub.add_parser("predict", help="predict classes with a saved "
                                        "MultiLayerNetwork")
     p.add_argument("--model", required=True, help="model zip")

@@ -28,6 +28,17 @@ class DataSet:
     def num_examples(self) -> int:
         return int(self.features.shape[0])
 
+    def shuffle(self, seed: Optional[int] = None):
+        """Permute the examples in place with ``np.random.default_rng(seed)``
+        (JAX dataset.py :33: the same seed gives the same order)."""
+        idx = np.random.default_rng(seed).permutation(self.num_examples())
+        self.features = self.features[idx]
+        self.labels = self.labels[idx]
+        if self.features_mask is not None:
+            self.features_mask = self.features_mask[idx]
+        if self.labels_mask is not None:
+            self.labels_mask = self.labels_mask[idx]
+
     def _slice(self, sl) -> "DataSet":
         return DataSet(
             self.features[sl], self.labels[sl],

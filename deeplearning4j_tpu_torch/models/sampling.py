@@ -1,4 +1,6 @@
-"""Autoregressive generation — port of deeplearning4j_tpu/models/sampling.py.
+"""Autoregressive generation — port of deeplearning4j_tpu/models/sampling.py
+(`generate_transformer` for the transformer graph, `generate_rnn` for the
+recurrent MultiLayerNetwork).
 
 Sampling runs on the host with numpy, from a per-request
 ``np.random.default_rng(seed)``, exactly as in the JAX package: given the
@@ -125,4 +127,34 @@ def generate_transformer(net, prompt_ids: Sequence[int], n_tokens: int,
         nxt = _sample_logits(probs, temperature, top_k, rng, top_p)
         ids.append(nxt)
         out.append(nxt)
+    return out
+
+
+def generate_rnn(net, prompt_ids: Sequence[int], n_tokens: int,
+                 vocab_size: int, *, temperature: float = 0.0,
+                 top_k: Optional[int] = None,
+                 top_p: Optional[float] = None, seed: int = 0) -> list:
+    """Continue ``prompt_ids`` by ``n_tokens`` with a recurrent
+    MultiLayerNetwork through stateful one-token `rnn_time_step` calls
+    (JAX sampling.py :136): the prompt primes the state one token at a
+    time, then each token's probability row is read back to the host and
+    sampled with `sample_logits` from ``np.random.default_rng(seed)``, so
+    a seeded stream is the JAX package's where the rows agree. Clears the
+    net's streaming state first."""
+    if not len(prompt_ids):
+        raise ValueError("prompt_ids must be non-empty (the model needs at "
+                         "least one token of context)")
+    rng = np.random.default_rng(seed)
+    net.rnn_clear_previous_state()
+
+    def step(tok):
+        return _host_probs(net.rnn_time_step(onehot([tok], vocab_size)))
+
+    for tok in prompt_ids:  # prime the state one step at a time
+        probs = step(tok)
+    out = []
+    for _ in range(n_tokens):
+        nxt = _sample_logits(probs[0, -1], temperature, top_k, rng, top_p)
+        out.append(nxt)
+        probs = step(nxt)
     return out

@@ -1,5 +1,6 @@
-"""Model zoo — port of ``lenet_mnist``, ``mlp_iris``, ``alexnet_cifar10``
-and ``transformer_lm`` from deeplearning4j_tpu/models/zoo.py.
+"""Model zoo — port of ``lenet_mnist``, ``mlp_iris``, ``alexnet_cifar10``,
+``char_rnn_lstm`` and ``transformer_lm`` from
+deeplearning4j_tpu/models/zoo.py.
 
 Each builds the same configuration as the JAX package (same layers,
 names, defaults and hyperparameters), so its JSON, its flat parameter
@@ -7,12 +8,13 @@ order and its model zip are the JAX package's.
 """
 from __future__ import annotations
 
-from ..nn.conf.config import MultiLayerConfiguration, NeuralNetConfiguration
+from ..nn.conf.config import (BACKPROP_TBPTT, MultiLayerConfiguration,
+                              NeuralNetConfiguration)
 from ..nn.conf.graph import ElementWiseVertex
 from ..nn.conf.inputs import InputType
 from ..nn.conf.layers import (BatchNormalization, ConvolutionLayer,
-                              DenseLayer, LayerNormalization, OutputLayer,
-                              RnnOutputLayer, SelfAttentionLayer,
+                              DenseLayer, GravesLSTM, LayerNormalization,
+                              OutputLayer, RnnOutputLayer, SelfAttentionLayer,
                               SubsamplingLayer)
 from ..nn.updater.updaters import Adam, Nesterovs, Sgd
 
@@ -80,6 +82,25 @@ def alexnet_cifar10(seed: int = 42, lr: float = 1e-3, dtype: str = "float32",
             .layer(OutputLayer(n_out=n_classes, activation="softmax",
                                loss="negativeloglikelihood"))
             .set_input_type(InputType.convolutional(32, 32, 3))
+            .build())
+
+
+def char_rnn_lstm(vocab_size: int = 77, hidden: int = 256, seed: int = 12345,
+                  lr: float = 0.1, tbptt: int = 50,
+                  dtype: str = "float32") -> MultiLayerConfiguration:
+    """GravesLSTM char-RNN: two GravesLSTM layers of ``hidden`` tanh units,
+    a softmax RnnOutputLayer (mcxent) over the vocabulary, truncated BPTT
+    of ``tbptt`` steps, Nesterovs 0.9."""
+    return (NeuralNetConfiguration.builder()
+            .seed(seed).learning_rate(lr).updater(Nesterovs(momentum=0.9))
+            .dtype(dtype)
+            .list()
+            .layer(GravesLSTM(n_in=vocab_size, n_out=hidden, activation="tanh"))
+            .layer(GravesLSTM(n_in=hidden, n_out=hidden, activation="tanh"))
+            .layer(RnnOutputLayer(n_in=hidden, n_out=vocab_size,
+                                  activation="softmax", loss="mcxent"))
+            .backprop_type(BACKPROP_TBPTT)
+            .t_bptt_forward_length(tbptt).t_bptt_backward_length(tbptt)
             .build())
 
 

@@ -19,8 +19,10 @@ from . import distributions as _distributions  # noqa: F401 (registers)
 from . import serde
 from .inputs import (ConvolutionalFlatInputType, ConvolutionalInputType,
                      FeedForwardInputType, InputType, RecurrentInputType)
-from .layers import (BatchNormalization, ConvolutionLayer, FeedForwardLayer,
-                     Layer, LayerNormalization, RnnOutputLayer,
+from .layers import (ActivationLayer, BaseRecurrentLayer, BatchNormalization,
+                     ConvolutionLayer, DropoutLayer, FeedForwardLayer,
+                     GlobalPoolingLayer, Layer, LayerNormalization,
+                     LocalResponseNormalization, RnnOutputLayer,
                      SelfAttentionLayer, SubsamplingLayer)
 from .preprocessors import (CnnToFeedForwardPreProcessor,
                             CnnToRnnPreProcessor,
@@ -271,14 +273,18 @@ def _chain_nin_from_nout(layers: List[Layer]) -> None:
             prev = None
 
 
+_CNN_LAYERS = (ConvolutionLayer, SubsamplingLayer, LocalResponseNormalization)
+
+
 def _layer_wants(layer: Layer) -> str:
-    """What input kind a layer consumes (JAX config.py :309, over the
-    layer configs the port has)."""
-    if isinstance(layer, (ConvolutionLayer, SubsamplingLayer)):
+    """What input kind a layer consumes (JAX config.py :306-320)."""
+    if isinstance(layer, _CNN_LAYERS):
         return "convolutional"
-    if isinstance(layer, (RnnOutputLayer, SelfAttentionLayer)):
+    if isinstance(layer, (BaseRecurrentLayer, RnnOutputLayer,
+                          SelfAttentionLayer)):
         return "recurrent"
-    if isinstance(layer, (BatchNormalization, LayerNormalization)):
+    if isinstance(layer, (ActivationLayer, DropoutLayer, BatchNormalization,
+                          LayerNormalization, GlobalPoolingLayer)):
         return "any"
     return "feedforward"
 

@@ -2,9 +2,9 @@
 
 Port of deeplearning4j_tpu/nn/conf/graph.py: the vertex classes
 ``transformer_lm`` uses (layer, element-wise), the
-`ComputationGraphConfiguration` fields and `GraphBuilder` (whose
-``backprop_type`` refuses truncated BPTT until the port trains it), so
-its graph config JSON round-trips between the packages. Merge, subset and scale
+`ComputationGraphConfiguration` fields and `GraphBuilder` (with the
+backprop, pretrain and truncated-BPTT settings), so its graph config JSON
+round-trips between the packages. Merge, subset and scale
 vertices come with the slices whose models use them.
 """
 from __future__ import annotations
@@ -96,6 +96,11 @@ class GraphBuilder:
         self._outputs: List[str] = []
         self._vertices: Dict[str, GraphVertex] = {}
         self._vertex_inputs: Dict[str, List[str]] = {}
+        self._backprop = True
+        self._pretrain = False
+        self._backprop_type = BACKPROP_STANDARD
+        self._tbptt_fwd = 20
+        self._tbptt_back = 20
 
     def add_inputs(self, *names: str) -> "GraphBuilder":
         self._inputs.extend(names)
@@ -118,11 +123,24 @@ class GraphBuilder:
         self._outputs = list(names)
         return self
 
+    def backprop(self, flag: bool) -> "GraphBuilder":
+        self._backprop = flag
+        return self
+
+    def pretrain(self, flag: bool) -> "GraphBuilder":
+        self._pretrain = flag
+        return self
+
     def backprop_type(self, t: str) -> "GraphBuilder":
-        if t != BACKPROP_STANDARD:
-            raise NotImplementedError(
-                f"backprop_type {t!r}: truncated BPTT comes with a later "
-                "slice")
+        self._backprop_type = t
+        return self
+
+    def t_bptt_forward_length(self, n: int) -> "GraphBuilder":
+        self._tbptt_fwd = n
+        return self
+
+    def t_bptt_backward_length(self, n: int) -> "GraphBuilder":
+        self._tbptt_back = n
         return self
 
     def build(self) -> ComputationGraphConfiguration:
@@ -144,6 +162,11 @@ class GraphBuilder:
             network_outputs=list(self._outputs),
             vertices=copy.deepcopy(self._vertices),
             vertex_inputs=copy.deepcopy(self._vertex_inputs),
+            backprop=self._backprop,
+            pretrain=self._pretrain,
+            backprop_type=self._backprop_type,
+            tbptt_fwd_length=self._tbptt_fwd,
+            tbptt_back_length=self._tbptt_back,
         )
         cfg.topological_order()  # validate acyclicity at build time
         return cfg

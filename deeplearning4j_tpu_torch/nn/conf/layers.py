@@ -1,8 +1,10 @@
-"""Layer configs — the part of deeplearning4j_tpu/nn/conf/layers.py that the
-port's models are built from: Dense, Output, RnnOutput, Convolution,
-Subsampling, BatchNormalization, LayerNormalization, SelfAttention. Same
-class names, fields and defaults as the JAX package, so configs
-round-trip between the two.
+"""Layer configs — port of deeplearning4j_tpu/nn/conf/layers.py: Dense,
+Output, RnnOutput, Loss, Convolution, Subsampling, BatchNormalization,
+LayerNormalization, LocalResponseNormalization, the recurrent layers
+(GravesLSTM, LSTM, GravesBidirectionalLSTM, GRU), Embedding, Activation,
+Dropout, GlobalPooling and SelfAttention (RBM and AutoEncoder come with
+ROADMAP A5). Same class names, fields and defaults as the JAX package, so
+configs round-trip between the two.
 
 Configs are pure data. Unset fields (None) inherit net-level defaults at
 build time (`config.resolve_layer_defaults`). Each config implements
@@ -97,6 +99,14 @@ class RnnOutputLayer(FeedForwardLayer):
         ts = (input_type.timesteps
               if isinstance(input_type, RecurrentInputType) else None)
         return InputType.recurrent(self.n_out, ts)
+
+
+@register
+@dataclass
+class LossLayer(Layer):
+    """Loss-only layer, no params."""
+
+    loss: str = "mse"
 
 
 @register
@@ -204,6 +214,93 @@ class LayerNormalization(FeedForwardLayer):
             self.n_out = self.n_in
 
     def get_output_type(self, input_type: InputType) -> InputType:
+        return input_type
+
+
+@register
+@dataclass
+class LocalResponseNormalization(Layer):
+    """LRN across channels, NHWC: x / (k + alpha * sum x^2)^beta over a
+    window of 2 * (n // 2) + 1 channels."""
+
+    k: float = 2.0
+    n: float = 5.0
+    alpha: float = 1e-4
+    beta: float = 0.75
+
+
+@dataclass
+class BaseRecurrentLayer(FeedForwardLayer):
+    def get_output_type(self, input_type: InputType) -> InputType:
+        ts = (input_type.timesteps
+              if isinstance(input_type, RecurrentInputType) else None)
+        return InputType.recurrent(self.n_out, ts)
+
+
+@register
+@dataclass
+class GravesLSTM(BaseRecurrentLayer):
+    """LSTM with peephole connections (Graves 2013)."""
+
+    forget_gate_bias_init: float = 1.0
+
+
+@register
+@dataclass
+class LSTM(BaseRecurrentLayer):
+    """Standard (non-peephole) LSTM."""
+
+    forget_gate_bias_init: float = 1.0
+
+
+@register
+@dataclass
+class GravesBidirectionalLSTM(BaseRecurrentLayer):
+    """Bidirectional Graves LSTM; the two directions' outputs summed."""
+
+    forget_gate_bias_init: float = 1.0
+
+
+@register
+@dataclass
+class GRU(BaseRecurrentLayer):
+    """Gated recurrent unit."""
+
+
+@register
+@dataclass
+class EmbeddingLayer(FeedForwardLayer):
+    """Index -> dense vector lookup. Input: [batch] or [batch, 1] integer
+    indices (or one-hot [batch, n_in])."""
+
+    has_bias: bool = True
+
+
+@register
+@dataclass
+class ActivationLayer(Layer):
+    """Parameterless activation."""
+
+
+@register
+@dataclass
+class DropoutLayer(Layer):
+    """Standalone dropout layer."""
+
+
+@register
+@dataclass
+class GlobalPoolingLayer(Layer):
+    """Pool over time (RNN) or space (CNN): max | avg | sum | pnorm (the
+    impl reads ``pnorm`` where a config carries one, else 2)."""
+
+    pooling_type: str = "max"
+
+    def get_output_type(self, input_type: InputType) -> InputType:
+        if isinstance(input_type, RecurrentInputType):
+            return InputType.feed_forward(input_type.size)
+        if isinstance(input_type, ConvolutionalInputType):
+            return InputType.feed_forward(input_type.channels)
         return input_type
 
 

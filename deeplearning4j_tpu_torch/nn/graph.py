@@ -15,9 +15,13 @@ then updater state by sorted name), the order of the model zip's
 
 Remat (``conf.remat``) checkpoints each layer vertex of the train-mode
 forward but the loss path's output layer (nn/layers/base.remat_forward).
-``rnn_time_step`` streams inputs through the attention layers'
-contiguous KV cache, kept between calls until
-``rnn_clear_previous_state``.
+``rnn_time_step`` streams inputs through the recurrent vertices' h/c and
+the attention layers' contiguous KV cache, kept between calls until
+``rnn_clear_previous_state``. Truncated BPTT windows every time-series
+input, label and mask by ``tbptt_fwd_length`` (2-d arrays go whole to
+every window), one step a window, the recurrent states carried and
+detached between windows (JAX graph.py :622). ``evaluate`` and
+``evaluate_regression`` read the first output.
 
 Precision (JAX graph.py :173-227, multilayer.py :42-60; nn/precision.py):
 parameters are made at ``conf.dtype`` (float32, bfloat16 or float64) and
@@ -33,12 +37,12 @@ Parameters live on ``device`` (default "cuda"; it raises when no CUDA
 device is present — pass device="cpu" to run on the CPU). The attention
 layers run the port's flash or splash kernels there, f32 or bf16 by the
 compute dtype (ops/helpers.attention).
-Not ported yet, and raising where asked for: truncated BPTT, the
-line-search solvers, ``fit_batch_accumulated``, vertex preprocessors,
-layers with non-trainable variables (BatchNorm), the vertex types
-``transformer_lm`` does not use, and ``rnn_time_step`` (with it
-``generate_transformer(use_cache=True)``) when the compute dtype is not
-f32 (ROADMAP A4, bf16 decode).
+Not ported yet, and raising where asked for: the line-search solvers,
+``fit_batch_accumulated``, vertex preprocessors, layers with
+non-trainable variables (BatchNorm), the vertex types ``transformer_lm``
+does not use (ROADMAP A5), and ``rnn_time_step`` of a graph with
+attention layers (with it ``generate_transformer(use_cache=True)``) when
+the compute dtype is not f32 (ROADMAP A4, bf16 decode).
 """
 from __future__ import annotations
 
@@ -50,12 +54,13 @@ import torch
 from .conf.config import BACKPROP_TBPTT
 from .conf.graph import (ComputationGraphConfiguration, ElementWiseVertex,
                          GraphVertex, LayerVertex)
-from .layers.base import (BaseRecurrentImpl, LayerImpl, impl_for,
-                          materialize_rnn_states, remat_forward)
+from .layers.base import (BaseRecurrentImpl, LayerImpl, detach_states,
+                          impl_for, materialize_rnn_states, remat_forward)
 # importing the impl modules registers them
-from .layers import attention as _attention  # noqa: F401
+from .layers import attention as _attention
 from .layers import feedforward as _feedforward  # noqa: F401
 from .layers import normalization as _normalization  # noqa: F401
+from .layers import recurrent as _recurrent  # noqa: F401
 from .precision import (cast_floats, compute_dtype_of, dtype_of, host_array,
                         host_floats, input_dtype)
 from .updater.apply import update_layer
@@ -302,14 +307,20 @@ class ComputationGraph:
         the sum of the outputs' batch-mean losses plus regularization (JAX
         `_build_loss_fn`, graph.py :312). ``inputs``/``labels`` (and the
         masks): one array per network input/output, or a single array."""
+        return self._train_grads(inputs, labels, fmasks, lmasks)[:2]
+
+    def _train_grads(self, inputs, labels, fmasks, lmasks, states=None):
+        """(loss, gradients, the recurrent vertices' new states): the
+        train step's forward from ``states`` (None: zeros) and backward."""
         self._check_init()
         ins, labs = self._as_tensors(inputs), self._as_tensors(labels)
         params = {name: {k: v.detach().requires_grad_(True)
                          for k, v in lp.items()}
                   for name, lp in self.params.items()}
-        acts, _, preouts = self._forward_impl(
+        acts, new_states, preouts = self._forward_impl(
             params, ins, train=True, gen=self._gen,
-            fmasks=self._masks_by_input(fmasks), want_preout=True)
+            fmasks=self._masks_by_input(fmasks), states=states,
+            want_preout=True)
         loss = (self._loss(acts, labs, self._as_tensors(lmasks), preouts)
                 + self._reg_loss(params))
         leaves = [p for lp in params.values() for p in lp.values()]
@@ -321,7 +332,7 @@ class ComputationGraph:
             for k, p in lp.items():
                 g = next(flat)
                 grads[name][k] = torch.zeros_like(p) if g is None else g
-        return loss.detach(), grads
+        return loss.detach(), grads, new_states
 
     def _apply_updaters(self, params, grads, ustates, step: int):
         """(new params, new updater states) — JAX graph.py :275."""
@@ -352,17 +363,52 @@ class ComputationGraph:
         ins, labs = self._as_tensors(inputs), self._as_tensors(labels)
         if (self.conf.backprop_type == BACKPROP_TBPTT
                 and any(a.ndim == 3 for a in ins)):
-            raise NotImplementedError("truncated BPTT comes with a later "
-                                      "slice")
+            self._do_truncated_bptt(ins, labs, fmasks, lmasks)
+            return
         for _ in range(max(1, self.conf.conf.iterations)):
-            loss, grads = self.compute_gradient_and_score(ins, labs, fmasks,
-                                                          lmasks)
-            self.params, self.updater_state = self._apply_updaters(
-                self.params, grads, self.updater_state, self.step)
-            self._score_raw = loss
-            self.step += 1
-            for listener in self.listeners:
-                listener.iteration_done(self, self.step)
+            loss, grads, _ = self._train_grads(ins, labs, fmasks, lmasks)
+            self._update(loss, grads)
+
+    def _update(self, loss, grads):
+        self.params, self.updater_state = self._apply_updaters(
+            self.params, grads, self.updater_state, self.step)
+        self._score_raw = loss
+        self.step += 1
+        for listener in self.listeners:
+            listener.iteration_done(self, self.step)
+
+    def _do_truncated_bptt(self, ins, labs, fmasks, lmasks):
+        """One step per window of ``tbptt_fwd_length`` steps over the DAG
+        (JAX graph.py :622): 3-d inputs and labels are windowed along time,
+        and so is a mask whose array is a time series; anything else goes
+        whole to every window. The recurrent vertices' states start at
+        zeros and are carried and detached between windows; attention
+        vertices run each window stateless."""
+        T = max(a.shape[1] for a in ins if a.ndim == 3)
+        L = self.conf.tbptt_fwd_length
+        fms, lms = self._as_tensors(fmasks), self._as_tensors(lmasks)
+        states = materialize_rnn_states(
+            self._impls.items(), {}, ins[0].shape[0], self.compute_dtype,
+            self.device, tbptt=True)
+
+        def win(a, start, end, seq):
+            return a[:, start:end] if (a is not None and seq
+                                       and a.ndim >= 2) else a
+
+        for start in range(0, T, L):
+            end = min(start + L, T)
+            loss, grads, states = self._train_grads(
+                [win(a, start, end, a.ndim == 3) for a in ins],
+                [win(y, start, end, y.ndim == 3) for y in labs],
+                None if fms is None else [
+                    win(m, start, end, ins[i].ndim == 3)
+                    for i, m in enumerate(fms)],
+                None if lms is None else [
+                    win(m, start, end, labs[i].ndim == 3)
+                    for i, m in enumerate(lms)],
+                states)
+            states = detach_states(states)
+            self._update(loss, grads)
 
     def fit_batch_accumulated(self, inputs, labels, accumulation_steps: int):
         raise NotImplementedError("gradient accumulation comes with a later "
@@ -412,12 +458,15 @@ class ComputationGraph:
     def rnn_time_step(self, *inputs) -> List[Tensor]:
         """Stateful streaming inference (JAX graph.py :776): each input
         ([B, T, F], or [B, F] for one step) continues where the last call
-        ended, through the attention layers' contiguous KV caches, which
-        the first call makes (capacity ``max_cache_len``). Returns the
-        network outputs for these steps. Refused when the compute dtype is
-        not f32: bf16 decode is queued (ROADMAP A4)."""
+        ended, through the recurrent vertices' h/c and the attention
+        layers' contiguous KV caches, which the first call makes (capacity
+        ``max_cache_len``). Returns the network outputs for these steps.
+        Refused for a graph with attention layers when the compute dtype
+        is not f32: bf16 decode is queued (ROADMAP A4)."""
         self._check_init()
-        check_f32_decode(self, "rnn_time_step")
+        if any(isinstance(impl, _attention.SelfAttentionLayerImpl)
+               for impl in self._impls.values()):
+            check_f32_decode(self, "rnn_time_step")
         ins = [a[:, None, :] if a.ndim == 2 else a
                for a in self._as_tensors(list(inputs))]
         states = materialize_rnn_states(self._impls.items(), self._rnn_state,
@@ -454,6 +503,32 @@ class ComputationGraph:
         return float(self._loss(acts, self._as_tensors(labels),
                                 self._as_tensors(lmasks), preouts)
                      + self._reg_loss(self.params))
+
+    def evaluate(self, iterator, top_n: int = 1):
+        """Classification metrics of the first output over a dataset
+        iterator (JAX graph.py :847)."""
+        from ..evaluation.evaluation import Evaluation
+        ev = Evaluation(top_n=top_n)
+        for ds in iterator:
+            fm = getattr(ds, "features_mask", None)
+            out = self.output(ds.features,
+                              fmasks=None if fm is None else [fm])[0]
+            ev.eval(ds.labels, host_array(out),
+                    mask=getattr(ds, "labels_mask", None))
+        return ev
+
+    def evaluate_regression(self, iterator):
+        """Per-column regression metrics of the first output (JAX graph.py
+        :857)."""
+        from ..evaluation.evaluation import RegressionEvaluation
+        ev = RegressionEvaluation()
+        for ds in iterator:
+            fm = getattr(ds, "features_mask", None)
+            out = self.output(ds.features,
+                              fmasks=None if fm is None else [fm])[0]
+            ev.eval(ds.labels, host_array(out),
+                    mask=getattr(ds, "labels_mask", None))
+        return ev
 
     # -- params ----------------------------------------------------------------
     def num_params(self) -> int:

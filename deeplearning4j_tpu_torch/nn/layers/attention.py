@@ -51,6 +51,8 @@ def _tracing() -> bool:
 
 @register_impl("SelfAttentionLayer")
 class SelfAttentionLayerImpl(BaseRecurrentImpl):
+    WEIGHT_KEYS = ("Wq", "Wk", "Wv", "Wo")
+    TBPTT_STATE = False  # the KV cache is inference-only state
 
     def _kv_heads(self) -> int:
         conf = self.conf

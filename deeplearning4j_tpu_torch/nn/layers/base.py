@@ -162,14 +162,28 @@ class LayerImpl:
 
 
 class BaseRecurrentImpl(LayerImpl):
-    """Layers that carry inference state between calls (the attention KV
-    cache). ``forward_with_state(params, x, state0)`` returns (y, state);
-    train mode, or state0 None, runs the stateless full-sequence forward.
-    ``init_state(batch, dtype, device)`` makes a fresh state."""
+    """Layers that carry state between calls: the recurrent layers' h (and
+    c), the attention layer's KV cache (JAX recurrent.py :31).
+    ``forward_with_state(params, x, state0)`` returns (y, state); state0
+    None starts from ``init_state``. ``step`` runs one timestep."""
+
+    WEIGHT_KEYS = ("W", "RW")
+    # whether truncated BPTT carries this impl's state across windows (true
+    # RNN state; the attention KV cache opts out, it is inference-only)
+    TBPTT_STATE = True
 
     def init_state(self, batch: int, dtype=torch.float32,
                    device=torch.device("cpu")) -> dict:
         raise NotImplementedError
+
+    def step(self, params: Params, x_t: Tensor, state: dict
+             ) -> Tuple[Tensor, dict]:
+        """One timestep for stateful inference."""
+        raise NotImplementedError
+
+    def forward(self, params, x, *, train=False, gen=None, mask=None):
+        return self.forward_with_state(params, x, None, train=train, gen=gen,
+                                       mask=mask)[0]
 
     def forward_with_state(self, params: Params, x: Tensor, state0, *,
                            train: bool = False,
@@ -178,13 +192,35 @@ class BaseRecurrentImpl(LayerImpl):
                            ) -> Tuple[Tensor, Optional[dict]]:
         raise NotImplementedError
 
+    @staticmethod
+    def _mask_carry(new_state: dict, old_state: dict, m_t: Tensor) -> dict:
+        """Masked timesteps keep the previous state (variable-length
+        sequences): m * new + (1 - m) * old."""
+        return {k: m_t * new_state[k] + (1.0 - m_t) * old_state[k]
+                for k in new_state}
 
-def materialize_rnn_states(impl_items, existing, batch: int, dtype, device
-                           ) -> dict:
+
+def materialize_rnn_states(impl_items, existing, batch: int, dtype, device,
+                           *, tbptt: bool = False) -> dict:
     """Initial states of the stateful layers (JAX recurrent.py :59): the
-    existing entries kept, the rest made with ``init_state``."""
+    existing entries kept, the rest made with ``init_state``. ``tbptt``
+    keeps to the impls whose state truncated BPTT carries across windows:
+    the others (the attention KV cache) get the key with None, so every
+    window runs them stateless."""
     states = dict(existing or {})
     for key, impl in impl_items:
-        if isinstance(impl, BaseRecurrentImpl) and states.get(key) is None:
+        if not isinstance(impl, BaseRecurrentImpl):
+            continue
+        if tbptt and not impl.TBPTT_STATE:
+            states.setdefault(key, None)
+            continue
+        if states.get(key) is None:
             states[key] = impl.init_state(batch, dtype, device)
     return states
+
+
+def detach_states(states: dict) -> dict:
+    """Each state cut from the graph of the window that made it (JAX's
+    `stop_gradient` between truncated-BPTT windows); None stays None."""
+    return {k: None if v is None else {n: t.detach() for n, t in v.items()}
+            for k, v in states.items()}

@@ -1,6 +1,5 @@
-"""BatchNormalization and LayerNormalization impls — port of
-deeplearning4j_tpu/nn/layers/normalization.py (LRN comes with a later
-slice).
+"""BatchNormalization, LocalResponseNormalization and LayerNormalization
+impls — port of deeplearning4j_tpu/nn/layers/normalization.py.
 
 Variances are POPULATION variances, as `jnp.var` computes them
 (``unbiased=False``; torch's default is the unbiased estimator).
@@ -104,6 +103,15 @@ class BatchNormalizationImpl(LayerImpl):
                 and tuple(pool_conf.stride) == (2, 2)
                 and (pool_conf.convolution_mode == "same"
                      or tuple(pool_conf.padding) == (0, 0)))
+
+
+@register_impl("LocalResponseNormalization")
+class LocalResponseNormalizationImpl(LayerImpl):
+    """Cross-channel LRN over the `lrn` seam (ops/helpers.py), NHWC."""
+
+    def forward(self, params, x, *, train=False, gen=None, mask=None):
+        c = self.conf
+        return ophelpers.lrn(x, k=c.k, n=c.n, alpha=c.alpha, beta=c.beta)
 
 
 @register_impl("LayerNormalization")

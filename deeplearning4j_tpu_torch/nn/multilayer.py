@@ -1,7 +1,8 @@
 """MultiLayerNetwork: the sequential-network facade — port of
 deeplearning4j_tpu/nn/multilayer.py (init, forward with the BN+pool pair
-fusion, loss, regularization, the hand-written updater step, fit_batch,
-fit, output, score and the flat parameter views).
+fusion and the recurrent layers' states, loss, regularization, the
+hand-written updater step, fit_batch, truncated BPTT, fit, output,
+rnn_time_step, score, evaluate and the flat parameter views).
 
 Autograd replaces `jax.value_and_grad`: a train step makes each parameter
 a leaf that requires grad, runs the train-mode forward, and takes the
@@ -10,7 +11,10 @@ gradients of the batch-mean loss plus the l1/l2 terms with
 written out (gradient normalization, lr schedule, bias lr, the updater's
 rule, decoupled weight decay), not `torch.optim`. PyTorch runs eagerly,
 so there is no jit cache and no `fit_scan`: `fit` runs one `fit_batch`
-per minibatch.
+per minibatch, or, for a truncated-BPTT net fed a time series, one per
+window of ``tbptt_fwd_length`` steps (the last may be shorter), the
+recurrent states carried from window to window and detached between them
+(JAX multilayer.py :679-706).
 
 Remat (``conf.remat``) checkpoints each layer of the train-mode forward
 but the loss path's last layer (nn/layers/base.remat_forward), and then,
@@ -31,9 +35,10 @@ raises ValueError.
 Parameters live on ``device`` (default "cuda"; it raises when no CUDA
 device is present — pass device="cpu" to run on the CPU). The conv and
 BN+act+pool layers run the port's CUDA kernels there (ops/helpers.py),
-the f32 or the bf16 ones by the compute dtype.
+the f32 or the bf16 ones by the compute dtype; the recurrent layers run
+plain PyTorch on either device (JAX has no kernel for them).
 Not ported yet, and raising where a config asks for them: solvers other
-than SGD, truncated BPTT, layerwise pretraining and recurrent layers.
+than SGD and layerwise pretraining (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -45,12 +50,14 @@ import torch
 from .conf.config import BACKPROP_TBPTT, MultiLayerConfiguration
 from .conf.preprocessors import (CnnToRnnPreProcessor,
                                  FeedForwardToRnnPreProcessor)
-from .layers.base import BaseRecurrentImpl, LayerImpl, impl_for, \
-    remat_forward
+from .layers.base import (BaseRecurrentImpl, LayerImpl, detach_states,
+                          impl_for, materialize_rnn_states, remat_forward)
 # importing the impl modules registers them
+from .layers import attention as _attention  # noqa: F401
 from .layers import convolution as _convolution
 from .layers import feedforward as _feedforward  # noqa: F401
 from .layers import normalization as _normalization
+from .layers import recurrent as _recurrent  # noqa: F401
 from .precision import (cast_floats, compute_dtype_of, dtype_of, host_array,
                         host_floats, input_dtype)
 from .updater.apply import update_layer
@@ -65,14 +72,14 @@ _SGD_ALGOS = ("stochastic_gradient_descent", "sgd")
 def _check_supported(conf: MultiLayerConfiguration) -> None:
     g = conf.conf
     if conf.pretrain:
-        raise NotImplementedError("layerwise pretraining comes with a later "
-                                  "slice")
+        raise NotImplementedError("layerwise pretraining is queued as "
+                                  "ROADMAP A5")
     if (g.optimization_algo or "stochastic_gradient_descent").lower() \
             not in _SGD_ALGOS:
         raise NotImplementedError(
             f"optimization_algo={g.optimization_algo!r}: the port trains "
-            "with SGD-family updaters; the line-search solvers come with a "
-            "later slice")
+            "with SGD-family updaters; the line-search solvers are queued "
+            "as ROADMAP A5")
 
 
 class MultiLayerNetwork:
@@ -84,11 +91,7 @@ class MultiLayerNetwork:
         self.dtype = dtype_of(conf.conf)
         self.compute_dtype = compute_dtype_of(conf.conf)
         self._impls: List[LayerImpl] = [impl_for(l) for l in conf.layers]
-        for i, impl in enumerate(self._impls):
-            if isinstance(impl, BaseRecurrentImpl):
-                raise NotImplementedError(
-                    f"layer {i} ({type(impl).__name__}): recurrent layers "
-                    "in a MultiLayerNetwork come with a later slice")
+        self._rnn_state: Dict[int, Any] = {}
         self.params: List[Dict[str, Tensor]] = []
         self.variables: List[Dict[str, Tensor]] = []
         self.updater_state: List[Dict[str, Dict[str, Tensor]]] = []
@@ -162,11 +165,15 @@ class MultiLayerNetwork:
     # ------------------------------------------------------------- forward ---
     def _forward_impl(self, params, variables, x, *, train: bool,
                       gen: Optional[torch.Generator] = None, fmask=None,
+                      states: Optional[Dict[int, Any]] = None,
                       upto: Optional[int] = None, fuse_pairs: bool = False,
                       want_preout: bool = False):
         """Forward through layers [0, upto). Returns (activations per
-        layer, new variables, the last layer's PRE-activation when
-        ``want_preout`` else None).
+        layer, new variables, the stateful layers' new states by layer
+        index, the last layer's PRE-activation when ``want_preout`` else
+        None). A stateful layer starts from ``states[i]`` where given,
+        else from zeros (the attention layer then runs its stateless
+        full-sequence path).
 
         ``fuse_pairs`` (set only by the train step, whose activations feed
         nothing but the loss) runs each [BatchNormalization -> 2x2/s2 max
@@ -184,6 +191,7 @@ class MultiLayerNetwork:
         timesteps = cur.shape[1] if cur.ndim == 3 else 1
         acts: List[Tensor] = []
         new_vars = list(variables)
+        new_states: Dict[int, Any] = {}
         preout = None
         ckpt = train and bool(conf.conf.remat)
         i = 0
@@ -214,7 +222,11 @@ class MultiLayerNetwork:
                 cur = y
                 i += 2
                 continue
-            if (want_preout and i == n - 1
+            if isinstance(impl, BaseRecurrentImpl):
+                y, new_states[i] = remat_forward(
+                    impl, train=train, ckpt=ckpt, recurrent=True)(
+                    params[i], cur, (states or {}).get(i), gen, mask)
+            elif (want_preout and i == n - 1
                     and hasattr(impl, "forward_with_preout")):
                 y, preout = impl.forward_with_preout(
                     params[i], cur, train=train, gen=gen, mask=mask)
@@ -227,7 +239,7 @@ class MultiLayerNetwork:
             acts.append(y)
             cur = y
             i += 1
-        return acts, new_vars, preout
+        return acts, new_vars, new_states, preout
 
     def _loss_from_output(self, out: Tensor, y: Tensor,
                           lmask: Optional[Tensor],
@@ -260,14 +272,19 @@ class MultiLayerNetwork:
         variables). The loss is the batch mean plus regularization (JAX
         `_build_loss_fn`, multilayer.py :298), with the BN+pool pairs
         fused."""
+        return self._train_grads(x, y, fmask, lmask)[:3]
+
+    def _train_grads(self, x, y, fmask, lmask, states=None):
+        """(loss, gradients, new variables, new recurrent states): the
+        train step's forward from ``states`` (None: zeros) and backward."""
         self._check_init()
         x, y = self._as_tensor(x), self._as_tensor(y)
         fmask, lmask = self._as_tensor(fmask), self._as_tensor(lmask)
         params = [{k: v.detach().requires_grad_(True) for k, v in lp.items()}
                   for lp in self.params]
-        acts, new_vars, preout = self._forward_impl(
+        acts, new_vars, new_states, preout = self._forward_impl(
             params, self.variables, x, train=True, gen=self._gen,
-            fmask=fmask, fuse_pairs=True, want_preout=True)
+            fmask=fmask, states=states, fuse_pairs=True, want_preout=True)
         loss = (self._loss_from_output(acts[-1], y, lmask, preout=preout)
                 + self._reg_loss(params)).float()
         leaves = [p for lp in params for p in lp.values()]
@@ -281,7 +298,7 @@ class MultiLayerNetwork:
                 gk = next(flat_iter)
                 g[k] = torch.zeros_like(p) if gk is None else gk
             grads.append(g)
-        return loss.detach(), grads, new_vars
+        return loss.detach(), grads, new_vars, new_states
 
     def _apply_updaters(self, params, grads, ustates, step: int):
         """(new params, new updater states) — JAX multilayer.py :262."""
@@ -298,17 +315,19 @@ class MultiLayerNetwork:
             new_ustates.append(lu)
         return new_params, new_ustates
 
-    def fit_batch(self, x, y, fmask=None, lmask=None):
+    def fit_batch(self, x, y, fmask=None, lmask=None, states=None,
+                  carry_state: bool = False):
         """``conf.iterations`` optimization steps (at least one) on one
-        minibatch; the score stays on the device until read."""
+        minibatch; the score stays on the device until read. With
+        ``carry_state`` each iteration starts the recurrent layers from
+        ``states`` (one truncated-BPTT window; JAX multilayer.py :516).
+        Returns the last iteration's new recurrent states."""
         self._check_init()
         x, y = self._as_tensor(x), self._as_tensor(y)
-        if self.conf.backprop_type == BACKPROP_TBPTT and x.ndim == 3:
-            raise NotImplementedError("truncated BPTT comes with a later "
-                                      "slice")
+        out_states = states
         for _ in range(max(1, self.conf.conf.iterations)):
-            loss, grads, new_vars = self.compute_gradient_and_score(
-                x, y, fmask, lmask)
+            loss, grads, new_vars, out_states = self._train_grads(
+                x, y, fmask, lmask, states if carry_state else None)
             self.params, self.updater_state = self._apply_updaters(
                 self.params, grads, self.updater_state, self.step)
             self.variables = new_vars
@@ -316,31 +335,62 @@ class MultiLayerNetwork:
             self.step += 1
             for listener in self.listeners:
                 listener.iteration_done(self, self.step)
+        return out_states
+
+    def _fit_one(self, x, y, fmask, lmask):
+        x = self._as_tensor(x)
+        if self.conf.backprop_type == BACKPROP_TBPTT and x.ndim == 3:
+            self._do_truncated_bptt(x, y, fmask, lmask)
+        else:
+            self.fit_batch(x, y, fmask, lmask)
+
+    def _do_truncated_bptt(self, x, y, fmask, lmask):
+        """One fit_batch per window of ``tbptt_fwd_length`` steps (JAX
+        multilayer.py :686; ``tbptt_back_length`` is not read, as in JAX),
+        the last window shorter where T is not a multiple. 2-d labels go
+        whole to every window. The recurrent states start at zeros, carry
+        from window to window and are detached between windows; the
+        attention layers run each window stateless."""
+        x, y = self._as_tensor(x), self._as_tensor(y)
+        fmask, lmask = self._as_tensor(fmask), self._as_tensor(lmask)
+        T = x.shape[1]
+        L = self.conf.tbptt_fwd_length
+        states = materialize_rnn_states(
+            enumerate(self._impls), {}, x.shape[0], self.compute_dtype,
+            self.device, tbptt=True)
+        for start in range(0, T, L):
+            end = min(start + L, T)
+            states = self.fit_batch(
+                x[:, start:end], y[:, start:end] if y.ndim == 3 else y,
+                None if fmask is None else fmask[:, start:end],
+                None if lmask is None else lmask[:, start:end],
+                states=states, carry_state=True)
+            states = detach_states(states)
 
     # ------------------------------------------------------------------ fit --
     def fit(self, data, labels=None):
         """fit(DataSetIterator) | fit(DataSet) | fit(x, y)."""
         self._check_init()
         if labels is not None:
-            self.fit_batch(data, labels)
+            self._fit_one(data, labels, None, None)
             return self
         if hasattr(data, "features"):  # one DataSet
-            self.fit_batch(data.features, data.labels,
-                           getattr(data, "features_mask", None),
-                           getattr(data, "labels_mask", None))
+            self._fit_one(data.features, data.labels,
+                          getattr(data, "features_mask", None),
+                          getattr(data, "labels_mask", None))
             return self
         if self.conf.backprop:
             self._fit_iterator(data)
         return self
 
     def _fit_iterator(self, iterator):
-        """One fit_batch per minibatch of the iterator (iterating resets
-        it first). The JAX package's background prefetch and its lax.scan
-        chunks have no counterpart here yet."""
+        """One fit_batch (or one truncated-BPTT pass) per minibatch of the
+        iterator (iterating resets it first). The JAX package's background
+        prefetch and its lax.scan chunks have no counterpart here yet."""
         for ds in iterator:
-            self.fit_batch(ds.features, ds.labels,
-                           getattr(ds, "features_mask", None),
-                           getattr(ds, "labels_mask", None))
+            self._fit_one(ds.features, ds.labels,
+                          getattr(ds, "features_mask", None),
+                          getattr(ds, "labels_mask", None))
 
     # ---------------------------------------------------------- inference ----
     @torch.no_grad()
@@ -349,9 +399,10 @@ class MultiLayerNetwork:
         train-mode dropout and batch statistics (the running statistics
         are not updated)."""
         self._check_init()
-        acts, _, _ = self._forward_impl(
+        acts = self._forward_impl(
             self.params, self.variables, self._as_tensor(x), train=train,
-            gen=self._gen if train else None, fmask=self._as_tensor(fmask))
+            gen=self._gen if train else None,
+            fmask=self._as_tensor(fmask))[0]
         return acts[-1]
 
     def predict(self, x) -> np.ndarray:
@@ -362,9 +413,9 @@ class MultiLayerNetwork:
         """All layer activations, the input first."""
         self._check_init()
         x = self._as_tensor(x)
-        acts, _, _ = self._forward_impl(self.params, self.variables, x,
-                                        train=train,
-                                        gen=self._gen if train else None)
+        acts = self._forward_impl(self.params, self.variables, x,
+                                  train=train,
+                                  gen=self._gen if train else None)[0]
         return [x] + acts
 
     @torch.no_grad()
@@ -380,12 +431,65 @@ class MultiLayerNetwork:
             fmask = getattr(dataset, "features_mask", None)
         else:
             lmask = fmask = None
-        acts, _, preout = self._forward_impl(
+        acts, _, _, preout = self._forward_impl(
             self.params, self.variables, self._as_tensor(x), train=False,
             fmask=self._as_tensor(fmask), want_preout=True)
         loss = self._loss_from_output(acts[-1], self._as_tensor(y),
                                       self._as_tensor(lmask), preout=preout)
         return float(loss + self._reg_loss(self.params))
+
+    def evaluate(self, iterator, top_n: int = 1):
+        """Classification metrics over a dataset iterator (JAX
+        multilayer.py :939): accuracy, top-n, precision, recall, f1 and
+        the confusion matrix, from the outputs read back per minibatch."""
+        from ..evaluation.evaluation import Evaluation
+        ev = Evaluation(top_n=top_n)
+        for ds in iterator:
+            out = self.output(ds.features,
+                              fmask=getattr(ds, "features_mask", None))
+            ev.eval(ds.labels, host_array(out),
+                    mask=getattr(ds, "labels_mask", None))
+        return ev
+
+    def evaluate_regression(self, iterator):
+        """Per-column regression metrics over a dataset iterator (JAX
+        multilayer.py :948)."""
+        from ..evaluation.evaluation import RegressionEvaluation
+        ev = RegressionEvaluation()
+        for ds in iterator:
+            out = self.output(ds.features,
+                              fmask=getattr(ds, "features_mask", None))
+            ev.eval(ds.labels, host_array(out),
+                    mask=getattr(ds, "labels_mask", None))
+        return ev
+
+    # -------------------------------------------------------- rnn stepping ---
+    @torch.no_grad()
+    def rnn_time_step(self, x) -> Tensor:
+        """Stateful streaming inference (JAX multilayer.py :837): x [B, T,
+        F] (or [B, F], one step) continues where the last call ended; the
+        recurrent layers' h/c and the attention layers' KV caches are kept
+        between calls until ``rnn_clear_previous_state``. Returns the
+        output for these steps, on the net's device."""
+        self._check_init()
+        x = self._as_tensor(x)
+        if x.ndim == 2:
+            x = x[:, None, :]
+        states = materialize_rnn_states(
+            enumerate(self._impls), self._rnn_state, x.shape[0],
+            self.compute_dtype, self.device)
+        acts, _, self._rnn_state, _ = self._forward_impl(
+            self.params, self.variables, x, train=False, states=states)
+        return acts[-1]
+
+    def rnn_clear_previous_state(self):
+        self._rnn_state = {}
+
+    def rnn_get_previous_state(self, layer_idx: int):
+        return self._rnn_state.get(layer_idx)
+
+    def rnn_set_previous_state(self, layer_idx: int, state):
+        self._rnn_state[layer_idx] = state
 
     # ------------------------------------------------------------ params -----
     def num_params(self) -> int:

@@ -1,7 +1,9 @@
 """Accelerated-op helper seam — port of deeplearning4j_tpu/ops/helpers.py
-(the registry and the conv / pool / batch-norm / BN+act+pool /
-full-sequence attention (flash below SPLASH_MIN_LEN, splash from it) /
-paged-decode seams; the LSTM seam comes with the slice that runs it).
+(the registry and the conv / pool / batch-norm / BN+act+pool / LSTM
+sequence / LRN / full-sequence attention (flash below SPLASH_MIN_LEN,
+splash from it) / paged-decode seams). The LSTM sequence and LRN seams
+have no kernel in either package (JAX retired its LSTM kernel,
+pallas_kernels.py :211-230): their defaults are plain PyTorch.
 
 A registry of op implementations: `register_helper(name, fn)` overrides
 an op, `register_helper(name, None)` restores its default. Where the JAX
@@ -185,6 +187,51 @@ def conv2d_bias_act_plain(x, w, b, *, stride=(1, 1), padding="SAME",
     return ck.conv2d_bias_act_ref(x, w, b, activation=act, **conv)
 
 
+# -- fused LSTM sequence -------------------------------------------------------
+
+def lstm_cell(z, c_prev, peep, act_fn):
+    """One LSTM cell step from pre-activations z = x W + b + h RW (JAX
+    helpers.py :85). Gate packing [i, f, o, g]; ``peep`` = (pI, pF, pO)
+    peephole weights (zeros for a plain LSTM): i and f see c_prev, o sees
+    the new c. THE single definition of the cell math, shared by the
+    sequence default below and the recurrent layers' per-step path
+    (masked sequences, rnn_time_step)."""
+    H = c_prev.shape[-1]
+    i = torch.sigmoid(z[..., :H] + c_prev * peep[0])
+    f = torch.sigmoid(z[..., H:2 * H] + c_prev * peep[1])
+    g = act_fn(z[..., 3 * H:])
+    c = f * c_prev + i * g
+    o = torch.sigmoid(z[..., 2 * H:3 * H] + c * peep[2])
+    h = o * act_fn(c)
+    return h, c
+
+
+def _lstm_sequence_default(xproj_t, rw, peep, h0, c0, *, activation,
+                           reverse):
+    """The port of JAX's `lax.scan` default: a Python loop over T, each
+    step ``xp + h @ rw`` then `lstm_cell`; with ``reverse`` the walk runs
+    from T-1 down to 0 and y[t] still lands at index t."""
+    act_fn = activations.get(activation)
+    T = xproj_t.shape[0]
+    h, c = h0, c0
+    ys = [None] * T
+    for t in (range(T - 1, -1, -1) if reverse else range(T)):
+        h, c = lstm_cell(xproj_t[t] + h @ rw, c, peep, act_fn)
+        ys[t] = h
+    return torch.stack(ys), h, c
+
+
+def lstm_sequence(xproj_t: Tensor, rw: Tensor, peep: Tensor, h0: Tensor,
+                  c0: Tensor, *, activation="tanh", reverse=False):
+    """LSTM over a pre-projected sequence (JAX helpers.py :114). xproj_t:
+    [T, B, 4H] = x W + b for all timesteps; gate packing [i, f, o, g];
+    peep: [3, H] peephole weights (zeros: plain LSTM). Returns (ys [T, B,
+    H], h_T, c_T)."""
+    impl = _HELPERS.get("lstm_sequence", _lstm_sequence_default)
+    return impl(xproj_t, rw, peep, h0, c0, activation=activation,
+                reverse=reverse)
+
+
 # -- pool2d --------------------------------------------------------------------
 
 def _pool_pads(h, w, kernel, stride, padding):
@@ -246,6 +293,27 @@ def batch_norm(x, gamma, beta, mean, var, *, eps=1e-5) -> Tensor:
 # Per-channel batch (mean, var) over all but the last axis (JAX helpers.py
 # :180); the kernels' module holds it, as the composite's forward uses it.
 bn_batch_stats = ck.bn_batch_stats
+
+
+# -- local response normalization ---------------------------------------------
+
+def _lrn_default(x, *, k, n, alpha, beta):
+    """x / (k + alpha * s)^beta, s the sum of squares over a window of
+    2 * (n // 2) + 1 channels (channels last), zero-padded at the ends —
+    JAX's `lax.reduce_window` (helpers.py :229). Not
+    `F.local_response_norm`, which divides alpha by n and averages."""
+    half = int(n) // 2
+    C = x.shape[-1]
+    sq = F.pad(x * x, (half, half))
+    s = sq[..., 0:C]
+    for j in range(1, 2 * half + 1):
+        s = s + sq[..., j:j + C]
+    return x / torch.pow(k + alpha * s, beta)
+
+
+def lrn(x: Tensor, *, k=2.0, n=5.0, alpha=1e-4, beta=0.75) -> Tensor:
+    impl = _HELPERS.get("lrn", _lrn_default)
+    return impl(x, k=k, n=n, alpha=alpha, beta=beta)
 
 
 # -- fused train-mode BatchNorm + activation + 2x2/s2 max-pool ----------------

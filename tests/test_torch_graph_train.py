@@ -200,14 +200,20 @@ def test_fit_on_cpu_lowers_the_loss_and_is_seeded():
 
 
 def test_what_the_slice_leaves_out_raises():
-    with pytest.raises(NotImplementedError, match="truncated BPTT"):
-        NeuralNetConfiguration.builder().graph_builder().backprop_type(
-            BACKPROP_TBPTT)
+    # truncated BPTT: the builder keeps it, and a TBPTT transformer
+    # trains one step per window with its attention layers stateless in
+    # every window, as the JAX graph does
+    assert NeuralNetConfiguration.builder().graph_builder().backprop_type(
+        BACKPROP_TBPTT)._backprop_type == BACKPROP_TBPTT
     x, y = _batch(11)
-    conf = tlm(**_kw("mha"))
-    conf.backprop_type = BACKPROP_TBPTT
-    with pytest.raises(NotImplementedError, match="truncated BPTT"):
-        TGraph(conf, device="cpu").fit(x, y)
+    jnet, tnet = _pair("mha")
+    for net in (jnet, tnet):
+        net.conf.backprop_type = BACKPROP_TBPTT
+        net.conf.tbptt_fwd_length = 4
+    jnet.fit(x, y)
+    tnet.fit(x, y)
+    assert tnet.step == jnet.step == 3  # windows of 4, 4 and 1 steps
+    assert tnet.score_ == pytest.approx(float(jnet.score_), rel=1e-5)
     conf = tlm(**_kw("mha"))
     conf.conf.optimization_algo = "lbfgs"
     with pytest.raises(NotImplementedError, match="solvers"):

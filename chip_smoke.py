@@ -345,8 +345,38 @@ non-zero without them, or when any phase fails. Phases:
      Dropout at p=0, Loss) on the card against the CPU, forward and
      gradients, within 1e-5 of max |CPU|; every kernel launch counter
      stands still over phases 24-25;
- 26. prints the kernels line (the bf16 kernels as rows of their own,
-     named "<kernel>_bf16").
+ 26. serving paths of the slice after A3: (a) the char-RNN of phase 24,
+     trained 10 fits, served through /generate from the engine's own h/c
+     rows: 16 requests at once (prompt 20, 100 new, half seeded top-k)
+     over 8 slots, prefill chunk 32, captured and eager (decode_graphs
+     "off"); gates: tokens identical to generate_rnn solo on the card,
+     one decode and one capture per chunk bucket, all in warmup(), no
+     kernel launch; prints characters/s and the busy share (a profiled
+     second wave); (b) the flagship LM at bf16 and mixed (phase 3's width,
+     the same seed's params rounded) through the engine on phase 3's
+     requests, paged and contiguous: every served row within 2^-6 of the
+     solo cached row on its context (rnn_time_step, teacher-forced), and
+     tokens identical to solo generate_transformer(use_cache=True) at the
+     same dtype, or parting only where the served row and solo's give the
+     two tokens under the same RNG draw (a bf16 near tie: a chunked prompt
+     rounds otherwise than a whole one; printed), caches bf16,
+     no kernel launch (the paged seam declines a bf16 query; the kernel's
+     wrapper, called with one, raises); prints tokens/s; (c) phase 3's
+     paged wave on a server whose warmup() captured the masked decode
+     steps too (decode_warm_masks), fp32 pages and int8: unconstrained
+     (cold, then again on the published prompts), with an admit-all
+     grammar on every request, and with neutral penalties; gates: tokens identical to phase 3's (phase 4's), every
+     step of the admit-all wave the masked graph and the paged kernel
+     launched 4 x its steps inside it, no capture past warmup(); then (fp32)
+     a trie grammar forces its sequence ("grammar"), three JSON-schema
+     completions parse, a stop sequence cuts request 0 ("stop"), and
+     /generate n=4 on a 1024-token prompt returns 4 candidates, candidate
+     0 the n=1 output, 3 followers restoring the primary's blocks and
+     every reference returned; prints the masked and unmasked steps' mean
+     ms from the same server;
+ 27. prints the kernels line (the bf16 kernels as rows of their own,
+     named "<kernel>_bf16"; the paged rows carry phase 26's masked-wave
+     launches as "masked_launches").
 
 The last line is {"ok": true, "device": {...}}. Every number printed is
 measured in this run; a "[details]" JSON line before the kernels line
@@ -2805,6 +2835,507 @@ def a3_phases(torch, ck, card, dev="cuda"):
     return {"char_rnn": r, "mlp_iris": iris, "a3_layers": layers}
 
 
+
+# -- phase 26: the char-RNN served, bf16 decode, grammars, best-of-n --------
+
+CHAR_SLOTS, CHAR_REQS, CHAR_CHUNK = 8, 16, 32
+# phase 26's JSON schema (an object of a 2-digit integer and a string of
+# at most 3 of "abc") over an alphabet of 128 one-character tokens
+GRAMMAR_SCHEMA = {"type": "object", "properties": {
+    "a": {"type": "integer", "maxDigits": 2},
+    "b": {"type": "string", "maxLength": 3, "charset": "abc"}}}
+GRAMMAR_ALPHABET = ([chr(c) for c in range(32, 127)]
+                    + [chr(c) for c in range(161, 194)])
+
+
+# phase 26b: a bf16 row served against the solo cached row on the same
+# context, absolute (the rows are probabilities; four bf16 ulps at 0.5)
+BF16_ROW_TOL = 2.0 ** -6
+
+
+def draw(row, body, k):
+    """The token `models.sampling.sample_logits` draws from ``row`` at
+    request ``body``'s step ``k``: its RNG (``default_rng(seed)``, one
+    uniform a sampled step) replayed to step k."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.sampling import sample_logits
+    rng = np.random.default_rng(body.get("seed", 0))
+    if body.get("temperature", 0.0) > 0.0:
+        rng.random(k)
+    return sample_logits(row, body.get("temperature", 0.0),
+                         body.get("top_k"), rng, body.get("top_p"))
+
+
+def cached_rows(net, prompt, toks, vocab):
+    """The rows [len(toks), vocab] f32 that solo cached decode computes on
+    the context ``prompt + toks``: the prompt in one rnn_time_step, then
+    one token a step (teacher forcing)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.sampling import onehot
+    net.rnn_clear_previous_state()
+    out = []
+    try:
+        for ids in [list(prompt)] + [[t] for t in toks[:-1]]:
+            r = net.rnn_time_step(onehot(ids, vocab))
+            out.append((r[0] if isinstance(r, list) else r)[0, -1]
+                       .float().cpu().numpy())
+    finally:
+        net.rnn_clear_previous_state()
+    return np.stack(out)
+
+
+def top2_gap(net, prompt, toks, k, vocab):
+    """The top-two probability gap of ``net``'s cached row that gave
+    ``toks[k]`` after ``prompt`` (the prompt and toks[:k] fed through
+    rnn_time_step)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.sampling import onehot
+    net.rnn_clear_previous_state()
+    try:
+        row = net.rnn_time_step(onehot(list(prompt) + list(toks[:k]), vocab))
+        row = row[0] if isinstance(row, list) else row
+        row = np.sort(row[0, -1].float().cpu().numpy())
+    finally:
+        net.rnn_clear_previous_state()
+    return float(row[-1] - row[-2]), float(row[-1])
+
+
+def char_serving(torch, ck, card, dev="cuda"):
+    """Phase 26a: the char-RNN of phase 24 (trained CHAR_FITS fits, so its
+    rows are peaked) served through /generate: CHAR_REQS requests of a
+    CHAR_PROMPT-character prompt and CHAR_NEW new characters at once over
+    CHAR_SLOTS slots, half greedy, half seeded top-k, on a captured server
+    and on an eager one (decode_graphs "off"); the tokens of both equal
+    generate_rnn's solo on the card. No hand-written kernel runs."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning4j_tpu_torch.models.sampling import generate_rnn
+    from deeplearning4j_tpu_torch.serving.server import InferenceServer
+    x, y, ids = char_batch(24, CHAR_B, CHAR_T)
+    net = char_net(torch, dev)
+    char_fit(torch, net, x, y, CHAR_FITS)
+    bodies = []
+    for i in range(CHAR_REQS):
+        body = {"prompt": [int(t) for t in ids[i, :CHAR_PROMPT]],
+                "max_new_tokens": CHAR_NEW}
+        if i % 2:
+            body.update(temperature=0.8, top_k=20, seed=300 + i)
+        bodies.append(body)
+    t0 = time.monotonic()
+    solo = [generate_rnn(net, b["prompt"], CHAR_NEW, CHAR_V, **sampling_kw(b))
+            for b in bodies]
+    solo_s = time.monotonic() - t0
+    launches0 = dict(ck.LAUNCHES)
+    runs, failures = {}, []
+    for graphs in ("on", "off"):
+        srv = InferenceServer(net=net, decode_vocab=CHAR_V,
+                              decode_slots=CHAR_SLOTS,
+                              prefill_chunk=CHAR_CHUNK, decode_graphs=graphs,
+                              device=dev).start()
+        try:
+            dec = srv.decoder
+            warm = warm_counts(dec)
+            post(srv.port, {"prompt": bodies[0]["prompt"],
+                            "max_new_tokens": 4})
+            dec.reset_counters()
+            t0 = time.monotonic()
+            outs = post_all(srv.port, bodies)
+            sync(torch, dev)
+            wall = time.monotonic() - t0
+            toks = [o["tokens"] for o in outs]
+            n_tok = sum(map(len, toks))
+            st = {"wall_s": wall, "tokens": n_tok,
+                  "chars_per_s": n_tok / wall,
+                  "decode_steps": dec.decode_steps,
+                  "mean_decode_step_ms": 1e3 * dec.decode_seconds
+                  / max(dec.decode_steps, 1),
+                  "mean_prefill_chunk_ms": 1e3 * dec.prefill_seconds
+                  / max(dec.prefill_chunks, 1),
+                  **engine_stats(srv, dec, warm)}
+            if graphs == "on":
+                with profile(activities=[ProfilerActivity.CUDA
+                                         if dev != "cpu"
+                                         else ProfilerActivity.CPU]) as prof:
+                    t0 = time.monotonic()
+                    again = post_all(srv.port, bodies)
+                    sync(torch, dev)
+                    pwall = time.monotonic() - t0
+                busy = sum(device_kernels_ms(prof).values())
+                st.update(profiled_wall_ms=pwall * 1e3, device_busy_ms=busy,
+                          device_busy_share=busy / (pwall * 1e3))
+                if [o["tokens"] for o in again] != toks:
+                    failures.append("the profiled char-RNN wave's tokens "
+                                    "differ from the first wave's")
+        finally:
+            srv.stop()
+        runs[graphs] = st
+        if toks != solo:
+            bad = []
+            for i, (a, b) in enumerate(zip(toks, solo)):
+                if a != b:
+                    k = next(j for j, (u, v) in enumerate(zip(a, b))
+                             if u != v)
+                    gap, _ = top2_gap(net, bodies[i]["prompt"], b, k, CHAR_V)
+                    bad.append(f"request {i} step {k} (top-2 gap {gap:.3e})")
+            failures.append(f"char-RNN served ({graphs}) tokens differ from "
+                            f"generate_rnn: {bad}")
+        on = graphs == "on"
+        if not (st["warmup_captures"] == st["captures"] == (1 if on else 0)
+                and st["warmup_prefill_captures"] == st["prefill_captures"]
+                == (len(dec.prefill_buckets) if on else 0)):
+            failures.append(f"char-RNN captures ({graphs}): {st}")
+        if st["restarts"] or st["chunk_row_reads"] != st["final_chunks"]:
+            failures.append(f"char-RNN serving ({graphs}): restarts "
+                            f"{st['restarts']}, chunk reads "
+                            f"{st['chunk_row_reads']} for "
+                            f"{st['final_chunks']} final chunks")
+    moved = {k: v - launches0.get(k, 0) for k, v in ck.LAUNCHES.items()
+             if v != launches0.get(k, 0)}
+    if moved:
+        failures.append(f"kernel launches while serving the char-RNN: "
+                        f"{moved}")
+    on = runs["on"]
+    phase(26, f"char_rnn_lstm (V={CHAR_V}, two GravesLSTM H={CHAR_H}, "
+              f"{CHAR_FITS} fits) served: {CHAR_REQS} /generate at once, "
+              f"prompt {CHAR_PROMPT}, {CHAR_NEW} new, {CHAR_SLOTS} slots, "
+              f"prefill chunk {CHAR_CHUNK}: tokens identical to generate_rnn "
+              f"solo ({solo_s:.2f} s) and to the eager engine: "
+              f"{not failures}; captured {on['chars_per_s']:.2f} characters/s"
+              f" ({on['tokens']} in {on['wall_s']:.3f} s, "
+              f"{on['decode_steps']} decode steps of mean "
+              f"{on['mean_decode_step_ms']:.3f} ms, prefill chunk mean "
+              f"{on['mean_prefill_chunk_ms']:.3f} ms), eager "
+              f"{runs['off']['chars_per_s']:.2f} characters/s (step "
+              f"{runs['off']['mean_decode_step_ms']:.3f} ms); busy "
+              f"{on['device_busy_ms']:.3f} ms of {on['profiled_wall_ms']:.3f}"
+              f" ms ({100 * on['device_busy_share']:.2f}%); captures "
+              f"{on['captures']} decode + {on['prefill_captures']} prefill, "
+              f"all in warmup(); no kernel launch [{card}]")
+    return {"runs": runs, "solo_s": solo_s}, failures
+
+
+def bf16_serving(torch, ck, card, reqs, dev="cuda"):
+    """Phase 26b: the flagship LM at phase 3's width in bf16 and mixed
+    precision (the same seed's params, rounded), served by the engine on
+    phase 3's requests, paged and contiguous: its tokens equal solo
+    generate_transformer(use_cache=True) at the same dtype, and the paged
+    kernel is never launched (its seam declines a bf16 query); the
+    kernel's wrapper refuses a bf16 query."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.inference.engine import DecodeScheduler
+    from deeplearning4j_tpu_torch.models.sampling import generate_transformer
+    from deeplearning4j_tpu_torch.models.zoo import transformer_lm
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    out, failures = {}, []
+    if dev != "cpu":  # (the CPU runs the plain version at any dtype)
+        q = torch.zeros((SLOTS, 1, HEADS, D_MODEL // HEADS),
+                        dtype=torch.bfloat16, device=dev)
+        pages = torch.zeros((3, KV_BLOCK, HEADS, D_MODEL // HEADS),
+                            dtype=torch.float32, device=dev)
+        try:
+            ck.paged_decode_attention(
+                q, pages, pages, torch.zeros((SLOTS, 1), dtype=torch.int32,
+                                             device=dev),
+                torch.zeros((SLOTS,), dtype=torch.int32, device=dev))
+            failures.append("the paged kernel's wrapper took a bf16 query")
+        except TypeError as e:
+            out["wrapper_refusal"] = str(e)
+    for prec in ("bf16", "mixed"):
+        conf = transformer_lm(vocab_size=VOCAB, d_model=D_MODEL,
+                              n_heads=HEADS, n_blocks=BLOCKS, rope=True,
+                              seed=7, dtype="bfloat16" if prec == "bf16"
+                              else "float32")
+        if prec == "mixed":
+            conf.conf.compute_dtype = "bfloat16"
+        net = ComputationGraph(conf, device=dev).init()
+        t0 = time.monotonic()
+        solo = [generate_transformer(net, b["prompt"], NEW_TOKENS, VOCAB,
+                                     use_cache=True, **sampling_kw(b))
+                for b in reqs]
+        solo_s = time.monotonic() - t0
+        for kv in ("paged", "contiguous"):
+            eng = DecodeScheduler(net, VOCAB, n_slots=SLOTS,
+                                  prefill_chunk=CHUNK, kv_block=KV_BLOCK,
+                                  kv_pool_mb=KV_POOL_MB if kv == "paged"
+                                  else 0.0, device=dev)
+            eng.warmup()
+            eng.start()
+            rows = {}
+            consume = eng._consume
+
+            def keep_row(slot, seq, row):
+                # the host row each token is sampled from (a copy)
+                rows.setdefault(seq.handle.request_id, []).append(
+                    np.array(row, np.float32))
+                consume(slot, seq, row)
+            try:
+                eng.generate(reqs[0]["prompt"][:CHUNK + 3], 4, timeout=900)
+                ck.reset_launches()
+                eng.reset_counters()
+                eng._consume = keep_row
+                t0 = time.monotonic()
+                hs = [eng.submit(b["prompt"], NEW_TOKENS, **sampling_kw(b))
+                      for b in reqs]
+                toks = [h.result(900) for h in hs]
+                wall = time.monotonic() - t0
+            finally:
+                eng.stop()
+            n_tok = sum(map(len, toks))
+            r = {"tokens_per_s": n_tok / wall, "wall_s": wall,
+                 "tokens": n_tok, "decode_steps": eng.decode_steps,
+                 "mean_decode_step_ms": 1e3 * eng.decode_seconds
+                 / max(eng.decode_steps, 1),
+                 "paged_launches": ck.LAUNCHES["paged_decode_attention"],
+                 "launches": {k: v for k, v in ck.LAUNCHES.items() if v},
+                 "cache_dtype": str(next(iter(next(iter(
+                     eng._states.values())).values())).dtype),
+                 "solo_s": solo_s, "identical": toks == solo}
+            # every served row against the solo cached row on the served
+            # context; a request whose tokens part from solo's must part
+            # where its own row and solo's, under the same RNG draw, give
+            # the two tokens (a near tie at bf16), and nowhere else
+            parts, row_err = [], 0.0
+            for i, (a, b, h) in enumerate(zip(toks, solo, hs)):
+                got = np.stack(rows[h.request_id])
+                ref = cached_rows(net, reqs[i]["prompt"], a, VOCAB)
+                row_err = max(row_err, float(np.abs(got - ref).max()))
+                if a == b:
+                    continue
+                k = next(j for j, (u, v) in enumerate(zip(a, b)) if u != v)
+                parts.append({
+                    "request": i, "step": k,
+                    "row_diff": float(np.abs(got[k] - ref[k]).max()),
+                    "explained": (draw(got[k], reqs[i], k) == a[k]
+                                  and draw(ref[k], reqs[i], k) == b[k])})
+            r.update(parted=parts, max_row_diff=row_err)
+            out[f"{prec}_{kv}"] = r
+            if row_err > BF16_ROW_TOL or not all(x["explained"]
+                                                 for x in parts):
+                failures.append(f"{prec} {kv}: served rows against solo "
+                                f"cached rows {row_err:.3e} (gate "
+                                f"{BF16_ROW_TOL:.3e}); partings {parts}")
+            if r["launches"] or r["cache_dtype"] != "torch.bfloat16":
+                failures.append(f"{prec} {kv}: launches {r['launches']} "
+                                f"(want none), cache {r['cache_dtype']}")
+            phase(26, f"flagship LM {prec} ({kv}): phase 3's 8 requests "
+                      f"through the engine, tokens identical to solo "
+                      f"generate_transformer(use_cache=True) at the same "
+                      f"dtype {r['identical']} (partings, each at a bf16 "
+                      f"near tie its rows explain: {parts}); every served "
+                      f"row within {row_err:.3e} of the solo cached row on "
+                      f"its context (gate {BF16_ROW_TOL:.3e}); "
+                      f"{r['tokens_per_s']:.2f} "
+                      f"tokens/s ({n_tok} in {wall:.3f} s, "
+                      f"{r['decode_steps']} decode steps of mean "
+                      f"{r['mean_decode_step_ms']:.3f} ms), cache "
+                      f"{r['cache_dtype']}, paged kernel launches "
+                      f"{r['paged_launches']} [{card}]")
+        del net
+        if dev != "cpu":
+            torch.cuda.empty_cache()
+    return out, failures
+
+
+def grammar_serving(torch, ck, card, model_path, reqs, want, kv_dtype,
+                    dev="cuda"):
+    """Phase 26c: phase 3's paged wave (phase 4's with int8 pages) on a
+    server whose warmup() captured the masked decode steps too: the wave
+    unconstrained, then with an admit-all grammar on every request (the
+    masked step on every decode step: tokens identical to phase 3's, the
+    paged kernel launched 4 x the masked steps inside the masked graphs),
+    then with neutral penalties; a trie grammar forces its sequence, a
+    JSON-schema completion parses, a stop sequence cuts the output, and
+    best-of-n (n = 4) returns 4 candidates, candidate 0 the n = 1
+    output, the followers sharing the primary's prompt blocks."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.serving.server import InferenceServer
+    failures, r = [], {}
+    srv = InferenceServer(model_path=model_path, decode_slots=SLOTS,
+                          prefill_chunk=CHUNK, kv_block=KV_BLOCK,
+                          kv_pool_mb=KV_POOL_MB, kv_dtype=kv_dtype,
+                          paged_kernel="on", decode_warm_masks=True,
+                          device=dev).start()
+    tag = kv_dtype or "fp32"
+    try:
+        dec = srv.decoder
+        warm = {"decode": dec.decode_captures, "masked": dec.masked_captures,
+                "prefill": dec.prefill_captures}
+        nb = len(dec.table_buckets)
+        if not (warm["decode"] == warm["masked"] == nb):
+            failures.append(f"{tag}: warmup captured {warm}, want {nb} "
+                            f"decode and {nb} masked steps")
+        post(srv.port, {"prompt": reqs[0]["prompt"][:CHUNK + 3],
+                        "max_new_tokens": 4})
+
+        def wave(extra):
+            ck.reset_launches()
+            dec.reset_counters()
+            t0 = time.monotonic()
+            outs = post_all(srv.port, [{**b, **extra} for b in reqs])
+            sync(torch, dev)
+            wall = time.monotonic() - t0
+            toks = [o["tokens"] for o in outs]
+            return toks, {
+                "wall_s": wall, "tokens_per_s": sum(map(len, toks)) / wall,
+                "decode_steps": dec.decode_steps,
+                "masked_steps": dec.masked_steps,
+                "mean_decode_step_ms": 1e3 * dec.decode_seconds
+                / max(dec.decode_steps, 1),
+                "mean_masked_step_ms": 1e3 * dec.masked_seconds
+                / max(dec.masked_steps, 1),
+                "launches": ck.LAUNCHES["paged_decode_attention"],
+                "finish": sorted({o["finish_reason"] for o in outs})}
+        n_attn = BLOCKS
+        # the first wave publishes the prompts' blocks; the three after
+        # it, compared with each other, all restore them
+        for name, extra in (("cold", {}), ("plain", {}),
+                            ("admit_all", {"grammar": {"type": "admit_all"}}),
+                            ("neutral_penalties",
+                             {"repetition_penalty": 1.0,
+                              "presence_penalty": 0.0,
+                              "frequency_penalty": 0.0})):
+            toks, st = wave(extra)
+            r[name] = st
+            st["identical"] = toks == want
+            if toks != want:
+                failures.append(f"{tag} {name} wave: tokens differ from "
+                                f"phase 3's/4's")
+            masked = name == "admit_all"
+            if st["masked_steps"] != (st["decode_steps"] if masked else 0):
+                failures.append(f"{tag} {name}: {st['masked_steps']} masked "
+                                f"of {st['decode_steps']} decode steps")
+            if st["launches"] != n_attn * st["decode_steps"] \
+                    or not st["launches"]:
+                failures.append(f"{tag} {name}: {st['launches']} paged "
+                                f"launches for {st['decode_steps']} steps")
+        if (dec.decode_captures, dec.masked_captures) != (nb, nb):
+            failures.append(f"{tag}: captures after the waves "
+                            f"{dec.decode_captures} + {dec.masked_captures}")
+        if kv_dtype is None:
+            prompt = reqs[0]["prompt"][:100]
+            forced = [5, 9, 12, 3, 77, 64]
+            o = post(srv.port, {"prompt": prompt, "max_new_tokens": 16,
+                                "grammar": {"type": "trie",
+                                            "sequences": [forced]}})
+            r["trie"] = o["tokens"]
+            if (o["tokens"], o["finish_reason"]) != (forced, "grammar"):
+                failures.append(f"trie grammar: {o['tokens']} "
+                                f"{o['finish_reason']}")
+            r["json"] = []
+            for seed in range(3):
+                o = post(srv.port, {
+                    "prompt": prompt, "max_new_tokens": 40,
+                    "temperature": 1.0, "seed": seed,
+                    "grammar": {"type": "json_schema",
+                                "schema": GRAMMAR_SCHEMA,
+                                "alphabet": GRAMMAR_ALPHABET}})
+                text = "".join(GRAMMAR_ALPHABET[t] for t in o["tokens"])
+                try:
+                    obj = json.loads(text)
+                    ok = (isinstance(obj.get("a"), int)
+                          and set(obj.get("b", "")) <= set("abc")
+                          and o["finish_reason"] == "grammar")
+                except ValueError:
+                    ok = False
+                r["json"].append({"text": text, "ok": ok})
+                if not ok:
+                    failures.append(f"JSON-schema completion {text!r} "
+                                    f"({o['finish_reason']})")
+            base = want[0]
+            stop = base[5:7]
+            first = next(i for i in range(len(base) - 1)
+                         if base[i:i + 2] == stop)
+            o = post(srv.port, {**reqs[0], "stop": stop})
+            r["stop"] = {"tokens": len(o["tokens"]), "cut_at": first,
+                         "finish": o["finish_reason"]}
+            if (o["tokens"], o["finish_reason"]) != (base[:first], "stop"):
+                failures.append(f"stop sequence: {r['stop']}")
+            # best-of-n: a fresh 1024-token prompt (64 blocks, none in the
+            # trie yet), 4 candidates
+            bon = {"prompt": [int(t) for t in np.random.default_rng(
+                       26).integers(0, VOCAB, 1024)],
+                   "max_new_tokens": NEW_TOKENS, "temperature": 0.8,
+                   "top_k": 20, "seed": 100}
+            f0, rt0 = dec.forks, dec.restored_tokens
+            o = post(srv.port, {**bon, "n": 4})
+            forks, restored = dec.forks - f0, dec.restored_tokens - rt0
+            one = post(srv.port, bon)
+            r["best_of_n"] = {
+                "candidates": len(o["candidates"]), "forks": forks,
+                # the prompt positions the followers restored (each feeds
+                # its last token again) and the blocks they lie in
+                "restored_positions": restored,
+                "shared_blocks": -(-restored // max(forks, 1)
+                                   // KV_BLOCK) * forks,
+                "candidate0_is_n1": o["candidates"][0]["tokens"]
+                == one["tokens"],
+                "outstanding_refs": dec.pool.outstanding_refs()}
+            if not (len(o["candidates"]) == 4
+                    and r["best_of_n"]["candidate0_is_n1"]
+                    and r["best_of_n"]["forks"] == 3
+                    and r["best_of_n"]["outstanding_refs"] == 0):
+                failures.append(f"best-of-n: {r['best_of_n']}")
+    finally:
+        srv.stop()
+    a, p = r["admit_all"], r["plain"]
+    phase(26, f"phase 3's paged wave ({tag} pages) under grammars: "
+              f"warmup captured {warm['decode']} decode + {warm['masked']} "
+              f"masked steps; admit-all on every request: tokens identical "
+              f"to phase {4 if kv_dtype else 3} {a['identical']} (plain "
+              f"wave {p['identical']}, neutral penalties "
+              f"{r['neutral_penalties']['identical']}), "
+              f"{a['masked_steps']} masked steps of {a['decode_steps']}, "
+              f"paged kernel launches {a['launches']} = {BLOCKS} x "
+              f"{a['decode_steps']} inside the masked graphs; mean step "
+              f"masked {a['mean_masked_step_ms']:.3f} ms, unmasked "
+              f"{p['mean_decode_step_ms']:.3f} ms (same server, both waves "
+              f"on the prompts the cold wave published); "
+              f"{a['tokens_per_s']:.2f} vs {p['tokens_per_s']:.2f} "
+              f"tokens/s (cold wave {r['cold']['tokens_per_s']:.2f}) "
+              f"[{card}]")
+    if kv_dtype is None:
+        phase(26, f"trie grammar forced {r['trie']}; JSON-schema "
+                  f"completions {[j['text'] for j in r['json']]} parse; stop "
+                  f"sequence cut request 0 at {r['stop']['cut_at']} "
+                  f"({r['stop']['finish']}); best-of-n n=4 on a 1024-token "
+                  f"prompt: {r['best_of_n']['candidates']} candidates, "
+                  f"candidate 0 = n=1 {r['best_of_n']['candidate0_is_n1']}, "
+                  f"{r['best_of_n']['forks']} followers restored "
+                  f"{r['best_of_n']['restored_positions']} prompt positions "
+                  f"from {r['best_of_n']['shared_blocks']} shared blocks, "
+                  f"outstanding refs {r['best_of_n']['outstanding_refs']} "
+                  f"[{card}]")
+    return r, failures
+
+
+def phase26(torch, ck, card, reqs, want, want8, dev="cuda"):
+    """Phase 26: char-RNN serving, bf16 decode, the grammar-masked paged
+    step (fp32 and int8 pages) and best-of-n. Failures are gathered and
+    raised at the end."""
+    from deeplearning4j_tpu_torch.models.zoo import transformer_lm
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.model_serializer import write_model
+    out, failures = {}, []
+    out["char_rnn"], f = char_serving(torch, ck, card, dev)
+    failures += f
+    out["bf16"], f = bf16_serving(torch, ck, card, reqs, dev)
+    failures += f
+    net = ComputationGraph(transformer_lm(
+        vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS, n_blocks=BLOCKS,
+        rope=True, seed=7), device=dev).init()
+    with tempfile.TemporaryDirectory() as tmp:
+        zpath = os.path.join(tmp, "lm.zip")
+        write_model(net, zpath)
+        del net
+        for kv_dtype, w in ((None, want), ("int8", want8)):
+            r, f = grammar_serving(torch, ck, card, zpath, reqs, w, kv_dtype,
+                                   dev)
+            out[f"grammar_{kv_dtype or 'fp32'}"] = r
+            failures += f
+    if failures:
+        raise SystemExit("phase 26 failed: " + " | ".join(failures))
+    return out
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4347,6 +4878,7 @@ def main():
     if failures:
         raise SystemExit("phases 22-23 failed: " + " | ".join(failures))
     a3 = a3_phases(torch, ck, card)
+    p26 = phase26(torch, ck, card, reqs, tokens, tokens8)
 
 
     src = "deeplearning4j_tpu_torch/ops/csrc/paged_decode_attention.cu"
@@ -4361,7 +4893,12 @@ def main():
                         "replaces": replaces, "launches": run["launches"],
                         "max_abs_err": c["max_abs_err"], "ms": c["ms"],
                         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
-                        "bound_by": c["bound_by"], "library_ms": None})
+                        "bound_by": c["bound_by"], "library_ms": None,
+                        # phase 26: the admit-all wave, every decode step
+                        # the grammar-masked graph
+                        "masked_launches": p26[
+                            "grammar_" + key.split("_")[1]]["admit_all"][
+                                "launches"]})
     # the training kernels: per AlexNet train step, summed over its three
     # launches (conv1-3, or BN1-3); max |diff| over the main-path shapes
     csrc = "deeplearning4j_tpu_torch/ops/csrc"
@@ -4563,8 +5100,8 @@ def main():
          "conv_bf16_alexnet_sum": conv16_sum, "bnap_bf16_cases": bnap16_cases,
          "bnap_bf16_edges": bnap16_edges, "bnap_bf16_alexnet_sum": bnap16_sum,
          "alexnet_train_bf16": alex16, "lenet_train_bf16": lenet16,
-         **a3, "elapsed_s": time.monotonic() - t_start}))
-    phase(26, "kernels:")
+         **a3, "serving_26": p26, "elapsed_s": time.monotonic() - t_start}))
+    phase(27, "kernels:")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,10 @@ The config JSON and the model zip are the shared formats (a JAX-written
 config trains here, a zip written here restores in the JAX package, and
 back). ``--device`` defaults to cuda and fails without a CUDA device.
 ``serve`` answers /predict for any zip and, with ``--generate``,
-/generate through the supervised decode engine; ``test`` prints the
+/generate through the supervised decode engine, for a transformer LM
+graph or a recurrent MultiLayerNetwork such as the char-RNN (the
+vocabulary is the output layer's width unless ``--vocab-size`` is given);
+``test`` prints the
 ``Evaluation.stats()`` of a saved MultiLayerNetwork on labelled CSV
 records. The telemetry and router commands and the data-parallel runtime
 come with later slices.
@@ -107,12 +110,28 @@ def cmd_serve(args) -> int:
         failpoints.arm(name.strip(), spec.strip())
         armed.append(name.strip())
     armed += failpoints.arm_from_env()
+    net = None
+    vocab = args.vocab_size if args.generate else 0
+    if args.generate and vocab is None:
+        # the next-token head's width is the vocabulary (JAX cli/main.py
+        # :187): a graph's output vertex, a MultiLayerNetwork's last layer
+        from ..util.device import resolve_device
+        from ..util.model_serializer import restore_model
+        # the device first, as the server does: no card raises before
+        # the zip is read
+        net = restore_model(args.model, device=resolve_device(args.device))
+        if hasattr(net.conf, "vertices"):
+            out = net.conf.network_outputs[0]
+            vocab = int(net.conf.vertices[out].layer.n_out)
+        else:
+            vocab = int(net.conf.layers[-1].n_out)
     server = InferenceServer(
-        model_path=args.model, port=args.port, host=args.host,
+        net=net, model_path=None if net is not None else args.model,
+        port=args.port, host=args.host,
         max_batch=args.max_batch, batching=not args.no_batching,
         batch_window_ms=args.batch_window_ms, max_queue=args.queue_size,
         default_timeout_ms=args.timeout_ms,
-        decode_vocab=(args.vocab_size if args.generate else 0),
+        decode_vocab=vocab,
         decode_slots=args.decode_slots, prefill_chunk=args.prefill_chunk,
         prefix_cache_mb=args.prefix_cache_mb,
         kv_block=args.kv_block, kv_pool_mb=args.kv_pool_mb,
@@ -133,6 +152,8 @@ def cmd_serve(args) -> int:
                   f" blocks of {dec.kv_block}"
                   f"{', int8 KV' if dec.kv_dtype else ''}), decode kernel "
                   f"{dec.paged_kernel}")
+        elif dec.recurrent:
+            kv = "recurrent h/c rows"
         else:
             kv = (f"contiguous KV ({dec._cache_cap} positions a slot"
                   + (f", prefix pool {args.prefix_cache_mb}MB "

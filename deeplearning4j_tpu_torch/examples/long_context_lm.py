@@ -7,8 +7,7 @@ contiguous KV cache. On the card, sequences of 32768 tokens and more take
 the splash kernels (ops/helpers.attention_route); this toy's take flash.
 ``--dtype bfloat16`` trains bf16 parameters, ``--compute-dtype bfloat16``
 f32 master weights with bf16 compute; either runs the bf16 attention
-kernels, and the completion then re-forwards its context (bf16 decode
-through the KV cache is not ported yet).
+kernels, and the completion streams through a bf16 KV cache.
 
 Run: python -m deeplearning4j_tpu_torch.examples.long_context_lm \\
          [--steps N] [--device cuda|cpu] [--dtype float32|bfloat16] \\
@@ -17,7 +16,6 @@ Run: python -m deeplearning4j_tpu_torch.examples.long_context_lm \\
 import argparse
 
 import numpy as np
-import torch
 
 from ..models.sampling import generate_transformer
 from ..models.zoo import transformer_lm
@@ -57,9 +55,8 @@ def main(steps: int = 300, vocab: int = 12, half: int = 8, batch: int = 32,
 
     # stream a completion through the KV cache
     prompt = [int(t) for t in seq[0, :half + 1]]  # prompt + SEP
-    completion = generate_transformer(
-        net, prompt, half, vocab,
-        use_cache=net.compute_dtype == torch.float32)
+    completion = generate_transformer(net, prompt, half, vocab,
+                                      use_cache=True)
     print("prompt:", prompt[:-1], "-> completion:", completion)
     return acc
 

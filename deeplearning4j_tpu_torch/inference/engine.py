@@ -1,5 +1,6 @@
-"""Continuous-batching decode over a paged KV pool or per-slot stripes — a
-reduced port of deeplearning4j_tpu/inference/engine.py (`DecodeScheduler`).
+"""Continuous-batching decode over a paged KV pool, per-slot stripes or
+per-slot recurrent state rows — a reduced port of
+deeplearning4j_tpu/inference/engine.py (`DecodeScheduler`).
 
 One scheduler thread loops over iterations. Each iteration:
 
@@ -93,8 +94,47 @@ failpoint seams ``scheduler.iteration``, ``dispatch.prefill`` and
 ``dispatch.decode`` fire on the host before the work they guard, and the
 fence is checked after each.
 
-Still to come (listed in ROADMAP.md): recurrent nets, speculation, logit
-processors and masks, tiering, mesh and profiler.
+Recurrent nets (JAX :82-84, :1182-1216, :1352-1418, :1598): a
+`MultiLayerNetwork` (or graph) whose stateful layers are LSTM, GravesLSTM
+or GRU is served from the engine's own [n_slots, hidden] h (and c) rows
+per layer, never the net's ``_rnn_state``. Admission zeroes the slot's
+rows; the decode step writes back only the live rows (``torch.where`` on
+the ``live`` mask into the static state buffers), so idle and mid-prefill
+slots do not advance; a prefill chunk runs its C positions as C
+single-token steps on the slot's rows, the padded steps masked out of the
+carry, as the JAX scan does, and writes the rows back by a device index.
+Both are captured like the attention ones. There are no positions: no
+pool, no prefix reuse (``kv_pool_mb`` or ``prefix_cache_mb`` warn and are
+ignored), no length limit.
+
+The logit pipeline (JAX :2090, :2596-2660): a request may carry stop
+sequences, a compiled grammar (`logitproc.CompiledGrammar`) and
+repetition / presence / frequency penalties; its `logitproc.LogitState`
+shapes the host probability row before sampling and finishes the request
+with ``"stop"`` (the stop tokens cut off) or ``"grammar"`` (the grammar
+admits nothing more). A grammar's additive rows (0 allowed, -inf
+forbidden) are uploaded once at admission into a fixed ``[mask_rows,
+vocab]`` device table at the compute dtype, by an in-place copy, so the
+captured graphs keep their pointers; while a device-resident grammar is
+in the batch the step is the masked variant (its own runners: ``out +
+masks[mstate]``, row 0 all zeros, so an admit-all grammar is bitwise the
+unmasked step). A grammar that does not fit the table is masked on the
+host only (``grammar_mask_spills_total``); the host's exact ``allow`` row
+applies either way. `warmup(masks=True)` captures the masked family too;
+without it the masked runners are captured at first use.
+
+Best-of-n (JAX :2252, :2566): `generate_many` submits a fork group
+(`speculative.ForkGroup`); paged, the primary publishes its prompt's
+blocks when its prefill ends and the followers, held in the queue until
+then, restore them as table remaps.
+
+A net whose compute dtype is bf16 decodes with its caches, one-hots and
+mask table at bf16 and its probability rows read back as f32; the paged
+kernel declines a query that is not f32, so the paged layers take their
+gather body, as in the JAX package.
+
+Still to come (listed in ROADMAP.md): speculation (``speculate > 0``
+raises), int8 graph decode, tiering, mesh and profiler.
 """
 from __future__ import annotations
 
@@ -106,17 +146,17 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..models.sampling import sample_logits
-from ..nn.graph import check_f32_decode
 from ..nn.layers.attention import SelfAttentionLayerImpl
+from ..nn.layers.base import BaseRecurrentImpl
 from ..ops import cuda_kernels as ck
 from ..util.device import DeviceLike, resolve_device
 from . import failpoints
 from .batcher import QueueFullError, bucket_for, pow2_buckets
 from .kvpool import (SCRATCH_BLOCK, KVPool, blocks_for, gather_blocks,
                      scatter_blocks)
+from .logitproc import CompiledGrammar, LogitState, MaskPool
 from .metrics import MetricsRegistry, default_registry
 from .trace import FlightRecorder, default_recorder, new_request_id
 
@@ -180,7 +220,8 @@ class DecodeHandle:
         self.priority = int(priority)  # shedding order (higher lasts)
         self.retries = 0  # crash-recovery resubmissions (supervisor)
         self.tokens: List[int] = []
-        self.finish_reason: Optional[str] = None  # "length" | "eos" | "cancelled"
+        # "length" | "eos" | "stop" | "grammar" | "cancelled"
+        self.finish_reason: Optional[str] = None
         # the SSE backing (logitproc.TokenStream): the scheduler pushes
         # each token as it decodes, _finish() closes it
         self.stream = None
@@ -264,7 +305,7 @@ class _ActiveSeq:
     __slots__ = ("handle", "prompt", "fed", "rng", "temperature", "top_k",
                  "top_p", "eos_id", "steps", "pool_node", "block_ids",
                  "shared", "written", "phase", "resumed", "folded",
-                 "cow_starved")
+                 "cow_starved", "proc", "fork")
 
     def __init__(self, handle: DecodeHandle, prompt: Sequence[int],
                  temperature: float, top_k: Optional[int],
@@ -291,6 +332,8 @@ class _ActiveSeq:
         # page backs this very prompt's pinned prefix): the resume's
         # restore then stops one block short, once
         self.cow_starved = False
+        self.proc: Optional[LogitState] = None  # the logit pipeline
+        self.fork = None  # speculative.ForkGroup of a best-of-n candidate
 
     def next_input(self) -> int:
         if self.fed < len(self.prompt):
@@ -309,9 +352,10 @@ class _DecodeRunner:
     decode program of the JAX engine.
 
     The inputs live in one int32 vector ``packed`` = [ids | live | pos |
-    table rows], filled from the host buffer ``stage`` (pinned on the
-    card) by one copy per step; ``out`` [n_slots, vocab] (the probs) is
-    the one output. Every step ends with the probs copy to the host,
+    mstate (the masked variant: each slot's mask-table row) | table rows],
+    filled from the host buffer ``stage`` (pinned on the card) by one copy
+    per step; ``out`` [n_slots, vocab] f32 (the probs) is the one
+    output. Every step ends with the probs copy to the host,
     which waits for the staging copy too, so the next fill never
     overwrites a stage still being read. ``graph`` is the captured step
     on the card (None on the CPU, where the step runs eagerly on the
@@ -319,11 +363,13 @@ class _DecodeRunner:
     makes, counted at capture."""
 
     def __init__(self, n_slots: int, nb: Optional[int],
-                 device: torch.device):
+                 device: torch.device, masked: bool = False):
         s = n_slots
-        n = s * (3 + (nb or 0))
+        m = 4 if masked else 3
+        n = s * (m + (nb or 0))
         self.nb = nb
         self.key = nb
+        self.masked = masked
         self.stage = torch.zeros(n, dtype=torch.int32,
                                  pin_memory=device.type == "cuda")
         self.host = self.stage.numpy()
@@ -331,20 +377,26 @@ class _DecodeRunner:
         self.ids = self.packed[:s]
         self.live = self.packed[s:2 * s]
         self.pos = self.packed[2 * s:3 * s]
-        self.table = self.packed[3 * s:].view(s, nb) if nb else None
+        self.mstate = self.packed[3 * s:4 * s] if masked else None
+        self.table = self.packed[m * s:].view(s, nb) if nb else None
         self.out: Optional[torch.Tensor] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Dict[str, int] = {}
 
     def fill(self, ids: np.ndarray, live: np.ndarray, pos: np.ndarray,
-             table: Optional[np.ndarray]) -> None:
+             table: Optional[np.ndarray],
+             mstate: Optional[np.ndarray] = None) -> None:
         s = ids.shape[0]
         h = self.host
         h[:s] = ids
         h[s:2 * s] = live
         h[2 * s:3 * s] = pos
+        m = 3
+        if self.masked:
+            h[3 * s:4 * s] = mstate
+            m = 4
         if self.nb:
-            h[3 * s:] = table.reshape(-1)
+            h[m * s:] = table.reshape(-1)
         self.packed.copy_(self.stage, non_blocking=True)
 
 
@@ -396,11 +448,14 @@ class _ChunkRunner:
 
 
 class DecodeScheduler:
-    """Continuous-batching decode over a transformer ComputationGraph.
+    """Continuous-batching decode over a transformer ComputationGraph or a
+    recurrent MultiLayerNetwork.
 
     ``net``: a port `ComputationGraph` (e.g. `models/zoo.transformer_lm`)
-    whose output is a next-token distribution; it must live on
-    ``device``. ``kv_pool_mb``: byte budget (MiB) of the paged KV pool;
+    or `MultiLayerNetwork` (e.g. `models/zoo.char_rnn_lstm`) whose output
+    is a next-token distribution; it must live on ``device``. Its stateful
+    layers are either all attention layers (KV caches) or all recurrent
+    (h/c rows; the pool and prefix options are ignored with a warning). ``kv_pool_mb``: byte budget (MiB) of the paged KV pool;
     0 (default) gives contiguous per-slot stripes, with a side prefix
     pool of ``prefix_cache_mb`` MiB when that is > 0. ``kv_block``:
     positions per page or pool block. ``kv_dtype="int8"`` stores int8
@@ -408,8 +463,11 @@ class DecodeScheduler:
     ``prefill_chunk``: max prompt tokens per prefill dispatch (<= 1 feeds
     prompts token by token through the decode step). ``decode_graphs``:
     "on" or "off", for the decode step and the prefill chunks alike;
-    ``transfer_guard``: None or "disallow" (see the module docstring). ``device`` defaults to "cuda" and raises without
-    one.
+    ``transfer_guard``: None or "disallow" (see the module docstring).
+    ``mask_rows``: rows of the grammar mask table (row 0 the admit-all
+    row); <= 1 masks grammars on the host only. ``speculate`` > 0 raises
+    (speculative decoding is ROADMAP A4). ``device`` defaults to "cuda"
+    and raises without one.
     """
 
     def __init__(self, net, vocab_size: int, *, n_slots: int = 4,
@@ -417,10 +475,15 @@ class DecodeScheduler:
                  prefix_cache_mb: float = 0.0, kv_block: int = 16,
                  kv_pool_mb: float = 0.0, kv_dtype: Optional[str] = None,
                  paged_kernel: str = "on", decode_graphs: str = "on",
+                 mask_rows: int = 64, speculate: int = 0,
                  metrics: Optional[MetricsRegistry] = None,
                  tracer: Optional[FlightRecorder] = None,
                  transfer_guard: Optional[str] = None,
                  device: DeviceLike = "cuda"):
+        if speculate:
+            raise NotImplementedError(
+                f"speculate={speculate}: speculative decoding is not ported "
+                "yet (ROADMAP A4)")
         self.device = resolve_device(device)
         if net.device != self.device:
             raise ValueError(f"the net lives on {net.device}, the engine "
@@ -449,8 +512,10 @@ class DecodeScheduler:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         net._check_init()
-        check_f32_decode(net, "the decode engine")
         self.net = net
+        # the one-hots, caches, recurrent rows and mask table: the compute
+        # dtype (JAX `_compute_dtype_of`)
+        self._dtype = net.compute_dtype
         self.vocab_size = int(vocab_size)
         self.n_slots = int(n_slots)
         self.max_queue = int(max_queue)
@@ -467,25 +532,64 @@ class DecodeScheduler:
         sfx = self.tracer.track_scope("engine")
         self._sched_track = "scheduler" + sfx
         self._slot_tracks = [f"slot {i}{sfx}" for i in range(self.n_slots)]
-        self._out_name = net.conf.network_outputs[0]
-        attn = {name: impl for name, impl in sorted(net._impls.items())
+        self._graph = hasattr(net.conf, "vertices")  # facade
+        self._out_name = net.conf.network_outputs[0] if self._graph else None
+        items = sorted(net._impls.items()) if self._graph \
+            else enumerate(net._impls)
+        stateful = {k: impl for k, impl in items
+                    if isinstance(impl, BaseRecurrentImpl)}
+        attn = {k: impl for k, impl in stateful.items()
                 if isinstance(impl, SelfAttentionLayerImpl)}
-        if not attn:
-            raise ValueError("the decode engine serves attention nets: this "
-                             "net has no SelfAttentionLayer to page")
-        itemsize = torch.empty((), dtype=net.dtype).element_size()
+        rec = {k: impl for k, impl in stateful.items() if k not in attn}
+        if not stateful:
+            raise ValueError("the decode engine serves stateful nets: this "
+                             "net has no SelfAttentionLayer to page and no "
+                             "recurrent layer to step")
+        if attn and rec:
+            raise ValueError("the decode engine serves attention nets or "
+                             "recurrent nets, not a net with both")
+        if any(type(i).__name__ == "GravesBidirectionalLSTMImpl"
+               for i in rec.values()):
+            raise ValueError("a bidirectional LSTM needs the whole sequence "
+                             "and cannot be stepped token by token")
+        # recurrent: h/c rows per slot, no positions (JAX :398, :406)
+        self.recurrent = bool(rec)
+        itemsize = torch.empty((), dtype=self._dtype).element_size()
         shapes = {name: (impl._kv_heads(), impl.conf.n_out // impl.conf.n_heads)
                   for name, impl in attn.items()}
         layers = {n: (h, d, itemsize) for n, (h, d) in shapes.items()}
         dev = self.device
-        self.paged = bool(kv_pool_mb and kv_pool_mb > 0)
+        self.paged = bool(kv_pool_mb and kv_pool_mb > 0) and not self.recurrent
         self.kv_dtype: Optional[str] = None
         self.pool: Optional[KVPool] = None
         self.restore_buckets: List[int] = []
         self.table_buckets: List[int] = []
         self._table: Optional[np.ndarray] = None
-        self._states: Dict[str, Dict[str, torch.Tensor]] = {}
-        if self.paged:
+        self._states: Dict = {}
+        if self.recurrent:
+            if kv_pool_mb and kv_pool_mb > 0:
+                warnings.warn(
+                    f"kv_pool_mb={kv_pool_mb} requested but paged KV decode "
+                    "is DISABLED (contiguous per-slot state instead): the "
+                    "model has no attention KV cache to page",
+                    RuntimeWarning, stacklevel=2)
+            if prefix_cache_mb and prefix_cache_mb > 0:
+                warnings.warn(
+                    f"prefix_cache_mb={prefix_cache_mb} requested but the "
+                    "prefix KV pool is DISABLED: the model has no attention "
+                    "KV cache to share", RuntimeWarning, stacklevel=2)
+            if kv_dtype:
+                warnings.warn(
+                    "kv_dtype='int8' requested but the paged KV pool did not "
+                    "engage (int8 KV lives in the pool's pages); serving "
+                    "with the model-dtype state instead", RuntimeWarning,
+                    stacklevel=2)
+            for key, impl in rec.items():
+                self._states[key] = impl.init_state(self.n_slots,
+                                                    dtype=self._dtype,
+                                                    device=dev)
+            self._cache_cap: Optional[int] = None
+        elif self.paged:
             self.kv_dtype = kv_dtype
             self.pool = KVPool(layers, block=self.kv_block,
                                budget_bytes=int(kv_pool_mb * (1 << 20)),
@@ -514,9 +618,9 @@ class DecodeScheduler:
                                                 dtype=torch.float32, device=dev)}
                 else:
                     self._states[name] = {
-                        "k_pages": torch.zeros(shape, dtype=net.dtype,
+                        "k_pages": torch.zeros(shape, dtype=self._dtype,
                                                device=dev),
-                        "v_pages": torch.zeros(shape, dtype=net.dtype,
+                        "v_pages": torch.zeros(shape, dtype=self._dtype,
                                                device=dev)}
             self._cache_cap = self.pool.capacity_blocks * self.kv_block
             self.table_buckets = pow2_buckets(self.pool.capacity_blocks)
@@ -531,7 +635,8 @@ class DecodeScheduler:
                     stacklevel=2)
             # per-slot stripes; positions stay on the host
             for name, impl in attn.items():
-                st = impl.init_state(self.n_slots, dtype=net.dtype, device=dev)
+                st = impl.init_state(self.n_slots, dtype=self._dtype,
+                                     device=dev)
                 self._states[name] = {"k": st["k"], "v": st["v"]}
             self._cache_cap = min(int(st["k"].shape[1])
                                   for st in self._states.values())
@@ -540,7 +645,7 @@ class DecodeScheduler:
                 if self._cache_cap >= self.kv_block:
                     pool = KVPool(layers, block=self.kv_block,
                                   budget_bytes=int(prefix_cache_mb * (1 << 20)),
-                                  paged=False, dtype=net.dtype, device=dev,
+                                  paged=False, dtype=self._dtype, device=dev,
                                   metrics=self.metrics, tracer=self.tracer)
                 if pool is not None and pool.capacity_blocks > 0:
                     self.pool = pool
@@ -561,6 +666,20 @@ class DecodeScheduler:
                                     if b >= lo]
         else:
             self.prefill_buckets = []
+        # the grammar mask table (JAX :899-925): [mask_rows, vocab] at the
+        # compute dtype, additive (0 allowed, -inf forbidden), row 0 the
+        # admit-all row; a grammar's rows are copied in place at admission
+        self.mask_rows = int(mask_rows)
+        self.maskpool: Optional[MaskPool] = None
+        self._masks: Optional[torch.Tensor] = None
+        self.mask_buckets: List[int] = []
+        if self.mask_rows > 1:
+            lo = min(8, self.mask_rows - 1)
+            self.mask_buckets = [b for b in pow2_buckets(self.mask_rows - 1)
+                                 if b >= lo]
+            self.maskpool = MaskPool(self.mask_rows, self.mask_buckets)
+            self._masks = torch.zeros((self.mask_rows, self.vocab_size),
+                                      dtype=self._dtype, device=dev)
         self._slots: List[Optional[_ActiveSeq]] = [None] * self.n_slots
         self._queue: List[_ActiveSeq] = []
         self._cond = threading.Condition()
@@ -590,10 +709,15 @@ class DecodeScheduler:
         self._runners: Dict[Optional[int], _DecodeRunner] = {}
         self._chunk_runners: Dict[Tuple[int, Optional[int]],
                                   _ChunkRunner] = {}
+        # the masked decode steps, one per table bucket like the unmasked
+        # ones; captured by warmup(masks=True), else at first use
+        self._mrunners: Dict[Optional[int], _DecodeRunner] = {}
         self._graph_pool = None
         self.decode_captures = 0
         self.prefill_captures = 0
+        self.masked_captures = 0
         self._warmed = False
+        self._warmed_masks = False
         self.warmup_seconds: Optional[float] = None
         # scheduler-thread counters, read by callers between runs
         self.decode_steps = 0
@@ -605,6 +729,9 @@ class DecodeScheduler:
         self.preemptions = 0
         self.cow_copies = 0
         self.restored_tokens = 0  # prompt positions skipped by prefix hits
+        self.masked_steps = 0  # decode steps that ran the masked variant
+        self.masked_seconds = 0.0
+        self.forks = 0  # best-of-n followers that attached to a publish
         m = self.metrics
         self._m_queue_depth = m.gauge("decode_queue_depth")
         self._m_active = m.gauge("decode_active_slots")
@@ -622,6 +749,17 @@ class DecodeScheduler:
         self._m_first_token = m.histogram(
             "generate_first_token_seconds",
             help="submit -> first output token (TTFT), seconds")
+        self._m_constrained = m.counter(
+            "constrained_requests_total",
+            help="requests submitted with a grammar constraint")
+        if self.maskpool is not None:
+            self._m_mask_rows = m.gauge(
+                "grammar_mask_rows_resident",
+                help="device mask-table rows held by resident grammars")
+            self._m_mask_spill = m.counter(
+                "grammar_mask_spills_total",
+                help="grammar admissions masked on the host only (mask "
+                     "table full or grammar too large)")
         self._m_prefill_chunk = m.histogram(
             "prefill_chunk_size", lo=1.0,
             hi=float(max(self.prefill_buckets or [1])) + 1, per_decade=12)
@@ -631,6 +769,9 @@ class DecodeScheduler:
                          "hand-written kernel").set(
                 1.0 if paged_kernel == "on" else 0.0)
             self._m_preempted = m.counter("decode_preempted_total")
+            # best-of-n followers that attached to their group's
+            # published prompt blocks (table remaps)
+            self._m_forks = m.counter("decode_forks_total")
         if self.pool is not None:
             self._m_prefix_lookups = m.counter("prefix_cache_lookups_total")
             self._m_prefix_hits = m.counter("prefix_cache_hits_total")
@@ -653,12 +794,27 @@ class DecodeScheduler:
                top_p: Optional[float] = None, seed: int = 0,
                eos_id: Optional[int] = None,
                request_id: Optional[str] = None, priority: int = 0,
-               stream=None, _handle: Optional[DecodeHandle] = None,
+               stop: Optional[Sequence[Sequence[int]]] = None,
+               grammar: Optional[CompiledGrammar] = None,
+               repetition_penalty: Optional[float] = None,
+               presence_penalty: Optional[float] = None,
+               frequency_penalty: Optional[float] = None,
+               stream=None, fork=None,
+               _handle: Optional[DecodeHandle] = None,
                _front: bool = False) -> DecodeHandle:
-        """Queue one request. ``priority``: the degradation ladder's
-        shedding order (higher survives longer). ``stream``: a
-        `logitproc.TokenStream` the scheduler pushes each token into (the
-        SSE backing). ``_handle``/``_front``: the supervisor's requeue
+        """Queue one request (JAX :2090). ``priority``: the degradation
+        ladder's shedding order (higher survives longer). ``stop``: token
+        sequences that end the request when emitted (cut off the output,
+        ``finish_reason="stop"``), matched across token boundaries.
+        ``grammar``: a `logitproc.CompiledGrammar` compiled ahead of
+        admission; forbidden tokens get probability exactly 0 and the
+        request finishes with ``"grammar"`` when the grammar admits
+        nothing more. The penalties act on the host probability row over
+        the generated tokens' counts. ``stream``: a `logitproc.TokenStream`
+        the scheduler pushes each released token into (the SSE backing; a
+        live partial stop match is held back). ``fork``: the
+        `speculative.ForkGroup` of a best-of-n candidate (see
+        `generate_many`). ``_handle``/``_front``: the supervisor's requeue
         path (JAX :2094): reuse the original (reset) handle, so the
         caller blocked in ``result()`` never sees the restart, and queue
         it at the front."""
@@ -689,7 +845,7 @@ class DecodeScheduler:
                 err.blocks_needed = need_blocks
                 err.blocks_available = self.pool.capacity_blocks
                 raise err
-        elif needed > self._cache_cap:
+        elif self._cache_cap is not None and needed > self._cache_cap:
             raise self._reject(
                 rid, f"prompt ({len(prompt_ids)}) + max_new_tokens "
                 f"({max_new_tokens}) needs a KV cache of {needed} but "
@@ -702,6 +858,19 @@ class DecodeScheduler:
             handle.stream = stream
         seq = _ActiveSeq(handle, prompt_ids, float(temperature), top_k, top_p,
                          int(seed), eos_id)
+        # built here, the supervisor's resubmission included, so a
+        # re-decode observes from a clean pipeline state
+        if (grammar is not None or stop or repetition_penalty
+                or presence_penalty or frequency_penalty):
+            seq.proc = LogitState(self.vocab_size, grammar=grammar, stop=stop,
+                                  repetition_penalty=repetition_penalty,
+                                  presence_penalty=presence_penalty,
+                                  frequency_penalty=frequency_penalty)
+            if grammar is not None and _handle is None:
+                self._m_constrained.inc()
+        if fork is not None:
+            fork.bind_primary(handle)
+            seq.fork = fork
         with self._cond:
             if not self._running:
                 raise RuntimeError("scheduler is not running (call start())")
@@ -741,6 +910,22 @@ class DecodeScheduler:
                  timeout: Optional[float] = 120.0, **kw) -> List[int]:
         return self.generate_handle(prompt_ids, max_new_tokens,
                                     timeout=timeout, **kw).tokens
+
+    def generate_many(self, prompt_ids: Sequence[int], n: int,
+                      max_new_tokens: int,
+                      timeout: Optional[float] = 120.0, *, seed: int = 0,
+                      **kw) -> List[DecodeHandle]:
+        """Best-of-n over one prompt (JAX :2252): ``n`` candidates
+        submitted as one fork group, candidate i seeded with ``seed + i``
+        (candidate 0 is the n = 1 output). Paged, the primary prefills the
+        prompt once and publishes its blocks when its prefill ends; the
+        followers restore them as table remaps (``decode_forks_total``).
+        A timeout cancels every unfinished candidate."""
+        from .speculative import await_fork_group, submit_fork_group
+        handles = submit_fork_group(self.submit, prompt_ids, n,
+                                    max_new_tokens, seed=seed, **kw)
+        await_fork_group(handles, timeout)
+        return handles
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> "DecodeScheduler":
@@ -809,6 +994,9 @@ class DecodeScheduler:
         self.preemptions = 0
         self.cow_copies = 0
         self.restored_tokens = 0
+        self.masked_steps = 0
+        self.masked_seconds = 0.0
+        self.forks = 0
 
     @contextlib.contextmanager
     def _sync_guard(self):
@@ -927,8 +1115,10 @@ class DecodeScheduler:
         frames hold until it exits; once it wakes it fails at the fence."""
         self._states = {}
         self._runners = {}
+        self._mrunners = {}
         self._chunk_runners = {}
         self._graph_pool = None
+        self._masks = None
         self.pool = None
 
     def inflight(self) -> int:
@@ -1107,6 +1297,7 @@ class DecodeScheduler:
             tr.begin("preempted", req=h.request_id)
         self._release_pool(seq)
         self._release_slot_blocks(slot, seq)
+        self._release_mask(seq)  # re-acquired (usually cached) on resume
         seq.prompt.extend(h.tokens[seq.folded:])
         seq.folded = len(h.tokens)
         seq.fed = 0
@@ -1145,18 +1336,19 @@ class DecodeScheduler:
             self._release_pool(seq)
             if self.paged:
                 self._release_slot_blocks(slot, seq)
+        self._release_mask(seq)
         self._slots[slot] = None
 
     # -- prefix reuse --------------------------------------------------------
     def _reset_slot_state(self, slot: int) -> None:
-        """Zero a contiguous slot's stripe rows at admission (JAX
-        `_reset_slot_state` :1699, `_zero_fn` :1598). Paged pages are
-        shared storage and stay; a fresh paged slot starts from a scratch
-        table row and position 0."""
+        """Zero a contiguous slot's stripe rows, or a recurrent slot's h/c
+        rows, at admission (JAX `_reset_slot_state` :1699, `_zero_fn`
+        :1598). Paged pages are shared storage and stay; a fresh paged
+        slot starts from a scratch table row and position 0."""
         if not self.paged:
             for st in self._states.values():
-                st["k"][slot].zero_()
-                st["v"][slot].zero_()
+                for rows in st.values():
+                    rows[slot].zero_()
 
     def _try_restore(self, slot: int, seq: _ActiveSeq) -> None:
         """Contiguous prefix restore (JAX :1714): copy the longest cached
@@ -1212,6 +1404,17 @@ class DecodeScheduler:
         self.restored_tokens += seq.fed
         self._m_prefix_hits.inc()
         self._m_prefix_hit_tokens.inc(seq.fed)
+        if seq.fork is not None and seq.fork.primary_handle is not seq.handle \
+                and not seq.resumed:
+            # a best-of-n follower attached to its group's published
+            # prompt blocks (the primary's own hits and a resume's
+            # re-restore are ordinary prefix hits)
+            self.forks += 1
+            self._m_forks.inc()
+            if self.tracer.enabled:
+                self.tracer.instant("fork", track=self._slot_tracks[slot],
+                                    args={"request": seq.handle.request_id,
+                                          "role": "attach", "blocks": n_blk})
 
     def _try_upgrade_slots(self) -> None:
         """Re-match mid-prefill slots against the trie (JAX :3123): a slot
@@ -1262,6 +1465,71 @@ class DecodeScheduler:
         return frozenset(self.pool.adopt(seq.prompt[:n_full * self.kv_block],
                                          seq.block_ids[:n_full]))
 
+    def _fork_publish(self, slot: int, seq: _ActiveSeq) -> None:
+        """Best-of-n early publish (JAX :2566): the fork group's primary
+        just ended its prefill; the finish-time ownership transfer runs
+        now, so its queued siblings restore the prompt's blocks as table
+        remaps instead of each prefilling them. The adopted blocks turn
+        shared in the slot's own books and the slot pins them through the
+        trie, so eviction cannot take rows it still reads."""
+        group = seq.fork
+        adopted = self._publish_paged(seq)
+        if adopted:
+            for j, bid in enumerate(seq.block_ids):
+                if bid in adopted:
+                    seq.shared[j] = True
+            self._release_pool(seq)
+            n_full = len(seq.prompt) // self.kv_block
+            _, _, node = self.pool.match(seq.prompt, n_full)
+            seq.pool_node = node
+            if self.tracer.enabled:
+                self.tracer.instant("fork", track=self._slot_tracks[slot],
+                                    args={"request": seq.handle.request_id,
+                                          "role": "publish",
+                                          "blocks": len(adopted),
+                                          "candidates": group.n})
+        group.published = True
+
+    def _attach_mask(self, slot: int, seq: _ActiveSeq) -> None:
+        """Make an admitted request's grammar device-resident (JAX
+        :2039): take (or share) its mask-row range and, on first
+        residency, copy its rows into the table in place (the captured
+        graphs keep the table's pointer). A grammar that does not fit is
+        masked on the host only (``mask_base`` None): the exact allow row
+        applies at sampling either way."""
+        proc = seq.proc
+        if proc is None or proc.grammar is None or self.maskpool is None:
+            return
+        g = proc.grammar
+        start, upload = self.maskpool.acquire(g)
+        if start is None:
+            proc.mask_base = None
+            self._m_mask_spill.inc()
+            return
+        if upload:
+            bucket = bucket_for(g.n_states, self.mask_buckets)
+            rows = np.zeros((bucket, self.vocab_size), np.float32)
+            rows[:g.n_states] = g.mask_table(np.float32)
+            self._masks[start:start + bucket].copy_(self._to_device(rows))
+        proc.mask_base = start
+        self._m_mask_rows.set(self.maskpool.resident_rows())
+        if self.tracer.enabled:
+            self.tracer.instant("grammar_attach",
+                                track=self._slot_tracks[slot],
+                                args={"request": seq.handle.request_id,
+                                      "states": g.n_states, "row": start,
+                                      "uploaded": bool(upload)})
+
+    def _release_mask(self, seq: _ActiveSeq) -> None:
+        """Drop the request's mask-row reference (every slot-freeing path
+        comes here); the rows stay cached for the next request with the
+        same grammar until pressure evicts them."""
+        proc = seq.proc
+        if proc is not None and proc.mask_base is not None:
+            self.maskpool.release(proc.grammar.key)
+            proc.mask_base = None
+            self._m_mask_rows.set(self.maskpool.resident_rows())
+
     def _publish_prompt(self, slot: int, seq: _ActiveSeq) -> None:
         """Contiguous publish (JAX :1753): index the finished prompt's
         full blocks in the trie (allocating, LRU-evicting when full) and
@@ -1293,6 +1561,7 @@ class DecodeScheduler:
             else:
                 self._publish_prompt(slot, seq)
                 self._release_pool(seq)
+        self._release_mask(seq)
         h = seq.handle
         h._finish()
         self._trace_done("finish", seq, slot=slot)
@@ -1315,7 +1584,9 @@ class DecodeScheduler:
         plus evictable blocks, less the prompt blocks already promised to
         resident slots, cover its prompt. Decode growth is not reserved:
         that is what preemption is for. The oldest request waits rather
-        than being overtaken (a preempted one is back at the front)."""
+        than being overtaken (a preempted one is back at the front). A
+        best-of-n follower (paged) stays queued, and is passed over, until
+        its primary has published the prompt's blocks (or finished)."""
         B = self.kv_block
         pending = sum(max(0, blocks_for(len(s.prompt), B) - len(s.block_ids))
                       for s in self._slots if s is not None) \
@@ -1323,31 +1594,39 @@ class DecodeScheduler:
         reclaim = None
         admitted = []
         with self._cond:
+            blocked = False
             for i in range(self.n_slots):
-                if self._slots[i] is not None:
+                if blocked or self._slots[i] is not None:
                     continue
-                while self._queue and self._queue[0].handle.cancelled():
-                    seq = self._queue.pop(0)
-                    self._m_cancelled.inc()
-                    seq.handle.finish_reason = "cancelled"
-                    seq.handle._finish()
-                    self._trace_done("cancel", seq)
-                if not self._queue:
+                qi = 0
+                while qi < len(self._queue):
+                    seq = self._queue[qi]
+                    if seq.handle.cancelled():
+                        self._queue.pop(qi)
+                        self._m_cancelled.inc()
+                        seq.handle.finish_reason = "cancelled"
+                        seq.handle._finish()
+                        self._trace_done("cancel", seq)
+                        continue
+                    if (self.paged and seq.fork is not None
+                            and seq.fork.waiting(seq.handle)):
+                        qi += 1  # waits for its primary's publish
+                        continue
+                    if self.paged:
+                        need = blocks_for(len(seq.prompt), B)
+                        if any(s is not None for s in self._slots):
+                            if reclaim is None:
+                                reclaim = self.pool.reclaimable_blocks()
+                            if reclaim - pending < need:
+                                blocked = True
+                                break
+                        pending += need
+                    self._queue.pop(qi)
+                    self._slots[i] = seq
+                    if not seq.resumed:
+                        self._m_seqs.inc()
+                    admitted.append((i, seq))
                     break
-                seq = self._queue[0]
-                if self.paged:
-                    need = blocks_for(len(seq.prompt), B)
-                    if any(s is not None for s in self._slots):
-                        if reclaim is None:
-                            reclaim = self.pool.reclaimable_blocks()
-                        if reclaim - pending < need:
-                            break
-                    pending += need
-                self._queue.pop(0)
-                self._slots[i] = seq
-                if not seq.resumed:
-                    self._m_seqs.inc()
-                admitted.append((i, seq))
             self._m_queue_depth.set(len(self._queue))
             self._m_active.set(sum(s is not None for s in self._slots))
         tr = self.tracer
@@ -1371,6 +1650,9 @@ class DecodeScheduler:
                     self._try_restore_paged(i, seq)
                 else:
                     self._try_restore(i, seq)
+            # the grammar's rows ride the admission too (a resumed request
+            # re-acquires them, usually still cached: a refcount)
+            self._attach_mask(i, seq)
             h.t_restored = time.monotonic()
             tr.end("prefix_restore", req=rid,
                    args={"hit_tokens": seq.fed, "slot": i,
@@ -1391,7 +1673,7 @@ class DecodeScheduler:
             cap = max(1, min(cap, int(self.chunk_cap)))
         n_real = min(len(seq.prompt) - seq.fed, cap)
         bucket = bucket_for(n_real, self.prefill_buckets)
-        if seq.fed + bucket > self._cache_cap:
+        if self._cache_cap is not None and seq.fed + bucket > self._cache_cap:
             # padded writes past the cap would trip the layer's overflow
             # guard: shrink to the largest bucket inside the headroom
             fitting = [b for b in self.prefill_buckets
@@ -1402,9 +1684,11 @@ class DecodeScheduler:
             n_real = min(n_real, bucket)
         return bucket, n_real
 
-    def _onehot(self, ids: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(ids.astype(np.int64)).to(self.device)
-        return F.one_hot(t, self.vocab_size).to(self.net.dtype)
+    def _onehot(self, ids: torch.Tensor) -> torch.Tensor:
+        """One-hot rows of device ids, at the compute dtype, built on the
+        device (JAX `_step_fn` builds them in-program)."""
+        ar = torch.arange(self.vocab_size, device=ids.device)
+        return (ids.long()[..., None] == ar).to(self._dtype)
 
     def _dispatch_states(self, pos, table=None, wmask=None,
                          slot: Optional[int] = None):
@@ -1424,12 +1708,60 @@ class DecodeScheduler:
                              "v": st["v"][slot:slot + 1], "pos": pos}
         return out
 
-    def _forward(self, x, states):
+    def _forward_states(self, x, states):
         """One forward of one-hots ``x`` [B, T, vocab] through the net with
-        the given attention states: the output distributions [B, T,
-        vocab]. The layers write their K/V in place."""
-        acts, _ = self.net._forward_impl(self.net.params, [x], states=states)
-        return acts[self._out_name]
+        the given states: (the output distributions [B, T, vocab], the
+        stateful layers' new states). Attention layers write their K/V
+        in place."""
+        if self._graph:
+            acts, new = self.net._forward_impl(self.net.params, [x],
+                                               states=states)
+            return acts[self._out_name], new
+        acts, _, new, _ = self.net._forward_impl(
+            self.net.params, self.net.variables, x, train=False,
+            states=states)
+        return acts[-1], new
+
+    def _forward(self, x, states):
+        return self._forward_states(x, states)[0]
+
+    def _rnn_step(self, x: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+        """The recurrent decode step (JAX `_step_fn` + `_freeze_states`
+        :1182-1216): one token of every slot from the engine's h/c rows;
+        only the live rows' new state is written back into the static
+        state buffers (masked rows are batch padding). Returns [n_slots,
+        vocab]."""
+        out, new = self._forward_states(
+            x, {k: dict(st) for k, st in self._states.items()})
+        keep = live[:, None]
+        for k, st in self._states.items():
+            for n, rows in st.items():
+                rows.copy_(torch.where(keep, new[k][n], rows))
+        return out[:, -1, :]
+
+    def _rnn_chunk(self, ids: torch.Tensor, n_real: torch.Tensor,
+                   slot: torch.Tensor) -> torch.Tensor:
+        """One recurrent prefill chunk (JAX `_prefill_fn`'s scan path
+        :1395-1418): the chunk's C positions as C single-token steps on
+        the slot's rows (a device index), each padded step (``t >=
+        n_real``) masked out of the carry; the rows are written back in
+        place. Returns the output row [vocab] of the last real token."""
+        sl = slot.long()
+        sub = {k: {n: rows.index_select(0, sl) for n, rows in st.items()}
+               for k, st in self._states.items()}
+        x = self._onehot(ids)
+        outs = []
+        for t in range(ids.shape[0]):
+            out, new = self._forward_states(x[None, t:t + 1], sub)
+            keep = (n_real > t)[:, None]
+            sub = {k: {n: torch.where(keep, new[k][n], v)
+                       for n, v in st.items()} for k, st in sub.items()}
+            outs.append(out[0, -1])
+        for k, st in self._states.items():
+            for n, rows in st.items():
+                rows.index_copy_(0, sl, sub[k][n])
+        last = torch.clamp(n_real.long() - 1, min=0)
+        return torch.stack(outs).index_select(0, last)[0]
 
     def _prefill_forward(self, slot: int, ids: np.ndarray, written: int,
                          n_real: int, nb: Optional[int] = None) -> torch.Tensor:
@@ -1439,10 +1771,16 @@ class DecodeScheduler:
         end (``nb`` forces one), so the layer's overflow guard never fires
         on padding lanes, which write to the scratch page; contiguous:
         padding rows land past the position, causally invisible until the
-        next real write overwrites them."""
+        next real write overwrites them; recurrent: the chunk's last real
+        row alone, [1, vocab]."""
         dev = self.device
         bucket = ids.shape[0]
         pos = torch.tensor([written], dtype=torch.int32, device=dev)
+        if self.recurrent:
+            return self._rnn_chunk(
+                torch.from_numpy(ids).to(dev),
+                torch.tensor([n_real], dtype=torch.int32, device=dev),
+                torch.tensor([slot], dtype=torch.int32, device=dev))[None]
         if self.paged:
             rows = self._table_for(written + bucket) if nb is None \
                 else self._table[:, :nb]
@@ -1452,19 +1790,20 @@ class DecodeScheduler:
             sts = self._dispatch_states(pos, table, wmask)
         else:
             sts = self._dispatch_states(pos, slot=slot)
-        return self._forward(self._onehot(ids)[None], sts)[0]
+        x = self._onehot(torch.from_numpy(ids).to(dev))
+        return self._forward(x[None], sts)[0]
 
     def _chunk_body(self, r: _ChunkRunner) -> torch.Tensor:
         """One prefill chunk on ``r``'s static buffers — what a capture
         records (JAX `_prefill_paged_fn` :1420, `_prefill_fn` :1352): the
         one-hot from the ids, the write mask from ``n_real`` (paged), the
         slot's stripe by a device index (contiguous), and the output row
-        of the last real token, all on the device. Returns [vocab]."""
+        of the last real token, all on the device; recurrent, C
+        single-token steps (`_rnn_chunk`). Returns [vocab] f32."""
         dev = r.packed.device
-        ids = r.ids.long()
-        x = (ids[:, None] == torch.arange(self.vocab_size,
-                                          device=dev)[None, :])
-        x = x.to(self.net.dtype)[None]
+        if self.recurrent:
+            return self._rnn_chunk(r.ids, r.n_real, r.slot).float()
+        x = self._onehot(r.ids)[None]
         if self.paged:
             wmask = (torch.arange(r.bucket, device=dev) < r.n_real)[None, :]
             sts = self._dispatch_states(r.pos, r.table, wmask)
@@ -1474,7 +1813,7 @@ class DecodeScheduler:
                    for name, st in self._states.items()}
         out = self._forward(x, sts)[0]
         last = torch.clamp(r.n_real.long() - 1, min=0)
-        return out.index_select(0, last)[0]
+        return out.index_select(0, last)[0].float()
 
     def _new_chunk_runner(self, bucket: int, nb: Optional[int]
                           ) -> _ChunkRunner:
@@ -1494,13 +1833,14 @@ class DecodeScheduler:
         bucket = ids.shape[0]
         written = seq.written
         final = seq.fed + n_real >= len(seq.prompt)
-        if written + bucket > self._cache_cap:
+        if self._cache_cap is not None and written + bucket > self._cache_cap:
             # the replay cannot check the position: the host does, first
             raise ValueError(f"KV cache overflow: chunk at {written}+"
                              f"{bucket} exceeds {self._cache_cap} positions")
         if self.decode_graphs != "on":
             out = self._prefill_forward(slot, ids, written, n_real)
-            return self._read_row(out[n_real - 1]) if final else None
+            row = out[-1] if self.recurrent else out[n_real - 1]
+            return self._read_row(row.float()) if final else None
         table_row = None
         nb = None
         if self.paged:
@@ -1569,17 +1909,30 @@ class DecodeScheduler:
         return None
 
     def _consume(self, slot: int, seq: _ActiveSeq, probs_row: np.ndarray) -> None:
-        """Sample one token; finish and free the slot on max tokens / EOS."""
+        """Sample one token (through the request's logit pipeline, when it
+        has one: penalties, then the exact host grammar mask) and emit it
+        (JAX `_consume` :2541)."""
         if self._fenced:
             # a fenced thread woke mid-iteration: this handle may be
             # requeued on the replacement already
             raise _EngineFenced
-        tok = sample_logits(probs_row, seq.temperature, seq.top_k, seq.rng,
-                            seq.top_p)
+        proc = seq.proc
+        if proc is None:
+            tok = sample_logits(probs_row, seq.temperature, seq.top_k,
+                                seq.rng, seq.top_p)
+        else:
+            tok = sample_logits(proc.adjust(probs_row), seq.temperature,
+                                seq.top_k, seq.rng, seq.top_p,
+                                allow=proc.allow_row())
+            proc.advance(tok)
+        self._emit(slot, seq, tok)
+
+    def _emit(self, slot: int, seq: _ActiveSeq, tok: int) -> None:
+        """Append one sampled token (JAX `_emit` :2596); finish and free
+        the slot on a stop sequence (cut off), max tokens or EOS. A
+        stream gets the tokens past any live partial stop match."""
         h = seq.handle
         h.tokens.append(tok)
-        if h.stream is not None:
-            h.stream.push(len(h.tokens) - 1, tok)
         self._emitted_this_iter += 1
         if h.t_first_token is None:
             now = time.monotonic()
@@ -1599,6 +1952,23 @@ class DecodeScheduler:
                             args={"steps": seq.steps})
             self.tracer.begin("decode", req=h.request_id)
             seq.phase = "decode"
+            if (self.paged and seq.fork is not None
+                    and seq.fork.primary_handle is h
+                    and not seq.fork.published):
+                self._fork_publish(slot, seq)
+        proc = seq.proc
+        if proc is not None:
+            matched = proc.stop_feed(tok)
+            if matched:
+                del h.tokens[len(h.tokens) - matched:]
+                h.finish_reason = "stop"
+                self._retire(slot, seq)
+                return
+        if h.stream is not None:
+            safe = len(h.tokens) - (proc.stop_pending if proc is not None
+                                    else 0)
+            for idx in range(h.stream.sent, safe):
+                h.stream.push(idx, h.tokens[idx])
         eos = seq.eos_id is not None and tok == seq.eos_id
         if len(h.tokens) >= h.max_new_tokens or eos:
             h.finish_reason = "eos" if eos else "length"
@@ -1628,6 +1998,13 @@ class DecodeScheduler:
         for i, seq in sorted(active, key=lambda e: e[1].handle.t_submit):
             if self._slots[i] is not seq or i == chunked:
                 continue  # preempted above, or had its chunk turn
+            if seq.sampling and seq.proc is not None \
+                    and seq.proc.exhausted():
+                # the grammar admits nothing more: the structured output
+                # is complete, finished before any dispatch
+                seq.handle.finish_reason = "grammar"
+                self._retire(i, seq)
+                continue
             if not seq.sampling and self.prefill_buckets \
                     and self._pick_chunk(seq)[1]:
                 continue  # mid-prefill: waits for its chunk turn
@@ -1667,27 +2044,43 @@ class DecodeScheduler:
             live[i] = 1
         return ids, live, pos
 
+    def _step(self, ids, live, pos, table, mstate) -> torch.Tensor:
+        """One decode step of every slot from device inputs (ids, live,
+        pos [n_slots]; table [n_slots, nb] or None; mstate [n_slots] or
+        None): the one-hot is built here, on the device, as JAX `_step_fn`
+        does in-program; with ``mstate`` each slot's mask-table row is
+        added (JAX `_step_masked_fn` :1265). Returns [n_slots, vocab]
+        f32."""
+        x = self._onehot(ids)[:, None]
+        lv = live != 0
+        if self.recurrent:
+            out = self._rnn_step(x, lv)
+        else:
+            sts = self._dispatch_states(pos, table, lv[:, None])
+            out = self._forward(x, sts)[:, -1, :]
+        if mstate is not None:
+            out = out + self._masks.index_select(0, mstate.long())
+        return out.float()
+
     def _step_body(self, r: _DecodeRunner) -> torch.Tensor:
         """The decode step on ``r``'s static buffers — what a capture
-        records: the one-hot is built here, from the ids on the device, as
-        JAX `_step_fn` does in-program. Returns [n_slots, vocab]."""
-        ids = r.ids.long()
-        x = (ids[:, None] == torch.arange(self.vocab_size,
-                                          device=ids.device)[None, :])
-        x = x.to(self.net.dtype)[:, None]
-        live = (r.live != 0)[:, None]
-        sts = self._dispatch_states(r.pos, r.table, live)
-        return self._forward(x, sts)[:, -1, :]
+        records."""
+        return self._step(r.ids, r.live, r.pos, r.table, r.mstate)
 
-    def _new_runner(self, nb: Optional[int]) -> _DecodeRunner:
+    def _new_runner(self, nb: Optional[int],
+                    masked: bool = False) -> _DecodeRunner:
         """Static buffers for table bucket ``nb`` (None: contiguous),
-        under the capture budget: one runner per bucket over the engine's
-        life, none once warmup() has run."""
-        if nb in self._runners or self._warmed:
-            raise RuntimeError(f"capture budget spent: the decode step of "
+        under the capture budget: one runner per bucket and variant over
+        the engine's life, none once warmup() has run (the masked
+        variant: once warmup(masks=True) has run)."""
+        runners = self._mrunners if masked else self._runners
+        warmed = self._warmed_masks if masked else self._warmed
+        if nb in runners or warmed:
+            raise RuntimeError(f"capture budget spent: the "
+                               f"{'masked ' if masked else ''}decode step of "
                                f"bucket {nb} was built already or warmup() "
                                "has run")
-        return _DecodeRunner(self.n_slots, nb, self.device)
+        return _DecodeRunner(self.n_slots, nb, self.device, masked=masked)
 
     def _body(self, r):
         return self._chunk_body(r) if isinstance(r, _ChunkRunner) \
@@ -1705,16 +2098,22 @@ class DecodeScheduler:
         if chunk:
             self._chunk_runners[r.key] = r
             self.prefill_captures += 1
+            kind = "prefill"
+        elif r.masked:
+            self._mrunners[r.key] = r
+            self.masked_captures += 1
+            kind = "masked_decode"
         else:
             self._runners[r.key] = r
             self.decode_captures += 1
+            kind = "decode"
         if trace and self.tracer.enabled:
             self.tracer.instant("capture", track=self._sched_track,
-                                args={"bucket": r.key,
-                                      "kind": "prefill" if chunk else "decode",
+                                args={"bucket": r.key, "kind": kind,
                                       "graph": r.graph is not None,
                                       "captures": self.decode_captures
-                                      + self.prefill_captures})
+                                      + self.prefill_captures
+                                      + self.masked_captures})
 
     def _capture(self, r) -> None:
         """Record ``r``'s body into a CUDA graph. The body runs eagerly
@@ -1768,15 +2167,26 @@ class DecodeScheduler:
             raise _EngineFenced
         t0 = time.monotonic()
         ids, live, pos = self._decode_inputs(fed)
+        # the masked variant only while a device-resident grammar is in
+        # the batch; other slots point at row 0 (all zeros)
+        mstate = None
+        if self._masks is not None:
+            for i, seq in fed:
+                p = seq.proc
+                if p is not None and p.mask_base is not None:
+                    if mstate is None:
+                        mstate = np.zeros((self.n_slots,), np.int32)
+                    mstate[i] = p.mask_base + p.gstate
+        masked = mstate is not None
         deepest = max(s.written + 1 for _, s in fed)
         if self.decode_graphs == "on":
             table = self._table_for(deepest) if self.paged else None
             nb = table.shape[1] if self.paged else None
-            r = self._runners.get(nb)
+            r = (self._mrunners if masked else self._runners).get(nb)
             new = r is None
             if new:
-                r = self._new_runner(nb)
-            r.fill(ids, live, pos, table)
+                r = self._new_runner(nb, masked)
+            r.fill(ids, live, pos, table, mstate)
             if new:
                 # captured on this step's inputs: the capture's eager run
                 # writes just what the replay writes
@@ -1787,13 +2197,18 @@ class DecodeScheduler:
             dev = self.device
             table = torch.from_numpy(self._table_for(deepest)).to(dev) \
                 if self.paged else None
-            sts = self._dispatch_states(
-                torch.from_numpy(pos).to(dev), table,
-                torch.from_numpy(live != 0).to(dev)[:, None])
-            out = self._forward(self._onehot(ids)[:, None], sts)
-            probs = out[:, -1, :].cpu().numpy()
+            out = self._step(torch.from_numpy(ids).to(dev),
+                             torch.from_numpy(live).to(dev),
+                             torch.from_numpy(pos).to(dev), table,
+                             torch.from_numpy(mstate).to(dev) if masked
+                             else None)
+            probs = out.cpu().numpy()
         self.decode_steps += 1
-        self.decode_seconds += time.monotonic() - t0
+        dt = time.monotonic() - t0
+        self.decode_seconds += dt
+        if masked:
+            self.masked_steps += 1
+            self.masked_seconds += dt
         for i, seq in fed:
             seq.steps += 1
             seq.written += 1
@@ -1804,21 +2219,28 @@ class DecodeScheduler:
                 continue  # still prefilling token by token
             self._consume(i, seq, probs[i])
 
-    def warmup(self) -> None:
+    def warmup(self, masks: Optional[bool] = None) -> None:
         """Build everything the serving loop would otherwise build under
         traffic (JAX :3496): the kernels, every decode step (paged: one
-        per table bucket; contiguous: the one) and every prefill chunk
-        (paged: one per (chunk bucket, table bucket) pair; contiguous: one
-        per chunk bucket), captured on the card, with all lanes masked to
-        the scratch page (paged) or on slot 0 followed by its reset
-        (contiguous), and one scratch -> scratch COW copy. With
-        ``decode_graphs="off"`` the chunks run once eagerly instead.
-        Nothing observable changes: no metrics, no trace records, no pool
-        state, no slot bookkeeping. Call it before traffic (no slot
-        resident); once it has run, live traffic captures nothing."""
+        per table bucket; contiguous and recurrent: the one) and every
+        prefill chunk (paged: one per (chunk bucket, table bucket) pair;
+        contiguous and recurrent: one per chunk bucket), captured on the
+        card, with all lanes masked to the scratch page (paged) or frozen
+        (recurrent), or on slot 0 followed by its reset, and one scratch
+        -> scratch COW copy. With ``decode_graphs="off"`` the chunks run
+        once eagerly instead. ``masks``: also capture the masked decode
+        steps (default: only when grammars are resident already; a
+        deployment expecting grammars passes True, and may call warmup
+        again for them on an idle engine). Nothing observable changes: no
+        metrics, no trace records, no pool state, no slot bookkeeping.
+        Call it before traffic (no slot resident); once it has run, live
+        traffic captures nothing of what it built."""
         if any(s is not None for s in self._slots):
             raise RuntimeError("warmup() runs before traffic: a slot is "
                                "resident")
+        if masks is None:
+            masks = (self.maskpool is not None
+                     and self.maskpool.resident_rows() > 0)
         t0 = time.monotonic()
         s = self.n_slots
         zeros = np.zeros((s,), np.int32)
@@ -1837,6 +2259,15 @@ class DecodeScheduler:
                 r.fill(zeros, zeros, zeros,
                        np.full((s, nb), SCRATCH_BLOCK, np.int32)
                        if nb else None)
+                self._build(r, trace=False)
+            for nb in (self.table_buckets if self.paged else [None]):
+                if not (graphs and masks and self._masks is not None) \
+                        or nb in self._mrunners:
+                    continue
+                r = self._new_runner(nb, masked=True)
+                r.fill(zeros, zeros, zeros,
+                       np.full((s, nb), SCRATCH_BLOCK, np.int32)
+                       if nb else None, zeros)
                 self._build(r, trace=False)
             # no slot is resident: every table row is scratch, and no lane
             # is real (n_real 0), so paged writes go to the scratch page
@@ -1864,4 +2295,6 @@ class DecodeScheduler:
                 torch.cuda.synchronize(self.device)
         if graphs:
             self._warmed = True
+            if masks and self._masks is not None:
+                self._warmed_masks = True
         self.warmup_seconds = time.monotonic() - t0

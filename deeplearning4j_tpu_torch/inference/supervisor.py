@@ -148,6 +148,9 @@ class EngineSupervisor:
     recovery). ``clock``/``sleep_fn``: injectable time. ``watchdog=False``
     skips the background thread (tests call :meth:`check`);
     ``warm_on_build=False`` skips ``engine.warmup()`` (stub engines).
+    ``warm_masks``: every build also captures the grammar-masked decode
+    steps (``warmup(masks=True)``); without it a rebuild does so only
+    when a tracked request carries a grammar (JAX `_warm`).
     """
 
     def __init__(self, factory: Callable[[], DecodeScheduler], *,
@@ -168,8 +171,10 @@ class EngineSupervisor:
                  tracer: Optional[FlightRecorder] = None,
                  clock: Callable[[], float] = time.monotonic,
                  sleep_fn: Callable[[float], None] = time.sleep,
-                 watchdog: bool = True, warm_on_build: bool = True):
+                 watchdog: bool = True, warm_on_build: bool = True,
+                 warm_masks: bool = False):
         self._factory = factory
+        self.warm_masks = bool(warm_masks)
         self.hang_timeout_s = float(hang_timeout_s)
         # a fresh engine's first pass may stall the heartbeat (first
         # kernel builds, the allocator's first blocks): until it finishes
@@ -244,7 +249,13 @@ class EngineSupervisor:
         eng._on_crash = self._note_crash
         self._apply_degradation(eng, self.degradation_level)
         if self._warm_on_build:
-            eng.warmup()
+            with self._lock:
+                masks = self.warm_masks or any(
+                    t.kwargs.get("grammar") is not None
+                    for t in self._tracked.values())
+            # the masks keyword only when needed: stub engines expose a
+            # warmup() without it
+            eng.warmup(masks=True) if masks else eng.warmup()
         eng.start()
         return eng
 
@@ -532,6 +543,26 @@ class EngineSupervisor:
         finally:
             self._untrack(handle.request_id)
         return handle
+
+    def generate_many(self, prompt_ids: Sequence[int], n: int,
+                      max_new_tokens: int,
+                      timeout: Optional[float] = 120.0, *, seed: int = 0,
+                      **kw) -> List[DecodeHandle]:
+        """Supervised best-of-n (JAX :579): `speculative.submit_fork_group`
+        over this supervisor's tracked submit, so each candidate is
+        recovered on its own after a crash (the fork group rides the
+        resubmission kwargs; a rebuilt engine without the published blocks
+        prefills cold). A failed submit or a timeout cancels the
+        candidates; every candidate leaves the tracking set on exit."""
+        from .speculative import await_fork_group, submit_fork_group
+        handles = submit_fork_group(self.submit, prompt_ids, n,
+                                    max_new_tokens, seed=seed, **kw)
+        try:
+            await_fork_group(handles, timeout, clock=self._clock)
+        finally:
+            for h in handles:
+                self._untrack(h.request_id)
+        return handles
 
     def _untrack(self, request_id: str) -> None:
         with self._lock:

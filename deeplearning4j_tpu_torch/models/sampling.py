@@ -17,13 +17,27 @@ import torch
 
 def _sample_logits(probs: np.ndarray, temperature: float, top_k: Optional[int],
                    rng: np.random.Generator,
-                   top_p: Optional[float] = None) -> int:
+                   top_p: Optional[float] = None,
+                   allow: Optional[np.ndarray] = None) -> int:
     """Pick a token id from one probability row [V]: greedy at
-    temperature <= 0, else temperature / top-k / top-p sampling. (The JAX
-    function's ``allow`` mask comes with the logit-processor slice.)"""
+    temperature <= 0, else temperature / top-k / top-p sampling (JAX
+    sampling.py :17).
+
+    ``allow`` (bool [V], grammar-constrained decoding,
+    `inference/logitproc.py`): forbidden tokens get ``-inf`` logits, so
+    their probability is exactly zero, with one ``rng.choice`` draw
+    either way (the RNG stream stays in step with unconstrained decode).
+    An all-True row changes no value: an admit-all grammar is
+    token-identical to ``allow=None``. The caller guarantees one allowed
+    token at least."""
     if temperature <= 0.0:  # greedy
+        if allow is not None:
+            # probs are softmax outputs (>= 0): -1 can never win argmax
+            return int(np.where(allow, probs, -1.0).argmax())
         return int(probs.argmax())
     logits = np.log(np.maximum(probs, 1e-30)) / temperature
+    if allow is not None:
+        logits = np.where(allow, logits, -np.inf)
     if top_k is not None and top_k > 0 and top_k < logits.shape[-1]:
         cutoff = np.partition(logits, -top_k)[-top_k]
         logits = np.where(logits >= cutoff, logits, -np.inf)

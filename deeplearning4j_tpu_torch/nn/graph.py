@@ -40,9 +40,9 @@ compute dtype (ops/helpers.attention).
 Not ported yet, and raising where asked for: the line-search solvers,
 ``fit_batch_accumulated``, vertex preprocessors, layers with
 non-trainable variables (BatchNorm), the vertex types ``transformer_lm``
-does not use (ROADMAP A5), and ``rnn_time_step`` of a graph with
-attention layers (with it ``generate_transformer(use_cache=True)``) when
-the compute dtype is not f32 (ROADMAP A4, bf16 decode).
+does not use (ROADMAP A5). ``rnn_time_step`` (and with it
+``generate_transformer(use_cache=True)``) runs at any compute dtype,
+with its KV cache at the compute dtype.
 """
 from __future__ import annotations
 
@@ -57,7 +57,7 @@ from .conf.graph import (ComputationGraphConfiguration, ElementWiseVertex,
 from .layers.base import (BaseRecurrentImpl, LayerImpl, detach_states,
                           impl_for, materialize_rnn_states, remat_forward)
 # importing the impl modules registers them
-from .layers import attention as _attention
+from .layers import attention as _attention  # noqa: F401
 from .layers import feedforward as _feedforward  # noqa: F401
 from .layers import normalization as _normalization  # noqa: F401
 from .layers import recurrent as _recurrent  # noqa: F401
@@ -69,19 +69,6 @@ from ..util.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
 _SGD_ALGOS = ("stochastic_gradient_descent", "sgd")
-
-
-def check_f32_decode(net, what: str) -> None:
-    """Raise NotImplementedError unless ``net`` computes in f32: the KV-cached
-    paths (``rnn_time_step``, ``generate_transformer(use_cache=True)``, the
-    decode engine) run f32 only until bf16 decode lands (ROADMAP A4; the
-    JAX package serves such a net through its gather body, since its paged
-    kernel declines a query that is not f32)."""
-    cd = getattr(net, "compute_dtype", torch.float32)
-    if cd != torch.float32:
-        raise NotImplementedError(
-            f"{what} on a net computing in {cd}: bf16 decode is queued as "
-            "ROADMAP A4")
 
 
 class ComputationGraph:
@@ -460,13 +447,10 @@ class ComputationGraph:
         ([B, T, F], or [B, F] for one step) continues where the last call
         ended, through the recurrent vertices' h/c and the attention
         layers' contiguous KV caches, which the first call makes (capacity
-        ``max_cache_len``). Returns the network outputs for these steps.
-        Refused for a graph with attention layers when the compute dtype
-        is not f32: bf16 decode is queued (ROADMAP A4)."""
+        ``max_cache_len``; at the compute dtype, so a bf16 or mixed net
+        keeps a bf16 cache). Returns the network outputs for these
+        steps."""
         self._check_init()
-        if any(isinstance(impl, _attention.SelfAttentionLayerImpl)
-               for impl in self._impls.values()):
-            check_f32_decode(self, "rnn_time_step")
         ins = [a[:, None, :] if a.ndim == 2 else a
                for a in self._as_tensors(list(inputs))]
         states = materialize_rnn_states(self._impls.items(), self._rnn_state,

@@ -25,12 +25,15 @@
     ("disallow") runs the scheduler loop under torch's sync debug mode
     (process-wide: serve ``/generate`` traffic only under it).
 
-The decode engine serves a ComputationGraph: ``decode_vocab=None`` takes
-its vocabulary from the output layer's width (the JAX server needs it
-given); ``decode_vocab=0``, or a MultiLayerNetwork, serves no
-``/generate``. The server owns a `MetricsRegistry` and a span
-`FlightRecorder` (``trace_buffer`` events; 0 disables recording) that the
-engine, the supervisor and the batchers write.
+The decode engine serves a ComputationGraph LM: ``decode_vocab=None``
+takes its vocabulary from the output layer's width (the JAX server needs
+it given). A recurrent MultiLayerNetwork (the char-RNN) is served when
+``decode_vocab`` is given, as the JAX server does; ``decode_vocab=0``, or
+a MultiLayerNetwork without it, serves no ``/generate``. Grammars are
+compiled ahead of admission and cached by content (at most 32); a spec
+that does not compile answers 400. The server owns a `MetricsRegistry`
+and a span `FlightRecorder` (``trace_buffer`` events; 0 disables
+recording) that the engine, the supervisor and the batchers write.
 
 Every POST carries an ``X-Request-Id`` response header: a well-formed
 client-supplied id (``[A-Za-z0-9._:-]{1,128}``) becomes the prefix of a
@@ -61,14 +64,24 @@ Endpoints:
   POST /predict/csv       text/plain CSV rows -> the same
   POST /generate          {"prompt": [ids], "max_new_tokens"?,
                           "temperature"?, "top_k"?, "top_p"?, "seed"?,
-                          "eos_id"?, "priority"?, "stream"?} -> {"tokens",
-                          "request_id", "finish_reason", "timings",
-                          "retries"? (engine restarts it survived)};
-                          ?timeout_ms=N (expiry cancels the decode ->
-                          504); a full queue -> 503; a prompt the cache
-                          cannot hold -> 413; any other field (grammar,
-                          stop, penalties, n: not ported yet, ROADMAP A4)
-                          or a malformed body -> 400. {"stream": true} ->
+                          "eos_id"?, "priority"?, "stop"? ([ids] or
+                          [[ids], ...]), "grammar"? ({"type": "admit_all"}
+                          | {"type": "trie", "sequences": [[ids], ...]} |
+                          {"type": "json_schema", "schema": {...},
+                          "alphabet": token texts}), "repetition_penalty"?,
+                          "presence_penalty"?, "frequency_penalty"?, "n"?
+                          (best-of-n, at most 4 x decode slots), "stream"?}
+                          -> {"tokens", "request_id", "finish_reason",
+                          "timings", "retries"? (engine restarts it
+                          survived)}; with n > 1 also "candidates" (each
+                          {"tokens", "request_id", "finish_reason",
+                          "timings"}, candidate i seeded seed + i) and
+                          "n"; ?timeout_ms=N
+                          (expiry cancels the decode -> 504); a full queue
+                          -> 503; a prompt the cache cannot hold -> 413;
+                          an unknown field, a grammar that does not
+                          compile, n > 1 with stream, or a malformed body
+                          -> 400. {"stream": true} ->
                           text/event-stream: one `data: {"token",
                           "index"}` event per token, then `data: {"done":
                           true, request_id, tokens, finish_reason,
@@ -85,6 +98,7 @@ the ``/info`` profiler headline (ROADMAP A4), ``/prefix/*`` (A4, A8).
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -105,7 +119,8 @@ from ..inference.batcher import MicroBatcher, QueueFullError, _to_host
 from ..inference.engine import (DecodeScheduler, EngineCrashedError,
                                 PromptTooLongError)
 from ..inference.failpoints import InjectedFault
-from ..inference.logitproc import TokenStream
+from ..inference.logitproc import (GrammarError, TokenStream, admit_all,
+                                   compile_json_schema, compile_trie)
 from ..inference.metrics import MetricsRegistry
 from ..inference.supervisor import (AdmissionRejectedError, EngineSupervisor,
                                     RetryBudgetExceededError,
@@ -121,13 +136,26 @@ __all__ = ["InferenceServer"]
 # with embedded CR/LF, and an unvalidated id would be header injection
 _REQUEST_ID_RE = re.compile(r"[A-Za-z0-9._:\-]{1,128}")
 
-# the /generate fields the port serves; grammar, stop sequences,
-# penalties and best-of-n wait for ROADMAP A4 and are refused, not ignored
+# the /generate fields the port serves; any other is refused, not
+# ignored (a deliberate difference from the JAX server, ROADMAP C)
 _GENERATE_FIELDS = frozenset({"prompt", "max_new_tokens", "temperature",
                               "top_k", "top_p", "seed", "eos_id", "priority",
+                              "stop", "grammar", "repetition_penalty",
+                              "presence_penalty", "frequency_penalty", "n",
                               "stream"})
 _DECODE_KWARGS = ("temperature", "top_k", "top_p", "seed", "eos_id",
-                  "priority")
+                  "priority", "repetition_penalty", "presence_penalty",
+                  "frequency_penalty")
+
+# the grammar-compile cache: compiled ahead of admission, shared by
+# requests carrying equal grammar specs, at most this many entries
+_GRAMMAR_CACHE_CAP = 32
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    # the listen backlog: the stdlib's 5 resets or delays (by a SYN
+    # retransmit, 1 s) connections that arrive at once past it
+    request_queue_size = 128
 
 
 def _peer_gone(sock) -> bool:
@@ -163,6 +191,7 @@ class InferenceServer:
                  supervise: bool = True, hang_timeout_s: float = 5.0,
                  retry_budget: int = 3,
                  decode_transfer_guard: Optional[str] = None,
+                 mask_rows: int = 64, decode_warm_masks: bool = False,
                  failpoint_endpoint: bool = False,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
@@ -176,6 +205,8 @@ class InferenceServer:
             out = net.conf.network_outputs[0]
             decode_vocab = int(net.conf.vertices[out].layer.n_out)
         self.decode_vocab = int(decode_vocab or 0)
+        self.decode_slots = int(decode_slots)
+        self.decode_warm_masks = bool(decode_warm_masks)
         self.max_batch = int(max_batch)
         self.converter = converter or RecordToDataSetConverter(label_index=None)
         self.batching = bool(batching)
@@ -187,7 +218,7 @@ class InferenceServer:
             prefill_chunk=prefill_chunk, prefix_cache_mb=prefix_cache_mb,
             kv_block=kv_block, kv_pool_mb=kv_pool_mb, kv_dtype=kv_dtype,
             paged_kernel=paged_kernel, decode_graphs=decode_graphs,
-            transfer_guard=decode_transfer_guard)
+            mask_rows=mask_rows, transfer_guard=decode_transfer_guard)
         self.supervise = bool(supervise)
         self.hang_timeout_s = float(hang_timeout_s)
         self.retry_budget = int(retry_budget)
@@ -217,6 +248,11 @@ class InferenceServer:
             "stream_disconnects_total",
             help="SSE clients that hung up mid-stream (decode "
                  "cancelled, slot reclaimed)")
+        self._grammar_cache: Dict[str, object] = {}
+        self._grammar_lock = threading.Lock()
+        self._m_grammar_compiles = self.metrics.counter(
+            "grammar_compiles_total",
+            help="grammar specs compiled (cache misses)")
 
     @property
     def port(self) -> int:
@@ -259,7 +295,9 @@ class InferenceServer:
         if dec is not None:
             body["decode"] = {
                 "slots": dec.n_slots, "prefill_chunk": dec.prefill_chunk,
-                "kv_mode": "paged" if dec.paged else "contiguous",
+                "kv_mode": ("paged" if dec.paged else "recurrent"
+                            if dec.recurrent else "contiguous"),
+                "mask_rows": dec.mask_rows,
                 "kv_dtype": dec.kv_dtype, "paged_kernel": dec.paged_kernel,
                 "decode_graphs": dec.decode_graphs,
                 "decode_captures": dec.decode_captures,
@@ -330,15 +368,69 @@ class InferenceServer:
                              "decode_vocab > 0; CLI: --generate)")
         return gen
 
+    def _compile_grammar(self, spec, eos_id: Optional[int]):
+        """Compile a /generate ``grammar`` spec ahead of admission (JAX
+        :494), cached by a digest of the spec and ``eos_id``, so a
+        repeated schema compiles once. Forms: ``{"type": "admit_all"}``,
+        ``{"type": "trie", "sequences": [[ids], ...]}`` (exactly one of
+        the sequences), ``{"type": "json_schema", "schema": {...},
+        "alphabet": token id -> text}`` (`logitproc.compile_json_schema`'s
+        subset). Raises GrammarError (-> 400)."""
+        if not isinstance(spec, dict):
+            raise GrammarError("grammar must be an object")
+        key = hashlib.sha1(json.dumps([spec, eos_id],
+                                      sort_keys=True).encode()).hexdigest()
+        with self._grammar_lock:
+            g = self._grammar_cache.get(key)
+        if g is not None:
+            return g
+        typ = spec.get("type")
+        if typ == "admit_all":
+            g = admit_all(self.decode_vocab)
+        elif typ == "trie":
+            g = compile_trie(spec.get("sequences") or [],
+                             self.decode_vocab, eos_id=eos_id)
+        elif typ == "json_schema":
+            alphabet = spec.get("alphabet")
+            if alphabet is None:
+                raise GrammarError(
+                    "json_schema grammar needs an 'alphabet' (token id "
+                    "-> decoded text)")
+            if len(alphabet) != self.decode_vocab:
+                raise GrammarError(f"alphabet length {len(alphabet)} != "
+                                   f"vocab {self.decode_vocab}")
+            g = compile_json_schema(spec.get("schema") or {}, alphabet,
+                                    eos_id=eos_id)
+        else:
+            raise GrammarError(f"unknown grammar type {typ!r} (admit_all "
+                               "| trie | json_schema)")
+        self._m_grammar_compiles.inc()
+        with self._grammar_lock:
+            if len(self._grammar_cache) >= _GRAMMAR_CACHE_CAP:
+                # bounded: the oldest entry goes (insertion order)
+                self._grammar_cache.pop(next(iter(self._grammar_cache)))
+            self._grammar_cache[key] = g
+        return g
+
     def _parse_generate(self, payload) -> Tuple[list, int, dict]:
+        """(prompt, max_new_tokens, the engine's keyword arguments) of a
+        /generate body (JAX `_decode_kwargs` :550): the sampling knobs,
+        the penalties, the stop sequences (one bare sequence or a list)
+        and the compiled grammar. ``n`` is read by the caller."""
         if not isinstance(payload, dict) or "prompt" not in payload:
             raise ValueError("body must be a JSON object with a 'prompt'")
         unknown = sorted(set(payload) - _GENERATE_FIELDS)
         if unknown:
-            raise ValueError(
-                f"unknown /generate field(s) {unknown}: grammar, stop "
-                "sequences, penalties and best-of-n are not ported yet")
+            raise ValueError(f"unknown /generate field(s) {unknown}")
         kw = {k: payload[k] for k in _DECODE_KWARGS if k in payload}
+        stop = payload.get("stop")
+        if stop:
+            if isinstance(stop[0], (int, float)):
+                stop = [stop]  # one bare sequence
+            kw["stop"] = [[int(t) for t in q] for q in stop]
+        if payload.get("grammar") is not None:
+            kw["grammar"] = self._compile_grammar(payload["grammar"],
+                                                  payload.get("eos_id"))
         prompt = [int(t) for t in payload["prompt"]]
         return prompt, int(payload.get("max_new_tokens", 16)), kw
 
@@ -351,10 +443,32 @@ class InferenceServer:
                   request_id: Optional[str] = None) -> dict:
         gen = self._generation()
         prompt, max_new, kw = self._parse_generate(payload)
+        timeout = self._timeout_s(timeout_ms)
+        n = int(payload.get("n", 1))
+        if n < 1:
+            raise ValueError(f"n must be >= 1, got {n}")
+        if n > 1:
+            # best-of-n (JAX :584): n candidates as one fork group, the
+            # i-th seeded seed + i; the client ranks them
+            cap = max(self.decode_slots, 1) * 4
+            if n > cap:
+                raise ValueError(f"n={n} exceeds the candidate cap ({cap} "
+                                 "= 4x decode slots)")
+            handles = gen.generate_many(prompt, n, max_new, timeout=timeout,
+                                        request_id=request_id, **kw)
+            return {"tokens": handles[0].tokens,
+                    "candidates": [{"tokens": h.tokens,
+                                    "request_id": h.request_id,
+                                    "finish_reason": h.finish_reason,
+                                    "timings": h.timings()}
+                                   for h in handles],
+                    "n": n,
+                    "request_id": request_id or handles[0].request_id,
+                    "finish_reason": handles[0].finish_reason,
+                    "timings": handles[0].timings()}
         # supervised: tracked for crash recovery (a restart resubmits it
         # with the same handle and seed; the client never sees the crash)
-        handle = gen.generate_handle(prompt, max_new,
-                                     timeout=self._timeout_s(timeout_ms),
+        handle = gen.generate_handle(prompt, max_new, timeout=timeout,
                                      request_id=request_id, **kw)
         out = {"tokens": handle.tokens, "request_id": handle.request_id,
                "finish_reason": handle.finish_reason,
@@ -375,6 +489,10 @@ class InferenceServer:
         — the slot, its blocks and its prefix pin are reclaimed at the
         scheduler's next sweep. Returns "ok" | "disconnect"."""
         gen = self._generation()
+        if int(payload.get("n", 1)) != 1:
+            raise ValueError("stream=true supports n=1 only (best-of-n "
+                             "candidates finish at different times; rank "
+                             "buffered candidates instead)")
         prompt, max_new, kw = self._parse_generate(payload)
         timeout = self._timeout_s(timeout_ms)
         stream = TokenStream()
@@ -449,10 +567,11 @@ class InferenceServer:
                     self._decoder_factory,
                     hang_timeout_s=self.hang_timeout_s,
                     retry_budget=self.retry_budget,
+                    warm_masks=self.decode_warm_masks,
                     metrics=self.metrics, tracer=self.tracer)
             else:
                 eng = self._decoder_factory()
-                eng.warmup()
+                eng.warmup(masks=self.decode_warm_masks)
                 self._decoder_direct = eng.start()
         m_http = self.metrics.counter("http_requests_total")
         m_err = self.metrics.counter("http_errors_total")
@@ -702,7 +821,7 @@ class InferenceServer:
                     self._send({"error": str(e), "request_id": rid}, 400,
                                request_id=rid)
 
-        self._httpd = ThreadingHTTPServer((self._host, self._port), Handler)
+        self._httpd = _HTTPServer((self._host, self._port), Handler)
         self._httpd.daemon_threads = True
         self._thread = threading.Thread(target=self._httpd.serve_forever,
                                         daemon=True, name="http-server")

@@ -13,7 +13,7 @@ attention seam to the interpreted splash kernel (`_splash_call` under
 `helpers.register_helper`; the package itself is unchanged), the port
 takes its splash route (`SPLASH_MIN_LEN` lowered to 128), whose CPU path
 is the splash kernels' plain versions at bf16. Then bf16 model zips
-across the two packages, and the paths that stay refused.
+across the two packages, and the decode paths that now run at bf16.
 
 Tolerances (bf16 compute; measured on this comparison: loss within 1.6e-4
 relative, gradients within 1.8e-2 of each leaf's max, bf16 params after
@@ -270,14 +270,20 @@ def test_refusals_name_their_roadmap_items():
         == torch.bfloat16
     mconf.conf.dtype, mconf.conf.compute_dtype = "float32", "bfloat16"
     assert MultiLayerNetwork(mconf, device="cpu").dtype == torch.float32
+    # bf16 decode is no longer refused (ROADMAP A4's first item): the
+    # engine, rnn_time_step and the cached generate run a bf16 or mixed
+    # net (tests/test_torch_bf16_decode.py holds them against JAX)
     for precision in PRECISIONS:
         net = TGraph(_tiny_conf(precision), device="cpu").init()
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            DecodeScheduler(net, 13, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            net.rnn_time_step(np.eye(13, dtype=np.float32)[[1, 2]][None])
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            generate_transformer(net, [1, 2, 3], 2, 13, use_cache=True)
+        out = net.rnn_time_step(np.eye(13, dtype=np.float32)[[1, 2]][None])
+        assert out[0].dtype == torch.bfloat16 and out[0].shape == (1, 2, 13)
+        cached = generate_transformer(net, [1, 2, 3], 2, 13, use_cache=True)
+        assert len(cached) == 2
+        eng = DecodeScheduler(net, 13, n_slots=2, device="cpu").start()
+        try:
+            assert eng.generate([1, 2, 3], 2, timeout=120) == cached
+        finally:
+            eng.stop()
         # the uncached path runs at bf16
         assert len(generate_transformer(net, [1, 2, 3], 2, 13)) == 2
 

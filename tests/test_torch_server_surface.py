@@ -3,8 +3,9 @@
 - Request ids, timings, error bodies and a malformed id replaced: the
   cases of tests/test_trace.py (:290-432) on the port's server.
 - SSE: streamed tokens equal the buffered ones, a client that hangs up
-  frees its slot and blocks (tests/test_logitproc.py :522, :595), and
-  the fields the port does not serve yet are refused with 400.
+  frees its slot and blocks (tests/test_logitproc.py :522, :595), the
+  grammar, stop, penalty and ``n`` fields are served, and a field the
+  port does not know is refused with 400.
 - /predict: the `MicroBatcher` cases of tests/test_inference_engine.py
   (:175-312) parametrised over the JAX class and the port's; batched
   answers bit-identical to unbatched; the deadline's 504; a graph zip's
@@ -300,13 +301,51 @@ def test_http_stream_token_identical_to_buffered(paged_server):
     {"repetition_penalty": 1.2}, {"n": 2}])
 def test_unported_generate_fields_are_refused_not_ignored(paged_server,
                                                           extra):
-    for stream in (False, True):
+    """The fields that were refused until the logit processors and
+    best-of-n were ported are now served, buffered and streamed, and act
+    on the output (none is ignored); ``n`` > 1 with ``stream`` and a
+    field the port does not know stay 400."""
+    srv = paged_server
+    prompt = _prompt()
+    body = {"prompt": prompt, "max_new_tokens": 6, **extra}
+    plain = _post(srv.port, "/generate", {"prompt": prompt,
+                                          "max_new_tokens": 6})
+    c0 = srv.metrics.counter("constrained_requests_total").value
+    out = _post(srv.port, "/generate", body)
+    if "n" in extra:
+        assert len(out["candidates"]) == 2
+        assert out["tokens"] == out["candidates"][0]["tokens"] \
+            == plain["tokens"]
         with pytest.raises(urllib.error.HTTPError) as ei:
-            _post(paged_server.port, "/generate",
-                  {"prompt": [1, 2], "max_new_tokens": 2, "stream": stream,
-                   **extra})
+            _post(srv.port, "/generate", {**body, "stream": True})
         assert ei.value.code == 400
-        assert "not ported" in json.loads(ei.value.read())["error"]
+        assert "n=1" in json.loads(ei.value.read())["error"]
+    else:
+        conn = http.client.HTTPConnection("127.0.0.1", srv.port,
+                                          timeout=300)
+        conn.request("POST", "/generate",
+                     json.dumps({**body, "stream": True}).encode(),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        assert resp.status == 200
+        events = _read_sse(resp)
+        conn.close()
+        assert events[-1]["tokens"] == out["tokens"]
+        assert events[-1]["finish_reason"] == out["finish_reason"]
+    if "grammar" in extra:  # counted, and admit-all changes no token
+        assert srv.metrics.counter(
+            "constrained_requests_total").value == c0 + 2
+        assert out["tokens"] == plain["tokens"]
+    if "stop" in extra:
+        assert all(out["tokens"][i:i + 2] != [1, 2]
+                   for i in range(len(out["tokens"])))
+        assert out["finish_reason"] in ("stop", "length")
+    if "repetition_penalty" in extra:
+        assert len(out["tokens"]) == 6
+    with pytest.raises(urllib.error.HTTPError) as ei:
+        _post(srv.port, "/generate", {**body, "logit_bias": {"1": 2.0}})
+    assert ei.value.code == 400
+    assert "unknown /generate field" in json.loads(ei.value.read())["error"]
 
 
 def test_http_stream_disconnect_reclaims_slot_and_pins(paged_server):

@@ -150,6 +150,7 @@ import torch
 from ..models.sampling import sample_logits
 from ..nn.layers.attention import SelfAttentionLayerImpl
 from ..nn.layers.base import BaseRecurrentImpl
+from ..nn.layers.recurrent import GravesBidirectionalLSTMImpl
 from ..ops import cuda_kernels as ck
 from ..util.device import DeviceLike, resolve_device
 from . import failpoints
@@ -548,7 +549,7 @@ class DecodeScheduler:
         if attn and rec:
             raise ValueError("the decode engine serves attention nets or "
                              "recurrent nets, not a net with both")
-        if any(type(i).__name__ == "GravesBidirectionalLSTMImpl"
+        if any(isinstance(i, GravesBidirectionalLSTMImpl)
                for i in rec.values()):
             raise ValueError("a bidirectional LSTM needs the whole sequence "
                              "and cannot be stepped token by token")
@@ -580,10 +581,10 @@ class DecodeScheduler:
                     "KV cache to share", RuntimeWarning, stacklevel=2)
             if kv_dtype:
                 warnings.warn(
-                    "kv_dtype='int8' requested but the paged KV pool did not "
-                    "engage (int8 KV lives in the pool's pages); serving "
-                    "with the model-dtype state instead", RuntimeWarning,
-                    stacklevel=2)
+                    f"kv_dtype={kv_dtype!r} requested but the paged KV pool "
+                    "did not engage (a KV cache dtype applies to the pool's "
+                    "pages); serving with the model-dtype state instead",
+                    RuntimeWarning, stacklevel=2)
             for key, impl in rec.items():
                 self._states[key] = impl.init_state(self.n_slots,
                                                     dtype=self._dtype,
@@ -629,7 +630,8 @@ class DecodeScheduler:
         else:
             if kv_dtype:
                 warnings.warn(
-                    "kv_dtype='int8' requested but the paged KV pool did not "
+                    f"kv_dtype={kv_dtype!r} requested but the paged KV pool "
+                    "did not "
                     "engage (int8 KV lives in the pool's pages); serving "
                     "with the model-dtype cache instead", RuntimeWarning,
                     stacklevel=2)
@@ -717,7 +719,6 @@ class DecodeScheduler:
         self.prefill_captures = 0
         self.masked_captures = 0
         self._warmed = False
-        self._warmed_masks = False
         self.warmup_seconds: Optional[float] = None
         # scheduler-thread counters, read by callers between runs
         self.decode_steps = 0
@@ -2071,11 +2072,11 @@ class DecodeScheduler:
                     masked: bool = False) -> _DecodeRunner:
         """Static buffers for table bucket ``nb`` (None: contiguous),
         under the capture budget: one runner per bucket and variant over
-        the engine's life, none once warmup() has run (the masked
-        variant: once warmup(masks=True) has run)."""
+        the engine's life, and no unmasked one once warmup() has run (a
+        masked one is captured on first use unless warmup(masks=True)
+        built it)."""
         runners = self._mrunners if masked else self._runners
-        warmed = self._warmed_masks if masked else self._warmed
-        if nb in runners or warmed:
+        if nb in runners or (self._warmed and not masked):
             raise RuntimeError(f"capture budget spent: the "
                                f"{'masked ' if masked else ''}decode step of "
                                f"bucket {nb} was built already or warmup() "
@@ -2295,6 +2296,4 @@ class DecodeScheduler:
                 torch.cuda.synchronize(self.device)
         if graphs:
             self._warmed = True
-            if masks and self._masks is not None:
-                self._warmed_masks = True
         self.warmup_seconds = time.monotonic() - t0

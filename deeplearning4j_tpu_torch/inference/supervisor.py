@@ -148,9 +148,8 @@ class EngineSupervisor:
     recovery). ``clock``/``sleep_fn``: injectable time. ``watchdog=False``
     skips the background thread (tests call :meth:`check`);
     ``warm_on_build=False`` skips ``engine.warmup()`` (stub engines).
-    ``warm_masks``: every build also captures the grammar-masked decode
-    steps (``warmup(masks=True)``); without it a rebuild does so only
-    when a tracked request carries a grammar (JAX `_warm`).
+    A build also captures the grammar-masked decode steps when a tracked
+    request carries a grammar (JAX `_warm`).
     """
 
     def __init__(self, factory: Callable[[], DecodeScheduler], *,
@@ -171,10 +170,8 @@ class EngineSupervisor:
                  tracer: Optional[FlightRecorder] = None,
                  clock: Callable[[], float] = time.monotonic,
                  sleep_fn: Callable[[float], None] = time.sleep,
-                 watchdog: bool = True, warm_on_build: bool = True,
-                 warm_masks: bool = False):
+                 watchdog: bool = True, warm_on_build: bool = True):
         self._factory = factory
-        self.warm_masks = bool(warm_masks)
         self.hang_timeout_s = float(hang_timeout_s)
         # a fresh engine's first pass may stall the heartbeat (first
         # kernel builds, the allocator's first blocks): until it finishes
@@ -242,7 +239,9 @@ class EngineSupervisor:
         """Build, hook, warm and start a fresh engine. Warming captures
         every decode step and prefill chunk graph HERE, inside the
         recovery or drain window the supervisor owns, before the engine
-        takes any request: nothing is captured under traffic. A warmup
+        takes any request: nothing unconstrained is captured under
+        traffic (the grammar-masked steps are warmed when a tracked
+        request carries a grammar, else captured on first use). A warmup
         failure raises (a recovery pass then fails and the next poll
         retries)."""
         eng = self._factory()
@@ -250,7 +249,7 @@ class EngineSupervisor:
         self._apply_degradation(eng, self.degradation_level)
         if self._warm_on_build:
             with self._lock:
-                masks = self.warm_masks or any(
+                masks = any(
                     t.kwargs.get("grammar") is not None
                     for t in self._tracked.values())
             # the masks keyword only when needed: stub engines expose a

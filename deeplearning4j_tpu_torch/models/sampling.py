@@ -35,6 +35,17 @@ def _sample_logits(probs: np.ndarray, temperature: float, top_k: Optional[int],
             # probs are softmax outputs (>= 0): -1 can never win argmax
             return int(np.where(allow, probs, -1.0).argmax())
         return int(probs.argmax())
+    p = sampling_distribution(probs, temperature, top_k, top_p, allow)
+    return int(rng.choice(p.shape[-1], p=p))
+
+
+def sampling_distribution(probs: np.ndarray, temperature: float,
+                          top_k: Optional[int],
+                          top_p: Optional[float] = None,
+                          allow: Optional[np.ndarray] = None) -> np.ndarray:
+    """The distribution [V] that `_sample_logits` draws from at
+    ``temperature`` > 0: the row's log-probabilities over the
+    temperature, masked by ``allow``, top-k and top-p, renormalised."""
     logits = np.log(np.maximum(probs, 1e-30)) / temperature
     if allow is not None:
         logits = np.where(allow, logits, -np.inf)
@@ -52,7 +63,7 @@ def _sample_logits(probs: np.ndarray, temperature: float, top_k: Optional[int],
     logits = logits - logits.max()
     p = np.exp(logits)
     p /= p.sum()
-    return int(rng.choice(p.shape[-1], p=p))
+    return p
 
 
 # the decode engine selects tokens through the SAME function the solo

@@ -191,7 +191,7 @@ class InferenceServer:
                  supervise: bool = True, hang_timeout_s: float = 5.0,
                  retry_budget: int = 3,
                  decode_transfer_guard: Optional[str] = None,
-                 mask_rows: int = 64, decode_warm_masks: bool = False,
+                 mask_rows: int = 64,
                  failpoint_endpoint: bool = False,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
@@ -206,7 +206,6 @@ class InferenceServer:
             decode_vocab = int(net.conf.vertices[out].layer.n_out)
         self.decode_vocab = int(decode_vocab or 0)
         self.decode_slots = int(decode_slots)
-        self.decode_warm_masks = bool(decode_warm_masks)
         self.max_batch = int(max_batch)
         self.converter = converter or RecordToDataSetConverter(label_index=None)
         self.batching = bool(batching)
@@ -567,11 +566,10 @@ class InferenceServer:
                     self._decoder_factory,
                     hang_timeout_s=self.hang_timeout_s,
                     retry_budget=self.retry_budget,
-                    warm_masks=self.decode_warm_masks,
                     metrics=self.metrics, tracer=self.tracer)
             else:
                 eng = self._decoder_factory()
-                eng.warmup(masks=self.decode_warm_masks)
+                eng.warmup()
                 self._decoder_direct = eng.start()
         m_http = self.metrics.counter("http_requests_total")
         m_err = self.metrics.counter("http_errors_total")

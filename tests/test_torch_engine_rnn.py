@@ -262,3 +262,20 @@ def test_server_takes_many_connections_at_once():
         srv.stop()
     assert outs == [generate_rnn(tnet, PROMPTS[i % 3], 2, V)
                     for i in range(32)]
+
+
+def test_bidirectional_lstm_is_refused():
+    """A bidirectional LSTM reads the whole sequence, so it cannot be
+    stepped a token at a time: the engine refuses it by its impl class."""
+    from deeplearning4j_tpu_torch.nn.conf.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        GravesBidirectionalLSTM, RnnOutputLayer)
+    conf = (NeuralNetConfiguration.builder().seed(1).list()
+            .layer(GravesBidirectionalLSTM(n_in=V, n_out=8,
+                                           activation="tanh"))
+            .layer(RnnOutputLayer(n_in=8, n_out=V, activation="softmax",
+                                  loss="mcxent"))
+            .build())
+    net = TNet(conf, device="cpu").init()
+    with pytest.raises(ValueError, match="bidirectional"):
+        DecodeScheduler(net, V, n_slots=2, device="cpu")

@@ -551,8 +551,7 @@ def server():
     _, tnet = _nets()
     srv = InferenceServer(net=tnet, decode_vocab=V, decode_slots=2,
                           prefill_chunk=16, kv_pool_mb=0.5,
-                          hang_timeout_s=600, decode_warm_masks=True,
-                          device="cpu").start()
+                          hang_timeout_s=600, device="cpu").start()
     yield srv
     srv.stop()
 
@@ -603,10 +602,11 @@ def test_http_stream_with_grammar_payload(server, prompt, jax_ref):
                                    "grammar": {"type": "admit_all"}})
     assert out["tokens"] == jax_ref["base"][0][:4]
     assert server.metrics.counter("grammar_compiles_total").value == before
-    # decode_warm_masks: the masked steps were all captured in warmup()
+    # warmup() built no masked step (no grammar was resident: JAX's
+    # rule); each is captured on first use, once per table bucket at most
     eng = server.decoder
-    assert eng.masked_captures == len(eng.table_buckets) \
-        == eng.decode_captures
+    assert eng.decode_captures == len(eng.table_buckets)
+    assert 0 < eng.masked_captures <= len(eng.table_buckets)
     assert eng.masked_steps > 0
 
 

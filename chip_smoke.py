@@ -377,9 +377,34 @@ non-zero without them, or when any phase fails. Phases:
      restoring 3 x 1023 positions, the 64 prompt blocks held by all 4
      slots' block tables, and every reference returned; prints the
      masked and unmasked steps' mean ms from the same server;
- 27. prints the kernels line (the bf16 kernels as rows of their own,
+ 27. speculative decoding and int8 graph decode on phase 3's flagship
+     and requests, through supervised servers: (a) speculate=3 with the
+     default shallow draft (2 blocks) on fp32 pages, int8 pages and
+     contiguous stripes; gates: tokens identical to phase 3's (phase
+     4's), every capture (the verify per table bucket, the draft step, a
+     draft chunk per chunk bucket) in warmup(), proposals made, the paged
+     kernel launched 4 x the plain decode steps and never by the verify
+     or the draft, every page back; prints tokens/s beside phase 3's and
+     the acceptance rate; (b) draft_net a second copy of the target: the
+     greedy half's acceptance above 0.95, each greedy rejection's
+     top-two gap printed; (c) an admit-all grammar on every request
+     (fp32 pages, twice): tokens identical, the masked verify and draft
+     captured on first use and never again; phase 26's trie and first
+     JSON completion the same under speculation; (d) dispatch.verify
+     crash@once mid-wave at speculate=2: every request answered with
+     phase 3's tokens, the rebuilt engine speculating, its captures those
+     of its warmup(); (e) the flagship's quantize_graph clone (calibrated
+     on phase 3's first prompt) on fp32 pages without and with
+     speculate=2: tokens identical to its solo cached decode, launches 4
+     x the plain steps; its rows on the card within 1e-5 of max |CPU|
+     of the same clone on the CPU; AlexNet's quantize artifact behind
+     /predict within 1e-4 of max |CPU| with the same argmax; prints the
+     float and int8 parameter bytes;
+ 28. prints the kernels line (the bf16 kernels as rows of their own,
      named "<kernel>_bf16"; the paged rows carry phase 26's masked-wave
-     launches as "masked_launches").
+     launches as "masked_launches" and phase 27a's as
+     "speculating_launches", the fp32 row phase 27e's int8-clone launches
+     as "int8_graph_launches").
 
 The last line is {"ok": true, "device": {...}}. Every number printed is
 measured in this run; a "[details]" JSON line before the kernels line
@@ -3412,6 +3437,493 @@ def phase26(torch, ck, card, reqs, want, want8, dev="cuda"):
         raise SystemExit("phase 26 failed: " + " | ".join(failures))
     return out
 
+
+# -- phase 27: speculative decoding and int8 graph decode --------------------
+SPEC_G = 3              # 27a-c: drafted tokens a slot an iteration
+SPEC_CRASH_G = 2        # 27d, and the int8 clone's speculating server
+FULL_ACCEPT_MIN = 0.95  # 27b: the greedy half's acceptance, draft = target
+INT8_ROW_REL = 1e-5     # 27e: an int8 step's output, card against CPU
+INT8_PREDICT_REL = 1e-4  # 27e: AlexNet int8 /predict rows, card against CPU
+INT8_PREDICT_ROWS = 32
+# the device of phase 27 ("cpu" with small VOCAB / D_MODEL rehearses it)
+SPEC_DEV = "cuda"
+
+
+def spec_captures(dec):
+    """The engine's captures by family, speculative ones included."""
+    return {"decode": dec.decode_captures, "prefill": dec.prefill_captures,
+            "masked_decode": dec.masked_captures, **dec.spec_captures}
+
+
+def spec_warm_want(dec):
+    """The captures warmup() makes on a speculating engine (no grammar
+    resident): one decode step and one verify per table bucket, a prefill
+    chunk per (chunk bucket, table bucket), the draft step and a draft
+    chunk per chunk bucket."""
+    nb = len(dec.table_buckets) or 1
+    cb = len(dec.prefill_buckets)
+    return {"decode": nb, "prefill": nb * cb, "masked_decode": 0,
+            "verify": nb, "draft": 1, "draft_prefill": cb}
+
+
+def spec_wave(torch, ck, srv, bodies):
+    """One wave through ``srv``, every body posted at once, with the
+    engine's counts since its reset; returns (tokens, responses, stats)."""
+    dec = srv.decoder
+    ck.reset_launches()
+    dec.reset_counters()
+    t0 = time.monotonic()
+    outs = post_all(srv.port, bodies)
+    sync(torch, SPEC_DEV)
+    wall = time.monotonic() - t0
+    toks = [o["tokens"] for o in outs]
+    st = {"wall_s": wall, "tokens": sum(map(len, toks)),
+          "tokens_per_s": sum(map(len, toks)) / wall,
+          "decode_steps": dec.decode_steps, "spec_rounds": dec.spec_rounds,
+          "draft_steps": dec.draft_steps, "draft_chunks": dec.draft_chunks,
+          "proposed": dec.spec_proposed, "accepted": dec.spec_accepted,
+          "acceptance": dec.spec_accepted / max(dec.spec_proposed, 1),
+          "mean_decode_step_ms": 1e3 * dec.decode_seconds
+          / max(dec.decode_steps, 1),
+          "mean_verify_ms": 1e3 * dec.verify_seconds
+          / max(dec.spec_rounds, 1),
+          "mean_draft_round_ms": 1e3 * dec.draft_seconds
+          / max(dec.draft_steps, 1),
+          "launches": ck.LAUNCHES["paged_decode_attention"],
+          "spec_launches": dec.spec_launches,
+          "outstanding_refs": (dec.pool.outstanding_refs() if dec.paged
+                               else None),
+          "captures": spec_captures(dec)}
+    return toks, outs, st
+
+
+def spec_gates(tag, st, warm, want_warm, paged, toks, want, failures):
+    """27a's gates on one wave: the tokens, every capture in warmup(),
+    proposals made, the paged kernel launched only by the plain decode
+    steps (4 a step; the verify and the draft none), every page back."""
+    if toks != want:
+        failures.append(f"{tag}: tokens differ from the reference")
+    if warm != want_warm or st["captures"] != warm:
+        failures.append(f"{tag}: captures {warm} after warmup, "
+                        f"{st['captures']} after the wave, want {want_warm}")
+    if not st["proposed"]:
+        failures.append(f"{tag}: no proposal")
+    want_l = BLOCKS * st["decode_steps"] if paged else 0
+    if st["launches"] != want_l or (paged and not want_l) \
+            or st["spec_launches"]:
+        failures.append(f"{tag}: {st['launches']} paged launches for "
+                        f"{st['decode_steps']} plain steps, "
+                        f"{st['spec_launches']} in the verify and draft")
+    if paged and st["outstanding_refs"]:
+        failures.append(f"{tag}: {st['outstanding_refs']} references left")
+
+
+def spec_server(path=None, net=None, kv_pool_mb=KV_POOL_MB, **kw):
+    from deeplearning4j_tpu_torch.serving.server import InferenceServer
+    return InferenceServer(model_path=path, net=net, decode_vocab=VOCAB,
+                           decode_slots=SLOTS, prefill_chunk=CHUNK,
+                           kv_block=KV_BLOCK, kv_pool_mb=kv_pool_mb,
+                           paged_kernel="on", device=SPEC_DEV, **kw).start()
+
+
+def spec_serving(torch, ck, card, zpath, reqs, want, want8, p26, e2e):
+    """Phases 27a-d on phase 3's flagship and requests."""
+    from deeplearning4j_tpu_torch.inference import failpoints
+    from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+    out, failures = {}, []
+    warm_req = {"prompt": reqs[0]["prompt"][:CHUNK + 3], "max_new_tokens": 4}
+    # (a) three layouts, the default shallow draft; (c) on the fp32 pages
+    for tag, kw, w in (("paged_fp32", {}, want),
+                       ("paged_int8", {"kv_dtype": "int8"}, want8),
+                       ("contiguous", {"kv_pool_mb": 0}, want)):
+        srv = spec_server(zpath, speculate=SPEC_G, **kw)
+        try:
+            dec = srv.decoder
+            warm = spec_captures(dec)
+            if (dec.speculate, dec.draft_blocks) != (SPEC_G, BLOCKS // 2):
+                failures.append(f"{tag}: speculate {dec.speculate}, draft "
+                                f"blocks {dec.draft_blocks}")
+            post(srv.port, warm_req)
+            toks, _, st = spec_wave(torch, ck, srv, reqs)
+            st["warmup_captures"] = warm
+            st["warmup_s"] = dec.warmup_seconds
+            spec_gates(f"27a {tag}", st, warm, spec_warm_want(dec),
+                       dec.paged, toks, w, failures)
+            out[tag] = st
+            if tag == "paged_fp32":
+                out["grammar"] = spec_grammar(torch, ck, srv, reqs, want,
+                                              p26, failures)
+        finally:
+            srv.stop()
+        phase(27, f"(a) speculate={SPEC_G}, shallow draft of "
+                  f"{BLOCKS // 2} blocks, {tag}: tokens identical "
+                  f"{toks == w}; {st['tokens_per_s']:.2f} tokens/s "
+                  f"(phase 3 {e2e['tokens_per_s']:.2f}); acceptance "
+                  f"{st['accepted']}/{st['proposed']} = "
+                  f"{st['acceptance']:.4f}; {st['spec_rounds']} verifies "
+                  f"(mean {st['mean_verify_ms']:.3f} ms), "
+                  f"{st['draft_steps']} draft rounds (mean "
+                  f"{st['mean_draft_round_ms']:.3f} ms), "
+                  f"{st['draft_chunks']} draft chunks, "
+                  f"{st['decode_steps']} plain steps (mean "
+                  f"{st['mean_decode_step_ms']:.3f} ms); paged launches "
+                  f"{st['launches']} = {BLOCKS} x {st['decode_steps']} plain "
+                  f"steps, verify and draft {st['spec_launches']}; captures "
+                  f"{st['captures']}, all in warmup() "
+                  f"({st['warmup_s']:.3f} s); outstanding refs "
+                  f"{st['outstanding_refs']} [{card}]")
+    g = out["grammar"]
+    phase(27, f"(c) admit-all grammar on every request under speculation "
+              f"(fp32 pages): tokens identical {g['admit_identical']}; the "
+              f"first wave captured {g['first_use']} on first use, the "
+              f"second {g['second']}; {g['tokens_per_s']:.2f} tokens/s, "
+              f"acceptance {g['acceptance']:.4f}; trie {g['trie']} and "
+              f"JSON {g['json']!r} equal phase 26's {g['same_as_26']} "
+              f"[{card}]")
+    # (b) the draft is a second copy of the target: full acceptance
+    srv = spec_server(zpath, speculate=SPEC_G,
+                      draft_net=restore_model(zpath, device=SPEC_DEV))
+    try:
+        warm = spec_captures(srv.decoder)
+        # the greedy half first, on prompts the trie does not hold yet:
+        # the draft ingests each prompt beside its chunks, so speculation
+        # starts at the first token (a restored prompt waits for the
+        # draft's catch-up, one chunk an iteration)
+        greedy = [b for b in reqs if b.get("temperature", 0) <= 0]
+        gw = [w for b, w in zip(reqs, want) if b.get("temperature", 0) <= 0]
+        gtoks, gouts, gst = spec_wave(torch, ck, srv, greedy)
+        if gtoks != gw:
+            failures.append("27b: the greedy half's tokens differ")
+        toks, _, st = spec_wave(torch, ck, srv, reqs)
+        spec_gates("27b", st, warm, spec_warm_want(srv.decoder), True,
+                   toks, want, failures)
+        rids = {o["request_id"]: i for i, o in enumerate(gouts)}
+        gaps = []
+        for ev in srv.tracer.events():
+            a = ev.get("args", {})
+            if ev["name"] == "rollback" and a.get("mismatch") \
+                    and a.get("request") in rids:
+                i = rids[a["request"]]
+                k = a["tokens"] - 1
+                gaps.append({"request": i, "token": k, "gap": top2_gap(
+                    srv.net, greedy[i]["prompt"], gtoks[i], k, VOCAB)[0]})
+        st.update(greedy=gst, rejection_gaps=gaps[:16],
+                  rejections=len(gaps))
+        out["full_accept"] = st
+        if not gst["acceptance"] > FULL_ACCEPT_MIN:
+            failures.append(f"27b: greedy acceptance {gst['acceptance']} "
+                            f"<= {FULL_ACCEPT_MIN}")
+    finally:
+        srv.stop()
+    phase(27, f"(b) draft_net = a copy of the target: tokens identical "
+              f"{toks == want}; all 8 acceptance {st['acceptance']:.4f}, "
+              f"the greedy half {gst['accepted']}/{gst['proposed']} = "
+              f"{gst['acceptance']:.4f} (> {FULL_ACCEPT_MIN}); "
+              f"{st['tokens_per_s']:.2f} tokens/s (greedy half "
+              f"{gst['tokens_per_s']:.2f}); {len(gaps)} greedy rejections, "
+              f"top-two gaps {[round(x['gap'], 9) for x in gaps[:16]]} "
+              f"[{card}]")
+    # (d) a crash in the verify seam mid-wave, supervised
+    srv = spec_server(zpath, speculate=SPEC_CRASH_G)
+    srv.supervisor.backoff_base_s = 0.01
+    srv.supervisor.backoff_max_s = 0.1
+    try:
+        post(srv.port, warm_req)
+        failpoints.arm("dispatch.verify", "crash@once")
+        try:
+            outs = post_all(srv.port, reqs)
+        finally:
+            failpoints.disarm()
+        dec = srv.decoder
+        st = {"tokens_identical": [o["tokens"] for o in outs] == want,
+              "answered": len(outs),
+              "retries": [o.get("retries", 0) for o in outs],
+              "restarts": srv.supervisor.restarts,
+              "speculate": dec.speculate,
+              "captures": spec_captures(dec),
+              "warm_want": spec_warm_want(dec)}
+        out["crash"] = st
+        if not (st["tokens_identical"] and st["answered"] == len(reqs)
+                and st["restarts"] >= 1 and dec.speculate == SPEC_CRASH_G
+                and st["captures"] == st["warm_want"]):
+            failures.append(f"27d: {st}")
+    finally:
+        failpoints.disarm()
+        srv.stop()
+    phase(27, f"(d) dispatch.verify crash@once mid-wave, speculate="
+              f"{SPEC_CRASH_G}: {st['answered']} answered, tokens "
+              f"identical {st['tokens_identical']}, retries "
+              f"{st['retries']}, restarts {st['restarts']}; the rebuilt "
+              f"engine speculate={st['speculate']}, captures "
+              f"{st['captures']} = its warmup()'s [{card}]")
+    return out, failures
+
+
+def spec_grammar(torch, ck, srv, reqs, want, p26, failures):
+    """27c on 27a's fp32 server: the admit-all wave twice (the masked
+    verify and draft captured on the first, none on the second), then
+    phase 26's trie and first JSON-schema request."""
+    dec = srv.decoder
+    before = spec_captures(dec)
+    admit = [{**b, "grammar": {"type": "admit_all"}} for b in reqs]
+    t1, _, s1 = spec_wave(torch, ck, srv, admit)
+    t2, _, s2 = spec_wave(torch, ck, srv, admit)
+    first = {k: v - before.get(k, 0) for k, v in s1["captures"].items()
+             if v != before.get(k, 0)}
+    second = {k: v - s1["captures"].get(k, 0)
+              for k, v in s2["captures"].items()
+              if v != s1["captures"].get(k, 0)}
+    nb = len(dec.table_buckets)
+    if not (t1 == want and t2 == want):
+        failures.append("27c: admit-all tokens differ from phase 3's")
+    if second or not (1 <= first.get("masked_verify", 0) <= nb
+                      and first.get("masked_draft") == 1):
+        failures.append(f"27c: captures on first use {first}, after {second}")
+    prompt = reqs[0]["prompt"][:100]
+    o = post(srv.port, {"prompt": prompt, "max_new_tokens": 16,
+                        "grammar": {"type": "trie",
+                                    "sequences": [[5, 9, 12, 3, 77, 64]]}})
+    j = post(srv.port, {"prompt": prompt, "max_new_tokens": 40,
+                        "temperature": 1.0, "seed": 0,
+                        "grammar": {"type": "json_schema",
+                                    "schema": GRAMMAR_SCHEMA,
+                                    "alphabet": GRAMMAR_ALPHABET}})
+    text = "".join(GRAMMAR_ALPHABET[t] for t in j["tokens"])
+    same = (o["tokens"] == p26["grammar_fp32"]["trie"]
+            and text == p26["grammar_fp32"]["json"][0]["text"])
+    if not same:
+        failures.append(f"27c: trie {o['tokens']} / JSON {text!r} differ "
+                        "from phase 26's")
+    return {"admit_identical": t1 == want and t2 == want,
+            "first_use": first, "second": second,
+            "tokens_per_s": s2["tokens_per_s"],
+            "acceptance": s2["acceptance"], "wave": s2,
+            "trie": o["tokens"], "json": text, "same_as_26": same}
+
+
+def int8_vertex_check(torch, q, qnet, qcpu, x0):
+    """Each quantized vertex of the clone on the card against the same
+    vertex on the CPU, on the same input (the CPU forward's input to that
+    vertex): the int32 accumulators bit for bit, and the outputs (the f32
+    epilogue and the activation) within INT8_ROW_REL of max |CPU|. Then
+    the whole clone, card against CPU, with the int8 levels that differ
+    at each vertex's input: returns the figures."""
+    import numpy as np
+    ins = {"cpu": [], "card": []}
+    orig = q._int8_forward
+    into = ins["cpu"]
+
+    def spy(*a):
+        into.append(a[-1])  # each quantized vertex's input, in order
+        return orig(*a)
+    q._int8_forward = spy
+    try:
+        rows_cpu = qcpu.output(x0)[0].float().numpy()
+        into = ins["card"]
+        rows_card = qnet.output(x0)[0].float().cpu().numpy()
+    finally:
+        q._int8_forward = orig
+    names = [n for n in qcpu.topo if n in qcpu._quantized_vertices]
+    per = []
+    for name, xc, xg in zip(names, ins["cpu"], ins["card"]):
+        vc, vg = qcpu._impls[name], qnet._impls[name]
+        xq = torch.clamp(torch.round(xc / vc.x_scale), -127, 127).to(
+            torch.int8)
+        xq2 = xq.reshape(-1, xq.shape[-1])
+        acc_c = q.int8_matmul(xq2, vc._w, vc.n_out)
+        dev = vg.Wq.device
+        acc_g = q.int8_matmul(xq2.to(dev), vg._w, vg.n_out).cpu()
+        yc = vc.forward(None, xc)
+        yg = vg.forward(None, xc.to(dev)).cpu()
+        lv_c = torch.round(xc / vc.x_scale)
+        lv_g = torch.round(xg.cpu() / vg.x_scale.cpu())
+        per.append({"vertex": name, "acc_bitwise": bool(torch.equal(
+            acc_c, acc_g)), "out_max_abs_err": float((yc - yg).abs().max()),
+            "out_max_abs": float(yc.abs().max()),
+            "end_to_end_level_flips": int((lv_c != lv_g).sum()),
+            "elements": int(lv_c.numel())})
+    return per, rows_card, rows_cpu
+
+
+def int8_serving(torch, ck, card, zpath, reqs):
+    """Phase 27e: the flagship's quantize_graph clone. Its int8 steps on
+    the card against the CPU on the same inputs; the clone served on fp32
+    pages without and with speculation, captured against the eager step;
+    the clone's rows and tokens against the CPU and its solo decode
+    (printed: an int8 level that float noise moves shifts every later
+    vertex); AlexNet's int8 program behind /predict against the CPU."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.sampling import (
+        generate_transformer, onehot)
+    from deeplearning4j_tpu_torch.models.zoo import alexnet_cifar10
+    from deeplearning4j_tpu_torch.nn import quantization as q
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving.server import InferenceServer
+    from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+    out, failures = {}, []
+    net = restore_model(zpath, device=SPEC_DEV)
+    x0 = onehot(reqs[0]["prompt"], VOCAB)
+    qnet = q.quantize_graph(net, [x0])
+    fbytes = sum(p.numel() * p.element_size()
+                 for lp in net.params.values() for p in lp.values())
+    qbytes = sum(
+        (qnet._impls[n].Wq.numel() + 4 * qnet._impls[n].w_scale.numel()
+         + 4 * qnet._impls[n].bias.numel()) if n in qnet._quantized_vertices
+        else sum(p.numel() * p.element_size() for p in lp.values())
+        for n, lp in net.params.items())
+    t0 = time.monotonic()
+    solo = [generate_transformer(qnet, b["prompt"], NEW_TOKENS, VOCAB,
+                                 use_cache=True, **sampling_kw(b))
+            for b in reqs]
+    solo_s = time.monotonic() - t0
+    for G in (0, SPEC_CRASH_G):
+        runs = {}
+        for graphs in ("on", "off"):
+            srv = spec_server(net=qnet, speculate=G, decode_graphs=graphs)
+            try:
+                post(srv.port, {"prompt": reqs[0]["prompt"][:CHUNK + 3],
+                                "max_new_tokens": 4})
+                runs[graphs] = spec_wave(torch, ck, srv, reqs)
+            finally:
+                srv.stop()
+        toks, _, st = runs["on"]
+        st["eager"] = runs["off"][2]
+        st["captured_equals_eager"] = toks == runs["off"][0]
+        st["partings_from_solo"] = divergence(qnet, reqs, toks, solo)
+        st["identical_to_solo"] = toks == solo
+        out[f"speculate_{G}"] = st
+        if toks != runs["off"][0]:
+            failures.append(f"27e speculate={G}: captured and eager steps "
+                            "served different tokens")
+        for tag, r in (("captured", st), ("eager", st["eager"])):
+            if not (r["launches"] == BLOCKS * r["decode_steps"] > 0
+                    and not r["spec_launches"]):
+                failures.append(f"27e speculate={G} {tag}: "
+                                f"{r['launches']} launches for "
+                                f"{r['decode_steps']} steps")
+        if G and not (st["proposed"] and st["eager"]["proposed"]):
+            failures.append("27e: the int8 clone proposed nothing")
+    with tempfile.TemporaryDirectory() as tmp:
+        qpath = os.path.join(tmp, "qlm.zip")
+        q.save_quantized_graph(qnet, qpath)
+        qcpu = q.load_quantized(qpath, device="cpu")
+        per, card_rows, cpu_rows = int8_vertex_check(torch, q, qnet, qcpu,
+                                                     x0)
+        fcpu = restore_model(zpath, device="cpu").output(x0)[0].numpy()
+        err = float(np.abs(card_rows - cpu_rows).max())
+        qerr = float(np.abs(cpu_rows - fcpu).max())
+        out["rows"] = {"max_abs_err": err, "int8_vs_float": qerr,
+                       "max_abs_cpu": float(np.abs(cpu_rows).max()),
+                       "rows": int(card_rows.shape[1]), "vertices": per}
+        bad = [v for v in per if not (
+            v["acc_bitwise"]
+            and v["out_max_abs_err"] <= INT8_ROW_REL * v["out_max_abs"])]
+        if bad:
+            failures.append(f"27e: int8 steps on the card differ from the "
+                            f"CPU on the same inputs: {bad}")
+        if not err <= qerr:
+            failures.append(f"27e: the clone's rows on the card are "
+                            f"{err} from the CPU's, beyond int8's own "
+                            f"{qerr} from f32")
+        # AlexNet-CIFAR10 through quantize, its artifact behind /predict
+        anet = MultiLayerNetwork(alexnet_cifar10(), device=SPEC_DEV).init()
+        rng = np.random.default_rng(27)
+        xc = rng.normal(size=(64, 32, 32, 3)).astype(np.float32)
+        qa = q.quantize(anet, [xc])
+        apath = os.path.join(tmp, "qalex.zip")
+        q.save_quantized(qa, apath)
+        xs = rng.normal(size=(INT8_PREDICT_ROWS, 32, 32, 3)).astype(
+            np.float32)
+        srv = InferenceServer(model_path=apath, device=SPEC_DEV).start()
+        try:
+            ck.reset_launches()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{srv.port}/predict",
+                data=json.dumps({"data": xs.tolist()}).encode(),
+                headers={"Content-Type": "application/json"})
+            t0 = time.monotonic()
+            with urllib.request.urlopen(req, timeout=300) as r:
+                got = np.asarray(json.loads(r.read())["predictions"])
+            pred_s = time.monotonic() - t0
+            served = type(srv.net).__name__
+            alaunches = {k: v for k, v in ck.LAUNCHES.items() if v}
+        finally:
+            srv.stop()
+        want_a = q.load_quantized(apath, device="cpu").output(xs).numpy()
+        aerr = float(np.abs(got - want_a).max())
+        out["alexnet"] = {
+            "served": served, "rows": INT8_PREDICT_ROWS, "max_abs_err": aerr,
+            "max_abs_cpu": float(np.abs(want_a).max()),
+            "argmax_equal": bool((got.argmax(-1) == want_a.argmax(-1))
+                                 .all()),
+            "predict_s": pred_s, "launches": alaunches,
+            "param_bytes_float": qa.float_param_bytes(),
+            "param_bytes_int8": qa.param_bytes()}
+        if not (served == "QuantizedNetwork"
+                and aerr <= INT8_PREDICT_REL * out["alexnet"]["max_abs_cpu"]
+                and out["alexnet"]["argmax_equal"]):
+            failures.append(f"27e AlexNet /predict: {out['alexnet']}")
+    out.update(param_bytes_float=fbytes, param_bytes_int8=qbytes,
+               quantized_vertices=qnet._quantized_vertices,
+               solo_s=solo_s)
+    s0, s2 = out["speculate_0"], out[f"speculate_{SPEC_CRASH_G}"]
+    flips = [v["end_to_end_level_flips"] for v in per]
+    phase(27, f"(e) int8 graph clone of the flagship "
+              f"({len(qnet._quantized_vertices)} vertices int8, params "
+              f"{fbytes} B float -> {qbytes} B): each int8 step on the card "
+              f"against the CPU on the same input: accumulators bitwise "
+              f"{all(v['acc_bitwise'] for v in per)}, outputs max|diff| "
+              f"{max(v['out_max_abs_err'] for v in per):.3e}; served on "
+              f"fp32 pages, captured = eager {s0['captured_equals_eager']} "
+              f"({s0['tokens_per_s']:.2f} tokens/s, eager "
+              f"{s0['eager']['tokens_per_s']:.2f}; launches "
+              f"{s0['launches']} = {BLOCKS} x {s0['decode_steps']}), "
+              f"speculate={SPEC_CRASH_G} captured = eager "
+              f"{s2['captured_equals_eager']} ({s2['tokens_per_s']:.2f} "
+              f"tokens/s, acceptance {s2['acceptance']:.4f}, launches "
+              f"{s2['launches']} = {BLOCKS} x {s2['decode_steps']} plain "
+              f"steps); the clone's rows ({out['rows']['rows']}) card "
+              f"against CPU max|diff| {err:.3e}, int8 against f32 on the "
+              f"CPU {qerr:.3e}, int8 levels moved by float noise at each "
+              f"vertex {flips}; tokens as its solo cached decode: "
+              f"speculate=0 {s0['identical_to_solo']} "
+              f"({s0['partings_from_solo'] or 'no parting'}), "
+              f"speculate={SPEC_CRASH_G} {s2['identical_to_solo']} "
+              f"({s2['partings_from_solo'] or 'no parting'}); AlexNet int8 "
+              f"/predict of {INT8_PREDICT_ROWS} rows "
+              f"({out['alexnet']['served']}): max|diff| against the CPU "
+              f"{aerr:.3e}, argmax equal {out['alexnet']['argmax_equal']}, "
+              f"params {out['alexnet']['param_bytes_float']} B float -> "
+              f"{out['alexnet']['param_bytes_int8']} B, launches "
+              f"{out['alexnet']['launches']} [{card}]")
+    return out, failures
+
+
+def phase27(torch, ck, card, reqs, want, want8, p26, e2e):
+    """Phase 27: speculative decoding (three layouts, full acceptance, a
+    grammar, a crash) and int8 graph decode on phase 3's flagship.
+    Failures are gathered and raised at the end."""
+    from deeplearning4j_tpu_torch.models.zoo import transformer_lm
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.model_serializer import write_model
+    t0 = time.monotonic()
+    net = ComputationGraph(transformer_lm(
+        vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS, n_blocks=BLOCKS,
+        rope=True, seed=7), device=SPEC_DEV).init()
+    with tempfile.TemporaryDirectory() as tmp:
+        zpath = os.path.join(tmp, "lm.zip")
+        write_model(net, zpath)
+        del net
+        out, failures = spec_serving(torch, ck, card, zpath, reqs, want,
+                                     want8, p26, e2e)
+        out["int8"], f = int8_serving(torch, ck, card, zpath, reqs)
+        failures += f
+    out["seconds"] = time.monotonic() - t0
+    if failures:
+        raise SystemExit("phase 27 failed: " + " | ".join(failures))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4955,6 +5467,7 @@ def main():
         raise SystemExit("phases 22-23 failed: " + " | ".join(failures))
     a3 = a3_phases(torch, ck, card)
     p26 = phase26(torch, ck, card, reqs, tokens, tokens8)
+    p27 = phase27(torch, ck, card, reqs, tokens, tokens8, p26, e2e)
 
 
     src = "deeplearning4j_tpu_torch/ops/csrc/paged_decode_attention.cu"
@@ -4974,7 +5487,14 @@ def main():
                         # the grammar-masked graph
                         "masked_launches": p26[
                             "grammar_" + key.split("_")[1]]["admit_all"][
-                                "launches"]})
+                                "launches"],
+                        # phase 27a: the plain steps of a speculating
+                        # engine (the verify and the draft launch none)
+                        "speculating_launches": p27[
+                            "paged_" + key.split("_")[1]]["launches"]})
+    # phase 27e: the int8 graph clone's decode steps, fp32 pages
+    kernels[0]["int8_graph_launches"] = sum(
+        p27["int8"][f"speculate_{g}"]["launches"] for g in (0, SPEC_CRASH_G))
     # the training kernels: per AlexNet train step, summed over its three
     # launches (conv1-3, or BN1-3); max |diff| over the main-path shapes
     csrc = "deeplearning4j_tpu_torch/ops/csrc"
@@ -5176,8 +5696,9 @@ def main():
          "conv_bf16_alexnet_sum": conv16_sum, "bnap_bf16_cases": bnap16_cases,
          "bnap_bf16_edges": bnap16_edges, "bnap_bf16_alexnet_sum": bnap16_sum,
          "alexnet_train_bf16": alex16, "lenet_train_bf16": lenet16,
-         **a3, "serving_26": p26, "elapsed_s": time.monotonic() - t_start}))
-    phase(27, "kernels:")
+         **a3, "serving_26": p26, "serving_27": p27,
+         "elapsed_s": time.monotonic() - t_start}))
+    phase(28, "kernels:")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -112,6 +112,26 @@ def cmd_serve(args) -> int:
     armed += failpoints.arm_from_env()
     net = None
     vocab = args.vocab_size if args.generate else 0
+    if args.int8:
+        # the int8 program of a quantized artifact (nn/quantization
+        # save_quantized or save_quantized_graph), JAX cli/main.py :161
+        from ..nn.quantization import is_quantized_artifact, load_quantized
+        from ..util.device import resolve_device
+        dev = resolve_device(args.device)
+        if not is_quantized_artifact(args.model):
+            print("error: --int8 needs a quantized artifact "
+                  "(nn.quantization.save_quantized or "
+                  "save_quantized_graph)", file=sys.stderr)
+            return 2
+        net = load_quantized(args.model, device=dev)
+        if args.generate and not hasattr(net.conf, "vertices"):
+            # the decode engine drives graph decode (KV caches); a
+            # multilayer QuantizedNetwork has none
+            print("error: --int8 --generate needs a quantized "
+                  "ComputationGraph artifact (nn.quantization."
+                  "save_quantized_graph); this zip holds a multilayer one",
+                  file=sys.stderr)
+            return 2
     if args.generate and vocab is None:
         # the next-token head's width is the vocabulary (JAX cli/main.py
         # :187): a graph's output vertex, a MultiLayerNetwork's last layer
@@ -119,7 +139,9 @@ def cmd_serve(args) -> int:
         from ..util.model_serializer import restore_model
         # the device first, as the server does: no card raises before
         # the zip is read
-        net = restore_model(args.model, device=resolve_device(args.device))
+        if net is None:
+            net = restore_model(args.model,
+                                device=resolve_device(args.device))
         if hasattr(net.conf, "vertices"):
             out = net.conf.network_outputs[0]
             vocab = int(net.conf.vertices[out].layer.n_out)
@@ -138,7 +160,8 @@ def cmd_serve(args) -> int:
         kv_dtype=args.kv_dtype, paged_kernel=args.paged_kernel,
         decode_graphs=args.decode_graphs, trace_buffer=args.trace_buffer,
         supervise=not args.no_supervise, hang_timeout_s=args.hang_timeout,
-        retry_budget=args.retry_budget,
+        retry_budget=args.retry_budget, mask_rows=args.mask_rows,
+        speculate=args.speculate, draft_blocks=args.draft_blocks or None,
         failpoint_endpoint=args.failpoint_endpoint,
         device=args.device).start()
     batch_mode = ("lock-serialized" if args.no_batching else
@@ -159,6 +182,15 @@ def cmd_serve(args) -> int:
                   + (f", prefix pool {args.prefix_cache_mb}MB "
                      f"({dec.pool.capacity_blocks} blocks of {dec.kv_block})"
                      if dec.pool else "") + ")")
+        if dec.speculate:
+            # the engine's armed state, not the flag: an engine that
+            # cannot speculate warns and runs unarmed
+            kv += (f", speculative x{dec.speculate} ("
+                   + (f"shallow-exit draft, {dec.draft_blocks} blocks"
+                      if dec.draft_blocks else "draft net") + ")")
+        if getattr(server.net, "_quantized_vertices", None):
+            kv += (f", int8 graph ({len(server.net._quantized_vertices)} "
+                   "quantized vertices)")
         gen_mode = (f"; /generate: {dec.n_slots} slots, prefill chunk "
                     f"{dec.prefill_chunk}, {kv}, decode graphs "
                     f"{dec.decode_graphs} ({dec.decode_captures} captured),"
@@ -264,6 +296,23 @@ def build_parser() -> argparse.ArgumentParser:
                    help="on: the decode step and the prefill chunks "
                         "captured into CUDA graphs (one per bucket), "
                         "replayed; off: eager")
+    s.add_argument("--int8", action="store_true",
+                   help="serve the int8 program of a quantized artifact "
+                        "(nn.quantization.save_quantized for /predict, "
+                        "save_quantized_graph for /generate too)")
+    s.add_argument("--mask-rows", type=int, default=64,
+                   help="device rows of the grammar mask table (row 0 the "
+                        "admit-all row; <= 1 masks grammars on the host "
+                        "only)")
+    s.add_argument("--speculate", type=int, default=0, metavar="GAMMA",
+                   help="speculative decoding: draft GAMMA tokens a slot "
+                        "an iteration with a shallow-exit draft and verify "
+                        "them in one forward; the tokens are those of "
+                        "GAMMA=0 (0 = off)")
+    s.add_argument("--draft-blocks", type=int, default=0, metavar="K",
+                   help="transformer blocks the shallow-exit draft runs "
+                        "before its exit through the output head (default: "
+                        "half the model's blocks)")
     s.add_argument("--trace-buffer", type=int, default=8192,
                    help="span flight-recorder ring capacity (events) behind "
                         "the per-request timings and GET /trace; 0 "

@@ -133,8 +133,35 @@ mask table at bf16 and its probability rows read back as f32; the paged
 kernel declines a query that is not f32, so the paged layers take their
 gather body, as in the JAX package.
 
-Still to come (listed in ROADMAP.md): speculation (``speculate > 0``
-raises), int8 graph decode, tiering, mesh and profiler.
+Speculative decoding (``speculate`` = G > 0; JAX :928-1083, :2776-3045):
+a cheap draft proposes G tokens per decode-ready slot per iteration in G
+lockstep single-token rounds, and ONE verify forward of the target over
+``[n_slots, G + 1]`` chains keeps every position's distribution;
+`speculative.accept_tokens` samples each position with the sequence's
+own RNG and logit pipeline, so the tokens are those of solo decode. The
+draft is the target's first ``draft_blocks`` transformer blocks wired
+into its own head (`speculative.build_shallow_draft`, params by
+reference) unless ``draft_net`` is given; it keeps a private contiguous
+KV stripe per slot even under a paged main cache, fed by a draft chunk
+beside every prefill chunk and caught up after prefix restores and
+resumes. The verify writes its G + 1 rows (paged, through the table
+with ``live`` as the write mask; contiguous, with masked rows written
+back unchanged) and the rejected tail is rolled back on the host:
+positions are host-authoritative, so rollback is the ``written`` and
+``draft_fed`` bookkeeping, plus, paged, returning the pages wholly past
+the accepted frontier. The verify (per table bucket, paged), the draft
+step and a draft chunk per chunk bucket are runners like the decode
+step, captured by `warmup()`; their grammar-masked variants (``out +
+masks[mstate]`` per position or round) are captured on first use or by
+``warmup(masks=True)``. The verify is a T > 1 step, so it takes the gather
+body; the draft's steps are contiguous; only a speculating engine's plain
+decode steps launch the paged kernel. The failpoint seam
+``dispatch.verify`` fires before the verify opens any span. A net the
+speculation cannot serve (recurrent, or a graph the surgery cannot cut,
+with no ``draft_net``), or an engine without chunked prefill, warns and
+runs unarmed (``speculate == 0``).
+
+Still to come (listed in ROADMAP.md): tiering, mesh and profiler.
 """
 from __future__ import annotations
 
@@ -159,6 +186,7 @@ from .kvpool import (SCRATCH_BLOCK, KVPool, blocks_for, gather_blocks,
                      scatter_blocks)
 from .logitproc import CompiledGrammar, LogitState, MaskPool
 from .metrics import MetricsRegistry, default_registry
+from .speculative import accept_tokens, build_shallow_draft
 from .trace import FlightRecorder, default_recorder, new_request_id
 
 # smallest prefill chunk bucket (JAX engine.py:122)
@@ -306,7 +334,7 @@ class _ActiveSeq:
     __slots__ = ("handle", "prompt", "fed", "rng", "temperature", "top_k",
                  "top_p", "eos_id", "steps", "pool_node", "block_ids",
                  "shared", "written", "phase", "resumed", "folded",
-                 "cow_starved", "proc", "fork")
+                 "cow_starved", "proc", "fork", "draft_fed")
 
     def __init__(self, handle: DecodeHandle, prompt: Sequence[int],
                  temperature: float, top_k: Optional[int],
@@ -335,6 +363,26 @@ class _ActiveSeq:
         self.cow_starved = False
         self.proc: Optional[LogitState] = None  # the logit pipeline
         self.fork = None  # speculative.ForkGroup of a best-of-n candidate
+        # speculation: tokens of `full_context()` the draft has ingested
+        # (its stripe's depth)
+        self.draft_fed = 0
+
+    def known_tokens(self) -> int:
+        """len(full_context()) without building the list."""
+        return len(self.prompt) + len(self.handle.tokens) - self.folded
+
+    def full_context(self) -> List[int]:
+        """Every token the sequence is conditioned on (the prompt, which
+        absorbs preempt-folded tokens, then the unfolded generated tail):
+        the draft's catch-up target."""
+        return self.prompt + self.handle.tokens[self.folded:]
+
+    def tail_context(self, k: int) -> List[int]:
+        """The last ``k`` tokens of `full_context`, in O(k)."""
+        gen = self.handle.tokens[self.folded:] if k > 0 else []
+        if len(gen) >= k:
+            return gen[len(gen) - k:]
+        return self.prompt[len(self.prompt) - (k - len(gen)):] + gen
 
     def next_input(self) -> int:
         if self.fed < len(self.prompt):
@@ -348,38 +396,49 @@ class _ActiveSeq:
 
 
 class _DecodeRunner:
-    """The decode step of one table bucket (``nb`` blocks; None in
-    contiguous mode) on static buffers: the counterpart of one jitted
-    decode program of the JAX engine.
+    """One all-slots step of ``width`` tokens a slot at table bucket ``nb``
+    (None: contiguous) on static buffers: the counterpart of one jitted
+    program of the JAX engine. ``family``: "decode" (width 1; JAX
+    `_step_fn`), "verify" (width G + 1; `_verify_fn`) or "draft" (width
+    1, the draft net; `_draft_step_fn`), each with a ``masked`` variant.
 
-    The inputs live in one int32 vector ``packed`` = [ids | live | pos |
-    mstate (the masked variant: each slot's mask-table row) | table rows],
-    filled from the host buffer ``stage`` (pinned on the card) by one copy
-    per step; ``out`` [n_slots, vocab] f32 (the probs) is the one
-    output. Every step ends with the probs copy to the host,
-    which waits for the staging copy too, so the next fill never
-    overwrites a stage still being read. ``graph`` is the captured step
-    on the card (None on the CPU, where the step runs eagerly on the
-    same buffers), and ``launches`` the kernel launches one replay
-    makes, counted at capture."""
+    The inputs live in one int32 vector ``packed`` = [ids (n_slots x
+    width) | live | pos | mstate (masked: each slot's mask-table row per
+    position) | table rows], filled from the host buffer ``stage`` (pinned
+    on the card) by one copy per step; ``out`` (the f32 probs, [n_slots,
+    vocab] or [n_slots, width, vocab]) is the one output. Every step ends
+    with the probs copy to the host, which waits for the staging copy
+    too, so the next fill never overwrites a stage still being read.
+    ``graph`` is the captured step on the card (None on the CPU, where the
+    step runs eagerly on the same buffers), and ``launches`` the kernel
+    launches one replay makes, counted at capture."""
 
     def __init__(self, n_slots: int, nb: Optional[int],
-                 device: torch.device, masked: bool = False):
-        s = n_slots
-        m = 4 if masked else 3
-        n = s * (m + (nb or 0))
+                 device: torch.device, masked: bool = False,
+                 width: int = 1, family: str = "decode"):
+        s, w = n_slots, width
+        off = [0]
+
+        def take(n):
+            v = self.packed[off[0]:off[0] + n]
+            off[0] += n
+            return v
+        n = s * (2 * w + 2 if masked else w + 2) + s * (nb or 0)
         self.nb = nb
         self.key = nb
         self.masked = masked
+        self.width = w
+        self.family = ("masked_" if masked else "") + family
         self.stage = torch.zeros(n, dtype=torch.int32,
                                  pin_memory=device.type == "cuda")
         self.host = self.stage.numpy()
         self.packed = torch.zeros(n, dtype=torch.int32, device=device)
-        self.ids = self.packed[:s]
-        self.live = self.packed[s:2 * s]
-        self.pos = self.packed[2 * s:3 * s]
-        self.mstate = self.packed[3 * s:4 * s] if masked else None
-        self.table = self.packed[m * s:].view(s, nb) if nb else None
+        self.ids = take(s * w).view(s, w) if w > 1 else take(s)
+        self.live = take(s)
+        self.pos = take(s)
+        self.mstate = ((take(s * w).view(s, w) if w > 1 else take(s))
+                       if masked else None)
+        self.table = take(s * nb).view(s, nb) if nb else None
         self.out: Optional[torch.Tensor] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Dict[str, int] = {}
@@ -387,17 +446,14 @@ class _DecodeRunner:
     def fill(self, ids: np.ndarray, live: np.ndarray, pos: np.ndarray,
              table: Optional[np.ndarray],
              mstate: Optional[np.ndarray] = None) -> None:
-        s = ids.shape[0]
         h = self.host
-        h[:s] = ids
-        h[s:2 * s] = live
-        h[2 * s:3 * s] = pos
-        m = 3
-        if self.masked:
-            h[3 * s:4 * s] = mstate
-            m = 4
-        if self.nb:
-            h[m * s:] = table.reshape(-1)
+        parts = [ids, live, pos] + ([mstate] if self.masked else []) \
+            + ([table] if self.nb else [])
+        o = 0
+        for a in parts:
+            a = np.asarray(a).reshape(-1)
+            h[o:o + a.shape[0]] = a
+            o += a.shape[0]
         self.packed.copy_(self.stage, non_blocking=True)
 
 
@@ -417,10 +473,14 @@ class _ChunkRunner:
     host allocator, which keeps the block until its copy has run (a
     static stage could be overwritten under a copy still queued)."""
 
-    def __init__(self, bucket: int, nb: Optional[int], device: torch.device):
+    def __init__(self, bucket: int, nb: Optional[int], device: torch.device,
+                 family: str = "prefill"):
         self.bucket = bucket
         self.nb = nb
         self.key = (bucket, nb)
+        # "prefill", or "draft_prefill": the draft's chunk into its own
+        # stripe (JAX `_draft_prefill_fn` :1501)
+        self.family = family
         self.device = device
         b = bucket
         self.packed = torch.zeros(b + 3 + (nb or 0), dtype=torch.int32,
@@ -466,9 +526,13 @@ class DecodeScheduler:
     "on" or "off", for the decode step and the prefill chunks alike;
     ``transfer_guard``: None or "disallow" (see the module docstring).
     ``mask_rows``: rows of the grammar mask table (row 0 the admit-all
-    row); <= 1 masks grammars on the host only. ``speculate`` > 0 raises
-    (speculative decoding is ROADMAP A4). ``device`` defaults to "cuda"
-    and raises without one.
+    row); <= 1 masks grammars on the host only. ``speculate``: draft G
+    tokens a slot an iteration and verify them in one forward (0: off);
+    ``draft_blocks``: the depth of the default shallow draft (default
+    half the attention blocks); ``draft_net``: an explicit draft
+    ComputationGraph on the same device and vocabulary instead (see the
+    module docstring). ``device`` defaults to "cuda" and raises without
+    one.
     """
 
     def __init__(self, net, vocab_size: int, *, n_slots: int = 4,
@@ -477,14 +541,11 @@ class DecodeScheduler:
                  kv_pool_mb: float = 0.0, kv_dtype: Optional[str] = None,
                  paged_kernel: str = "on", decode_graphs: str = "on",
                  mask_rows: int = 64, speculate: int = 0,
+                 draft_blocks: Optional[int] = None, draft_net=None,
                  metrics: Optional[MetricsRegistry] = None,
                  tracer: Optional[FlightRecorder] = None,
                  transfer_guard: Optional[str] = None,
                  device: DeviceLike = "cuda"):
-        if speculate:
-            raise NotImplementedError(
-                f"speculate={speculate}: speculative decoding is not ported "
-                "yet (ROADMAP A4)")
         self.device = resolve_device(device)
         if net.device != self.device:
             raise ValueError(f"the net lives on {net.device}, the engine "
@@ -682,6 +743,7 @@ class DecodeScheduler:
             self.maskpool = MaskPool(self.mask_rows, self.mask_buckets)
             self._masks = torch.zeros((self.mask_rows, self.vocab_size),
                                       dtype=self._dtype, device=dev)
+        self._init_speculation(speculate, draft_blocks, draft_net, attn)
         self._slots: List[Optional[_ActiveSeq]] = [None] * self.n_slots
         self._queue: List[_ActiveSeq] = []
         self._cond = threading.Condition()
@@ -733,6 +795,19 @@ class DecodeScheduler:
         self.masked_steps = 0  # decode steps that ran the masked variant
         self.masked_seconds = 0.0
         self.forks = 0  # best-of-n followers that attached to a publish
+        # speculation: the speculative runners by (family, key), their
+        # captures by family, and the scheduler thread's counters
+        self._spec_runners: Dict[Tuple[str, object], object] = {}
+        self.spec_captures: Dict[str, int] = {}
+        self.spec_rounds = 0  # verify dispatches
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.draft_steps = 0
+        self.draft_chunks = 0
+        self.verify_seconds = 0.0
+        self.draft_seconds = 0.0
+        # kernel launches inside the verify and the draft's dispatches
+        self.spec_launches = 0
         m = self.metrics
         self._m_queue_depth = m.gauge("decode_queue_depth")
         self._m_active = m.gauge("decode_active_slots")
@@ -782,6 +857,72 @@ class DecodeScheduler:
                 "prefix_cache_hit_tokens_total")
             m.ratio("prefix_cache_hit_rate", self._m_prefix_hit_tokens,
                     self._m_prefix_lookup_tokens)
+        if self.speculate:
+            self._m_spec_proposed = m.counter("spec_tokens_proposed_total")
+            self._m_spec_accepted = m.counter("spec_tokens_accepted_total")
+            m.ratio("spec_acceptance_rate", self._m_spec_accepted,
+                    self._m_spec_proposed)
+
+    def _init_speculation(self, speculate, draft_blocks, draft_net,
+                          attn) -> None:
+        """Arm speculation (JAX :928-1025), or warn and leave it off: the
+        draft and its private contiguous stripes (K layers, ``n_slots``
+        rows each) at the compute dtype."""
+        self.speculate = 0
+        self.draft = None
+        self.draft_blocks = 0
+        self._draft_states: Dict[str, Dict[str, torch.Tensor]] = {}
+        self._draft_cap: Optional[int] = None
+        if not speculate or int(speculate) <= 0:
+            return
+        reason = None
+        if not (self._graph and attn):
+            reason = ("the model is not a transformer ComputationGraph with "
+                      "an attention KV cache to verify against")
+        elif not self.prefill_buckets:
+            reason = ("chunked prefill is disabled (prefill_chunk <= 1) and "
+                      "the draft needs its chunk programs")
+        draft = draft_net
+        kk = int(draft_blocks) if draft_blocks else max(1, len(attn) // 2)
+        if reason is None and draft is None:
+            # a paged engine decodes past the conf's max_cache_len, but the
+            # draft's stripes are dense: cap them at the model's own depth
+            # (deeper sequences decode plain, `_spec_ready`)
+            depth = None
+            if self.paged:
+                depth = min([self._cache_cap] + [
+                    int(getattr(i.conf, "max_cache_len", 1024))
+                    for i in attn.values()])
+            try:
+                draft = build_shallow_draft(self.net, kk,
+                                            max_cache_len=depth)
+            except ValueError as e:
+                reason = f"no self-speculative draft ({e})"
+        if reason is not None:
+            warnings.warn(
+                f"speculate={speculate} requested but speculative decoding "
+                f"is DISABLED: {reason}; pass draft_net= for models the "
+                "shallow-exit surgery cannot cut", RuntimeWarning,
+                stacklevel=3)
+            return
+        if draft.device != self.device:
+            raise ValueError(f"the draft lives on {draft.device}, the engine "
+                             f"on {self.device}")
+        dattn = {k: i for k, i in sorted(draft._impls.items())
+                 if isinstance(i, BaseRecurrentImpl)}
+        if not dattn or any(not isinstance(i, SelfAttentionLayerImpl)
+                            for i in dattn.values()):
+            raise ValueError("a draft net must carry attention layers only "
+                             "as its stateful layers")
+        self.speculate = int(speculate)
+        self.draft = draft
+        self.draft_blocks = kk if draft_net is None else 0
+        for name, impl in dattn.items():
+            st = impl.init_state(self.n_slots, dtype=self._dtype,
+                                 device=self.device)
+            self._draft_states[name] = {"k": st["k"], "v": st["v"]}
+        self._draft_cap = min(int(st["k"].shape[1])
+                              for st in self._draft_states.values())
 
     # -- submission --------------------------------------------------------
     def _reject(self, rid: str, msg: str, **args) -> PromptTooLongError:
@@ -998,6 +1139,14 @@ class DecodeScheduler:
         self.masked_steps = 0
         self.masked_seconds = 0.0
         self.forks = 0
+        self.spec_rounds = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.draft_steps = 0
+        self.draft_chunks = 0
+        self.verify_seconds = 0.0
+        self.draft_seconds = 0.0
+        self.spec_launches = 0
 
     @contextlib.contextmanager
     def _sync_guard(self):
@@ -1115,9 +1264,11 @@ class DecodeScheduler:
         per fault. A thread still running (a real hang) keeps what its
         frames hold until it exits; once it wakes it fails at the fence."""
         self._states = {}
+        self._draft_states = {}
         self._runners = {}
         self._mrunners = {}
         self._chunk_runners = {}
+        self._spec_runners = {}
         self._graph_pool = None
         self._masks = None
         self.pool = None
@@ -1303,6 +1454,7 @@ class DecodeScheduler:
         seq.folded = len(h.tokens)
         seq.fed = 0
         seq.written = 0
+        seq.draft_fed = 0  # the draft re-ingests on resume too
         seq.phase = "preempted"
         seq.resumed = True
         self._slots[slot] = None
@@ -1343,13 +1495,16 @@ class DecodeScheduler:
     # -- prefix reuse --------------------------------------------------------
     def _reset_slot_state(self, slot: int) -> None:
         """Zero a contiguous slot's stripe rows, or a recurrent slot's h/c
-        rows, at admission (JAX `_reset_slot_state` :1699, `_zero_fn`
-        :1598). Paged pages are shared storage and stay; a fresh paged
-        slot starts from a scratch table row and position 0."""
+        rows, and its draft stripe rows, at admission (JAX
+        `_reset_slot_state` :1699, `_zero_fn` :1598). Paged pages are
+        shared storage and stay; a fresh paged slot starts from a scratch
+        table row and position 0."""
+        states = list(self._draft_states.values())
         if not self.paged:
-            for st in self._states.values():
-                for rows in st.values():
-                    rows[slot].zero_()
+            states += list(self._states.values())
+        for st in states:
+            for rows in st.values():
+                rows[slot].zero_()
 
     def _try_restore(self, slot: int, seq: _ActiveSeq) -> None:
         """Contiguous prefix restore (JAX :1714): copy the longest cached
@@ -1894,6 +2049,13 @@ class DecodeScheduler:
                                   args={"request": seq.handle.request_id,
                                         "bucket": bucket, "tokens": n_real})
             last = self._chunk_row(i, seq, ids, n_real)
+            if self.speculate and seq.draft_fed == seq.fed \
+                    and seq.draft_fed + bucket <= self._draft_cap:
+                # the draft ingests the same chunk (JAX :2749): it must
+                # hold the prompt to propose from it. A slot whose main
+                # cache jumped (a restore) catches up instead
+                self._draft_chunk(i, ids, n_real, seq.draft_fed)
+                seq.draft_fed += n_real
             self.prefill_chunks += 1
             self.prefill_seconds += time.monotonic() - t0
             seq.written += n_real
@@ -1933,6 +2095,9 @@ class DecodeScheduler:
         the slot on a stop sequence (cut off), max tokens or EOS. A
         stream gets the tokens past any live partial stop match."""
         h = seq.handle
+        if h.done():
+            return  # a speculative chain ran past a stop or a grammar's
+            # end: the tail was sampled but is not output
         h.tokens.append(tok)
         self._emitted_this_iter += 1
         if h.t_first_token is None:
@@ -1993,7 +2158,13 @@ class DecodeScheduler:
         t0 = time.monotonic()
         self._emitted_this_iter = 0
         chunked = self._run_prefill_chunk()
+        self._run_draft_catchup()
+        # the decode-ready slots: speculating ones (`spec`) take the draft
+        # and verify path; the rest (mid-catch-up, out of headroom, one
+        # token from done) decode plain (`fed`)
         fed: List[Tuple[int, _ActiveSeq]] = []
+        spec: List[Tuple[int, _ActiveSeq]] = []
+        G = self.speculate
         # oldest first: a preemption takes the latest-submitted slot, which
         # comes last here, so a slot already in `fed` never loses its blocks
         for i, seq in sorted(active, key=lambda e: e[1].handle.t_submit):
@@ -2009,13 +2180,17 @@ class DecodeScheduler:
             if not seq.sampling and self.prefill_buckets \
                     and self._pick_chunk(seq)[1]:
                 continue  # mid-prefill: waits for its chunk turn
+            want = G + 1 if G and seq.sampling and self._spec_ready(seq) \
+                else 1
             if self.paged and (
-                    not self._ensure_blocks(i, seq, seq.written + 1)
+                    not self._ensure_blocks(i, seq, seq.written + want)
                     or not self._ensure_writable(i, seq, seq.written)):
                 continue  # seq itself was preempted for blocks
-            fed.append((i, seq))
+            (spec if want > 1 else fed).append((i, seq))
         if fed:
             self._decode(fed)
+        if spec:
+            self._run_speculation(spec)
         if self._emitted_this_iter:
             self._m_tokens.inc(self._emitted_this_iter)
         self._m_occupancy.record(len(active))
@@ -2084,8 +2259,16 @@ class DecodeScheduler:
         return _DecodeRunner(self.n_slots, nb, self.device, masked=masked)
 
     def _body(self, r):
-        return self._chunk_body(r) if isinstance(r, _ChunkRunner) \
-            else self._step_body(r)
+        fam = r.family
+        if fam == "prefill":
+            return self._chunk_body(r)
+        if fam == "draft_prefill":
+            return self._draft_chunk_body(r)
+        if fam.endswith("verify"):
+            return self._verify_body(r)
+        if fam.endswith("draft"):
+            return self._draft_body(r)
+        return self._step_body(r)
 
     def _build(self, r, trace: bool = True) -> None:
         """Capture runner ``r`` (a decode step or a prefill chunk) on the
@@ -2095,26 +2278,27 @@ class DecodeScheduler:
         if self.device.type == "cuda":
             with self._allow_sync():
                 self._capture(r)
-        chunk = isinstance(r, _ChunkRunner)
-        if chunk:
+        kind = r.family
+        if kind == "prefill":
             self._chunk_runners[r.key] = r
             self.prefill_captures += 1
-            kind = "prefill"
-        elif r.masked:
+        elif kind == "masked_decode":
             self._mrunners[r.key] = r
             self.masked_captures += 1
-            kind = "masked_decode"
-        else:
+        elif kind == "decode":
             self._runners[r.key] = r
             self.decode_captures += 1
-            kind = "decode"
+        else:
+            self._spec_runners[(kind, r.key)] = r
+            self.spec_captures[kind] = self.spec_captures.get(kind, 0) + 1
         if trace and self.tracer.enabled:
             self.tracer.instant("capture", track=self._sched_track,
                                 args={"bucket": r.key, "kind": kind,
                                       "graph": r.graph is not None,
                                       "captures": self.decode_captures
                                       + self.prefill_captures
-                                      + self.masked_captures})
+                                      + self.masked_captures
+                                      + sum(self.spec_captures.values())})
 
     def _capture(self, r) -> None:
         """Record ``r``'s body into a CUDA graph. The body runs eagerly
@@ -2161,6 +2345,8 @@ class DecodeScheduler:
             r.graph.replay()
             for k, n in r.launches.items():
                 ck.LAUNCHES[k] += n
+            if r.family not in ("decode", "masked_decode", "prefill"):
+                self.spec_launches += sum(r.launches.values())
 
     def _decode(self, fed: List[Tuple[int, _ActiveSeq]]) -> None:
         failpoints.fire("dispatch.decode")  # chaos seam
@@ -2220,6 +2406,357 @@ class DecodeScheduler:
                 continue  # still prefilling token by token
             self._consume(i, seq, probs[i])
 
+    # -- speculative decoding: draft, verify, accept, roll back ------------
+    def _draft_forward(self, x, states) -> torch.Tensor:
+        """One forward of one-hots ``x`` through the draft net with its
+        stripes' states (JAX `_draft_forward` :1486)."""
+        d = self.draft
+        acts, _ = d._forward_impl(d.params, [x], states=states)
+        return acts[d.conf.network_outputs[0]]
+
+    def _draft_body(self, r: _DecodeRunner) -> torch.Tensor:
+        """One token of every slot through the draft (JAX `_draft_step_fn`
+        :1493), at each slot's draft depth; with ``mstate`` each slot's
+        mask-table row is added (`_draft_step_masked_fn` :1302). A masked
+        row writes at its own depth, past what the slot's draft holds, and
+        the slot's next real draft write overwrites it. Returns [n_slots,
+        vocab] f32."""
+        x = self._onehot(r.ids)[:, None]
+        sts = {name: {"k": st["k"], "v": st["v"], "pos": r.pos}
+               for name, st in self._draft_states.items()}
+        out = self._draft_forward(x, sts)[:, -1, :]
+        if r.masked:
+            out = out + self._masks.index_select(0, r.mstate.long())
+        return out.float()
+
+    def _draft_chunk_body(self, r: _ChunkRunner) -> torch.Tensor:
+        """One chunk into one slot's draft stripe, the slot a device index
+        (JAX `_draft_prefill_fn` :1501). Returns the last real row."""
+        x = self._onehot(r.ids)[None]
+        sts = {name: {"k": st["k"], "v": st["v"], "pos": r.pos,
+                      "slot": r.slot}
+               for name, st in self._draft_states.items()}
+        out = self._draft_forward(x, sts)[0]
+        last = torch.clamp(r.n_real.long() - 1, min=0)
+        return out.index_select(0, last)[0].float()
+
+    def _verify_body(self, r: _DecodeRunner) -> torch.Tensor:
+        """THE verify (JAX `_verify_fn` :1528, `_verify_paged_fn` :1542):
+        one target forward over [n_slots, G + 1] chains at per-slot
+        depths, every position's distribution kept. ``live`` broadcast
+        over the chain is the write mask: paged, a masked row writes to the
+        scratch page; contiguous, it writes its rows back unchanged. With
+        ``mstate`` [n_slots, G + 1] each position's mask-table row is added
+        (`_verify_masked_fn` :1284). Returns [n_slots, G + 1, vocab] f32."""
+        x = self._onehot(r.ids)
+        wmask = (r.live != 0)[:, None].expand(-1, r.width)
+        if self.paged:
+            sts = self._dispatch_states(r.pos, r.table, wmask)
+        else:
+            sts = {name: {"k": st["k"], "v": st["v"], "pos": r.pos,
+                          "wmask": wmask}
+                   for name, st in self._states.items()}
+        out = self._forward(x, sts)
+        if r.masked:
+            out = out + self._masks[r.mstate.long()]
+        return out.float()
+
+    def _new_spec_runner(self, family: str, key):
+        """Static buffers of one speculative runner under the capture
+        budget: one per (family, key) over the engine's life, and none but
+        the masked ones once warmup() has run."""
+        if (family, key) in self._spec_runners or (
+                self._warmed and not family.startswith("masked_")):
+            raise RuntimeError(f"capture budget spent: the {family} step of "
+                               f"bucket {key} was built already or warmup() "
+                               "has run")
+        masked = family.startswith("masked_")
+        base = family[len("masked_"):] if masked else family
+        if base == "draft_prefill":
+            return _ChunkRunner(key[0], None, self.device,
+                                family="draft_prefill")
+        width = self.speculate + 1 if base == "verify" else 1
+        return _DecodeRunner(self.n_slots, key, self.device, masked=masked,
+                             width=width, family=base)
+
+    def _run_spec(self, family: str, key, fill) -> torch.Tensor:
+        """Run one speculative step: its runner (built, and captured when
+        the decode graphs are on, at first use), ``fill(runner)`` staging
+        the inputs, then the replay. Returns the runner's output."""
+        r = self._spec_runners.get((family, key))
+        new = r is None
+        if new:
+            r = self._new_spec_runner(family, key)
+        fill(r)
+        if new:
+            if self.decode_graphs == "on":
+                self._build(r)
+            else:
+                self._spec_runners[(family, key)] = r
+        if r.graph is None and self.device.type == "cuda":
+            n0 = sum(ck.LAUNCHES.values())
+            self._replay(r)
+            self.spec_launches += sum(ck.LAUNCHES.values()) - n0
+        else:
+            self._replay(r)
+        return r.out
+
+    def _draft_chunk(self, slot: int, ids: np.ndarray, n_real: int,
+                     pos: int) -> None:
+        """One chunk of ``slot`` into its draft stripe at depth ``pos``."""
+        t0 = time.monotonic()
+        self._run_spec("draft_prefill", (ids.shape[0], None),
+                       lambda r: r.fill(ids, n_real, pos, slot, None))
+        self.draft_chunks += 1
+        self.draft_seconds += time.monotonic() - t0
+
+    def _spec_ready(self, seq: _ActiveSeq) -> bool:
+        """Can this decode-ready slot speculate this iteration (JAX :2776)?
+        The draft within lockstep range (lag 1 after a plain accept, 2
+        after a full one), G + 1 rows of headroom in the main cache and G
+        in the draft's, and at least 2 tokens still wanted."""
+        G = self.speculate
+        h = seq.handle
+        lag = seq.known_tokens() - seq.draft_fed
+        if not 1 <= lag <= min(2, G):
+            return False
+        if h.max_new_tokens - len(h.tokens) < 2:
+            return False
+        if self._cache_cap is not None and \
+                seq.written + G + 1 > self._cache_cap:
+            return False
+        return seq.draft_fed + G <= self._draft_cap
+
+    def _run_draft_catchup(self) -> Optional[int]:
+        """At most one draft catch-up chunk an iteration (JAX :2802): a
+        decoding slot whose main cache jumped past tokens the draft never
+        saw (a prefix restore, a resume) feeds the gap, up to the token
+        before the last, through the draft's chunk. Returns the slot."""
+        if not self.speculate:
+            return None
+        for i, seq in enumerate(self._slots):
+            if seq is None or not seq.sampling:
+                continue
+            lag = seq.known_tokens() - seq.draft_fed
+            if lag <= 2:
+                continue
+            n_real = min(lag - 1, self.prefill_chunk)
+            bucket = bucket_for(n_real, self.prefill_buckets)
+            if seq.draft_fed + bucket > self._draft_cap:
+                fitting = [b for b in self.prefill_buckets
+                           if seq.draft_fed + b <= self._draft_cap]
+                if not fitting:
+                    continue  # no draft headroom: the slot decodes plain
+                bucket = fitting[-1]
+                n_real = min(n_real, bucket)
+            full = seq.full_context()
+            ids = np.zeros((bucket,), np.int32)
+            ids[:n_real] = full[seq.draft_fed:seq.draft_fed + n_real]
+            self._draft_chunk(i, ids, n_real, seq.draft_fed)
+            seq.draft_fed += n_real
+            return i
+        return None
+
+    def _truncate_blocks(self, slot: int, seq: _ActiveSeq) -> int:
+        """Paged rollback (JAX :2846): pop the slot's table entries wholly
+        past the accepted frontier (the verify allocated through written +
+        G + 1) and return the owned pages to the pool. Returns the blocks
+        popped."""
+        need = blocks_for(seq.written, self.kv_block)
+        freed = 0
+        while len(seq.block_ids) > need:
+            bid = seq.block_ids.pop()
+            if not seq.shared.pop():
+                self.pool.free_block(bid)
+            self._table[slot, len(seq.block_ids)] = SCRATCH_BLOCK
+            freed += 1
+        return freed
+
+    def _run_speculation(self, spec: List[Tuple[int, _ActiveSeq]]) -> None:
+        """The speculative iteration of every eligible slot at once (JAX
+        :2864): G lockstep draft rounds (round r < lag feeds a token the
+        draft has not ingested, later rounds the last proposal; a grammar
+        slot proposes the argmax its host ``allow`` row admits, along its
+        speculative DFA chain), ONE verify, `accept_tokens` with each
+        sequence's own RNG and logit pipeline, then the rollback: the
+        host's ``written`` and ``draft_fed`` step back over the rejected
+        tail and, paged, the pages past the frontier return to the pool."""
+        G = self.speculate
+        tr = self.tracer
+        n = self.n_slots
+        t0 = time.monotonic()
+        info = []
+        for i, seq in spec:
+            known = seq.known_tokens()
+            lag = known - seq.draft_fed
+            info.append((i, seq, known, lag, seq.tail_context(lag), []))
+        live = np.zeros((n,), np.int32)
+        for i, *_ in info:
+            live[i] = 1
+        # schain[i][j]: the grammar state after proposals[0..j-1], from the
+        # pipeline's live state; drives the per-round draft mask, the
+        # per-position verify mask and the host mask on the draft's argmax
+        schain: Dict[int, List[int]] = {}
+        use_mask = False
+        for i, seq, *_ in info:
+            p = seq.proc
+            if p is not None and p.grammar is not None:
+                schain[i] = [p.gstate]
+                if p.mask_base is not None:
+                    use_mask = True
+        fam = "masked_draft" if use_mask else "draft"
+        base = np.zeros((n,), np.int32)
+        for i, seq in enumerate(self._slots):
+            if seq is not None:
+                # a frozen row writes past its slot's draft depth (at the
+                # last row when the stripe is full: never read again)
+                base[i] = min(seq.draft_fed, self._draft_cap - 1)
+        for r in range(G):
+            ids = np.zeros((n,), np.int32)
+            pos = base.copy()
+            mstate = np.zeros((n,), np.int32) if use_mask else None
+            for i, seq, known, lag, tail, props in info:
+                ids[i] = tail[r] if r < lag else props[r - lag]
+                pos[i] = seq.draft_fed + r
+                p = seq.proc
+                if use_mask and p is not None and p.mask_base is not None:
+                    mstate[i] = p.mask_base + schain[i][-1]
+            out = self._run_spec(fam, None, lambda rr: rr.fill(
+                ids, live, pos, None, mstate))
+            rows = self._host_read(out)
+            self.draft_steps += 1
+            for i, seq, known, lag, tail, props in info:
+                if r < lag - 1:
+                    continue  # a catch-up round: its output is known
+                row = rows[i]
+                if i in schain:
+                    g = seq.proc.grammar
+                    # softmax rows are >= 0: -1 never wins
+                    row = np.where(g.allow[schain[i][-1]], row, -1.0)
+                    prop = int(row.argmax())
+                    schain[i].append(g.step(schain[i][-1], prop))
+                    props.append(prop)
+                    continue
+                props.append(int(row.argmax()))
+        t1 = time.monotonic()
+        self.draft_seconds += t1 - t0
+        # the seam before any span opens: an injected crash must not
+        # strand an unclosed span
+        failpoints.fire("dispatch.verify")
+        if self._fenced:
+            raise _EngineFenced
+        ids2 = np.zeros((n, G + 1), np.int32)
+        pos2 = np.zeros((n,), np.int32)  # masked rows: writes discarded
+        for i, seq, known, lag, tail, props in info:
+            chain = [tail[-1]] + props
+            chain += [chain[-1]] * (G + 1 - len(chain))  # pad lanes
+            ids2[i] = chain
+            pos2[i] = seq.written
+            if tr.enabled:
+                tr.instant("draft", track=self._slot_tracks[i],
+                           args={"request": seq.handle.request_id,
+                                 "proposed": len(props)})
+                tr.begin("verify", req=seq.handle.request_id,
+                         args={"slot": i, "proposed": len(props)})
+        mstate2 = None
+        if use_mask:
+            # position j's row: the state after proposals[0..j-1]; pad
+            # lanes repeat the last state (their rows are never read)
+            mstate2 = np.zeros((n, G + 1), np.int32)
+            for i, seq, *_ in info:
+                p = seq.proc
+                if p is not None and p.mask_base is not None:
+                    chain = schain[i]
+                    chain = chain + [chain[-1]] * (G + 1 - len(chain))
+                    mstate2[i] = [p.mask_base + st for st in chain[:G + 1]]
+        table = self._table_for(max(s.written + G + 1 for _, s, *_ in info)) \
+            if self.paged else None
+        nb = table.shape[1] if self.paged else None
+        out = self._run_spec("masked_verify" if use_mask else "verify", nb,
+                             lambda rr: rr.fill(ids2, live, pos2, table,
+                                                mstate2))
+        rows2 = self._host_read(out)
+        self.spec_rounds += 1
+        self.verify_seconds += time.monotonic() - t1
+        if self._fenced:
+            raise _EngineFenced
+        proposed = accepted = 0
+        for i, seq, known, lag, tail, props in info:
+            h = seq.handle
+            emitted, matched = accept_tokens(
+                rows2[i], props, seq.temperature, seq.top_k, seq.top_p,
+                seq.rng, h.max_new_tokens - len(h.tokens), seq.eos_id,
+                proc=seq.proc)
+            proposed += len(props)
+            accepted += matched
+            seq.steps += 1
+            seq.written += len(emitted)
+            seq.draft_fed = known + min(G - lag, matched)
+            for tok in emitted:
+                self._emit(i, seq, tok)
+            freed = 0
+            if self.paged and self._slots[i] is seq:
+                freed = self._truncate_blocks(i, seq)
+            if tr.enabled:
+                tr.end("verify", req=h.request_id,
+                       args={"accepted": len(emitted), "matched": matched})
+                if len(emitted) < len(props) + 1:
+                    # mismatch: the target's token left the draft (not an
+                    # EOS, a budget or a grammar cut); tokens: the output's
+                    # length after the last accepted token
+                    j = len(emitted) - 1
+                    tr.instant("rollback", track=self._slot_tracks[i],
+                               args={"request": h.request_id,
+                                     "rejected": len(props) + 1
+                                     - len(emitted),
+                                     "blocks_freed": freed,
+                                     "tokens": len(h.tokens),
+                                     "mismatch": j < len(props)
+                                     and emitted[j] != props[j]})
+        self.spec_proposed += proposed
+        self.spec_accepted += accepted
+        self._m_spec_proposed.inc(proposed)
+        if accepted:
+            self._m_spec_accepted.inc(accepted)
+
+    def _warm_speculation(self, masks: bool) -> None:
+        """warmup()'s speculative captures (JAX :3615): the verify per
+        table bucket (contiguous: one), the draft step, a draft chunk per
+        chunk bucket, and with ``masks`` the masked verify and draft; all
+        lanes masked (paged rows to the scratch page, contiguous rows
+        written back unchanged; the draft rows land in idle stripes, which
+        admission zeroes)."""
+        s, w = self.n_slots, self.speculate + 1
+        zeros = np.zeros((s,), np.int32)
+        fams = [("verify", "draft")] + ([("masked_verify", "masked_draft")]
+                                        if masks and self._masks is not None
+                                        else [])
+        for vfam, dfam in fams:
+            mst = np.zeros((s, w), np.int32) if vfam.startswith("masked") \
+                else None
+            for nb in (self.table_buckets if self.paged else [None]):
+                if (vfam, nb) in self._spec_runners:
+                    continue
+                r = self._new_spec_runner(vfam, nb)
+                r.fill(np.zeros((s, w), np.int32), zeros, zeros,
+                       np.full((s, nb), SCRATCH_BLOCK, np.int32)
+                       if nb else None, mst)
+                self._build(r, trace=False)
+            if (dfam, None) not in self._spec_runners:
+                r = self._new_spec_runner(dfam, None)
+                r.fill(zeros, zeros, zeros, None,
+                       zeros if mst is not None else None)
+                self._build(r, trace=False)
+        for b in self.prefill_buckets:
+            if ("draft_prefill", (b, None)) in self._spec_runners:
+                continue
+            r = self._new_spec_runner("draft_prefill", (b, None))
+            r.fill(np.zeros((b,), np.int32), 0, 0, 0, None)
+            self._build(r, trace=False)
+        for st in self._draft_states.values():
+            for rows in st.values():
+                rows[0].zero_()
+
     def warmup(self, masks: Optional[bool] = None) -> None:
         """Build everything the serving loop would otherwise build under
         traffic (JAX :3496): the kernels, every decode step (paged: one
@@ -2228,8 +2765,9 @@ class DecodeScheduler:
         contiguous and recurrent: one per chunk bucket), captured on the
         card, with all lanes masked to the scratch page (paged) or frozen
         (recurrent), or on slot 0 followed by its reset, and one scratch
-        -> scratch COW copy. With ``decode_graphs="off"`` the chunks run
-        once eagerly instead. ``masks``: also capture the masked decode
+        -> scratch COW copy; a speculating engine's verify (per table
+        bucket), draft step and draft chunks (`_warm_speculation`). With
+        ``decode_graphs="off"`` the chunks run once eagerly instead. ``masks``: also capture the masked decode
         steps (default: only when grammars are resident already; a
         deployment expecting grammars passes True, and may call warmup
         again for them on an idle engine). Nothing observable changes: no
@@ -2290,6 +2828,8 @@ class DecodeScheduler:
                     self._build(r, trace=False)
                 if not self.paged:
                     self._reset_slot_state(0)
+            if self.speculate and graphs:
+                self._warm_speculation(masks)
             if self.paged:
                 self._copy_page(SCRATCH_BLOCK, SCRATCH_BLOCK)
             if self.device.type == "cuda":

@@ -63,7 +63,7 @@ __all__ = ["InjectedFault", "InjectedCrash", "InjectedOOM", "InjectedHang",
 # the seams the port plants (arming anything else is a spec error — a
 # typo'd seam name must not silently never fire)
 SEAMS = ("scheduler.iteration", "dispatch.decode", "dispatch.prefill",
-         "pool.alloc", "batcher.flush", "http.handler")
+         "dispatch.verify", "pool.alloc", "batcher.flush", "http.handler")
 
 
 class InjectedFault(RuntimeError):

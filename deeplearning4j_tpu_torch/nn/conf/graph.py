@@ -4,8 +4,9 @@ Port of deeplearning4j_tpu/nn/conf/graph.py: the vertex classes
 ``transformer_lm`` uses (layer, element-wise), the
 `ComputationGraphConfiguration` fields and `GraphBuilder` (with the
 backprop, pretrain and truncated-BPTT settings), so its graph config JSON
-round-trips between the packages. Merge, subset and scale
-vertices come with the slices whose models use them.
+round-trips between the packages. The merge vertex (concatenation) came
+with int8 graph quantization, whose multi-path cases use it; subset and
+scale vertices come with the slices whose models use them.
 """
 from __future__ import annotations
 
@@ -30,6 +31,12 @@ class GraphVertex:
 class LayerVertex(GraphVertex):
     layer: Optional[Layer] = None
     preprocessor: Optional[Any] = None
+
+
+@serde.register
+@dataclass
+class MergeVertex(GraphVertex):
+    """Concatenate inputs along the feature (last) axis."""
 
 
 @serde.register

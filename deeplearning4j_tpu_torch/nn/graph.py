@@ -39,8 +39,8 @@ layers run the port's flash or splash kernels there, f32 or bf16 by the
 compute dtype (ops/helpers.attention).
 Not ported yet, and raising where asked for: the line-search solvers,
 ``fit_batch_accumulated``, vertex preprocessors, layers with
-non-trainable variables (BatchNorm), the vertex types ``transformer_lm``
-does not use (ROADMAP A5). ``rnn_time_step`` (and with it
+non-trainable variables (BatchNorm), the subset, scale and last-step
+vertices (ROADMAP A5). ``rnn_time_step`` (and with it
 ``generate_transformer(use_cache=True)``) runs at any compute dtype,
 with its KV cache at the compute dtype.
 """
@@ -53,7 +53,7 @@ import torch
 
 from .conf.config import BACKPROP_TBPTT
 from .conf.graph import (ComputationGraphConfiguration, ElementWiseVertex,
-                         GraphVertex, LayerVertex)
+                         GraphVertex, LayerVertex, MergeVertex)
 from .layers.base import (BaseRecurrentImpl, LayerImpl, detach_states,
                           impl_for, materialize_rnn_states, remat_forward)
 # importing the impl modules registers them
@@ -178,6 +178,8 @@ class ComputationGraph:
                                  recurrent=False)(params[name], x, {}, gen,
                                                   mask)
             return y
+        if isinstance(vertex, MergeVertex):
+            return torch.cat(inputs, dim=-1)
         if isinstance(vertex, ElementWiseVertex):
             op = vertex.op.lower()
             out = inputs[0]

@@ -232,7 +232,11 @@ class SelfAttentionLayerImpl(BaseRecurrentImpl):
         rows the batch owns: the write goes into those rows in place and
         the attention reads a gathered copy of them — the decode engine's
         captured prefill chunk, whose slot is a device index (JAX
-        `_slice_slot`/`_scatter_slot`, engine.py:1352)."""
+        `_slice_slot`/`_scatter_slot`, engine.py:1352). An optional
+        ``state0["wmask"]`` ([B, T] bool, per-row positions) writes the
+        masked lanes' rows back unchanged: the decode engine's speculative
+        verify, whose frozen rows must not land in another slot's real
+        rows where the write window is clamped at the stripe's end."""
         B, T, _ = x.shape
         pos = state0["pos"]
         kc, vc = state0["k"], state0["v"]
@@ -251,6 +255,11 @@ class SelfAttentionLayerImpl(BaseRecurrentImpl):
                 vc.index_select(0, slot.long())
         elif per_slot:
             rows = torch.arange(B, device=x.device)[:, None]
+            wmask = state0.get("wmask")
+            if wmask is not None:
+                keep = wmask[..., None, None]
+                k_new = torch.where(keep, k_new, kc[rows, at])
+                v_new = torch.where(keep, v_new, vc[rows, at])
             kc[rows, at] = k_new
             vc[rows, at] = v_new
             ka, va = kc, vc

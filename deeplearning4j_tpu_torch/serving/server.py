@@ -17,13 +17,18 @@
     `EngineSupervisor` by default (``supervise=False`` opts out): a
     watchdog reads the loop's heartbeat, and a crashed or hung engine is
     fenced, rebuilt by the server's factory — with the same device,
-    ``paged_kernel`` and ``decode_graphs`` — warmed, and every in-flight
+    ``paged_kernel``, ``decode_graphs`` and speculation — warmed, and every in-flight
     request resubmitted with its original handle and seed (the same
     tokens; a bounded backoff and a per-request ``retry_budget``, whose
     exhaustion is a structured 503 naming the ``request_id``). Queue
     pressure walks the degradation ladder. ``decode_transfer_guard``
     ("disallow") runs the scheduler loop under torch's sync debug mode
     (process-wide: serve ``/generate`` traffic only under it).
+    ``speculate``/``draft_blocks``/``draft_net`` arm the engine's
+    speculative decoding (`inference/engine.py`); ``/info`` reports whether
+    it armed. A `nn.quantization` int8 program is served as any net: a
+    `QuantizedNetwork` behind ``/predict``, a `quantize_graph` clone behind
+    ``/generate`` too.
 
 The decode engine serves a ComputationGraph LM: ``decode_vocab=None``
 takes its vocabulary from the output layer's width (the JAX server needs
@@ -191,7 +196,8 @@ class InferenceServer:
                  supervise: bool = True, hang_timeout_s: float = 5.0,
                  retry_budget: int = 3,
                  decode_transfer_guard: Optional[str] = None,
-                 mask_rows: int = 64,
+                 mask_rows: int = 64, speculate: int = 0,
+                 draft_blocks: Optional[int] = None, draft_net=None,
                  failpoint_endpoint: bool = False,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
@@ -217,7 +223,9 @@ class InferenceServer:
             prefill_chunk=prefill_chunk, prefix_cache_mb=prefix_cache_mb,
             kv_block=kv_block, kv_pool_mb=kv_pool_mb, kv_dtype=kv_dtype,
             paged_kernel=paged_kernel, decode_graphs=decode_graphs,
-            mask_rows=mask_rows, transfer_guard=decode_transfer_guard)
+            mask_rows=mask_rows, transfer_guard=decode_transfer_guard,
+            speculate=speculate, draft_blocks=draft_blocks,
+            draft_net=draft_net)
         self.supervise = bool(supervise)
         self.hang_timeout_s = float(hang_timeout_s)
         self.retry_budget = int(retry_budget)
@@ -266,7 +274,8 @@ class InferenceServer:
         return self._decoder_direct
 
     def _decoder_factory(self) -> DecodeScheduler:
-        """Every (re)build: the same device and modes (kernel, graphs)."""
+        """Every (re)build: the same device and modes (kernel, graphs,
+        speculation): a rebuilt engine speculates again."""
         return DecodeScheduler(self.net, self.decode_vocab,
                                metrics=self.metrics, tracer=self.tracer,
                                device=self.device, **self._decode_kw)
@@ -301,6 +310,11 @@ class InferenceServer:
                 "decode_graphs": dec.decode_graphs,
                 "decode_captures": dec.decode_captures,
                 "prefill_captures": dec.prefill_captures,
+                "speculate": dec.speculate,
+                "draft_blocks": dec.draft_blocks,
+                "spec_captures": dict(dec.spec_captures),
+                "int8_vertices": list(getattr(
+                    self.net, "_quantized_vertices", [])),
                 "transfer_guard": dec.transfer_guard,
                 "pool": dec.pool.stats() if dec.pool else None}
         if self.supervisor is not None:

@@ -168,10 +168,17 @@ def restore_multi_layer_network(path: Union[str, Path], *,
 
 def restore_model(path: Union[str, Path], *, device: DeviceLike = "cuda"):
     """Type-dispatching restore on the zip's ``model_type`` stamp (a zip
-    without one is a MultiLayerNetwork, as in the JAX package)."""
+    without one is a MultiLayerNetwork, as in the JAX package). A
+    quantized artifact (one holding ``quantization.json``) restores as its
+    int8 program through `nn.quantization.load_quantized`, as the JAX
+    CLI's ``serve --int8`` loads it."""
     with zipfile.ZipFile(Path(path), "r") as zf:
+        names = set(zf.namelist())
         model_type = "MultiLayerNetwork"
-        if META_JSON in set(zf.namelist()):
+        if "quantization.json" in names:
+            from ..nn.quantization import load_quantized
+            return load_quantized(path, device=device)
+        if META_JSON in names:
             model_type = json.loads(zf.read(META_JSON).decode()).get(
                 "model_type", model_type)
     if model_type == "ComputationGraph":

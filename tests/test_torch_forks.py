@@ -234,9 +234,24 @@ def test_await_fork_group_timeout_cancels_unfinished():
     assert [h.cancelled for h in hs] == [False, True, True]
 
 
-def test_speculate_is_refused_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-        DecodeScheduler(_nets()[1], V, speculate=2, device="cpu")
+def test_fork_group_under_speculation_gives_the_same_candidates():
+    """Best-of-n on a speculating paged engine: the followers still attach
+    to the primary's published blocks, and every candidate's tokens are
+    the unspeculated engine's (the unarmed fallbacks are held in
+    tests/test_torch_speculative.py)."""
+    p = [int(t) for t in np.random.default_rng(13).integers(0, V, 24)]
+    out = []
+    for spec in (0, 2):
+        eng, _ = _fork_engine(speculate=spec)
+        try:
+            hs = eng.generate_many(p, 3, 8, timeout=600, temperature=0.8,
+                                   seed=20)
+        finally:
+            eng.stop()
+        assert eng.speculate == spec and eng.forks >= 2
+        assert eng.pool.outstanding_refs() == 0
+        out.append([h.tokens for h in hs])
+    assert out[0] == out[1]
 
 
 @pytest.mark.parametrize("paged", [False, True])

@@ -400,11 +400,44 @@ non-zero without them, or when any phase fails. Phases:
      of the same clone on the CPU; AlexNet's quantize artifact behind
      /predict within 1e-4 of max |CPU| with the same argmax; prints the
      float and int8 parameter bytes;
- 28. prints the kernels line (the bf16 kernels as rows of their own,
+ 28. the KV tiers and the attribution plane on the flagship at full
+     width, through InferenceServer over HTTP, paged kernel on, prefill
+     chunk 16, a pool of 1.25 x one wave's peak block need: wave A (8
+     prompts of 512 tokens, heads that differ, half greedy, half seeded),
+     wave B (8 unrelated ones, which evict A's prefix leaves), wave C (A
+     again). (a) fp32 pages over a host tier of 96 MiB, under an armed
+     resource ledger; gates: wave C's tokens equal wave A's,
+     kv_tier_spilled_blocks_total, kv_tier_promoted_blocks_total and
+     kv_tier_restored_tokens_total > 0, no failed restore, every promoted
+     block still in the trie bitwise equal to the rows it was promoted
+     from, wave C's paged launches = 4 x its decode steps, the ledger zero
+     at stop; prints the restored tokens, wave C's TTFT beside wave A's,
+     and the worker's ms a block of a spill and of a promotion; (b) the
+     same on int8 pages (the scale rows move with them); (c) a host tier
+     of 4 MiB over a disk tier of 128 MiB, one of wave A's block files
+     truncated after wave B and its prompt served alone (the torn block a
+     counted miss, the same tokens), then wave C: disk hits, promotions,
+     identical tokens; (d) tier.spill crash@n:5, tier.restore crash@n:3
+     and directory.publish crash@n:2: identical tokens, each fault
+     counted, the directory's state kept; (e) between (d)'s faults a
+     second server fetches the heads of wave A's chains that (d)'s server
+     still holds (resident or in its tiers) with POST /prefix/fetch from
+     its /prefix/block and serves those prompts: at least one block from
+     (d)'s host or disk tier, tokens identical, every fetched block
+     restored, only the rest prefilled; (f) GET /debug/engine on (a)'s
+     warmed server: a cost entry for every (family, bucket), fused 1.0 on
+     every decode bucket (0.0 on a kernel-off server), the kernel
+     engaged, the MFU estimate in (0, 1], the tier's queues empty at idle,
+     /info's slo and profiler; prints wave A's served tokens/s over each
+     wave's wall time on one warmed server with the step-phase profiler
+     armed and disarmed in turns (on, off, off, on, ...), and their ratio
+     (the tokens must not change);
+ 29. prints the kernels line (the bf16 kernels as rows of their own,
      named "<kernel>_bf16"; the paged rows carry phase 26's masked-wave
-     launches as "masked_launches" and phase 27a's as
-     "speculating_launches", the fp32 row phase 27e's int8-clone launches
-     as "int8_graph_launches").
+     launches as "masked_launches", phase 27a's as
+     "speculating_launches" and phase 28's wave C as "tiered_launches",
+     the fp32 row phase 27e's int8-clone launches as
+     "int8_graph_launches").
 
 The last line is {"ok": true, "device": {...}}. Every number printed is
 measured in this run; a "[details]" JSON line before the kernels line
@@ -3924,6 +3957,595 @@ def phase27(torch, ck, card, reqs, want, want8, p26, e2e):
     return out
 
 
+# -- phase 28: the KV tiers, the prefix directory, attribution ---------------
+TIER_PROMPT = 512       # wave prompts: 32 full blocks each
+# the tier servers' prefill chunk: one fp32 block (256 KiB) an iteration
+# against the tier's busy grant of 512 KiB leaves the worker room for
+# restores (PERF.md §6)
+TIER_CHUNK = 16
+TIER_POOL_SHARE = 1.25  # the pool over one wave's peak block need
+TIER_HOST_MB = 96       # 28a, 28b, 28d, 28e's second server: the host tier
+TIER_DISK_HOST_MB = 4   # 28c: a host tier of 16 fp32 blocks ...
+TIER_DISK_MB = 128      # ... over a disk tier
+TIER_SETTLE_S = 120     # the longest a tier may take to drain at idle
+TIER_FETCH_MAX = 4      # 28e: wave-A prompts whose chains are fetched
+# 28f: waves of the profiler's armed/disarmed comparison, in turns
+# on, off, off, on, ...
+TIER_PROFILE_WAVES = 16
+
+
+# phase 28's figures, kept when a gate fails (tools/phase28_alone.py)
+PHASE28_FIGURES = {}
+
+
+def tier_block_bytes(kv_dtype=None):
+    """One pool block's bytes: 4 layers x (K, V) x 16 positions x 8 heads
+    x 64 dims at f32, or int8 with an f32 scale per position and head."""
+    dh = D_MODEL // HEADS
+    row = HEADS * (dh + 4) if kv_dtype == "int8" else HEADS * dh * 4
+    return 2 * BLOCKS * KV_BLOCK * row
+
+
+def tier_pool_mb(kv_dtype=None):
+    """A pool of 1.25 x one wave's peak block need (8 x 34 blocks)."""
+    need = SLOTS * -(-(TIER_PROMPT + NEW_TOKENS) // KV_BLOCK)
+    pb = tier_block_bytes(kv_dtype)
+    return ((int(TIER_POOL_SHARE * need) + 1) * pb + pb // 2) / float(1 << 20)
+
+
+def tier_waves(seed):
+    """Waves A and B: 8 prompts of 512 tokens each (heads that differ),
+    half greedy, half seeded sampling; wave C is wave A again."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    waves = []
+    for w in range(2):
+        wave = []
+        for i in range(SLOTS):
+            body = {"prompt": [int(t) for t in
+                               rng.integers(0, VOCAB, TIER_PROMPT)],
+                    "max_new_tokens": NEW_TOKENS}
+            if i % 2:
+                body.update(temperature=0.8, top_k=20, seed=300 + 10 * w + i)
+            wave.append(body)
+        waves.append(wave)
+    return waves
+
+
+def tier_server(net, **kw):
+    from deeplearning4j_tpu_torch.serving.server import InferenceServer
+    args = dict(net=net, decode_vocab=VOCAB, decode_slots=SLOTS,
+                prefill_chunk=TIER_CHUNK, kv_block=KV_BLOCK,
+                kv_pool_mb=tier_pool_mb(kw.get("kv_dtype")),
+                paged_kernel="on", device="cuda")
+    args.update(kw)
+    return InferenceServer(**args).start()
+
+
+def tier_settle(dec, timeout=TIER_SETTLE_S):
+    """Seconds until the tier's queues are empty (spills landed,
+    promotions integrated) on an idle engine."""
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        if not any(dec.tier.stats()["queues"].values()):
+            return time.monotonic() - t0
+        time.sleep(0.02)
+    raise SystemExit(f"phase 28: the tier never drained: {dec.tier.stats()}")
+
+
+def tier_counters(srv):
+    snap = srv.metrics.snapshot()["counters"]
+    return {k: v for k, v in snap.items()
+            if k.startswith("kv_tier_") or k == "prefill_tokens_total"}
+
+
+def tier_wave(torch, ck, srv, bodies):
+    """One wave, every body posted at once, with the engine's counts over
+    it; returns (tokens, stats)."""
+    import numpy as np
+    dec = srv.decoder
+    ck.reset_launches()
+    dec.reset_counters()
+    c0 = tier_counters(srv)
+    t0 = time.monotonic()
+    outs = post_all(srv.port, bodies)
+    sync(torch, "cuda")
+    wall = time.monotonic() - t0
+    c1 = tier_counters(srv)
+    ttft = [sum(o["timings"][k] for k in ("queue_ms", "restore_ms",
+                                          "prefill_ms")) for o in outs]
+    toks = [o["tokens"] for o in outs]
+    return toks, {
+        "wall_s": wall, "tokens": sum(map(len, toks)),
+        "ttft_ms_p50": float(np.percentile(ttft, 50)),
+        "ttft_ms_p99": float(np.percentile(ttft, 99)),
+        "decode_steps": dec.decode_steps,
+        "launches": ck.LAUNCHES["paged_decode_attention"],
+        "prefix_restored_tokens": dec.restored_tokens,
+        "tier_restored_tokens": dec.tier_restored_tokens,
+        "promoted_blocks": dec.promoted_blocks,
+        "promote_host_ms_per_block": 1e3 * dec.promote_seconds
+        / max(dec.promoted_blocks, 1),
+        "counters": {k: v - c0.get(k, 0) for k, v in c1.items()}}
+
+
+def track_promotions(dec):
+    """Record each promotion the engine integrates: (chain hash, the host
+    rows it copied in)."""
+    seen = []
+    orig = dec._integrate_promotion
+
+    def rec(entry, rows):
+        ok = orig(entry, rows)
+        if ok:
+            seen.append((entry.hash, rows))
+        return ok
+    dec._integrate_promotion = rec
+    return seen
+
+
+def promoted_rows_equal(torch, dec, seen):
+    """(blocks compared, blocks differing): each promoted block still in
+    the trie, its pool rows read back against the rows it was promoted
+    from, bit for bit."""
+    rows = dict(seen)
+    checked = bad = 0
+    for node in list(dec.pool._walk()):
+        want = rows.get(node.hash)
+        if want is None:
+            continue
+        checked += 1
+        for lk, pks in want.items():
+            for pk, a in pks.items():
+                got = dec._states[lk][pk][node.block_id].cpu()
+                if not torch.equal(got, a):
+                    bad += 1
+                    break
+    return checked, bad
+
+
+def tier_stats(dec):
+    tier = dec.tier
+    return {"spill_ms_per_block": 1e3 * tier.spill_seconds
+            / max(tier.spill_blocks, 1),
+            "spilled_blocks": tier.spill_blocks,
+            "spill_batches": tier.spill_batches,
+            "spill_queue_peak": tier.spill_queue_peak,
+            "spill_credit_wait_s": tier.spill_credit_wait_seconds,
+            "spill_event_wait_s": tier.spill_event_wait_seconds,
+            "restore_staging_ms_per_block": 1e3 * tier.restore_seconds
+            / max(tier.restore_blocks, 1),
+            "staged_blocks": tier.restore_blocks, **tier.stats()}
+
+
+def get_json(port, path):
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                timeout=60) as r:
+        return json.loads(r.read())
+
+
+def post_json(port, path, body):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
+def tier_host_run(torch, ck, card, net, wave_a, wave_b, kv_dtype, failures):
+    """28a (fp32 pages) / 28b (int8): waves A, B, C on a host tier of
+    96 MiB, under an armed resource ledger; 28a's server also answers 28f's
+    attribution reads before it stops."""
+    from deeplearning4j_tpu_torch.analysis.runtime import resource_ledger
+    tag = "28a" if kv_dtype is None else "28b"
+    out = {}
+    with resource_ledger() as led:
+        srv = tier_server(net, kv_dtype=kv_dtype, host_cache_mb=TIER_HOST_MB)
+        try:
+            dec = srv.decoder
+            toks_a, out["wave_a"] = tier_wave(torch, ck, srv, wave_a)
+            out["settle_a_s"] = tier_settle(dec)
+            _, out["wave_b"] = tier_wave(torch, ck, srv, wave_b)
+            out["settle_b_s"] = tier_settle(dec)
+            seen = track_promotions(dec)
+            toks_c, out["wave_c"] = tier_wave(torch, ck, srv, wave_a)
+            out["settle_c_s"] = tier_settle(dec)
+            out["rows_checked"], out["rows_differing"] = \
+                promoted_rows_equal(torch, dec, seen)
+            out["tier"] = tier_stats(dec)
+            out["counters"] = tier_counters(srv)
+            if kv_dtype is None:
+                out["attribution"] = attribution_gates(srv, failures)
+        finally:
+            srv.stop()
+    try:
+        led.assert_clean()
+        out["ledger_clean"] = True
+    except AssertionError as e:
+        out["ledger_clean"] = False
+        failures.append(f"{tag}: {e}")
+    c, wc = out["counters"], out["wave_c"]
+    if toks_c != toks_a:
+        failures.append(f"{tag}: wave C's tokens differ from wave A's")
+    for k in ("kv_tier_spilled_blocks_total", "kv_tier_promoted_blocks_total",
+              "kv_tier_restored_tokens_total"):
+        if not c.get(k):
+            failures.append(f"{tag}: {k} is {c.get(k)}")
+    if c.get("kv_tier_restore_failed_total"):
+        failures.append(f"{tag}: {c['kv_tier_restore_failed_total']} "
+                        "failed restores")
+    if not out["rows_checked"] or out["rows_differing"]:
+        failures.append(f"{tag}: promoted rows {out['rows_differing']} of "
+                        f"{out['rows_checked']} differ from their payload")
+    if wc["launches"] != BLOCKS * wc["decode_steps"] or not wc["launches"]:
+        failures.append(f"{tag}: wave C {wc['launches']} paged launches for "
+                        f"{wc['decode_steps']} decode steps")
+    prompt_tokens = SLOTS * TIER_PROMPT
+    phase(28, f"({tag[-1]}) {'int8' if kv_dtype else 'fp32'} pages, host tier "
+              f"{TIER_HOST_MB} MiB, pool {tier_pool_mb(kv_dtype):.3f} MiB, "
+              f"prefill chunk {TIER_CHUNK}: wave C tokens "
+              f"{'identical' if toks_c == toks_a else 'DIFFERENT'} to wave "
+              f"A's; spilled {c['kv_tier_spilled_blocks_total']} (dropped "
+              f"{c['kv_tier_spill_dropped_total']}; "
+              f"{out['tier']['spill_batches']} worker batches, spill queue "
+              f"peak {out['tier']['spill_queue_peak']}), promoted "
+              f"{c['kv_tier_promoted_blocks_total']}, failed restores "
+              f"{c['kv_tier_restore_failed_total']}; wave C restored "
+              f"{wc['tier_restored_tokens']} tokens from promotions and "
+              f"{wc['prefix_restored_tokens'] - wc['tier_restored_tokens']} "
+              f"from resident prefixes of its {prompt_tokens} prompt tokens, "
+              f"prefilled {wc['counters']['prefill_tokens_total']}; TTFT p50 "
+              f"{wc['ttft_ms_p50']:.3f} / p99 {wc['ttft_ms_p99']:.3f} ms "
+              f"(wave A {out['wave_a']['ttft_ms_p50']:.3f} / "
+              f"{out['wave_a']['ttft_ms_p99']:.3f}); the worker's spill "
+              f"{out['tier']['spill_ms_per_block']:.4f} ms a block (event "
+              f"wait and device->host copy), a promotion "
+              f"{out['tier']['restore_staging_ms_per_block']:.4f} ms staging "
+              f"+ {wc['promote_host_ms_per_block']:.4f} ms on the scheduler "
+              f"(alloc, copy enqueued, adopt); promoted rows bitwise equal "
+              f"their payload in {out['rows_checked'] - out['rows_differing']}"
+              f" of {out['rows_checked']}; wave C paged launches "
+              f"{wc['launches']} = {BLOCKS} x {wc['decode_steps']}; ledger "
+              f"{'zero' if out['ledger_clean'] else 'NOT zero'} at stop "
+              f"[{card}]")
+    return out
+
+
+def attribution_gates(srv, failures):
+    """28f on 28a's warmed, tiered, idle server: GET /debug/engine and
+    /info."""
+    dec = srv.decoder
+    dbg = get_json(srv.port, "/debug/engine")
+    info = get_json(srv.port, "/info")
+    per = dbg["costs"]["per_invocation"]
+    want = {"decode": {str(nb) for nb in dec.table_buckets},
+            "prefill": {str(b) for b in dec.prefill_buckets}}
+    if {f: set(v) for f, v in per.items()} != want:
+        failures.append(f"28f: cost entries {sorted(per)} "
+                        f"{ {f: sorted(v) for f, v in per.items()} }")
+    if not set(dbg["costs"]["dispatches"]) <= set(per):
+        failures.append(f"28f: dispatched {dbg['costs']['dispatches']} "
+                        "without a cost entry")
+    fused = {b: c.get("fused") for b, c in per.get("decode", {}).items()}
+    if set(fused.values()) != {1.0}:
+        failures.append(f"28f: fused {fused} with the kernel on")
+    mfu = dbg["costs"]["mfu_estimate"]
+    if not dbg["paged_kernel"]["engaged"] or not 0 < mfu <= 1:
+        failures.append(f"28f: engaged {dbg['paged_kernel']['engaged']}, "
+                        f"MFU {mfu}")
+    if any(dbg["tier"]["queues"].values()):
+        failures.append(f"28f: tier queues {dbg['tier']['queues']} at idle")
+    if "slo" not in info or "profiler" not in info:
+        failures.append("28f: /info lacks slo or profiler")
+    if not {"costs", "phases", "paged_kernel", "tier"} <= set(dbg):
+        failures.append(f"28f: /debug/engine keys {sorted(dbg)}")
+    return {"costs": dbg["costs"], "phases": dbg["phases"],
+            "paged_kernel": dbg["paged_kernel"], "info_slo": info.get("slo"),
+            "info_profiler": info.get("profiler")}
+
+
+def tier_fetch_run(torch, ck, card, net, srv1, wave_a, toks_a, failures):
+    """28e: a second server on the card fetches, for each of wave A's
+    prompts, the head of its chain that server 1 (28d's, after wave B)
+    still holds, from the root to the first block it lost: resident
+    blocks (its /prefix/block copies them down first) and blocks in its
+    host or disk tier, with POST /prefix/fetch -> GET /prefix/block. The
+    prompts whose held heads reach deepest into server 1's tiers go
+    first. Server 2 then serves those prompts: every fetched block is
+    restored, only the rest of each prompt is prefilled."""
+    from deeplearning4j_tpu_torch.inference.kvtier import prompt_chain
+    feed = get_json(srv1.port, "/prefix/directory?since=0")
+    tiers = {e["hash"]: e["tier"] for e in feed["events"]}
+    heads = []
+    for b in wave_a:
+        head = []
+        for h in prompt_chain(b["prompt"], KV_BLOCK):
+            if tiers.get(h) not in ("hbm", "host", "disk"):
+                break
+            head.append(h)
+        heads.append(head)
+    held = [i for i, hd in enumerate(heads) if hd]
+    pick = sorted(held, key=lambda i: -sum(tiers[h] != "hbm"
+                                           for h in heads[i]))
+    pick = sorted(pick[:TIER_FETCH_MAX])
+    from_tier = {t: sum(tiers[h] == t for i in pick for h in heads[i])
+                 for t in ("hbm", "host", "disk")}
+    out = {"prompts": pick, "blocks": [len(heads[i]) for i in pick],
+           "from_tier": from_tier}
+    if not from_tier["host"] + from_tier["disk"]:
+        failures.append(f"28e: no held block of wave A in server 1's host "
+                        f"or disk tier: {from_tier}")
+        return out
+    srv2 = tier_server(net, host_cache_mb=TIER_HOST_MB)
+    try:
+        dec2 = srv2.decoder
+        t0 = time.monotonic()
+        res = [post_json(srv2.port, "/prefix/fetch",
+                         {"peer": f"http://127.0.0.1:{srv1.port}",
+                          "hashes": heads[i]}) for i in pick]
+        out["fetch_s"] = time.monotonic() - t0
+        n_blocks = sum(out["blocks"])
+        if any(r["failed"] for r in res) or \
+                sum(r["fetched"] for r in res) != n_blocks:
+            failures.append(f"28e: fetch results {res}")
+        deadline = time.monotonic() + TIER_SETTLE_S
+        while time.monotonic() < deadline:
+            if (tier_counters(srv2)["kv_tier_promoted_blocks_total"]
+                    >= n_blocks and not any(
+                        dec2.tier.stats()["queues"].values())):
+                break
+            time.sleep(0.05)
+        out["promote_s"] = time.monotonic() - t0 - out["fetch_s"]
+        out["promoted"] = tier_counters(srv2)["kv_tier_promoted_blocks_total"]
+        toks, st = tier_wave(torch, ck, srv2, [wave_a[i] for i in pick])
+        out["wave"] = st
+    finally:
+        srv2.stop()
+    want_restored = sum(min(len(heads[i]) * KV_BLOCK,
+                            len(wave_a[i]["prompt"]) - 1) for i in pick)
+    prefilled = st["counters"]["prefill_tokens_total"]
+    if toks != [toks_a[i] for i in pick]:
+        failures.append("28e: server 2's tokens differ from server 1's")
+    if st["prefix_restored_tokens"] != want_restored or \
+            prefilled != sum(len(wave_a[i]["prompt"]) for i in pick) \
+            - want_restored:
+        failures.append(f"28e: restored {st['prefix_restored_tokens']} "
+                        f"(want {want_restored}), prefilled {prefilled}")
+    phase(28, f"(e) two servers on the card: server 2 fetched the held "
+              f"heads of wave A's prompts {pick} ({out['blocks']} blocks: "
+              f"{from_tier['host']} from server 1's host tier, "
+              f"{from_tier['disk']} from its disk tier, {from_tier['hbm']} "
+              f"copied down from its pool) from server 1's /prefix/block in "
+              f"{out['fetch_s']:.3f} s, promoted {out['promoted']} in "
+              f"{out['promote_s']:.3f} s; served them: tokens "
+              f"{'identical' if toks == [toks_a[i] for i in pick] else 'DIFFERENT'}"
+              f", restored {st['prefix_restored_tokens']} tokens (every "
+              f"fetched block, less a whole prompt's refeed), prefilled "
+              f"{prefilled} [{card}]")
+    return out
+
+
+def tier_disk_run(torch, ck, card, net, wave_a, wave_b, failures):
+    """28c: a host tier of 4 MiB over a disk tier of 128 MiB. After waves
+    A and B, the first tiered block of a wave-A chain that is on disk is
+    truncated and that prompt served alone (its restore reads the torn
+    file first: a counted miss, the block prefilled cold); then wave C."""
+    from deeplearning4j_tpu_torch.inference.kvtier import (BLOCK_SUFFIX,
+                                                           prompt_chain)
+    out = {}
+    torn = None
+    with tempfile.TemporaryDirectory() as tdir:
+        srv = tier_server(net, host_cache_mb=TIER_DISK_HOST_MB,
+                          disk_cache_mb=TIER_DISK_MB, tier_dir=tdir)
+        try:
+            dec = srv.decoder
+            toks_a, out["wave_a"] = tier_wave(torch, ck, srv, wave_a)
+            tier_settle(dec)
+            _, out["wave_b"] = tier_wave(torch, ck, srv, wave_b)
+            tier_settle(dec)
+            tiers = {e["hash"]: e["tier"] for e in get_json(
+                srv.port, "/prefix/directory?since=0")["events"]}
+            chains = [prompt_chain(b["prompt"], KV_BLOCK) for b in wave_a]
+            out["disk_blocks_of_a"] = sum(
+                tiers.get(h) == "disk" for ch in chains for h in ch)
+            for i, ch in enumerate(chains):
+                first = next((h for h in ch if tiers.get(h) != "hbm"), None)
+                if first is not None and tiers.get(first) == "disk":
+                    torn = (i, first)
+                    break
+            if torn is not None:
+                path = os.path.join(tdir, torn[1] + BLOCK_SUFFIX)
+                with open(path, "rb") as f:
+                    raw = f.read()
+                with open(path, "wb") as f:
+                    f.write(raw[:-5])
+                toks_t, out["torn_request"] = tier_wave(
+                    torch, ck, srv, [wave_a[torn[0]]])
+                tier_settle(dec)
+                out["torn_dropped"] = torn[1] not in dec.tier._disk
+            toks_c, out["wave_c"] = tier_wave(torch, ck, srv, wave_a)
+            tier_settle(dec)
+            out["tier"] = tier_stats(dec)
+        finally:
+            srv.stop()
+    c = out["wave_c"]["counters"]
+    if toks_c != toks_a:
+        failures.append("28c: wave C's tokens differ from wave A's")
+    if not c["kv_tier_hits_disk_total"] or \
+            not c["kv_tier_promoted_blocks_total"]:
+        failures.append(f"28c: disk hits {c['kv_tier_hits_disk_total']}, "
+                        f"promoted {c['kv_tier_promoted_blocks_total']}")
+    ct = out.get("torn_request", {}).get("counters", {})
+    if torn is None or not out["torn_dropped"] or \
+            not ct.get("kv_tier_restore_failed_total") or \
+            toks_t != [toks_a[torn[0]]]:
+        failures.append(f"28c: the torn block ({torn}) was not a counted "
+                        f"miss served with the same tokens: {ct}")
+    wc = out["wave_c"]
+    phase(28, f"(c) host tier {TIER_DISK_HOST_MB} MiB over disk "
+              f"{TIER_DISK_MB} MiB: {out['wave_b']['counters']['kv_tier_demoted_disk_blocks_total']}"
+              f" blocks demoted to disk in wave B ({out['disk_blocks_of_a']} "
+              f"of wave A's on disk); wave A's prompt "
+              f"{torn[0] if torn else None} served alone after its first "
+              f"tiered block's file was truncated: a miss "
+              f"({ct.get('kv_tier_restore_failed_total')} failed restores, "
+              f"the block out of the disk index: "
+              f"{out.get('torn_dropped')}), tokens "
+              f"{'identical' if torn and toks_t == [toks_a[torn[0]]] else 'DIFFERENT'}"
+              f"; wave C tokens "
+              f"{'identical' if toks_c == toks_a else 'DIFFERENT'} to wave "
+              f"A's, disk hits {c['kv_tier_hits_disk_total']}, host hits "
+              f"{c['kv_tier_hits_host_total']}, promoted "
+              f"{c['kv_tier_promoted_blocks_total']}, restored "
+              f"{wc['tier_restored_tokens']} tokens; TTFT p50 "
+              f"{wc['ttft_ms_p50']:.3f} / p99 {wc['ttft_ms_p99']:.3f} ms "
+              f"(wave A {out['wave_a']['ttft_ms_p50']:.3f} / "
+              f"{out['wave_a']['ttft_ms_p99']:.3f}); a disk block's staging "
+              f"(read, decode, pin) {out['tier']['restore_staging_ms_per_block']:.4f}"
+              f" ms, spills {out['tier']['spill_ms_per_block']:.4f} ms a "
+              f"block [{card}]")
+    return out
+
+
+def tier_fault_run(torch, ck, card, net, wave_a, wave_b, failures):
+    """28d: tier.spill crash@n:5 during wave B, then (28e) a second
+    server fetches wave-A chains from this one, then tier.restore
+    crash@n:3 during wave C, then directory.publish crash@n:2 during a
+    repeat of wave B: each fault degrades to a cold prefill with the same
+    tokens."""
+    from deeplearning4j_tpu_torch.inference import failpoints
+    from deeplearning4j_tpu_torch.inference.kvtier import prompt_chain
+    srv = tier_server(net, host_cache_mb=TIER_HOST_MB)
+    try:
+        dec = srv.decoder
+        toks_a, _ = tier_wave(torch, ck, srv, wave_a)
+        tier_settle(dec)
+        steps = []
+        for seam, spec, bodies in (("tier.spill", "crash@n:5", wave_b),
+                                   ("tier.restore", "crash@n:3", wave_a),
+                                   ("directory.publish", "crash@n:2",
+                                    wave_b)):
+            if seam == "tier.restore":
+                fetch = tier_fetch_run(torch, ck, card, net, srv, wave_a,
+                                       toks_a, failures)
+            failpoints.arm(seam, spec)
+            try:
+                toks, st = tier_wave(torch, ck, srv, bodies)
+                tier_settle(dec)
+            finally:
+                failpoints.disarm()
+            steps.append((seam, toks, st["counters"]))
+        held = all(dec.tier.holds(h) for b in wave_b
+                   for h in prompt_chain(b["prompt"], KV_BLOCK))
+    finally:
+        failpoints.disarm()
+        srv.stop()
+    (_, toks_b, cb), (_, toks_c, cc), (_, toks_b2, cp) = steps
+    out = {"spill_dropped": cb["kv_tier_spill_dropped_total"],
+           "restore_failed": cc["kv_tier_restore_failed_total"],
+           "publish_dropped": cp["kv_tier_publish_dropped_total"],
+           "state_held": held, "fetch": fetch}
+    if toks_c != toks_a or toks_b2 != toks_b:
+        failures.append("28d: tokens differ under a tier fault")
+    if not (out["spill_dropped"] and out["restore_failed"]
+            and out["publish_dropped"] and held):
+        failures.append(f"28d: faults not counted or state lost: {out}")
+    phase(28, f"(d) faults: tier.spill crash@n:5 dropped "
+              f"{out['spill_dropped']} spill(s), tier.restore crash@n:3 "
+              f"failed {out['restore_failed']} restore(s), "
+              f"directory.publish crash@n:2 dropped "
+              f"{out['publish_dropped']} event(s) and every block of wave "
+              f"B stays in the directory ({held}); tokens "
+              f"{'identical' if toks_c == toks_a and toks_b2 == toks_b else 'DIFFERENT'}"
+              f" [{card}]")
+    return out
+
+
+def profiler_overhead_run(torch, ck, card, net, wave_a, failures,
+                          attribution=None):
+    """28f's other servers: a kernel-off server's fused flags, and wave
+    A's served rate with the profiler armed and disarmed (printed, not
+    gated; the tokens must not change).
+    ``attribution``: 28a's reads, for the printed kernel-on flags."""
+    out = {}
+    on = sorted({c.get("fused") for c in (attribution or {}).get(
+        "costs", {}).get("per_invocation", {}).get("decode", {}).values()})
+    srv = tier_server(net, paged_kernel="off", kv_pool_mb=KV_POOL_MB,
+                      prefill_chunk=CHUNK)
+    try:
+        dbg = get_json(srv.port, "/debug/engine")
+    finally:
+        srv.stop()
+    fused = {b: c.get("fused") for b, c in
+             dbg["costs"]["per_invocation"]["decode"].items()}
+    out["off_fused"] = fused
+    if set(fused.values()) != {0.0} or dbg["paged_kernel"]["engaged"]:
+        failures.append(f"28f: kernel-off server fused {fused}")
+    # one warmed server, the step-phase profiler armed and disarmed in
+    # turns over whole waves (wall time: every lap, count and iter_end)
+    srv = tier_server(net, kv_pool_mb=KV_POOL_MB, prefill_chunk=CHUNK)
+    rates, toks = {True: [], False: []}, {True: [], False: []}
+    prof = srv.decoder.profiler
+    try:
+        post(srv.port, {"prompt": wave_a[0]["prompt"][:CHUNK + 3],
+                        "max_new_tokens": 4})
+        tier_wave(torch, ck, srv, wave_a)  # caches wave A's prompts
+        for k in range(TIER_PROFILE_WAVES):
+            armed = k % 4 in (0, 3)
+            prof.enabled = armed
+            t, st = tier_wave(torch, ck, srv, wave_a)
+            rates[armed].append(st["tokens"] / st["wall_s"])
+            toks[armed].append(t)
+    finally:
+        prof.enabled = True
+        srv.stop()
+    out["tokens_per_s_armed"] = rates[True]
+    out["tokens_per_s_disarmed"] = rates[False]
+    out["ratio"] = sum(rates[True]) / sum(rates[False])
+    if any(t != toks[True][0] for t in toks[True] + toks[False]):
+        failures.append("28f: the profiler changed the served tokens")
+    phase(28, f"(f) /debug/engine on 28a's server and a kernel-off one: "
+              f"fused {on} on the decode buckets with the kernel on, "
+              f"{sorted(set(fused.values()))} off; wave A's served tokens/s "
+              f"over each wave's wall time on one warmed server, the "
+              f"step-phase profiler armed {rates[True]} / disarmed "
+              f"{rates[False]} (in turns on, off, off, on), tokens "
+              f"identical: ratio {out['ratio']:.4f} (printed; the JAX bench "
+              f"floors it at 0.95) [{card}]")
+    return out
+
+
+def phase28(torch, ck, card):
+    """Phase 28: the KV tiers (28a-e) and the attribution plane (28f) on
+    the flagship at full width. Failures are gathered and raised at the
+    end."""
+    from deeplearning4j_tpu_torch.models.zoo import transformer_lm
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    t0 = time.monotonic()
+    failures = []
+    net = ComputationGraph(transformer_lm(
+        vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS, n_blocks=BLOCKS,
+        rope=True, seed=7), device="cuda").init()
+    wave_a, wave_b = tier_waves(seed=28)
+    out = {"fp32": tier_host_run(torch, ck, card, net, wave_a, wave_b, None,
+                                 failures),
+           "int8": tier_host_run(torch, ck, card, net, wave_a, wave_b,
+                                 "int8", failures)}
+    out["disk"] = tier_disk_run(torch, ck, card, net, wave_a, wave_b,
+                                failures)
+    out["faults"] = tier_fault_run(torch, ck, card, net, wave_a, wave_b,
+                                   failures)
+    out["profiler"] = profiler_overhead_run(
+        torch, ck, card, net, wave_a, failures,
+        out["fp32"].get("attribution"))
+    out["seconds"] = time.monotonic() - t0
+    phase(28, f"phase 28 took {out['seconds']:.3f} s [{card}]")
+    PHASE28_FIGURES.update(out)
+    if failures:
+        raise SystemExit("phase 28 failed: " + " | ".join(failures))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5468,6 +6090,7 @@ def main():
     a3 = a3_phases(torch, ck, card)
     p26 = phase26(torch, ck, card, reqs, tokens, tokens8)
     p27 = phase27(torch, ck, card, reqs, tokens, tokens8, p26, e2e)
+    p28 = phase28(torch, ck, card)
 
 
     src = "deeplearning4j_tpu_torch/ops/csrc/paged_decode_attention.cu"
@@ -5491,7 +6114,11 @@ def main():
                         # phase 27a: the plain steps of a speculating
                         # engine (the verify and the draft launch none)
                         "speculating_launches": p27[
-                            "paged_" + key.split("_")[1]]["launches"]})
+                            "paged_" + key.split("_")[1]]["launches"],
+                        # phase 28a/b: wave C's decode steps, over pages
+                        # promoted from the host tier
+                        "tiered_launches": p28[
+                            key.split("_")[1]]["wave_c"]["launches"]})
     # phase 27e: the int8 graph clone's decode steps, fp32 pages
     kernels[0]["int8_graph_launches"] = sum(
         p27["int8"][f"speculate_{g}"]["launches"] for g in (0, SPEC_CRASH_G))
@@ -5696,9 +6323,9 @@ def main():
          "conv_bf16_alexnet_sum": conv16_sum, "bnap_bf16_cases": bnap16_cases,
          "bnap_bf16_edges": bnap16_edges, "bnap_bf16_alexnet_sum": bnap16_sum,
          "alexnet_train_bf16": alex16, "lenet_train_bf16": lenet16,
-         **a3, "serving_26": p26, "serving_27": p27,
+         **a3, "serving_26": p26, "serving_27": p27, "tiering_28": p28,
          "elapsed_s": time.monotonic() - t_start}))
-    phase(28, "kernels:")
+    phase(29, "kernels:")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

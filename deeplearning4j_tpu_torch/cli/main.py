@@ -162,6 +162,8 @@ def cmd_serve(args) -> int:
         supervise=not args.no_supervise, hang_timeout_s=args.hang_timeout,
         retry_budget=args.retry_budget, mask_rows=args.mask_rows,
         speculate=args.speculate, draft_blocks=args.draft_blocks or None,
+        host_cache_mb=args.host_cache_mb, disk_cache_mb=args.disk_cache_mb,
+        tier_dir=args.tier_dir, slo_p99_ms=args.slo_p99_ms,
         failpoint_endpoint=args.failpoint_endpoint,
         device=args.device).start()
     batch_mode = ("lock-serialized" if args.no_batching else
@@ -182,6 +184,10 @@ def cmd_serve(args) -> int:
                   + (f", prefix pool {args.prefix_cache_mb}MB "
                      f"({dec.pool.capacity_blocks} blocks of {dec.kv_block})"
                      if dec.pool else "") + ")")
+        if dec.tier is not None:
+            kv += (f", host tier {args.host_cache_mb}MB"
+                   + (f" + disk {args.disk_cache_mb}MB"
+                      if args.disk_cache_mb else ""))
         if dec.speculate:
             # the engine's armed state, not the flag: an engine that
             # cannot speculate warns and runs unarmed
@@ -204,7 +210,10 @@ def cmd_serve(args) -> int:
           f" POST /predict, /predict/csv"
           + (", /generate" if dec is not None else "")
           + (", /admin/drain" if server.supervisor is not None else "")
-          + "; GET /health, /healthz, /readyz, /info, /metrics, /trace)",
+          + "; GET /health, /healthz, /readyz, /info, /metrics, /trace"
+          + (", /debug/engine" if dec is not None else "")
+          + (", /prefix/directory, /prefix/block; POST /prefix/fetch"
+             if dec is not None and dec.tier is not None else "") + ")",
           flush=True)
     if args.once:  # start, report, stop
         server.stop()
@@ -288,6 +297,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "repeated prefixes restored instead of re-prefilled "
                         "(0 = disabled; the paged pool is its own)")
     s.add_argument("--kv-block", type=int, default=16)
+    s.add_argument("--host-cache-mb", type=float, default=0.0,
+                   help="KV tiering (paged only): evicted unreferenced "
+                        "prefix blocks spill to a pinned host-RAM ring of "
+                        "this budget (MiB) and promote back on the next hit "
+                        "(0 = tiering off)")
+    s.add_argument("--disk-cache-mb", type=float, default=0.0,
+                   help="disk tier below the host ring: blocks the host "
+                        "budget evicts land in CRC-framed files under "
+                        "--tier-dir (needs --host-cache-mb)")
+    s.add_argument("--tier-dir", default=None,
+                   help="directory of the disk tier's block files "
+                        "(default: a fresh temporary directory)")
     s.add_argument("--kv-dtype", choices=["int8"], default=None)
     s.add_argument("--paged-kernel", choices=["on", "off"], default="on",
                    help="on: decode attention through the CUDA kernel; "
@@ -325,6 +346,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="watchdog heartbeat staleness (seconds) that "
                         "declares the scheduler loop hung and restarts the "
                         "engine")
+    s.add_argument("--slo-p99-ms", type=float, default=None,
+                   help="p99 latency objective (ms): per-route percentiles "
+                        "and fast/slow-window burn rates, and a sustained "
+                        "burn escalates the degradation ladder beside "
+                        "queue pressure (default: percentiles only)")
     s.add_argument("--retry-budget", type=int, default=3,
                    help="submissions allowed per request across engine "
                         "crashes before it fails with a structured 503")

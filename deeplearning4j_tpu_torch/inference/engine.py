@@ -161,7 +161,30 @@ speculation cannot serve (recurrent, or a graph the surgery cannot cut,
 with no ``draft_net``), or an engine without chunked prefill, warns and
 runs unarmed (``speculate == 0``).
 
-Still to come (listed in ROADMAP.md): tiering, mesh and profiler.
+KV tiering (``host_cache_mb`` > 0, paged only; JAX :866-897,
+:3045-3180, `kvtier.py`): the pool's LRU evictions spill page rows into a
+pinned host ring and then CRC-framed disk files (``disk_cache_mb``,
+``tier_dir``), and admission looks up the tier past the trie's resident
+frontier: a hit queues a background promotion while the slot prefills
+its cold suffix, and a promotion that lands is adopted into the trie (an
+in-place copy into the pool's page tensors, on the engine's stream,
+ordered before the first replay that reads it) and upgrades mid-prefill
+slots past it (``kv_tier_restored_tokens_total``). The spill capture
+copies the evicted page's rows into a staging tensor on the engine's
+stream in the same iteration as the eviction, behind a recorded event the
+tier worker waits on; no thread synchronizes the device, and a decode
+step never waits on a tier copy. Contiguous and recurrent engines warn
+and stay tierless.
+
+The profiler plane (JAX :525-533, :3193-3379, :3686-3836,
+`profiler.py`): every iteration's phases are stamped into a
+`StepPhaseProfiler` and every dispatch counted by ``(family, bucket)``;
+`attribute_costs` installs the analytic cost table, and
+`debug_snapshot` (``GET /debug/engine``) reports the slot table, the
+pool, the tier, `paged_kernel_status`, the costs and the phase
+decomposition. ``profile=False`` disarms the stamps.
+
+Still to come (listed in ROADMAP.md): the mesh.
 """
 from __future__ import annotations
 
@@ -186,6 +209,7 @@ from .kvpool import (SCRATCH_BLOCK, KVPool, blocks_for, gather_blocks,
                      scatter_blocks)
 from .logitproc import CompiledGrammar, LogitState, MaskPool
 from .metrics import MetricsRegistry, default_registry
+from .profiler import StepPhaseProfiler, device_peak_flops, program_costs
 from .speculative import accept_tokens, build_shallow_draft
 from .trace import FlightRecorder, default_recorder, new_request_id
 
@@ -531,8 +555,13 @@ class DecodeScheduler:
     ``draft_blocks``: the depth of the default shallow draft (default
     half the attention blocks); ``draft_net``: an explicit draft
     ComputationGraph on the same device and vocabulary instead (see the
-    module docstring). ``device`` defaults to "cuda" and raises without
-    one.
+    module docstring). ``host_cache_mb`` / ``disk_cache_mb``: the KV
+    tiers' budgets (MiB; paged only), ``tier_dir`` the disk tier's
+    directory (a fresh temporary one by default), ``tier_chunk_kib`` the
+    tier worker's pacing grant an iteration (8 times that while idle).
+    ``profiler``: a `StepPhaseProfiler` to stamp (default: a fresh one on
+    the engine's metrics, armed unless ``profile=False``). ``device``
+    defaults to "cuda" and raises without one.
     """
 
     def __init__(self, net, vocab_size: int, *, n_slots: int = 4,
@@ -542,8 +571,12 @@ class DecodeScheduler:
                  paged_kernel: str = "on", decode_graphs: str = "on",
                  mask_rows: int = 64, speculate: int = 0,
                  draft_blocks: Optional[int] = None, draft_net=None,
+                 host_cache_mb: float = 0.0, disk_cache_mb: float = 0.0,
+                 tier_dir: Optional[str] = None, tier_chunk_kib: int = 512,
                  metrics: Optional[MetricsRegistry] = None,
                  tracer: Optional[FlightRecorder] = None,
+                 profiler: Optional[StepPhaseProfiler] = None,
+                 profile: bool = True,
                  transfer_guard: Optional[str] = None,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
@@ -591,6 +624,16 @@ class DecodeScheduler:
                             if self.device.type == "cuda" else None)
         self.metrics = metrics if metrics is not None else default_registry()
         self.tracer = tracer if tracer is not None else default_recorder()
+        # the step-phase profiler: single-writer state the scheduler
+        # thread stamps; disarmed, every stamp is one attribute test
+        self.profiler = profiler if profiler is not None else \
+            StepPhaseProfiler(self.metrics, enabled=bool(profile),
+                              peak_flops=device_peak_flops(
+                                  self.device, net.compute_dtype))
+        # serializes attribute_costs' first computation between HTTP
+        # readers (never taken by the scheduler thread)
+        self._attr_lock = threading.Lock()
+        self._attr_failed = False
         sfx = self.tracer.track_scope("engine")
         self._sched_track = "scheduler" + sfx
         self._slot_tracks = [f"slot {i}{sfx}" for i in range(self.n_slots)]
@@ -744,6 +787,40 @@ class DecodeScheduler:
             self._masks = torch.zeros((self.mask_rows, self.vocab_size),
                                       dtype=self._dtype, device=dev)
         self._init_speculation(speculate, draft_blocks, draft_net, attn)
+        # -- hierarchical KV tiering (JAX :866-897, kvtier.py): opt-in;
+        # host_cache_mb=0 builds no TierManager and adds no hot-path work
+        self.tier = None
+        self._tier_chunk = int(tier_chunk_kib) << 10
+        if host_cache_mb and host_cache_mb > 0:
+            if not self.paged:
+                warnings.warn(
+                    f"host_cache_mb={host_cache_mb} requested but paged KV "
+                    "decode is disabled — KV tiering needs the paged pool "
+                    "and stays off", RuntimeWarning, stacklevel=2)
+            else:
+                from .kvtier import TierManager
+                if disk_cache_mb and disk_cache_mb > 0 and not tier_dir:
+                    import tempfile
+                    tier_dir = tempfile.mkdtemp(prefix="kvtier-")
+                self.tier = TierManager(
+                    host_bytes=int(host_cache_mb * (1 << 20)),
+                    disk_bytes=int(disk_cache_mb * (1 << 20)),
+                    disk_dir=tier_dir, chunk_bytes=self._tier_chunk,
+                    metrics=self.metrics, tracer=self.tracer)
+                self.pool.tier = self.tier
+                self.tier.attach_engine(self._tier_capture,
+                                        self.pool.bytes_per_block,
+                                        self.kv_block, device=self.device)
+                # one spill's stacks: a [rows, block, ...] tensor per
+                # dtype and shape of the page tensors
+                stacks: Dict[tuple, int] = {}
+                for st in self._states.values():
+                    for pages in st.values():
+                        k = (tuple(pages.shape[1:]), pages.dtype)
+                        stacks[k] = stacks.get(k, 0) + 1
+                self.tier.prewarm_host([((n,) + s, d)
+                                        for (s, d), n in stacks.items()])
+                self.tier.wake = self._wake
         self._slots: List[Optional[_ActiveSeq]] = [None] * self.n_slots
         self._queue: List[_ActiveSeq] = []
         self._cond = threading.Condition()
@@ -808,6 +885,12 @@ class DecodeScheduler:
         self.draft_seconds = 0.0
         # kernel launches inside the verify and the draft's dispatches
         self.spec_launches = 0
+        # tiering: blocks promoted into the trie, prompt tokens that
+        # mid-prefill upgrades skipped onto them, and the scheduler's
+        # seconds spent integrating promotions
+        self.promoted_blocks = 0
+        self.tier_restored_tokens = 0
+        self.promote_seconds = 0.0
         m = self.metrics
         self._m_queue_depth = m.gauge("decode_queue_depth")
         self._m_active = m.gauge("decode_active_slots")
@@ -857,6 +940,14 @@ class DecodeScheduler:
                 "prefix_cache_hit_tokens_total")
             m.ratio("prefix_cache_hit_rate", self._m_prefix_hit_tokens,
                     self._m_prefix_lookup_tokens)
+        if self.tier is not None:
+            self._m_tier_promoted = m.counter(
+                "kv_tier_promoted_blocks_total",
+                "tiered blocks adopted back into the device trie")
+            self._m_tier_tokens = m.counter(
+                "kv_tier_restored_tokens_total",
+                "prompt tokens served from tier promotions instead of "
+                "recompute (mid-prefill upgrades)")
         if self.speculate:
             self._m_spec_proposed = m.counter("spec_tokens_proposed_total")
             self._m_spec_accepted = m.counter("spec_tokens_accepted_total")
@@ -1094,6 +1185,9 @@ class DecodeScheduler:
                 self._thread.join(timeout=1)
                 self._thread = None
             self._slots = [None] * self.n_slots
+            if self.tier is not None:
+                # disowned engine: stop the worker, skip the balance check
+                self.tier.stop(check=False)
             return
         with self._cond:
             self._running = False
@@ -1111,6 +1205,10 @@ class DecodeScheduler:
             pending += self._queue
             self._queue.clear()
         self._fail_all(pending, RuntimeError("scheduler stopped"))
+        if self.tier is not None:
+            # joins the transfer worker and zeroes the tier's ledger
+            # (host_page / disk_block / directory_entry)
+            self.tier.stop()
 
     def _fail_all(self, pending: List[_ActiveSeq],
                   err: BaseException) -> None:
@@ -1147,6 +1245,9 @@ class DecodeScheduler:
         self.verify_seconds = 0.0
         self.draft_seconds = 0.0
         self.spec_launches = 0
+        self.promoted_blocks = 0
+        self.tier_restored_tokens = 0
+        self.promote_seconds = 0.0
 
     @contextlib.contextmanager
     def _sync_guard(self):
@@ -1202,6 +1303,8 @@ class DecodeScheduler:
                 return
             self.iterations += 1
             if not stepped:
+                # idle pass: decay the rate gauges (iter_end never runs)
+                self.profiler.idle_tick()
                 with self._cond:
                     if not self._running:
                         return
@@ -1272,6 +1375,8 @@ class DecodeScheduler:
         self._graph_pool = None
         self._masks = None
         self.pool = None
+        if self.tier is not None:
+            self.tier.stop(check=False)
 
     def inflight(self) -> int:
         """Queued + slot-resident requests (the drain condition)."""
@@ -1551,6 +1656,17 @@ class DecodeScheduler:
             return
         n_blk, ids, node = self.pool.match(seq.prompt, max_hit)
         seq.pool_node = node
+        if self.tier is not None:
+            # the tier past the resident frontier (JAX :1979): queue
+            # host/disk blocks for promotion; the slot does not wait, it
+            # prefills its cold suffix, and a promotion that lands
+            # upgrades it mid-prefill (`_tier_tick`)
+            frontier = node.hash if node is not None else ""
+            if frontier is not None:
+                ext = self.tier.lookup_extension(frontier, seq.prompt,
+                                                 n_blk, max_hit)
+                if ext:
+                    self.tier.request_restore(ext)
         if not n_blk:
             return
         seq.block_ids = [int(b) for b in ids]
@@ -1572,14 +1688,16 @@ class DecodeScheduler:
                                     args={"request": seq.handle.request_id,
                                           "role": "attach", "blocks": n_blk})
 
-    def _try_upgrade_slots(self) -> None:
+    def _try_upgrade_slots(self, from_tier: bool = False) -> None:
         """Re-match mid-prefill slots against the trie (JAX :3123): a slot
         whose next blocks were published since it was admitted swaps its
         pin to the deeper node, remaps its table onto those blocks and
         skips past them. A COW-starved slot is left alone, so a full-pool
         full-prompt hit converges instead of starving again. Only blocks
         published since the last pass can deepen a hit, so a pass with
-        none is skipped."""
+        none is skipped. ``from_tier``: the pass right after promotions
+        landed, whose skipped tokens count as
+        ``kv_tier_restored_tokens_total``."""
         if self.pool.published_blocks == self._published_seen:
             return
         self._published_seen = self.pool.published_blocks
@@ -1606,9 +1724,18 @@ class DecodeScheduler:
                     seq.shared.append(True)
                 self._table[i, j] = ids2[j]
             fed = min(n2 * B, len(seq.prompt) - 1)
-            self.restored_tokens += fed - seq.fed
+            gained = fed - seq.fed
+            self.restored_tokens += gained
             seq.fed = seq.written = fed
             self._m_prefix_hits.inc()
+            if from_tier:
+                self.tier_restored_tokens += gained
+                self._m_tier_tokens.inc(gained)
+                if self.tracer.enabled:
+                    self.tracer.instant(
+                        "tier_restore", track=self._slot_tracks[i],
+                        args={"request": seq.handle.request_id,
+                              "tokens": gained, "blocks": n2 - cur})
 
     def _publish_paged(self, seq: _ActiveSeq) -> frozenset:
         """Publish as ownership transfer (JAX :2018): the finished prompt's
@@ -2048,6 +2175,7 @@ class DecodeScheduler:
                 self.tracer.begin("prefill_chunk", track=self._slot_tracks[i],
                                   args={"request": seq.handle.request_id,
                                         "bucket": bucket, "tokens": n_real})
+            self.profiler.count("prefill", bucket)
             last = self._chunk_row(i, seq, ids, n_real)
             if self.speculate and seq.draft_fed == seq.fed \
                     and seq.draft_fed + bucket <= self._draft_cap:
@@ -2148,17 +2276,26 @@ class DecodeScheduler:
         failpoints.fire("scheduler.iteration")  # chaos seam
         if self._fenced:
             raise _EngineFenced
+        prof = self.profiler
+        prof.iter_begin()
         self._evict_cancelled()
         if self.paged:
             self._try_upgrade_slots()
+            if self.tier is not None:
+                # pace the tier worker and integrate landed promotions
+                # before admission, idle passes included (JAX :3196)
+                self._tier_tick()
         self._admit()
         active = [(i, s) for i, s in enumerate(self._slots) if s is not None]
         if not active:
-            return False
+            return False  # idle pass: no laps recorded
+        prof.lap("admit")
         t0 = time.monotonic()
         self._emitted_this_iter = 0
         chunked = self._run_prefill_chunk()
+        prof.lap("prefill")
         self._run_draft_catchup()
+        prof.lap("draft")
         # the decode-ready slots: speculating ones (`spec`) take the draft
         # and verify path; the rest (mid-catch-up, out of headroom, one
         # token from done) decode plain (`fed`)
@@ -2187,14 +2324,18 @@ class DecodeScheduler:
                     or not self._ensure_writable(i, seq, seq.written)):
                 continue  # seq itself was preempted for blocks
             (spec if want > 1 else fed).append((i, seq))
+        prof.lap("pool")
         if fed:
-            self._decode(fed)
+            self._decode(fed)  # laps "decode" after its host read
+        prof.lap("accept")
         if spec:
             self._run_speculation(spec)
+        prof.lap("verify")
         if self._emitted_this_iter:
             self._m_tokens.inc(self._emitted_this_iter)
         self._m_occupancy.record(len(active))
         self._m_step_time.record(time.monotonic() - t0)
+        prof.iter_end(tokens=self._emitted_this_iter)
         return True
 
     # -- the decode step ------------------------------------------------------
@@ -2369,6 +2510,7 @@ class DecodeScheduler:
         if self.decode_graphs == "on":
             table = self._table_for(deepest) if self.paged else None
             nb = table.shape[1] if self.paged else None
+            self.profiler.count("decode", nb or 0)
             r = (self._mrunners if masked else self._runners).get(nb)
             new = r is None
             if new:
@@ -2384,12 +2526,15 @@ class DecodeScheduler:
             dev = self.device
             table = torch.from_numpy(self._table_for(deepest)).to(dev) \
                 if self.paged else None
+            self.profiler.count("decode",
+                                table.shape[1] if self.paged else 0)
             out = self._step(torch.from_numpy(ids).to(dev),
                              torch.from_numpy(live).to(dev),
                              torch.from_numpy(pos).to(dev), table,
                              torch.from_numpy(mstate).to(dev) if masked
                              else None)
             probs = out.cpu().numpy()
+        self.profiler.lap("decode")
         self.decode_steps += 1
         dt = time.monotonic() - t0
         self.decode_seconds += dt
@@ -2505,6 +2650,7 @@ class DecodeScheduler:
                      pos: int) -> None:
         """One chunk of ``slot`` into its draft stripe at depth ``pos``."""
         t0 = time.monotonic()
+        self.profiler.count("draft_prefill", ids.shape[0])
         self._run_spec("draft_prefill", (ids.shape[0], None),
                        lambda r: r.fill(ids, n_real, pos, slot, None))
         self.draft_chunks += 1
@@ -2621,6 +2767,7 @@ class DecodeScheduler:
                 p = seq.proc
                 if use_mask and p is not None and p.mask_base is not None:
                     mstate[i] = p.mask_base + schain[i][-1]
+            self.profiler.count("draft", 0)
             out = self._run_spec(fam, None, lambda rr: rr.fill(
                 ids, live, pos, None, mstate))
             rows = self._host_read(out)
@@ -2672,6 +2819,7 @@ class DecodeScheduler:
         table = self._table_for(max(s.written + G + 1 for _, s, *_ in info)) \
             if self.paged else None
         nb = table.shape[1] if self.paged else None
+        self.profiler.count("verify", nb or 0)
         out = self._run_spec("masked_verify" if use_mask else "verify", nb,
                              lambda rr: rr.fill(ids2, live, pos2, table,
                                                 mstate2))
@@ -2836,4 +2984,252 @@ class DecodeScheduler:
                 torch.cuda.synchronize(self.device)
         if graphs:
             self._warmed = True
+        # the analytic cost table takes milliseconds (a rebuilt engine
+        # over the same net takes the cached one): install it now, after
+        # the captures that decide each bucket's "fused" flag, so the
+        # FLOPs window counts from the first iteration (JAX defers its
+        # XLA lowering to the first /debug/engine read)
+        self.attribute_costs()
         self.warmup_seconds = time.monotonic() - t0
+
+    # -- KV tiering (kvtier.py; JAX :1657-1700, :3045-3180) -----------------
+    def _wake(self) -> None:
+        """Wake an idle loop (a copydown is waiting for the next tick)."""
+        with self._cond:
+            self._cond.notify_all()
+
+    def _tier_capture(self, bid: int):
+        """The TierManager's capture hook (scheduler thread, from the
+        pool's `_evict_lru` or a copydown): copy page ``bid``'s rows of
+        every layer (K/V, and the int8 scale rows) into staging tensors
+        on the engine's stream — one stack of the rows of each dtype and
+        shape, which the worker moves whole — and record an event behind
+        the copies. A later dispatch that reuses the page is queued after
+        them; the worker waits on the event, never on the device."""
+        from .kvtier import StagedRows
+        groups: Dict[tuple, list] = {}
+        for lk, st in self._states.items():
+            for pk, pages in st.items():
+                groups.setdefault((pages.dtype, tuple(pages.shape[1:])),
+                                  []).append((lk, pk, pages))
+        rows = StagedRows()
+        rows.groups = []
+        for members in groups.values():
+            stack = torch.stack([pages[bid] for _, _, pages in members])
+            keys = [(lk, pk) for lk, pk, _ in members]
+            rows.groups.append((stack, keys))
+            for (lk, pk), view in zip(keys, stack.unbind(0)):
+                rows.setdefault(lk, {})[pk] = view
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(self.device))
+            rows.event = ev
+        return rows
+
+    def _tier_tick(self) -> None:
+        """Per-iteration tier maintenance (JAX :3045): grant the worker
+        its pacing credit, serve pending copydowns (peer fetches),
+        integrate the promotions the worker staged, and upgrade
+        mid-prefill slots onto them. Every step is bounded: the decode
+        never waits on a transfer, and a promotion that has not landed
+        leaves its slot prefilling its cold suffix."""
+        tier = self.tier
+        idle = all(s is None for s in self._slots)
+        # idle passes wake at 10 Hz: a bigger grant drains a backlog
+        grant = self._tier_chunk * (8 if idle else 1)
+        tier.pace(grant)
+        for h in tier.pending_copydowns(4):
+            self._tier_copydown(h)
+        promoted = False
+        for entry, rows in tier.drain_ready(grant):
+            promoted = self._integrate_promotion(entry, rows) or promoted
+        if promoted:
+            self._try_upgrade_slots(from_tier=True)
+
+    def _tier_copydown(self, h: str) -> None:
+        """Stage a device-resident chain block into the host ring (no
+        eviction) so ``/prefix/block`` can serve it to a peer."""
+        tier = self.tier
+        info = tier.entry_info(h)
+        if info is None:
+            return
+        prefix, depth = info
+        node, ids = self.pool._walk_prefix(list(prefix), depth)
+        if len(ids) != depth or node.hash != h:
+            return  # no longer resident: the waiter times out
+        tier.complete_copydown(h, self._tier_capture(node.block_id))
+
+    def _integrate_promotion(self, entry, rows) -> bool:
+        """Copy one promoted block's rows into a free page, in place (the
+        captured graphs hold the page tensors' addresses; the copy rides
+        the engine's stream, so it runs before the first replay that
+        reads the page), and adopt the page into the trie. A block whose
+        parent chain is gone, that finds no free page, or whose rows do
+        not fit the pool's pages is dropped (the prefix recomputes cold,
+        counted as a failed restore). The parent is pinned across the
+        allocation: otherwise, as the only unpinned leaf of a full pool,
+        its own page would be evicted and handed back as the child's."""
+        tier = self.tier
+        tokens = list(entry.prefix)
+        depth = int(entry.depth)
+        node, ids = self.pool._walk_prefix(tokens, depth)
+        if len(ids) == depth:
+            tier.promotion_done(entry.hash, True)  # resident already
+            return False
+        if len(ids) != depth - 1 or not self._rows_fit(rows):
+            tier.promotion_done(entry.hash, False)
+            return False
+        t0 = time.monotonic()
+        node.lock += 1
+        try:
+            bid = self.pool.alloc()
+            if bid is None:
+                # every page is referenced: a promotion never preempts
+                tier.promotion_done(entry.hash, False)
+                return False
+            try:
+                # one call for every row: each torch call hands the GIL
+                # around
+                dst, src = [], []
+                for lk, pks in rows.items():
+                    st = self._states[lk]
+                    for pk, a in pks.items():
+                        dst.append(st[pk][bid])
+                        src.append(a)
+                torch._foreach_copy_(dst, src, non_blocking=True)
+            except Exception:
+                self.pool.free_block(bid)
+                tier.promotion_done(entry.hash, False)
+                raise
+            self.pool.adopt(tokens, ids + [bid])  # note_resident re-tiers it
+        finally:
+            node.lock -= 1
+        tier.promotion_done(entry.hash, True)
+        self.promoted_blocks += 1
+        self.promote_seconds += time.monotonic() - t0
+        self._m_tier_promoted.inc()
+        if self.tracer.enabled:
+            self.tracer.instant("tier_restore", track=self._sched_track,
+                                args={"hash": entry.hash[:12],
+                                      "depth": depth, "block": bid})
+        return True
+
+    def _rows_fit(self, rows) -> bool:
+        """A promotion's rows name exactly this pool's layers and page
+        keys, each of one page's shape."""
+        if set(rows) != set(self._states):
+            return False
+        for lk, pks in rows.items():
+            st = self._states[lk]
+            if set(pks) != set(st):
+                return False
+            for pk, a in pks.items():
+                if tuple(a.shape) != tuple(st[pk].shape[1:]):
+                    return False
+        return True
+
+    # -- attribution (profiler.py; JAX :3686-3836) --------------------------
+    def attribute_costs(self) -> None:
+        """Install the per-invocation cost table (`profiler.program_costs`,
+        analytic from the net's shapes, cached per (net, engine shape)).
+        Called lazily by `debug_snapshot`; best effort: a failure leaves
+        MFU at 0 once and is not retried."""
+        if not self.profiler.enabled:
+            return
+        with self._attr_lock:
+            if self.profiler.costs or self._attr_failed:
+                return
+            try:
+                self.profiler.ingest_costs(program_costs(self))
+            except Exception as e:
+                self._attr_failed = True
+                if self.tracer.enabled:
+                    self.tracer.instant(
+                        "cost_attribution_skipped", track=self._sched_track,
+                        args={"error": type(e).__name__,
+                              "detail": str(e)[:200]})
+
+    def paged_kernel_status(self) -> dict:
+        """The paged kernel's engagement (JAX :3716): the mode, whether it
+        runs, and per table bucket the kernel's split count S
+        (`cuda_kernels._paged_splits`) where it runs — read from the
+        launches counted when the bucket's decode graph was captured (the
+        eager step on the card always launches it) — False where the
+        layer's gather body runs (mode "off", or CPU tensors), None for a
+        bucket not captured yet. The port does not autotune: there is no
+        autotune block."""
+        out = {"mode": self.paged_kernel, "engaged": False, "buckets": {}}
+        if not self.paged:
+            return out
+        on = self.paged_kernel == "on" and self.device.type == "cuda"
+        hkv = {impl._kv_heads() for impl in self.net._impls.values()
+               if isinstance(impl, SelfAttentionLayerImpl)} \
+            if self._graph else set()
+        for nb in self.table_buckets:
+            if not on:
+                v = False
+            elif self.decode_graphs != "on":
+                v = True
+            else:
+                r = self._runners.get(nb)
+                v = None if r is None else bool(
+                    r.launches.get("paged_decode_attention"))
+            out["buckets"][nb] = (
+                {"S": {h: ck._paged_splits(self.n_slots, h, nb)
+                       for h in sorted(hkv)}} if v else v)
+        out["engaged"] = any(bool(v) for v in out["buckets"].values())
+        return out
+
+    def _capture_counts(self) -> Dict[str, int]:
+        """The captured runners by family: the port's counterpart of the
+        JAX engine's compile-cache census."""
+        return {"decode": self.decode_captures,
+                "prefill": self.prefill_captures,
+                "masked_decode": self.masked_captures,
+                **self.spec_captures}
+
+    def debug_snapshot(self) -> dict:
+        """``GET /debug/engine`` (JAX :3763): the slot table, the queue,
+        the pool and its trie, the captures, the tier, speculation, the
+        per-family costs with the rolling tokens/s and MFU estimates, and
+        the step-phase decomposition. Called from HTTP threads against
+        scheduler-owned state: every read is a GIL-atomic load, one
+        iteration stale at worst."""
+        slots = []
+        for i, seq in enumerate(list(self._slots)):
+            if seq is None:
+                slots.append(None)
+                continue
+            h = seq.handle
+            slots.append({
+                "slot": i, "request_id": h.request_id, "phase": seq.phase,
+                "prompt_tokens": len(seq.prompt), "fed": seq.fed,
+                "written": seq.written, "tokens_out": len(h.tokens),
+                "max_new_tokens": h.max_new_tokens,
+                "blocks": len(seq.block_ids), "resumed": seq.resumed})
+        out = {"n_slots": self.n_slots, "paged": self.paged,
+               "iterations": self.iterations,
+               "queue_depth": self.queue_depth(), "slots": slots,
+               "compile_cache": self._capture_counts(),
+               "mesh": {"tp": 1}, "chunk_cap": self.chunk_cap}
+        if self.maskpool is not None:
+            out["grammar_masks"] = self.maskpool.stats()
+        if self.paged:
+            out["paged_kernel"] = self.paged_kernel_status()
+        if self.pool is not None:
+            try:
+                out["pool"] = self.pool.stats()
+            except RuntimeError:  # the trie changed mid-walk
+                out["pool"] = {"error": "pool busy, retry"}
+        if self.tier is not None:
+            out["tier"] = self.tier.stats()
+        if self.speculate:
+            out["speculative"] = {
+                "gamma": self.speculate, "draft_blocks": self.draft_blocks,
+                "proposed": self._m_spec_proposed.value,
+                "accepted": self._m_spec_accepted.value}
+        self.attribute_costs()  # lazy for a never-warmed engine
+        if self.profiler.enabled:
+            out["costs"] = self.profiler.cost_snapshot()
+            out["phases"] = self.profiler.decomposition()
+        return out

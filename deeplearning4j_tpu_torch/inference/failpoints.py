@@ -9,7 +9,7 @@ dispatch crash, one allocation report OOM, or one scheduler iteration
 hang, and replay the same fault sequence from a seed.
 
 Seams (each is one `fire(name)` call at the code site; the port plants
-these six):
+these):
 
   ``scheduler.iteration``  top of every DecodeScheduler iteration
   ``dispatch.decode``      before the all-slots decode step (the graph
@@ -18,6 +18,11 @@ these six):
   ``pool.alloc``           KVPool block allocation (paged engines)
   ``batcher.flush``        before a MicroBatcher batch dispatch
   ``http.handler``         top of every serving-server POST handler
+  ``tier.spill``           a KV tier's capture of an evicted block
+                           (`kvtier.TierManager.offer_spill`)
+  ``tier.restore``         the tier worker's staging of a promotion
+  ``directory.publish``    each prefix-directory event (the event is
+                           dropped, the tier state kept)
 
 Each engine seam fires on the host BEFORE the device work it guards, so
 a fault never leaves a half-run graph behind, and a thread that wakes
@@ -63,7 +68,8 @@ __all__ = ["InjectedFault", "InjectedCrash", "InjectedOOM", "InjectedHang",
 # the seams the port plants (arming anything else is a spec error — a
 # typo'd seam name must not silently never fire)
 SEAMS = ("scheduler.iteration", "dispatch.decode", "dispatch.prefill",
-         "dispatch.verify", "pool.alloc", "batcher.flush", "http.handler")
+         "dispatch.verify", "pool.alloc", "batcher.flush", "http.handler",
+         "tier.spill", "tier.restore", "directory.publish")
 
 
 class InjectedFault(RuntimeError):

@@ -39,6 +39,14 @@ with a ``tracer`` it stamps ``pool_publish`` and ``pool_evict`` instants
 on the ``kvpool`` track. `alloc` fires the ``pool.alloc`` failpoint
 seam (`failpoints.py`).
 
+Tiering (JAX :115, :202-206, :242-254, :492-497): with ``tier`` set (a
+`kvtier.TierManager`, armed by the engine before any traffic) every
+trie node carries the chain hash of its block (`kvtier.chain_hash` over
+its parent's hash and its tokens), inserts and adopts publish it to the
+prefix directory (``note_resident``), and an LRU eviction offers the
+victim's page to the tier (``offer_spill``) before the page returns to
+the free list. A tierless pool computes no hash.
+
 Threading: every mutation happens on the engine's scheduler thread,
 between steps, so the pool takes no lock of its own.
 """
@@ -57,10 +65,12 @@ SCRATCH_BLOCK = 0
 class _Node:
     """One full block of a cached prefix: ``key`` is the block's token
     tuple (the edge label from the parent), ``block_id`` its page.
-    ``lock`` counts live sequences pinning this node."""
+    ``lock`` counts live sequences pinning this node. ``hash``: the
+    block's chain hash when a tier is armed (None otherwise, "" at the
+    root)."""
 
     __slots__ = ("key", "block_id", "parent", "children", "last_access",
-                 "lock")
+                 "lock", "hash")
 
     def __init__(self, key: Tuple[int, ...], block_id: int,
                  parent: Optional["_Node"]):
@@ -70,6 +80,7 @@ class _Node:
         self.children: Dict[Tuple[int, ...], "_Node"] = {}
         self.last_access = 0
         self.lock = 0
+        self.hash: Optional[str] = None
 
 
 class KVPool:
@@ -120,6 +131,9 @@ class KVPool:
                 for name, (hkv, dh, _) in layers.items()}
         self._free: List[int] = list(range(1, self.capacity_blocks + 1))
         self._root = _Node((), SCRATCH_BLOCK, None)
+        self._root.hash = ""
+        #: optional kvtier.TierManager (see the module docstring)
+        self.tier = None
         self._clock = 0  # logical LRU clock
         # prefix-cache counters, read through stats()
         self.lookups = 0
@@ -158,6 +172,19 @@ class KVPool:
             self._g_dev_used.set(self.used_blocks * self.bytes_per_block)
         elif self._m_used is not None:
             self._m_used.set(self.used_bytes)
+
+    def _hash_and_publish(self, node: _Node) -> None:
+        """Chain-hash a freshly attached node and publish it to the tier's
+        directory (a tierless pool pays nothing, not even the sha1)."""
+        tier = self.tier
+        if tier is None:
+            return
+        parent_hash = node.parent.hash
+        if parent_hash is None:
+            return  # the ancestor predates arming: the branch stays unhashed
+        from .kvtier import chain_hash
+        node.hash = chain_hash(parent_hash, node.key)
+        tier.note_resident(node.hash, parent_hash, node.key)
 
     # -- accounting ---------------------------------------------------------
     @property
@@ -303,6 +330,7 @@ class KVPool:
             key = tuple(int(t) for t in tokens[j * B:(j + 1) * B])
             child = _Node(key, int(block_ids[j]), node)
             node.children[key] = child
+            self._hash_and_publish(child)
             node = child
             node.last_access = self._tick()
             adopted.append(int(block_ids[j]))
@@ -352,6 +380,7 @@ class KVPool:
                 key = tuple(int(t) for t in tokens[j * B:(j + 1) * B])
                 child = _Node(key, bid, node)
                 node.children[key] = child
+                self._hash_and_publish(child)
                 node = child
                 node.last_access = self._tick()
                 node.lock += 1  # and so does the fresh chain
@@ -381,6 +410,11 @@ class KVPool:
             _, _, victim = heapq.heappop(heap)
             parent = victim.parent
             del parent.children[victim.key]
+            if self.tier is not None:
+                # the tier stages the page's rows before the id returns
+                # to the free list: its copy is queued ahead of any later
+                # write into the page
+                self.tier.offer_spill(victim.hash, victim.block_id)
             self._free.append(victim.block_id)
             freed += 1
             if parent is not self._root and not parent.children \

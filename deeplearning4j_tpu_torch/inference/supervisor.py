@@ -47,10 +47,12 @@ retryable 503), level 2 also halves the prefill chunk cap (the smaller
 chunk buckets' graphs are captured already: nothing is captured at level
 2), level 3 rejects new admissions with :class:`AdmissionRejectedError`
 (503 + ``Retry-After``). Sustained calm walks back down. The current
-rung is the ``degradation_level`` gauge. The JAX supervisor's second
-escalation input, an SLO monitor's burn rate (``slo=``), waits for the
-port of `profiler.SLOMonitor` (ROADMAP A4); without one JAX never burns
-either.
+rung is the ``degradation_level`` gauge. With ``slo=`` (a
+`profiler.SLOMonitor`) the ladder's second escalation input is the
+latency budget's burn rate: queue pressure or a latency burn each count
+a pressure hit, and the ladder walks down only when both are calm, so a
+rung one input holds up does not flap when the other drains. The
+``/readyz`` body then carries the monitor's burn-rate brief.
 
 **Draining restart** (``/admin/drain``): stop admitting, let in-flight
 work finish, swap in a fresh engine, resume.
@@ -166,6 +168,7 @@ class EngineSupervisor:
                  calm_watermark: float = 0.25,
                  ladder_patience: int = 3,
                  retry_after_s: float = 1.0,
+                 slo=None,
                  metrics: Optional[MetricsRegistry] = None,
                  tracer: Optional[FlightRecorder] = None,
                  clock: Callable[[], float] = time.monotonic,
@@ -188,6 +191,8 @@ class EngineSupervisor:
         self.calm_watermark = float(calm_watermark)
         self.ladder_patience = int(ladder_patience)
         self.retry_after_s = float(retry_after_s)
+        # the ladder's latency input (profiler.SLOMonitor), or None
+        self._slo = slo
         self.metrics = metrics if metrics is not None else default_registry()
         self.tracer = tracer if tracer is not None else default_recorder()
         self._clock = clock
@@ -446,14 +451,20 @@ class EngineSupervisor:
 
     # -- degradation ladder ------------------------------------------------
     def _evaluate_ladder(self, eng: DecodeScheduler) -> None:
-        """One ladder evaluation on queue pressure (the fraction of
-        ``max_queue`` waiting); the patience counters debounce both
+        """One ladder evaluation over both escalation inputs (JAX :456):
+        queue pressure (the fraction of ``max_queue`` waiting) and, with
+        an SLO monitor, the latency burn. Either hot counts a pressure
+        hit; de-escalation needs the queue at or under the calm watermark
+        AND latency inside budget. The patience counters debounce both
         directions."""
         frac = eng.queue_depth() / max(1, eng.max_queue)
-        if frac >= self.shed_watermark:
+        burning, latency_calm = (
+            self._slo.pressure(self._clock())
+            if self._slo is not None else (False, True))
+        if frac >= self.shed_watermark or burning:
             self._pressure_hits += 1
             self._calm_hits = 0
-        elif frac <= self.calm_watermark:
+        elif frac <= self.calm_watermark and latency_calm:
             self._calm_hits += 1
             self._pressure_hits = 0
         else:
@@ -461,7 +472,9 @@ class EngineSupervisor:
             self._calm_hits = 0
         if self._pressure_hits >= self.ladder_patience \
                 and self.degradation_level < 3:
-            self._set_level(self.degradation_level + 1)
+            self._set_level(self.degradation_level + 1,
+                            source="latency" if burning
+                            and frac < self.shed_watermark else "queue")
             self._pressure_hits = 0
         elif self._calm_hits >= self.ladder_patience \
                 and self.degradation_level > 0:
@@ -472,12 +485,12 @@ class EngineSupervisor:
             if shed:
                 self._m_shed.inc(shed)
 
-    def _set_level(self, level: int) -> None:
+    def _set_level(self, level: int, source: str = "queue") -> None:
         self.degradation_level = level
         self._g_level.set(level)
         self._apply_degradation(self.engine, level)
         self.tracer.instant("degrade", track="supervisor",
-                            args={"level": level, "input": "queue"})
+                            args={"level": level, "input": source})
 
     @staticmethod
     def _apply_degradation(eng: DecodeScheduler, level: int) -> None:
@@ -601,13 +614,18 @@ class EngineSupervisor:
         """The `/readyz` body; lock-free for the reason :attr:`ready`
         gives."""
         eng = self.engine
-        return {"ready": self.ready,
-                "draining": self._draining,
-                "recovering": self._recovering,
-                "degradation_level": self.degradation_level,
-                "restarts": self.restarts,
-                "heartbeat_age_s": round(self._clock() - eng.heartbeat, 3),
-                "inflight": len(self._tracked)}
+        out = {"ready": self.ready,
+               "draining": self._draining,
+               "recovering": self._recovering,
+               "degradation_level": self.degradation_level,
+               "restarts": self.restarts,
+               "heartbeat_age_s": round(self._clock() - eng.heartbeat, 3),
+               "inflight": len(self._tracked)}
+        if self._slo is not None:
+            # the brief: /readyz is polled constantly, and the full
+            # snapshot sorts every route's window
+            out["slo"] = self._slo.brief()
+        return out
 
     def drain(self, timeout: Optional[float] = None,
               poll_s: float = 0.02) -> bool:

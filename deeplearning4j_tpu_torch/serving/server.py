@@ -28,7 +28,18 @@
     speculative decoding (`inference/engine.py`); ``/info`` reports whether
     it armed. A `nn.quantization` int8 program is served as any net: a
     `QuantizedNetwork` behind ``/predict``, a `quantize_graph` clone behind
-    ``/generate`` too.
+    ``/generate`` too. ``host_cache_mb``/``disk_cache_mb``/``tier_dir``
+    arm the paged engine's KV tiers (`inference/kvtier.py`; a rebuilt
+    engine tiers again) and the ``/prefix/*`` directory below.
+  - The SLO plane (`inference/profiler.py`): every served ``/predict``,
+    ``/predict/csv`` and ``/generate`` request's end-to-end latency is
+    observed per route (its histogram's exemplars carry the
+    ``request_id``) against the ``slo_p99_ms`` objective (None tracks
+    percentiles and never burns); the burn rate is the supervisor's
+    second escalation input. Fast rejects (shed, admission-rejected,
+    backpressure, shutdown), client errors and client disconnects are not
+    sampled: they are the ladder's own output. ``profile=False`` disarms
+    the engine's step-phase profiler.
 
 The decode engine serves a ComputationGraph LM: ``decode_vocab=None``
 takes its vocabulary from the output layer's width (the JAX server needs
@@ -51,8 +62,19 @@ Endpoints:
   GET  /readyz            readiness: 200 while the heartbeat is fresh and
                           nothing drains or recovers, else 503 (+ status)
   GET  /info              model summary, config JSON, device, batching,
-                          the engine (KV mode, captures, pool) and the
-                          supervisor's state
+                          the engine (KV mode, captures, pool), the
+                          supervisor's state, the SLO snapshot and the
+                          profiler's headline (tokens/s, MFU estimate)
+  GET  /debug/engine      the engine's anatomy (`debug_snapshot`: slot
+                          table, pool and trie, captures, paged kernel,
+                          tier, costs, phases) + supervisor + SLO; 404
+                          without a decode engine
+  GET  /prefix/directory  the tier's prefix-directory feed (?since=N
+                          tails from a previous "next"; 0 or a cursor
+                          older than the ring -> a reset snapshot); 404
+                          without tiering
+  GET  /prefix/block      ?hash=H -> one block's encoded payload
+                          (application/octet-stream), 404 if not held
   GET  /metrics           JSON snapshot; ?format=prometheus (or an Accept:
                           application/openmetrics-text scrape) for the
                           OpenMetrics exposition with exemplars; Accept:
@@ -93,13 +115,15 @@ Endpoints:
                           timings}`; a client that hangs up cancels the
                           decode (slot and blocks reclaimed,
                           stream_disconnects_total)
+  POST /prefix/fetch      {"peer": URL, "hashes": [parent first]} ->
+                          {"fetched", "skipped", "failed"}: pull a chain
+                          from a peer's /prefix/block into the local tier
+                          and queue its promotion (400 without peer or
+                          hashes, 404 without tiering)
   POST /admin/drain       draining restart (202; watch /readyz flip)
   GET/POST /admin/failpoints  chaos control (opt-in failpoint_endpoint):
                           {"name": seam, "spec": "crash@n:3"} arms, spec
                           null disarms, name "*" disarms all
-
-Not ported yet, answered with 404 and a pointer: ``/debug/engine`` and
-the ``/info`` profiler headline (ROADMAP A4), ``/prefix/*`` (A4, A8).
 """
 from __future__ import annotations
 
@@ -127,6 +151,7 @@ from ..inference.failpoints import InjectedFault
 from ..inference.logitproc import (GrammarError, TokenStream, admit_all,
                                    compile_json_schema, compile_trie)
 from ..inference.metrics import MetricsRegistry
+from ..inference.profiler import SLOMonitor
 from ..inference.supervisor import (AdmissionRejectedError, EngineSupervisor,
                                     RetryBudgetExceededError,
                                     ShuttingDownError)
@@ -198,6 +223,10 @@ class InferenceServer:
                  decode_transfer_guard: Optional[str] = None,
                  mask_rows: int = 64, speculate: int = 0,
                  draft_blocks: Optional[int] = None, draft_net=None,
+                 host_cache_mb: float = 0.0, disk_cache_mb: float = 0.0,
+                 tier_dir: Optional[str] = None,
+                 slo_p99_ms: Optional[float] = None,
+                 slo: Optional[SLOMonitor] = None, profile: bool = True,
                  failpoint_endpoint: bool = False,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
@@ -225,7 +254,8 @@ class InferenceServer:
             paged_kernel=paged_kernel, decode_graphs=decode_graphs,
             mask_rows=mask_rows, transfer_guard=decode_transfer_guard,
             speculate=speculate, draft_blocks=draft_blocks,
-            draft_net=draft_net)
+            draft_net=draft_net, host_cache_mb=host_cache_mb,
+            disk_cache_mb=disk_cache_mb, tier_dir=tier_dir, profile=profile)
         self.supervise = bool(supervise)
         self.hang_timeout_s = float(hang_timeout_s)
         self.retry_budget = int(retry_budget)
@@ -236,6 +266,9 @@ class InferenceServer:
         self._decoder_direct: Optional[DecodeScheduler] = None
         self._shutting_down = False
         self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.slo = slo if slo is not None else SLOMonitor(
+            objective_p99_s=slo_p99_ms / 1e3 if slo_p99_ms else None,
+            metrics=self.metrics)
         self.tracer = tracer if tracer is not None else FlightRecorder(
             trace_buffer, enabled=trace_buffer > 0)
         self._host = host
@@ -275,7 +308,8 @@ class InferenceServer:
 
     def _decoder_factory(self) -> DecodeScheduler:
         """Every (re)build: the same device and modes (kernel, graphs,
-        speculation): a rebuilt engine speculates again."""
+        speculation, tiers): a rebuilt engine speculates and tiers
+        again."""
         return DecodeScheduler(self.net, self.decode_vocab,
                                metrics=self.metrics, tracer=self.tracer,
                                device=self.device, **self._decode_kw)
@@ -319,7 +353,58 @@ class InferenceServer:
                 "pool": dec.pool.stats() if dec.pool else None}
         if self.supervisor is not None:
             body["supervisor"] = self.supervisor.status()
+        body["slo"] = self.slo.snapshot()
+        prof = getattr(dec, "profiler", None)
+        if prof is not None and prof.enabled:
+            # the attribution headline; the detail is GET /debug/engine
+            body["profiler"] = prof.rates()
         return body
+
+    def _tier(self):
+        """The live engine's TierManager, or None (tiering off, or no
+        decode engine)."""
+        dec = self.decoder
+        return getattr(dec, "tier", None) if dec is not None else None
+
+    def _prefix_fetch(self, payload: dict) -> Tuple[int, dict]:
+        """POST /prefix/fetch (JAX :366): pull a block-hash chain from a
+        peer's ``/prefix/block`` into the local tier. The hashes arrive
+        parent first: a child whose parent chain is unknown is refused,
+        so a failed parent stops the pull."""
+        tier = self._tier()
+        if tier is None:
+            return 404, {"error": "KV tiering disabled"}
+        peer = payload.get("peer") or "" if isinstance(payload, dict) \
+            else ""
+        hashes = payload.get("hashes") if isinstance(payload, dict) else None
+        if not peer or not isinstance(hashes, list):
+            return 400, {"error": "need peer URL and hashes list"}
+        import urllib.request
+        fetched, skipped, failed = 0, 0, 0
+        inserted = []
+        for h in hashes:
+            h = str(h)
+            if tier.holds(h):
+                skipped += 1
+                continue
+            try:
+                with urllib.request.urlopen(
+                        peer.rstrip("/") + "/prefix/block?hash=" + h,
+                        timeout=10.0) as resp:
+                    body = resp.read()
+            except OSError:
+                failed += 1
+                break
+            if tier.insert_fetched(body) is None:
+                failed += 1
+                break
+            fetched += 1
+            inserted.append(h)
+        if inserted:
+            # warm the chain now: its request is usually right behind
+            tier.request_restore(inserted)
+        return 200, {"fetched": fetched, "skipped": skipped,
+                     "failed": failed}
 
     # -- /predict ------------------------------------------------------------
     def _net_output(self, arr: np.ndarray):
@@ -579,7 +664,7 @@ class InferenceServer:
                 self.supervisor = EngineSupervisor(
                     self._decoder_factory,
                     hang_timeout_s=self.hang_timeout_s,
-                    retry_budget=self.retry_budget,
+                    retry_budget=self.retry_budget, slo=self.slo,
                     metrics=self.metrics, tracer=self.tracer)
             else:
                 eng = self._decoder_factory()
@@ -675,9 +760,42 @@ class InferenceServer:
                             403)
                     self._send({"armed": failpoints.snapshot(),
                                 "seams": list(failpoints.SEAMS)})
-                elif path == "/debug/engine" or path.startswith("/prefix/"):
-                    self._send({"error": f"{path} is not ported yet "
-                                "(ROADMAP A4/A8)"}, 404)
+                elif path == "/debug/engine":
+                    dec = server.decoder
+                    if dec is None:
+                        return self._send(
+                            {"error": "no decode engine (start the server "
+                             "with a vocabulary / --generate)"}, 404)
+                    body = dec.debug_snapshot()
+                    if server.supervisor is not None:
+                        body["supervisor"] = server.supervisor.status()
+                    body["slo"] = server.slo.snapshot()
+                    self._send(body)
+                elif path == "/prefix/directory":
+                    tier = server._tier()
+                    if tier is None:
+                        return self._send(
+                            {"error": "KV tiering disabled (start with "
+                             "--host-cache-mb)"}, 404)
+                    try:
+                        since = int(q.get("since", ["0"])[0])
+                    except ValueError:
+                        return self._send(
+                            {"error": "since must be an integer"}, 400)
+                    self._send(tier.directory_feed(since))
+                elif path == "/prefix/block":
+                    tier = server._tier()
+                    if tier is None:
+                        return self._send({"error": "KV tiering disabled"},
+                                          404)
+                    h = q.get("hash", [""])[0]
+                    payload = (tier.get_block_payload(h, timeout=5.0)
+                               if h else None)
+                    if payload is None:
+                        return self._send({"error": "block not available",
+                                           "hash": h}, 404)
+                    self._send(payload,
+                               content_type="application/octet-stream")
                 else:
                     self._send({"error": "not found"}, 404)
 
@@ -704,6 +822,10 @@ class InferenceServer:
                              "request_id": rid}, 400, request_id=rid)
                 n = int(self.headers.get("Content-Length", 0))
                 raw = self.rfile.read(n)
+                t_route = time.monotonic()
+                # the SLO's sample: flipped off by fast rejects, client
+                # errors and disconnects
+                slo_sample = True
                 if server._shutting_down:
                     # stop() raced this POST: a structured 503 instead of
                     # running into half-torn-down components
@@ -759,12 +881,19 @@ class InferenceServer:
                         if isinstance(payload, dict) and payload.get("stream"):
                             # writes the response itself; submit-time
                             # errors raise before any byte is written
-                            server._generate_stream(self, payload,
-                                                    timeout_ms, rid)
+                            if server._generate_stream(
+                                    self, payload, timeout_ms,
+                                    rid) == "disconnect":
+                                slo_sample = False  # the client ended it
                         else:
                             self._send(server._generate(
                                 payload, timeout_ms, request_id=rid),
                                 request_id=rid)
+                    elif url.path == "/prefix/fetch":
+                        payload = json.loads(raw.decode())
+                        code, body = server._prefix_fetch(payload)
+                        body["request_id"] = rid
+                        self._send(body, code, request_id=rid)
                     else:
                         self._send({"error": "not found",
                                     "request_id": rid}, 404, request_id=rid)
@@ -777,6 +906,7 @@ class InferenceServer:
                         body["blocks_needed"] = e.blocks_needed
                         body["blocks_available"] = e.blocks_available
                     m_err.inc()
+                    slo_sample = False  # a client error, ~1 ms
                     self._send(body, 413, request_id=rid)
                 except TimeoutError as e:  # RequestTimeoutError too; a
                     # timed-out decode was cancelled before this
@@ -797,12 +927,14 @@ class InferenceServer:
                                503, request_id=rid)
                 except ShuttingDownError:
                     m_err.inc()
+                    slo_sample = False
                     self._send({"error": "shutting_down",
                                 "request_id": rid}, 503, request_id=rid)
                 except AdmissionRejectedError as e:
                     # ladder level 3 or a drain: Retry-After tells a client
                     # how long to back off
                     m_err.inc()
+                    slo_sample = False
                     server.tracer.instant("reject", track="http", args={
                         "request_id": rid, "reason": "degraded_503"})
                     self._send(
@@ -813,6 +945,7 @@ class InferenceServer:
                                  str(max(1, int(e.retry_after_s)))})
                 except QueueFullError as e:  # LoadSheddedError too
                     m_err.inc()
+                    slo_sample = False
                     server.tracer.instant("reject", track="http", args={
                         "request_id": rid, "reason": "backpressure_503"})
                     self._send({"error": f"over capacity: {e}",
@@ -830,8 +963,18 @@ class InferenceServer:
                                 "request_id": rid}, 500, request_id=rid)
                 except Exception as e:  # bad payloads must not kill the server
                     m_err.inc()
+                    slo_sample = False  # client errors would dilute the burn
                     self._send({"error": str(e), "request_id": rid}, 400,
                                request_id=rid)
+                finally:
+                    if slo_sample and url.path in ("/predict",
+                                                   "/predict/csv",
+                                                   "/generate"):
+                        # served requests' end-to-end latency, timeouts
+                        # included (a 504 burned the budget)
+                        server.slo.observe(url.path,
+                                           time.monotonic() - t_route,
+                                           request_id=rid)
 
         self._httpd = _HTTPServer((self._host, self._port), Handler)
         self._httpd.daemon_threads = True

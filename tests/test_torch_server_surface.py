@@ -652,10 +652,12 @@ def test_metrics_formats_parse_and_get_endpoints(paged_server):
     assert info["supervisor"]["ready"] and info["batching"]
     assert info["decode"]["prefill_captures"] == \
         len(srv.decoder._chunk_runners) > 0
-    with pytest.raises(urllib.error.HTTPError) as ei:
-        _get(srv.port, "/debug/engine")
-    assert ei.value.code == 404
-    assert "not ported" in json.loads(ei.value.read())["error"]
+    code, _, raw = _get(srv.port, "/debug/engine")
+    dbg = json.loads(raw)
+    assert code == 200 and dbg["paged"] is True
+    assert len(dbg["slots"]) == srv.decoder.n_slots
+    assert {"costs", "phases"} <= set(dbg)
+    assert dbg["costs"]["per_invocation"]["decode"]
     with pytest.raises(urllib.error.HTTPError) as ei:  # opt-in only
         _get(srv.port, "/admin/failpoints")
     assert ei.value.code == 403

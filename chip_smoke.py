@@ -432,7 +432,30 @@ non-zero without them, or when any phase fails. Phases:
      wave's wall time on one warmed server with the step-phase profiler
      armed and disarmed in turns (on, off, off, on, ...), and their ratio
      (the tokens must not change);
- 29. prints the kernels line (the bf16 kernels as rows of their own,
+ 29. the captured training step (nn/step_graph.py: the default
+     train_graphs="on", each step on the card a replay of the CUDA graph
+     captured for its key) against the eager one (train_graphs="off") on
+     every training path of phases 6, 7, 10, 12, 21, 23 and 24 (AlexNet
+     f32, bf16 and mixed at B=512, LeNet at B=512, the LM at T=256 and at
+     T=8192 bf16, the T=32768 remat step, the char-RNN's TBPTT windows)
+     and an MLP with dropout, AdamW and an exponential lr: per path one
+     captured and two eager runs of the same init, seeds and batches, 5
+     steps (the 32k step and the char-RNN's fits 3), cuDNN on its
+     deterministic algorithms for the phase; gates: losses,
+     params, updater state and BN variables bitwise equal to the eager
+     run where the two eager runs are bitwise equal (else no further from
+     it than the second eager run), each step's launches kernel by kernel
+     equal to the eager step's, graphs captured and replayed; prints the
+     steady-state step ms and the busy share (3 profiled steps) of both
+     modes; then fit_scan K = 16 bitwise against 16 fit_batch calls
+     (LeNet), fit_batch_accumulated K = 4 against the full batch (an Sgd
+     MLP, max |diff| of the params within 1e-5 after 5 steps), dbn_mnist
+     pretrained (512 binary digits) and finetuned 10 epochs (finite, the
+     loss falling), an LBFGS fit (the loss falling), and three captured
+     steps under torch.cuda.set_sync_debug_mode("error"). Every earlier
+     training phase runs captured too, its launch gates counting
+     replays; their plain references run eagerly;
+ 30. prints the kernels line (the bf16 kernels as rows of their own,
      named "<kernel>_bf16"; the paged rows carry phase 26's masked-wave
      launches as "masked_launches", phase 27a's as
      "speculating_launches" and phase 28's wave C as "tiered_launches",
@@ -1619,11 +1642,14 @@ def train_run(ck, torch, conf, x, y, steps, *, plain=False):
     """``steps`` fit_batch steps of a fresh net from ``conf`` on one
     batch, each timed on the host clock up to its loss on the host.
     ``plain`` registers every training kernel's plain version instead
-    (the caller's explicit override). Returns (net, losses, step
-    seconds, launch counts of exactly these steps)."""
+    (the caller's explicit override), and runs the steps eagerly
+    (train_graphs="off": the reference is the plain PyTorch step); else
+    each step after the first replays the captured step. Returns (net,
+    losses, step seconds, launch counts of exactly these steps)."""
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     from deeplearning4j_tpu_torch.ops import helpers
-    net = MultiLayerNetwork(conf, device="cuda").init()
+    net = MultiLayerNetwork(conf, device="cuda",
+                            train_graphs="off" if plain else "on").init()
     overrides = helpers.PLAIN_OVERRIDES if plain else {}
     for name, fn in overrides.items():
         helpers.register_helper(name, fn)
@@ -1846,7 +1872,8 @@ def lm_batch(torch, T, B, seed=0):
             torch.from_numpy(eye[ids[:, 1:]]).cuda())
 
 
-def lm_net(heads, *, remat=False, dtype="float32", compute_dtype=None):
+def lm_net(heads, *, remat=False, dtype="float32", compute_dtype=None,
+           train_graphs="on"):
     """A fresh transformer_lm graph on the card: vocab 128, d_model 512,
     ``heads`` heads, 4 blocks, Adam 3e-4, seed 7, params at ``dtype``
     (drawn in f32, then cast: a bf16 net starts from the f32 net's weights
@@ -1857,17 +1884,20 @@ def lm_net(heads, *, remat=False, dtype="float32", compute_dtype=None):
                           n_blocks=BLOCKS, dtype=dtype)
     conf.conf.remat = remat
     conf.conf.compute_dtype = compute_dtype
-    return ComputationGraph(conf, device="cuda").init()
+    return ComputationGraph(conf, device="cuda",
+                            train_graphs=train_graphs).init()
 
 
 def lm_train_run(ck, torch, heads, x, y, steps, *, plain=False,
                  remat=False, dtype="float32", compute_dtype=None):
     """``steps`` fit_batch steps of a fresh `lm_net`, each timed on the
     host clock up to its loss on the host; ``plain`` registers the
-    attention kernels' plain versions instead. Returns (net, losses, step
-    seconds, launch counts of exactly these steps)."""
+    attention kernels' plain versions instead and runs the steps eagerly.
+    Returns (net, losses, step seconds, launch counts of exactly these
+    steps)."""
     from deeplearning4j_tpu_torch.ops import helpers
-    net = lm_net(heads, remat=remat, dtype=dtype, compute_dtype=compute_dtype)
+    net = lm_net(heads, remat=remat, dtype=dtype, compute_dtype=compute_dtype,
+                 train_graphs="off" if plain else "on")
     if plain:
         helpers.register_helper("attention",
                                 helpers.PLAIN_OVERRIDES["attention"])
@@ -4546,6 +4576,355 @@ def phase28(torch, ck, card):
     return out
 
 
+# -- phase 29: the captured training step against the eager one -------------
+TG_STEPS = 5            # steps of each path in each mode (the 32k LM: 3)
+TG_PROFILE_STEPS = 2    # steps under torch.profiler in each mode
+ACCUM_TOL = 1e-5        # 29c: accumulated K = 4 against the full batch,
+                        # max |diff| of the params after 5 Sgd steps
+
+
+def tg_state(net):
+    """Host copies of everything a step writes: the params, the updater
+    state and (MultiLayerNetwork) the BatchNorm variables, flat."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nn.precision import host_array
+    parts = [net.params_flat(), net.updater_state_flat()]
+    for lv in getattr(net, "variables", []):
+        parts += [host_array(lv[k]).reshape(-1) for k in sorted(lv)]
+    return np.concatenate([p.astype(np.float64) for p in parts])
+
+
+def tg_run(torch, ck, make, feed, steps, mode, profiled=True):
+    """``steps`` steps (``feed(net)`` each) of a fresh ``make(mode)``:
+    the losses of every step (a truncated-BPTT fit gives one a window),
+    the state after, each step's launches and host seconds up to a
+    synchronize, the graphs captured and replayed, and (``profiled``) a
+    profile of TG_PROFILE_STEPS more steps (the device's busy share)."""
+    from torch.profiler import ProfilerActivity, profile
+    net = make(mode)
+    lis = WindowLosses()
+    net.set_listeners(lis)
+    per_step, secs = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        ck.reset_launches()
+        t0 = time.monotonic()
+        feed(net)
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t0)
+        per_step.append({k: v for k, v in ck.LAUNCHES.items() if v})
+    out = {"losses": lis.values(), "state": tg_state(net),
+           "launches": per_step, "secs": secs,
+           "captures": net._graphs.captures, "replays": net._graphs.replays}
+    net.set_listeners()
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.monotonic()
+            for _ in range(TG_PROFILE_STEPS):
+                feed(net)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        busy = sum(device_kernels_ms(prof).values())
+        out.update(profile_wall_ms=wall * 1e3, device_busy_ms=busy,
+                   device_busy_share=busy / (wall * 1e3))
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tg_gap(a, b):
+    """0.0 where two runs are bitwise equal (losses and state), else the
+    largest |difference| of either."""
+    import numpy as np
+    la, lb = np.asarray(a["losses"]), np.asarray(b["losses"])
+    if np.array_equal(la, lb) and np.array_equal(a["state"], b["state"]):
+        return 0.0
+    return float(max(np.abs(la - lb).max(initial=0.0),
+                     np.abs(a["state"] - b["state"]).max(initial=0.0)))
+
+
+def tg_paths(torch):
+    """(name, make(mode), feed(net), steps): every training path phases 6,
+    7, 10, 12, 21, 23 and 24 run, and an MLP with dropout, AdamW and an
+    exponential lr schedule (every step-dependent scalar in the row)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.models.zoo import (alexnet_cifar10,
+                                                     char_rnn_lstm,
+                                                     lenet_mnist,
+                                                     transformer_lm)
+    from deeplearning4j_tpu_torch.nn.conf.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.layers import (DenseLayer,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updater.updaters import Adam
+    rng = np.random.default_rng(0)
+    xa = torch.from_numpy(rng.normal(size=(512, 32, 32, 3)).astype(
+        np.float32)).cuda()
+    ya = torch.from_numpy(np.eye(10, dtype=np.float32)[
+        rng.integers(0, 10, 512)]).cuda()
+    xl = torch.from_numpy(rng.normal(size=(512, 28, 28, 1)).astype(
+        np.float32)).cuda()
+    xm = torch.from_numpy(rng.normal(size=(256, 784)).astype(
+        np.float32)).cuda()
+    ym = ya[:256]
+    cx, cy, _ = char_batch(1, CHAR_B, CHAR_T)
+    cx, cy = torch.from_numpy(cx).cuda(), torch.from_numpy(cy).cuda()
+    x256, y256 = lm_batch(torch, 256, 32)
+    x8k, y8k = lm_batch(torch, 8192, 1)
+    x32k, y32k = lm_batch(torch, 32768, 1)
+
+    def mln(conf_fn):
+        return lambda mode: MultiLayerNetwork(
+            conf_fn(), device="cuda", train_graphs=mode).init()
+
+    def alex(dtype, cdt=None):
+        def conf():
+            c = alexnet_cifar10(dtype=dtype)
+            c.conf.compute_dtype = cdt
+            return c
+        return conf
+
+    def mlp():
+        return (NeuralNetConfiguration.builder()
+                .seed(5).learning_rate(1e-3)
+                .updater(Adam(weight_decay=1e-4))
+                .lr_policy("exponential").lr_policy_decay_rate(0.9)
+                .list()
+                .layer(DenseLayer(n_in=784, n_out=1024, activation="relu",
+                                  dropout=0.5))
+                .layer(DenseLayer(n_in=1024, n_out=1024, activation="relu",
+                                  dropout=0.5))
+                .layer(OutputLayer(n_in=1024, n_out=10, activation="softmax",
+                                   loss="negativeloglikelihood"))
+                .build())
+
+    def lm(heads, *, remat=False, dtype="float32"):
+        def make(mode):
+            conf = transformer_lm(vocab_size=VOCAB, d_model=D_MODEL,
+                                  n_heads=heads, n_blocks=BLOCKS, dtype=dtype)
+            conf.conf.remat = remat
+            return ComputationGraph(conf, device="cuda",
+                                    train_graphs=mode).init()
+        return make
+
+    return [
+        ("alexnet_f32", mln(alex("float32")),
+         lambda n: n.fit_batch(xa, ya), TG_STEPS),
+        ("alexnet_bf16", mln(alex("bfloat16")),
+         lambda n: n.fit_batch(xa, ya), TG_STEPS),
+        ("alexnet_mixed", mln(alex("float32", "bfloat16")),
+         lambda n: n.fit_batch(xa, ya), TG_STEPS),
+        ("lenet_f32", mln(lenet_mnist), lambda n: n.fit_batch(xl, ya),
+         TG_STEPS),
+        ("mlp_dropout_adamw_exp", mln(mlp), lambda n: n.fit_batch(xm, ym),
+         TG_STEPS),
+        ("lm_t256_f32", lm(HEADS), lambda n: n.fit_batch(x256, y256),
+         TG_STEPS),
+        ("lm_t8192_bf16", lm(4, dtype="bfloat16"),
+         lambda n: n.fit_batch(x8k, y8k), TG_STEPS),
+        ("lm_t32768_remat_f32", lm(4, remat=True),
+         lambda n: n.fit_batch(x32k, y32k), 3),
+        ("char_rnn_tbptt", mln(lambda: char_rnn_lstm()),
+         lambda n: n.fit(cx, cy), 3),
+    ]
+
+
+def tg_new_entry_points(torch, ck, failures):
+    """29b-29e: fit_scan K = 16 against 16 fit_batch calls (LeNet, both
+    captured: bitwise), fit_batch_accumulated K = 4 against the full batch
+    (an Sgd MLP, ACCUM_TOL), a short dbn_mnist pretrain and finetune and
+    an LBFGS fit (finite, the loss falling), and a captured step under
+    torch.cuda.set_sync_debug_mode("error")."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.models.zoo import dbn_mnist, lenet_mnist
+    from deeplearning4j_tpu_torch.nn.conf.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.layers import (DenseLayer,
+                                                         OutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updater.updaters import Sgd
+    rng = np.random.default_rng(3)
+    out = {}
+    # 29b: fit_scan
+    xs = torch.from_numpy(rng.normal(size=(16, 128, 28, 28, 1)).astype(
+        np.float32)).cuda()
+    ys = torch.from_numpy(np.eye(10, dtype=np.float32)[
+        rng.integers(0, 10, (16, 128))]).cuda()
+    a = MultiLayerNetwork(lenet_mnist(), device="cuda").init()
+    b = MultiLayerNetwork(lenet_mnist(), device="cuda").init()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    la = a.fit_scan(xs, ys)
+    torch.cuda.synchronize()
+    scan_s = time.monotonic() - t0
+    lb = []
+    t0 = time.monotonic()
+    for k in range(16):
+        b.fit_batch(xs[k], ys[k])
+        lb.append(b._score_raw)
+    torch.cuda.synchronize()
+    batch_s = time.monotonic() - t0
+    scan_equal = (np.array_equal(la.cpu().numpy(),
+                                 torch.stack(lb).cpu().numpy())
+                  and np.array_equal(tg_state(a), tg_state(b)))
+    out["fit_scan"] = {"bitwise_equal": scan_equal, "scan_s": scan_s,
+                       "fit_batch_s": batch_s, "steps": a.step}
+    if not scan_equal:
+        failures.append("29b: fit_scan K=16 differs from 16 fit_batch calls")
+    del a, b
+    # 29c: fit_batch_accumulated against the full batch
+
+    def mlp():
+        return MultiLayerNetwork(
+            NeuralNetConfiguration.builder().seed(9).learning_rate(0.1)
+            .updater(Sgd()).list()
+            .layer(DenseLayer(n_in=64, n_out=256, activation="tanh"))
+            .layer(DenseLayer(n_in=256, n_out=256, activation="relu"))
+            .layer(OutputLayer(n_in=256, n_out=10, activation="softmax",
+                               loss="negativeloglikelihood")).build(),
+            device="cuda").init()
+    xb = torch.from_numpy(rng.normal(size=(512, 64)).astype(
+        np.float32)).cuda()
+    yb = ys[0].repeat(4, 1)
+    full, acc = mlp(), mlp()
+    for _ in range(5):
+        full.fit_batch(xb, yb)
+        acc.fit_batch_accumulated(xb, yb, 4)
+    gap = float(np.abs(full.params_flat() - acc.params_flat()).max())
+    out["accumulated"] = {"max_abs_diff": gap, "tol": ACCUM_TOL,
+                          "captures": acc._graphs.captures,
+                          "score_full": full.score_,
+                          "score_accumulated": acc.score_}
+    if not gap <= ACCUM_TOL:
+        failures.append(f"29c: accumulated K=4 params differ by {gap}")
+    # 29d: dbn_mnist pretrain + finetune; an LBFGS fit
+    protos = rng.uniform(0, 1, (10, 784)) > 0.5
+    lab = rng.integers(0, 10, 512)
+    xd = (protos[lab] ^ (rng.uniform(size=(512, 784)) < 0.08)).astype(
+        np.float32)
+    it = ListDataSetIterator(DataSet(xd, np.eye(10, dtype=np.float32)[lab]),
+                             batch=128)
+    dbn = MultiLayerNetwork(dbn_mnist(), device="cuda").init()
+    t0 = time.monotonic()
+    dbn.pretrain(it)
+    pre_score = dbn.score_
+    losses = []
+    for _ in range(10):
+        it.reset()
+        dbn.finetune(it)
+        losses.append(dbn.score_)
+    out["dbn"] = {"pretrain_score": pre_score, "finetune_losses": losses,
+                  "seconds": time.monotonic() - t0}
+    if not (np.isfinite(pre_score) and all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        failures.append(f"29d: dbn_mnist pretrain {pre_score}, finetune "
+                        f"{losses}")
+    lconf = (NeuralNetConfiguration.builder().seed(7).learning_rate(0.1)
+             .optimization_algo("lbfgs").iterations(25).list()
+             .layer(DenseLayer(n_in=64, n_out=64, activation="tanh"))
+             .layer(OutputLayer(n_in=64, n_out=10, activation="softmax",
+                                loss="negativeloglikelihood")).build())
+    lnet = MultiLayerNetwork(lconf, device="cuda").init()
+    before = lnet.score(x=xb, y=yb)
+    lnet.fit(xb, yb)
+    after = lnet.score(x=xb, y=yb)
+    out["lbfgs"] = {"before": before, "after": after}
+    if not (np.isfinite(after) and after < before):
+        failures.append(f"29d: LBFGS fit {before} -> {after}")
+    # 29e: a captured step under the sync guard (inputs on the card)
+    g = MultiLayerNetwork(lenet_mnist(), device="cuda").init()
+    g.fit_batch(xs[0], ys[0])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for k in range(1, 4):
+            g.fit_batch(xs[k], ys[k])
+        guard = None
+    except RuntimeError as e:
+        guard = str(e)[:200]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    out["sync_guard"] = {"error": guard, "replays": g._graphs.replays}
+    if guard is not None or g._graphs.replays != 3:
+        failures.append(f"29e: a captured step under the sync guard: {guard}")
+    return out
+
+
+def phase29(torch, ck, card):
+    """Each training path of phases 6, 7, 10, 12, 21, 23 and 24 captured
+    (train_graphs="on") against eager ("off"), then the new entry points
+    (tg_new_entry_points). Per path: one captured run and two eager runs
+    of the same init, seeds and batches; losses, params, updater state
+    and variables must be bitwise equal to the eager run where the two
+    eager runs are bitwise equal, and no further from it than the second
+    eager run where not; each step's launches, kernel by kernel, equal
+    the eager step's; step ms and the busy share printed for both. cuDNN
+    takes its deterministic algorithms in this phase (its default conv
+    backward sums with atomics, so two eager AlexNet runs part by ~4e-3
+    after 5 Adam steps and the comparison could show nothing)."""
+    failures = []
+    rows = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        new = tg_compare(torch, ck, card, rows, failures)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    phase(29, f"fit_scan K=16 {new['fit_scan']}; fit_batch_accumulated K=4 "
+              f"{new['accumulated']}; dbn_mnist {new['dbn']}; LBFGS "
+              f"{new['lbfgs']}; sync guard {new['sync_guard']}")
+    if failures:
+        raise SystemExit("phase 29 failed: " + "; ".join(failures))
+    return {"paths": rows, **new}
+
+
+def tg_compare(torch, ck, card, rows, failures):
+    """phase29's paths into ``rows``, then the new entry points."""
+    for name, make, feed, steps in tg_paths(torch):
+        on = tg_run(torch, ck, make, feed, steps, "on")
+        off = tg_run(torch, ck, make, feed, steps, "off")
+        off2 = tg_run(torch, ck, make, feed, steps, "off", profiled=False)
+        ee, ce = tg_gap(off, off2), tg_gap(on, off)
+        launches_ok = on["launches"] == off["launches"]
+        if not (ce == 0.0 if ee == 0.0 else ce <= ee):
+            failures.append(f"{name}: captured against eager {ce}, eager "
+                            f"against eager {ee}")
+        if not launches_ok:
+            failures.append(f"{name}: launches captured {on['launches']}, "
+                            f"eager {off['launches']}")
+        if on["captures"] == 0 or on["replays"] == 0 or off["captures"]:
+            failures.append(f"{name}: captures {on['captures']}, replays "
+                            f"{on['replays']}, eager captures "
+                            f"{off['captures']}")
+        # steady-state step ms: the steps after the first (a capture)
+        ms = {m: statistics.median(r["secs"][1:]) * 1e3
+              for m, r in (("captured", on), ("eager", off))}
+        rows[name] = {
+            "steps": steps, "captured_vs_eager": ce, "eager_vs_eager": ee,
+            "launches_per_step": on["launches"][-1], "launches_equal":
+            launches_ok, "captures": on["captures"],
+            "replays": on["replays"], "step_ms": ms,
+            "first_step_ms": {"captured": on["secs"][0] * 1e3,
+                              "eager": off["secs"][0] * 1e3},
+            "busy_share": {"captured": on["device_busy_share"],
+                           "eager": off["device_busy_share"]},
+            "losses": on["losses"]}
+        phase(29, f"{name}: captured {ms['captured']:.3f} ms a step (busy "
+                  f"{on['device_busy_share']:.4f}) against eager "
+                  f"{ms['eager']:.3f} ms (busy "
+                  f"{off['device_busy_share']:.4f}); captured vs eager "
+                  f"{ce}, eager vs eager {ee}; launches a step "
+                  f"{on['launches'][-1]} (equal {launches_ok}); "
+                  f"{on['captures']} captures, {on['replays']} replays "
+                  f"[{card}]")
+    return tg_new_entry_points(torch, ck, failures)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6091,6 +6470,7 @@ def main():
     p26 = phase26(torch, ck, card, reqs, tokens, tokens8)
     p27 = phase27(torch, ck, card, reqs, tokens, tokens8, p26, e2e)
     p28 = phase28(torch, ck, card)
+    p29 = phase29(torch, ck, card)
 
 
     src = "deeplearning4j_tpu_torch/ops/csrc/paged_decode_attention.cu"
@@ -6324,8 +6704,9 @@ def main():
          "bnap_bf16_edges": bnap16_edges, "bnap_bf16_alexnet_sum": bnap16_sum,
          "alexnet_train_bf16": alex16, "lenet_train_bf16": lenet16,
          **a3, "serving_26": p26, "serving_27": p27, "tiering_28": p28,
+         "training_29": p29,
          "elapsed_s": time.monotonic() - t_start}))
-    phase(29, "kernels:")
+    phase(30, "kernels:")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -39,6 +39,23 @@ class DataSet:
         if self.labels_mask is not None:
             self.labels_mask = self.labels_mask[idx]
 
+    def split_test_and_train(self, n_train: int):
+        """(the first ``n_train`` examples, the rest)."""
+        return self._slice(slice(0, n_train)), self._slice(slice(n_train, None))
+
+    @staticmethod
+    def merge(datasets: Sequence["DataSet"]) -> "DataSet":
+        """One DataSet of ``datasets`` end to end (masks where the first
+        has them)."""
+        first = datasets[0]
+
+        def cat(name):
+            if getattr(first, name) is None:
+                return None
+            return np.concatenate([getattr(d, name) for d in datasets])
+        return DataSet(cat("features"), cat("labels"), cat("features_mask"),
+                       cat("labels_mask"))
+
     def _slice(self, sl) -> "DataSet":
         return DataSet(
             self.features[sl], self.labels[sl],

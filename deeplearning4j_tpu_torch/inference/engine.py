@@ -201,6 +201,7 @@ from ..models.sampling import sample_logits
 from ..nn.layers.attention import SelfAttentionLayerImpl
 from ..nn.layers.base import BaseRecurrentImpl
 from ..nn.layers.recurrent import GravesBidirectionalLSTMImpl
+from ..nn.step_graph import gc_paused
 from ..ops import cuda_kernels as ck
 from ..util.device import DeviceLike, resolve_device
 from . import failpoints
@@ -2453,7 +2454,11 @@ class DecodeScheduler:
         The capture is begun and ended on the graph itself, not through
         the ``torch.cuda.graph`` context, whose entry synchronizes the
         device and empties the allocator's cache on every capture: for
-        warmup()'s dozens of captures that was most of their time."""
+        warmup()'s dozens of captures that was most of their time. In
+        its place automatic garbage collection is paused across the
+        capture (`gc_paused`), as the context's collection beforehand
+        meant to ensure: a collection inside could destroy another,
+        unreachable graph (a stopped engine's), which invalidates it."""
         dev = self.device
         if self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
@@ -2465,7 +2470,7 @@ class DecodeScheduler:
         torch.cuda.current_stream(dev).wait_stream(s)
         g = torch.cuda.CUDAGraph()
         mark = dict(ck.LAUNCHES)
-        with torch.cuda.stream(s):
+        with gc_paused(), torch.cuda.stream(s):
             g.capture_begin(pool=self._graph_pool,
                             capture_error_mode="thread_local")
             try:

@@ -1,6 +1,6 @@
 """Model zoo — port of ``lenet_mnist``, ``mlp_iris``, ``alexnet_cifar10``,
-``char_rnn_lstm`` and ``transformer_lm`` from
-deeplearning4j_tpu/models/zoo.py.
+``char_rnn_lstm``, ``dbn_mnist``, ``deep_autoencoder_mnist`` and
+``transformer_lm`` from deeplearning4j_tpu/models/zoo.py.
 
 Each builds the same configuration as the JAX package (same layers,
 names, defaults and hyperparameters), so its JSON, its flat parameter
@@ -8,14 +8,16 @@ order and its model zip are the JAX package's.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 from ..nn.conf.config import (BACKPROP_TBPTT, MultiLayerConfiguration,
                               NeuralNetConfiguration)
 from ..nn.conf.graph import ElementWiseVertex
 from ..nn.conf.inputs import InputType
-from ..nn.conf.layers import (BatchNormalization, ConvolutionLayer,
-                              DenseLayer, GravesLSTM, LayerNormalization,
-                              OutputLayer, RnnOutputLayer, SelfAttentionLayer,
-                              SubsamplingLayer)
+from ..nn.conf.layers import (RBM, AutoEncoder, BatchNormalization,
+                              ConvolutionLayer, DenseLayer, GravesLSTM,
+                              LayerNormalization, OutputLayer, RnnOutputLayer,
+                              SelfAttentionLayer, SubsamplingLayer)
 from ..nn.updater.updaters import Adam, Nesterovs, Sgd
 
 
@@ -102,6 +104,51 @@ def char_rnn_lstm(vocab_size: int = 77, hidden: int = 256, seed: int = 12345,
             .backprop_type(BACKPROP_TBPTT)
             .t_bptt_forward_length(tbptt).t_bptt_backward_length(tbptt)
             .build())
+
+
+def dbn_mnist(seed: int = 123, lr: float = 0.1, n_in: int = 784,
+              n_classes: int = 10,
+              hidden: tuple = (500, 250, 200)) -> MultiLayerConfiguration:
+    """Deep Belief Network: stacked binary RBMs (CD-1) and a softmax
+    output, ``pretrain(True)``: ``fit(iterator)`` pretrains layerwise and
+    then finetunes; ``pretrain(it)`` and ``finetune(it)`` run the two
+    apart."""
+    b = (NeuralNetConfiguration.builder()
+         .seed(seed).learning_rate(lr).updater(Sgd())
+         .list().pretrain(True))
+    prev = n_in
+    for h in hidden:
+        b.layer(RBM(n_in=prev, n_out=h, hidden_unit="binary",
+                    visible_unit="binary", k=1, activation="sigmoid"))
+        prev = h
+    b.layer(OutputLayer(n_in=prev, n_out=n_classes, activation="softmax",
+                        loss="negativeloglikelihood"))
+    return b.build()
+
+
+def deep_autoencoder_mnist(seed: int = 123, lr: float = 0.05,
+                           n_in: int = 784, bottleneck: int = 30,
+                           hidden: Optional[tuple] = None
+                           ) -> MultiLayerConfiguration:
+    """Deep autoencoder: an RBM encoder stack down to ``bottleneck``, a
+    mirrored AutoEncoder decoder, a sigmoid reconstruction under MSE; the
+    two hidden widths taper geometrically from ``n_in`` unless given."""
+    if hidden is None:
+        h1 = max(bottleneck, int(round((n_in ** 2 * bottleneck) ** (1 / 3))))
+        h2 = max(bottleneck, int(round((n_in * bottleneck ** 2) ** (1 / 3))))
+        hidden = (h1, h2)
+    dims = [n_in, *hidden, bottleneck]
+    b = (NeuralNetConfiguration.builder()
+         .seed(seed).learning_rate(lr).updater(Sgd())
+         .list().pretrain(True))
+    for a, c in zip(dims[:-1], dims[1:]):
+        b.layer(RBM(n_in=a, n_out=c, activation="sigmoid"))
+    rev = list(reversed(dims))
+    for a, c in zip(rev[:-1], rev[1:-1]):
+        b.layer(AutoEncoder(n_in=a, n_out=c, activation="sigmoid"))
+    b.layer(OutputLayer(n_in=dims[1], n_out=n_in, activation="sigmoid",
+                        loss="mse"))
+    return b.build()
 
 
 def transformer_lm(vocab_size: int = 77, d_model: int = 128, n_heads: int = 4,

@@ -2,8 +2,8 @@
 Output, RnnOutput, Loss, Convolution, Subsampling, BatchNormalization,
 LayerNormalization, LocalResponseNormalization, the recurrent layers
 (GravesLSTM, LSTM, GravesBidirectionalLSTM, GRU), Embedding, Activation,
-Dropout, GlobalPooling and SelfAttention (RBM and AutoEncoder come with
-ROADMAP A5). Same class names, fields and defaults as the JAX package, so
+Dropout, GlobalPooling, SelfAttention and the pretrain layers RBM and
+AutoEncoder. Same class names, fields and defaults as the JAX package, so
 configs round-trip between the two.
 
 Configs are pure data. Unset fields (None) inherit net-level defaults at
@@ -338,3 +338,32 @@ def _conv_out_hw(h: int, w: int, kernel, stride, padding, mode: str,
         raise ValueError(f"Invalid conv geometry: input {h}x{w}, kernel "
                          f"{kernel}, stride {stride}, padding {padding}")
     return (oh, ow)
+
+
+@dataclass
+class BasePretrainNetwork(FeedForwardLayer):
+    loss: str = "reconstruction_crossentropy"
+
+    def is_pretrain_layer(self) -> bool:
+        return True
+
+
+@register
+@dataclass
+class RBM(BasePretrainNetwork):
+    """Restricted Boltzmann machine trained with CD-k (JAX
+    nn/conf/layers.py :360; impl nn/layers/pretrain.RBMImpl)."""
+
+    hidden_unit: str = "binary"  # binary | gaussian | rectified | softmax
+    visible_unit: str = "binary"  # binary | gaussian | linear | softmax
+    k: int = 1
+    sparsity: float = 0.0
+
+
+@register
+@dataclass
+class AutoEncoder(BasePretrainNetwork):
+    """Denoising autoencoder (JAX nn/conf/layers.py :374)."""
+
+    corruption_level: float = 0.3
+    sparsity: float = 0.0

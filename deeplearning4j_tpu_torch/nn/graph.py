@@ -6,12 +6,16 @@ Training: the train-mode forward (input dropout from a generator on the
 graph's device, seeded by the config), the multi-output loss with the
 fused from-logits path, l1/l2, autograd in place of `jax.value_and_grad`,
 the per-layer updater step shared with MultiLayerNetwork
-(nn/updater/apply.py), ``fit_batch`` and ``fit`` — one step per minibatch:
-PyTorch runs eagerly, so there is no jit cache and no ``fit_scan`` —
-``score``, listeners, and the flat views of params and updater state in
-the JAX flat order (layers by sorted name, then params by sorted name,
-then updater state by sorted name), the order of the model zip's
-``coefficients.bin`` and ``updater.bin``.
+(nn/updater/apply.py: the new values written into the graph's own
+tensors, the step's scalars read from a device row), ``fit_batch``,
+``fit_scan``, ``fit_batch_accumulated``, the line-search solvers
+(eager), and ``fit``, whose iterator is prefetched and fused into
+``fit_scan`` chunks as in MultiLayerNetwork; ``score``, listeners, and
+the flat views of params and updater state in the JAX flat order (layers
+by sorted name, then params by sorted name, then updater state by sorted
+name), the order of the model zip's ``coefficients.bin`` and
+``updater.bin``. On the card each step replays the CUDA graph captured
+for its key unless ``train_graphs="off"`` (nn/step_graph.py).
 
 Remat (``conf.remat``) checkpoints each layer vertex of the train-mode
 forward but the loss path's output layer (nn/layers/base.remat_forward).
@@ -37,10 +41,9 @@ Parameters live on ``device`` (default "cuda"; it raises when no CUDA
 device is present — pass device="cpu" to run on the CPU). The attention
 layers run the port's flash or splash kernels there, f32 or bf16 by the
 compute dtype (ops/helpers.attention).
-Not ported yet, and raising where asked for: the line-search solvers,
-``fit_batch_accumulated``, vertex preprocessors, layers with
-non-trainable variables (BatchNorm), the subset, scale and last-step
-vertices (ROADMAP A5). ``rnn_time_step`` (and with it
+Not ported yet, and raising where asked for: vertex preprocessors,
+layers with non-trainable variables (BatchNorm), the subset, scale and
+last-step vertices (ROADMAP A5). ``rnn_time_step`` (and with it
 ``generate_transformer(use_cache=True)``) runs at any compute dtype,
 with its KV cache at the compute dtype.
 """
@@ -63,17 +66,19 @@ from .layers import normalization as _normalization  # noqa: F401
 from .layers import recurrent as _recurrent  # noqa: F401
 from .precision import (cast_floats, compute_dtype_of, dtype_of, host_array,
                         host_floats, input_dtype)
-from .updater.apply import update_layer
+from .step_graph import (SGD_ALGOS, StepGraphs, algo_of, copy_into,
+                         stack_on, to_device)
+from .updater.apply import layer_scalars, update_layer_
 from ..ops import losses as losses_mod
 from ..util.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
-_SGD_ALGOS = ("stochastic_gradient_descent", "sgd")
 
 
 class ComputationGraph:
     def __init__(self, conf: ComputationGraphConfiguration, *,
-                 device: DeviceLike = "cuda"):
+                 device: DeviceLike = "cuda",
+                 train_graphs: Optional[str] = None):
         self.conf = conf
         self.device = resolve_device(device)
         self.dtype = dtype_of(conf.conf)
@@ -101,7 +106,17 @@ class ComputationGraph:
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(conf.conf.seed))
         self._rnn_state: Dict[str, Any] = {}
+        # minibatches fused into one fit_scan by fit(iterator)
+        self.scan_batches = 16
+        # "on" (default): each step on the card is a captured CUDA graph
+        self._graphs = StepGraphs(
+            self.device, train_graphs, row_dtype=torch.float64
+            if self.dtype == torch.float64 else torch.float32)
         self._initialized = False
+
+    @property
+    def train_graphs(self) -> str:
+        return self._graphs.mode
 
     # -- init ------------------------------------------------------------------
     def init(self, generator: Optional[torch.Generator] = None
@@ -120,6 +135,7 @@ class ComputationGraph:
                 pname: updater.init_state(p)
                 for pname, p in self.params[name].items()}
         self.step = 0
+        self._graphs.drop()
         self._initialized = True
         return self
 
@@ -138,13 +154,7 @@ class ComputationGraph:
         return v
 
     def _as_tensor(self, a) -> Optional[Tensor]:
-        if a is None:
-            return None
-        t = a if isinstance(a, Tensor) else torch.as_tensor(np.asarray(a))
-        t = t.to(self.device)
-        if not t.is_floating_point():
-            return t
-        return t.to(input_dtype(self.dtype))
+        return to_device(a, self.device, input_dtype(self.dtype))
 
     def _as_tensors(self, arrays) -> Optional[List[Optional[Tensor]]]:
         if arrays is None:
@@ -296,21 +306,23 @@ class ComputationGraph:
         the sum of the outputs' batch-mean losses plus regularization (JAX
         `_build_loss_fn`, graph.py :312). ``inputs``/``labels`` (and the
         masks): one array per network input/output, or a single array."""
-        return self._train_grads(inputs, labels, fmasks, lmasks)[:2]
-
-    def _train_grads(self, inputs, labels, fmasks, lmasks, states=None):
-        """(loss, gradients, the recurrent vertices' new states): the
-        train step's forward from ``states`` (None: zeros) and backward."""
         self._check_init()
-        ins, labs = self._as_tensors(inputs), self._as_tensors(labels)
+        return self._grads_on(self._as_tensors(inputs),
+                              self._as_tensors(labels),
+                              self._masks_by_input(fmasks),
+                              self._as_tensors(lmasks), None)[:2]
+
+    def _grads_on(self, ins, labs, fmasks, lmasks, states):
+        """(loss, gradients, the recurrent vertices' new states): the
+        train step's forward from ``states`` (None: zeros) and backward,
+        on device tensors (``fmasks`` by input name)."""
         params = {name: {k: v.detach().requires_grad_(True)
                          for k, v in lp.items()}
                   for name, lp in self.params.items()}
         acts, new_states, preouts = self._forward_impl(
-            params, ins, train=True, gen=self._gen,
-            fmasks=self._masks_by_input(fmasks), states=states,
-            want_preout=True)
-        loss = (self._loss(acts, labs, self._as_tensors(lmasks), preouts)
+            params, ins, train=True, gen=self._gen, fmasks=fmasks,
+            states=states, want_preout=True)
+        loss = (self._loss(acts, labs, lmasks, preouts)
                 + self._reg_loss(params))
         leaves = [p for lp in params.values() for p in lp.values()]
         flat = iter(torch.autograd.grad(loss, leaves, allow_unused=True)
@@ -323,50 +335,100 @@ class ComputationGraph:
                 grads[name][k] = torch.zeros_like(p) if g is None else g
         return loss.detach(), grads, new_states
 
-    def _apply_updaters(self, params, grads, ustates, step: int):
-        """(new params, new updater states) — JAX graph.py :275."""
-        new_params, new_ustates = {}, {}
-        for name in params:
-            if not grads[name]:
-                new_params[name] = params[name]
-                new_ustates[name] = ustates[name]
-                continue
-            new_params[name], new_ustates[name] = update_layer(
-                self.conf.vertices[name].layer, self.conf.conf,
-                self._impls[name].WEIGHT_KEYS, params[name], grads[name],
-                ustates[name], step)
-        return new_params, new_ustates
+    def _row_values(self, step: int) -> List[float]:
+        """The scalars of step ``step`` for every layer with params, in
+        the order the step body reads them (nn/updater/apply.py)."""
+        vals: List[float] = []
+        for name, lp in self.params.items():
+            if lp:
+                vals += layer_scalars(self.conf.vertices[name].layer,
+                                      self.conf.conf,
+                                      self._impls[name].WEIGHT_KEYS, lp, step)
+        return vals
 
-    def fit_batch(self, inputs, labels, fmasks=None, lmasks=None):
-        """``conf.iterations`` optimization steps (at least one) on one
-        minibatch (JAX `_fit_one`, graph.py :589); the score stays on the
-        device until read."""
-        self._check_init()
-        algo = (self.conf.conf.optimization_algo
-                or "stochastic_gradient_descent").lower()
-        if algo not in _SGD_ALGOS:
-            raise NotImplementedError(
-                f"optimization_algo={algo!r}: the port trains with "
-                "SGD-family updaters; the line-search solvers come with a "
-                "later slice")
-        ins, labs = self._as_tensors(inputs), self._as_tensors(labels)
-        if (self.conf.backprop_type == BACKPROP_TBPTT
-                and any(a.ndim == 3 for a in ins)):
-            self._do_truncated_bptt(ins, labs, fmasks, lmasks)
-            return
-        for _ in range(max(1, self.conf.conf.iterations)):
-            loss, grads, _ = self._train_grads(ins, labs, fmasks, lmasks)
-            self._update(loss, grads)
+    def _state_tensors(self) -> List[Tensor]:
+        """The tensors a step writes in place."""
+        return ([t for lp in self.params.values() for t in lp.values()]
+                + [t for lu in self.updater_state.values()
+                   for st in lu.values() for t in st.values()])
 
-    def _update(self, loss, grads):
-        self.params, self.updater_state = self._apply_updaters(
-            self.params, grads, self.updater_state, self.step)
+    @torch.no_grad()
+    def _update_(self, grads) -> None:
+        """Every layer's update (JAX graph.py :275), in place, its
+        scalars from the row."""
+        row = iter(self._graphs.row_views)
+        for name, lp in self.params.items():
+            if grads[name]:
+                update_layer_(self.conf.vertices[name].layer,
+                              self._impls[name].WEIGHT_KEYS, lp, grads[name],
+                              self.updater_state[name], row)
+
+    def _step_body(self, ins, labs, fmasks, lmasks, states):
+        """One optimization step on device tensors — what a capture
+        records: (loss, the recurrent vertices' new states)."""
+        loss, grads, new_states = self._grads_on(ins, labs, fmasks, lmasks,
+                                                 states)
+        self._update_(grads)
+        return loss, detach_states(new_states)
+
+    def _accum_body(self, xs, ys):
+        """One update from the mean of K microbatch gradients (JAX
+        `_build_accum_step`, graph.py :375): the K losses."""
+        k = xs[0].shape[0]
+        gsum, losses = None, []
+        for i in range(k):
+            loss, grads, _ = self._grads_on([a[i] for a in xs],
+                                            [a[i] for a in ys], None, None,
+                                            None)
+            losses.append(loss)
+            gsum = grads if gsum is None else {
+                n: {p: gsum[n][p] + g for p, g in lg.items()}
+                for n, lg in grads.items()}
+        self._update_({n: {p: g / k for p, g in lg.items()}
+                       for n, lg in gsum.items()})
+        return torch.stack(losses)
+
+    def _run(self, tag, args, body, row):
+        """One step of ``body`` on ``args`` with the scalars ``row`` (host
+        values, or a device row), captured or eager (nn/step_graph.py)."""
+        self._graphs.set_row(row)
+        return self._graphs.run(tag, args, body, self._state_tensors(),
+                                self._gen)
+
+    def _update(self, loss):
         self._score_raw = loss
         self.step += 1
         for listener in self.listeners:
             listener.iteration_done(self, self.step)
 
-    def _do_truncated_bptt(self, ins, labs, fmasks, lmasks):
+    def fit_batch(self, inputs, labels, fmasks=None, lmasks=None):
+        """``conf.iterations`` optimization steps (at least one) on one
+        minibatch (JAX `_fit_one`, graph.py :589); the score stays on the
+        device until read. A solver ``optimization_algo`` trains through
+        optimize/solver.py; truncated BPTT windows a time series."""
+        self._check_init()
+        algo = algo_of(self.conf.conf)
+        ins, labs = self._as_tensors(inputs), self._as_tensors(labels)
+        fms, lms = self._as_tensors(fmasks), self._as_tensors(lmasks)
+        if (self.conf.backprop_type == BACKPROP_TBPTT
+                and any(a.ndim == 3 for a in ins)):
+            if algo not in SGD_ALGOS:
+                raise NotImplementedError(
+                    f"optimization_algo={algo!r} is not supported with "
+                    "truncated BPTT; use stochastic_gradient_descent")
+            self._do_truncated_bptt(ins, labs, fms, lms)
+            return
+        fmd = None if fms is None else dict(zip(self.conf.network_inputs,
+                                                fms))
+        if algo not in SGD_ALGOS:
+            self._fit_one_solver(algo, ins, labs, fmd, lms)
+            return
+        for _ in range(max(1, self.conf.conf.iterations)):
+            loss, _ = self._run("step", (ins, labs, fmd, lms, None),
+                                self._step_body, self._row_values(self.step))
+            self._update(loss)
+
+    def _do_truncated_bptt(self, ins, labs, fms, lms):
         """One step per window of ``tbptt_fwd_length`` steps over the DAG
         (JAX graph.py :622): 3-d inputs and labels are windowed along time,
         and so is a mask whose array is a time series; anything else goes
@@ -375,7 +437,6 @@ class ComputationGraph:
         vertices run each window stateless."""
         T = max(a.shape[1] for a in ins if a.ndim == 3)
         L = self.conf.tbptt_fwd_length
-        fms, lms = self._as_tensors(fmasks), self._as_tensors(lmasks)
         states = materialize_rnn_states(
             self._impls.items(), {}, ins[0].shape[0], self.compute_dtype,
             self.device, tbptt=True)
@@ -386,37 +447,196 @@ class ComputationGraph:
 
         for start in range(0, T, L):
             end = min(start + L, T)
-            loss, grads, states = self._train_grads(
-                [win(a, start, end, a.ndim == 3) for a in ins],
-                [win(y, start, end, y.ndim == 3) for y in labs],
-                None if fms is None else [
-                    win(m, start, end, ins[i].ndim == 3)
-                    for i, m in enumerate(fms)],
-                None if lms is None else [
-                    win(m, start, end, labs[i].ndim == 3)
-                    for i, m in enumerate(lms)],
-                states)
-            states = detach_states(states)
-            self._update(loss, grads)
+            fmd = None if fms is None else {
+                name: win(m, start, end, ins[i].ndim == 3)
+                for i, (name, m) in enumerate(zip(self.conf.network_inputs,
+                                                  fms))}
+            loss, states = self._run(
+                "step", ([win(a, start, end, a.ndim == 3) for a in ins],
+                         [win(y, start, end, y.ndim == 3) for y in labs], fmd,
+                         None if lms is None else [
+                             win(m, start, end, labs[i].ndim == 3)
+                             for i, m in enumerate(lms)], states),
+                self._step_body, self._row_values(self.step))
+            self._update(loss)
 
     def fit_batch_accumulated(self, inputs, labels, accumulation_steps: int):
-        raise NotImplementedError("gradient accumulation comes with a later "
-                                  "slice")
+        """One optimizer step from ``accumulation_steps`` microbatch
+        gradients, as one captured graph on the card (JAX graph.py :403;
+        the batch axis of every input and label must divide evenly;
+        unmasked). Returns the mean microbatch loss, on the device."""
+        self._check_init()
+        algo = algo_of(self.conf.conf)
+        if algo not in SGD_ALGOS or self.conf.conf.iterations > 1:
+            raise ValueError(
+                "fit_batch_accumulated supports SGD-family training with "
+                f"iterations=1 (got algo={algo!r}, "
+                f"iterations={self.conf.conf.iterations})")
+        k = int(accumulation_steps)
+        if k <= 0:
+            raise ValueError(f"accumulation_steps must be >= 1 (got {k})")
+        ins, outs = self._as_tensors(inputs), self._as_tensors(labels)
+        for a in ins + outs:
+            if a.shape[0] % k:
+                raise ValueError(f"batch {a.shape[0]} not divisible by "
+                                 f"accumulation_steps {k}")
+
+        def split(a):
+            return a.reshape((k, a.shape[0] // k) + tuple(a.shape[1:]))
+        losses = self._run("accum", ([split(a) for a in ins],
+                                     [split(a) for a in outs]),
+                           self._accum_body, self._row_values(self.step))
+        mean_loss = losses.mean()
+        self._update(mean_loss)
+        return mean_loss
+
+    def _can_scan(self) -> bool:
+        return (self.scan_batches > 1 and self.conf.conf.iterations <= 1
+                and algo_of(self.conf.conf) in SGD_ALGOS)
+
+    def fit_scan(self, xs_list, ys_list):
+        """K training steps (JAX graph.py :524): ``xs_list``/``ys_list``
+        one [K, B, ...] stack (or list of K batches) per network input and
+        output, staged on the device once, then K steps (replays on the
+        card) with no host sync between them. Unmasked (fit(iterator)
+        sends masked batches through fit_batch). Returns the device [K]
+        losses."""
+        self._check_init()
+        if not self._can_scan():
+            raise ValueError("fit_scan requires SGD-class training "
+                             "(iterations=1, scan_batches>1)")
+        dt = input_dtype(self.dtype)
+        xs = [stack_on(a, self.device, dt) for a in xs_list]
+        ys = [stack_on(a, self.device, dt) for a in ys_list]
+        if (self.conf.backprop_type == BACKPROP_TBPTT
+                and any(a.ndim == 4 and a.shape[2] > self.conf.tbptt_fwd_length
+                        for a in xs)):
+            raise ValueError(
+                "fit_scan does not window TBPTT sequences longer than "
+                f"tbptt_fwd_length={self.conf.tbptt_fwd_length}; "
+                "pass single windows or use fit()")
+        k = int(xs[0].shape[0])
+        rows = self._graphs.rows([self._row_values(self.step + j)
+                                  for j in range(k)])
+        losses = torch.empty(k, dtype=torch.float32, device=self.device)
+        for j in range(k):
+            loss, _ = self._run("step", ([a[j] for a in xs],
+                                         [a[j] for a in ys], None, None,
+                                         None), self._step_body, rows[j])
+            losses[j].copy_(loss)
+        self.step += k
+        self._score_raw = losses[-1]
+        if self.listeners:
+            host_losses = losses.cpu().numpy()
+            for j in range(k):
+                self._score_raw = float(host_losses[j])
+                for listener in self.listeners:
+                    listener.iteration_done(self, self.step - k + 1 + j)
+        return losses
+
+    def _fit_one_solver(self, algo, ins, labs, fmasks, lmasks):
+        """Whole-graph training under a line-search solver (JAX graph.py
+        :675): the loss over the flat parameter vector, its gradient from
+        autograd, every evaluation drawing the same dropout masks; eager."""
+        from ..optimize.solver import OPTIMIZERS
+        cls = OPTIMIZERS.get(algo)
+        if cls is None:
+            raise ValueError(f"Unknown optimization_algo {algo!r}; "
+                             f"available: {sorted(OPTIMIZERS)}")
+        names = [(n, p) for n in sorted(self.params)
+                 for p in sorted(self.params[n])]
+        flat0 = torch.cat([self.params[n][p].reshape(-1) for n, p in names])
+
+        def unravel(flat):
+            out = {n: {} for n in self.params}
+            off = 0
+            for n, p in names:
+                t = self.params[n][p]
+                out[n][p] = flat[off:off + t.numel()].view(t.shape)
+                off += t.numel()
+            return out
+        at = self._gen.get_state()
+
+        def objective(flat):
+            self._gen.set_state(at)
+            params = unravel(flat)
+            acts, _, preouts = self._forward_impl(
+                params, ins, train=True, gen=self._gen, fmasks=fmasks,
+                want_preout=True)
+            return (self._loss(acts, labs, lmasks, preouts)
+                    + self._reg_loss(params)).float()
+
+        lrs = [v.layer.learning_rate for v in self.conf.vertices.values()
+               if getattr(v, "layer", None) is not None]
+        opt = cls(objective, max_iterations=max(1, self.conf.conf.iterations),
+                  learning_rate=lrs[0] if lrs else 0.1)
+        flat = opt.optimize(flat0.detach())
+        copy_into(self.params, unravel(flat.to(flat0.dtype)))
+        self._update(opt.score_)
 
     def fit(self, data, labels=None):
         """fit(inputs, labels) | fit(DataSet | MultiDataSet) |
-        fit(iterator): one fit_batch per minibatch (iterating an iterator
-        resets it first). The JAX package's lax.scan chunks of the
-        iterator's minibatches have no counterpart here."""
+        fit(iterator): an iterator is prefetched and its runs of
+        ``scan_batches`` same-shape unmasked minibatches fused into one
+        `fit_scan` (JAX graph.py :470)."""
         self._check_init()
         if labels is not None:
             self.fit_batch(data, labels)
         elif hasattr(data, "features"):
             self._fit_dataset(data)
         else:
-            for ds in data:
-                self._fit_dataset(ds)
+            self._fit_iterator(data)
         return self
+
+    def _fit_iterator(self, iterator):
+        from ..datasets.iterators import prefetched
+        source = prefetched(iterator, 2 * self.scan_batches,
+                            pin=self.device.type == "cuda")
+        if (not self._can_scan()
+                or self.conf.backprop_type == BACKPROP_TBPTT):
+            for ds in source:
+                self._fit_dataset(ds)
+            return
+
+        def norm(ds):
+            if hasattr(ds, "features_masks"):
+                return (list(ds.features), list(ds.labels),
+                        ds.features_masks, ds.labels_masks)
+            fm = getattr(ds, "features_mask", None)
+            lm = getattr(ds, "labels_mask", None)
+            return ([ds.features], [ds.labels],
+                    None if fm is None else [fm],
+                    None if lm is None else [lm])
+
+        buf: List[Any] = []
+
+        def flush():
+            if len(buf) < self.scan_batches:
+                for ins, labs, _, _ in buf:
+                    self.fit_batch(ins, labs)
+            else:
+                self.fit_scan([[t[0][i] for t in buf]
+                               for i in range(len(buf[0][0]))],
+                              [[t[1][i] for t in buf]
+                               for i in range(len(buf[0][1]))])
+            buf.clear()
+
+        buf_shapes = None
+        for ds in source:
+            ins, labs, fms, lms = norm(ds)
+            if fms is not None or lms is not None:
+                flush()
+                self.fit_batch(ins, labs, fms, lms)
+                continue
+            shapes = (tuple(tuple(a.shape) for a in ins),
+                      tuple(tuple(a.shape) for a in labs))
+            if buf and shapes != buf_shapes:
+                flush()
+            buf_shapes = shapes
+            buf.append((ins, labs, fms, lms))
+            if len(buf) >= self.scan_batches:
+                flush()
+        flush()
 
     def _fit_dataset(self, ds):
         if hasattr(ds, "features_masks"):  # MultiDataSet
@@ -531,7 +751,8 @@ class ComputationGraph:
 
     def set_params_flat(self, flat: np.ndarray):
         """Load ``flat`` (any float dtype numpy holds, bf16 included), cast
-        to each parameter's dtype."""
+        to each parameter's dtype, into the params in place (the captured
+        steps hold their addresses)."""
         flat = host_floats(flat)
         total = sum(p.numel() for lp in self.params.values()
                     for p in lp.values())
@@ -543,15 +764,13 @@ class ComputationGraph:
             for pname in sorted(self.params[name]):
                 arr = self.params[name][pname]
                 n = arr.numel()
-                self.params[name][pname] = torch.as_tensor(
-                    flat[off:off + n].reshape(tuple(arr.shape))).to(
-                    device=self.device, dtype=arr.dtype)
+                copy_into(arr, torch.as_tensor(
+                    flat[off:off + n].reshape(tuple(arr.shape))))
                 off += n
 
     def set_params(self, params: Dict[str, Dict[str, Tensor]]):
-        """Replace the params with ``params`` (same names and shapes),
-        copied onto the graph's device — e.g. from
-        `util.model_serializer.params_from_jax`."""
+        """Load ``params`` (same names and shapes) into the params in
+        place, e.g. from `util.model_serializer.params_from_jax`."""
         self._check_init()
         if set(params) != set(self.params):
             raise ValueError(f"layer names differ: {sorted(params)} vs "
@@ -566,8 +785,8 @@ class ComputationGraph:
                 if tuple(t.shape) != tuple(cur.shape):
                     raise ValueError(f"{name}.{pname}: shape "
                                      f"{tuple(t.shape)} vs {tuple(cur.shape)}")
-                new[name][pname] = t.to(device=self.device, dtype=cur.dtype)
-        self.params = new
+                new[name][pname] = t
+        copy_into(self.params, new)
 
     def _updater_slots(self):
         """(layer, param, state name) in the JAX flat order (graph.py
@@ -593,9 +812,8 @@ class ComputationGraph:
         for n, p, s in slots:
             t = self.updater_state[n][p][s]
             k = t.numel()
-            self.updater_state[n][p][s] = torch.as_tensor(
-                flat[off:off + k].reshape(tuple(t.shape))).to(
-                device=t.device, dtype=t.dtype)
+            copy_into(t, torch.as_tensor(
+                flat[off:off + k].reshape(tuple(t.shape))))
             off += k
 
     # -- misc ------------------------------------------------------------------

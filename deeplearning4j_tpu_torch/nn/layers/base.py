@@ -19,7 +19,8 @@ compare the two set dropout to 0.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Type
+import threading
+from typing import Dict, List, Optional, Tuple, Type
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -31,6 +32,49 @@ Variables = Dict[str, Tensor]
 LAYER_IMPLS: Dict[str, Type["LayerImpl"]] = {}
 
 
+class _MaskTape:
+    """The dropout masks one checkpointed layer drew at its forward,
+    handed back in order to its recomputation. Active on the thread that
+    runs the layer (the caller's at the forward, the autograd engine's at
+    the recomputation)."""
+
+    _active = threading.local()
+
+    def __init__(self):
+        self.masks: List[Tensor] = []
+        self.recorded = False
+        self.pos = 0
+
+    def __enter__(self):
+        self._active.tape = self
+        self.pos = 0
+        return self
+
+    def __exit__(self, *exc):
+        self._active.tape = None
+        self.recorded = True  # every later entry replays
+
+    def mask(self, shape, keep: float, gen, device) -> Tensor:
+        if not self.recorded:
+            m = dropout_mask(shape, keep, gen, device, taped=False)
+            self.masks.append(m)
+            return m
+        m = self.masks[self.pos]
+        self.pos += 1
+        return m
+
+
+def dropout_mask(shape, keep: float, gen: torch.Generator, device, *,
+                 taped: bool = True) -> Tensor:
+    """One dropout draw: True where a unit is kept (a uniform from
+    ``gen`` below ``keep``); inside a remat layer, the draw its forward
+    recorded."""
+    tape = getattr(_MaskTape._active, "tape", None) if taped else None
+    if tape is not None:
+        return tape.mask(shape, keep, gen, device)
+    return torch.rand(shape, generator=gen, device=device) < keep
+
+
 def remat_forward(impl, *, train: bool, ckpt: bool, recurrent: bool):
     """A layer impl's forward in positional form (JAX base.py :28) —
     recurrent: f(params, x, state0, gen, mask) -> (y, state); otherwise
@@ -38,11 +82,13 @@ def remat_forward(impl, *, train: bool, ckpt: bool, recurrent: bool):
     ``ckpt``, under `torch.utils.checkpoint` (non-reentrant): the backward
     recomputes the layer's internals instead of keeping them.
 
-    Dropout draws from an explicit generator, whose state checkpoint does
-    not restore (it restores only the global RNGs). The recomputation
-    therefore rewinds ``gen`` to its state at the forward, so it draws the
-    same mask — what `jax.checkpoint` gets by replaying the same key — and
-    then puts the generator back where the rest of the step left it."""
+    The recomputation must draw the dropout masks the forward drew (what
+    `jax.checkpoint` gets by replaying the same key). The forward records
+    its masks (one bool per unit) and the recomputation takes them back,
+    so neither touches the generator again: a generator's state cannot be
+    read or set inside a CUDA graph capture, and the train step is
+    captured (nn/step_graph.py). For the same reason checkpoint does not
+    stash the global RNG states (no layer draws from them)."""
     if recurrent:
         def fwd(p, x, s, gen, m):
             return impl.forward_with_state(p, x, s, train=train, gen=gen,
@@ -55,20 +101,13 @@ def remat_forward(impl, *, train: bool, ckpt: bool, recurrent: bool):
         return fwd
 
     def run(p, x, s, gen, m):
-        at_forward = None if gen is None else gen.get_state()
-        calls = [0]
+        tape = _MaskTape()
 
         def body(p, x):
-            calls[0] += 1
-            if calls[0] == 1 or gen is None:
+            with tape:
                 return fwd(p, x, s, gen, m)
-            now = gen.get_state()
-            gen.set_state(at_forward)
-            try:
-                return fwd(p, x, s, gen, m)
-            finally:
-                gen.set_state(now)
-        return checkpoint(body, p, x, use_reentrant=False)
+        return checkpoint(body, p, x, use_reentrant=False,
+                          preserve_rng_state=False)
     return run
 
 
@@ -152,7 +191,7 @@ class LayerImpl:
         if gen is None:
             raise ValueError("dropout requires a generator at train time")
         keep = 1.0 - p
-        mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+        mask = dropout_mask(x.shape, keep, gen, x.device)
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                        device=x.device))
 

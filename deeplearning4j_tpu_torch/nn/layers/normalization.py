@@ -48,9 +48,11 @@ class BatchNormalizationImpl(LayerImpl):
 
     def _ema(self, variables, mean, var):
         vdt = variables["mean"].dtype
-        # the decay in the variables' dtype, so 1 - d rounds as in JAX
-        d = torch.tensor(float(self.conf.decay), dtype=vdt,
-                         device=variables["mean"].device)
+        # the decay in the variables' dtype, so 1 - d rounds as in JAX;
+        # filled on the device (a captured step copies nothing from the
+        # host)
+        d = torch.full((), float(self.conf.decay), dtype=vdt,
+                       device=variables["mean"].device)
         with torch.no_grad():
             return {"mean": d * variables["mean"]
                     + (1.0 - d) * mean.detach().to(vdt),

@@ -1,20 +1,41 @@
 """MultiLayerNetwork: the sequential-network facade — port of
 deeplearning4j_tpu/nn/multilayer.py (init, forward with the BN+pool pair
 fusion and the recurrent layers' states, loss, regularization, the
-hand-written updater step, fit_batch, truncated BPTT, fit, output,
-rnn_time_step, score, evaluate and the flat parameter views).
+hand-written updater step, fit_batch, fit_scan, fit_batch_accumulated,
+truncated BPTT, the line-search solvers, layerwise pretraining, fit,
+output, rnn_time_step, score, evaluate and the flat parameter views).
 
 Autograd replaces `jax.value_and_grad`: a train step makes each parameter
 a leaf that requires grad, runs the train-mode forward, and takes the
 gradients of the batch-mean loss plus the l1/l2 terms with
 `torch.autograd.grad`. The update is the JAX package's `_apply_updaters`
 written out (gradient normalization, lr schedule, bias lr, the updater's
-rule, decoupled weight decay), not `torch.optim`. PyTorch runs eagerly,
-so there is no jit cache and no `fit_scan`: `fit` runs one `fit_batch`
-per minibatch, or, for a truncated-BPTT net fed a time series, one per
-window of ``tbptt_fwd_length`` steps (the last may be shorter), the
-recurrent states carried from window to window and detached between them
-(JAX multilayer.py :679-706).
+rule, decoupled weight decay), not `torch.optim`, and it writes the new
+params, updater state and BatchNorm variables into the net's own tensors
+in place. Its step-dependent scalars (the scheduled lr, momentum, Adam's
+bias corrections) are computed on the host in float32, as JAX computes
+them, and read from one device row (nn/step_graph.py).
+
+The JAX step is one compiled program; the port's is one CUDA graph
+(nn/step_graph.py): with ``train_graphs="on"`` (the default) each step
+on the card replays the graph captured for its key (input, label and mask
+shapes, dtypes, carried states), and the key's first step runs eagerly
+and captures it. ``train_graphs="off"`` runs every step eagerly, as the
+CPU does; nothing falls back to it on its own. ``fit_scan`` runs K steps
+on a [K, B, ...] stack staged on the device once, with no host sync
+between them, and ``fit(iterator)`` prefetches on a worker thread
+(`AsyncDataSetIterator`, pinned batches on the card) and fuses runs of
+``scan_batches`` same-shape unmasked minibatches into one ``fit_scan``
+(JAX multilayer.py :611). A truncated-BPTT net fed a time series takes
+one step per window of ``tbptt_fwd_length`` (the last may be shorter, a
+key of its own), the recurrent states carried from window to window in
+static buffers and detached between them (JAX multilayer.py :679-706).
+
+``optimization_algo`` other than SGD trains through the line-search
+solvers of optimize/solver.py, eagerly: the objective is the loss over
+the flat parameter vector and autograd its gradient. ``conf.pretrain``
+runs greedy layerwise pretraining of the RBM and AutoEncoder layers
+(nn/layers/pretrain.py) before ``fit(iterator)``'s supervised pass.
 
 Remat (``conf.remat``) checkpoints each layer of the train-mode forward
 but the loss path's last layer (nn/layers/base.remat_forward), and then,
@@ -37,8 +58,6 @@ device is present — pass device="cpu" to run on the CPU). The conv and
 BN+act+pool layers run the port's CUDA kernels there (ops/helpers.py),
 the f32 or the bf16 ones by the compute dtype; the recurrent layers run
 plain PyTorch on either device (JAX has no kernel for them).
-Not ported yet, and raising where a config asks for them: solvers other
-than SGD and layerwise pretraining (ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -57,35 +76,22 @@ from .layers import attention as _attention  # noqa: F401
 from .layers import convolution as _convolution
 from .layers import feedforward as _feedforward  # noqa: F401
 from .layers import normalization as _normalization
+from .layers import pretrain as _pretrain
 from .layers import recurrent as _recurrent  # noqa: F401
 from .precision import (cast_floats, compute_dtype_of, dtype_of, host_array,
                         host_floats, input_dtype)
-from .updater.apply import update_layer
+from .step_graph import (SGD_ALGOS, StepGraphs, algo_of, copy_into,
+                         stack_on, to_device)
+from .updater.apply import layer_scalars, update_layer_
 from ..ops import losses as losses_mod
 from ..util.device import DeviceLike, resolve_device
 
 Tensor = torch.Tensor
 
-_SGD_ALGOS = ("stochastic_gradient_descent", "sgd")
-
-
-def _check_supported(conf: MultiLayerConfiguration) -> None:
-    g = conf.conf
-    if conf.pretrain:
-        raise NotImplementedError("layerwise pretraining is queued as "
-                                  "ROADMAP A5")
-    if (g.optimization_algo or "stochastic_gradient_descent").lower() \
-            not in _SGD_ALGOS:
-        raise NotImplementedError(
-            f"optimization_algo={g.optimization_algo!r}: the port trains "
-            "with SGD-family updaters; the line-search solvers are queued "
-            "as ROADMAP A5")
-
-
 class MultiLayerNetwork:
     def __init__(self, conf: MultiLayerConfiguration, *,
-                 device: DeviceLike = "cuda"):
-        _check_supported(conf)
+                 device: DeviceLike = "cuda",
+                 train_graphs: Optional[str] = None):
         self.conf = conf
         self.device = resolve_device(device)
         self.dtype = dtype_of(conf.conf)
@@ -97,11 +103,21 @@ class MultiLayerNetwork:
         self.updater_state: List[Dict[str, Dict[str, Tensor]]] = []
         self.step = 0
         self._score_raw: Any = float("nan")
+        # minibatches fused into one fit_scan by fit(iterator)
+        self.scan_batches = 16
         self.listeners: List[Any] = []
         # dropout masks: a generator on the net's device, seeded by the conf
         self._gen = torch.Generator(device=self.device).manual_seed(
             int(conf.conf.seed))
+        # "on" (default): each step on the card is a captured CUDA graph
+        self._graphs = StepGraphs(
+            self.device, train_graphs, row_dtype=torch.float64
+            if self.dtype == torch.float64 else torch.float32)
         self._initialized = False
+
+    @property
+    def train_graphs(self) -> str:
+        return self._graphs.mode
 
     # ------------------------------------------------------------------ init --
     def init(self, generator: Optional[torch.Generator] = None
@@ -121,6 +137,7 @@ class MultiLayerNetwork:
              for name, p in lp.items()}
             for i, lp in enumerate(self.params)]
         self.step = 0
+        self._graphs.drop()
         self._initialized = True
         return self
 
@@ -143,11 +160,7 @@ class MultiLayerNetwork:
         self._score_raw = v
 
     def _as_tensor(self, a) -> Optional[Tensor]:
-        if a is None:
-            return None
-        t = a if isinstance(a, Tensor) else torch.as_tensor(np.asarray(a))
-        t = t.to(self.device)
-        return t.to(input_dtype(self.dtype)) if t.is_floating_point() else t
+        return to_device(a, self.device, input_dtype(self.dtype))
 
     def _adapt_input(self, x: Tensor) -> Tensor:
         """Flat [B, h*w*c] rows, or [B, h, w] grayscale, fed to a net
@@ -272,18 +285,18 @@ class MultiLayerNetwork:
         variables). The loss is the batch mean plus regularization (JAX
         `_build_loss_fn`, multilayer.py :298), with the BN+pool pairs
         fused."""
-        return self._train_grads(x, y, fmask, lmask)[:3]
-
-    def _train_grads(self, x, y, fmask, lmask, states=None):
-        """(loss, gradients, new variables, new recurrent states): the
-        train step's forward from ``states`` (None: zeros) and backward."""
         self._check_init()
-        x, y = self._as_tensor(x), self._as_tensor(y)
-        fmask, lmask = self._as_tensor(fmask), self._as_tensor(lmask)
+        return self._grads_on(*map(self._as_tensor, (x, y, fmask, lmask)),
+                              None, self.variables)[:3]
+
+    def _grads_on(self, x, y, fmask, lmask, states, variables):
+        """(loss, gradients, new variables, new recurrent states): the
+        train step's forward from ``states`` (None: zeros) and
+        ``variables``, and its backward, on device tensors."""
         params = [{k: v.detach().requires_grad_(True) for k, v in lp.items()}
                   for lp in self.params]
         acts, new_vars, new_states, preout = self._forward_impl(
-            params, self.variables, x, train=True, gen=self._gen,
+            params, variables, x, train=True, gen=self._gen,
             fmask=fmask, states=states, fuse_pairs=True, want_preout=True)
         loss = (self._loss_from_output(acts[-1], y, lmask, preout=preout)
                 + self._reg_loss(params)).float()
@@ -300,20 +313,78 @@ class MultiLayerNetwork:
             grads.append(g)
         return loss.detach(), grads, new_vars, new_states
 
-    def _apply_updaters(self, params, grads, ustates, step: int):
-        """(new params, new updater states) — JAX multilayer.py :262."""
-        new_params, new_ustates = [], []
-        for i, layer_conf in enumerate(self.conf.layers):
-            if not grads[i]:
-                new_params.append(params[i])
-                new_ustates.append(ustates[i])
-                continue
-            lp, lu = update_layer(layer_conf, self.conf.conf,
-                                  self._impls[i].WEIGHT_KEYS, params[i],
-                                  grads[i], ustates[i], step)
-            new_params.append(lp)
-            new_ustates.append(lu)
-        return new_params, new_ustates
+    def _row_values(self, step: int) -> List[float]:
+        """The scalars of step ``step`` for every layer with params, in
+        the order the step body reads them (nn/updater/apply.py)."""
+        vals: List[float] = []
+        for i, lc in enumerate(self.conf.layers):
+            if self.params[i]:
+                vals += layer_scalars(lc, self.conf.conf,
+                                      self._impls[i].WEIGHT_KEYS,
+                                      self.params[i], step)
+        return vals
+
+    def _state_tensors(self) -> List[Tensor]:
+        """The tensors a step writes in place."""
+        return ([t for lp in self.params for t in lp.values()]
+                + [t for lv in self.variables for t in lv.values()]
+                + [t for lu in self.updater_state for st in lu.values()
+                   for t in st.values()])
+
+    @torch.no_grad()
+    def _update_(self, grads) -> None:
+        """Every layer's update, in place, its scalars from the row."""
+        row = iter(self._graphs.row_views)
+        for i, lc in enumerate(self.conf.layers):
+            if grads[i]:
+                update_layer_(lc, self._impls[i].WEIGHT_KEYS, self.params[i],
+                              grads[i], self.updater_state[i], row)
+
+    @torch.no_grad()
+    def _assign_variables(self, new_vars) -> None:
+        for lv, nv in zip(self.variables, new_vars):
+            if nv is not lv:
+                for k, t in nv.items():
+                    lv[k].copy_(t)
+
+    def _step_body(self, x, y, fmask, lmask, states):
+        """One optimization step on device tensors — what a capture
+        records: (loss, the recurrent layers' new states)."""
+        loss, grads, new_vars, new_states = self._grads_on(
+            x, y, fmask, lmask, states, self.variables)
+        self._update_(grads)
+        self._assign_variables(new_vars)
+        return loss, detach_states(new_states)
+
+    def _accum_body(self, xs, ys, fms, lms):
+        """One update from the mean of K microbatch gradients (JAX
+        `_build_accum_step`, multilayer.py :337): BatchNorm statistics
+        per microbatch, carried from one to the next. The K losses."""
+        k = xs.shape[0]
+        variables, gsum, losses = self.variables, None, []
+        for i in range(k):
+            loss, grads, variables, _ = self._grads_on(
+                xs[i], ys[i], None if fms is None else fms[i],
+                None if lms is None else lms[i], None, variables)
+            losses.append(loss)
+            gsum = grads if gsum is None else [
+                {n: gs[n] + g for n, g in lg.items()}
+                for gs, lg in zip(gsum, grads)]
+        self._update_([{n: g / k for n, g in lg.items()} for lg in gsum])
+        self._assign_variables(variables)
+        return torch.stack(losses)
+
+    def _run(self, tag, args, body, row):
+        """One step of ``body`` on ``args`` with the scalars ``row`` (host
+        values, or a device row), captured or eager (nn/step_graph.py)."""
+        self._graphs.set_row(row)
+        return self._graphs.run(tag, args, body, self._state_tensors(),
+                                self._gen)
+
+    def _iteration_done(self):
+        self.step += 1
+        for listener in self.listeners:
+            listener.iteration_done(self, self.step)
 
     def fit_batch(self, x, y, fmask=None, lmask=None, states=None,
                   carry_state: bool = False):
@@ -321,21 +392,173 @@ class MultiLayerNetwork:
         minibatch; the score stays on the device until read. With
         ``carry_state`` each iteration starts the recurrent layers from
         ``states`` (one truncated-BPTT window; JAX multilayer.py :516).
-        Returns the last iteration's new recurrent states."""
+        Returns the last iteration's new recurrent states. A solver
+        ``optimization_algo`` trains through optimize/solver.py."""
         self._check_init()
         x, y = self._as_tensor(x), self._as_tensor(y)
+        fmask, lmask = self._as_tensor(fmask), self._as_tensor(lmask)
+        algo = algo_of(self.conf.conf)
+        if algo not in SGD_ALGOS:
+            if carry_state:
+                raise NotImplementedError(
+                    f"optimization_algo={algo!r} is not supported with "
+                    "truncated BPTT; use stochastic_gradient_descent")
+            return self._fit_batch_solver(algo, x, y, fmask, lmask)
         out_states = states
         for _ in range(max(1, self.conf.conf.iterations)):
-            loss, grads, new_vars, out_states = self._train_grads(
-                x, y, fmask, lmask, states if carry_state else None)
-            self.params, self.updater_state = self._apply_updaters(
-                self.params, grads, self.updater_state, self.step)
-            self.variables = new_vars
+            loss, out_states = self._run(
+                "step", (x, y, fmask, lmask, states if carry_state else None),
+                self._step_body, self._row_values(self.step))
             self._score_raw = loss
-            self.step += 1
-            for listener in self.listeners:
-                listener.iteration_done(self, self.step)
+            self._iteration_done()
         return out_states
+
+    def fit_batch_accumulated(self, x, y, accumulation_steps: int,
+                              fmask=None, lmask=None):
+        """ONE optimizer step on a batch split into ``accumulation_steps``
+        microbatches (the batch must divide evenly): the mean of their
+        gradients, one update, as one captured graph on the card (JAX
+        multilayer.py :376). Equal to ``fit_batch`` on the whole batch for
+        BatchNorm-free, unmasked nets; BatchNorm takes per-microbatch
+        statistics. Returns the mean microbatch loss, on the device."""
+        self._check_init()
+        algo = algo_of(self.conf.conf)
+        if algo not in SGD_ALGOS or self.conf.conf.iterations > 1:
+            raise ValueError(
+                "fit_batch_accumulated supports SGD-family training with "
+                f"iterations=1 (got algo={algo!r}, "
+                f"iterations={self.conf.conf.iterations}); use fit_batch "
+                "for solver-based optimization")
+        k = int(accumulation_steps)
+        if k <= 0:
+            raise ValueError(f"accumulation_steps must be >= 1 (got {k})")
+        x = self._as_tensor(x)
+        if x.shape[0] % k:
+            raise ValueError(f"batch {x.shape[0]} not divisible by "
+                             f"accumulation_steps {k}")
+
+        def split(a):
+            a = self._as_tensor(a)
+            return None if a is None else a.reshape(
+                (k, a.shape[0] // k) + tuple(a.shape[1:]))
+        losses = self._run("accum", (split(x), split(y), split(fmask),
+                                     split(lmask)),
+                           self._accum_body, self._row_values(self.step))
+        mean_loss = losses.mean()
+        self._score_raw = mean_loss
+        self._iteration_done()
+        return mean_loss
+
+    def _can_scan(self) -> bool:
+        return (self.scan_batches > 1
+                and self.conf.conf.iterations <= 1
+                and algo_of(self.conf.conf) in SGD_ALGOS)
+
+    def fit_scan(self, xs, ys, fms=None, lms=None):
+        """K optimization steps, one per ``xs[k]`` (JAX multilayer.py
+        :459): xs, ys (and the masks) [K, B, ...] stacks, or lists of K
+        batches, staged on the device once; then K steps (replays on the
+        card) with no host sync between them, step k's loss written to
+        row k of the returned device [K] tensor. No TBPTT windowing: a
+        TBPTT net takes single windows. Listeners get each step's score,
+        and see the parameters of the chunk's end."""
+        self._check_init()
+        if not self._can_scan():
+            raise ValueError(
+                "fit_scan requires SGD-class training (optimization_algo="
+                "stochastic_gradient_descent, iterations=1, scan_batches>1); "
+                "use fit()/fit_batch for solver-driven or multi-iteration "
+                "configurations")
+        dt = input_dtype(self.dtype)
+        xs, ys = stack_on(xs, self.device, dt), stack_on(ys, self.device, dt)
+        fms, lms = stack_on(fms, self.device, dt), stack_on(lms, self.device,
+                                                           dt)
+        if (self.conf.backprop_type == BACKPROP_TBPTT and xs.ndim == 4
+                and xs.shape[2] > self.conf.tbptt_fwd_length):
+            raise ValueError(
+                f"fit_scan slices have T={xs.shape[2]} > tbptt_fwd_length="
+                f"{self.conf.tbptt_fwd_length}; fit_scan does not window — "
+                "pass single TBPTT windows or use fit()")
+        k = int(xs.shape[0])
+        rows = self._graphs.rows([self._row_values(self.step + j)
+                                  for j in range(k)])
+        losses = torch.empty(k, dtype=torch.float32, device=self.device)
+        for j in range(k):
+            loss, _ = self._run(
+                "step", (xs[j], ys[j], None if fms is None else fms[j],
+                         None if lms is None else lms[j], None),
+                self._step_body, rows[j])
+            losses[j].copy_(loss)
+        self.step += k
+        self._score_raw = losses[-1]
+        if self.listeners:
+            host_losses = losses.cpu().numpy()
+            for j in range(k):
+                self._score_raw = float(host_losses[j])
+                for listener in self.listeners:
+                    listener.iteration_done(self, self.step - k + 1 + j)
+        return losses
+
+    def _flat_params(self):
+        """(the params as one flat vector in the `params_flat` order, a
+        function from such a vector to per-layer dicts of its views)."""
+        names = [(i, k) for i, lp in enumerate(self.params)
+                 for k in sorted(lp)]
+        flat0 = torch.cat([self.params[i][k].reshape(-1) for i, k in names]) \
+            if names else torch.zeros(0, device=self.device)
+
+        def unravel(flat):
+            out = [dict() for _ in self.params]
+            off = 0
+            for i, k in names:
+                t = self.params[i][k]
+                out[i][k] = flat[off:off + t.numel()].view(t.shape)
+                off += t.numel()
+            return out
+        return flat0, unravel
+
+    def _fit_batch_solver(self, algo: str, x, y, fmask, lmask):
+        """Whole-net training under a line-search solver (JAX
+        multilayer.py :546): the objective is the minibatch loss plus
+        regularization over the flat parameter vector, its gradient from
+        autograd, every evaluation drawing the same dropout masks; it
+        runs eagerly, the search branching on the host. ``iterations``
+        bounds the solver's iterations. The BatchNorm variables are
+        refreshed by one train-mode forward at the end."""
+        from ..optimize.solver import OPTIMIZERS
+        cls = OPTIMIZERS.get(algo)
+        if cls is None:
+            raise ValueError(
+                f"Unknown optimization_algo {algo!r}; available: "
+                f"{sorted(OPTIMIZERS)}")
+        flat0, unravel = self._flat_params()
+        at = self._gen.get_state()
+
+        def objective(flat):
+            self._gen.set_state(at)
+            params = unravel(flat)
+            acts, _, _, preout = self._forward_impl(
+                params, self.variables, x, train=True, gen=self._gen,
+                fmask=fmask, want_preout=True)
+            loss = self._loss_from_output(acts[-1], y, lmask, preout=preout)
+            return (loss + self._reg_loss(params)).float()
+
+        lr = self.conf.layers[0].learning_rate if self.conf.layers else 0.1
+        opt = cls(objective, max_iterations=max(1, self.conf.conf.iterations),
+                  learning_rate=lr)
+        flat = opt.optimize(flat0.detach())
+        with torch.no_grad():
+            for lp, nd in zip(self.params, unravel(flat.to(flat0.dtype))):
+                for k, t in nd.items():
+                    lp[k].copy_(t)
+            self._gen.set_state(at)
+            new_vars = self._forward_impl(self.params, self.variables, x,
+                                          train=True, gen=self._gen,
+                                          fmask=fmask)[1]
+            self._assign_variables(new_vars)
+        self._score_raw = opt.score_
+        self._iteration_done()
+        return None
 
     def _fit_one(self, x, y, fmask, lmask):
         x = self._as_tensor(x)
@@ -369,7 +592,8 @@ class MultiLayerNetwork:
 
     # ------------------------------------------------------------------ fit --
     def fit(self, data, labels=None):
-        """fit(DataSetIterator) | fit(DataSet) | fit(x, y)."""
+        """fit(DataSetIterator) | fit(DataSet) | fit(x, y); an iterator
+        first pretrains layerwise where ``conf.pretrain`` is set."""
         self._check_init()
         if labels is not None:
             self._fit_one(data, labels, None, None)
@@ -379,18 +603,121 @@ class MultiLayerNetwork:
                           getattr(data, "features_mask", None),
                           getattr(data, "labels_mask", None))
             return self
+        if self.conf.pretrain:
+            self.pretrain(data)
+            if hasattr(data, "reset"):
+                data.reset()
         if self.conf.backprop:
             self._fit_iterator(data)
         return self
 
     def _fit_iterator(self, iterator):
-        """One fit_batch (or one truncated-BPTT pass) per minibatch of the
-        iterator (iterating resets it first). The JAX package's background
-        prefetch and its lax.scan chunks have no counterpart here yet."""
+        """fit over an iterator (JAX multilayer.py :611): a background
+        prefetch (pinned batches on the card), and runs of
+        ``scan_batches`` same-shape unmasked minibatches fused into one
+        `fit_scan`; a shorter run takes single steps, a masked batch or a
+        truncated-BPTT net one `_fit_one` each."""
+        from ..datasets.iterators import prefetched
+        source = prefetched(iterator, 2 * self.scan_batches,
+                            pin=self.device.type == "cuda")
+        if not (self._can_scan()
+                and self.conf.backprop_type != BACKPROP_TBPTT):
+            for ds in source:
+                self._fit_one(ds.features, ds.labels,
+                              getattr(ds, "features_mask", None),
+                              getattr(ds, "labels_mask", None))
+            return
+        buf: List[Any] = []
+
+        def flush():
+            if len(buf) < self.scan_batches:
+                for d in buf:
+                    self.fit_batch(d.features, d.labels)
+            else:
+                self.fit_scan([d.features for d in buf],
+                              [d.labels for d in buf])
+            buf.clear()
+
+        buf_shapes = None
+        for ds in source:
+            fm = getattr(ds, "features_mask", None)
+            lm = getattr(ds, "labels_mask", None)
+            if fm is not None or lm is not None:
+                flush()
+                self._fit_one(ds.features, ds.labels, fm, lm)
+                continue
+            shapes = (tuple(ds.features.shape), tuple(ds.labels.shape))
+            if buf and shapes != buf_shapes:
+                flush()
+            buf_shapes = shapes
+            buf.append(ds)
+            if len(buf) >= self.scan_batches:
+                flush()
+        flush()
+
+    # ------------------------------------------------------------- pretrain --
+    def pretrain(self, iterator):
+        """Greedy layerwise pretraining (JAX multilayer.py :708): each RBM
+        or AutoEncoder layer in turn takes one step per minibatch of the
+        iterator, on the inference-mode output of the layers below it;
+        the score is each step's CD reconstruction error or loss. The
+        steps run eagerly and leave ``step`` where it was, as in JAX."""
+        self._check_init()
+        for i in range(len(self._impls)):
+            if not self.conf.layers[i].is_pretrain_layer():
+                continue
+            step_fn = self._make_pretrain_step(i)
+            if hasattr(iterator, "reset"):
+                iterator.reset()
+            for ds in iterator:
+                x = self._as_tensor(ds.features)
+                if i > 0:
+                    with torch.no_grad():
+                        x = self._forward_impl(self.params, self.variables,
+                                               x, train=False, upto=i)[0][-1]
+                self._score_raw = float(step_fn(x))
+
+    def _make_pretrain_step(self, i: int, draws=None):
+        """Layer ``i``'s pretraining step x -> loss (JAX multilayer.py
+        :730): the CD-k gradient of an RBM or autograd of an
+        AutoEncoder's denoising loss, then the layer's update with the
+        base lr for every param and the decoupled weight decay. ``draws``
+        (default: the net's generator) supplies the uniforms."""
+        impl = self._impls[i]
+        lc = self.conf.layers[i]
+        gconf = self.conf.conf
+        draws = draws or _pretrain.GeneratorDraws(self._gen)
+
+        def apply(grads):
+            row = layer_scalars(lc, gconf, impl.WEIGHT_KEYS, self.params[i],
+                                self.step, bias_lr=False)
+            update_layer_(lc, impl.WEIGHT_KEYS, self.params[i], grads,
+                          self.updater_state[i], iter(row))
+
+        if isinstance(impl, _pretrain.RBMImpl):
+            def rbm_step(x):
+                with torch.no_grad():
+                    grads, recon = impl.cd_gradient(self.params[i], x, draws)
+                apply(grads)
+                return recon
+            return rbm_step
+        if isinstance(impl, _pretrain.AutoEncoderImpl):
+            def ae_step(x):
+                params = {k: v.detach().requires_grad_(True)
+                          for k, v in self.params[i].items()}
+                loss = impl.pretrain_loss(params, x, draws)
+                names = list(params)
+                gs = torch.autograd.grad(loss, [params[k] for k in names])
+                apply(dict(zip(names, gs)))
+                return loss.detach()
+            return ae_step
+        raise ValueError(f"Layer {i} is not a pretrainable layer")
+
+    def finetune(self, iterator):
+        """The supervised pass after pretraining (JAX multilayer.py
+        :778): one step per minibatch, masks unread."""
         for ds in iterator:
-            self._fit_one(ds.features, ds.labels,
-                          getattr(ds, "features_mask", None),
-                          getattr(ds, "labels_mask", None))
+            self._fit_one(ds.features, ds.labels, None, None)
 
     # ---------------------------------------------------------- inference ----
     @torch.no_grad()
@@ -523,13 +850,14 @@ class MultiLayerNetwork:
 
     def set_params_flat(self, flat: np.ndarray):
         """Load ``flat`` (any float dtype numpy holds, a JAX bf16 net's
-        included), cast to each parameter's dtype."""
+        included), cast to each parameter's dtype, into the params in
+        place (the captured steps hold their addresses)."""
         self._check_init()
-        self.params = self._unflatten(flat, self.params)
+        copy_into(self.params, self._unflatten(flat, self.params))
 
     def set_params(self, params: List[Dict[str, Tensor]]):
-        """Replace the params with ``params`` (one dict per layer, same
-        names and shapes), copied onto the net's device — e.g. from
+        """Load ``params`` (one dict per layer, same names and shapes)
+        into the params in place, e.g. from
         `util.model_serializer.params_from_jax`."""
         self._check_init()
         if len(params) != len(self.params):
@@ -545,9 +873,9 @@ class MultiLayerNetwork:
                 if tuple(v.shape) != tuple(t.shape):
                     raise ValueError(f"layer {i}.{name}: shape "
                                      f"{tuple(v.shape)} vs {tuple(t.shape)}")
-                nd[name] = v.to(device=self.device, dtype=t.dtype)
+                nd[name] = v
             new.append(nd)
-        self.params = new
+        copy_into(self.params, new)
 
     def updater_state_flat(self) -> np.ndarray:
         chunks = [lu[name][s].detach().cpu().numpy().reshape(-1)
@@ -556,6 +884,7 @@ class MultiLayerNetwork:
         return np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
 
     def set_updater_state_flat(self, flat: np.ndarray):
+        """Load ``flat`` into the updater state in place."""
         self._check_init()
         flat = np.asarray(flat)
         off = 0
@@ -565,16 +894,14 @@ class MultiLayerNetwork:
             for name in sorted(lu):
                 nlu[name] = {}
                 for s in sorted(lu[name]):
-                    t = lu[name][s]
-                    n = t.numel()
+                    n = lu[name][s].numel()
                     nlu[name][s] = torch.as_tensor(
-                        flat[off:off + n].reshape(tuple(t.shape))).to(
-                        device=t.device, dtype=t.dtype)
+                        flat[off:off + n].reshape(tuple(lu[name][s].shape)))
                     off += n
             new.append(nlu)
         if off != flat.size:
             raise ValueError(f"Expected {off} updater values, got {flat.size}")
-        self.updater_state = new
+        copy_into(self.updater_state, new)
 
     # ------------------------------------------------------------- misc ------
     def set_listeners(self, *listeners):

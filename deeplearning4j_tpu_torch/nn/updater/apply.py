@@ -5,10 +5,17 @@ the lr schedule, the bias lr, the updater's rule, decoupled weight decay.
 Updater state is f32 whatever the parameter dtype; a bf16 parameter takes
 its lr rounded to bf16 and a delta computed in f32 and cast to bf16, as in
 the JAX package (updaters.py :33-37).
+
+The step is split in two. `layer_scalars` computes on the host, in numpy
+float32 as JAX does, every value that depends on the step; the facades
+pack them into one row that is copied to the device before each step
+(nn/step_graph.py). `update_layer_` runs on the device, reads its scalars
+from that row and writes the new parameters and updater state into the
+net's own tensors, in place, so that a captured step replays it.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Iterator, List
 
 import numpy as np
 import torch
@@ -17,45 +24,73 @@ from .gradnorm import apply_gradient_normalization
 from .schedules import effective_lr
 
 Tensor = torch.Tensor
+BIAS_KEYS = ("b", "vb", "beta")
 
 
-@torch.no_grad()
-def update_layer(layer_conf, gconf, weight_keys, params: Dict[str, Tensor],
-                 grads: Dict[str, Tensor], ustates: Dict[str, dict],
-                 step: int) -> Tuple[Dict[str, Tensor], Dict[str, dict]]:
-    """(new params, new updater states) of one layer whose resolved config
-    is ``layer_conf``; ``gconf`` the network's NeuralNetConfiguration,
-    ``weight_keys`` the params weight decay applies to."""
-    grads = apply_gradient_normalization(
-        grads, layer_conf.gradient_normalization or "none",
-        layer_conf.gradient_normalization_threshold or 1.0)
+def _rates(layer_conf):
+    """(base lr, bias lr, weight decay) of a resolved layer config."""
     updater = layer_conf.updater
     base_lr = updater_lr = getattr(updater, "learning_rate", -1.0)
     if updater_lr is None or updater_lr < 0:
         base_lr = layer_conf.learning_rate
     bias_lr = layer_conf.bias_learning_rate or base_lr
     wd = float(getattr(updater, "weight_decay", 0.0) or 0.0)
-    new_params, new_states = {}, {}
-    for name, g in grads.items():
-        lr0 = bias_lr if name in ("b", "vb", "beta") else base_lr
+    return base_lr, bias_lr, wd
+
+
+def layer_scalars(layer_conf, gconf, weight_keys, params: Dict[str, Tensor],
+                  step: int, *, bias_lr: bool = True) -> List[float]:
+    """The step's scalars of one layer whose resolved config is
+    ``layer_conf`` (``gconf`` the network's NeuralNetConfiguration),
+    param by param in ``params`` order: the updater's ``scalars`` (the
+    scheduled lr first), then lr * weight decay where the decay applies
+    (``weight_keys``). ``bias_lr`` False gives the biases the base lr
+    (the JAX pretrain step, multilayer.py :746)."""
+    base_lr, blr, wd = _rates(layer_conf)
+    out: List[float] = []
+    for name, p in params.items():
+        lr0 = blr if bias_lr and name in BIAS_KEYS else base_lr
         lr = effective_lr(lr0, step, gconf.lr_policy,
                           gconf.lr_policy_decay_rate, gconf.lr_policy_power,
                           gconf.lr_policy_steps, gconf.max_num_iterations,
                           gconf.lr_schedule)
-        p = params[name]
-        if g.dtype != torch.float32:
+        if p.dtype != torch.float32:
             # the lr in the gradient's dtype, as JAX rounds it (graph.py
-            # :301), and the decay in the param's (:305); the updaters then
-            # compute in f32 and cast the delta to the gradient's dtype
-            lr = float(torch.tensor(lr, dtype=g.dtype))
-        delta, new_state = updater.apply(ustates[name], g, lr, step)
+            # :301), and the decay in the param's (:305)
+            lr = float(torch.tensor(lr, dtype=p.dtype))
+        out.extend(layer_conf.updater.scalars(lr, step))
         if wd and name in weight_keys:  # decoupled (AdamW-style) decay
             if p.dtype == torch.float32:
-                delta = delta - float(np.float32(lr) * np.float32(wd)) * p
+                out.append(float(np.float32(lr) * np.float32(wd)))
             else:
-                delta = delta - (torch.tensor(lr, dtype=p.dtype)
-                                 * torch.tensor(wd, dtype=p.dtype)).to(
-                                     p.device) * p
-        new_params[name] = p + delta
-        new_states[name] = new_state
-    return new_params, new_states
+                out.append(float(torch.tensor(lr, dtype=p.dtype)
+                                 * torch.tensor(wd, dtype=p.dtype)))
+    return out
+
+
+@torch.no_grad()
+def update_layer_(layer_conf, weight_keys, params: Dict[str, Tensor],
+                  grads: Dict[str, Tensor], ustates: Dict[str, dict],
+                  row: Iterator) -> None:
+    """One layer's update, in place: ``params`` and ``ustates`` (the
+    net's own tensors) take their new values; the scalars come from
+    ``row``, an iterator over the values `layer_scalars` computed for this
+    layer (0-d device tensors in the train step)."""
+    grads = apply_gradient_normalization(
+        grads, layer_conf.gradient_normalization or "none",
+        layer_conf.gradient_normalization_threshold or 1.0)
+    updater = layer_conf.updater
+    n = len(updater.scalars(0.0, 0))
+    wd = _rates(layer_conf)[2]
+    for name, g in grads.items():
+        s = [next(row) for _ in range(n)]
+        p = params[name]
+        delta, new_state = updater.update(ustates[name], g, s)
+        if wd and name in weight_keys:
+            wlr = next(row)
+            if isinstance(wlr, Tensor) and wlr.dtype != p.dtype:
+                wlr = wlr.to(p.dtype)
+            delta = delta - wlr * p
+        p.add_(delta)
+        for k, t in new_state.items():
+            ustates[name][k].copy_(t)

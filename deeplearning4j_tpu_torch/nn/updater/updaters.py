@@ -8,11 +8,18 @@ package's, written out by hand: DL4J's Nesterov look-ahead and Adam are
 not `torch.optim`'s. State is kept in float32 whatever the parameter
 dtype, and the scalar constants (1 - beta1, 1 + mu, beta ** t) are
 rounded to float32 as JAX computes them.
+
+The rule is split in two so that a captured train step can replay it:
+``scalars(lr, step)`` computes on the host, in numpy float32, every value
+that depends on the step (the scheduled lr, the momentum schedule's mu,
+Adam's bias corrections), and ``update(state, grad, s)`` reads them from
+``s``, 0-d tensors sliced from the step's device row (nn/step_graph.py) or
+plain floats; ``apply`` is the two in turn.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,9 +49,17 @@ class UpdaterConfig:
     def init_state(self, param: Tensor) -> State:
         return {}
 
+    def scalars(self, lr: float, step: int) -> Tuple[float, ...]:
+        """The step-dependent scalars ``update`` reads, the lr first."""
+        return (_f32(lr),)
+
+    def update(self, state: State, grad: Tensor, s: Sequence
+               ) -> Tuple[Tensor, State]:
+        raise NotImplementedError
+
     def apply(self, state: State, grad: Tensor, lr: float, step: int
               ) -> Tuple[Tensor, State]:
-        raise NotImplementedError
+        return self.update(state, grad, self.scalars(lr, step))
 
 
 @register
@@ -52,8 +67,8 @@ class UpdaterConfig:
 class Sgd(UpdaterConfig):
     learning_rate: float = -1.0
 
-    def apply(self, state, grad, lr, step):
-        return -_f32(lr) * grad, state
+    def update(self, state, grad, s):
+        return -s[0] * grad, state
 
 
 @register
@@ -61,7 +76,7 @@ class Sgd(UpdaterConfig):
 class NoOp(UpdaterConfig):
     """Gradient applied raw (reference NoOpUpdater)."""
 
-    def apply(self, state, grad, lr, step):
+    def update(self, state, grad, s):
         return -grad, state
 
 
@@ -84,13 +99,17 @@ class Nesterovs(UpdaterConfig):
                 mu = np.float32(m)
         return mu
 
-    def apply(self, state, grad, lr, step):
-        g = grad.float()
+    def scalars(self, lr, step):
         mu = self._momentum(step)
+        return (_f32(lr), float(mu), float(np.float32(1.0) + mu))
+
+    def update(self, state, grad, s):
+        lr, mu, one_mu = s[0], s[1], s[2]
+        g = grad.float()
         v = state["v"]
-        v_new = float(mu) * v - _f32(lr) * g
+        v_new = mu * v - lr * g
         # Nesterov look-ahead: params += -mu * v + (1 + mu) * v_new
-        delta = float(np.float32(1.0) + mu) * v_new - float(mu) * v
+        delta = one_mu * v_new - mu * v
         return delta.to(grad.dtype), {"v": v_new}
 
 
@@ -110,15 +129,21 @@ class Adam(UpdaterConfig):
     def init_state(self, param):
         return _zeros(param, ("m", "u"))
 
-    def apply(self, state, grad, lr, step):
-        g = grad.float()
+    def scalars(self, lr, step):
+        """(lr, 1 - beta1 ** t, 1 - beta2 ** t) at t = step + 1."""
         t = np.float32(step + 1)
+        b1, b2 = np.float32(self.beta1), np.float32(self.beta2)
+        return (_f32(lr), float(np.float32(1.0) - np.power(b1, t)),
+                float(np.float32(1.0) - np.power(b2, t)))
+
+    def update(self, state, grad, s):
+        g = grad.float()
         b1, b2 = np.float32(self.beta1), np.float32(self.beta2)
         m = float(b1) * state["m"] + float(np.float32(1.0) - b1) * g
         u = float(b2) * state["u"] + float(np.float32(1.0) - b2) * g * g
-        mhat = m / float(np.float32(1.0) - np.power(b1, t))
-        uhat = u / float(np.float32(1.0) - np.power(b2, t))
-        delta = -_f32(lr) * mhat / (torch.sqrt(uhat) + self.epsilon)
+        mhat = m / s[1]
+        uhat = u / s[2]
+        delta = -s[0] * mhat / (torch.sqrt(uhat) + self.epsilon)
         return delta.to(grad.dtype), {"m": m, "u": u}
 
 
@@ -131,10 +156,10 @@ class AdaGrad(UpdaterConfig):
     def init_state(self, param):
         return _zeros(param, ("h",))
 
-    def apply(self, state, grad, lr, step):
+    def update(self, state, grad, s):
         g = grad.float()
         h = state["h"] + g * g
-        delta = -_f32(lr) * g / (torch.sqrt(h) + self.epsilon)
+        delta = -s[0] * g / (torch.sqrt(h) + self.epsilon)
         return delta.to(grad.dtype), {"h": h}
 
 
@@ -147,7 +172,7 @@ class AdaDelta(UpdaterConfig):
     def init_state(self, param):
         return _zeros(param, ("eg", "edx"))
 
-    def apply(self, state, grad, lr, step):
+    def update(self, state, grad, s):
         g = grad.float()
         rho = np.float32(self.rho)
         one_m = float(np.float32(1.0) - rho)
@@ -168,11 +193,11 @@ class RmsProp(UpdaterConfig):
     def init_state(self, param):
         return _zeros(param, ("eg",))
 
-    def apply(self, state, grad, lr, step):
+    def update(self, state, grad, s):
         g = grad.float()
         d = np.float32(self.rms_decay)
         eg = float(d) * state["eg"] + float(np.float32(1.0) - d) * g * g
-        delta = -_f32(lr) * g / torch.sqrt(eg + self.epsilon)
+        delta = -s[0] * g / torch.sqrt(eg + self.epsilon)
         return delta.to(grad.dtype), {"eg": eg}
 
 
@@ -187,15 +212,19 @@ class AdaMax(UpdaterConfig):
     def init_state(self, param):
         return _zeros(param, ("m", "u"))
 
-    def apply(self, state, grad, lr, step):
-        g = grad.float()
+    def scalars(self, lr, step):
+        """(lr, -lr / (1 - beta1 ** t)) at t = step + 1."""
         t = np.float32(step + 1)
+        b1 = np.float32(self.beta1)
+        return (_f32(lr), float(np.float32(-_f32(lr))
+                                / (np.float32(1.0) - np.power(b1, t))))
+
+    def update(self, state, grad, s):
+        g = grad.float()
         b1 = np.float32(self.beta1)
         m = float(b1) * state["m"] + float(np.float32(1.0) - b1) * g
         u = torch.maximum(_f32(self.beta2) * state["u"], torch.abs(g))
-        scale = float(np.float32(-_f32(lr))
-                      / (np.float32(1.0) - np.power(b1, t)))
-        delta = scale * m / (u + self.epsilon)
+        delta = s[1] * m / (u + self.epsilon)
         return delta.to(grad.dtype), {"m": m, "u": u}
 
 

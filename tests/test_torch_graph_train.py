@@ -214,14 +214,22 @@ def test_what_the_slice_leaves_out_raises():
     tnet.fit(x, y)
     assert tnet.step == jnet.step == 3  # windows of 4, 4 and 1 steps
     assert tnet.score_ == pytest.approx(float(jnet.score_), rel=1e-5)
+    # the line-search solvers train the graph (ROADMAP A5), eagerly; a
+    # solver under truncated BPTT stays refused, as in JAX
     conf = tlm(**_kw("mha"))
     conf.conf.optimization_algo = "lbfgs"
-    with pytest.raises(NotImplementedError, match="solvers"):
+    solved = TGraph(conf, device="cpu").init()
+    solved.fit(x, y)
+    assert solved.step == 1 and np.isfinite(solved.score_)
+    conf.backprop_type = BACKPROP_TBPTT
+    with pytest.raises(NotImplementedError, match="truncated BPTT"):
         TGraph(conf, device="cpu").fit(x, y)
     conf = tlm(**_kw("mha"))
     conf.conf.compute_dtype = "float16"
     with pytest.raises(ValueError, match="compute_dtype"):
         TGraph(conf, device="cpu").init().fit(x, y)
-    with pytest.raises(NotImplementedError, match="accumulation"):
+    # gradient accumulation is ported (ROADMAP A5): an indivisible batch
+    # is refused as JAX refuses it
+    with pytest.raises(ValueError, match="not divisible"):
         TGraph(tlm(**_kw("mha")), device="cpu").fit_batch_accumulated(
-            x, y, 3)
+            x, y, 2)

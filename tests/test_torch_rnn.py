@@ -470,10 +470,17 @@ def test_jax_output_of_a_masked_sequence_matches():
 
 
 def test_refusals_name_roadmap_a5():
+    # ROADMAP A5 ported pretraining and the solvers: both configs build;
+    # what stays is JAX's refusal of a solver under truncated BPTT
     pretrain = MultiLayerConfiguration.from_json(_char_conf().to_json())
     pretrain.pretrain = True
+    TNet(pretrain, device="cpu").init()
     lbfgs = MultiLayerConfiguration.from_json(_char_conf().to_json())
     lbfgs.conf.optimization_algo = "lbfgs"
-    for conf in (pretrain, lbfgs):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            TNet(conf, device="cpu")
+    x = np.eye(V, dtype=np.float32)[
+        np.random.default_rng(0).integers(0, V, (2, 2 * L))]
+    jnet = JNet(jconfig.MultiLayerConfiguration.from_json(
+        lbfgs.to_json())).init()
+    for net in (jnet, TNet(lbfgs, device="cpu").init()):
+        with pytest.raises(NotImplementedError, match="truncated BPTT"):
+            net.fit(x, x)

@@ -455,12 +455,36 @@ non-zero without them, or when any phase fails. Phases:
      steps under torch.cuda.set_sync_debug_mode("error"). Every earlier
      training phase runs captured too, its launch gates counting
      replays; their plain references run eagerly;
- 30. prints the kernels line (the bf16 kernels as rows of their own,
+ 30. ComputationGraph vertices, BatchNorm variables, early stopping and
+     gradient checks (cuDNN on its deterministic algorithms): (a)
+     AlexNet-CIFAR10 at full width as a ComputationGraph, one
+     LayerVertex a layer of the list (the dense vertex with the list's
+     CnnToFeedForward, a FeedForwardToCnn on the first), on the CIFAR-10
+     iterator's offline stand-in at B=512: 5 Adam steps captured against
+     train_graphs="off", losses, params, updater state and BN variables
+     bitwise, launches equal step for step, row 3's 3 a step (the graph
+     does not fuse BN + pool); eval outputs against the
+     MultiLayerNetwork on the same params and BN variables within 1e-5
+     of max |network output|; (b) early stopping on a fresh such graph
+     (8 train batches of 512, 2 held out, MaxEpochs(4),
+     ScoreImprovement(2), InMemoryModelSaver): epochs, best epoch, score
+     per epoch, the best model's accuracy; the best model written with
+     write_model and restored on the card, and through
+     LocalFileModelSaver: outputs, params and variables bitwise; (c)
+     examples/seq2seq_addition.py's graph at its widths (GravesLSTM 64,
+     B=128): 5 steps captured against eager bitwise, 200 captured
+     steps, the loss at steps 0/100/200 and the digit accuracy on 256
+     fresh problems (a report); (d) check_gradients at float64 on the
+     card, a conv + BN + dense network and a masked GravesLSTM one,
+     every parameter passing (the plain paths: the conv's kw*c < 8);
+     (e) the phase's seconds; alone: `python3 tools/phase30_alone.py`;
+ 31. prints the kernels line (the bf16 kernels as rows of their own,
      named "<kernel>_bf16"; the paged rows carry phase 26's masked-wave
      launches as "masked_launches", phase 27a's as
      "speculating_launches" and phase 28's wave C as "tiered_launches",
      the fp32 row phase 27e's int8-clone launches as
-     "int8_graph_launches").
+     "int8_graph_launches"; the f32 conv row phase 30a's launches of
+     each captured graph step as "graph_launches_per_step").
 
 The last line is {"ok": true, "device": {...}}. Every number printed is
 measured in this run; a "[details]" JSON line before the kernels line
@@ -4585,11 +4609,13 @@ ACCUM_TOL = 1e-5        # 29c: accumulated K = 4 against the full batch,
 
 def tg_state(net):
     """Host copies of everything a step writes: the params, the updater
-    state and (MultiLayerNetwork) the BatchNorm variables, flat."""
+    state and the BatchNorm variables (a network's list, a graph's dict
+    by sorted vertex name), flat."""
     import numpy as np
     from deeplearning4j_tpu_torch.nn.precision import host_array
     parts = [net.params_flat(), net.updater_state_flat()]
-    for lv in getattr(net, "variables", []):
+    vs = net.variables
+    for lv in ([vs[k] for k in sorted(vs)] if isinstance(vs, dict) else vs):
         parts += [host_array(lv[k]).reshape(-1) for k in sorted(lv)]
     return np.concatenate([p.astype(np.float64) for p in parts])
 
@@ -4923,6 +4949,379 @@ def tg_compare(torch, ck, card, rows, failures):
                   f"{on['captures']} captures, {on['replays']} replays "
                   f"[{card}]")
     return tg_new_entry_points(torch, ck, failures)
+
+
+# -- phase 30: ComputationGraph vertices, BN variables, early stopping --------
+
+CG_STEPS = 5            # 30a, 30c: captured against eager
+CG_OUT_REL = 1e-5       # 30a: graph against the network, eval outputs,
+                        # max |diff| / max |network output|
+ES_B = 512              # 30b: the early-stopping batches
+ES_TRAIN, ES_HELD = 8, 2
+ES_MAX_EPOCHS, ES_PATIENCE = 4, 2
+S2S_B, S2S_HIDDEN, S2S_STEPS, S2S_EVAL = 128, 64, 200, 256
+S2S_VOCAB = "0123456789+ "  # examples/seq2seq_addition.py's 12 symbols
+S2S_Q, S2S_A = 5, 3
+P30_DEV = "cuda"        # "cpu" rehearses phase 30 (with smaller sizes)
+
+
+def alexnet_graph_conf():
+    """alexnet_cifar10() as a ComputationGraph: one LayerVertex per layer
+    of the list after shape inference, named l00-l10 in layer order (the
+    graph's init, by sorted name, then draws the list's params), each
+    with the list's preprocessor (CnnToFeedForward on the dense vertex),
+    and a FeedForwardToCnn on the first, so flat CIFAR rows feed it."""
+    import copy
+    from deeplearning4j_tpu_torch.models.zoo import alexnet_cifar10
+    from deeplearning4j_tpu_torch.nn.conf.graph import GraphBuilder
+    from deeplearning4j_tpu_torch.nn.conf.preprocessors import \
+        FeedForwardToCnnPreProcessor
+    conf = alexnet_cifar10()
+    gb = GraphBuilder(copy.deepcopy(conf.conf)).add_inputs("in")
+    src = "in"
+    for i, lc in enumerate(conf.layers):
+        pre = conf.preprocessor(i)
+        if i == 0:
+            pre = FeedForwardToCnnPreProcessor(32, 32, 3)
+        gb.add_layer(f"l{i:02d}", lc, src, preprocessor=pre)
+        src = f"l{i:02d}"
+    return gb.set_outputs(src).build(), conf
+
+
+def graph_steps(torch, ck, net, feeds):
+    """One fit_batch per (inputs, labels) of ``feeds``: the losses, each
+    step's launches (up to a synchronize) and host seconds."""
+    lis = WindowLosses()
+    net.set_listeners(lis)
+    launches, secs = [], []
+    for ins, labs in feeds:
+        sync(torch, P30_DEV)
+        ck.reset_launches()
+        t0 = time.monotonic()
+        net.fit_batch(ins, labs)
+        sync(torch, P30_DEV)
+        secs.append(time.monotonic() - t0)
+        launches.append({k: v for k, v in ck.LAUNCHES.items() if v})
+    net.set_listeners()
+    return lis.values(), launches, secs
+
+
+def graph_alexnet(torch, ck, card, data, failures):
+    """30a: AlexNet as a graph, 5 Adam steps captured against eager, then
+    held against the MultiLayerNetwork on the same params and BN
+    variables (eval outputs)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    gconf, lconf = alexnet_graph_conf()
+    x = data.features.reshape(-1, 32, 32, 3)
+    batches = [(torch.from_numpy(x[k * ES_B:(k + 1) * ES_B]).to(P30_DEV),
+                torch.from_numpy(data.labels[k * ES_B:(k + 1) * ES_B]).to(
+                    P30_DEV)) for k in range(ES_TRAIN + ES_HELD)]
+    runs = {}
+    for mode in ("on", "off"):
+        g = ComputationGraph(gconf, device=P30_DEV, train_graphs=mode).init()
+        losses, launches, secs = graph_steps(
+            torch, ck, g, [([xb], [yb]) for xb, yb in batches[:CG_STEPS]])
+        runs[mode] = {"net": g, "losses": losses, "launches": launches,
+                      "secs": secs, "state": tg_state(g)}
+    on, off = runs["on"], runs["off"]
+    bitwise = (on["losses"] == off["losses"]
+               and np.array_equal(on["state"], off["state"]))
+    gap = 0.0 if bitwise else float(np.abs(on["state"] - off["state"]).max())
+    per_step = [l.get("conv2d_bias_act", 0) for l in on["launches"]]
+    g = on["net"]
+    if not bitwise:
+        failures.append(f"30a: captured against eager differ by {gap}")
+    if on["launches"] != off["launches"] or per_step != [3] * CG_STEPS:
+        failures.append(f"30a: launches captured {on['launches']}, eager "
+                        f"{off['launches']}")
+    if g._graphs.captures != int(P30_DEV != "cpu") or \
+            g._graphs.replays != (CG_STEPS - 1) * int(P30_DEV != "cpu"):
+        failures.append(f"30a: {g._graphs.captures} captures, "
+                        f"{g._graphs.replays} replays")
+    # the network on the graph's params and BN variables
+    mln = MultiLayerNetwork(lconf, device=P30_DEV).init()
+    init_equal = np.array_equal(
+        mln.params_flat(), ComputationGraph(gconf, device=P30_DEV).init()
+        .params_flat())
+    mln.set_params_flat(g.params_flat())
+    for i, lv in enumerate(mln.variables):
+        for k, t in lv.items():
+            t.copy_(g.variables[f"l{i:02d}"][k])
+    xh = batches[-1][0]
+    ref = mln.output(xh)
+    got = g.output(xh)[0]
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    if not (init_equal and rel <= CG_OUT_REL):
+        failures.append(f"30a: graph against the network: init equal "
+                        f"{init_equal}, outputs {rel}")
+    ms = {m: statistics.median(r["secs"][1:]) * 1e3 for m, r in runs.items()}
+    out = {"params": g.num_params(), "losses": on["losses"],
+           "captured_vs_eager_bitwise": bitwise, "gap": gap,
+           "conv_launches_per_step": per_step,
+           "launches_per_step": on["launches"][-1],
+           "captures": g._graphs.captures, "replays": g._graphs.replays,
+           "step_ms": ms, "vs_network_rel": rel, "init_equal": init_equal}
+    phase(30, f"(a) AlexNet-CIFAR10 as a ComputationGraph ({out['params']} "
+              f"params, B={ES_B}, data {data.source}): {CG_STEPS} Adam steps "
+              f"captured against eager bitwise {bitwise} (gap {gap}), losses "
+              f"{on['losses']}; row 3 (conv2d_bias_act) launches a step "
+              f"{per_step} (the graph does not fuse BN + pool: launches "
+              f"{on['launches'][-1]}); step {ms['on']:.3f} ms captured, "
+              f"{ms['off']:.3f} eager; eval outputs against the "
+              f"MultiLayerNetwork on the same params and BN variables: "
+              f"max |diff| / max |ref| {rel:.3e} (gate {CG_OUT_REL}) [{card}]")
+    return out
+
+
+def graph_early_stopping(torch, card, data, failures):
+    """30b: early stopping on a fresh AlexNet graph, the best model
+    written and restored, in memory and through LocalFileModelSaver."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.iterators import \
+        ListDataSetIterator
+    from deeplearning4j_tpu_torch.earlystopping import earlystopping as es
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.model_serializer import (
+        restore_computation_graph, write_model)
+    n_train = ES_TRAIN * ES_B
+    train = DataSet(data.features[:n_train], data.labels[:n_train])
+    held = DataSet(data.features[n_train:], data.labels[n_train:])
+    held_it = ListDataSetIterator(held, ES_B)
+    net = ComputationGraph(alexnet_graph_conf()[0], device=P30_DEV).init()
+    cfg = es.EarlyStoppingConfiguration(
+        score_calculator=es.DataSetLossCalculator(held_it),
+        model_saver=es.InMemoryModelSaver(),
+        epoch_termination_conditions=[
+            es.MaxEpochsTerminationCondition(ES_MAX_EPOCHS),
+            es.ScoreImprovementEpochTerminationCondition(ES_PATIENCE)])
+    t0 = time.monotonic()
+    result = es.EarlyStoppingTrainer(
+        cfg, net, ListDataSetIterator(train, ES_B)).fit()
+    fit_s = time.monotonic() - t0
+    best = result.best_model
+    acc = best.evaluate(held_it).accuracy()
+    xh = held.features[:ES_B]
+    want = best.output(xh)[0]
+    trips = {}
+    with tempfile.TemporaryDirectory() as d:
+        write_model(best, Path(d) / "best.zip")
+        back = restore_computation_graph(Path(d) / "best.zip",
+                                         device=P30_DEV)
+        saver = es.LocalFileModelSaver(str(Path(d) / "saver"))
+        saver.save_best_model(best, result.best_model_score)
+        from_saver = saver.get_best_model()
+        for name, g in (("write_model", back), ("LocalFileModelSaver",
+                                                from_saver)):
+            vars_equal = all(torch.equal(g.variables[v][k],
+                                         best.variables[v][k])
+                             for v in best.variables
+                             for k in best.variables[v])
+            trips[name] = {
+                "graph": type(g).__name__, "device": str(g.device),
+                "outputs_bitwise": bool(torch.equal(g.output(xh)[0], want)),
+                "params_bitwise": bool(np.array_equal(g.params_flat(),
+                                                      best.params_flat())),
+                "variables_bitwise": vars_equal, "step": g.step}
+    for name, t in trips.items():
+        if not (t["graph"] == "ComputationGraph" and t["outputs_bitwise"]
+                and t["params_bitwise"] and t["variables_bitwise"]
+                and t["device"].startswith(P30_DEV)):
+            failures.append(f"30b: {name} round trip {t}")
+    scores = [result.score_vs_epoch[e] for e in sorted(result.score_vs_epoch)]
+    if not (result.total_epochs <= ES_MAX_EPOCHS
+            and all(np.isfinite(scores)) and 0.0 <= acc <= 1.0
+            and result.best_model_score == min(scores)):
+        failures.append(f"30b: early stopping {result}")
+    out = {"epochs": result.total_epochs,
+           "best_epoch": result.best_model_epoch,
+           "score_per_epoch": scores, "reason": result.termination_reason,
+           "details": result.termination_details, "best_accuracy": acc,
+           "fit_s": fit_s, "round_trips": trips}
+    phase(30, f"(b) early stopping on it ({ES_TRAIN} batches of {ES_B}, "
+              f"{ES_HELD} held out; MaxEpochs({ES_MAX_EPOCHS}), "
+              f"ScoreImprovement({ES_PATIENCE}), InMemoryModelSaver): "
+              f"{out['epochs']} epochs ({out['reason']}: {out['details']}), "
+              f"best epoch {out['best_epoch']}, held-out score per epoch "
+              f"{scores}, the best model's accuracy {acc:.4f}, {fit_s:.3f} s; "
+              f"round trips {trips} [{card}]")
+    return out
+
+
+def s2s_conf(hidden=S2S_HIDDEN):
+    """examples/seq2seq_addition.py's encoder-decoder graph: GravesLSTM
+    encoder, last time step, duplicated over the answer's 3 steps,
+    GravesLSTM decoder, softmax RnnOutputLayer; Adam 3e-3, seed 0."""
+    from deeplearning4j_tpu_torch.nn.conf.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.graph import (
+        DuplicateToTimeSeriesVertex, LastTimeStepVertex)
+    from deeplearning4j_tpu_torch.nn.conf.layers import (GravesLSTM,
+                                                         RnnOutputLayer)
+    from deeplearning4j_tpu_torch.nn.updater.updaters import Adam
+    V = len(S2S_VOCAB)
+    gb = (NeuralNetConfiguration.builder().seed(0).learning_rate(3e-3)
+          .updater(Adam()).graph_builder()
+          .add_inputs("question", "answer_shape")
+          .add_layer("enc", GravesLSTM(n_in=V, n_out=hidden,
+                                       activation="tanh"), "question")
+          .add_vertex("thought", LastTimeStepVertex(), "enc")
+          .add_vertex("repeat", DuplicateToTimeSeriesVertex(
+              reference_input="answer_shape"), "thought")
+          .add_layer("dec", GravesLSTM(n_in=hidden, n_out=hidden,
+                                       activation="tanh"), "repeat")
+          .add_layer("out", RnnOutputLayer(n_in=hidden, n_out=V,
+                                           activation="softmax",
+                                           loss="mcxent"), "dec"))
+    return gb.set_outputs("out").build()
+
+
+def s2s_batch(rng, n):
+    """One-hot "a+b" questions and zero-padded 3-digit answers."""
+    import numpy as np
+    eye = np.eye(len(S2S_VOCAB), dtype=np.float32)
+    xs, ys = [], []
+    for _ in range(n):
+        a, b = rng.integers(0, 50), rng.integers(0, 50)
+        xs.append(eye[[S2S_VOCAB.index(c) for c in f"{a}+{b}".ljust(S2S_Q)]])
+        ys.append(eye[[S2S_VOCAB.index(c) for c in str(a + b).zfill(S2S_A)]])
+    return np.stack(xs), np.stack(ys)
+
+
+def graph_seq2seq(torch, ck, card, failures):
+    """30c: the addition encoder-decoder at the example's widths."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    shape = np.zeros((S2S_B, S2S_A, 1), np.float32)
+    rng = np.random.default_rng(0)
+    feeds = [s2s_batch(rng, S2S_B) for _ in range(CG_STEPS + S2S_STEPS)]
+    feeds = [([x, shape], [y]) for x, y in feeds]
+    runs = {}
+    for mode in ("on", "off"):
+        g = ComputationGraph(s2s_conf(), device=P30_DEV,
+                             train_graphs=mode).init()
+        runs[mode] = (g,) + graph_steps(torch, ck, g, feeds[:CG_STEPS])
+    (g, l_on, _, s_on), (e, l_off, _, _) = runs["on"], runs["off"]
+    bitwise = (l_on == l_off
+               and np.array_equal(tg_state(g), tg_state(e)))
+    if not bitwise:
+        failures.append(f"30c: captured {l_on} against eager {l_off}")
+    losses, _, secs = graph_steps(torch, ck, g, feeds[CG_STEPS:])
+    losses = l_on + losses
+    x, y = s2s_batch(np.random.default_rng(1), S2S_EVAL)
+    pred = g.output(x, np.zeros((S2S_EVAL, S2S_A, 1), np.float32))[0]
+    pred = pred.argmax(-1).cpu().numpy()
+    digit_acc = float((pred == y.argmax(-1)).mean())
+    answer_acc = float((pred == y.argmax(-1)).all(-1).mean())
+    if not all(np.isfinite(losses)):
+        failures.append(f"30c: losses {losses}")
+    out = {"captured_vs_eager_bitwise": bitwise,
+           "losses_at": {k: losses[k] for k in (0, 100, 200)},
+           "digit_accuracy": digit_acc, "answer_accuracy": answer_acc,
+           "step_ms": statistics.median(secs) * 1e3,
+           "captures": g._graphs.captures, "replays": g._graphs.replays}
+    phase(30, f"(c) seq2seq addition (GravesLSTM {S2S_HIDDEN}, B={S2S_B}, "
+              f"question {S2S_Q}, answer {S2S_A}, {len(S2S_VOCAB)} symbols, "
+              f"Adam 3e-3): {CG_STEPS} steps captured against eager bitwise "
+              f"{bitwise}; then {S2S_STEPS} captured steps, {out['step_ms']:.3f}"
+              f" ms a step; loss at steps 0/100/200 "
+              f"{[out['losses_at'][k] for k in (0, 100, 200)]}; digit "
+              f"accuracy on {S2S_EVAL} fresh problems {digit_acc:.4f} "
+              f"(whole answers {answer_acc:.4f}; a report, no gate) [{card}]")
+    return out
+
+
+def graph_gradient_checks(torch, card, failures):
+    """30d: check_gradients at float64 on the card: a conv + BN + dense
+    network and a masked GravesLSTM network (the JAX sweep's shapes)."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nn.conf.config import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.conf.layers import (
+        BatchNormalization, ConvolutionLayer, DenseLayer, GravesLSTM,
+        OutputLayer, RnnOutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn.updater.updaters import Sgd
+    from deeplearning4j_tpu_torch.util import check_gradients
+
+    def net(*layers, input_type=None, l2=0.0):
+        b = (NeuralNetConfiguration.builder().seed(42).dtype("float64")
+             .updater(Sgd()).regularization(l2 > 0).l2(l2).list())
+        for layer in layers:
+            b.layer(layer)
+        if input_type is not None:
+            b.set_input_type(input_type)
+        return MultiLayerNetwork(b.build(), device=P30_DEV).init()
+    rng = np.random.default_rng(0)
+    cnn = net(ConvolutionLayer(n_out=3, kernel_size=(2, 2),
+                               activation="identity"),
+              BatchNormalization(activation="relu"),
+              DenseLayer(n_out=5, activation="tanh"),
+              OutputLayer(n_out=2, activation="softmax",
+                          loss="negativeloglikelihood"),
+              input_type=InputType.convolutional(6, 6, 2), l2=0.01)
+    x = rng.normal(size=(4, 6, 6, 2))
+    y = np.eye(2)[rng.integers(0, 2, 4)]
+    lstm = net(GravesLSTM(n_in=3, n_out=4, activation="tanh"),
+               RnnOutputLayer(n_in=4, n_out=2, activation="softmax",
+                              loss="mcxent"))
+    xs = rng.normal(size=(3, 5, 3))
+    ys = np.zeros((3, 5, 2))
+    ys[:, :, 0] = 1.0
+    mask = np.ones((3, 5))
+    mask[0, 3:] = 0
+    mask[1, 1:] = 0
+    out = {}
+    for name, n, args, kw in (("conv_bn_dense", cnn, (x, y), {}),
+                              ("masked_graves_lstm", lstm, (xs, ys),
+                               {"fmask": mask, "lmask": mask})):
+        t0 = time.monotonic()
+        ok = check_gradients(n, *args, **kw)
+        out[name] = {"passed": ok, "params": n.num_params(),
+                     "device": str(n.device),
+                     "seconds": time.monotonic() - t0}
+        if not ok:
+            failures.append(f"30d: {name} fails the gradient check")
+    phase(30, f"(d) check_gradients at float64 on the card (eps 1e-6, max "
+              f"relative error 1e-3, min absolute 1e-9; every parameter): "
+              f"{out}. float64 runs the plain paths: the conv's kw*c = 4 < 8,"
+              f" so the seam declines the kernel as the JAX seam does, and "
+              f"no kernel has a float64 variant [{card}]")
+    return out
+
+
+def phase30(torch, ck, card):
+    """30a-30e: see the module docstring. cuDNN takes its deterministic
+    algorithms for the phase, as in phase 29."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.datasets.fetchers import \
+        CifarDataSetIterator
+    t0 = time.monotonic()
+    failures = []
+    # the CIFAR-10 iterator's offline stand-in (or real batches where a
+    # user put them under DL4J_TPU_DATA_DIR)
+    it = CifarDataSetIterator(ES_B, num_examples=ES_B * (ES_TRAIN + ES_HELD))
+    data = DataSet.merge(list(it))
+    data.source = it.source
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {"data_source": data.source,
+               "alexnet_graph": graph_alexnet(torch, ck, card, data,
+                                              failures),
+               "early_stopping": graph_early_stopping(torch, card, data,
+                                                      failures),
+               "seq2seq": graph_seq2seq(torch, ck, card, failures),
+               "gradient_checks": graph_gradient_checks(torch, card,
+                                                        failures)}
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    out["seconds"] = time.monotonic() - t0
+    phase(30, f"(e) phase 30 took {out['seconds']:.3f} s [{card}]")
+    if failures:
+        raise SystemExit("phase 30 failed: " + "; ".join(failures))
+    return out
 
 
 def main():
@@ -6471,6 +6870,7 @@ def main():
     p27 = phase27(torch, ck, card, reqs, tokens, tokens8, p26, e2e)
     p28 = phase28(torch, ck, card)
     p29 = phase29(torch, ck, card)
+    p30 = phase30(torch, ck, card)
 
 
     src = "deeplearning4j_tpu_torch/ops/csrc/paged_decode_attention.cu"
@@ -6517,6 +6917,9 @@ def main():
         "source": f"{csrc}/conv2d_bias_act.cu",
         "replaces": "deeplearning4j_tpu/ops/pallas_kernels.py:92",
         "launches": alex_launches["conv2d_bias_act"],
+        # phase 30a: launches of each captured step of the AlexNet graph
+        "graph_launches_per_step": p30["alexnet_graph"][
+            "conv_launches_per_step"],
         "max_abs_err": max(c["max_abs_err"] for c in conv_cases[:4]),
         "ms": sum(c["ms"] for c in alex_conv),
         "plain_ms": sum(c["plain_ms"] for c in alex_conv),
@@ -6704,9 +7107,9 @@ def main():
          "bnap_bf16_edges": bnap16_edges, "bnap_bf16_alexnet_sum": bnap16_sum,
          "alexnet_train_bf16": alex16, "lenet_train_bf16": lenet16,
          **a3, "serving_26": p26, "serving_27": p27, "tiering_28": p28,
-         "training_29": p29,
+         "training_29": p29, "graphs_30": p30,
          "elapsed_s": time.monotonic() - t_start}))
-    phase(30, "kernels:")
+    phase(31, "kernels:")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -56,6 +56,8 @@ class ListDataSetIterator(DataSetIterator):
         self._batch = batch
         self._pos = 0
         self._pad_last = pad_last
+        # where the data came from (the fetchers' ``source`` label)
+        self.source = getattr(data, "source", None)
 
     def batch_size(self) -> int:
         return self._batch

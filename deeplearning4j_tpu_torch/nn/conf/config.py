@@ -5,8 +5,8 @@ Port of deeplearning4j_tpu/nn/conf/config.py: `NeuralNetConfiguration`
 (same fields, so its JSON round-trips), its fluent builder,
 `MultiLayerConfiguration` with the `.list()` builder, and the shape
 inference of `set_input_type`, which wires each layer's n_in and inserts
-the preprocessors between layer kinds as the JAX package does. YAML
-comes with a later slice.
+the preprocessors between layer kinds as the JAX package does. Both
+configurations write and read JSON and YAML (nn/conf/serde.py).
 """
 from __future__ import annotations
 
@@ -83,6 +83,13 @@ class NeuralNetConfiguration:
     @staticmethod
     def from_json(s: str) -> "NeuralNetConfiguration":
         return serde.from_json(s)
+
+    def to_yaml(self) -> str:
+        return serde.to_yaml(self)
+
+    @staticmethod
+    def from_yaml(s: str) -> "NeuralNetConfiguration":
+        return serde.from_yaml(s)
 
 
 class NeuralNetConfigurationBuilder:
@@ -178,6 +185,13 @@ class MultiLayerConfiguration:
     @staticmethod
     def from_json(s: str) -> "MultiLayerConfiguration":
         return serde.from_json(s)
+
+    def to_yaml(self) -> str:
+        return serde.to_yaml(self)
+
+    @staticmethod
+    def from_yaml(s: str) -> "MultiLayerConfiguration":
+        return serde.from_yaml(s)
 
 
 class ListBuilder:

@@ -1,24 +1,24 @@
 """ComputationGraph configuration: DAG of layers + graph vertices.
 
-Port of deeplearning4j_tpu/nn/conf/graph.py: the vertex classes
-``transformer_lm`` uses (layer, element-wise), the
-`ComputationGraphConfiguration` fields and `GraphBuilder` (with the
-backprop, pretrain and truncated-BPTT settings), so its graph config JSON
-round-trips between the packages. The merge vertex (concatenation) came
-with int8 graph quantization, whose multi-path cases use it; subset and
-scale vertices come with the slices whose models use them.
+Port of deeplearning4j_tpu/nn/conf/graph.py: every vertex class (layer
+with an optional input preprocessor, merge, element-wise, subset,
+preprocessor, scale, last time step, duplicate to time series), the
+`ComputationGraphConfiguration` fields and `GraphBuilder` (input types,
+the backprop, pretrain and truncated-BPTT settings), so a graph config's
+JSON and YAML round-trip between the packages.
 """
 from __future__ import annotations
 
 import copy
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Dict, List, Optional
 
 from . import serde
 from .config import (BACKPROP_STANDARD, NeuralNetConfiguration,
                      resolve_layer_defaults)
 from .inputs import InputType
 from .layers import Layer
+from .preprocessors import InputPreProcessor
 
 
 @dataclass
@@ -30,7 +30,7 @@ class GraphVertex:
 @dataclass
 class LayerVertex(GraphVertex):
     layer: Optional[Layer] = None
-    preprocessor: Optional[Any] = None
+    preprocessor: Optional[InputPreProcessor] = None
 
 
 @serde.register
@@ -45,6 +45,45 @@ class ElementWiseVertex(GraphVertex):
     """add | subtract | product | average | max."""
 
     op: str = "add"
+
+
+@serde.register
+@dataclass
+class SubsetVertex(GraphVertex):
+    """Feature range [from_idx, to_idx] of the last axis, inclusive."""
+
+    from_idx: int = 0
+    to_idx: int = 0
+
+
+@serde.register
+@dataclass
+class PreprocessorVertex(GraphVertex):
+    preprocessor: Optional[InputPreProcessor] = None
+
+
+@serde.register
+@dataclass
+class ScaleVertex(GraphVertex):
+    scale_factor: float = 1.0
+
+
+@serde.register
+@dataclass
+class LastTimeStepVertex(GraphVertex):
+    """[B, T, F] -> [B, F] at the last step, or at each row's last
+    unmasked step of the feature mask of graph input ``mask_input``."""
+
+    mask_input: Optional[str] = None
+
+
+@serde.register
+@dataclass
+class DuplicateToTimeSeriesVertex(GraphVertex):
+    """[B, F] -> [B, T, F], T the time length of graph input
+    ``reference_input`` (whose mask the output takes)."""
+
+    reference_input: Optional[str] = None
 
 
 @serde.register
@@ -68,6 +107,13 @@ class ComputationGraphConfiguration:
     @staticmethod
     def from_json(s: str) -> "ComputationGraphConfiguration":
         return serde.from_json(s)
+
+    def to_yaml(self) -> str:
+        return serde.to_yaml(self)
+
+    @staticmethod
+    def from_yaml(s: str) -> "ComputationGraphConfiguration":
+        return serde.from_yaml(s)
 
     def topological_order(self) -> List[str]:
         """Kahn topological sort over vertices, ties in name order (the
@@ -108,14 +154,23 @@ class GraphBuilder:
         self._backprop_type = BACKPROP_STANDARD
         self._tbptt_fwd = 20
         self._tbptt_back = 20
+        self._input_types: Dict[str, InputType] = {}
 
     def add_inputs(self, *names: str) -> "GraphBuilder":
         self._inputs.extend(names)
         return self
 
-    def add_layer(self, name: str, layer: Layer, *inputs: str) -> "GraphBuilder":
+    def set_input_types(self, **types: InputType) -> "GraphBuilder":
+        self._input_types.update(types)
+        return self
+
+    def add_layer(self, name: str, layer: Layer, *inputs: str,
+                  preprocessor: Optional[InputPreProcessor] = None
+                  ) -> "GraphBuilder":
         layer = resolve_layer_defaults(layer, self._conf)
-        return self.add_vertex(name, LayerVertex(layer=layer), *inputs)
+        return self.add_vertex(
+            name, LayerVertex(layer=layer, preprocessor=preprocessor),
+            *inputs)
 
     def add_vertex(self, name: str, vertex: GraphVertex, *inputs: str) -> "GraphBuilder":
         if name in self._vertices or name in self._inputs:
@@ -174,6 +229,7 @@ class GraphBuilder:
             backprop_type=self._backprop_type,
             tbptt_fwd_length=self._tbptt_fwd,
             tbptt_back_length=self._tbptt_back,
+            input_types=dict(self._input_types),
         )
         cfg.topological_order()  # validate acyclicity at build time
         return cfg

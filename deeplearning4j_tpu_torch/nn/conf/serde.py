@@ -7,8 +7,10 @@ the JAX package's, so a ``configuration.json`` written by either
 package reads in the other.
 
 Any registered dataclass serializes to a dict with an ``@class``
-discriminator, recursively. The JAX package's YAML entry points come with
-a later slice.
+discriminator, recursively; JSON and YAML entry points. YAML is the JAX
+package's: ``yaml.safe_dump`` of the same dict with sorted keys, PyYAML
+imported only when YAML is asked for, so YAML written by either package
+loads in the other to the same ``to_json()``.
 """
 from __future__ import annotations
 
@@ -20,7 +22,7 @@ _REGISTRY: Dict[str, Type] = {}
 
 
 def register(cls):
-    """Class decorator: make a dataclass JSON round-trippable."""
+    """Class decorator: make a dataclass JSON/YAML round-trippable."""
     _REGISTRY[cls.__name__] = cls
     return cls
 
@@ -62,3 +64,15 @@ def to_json(obj: Any, indent: int = 2) -> str:
 
 def from_json(s: str) -> Any:
     return from_dict(json.loads(s))
+
+
+def to_yaml(obj: Any) -> str:
+    import yaml
+
+    return yaml.safe_dump(to_dict(obj), sort_keys=True)
+
+
+def from_yaml(s: str) -> Any:
+    import yaml
+
+    return from_dict(yaml.safe_load(s))

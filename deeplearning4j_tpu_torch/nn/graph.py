@@ -17,6 +17,24 @@ name), the order of the model zip's ``coefficients.bin`` and
 ``updater.bin``. On the card each step replays the CUDA graph captured
 for its key unless ``train_graphs="off"`` (nn/step_graph.py).
 
+Vertices (JAX graph.py :99-171): layer (its input preprocessor first),
+merge, element-wise, subset, preprocessor, scale, last time step and
+duplicate to time series. A vertex inherits its inputs' feature mask
+(several combined by their minimum) while its output keeps a time axis,
+and drops it once time is gone; a duplicate-to-time-series vertex takes
+its reference input's mask and time length; a last-time-step vertex
+with ``mask_input`` gathers each row's last unmasked step on the device
+(JAX :225-234). A layer with non-trainable variables (BatchNorm) keeps
+them in ``variables`` ({vertex: {name: tensor}}, JAX :50): a train-mode
+forward returns their new values, which every training path (the
+captured step, ``fit_scan``, ``fit_batch_accumulated``, whose K
+micro-batches carry them from one to the next, truncated BPTT) writes
+into the graph's own tensors in place; the line-search solvers leave
+them as they are, as the JAX graph does. As in JAX, a graph does not
+fuse BatchNorm with the pool after it (only MultiLayerNetwork does).
+``feed_forward`` gives every vertex's activation, ``output_single`` the
+first output, ``clone`` a copy with fresh tensors on the same device.
+
 Remat (``conf.remat``) checkpoints each layer vertex of the train-mode
 forward but the loss path's output layer (nn/layers/base.remat_forward).
 ``rnn_time_step`` streams inputs through the recurrent vertices' h/c and
@@ -40,29 +58,34 @@ raises ValueError.
 Parameters live on ``device`` (default "cuda"; it raises when no CUDA
 device is present — pass device="cpu" to run on the CPU). The attention
 layers run the port's flash or splash kernels there, f32 or bf16 by the
-compute dtype (ops/helpers.attention).
-Not ported yet, and raising where asked for: vertex preprocessors,
-layers with non-trainable variables (BatchNorm), the subset, scale and
-last-step vertices (ROADMAP A5). ``rnn_time_step`` (and with it
+compute dtype (ops/helpers.attention), and the convolution layers the
+port's conv kernel. ``rnn_time_step`` (and with it
 ``generate_transformer(use_cache=True)``) runs at any compute dtype,
 with its KV cache at the compute dtype.
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .conf.config import BACKPROP_TBPTT
-from .conf.graph import (ComputationGraphConfiguration, ElementWiseVertex,
-                         GraphVertex, LayerVertex, MergeVertex)
+from .conf.graph import (ComputationGraphConfiguration,
+                         DuplicateToTimeSeriesVertex, ElementWiseVertex,
+                         GraphVertex, LastTimeStepVertex, LayerVertex,
+                         MergeVertex, PreprocessorVertex, ScaleVertex,
+                         SubsetVertex)
 from .layers.base import (BaseRecurrentImpl, LayerImpl, detach_states,
                           impl_for, materialize_rnn_states, remat_forward)
-# importing the impl modules registers them
+# importing the impl modules registers them: every layer kind builds in a
+# graph, whatever else the process imported (JAX graph.py :33)
 from .layers import attention as _attention  # noqa: F401
+from .layers import convolution as _convolution  # noqa: F401
 from .layers import feedforward as _feedforward  # noqa: F401
 from .layers import normalization as _normalization  # noqa: F401
+from .layers import pretrain as _pretrain  # noqa: F401
 from .layers import recurrent as _recurrent  # noqa: F401
 from .precision import (cast_floats, compute_dtype_of, dtype_of, host_array,
                         host_floats, input_dtype)
@@ -84,20 +107,11 @@ class ComputationGraph:
         self.dtype = dtype_of(conf.conf)
         self.compute_dtype = compute_dtype_of(conf.conf)
         self.topo = conf.topological_order()
-        self._impls: Dict[str, LayerImpl] = {}
-        for name, v in conf.vertices.items():
-            if isinstance(v, LayerVertex):
-                if v.preprocessor is not None:
-                    raise NotImplementedError(
-                        "vertex preprocessors come with a later slice")
-                impl = impl_for(v.layer)
-                if impl.init_variables():
-                    raise NotImplementedError(
-                        f"vertex {name!r}: layers with non-trainable "
-                        "variables (BatchNorm) in a ComputationGraph come "
-                        "with a later slice")
-                self._impls[name] = impl
+        self._impls: Dict[str, LayerImpl] = {
+            name: impl_for(v.layer) for name, v in conf.vertices.items()
+            if isinstance(v, LayerVertex)}
         self.params: Dict[str, Dict[str, Tensor]] = {}
+        self.variables: Dict[str, Dict[str, Tensor]] = {}
         self.updater_state: Dict[str, Dict[str, Dict[str, Tensor]]] = {}
         self.step = 0
         self._score_raw: Any = float("nan")
@@ -123,13 +137,15 @@ class ComputationGraph:
              ) -> "ComputationGraph":
         """Draw every layer's params, in sorted layer-name order, from
         ``generator`` (default: a CPU generator seeded with the config's
-        seed), place them on the graph's device, and zero the updater
-        state."""
+        seed), place them on the graph's device, and reset the variables
+        and the updater state."""
         gen = generator if generator is not None else \
             torch.Generator().manual_seed(int(self.conf.conf.seed))
         for name in sorted(self._impls):
             self.params[name] = self._impls[name].init_params(
                 gen, self.dtype, self.device)
+            self.variables[name] = self._impls[name].init_variables(
+                self.dtype, self.device)
             updater = self.conf.vertices[name].layer.updater
             self.updater_state[name] = {
                 pname: updater.init_state(p)
@@ -164,12 +180,19 @@ class ComputationGraph:
         return [self._as_tensor(a) for a in arrays]
 
     # -- forward ---------------------------------------------------------------
+    @staticmethod
+    def _preprocess(proc, x, train, gen):
+        return proc.preprocess_train(x, gen) if train else proc.preprocess(x)
+
     def _vertex_forward(self, name: str, vertex: GraphVertex,
-                        inputs: List[Tensor], params, *, train, gen, mask,
-                        states, new_states, preouts):
+                        inputs: List[Tensor], params, variables, *, train,
+                        gen, mask, vmasks, timesteps, states, new_states,
+                        new_vars, preouts):
         if isinstance(vertex, LayerVertex):
             impl = self._impls[name]
             x = inputs[0]
+            if vertex.preprocessor is not None:
+                x = self._preprocess(vertex.preprocessor, x, train, gen)
             ckpt = train and bool(self.conf.conf.remat)
             if isinstance(impl, BaseRecurrentImpl):
                 y, st = remat_forward(impl, train=train, ckpt=ckpt,
@@ -184,9 +207,11 @@ class ComputationGraph:
                 y, preouts[name] = impl.forward_with_preout(
                     params[name], x, train=train, gen=gen, mask=mask)
                 return y
-            y, _ = remat_forward(impl, train=train, ckpt=ckpt,
-                                 recurrent=False)(params[name], x, {}, gen,
-                                                  mask)
+            y, nv = remat_forward(impl, train=train, ckpt=ckpt,
+                                  recurrent=False)(
+                params[name], x, variables.get(name, {}), gen, mask)
+            if nv:
+                new_vars[name] = nv
             return y
         if isinstance(vertex, MergeVertex):
             return torch.cat(inputs, dim=-1)
@@ -210,33 +235,65 @@ class ComputationGraph:
             else:
                 raise ValueError(f"Unknown elementwise op '{vertex.op}'")
             return out
-        raise NotImplementedError(
-            f"vertex type {type(vertex).__name__} comes with a later slice")
+        if isinstance(vertex, SubsetVertex):
+            return inputs[0][..., vertex.from_idx:vertex.to_idx + 1]
+        if isinstance(vertex, PreprocessorVertex):
+            return self._preprocess(vertex.preprocessor, inputs[0], train,
+                                    gen)
+        if isinstance(vertex, ScaleVertex):
+            return inputs[0] * vertex.scale_factor
+        if isinstance(vertex, LastTimeStepVertex):
+            x = inputs[0]
+            m = vmasks.get(vertex.mask_input)
+            if m is None:
+                return x[:, -1, :]
+            # each row's last unmasked step, gathered on the device
+            idx = torch.clamp((m > 0).sum(dim=1) - 1, min=0)
+            return x.gather(1, idx.view(-1, 1, 1).expand(
+                x.shape[0], 1, x.shape[2])).squeeze(1)
+        if isinstance(vertex, DuplicateToTimeSeriesVertex):
+            x = inputs[0]
+            t = timesteps.get(vertex.reference_input)
+            if t is None:
+                raise ValueError("DuplicateToTimeSeries: unknown reference "
+                                 f"input {vertex.reference_input}")
+            return x[:, None, :].expand(x.shape[0], t, x.shape[-1])
+        raise ValueError(f"Unknown vertex type {type(vertex).__name__}")
 
     def _forward_impl(self, params, inputs: Sequence[Tensor], *,
+                      variables: Optional[Dict[str, Dict[str, Tensor]]] = None,
                       train: bool = False,
                       gen: Optional[torch.Generator] = None,
                       fmasks: Optional[Dict[str, Tensor]] = None,
                       states: Optional[Dict[str, Any]] = None,
-                      want_preout: bool = False):
-        """Topo-ordered DAG forward with explicit states (JAX graph.py:173).
-        Returns (dict name -> activation, new states of the stateful
-        layers), plus a dict of the output vertices' pre-activations when
-        ``want_preout`` (the loss path). A vertex inherits the feature
-        mask of its inputs (several are combined by their minimum) while
-        its output keeps a time axis."""
+                      want_preout: bool = False,
+                      new_vars: Optional[Dict[str, Dict[str, Tensor]]] = None):
+        """Topo-ordered DAG forward with explicit states (JAX graph.py:173)
+        from ``variables`` (default: the graph's). Returns (dict name ->
+        activation, new states of the stateful layers), plus a dict of the
+        output vertices' pre-activations when ``want_preout`` (the loss
+        path); the new variables of the layers that have them go into
+        ``new_vars`` when given. Masks follow the module docstring's
+        rules."""
         conf = self.conf
         dtype = self.compute_dtype
         if dtype != self.dtype:  # mixed precision: compute on cast masters
             params = cast_floats(params, dtype)
+        if variables is None:
+            variables = self.variables
+        if new_vars is None:
+            new_vars = {}
         acts: Dict[str, Tensor] = {}
         vmasks: Dict[str, Optional[Tensor]] = {}
+        timesteps: Dict[str, int] = {}
         for i, iname in enumerate(conf.network_inputs):
             x = inputs[i]
             if x.is_floating_point() and x.dtype != dtype:
                 x = x.to(dtype)
             acts[iname] = x
             vmasks[iname] = (fmasks or {}).get(iname)
+            if x.ndim == 3:
+                timesteps[iname] = x.shape[1]
         new_states: Dict[str, Any] = {}
         preouts: Dict[str, Tensor] = {}
         out_names = set(conf.network_outputs) if want_preout else set()
@@ -247,15 +304,22 @@ class ComputationGraph:
             in_mask = src_masks[0] if src_masks else None
             for m in src_masks[1:]:
                 in_mask = torch.minimum(in_mask, m)
+            vertex = conf.vertices[name]
             y = self._vertex_forward(
-                name, conf.vertices[name], [acts[s] for s in srcs], params,
-                train=train, gen=gen, mask=in_mask, states=states,
-                new_states=new_states,
+                name, vertex, [acts[s] for s in srcs], params, variables,
+                train=train, gen=gen, mask=in_mask, vmasks=vmasks,
+                timesteps=timesteps, states=states, new_states=new_states,
+                new_vars=new_vars,
                 preouts=preouts if name in out_names else None)
             if y.is_floating_point() and y.dtype != dtype:
                 y = y.to(dtype)  # stop f32 creep under mixed precision
             acts[name] = y
-            vmasks[name] = in_mask if y.ndim == 3 else None
+            if isinstance(vertex, DuplicateToTimeSeriesVertex):
+                vmasks[name] = vmasks.get(vertex.reference_input)
+            else:
+                vmasks[name] = in_mask if y.ndim == 3 else None
+            if y.ndim == 3:
+                timesteps[name] = y.shape[1]
         if want_preout:
             return acts, new_states, preouts
         return acts, new_states
@@ -310,18 +374,22 @@ class ComputationGraph:
         return self._grads_on(self._as_tensors(inputs),
                               self._as_tensors(labels),
                               self._masks_by_input(fmasks),
-                              self._as_tensors(lmasks), None)[:2]
+                              self._as_tensors(lmasks), None,
+                              self.variables)[:2]
 
-    def _grads_on(self, ins, labs, fmasks, lmasks, states):
-        """(loss, gradients, the recurrent vertices' new states): the
-        train step's forward from ``states`` (None: zeros) and backward,
-        on device tensors (``fmasks`` by input name)."""
+    def _grads_on(self, ins, labs, fmasks, lmasks, states, variables):
+        """(loss, gradients, the new variables, the recurrent vertices' new
+        states): the train step's forward from ``states`` (None: zeros)
+        and ``variables``, and its backward, on device tensors (``fmasks``
+        by input name)."""
         params = {name: {k: v.detach().requires_grad_(True)
                          for k, v in lp.items()}
                   for name, lp in self.params.items()}
+        new_vars = dict(variables)
         acts, new_states, preouts = self._forward_impl(
-            params, ins, train=True, gen=self._gen, fmasks=fmasks,
-            states=states, want_preout=True)
+            params, ins, variables=variables, train=True, gen=self._gen,
+            fmasks=fmasks, states=states, want_preout=True,
+            new_vars=new_vars)
         loss = (self._loss(acts, labs, lmasks, preouts)
                 + self._reg_loss(params))
         leaves = [p for lp in params.values() for p in lp.values()]
@@ -333,7 +401,7 @@ class ComputationGraph:
             for k, p in lp.items():
                 g = next(flat)
                 grads[name][k] = torch.zeros_like(p) if g is None else g
-        return loss.detach(), grads, new_states
+        return loss.detach(), grads, new_vars, new_states
 
     def _row_values(self, step: int) -> List[float]:
         """The scalars of step ``step`` for every layer with params, in
@@ -349,6 +417,7 @@ class ComputationGraph:
     def _state_tensors(self) -> List[Tensor]:
         """The tensors a step writes in place."""
         return ([t for lp in self.params.values() for t in lp.values()]
+                + [t for lv in self.variables.values() for t in lv.values()]
                 + [t for lu in self.updater_state.values()
                    for st in lu.values() for t in st.values()])
 
@@ -363,29 +432,40 @@ class ComputationGraph:
                               self._impls[name].WEIGHT_KEYS, lp, grads[name],
                               self.updater_state[name], row)
 
+    @torch.no_grad()
+    def _assign_variables(self, new_vars) -> None:
+        for name, lv in self.variables.items():
+            nv = new_vars.get(name, lv)
+            if nv is not lv:
+                for k, t in nv.items():
+                    lv[k].copy_(t)
+
     def _step_body(self, ins, labs, fmasks, lmasks, states):
         """One optimization step on device tensors — what a capture
         records: (loss, the recurrent vertices' new states)."""
-        loss, grads, new_states = self._grads_on(ins, labs, fmasks, lmasks,
-                                                 states)
+        loss, grads, new_vars, new_states = self._grads_on(
+            ins, labs, fmasks, lmasks, states, self.variables)
         self._update_(grads)
+        self._assign_variables(new_vars)
         return loss, detach_states(new_states)
 
     def _accum_body(self, xs, ys):
         """One update from the mean of K microbatch gradients (JAX
-        `_build_accum_step`, graph.py :375): the K losses."""
+        `_build_accum_step`, graph.py :375), the variables carried from
+        one microbatch to the next: the K losses."""
         k = xs[0].shape[0]
-        gsum, losses = None, []
+        variables, gsum, losses = self.variables, None, []
         for i in range(k):
-            loss, grads, _ = self._grads_on([a[i] for a in xs],
-                                            [a[i] for a in ys], None, None,
-                                            None)
+            loss, grads, variables, _ = self._grads_on(
+                [a[i] for a in xs], [a[i] for a in ys], None, None, None,
+                variables)
             losses.append(loss)
             gsum = grads if gsum is None else {
                 n: {p: gsum[n][p] + g for p, g in lg.items()}
                 for n, lg in grads.items()}
         self._update_({n: {p: g / k for p, g in lg.items()}
                        for n, lg in gsum.items()})
+        self._assign_variables(variables)
         return torch.stack(losses)
 
     def _run(self, tag, args, body, row):
@@ -537,7 +617,8 @@ class ComputationGraph:
     def _fit_one_solver(self, algo, ins, labs, fmasks, lmasks):
         """Whole-graph training under a line-search solver (JAX graph.py
         :675): the loss over the flat parameter vector, its gradient from
-        autograd, every evaluation drawing the same dropout masks; eager."""
+        autograd, every evaluation drawing the same dropout masks; eager.
+        The variables are read, not updated, as in JAX."""
         from ..optimize.solver import OPTIMIZERS
         cls = OPTIMIZERS.get(algo)
         if cls is None:
@@ -662,6 +743,22 @@ class ComputationGraph:
             gen=self._gen if train else None,
             fmasks=self._masks_by_input(fmasks))
         return [acts[name] for name in self.conf.network_outputs]
+
+    def output_single(self, *inputs) -> Tensor:
+        """The first network output (JAX graph.py :738)."""
+        return self.output(*inputs)[0]
+
+    @torch.no_grad()
+    def feed_forward(self, *inputs, train: bool = False) -> Dict[str, Tensor]:
+        """Every vertex's activation and the inputs', by name (JAX
+        graph.py :741); train=True draws dropout from the graph's
+        generator and normalises with batch statistics (the running ones
+        are not updated)."""
+        self._check_init()
+        acts, _ = self._forward_impl(
+            self.params, self._as_tensors(list(inputs)), train=train,
+            gen=self._gen if train else None)
+        return acts
 
     @torch.inference_mode()
     def rnn_time_step(self, *inputs) -> List[Tensor]:
@@ -788,6 +885,23 @@ class ComputationGraph:
                 new[name][pname] = t
         copy_into(self.params, new)
 
+    def set_variables(self, variables: Dict[str, Dict[str, Any]]):
+        """Load non-trainable variables ({vertex: {name: array}}, the
+        vertices and names a subset of the graph's; e.g. from
+        `util.model_serializer.variables_from_jax`), cast to each slot's
+        dtype, into the variables in place."""
+        self._check_init()
+        for name, lv in variables.items():
+            cur = self.variables.get(name)
+            if cur is None or set(lv) - set(cur):
+                raise ValueError(f"{name}: no such variables in the graph")
+            for k, v in lv.items():
+                t = torch.as_tensor(v)
+                if tuple(t.shape) != tuple(cur[k].shape):
+                    raise ValueError(f"{name}.{k}: shape {tuple(t.shape)} "
+                                     f"vs {tuple(cur[k].shape)}")
+                copy_into(cur[k], t)
+
     def _updater_slots(self):
         """(layer, param, state name) in the JAX flat order (graph.py
         :823)."""
@@ -819,3 +933,19 @@ class ComputationGraph:
     # -- misc ------------------------------------------------------------------
     def set_listeners(self, *listeners):
         self.listeners = list(listeners)
+
+    def clone(self) -> "ComputationGraph":
+        """A graph of a copy of the config on the same device, with fresh
+        tensors holding this one's params, variables and updater state,
+        and its step (JAX graph.py :869); it shares no captured step or
+        static buffer with this one, and its generator starts from the
+        seed."""
+        g = ComputationGraph(copy.deepcopy(self.conf), device=self.device,
+                             train_graphs=self.train_graphs)
+        if self._initialized:
+            g.init()
+            copy_into(g.params, self.params)
+            copy_into(g.variables, self.variables)
+            copy_into(g.updater_state, self.updater_state)
+            g.step = self.step
+        return g

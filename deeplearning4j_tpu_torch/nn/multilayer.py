@@ -3,7 +3,8 @@ deeplearning4j_tpu/nn/multilayer.py (init, forward with the BN+pool pair
 fusion and the recurrent layers' states, loss, regularization, the
 hand-written updater step, fit_batch, fit_scan, fit_batch_accumulated,
 truncated BPTT, the line-search solvers, layerwise pretraining, fit,
-output, rnn_time_step, score, evaluate and the flat parameter views).
+output, rnn_time_step, score, evaluate, the flat parameter views, clone
+and summary).
 
 Autograd replaces `jax.value_and_grad`: a train step makes each parameter
 a leaf that requires grad, runs the train-mode forward, and takes the
@@ -61,6 +62,7 @@ plain PyTorch on either device (JAX has no kernel for them).
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -215,7 +217,8 @@ class MultiLayerNetwork:
                                      CnnToRnnPreProcessor)):
                     cur = proc.preprocess_with_time(cur, timesteps)
                 else:
-                    cur = proc.preprocess(cur)
+                    cur = (proc.preprocess_train(cur, gen) if train
+                           else proc.preprocess(cur))
             if cur.ndim == 3:
                 timesteps = cur.shape[1]
             impl = self._impls[i]
@@ -909,3 +912,32 @@ class MultiLayerNetwork:
 
     def add_listener(self, listener):
         self.listeners.append(listener)
+
+    def clone(self) -> "MultiLayerNetwork":
+        """A net of a copy of the config on the same device, with fresh
+        tensors holding this one's params, variables and updater state,
+        and its step (JAX multilayer.py :927); it shares no captured step
+        or static buffer with this one, and its generator starts from the
+        seed."""
+        net = MultiLayerNetwork(copy.deepcopy(self.conf), device=self.device,
+                                train_graphs=self.train_graphs)
+        if self._initialized:
+            net.init()
+            copy_into(net.params, self.params)
+            copy_into(net.variables, self.variables)
+            copy_into(net.updater_state, self.updater_state)
+            net.step = self.step
+        return net
+
+    def summary(self) -> str:
+        """One line per layer with its parameter count, and the total
+        (JAX multilayer.py :959)."""
+        lines = ["=" * 70]
+        for i, lc in enumerate(self.conf.layers):
+            nparams = sum(p.numel() for p in self.params[i].values()) \
+                if self._initialized else 0
+            lines.append(f"{i:3d}  {type(lc).__name__:30s} params={nparams}")
+        lines.append("Total params: "
+                     f"{self.num_params() if self._initialized else '?'}")
+        lines.append("=" * 70)
+        return "\n".join(lines)

@@ -10,7 +10,10 @@ The zip format is shared with the JAX package:
   - ``updater.bin``: npz ``state`` — the updater state flattened in
     `updater_state_flat` order;
   - ``variables.bin``: npz of the non-trainable variables (the BatchNorm
-    running ``mean``/``var``), keyed ``"<layer index>:<name>"``. bf16
+    running ``mean``/``var``), keyed ``"<layer index>:<name>"`` for a
+    MultiLayerNetwork and ``"<vertex name>:<name>"`` for a
+    ComputationGraph (JAX :51-56); written only when some layer has
+    variables. bf16
     variables are written as f32 (exact), which the JAX package reads back
     into its bf16 slots; the JAX package writes them as ml_dtypes bf16,
     which an npz holds as raw 2-byte records, read here as bf16 bits;
@@ -22,7 +25,10 @@ ComputationGraphs, updater state included, so training resumes where
 it stopped on either side.
 
 `params_from_jax` carries a JAX net's ``params`` (as numpy) into the
-port's layout, which is the same layout: it only changes the array type.
+port's layout, which is the same layout: it only changes the array type;
+`variables_from_jax` does the same for its ``variables`` (a
+MultiLayerNetwork's list, a ComputationGraph's {vertex: {name: array}}).
+A restore fills the variables in place.
 """
 from __future__ import annotations
 
@@ -36,6 +42,7 @@ import numpy as np
 import torch
 
 from ..nn.precision import host_array
+from ..nn.step_graph import copy_into
 from ..util.device import DeviceLike
 
 CONFIG_JSON = "configuration.json"
@@ -78,19 +85,37 @@ def _tensors(lp) -> Dict[str, torch.Tensor]:
 
 def params_from_jax(params):
     """A JAX net's ``params`` (arrays converted with ``np.asarray``; bf16
-    arrays become bf16 tensors) as CPU tensors in the port's layout: a ComputationGraph's {layer: {name:
-    array}} gives {layer: {name: tensor}}, a MultiLayerNetwork's list of
-    per-layer dicts a list. Load them with the net's ``set_params``,
-    which places them on its device."""
+    arrays become bf16 tensors) as CPU tensors in the port's layout: a
+    ComputationGraph's {layer: {name: array}} gives {layer: {name:
+    tensor}}, a MultiLayerNetwork's list of per-layer dicts a list. Load
+    them with the net's ``set_params``, which places them on its
+    device."""
     if isinstance(params, dict):
         return {layer: _tensors(lp) for layer, lp in params.items()}
     return [_tensors(lp) for lp in params]
 
 
-def write_model(net, path: Union[str, Path]) -> None:
-    """Serialize a MultiLayerNetwork (config, params, updater state,
-    variables) or a ComputationGraph (config, params, updater state) to a
-    zip the JAX package can read."""
+def variables_from_jax(variables):
+    """A JAX net's non-trainable ``variables`` (the BatchNorm running
+    statistics) as CPU tensors in the port's layout, as `params_from_jax`
+    does for params. A ComputationGraph loads them with
+    ``set_variables``; a MultiLayerNetwork's list copies into
+    ``net.variables`` (`step_graph.copy_into`)."""
+    return params_from_jax(variables)
+
+
+def _variable_items(net):
+    """(key prefix, {name: tensor}) of every layer with variables."""
+    v = getattr(net, "variables", [])
+    return [(str(k), lv) for k, lv in
+            (v.items() if isinstance(v, dict) else enumerate(v)) if lv]
+
+
+def write_model(net, path: Union[str, Path],
+                save_updater: bool = True) -> None:
+    """Serialize a MultiLayerNetwork or a ComputationGraph (config,
+    params, updater state unless ``save_updater`` is False, variables,
+    step) to a zip the JAX package can read."""
     net._check_init()
     path = Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
@@ -98,10 +123,11 @@ def write_model(net, path: Union[str, Path]) -> None:
         zf.writestr(CONFIG_JSON, net.conf.to_json())
         zf.writestr(COEFFICIENTS_BIN,
                     _save_npz({"params": net.params_flat().astype(np.float32)}))
-        zf.writestr(UPDATER_BIN, _save_npz(
-            {"state": net.updater_state_flat().astype(np.float32)}))
+        if save_updater:
+            zf.writestr(UPDATER_BIN, _save_npz(
+                {"state": net.updater_state_flat().astype(np.float32)}))
         var_arrays = {f"{i}:{name}": host_array(arr)
-                      for i, lv in enumerate(getattr(net, "variables", []))
+                      for i, lv in _variable_items(net)
                       for name, arr in lv.items()}
         if var_arrays:
             zf.writestr(VARIABLES_BIN, _save_npz(var_arrays))
@@ -112,11 +138,21 @@ def write_model(net, path: Union[str, Path]) -> None:
         }))
 
 
+def _restore_variables(net, data: bytes, is_graph: bool) -> None:
+    """``variables.bin`` into the net's variable tensors, in place."""
+    for key, arr in _load_npz(data).items():
+        i, name = key.rsplit(":", 1)
+        slot = net.variables[i if is_graph else int(i)]
+        if name not in slot:
+            raise ValueError(f"variables.bin: {key} has no slot in the net")
+        copy_into(slot[name], _variable(arr, slot[name].dtype))
+
+
 def restore_computation_graph(path: Union[str, Path], *,
                               device: DeviceLike = "cuda",
                               load_updater: bool = True):
     """Restore a ComputationGraph zip onto ``device``: params, updater
-    state (unless ``load_updater`` is False), step."""
+    state (unless ``load_updater`` is False), variables, step."""
     from ..nn.conf.graph import ComputationGraphConfiguration
     from ..nn.graph import ComputationGraph
 
@@ -130,9 +166,7 @@ def restore_computation_graph(path: Union[str, Path], *,
             net.set_updater_state_flat(
                 _load_npz(zf.read(UPDATER_BIN))["state"])
         if VARIABLES_BIN in names:
-            raise NotImplementedError(
-                "ComputationGraphs with non-trainable variables (BatchNorm) "
-                "come with a later slice")
+            _restore_variables(net, zf.read(VARIABLES_BIN), True)
         if META_JSON in names:
             net.step = json.loads(zf.read(META_JSON).decode()).get("step", 0)
     return net
@@ -156,17 +190,14 @@ def restore_multi_layer_network(path: Union[str, Path], *,
             net.set_updater_state_flat(
                 _load_npz(zf.read(UPDATER_BIN))["state"])
         if VARIABLES_BIN in names:
-            for key, arr in _load_npz(zf.read(VARIABLES_BIN)).items():
-                i, name = key.rsplit(":", 1)
-                slot = net.variables[int(i)]
-                dtype = slot[name].dtype if name in slot else net.dtype
-                slot[name] = _variable(arr, dtype).to(net.device)
+            _restore_variables(net, zf.read(VARIABLES_BIN), False)
         if META_JSON in names:
             net.step = json.loads(zf.read(META_JSON).decode()).get("step", 0)
     return net
 
 
-def restore_model(path: Union[str, Path], *, device: DeviceLike = "cuda"):
+def restore_model(path: Union[str, Path], *, device: DeviceLike = "cuda",
+                  load_updater: bool = True):
     """Type-dispatching restore on the zip's ``model_type`` stamp (a zip
     without one is a MultiLayerNetwork, as in the JAX package). A
     quantized artifact (one holding ``quantization.json``) restores as its
@@ -182,5 +213,12 @@ def restore_model(path: Union[str, Path], *, device: DeviceLike = "cuda"):
             model_type = json.loads(zf.read(META_JSON).decode()).get(
                 "model_type", model_type)
     if model_type == "ComputationGraph":
-        return restore_computation_graph(path, device=device)
-    return restore_multi_layer_network(path, device=device)
+        return restore_computation_graph(path, device=device,
+                                         load_updater=load_updater)
+    return restore_multi_layer_network(path, device=device,
+                                       load_updater=load_updater)
+
+
+# the JAX package's aliases of the reference API's names
+save_model = write_model
+load_model = restore_multi_layer_network

@@ -478,13 +478,39 @@ non-zero without them, or when any phase fails. Phases:
      card, a conv + BN + dense network and a masked GravesLSTM one,
      every parameter passing (the plain paths: the conv's kw*c < 8);
      (e) the phase's seconds; alone: `python3 tools/phase30_alone.py`;
- 31. prints the kernels line (the bf16 kernels as rows of their own,
+ 31. tensor-parallel decode and the data-parallel masters, ranks
+     co-located on card 0 over gloo (`devices=["cuda:0"] * 2`): (a) the
+     flagship (phase 3's net and 8 requests) at tp = 2, paged fp32 pages,
+     eager steps: tokens equal the tp = 1 eager engine's, each rank runs
+     H = 4, Hkv = 4 and launches the paged kernel 4 x the decode steps,
+     one decode step's collectives on each rank 8 all-reduces and one
+     command, and the wave's all-reduces 8 x (steps + chunks); (b) the
+     same with int8 pages, then a GQA net at the same width (Hkv = 2,
+     one kv head a rank); (c) phase 2's kernel check at the shard shapes
+     (H = 4, Hkv = 4 fp32 and int8, Hkv = 1): max |diff| < 1e-4, the same
+     bits again, with ms, plain ms and bound; (d) rank 1 SIGKILLed while
+     a supervised tp = 2 server decodes: the request ends with its
+     tokens after a rebuild (or in the structured 503), never a hang;
+     (e) AlexNet-CIFAR10 at full width with dropout 0, B = 512 over 2
+     ranks, 3 steps of the ICI master against one process's 3 steps on
+     the whole batch (losses within 1e-4, Adam's moments within 1e-3 of
+     their norm, params within 5e-2 of the steps' change), 3 conv, 3
+     sums and 3 dx launches a step on each rank; then 5 rounds of
+     parameter averaging (frequency 2): finite, falling; (f) each
+     rank's step ms, the all-reduce's ms and bytes, examples/s, the
+     pool's blocks at tp = 1 and 2 (no speed gate); (g) with two or more
+     cards, (a) again over NCCL, one card a rank, else "phase 31g not
+     run: 1 card"; alone: `python3 tools/phase31_alone.py`;
+ 32. prints the kernels line (the bf16 kernels as rows of their own,
      named "<kernel>_bf16"; the paged rows carry phase 26's masked-wave
      launches as "masked_launches", phase 27a's as
      "speculating_launches" and phase 28's wave C as "tiered_launches",
      the fp32 row phase 27e's int8-clone launches as
      "int8_graph_launches"; the f32 conv row phase 30a's launches of
-     each captured graph step as "graph_launches_per_step").
+     each captured graph step as "graph_launches_per_step"; phase
+     31's per-rank launches as "tp_launches_per_rank" and
+     "dp_launches_per_rank", the paged kernel at the shard shapes as
+     "shard_cases").
 
 The last line is {"ok": true, "device": {...}}. Every number printed is
 measured in this run; a "[details]" JSON line before the kernels line
@@ -5324,6 +5350,364 @@ def phase30(torch, ck, card):
     return out
 
 
+# -- phase 31: tensor-parallel decode and the data-parallel masters --------
+P31_DEV = "cuda"        # "cpu" rehearses phase 31 (with smaller sizes)
+P31_TIMEOUT = 120.0     # the mesh's collective timeout and every wait's
+P31_B = 512             # AlexNet's global batch, over the two ranks
+P31_ICI_STEPS = 3
+P31_PA_ROUNDS = 5
+# 31e: the ICI ranks against one process on the whole batch. After the
+# first step, Adam's moments (the step's gradient and its square: global
+# BN statistics, both BN sums, the all-reduce) within 1e-4 of their
+# norm. Over the 3 steps, each step's loss within 1e-4, and the params
+# within 5e-2 of the steps' change, as the norm of the difference over
+# the norm of the change: Adam's update divides by the gradient's own
+# scale, so an element whose gradient is near 0 may move by a full step
+# either way under another summation order, and on this random batch the
+# loss grows fast, so later gradients amplify that
+P31_LOSS_REL = 1e-4
+P31_MOMENT_REL = 1e-4
+P31_PARAM_REL = 5e-2
+
+
+def p31_devices(n=2):
+    """The ranks' devices: co-located on card 0 (gloo), or CPU ranks when
+    the phase is rehearsed on the CPU."""
+    return (["cuda:0"] if P31_DEV == "cuda" else ["cpu"]) * n
+
+
+def tp_wave(torch, ck, net, reqs, mesh, **kw):
+    """Phase 3's requests through an eager engine (``mesh`` None: tp = 1,
+    else the mesh's ranks): (tokens, stats). Under tp, before the wave one
+    all-idle decode step's collectives on every rank
+    (`sharding.collective_counts`), and over the wave each rank's paged
+    kernel launches and collectives."""
+    from deeplearning4j_tpu_torch.inference import sharding as shd
+    from deeplearning4j_tpu_torch.inference.engine import DecodeScheduler
+    from deeplearning4j_tpu_torch.inference.metrics import MetricsRegistry
+    eng = DecodeScheduler(net, VOCAB, n_slots=SLOTS, prefill_chunk=CHUNK,
+                          kv_block=KV_BLOCK, kv_pool_mb=KV_POOL_MB,
+                          decode_graphs="off", mesh=mesh,
+                          metrics=MetricsRegistry(), device=P31_DEV, **kw)
+    st = {"tp": eng.tp, "pool_blocks": eng.pool.capacity_blocks}
+    if mesh is not None:
+        impl = eng._fwd_net._impls["attn0"]
+        st["shard_heads"] = {"H": impl.conf.n_heads, "Hkv": impl._kv_heads()}
+        st["step_collectives"] = shd.collective_counts(eng)
+        mesh.reset_launches()
+        mesh.reset_counts()
+    else:
+        ck.reset_launches()
+    t0 = time.monotonic()
+    eng.start()
+    try:
+        hs = [eng.submit(b["prompt"], NEW_TOKENS, **sampling_kw(b))
+              for b in reqs]
+        toks = [h.result(P31_TIMEOUT) for h in hs]
+    finally:
+        eng.stop()
+    wall = time.monotonic() - t0
+    st.update(decode_steps=eng.decode_steps,
+              prefill_chunks=eng.prefill_chunks, wall_s=wall,
+              tokens_per_s=sum(len(t) for t in toks) / wall,
+              mean_decode_step_ms=1e3 * eng.decode_seconds
+              / max(1, eng.decode_steps),
+              mean_prefill_chunk_ms=1e3 * eng.prefill_seconds
+              / max(1, eng.prefill_chunks))
+    if mesh is not None:
+        st["launches"] = [r["paged_decode_attention"]
+                          for r in mesh.query_launches()]
+        st["collectives"] = mesh.query_counts()
+    else:
+        st["launches"] = [ck.LAUNCHES["paged_decode_attention"]]
+    return toks, st
+
+
+def tp_gates(tag, st, toks, want, failures, heads=None):
+    steps = st["decode_steps"]
+    n_blocks = BLOCKS
+    if toks != want:
+        failures.append(f"31{tag}: tp tokens differ from the tp = 1 eager "
+                        "engine's")
+    if heads is not None and st["shard_heads"] != heads:
+        failures.append(f"31{tag}: a rank runs {st['shard_heads']} heads, "
+                        f"want {heads}")
+    if any(n != n_blocks * steps for n in st["launches"]):
+        failures.append(f"31{tag}: paged kernel launches per rank "
+                        f"{st['launches']}, want {n_blocks} x {steps}")
+    for r, c in enumerate(st["step_collectives"]):
+        if c != {"all_reduce": 2 * n_blocks, "all_gather": 0,
+                 "broadcast_command": 1, "broadcast_data": 0}:
+            failures.append(f"31{tag}: rank {r}'s decode step collectives "
+                            f"{c}, want {2 * n_blocks} all-reduces and one "
+                            "command")
+    for r, c in enumerate(st["collectives"]):
+        want_ar = 2 * n_blocks * (steps + st["prefill_chunks"])
+        if c["all_reduce"] != want_ar or c["all_gather"]:
+            failures.append(f"31{tag}: rank {r}'s collectives over the wave "
+                            f"{c}, want {want_ar} all-reduces")
+
+
+def tp_sigkill(torch, card, net, reqs, want, failures):
+    """31d: rank 1 SIGKILLed while the first request decodes, in a
+    supervised server: the request ends with its tokens after the
+    rebuild, or in the structured 503; never a hang."""
+    import signal
+    from deeplearning4j_tpu_torch.inference.supervisor import \
+        RetryBudgetExceededError
+    from deeplearning4j_tpu_torch.serving.server import InferenceServer
+    t0 = time.monotonic()
+    srv = InferenceServer(net=net, decode_vocab=VOCAB, decode_slots=SLOTS,
+                          prefill_chunk=CHUNK, kv_pool_mb=KV_POOL_MB,
+                          kv_block=KV_BLOCK, decode_tp=2,
+                          decode_tp_devices=p31_devices(),
+                          decode_graphs="off", hang_timeout_s=30.0,
+                          device=P31_DEV).start()
+    out = {"start_s": time.monotonic() - t0}
+    try:
+        sup = srv.supervisor
+        dead = sup.engine
+        b = reqs[0]
+        h = sup.submit(b["prompt"], NEW_TOKENS, **sampling_kw(b))
+        t1 = time.monotonic()
+        while not h.tokens and time.monotonic() - t1 < P31_TIMEOUT:
+            time.sleep(0.002)
+        os.kill(dead.mesh._procs[0].pid, signal.SIGKILL)
+        t2 = time.monotonic()
+        try:
+            toks = h.result(P31_TIMEOUT)
+            out["outcome"] = "tokens" if toks == want[0] else "wrong tokens"
+        except RetryBudgetExceededError:
+            out["outcome"] = "503"
+        except TimeoutError:
+            out["outcome"] = "hang"
+        out.update(recovery_s=time.monotonic() - t2, retries=h.retries,
+                   restarts=sup.restarts,
+                   rebuilt_tp=sup.engine.tp if sup.engine is not None else 0,
+                   old_followers_alive=dead.mesh.alive(),
+                   new_followers_alive=(sup.engine is not None
+                                        and sup.engine.mesh.alive()))
+    finally:
+        srv.stop()
+    if out["outcome"] not in ("tokens", "503") or out["restarts"] < 1 \
+            or out["old_followers_alive"] or out["rebuilt_tp"] != 2:
+        failures.append(f"31d: the killed follower's request {out}")
+    phase(31, f"(d) rank 1 SIGKILLed mid-decode in a supervised tp = 2 "
+              f"server: outcome {out['outcome']}, retries {out['retries']}, "
+              f"restarts {out['restarts']}, recovered in "
+              f"{out['recovery_s']:.3f} s (server start "
+              f"{out['start_s']:.3f} s) [{card}]")
+    return out
+
+
+class _Losses:
+    """A listener keeping each iteration's score and wall time."""
+
+    def __init__(self):
+        self.losses, self.times = [], [time.monotonic()]
+
+    def iteration_done(self, net, step):
+        self.losses.append(float(net.score_))
+        self.times.append(time.monotonic())
+
+
+def dp_alexnet(torch, ck, card, mesh, failures):
+    """31e-f: AlexNet-CIFAR10 at full width, dropout 0 (each rank would
+    draw its own masks), B = P31_B over the two ranks."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.zoo import alexnet_cifar10
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel.trainer import (
+        IciDataParallelTrainingMaster, ParameterAveragingTrainingMaster)
+    conf = alexnet_cifar10()
+    conf.layers[9].dropout = 0.0
+    rng = np.random.default_rng(31)
+    x = rng.normal(size=(P31_B, 32, 32, 3)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, P31_B)]
+    one = MultiLayerNetwork(conf, device=P31_DEV).init()
+    p0 = one.params_flat()
+    rec1 = _Losses()
+    one.listeners = [rec1]
+    one.fit_batch(x, y)
+    u1 = one.updater_state_flat()
+    for _ in range(P31_ICI_STEPS - 1):
+        one.fit_batch(x, y)
+    dp = MultiLayerNetwork(conf, device=P31_DEV).init()
+    rec = _Losses()
+    dp.listeners = [rec]
+    master = IciDataParallelTrainingMaster(mesh=mesh)
+    mesh.reset_launches()
+    master.execute_training(dp, [DataSet(x, y)])
+    ud = dp.updater_state_flat()
+    moment_rel = float(np.linalg.norm(ud - u1)) / max(
+        float(np.linalg.norm(u1)), 1e-30)
+    master.execute_training(dp, [DataSet(x, y)] * (P31_ICI_STEPS - 1))
+    launches = mesh.query_launches()
+    stats = mesh.query_stats(["step_s", "all_reduce_s", "all_reduce_bytes"])
+    p1, pd = one.params_flat(), dp.params_flat()
+    change = float(np.linalg.norm(p1 - p0))
+    rel = float(np.linalg.norm(pd - p1)) / max(change, 1e-30)
+    loss_rel = max(abs(a - b) / max(abs(b), 1e-30)
+                   for a, b in zip(rec.losses, rec1.losses))
+    # the listener's times: the second call's state handover falls
+    # between steps 1 and 2, so examples/s reads steps 3 on
+    step_s = [rec.times[i + 1] - rec.times[i] for i in range(len(rec.losses))]
+    out = {"losses": rec.losses, "one_process_losses": rec1.losses,
+           "loss_max_rel": loss_rel, "param_rel": rel,
+           "moment_rel": moment_rel,
+           "param_max_abs_diff": float(np.abs(pd - p1).max()),
+           "launches_per_rank": [{k: r[k] for k in ("conv2d_bias_act",
+                                                    "bnap_sums", "bnap_dx")}
+                                 for r in launches],
+           "rank_step_ms": [1e3 * r["step_s"] for r in stats],
+           "all_reduce_ms": [1e3 * r["all_reduce_s"] for r in stats],
+           "all_reduce_bytes": [r["all_reduce_bytes"] for r in stats],
+           "driver_step_ms": [1e3 * t for t in step_s],
+           "examples_per_s": P31_B / (sum(step_s[2:]) / max(1, len(step_s)
+                                                             - 2))}
+    for r, ln in enumerate(out["launches_per_rank"]):
+        if any(v != 3 * P31_ICI_STEPS for v in ln.values()):
+            failures.append(f"31e: rank {r} launches {ln}, want 3 conv, 3 "
+                            f"sums and 3 dx a step x {P31_ICI_STEPS}")
+    if not (rel <= P31_PARAM_REL and loss_rel <= P31_LOSS_REL
+            and moment_rel <= P31_MOMENT_REL):
+        failures.append(f"31e: ICI params {rel:.3e} of the steps' change "
+                        f"(limit {P31_PARAM_REL}), losses {loss_rel:.3e} "
+                        f"(limit {P31_LOSS_REL}), Adam's moments "
+                        f"{moment_rel:.3e} (limit {P31_MOMENT_REL}) from one "
+                        "process's")
+    phase(31, f"(e) AlexNet-CIFAR10 B={P31_B} over 2 ranks (ICI master, "
+              f"global BN statistics), {P31_ICI_STEPS} steps: losses "
+              f"{out['losses']} (one process {rec1.losses}); Adam's "
+              f"moments after step 1 {moment_rel:.3e} of their norm, params "
+              f"{rel:.3e} of the change from one process's (max |diff| "
+              f"{out['param_max_abs_diff']:.3e}); launches a rank "
+              f"{out['launches_per_rank']} [{card}]")
+    x2 = np.concatenate([x, x[::-1]])
+    y2 = np.concatenate([y, y[::-1]])
+    pa_net = MultiLayerNetwork(conf, device=P31_DEV).init()
+    rec2 = _Losses()
+    pa_net.listeners = [rec2]
+    pa = ParameterAveragingTrainingMaster(batch_size_per_worker=P31_B // 2,
+                                          averaging_frequency=2, mesh=mesh)
+    pa.execute_training(pa_net, [DataSet(x2, y2)] * P31_PA_ROUNDS)
+    out["pa_round_losses"] = rec2.losses
+    if not (len(rec2.losses) == P31_PA_ROUNDS
+            and all(np.isfinite(rec2.losses))
+            and rec2.losses[-1] < rec2.losses[0]):
+        failures.append(f"31e: parameter averaging round losses "
+                        f"{rec2.losses}")
+    phase(31, f"(e) parameter averaging, 2 ranks x {P31_B // 2} x "
+              f"frequency 2, {P31_PA_ROUNDS} rounds on the same "
+              f"{2 * P31_B} examples: round losses {rec2.losses} [{card}]")
+    phase(31, f"(f) ICI step ms by rank {out['rank_step_ms']}, driver's "
+              f"{out['driver_step_ms']}; the gradient all-reduce "
+              f"{out['all_reduce_ms']} ms of {out['all_reduce_bytes']} "
+              f"bytes by rank (gloo, host-staged); "
+              f"{out['examples_per_s']:.1f} examples/s [{card}]")
+    return out
+
+
+def phase31(torch, ck, card):
+    """31a-g: see the module docstring."""
+    from deeplearning4j_tpu_torch.inference import sharding as shd
+    from deeplearning4j_tpu_torch.models.zoo import transformer_lm
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    t0 = time.monotonic()
+    failures = []
+    reqs = requests_for(seed=1)
+    mesh = shd.decode_mesh(2, p31_devices(), timeout=P31_TIMEOUT).start()
+    out = {"mesh_start_s": time.monotonic() - t0}
+    try:
+        net = ComputationGraph(transformer_lm(
+            vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS,
+            n_blocks=BLOCKS, rope=True, seed=7), device=P31_DEV).init()
+        for tag, kw in (("a", {}), ("b_int8", {"kv_dtype": "int8"})):
+            want, st1 = tp_wave(torch, ck, net, reqs, None, **kw)
+            toks, st2 = tp_wave(torch, ck, net, reqs, mesh, **kw)
+            tp_gates(tag, st2, toks, want, failures,
+                     heads={"H": HEADS // 2, "Hkv": HEADS // 2})
+            out[tag] = {"tp1": st1, "tp2": st2}
+            if tag == "a":
+                want_a = want
+            phase(31, f"({tag}) the flagship, {'int8' if kw else 'fp32'} "
+                      f"pages, 8 requests at tp = 2 (2 ranks on "
+                      f"{p31_devices()[0]}, gloo): tokens "
+                      f"{'identical' if toks == want else 'DIFFERENT'} to "
+                      f"tp = 1 eager; a rank runs {st2['shard_heads']} "
+                      f"heads; paged launches per rank {st2['launches']} for "
+                      f"{st2['decode_steps']} decode steps; one step's "
+                      f"collectives per rank {st2['step_collectives']}; "
+                      f"mean decode step {st2['mean_decode_step_ms']:.3f} ms "
+                      f"(tp = 1 {st1['mean_decode_step_ms']:.3f}), "
+                      f"{st2['tokens_per_s']:.1f} tokens/s (tp = 1 "
+                      f"{st1['tokens_per_s']:.1f}); pool blocks at "
+                      f"{KV_POOL_MB} MiB a rank: tp = 1 {st1['pool_blocks']}, "
+                      f"tp = 2 {st2['pool_blocks']} [{card}]")
+        del net
+        gqa = ComputationGraph(transformer_lm(
+            vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS,
+            n_blocks=BLOCKS, rope=True, seed=7, n_kv_heads=2),
+            device=P31_DEV).init()
+        want, st1 = tp_wave(torch, ck, gqa, reqs, None)
+        toks, st2 = tp_wave(torch, ck, gqa, reqs, mesh)
+        tp_gates("b_gqa", st2, toks, want, failures,
+                 heads={"H": HEADS // 2, "Hkv": 1})
+        out["b_gqa"] = {"tp1": st1, "tp2": st2}
+        phase(31, f"(b) GQA (Hkv = 2) at tp = 2: one kv head a rank "
+                  f"{st2['shard_heads']}, tokens "
+                  f"{'identical' if toks == want else 'DIFFERENT'} to "
+                  f"tp = 1; paged launches per rank {st2['launches']} for "
+                  f"{st2['decode_steps']} steps [{card}]")
+        del gqa
+        kcases = {}
+        for H, Hkv, q in (((4, 4, False), (4, 4, True), (4, 1, False))
+                          if P31_DEV == "cuda" else ()):
+            key = f"H{H}_Hkv{Hkv}_{'int8' if q else 'fp32'}"
+            r = kernel_case(ck, torch, H=H, Hkv=Hkv, quantized=q,
+                            seed=31 + len(kcases))
+            kcases[key] = r
+            phase(31, f"(c) paged kernel at the shard shape {key}: "
+                      f"max|diff|={r['max_abs_err']:.3e}, bitwise "
+                      f"repeatable {r['repeat_bitwise']}; kernel "
+                      f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                      f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
+                      f"[{card}]")
+            if not (r["max_abs_err"] < 1e-4 and r["repeat_bitwise"]
+                    and r["finite"]):
+                failures.append(f"31c: {key} {r}")
+        out["kernel_cases"] = kcases
+        net = ComputationGraph(transformer_lm(
+            vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS,
+            n_blocks=BLOCKS, rope=True, seed=7), device=P31_DEV).init()
+        out["d"] = tp_sigkill(torch, card, net, reqs, want_a, failures)
+        out["e"] = dp_alexnet(torch, ck, card, mesh, failures)
+        if P31_DEV == "cuda" and torch.cuda.device_count() >= 2:
+            nccl = shd.decode_mesh(2, ["cuda:0", "cuda:1"],
+                                   timeout=P31_TIMEOUT).start()
+            try:
+                toks, st = tp_wave(torch, ck, net, reqs, nccl)
+            finally:
+                nccl.close()
+            tp_gates("g", st, toks, want_a, failures,
+                     heads={"H": HEADS // 2, "Hkv": HEADS // 2})
+            out["g"] = st
+            phase(31, f"(g) the flagship over NCCL, one card a rank: tokens "
+                      f"{'identical' if toks == want_a else 'DIFFERENT'} "
+                      f"[{card}]")
+        else:
+            out["g"] = None
+            phase(31, "phase 31g not run: 1 card")
+    finally:
+        mesh.close()
+    out["seconds"] = time.monotonic() - t0
+    phase(31, f"phase 31 took {out['seconds']:.3f} s [{card}]")
+    if failures:
+        raise SystemExit("phase 31 failed: " + "; ".join(failures))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6871,6 +7255,7 @@ def main():
     p28 = phase28(torch, ck, card)
     p29 = phase29(torch, ck, card)
     p30 = phase30(torch, ck, card)
+    p31 = phase31(torch, ck, card)
 
 
     src = "deeplearning4j_tpu_torch/ops/csrc/paged_decode_attention.cu"
@@ -6899,6 +7284,16 @@ def main():
                         # promoted from the host tier
                         "tiered_launches": p28[
                             key.split("_")[1]]["wave_c"]["launches"]})
+    # phase 31: the tp = 2 waves' launches on each rank, and the kernel at
+    # a rank's shard shapes (H/2, Hkv/2; GQA's one kv head)
+    for row, tag, shards in ((kernels[0], "a", ("H4_Hkv4_fp32",
+                                                "H4_Hkv1_fp32")),
+                             (kernels[1], "b_int8", ("H4_Hkv4_int8",))):
+        row["tp_launches_per_rank"] = p31[tag]["tp2"]["launches"]
+        row["shard_cases"] = {k: {f: p31["kernel_cases"][k][f] for f in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+            for k in shards}
+    kernels[0]["gqa_tp_launches_per_rank"] = p31["b_gqa"]["tp2"]["launches"]
     # phase 27e: the int8 graph clone's decode steps, fp32 pages
     kernels[0]["int8_graph_launches"] = sum(
         p27["int8"][f"speculate_{g}"]["launches"] for g in (0, SPEC_CRASH_G))
@@ -6927,7 +7322,10 @@ def main():
         "bound_by": by(alex_conv, ""),
         "library_ms": sum(c["library_ms"] for c in alex_conv),
         "tc_bound_ms": conv_sum["tc_bound_ms"],
-        "tc_bound_share": conv_sum["tc_bound_share"]})
+        "tc_bound_share": conv_sum["tc_bound_share"],
+        # phase 31e: each ICI rank's launches over its steps
+        "dp_launches_per_rank": [r["conv2d_bias_act"] for r in p31["e"][
+            "launches_per_rank"]]})
     for name, line in (("bnap_sums", 286), ("bnap_dx", 301)):
         k = "sums_" if name == "bnap_sums" else "dx_"
         kernels.append({
@@ -6938,7 +7336,9 @@ def main():
             "ms": sum(c[k + "ms"] for c in alex_bnap),
             "plain_ms": sum(c[k + "plain_ms"] for c in alex_bnap),
             "bound_ms": sum(c[k + "bound_ms"] for c in alex_bnap),
-            "bound_by": by(alex_bnap, k), "library_ms": None})
+            "bound_by": by(alex_bnap, k), "library_ms": None,
+            "dp_launches_per_rank": [r[name] for r in p31["e"][
+                "launches_per_rank"]]})
     # the flash kernels: per transformer_lm_long (T=8192) train step, four
     # launches at [1, 8192, 4, 128]; launches from both LM runs; max |diff|
     # over the two main-path shapes
@@ -7107,9 +7507,9 @@ def main():
          "bnap_bf16_edges": bnap16_edges, "bnap_bf16_alexnet_sum": bnap16_sum,
          "alexnet_train_bf16": alex16, "lenet_train_bf16": lenet16,
          **a3, "serving_26": p26, "serving_27": p27, "tiering_28": p28,
-         "training_29": p29, "graphs_30": p30,
+         "training_29": p29, "graphs_30": p30, "parallel_31": p31,
          "elapsed_s": time.monotonic() - t_start}))
-    phase(31, "kernels:")
+    phase(32, "kernels:")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
-"""Command line — port of the ``train`` (local runtime), ``test``,
-``predict`` and ``serve`` commands of deeplearning4j_tpu/cli/main.py.
+"""Command line — port of the ``train`` (local and data-parallel
+runtimes), ``test``, ``predict`` and ``serve`` commands of
+deeplearning4j_tpu/cli/main.py.
 
     python -m deeplearning4j_tpu_torch.cli.main train --conf net.json \
         --input data.csv --output model.zip [--epochs N] [--batch B] \
         [--label-index I] [--num-classes C] [--regression] \
-        [--skip-lines K] [--print-every P] [--device cuda|cpu]
+        [--skip-lines K] [--print-every P] [--device cuda|cpu] \
+        [--runtime local|data-parallel [--workers N]]
     python -m deeplearning4j_tpu_torch.cli.main test --model model.zip \
         --input data.csv [--batch B] [--label-index I] [--num-classes C] \
         [--skip-lines K] [--device cuda|cpu]
@@ -16,7 +18,8 @@
         [--queue-size N] [--timeout-ms MS] [--trace-buffer N] \
         [--generate [--kv-pool-mb M] [--prefix-cache-mb M] [--kv-block 16] \
          [--decode-slots N] [--prefill-chunk C] [--kv-dtype int8] \
-         [--paged-kernel on|off] [--decode-graphs on|off]] \
+         [--paged-kernel on|off] [--decode-graphs on|off] \
+         [--tp N [--tp-devices D,D]]] \
         [--no-supervise] [--hang-timeout S] [--retry-budget N] \
         [--failpoint NAME=SPEC ...] [--failpoint-endpoint] \
         [--device cuda|cpu] [--port P]
@@ -30,8 +33,11 @@ graph or a recurrent MultiLayerNetwork such as the char-RNN (the
 vocabulary is the output layer's width unless ``--vocab-size`` is given);
 ``test`` prints the
 ``Evaluation.stats()`` of a saved MultiLayerNetwork on labelled CSV
-records. The telemetry and router commands and the data-parallel runtime
-come with later slices.
+records. ``train --runtime data-parallel`` trains through
+`parallel.trainer.IciDataParallelTrainingMaster`; ``serve --tp N
+--decode-graphs off`` decodes tensor-parallel over N ranks
+(`inference/sharding.py`). The telemetry and router commands come with
+later slices.
 """
 from __future__ import annotations
 
@@ -63,7 +69,22 @@ def cmd_train(args) -> int:
     iterator = _build_iterator(args)
     if args.epochs > 1:
         iterator = MultipleEpochsIterator(args.epochs, iterator)
-    net.fit(iterator)
+    if args.runtime == "data-parallel":
+        # JAX cli/main.py :74: the ICI master over every card (or
+        # --workers ranks; --device cpu: CPU ranks)
+        from ..parallel.mesh import default_mesh
+        from ..parallel.trainer import IciDataParallelTrainingMaster
+        n = args.workers or None
+        devices = (["cpu"] * (n or 1) if net.device.type == "cpu"
+                   else None)
+        master = IciDataParallelTrainingMaster(
+            mesh=default_mesh(n, devices))
+        try:
+            master.execute_training(net, iterator)
+        finally:
+            master.close()
+    else:
+        net.fit(iterator)
     write_model(net, args.output)
     print(f"Model saved to {args.output} (final score {net.score_:.6f})")
     return 0
@@ -110,6 +131,12 @@ def cmd_serve(args) -> int:
         failpoints.arm(name.strip(), spec.strip())
         armed.append(name.strip())
     armed += failpoints.arm_from_env()
+    if args.tp > 1 and args.decode_graphs != "off":
+        print(f"error: serve --tp {args.tp} needs --decode-graphs off: the "
+              "tensor-parallel step runs eagerly (a gloo collective cannot "
+              "sit in a captured CUDA graph; a captured tp step under NCCL "
+              "is listed under ROADMAP A7)", file=sys.stderr)
+        return 2
     net = None
     vocab = args.vocab_size if args.generate else 0
     if args.int8:
@@ -165,6 +192,9 @@ def cmd_serve(args) -> int:
         host_cache_mb=args.host_cache_mb, disk_cache_mb=args.disk_cache_mb,
         tier_dir=args.tier_dir, slo_p99_ms=args.slo_p99_ms,
         failpoint_endpoint=args.failpoint_endpoint,
+        decode_tp=args.tp if args.generate else 0,
+        decode_tp_devices=(args.tp_devices.split(",")
+                           if args.tp_devices else None),
         device=args.device).start()
     batch_mode = ("lock-serialized" if args.no_batching else
                   f"micro-batched, window {args.batch_window_ms}ms, "
@@ -194,6 +224,14 @@ def cmd_serve(args) -> int:
             kv += (f", speculative x{dec.speculate} ("
                    + (f"shallow-exit draft, {dec.draft_blocks} blocks"
                       if dec.draft_blocks else "draft net") + ")")
+        if dec.tp > 1:
+            # the ENGINE's tp in force (it disables tp with a warning
+            # where the heads do not divide), not the flag
+            topo = dec.mesh_topology()
+            kv += (f", tensor-parallel over {dec.tp} ranks "
+                   f"({','.join(topo['device_list'])}; {topo['backend']}; "
+                   "heads/FFN split, KV pool head-split, per-rank budgets, "
+                   "eager steps)")
         if getattr(server.net, "_quantized_vertices", None):
             kv += (f", int8 graph ({len(server.net._quantized_vertices)} "
                    "quantized vertices)")
@@ -249,6 +287,13 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--output", required=True, help="output model zip")
     t.add_argument("--epochs", type=int, default=1)
     t.add_argument("--print-every", type=int, default=10)
+    t.add_argument("--runtime", choices=["local", "data-parallel"],
+                   default="local",
+                   help="data-parallel: IciDataParallelTrainingMaster, one "
+                        "gradient all-reduce a step over the ranks")
+    t.add_argument("--workers", type=int, default=0,
+                   help="data-parallel ranks (default: every card; 1 with "
+                        "--device cpu)")
     _add_data_args(t)
     t.set_defaults(fn=cmd_train)
     e = sub.add_parser("test", help="evaluate a saved MultiLayerNetwork")
@@ -334,6 +379,17 @@ def build_parser() -> argparse.ArgumentParser:
                    help="transformer blocks the shallow-exit draft runs "
                         "before its exit through the output head (default: "
                         "half the model's blocks)")
+    s.add_argument("--tp", type=int, default=0,
+                   help="tensor-parallel decode over N ranks (attention "
+                        "heads and FFN split over a 'tp' mesh, KV pool "
+                        "split by head, pool budgets per rank; rank 0 is "
+                        "this process, the others spawned followers; needs "
+                        "--decode-graphs off; 0/1 = one device)")
+    s.add_argument("--tp-devices", default=None,
+                   help="comma-separated device of each tp rank (default "
+                        "cuda:0..N-1, or cpu ranks with --device cpu; "
+                        "cuda:0,cuda:0 co-locates two ranks on one card "
+                        "over gloo)")
     s.add_argument("--trace-buffer", type=int, default=8192,
                    help="span flight-recorder ring capacity (events) behind "
                         "the per-request timings and GET /trace; 0 "

@@ -184,7 +184,26 @@ The profiler plane (JAX :525-533, :3193-3379, :3686-3836,
 pool, the tier, `paged_kernel_status`, the costs and the phase
 decomposition. ``profile=False`` disarms the stamps.
 
-Still to come (listed in ROADMAP.md): the mesh.
+Tensor parallelism (``mesh``; JAX :416-428, :602-660,
+`inference/sharding.py`): under a ``tp`` mesh of N ranks this process is
+rank 0, the driver, and N - 1 spawned followers each hold a shard
+(`parallel/mesh.py`). Attention heads and the FFN's hidden units split
+Megatron-style (the output head replicated), the KV pages, stripes, int8
+scale pages and the side pool split by head, so ``kv_pool_mb`` and
+``prefix_cache_mb`` are per-rank budgets and the pool holds N times the
+blocks. Every device operation the engine issues — the decode step, a
+prefill chunk, a slot reset, a contiguous restore and publish, a COW
+copy, a grammar's mask upload — is broadcast first as one command (op,
+args and the step's packed int32 vector, `_DecodeRunner`'s layout), and
+every rank runs it on its shard with the same two all-reduces a
+transformer block; the scheduler, the pool's books, sampling and the
+logit pipeline stay on the driver. The tp step runs eagerly
+(``decode_graphs="on"`` with tp > 1 raises: a gloo collective cannot sit
+in a captured graph), and speculation and the KV tiers raise under tp
+(ROADMAP A7). A follower that dies fails the driver's next collective:
+the engine records a crash, and a supervised server rebuilds it with new
+followers. ``tp`` is the tp in force (1 where the disable rules apply,
+with JAX's warnings), ``mesh_topology()`` reports it.
 """
 from __future__ import annotations
 
@@ -211,11 +230,22 @@ from .kvpool import (SCRATCH_BLOCK, KVPool, blocks_for, gather_blocks,
 from .logitproc import CompiledGrammar, LogitState, MaskPool
 from .metrics import MetricsRegistry, default_registry
 from .profiler import StepPhaseProfiler, device_peak_flops, program_costs
+from .sharding import (TP_AXIS, decode_mesh, effective_specs,
+                       kv_heads_shardable, shard_decode_params, shard_graph,
+                       shard_modes)
 from .speculative import accept_tokens, build_shallow_draft
 from .trace import FlightRecorder, default_recorder, new_request_id
+from ..parallel.mesh import COLLECTIVE_KINDS, SERVICE_OPS
 
 # smallest prefill chunk bucket (JAX engine.py:122)
 _MIN_CHUNK_BUCKET = 16
+
+# the device operations a tensor-parallel driver mirrors to its followers
+# (parallel/mesh.py's command loop): the decode step, a prefill chunk, a
+# slot reset, a contiguous restore (gather) and publish (scatter), a COW
+# page copy and a grammar mask upload
+(OP_DECODE, OP_PREFILL, OP_RESET, OP_GATHER, OP_SCATTER, OP_COPY,
+ OP_MASK) = range(SERVICE_OPS, SERVICE_OPS + 7)
 
 # transfer_guard level -> torch.cuda.set_sync_debug_mode level
 _GUARD_MODES = {None: None, "disallow": "error"}
@@ -561,8 +591,11 @@ class DecodeScheduler:
     directory (a fresh temporary one by default), ``tier_chunk_kib`` the
     tier worker's pacing grant an iteration (8 times that while idle).
     ``profiler``: a `StepPhaseProfiler` to stamp (default: a fresh one on
-    the engine's metrics, armed unless ``profile=False``). ``device``
-    defaults to "cuda" and raises without one.
+    the engine's metrics, armed unless ``profile=False``). ``mesh``:
+    None, an int N > 1 or a `parallel.mesh.ProcessMesh` with a ``tp``
+    axis: tensor-parallel decode over N ranks, this process rank 0 (see
+    the module docstring and `_init_mesh`). ``device`` defaults to "cuda"
+    and raises without one.
     """
 
     def __init__(self, net, vocab_size: int, *, n_slots: int = 4,
@@ -579,7 +612,8 @@ class DecodeScheduler:
                  profiler: Optional[StepPhaseProfiler] = None,
                  profile: bool = True,
                  transfer_guard: Optional[str] = None,
-                 device: DeviceLike = "cuda"):
+                 mesh=None,
+                 device: DeviceLike = "cuda", _tp_shard=None):
         self.device = resolve_device(device)
         if net.device != self.device:
             raise ValueError(f"the net lives on {net.device}, the engine "
@@ -607,7 +641,8 @@ class DecodeScheduler:
             # capture.
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        net._check_init()
+        if _tp_shard is None:
+            net._check_init()
         self.net = net
         # the one-hots, caches, recurrent rows and mask table: the compute
         # dtype (JAX `_compute_dtype_of`)
@@ -660,9 +695,23 @@ class DecodeScheduler:
                              "and cannot be stepped token by token")
         # recurrent: h/c rows per slot, no positions (JAX :398, :406)
         self.recurrent = bool(rec)
+        # -- the tensor-parallel mesh (inference/sharding.py; JAX
+        # :602-660), resolved before the KV layout: the pool's budget is
+        # per rank and its pages hold the rank's heads
+        self._init_mesh(mesh, attn, _tp_shard, decode_graphs=decode_graphs,
+                        speculate=speculate, host_cache_mb=host_cache_mb,
+                        kw=dict(n_slots=n_slots, prefill_chunk=prefill_chunk,
+                                prefix_cache_mb=prefix_cache_mb,
+                                kv_block=kv_block, kv_pool_mb=kv_pool_mb,
+                                kv_dtype=kv_dtype, paged_kernel=paged_kernel,
+                                mask_rows=mask_rows))
+        tp = self.tp
         itemsize = torch.empty((), dtype=self._dtype).element_size()
         shapes = {name: (impl._kv_heads(), impl.conf.n_out // impl.conf.n_heads)
                   for name, impl in attn.items()}
+        # the rank's own attention impls (its local heads under tp)
+        attn_local = ({name: self._fwd_net._impls[name] for name in attn}
+                      if tp > 1 else attn)
         layers = {n: (h, d, itemsize) for n, (h, d) in shapes.items()}
         dev = self.device
         self.paged = bool(kv_pool_mb and kv_pool_mb > 0) and not self.recurrent
@@ -699,8 +748,8 @@ class DecodeScheduler:
             self.kv_dtype = kv_dtype
             self.pool = KVPool(layers, block=self.kv_block,
                                budget_bytes=int(kv_pool_mb * (1 << 20)),
-                               cache_dtype=kv_dtype, metrics=self.metrics,
-                               tracer=self.tracer)
+                               cache_dtype=kv_dtype, shard_factor=tp,
+                               metrics=self.metrics, tracer=self.tracer)
             if self.pool.capacity_blocks < 1:
                 raise ValueError(f"kv_pool_mb={kv_pool_mb} holds fewer than "
                                  f"two {self.kv_block}-position blocks")
@@ -711,7 +760,7 @@ class DecodeScheduler:
                     stacklevel=2)
             pages = self.pool.capacity_blocks + 1  # page 0 = scratch
             for name, (hkv, dh) in shapes.items():
-                shape = (pages, self.kv_block, hkv, dh)
+                shape = (pages, self.kv_block, hkv // tp, dh)
                 if kv_dtype == "int8":
                     self._states[name] = {
                         "k_pages": torch.zeros(shape, dtype=torch.int8,
@@ -741,7 +790,7 @@ class DecodeScheduler:
                     "with the model-dtype cache instead", RuntimeWarning,
                     stacklevel=2)
             # per-slot stripes; positions stay on the host
-            for name, impl in attn.items():
+            for name, impl in attn_local.items():
                 st = impl.init_state(self.n_slots, dtype=self._dtype,
                                      device=dev)
                 self._states[name] = {"k": st["k"], "v": st["v"]}
@@ -753,7 +802,8 @@ class DecodeScheduler:
                     pool = KVPool(layers, block=self.kv_block,
                                   budget_bytes=int(prefix_cache_mb * (1 << 20)),
                                   paged=False, dtype=self._dtype, device=dev,
-                                  metrics=self.metrics, tracer=self.tracer)
+                                  shard_factor=tp, metrics=self.metrics,
+                                  tracer=self.tracer)
                 if pool is not None and pool.capacity_blocks > 0:
                     self.pool = pool
                     self.restore_buckets = pow2_buckets(
@@ -893,6 +943,10 @@ class DecodeScheduler:
         self.tier_restored_tokens = 0
         self.promote_seconds = 0.0
         m = self.metrics
+        if self.tp > 1:
+            # the mesh's size for /metrics, /info and the serve banner (the
+            # per-rank pool bytes are kvpool.py's gauges)
+            m.gauge("decode_mesh_devices").set(self.tp)
         self._m_queue_depth = m.gauge("decode_queue_depth")
         self._m_active = m.gauge("decode_active_slots")
         self._m_occupancy = m.histogram("decode_slot_occupancy", lo=1.0,
@@ -954,6 +1008,248 @@ class DecodeScheduler:
             self._m_spec_accepted = m.counter("spec_tokens_accepted_total")
             m.ratio("spec_acceptance_rate", self._m_spec_accepted,
                     self._m_spec_proposed)
+
+    def _init_mesh(self, mesh, attn, shard, *, decode_graphs, speculate,
+                   host_cache_mb, kw) -> None:
+        """Resolve ``mesh`` (JAX :602-660): an int N > 1 builds a ``tp``
+        mesh of N ranks (`sharding.decode_mesh`: ``cuda:0`` .. ``cuda:N-1``
+        for an engine on the card, CPU ranks for a CPU engine) that the
+        engine owns and closes; a `parallel.mesh.ProcessMesh` with a
+        ``tp`` axis (``devices[0]`` the engine's device) is the engine's
+        too when the engine starts it, else the caller's. Tensor parallelism is disabled with a warning (JAX's)
+        for a mesh without a tp axis, a net that is not a transformer
+        ComputationGraph, and an Hkv that tp does not divide; under tp > 1
+        captured steps, speculation and the KV tiers raise. Then rank 0's
+        graph is built over its slices of the params, and every follower
+        builds the same engine over its own (`_tp_follower`). ``shard``:
+        (comm, tp, modes, params, variables) of a follower rank."""
+        self.mesh = None
+        self.tp = 1
+        self._fwd_net = self.net  # the graph the steps run: the rank's
+        self._mesh_owned = False
+        self._tp_driver = False
+        self._svc = 0
+        if shard is not None:
+            comm, tp, modes, params, variables = shard
+            self.mesh, self.tp = comm, tp
+            self._fwd_net = shard_graph(self.net.conf, modes, tp, params,
+                                        variables, self.device, comm)
+            return
+        if mesh is None or (isinstance(mesh, int) and mesh <= 1):
+            return
+        if isinstance(mesh, int):
+            tp = int(mesh)
+        else:
+            tp = int(mesh.shape.get(TP_AXIS, 1))
+            if tp <= 1:
+                # a mesh without a real tp axis would be silently ignored:
+                # name the contract instead
+                warnings.warn(
+                    f"mesh {dict(mesh.shape)} has no '{TP_AXIS}' axis of "
+                    "size > 1; tensor-parallel decode is DISABLED (build the "
+                    "mesh with inference.sharding.decode_mesh, or pass "
+                    "mesh=<rank count>)", RuntimeWarning, stacklevel=3)
+                return
+        kv = {name: impl._kv_heads() for name, impl in attn.items()}
+        if not (self._graph and attn and not self.recurrent
+                and kv_heads_shardable(kv, tp)):
+            warnings.warn(
+                f"mesh tp={tp} requested but tensor-parallel decode is "
+                "DISABLED (single-device engine instead): "
+                + ("the model is not a transformer ComputationGraph with an "
+                   "attention KV cache to shard"
+                   if not (self._graph and attn and not self.recurrent)
+                   else "an attention layer's n_kv_heads is not divisible "
+                        f"by the tp axis size {tp} (the head-sharded cache "
+                        "cannot split a head)"),
+                RuntimeWarning, stacklevel=3)
+            return
+        why = None
+        if decode_graphs == "on":
+            why = ("decode_graphs='on': a gloo collective cannot sit in a "
+                   "captured CUDA graph, so the tp step runs eagerly (pass "
+                   "decode_graphs='off'; a captured tp step under NCCL")
+        elif speculate and int(speculate) > 0:
+            why = "speculate > 0 (speculation under tp"
+        elif host_cache_mb and host_cache_mb > 0:
+            why = "host_cache_mb > 0 (KV tiers under tp"
+        if why is not None:
+            raise ValueError(f"tensor-parallel decode (tp={tp}) with {why} "
+                             "is listed under ROADMAP A7)")
+        if isinstance(mesh, int):
+            mesh = decode_mesh(tp, None if self.device.type == "cuda"
+                               else ["cpu"] * tp)
+            self._mesh_owned = True
+        elif not mesh.alive():
+            # a mesh the engine starts is the engine's: it stops it (a
+            # server's factory hands each rebuild a fresh one)
+            self._mesh_owned = True
+        if mesh.device != self.device:
+            raise ValueError(f"the mesh's rank 0 runs on {mesh.device}, the "
+                             f"engine on {self.device}")
+        eff = effective_specs(self.net, tp)
+        modes = shard_modes(self.net.conf, eff)
+        params, variables = shard_decode_params(self.net, tp, 0, specs=eff)
+        self._fwd_net = shard_graph(self.net.conf, modes, tp, params,
+                                    variables, self.device, mesh)
+        self.mesh, self.tp, self._tp_driver = mesh, tp, True
+        payload = {
+            "conf": self.net.conf, "vocab": self.vocab_size, "specs": eff,
+            "modes": modes, "kw": kw,
+            "params": {n: {k: v.detach().cpu() for k, v in lp.items()}
+                       for n, lp in self.net.params.items()},
+            "variables": {n: {k: v.detach().cpu() for k, v in lv.items()}
+                          for n, lv in variables.items()}}
+        try:
+            mesh.start()
+            self._svc = mesh.attach(
+                "deeplearning4j_tpu_torch.inference.engine:_tp_follower",
+                payload)
+        except BaseException:
+            if self._mesh_owned:
+                mesh.close()
+            raise
+
+    # -- the tp command loop: every device operation, mirrored -------------
+    def _mirror(self, op: int, args, payload, fn):
+        """Run the device operation ``fn()`` on this rank; a tp driver
+        first broadcasts it (one command) to the followers, which run the
+        same operation on their shards (`_exec`)."""
+        if not self._tp_driver:
+            return fn()
+        with self.mesh.exclusive():
+            self.mesh.command(op, self._svc, args, payload)
+            return fn()
+
+    def _exec(self, op: int, args, payload: np.ndarray):
+        """A follower's side of `_mirror`: the same operation from the
+        command's args and int32 payload."""
+        if op == OP_DECODE:
+            return self._exec_decode(args, payload)
+        if op == OP_PREFILL:
+            return self._exec_prefill(args, payload)
+        if op == OP_RESET:
+            return self._exec_reset(args[0])
+        if op == OP_GATHER:
+            return gather_blocks(self._states, args[0],
+                                 self._to_device(payload.astype(np.int64)),
+                                 self.pool.storage, block=args[1])
+        if op == OP_SCATTER:
+            return scatter_blocks(self._states, args[0], args[1],
+                                  self._to_device(payload.astype(np.int64)),
+                                  self.pool.storage, block=args[2])
+        if op == OP_COPY:
+            return self._exec_copy(args[0], args[1])
+        if op == OP_MASK:
+            return self._exec_mask(args[0], args[1], None)
+        raise ValueError(f"unknown engine command {op}")
+
+    def _exec_decode(self, args, payload: np.ndarray) -> torch.Tensor:
+        """One eager decode step from the packed vector [ids | live | pos
+        | mstate (masked) | table (nb)] — `_DecodeRunner`'s layout —
+        copied to the device once."""
+        masked, nb = args[0], args[1]
+        s = self.n_slots
+        v = self._to_device(payload)
+        o = 3 * s
+        mstate = None
+        if masked:
+            mstate = v[o:o + s]
+            o += s
+        table = v[o:o + s * nb].view(s, nb) if nb else None
+        return self._step(v[:s], v[s:2 * s], v[2 * s:3 * s], table, mstate)
+
+    def _eager_decode(self, ids, live, pos, table, mstate) -> np.ndarray:
+        """The eager decode step from host inputs, mirrored under tp."""
+        nb = 0 if table is None else int(table.shape[1])
+        parts = [ids, live, pos] + ([mstate] if mstate is not None else []) \
+            + ([table] if nb else [])
+        payload = np.concatenate([np.asarray(a, np.int32).reshape(-1)
+                                  for a in parts])
+        args = (int(mstate is not None), nb)
+        out = self._mirror(OP_DECODE, args, payload,
+                           lambda: self._exec_decode(args, payload))
+        return out.cpu().numpy()
+
+    def _exec_prefill(self, args, payload: np.ndarray) -> torch.Tensor:
+        slot, written, n_real, bucket, nb = args[:5]
+        if nb:
+            self._table[slot, :nb] = payload[bucket:bucket + nb]
+        return self._prefill_forward(slot, payload[:bucket], written, n_real,
+                                     nb or None)
+
+    def _eager_chunk(self, slot: int, ids: np.ndarray, written: int,
+                     n_real: int, nb: Optional[int] = None) -> torch.Tensor:
+        """`_prefill_forward`, mirrored under tp (the table row rides in
+        the command)."""
+        if not self._tp_driver:
+            return self._prefill_forward(slot, ids, written, n_real, nb)
+        bucket = int(ids.shape[0])
+        row = np.zeros((0,), np.int32)
+        if self.paged:
+            rows = self._table_for(written + bucket) if nb is None \
+                else self._table[:, :nb]
+            nb = int(rows.shape[1])
+            row = rows[slot]
+        args = (slot, written, n_real, bucket, nb or 0)
+        payload = np.concatenate([np.asarray(ids, np.int32),
+                                  np.asarray(row, np.int32)])
+        return self._mirror(OP_PREFILL, args, payload,
+                            lambda: self._exec_prefill(args, payload))
+
+    def _exec_copy(self, src: int, dst: int) -> None:
+        for st in self._states.values():
+            for pages in st.values():  # K/V pages, and int8 scales
+                pages[dst].copy_(pages[src])
+
+    def _exec_mask(self, start: int, bucket: int,
+                   rows: Optional[np.ndarray]) -> None:
+        """Copy a grammar's rows into the mask table in place; under tp
+        the driver's rows reach the followers in one data broadcast."""
+        if self.tp > 1:
+            t = torch.zeros((bucket, self.vocab_size), dtype=torch.float32) \
+                if rows is None else torch.from_numpy(rows)
+            rows = self.mesh.broadcast_data(t).numpy()
+        self._masks[start:start + bucket].copy_(self._to_device(rows))
+
+    def _exec_reset(self, slot: int) -> None:
+        states = list(self._draft_states.values())
+        if not self.paged:
+            states += list(self._states.values())
+        for st in states:
+            for rows in st.values():
+                rows[slot].zero_()
+
+    def _collective_audit(self) -> List[Dict[str, int]]:
+        """`sharding.collective_counts`: one all-idle decode step at the
+        smallest table bucket, with every rank's counts zeroed before it
+        and read after it."""
+        if self._running:
+            raise RuntimeError("collective_counts needs the scheduler "
+                               "stopped (or not started)")
+        if not self._tp_driver:
+            return [dict.fromkeys(COLLECTIVE_KINDS, 0)]
+        s = self.n_slots
+        z = np.zeros((s,), np.int32)
+        table = (np.full((s, self.table_buckets[0]), SCRATCH_BLOCK, np.int32)
+                 if self.paged else None)
+        with torch.no_grad(), self.mesh.exclusive():
+            self.mesh.reset_counts()
+            self._eager_decode(z, z, z, table, None)
+            return self.mesh.query_counts()
+
+    def _close_mesh(self, kill: bool = False) -> None:
+        """Detach this engine's followers (an owned mesh: stop them; with
+        ``kill``, at once, as for a hung or fenced engine)."""
+        mesh, self._tp_driver = self.mesh, False
+        if mesh is None or not hasattr(mesh, "detach"):
+            return
+        if self._mesh_owned:
+            mesh.kill() if kill else mesh.close()
+        elif kill:
+            mesh.kill()
+        else:
+            mesh.detach(self._svc)
 
     def _init_speculation(self, speculate, draft_blocks, draft_net,
                           attn) -> None:
@@ -1189,6 +1485,7 @@ class DecodeScheduler:
             if self.tier is not None:
                 # disowned engine: stop the worker, skip the balance check
                 self.tier.stop(check=False)
+            self._close_mesh(kill=True)
             return
         with self._cond:
             self._running = False
@@ -1210,6 +1507,8 @@ class DecodeScheduler:
             # joins the transfer worker and zeroes the tier's ledger
             # (host_page / disk_block / directory_entry)
             self.tier.stop()
+        # a crashed driver may have left followers inside a collective
+        self._close_mesh(kill=self.crashed is not None)
 
     def _fail_all(self, pending: List[_ActiveSeq],
                   err: BaseException) -> None:
@@ -1378,6 +1677,9 @@ class DecodeScheduler:
         self.pool = None
         if self.tier is not None:
             self.tier.stop(check=False)
+        # the followers go too: the replacement starts its own
+        self._close_mesh(kill=True)
+        self._fwd_net = self.net
 
     def inflight(self) -> int:
         """Queued + slot-resident requests (the drain condition)."""
@@ -1488,9 +1790,8 @@ class DecodeScheduler:
         return True
 
     def _copy_page(self, src: int, dst: int) -> None:
-        for st in self._states.values():
-            for pages in st.values():  # K/V pages, and int8 scales
-                pages[dst].copy_(pages[src])
+        self._mirror(OP_COPY, (src, dst), None,
+                     lambda: self._exec_copy(src, dst))
 
     def _ensure_writable(self, slot: int, seq: _ActiveSeq, pos: int) -> bool:
         """Copy-on-write before the first write into a shared block (JAX
@@ -1605,12 +1906,10 @@ class DecodeScheduler:
         `_reset_slot_state` :1699, `_zero_fn` :1598). Paged pages are
         shared storage and stay; a fresh paged slot starts from a scratch
         table row and position 0."""
-        states = list(self._draft_states.values())
-        if not self.paged:
-            states += list(self._states.values())
-        for st in states:
-            for rows in st.values():
-                rows[slot].zero_()
+        if self.paged and not self._draft_states:
+            return  # nothing to zero
+        self._mirror(OP_RESET, (slot,), None,
+                     lambda: self._exec_reset(slot))
 
     def _try_restore(self, slot: int, seq: _ActiveSeq) -> None:
         """Contiguous prefix restore (JAX :1714): copy the longest cached
@@ -1631,8 +1930,10 @@ class DecodeScheduler:
         bucket = bucket_for(n_blk, self.restore_buckets)
         idx = np.full((bucket,), SCRATCH_BLOCK, np.int64)
         idx[:n_blk] = ids
-        gather_blocks(self._states, slot, self._to_device(idx),
-                      self.pool.storage, block=B)
+        self._mirror(OP_GATHER, (slot, B), idx.astype(np.int32),
+                     lambda: gather_blocks(self._states, slot,
+                                           self._to_device(idx),
+                                           self.pool.storage, block=B))
         seq.fed = seq.written = n_blk * B
         self.restored_tokens += seq.fed
         self._m_prefix_hits.inc()
@@ -1794,7 +2095,8 @@ class DecodeScheduler:
             bucket = bucket_for(g.n_states, self.mask_buckets)
             rows = np.zeros((bucket, self.vocab_size), np.float32)
             rows[:g.n_states] = g.mask_table(np.float32)
-            self._masks[start:start + bucket].copy_(self._to_device(rows))
+            self._mirror(OP_MASK, (start, bucket), None,
+                         lambda: self._exec_mask(start, bucket, rows))
         proc.mask_base = start
         self._m_mask_rows.set(self.maskpool.resident_rows())
         if self.tracer.enabled:
@@ -1829,8 +2131,11 @@ class DecodeScheduler:
             b = max(k for k in self.restore_buckets
                     if k <= len(new_ids) - off)
             idx = np.asarray(new_ids[off:off + b], np.int64)
-            scatter_blocks(self._states, slot, start + off,
-                           self._to_device(idx), self.pool.storage, block=B)
+            at = start + off
+            self._mirror(OP_SCATTER, (slot, at, B), idx.astype(np.int32),
+                         lambda: scatter_blocks(self._states, slot, at,
+                                                self._to_device(idx),
+                                                self.pool.storage, block=B))
             off += b
 
     def _retire(self, slot: int, seq: _ActiveSeq) -> None:
@@ -1998,8 +2303,8 @@ class DecodeScheduler:
         stateful layers' new states). Attention layers write their K/V
         in place."""
         if self._graph:
-            acts, new = self.net._forward_impl(self.net.params, [x],
-                                               states=states)
+            net = self._fwd_net
+            acts, new = net._forward_impl(net.params, [x], states=states)
             return acts[self._out_name], new
         acts, _, new, _ = self.net._forward_impl(
             self.net.params, self.net.variables, x, train=False,
@@ -2122,7 +2427,7 @@ class DecodeScheduler:
             raise ValueError(f"KV cache overflow: chunk at {written}+"
                              f"{bucket} exceeds {self._cache_cap} positions")
         if self.decode_graphs != "on":
-            out = self._prefill_forward(slot, ids, written, n_real)
+            out = self._eager_chunk(slot, ids, written, n_real)
             row = out[-1] if self.recurrent else out[n_real - 1]
             return self._read_row(row.float()) if final else None
         table_row = None
@@ -2528,17 +2833,9 @@ class DecodeScheduler:
             self._replay(r)
             probs = self._host_read(r.out)
         else:
-            dev = self.device
-            table = torch.from_numpy(self._table_for(deepest)).to(dev) \
-                if self.paged else None
-            self.profiler.count("decode",
-                                table.shape[1] if self.paged else 0)
-            out = self._step(torch.from_numpy(ids).to(dev),
-                             torch.from_numpy(live).to(dev),
-                             torch.from_numpy(pos).to(dev), table,
-                             torch.from_numpy(mstate).to(dev) if masked
-                             else None)
-            probs = out.cpu().numpy()
+            table = self._table_for(deepest) if self.paged else None
+            self.profiler.count("decode", table.shape[1] if self.paged else 0)
+            probs = self._eager_decode(ids, live, pos, table, mstate)
         self.profiler.lap("decode")
         self.decode_steps += 1
         dt = time.monotonic() - t0
@@ -2968,9 +3265,9 @@ class DecodeScheduler:
                 for nb in (self.table_buckets if self.paged else [None]):
                     if not graphs:
                         if self.paged:
-                            self._prefill_forward(0, ids, 0, 0, nb)
+                            self._eager_chunk(0, ids, 0, 0, nb)
                         else:
-                            self._prefill_forward(0, ids, 0, 1)
+                            self._eager_chunk(0, ids, 0, 1)
                         continue
                     if (b, nb) in self._chunk_runners:
                         continue
@@ -3167,7 +3464,7 @@ class DecodeScheduler:
         if not self.paged:
             return out
         on = self.paged_kernel == "on" and self.device.type == "cuda"
-        hkv = {impl._kv_heads() for impl in self.net._impls.values()
+        hkv = {impl._kv_heads() for impl in self._fwd_net._impls.values()
                if isinstance(impl, SelfAttentionLayerImpl)} \
             if self._graph else set()
         for nb in self.table_buckets:
@@ -3193,6 +3490,16 @@ class DecodeScheduler:
                 "masked_decode": self.masked_captures,
                 **self.spec_captures}
 
+    def mesh_topology(self) -> dict:
+        """The tp actually in force, the ranks' devices and the backend
+        (``/info``, ``/debug/engine``, the serve banner)."""
+        devs = [str(d) for d in getattr(self.mesh, "devices",
+                                        [self.device])] \
+            if self._tp_driver else [str(self.device)]
+        return {"tp": self.tp, "devices": len(devs), "device_list": devs,
+                "backend": getattr(self.mesh, "backend", None)
+                if self.tp > 1 else None}
+
     def debug_snapshot(self) -> dict:
         """``GET /debug/engine`` (JAX :3763): the slot table, the queue,
         the pool and its trie, the captures, the tier, speculation, the
@@ -3216,7 +3523,7 @@ class DecodeScheduler:
                "iterations": self.iterations,
                "queue_depth": self.queue_depth(), "slots": slots,
                "compile_cache": self._capture_counts(),
-               "mesh": {"tp": 1}, "chunk_cap": self.chunk_cap}
+               "mesh": self.mesh_topology(), "chunk_cap": self.chunk_cap}
         if self.maskpool is not None:
             out["grammar_masks"] = self.maskpool.stats()
         if self.paged:
@@ -3238,3 +3545,37 @@ class DecodeScheduler:
             out["costs"] = self.profiler.cost_snapshot()
             out["phases"] = self.profiler.decomposition()
         return out
+
+
+class _TpFollower:
+    """A follower rank's service (`parallel/mesh.py`): its engine runs
+    each mirrored device operation on the rank's shard."""
+
+    def __init__(self, engine: DecodeScheduler):
+        self.engine = engine
+
+    def handle(self, cmd) -> None:
+        with torch.no_grad():
+            self.engine._exec(cmd.op, cmd.args, cmd.payload)
+
+    def close(self) -> None:
+        self.engine = None
+
+
+def _tp_follower(comm, p) -> _TpFollower:
+    """Build a follower's engine: the same engine arguments over its own
+    slices of the params (`sharding.effective_specs`), on its device,
+    with eager steps; never started (the driver's commands run it)."""
+    from ..nn.graph import ComputationGraph
+    from .sharding import _slice
+    tp, rank = comm.size, comm.rank
+    skeleton = ComputationGraph(p["conf"], device=comm.device)
+    params = {n: {k: _slice(v, p["specs"][n][k], tp, rank)
+                  for k, v in lp.items()}
+              for n, lp in p["params"].items()}
+    eng = DecodeScheduler(
+        skeleton, p["vocab"], decode_graphs="off", metrics=MetricsRegistry(),
+        tracer=FlightRecorder(16, enabled=False), profile=False,
+        device=comm.device,
+        _tp_shard=(comm, tp, p["modes"], params, p["variables"]), **p["kw"])
+    return _TpFollower(eng)

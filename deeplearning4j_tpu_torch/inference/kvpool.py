@@ -91,14 +91,23 @@ class KVPool:
     per (position, head). The budget covers every block the pool holds,
     scratch included: ``(capacity_blocks + 1) * bytes_per_block <=
     budget_bytes``. ``paged=False`` allocates ``storage`` in ``dtype`` on
-    ``device``; the paged pool allocates nothing."""
+    ``device``; the paged pool allocates nothing.
+
+    ``shard_factor``: the tensor-parallel size when the head axis is split
+    over ranks (`inference/sharding.py`, JAX `shard_factor` :136-187).
+    ``layers`` keeps the whole model's Hkv; each rank holds Hkv /
+    shard_factor heads of every block, so ``budget_bytes`` is a per-rank
+    budget and ``bytes_per_block`` a rank's cost: at a fixed per-rank
+    budget the pool holds shard_factor times the blocks. The side pool's
+    ``storage`` holds the rank's heads only. The free list, trie and
+    refcounts are one logical pool, whatever the rank count."""
 
     def __init__(self, layers: Dict[str, Tuple[int, int, int]], *,
                  block: int, budget_bytes: int,
                  cache_dtype: Optional[str] = None, paged: bool = True,
                  dtype: torch.dtype = torch.float32,
                  device: torch.device = torch.device("cpu"),
-                 metrics=None, tracer=None):
+                 shard_factor: int = 1, metrics=None, tracer=None):
         if block < 1:
             raise ValueError(f"block must be >= 1, got {block}")
         if cache_dtype not in (None, "int8"):
@@ -112,6 +121,13 @@ class KVPool:
         self.paged = bool(paged)
         self.cache_dtype = cache_dtype
         self.budget_bytes = int(budget_bytes)
+        self.shard_factor = max(1, int(shard_factor))
+        sf = self.shard_factor
+        if any(hkv % sf for hkv, _, _ in layers.values()):
+            raise ValueError(f"shard_factor={sf} does not divide every "
+                             "layer's Hkv")
+        layers = {n: (hkv // sf, dh, its)
+                  for n, (hkv, dh, its) in layers.items()}
         per_block = 0
         for hkv, dh, itemsize in layers.values():
             if cache_dtype == "int8":

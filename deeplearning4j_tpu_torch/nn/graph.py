@@ -55,6 +55,12 @@ dtype; losses and the regularisation sum are f32; ``output`` and
 ``score`` follow the compute dtype. An unsupported ``compute_dtype``
 raises ValueError.
 
+Data parallelism (parallel/trainer.py): the ICI master drives the train
+step's pieces on every rank itself — `_grads_on` with the rank's loss
+scale, one gradient all-reduce, `_update_` — eagerly, outside the
+captured step; parameter averaging runs the captured step locally.
+Tensor-parallel training is listed under ROADMAP A7.
+
 Parameters live on ``device`` (default "cuda"; it raises when no CUDA
 device is present — pass device="cpu" to run on the CPU). The attention
 layers run the port's flash or splash kernels there, f32 or bf16 by the
@@ -327,10 +333,13 @@ class ComputationGraph:
     # -- loss ------------------------------------------------------------------
     def _loss(self, acts: Dict[str, Tensor], labels: Sequence[Tensor],
               lmasks: Optional[Sequence[Optional[Tensor]]] = None,
-              preouts: Optional[Dict[str, Tensor]] = None) -> Tensor:
+              preouts: Optional[Dict[str, Tensor]] = None,
+              scales: Optional[Sequence[float]] = None) -> Tensor:
         """Sum over the network outputs of each output layer's loss (JAX
         graph.py:240), from the pre-activation where the activation and
-        loss pair has a fused from-logits form."""
+        loss pair has a fused from-logits form; ``scales``: a factor for
+        each output's loss (a data-parallel rank's share of the global
+        weight, parallel/trainer.py)."""
         total = torch.zeros((), dtype=torch.float32, device=self.device)
         for i, out_name in enumerate(self.conf.network_outputs):
             vertex = self.conf.vertices[out_name]
@@ -348,8 +357,10 @@ class ComputationGraph:
             if out.ndim == 3:  # per-timestep output: flatten time
                 out = out.reshape(-1, out.shape[-1])
                 y = y.reshape(-1, y.shape[-1])
-            total = total + loss_fn(y, out, None if m is None
-                                    else m.reshape(-1)).float()
+            li = loss_fn(y, out, None if m is None else m.reshape(-1))
+            if scales is not None:
+                li = li * scales[i]
+            total = total + li.float()
         return total
 
     def _reg_loss(self, params) -> Tensor:
@@ -377,11 +388,14 @@ class ComputationGraph:
                               self._as_tensors(lmasks), None,
                               self.variables)[:2]
 
-    def _grads_on(self, ins, labs, fmasks, lmasks, states, variables):
+    def _grads_on(self, ins, labs, fmasks, lmasks, states, variables,
+                  loss_scales=None, with_reg: bool = True):
         """(loss, gradients, the new variables, the recurrent vertices' new
         states): the train step's forward from ``states`` (None: zeros)
         and ``variables``, and its backward, on device tensors (``fmasks``
-        by input name)."""
+        by input name). ``loss_scales`` / ``with_reg``: a data-parallel
+        rank's loss scales and whether it adds the regularization
+        (parallel/trainer.py)."""
         params = {name: {k: v.detach().requires_grad_(True)
                          for k, v in lp.items()}
                   for name, lp in self.params.items()}
@@ -390,8 +404,9 @@ class ComputationGraph:
             params, ins, variables=variables, train=True, gen=self._gen,
             fmasks=fmasks, states=states, want_preout=True,
             new_vars=new_vars)
-        loss = (self._loss(acts, labs, lmasks, preouts)
-                + self._reg_loss(params))
+        loss = self._loss(acts, labs, lmasks, preouts, loss_scales)
+        if with_reg:
+            loss = loss + self._reg_loss(params)
         leaves = [p for lp in params.values() for p in lp.values()]
         flat = iter(torch.autograd.grad(loss, leaves, allow_unused=True)
                     if leaves else ())

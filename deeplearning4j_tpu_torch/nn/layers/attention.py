@@ -53,6 +53,9 @@ def _tracing() -> bool:
 class SelfAttentionLayerImpl(BaseRecurrentImpl):
     WEIGHT_KEYS = ("Wq", "Wk", "Wv", "Wo")
     TBPTT_STATE = False  # the KV cache is inference-only state
+    # a tensor-parallel rank's communicator (inference/sharding.py): the
+    # conf then carries the rank's local heads, Wo its rows of them
+    tp_comm = None
 
     def _kv_heads(self) -> int:
         conf = self.conf
@@ -138,7 +141,12 @@ class SelfAttentionLayerImpl(BaseRecurrentImpl):
         return torch.cat([a1 * cos - a2 * sin, a1 * sin + a2 * cos], dim=-1)
 
     def _out(self, params, o, B, T):
-        out = o.reshape(B, T, self.conf.n_out) @ params["Wo"] + params["b"]
+        out = o.reshape(B, T, self.conf.n_out) @ params["Wo"]
+        if self.tp_comm is not None:
+            # row-split Wo: sum the ranks' partial products, then add the
+            # replicated bias once
+            out = self.tp_comm.all_reduce(out)
+        out = out + params["b"]
         return self.activation_fn()(out)
 
     def _grouped_attention(self, q, k, v, *, causal, qpos0=0):

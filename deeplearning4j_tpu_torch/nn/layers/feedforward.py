@@ -16,6 +16,12 @@ from .. import weights as winit
 
 
 class _LinearLayer(LayerImpl):
+    # tensor-parallel decode (inference/sharding.py): a row-split layer's
+    # communicator (all-reduce of the partial product before the bias),
+    # or a column-split one whose output is gathered back
+    tp_comm = None
+    tp_gather = None
+
     def init_params(self, gen, dtype=torch.float32, device=torch.device("cpu")):
         conf = self.conf
         dist = conf.dist.spec() if getattr(conf, "dist", None) is not None \
@@ -35,7 +41,12 @@ class _LinearLayer(LayerImpl):
                             mask=None):
         """(activations, PRE-activation): the loss path feeds the
         pre-activation to the from-logits losses (ops/losses.py)."""
-        z = self._dropout(x, train, gen) @ params["W"] + params["b"]
+        z = self._dropout(x, train, gen) @ params["W"]
+        if self.tp_comm is not None:
+            z = self.tp_comm.all_reduce(z)
+        z = z + params["b"]
+        if self.tp_gather is not None:
+            z = self.tp_gather.all_gather_last(z)
         return self.activation_fn()(z), z
 
 

@@ -69,7 +69,8 @@ class BatchNormalizationImpl(LayerImpl):
         conf = self.conf
         gamma, beta = self._gamma_beta(params, x)
         if train and not conf.use_global_stats:
-            mean32, var32 = ophelpers.bn_batch_stats(x)
+            # global over the ranks inside ophelpers.bn_sync
+            mean32, var32 = ophelpers.batch_stats(x)
             mean, var = mean32.to(x.dtype), var32.to(x.dtype)
             new_vars = self._ema(variables, mean32, var32)
         else:

@@ -54,6 +54,12 @@ the updater state (nn/updater/apply.py). float64 runs on the CPU; on the
 card the kernel wrappers raise for it. An unsupported ``compute_dtype``
 raises ValueError.
 
+Data parallelism (parallel/trainer.py): the ICI master drives the train
+step's pieces on every rank itself — `_grads_on` with the rank's loss
+scale, one gradient all-reduce, `_update_` — eagerly, outside the
+captured step; parameter averaging runs the captured step locally.
+Tensor-parallel training is listed under ROADMAP A7.
+
 Parameters live on ``device`` (default "cuda"; it raises when no CUDA
 device is present — pass device="cpu" to run on the CPU). The conv and
 BN+act+pool layers run the port's CUDA kernels there (ops/helpers.py),
@@ -292,17 +298,25 @@ class MultiLayerNetwork:
         return self._grads_on(*map(self._as_tensor, (x, y, fmask, lmask)),
                               None, self.variables)[:3]
 
-    def _grads_on(self, x, y, fmask, lmask, states, variables):
+    def _grads_on(self, x, y, fmask, lmask, states, variables,
+                  loss_scales=None, with_reg: bool = True):
         """(loss, gradients, new variables, new recurrent states): the
         train step's forward from ``states`` (None: zeros) and
-        ``variables``, and its backward, on device tensors."""
+        ``variables``, and its backward, on device tensors. A data-parallel
+        rank (parallel/trainer.py) scales the loss by its share of the
+        global weight (``loss_scales``, one float) and adds the
+        regularization on one rank only (``with_reg``)."""
         params = [{k: v.detach().requires_grad_(True) for k, v in lp.items()}
                   for lp in self.params]
         acts, new_vars, new_states, preout = self._forward_impl(
             params, variables, x, train=True, gen=self._gen,
             fmask=fmask, states=states, fuse_pairs=True, want_preout=True)
-        loss = (self._loss_from_output(acts[-1], y, lmask, preout=preout)
-                + self._reg_loss(params)).float()
+        loss = self._loss_from_output(acts[-1], y, lmask, preout=preout)
+        if loss_scales is not None:
+            loss = loss * loss_scales[0]
+        if with_reg:
+            loss = loss + self._reg_loss(params)
+        loss = loss.float()
         leaves = [p for lp in params for p in lp.values()]
         flat = torch.autograd.grad(loss, leaves, allow_unused=True) \
             if leaves else ()

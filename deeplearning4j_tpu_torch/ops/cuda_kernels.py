@@ -497,13 +497,14 @@ def _wide(t):
     return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
-def bnap_forward_ref(x, gamma, beta, *, eps, activation):
+def bnap_forward_ref(x, gamma, beta, *, eps, activation, stats=None):
     """The composite's forward (JAX `fwd_chain`, pallas_kernels.py :332):
-    f32 batch stats (`bn_batch_stats`), z normalized in f32 from x and the
-    f32 gamma and beta, act(z) rounded to x's dtype, then the 2x2/s2 max.
-    Returns (pooled in x's dtype, mean, var, inv in f32; f64 for an f64
-    x). x [B, H, W, C], H and W even."""
-    mean, var = bn_batch_stats(x)
+    f32 batch stats (`bn_batch_stats`, or ``stats`` = (mean, var) given:
+    a data-parallel rank's global ones), z normalized in f32 from x and
+    the f32 gamma and beta, act(z) rounded to x's dtype, then the 2x2/s2
+    max. Returns (pooled in x's dtype, mean, var, inv in f32; f64 for an
+    f64 x). x [B, H, W, C], H and W even."""
+    mean, var = bn_batch_stats(x) if stats is None else stats
     inv = torch.rsqrt(var + eps)
     z = (_wide(x) - mean) * inv * _wide(gamma) + _wide(beta)
     a = activations.get(activation)(z).to(x.dtype)

@@ -20,8 +20,10 @@ permute, for `F.conv2d` and `F.max_pool2d`.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
+import threading
 from typing import Callable, Dict, Optional
 
 import torch
@@ -295,6 +297,82 @@ def batch_norm(x, gamma, beta, mean, var, *, eps=1e-5) -> Tensor:
 bn_batch_stats = ck.bn_batch_stats
 
 
+# -- data-parallel batch statistics ------------------------------------------
+# GSPMD keeps single-program semantics, so under the JAX package's ICI
+# data-parallel master a BatchNorm's batch statistics are those of the
+# global (sharded) batch. The port's ranks are processes: inside
+# `bn_sync(comm)` (parallel/trainer.py) every train-mode batch statistic
+# is all-reduced over ``comm``'s ranks, and so are the backward's
+# per-channel sums. Ranks hold equal shards.
+_BN_SYNC = threading.local()
+
+
+@contextlib.contextmanager
+def bn_sync(comm):
+    """Train-mode BatchNorm statistics over every rank of ``comm`` (a
+    `parallel.mesh` communicator) inside; local outside."""
+    prev = getattr(_BN_SYNC, "comm", None)
+    _BN_SYNC.comm = comm if comm is not None and comm.size > 1 else None
+    try:
+        yield
+    finally:
+        _BN_SYNC.comm = prev
+
+
+def _sync_comm():
+    return getattr(_BN_SYNC, "comm", None)
+
+
+def _global_stats(x: Tensor, comm):
+    """`bn_batch_stats` over the ranks' shards: the two-pass biased
+    variance of f32 and f64 (a sum, then the squared deviations from the
+    global mean), the one-pass f32 moments of sub-f32 inputs."""
+    dims = tuple(range(x.ndim - 1))
+    n = float(x.numel() // x.shape[-1] * comm.size)
+    if x.dtype in (torch.bfloat16, torch.float16):
+        xf = x.float()
+        m = comm.all_reduce(torch.stack([xf.sum(dim=dims),
+                                         (xf * xf).sum(dim=dims)])) / n
+        return m[0], torch.clamp_min(m[1] - m[0] * m[0], 0.0)
+    mean = comm.all_reduce(x.sum(dim=dims)) / n
+    d = x - mean
+    var = comm.all_reduce((d * d).sum(dim=dims)) / n
+    return mean, var
+
+
+class _SyncStats(torch.autograd.Function):
+    """(mean, var) of the global batch, differentiable: the backward sums
+    every rank's gradient of the global statistics (each rank's loss
+    reaches them) and hands each rank its x's share, d mean / dx = 1/n,
+    d var / dx = 2 (x - mean) / n."""
+
+    @staticmethod
+    def forward(ctx, x, comm):
+        mean, var = _global_stats(x.detach(), comm)
+        ctx.save_for_backward(x, mean)
+        ctx.comm = comm
+        return mean, var
+
+    @staticmethod
+    def backward(ctx, g_mean, g_var):
+        x, mean = ctx.saved_tensors
+        comm = ctx.comm
+        g = comm.all_reduce(torch.stack([g_mean, g_var]).contiguous())
+        n = float(x.numel() // x.shape[-1] * comm.size)
+        xw = x.to(mean.dtype)
+        dx = g[0] / n + g[1] * 2.0 * (xw - mean) / n
+        return dx.to(x.dtype), None
+
+
+def batch_stats(x: Tensor):
+    """The train-mode batch statistics a BatchNorm normalizes with:
+    `bn_batch_stats`, or the global ones inside `bn_sync`."""
+    comm = _sync_comm()
+    if comm is None:
+        return bn_batch_stats(x)
+    return _SyncStats.apply(x, comm)
+
+
 # -- local response normalization ---------------------------------------------
 
 def _lrn_default(x, *, k, n, alpha, beta):
@@ -319,7 +397,7 @@ def lrn(x: Tensor, *, k=2.0, n=5.0, alpha=1e-4, beta=0.75) -> Tensor:
 # -- fused train-mode BatchNorm + activation + 2x2/s2 max-pool ----------------
 
 def _bn_act_pool_default(x, gamma, beta, *, eps, activation):
-    mean, var = bn_batch_stats(x)
+    mean, var = batch_stats(x)
     y = batch_norm(x, gamma, beta, mean.to(x.dtype), var.to(x.dtype),
                    eps=eps)
     y = activations.get(activation)(y)
@@ -363,11 +441,52 @@ class _BnActPool(torch.autograd.Function):
                 None, None, None, None)
 
 
+class _BnActPoolSync(torch.autograd.Function):
+    """`_BnActPool` inside `bn_sync`: the forward normalizes with the
+    global batch statistics, and the backward all-reduces the sums pass's
+    per-channel (d beta, d gamma) before the dx pass, which divides by the
+    local count: the global sums enter divided by the rank count. The
+    returned d gamma and d beta stay the rank's own (the master's gradient
+    all-reduce sums them)."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps, activation, sums, dx, comm):
+        stats = _global_stats(x, comm)
+        pooled, mean, var, inv = ck.bnap_forward_ref(
+            x, gamma, beta, eps=eps, activation=activation, stats=stats)
+        ctx.save_for_backward(x, gamma, beta, mean, inv)
+        ctx.conf = (activation, sums, dx, comm)
+        ctx.mark_non_differentiable(mean, var)
+        return pooled, mean, var
+
+    @staticmethod
+    def backward(ctx, g, _g_mean, _g_var):
+        x, gamma, beta, mean, inv = ctx.saved_tensors
+        activation, sums, dx, comm = ctx.conf
+        x = x.contiguous()
+        g = g.contiguous()
+        p = torch.stack([mean, inv, gamma.float(), beta.float()])
+        dgamma, dbeta = sums(x, g, p, activation=activation)
+        s = comm.all_reduce(torch.stack([dbeta, dgamma])) / comm.size
+        dx_ = dx(x, g, p, s, activation=activation)
+        return (dx_, dgamma.to(gamma.dtype), dbeta.to(beta.dtype),
+                None, None, None, None, None)
+
+
+def _bnap_apply(x, gamma, beta, eps, activation, sums, dx):
+    comm = _sync_comm()
+    if comm is None:
+        return _BnActPool.apply(x, gamma, beta, float(eps), activation,
+                                sums, dx)
+    return _BnActPoolSync.apply(x, gamma, beta, float(eps), activation,
+                                sums, dx, comm)
+
+
 def bn_act_pool_plain(x, gamma, beta, *, eps=1e-5, activation="relu"):
     """The composite with the PLAIN versions of both backward passes: what
     the kernels compute, in PyTorch ops, on any device."""
-    return _BnActPool.apply(x, gamma, beta, float(eps), activation,
-                            ck.bnap_sums_ref, ck.bnap_dx_ref)
+    return _bnap_apply(x, gamma, beta, eps, activation, ck.bnap_sums_ref,
+                       ck.bnap_dx_ref)
 
 
 def bn_act_pool(x, gamma, beta, *, eps=1e-5, activation="relu"):
@@ -382,8 +501,8 @@ def bn_act_pool(x, gamma, beta, *, eps=1e-5, activation="relu"):
     if not bnap_kernel_applies(x, activation):
         return _bn_act_pool_default(x, gamma, beta, eps=eps,
                                     activation=activation)
-    return _BnActPool.apply(x, gamma, beta, float(eps), activation,
-                            ck.bnap_sums, ck.bnap_dx)
+    return _bnap_apply(x, gamma, beta, eps, activation, ck.bnap_sums,
+                       ck.bnap_dx)
 
 
 # -- full-sequence multi-head attention ----------------------------------------

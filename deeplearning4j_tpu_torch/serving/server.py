@@ -137,7 +137,7 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from pathlib import Path
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
@@ -228,6 +228,8 @@ class InferenceServer:
                  slo_p99_ms: Optional[float] = None,
                  slo: Optional[SLOMonitor] = None, profile: bool = True,
                  failpoint_endpoint: bool = False,
+                 decode_tp: int = 0,
+                 decode_tp_devices: Optional[Sequence] = None,
                  device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         if net is None:
@@ -256,6 +258,13 @@ class InferenceServer:
             speculate=speculate, draft_blocks=draft_blocks,
             draft_net=draft_net, host_cache_mb=host_cache_mb,
             disk_cache_mb=disk_cache_mb, tier_dir=tier_dir, profile=profile)
+        # tensor-parallel decode (JAX :224, :423): every (re)build gets a
+        # fresh mesh of decode_tp ranks (new followers after a crash); the
+        # devices default to the engine's rule (cuda:0..N-1 on the card,
+        # CPU ranks for a CPU server)
+        self.decode_tp = int(decode_tp or 0)
+        self.decode_tp_devices = (list(decode_tp_devices)
+                                  if decode_tp_devices else None)
         self.supervise = bool(supervise)
         self.hang_timeout_s = float(hang_timeout_s)
         self.retry_budget = int(retry_budget)
@@ -310,9 +319,18 @@ class InferenceServer:
         """Every (re)build: the same device and modes (kernel, graphs,
         speculation, tiers): a rebuilt engine speculates and tiers
         again."""
+        mesh = None
+        if self.decode_tp > 1:
+            from ..inference.sharding import decode_mesh
+            devices = self.decode_tp_devices or (
+                None if self.device.type == "cuda"
+                else ["cpu"] * self.decode_tp)
+            mesh = (decode_mesh(self.decode_tp, devices)
+                    if devices is not None else self.decode_tp)
         return DecodeScheduler(self.net, self.decode_vocab,
                                metrics=self.metrics, tracer=self.tracer,
-                               device=self.device, **self._decode_kw)
+                               device=self.device, mesh=mesh,
+                               **self._decode_kw)
 
     def ready(self) -> Tuple[bool, dict]:
         """`/readyz` verdict + body. An unsupervised server is ready while
@@ -351,6 +369,10 @@ class InferenceServer:
                     self.net, "_quantized_vertices", [])),
                 "transfer_guard": dec.transfer_guard,
                 "pool": dec.pool.stats() if dec.pool else None}
+        # the mesh in force (JAX :805): the engine's tp, not the flag
+        body["mesh"] = dec.mesh_topology() if dec is not None else {
+            "tp": 1, "devices": 1, "device_list": [str(dev)],
+            "backend": None}
         if self.supervisor is not None:
             body["supervisor"] = self.supervisor.status()
         body["slo"] = self.slo.snapshot()

@@ -101,8 +101,13 @@ non-zero without them, or when any phase fails. Phases:
      within 1e-6 and every parameter's gradient within 1e-4 (relative L2
      norm; a conv bias that feeds a BatchNorm, whose exact gradient is
      zero, relative to its layer's whole gradient); with every kernel
-     plain within 1e-5 and 1e-2 (the conv's rounding can flip a few
-     near-tied maxima and relu signs). Then the
+     plain the loss within 1e-5, the gradients printed beside the count
+     of 2x2 windows whose max or its sign the conv's rounding moved (one
+     such window moves a leaf well past rounding); with every kernel plain
+     but each conv's forward value pinned to the kernel's bits (its
+     gradient through the plain conv), each conv output within 1e-4 of
+     the plain one (of max |plain|) on the training path's own inputs,
+     the loss within 1e-6 and every gradient within 1e-4. Then the
      same seeds with the three kernels replaced by their plain
      versions (helpers.PLAIN_OVERRIDES through register_helper): no
      kernel launches; the losses of steps 1-2 within 1e-4 (relative) of
@@ -501,7 +506,31 @@ non-zero without them, or when any phase fails. Phases:
      pool's blocks at tp = 1 and 2 (no speed gate); (g) with two or more
      cards, (a) again over NCCL, one card a rank, else "phase 31g not
      run: 1 card"; alone: `python3 tools/phase31_alone.py`;
- 32. prints the kernels line (the bf16 kernels as rows of their own,
+ 32. speculation, the KV tiers and fault tolerance under the mesh, ranks
+     co-located on card 0 over gloo: (a) the flagship at tp = 2,
+     speculate = 3 with a 2-block shallow draft, phase 3's 8 requests on
+     paged fp32 pages and in contiguous mode: tokens equal the tp = 1
+     unspeculated eager engine's, 4 paged launches a plain decode step
+     on each rank (none in contiguous mode; the verify and the draft
+     launch none), the verify's collectives on each rank 8 all-reduces
+     and one command, the draft's 4 and one; verify, draft and step ms,
+     proposals and acceptances; (b) phase 28's waves (A, B, C = A; 8 x
+     512-token prompts, chunk 16) at tp = 2 on fp32 and int8 pages, a
+     rank's pool holding phase 28's block count, a 96 MiB host tier:
+     wave C equals wave A and the tp = 1 engine's wave A, promotions > 0,
+     failed restores printed, 4 paged launches a step on each rank; wave
+     A's first prompt chain fetched from the tp = 2 tier holds every head
+     and, fp32, serves a tp = 1 peer engine token-identically; (c)
+     AlexNet-CIFAR10 at full width, B = 512 over 2 ranks, ICI master with
+     a TrainingStateTracker every step: dropped after 3 steps, `resume()`
+     on a fresh net and master returns 3 and the 5-step params match an
+     uninterrupted run's (31e's gate; bitwise or not is printed); the
+     follower SIGKILLed after step 3 under `fit_with_recovery` fails the
+     fit, and a restart on one rank with the dead worker disabled replays
+     from the cursor to the uninterrupted params (31e's gate), 3 + 3 + 3
+     launches a step on each rank; alone: `python3
+     tools/phase32_alone.py`;
+ 33. prints the kernels line (the bf16 kernels as rows of their own,
      named "<kernel>_bf16"; the paged rows carry phase 26's masked-wave
      launches as "masked_launches", phase 27a's as
      "speculating_launches" and phase 28's wave C as "tiered_launches",
@@ -510,7 +539,8 @@ non-zero without them, or when any phase fails. Phases:
      each captured graph step as "graph_launches_per_step"; phase
      31's per-rank launches as "tp_launches_per_rank" and
      "dp_launches_per_rank", the paged kernel at the shard shapes as
-     "shard_cases").
+     "shard_cases"; phase 32's as "tp_speculating_launches_per_rank",
+     "tp_tiered_launches_per_rank" and "ft_launches_per_rank").
 
 The last line is {"ok": true, "device": {...}}. Every number printed is
 measured in this run; a "[details]" JSON line before the kernels line
@@ -1752,6 +1782,150 @@ def grad_check(torch, net, x, y, overrides):
             rel[f"{i}.{k}"] = float((a[k] - b[k]).norm() / (
                 whole if zero else b[k].norm()).clamp_min(1e-30))
     return float((lk - lp).abs() / lp.abs()), rel
+
+
+def recording_seam(torch, helpers, name, fn, seen):
+    """An override of the seam ``name`` that keeps its inputs (detached)
+    in ``seen`` and runs ``fn``, or the seam's own path where ``fn`` is
+    None (the override steps aside for the call)."""
+    def rec(*args, **kw):
+        seen.append(([a.detach() if torch.is_tensor(a) else a
+                      for a in args], dict(kw)))
+        if fn is not None:
+            return fn(*args, **kw)
+        helpers.register_helper(name, None)
+        try:
+            return getattr(helpers, name)(*args, **kw)
+        finally:
+            helpers.register_helper(name, rec)
+    return rec
+
+
+def pool_flips(torch, seen_a, seen_b):
+    """For each bn_act_pool call recorded in two runs: the 2x2 windows
+    whose max is another element, or whose max changes sign, between
+    the runs' inputs (act(BN(x)) recomputed alike from each)."""
+    from deeplearning4j_tpu_torch.ops import activations
+
+    def choice(args, kw):
+        x, gamma, beta = args[:3]
+        mean = x.mean((0, 1, 2))
+        var = x.var((0, 1, 2), unbiased=False)
+        z = activations.get(kw.get("activation", "relu"))(
+            (x - mean) * torch.rsqrt(var + kw.get("eps", 1e-5)) * gamma
+            + beta)
+        B, H, W, C = z.shape
+        m, a = z.view(B, H // 2, 2, W // 2, 2, C).permute(
+            0, 1, 3, 5, 2, 4).reshape(B, H // 2, W // 2, C, 4).max(-1)
+        return a, m > 0
+
+    flips = []
+    for (xa, ka), (xb, kb) in zip(seen_a, seen_b):
+        (aa, sa), (ab, sb) = choice(xa, ka), choice(xb, kb)
+        flips.append(int(((aa != ab) | (sa != sb)).sum()))
+    return flips
+
+
+def pinned_conv_plain(torch, helpers, errs):
+    """The conv seam's plain version (autograd through F.conv2d) whose
+    forward VALUE is the kernel's output on the same inputs, bit for bit:
+    the layers after it see the kernel run's bits, so no near-tied max or
+    relu sign can flip, and the gradients differ by the backward passes
+    alone. Appends max |y_kernel - y_plain| / max |y_plain| of each call
+    to ``errs``."""
+    class Pin(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, plain, kernel):
+            return kernel.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+
+    def conv(x, w, b, **kw):
+        yp = helpers.conv2d_bias_act_plain(x, w, b, **kw)
+        helpers.register_helper("conv2d_bias_act", None)
+        try:
+            with torch.no_grad():
+                yk = helpers.conv2d_bias_act(x, w, b, **kw)
+        finally:
+            helpers.register_helper("conv2d_bias_act", conv)
+        d = yp.detach()
+        errs.append(float((yk - d).abs().max()
+                          / d.abs().max().clamp_min(1e-30)))
+        return Pin.apply(yp, yk)
+    return conv
+
+
+def alexnet_grad_checks(torch, net, x, y):
+    """Phase 6's gradients of one step on the net's params and dropout
+    masks, through the kernels against three plain runs:
+    (a) only bn_act_pool plain: the forward is the same bits, so the
+        gradients differ by the sums' order alone;
+    (b) every kernel plain: the conv outputs round apart, and a 2x2 max
+        that is tied within that rounding, or a relu sign at 0, then
+        routes a whole gradient element elsewhere and moves leaves well
+        past rounding, by another amount each run, so only the loss is
+        gated; the windows are counted per BN+pool layer;
+    (c) every kernel plain on the kernel's conv outputs (pinned_conv_plain):
+        each conv's output against the kernel's on the training path's
+        own inputs, and every gradient with no window able to flip.
+    Returns the figures and the failed gates."""
+    from deeplearning4j_tpu_torch.ops import helpers
+    out, failed = {}, []
+    loss, rel = grad_check(torch, net, x, y,
+                           {"bn_act_pool": helpers.bn_act_pool_plain})
+    out["bnap_plain"] = {"loss_rel": loss, "leaf_rel": rel}
+    if not (loss <= 1e-6 and max(rel.values()) <= 1e-4):
+        failed.append("with bn_act_pool plain")
+    seen_k, seen_p = [], []
+    kernel_side = recording_seam(torch, helpers, "bn_act_pool", None,
+                                 seen_k)
+    helpers.register_helper("bn_act_pool", kernel_side)
+    try:
+        state = net._gen.get_state()
+        lk, _, _ = net.compute_gradient_and_score(x, y)
+        net._gen.set_state(state)
+    finally:
+        helpers.register_helper("bn_act_pool", None)
+    loss, rel = grad_check(torch, net, x, y, {
+        **helpers.PLAIN_OVERRIDES,
+        "bn_act_pool": recording_seam(torch, helpers, "bn_act_pool",
+                                      helpers.bn_act_pool_plain, seen_p)})
+    out["all_plain"] = {"loss_rel": loss, "leaf_rel": rel,
+                        "flipped_windows": pool_flips(torch, seen_k,
+                                                      seen_p)}
+    del seen_k, seen_p
+    if not loss <= 1e-5:
+        failed.append("with every kernel plain")
+    errs = []
+    loss, rel = grad_check(torch, net, x, y, {
+        **helpers.PLAIN_OVERRIDES,
+        "conv2d_bias_act": pinned_conv_plain(torch, helpers, errs)})
+    out["pinned_plain"] = {"conv_rel": errs, "loss_rel": loss,
+                           "leaf_rel": rel}
+    if not (errs and max(errs) <= 1e-4 and loss <= 1e-6
+            and max(rel.values()) <= 1e-4):
+        failed.append("with every kernel plain on the kernel's conv outputs")
+    return out, failed
+
+
+def grad_checks_line(g):
+    """alexnet_grad_checks' figures as one line, each beside its gate."""
+    def worst(run):
+        k, v = max(g[run]["leaf_rel"].items(), key=lambda kv: kv[1])
+        return f"worst leaf {k} {v:.3e}"
+    a, p = g["all_plain"], g["pinned_plain"]
+    return (f"with bn_act_pool plain, loss rel diff "
+            f"{g['bnap_plain']['loss_rel']:.3e} (gate 1e-6), "
+            f"{worst('bnap_plain')} ||diff||/||plain|| (gate 1e-4); with "
+            f"every kernel plain, loss {a['loss_rel']:.3e} (gate 1e-5), "
+            f"{worst('all_plain')} (not gated: 2x2 windows whose max or its "
+            f"sign moved, by BN+pool layer, {a['flipped_windows']}); with "
+            f"every kernel plain on the kernel's conv outputs, conv "
+            f"max|diff|/max|plain| {[f'{e:.3e}' for e in p['conv_rel']]} "
+            f"(gate 1e-4), loss {p['loss_rel']:.3e} (gate 1e-6), "
+            f"{worst('pinned_plain')} (gate 1e-4)")
 
 
 def train_profile(torch, net, x, y, steps):
@@ -5368,6 +5542,26 @@ P31_PA_ROUNDS = 5
 P31_LOSS_REL = 1e-4
 P31_MOMENT_REL = 1e-4
 P31_PARAM_REL = 5e-2
+# the same, over the params other than the three conv biases that feed a
+# BatchNorm (448 elements; their gradient is zero up to rounding, which
+# Adam turns into steps of about +-lr): 3.120e-03 measured with those
+# biases at 1.218 of their change (PERF.md §6, PR 26)
+P31_OTHER_REL = 1e-2
+
+
+def bn_fed_bias_mask(net):
+    """A mask over ``net.params_flat()``: False on the bias of each layer
+    whose next layer is a BatchNormalization, True elsewhere."""
+    import numpy as np
+    keep = []
+    layers = net.conf.layers
+    for i, lp in enumerate(net.params):
+        fed = (i + 1 < len(layers)
+               and type(layers[i + 1]).__name__ == "BatchNormalization")
+        for name in sorted(lp):
+            keep.append(np.full(lp[name].numel(),
+                                not (fed and name == "b")))
+    return np.concatenate(keep)
 
 
 def p31_devices(n=2):
@@ -5548,6 +5742,11 @@ def dp_alexnet(torch, ck, card, mesh, failures):
     p1, pd = one.params_flat(), dp.params_flat()
     change = float(np.linalg.norm(p1 - p0))
     rel = float(np.linalg.norm(pd - p1)) / max(change, 1e-30)
+    keep = bn_fed_bias_mask(one)
+    rel_other = float(np.linalg.norm((pd - p1)[keep])) / max(
+        float(np.linalg.norm((p1 - p0)[keep])), 1e-30)
+    rel_bias = float(np.linalg.norm((pd - p1)[~keep])) / max(
+        float(np.linalg.norm((p1 - p0)[~keep])), 1e-30)
     loss_rel = max(abs(a - b) / max(abs(b), 1e-30)
                    for a, b in zip(rec.losses, rec1.losses))
     # the listener's times: the second call's state handover falls
@@ -5555,6 +5754,9 @@ def dp_alexnet(torch, ck, card, mesh, failures):
     step_s = [rec.times[i + 1] - rec.times[i] for i in range(len(rec.losses))]
     out = {"losses": rec.losses, "one_process_losses": rec1.losses,
            "loss_max_rel": loss_rel, "param_rel": rel,
+           "param_rel_without_bn_fed_biases": rel_other,
+           "bn_fed_bias_rel": rel_bias,
+           "bn_fed_bias_count": int((~keep).sum()),
            "moment_rel": moment_rel,
            "param_max_abs_diff": float(np.abs(pd - p1).max()),
            "launches_per_rank": [{k: r[k] for k in ("conv2d_bias_act",
@@ -5571,18 +5773,22 @@ def dp_alexnet(torch, ck, card, mesh, failures):
             failures.append(f"31e: rank {r} launches {ln}, want 3 conv, 3 "
                             f"sums and 3 dx a step x {P31_ICI_STEPS}")
     if not (rel <= P31_PARAM_REL and loss_rel <= P31_LOSS_REL
-            and moment_rel <= P31_MOMENT_REL):
+            and moment_rel <= P31_MOMENT_REL and rel_other <= P31_OTHER_REL):
         failures.append(f"31e: ICI params {rel:.3e} of the steps' change "
                         f"(limit {P31_PARAM_REL}), losses {loss_rel:.3e} "
                         f"(limit {P31_LOSS_REL}), Adam's moments "
-                        f"{moment_rel:.3e} (limit {P31_MOMENT_REL}) from one "
-                        "process's")
+                        f"{moment_rel:.3e} (limit {P31_MOMENT_REL}), params "
+                        f"without the BN-fed conv biases {rel_other:.3e} "
+                        f"(limit {P31_OTHER_REL}) from one process's")
     phase(31, f"(e) AlexNet-CIFAR10 B={P31_B} over 2 ranks (ICI master, "
               f"global BN statistics), {P31_ICI_STEPS} steps: losses "
               f"{out['losses']} (one process {rec1.losses}); Adam's "
               f"moments after step 1 {moment_rel:.3e} of their norm, params "
               f"{rel:.3e} of the change from one process's (max |diff| "
-              f"{out['param_max_abs_diff']:.3e}); launches a rank "
+              f"{out['param_max_abs_diff']:.3e}; without the "
+              f"{out['bn_fed_bias_count']} conv biases feeding a BatchNorm "
+              f"{rel_other:.3e}, those biases alone {rel_bias:.3e}); "
+              f"launches a rank "
               f"{out['launches_per_rank']} [{card}]")
     x2 = np.concatenate([x, x[::-1]])
     y2 = np.concatenate([y, y[::-1]])
@@ -5705,6 +5911,458 @@ def phase31(torch, ck, card):
     phase(31, f"phase 31 took {out['seconds']:.3f} s [{card}]")
     if failures:
         raise SystemExit("phase 31 failed: " + "; ".join(failures))
+    return out
+
+
+# -- phase 32: speculation and the KV tiers under tp, fault tolerance ------
+P32_DRAFT_BLOCKS = 2    # 32a: the shallow draft's blocks (of BLOCKS)
+P32_STEPS = 5           # 32c: AlexNet steps of the uninterrupted run
+P32_CKPT_AT = 3         # 32c: steps before the drop, and the kill
+# 32c: the ICI steps against an uninterrupted run: each loss within 1e-4
+# (as 31e), params within P31_PARAM_REL of the steps' change (31e's gate)
+P32_LOSS_REL = 1e-4
+
+
+def spec_tp_wave(torch, ck, net, reqs, mesh, paged):
+    """32a: phase 3's requests through a speculating eager engine at the
+    mesh's tp (G = SPEC_G, a shallow draft of P32_DRAFT_BLOCKS blocks),
+    paged fp32 pages or contiguous stripes: (tokens, stats). Before the
+    wave the verify's and the draft's collectives on every rank; over it
+    each rank's paged kernel launches."""
+    from deeplearning4j_tpu_torch.inference import sharding as shd
+    from deeplearning4j_tpu_torch.inference.engine import DecodeScheduler
+    from deeplearning4j_tpu_torch.inference.metrics import MetricsRegistry
+    eng = DecodeScheduler(net, VOCAB, n_slots=SLOTS, prefill_chunk=CHUNK,
+                          kv_block=KV_BLOCK,
+                          kv_pool_mb=KV_POOL_MB if paged else 0.0,
+                          decode_graphs="off", mesh=mesh, speculate=SPEC_G,
+                          draft_blocks=P32_DRAFT_BLOCKS,
+                          metrics=MetricsRegistry(), device=P31_DEV)
+    st = {"tp": eng.tp, "speculate": eng.speculate,
+          "draft_blocks": eng.draft_blocks,
+          "verify_collectives": shd.verify_collective_counts(eng),
+          "draft_collectives": shd.draft_collective_counts(eng)}
+    mesh.reset_launches()
+    t0 = time.monotonic()
+    eng.start()
+    try:
+        hs = [eng.submit(b["prompt"], NEW_TOKENS, **sampling_kw(b))
+              for b in reqs]
+        toks = [h.result(P31_TIMEOUT) for h in hs]
+    finally:
+        eng.stop()
+    wall = time.monotonic() - t0
+    st.update(wall_s=wall, tokens_per_s=sum(map(len, toks)) / wall,
+              decode_steps=eng.decode_steps, spec_rounds=eng.spec_rounds,
+              draft_steps=eng.draft_steps, draft_chunks=eng.draft_chunks,
+              proposed=eng.spec_proposed, accepted=eng.spec_accepted,
+              mean_decode_step_ms=1e3 * eng.decode_seconds
+              / max(1, eng.decode_steps),
+              mean_verify_ms=1e3 * eng.verify_seconds
+              / max(1, eng.spec_rounds),
+              mean_draft_ms=1e3 * eng.draft_seconds
+              / max(1, eng.draft_steps + eng.draft_chunks),
+              launches=[r["paged_decode_attention"]
+                        for r in mesh.query_launches()])
+    return toks, st
+
+
+def spec_tp_gates(tag, st, toks, want, paged, failures):
+    if toks != want:
+        failures.append(f"32{tag}: speculating tp tokens differ from the "
+                        "tp = 1 unspeculated eager engine's")
+    if st["tp"] != 2 or st["speculate"] != SPEC_G \
+            or st["draft_blocks"] != P32_DRAFT_BLOCKS:
+        failures.append(f"32{tag}: engine armed {st}")
+    want_l = BLOCKS * st["decode_steps"] if paged else 0
+    if any(n != want_l for n in st["launches"]):
+        failures.append(f"32{tag}: paged launches per rank "
+                        f"{st['launches']}, want {want_l} ({BLOCKS} a plain "
+                        "decode step)")
+    for what, counts, nb in (("verify", st["verify_collectives"], BLOCKS),
+                             ("draft", st["draft_collectives"],
+                              P32_DRAFT_BLOCKS)):
+        for r, c in enumerate(counts):
+            if c != {"all_reduce": 2 * nb, "all_gather": 0,
+                     "broadcast_command": 1, "broadcast_data": 0}:
+                failures.append(f"32{tag}: rank {r}'s {what} collectives "
+                                f"{c}, want {2 * nb} all-reduces and one "
+                                "command")
+    if not st["proposed"] or not st["spec_rounds"]:
+        failures.append(f"32{tag}: no speculation ran ({st['spec_rounds']} "
+                        "verifies)")
+
+
+def tier_tp_engine(net, mesh, kv_dtype, **kw):
+    """A tiered eager engine over phase 28's pool block count (its budget
+    split over the mesh's ranks: each rank's pages hold its heads)."""
+    from deeplearning4j_tpu_torch.inference.engine import DecodeScheduler
+    from deeplearning4j_tpu_torch.inference.metrics import MetricsRegistry
+    tp = 1 if mesh is None else mesh.size
+    return DecodeScheduler(net, VOCAB, n_slots=SLOTS,
+                           prefill_chunk=TIER_CHUNK, kv_block=KV_BLOCK,
+                           kv_pool_mb=tier_pool_mb(kv_dtype) / tp,
+                           kv_dtype=kv_dtype, decode_graphs="off", mesh=mesh,
+                           metrics=MetricsRegistry(), device=P31_DEV, **kw)
+
+
+def engine_wave(eng, bodies):
+    hs = [eng.submit(b["prompt"], b["max_new_tokens"], **sampling_kw(b))
+          for b in bodies]
+    return [h.result(P31_TIMEOUT) for h in hs]
+
+
+def tier_tp_run(torch, ck, card, net, mesh, wave_a, wave_b, kv_dtype,
+                failures):
+    """32b: phase 28's waves A, B, C (= A) through a tp = 2 tiered engine
+    (host tier TIER_HOST_MB); wave A through a tp = 1 eager engine; then
+    wave A's first chain fetched from the tp = 2 tier (fp32: served by a
+    tp = 1 peer engine from the fetched blocks)."""
+    from deeplearning4j_tpu_torch.inference import kvtier as tkv
+    tag = "b_" + ("int8" if kv_dtype else "fp32")
+    t0 = time.monotonic()
+    one = tier_tp_engine(net, None, kv_dtype).start()
+    try:
+        want_a = engine_wave(one, wave_a)
+    finally:
+        one.stop()
+    out = {"tp1_wave_a_s": time.monotonic() - t0}
+    eng = tier_tp_engine(net, mesh, kv_dtype, host_cache_mb=TIER_HOST_MB)
+    mesh.reset_counts()
+    out["pool_blocks"] = eng.pool.capacity_blocks
+    eng.start()
+    chain = tkv.prompt_chain(wave_a[0]["prompt"], KV_BLOCK)
+    try:
+        t1 = time.monotonic()
+        toks_a = engine_wave(eng, wave_a)
+        out["wave_a_s"] = time.monotonic() - t1
+        out["settle_a_s"] = tier_settle(eng)
+        engine_wave(eng, wave_b)
+        out["settle_b_s"] = tier_settle(eng)
+        mesh.reset_launches()
+        eng.reset_counters()
+        t1 = time.monotonic()
+        toks_c = engine_wave(eng, wave_a)
+        out["wave_c_s"] = time.monotonic() - t1
+        out["settle_c_s"] = tier_settle(eng)
+        out["wave_c_decode_steps"] = eng.decode_steps
+        out["wave_c_launches"] = [r["paged_decode_attention"]
+                                  for r in mesh.query_launches()]
+        out["wave_c_tier_restored_tokens"] = eng.tier_restored_tokens
+        out["spill_all_gathers"] = [c["all_gather"]
+                                    for c in mesh.query_counts()]
+        snap = eng.metrics.snapshot()["counters"]
+        out["counters"] = {k: v for k, v in snap.items()
+                           if k.startswith("kv_tier_")}
+        t1 = time.monotonic()
+        payloads = [eng.tier.get_block_payload(h, timeout=P31_TIMEOUT)
+                    for h in chain]
+        out["fetch_s"] = time.monotonic() - t1
+    finally:
+        eng.stop()
+    dh = D_MODEL // HEADS
+    heads = []
+    for p in payloads:
+        dec = tkv.decode_block(p) if p is not None else None
+        heads.append(None if dec is None else sorted(
+            {tuple(a.shape) for pks in dec[1].values()
+             for a in pks.values()}))
+    want_shapes = sorted({(KV_BLOCK, HEADS, dh)}
+                         | ({(KV_BLOCK, HEADS)} if kv_dtype else set()))
+    out["fetched_shapes"] = heads[0]
+    c = out["counters"]
+    if toks_c != toks_a or toks_a != want_a:
+        failures.append(f"32{tag}: wave C {'=' if toks_c == toks_a else '!='}"
+                        f" wave A, wave A {'=' if toks_a == want_a else '!='} "
+                        "tp = 1")
+    if not c.get("kv_tier_promoted_blocks_total"):
+        failures.append(f"32{tag}: no block promoted ({c})")
+    if any(n != BLOCKS * out["wave_c_decode_steps"]
+           for n in out["wave_c_launches"]):
+        failures.append(f"32{tag}: wave C paged launches per rank "
+                        f"{out['wave_c_launches']}, want {BLOCKS} x "
+                        f"{out['wave_c_decode_steps']}")
+    if any(h != want_shapes for h in heads):
+        failures.append(f"32{tag}: fetched blocks' row shapes {heads}, want "
+                        f"{want_shapes} (every head)")
+    if kv_dtype is None and all(p is not None for p in payloads):
+        peer = tier_tp_engine(net, None, None, host_cache_mb=TIER_HOST_MB)
+        peer.start()
+        try:
+            got = [peer.tier.insert_fetched(p) for p in payloads]
+            peer.tier.request_restore(chain)
+            t1 = time.monotonic()
+            while (peer.metrics.counter("kv_tier_promoted_blocks_total").value
+                   < len(chain) and time.monotonic() - t1 < P31_TIMEOUT):
+                time.sleep(0.01)
+            out["peer_promoted"] = peer.metrics.counter(
+                "kv_tier_promoted_blocks_total").value
+            pre = peer.metrics.counter("prefill_tokens_total").value
+            ptoks = engine_wave(peer, wave_a[:1])
+            out["peer_prefilled"] = peer.metrics.counter(
+                "prefill_tokens_total").value - pre
+        finally:
+            peer.stop()
+        out["peer_tokens_identical"] = ptoks == want_a[:1]
+        if got != chain or not out["peer_tokens_identical"] \
+                or out["peer_promoted"] < len(chain):
+            failures.append(f"32{tag}: the tp = 1 peer from the fetched "
+                            f"blocks: inserted {got == chain}, promoted "
+                            f"{out['peer_promoted']}, tokens "
+                            f"{out['peer_tokens_identical']}")
+    phase(32, f"({tag[0]}) {'int8' if kv_dtype else 'fp32'} pages at tp = 2, "
+              f"{out['pool_blocks']} pool blocks (a rank's "
+              f"{tier_pool_mb(kv_dtype) / 2:.3f} MiB), host tier "
+              f"{TIER_HOST_MB} MiB, phase 28's waves: wave C "
+              f"{'identical' if toks_c == toks_a else 'DIFFERENT'} to wave A,"
+              f" wave A {'identical' if toks_a == want_a else 'DIFFERENT'} to "
+              f"tp = 1; spilled {c.get('kv_tier_spilled_blocks_total')} "
+              f"(dropped {c.get('kv_tier_spill_dropped_total')}), promoted "
+              f"{c.get('kv_tier_promoted_blocks_total')}, failed restores "
+              f"{c.get('kv_tier_restore_failed_total')}; wave C restored "
+              f"{out['wave_c_tier_restored_tokens']} tokens from promotions, "
+              f"paged launches per rank {out['wave_c_launches']} for "
+              f"{out['wave_c_decode_steps']} steps; waves A/C "
+              f"{out['wave_a_s']:.3f}/{out['wave_c_s']:.3f} s; a fetched "
+              f"block's rows {heads[0]}"
+              + (f"; a tp = 1 peer promoted {out['peer_promoted']} fetched "
+                 f"blocks, prefilled {out['peer_prefilled']} tokens, tokens "
+                 + ("identical" if out["peer_tokens_identical"]
+                    else "DIFFERENT")
+                 if kv_dtype is None else "") + f" [{card}]")
+    return out
+
+
+class _KillFollowerAt:
+    """A listener that SIGKILLs rank 1 of ``mesh`` after step ``at``."""
+
+    def __init__(self, mesh, at):
+        self.mesh, self.at = mesh, at
+        self.killed_at = None
+
+    def iteration_done(self, net, step):
+        import signal
+        if step == self.at and self.killed_at is None:
+            os.kill(self.mesh._procs[0].pid, signal.SIGKILL)
+            self.mesh._procs[0].join(30)
+            self.killed_at = step
+
+
+def ft_alexnet(torch, ck, card, failures):
+    """32c: AlexNet-CIFAR10 at full width (dropout 0), B = P31_B over two
+    ranks under the ICI master with a TrainingStateTracker checkpointing
+    every step: an uninterrupted run of P32_STEPS steps; a run dropped
+    after P32_CKPT_AT steps and resumed on a fresh net and master; a run
+    under fit_with_recovery whose follower is SIGKILLed after step
+    P32_CKPT_AT, restarted on one rank with the dead worker disabled."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models.zoo import alexnet_cifar10
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import mesh as tmesh
+    from deeplearning4j_tpu_torch.parallel.statetracker import (
+        TrainingStateTracker, fit_with_recovery)
+    from deeplearning4j_tpu_torch.parallel.trainer import \
+        IciDataParallelTrainingMaster
+    conf = alexnet_cifar10()
+    conf.layers[9].dropout = 0.0
+    rng = np.random.default_rng(32)
+    batches = [DataSet(rng.normal(size=(P31_B, 32, 32, 3)).astype(np.float32),
+                       np.eye(10, dtype=np.float32)[
+                           rng.integers(0, 10, P31_B)])
+               for _ in range(P32_STEPS)]
+
+    def fresh(rec=None):
+        net = MultiLayerNetwork(conf, device=P31_DEV).init()
+        net.listeners = [rec] if rec is not None else []
+        return net
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="p32-ckpt-")
+    mesh = tmesh.default_mesh(2, p31_devices(), timeout=P31_TIMEOUT).start()
+    try:
+        rec = _Losses()
+        ref = fresh(rec)
+        p0 = ref.params_flat()
+        mesh.reset_launches()
+        IciDataParallelTrainingMaster(mesh=mesh).execute_training(ref,
+                                                                  batches)
+        out["launches_per_rank"] = [
+            {k: r[k] for k in ("conv2d_bias_act", "bnap_sums", "bnap_dx")}
+            for r in mesh.query_launches()]
+        pref = ref.params_flat()
+        change = float(np.linalg.norm(pref - p0))
+        out["ref_losses"] = rec.losses
+        # the same run again: how far two uninterrupted runs part
+        again = fresh()
+        IciDataParallelTrainingMaster(mesh=mesh).execute_training(again,
+                                                                  batches)
+        pa = again.params_flat()
+        out["rerun_bitwise"] = bool(np.array_equal(pa, pref))
+        out["rerun_param_rel"] = float(np.linalg.norm(pa - pref)) / max(
+            change, 1e-30)
+        del again
+        # dropped after P32_CKPT_AT steps, resumed on a fresh net and master
+        t0 = time.monotonic()
+        net = fresh()
+        tracker = TrainingStateTracker(os.path.join(tmp, "a"),
+                                       every_n_batches=1)
+        IciDataParallelTrainingMaster(mesh=mesh, state_tracker=tracker) \
+            .execute_training(net, batches[:P32_CKPT_AT])
+        out["ckpt_write_s"] = (time.monotonic() - t0) / P32_CKPT_AT
+        p3 = net.params_flat()
+        del net
+        rec2 = _Losses()
+        net2 = fresh(rec2)
+        m2 = IciDataParallelTrainingMaster(
+            mesh=mesh, state_tracker=TrainingStateTracker(
+                os.path.join(tmp, "a"), every_n_batches=1))
+        t0 = time.monotonic()
+        out["resume_skip"] = m2.resume(net2)
+        out["resume_s"] = time.monotonic() - t0
+        out["restored_bitwise"] = bool(np.array_equal(net2.params_flat(),
+                                                      p3))
+        m2.execute_training(net2, batches)
+        p2 = net2.params_flat()
+        out["resumed_losses"] = rec2.losses
+        out["resumed_bitwise"] = bool(np.array_equal(p2, pref))
+        out["resumed_param_rel"] = float(np.linalg.norm(p2 - pref)) / max(
+            change, 1e-30)
+        # the follower killed under fit_with_recovery
+        ckpt = os.path.join(tmp, "b")
+        tr = TrainingStateTracker(ckpt, every_n_batches=1)
+        tr.add_worker("rank0")
+        tr.add_worker("rank1")
+        kill = _KillFollowerAt(mesh, P32_CKPT_AT)
+        net3 = fresh(kill)
+        try:
+            fit_with_recovery(net3, lambda epoch: batches, epochs=1,
+                              tracker=tr,
+                              master=IciDataParallelTrainingMaster(mesh=mesh))
+            out["kill_raised"] = None
+        except tmesh.MeshError as e:
+            out["kill_raised"] = str(e)
+        out["killed_at"] = kill.killed_at
+    finally:
+        mesh.kill()
+    tr = TrainingStateTracker(ckpt, every_n_batches=1)
+    tr.disable_worker("rank1")
+    live = tr.enabled_workers()
+    out["roster_after"] = live
+    one = tmesh.default_mesh(len(live), p31_devices(len(live)))
+    rec4 = _Losses()
+    net4 = fresh(rec4)
+    t0 = time.monotonic()
+    fit_with_recovery(net4, lambda epoch: batches, epochs=1, tracker=tr,
+                      master=IciDataParallelTrainingMaster(mesh=one))
+    out["restart_s"] = time.monotonic() - t0
+    p4 = net4.params_flat()
+    out["restarted_losses"] = rec4.losses
+    out["restarted_bitwise"] = bool(np.array_equal(p4, pref))
+    out["restarted_param_rel"] = float(np.linalg.norm(p4 - pref)) / max(
+        change, 1e-30)
+    out["restarted_step"] = net4.step
+    loss_rel = max([abs(a - b) / max(abs(b), 1e-30) for a, b in zip(
+        rec2.losses, rec.losses[P32_CKPT_AT:])]
+        + [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(
+            rec4.losses, rec.losses[P32_CKPT_AT:])] or [0.0])
+    out["loss_max_rel"] = loss_rel
+    for r, ln in enumerate(out["launches_per_rank"]):
+        if any(v != 3 * P32_STEPS for v in ln.values()):
+            failures.append(f"32c: rank {r} launches {ln}, want 3 a step x "
+                            f"{P32_STEPS}")
+    if out["resume_skip"] != P32_CKPT_AT or not out["restored_bitwise"]:
+        failures.append(f"32c: resume() returned {out['resume_skip']}, want "
+                        f"{P32_CKPT_AT}; restored params bitwise the "
+                        f"checkpointed net's: {out['restored_bitwise']}")
+    if out["kill_raised"] is None or out["killed_at"] != P32_CKPT_AT:
+        failures.append(f"32c: the killed follower's fit did not fail "
+                        f"({out['kill_raised']}, killed at "
+                        f"{out['killed_at']})")
+    if live != ["rank0"] or out["restarted_step"] != P32_STEPS:
+        failures.append(f"32c: restart roster {live}, step "
+                        f"{out['restarted_step']}")
+    if not (out["resumed_param_rel"] <= P31_PARAM_REL
+            and out["restarted_param_rel"] <= P31_PARAM_REL
+            and loss_rel <= P32_LOSS_REL):
+        failures.append(f"32c: resumed params {out['resumed_param_rel']:.3e}"
+                        f", restarted {out['restarted_param_rel']:.3e} of "
+                        f"the change (limit {P31_PARAM_REL}), losses "
+                        f"{loss_rel:.3e} (limit {P32_LOSS_REL})")
+    phase(32, f"(c) AlexNet-CIFAR10 B={P31_B} over 2 ranks (ICI master, "
+              f"TrainingStateTracker every step): resume() after "
+              f"{P32_CKPT_AT} steps returned {out['resume_skip']} "
+              f"({out['resume_s']:.3f} s, a checkpoint "
+              f"{out['ckpt_write_s']:.3f} s a step with its step), the "
+              f"restored params "
+              + ("bitwise" if out["restored_bitwise"] else "NOT bitwise")
+              + f" the checkpointed net's; after {P32_STEPS} steps params "
+              + ("bitwise equal to" if out["resumed_bitwise"]
+                 else "not bitwise") + f" the uninterrupted run's ({out['resumed_param_rel']:.3e} of "
+              f"the change); follower SIGKILLed after step "
+              f"{out['killed_at']}: the fit raised, restart on "
+              f"{len(live)} rank with roster {live} replayed from the "
+              f"cursor in {out['restart_s']:.3f} s, params "
+              + ("bitwise equal" if out["restarted_bitwise"]
+                 else "not bitwise") + f" ({out['restarted_param_rel']:.3e} of the change); losses "
+              f"within {loss_rel:.3e}; two uninterrupted runs part by "
+              f"{out['rerun_param_rel']:.3e} of the change ("
+              + ("bitwise" if out["rerun_bitwise"] else "not bitwise")
+              + f"); launches a rank "
+              f"{out['launches_per_rank']} [{card}]")
+    return out
+
+
+def phase32(torch, ck, card):
+    """32a-c: see the module docstring."""
+    from deeplearning4j_tpu_torch.inference import sharding as shd
+    from deeplearning4j_tpu_torch.models.zoo import transformer_lm
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    t0 = time.monotonic()
+    failures = []
+    reqs = requests_for(seed=1)
+    out = {}
+    net = ComputationGraph(transformer_lm(
+        vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS, n_blocks=BLOCKS,
+        rope=True, seed=7), device=P31_DEV).init()
+    want, st1 = tp_wave(torch, ck, net, reqs, None)
+    out["tp1_plain"] = st1
+    mesh = shd.decode_mesh(2, p31_devices(), timeout=P31_TIMEOUT).start()
+    try:
+        for tag, paged in (("a_paged", True), ("a_contiguous", False)):
+            toks, st = spec_tp_wave(torch, ck, net, reqs, mesh, paged)
+            spec_tp_gates(tag, st, toks, want, paged, failures)
+            out[tag] = st
+            phase(32, f"(a) speculate={SPEC_G}, {P32_DRAFT_BLOCKS}-block "
+                      f"shallow draft, "
+                      + ("paged fp32" if paged else "contiguous")
+                      + f" at tp = 2 ({p31_devices()[0]} x 2, gloo), phase 3's "
+                      f"8 requests: tokens "
+                      f"{'identical' if toks == want else 'DIFFERENT'} to "
+                      f"tp = 1 unspeculated eager; {st['spec_rounds']} "
+                      f"verifies, proposed {st['proposed']}, accepted "
+                      f"{st['accepted']}; verify {st['mean_verify_ms']:.3f} "
+                      f"ms, draft {st['mean_draft_ms']:.3f} ms a dispatch, "
+                      f"plain tp step {st['mean_decode_step_ms']:.3f} ms "
+                      f"(tp = 1 unspeculated {st1['mean_decode_step_ms']:.3f})"
+                      f"; paged launches per rank {st['launches']} for "
+                      f"{st['decode_steps']} plain steps; collectives per "
+                      f"rank: verify {st['verify_collectives'][0]}, draft "
+                      f"{st['draft_collectives'][0]}; "
+                      f"{st['tokens_per_s']:.1f} tokens/s [{card}]")
+        wave_a, wave_b = tier_waves(seed=28)
+        for kv in (None, "int8"):
+            key = "b_" + ("int8" if kv else "fp32")
+            out[key] = tier_tp_run(torch, ck, card, net, mesh, wave_a,
+                                   wave_b, kv, failures)
+    finally:
+        mesh.close()
+    del net
+    out["c"] = ft_alexnet(torch, ck, card, failures)
+    out["seconds"] = time.monotonic() - t0
+    phase(32, f"phase 32 took {out['seconds']:.3f} s [{card}]")
+    if failures:
+        raise SystemExit("phase 32 failed: " + "; ".join(failures))
     return out
 
 
@@ -6183,31 +6841,16 @@ def main():
              f"({100 * tprof['device_busy_share']:.2f}%); the three kernels "
              f"{tprof['kernels_ms']}; top {tprof['top_kernels_ms'][:5]} "
              f"[{card}]")
-    # the backward kernels on the training path's own inputs: the same
-    # params and dropout masks through the kernels and through plain
-    # versions. With only bn_act_pool plain, the forward is the same bits,
-    # so the gradients differ by the sums' order alone; with every kernel
-    # plain, the conv outputs differ by rounding, which can flip a few
-    # near-tied 2x2 maxima and relu signs and so move whole gradient
-    # elements: a looser gate, still far below a wrong per-tensor scale
-    bnap_loss, bnap_rel = grad_check(
-        torch, anet, xa, ya, {"bn_act_pool": helpers.bn_act_pool_plain})
-    all_loss, all_rel = grad_check(torch, anet, xa, ya,
-                                   helpers.PLAIN_OVERRIDES)
-    train.update(grad_bnap_plain={"loss_rel": bnap_loss, "leaf_rel": bnap_rel},
-                 grad_all_plain={"loss_rel": all_loss, "leaf_rel": all_rel})
-    worst_b = max(bnap_rel.items(), key=lambda kv: kv[1])
-    worst_a = max(all_rel.items(), key=lambda kv: kv[1])
+    # the backward kernels on the training path's own inputs
+    grads, failed = alexnet_grad_checks(torch, anet, xa, ya)
+    train.update(grad_bnap_plain=grads["bnap_plain"],
+                 grad_all_plain=grads["all_plain"],
+                 grad_pinned_plain=grads["pinned_plain"])
     phase(6, f"gradients at step {STEPS + 5}'s params, B={B}, same dropout "
-             f"masks: with bn_act_pool plain, loss rel diff {bnap_loss:.3e} "
-             f"(gate 1e-6), worst leaf {worst_b[0]} ||diff||/||plain|| "
-             f"{worst_b[1]:.3e} (gate 1e-4); with every kernel plain, loss "
-             f"{all_loss:.3e} (gate 1e-5), worst leaf {worst_a[0]} "
-             f"{worst_a[1]:.3e} (gate 1e-2)")
-    if not (bnap_loss <= 1e-6 and worst_b[1] <= 1e-4 and all_loss <= 1e-5
-            and worst_a[1] <= 1e-2):
-        raise SystemExit(f"kernel and plain gradients differ: bn_act_pool "
-                         f"{bnap_loss} {bnap_rel}; all {all_loss} {all_rel}")
+             f"masks: {grad_checks_line(grads)}")
+    if failed:
+        raise SystemExit(f"kernel and plain gradients differ: {failed}: "
+                         f"{grads}")
     del anet
     _, plain_losses, plain_secs, plain_launches = train_run(
         ck, torch, alexnet_cifar10(), xa, ya, STEPS, plain=True)
@@ -7256,6 +7899,7 @@ def main():
     p29 = phase29(torch, ck, card)
     p30 = phase30(torch, ck, card)
     p31 = phase31(torch, ck, card)
+    p32 = phase32(torch, ck, card)
 
 
     src = "deeplearning4j_tpu_torch/ops/csrc/paged_decode_attention.cu"
@@ -7294,6 +7938,12 @@ def main():
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
             for k in shards}
     kernels[0]["gqa_tp_launches_per_rank"] = p31["b_gqa"]["tp2"]["launches"]
+    # phase 32a: the plain steps of a speculating tp = 2 engine; 32b: wave
+    # C's steps at tp = 2 over pages promoted from the host tier
+    kernels[0]["tp_speculating_launches_per_rank"] = p32["a_paged"][
+        "launches"]
+    for row, key in ((kernels[0], "b_fp32"), (kernels[1], "b_int8")):
+        row["tp_tiered_launches_per_rank"] = p32[key]["wave_c_launches"]
     # phase 27e: the int8 graph clone's decode steps, fp32 pages
     kernels[0]["int8_graph_launches"] = sum(
         p27["int8"][f"speculate_{g}"]["launches"] for g in (0, SPEC_CRASH_G))
@@ -7325,6 +7975,9 @@ def main():
         "tc_bound_share": conv_sum["tc_bound_share"],
         # phase 31e: each ICI rank's launches over its steps
         "dp_launches_per_rank": [r["conv2d_bias_act"] for r in p31["e"][
+            "launches_per_rank"]],
+        # phase 32c: the same under the state tracker's run
+        "ft_launches_per_rank": [r["conv2d_bias_act"] for r in p32["c"][
             "launches_per_rank"]]})
     for name, line in (("bnap_sums", 286), ("bnap_dx", 301)):
         k = "sums_" if name == "bnap_sums" else "dx_"
@@ -7338,6 +7991,8 @@ def main():
             "bound_ms": sum(c[k + "bound_ms"] for c in alex_bnap),
             "bound_by": by(alex_bnap, k), "library_ms": None,
             "dp_launches_per_rank": [r[name] for r in p31["e"][
+                "launches_per_rank"]],
+            "ft_launches_per_rank": [r[name] for r in p32["c"][
                 "launches_per_rank"]]})
     # the flash kernels: per transformer_lm_long (T=8192) train step, four
     # launches at [1, 8192, 4, 128]; launches from both LM runs; max |diff|
@@ -7508,8 +8163,9 @@ def main():
          "alexnet_train_bf16": alex16, "lenet_train_bf16": lenet16,
          **a3, "serving_26": p26, "serving_27": p27, "tiering_28": p28,
          "training_29": p29, "graphs_30": p30, "parallel_31": p31,
+         "tp_spec_tiers_ft_32": p32,
          "elapsed_s": time.monotonic() - t_start}))
-    phase(32, "kernels:")
+    phase(33, "kernels:")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -384,7 +384,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "heads and FFN split over a 'tp' mesh, KV pool "
                         "split by head, pool budgets per rank; rank 0 is "
                         "this process, the others spawned followers; needs "
-                        "--decode-graphs off; 0/1 = one device)")
+                        "--decode-graphs off; composes with --speculate and "
+                        "--host-cache-mb; 0/1 = one device)")
     s.add_argument("--tp-devices", default=None,
                    help="comma-separated device of each tp rank (default "
                         "cuda:0..N-1, or cpu ranks with --device cpu; "

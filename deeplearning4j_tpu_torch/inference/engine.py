@@ -199,8 +199,15 @@ every rank runs it on its shard with the same two all-reduces a
 transformer block; the scheduler, the pool's books, sampling and the
 logit pipeline stay on the driver. The tp step runs eagerly
 (``decode_graphs="on"`` with tp > 1 raises: a gloo collective cannot sit
-in a captured graph), and speculation and the KV tiers raise under tp
-(ROADMAP A7). A follower that dies fails the driver's next collective:
+in a captured graph; ROADMAP A7). Speculation joins the mesh (JAX
+:996-1000): the draft runs sharded under the target's specs with
+head-split stripes, and the verify, the draft step and the draft chunk
+are one command each, rollback staying the driver's bookkeeping. The KV
+tiers stay on the driver and hold whole blocks: a spill gathers every
+rank's head slice of the evicted page (one all-gather a page group), a
+promotion broadcasts the block's rows and each rank copies its heads in
+place; both run on the tier's path, never the step's. A follower that
+dies fails the driver's next collective:
 the engine records a crash, and a supervised server rebuilds it with new
 followers. ``tp`` is the tp in force (1 where the disable rules apply,
 with JAX's warnings), ``mesh_topology()`` reports it.
@@ -242,10 +249,15 @@ _MIN_CHUNK_BUCKET = 16
 
 # the device operations a tensor-parallel driver mirrors to its followers
 # (parallel/mesh.py's command loop): the decode step, a prefill chunk, a
-# slot reset, a contiguous restore (gather) and publish (scatter), a COW
-# page copy and a grammar mask upload
+# slot reset (which zeroes the draft stripe rows too), a contiguous
+# restore (gather) and publish (scatter), a COW page copy and a grammar
+# mask upload; speculation's verify (paged per table bucket, or
+# contiguous), draft step and draft chunk; the KV tier's spill capture
+# (each rank's head slice of evicted pages, gathered to the driver) and
+# promotion (the driver's rows, each rank copying its head slice in place)
 (OP_DECODE, OP_PREFILL, OP_RESET, OP_GATHER, OP_SCATTER, OP_COPY,
- OP_MASK) = range(SERVICE_OPS, SERVICE_OPS + 7)
+ OP_MASK, OP_VERIFY, OP_DRAFT, OP_DRAFT_CHUNK, OP_SPILL,
+ OP_PROMOTE) = range(SERVICE_OPS, SERVICE_OPS + 12)
 
 # transfer_guard level -> torch.cuda.set_sync_debug_mode level
 _GUARD_MODES = {None: None, "disallow": "error"}
@@ -545,6 +557,7 @@ class _ChunkRunner:
         self.pos = self.packed[b + 1:b + 2]
         self.slot = self.packed[b + 2:b + 3]
         self.table = self.packed[b + 3:].view(1, nb) if nb else None
+        self.host: Optional[np.ndarray] = None
         self.out: Optional[torch.Tensor] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Dict[str, int] = {}
@@ -557,6 +570,7 @@ class _ChunkRunner:
         h[b:b + 3] = (n_real, pos, slot)
         if self.nb:
             h[b + 3:] = table_row
+        self.host = h  # what a tp driver ships to its followers
         src = torch.from_numpy(h)
         if self.device.type == "cuda":
             src = src.pin_memory()
@@ -699,12 +713,12 @@ class DecodeScheduler:
         # :602-660), resolved before the KV layout: the pool's budget is
         # per rank and its pages hold the rank's heads
         self._init_mesh(mesh, attn, _tp_shard, decode_graphs=decode_graphs,
-                        speculate=speculate, host_cache_mb=host_cache_mb,
                         kw=dict(n_slots=n_slots, prefill_chunk=prefill_chunk,
                                 prefix_cache_mb=prefix_cache_mb,
                                 kv_block=kv_block, kv_pool_mb=kv_pool_mb,
                                 kv_dtype=kv_dtype, paged_kernel=paged_kernel,
-                                mask_rows=mask_rows))
+                                mask_rows=mask_rows, speculate=speculate,
+                                draft_blocks=draft_blocks))
         tp = self.tp
         itemsize = torch.empty((), dtype=self._dtype).element_size()
         shapes = {name: (impl._kv_heads(), impl.conf.n_out // impl.conf.n_heads)
@@ -837,7 +851,10 @@ class DecodeScheduler:
             self.maskpool = MaskPool(self.mask_rows, self.mask_buckets)
             self._masks = torch.zeros((self.mask_rows, self.vocab_size),
                                       dtype=self._dtype, device=dev)
-        self._init_speculation(speculate, draft_blocks, draft_net, attn)
+        self._init_speculation(speculate, draft_blocks, draft_net, attn,
+                               None if _tp_shard is None else _tp_shard[5])
+        if self._tp_driver:
+            self._attach_followers()
         # -- hierarchical KV tiering (JAX :866-897, kvtier.py): opt-in;
         # host_cache_mb=0 builds no TierManager and adds no hot-path work
         self.tier = None
@@ -859,15 +876,17 @@ class DecodeScheduler:
                     disk_dir=tier_dir, chunk_bytes=self._tier_chunk,
                     metrics=self.metrics, tracer=self.tracer)
                 self.pool.tier = self.tier
+                # the tier holds whole blocks (every head): under tp a
+                # block is tp ranks' pages
                 self.tier.attach_engine(self._tier_capture,
-                                        self.pool.bytes_per_block,
+                                        self.pool.bytes_per_block * self.tp,
                                         self.kv_block, device=self.device)
                 # one spill's stacks: a [rows, block, ...] tensor per
                 # dtype and shape of the page tensors
                 stacks: Dict[tuple, int] = {}
                 for st in self._states.values():
                     for pages in st.values():
-                        k = (tuple(pages.shape[1:]), pages.dtype)
+                        k = (self._full_row_shape(pages), pages.dtype)
                         stacks[k] = stacks.get(k, 0) + 1
                 self.tier.prewarm_host([((n,) + s, d)
                                         for (s, d), n in stacks.items()])
@@ -1009,8 +1028,7 @@ class DecodeScheduler:
             m.ratio("spec_acceptance_rate", self._m_spec_accepted,
                     self._m_spec_proposed)
 
-    def _init_mesh(self, mesh, attn, shard, *, decode_graphs, speculate,
-                   host_cache_mb, kw) -> None:
+    def _init_mesh(self, mesh, attn, shard, *, decode_graphs, kw) -> None:
         """Resolve ``mesh`` (JAX :602-660): an int N > 1 builds a ``tp``
         mesh of N ranks (`sharding.decode_mesh`: ``cuda:0`` .. ``cuda:N-1``
         for an engine on the card, CPU ranks for a CPU engine) that the
@@ -1019,18 +1037,20 @@ class DecodeScheduler:
         too when the engine starts it, else the caller's. Tensor parallelism is disabled with a warning (JAX's)
         for a mesh without a tp axis, a net that is not a transformer
         ComputationGraph, and an Hkv that tp does not divide; under tp > 1
-        captured steps, speculation and the KV tiers raise. Then rank 0's
-        graph is built over its slices of the params, and every follower
-        builds the same engine over its own (`_tp_follower`). ``shard``:
-        (comm, tp, modes, params, variables) of a follower rank."""
+        captured steps raise. Then rank 0's graph is built over its slices
+        of the params; once the engine is built (the draft too),
+        `_attach_followers` has every follower build the same engine over
+        its own (`_tp_follower`). ``shard``: (comm, tp, modes, params,
+        variables, draft spec) of a follower rank."""
         self.mesh = None
         self.tp = 1
         self._fwd_net = self.net  # the graph the steps run: the rank's
         self._mesh_owned = False
         self._tp_driver = False
         self._svc = 0
+        self._attach_payload = None
         if shard is not None:
-            comm, tp, modes, params, variables = shard
+            comm, tp, modes, params, variables, _ = shard
             self.mesh, self.tp = comm, tp
             self._fwd_net = shard_graph(self.net.conf, modes, tp, params,
                                         variables, self.device, comm)
@@ -1064,18 +1084,12 @@ class DecodeScheduler:
                         "cannot split a head)"),
                 RuntimeWarning, stacklevel=3)
             return
-        why = None
         if decode_graphs == "on":
-            why = ("decode_graphs='on': a gloo collective cannot sit in a "
-                   "captured CUDA graph, so the tp step runs eagerly (pass "
-                   "decode_graphs='off'; a captured tp step under NCCL")
-        elif speculate and int(speculate) > 0:
-            why = "speculate > 0 (speculation under tp"
-        elif host_cache_mb and host_cache_mb > 0:
-            why = "host_cache_mb > 0 (KV tiers under tp"
-        if why is not None:
-            raise ValueError(f"tensor-parallel decode (tp={tp}) with {why} "
-                             "is listed under ROADMAP A7)")
+            raise ValueError(
+                f"tensor-parallel decode (tp={tp}) with decode_graphs='on': "
+                "a gloo collective cannot sit in a captured CUDA graph, so "
+                "the tp step runs eagerly (pass decode_graphs='off'; a "
+                "captured tp step under NCCL is listed under ROADMAP A7)")
         if isinstance(mesh, int):
             mesh = decode_mesh(tp, None if self.device.type == "cuda"
                                else ["cpu"] * tp)
@@ -1092,14 +1106,22 @@ class DecodeScheduler:
         params, variables = shard_decode_params(self.net, tp, 0, specs=eff)
         self._fwd_net = shard_graph(self.net.conf, modes, tp, params,
                                     variables, self.device, mesh)
+        self._tp_eff = eff
         self.mesh, self.tp, self._tp_driver = mesh, tp, True
-        payload = {
+        self._attach_payload = {
             "conf": self.net.conf, "vocab": self.vocab_size, "specs": eff,
-            "modes": modes, "kw": kw,
+            "modes": modes, "kw": kw, "draft": None,
             "params": {n: {k: v.detach().cpu() for k, v in lp.items()}
                        for n, lp in self.net.params.items()},
             "variables": {n: {k: v.detach().cpu() for k, v in lv.items()}
                           for n, lv in variables.items()}}
+
+    def _attach_followers(self) -> None:
+        """Start the mesh and have every follower build its engine from
+        the driver's payload (`_tp_follower`): the last step of a tp
+        driver's construction."""
+        mesh, payload = self.mesh, self._attach_payload
+        self._attach_payload = None
         try:
             mesh.start()
             self._svc = mesh.attach(
@@ -1142,6 +1164,12 @@ class DecodeScheduler:
             return self._exec_copy(args[0], args[1])
         if op == OP_MASK:
             return self._exec_mask(args[0], args[1], None)
+        if op in (OP_VERIFY, OP_DRAFT, OP_DRAFT_CHUNK):
+            return self._exec_spec(op, args, payload)
+        if op == OP_SPILL:
+            return self._exec_spill(args[0])
+        if op == OP_PROMOTE:
+            return self._exec_promote(args[0], args[1])
         raise ValueError(f"unknown engine command {op}")
 
     def _exec_decode(self, args, payload: np.ndarray) -> torch.Tensor:
@@ -1220,13 +1248,24 @@ class DecodeScheduler:
             for rows in st.values():
                 rows[slot].zero_()
 
-    def _collective_audit(self) -> List[Dict[str, int]]:
-        """`sharding.collective_counts`: one all-idle decode step at the
+    def _collective_audit(self, program: str = "decode"
+                          ) -> List[Dict[str, int]]:
+        """`sharding.collective_counts`: one all-idle dispatch of
+        ``program`` — "decode" (the step), "verify" (a speculating
+        engine's verify chain) or "draft" (its draft step) — at the
         smallest table bucket, with every rank's counts zeroed before it
-        and read after it."""
+        and read after it. Idle lanes write nothing that is read again:
+        paged rows go to the scratch page, contiguous verify rows are
+        written back unchanged, and draft rows land in each stripe's last
+        row, which admission zeroes."""
         if self._running:
             raise RuntimeError("collective_counts needs the scheduler "
                                "stopped (or not started)")
+        if program not in ("decode", "verify", "draft"):
+            raise ValueError(f"unknown program {program!r}")
+        if program != "decode" and not self.speculate:
+            raise ValueError(f"the {program} program needs a speculating "
+                             "engine")
         if not self._tp_driver:
             return [dict.fromkeys(COLLECTIVE_KINDS, 0)]
         s = self.n_slots
@@ -1235,7 +1274,17 @@ class DecodeScheduler:
                  if self.paged else None)
         with torch.no_grad(), self.mesh.exclusive():
             self.mesh.reset_counts()
-            self._eager_decode(z, z, z, table, None)
+            if program == "decode":
+                self._eager_decode(z, z, z, table, None)
+            elif program == "verify":
+                w = self.speculate + 1
+                self._run_spec("verify", table.shape[1] if self.paged
+                               else None, lambda r: r.fill(
+                                   np.zeros((s, w), np.int32), z, z, table))
+            else:
+                last = np.full((s,), self._draft_cap - 1, np.int32)
+                self._run_spec("draft", None,
+                               lambda r: r.fill(z, z, last, None))
             return self.mesh.query_counts()
 
     def _close_mesh(self, kill: bool = False) -> None:
@@ -1252,16 +1301,29 @@ class DecodeScheduler:
             mesh.detach(self._svc)
 
     def _init_speculation(self, speculate, draft_blocks, draft_net,
-                          attn) -> None:
+                          attn, shard_draft=None) -> None:
         """Arm speculation (JAX :928-1025), or warn and leave it off: the
         draft and its private contiguous stripes (K layers, ``n_slots``
-        rows each) at the compute dtype."""
+        rows each) at the compute dtype. Under tp the draft joins the mesh
+        (JAX :996-1000): the same Megatron specs (a shallow exit's conf is
+        a prefix of the target's), its stripes split by head, and every
+        rank runs its shard (`_fwd_draft`); ``shard_draft``: a follower's
+        spec of the driver's draft (`_shard_draft`)."""
         self.speculate = 0
         self.draft = None
+        self._fwd_draft = None  # the draft graph the rank's steps run
         self.draft_blocks = 0
         self._draft_states: Dict[str, Dict[str, torch.Tensor]] = {}
         self._draft_cap: Optional[int] = None
         if not speculate or int(speculate) <= 0:
+            return
+        if self.mesh is not None and not self._tp_driver:
+            # a follower: the driver's draft, or none when the driver
+            # left speculation off
+            if shard_draft is None:
+                return
+            self._arm_draft(speculate, self._draft_from_spec(shard_draft),
+                            int(shard_draft["blocks"]))
             return
         reason = None
         if not (self._graph and attn):
@@ -1302,15 +1364,81 @@ class DecodeScheduler:
                             for i in dattn.values()):
             raise ValueError("a draft net must carry attention layers only "
                              "as its stateful layers")
-        self.speculate = int(speculate)
+        fwd = draft
+        if self._tp_driver:
+            if not kv_heads_shardable({k: i._kv_heads()
+                                       for k, i in dattn.items()}, self.tp):
+                raise ValueError(
+                    f"the draft's n_kv_heads do not divide tp={self.tp}: its "
+                    "head-split stripes cannot split a head")
+            fwd = self._shard_draft(draft, draft_net is None,
+                                    kk if draft_net is None else 0)
         self.draft = draft
-        self.draft_blocks = kk if draft_net is None else 0
-        for name, impl in dattn.items():
+        self._arm_draft(speculate, fwd, kk if draft_net is None else 0)
+
+    def _arm_draft(self, speculate, fwd, blocks: int) -> None:
+        """Speculation on, with ``fwd`` (this rank's draft graph) and its
+        stripes: the rank's heads, ``n_slots`` rows each."""
+        self.speculate = int(speculate)
+        self.draft = self.draft if self.draft is not None else fwd
+        self._fwd_draft = fwd
+        self.draft_blocks = blocks
+        for name, impl in sorted(fwd._impls.items()):
+            if not isinstance(impl, SelfAttentionLayerImpl):
+                continue
             st = impl.init_state(self.n_slots, dtype=self._dtype,
                                  device=self.device)
             self._draft_states[name] = {"k": st["k"], "v": st["v"]}
         self._draft_cap = min(int(st["k"].shape[1])
                               for st in self._draft_states.values())
+
+    def _shard_draft(self, draft, shallow: bool, blocks: int):
+        """The driver's draft shard, and its spec in the followers' attach
+        payload. A shallow exit takes the target's specs and its shard
+        tensors by reference (each follower does the same from its own
+        shard); an explicit draft net gets its own effective specs and
+        ships its params whole, for each follower to slice."""
+        if shallow:
+            eff = {n: self._tp_eff[n] for n in draft.params}
+            params, variables = self._shard_slices(eff)
+        else:
+            eff = effective_specs(draft, self.tp)
+            params, variables = shard_decode_params(draft, self.tp, 0,
+                                                    specs=eff)
+        modes = shard_modes(draft.conf, eff)
+        self._attach_payload["draft"] = {
+            "conf": draft.conf, "specs": eff, "modes": modes,
+            "blocks": blocks,
+            "params": None if shallow else {
+                n: {k: v.detach().cpu() for k, v in lp.items()}
+                for n, lp in draft.params.items()},
+            "variables": {n: {k: v.detach().cpu() for k, v in lv.items()}
+                          for n, lv in variables.items()}}
+        return shard_graph(draft.conf, modes, self.tp, params, variables,
+                           self.device, self.mesh)
+
+    def _shard_slices(self, names):
+        """This rank's target shard tensors (params, variables) of the
+        vertices ``names``, by reference: a shallow exit's draft."""
+        net = self._fwd_net
+        return ({n: net.params[n] for n in names},
+                {n: net.variables[n] for n in names if n in net.variables})
+
+    def _draft_from_spec(self, spec):
+        """A follower's draft shard from the driver's spec: a shallow
+        exit's tensors are this rank's target shard, by reference; an
+        explicit draft's are sliced from the shipped params."""
+        from .sharding import _slice
+        comm = self.mesh
+        if spec["params"] is None:
+            params, variables = self._shard_slices(spec["specs"])
+        else:
+            params = {n: {k: _slice(v, spec["specs"][n][k], self.tp,
+                                    comm.rank) for k, v in lp.items()}
+                      for n, lp in spec["params"].items()}
+            variables = spec["variables"]
+        return shard_graph(spec["conf"], spec["modes"], self.tp, params,
+                           variables, self.device, comm)
 
     # -- submission --------------------------------------------------------
     def _reject(self, rid: str, msg: str, **args) -> PromptTooLongError:
@@ -2855,9 +2983,10 @@ class DecodeScheduler:
 
     # -- speculative decoding: draft, verify, accept, roll back ------------
     def _draft_forward(self, x, states) -> torch.Tensor:
-        """One forward of one-hots ``x`` through the draft net with its
-        stripes' states (JAX `_draft_forward` :1486)."""
-        d = self.draft
+        """One forward of one-hots ``x`` through the draft net (the rank's
+        shard under tp) with its stripes' states (JAX `_draft_forward`
+        :1486)."""
+        d = self._fwd_draft
         acts, _ = d._forward_impl(d.params, [x], states=states)
         return acts[d.conf.network_outputs[0]]
 
@@ -2942,11 +3071,43 @@ class DecodeScheduler:
                 self._spec_runners[(family, key)] = r
         if r.graph is None and self.device.type == "cuda":
             n0 = sum(ck.LAUNCHES.values())
-            self._replay(r)
+            self._mirror_spec(r)
             self.spec_launches += sum(ck.LAUNCHES.values()) - n0
         else:
-            self._replay(r)
+            self._mirror_spec(r)
         return r.out
+
+    def _mirror_spec(self, r) -> None:
+        """Replay speculative runner ``r``; a tp driver first broadcasts
+        its staged int32 vector in one command (`OP_VERIFY`, `OP_DRAFT`,
+        `OP_DRAFT_CHUNK`), and every follower runs the same body on its
+        own runner (`_exec_spec`)."""
+        if not self._tp_driver:
+            return self._replay(r)
+        base = r.family[len("masked_"):] if r.family.startswith("masked_") \
+            else r.family
+        if base == "draft_prefill":
+            op, args = OP_DRAFT_CHUNK, (r.bucket,)
+        else:
+            op = OP_VERIFY if base == "verify" else OP_DRAFT
+            args = (int(r.masked), r.nb or 0)
+        self._mirror(op, args, r.host, lambda: self._replay(r))
+
+    def _exec_spec(self, op: int, args, payload: np.ndarray) -> torch.Tensor:
+        """A follower's side of `_mirror_spec`: the runner of the same
+        (family, key), built at first use, its vector from the payload."""
+        if op == OP_DRAFT_CHUNK:
+            fam, key = "draft_prefill", (args[0], None)
+        else:
+            fam = ("masked_" if args[0] else "") + (
+                "verify" if op == OP_VERIFY else "draft")
+            key = args[1] or None
+        r = self._spec_runners.get((fam, key))
+        if r is None:
+            r = self._spec_runners[(fam, key)] = \
+                self._new_spec_runner(fam, key)
+        r.packed.copy_(self._to_device(payload))
+        return self._body(r)
 
     def _draft_chunk(self, slot: int, ids: np.ndarray, n_real: int,
                      pos: int) -> None:
@@ -3300,6 +3461,23 @@ class DecodeScheduler:
         with self._cond:
             self._cond.notify_all()
 
+    def _full_row_shape(self, pages: torch.Tensor) -> tuple:
+        """One page row's shape with every head: [block, Hkv, Dh] (int8
+        scales [block, Hkv]); a rank's pages hold Hkv / tp of them."""
+        shape = list(pages.shape[1:])
+        shape[1] *= self.tp
+        return tuple(shape)
+
+    def _page_groups(self) -> List[list]:
+        """The page tensors grouped by dtype and row shape, in the same
+        order on every rank: [(layer, page key, pages), ...] a group."""
+        groups: Dict[tuple, list] = {}
+        for lk, st in self._states.items():
+            for pk, pages in st.items():
+                groups.setdefault((pages.dtype, tuple(pages.shape[1:])),
+                                  []).append((lk, pk, pages))
+        return list(groups.values())
+
     def _tier_capture(self, bid: int):
         """The TierManager's capture hook (scheduler thread, from the
         pool's `_evict_lru` or a copydown): copy page ``bid``'s rows of
@@ -3307,26 +3485,73 @@ class DecodeScheduler:
         on the engine's stream — one stack of the rows of each dtype and
         shape, which the worker moves whole — and record an event behind
         the copies. A later dispatch that reuses the page is queued after
-        them; the worker waits on the event, never on the device."""
+        them; the worker waits on the event, never on the device. Under
+        tp the capture is one command (`OP_SPILL`): every rank stacks its
+        head slice and the stacks reach the driver whole through one
+        all-gather a group, on the host (the tier's path, never the
+        step's), so the block is tiered with every head, as at tp = 1."""
         from .kvtier import StagedRows
-        groups: Dict[tuple, list] = {}
-        for lk, st in self._states.items():
-            for pk, pages in st.items():
-                groups.setdefault((pages.dtype, tuple(pages.shape[1:])),
-                                  []).append((lk, pk, pages))
+        groups = self._page_groups()
+        if self._tp_driver:
+            stacks = self._mirror(OP_SPILL, (bid,), None,
+                                  lambda: self._exec_spill(bid))
+        else:
+            stacks = [torch.stack([pages[bid] for _, _, pages in members])
+                      for members in groups]
         rows = StagedRows()
         rows.groups = []
-        for members in groups.values():
-            stack = torch.stack([pages[bid] for _, _, pages in members])
+        for members, stack in zip(groups, stacks):
             keys = [(lk, pk) for lk, pk, _ in members]
             rows.groups.append((stack, keys))
             for (lk, pk), view in zip(keys, stack.unbind(0)):
                 rows.setdefault(lk, {})[pk] = view
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and not self._tp_driver:
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(self.device))
             rows.event = ev
         return rows
+
+    def _exec_spill(self, bid: int) -> List[torch.Tensor]:
+        """Every rank's side of a tp spill: its head slice of page
+        ``bid``, a stack a group, gathered along the head axis into the
+        whole block's stacks (host tensors)."""
+        return [self.mesh.all_gather(
+            torch.stack([pages[bid] for _, _, pages in members]).cpu(), 2)
+            for members in self._page_groups()]
+
+    def _exec_promote(self, bid: int, nbytes: int,
+                      rows: Optional[dict] = None) -> None:
+        """Copy a promoted block's rows into page ``bid`` in place. Under
+        tp the driver's whole rows reach every rank in one data broadcast
+        (packed bytes in `_page_groups` order) and each rank copies its
+        head slice; ``rows`` is None on a follower."""
+        members = [m for g in self._page_groups() for m in g]
+        if self.tp > 1:
+            if rows is not None:
+                buf = torch.cat([rows[lk][pk].detach().cpu()
+                                 .to(pages.dtype).contiguous()
+                                 .view(torch.uint8).reshape(-1)
+                                 for lk, pk, pages in members])
+            else:
+                buf = torch.zeros(nbytes, dtype=torch.uint8)
+            buf = self.mesh.broadcast_data(buf)
+            rows, o = {}, 0
+            for lk, pk, pages in members:
+                shape = self._full_row_shape(pages)
+                n = int(np.prod(shape)) * pages.element_size()
+                rows.setdefault(lk, {})[pk] = buf[o:o + n].clone().view(
+                    pages.dtype).view(shape)
+                o += n
+        dst, src = [], []
+        for lk, pk, pages in members:
+            a = rows[lk][pk]
+            if self.tp > 1:
+                h = pages.shape[2]
+                a = a.narrow(1, self.mesh.rank * h, h)
+            dst.append(pages[bid])
+            src.append(a)
+        # one call for every row: each torch call hands the GIL around
+        torch._foreach_copy_(dst, src, non_blocking=True)
 
     def _tier_tick(self) -> None:
         """Per-iteration tier maintenance (JAX :3045): grant the worker
@@ -3390,15 +3615,12 @@ class DecodeScheduler:
                 tier.promotion_done(entry.hash, False)
                 return False
             try:
-                # one call for every row: each torch call hands the GIL
-                # around
-                dst, src = [], []
-                for lk, pks in rows.items():
-                    st = self._states[lk]
-                    for pk, a in pks.items():
-                        dst.append(st[pk][bid])
-                        src.append(a)
-                torch._foreach_copy_(dst, src, non_blocking=True)
+                nbytes = sum(int(np.prod(self._full_row_shape(pages)))
+                             * pages.element_size()
+                             for g in self._page_groups()
+                             for _, _, pages in g)
+                self._mirror(OP_PROMOTE, (bid, nbytes), None,
+                             lambda: self._exec_promote(bid, nbytes, rows))
             except Exception:
                 self.pool.free_block(bid)
                 tier.promotion_done(entry.hash, False)
@@ -3418,7 +3640,7 @@ class DecodeScheduler:
 
     def _rows_fit(self, rows) -> bool:
         """A promotion's rows name exactly this pool's layers and page
-        keys, each of one page's shape."""
+        keys, each of one page row's shape with every head."""
         if set(rows) != set(self._states):
             return False
         for lk, pks in rows.items():
@@ -3426,7 +3648,7 @@ class DecodeScheduler:
             if set(pks) != set(st):
                 return False
             for pk, a in pks.items():
-                if tuple(a.shape) != tuple(st[pk].shape[1:]):
+                if tuple(a.shape) != self._full_row_shape(st[pk]):
                     return False
         return True
 
@@ -3577,5 +3799,6 @@ def _tp_follower(comm, p) -> _TpFollower:
         skeleton, p["vocab"], decode_graphs="off", metrics=MetricsRegistry(),
         tracer=FlightRecorder(16, enabled=False), profile=False,
         device=comm.device,
-        _tp_shard=(comm, tp, p["modes"], params, p["variables"]), **p["kw"])
+        _tp_shard=(comm, tp, p["modes"], params, p["variables"],
+                   p["draft"]), **p["kw"])
     return _TpFollower(eng)

@@ -25,7 +25,9 @@ needs no variant: each rank calls it at its local H/tp and Hkv/tp.
 
 In place of the JAX package's audit of compiled HLO, every collective is
 counted (`parallel.mesh.COUNTS`): `collective_counts` runs one decode
-step and reports each rank's calls, and `assert_hot_path_collectives`
+step (or a speculating engine's verify or draft step:
+`verify_collective_counts`, `draft_collective_counts`) and reports each
+rank's calls, and `assert_hot_path_collectives`
 holds them to the Megatron budget — two all-reduces a transformer block,
 no data broadcast or gather, one command broadcast.
 """
@@ -229,12 +231,28 @@ def shard_graph(conf, modes: Dict[str, str], tp: int, params, variables,
 
 
 # -- the collective budget -------------------------------------------------
-def collective_counts(engine) -> List[Dict[str, int]]:
-    """Each rank's collective calls (rank order) during one decode step of
-    ``engine`` (all slots idle, the smallest table bucket), run by the
-    caller while the engine's scheduler is not running. A tp = 1 engine
-    reports one rank of zeros."""
-    return engine._collective_audit()
+def collective_counts(engine, program: str = "decode"
+                      ) -> List[Dict[str, int]]:
+    """Each rank's collective calls (rank order) during one dispatch of
+    ``engine``'s ``program`` — "decode" (the step), "verify" or "draft"
+    (a speculating engine's) — all slots idle, the smallest table bucket,
+    run by the caller while the engine's scheduler is not running. A
+    tp = 1 engine reports one rank of zeros."""
+    return engine._collective_audit(program)
+
+
+def verify_collective_counts(engine) -> List[Dict[str, int]]:
+    """The speculative verify's counts (JAX `verify_program_hlo` :241):
+    the chain is a wider T, so its budget is the decode step's, two
+    all-reduces a block and one command."""
+    return collective_counts(engine, "verify")
+
+
+def draft_collective_counts(engine) -> List[Dict[str, int]]:
+    """The draft step's counts (JAX `draft_program_hlo` :264): a prefix of
+    the target's blocks under the same specs, so two all-reduces a draft
+    block, no resharding, one command."""
+    return collective_counts(engine, "draft")
 
 
 def assert_hot_path_collectives(counts, n_blocks: int) -> None:

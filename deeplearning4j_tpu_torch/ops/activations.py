@@ -7,7 +7,12 @@ from JAX's, the JAX definition wins:
   - ``gelu``: `jax.nn.gelu` defaults to the tanh approximation, so this
     is ``F.gelu(x, approximate="tanh")`` (torch's default erf form is a
     different function);
-  - ``leakyrelu``: slope 0.01, as the JAX package fixes it;
+  - ``leakyrelu``: slope 0.01, as the JAX package fixes it, and slope 1
+    at x = 0 (`jax.nn.leaky_relu`'s ``where(x >= 0, ...)``);
+  - the clips (``hardtanh``, ``hardsigmoid``, ``rectifiedtanh``): binary
+    ``maximum``/``minimum`` against a 0-d tensor, which split the
+    gradient of a tie 0.5/0.5 as ``jnp.clip``/``jnp.maximum`` do
+    (``torch.clamp`` gives the whole slope at the bound);
   - ``softmax``: over the last axis.
 """
 from __future__ import annotations
@@ -37,7 +42,7 @@ def relu(x: Tensor) -> Tensor:
 
 
 def leakyrelu(x: Tensor) -> Tensor:
-    return F.leaky_relu(x, negative_slope=0.01)
+    return torch.where(x >= 0, x, 0.01 * x)
 
 
 def elu(x: Tensor) -> Tensor:
@@ -56,12 +61,18 @@ def softsign(x: Tensor) -> Tensor:
     return F.softsign(x)
 
 
+def _clip(x: Tensor, lo: float, hi: float) -> Tensor:
+    # `x.new_full` fills on x's device (no host copy), so this captures
+    return torch.minimum(torch.maximum(x, x.new_full((), lo)),
+                         x.new_full((), hi))
+
+
 def hardtanh(x: Tensor) -> Tensor:
-    return torch.clamp(x, -1.0, 1.0)
+    return _clip(x, -1.0, 1.0)
 
 
 def hardsigmoid(x: Tensor) -> Tensor:
-    return torch.clamp(0.2 * x + 0.5, 0.0, 1.0)
+    return _clip(0.2 * x + 0.5, 0.0, 1.0)
 
 
 def cube(x: Tensor) -> Tensor:
@@ -77,7 +88,8 @@ def rationaltanh(x: Tensor) -> Tensor:
 
 
 def rectifiedtanh(x: Tensor) -> Tensor:
-    return torch.clamp_min(torch.tanh(x), 0.0)
+    t = torch.tanh(x)
+    return torch.maximum(t, t.new_full((), 0.0))
 
 
 def softmax(x: Tensor) -> Tensor:

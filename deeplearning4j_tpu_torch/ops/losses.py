@@ -95,10 +95,14 @@ def softmax_mcxent_from_logits(labels: Tensor, logits: Tensor,
 
 def sigmoid_xent_from_logits(labels: Tensor, logits: Tensor,
                              mask: Optional[Tensor] = None) -> Tensor:
-    """Binary cross entropy from logits, in the stable softplus form."""
+    """Binary cross entropy from logits, ``softplus(z) - z y`` in f32: its
+    gradient in z is sigmoid(z) - y everywhere, the analytic delta the
+    fused form exists to give. (JAX's ``max(z, 0) + log1p(exp(-|z|))``
+    gives -y at z = 0 exactly, from the kinks of its max and abs; a
+    deliberate difference, ROADMAP C.)"""
     z = logits.float()
     y = labels.float()
-    per = torch.clamp_min(z, 0.0) - z * y + torch.log1p(torch.exp(-torch.abs(z)))
+    per = F.softplus(z) - z * y
     return _reduce(torch.sum(per, dim=-1), mask)
 
 

@@ -174,13 +174,21 @@ class _Comm:
 
     def all_gather_last(self, t: torch.Tensor) -> torch.Tensor:
         """The ranks' ``t`` concatenated along the last axis, rank order."""
+        return self.all_gather(t, -1)
+
+    def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' ``t`` concatenated along ``dim``, rank order, on
+        ``t``'s device (a CPU tensor under NCCL travels through the
+        rank's card)."""
         if self.size == 1:
             return t
         COUNTS["all_gather"] += 1
-        t = t.contiguous()
-        outs = [torch.empty_like(t) for _ in range(self.size)]
-        self._pg.allgather([outs], [t]).wait()
-        return torch.cat(outs, dim=-1)
+        src = t.contiguous()
+        if self.backend == "nccl" and src.device.type != "cuda":
+            src = src.to(self.device)
+        outs = [torch.empty_like(src) for _ in range(self.size)]
+        self._pg.allgather([outs], [src]).wait()
+        return torch.cat(outs, dim=dim).to(t.device)
 
     def broadcast_data(self, t: torch.Tensor) -> torch.Tensor:
         """Rank 0's ``t`` into every rank's ``t``, in place."""

@@ -39,8 +39,17 @@ minibatch of zero-weight fill entirely; then one flat all-reduce averages
 parameters, variables and updater state, and sums the example-weighted
 loss. BatchNorm statistics stay local, as under the JAX shard_map.
 
-Not in this slice (ROADMAP A7): ``state_tracker`` (statetracker.py) and
-with it `resume` across processes; both raise.
+Fault tolerance (JAX :152-245, :264-466; `parallel/statetracker.py`):
+``state_tracker`` checkpoints from the driver, whose net holds the job's
+state — the ICI master after every step (cursor ``master_batches``), the
+parameter-averaging master after every round that leaves no rows carried
+over (cursor ``round`` and ``master_batches``) — and waits for the last
+checkpoint before `execute_training` returns. `resume(net)` restores the
+newest checkpoint into the driver's net, re-syncs the followers (one
+``OP_SYNC``) and returns the leading batches of the same data sequence
+that the next `execute_training` skips. A follower that dies makes the
+driver's next collective raise; the job restarts on the ranks left
+(`statetracker.fit_with_recovery`, the roster's disabled worker).
 """
 from __future__ import annotations
 
@@ -51,15 +60,12 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .mesh import (SERVICE_OPS, STATS, ProcessMesh, backend_flags,
-                   default_mesh, set_backend_flags)
+from .mesh import (SERVICE_OPS, STATS, MeshError, ProcessMesh,
+                   backend_flags, default_mesh, set_backend_flags)
 from .stats import SparkTrainingStats, phase_timer
 
 OP_SYNC, OP_ICI_STEP, OP_PA_ROUND, OP_EVAL, OP_SCORE = range(
     SERVICE_OPS, SERVICE_OPS + 5)
-
-_NOT_PORTED = ("is listed under ROADMAP A7 (parallel/statetracker.py is "
-               "not ported yet)")
 
 
 class TrainingMaster:
@@ -453,6 +459,13 @@ class _Ranks:
         if self.mesh.size == 1:
             return
         if not self.mesh.alive():
+            if self._sid and self._starts == self.mesh.starts:
+                # a follower of the replicas' mesh died mid-job: the job
+                # fails here, as JAX's does at its next collective, and
+                # restarts on the ranks left from its last checkpoint
+                # (statetracker.fit_with_recovery)
+                raise MeshError("a follower of the training mesh died; "
+                                "restart the job from its checkpoint")
             self.owned = True
         self.mesh.start()
         if self._net_id != id(net) or self._starts != self.mesh.starts:
@@ -505,21 +518,28 @@ class IciDataParallelTrainingMaster(TrainingMaster):
 
     def __init__(self, mesh: Optional[ProcessMesh] = None,
                  collect_stats: bool = False, state_tracker=None):
-        if state_tracker is not None:
-            raise NotImplementedError(f"state_tracker= {_NOT_PORTED}")
         self.mesh = mesh
         self.stats = SparkTrainingStats() if collect_stats else None
-        self.state_tracker = None
+        # fault tolerance: periodic atomic checkpoints (statetracker.py)
+        self.state_tracker = state_tracker
         self._ranks: Optional[_Ranks] = None
+        self._batches_done = 0
+        self._skip = 0
 
     def resume(self, net) -> int:
-        """Batches to skip after a restore: none without a state tracker
-        on one rank (JAX :166); across processes the resume protocol is
-        statetracker.py's, and raises."""
-        if self.mesh is not None and self.mesh.size > 1:
-            raise NotImplementedError(f"a multi-process resume() "
-                                      f"{_NOT_PORTED}")
-        return 0
+        """Restore the newest checkpoint into ``net`` (the driver's) and
+        return how many leading batches of the SAME data sequence
+        `execute_training` skips (JAX :167; the redelivery of
+        StateTracker.java:122-129); the followers take the restored state
+        at once (`_prepare`: one ``OP_SYNC``)."""
+        if self.state_tracker is None:
+            return 0
+        cursor = self.state_tracker.restore(net) or {}
+        skip = int(cursor.get("master_batches", 0))
+        self._batches_done = skip
+        self._skip = skip
+        self._prepare(net)
+        return skip
 
     def _prepare(self, net) -> _Ranks:
         net._check_init()
@@ -533,7 +553,13 @@ class IciDataParallelTrainingMaster(TrainingMaster):
         ranks = self._prepare(net)
         comm = ranks.mesh
         n_dev = comm.size
+        # a resumed run skips the batches trained before the restored
+        # checkpoint (the iterator replays the same sequence)
+        skip, self._skip = self._skip, 0
         for ds in iterator:
+            if skip > 0:
+                skip -= 1
+                continue
             with phase_timer(self.stats, "data_fetch"):
                 inputs, labels, fms, lms = _as_lists(ds)
                 inputs = [_np(a) for a in inputs]
@@ -546,6 +572,14 @@ class IciDataParallelTrainingMaster(TrainingMaster):
                           lambda: _ici_step(net, comm, batch))
             for listener in net.listeners:
                 listener.iteration_done(net, net.step)
+            self._batches_done += 1
+            if self.state_tracker is not None:
+                self.state_tracker.batch_done(
+                    net, {"master_batches": self._batches_done})
+        if self.state_tracker is not None:
+            # async trackers: the last checkpoint durable (and a writer
+            # error raised) before the call returns
+            self.state_tracker.wait()
 
     def get_training_stats(self):
         return self.stats
@@ -566,15 +600,30 @@ class ParameterAveragingTrainingMaster(TrainingMaster):
                  averaging_frequency: int = 1,
                  mesh: Optional[ProcessMesh] = None,
                  collect_stats: bool = False, state_tracker=None):
-        if state_tracker is not None:
-            raise NotImplementedError(f"state_tracker= {_NOT_PORTED}")
         self.batch_size_per_worker = int(batch_size_per_worker)
         self.averaging_frequency = max(1, int(averaging_frequency))
         self.mesh = mesh
         self.stats = SparkTrainingStats() if collect_stats else None
-        self.state_tracker = None
+        self.state_tracker = state_tracker
         self._ranks: Optional[_Ranks] = None
         self._rounds_done = 0
+        self._batches_done = 0
+        self._skip = 0
+
+    def resume(self, net) -> int:
+        """As `IciDataParallelTrainingMaster.resume`: restore into the
+        driver's net, re-sync the followers, and return the batches to
+        skip (the checkpoint's ``master_batches``: a checkpoint is only
+        written where no rows are carried into the next round)."""
+        if self.state_tracker is None:
+            return 0
+        cursor = self.state_tracker.restore(net) or {}
+        self._rounds_done = int(cursor.get("round", 0))
+        skip = int(cursor.get("master_batches", 0))
+        self._batches_done = skip
+        self._skip = skip
+        self._prepare(net)
+        return skip
 
     def _prepare(self, net) -> _Ranks:
         net._check_init()
@@ -675,9 +724,18 @@ class ParameterAveragingTrainingMaster(TrainingMaster):
             for listener in net.listeners:
                 listener.iteration_done(net, net.step)
             self._rounds_done += 1
+            if self.state_tracker is not None and not buf:
+                self.state_tracker.batch_done(
+                    net, {"round": self._rounds_done,
+                          "master_batches": self._batches_done})
 
+        skip, self._skip = self._skip, 0
         with phase_timer(self.stats, "total_training"):
             for ds in iterator:
+                if skip > 0:
+                    skip -= 1
+                    continue
+                self._batches_done += 1
                 with phase_timer(self.stats, "data_fetch"):
                     inputs, labels, bfm, blm = _as_lists(ds)
                     buf.append(([_np(a) for a in inputs],
@@ -688,6 +746,8 @@ class ParameterAveragingTrainingMaster(TrainingMaster):
                     flush()
             while buf:
                 flush()
+        if self.state_tracker is not None:
+            self.state_tracker.wait()
 
     def get_training_stats(self):
         return self.stats

@@ -148,6 +148,22 @@ def _restore_variables(net, data: bytes, is_graph: bool) -> None:
         copy_into(slot[name], _variable(arr, slot[name].dtype))
 
 
+def _restore_state(net, zf: zipfile.ZipFile, load_updater: bool = True
+                   ) -> None:
+    """A model zip's params, updater state (unless ``load_updater`` is
+    False), variables and step into ``net``, in place (JAX
+    `_restore_state`; the state tracker restores into a live net)."""
+    names = set(zf.namelist())
+    net.set_params_flat(_load_npz(zf.read(COEFFICIENTS_BIN))["params"])
+    if load_updater and UPDATER_BIN in names:
+        net.set_updater_state_flat(_load_npz(zf.read(UPDATER_BIN))["state"])
+    if VARIABLES_BIN in names:
+        _restore_variables(net, zf.read(VARIABLES_BIN),
+                           hasattr(net.conf, "vertices"))
+    if META_JSON in names:
+        net.step = json.loads(zf.read(META_JSON).decode()).get("step", 0)
+
+
 def restore_computation_graph(path: Union[str, Path], *,
                               device: DeviceLike = "cuda",
                               load_updater: bool = True):
@@ -157,18 +173,10 @@ def restore_computation_graph(path: Union[str, Path], *,
     from ..nn.graph import ComputationGraph
 
     with zipfile.ZipFile(Path(path), "r") as zf:
-        names = set(zf.namelist())
         conf = ComputationGraphConfiguration.from_json(
             zf.read(CONFIG_JSON).decode())
         net = ComputationGraph(conf, device=device).init()
-        net.set_params_flat(_load_npz(zf.read(COEFFICIENTS_BIN))["params"])
-        if load_updater and UPDATER_BIN in names:
-            net.set_updater_state_flat(
-                _load_npz(zf.read(UPDATER_BIN))["state"])
-        if VARIABLES_BIN in names:
-            _restore_variables(net, zf.read(VARIABLES_BIN), True)
-        if META_JSON in names:
-            net.step = json.loads(zf.read(META_JSON).decode()).get("step", 0)
+        _restore_state(net, zf, load_updater)
     return net
 
 
@@ -181,18 +189,10 @@ def restore_multi_layer_network(path: Union[str, Path], *,
     from ..nn.multilayer import MultiLayerNetwork
 
     with zipfile.ZipFile(Path(path), "r") as zf:
-        names = set(zf.namelist())
         conf = MultiLayerConfiguration.from_json(
             zf.read(CONFIG_JSON).decode())
         net = MultiLayerNetwork(conf, device=device).init()
-        net.set_params_flat(_load_npz(zf.read(COEFFICIENTS_BIN))["params"])
-        if load_updater and UPDATER_BIN in names:
-            net.set_updater_state_flat(
-                _load_npz(zf.read(UPDATER_BIN))["state"])
-        if VARIABLES_BIN in names:
-            _restore_variables(net, zf.read(VARIABLES_BIN), False)
-        if META_JSON in names:
-            net.step = json.loads(zf.read(META_JSON).decode()).get("step", 0)
+        _restore_state(net, zf, load_updater)
     return net
 
 

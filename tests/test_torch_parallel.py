@@ -512,14 +512,18 @@ def test_cli_train_data_parallel(tmp_path, capsys):
 
 
 def test_refusals_and_stats_trace(tmp_path):
-    with pytest.raises(NotImplementedError, match="A7"):
-        ttrainer.IciDataParallelTrainingMaster(state_tracker=object())
-    with pytest.raises(NotImplementedError, match="A7"):
-        ttrainer.ParameterAveragingTrainingMaster(state_tracker=object())
+    """2-D meshes are still refused (ROADMAP A7). Both masters take a
+    ``state_tracker`` (tests/test_torch_statetracker.py runs them), and
+    `resume` without one skips nothing on any mesh, starting no rank."""
+    tr = object()
+    assert ttrainer.IciDataParallelTrainingMaster(
+        state_tracker=tr).state_tracker is tr
+    assert ttrainer.ParameterAveragingTrainingMaster(
+        state_tracker=tr).state_tracker is tr
     assert ttrainer.IciDataParallelTrainingMaster().resume(None) == 0
-    with pytest.raises(NotImplementedError, match="A7"):
-        ttrainer.IciDataParallelTrainingMaster(
-            mesh=tmesh.default_mesh(2, ["cpu"] * 2)).resume(None)
+    m2 = tmesh.default_mesh(2, ["cpu"] * 2)
+    assert ttrainer.IciDataParallelTrainingMaster(mesh=m2).resume(None) == 0
+    assert not m2.alive()
     with pytest.raises(NotImplementedError, match="1-D"):
         tmesh.make_mesh({"data": 2, "model": 2})
     from deeplearning4j_tpu_torch.parallel.stats import SparkTrainingStats

@@ -448,19 +448,27 @@ def test_mesh_without_tp_axis_warns_and_disables():
 
 
 def test_refusals_under_tp():
-    """Captured steps, speculation and the KV tiers raise under tp = 2,
-    naming ROADMAP A7, before any follower starts."""
+    """Captured steps raise under tp = 2, naming ROADMAP A7, before any
+    follower starts. Speculation and the KV tiers are served under tp
+    (tests/test_torch_tp_speculative.py, tests/test_torch_tp_kvtier.py):
+    their engines build, armed, with no follower started yet."""
     _, tnet = _nets()
     base = dict(n_slots=2, prefill_chunk=16, kv_block=8, mesh=2,
                 device="cpu", metrics=MetricsRegistry(),
                 kv_pool_mb=_pool_mb(32, 8, 2))
     with pytest.raises(ValueError, match="decode_graphs='off'.*A7"):
         DecodeScheduler(tnet, V, **base)
-    with pytest.raises(ValueError, match="speculate.*A7"):
-        DecodeScheduler(tnet, V, decode_graphs="off", speculate=2, **base)
-    with pytest.raises(ValueError, match="host_cache_mb.*A7"):
-        DecodeScheduler(tnet, V, decode_graphs="off", host_cache_mb=1.0,
-                        **base)
+    mesh = shd.decode_mesh(2, ["cpu"] * 2, timeout=TIMEOUT)
+    try:
+        for kw in (dict(speculate=2), dict(host_cache_mb=1.0)):
+            eng = DecodeScheduler(tnet, V, decode_graphs="off",
+                                  **dict(base, mesh=mesh), **kw)
+            assert eng.tp == 2
+            assert eng.speculate == 2 if "speculate" in kw \
+                else eng.tier is not None
+            eng.stop()
+    finally:
+        mesh.kill()
 
 
 # ------------------------------------------------ pool and topology --

@@ -530,7 +530,31 @@ non-zero without them, or when any phase fails. Phases:
      from the cursor to the uninterrupted params (31e's gate), 3 + 3 + 3
      launches a step on each rank; alone: `python3
      tools/phase32_alone.py`;
- 33. prints the kernels line (the bf16 kernels as rows of their own,
+ 33. tensor-parallel training and the other parallel modules, ranks
+     co-located on card 0 over gloo: (a) the flagship (vocab 128,
+     d_model 512, 8 heads, 4 blocks, RoPE, f32, Adam, seed 7) trained at
+     tp = 2 by `shard_transformer_tp` for 3 steps of B = 32, T = 256,
+     eager, against the tp = 1 eager step: losses within 1e-5 relative,
+     params within 1e-2 of the steps' change, the replicated params
+     bitwise equal on both ranks, on each rank exactly 4 launches a step
+     of each flash kernel (rows 6a-6c at [32, 256, 4, 64]), 16
+     all-reduces on the model axis and 1 command a step and no gather;
+     both step ms; (b) the flash kernels at that shard shape against
+     their plain versions (phase 9's gates and print); (c) the same net
+     on a 2 x 2 {data, model} mesh (4 ranks) under the ICI master, 3
+     steps, against one process's fits (losses within 1e-4, params
+     within 1e-2 of the change), the collectives by axis; (d) ZeRO-1:
+     the net under the ICI master on 2 ranks, params within 1e-6 of the
+     change from the unsharded master's, each rank's updater bytes
+     0.45-0.55 of the unsharded master's; (e) ring and Ulysses attention
+     at [1, 8192, 8, 64] causal over 2 ranks against the single-card
+     flash forward, within 1e-4 of max |ref|, one flash forward launch
+     on each Ulysses rank; (f) GPipe (2 stages x 4 microbatches of the
+     pre-LN block at d_model 512) forward and gradients against the
+     sequential stack, and MoE (2 experts at D = 512) against the
+     one-process routing, within 1e-4; alone: `python3
+     tools/phase33_alone.py` (``--cpu-rehearsal`` on CPU ranks);
+ 34. prints the kernels line (the bf16 kernels as rows of their own,
      named "<kernel>_bf16"; the paged rows carry phase 26's masked-wave
      launches as "masked_launches", phase 27a's as
      "speculating_launches" and phase 28's wave C as "tiered_launches",
@@ -540,7 +564,10 @@ non-zero without them, or when any phase fails. Phases:
      31's per-rank launches as "tp_launches_per_rank" and
      "dp_launches_per_rank", the paged kernel at the shard shapes as
      "shard_cases"; phase 32's as "tp_speculating_launches_per_rank",
-     "tp_tiered_launches_per_rank" and "ft_launches_per_rank").
+     "tp_tiered_launches_per_rank" and "ft_launches_per_rank"; the flash
+     rows phase 33a's as "tp_train_launches_per_rank", 33b's kernel at
+     the shard shape as "shard_case", and the forward row 33e's as
+     "ulysses_launches_per_rank").
 
 The last line is {"ok": true, "device": {...}}. Every number printed is
 measured in this run; a "[details]" JSON line before the kernels line
@@ -6366,6 +6393,505 @@ def phase32(torch, ck, card):
     return out
 
 
+# -- phase 33: tp training, N-D meshes, ZeRO-1, ring/Ulysses, GPipe, MoE ---
+P33_DEV = "cuda"        # "cpu" rehearses phase 33 (tools/phase33_alone.py)
+P33_T, P33_B = 256, 32  # phase 29's LM shape
+P33_STEPS = 3
+# 33a: each step's loss against the tp = 1 eager step on the card, and the
+# params' distance as the norm of the difference over the norm of the 3
+# steps' change (31e's gate on the params other than BN-fed biases; this
+# net has no BatchNorm)
+P33_LOSS_REL = 1e-5
+P33_PARAM_REL = 1e-2
+# 33c: dp x tp against one process on the whole batch: 31e's loss gate
+P33_DP_LOSS_REL = 1e-4
+# 33d: ZeRO-1 against the unsharded master (elementwise Adam on the same
+# all-reduced gradient), and the rank's updater bytes over the unsharded
+# master's: about half
+P33_ZERO_REL = 1e-6
+P33_ZERO_BYTES = (0.45, 0.55)
+# 33e: ring and Ulysses against the single-card flash forward, of max |ref|
+P33_ATTN_L = 8192
+P33_ATTN_REL = 1e-4
+# 33f: GPipe and MoE against the one-process computation, of the largest
+# reference element (forward) and of each leaf's largest gradient
+P33_PIPE_REL = 1e-4
+P33_PIPE_B, P33_PIPE_T, P33_MICRO = 8, 128, 4
+P33_MOE_B, P33_MOE_H = 256, 2048
+
+
+def p33_devices(n):
+    return ([f"{P33_DEV}:0"] if P33_DEV == "cuda" else ["cpu"]) * n
+
+
+def p33_sync(torch):
+    if P33_DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def p33_net(heads=HEADS):
+    """The flagship transformer_lm (RoPE, f32, Adam, seed 7) with eager
+    steps."""
+    from deeplearning4j_tpu_torch.models.zoo import transformer_lm
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    return ComputationGraph(transformer_lm(
+        vocab_size=VOCAB, d_model=D_MODEL, n_heads=heads, n_blocks=BLOCKS,
+        rope=True, seed=7), device=P33_DEV, train_graphs="off").init()
+
+
+def p33_flat(torch, net):
+    return torch.cat([t.detach().reshape(-1).float()
+                      for n in sorted(net.params)
+                      for t in (net.params[n][k]
+                                for k in sorted(net.params[n]))])
+
+
+def p33_batch(torch):
+    import numpy as np
+    ids = np.random.default_rng(33).integers(0, VOCAB, (P33_B, P33_T + 1))
+    eye = np.eye(VOCAB, dtype=np.float32)
+    return eye[ids[:, :-1]], eye[ids[:, 1:]]
+
+
+def p33_fit(torch, fn, steps=P33_STEPS):
+    """``steps`` calls of ``fn`` (one step each), each timed on the host
+    clock up to the card's synchronize: (losses, ms)."""
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.monotonic()
+        loss = fn()
+        p33_sync(torch)
+        ms.append(1e3 * (time.monotonic() - t0))
+        losses.append(float(loss))
+    return losses, ms
+
+
+def p33_rel(torch, a, b, base):
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(base))
+
+
+def p33_tblock(p, x):
+    """JAX tests/test_pipeline.py's pre-LN attention + FFN block at the
+    flagship's width (d_model 512, 8 heads)."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel.ring import full_attention
+    d = p["Wq"].shape[0]
+    dh = d // HEADS
+
+    def ln(a):
+        return (a - a.mean(-1, keepdim=True)) / (
+            a.std(-1, keepdim=True, unbiased=False) + 1e-5)
+    h = ln(x)
+    b, t, _ = h.shape
+    q = (h @ p["Wq"]).reshape(b, t, HEADS, dh)
+    k = (h @ p["Wk"]).reshape(b, t, HEADS, dh)
+    v = (h @ p["Wv"]).reshape(b, t, HEADS, dh)
+    a = full_attention(q, k, v, causal=True).reshape(b, t, d)
+    x = x + a @ p["Wo"]
+    return x + torch.tanh(ln(x) @ p["Wf1"]) @ p["Wf2"]
+
+
+def p33_expert(p, x):
+    """JAX tests/test_moe.py's expert at the flagship's width."""
+    import torch
+    return torch.tanh(x @ p["W1"]) @ p["W2"]
+
+
+def p33_moe_ref(torch, experts, gate_w, x, capacity, n_ranks):
+    """The one-process routing: each rank's shard of tokens gated top-1,
+    a token past its expert's capacity dropped (JAX's position rule)."""
+    outs = []
+    n_local = x.shape[0] // n_ranks
+    for r in range(n_ranks):
+        xs = x[r * n_local:(r + 1) * n_local]
+        probs = torch.softmax(xs @ gate_w, -1)
+        eidx, gate = probs.argmax(-1), probs.max(-1).values
+        y = torch.zeros_like(xs)
+        for e in range(len(experts)):
+            rows = torch.nonzero(eidx == e).reshape(-1)[:capacity]
+            if rows.numel():
+                y[rows] = gate[rows, None] * p33_expert(experts[e], xs[rows])
+        outs.append(y)
+    return torch.cat(outs)
+
+
+def p33_tp(torch, ck, card, mesh, x, y, failures):
+    """33a: tp = 2 training against the tp = 1 eager step."""
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import \
+        shard_transformer_tp
+    ref = p33_net()
+    p0 = p33_flat(torch, ref)
+    xs, ys = ref._as_tensor(x), ref._as_tensor(y)
+
+    def one(net):
+        net.fit_batch([xs], [ys])
+        return net._score_raw
+    ck.reset_launches()
+    l1, ms1 = p33_fit(torch, lambda: one(ref))
+    launches1 = dict(ck.LAUNCHES)
+    p1 = p33_flat(torch, ref)
+    del ref
+    net = p33_net()
+    shard_transformer_tp(net, mesh)
+    mesh.reset_launches()
+    mesh.reset_counts()
+    l2, ms2 = p33_fit(torch, lambda: one(net))
+    counts = mesh.query_counts(by_axis=True)
+    launches = mesh.query_launches()
+    reps = net._tp.replicas()
+    bitwise = all(bool(torch.equal(reps[0], reps[r]))
+                  for r in range(1, reps.shape[0]))
+    p2 = p33_flat(torch, net)
+    rel = p33_rel(torch, p2, p1, p1 - p0)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l2, l1))
+    want = {"flash_attention_fwd": BLOCKS * P33_STEPS,
+            "flash_attention_bwd_dkv": BLOCKS * P33_STEPS,
+            "flash_attention_bwd_dq": BLOCKS * P33_STEPS}
+    flash = [{k: r.get(k, 0) for k in want} for r in launches]
+    out = {"tp1_losses": l1, "tp2_losses": l2, "tp1_step_ms": ms1,
+           "tp2_step_ms": ms2, "loss_rel": loss_rel, "param_rel": rel,
+           "replicas_bitwise": bitwise, "collectives_per_rank": counts,
+           "launches_per_rank": launches, "tp1_launches": launches1,
+           "shard_heads": HEADS // 2}
+    phase(33, f"(a) the flagship (RoPE, f32, Adam) trained at tp = 2 "
+              f"({p33_devices(1)[0]} x 2, gloo, eager), B={P33_B} T={P33_T}, "
+              f"{P33_STEPS} steps: losses {l2} against tp = 1 eager {l1} "
+              f"(max rel {loss_rel:.3e}, gate {P33_LOSS_REL:g}); params "
+              f"{rel:.3e} of the steps' change (gate {P33_PARAM_REL:g}); "
+              f"replicated params bitwise equal across ranks {bitwise}; "
+              f"flash launches per rank {flash} (want {want}: rows 6a-6c "
+              f"at [{P33_B}, {P33_T}, {HEADS // 2}, {D_MODEL // HEADS}]); "
+              f"collectives per rank: all-reduces on the model axis "
+              f"{[c['all_reduce@model'] for c in counts]}, commands "
+              f"{[c['broadcast_command'] for c in counts]}, gathers "
+              f"{[c['all_gather'] for c in counts]}; step ms tp = 2 "
+              f"{[round(m, 3) for m in ms2]} against tp = 1 eager "
+              f"{[round(m, 3) for m in ms1]} [{card}]")
+    if not loss_rel <= P33_LOSS_REL:
+        failures.append(f"33a: losses {l2} vs {l1}")
+    if not rel <= P33_PARAM_REL:
+        failures.append(f"33a: params {rel:.3e} of the change")
+    if not bitwise:
+        failures.append("33a: replicated params differ across ranks")
+    if P33_DEV == "cuda" and any(f != want for f in flash):
+        failures.append(f"33a: flash launches {flash}, want {want}")
+    for c in counts:
+        if not (c["all_reduce@model"] == 4 * BLOCKS * P33_STEPS
+                and c["broadcast_command"] == P33_STEPS
+                and c["all_gather"] == 0):
+            failures.append(f"33a: collectives {c}")
+    del net
+    return out
+
+
+def p33_flash(torch, ck, card, failures):
+    """33b: the flash kernels at a tp = 2 rank's shard shape."""
+    flush_buf = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    r = flash_case(ck, torch, flush_buf.zero_, B=P33_B, L=P33_T,
+                   H=HEADS // 2, D=D_MODEL // HEADS, causal=True, seed=433,
+                   library=True)
+    e = r["rel_err"]
+    phase(33, f"(b) flash at the shard shape {r['shape']} causal: "
+              f"max|diff|/max|plain| o {e['o']:.3e} lse {e['lse']:.3e} dq "
+              f"{e['dq']:.3e} dk {e['dk']:.3e} dv {e['dv']:.3e} (gates "
+              f"1e-5), bitwise repeatable {r['repeat_bitwise']}; kernel / "
+              f"plain / bound ms: fwd {r['fwd_ms']:.4f} / "
+              f"{r['fwd_plain_ms']:.4f} / {r['fwd_bound_ms']:.4f} "
+              f"({r['fwd_bound_by']}), dkv {r['dkv_ms']:.4f} / "
+              f"{r['dkv_plain_ms']:.4f} / {r['dkv_bound_ms']:.4f} "
+              f"({r['dkv_bound_by']}), dq {r['dq_ms']:.4f} / "
+              f"{r['dq_plain_ms']:.4f} / {r['dq_bound_ms']:.4f} "
+              f"({r['dq_bound_by']}); SDPA fwd {r['sdpa_fwd_ms']:.4f} ms, "
+              f"fwd+bwd {r['sdpa_fwd_bwd_ms']:.4f} ms [{card}]")
+    if not (max(e.values()) <= 1e-5 and r["repeat_bitwise"]
+            and r["finite"] and r["sdpa_rel_err"] <= 1e-4):
+        failures.append(f"33b: flash at the shard shape {r}")
+    return r
+
+
+def p33_dp_tp(torch, card, x, y, failures):
+    """33c: the same net on a 2 x 2 {data, model} mesh under the ICI
+    master against one process's fits."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+    from deeplearning4j_tpu_torch.parallel.tensor_parallel import \
+        shard_transformer_tp
+    from deeplearning4j_tpu_torch.parallel.trainer import \
+        IciDataParallelTrainingMaster
+    ref = p33_net()
+    p0 = p33_flat(torch, ref)
+    xs, ys = ref._as_tensor(x), ref._as_tensor(y)
+
+    def single():
+        ref.fit_batch([xs], [ys])
+        return ref._score_raw
+    l1, ms1 = p33_fit(torch, single)
+    p1 = p33_flat(torch, ref)
+    del ref
+    t0 = time.monotonic()
+    mesh = make_mesh({"data": 2, "model": 2}, p33_devices(4),
+                     timeout=P31_TIMEOUT).start()
+    start_s = time.monotonic() - t0
+    try:
+        net = p33_net()
+        shard_transformer_tp(net, mesh)
+        master = IciDataParallelTrainingMaster(mesh=mesh)
+        mesh.reset_counts()
+
+        def step():
+            master.execute_training(net, [DataSet(x, y)])
+            return net._score_raw
+        l2, ms2 = p33_fit(torch, step)
+        counts = mesh.query_counts(by_axis=True)
+        p2 = p33_flat(torch, net)
+        master.close()
+    finally:
+        mesh.close()
+    rel = p33_rel(torch, p2, p1, p1 - p0)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(l2, l1))
+    by_axis = [{k: v for k, v in c.items() if "@" in k and v}
+               for c in counts]
+    phase(33, f"(c) dp x tp: the flagship on a 2 x 2 {{data, model}} mesh "
+              f"({p33_devices(1)[0]} x 4, gloo) under the ICI master, "
+              f"{P33_STEPS} steps of B={P33_B}: losses {l2} against one "
+              f"process {l1} (max rel {loss_rel:.3e}, gate "
+              f"{P33_DP_LOSS_REL:g}); params {rel:.3e} of the change (gate "
+              f"{P33_PARAM_REL:g}); collectives by axis per rank {by_axis}; "
+              f"step ms {[round(m, 3) for m in ms2]} against one process "
+              f"{[round(m, 3) for m in ms1]}; mesh start {start_s:.1f} s "
+              f"[{card}]")
+    if not loss_rel <= P33_DP_LOSS_REL:
+        failures.append(f"33c: losses {l2} vs {l1}")
+    if not rel <= P33_PARAM_REL:
+        failures.append(f"33c: params {rel:.3e} of the change")
+    for c in counts:
+        if not (c["all_reduce@data"] == P33_STEPS
+                and c["all_reduce@model"] == 4 * BLOCKS * P33_STEPS):
+            failures.append(f"33c: collectives {c}")
+    return {"losses": l2, "single_losses": l1, "step_ms": ms2,
+            "single_step_ms": ms1, "loss_rel": loss_rel, "param_rel": rel,
+            "collectives_by_axis_per_rank": by_axis, "mesh_start_s": start_s}
+
+
+def p33_zero(torch, card, mesh, x, y, failures):
+    """33d: ZeRO-1 under the ICI master on the 2-rank mesh against the
+    unsharded master."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.parallel.trainer import \
+        IciDataParallelTrainingMaster
+    from deeplearning4j_tpu_torch.parallel import zero
+    axis = mesh.axis_names[0]
+    runs = {}
+    for tag in ("unsharded", "zero"):
+        net = p33_net()
+        p0 = p33_flat(torch, net)
+        counts = None
+        if tag == "zero":
+            counts = zero.shard_updater_state(net, mesh, axis=axis)
+        master = IciDataParallelTrainingMaster(mesh=mesh)
+
+        def step():
+            master.execute_training(net, [DataSet(x, y)])
+            return net._score_raw
+        losses, ms = p33_fit(torch, step)
+        stats = mesh.query_stats(["updater_state_bytes"]) \
+            if tag == "zero" else None
+        runs[tag] = {"losses": losses, "step_ms": ms,
+                     "bytes": zero.updater_state_bytes_per_device(net),
+                     "rank_bytes": ([s["updater_state_bytes"] for s in stats]
+                                    if stats else None),
+                     "leaves": counts, "p0": p0, "p": p33_flat(torch, net)}
+        master.close()
+        del net
+    u, z = runs["unsharded"], runs["zero"]
+    rel = p33_rel(torch, z["p"], u["p"], u["p"] - u["p0"])
+    ratio = z["bytes"] / u["bytes"]
+    phase(33, f"(d) ZeRO-1: the flagship under the ICI master on 2 ranks, "
+              f"{P33_STEPS} steps: params {rel:.3e} of the change from the "
+              f"unsharded master's (gate {P33_ZERO_REL:g}); losses "
+              f"{z['losses']} (unsharded {u['losses']}); sharded leaves "
+              f"{z['leaves']}; updater bytes per rank {z['rank_bytes']} "
+              f"against {u['bytes']} unsharded ({ratio:.4f}, gate "
+              f"{P33_ZERO_BYTES}); step ms {[round(m, 3) for m in z['step_ms']]} "
+              f"(unsharded {[round(m, 3) for m in u['step_ms']]}) [{card}]")
+    if not rel <= P33_ZERO_REL:
+        failures.append(f"33d: ZeRO params {rel:.3e} of the change")
+    if not (P33_ZERO_BYTES[0] <= ratio <= P33_ZERO_BYTES[1]
+            and all(b == z["bytes"] for b in z["rank_bytes"])):
+        failures.append(f"33d: updater bytes {z['rank_bytes']} vs "
+                        f"{u['bytes']}")
+    return {k: {f: v for f, v in r.items() if f not in ("p", "p0")}
+            for k, r in runs.items()} | {"param_rel": rel,
+                                        "bytes_ratio": ratio}
+
+
+def p33_attention(torch, ck, card, mesh, failures):
+    """33e: ring and Ulysses at [1, 8192, 8, 64] over 2 ranks against
+    the single-card flash forward."""
+    from deeplearning4j_tpu_torch.ops import helpers as ophelpers
+    from deeplearning4j_tpu_torch.parallel.ring import (ring_attention,
+                                                        ulysses_attention)
+    axis = mesh.axis_names[0]
+    L = P33_ATTN_L if P33_DEV == "cuda" else 256
+    g = torch.Generator().manual_seed(333)
+    q, k, v = (torch.randn((1, L, HEADS, D_MODEL // HEADS), generator=g)
+               .to(P33_DEV) for _ in range(3))
+    out = {}
+    with torch.no_grad():
+        t0 = time.monotonic()
+        ref = ophelpers.attention(q, k, v, causal=True)
+        p33_sync(torch)
+        out["single_ms"] = 1e3 * (time.monotonic() - t0)
+        scale = float(ref.abs().max())
+        for name, fn in (("ring", ring_attention),
+                         ("ulysses", ulysses_attention)):
+            mesh.reset_launches()
+            mesh.reset_counts()
+            t0 = time.monotonic()
+            got = fn(q, k, v, mesh, axis=axis, causal=True)
+            p33_sync(torch)
+            ms = 1e3 * (time.monotonic() - t0)
+            launches = mesh.query_launches()
+            counts = mesh.query_counts(by_axis=True)
+            err = float((got - ref).abs().max()) / scale
+            out[name] = {"rel_err": err, "ms": ms,
+                         "flash_fwd_launches_per_rank": [
+                             r.get("flash_attention_fwd", 0)
+                             for r in launches],
+                         "exchanges_per_rank": [
+                             {k: c[k] for k in ("send", "recv", "all_to_all")}
+                             for c in counts]}
+            if not err <= P33_ATTN_REL:
+                failures.append(f"33e: {name} rel err {err:.3e}")
+    u = out["ulysses"]["flash_fwd_launches_per_rank"]
+    if P33_DEV == "cuda" and u != [1, 1]:
+        failures.append(f"33e: Ulysses flash launches per rank {u}")
+    phase(33, f"(e) ring and Ulysses attention at [1, {L}, {HEADS}, "
+              f"{D_MODEL // HEADS}] causal over 2 ranks: max|diff|/max|ref| "
+              f"ring {out['ring']['rel_err']:.3e}, Ulysses "
+              f"{out['ulysses']['rel_err']:.3e} (gate {P33_ATTN_REL:g}) "
+              f"against the single-card flash forward; Ulysses flash "
+              f"forward launches per rank {u} (at H/2 = {HEADS // 2} heads); "
+              f"exchanges per rank ring {out['ring']['exchanges_per_rank']}, "
+              f"Ulysses {out['ulysses']['exchanges_per_rank']}; host ms "
+              f"ring {out['ring']['ms']:.3f}, Ulysses "
+              f"{out['ulysses']['ms']:.3f}, one card "
+              f"{out['single_ms']:.3f} [{card}]")
+    return out
+
+
+def p33_pipe_moe(torch, card, mesh, failures):
+    """33f: GPipe (2 stages x 4 microbatches of the block at d_model 512)
+    and MoE (2 experts at D = 512) against one process."""
+    import chip_smoke as cs
+    from deeplearning4j_tpu_torch.parallel.moe import MoEExecutor
+    from deeplearning4j_tpu_torch.parallel.pipeline import (
+        GPipeExecutor, stack_block_params)
+    axis = mesh.axis_names[0]
+    d = D_MODEL
+    g = torch.Generator().manual_seed(334)
+
+    def w(*shape):
+        return (torch.randn(shape, generator=g) / shape[0] ** 0.5).to(
+            P33_DEV)
+    blocks = [{"Wq": w(d, d), "Wk": w(d, d), "Wv": w(d, d), "Wo": w(d, d),
+               "Wf1": w(d, 4 * d), "Wf2": w(4 * d, d)} for _ in range(2)]
+    x = torch.randn((P33_PIPE_B, P33_PIPE_T, d), generator=g).to(P33_DEV)
+    target = torch.randn(x.shape, generator=g).to(P33_DEV)
+    ex = GPipeExecutor(cs.p33_tblock, 2, P33_MICRO, mesh, axis=axis)
+    stacked = ex.shard_params(stack_block_params(blocks))
+    t0 = time.monotonic()
+    y = ex.apply(stacked, x)
+    loss, grads = ex.grad_fn(lambda a, t: ((a - t) ** 2).mean())(
+        stacked, x, target)
+    p33_sync(torch)
+    pipe_ms = 1e3 * (time.monotonic() - t0)
+    ps = [{k: v.clone().requires_grad_(True) for k, v in b.items()}
+          for b in blocks]
+    ys = x
+    for p in ps:
+        ys = p33_tblock(p, ys)
+    ls = ((ys - target) ** 2).mean()
+    ls.backward()
+    ys, ls = ys.detach(), ls.detach()
+    y_err = float((y - ys).abs().max() / ys.abs().max())
+    g_err = max(float((grads[k][i] - ps[i][k].grad).abs().max()
+                      / ps[i][k].grad.abs().max())
+                for k in grads for i in range(2))
+    l_err = abs(float(loss) - float(ls)) / abs(float(ls))
+    # MoE: two experts, the batch split over the two ranks
+    experts = [{"W1": w(d, P33_MOE_H), "W2": w(P33_MOE_H, d)}
+               for _ in range(2)]
+    gate_w = w(d, 2)
+    xm = torch.randn((P33_MOE_B, d), generator=g).to(P33_DEV)
+    moe = MoEExecutor(cs.p33_expert, 2, mesh, capacity_factor=1.0,
+                      axis=axis)
+    sm = moe.shard_params(stack_block_params(experts))
+    mesh.reset_counts()
+    t0 = time.monotonic()
+    ym = moe.apply(sm, gate_w, xm)
+    p33_sync(torch)
+    moe_ms = 1e3 * (time.monotonic() - t0)
+    a2a = [c["all_to_all"] for c in mesh.query_counts(by_axis=True)]
+    cap = moe.capacity(P33_MOE_B // 2)
+    ref = p33_moe_ref(torch, experts, gate_w, xm, cap, 2)
+    m_err = float((ym - ref).abs().max() / ref.abs().max())
+    dropped = int((ref.abs().sum(-1) == 0).sum())
+    mloss, (ge, gg) = moe.grad_fn(lambda a, t: (a ** 2).mean())(
+        sm, gate_w, xm, xm)
+    m_fin = bool(torch.isfinite(mloss) and all(
+        torch.isfinite(t).all() for t in ge.values())
+        and torch.isfinite(gg).all() and float(gg.abs().sum()) > 0)
+    out = {"pipe": {"y_rel": y_err, "grad_rel": g_err, "loss_rel": l_err,
+                    "ms": pipe_ms},
+           "moe": {"y_rel": m_err, "capacity": cap, "dropped": dropped,
+                   "all_to_all_per_rank": a2a, "grads_finite": m_fin,
+                   "ms": moe_ms}}
+    phase(33, f"(f) GPipe, 2 stages x {P33_MICRO} microbatches of the "
+              f"pre-LN block at d_model {d} ([{P33_PIPE_B}, {P33_PIPE_T}, "
+              f"{d}]): forward {y_err:.3e}, gradients {g_err:.3e}, loss "
+              f"{l_err:.3e} of the sequential stack's (gate "
+              f"{P33_PIPE_REL:g}), apply + grad {pipe_ms:.3f} ms; MoE, 2 "
+              f"experts at D = {d} (hidden {P33_MOE_H}), B = {P33_MOE_B}, "
+              f"capacity {cap}: {m_err:.3e} of the one-process routing "
+              f"(gate {P33_PIPE_REL:g}), {dropped} tokens dropped, "
+              f"all-to-alls per rank {a2a}, gradients finite and reaching "
+              f"the router {m_fin}, apply {moe_ms:.3f} ms [{card}]")
+    if not max(y_err, g_err, l_err) <= P33_PIPE_REL:
+        failures.append(f"33f: GPipe {out['pipe']}")
+    if not (m_err <= P33_PIPE_REL and m_fin and a2a == [2, 2]):
+        failures.append(f"33f: MoE {out['moe']}")
+    return out
+
+
+def phase33(torch, ck, card):
+    """33a-f: see the module docstring."""
+    from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.monotonic()
+    failures = []
+    x, y = p33_batch(torch)
+    out = {}
+    mesh = make_mesh({"model": 2}, p33_devices(2),
+                     timeout=P31_TIMEOUT).start()
+    out["mesh_start_s"] = time.monotonic() - t0
+    try:
+        out["a"] = p33_tp(torch, ck, card, mesh, x, y, failures)
+        if P33_DEV == "cuda":
+            out["b"] = p33_flash(torch, ck, card, failures)
+        out["d"] = p33_zero(torch, card, mesh, x, y, failures)
+        out["e"] = p33_attention(torch, ck, card, mesh, failures)
+        out["f"] = p33_pipe_moe(torch, card, mesh, failures)
+    finally:
+        mesh.close()
+    out["c"] = p33_dp_tp(torch, card, x, y, failures)
+    out["seconds"] = time.monotonic() - t0
+    phase(33, f"phase 33 took {out['seconds']:.3f} s [{card}]")
+    if failures:
+        raise SystemExit("phase 33 failed: " + "; ".join(failures))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7900,6 +8426,7 @@ def main():
     p30 = phase30(torch, ck, card)
     p31 = phase31(torch, ck, card)
     p32 = phase32(torch, ck, card)
+    p33 = phase33(torch, ck, card)
 
 
     src = "deeplearning4j_tpu_torch/ops/csrc/paged_decode_attention.cu"
@@ -8021,6 +8548,22 @@ def main():
                            else None)})
         kernels[-1]["tc_bound_ms"] = BLOCKS * long_case[key + "_tc_bound_ms"]
         kernels[-1]["tc_bound_share"] = long_case[key + "_tc_bound_share"]
+        # phase 33a: each tp = 2 rank's launches over its training steps;
+        # 33b: the kernel at the shard shape; 33e: each Ulysses rank's
+        kernels[-1]["tp_train_launches_per_rank"] = [
+            r[name] for r in p33["a"]["launches_per_rank"]]
+        kernels[-1]["shard_case"] = {
+            "shape": p33["b"]["shape"],
+            "max_abs_err": p33["b"]["max_abs_err"][err_key],
+            "ms": p33["b"][key + "_ms"],
+            "plain_ms": p33["b"][key + "_plain_ms"],
+            "bound_ms": p33["b"][key + "_bound_ms"],
+            "bound_by": p33["b"][key + "_bound_by"],
+            "library_ms": (p33["b"]["sdpa_fwd_ms"] if key == "fwd"
+                           else None)}
+        if key == "fwd":
+            kernels[-1]["ulysses_launches_per_rank"] = p33["e"]["ulysses"][
+                "flash_fwd_launches_per_rank"]
     # the splash kernels: per transformer_lm_32k train step at [1, 32768,
     # 4, 128] (8 forward launches under remat, 4 dK/dV, 4 dQ); launches of
     # the whole 32k run; max |diff| over the two L = 32768 shapes
@@ -8163,9 +8706,9 @@ def main():
          "alexnet_train_bf16": alex16, "lenet_train_bf16": lenet16,
          **a3, "serving_26": p26, "serving_27": p27, "tiering_28": p28,
          "training_29": p29, "graphs_30": p30, "parallel_31": p31,
-         "tp_spec_tiers_ft_32": p32,
+         "tp_spec_tiers_ft_32": p32, "tp_training_33": p33,
          "elapsed_s": time.monotonic() - t_start}))
-    phase(33, "kernels:")
+    phase(34, "kernels:")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -135,7 +135,7 @@ def cmd_serve(args) -> int:
         print(f"error: serve --tp {args.tp} needs --decode-graphs off: the "
               "tensor-parallel step runs eagerly (a gloo collective cannot "
               "sit in a captured CUDA graph; a captured tp step under NCCL "
-              "is listed under ROADMAP A7)", file=sys.stderr)
+              "is ROADMAP A7.2.6)", file=sys.stderr)
         return 2
     net = None
     vocab = args.vocab_size if args.generate else 0

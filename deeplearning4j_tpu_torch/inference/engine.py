@@ -199,7 +199,7 @@ every rank runs it on its shard with the same two all-reduces a
 transformer block; the scheduler, the pool's books, sampling and the
 logit pipeline stay on the driver. The tp step runs eagerly
 (``decode_graphs="on"`` with tp > 1 raises: a gloo collective cannot sit
-in a captured graph; ROADMAP A7). Speculation joins the mesh (JAX
+in a captured graph; ROADMAP A7.2.6). Speculation joins the mesh (JAX
 :996-1000): the draft runs sharded under the target's specs with
 head-split stripes, and the verify, the draft step and the draft chunk
 are one command each, rollback staying the driver's bookkeeping. The KV
@@ -1089,7 +1089,7 @@ class DecodeScheduler:
                 f"tensor-parallel decode (tp={tp}) with decode_graphs='on': "
                 "a gloo collective cannot sit in a captured CUDA graph, so "
                 "the tp step runs eagerly (pass decode_graphs='off'; a "
-                "captured tp step under NCCL is listed under ROADMAP A7)")
+                "captured tp step under NCCL is ROADMAP A7.2.6)")
         if isinstance(mesh, int):
             mesh = decode_mesh(tp, None if self.device.type == "cuda"
                                else ["cpu"] * tp)

@@ -161,9 +161,12 @@ def kv_heads_shardable(kv_heads: Dict[str, int], tp: int) -> bool:
 # -- the rank's shard graph ------------------------------------------------
 def shard_modes(conf, eff: Dict[str, Dict[str, Spec]]) -> Dict[str, str]:
     """How each sharded vertex runs: "heads" (attention over local heads,
-    all-reduce after Wo), "col" (local hidden units), "col_gather" (local
-    units gathered back: a consumer that is not row-split, or a network
-    output — a resharding), "row" (partial product, all-reduce)."""
+    all-reduce after Wo), "heads_kv" (the same with K/V whole on every
+    rank: a GQA whose Wk/Wv the plan replicated, which only training
+    meets — the decode engine refuses such a net), "col" (local hidden
+    units), "col_gather" (local units gathered back: a consumer that is
+    not row-split, or a network output — a resharding), "row" (partial
+    product, all-reduce)."""
     from ..nn.conf.graph import LayerVertex
     from ..nn.conf.layers import SelfAttentionLayer
     modes: Dict[str, str] = {}
@@ -172,9 +175,9 @@ def shard_modes(conf, eff: Dict[str, Dict[str, Spec]]) -> Dict[str, str]:
         if not isinstance(v, LayerVertex):
             continue
         if isinstance(v.layer, SelfAttentionLayer):
-            if vs.get("Wq", ()) != () and vs.get("Wo", ()) != () \
-                    and vs.get("Wk", ()) != ():
-                modes[name] = "heads"
+            if vs.get("Wq", ()) != () and vs.get("Wo", ()) != ():
+                modes[name] = ("heads" if vs.get("Wk", ()) != ()
+                               else "heads_kv")
         elif "W" in vs and len(vs["W"]) == 2:
             if vs["W"][1] is not None:
                 modes[name] = "col"
@@ -197,9 +200,9 @@ def shard_conf(conf, modes: Dict[str, str], tp: int):
     conf = copy.deepcopy(conf)
     for name, mode in modes.items():
         layer = conf.vertices[name].layer
-        if mode == "heads":
+        if mode in ("heads", "heads_kv"):
             layer.n_heads //= tp
-            if getattr(layer, "n_kv_heads", None):
+            if getattr(layer, "n_kv_heads", None) and mode == "heads":
                 layer.n_kv_heads //= tp
             layer.n_out //= tp
         elif mode in ("col", "col_gather"):
@@ -213,9 +216,11 @@ def shard_graph(conf, modes: Dict[str, str], tp: int, params, variables,
                 device, comm):
     """The rank's graph: `shard_conf` over ``params`` (the rank's slices)
     on ``device``, each sharded layer holding ``comm`` (the rank's
-    collectives)."""
+    collectives: the partial products' all-reduce, the gather, and in
+    training the inputs' `copy_to_tp`); its steps are eager."""
     from ..nn.graph import ComputationGraph
-    g = ComputationGraph(shard_conf(conf, modes, tp), device=device)
+    g = ComputationGraph(shard_conf(conf, modes, tp), device=device,
+                         train_graphs="off")
     g.params = {name: {k: v.to(device) for k, v in lp.items()}
                 for name, lp in params.items()}
     g.variables = {name: {k: v.to(device) for k, v in lv.items()}
@@ -223,10 +228,14 @@ def shard_graph(conf, modes: Dict[str, str], tp: int, params, variables,
     g._initialized = True
     for name, mode in modes.items():
         impl = g._impls[name]
-        if mode in ("heads", "row"):
+        if mode in ("heads", "heads_kv", "row"):
             impl.tp_comm = comm
-        elif mode == "col_gather":
+        if mode == "col_gather":
             impl.tp_gather = comm
+        if mode != "row":
+            impl.tp_copy = comm
+        if mode == "heads_kv":
+            impl.tp_kv = comm
     return g
 
 

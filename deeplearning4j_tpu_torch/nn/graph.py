@@ -59,7 +59,16 @@ Data parallelism (parallel/trainer.py): the ICI master drives the train
 step's pieces on every rank itself — `_grads_on` with the rank's loss
 scale, one gradient all-reduce, `_update_` — eagerly, outside the
 captured step; parameter averaging runs the captured step locally.
-Tensor-parallel training is listed under ROADMAP A7.
+Tensor parallelism (parallel/tensor_parallel.py, ``_tp``): the training
+calls run on every rank's graph of local widths, and ``params`` /
+``updater_state`` read as the whole arrays, gathered when read after a
+step. A rank's graph (``_tp_split``, ``_tp_comm``) keeps the step's
+global sums over its split params: the l1/l2 term of the split weights
+(`_reg_loss`) and the L2 norms of gradient normalization (`_update_`,
+nn/updater/gradnorm.py) are all-reduced over the axis. ZeRO-1
+(parallel/zero.py, ``_zero``): the updater state holds this rank's
+slices, ``updater_state`` reads the whole, and the net trains under the
+ICI master.
 
 Parameters live on ``device`` (default "cuda"; it raises when no CUDA
 device is present — pass device="cpu" to run on the CPU). The attention
@@ -105,6 +114,14 @@ Tensor = torch.Tensor
 
 
 class ComputationGraph:
+    # tensor parallelism (parallel/tensor_parallel.py): the driver's
+    # TpTraining; on a rank's graph, its split params by layer and its
+    # axis communicator. ZeRO-1 (parallel/zero.py): the plan.
+    _tp = None
+    _tp_split: Optional[Dict[str, set]] = None
+    _tp_comm = None
+    _zero = None
+
     def __init__(self, conf: ComputationGraphConfiguration, *,
                  device: DeviceLike = "cuda",
                  train_graphs: Optional[str] = None):
@@ -138,6 +155,40 @@ class ComputationGraph:
     def train_graphs(self) -> str:
         return self._graphs.mode
 
+    @property
+    def params(self) -> Dict[str, Dict[str, Tensor]]:
+        """{layer: {param: tensor}}; under tensor parallelism the whole
+        arrays, gathered from the ranks when read after a step."""
+        if self._tp is not None:
+            self._tp.refresh(self)
+        return self._params
+
+    @params.setter
+    def params(self, value) -> None:
+        self._params = value
+
+    @property
+    def updater_state(self) -> Dict[str, Dict[str, Dict[str, Tensor]]]:
+        """{layer: {param: {state: tensor}}}; the whole arrays under
+        tensor parallelism and ZeRO-1 (gathered when read)."""
+        if self._tp is not None:
+            self._tp.refresh(self)
+        elif self._zero is not None:
+            return self._zero.whole(self)
+        return self._updater_state
+
+    @updater_state.setter
+    def updater_state(self, value) -> None:
+        self._updater_state = value
+
+    def _distributed_changed(self) -> None:
+        """The whole state was just set on the driver: hand it to the
+        tensor-parallel ranks, or to ZeRO-1's slices."""
+        if self._tp is not None:
+            self._tp.push(self)
+        elif self._zero is not None:
+            self._zero.reslice(self)
+
     # -- init ------------------------------------------------------------------
     def init(self, generator: Optional[torch.Generator] = None
              ) -> "ComputationGraph":
@@ -159,6 +210,7 @@ class ComputationGraph:
         self.step = 0
         self._graphs.drop()
         self._initialized = True
+        self._distributed_changed()
         return self
 
     def _check_init(self):
@@ -365,8 +417,21 @@ class ComputationGraph:
 
     def _reg_loss(self, params) -> Tensor:
         total = torch.zeros((), dtype=torch.float32, device=self.device)
+        split = self._tp_split
+        part = None
         for name, impl in self._impls.items():
-            total = total + impl.reg_loss(params[name]).float()
+            keys = split.get(name) if split else None
+            if not keys or not impl.regularized():
+                total = total + impl.reg_loss(params[name]).float()
+                continue
+            # a tensor-parallel rank: its split weights' term is summed
+            # over the axis, the replicated ones' counted once
+            total = total + impl.reg_loss(params[name], exclude=keys).float()
+            term = impl.reg_loss(params[name], only=keys).float()
+            part = term if part is None else part + term
+        if part is not None:
+            from ..parallel.tp_autograd import reduce_from_tp
+            total = total + reduce_from_tp(self._tp_comm, part)
         return total
 
     # -- train step ------------------------------------------------------------
@@ -437,15 +502,21 @@ class ComputationGraph:
                    for st in lu.values() for t in st.values()])
 
     @torch.no_grad()
-    def _update_(self, grads) -> None:
+    def _update_(self, grads, zero=None) -> None:
         """Every layer's update (JAX graph.py :275), in place, its
-        scalars from the row."""
+        scalars from the row. ``zero``: ZeRO-1's (plan, data
+        communicator), which updates this rank's slices
+        (nn/updater/apply.py)."""
         row = iter(self._graphs.row_views)
-        for name, lp in self.params.items():
+        split = self._tp_split or {}
+        for name, lp in self._params.items():
             if grads[name]:
                 update_layer_(self.conf.vertices[name].layer,
                               self._impls[name].WEIGHT_KEYS, lp, grads[name],
-                              self.updater_state[name], row)
+                              self._updater_state[name], row,
+                              split=split.get(name, ()), comm=self._tp_comm,
+                              zero=None if zero is None
+                              else (zero[0].dims[name], zero[1]))
 
     @torch.no_grad()
     def _assign_variables(self, new_vars) -> None:
@@ -486,6 +557,9 @@ class ComputationGraph:
     def _run(self, tag, args, body, row):
         """One step of ``body`` on ``args`` with the scalars ``row`` (host
         values, or a device row), captured or eager (nn/step_graph.py)."""
+        if self._zero is not None:
+            from ..parallel.zero import refuse_own_step
+            refuse_own_step()
         self._graphs.set_row(row)
         return self._graphs.run(tag, args, body, self._state_tensors(),
                                 self._gen)
@@ -502,6 +576,9 @@ class ComputationGraph:
         device until read. A solver ``optimization_algo`` trains through
         optimize/solver.py; truncated BPTT windows a time series."""
         self._check_init()
+        if self._tp is not None:
+            self._tp.call(self, "fit_batch", inputs, labels, fmasks, lmasks)
+            return
         algo = algo_of(self.conf.conf)
         ins, labs = self._as_tensors(inputs), self._as_tensors(labels)
         fms, lms = self._as_tensors(fmasks), self._as_tensors(lmasks)
@@ -561,6 +638,9 @@ class ComputationGraph:
         the batch axis of every input and label must divide evenly;
         unmasked). Returns the mean microbatch loss, on the device."""
         self._check_init()
+        if self._tp is not None:
+            return self._tp.call(self, "fit_batch_accumulated", inputs,
+                                 labels, accumulation_steps)
         algo = algo_of(self.conf.conf)
         if algo not in SGD_ALGOS or self.conf.conf.iterations > 1:
             raise ValueError(
@@ -600,6 +680,8 @@ class ComputationGraph:
         if not self._can_scan():
             raise ValueError("fit_scan requires SGD-class training "
                              "(iterations=1, scan_batches>1)")
+        if self._tp is not None:
+            return self._tp.call(self, "fit_scan", xs_list, ys_list)
         dt = input_dtype(self.dtype)
         xs = [stack_on(a, self.device, dt) for a in xs_list]
         ys = [stack_on(a, self.device, dt) for a in ys_list]
@@ -879,6 +961,7 @@ class ComputationGraph:
                 copy_into(arr, torch.as_tensor(
                     flat[off:off + n].reshape(tuple(arr.shape))))
                 off += n
+        self._distributed_changed()
 
     def set_params(self, params: Dict[str, Dict[str, Tensor]]):
         """Load ``params`` (same names and shapes) into the params in
@@ -899,6 +982,7 @@ class ComputationGraph:
                                      f"{tuple(t.shape)} vs {tuple(cur.shape)}")
                 new[name][pname] = t
         copy_into(self.params, new)
+        self._distributed_changed()
 
     def set_variables(self, variables: Dict[str, Dict[str, Any]]):
         """Load non-trainable variables ({vertex: {name: array}}, the
@@ -916,6 +1000,7 @@ class ComputationGraph:
                     raise ValueError(f"{name}.{k}: shape {tuple(t.shape)} "
                                      f"vs {tuple(cur[k].shape)}")
                 copy_into(cur[k], t)
+        self._distributed_changed()
 
     def _updater_slots(self):
         """(layer, param, state name) in the JAX flat order (graph.py
@@ -925,7 +1010,8 @@ class ComputationGraph:
                 for pname in sorted(us[name]) for sname in sorted(us[name][pname])]
 
     def updater_state_flat(self) -> np.ndarray:
-        chunks = [self.updater_state[n][p][s].detach().cpu().numpy()
+        us = self.updater_state
+        chunks = [us[n][p][s].detach().cpu().numpy()
                   .reshape(-1) for n, p, s in self._updater_slots()]
         return np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
 
@@ -933,17 +1019,19 @@ class ComputationGraph:
         self._check_init()
         flat = np.asarray(flat)
         slots = self._updater_slots()
-        total = sum(self.updater_state[n][p][s].numel() for n, p, s in slots)
+        us = self.updater_state
+        total = sum(us[n][p][s].numel() for n, p, s in slots)
         if flat.size != total:
             raise ValueError(f"Expected {total} updater values, got "
                              f"{flat.size}")
         off = 0
         for n, p, s in slots:
-            t = self.updater_state[n][p][s]
+            t = us[n][p][s]
             k = t.numel()
             copy_into(t, torch.as_tensor(
                 flat[off:off + k].reshape(tuple(t.shape))))
             off += k
+        self._distributed_changed()
 
     # -- misc ------------------------------------------------------------------
     def set_listeners(self, *listeners):

@@ -35,6 +35,7 @@ from .base import BaseRecurrentImpl, register_impl
 from .. import weights as winit
 from ...ops import helpers as ophelpers
 from ...ops.kvquant import dequantize_kv_rows, quantize_kv_rows
+from ...parallel.tp_autograd import copy_to_tp, reduce_from_tp
 
 # the overflow sentinel: an absolute position past every table bucket
 # the scheduler may present later (JAX attention.py:374)
@@ -56,10 +57,19 @@ class SelfAttentionLayerImpl(BaseRecurrentImpl):
     # a tensor-parallel rank's communicator (inference/sharding.py): the
     # conf then carries the rank's local heads, Wo its rows of them
     tp_comm = None
+    # tensor-parallel training (parallel/tp_autograd.py): the input's
+    # copy_to_tp communicator; ``tp_kv`` when the heads are split but
+    # K/V stay whole (GQA whose Hkv the axis does not divide): each rank
+    # takes its heads of the repeated K/V, and Wk/Wv's gradients are
+    # summed over the axis
+    tp_copy = None
+    tp_kv = None
 
     def _kv_heads(self) -> int:
         conf = self.conf
         kv = getattr(conf, "n_kv_heads", None)
+        if self.tp_kv is not None:
+            return kv
         if kv is None:
             return conf.n_heads
         if kv <= 0 or conf.n_heads % kv:
@@ -105,9 +115,12 @@ class SelfAttentionLayerImpl(BaseRecurrentImpl):
         H = conf.n_heads
         Dh = conf.n_out // H
         Hkv = self._kv_heads()
+        Wk, Wv = params["Wk"], params["Wv"]
+        if self.tp_kv is not None:
+            Wk, Wv = copy_to_tp(self.tp_kv, Wk), copy_to_tp(self.tp_kv, Wv)
         q = (x @ params["Wq"]).reshape(B, T, H, Dh)
-        k = (x @ params["Wk"]).reshape(B, T, Hkv, Dh)
-        v = (x @ params["Wv"]).reshape(B, T, Hkv, Dh)
+        k = (x @ Wk).reshape(B, T, Hkv, Dh)
+        v = (x @ Wv).reshape(B, T, Hkv, Dh)
         if getattr(conf, "rope", False):
             q = self._rope(q, pos0)
             k = self._rope(k, pos0)
@@ -145,7 +158,7 @@ class SelfAttentionLayerImpl(BaseRecurrentImpl):
         if self.tp_comm is not None:
             # row-split Wo: sum the ranks' partial products, then add the
             # replicated bias once
-            out = self.tp_comm.all_reduce(out)
+            out = reduce_from_tp(self.tp_comm, out)
         out = out + params["b"]
         return self.activation_fn()(out)
 
@@ -178,6 +191,12 @@ class SelfAttentionLayerImpl(BaseRecurrentImpl):
     def _expand_kv(self, a):
         """Repeat [B, T, Hkv, Dh] K/V over the n_heads query heads (head h
         reads kv-head h // G, G = H / Hkv)."""
+        if self.tp_kv is not None:
+            # this rank's heads of the whole K/V, repeated
+            H = self.conf.n_heads
+            G = H * self.tp_kv.size // a.shape[2]
+            return torch.repeat_interleave(a, G, dim=2).narrow(
+                2, self.tp_kv.rank * H, H)
         G = self.conf.n_heads // a.shape[2]
         return a if G == 1 else torch.repeat_interleave(a, G, dim=2)
 
@@ -187,7 +206,7 @@ class SelfAttentionLayerImpl(BaseRecurrentImpl):
         first — what the JAX forward does when an attention helper is
         registered (attention.py :160-168). Input dropout at train time."""
         conf = self.conf
-        x = self._dropout(x, train, gen)
+        x = copy_to_tp(self.tp_copy, self._dropout(x, train, gen))
         B, T, _ = x.shape
         q, k, v = self._qkv(params, x)
         o = ophelpers.attention(q, self._expand_kv(k), self._expand_kv(v),

@@ -158,9 +158,16 @@ class LayerImpl:
         return self.forward(params, x, train=train, gen=gen,
                             mask=mask), variables
 
-    def reg_loss(self, params: Params) -> Tensor:
-        """0.5 * l2 * sum(W^2) + l1 * sum(|W|) over WEIGHT_KEYS, in f32 or
-        wider (JAX base.py :103)."""
+    def regularized(self) -> bool:
+        """Whether the layer has an l1 or l2 term."""
+        return bool(float(getattr(self.conf, "l1", 0.0) or 0.0)
+                    or float(getattr(self.conf, "l2", 0.0) or 0.0))
+
+    def reg_loss(self, params: Params, only=None, exclude=()) -> Tensor:
+        """0.5 * l2 * sum(W^2) + l1 * sum(|W|) over WEIGHT_KEYS (those in
+        ``only``, when given, and not in ``exclude``: a tensor-parallel
+        rank's split and replicated weights), in f32 or wider (JAX
+        base.py :103)."""
         l1 = float(getattr(self.conf, "l1", 0.0) or 0.0)
         l2 = float(getattr(self.conf, "l2", 0.0) or 0.0)
         acc_dtype = torch.float32
@@ -173,7 +180,8 @@ class LayerImpl:
         if l1 == 0.0 and l2 == 0.0:
             return total
         for k in self.WEIGHT_KEYS:
-            if k in params:
+            if k in params and (only is None or k in only) \
+                    and k not in exclude:
                 w = params[k].to(acc_dtype)
                 if l2:
                     total = total + 0.5 * l2 * torch.sum(w * w)

@@ -13,14 +13,18 @@ import torch
 
 from .base import LayerImpl, register_impl
 from .. import weights as winit
+from ...parallel.tp_autograd import copy_to_tp, gather_from_tp, reduce_from_tp
 
 
 class _LinearLayer(LayerImpl):
-    # tensor-parallel decode (inference/sharding.py): a row-split layer's
+    # tensor parallelism (inference/sharding.py): a row-split layer's
     # communicator (all-reduce of the partial product before the bias),
-    # or a column-split one whose output is gathered back
+    # or a column-split one whose output is gathered back; in training
+    # also a column-split layer's input communicator (copy_to_tp,
+    # parallel/tp_autograd.py)
     tp_comm = None
     tp_gather = None
+    tp_copy = None
 
     def init_params(self, gen, dtype=torch.float32, device=torch.device("cpu")):
         conf = self.conf
@@ -41,12 +45,13 @@ class _LinearLayer(LayerImpl):
                             mask=None):
         """(activations, PRE-activation): the loss path feeds the
         pre-activation to the from-logits losses (ops/losses.py)."""
-        z = self._dropout(x, train, gen) @ params["W"]
+        z = copy_to_tp(self.tp_copy, self._dropout(x, train, gen)) \
+            @ params["W"]
         if self.tp_comm is not None:
-            z = self.tp_comm.all_reduce(z)
+            z = reduce_from_tp(self.tp_comm, z)
         z = z + params["b"]
         if self.tp_gather is not None:
-            z = self.tp_gather.all_gather_last(z)
+            z = gather_from_tp(self.tp_gather, z)
         return self.activation_fn()(z), z
 
 

@@ -58,7 +58,10 @@ Data parallelism (parallel/trainer.py): the ICI master drives the train
 step's pieces on every rank itself — `_grads_on` with the rank's loss
 scale, one gradient all-reduce, `_update_` — eagerly, outside the
 captured step; parameter averaging runs the captured step locally.
-Tensor-parallel training is listed under ROADMAP A7.
+ZeRO-1 (parallel/zero.py, ``_zero``): the updater state holds this
+rank's slices, ``updater_state`` reads the whole, and the net trains
+under the ICI master. Tensor parallelism is the ComputationGraph's
+(parallel/tensor_parallel.py).
 
 Parameters live on ``device`` (default "cuda"; it raises when no CUDA
 device is present — pass device="cpu" to run on the CPU). The conv and
@@ -97,6 +100,9 @@ from ..util.device import DeviceLike, resolve_device
 Tensor = torch.Tensor
 
 class MultiLayerNetwork:
+    _zero = None  # ZeRO-1's plan (parallel/zero.py)
+    _tp = None    # tensor parallelism is the ComputationGraph's
+
     def __init__(self, conf: MultiLayerConfiguration, *,
                  device: DeviceLike = "cuda",
                  train_graphs: Optional[str] = None):
@@ -127,6 +133,18 @@ class MultiLayerNetwork:
     def train_graphs(self) -> str:
         return self._graphs.mode
 
+    @property
+    def updater_state(self) -> List[Dict[str, Dict[str, Tensor]]]:
+        """[{param: {state: tensor}}] by layer; the whole arrays under
+        ZeRO-1 (gathered when read)."""
+        if self._zero is not None:
+            return self._zero.whole(self)
+        return self._updater_state
+
+    @updater_state.setter
+    def updater_state(self, value) -> None:
+        self._updater_state = value
+
     # ------------------------------------------------------------------ init --
     def init(self, generator: Optional[torch.Generator] = None
              ) -> "MultiLayerNetwork":
@@ -147,6 +165,8 @@ class MultiLayerNetwork:
         self.step = 0
         self._graphs.drop()
         self._initialized = True
+        if self._zero is not None:
+            self._zero.reslice(self, fresh=True)
         return self
 
     def _check_init(self):
@@ -349,13 +369,17 @@ class MultiLayerNetwork:
                    for t in st.values()])
 
     @torch.no_grad()
-    def _update_(self, grads) -> None:
-        """Every layer's update, in place, its scalars from the row."""
+    def _update_(self, grads, zero=None) -> None:
+        """Every layer's update, in place, its scalars from the row.
+        ``zero``: ZeRO-1's (plan, data communicator), which updates this
+        rank's slices (nn/updater/apply.py)."""
         row = iter(self._graphs.row_views)
         for i, lc in enumerate(self.conf.layers):
             if grads[i]:
                 update_layer_(lc, self._impls[i].WEIGHT_KEYS, self.params[i],
-                              grads[i], self.updater_state[i], row)
+                              grads[i], self._updater_state[i], row,
+                              zero=None if zero is None
+                              else (zero[0].dims[i], zero[1]))
 
     @torch.no_grad()
     def _assign_variables(self, new_vars) -> None:
@@ -394,6 +418,9 @@ class MultiLayerNetwork:
     def _run(self, tag, args, body, row):
         """One step of ``body`` on ``args`` with the scalars ``row`` (host
         values, or a device row), captured or eager (nn/step_graph.py)."""
+        if self._zero is not None:
+            from ..parallel.zero import refuse_own_step
+            refuse_own_step()
         self._graphs.set_row(row)
         return self._graphs.run(tag, args, body, self._state_tensors(),
                                 self._gen)
@@ -895,8 +922,9 @@ class MultiLayerNetwork:
         copy_into(self.params, new)
 
     def updater_state_flat(self) -> np.ndarray:
+        us = self.updater_state
         chunks = [lu[name][s].detach().cpu().numpy().reshape(-1)
-                  for lu in self.updater_state for name in sorted(lu)
+                  for lu in us for name in sorted(lu)
                   for s in sorted(lu[name])]
         return np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
 
@@ -906,7 +934,8 @@ class MultiLayerNetwork:
         flat = np.asarray(flat)
         off = 0
         new = []
-        for lu in self.updater_state:
+        us = self.updater_state
+        for lu in us:
             nlu = {}
             for name in sorted(lu):
                 nlu[name] = {}
@@ -918,7 +947,9 @@ class MultiLayerNetwork:
             new.append(nlu)
         if off != flat.size:
             raise ValueError(f"Expected {off} updater values, got {flat.size}")
-        copy_into(self.updater_state, new)
+        copy_into(us, new)
+        if self._zero is not None:
+            self._zero.reslice(self)
 
     # ------------------------------------------------------------- misc ------
     def set_listeners(self, *listeners):

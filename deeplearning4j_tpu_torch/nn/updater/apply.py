@@ -71,26 +71,42 @@ def layer_scalars(layer_conf, gconf, weight_keys, params: Dict[str, Tensor],
 @torch.no_grad()
 def update_layer_(layer_conf, weight_keys, params: Dict[str, Tensor],
                   grads: Dict[str, Tensor], ustates: Dict[str, dict],
-                  row: Iterator) -> None:
+                  row: Iterator, split=(), comm=None, zero=None) -> None:
     """One layer's update, in place: ``params`` and ``ustates`` (the
     net's own tensors) take their new values; the scalars come from
     ``row``, an iterator over the values `layer_scalars` computed for this
-    layer (0-d device tensors in the train step)."""
+    layer (0-d device tensors in the train step). ``split`` / ``comm``: a
+    tensor-parallel rank's split params and axis (gradient normalization
+    over the whole gradient). ``zero``: ZeRO-1 (parallel/zero.py), a pair
+    of this layer's {param: dim} and the data axis communicator — such a
+    param's state holds this rank's slice along the dim, so the rank
+    updates that slice of the param (the gradient normalized whole
+    first) and all-gathers the updated slices."""
     grads = apply_gradient_normalization(
         grads, layer_conf.gradient_normalization or "none",
-        layer_conf.gradient_normalization_threshold or 1.0)
+        layer_conf.gradient_normalization_threshold or 1.0, split, comm)
     updater = layer_conf.updater
     n = len(updater.scalars(0.0, 0))
     wd = _rates(layer_conf)[2]
+    dims, zcomm = zero if zero is not None else ({}, None)
     for name, g in grads.items():
         s = [next(row) for _ in range(n)]
-        p = params[name]
+        full = params[name]
+        d = dims.get(name)
+        p = full
+        if d is not None:
+            c = full.shape[d] // zcomm.size
+            p = full.narrow(d, zcomm.rank * c, c)
+            g = g.narrow(d, zcomm.rank * c, c)
         delta, new_state = updater.update(ustates[name], g, s)
         if wd and name in weight_keys:
             wlr = next(row)
             if isinstance(wlr, Tensor) and wlr.dtype != p.dtype:
                 wlr = wlr.to(p.dtype)
             delta = delta - wlr * p
-        p.add_(delta)
+        if d is None:
+            p.add_(delta)
+        else:
+            full.copy_(zcomm.all_gather(p + delta, d))
         for k, t in new_state.items():
             ustates[name][k].copy_(t)

@@ -28,27 +28,51 @@ def _l2(x: Tensor) -> Tensor:
     return torch.sqrt(torch.sum(x * x))
 
 
+def _split_sq(grads: Dict[str, Tensor], split, comm) -> Tensor:
+    """The layer's squared L2 norm on a tensor-parallel rank: the split
+    params' squared sums all-reduced over the axis, the replicated ones'
+    added once."""
+    rep = sum(torch.sum(g * g) for k, g in grads.items() if k not in split)
+    part = sum(torch.sum(g * g) for k, g in grads.items() if k in split)
+    if isinstance(part, Tensor):
+        part = comm.all_reduce(part.clone())
+    return rep + part
+
+
 def apply_gradient_normalization(grads: Dict[str, Tensor], strategy: str,
-                                 threshold: float = 1.0) -> Dict[str, Tensor]:
+                                 threshold: float = 1.0, split=(),
+                                 comm=None) -> Dict[str, Tensor]:
+    """``split``: the params of ``grads`` that a tensor-parallel rank
+    holds a slice of; their norms are taken over the whole gradient,
+    all-reduced over ``comm`` (the axis) before they divide."""
     s = (strategy or NONE).lower()
     if s == NONE:
         return grads
+    split = set(split) & set(grads) if comm is not None else set()
     if s in (RENORMALIZE_L2_PER_LAYER, CLIP_L2_PER_LAYER):
-        total = torch.sqrt(sum(torch.sum(g * g) for g in grads.values())
-                           + _EPS)
+        if split:
+            total = torch.sqrt(_split_sq(grads, split, comm) + _EPS)
+        else:
+            total = torch.sqrt(sum(torch.sum(g * g)
+                                   for g in grads.values()) + _EPS)
         if s == RENORMALIZE_L2_PER_LAYER:
             return {k: g / total for k, g in grads.items()}
         scale = torch.where(total > threshold, threshold / total, 1.0)
         return {k: g * scale for k, g in grads.items()}
+
+    def l2(k, g):
+        if k in split:
+            return torch.sqrt(comm.all_reduce(torch.sum(g * g)))
+        return _l2(g)
     if s == RENORMALIZE_L2_PER_PARAM_TYPE:
-        return {k: g / (_l2(g) + _EPS) for k, g in grads.items()}
+        return {k: g / (l2(k, g) + _EPS) for k, g in grads.items()}
     if s == CLIP_ELEMENT_WISE_ABSOLUTE_VALUE:
         return {k: torch.clamp(g, -threshold, threshold)
                 for k, g in grads.items()}
     if s == CLIP_L2_PER_PARAM_TYPE:
         out = {}
         for k, g in grads.items():
-            n = _l2(g) + _EPS
+            n = l2(k, g) + _EPS
             out[k] = g * torch.where(n > threshold, threshold / n, 1.0)
         return out
     raise ValueError(f"Unknown gradient normalization '{strategy}'. "

@@ -25,8 +25,11 @@ the rank's own shard, with the same collectives in the same order.
 
 Every collective is counted per process in `COUNTS`: ``all_reduce``,
 ``all_gather``, ``broadcast_command`` (one a dispatch) and
-``broadcast_data``, like `ops.cuda_kernels.LAUNCHES` counts kernel
-launches (`inference/sharding.collective_counts` reads them).
+``broadcast_data``, and the point-to-point and exchange collectives
+``send``, ``recv`` and ``all_to_all``, like `ops.cuda_kernels.LAUNCHES`
+counts kernel launches (`inference/sharding.collective_counts` reads
+them). A collective on an axis communicator is also counted as
+``"<kind>@<axis>"`` (a 1-D mesh's own collectives under its axis).
 
 A follower that dies makes the driver's next collective raise (gloo
 reports the closed connection at once), and the driver checks that every
@@ -38,9 +41,24 @@ collectives are no-ops.
 
 Axis names follow the JAX package: "data" (data parallelism), "model"
 (tensor parallelism in training), "seq", "pipe", "expert", and the
-decode engine's "tp" (`inference/sharding.TP_AXIS`). Only 1-D meshes
-exist in this slice: `make_mesh` takes one axis; `hybrid_mesh` and
-`mesh_2d` are listed in ROADMAP.md (A7).
+decode engine's "tp" (`inference/sharding.TP_AXIS`).
+
+Meshes of more than one axis (`make_mesh`, `mesh_2d`, `hybrid_mesh`):
+the ranks lie in row-major order over the axes, as JAX reshapes
+``devices[:total]`` (JAX mesh.py :45-53), so rank r sits at
+``np.unravel_index(r, shape)``. The geometry is known before `start()`.
+Each axis has a communicator (`axis_comm(axis)`): the ranks that share
+every other coordinate with this one, as a process group of their own,
+gloo or NCCL by `backend_for` over the group's devices, rendezvousing
+through a `PrefixStore` of the mesh's `FileStore`. Every rank builds its
+groups at start, axis by axis in the mesh's axis order, so the
+rendezvous cannot hang. A 1-D mesh's axis communicator is the mesh.
+
+Routes of the exchange collectives. ``send`` / ``recv`` / ``exchange``
+and ``all_to_all`` run on the group's own tensors under NCCL (a CPU
+tensor travels through the rank's card); under gloo a CUDA tensor is
+staged through a host copy (gloo's point-to-point and all-to-all move
+host memory), as `broadcast_data` stages a CPU tensor under NCCL.
 """
 from __future__ import annotations
 
@@ -76,6 +94,10 @@ STATS: Dict[str, float] = {}
 COUNTS: collections.Counter = collections.Counter()
 COLLECTIVE_KINDS = ("all_reduce", "all_gather", "broadcast_command",
                     "broadcast_data")
+#: the point-to-point and exchange collectives (GPipe, ring attention,
+#: MoE), counted beside those
+EXCHANGE_KINDS = ("send", "recv", "all_to_all")
+ALL_KINDS = COLLECTIVE_KINDS + EXCHANGE_KINDS
 
 # command ops of the loop itself; services number theirs from 16
 OP_NOOP, OP_STOP, OP_RESIZE, OP_ATTACH, OP_DETACH = 0, 1, 2, 3, 4
@@ -129,16 +151,57 @@ def set_backend_flags(flags: Dict[str, bool]) -> None:
     torch.backends.cudnn.benchmark = flags["cudnn_benchmark"]
 
 
-def _make_pg(path: str, rank: int, size: int, backend: str,
-             timeout: float):
+def _pg_on(store, rank: int, size: int, backend: str, timeout: float):
     import torch.distributed as dist
-    store = dist.FileStore(path, size)
     td = datetime.timedelta(seconds=float(timeout))
     if backend == "nccl":
         opts = dist.ProcessGroupNCCL.Options()
         opts._timeout = td
         return dist.ProcessGroupNCCL(store, rank, size, opts)
     return dist.ProcessGroupGloo(store, rank, size, td)
+
+
+def _make_pg(path: str, rank: int, size: int, backend: str,
+             timeout: float):
+    """(the mesh's process group, its store)."""
+    import torch.distributed as dist
+    store = dist.FileStore(path, size)
+    return _pg_on(store, rank, size, backend, timeout), store
+
+
+def _grid(shape: Dict[str, int]) -> np.ndarray:
+    return np.arange(int(np.prod(list(shape.values())))).reshape(
+        [int(v) for v in shape.values()])
+
+
+def axis_group(shape: Dict[str, int], axis: str, rank: int) -> List[int]:
+    """The ranks of ``rank``'s group on ``axis``: those that share every
+    other coordinate with it, in order along the axis."""
+    names = list(shape)
+    d = names.index(axis)
+    grid = _grid(shape)
+    idx = list(np.unravel_index(rank, grid.shape))
+    idx[d] = slice(None)
+    return [int(r) for r in grid[tuple(idx)]]
+
+
+def _make_axis_comms(store, rank: int, shape: Dict[str, int], devices,
+                     timeout: float) -> Dict[str, "_AxisComm"]:
+    """This rank's communicator on every axis of a mesh of more than one
+    axis, built axis by axis in the mesh's order (every rank the same
+    order), each over a `PrefixStore` of the mesh's store."""
+    import torch.distributed as dist
+    out: Dict[str, _AxisComm] = {}
+    if len(shape) < 2:
+        return out
+    for axis in shape:
+        ranks = axis_group(shape, axis, rank)
+        backend = backend_for([devices[r] for r in ranks])
+        prefix = f"axis/{axis}/" + "-".join(str(r) for r in ranks)
+        pg = _pg_on(dist.PrefixStore(prefix, store), ranks.index(rank),
+                    len(ranks), backend, timeout)
+        out[axis] = _AxisComm(pg, axis, ranks, rank, devices[rank], backend)
+    return out
 
 
 class Command:
@@ -163,14 +226,85 @@ class _Comm:
     device: torch.device = torch.device("cpu")
     backend: str = "gloo"
     _pg = None
+    #: the axis this communicator's collectives are also counted under
+    axis_label: Optional[str] = None
+
+    def _count(self, kind: str) -> None:
+        COUNTS[kind] += 1
+        if self.axis_label is not None:
+            COUNTS[f"{kind}@{self.axis_label}"] += 1
 
     def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
         """Sum ``t`` over the ranks, in place; returns ``t``."""
         if self.size == 1:
             return t
-        COUNTS["all_reduce"] += 1
+        self._count("all_reduce")
         self._pg.allreduce([t]).wait()
         return t
+
+    # -- point to point and exchanges (see the module docstring's routes) --
+    def _wire(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` as the backend moves it: on the rank's card under NCCL,
+        in host memory under gloo."""
+        t = t.contiguous()
+        if self.backend == "nccl":
+            return t if t.device.type == "cuda" else t.to(self.device)
+        return t if t.device.type == "cpu" else t.cpu()
+
+    def send(self, t: torch.Tensor, dst: int, tag: int = 0) -> None:
+        """Send ``t`` to rank ``dst`` of this communicator."""
+        self._count("send")
+        self._pg.send([self._wire(t)], int(dst), tag).wait()
+
+    def recv(self, shape, dtype, src: int, device=None,
+             tag: int = 0) -> torch.Tensor:
+        """A tensor of ``shape`` / ``dtype`` from rank ``src``, on
+        ``device`` (default this rank's)."""
+        self._count("recv")
+        dev = self.device if device is None else torch.device(device)
+        buf = torch.empty(tuple(shape), dtype=dtype,
+                          device=self.device if self.backend == "nccl"
+                          else "cpu")
+        self._pg.recv([buf], int(src), tag).wait()
+        return buf.to(dev)
+
+    def exchange(self, t: torch.Tensor, dst: int, src: int,
+                 tag: int = 0) -> torch.Tensor:
+        """Send ``t`` to ``dst`` and receive a tensor of its shape from
+        ``src`` at once (a ring's rotation): one ``send`` and one
+        ``recv``. Under NCCL the even ranks send first, so that a ring
+        of blocking sends never waits on itself."""
+        self._count("send")
+        self._count("recv")
+        out = self._wire(t)
+        buf = torch.empty_like(out)
+        if self.backend == "nccl" and self.rank % 2:
+            self._pg.recv([buf], int(src), tag).wait()
+            self._pg.send([out], int(dst), tag).wait()
+        else:
+            w = self._pg.send([out], int(dst), tag)
+            self._pg.recv([buf], int(src), tag).wait()
+            w.wait()
+        return buf.to(t.device)
+
+    def all_to_all(self, t: torch.Tensor, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """JAX's tiled ``all_to_all``: ``t`` cut into ``size`` chunks
+        along ``split_dim``, chunk j to rank j, and the chunks received
+        from ranks 0..n-1 concatenated along ``concat_dim``, on ``t``'s
+        device."""
+        if self.size == 1:
+            return t
+        self._count("all_to_all")
+        n = self.size
+        if t.shape[split_dim] % n:
+            raise ValueError(f"all_to_all: dim {split_dim} of size "
+                             f"{t.shape[split_dim]} does not split into "
+                             f"{n} ranks")
+        inp = self._wire(torch.stack(t.chunk(n, split_dim)))
+        out = torch.empty_like(inp)
+        self._pg.alltoall_base(out, inp, [], []).wait()
+        return torch.cat(out.unbind(0), dim=concat_dim).to(t.device)
 
     def all_gather_last(self, t: torch.Tensor) -> torch.Tensor:
         """The ranks' ``t`` concatenated along the last axis, rank order."""
@@ -182,7 +316,7 @@ class _Comm:
         rank's card)."""
         if self.size == 1:
             return t
-        COUNTS["all_gather"] += 1
+        self._count("all_gather")
         src = t.contiguous()
         if self.backend == "nccl" and src.device.type != "cuda":
             src = src.to(self.device)
@@ -194,7 +328,7 @@ class _Comm:
         """Rank 0's ``t`` into every rank's ``t``, in place."""
         if self.size == 1:
             return t
-        COUNTS["broadcast_data"] += 1
+        self._count("broadcast_data")
         if self.backend == "nccl" and t.device.type != "cuda":
             d = t.to(self.device)
             self._pg.broadcast(d, 0).wait()
@@ -219,32 +353,95 @@ class _Comm:
         self._pg.allgather([outs], [own]).wait()
         return outs
 
-    def _counts_vector(self) -> torch.Tensor:
-        return torch.tensor([COUNTS[k] for k in COLLECTIVE_KINDS],
+    def _count_keys(self, by_axis: bool) -> List[str]:
+        if not by_axis:
+            return list(COLLECTIVE_KINDS)
+        return list(ALL_KINDS) + [f"{k}@{a}" for a in self.axis_names
+                                  for k in ALL_KINDS]
+
+    def _counts_vector(self, by_axis: bool = False) -> torch.Tensor:
+        return torch.tensor([COUNTS[k] for k in self._count_keys(by_axis)],
                             dtype=torch.int64)
 
-    def _gather_counts(self, own: torch.Tensor) -> List[Dict[str, int]]:
-        return [dict(zip(COLLECTIVE_KINDS, (int(v) for v in o)))
+    def _gather_counts(self, own: torch.Tensor,
+                       by_axis: bool = False) -> List[Dict[str, int]]:
+        keys = self._count_keys(by_axis)
+        return [dict(zip(keys, (int(v) for v in o)))
                 for o in self._gather_vec(own)]
+
+    # -- geometry ----------------------------------------------------------
+    axis_names: tuple = ()
+    shape: Dict[str, int] = {}
+    _axis_comms: Dict[str, "_AxisComm"] = {}
+
+    def coords(self, rank: Optional[int] = None) -> Dict[str, int]:
+        """Rank ``rank``'s (default this rank's) coordinate on each axis."""
+        r = self.rank if rank is None else int(rank)
+        idx = np.unravel_index(r, [self.shape[a] for a in self.axis_names])
+        return {a: int(i) for a, i in zip(self.axis_names, idx)}
+
+    def on_axis_of_rank0(self, axis: str) -> bool:
+        """Whether this rank shares rank 0's coordinates off ``axis``: the
+        group on ``axis`` that the driver's work (ring attention, GPipe,
+        MoE) runs on; the other groups sit it out."""
+        return all(v == 0 for a, v in self.coords().items() if a != axis)
+
+    def axis_comm(self, axis: str) -> "_Comm":
+        """This rank's communicator on ``axis`` (see the module
+        docstring); a 1-D mesh is its own axis communicator."""
+        if axis not in self.axis_names:
+            raise ValueError(f"mesh has no axis {axis!r} (axes: "
+                             f"{self.axis_names})")
+        if len(self.axis_names) == 1:
+            return self
+        comm = self._axis_comms.get(axis)
+        if comm is None:
+            if self.size == 1 or self.shape[axis] == 1:
+                return _AxisComm(None, axis, [self.rank], self.rank,
+                                 self.device, self.backend)
+            raise MeshError("the mesh is not started (or was killed)")
+        return comm
+
+
+class _AxisComm(_Comm):
+    """One rank's communicator on one axis of a mesh: ``rank`` is its
+    coordinate on the axis, ``size`` the axis size, ``ranks`` the group's
+    mesh ranks; every collective is also counted as ``"<kind>@<axis>"``."""
+
+    def __init__(self, pg, axis: str, ranks: List[int], mesh_rank: int,
+                 device: torch.device, backend: str):
+        self._pg = pg
+        self.axis_label = axis
+        self.ranks = list(ranks)
+        self.rank = self.ranks.index(mesh_rank)
+        self.size = len(self.ranks)
+        self.device = device
+        self.backend = backend
 
 
 class _Follower(_Comm):
     """Rank r > 0 inside its own process: receives commands."""
 
-    def __init__(self, pg, rank, size, device, backend, cmd_len):
+    def __init__(self, pg, rank, size, device, backend, cmd_len,
+                 shape=None, axis_comms=None):
         self._pg = pg
         self.rank = rank
         self.size = size
         self.device = device
         self.backend = backend
         self._cmd_len = cmd_len
+        self.shape = dict(shape or {})
+        self.axis_names = tuple(self.shape)
+        self.axis_label = (self.axis_names[0]
+                           if len(self.axis_names) == 1 else None)
+        self._axis_comms = dict(axis_comms or {})
 
     def recv_command(self) -> Command:
         buf = torch.zeros(self._cmd_len, dtype=torch.int32)
         if self.backend == "nccl":
             buf = buf.to(self.device)
         self._pg.broadcast(buf, 0).wait()
-        COUNTS["broadcast_command"] += 1
+        self._count("broadcast_command")
         return Command(buf.cpu().numpy())
 
 
@@ -277,7 +474,8 @@ def _load(path: str) -> Callable:
 
 def _follower_main(rank: int, size: int, store_path: str, device: str,
                    backend: str, timeout: float, cmd_len: int,
-                   flags: Dict[str, bool]) -> None:
+                   flags: Dict[str, bool], shape: Dict[str, int],
+                   devices: List[str]) -> None:
     """A follower process: join the group, then execute commands until
     ``STOP``. A service that raises ends the process (the driver's next
     collective then fails), after printing the traceback."""
@@ -287,8 +485,10 @@ def _follower_main(rank: int, size: int, store_path: str, device: str,
         torch.set_num_threads(1)
     else:
         torch.cuda.set_device(dev)
-    pg = _make_pg(store_path, rank, size, backend, timeout)
-    me = _Follower(pg, rank, size, dev, backend, cmd_len)
+    pg, store = _make_pg(store_path, rank, size, backend, timeout)
+    comms = _make_axis_comms(store, rank, shape,
+                             [_norm_device(d) for d in devices], timeout)
+    me = _Follower(pg, rank, size, dev, backend, cmd_len, shape, comms)
     services: Dict[int, Any] = {}
     try:
         while True:
@@ -312,11 +512,16 @@ def _follower_main(rank: int, size: int, store_path: str, device: str,
             elif op == OP_COUNTS_RESET:
                 COUNTS.clear()
             elif op == OP_COUNTS_QUERY:
-                own = me._counts_vector()
+                by_axis = bool(cmd.args[0])
+                own = me._counts_vector(by_axis)
                 # the query's own command broadcast is not part of what
                 # was measured
-                own[COLLECTIVE_KINDS.index("broadcast_command")] -= 1
-                me._gather_counts(own)
+                keys = me._count_keys(by_axis)
+                for k in ("broadcast_command",
+                          f"broadcast_command@{me.axis_label}"):
+                    if k in keys:
+                        own[keys.index(k)] -= 1
+                me._gather_counts(own, by_axis)
             elif op == OP_LAUNCHES_RESET:
                 _launches_reset()
             elif op == OP_LAUNCHES_QUERY:
@@ -337,23 +542,32 @@ _LIVE: "weakref.WeakSet[ProcessMesh]" = weakref.WeakSet()
 
 
 class ProcessMesh(_Comm):
-    """A 1-D mesh of ``n`` ranks over ``devices`` (one a rank; rank 0 is
-    this process, on ``devices[0]``). Default devices: ``cuda:0`` ..
-    ``cuda:n-1``, which raises when the machine has fewer cards; ranks
-    sharing a card (``["cuda:0"] * n``) and CPU ranks (``["cpu"] * n``)
-    are the caller's explicit choice. ``timeout`` (seconds): the process
-    group's timeout, for the rendezvous and every collective.
+    """A mesh of ``n`` ranks over ``devices`` (one a rank; rank 0 is this
+    process, on ``devices[0]``): 1-D over ``axis``, or over the axes of
+    ``shape`` (``{axis: size}``, whose sizes multiply to ``n``; ranks in
+    row-major order). Default devices: ``cuda:0`` .. ``cuda:n-1``, which
+    raises when the machine has fewer cards; ranks sharing a card
+    (``["cuda:0"] * n``) and CPU ranks (``["cpu"] * n``) are the caller's
+    explicit choice. ``timeout`` (seconds): the process group's timeout,
+    for the rendezvous and every collective.
 
     The followers start at the first `start()` (an engine or a master
     starts the mesh it is given), and again after `kill()` or a dead
     follower; `close()` stops them. ``shape`` and ``axis_names`` read as
-    a JAX mesh's do."""
+    a JAX mesh's do; `rank_grid` is the ranks laid out on the axes, as a
+    JAX mesh's ``devices`` array."""
 
     def __init__(self, n: int, devices: Optional[Sequence] = None,
-                 axis: str = DATA_AXIS, timeout: float = 300.0):
+                 axis: str = DATA_AXIS, timeout: float = 300.0,
+                 shape: Optional[Dict[str, int]] = None):
         n = int(n)
         if n < 1:
             raise ValueError(f"a mesh needs >= 1 rank, got {n}")
+        if shape is None:
+            shape = {axis: n}
+        shape = {str(a): int(v) for a, v in shape.items()}
+        if int(np.prod(list(shape.values()))) != n:
+            raise ValueError(f"mesh shape {shape} does not hold {n} ranks")
         if devices is None:
             devices = [f"cuda:{i}" for i in range(n)]
         devs = [_norm_device(d) for d in devices]
@@ -371,8 +585,12 @@ class ProcessMesh(_Comm):
         self.devices = devs
         self.device = devs[0]
         self.rank = 0
-        self.axis_names = (axis,)
-        self.shape = {axis: n}
+        self.axis_names = tuple(shape)
+        self.shape = shape
+        self.axis_label = (self.axis_names[0]
+                           if len(self.axis_names) == 1 else None)
+        self._axis_comms = {}
+        self._store = None
         self.backend = backend_for(devs)
         self.timeout = float(timeout)
         self._pg = None
@@ -382,12 +600,25 @@ class ProcessMesh(_Comm):
         self._lock = threading.RLock()
         self._last = time.monotonic()
         self._next_service = 1
+        self._services: Dict[str, tuple] = {}
         self._keepalive: Optional[threading.Thread] = None
         self._closed = threading.Event()
         self.starts = 0  # times the followers were started
 
+    @property
+    def rank_grid(self) -> np.ndarray:
+        """The mesh's ranks laid out on its axes (row-major)."""
+        return _grid(self.shape)
+
+    def axis_groups(self, axis: str) -> List[List[int]]:
+        """The groups of ``axis``: one rank list per fixed position of
+        the other axes, in order along the axis."""
+        grid = np.moveaxis(self.rank_grid, self.axis_names.index(axis), -1)
+        return [[int(r) for r in row]
+                for row in grid.reshape(-1, self.shape[axis])]
+
     def __repr__(self) -> str:
-        return (f"ProcessMesh({self.shape}, devices="
+        return (f"ProcessMesh({dict(self.shape)}, devices="
                 f"{[str(d) for d in self.devices]}, backend={self.backend})")
 
     # -- lifecycle ---------------------------------------------------------
@@ -412,7 +643,8 @@ class ProcessMesh(_Comm):
             self._procs = [ctx.Process(
                 target=_follower_main,
                 args=(r, self.size, path, str(self.devices[r]), self.backend,
-                      self.timeout, self._cmd_len, backend_flags()),
+                      self.timeout, self._cmd_len, backend_flags(),
+                      dict(self.shape), [str(d) for d in self.devices]),
                 daemon=True)
                 for r in range(1, self.size)]
             for p in self._procs:
@@ -420,8 +652,10 @@ class ProcessMesh(_Comm):
             try:
                 if self.device.type == "cuda":
                     torch.cuda.set_device(self.device)
-                self._pg = _make_pg(path, 0, self.size, self.backend,
-                                    self.timeout)
+                self._pg, self._store = _make_pg(path, 0, self.size,
+                                                 self.backend, self.timeout)
+                self._axis_comms = _make_axis_comms(
+                    self._store, 0, self.shape, self.devices, self.timeout)
             except BaseException:
                 self.kill()
                 raise
@@ -463,6 +697,9 @@ class ProcessMesh(_Comm):
                 p.join(timeout=10)
             self._procs = []
             self._pg = None
+            self._axis_comms = {}
+            self._store = None
+            self._services = {}
             if self._dir is not None:
                 shutil.rmtree(self._dir, ignore_errors=True)
                 self._dir = None
@@ -514,7 +751,7 @@ class ProcessMesh(_Comm):
             buf = buf.to(self.device)
         self._pg.broadcast(buf, 0).wait()
         if count:
-            COUNTS["broadcast_command"] += 1
+            self._count("broadcast_command")
         self._last = time.monotonic()
 
     def _resize(self, need: int) -> None:
@@ -556,6 +793,36 @@ class ProcessMesh(_Comm):
             self.broadcast_bytes(data, len(data))
             return sid
 
+    def service(self, factory: str, payload: Any = None) -> int:
+        """The id of a service built from ``factory`` on the followers of
+        the running mesh, attached at its first request (with
+        ``payload``) and kept until the followers stop: the shared
+        services of `ring`, `pipeline` and `moe`, whose work comes with
+        each command."""
+        with self._lock:
+            self.start()
+            got = self._services.get(factory)
+            if got is not None and got[1] == self.starts:
+                return got[0]
+            sid = self.attach(factory, payload)
+            self._services[factory] = (sid, self.starts)
+            return sid
+
+    def run_service(self, factory: str, op: int, data: Any,
+                    fn: Callable[[], Any]) -> Any:
+        """One piece of work on every rank: the command ``op`` to the
+        followers' shared service ``factory`` (`service`) with ``data``
+        (one data broadcast of its pickle), then ``fn()`` here. A size-1
+        mesh just runs ``fn()``."""
+        if self.size == 1:
+            return fn()
+        with self._lock:
+            sid = self.service(factory)
+            blob = pickle.dumps(data, protocol=pickle.HIGHEST_PROTOCOL)
+            self.command(op, sid, (len(blob),))
+            self.broadcast_bytes(blob, len(blob))
+            return fn()
+
     def detach(self, service: int) -> None:
         """Drop a service on the followers (a no-op on a dead mesh)."""
         with self._lock:
@@ -572,15 +839,18 @@ class ProcessMesh(_Comm):
             self.command(OP_COUNTS_RESET, 0)
             COUNTS.clear()
 
-    def query_counts(self) -> List[Dict[str, int]]:
+    def query_counts(self, by_axis: bool = False) -> List[Dict[str, int]]:
         """Every rank's `COUNTS` (rank order), as they stood before this
-        query."""
+        query: the four kinds of `COLLECTIVE_KINDS`, or with ``by_axis``
+        every kind and every ``"<kind>@<axis>"`` of the mesh's axes."""
         with self._lock:
-            own = self._counts_vector()
+            own = self._counts_vector(by_axis)
             if self.size == 1:
-                return [dict(zip(COLLECTIVE_KINDS, (int(v) for v in own)))]
-            self._send(OP_COUNTS_QUERY, 0, (), None, count=False)
-            return self._gather_counts(own)
+                return [dict(zip(self._count_keys(by_axis),
+                                 (int(v) for v in own)))]
+            self._send(OP_COUNTS_QUERY, 0, (int(by_axis),), None,
+                       count=False)
+            return self._gather_counts(own, by_axis)
 
 
     def reset_launches(self) -> None:
@@ -610,7 +880,10 @@ class ProcessMesh(_Comm):
                 data = pickle.dumps(names)
                 self._send(OP_STATS_QUERY, 0, (len(data),), None,
                            count=False)
-                COUNTS["broadcast_data"] -= 1  # a query, not traffic
+                # a query, not traffic
+                COUNTS["broadcast_data"] -= 1
+                if self.axis_label is not None:
+                    COUNTS[f"broadcast_data@{self.axis_label}"] -= 1
                 self.broadcast_bytes(data, len(data))
                 vecs = self._gather_vec(own)
             else:
@@ -642,11 +915,59 @@ def default_mesh(n_devices: Optional[int] = None,
 
 def make_mesh(shape: dict, devices: Optional[Sequence] = None,
               timeout: float = 300.0) -> ProcessMesh:
-    """A mesh from ``{axis: size}``: one axis in this slice (2-D and
-    hybrid meshes are ROADMAP A7)."""
-    if len(shape) != 1:
-        raise NotImplementedError(
-            f"mesh {shape}: only 1-D meshes are ported (2-D and hybrid "
-            "meshes are listed under ROADMAP A7)")
-    (axis, n), = shape.items()
-    return ProcessMesh(int(n), devices, axis=axis, timeout=timeout)
+    """A mesh from ``{axis: size}`` (JAX :45-53): the sizes multiply to
+    the rank count, the ranks in row-major order over the axes; default
+    devices ``cuda:0`` .. ``cuda:n-1`` (see `ProcessMesh`)."""
+    if not shape:
+        raise ValueError("a mesh needs at least one axis")
+    sizes = {str(a): int(v) for a, v in shape.items()}
+    if any(v < 1 for v in sizes.values()):
+        raise ValueError(f"mesh {shape}: every axis needs >= 1 rank")
+    n = int(np.prod(list(sizes.values())))
+    if len(sizes) == 1:
+        (axis, _), = sizes.items()
+        return ProcessMesh(n, devices, axis=axis, timeout=timeout)
+    return ProcessMesh(n, devices, timeout=timeout, shape=sizes)
+
+
+def mesh_2d(data: int, model: int,
+            axes: Sequence[str] = (DATA_AXIS, MODEL_AXIS),
+            devices: Optional[Sequence] = None,
+            timeout: float = 300.0) -> ProcessMesh:
+    """A ``data`` x ``model`` mesh (JAX :35-42)."""
+    a, b = axes
+    return make_mesh({a: int(data), b: int(model)}, devices, timeout)
+
+
+def hybrid_mesh(dcn_shape: dict, ici_shape: dict,
+                devices: Optional[Sequence] = None,
+                timeout: float = 300.0) -> ProcessMesh:
+    """A multi-slice mesh (JAX :56-111): the ``dcn_shape`` axes outermost
+    (across slices), the ``ici_shape`` axes within one. Axis names must
+    be unique across both; the geometry must fit ``devices`` (default:
+    the machine's cards, or the CPU ranks of ``devices``). One host is one
+    slice, so contiguous blocks of ``prod(ici_shape)`` ranks stand in for
+    the slices (JAX's pseudo-slice branch), with JAX's warning when more
+    than one slice is asked for."""
+    dcn_axes, ici_axes = tuple(dcn_shape), tuple(ici_shape)
+    overlap = set(dcn_axes) & set(ici_axes)
+    if overlap:
+        raise ValueError(f"axis names must be unique across dcn/ici: "
+                         f"{overlap}")
+    n_slices = int(np.prod([int(s) for s in dcn_shape.values()]))
+    per_slice = int(np.prod([int(s) for s in ici_shape.values()]))
+    have = (len(devices) if devices is not None else
+            (torch.cuda.device_count() if torch.cuda.is_available() else 0))
+    if n_slices * per_slice > have:
+        raise ValueError(f"hybrid mesh {dcn_shape}x{ici_shape} needs "
+                         f"{n_slices * per_slice} devices, have {have}")
+    if n_slices > 1:
+        import warnings
+        warnings.warn(
+            f"hybrid_mesh: requested {n_slices} slices but only one "
+            f"real slice is present — falling back to pseudo-slice "
+            f"contiguous blocks, so the '{'/'.join(dcn_axes)}' DCN "
+            f"axis actually rides ICI. Fine for tests; on real "
+            f"hardware check the pod topology.", stacklevel=2)
+    devs = None if devices is None else list(devices)[:n_slices * per_slice]
+    return make_mesh({**dcn_shape, **ici_shape}, devs, timeout)

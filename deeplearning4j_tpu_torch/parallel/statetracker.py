@@ -305,9 +305,12 @@ def _snapshot(net):
         return t
 
     snap = object.__new__(type(net))
+    # a tensor-parallel or ZeRO-1 net's whole state is read here, on the
+    # training thread; the snapshot keeps no tie to the ranks
     snap.__dict__.update({k: v for k, v in net.__dict__.items()
                           if k not in ("params", "updater_state",
-                                       "variables")})
+                                       "variables", "_params",
+                                       "_updater_state", "_tp", "_zero")})
     snap.params = leaf(net.params)
     snap.updater_state = leaf(net.updater_state)
     snap.variables = leaf(net.variables)

@@ -39,6 +39,17 @@ minibatch of zero-weight fill entirely; then one flat all-reduce averages
 parameters, variables and updater state, and sums the example-weighted
 loss. BatchNorm statistics stay local, as under the JAX shard_map.
 
+Meshes of more than one axis (JAX :175-232): the ICI master splits the
+batch over the ``data`` axis only, padded to a multiple of the whole
+mesh's size as JAX pads it, and all-reduces the flat gradient over the
+``data`` group (`_data_comm`); the ranks of the other axes repeat their
+data row's work. A net made tensor-parallel on the same mesh
+(`tensor_parallel.shard_transformer_tp`) keeps its split — JAX's
+``keep_or_repl`` — and each rank steps its tp graph (the tp service takes
+the master's commands); anything else is replicated. A net whose updater
+state ZeRO-1 sharded (`zero.shard_updater_state`) updates only each data
+rank's slice and all-gathers the updated params (`nn/updater/apply.py`).
+
 Fault tolerance (JAX :152-245, :264-466; `parallel/statetracker.py`):
 ``state_tracker`` checkpoints from the driver, whose net holds the job's
 state — the ICI master after every step (cursor ``master_batches``), the
@@ -60,12 +71,24 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from .mesh import (SERVICE_OPS, STATS, MeshError, ProcessMesh,
+from .mesh import (DATA_AXIS, SERVICE_OPS, STATS, MeshError, ProcessMesh,
                    backend_flags, default_mesh, set_backend_flags)
 from .stats import SparkTrainingStats, phase_timer
 
-OP_SYNC, OP_ICI_STEP, OP_PA_ROUND, OP_EVAL, OP_SCORE = range(
-    SERVICE_OPS, SERVICE_OPS + 5)
+OP_SYNC, OP_ICI_STEP, OP_PA_ROUND, OP_EVAL, OP_SCORE, OP_ZERO_GATHER = \
+    range(SERVICE_OPS, SERVICE_OPS + 6)
+
+
+def _data_comm(comm):
+    """The communicator the ICI step shards the batch and all-reduces the
+    gradient over: a 1-D mesh itself (whatever its axis), else the rank's
+    ``data`` group."""
+    if len(comm.axis_names) <= 1:
+        return comm
+    if DATA_AXIS not in comm.axis_names:
+        raise ValueError(f"a mesh of axes {comm.axis_names} has no "
+                         f"'{DATA_AXIS}' axis to split the batch over")
+    return comm.axis_comm(DATA_AXIS)
 
 
 class TrainingMaster:
@@ -180,20 +203,38 @@ def _state_tree(net):
             "updater_state": net.updater_state}
 
 
+def _cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _cpu(v) for k, v in tree.items()}
+    return [_cpu(v) for v in tree]
+
+
 def _state_payload(net) -> Dict[str, Any]:
-    def cpu(tree):
-        if isinstance(tree, torch.Tensor):
-            return tree.detach().cpu()
-        if isinstance(tree, dict):
-            return {k: cpu(v) for k, v in tree.items()}
-        return [cpu(v) for v in tree]
-    return {"state": cpu(_state_tree(net)), "step": int(net.step),
-            "flags": backend_flags()}
+    """Rank 0's state for the followers' replicas; a ZeRO-1 net sends its
+    plan, and its whole updater state only when the ranks do not hold
+    their slices of it yet (`zero.ZeroPlan.pending`)."""
+    zero = net._zero
+    if zero is None:
+        return {"state": _cpu(_state_tree(net)), "step": int(net.step),
+                "flags": backend_flags()}
+    return {"state": {"params": _cpu(net.params),
+                      "variables": _cpu(net.variables)},
+            "step": int(net.step), "flags": backend_flags(),
+            "zero": zero.spec(), "whole_updater": zero.take_pending()}
 
 
-def _load_state(net, payload) -> None:
+def _load_state(net, payload, data_rank: int = 0) -> None:
     from ..nn.step_graph import copy_into
-    copy_into(_state_tree(net), payload["state"])
+    if "zero" in payload:
+        from .zero import follow_plan
+        copy_into(net.params, payload["state"]["params"])
+        copy_into(net.variables, payload["state"]["variables"])
+        follow_plan(net, payload["zero"], payload["whole_updater"],
+                    data_rank)
+    else:
+        copy_into(_state_tree(net), payload["state"])
     net.step = int(payload["step"])
     set_backend_flags(payload["flags"])
 
@@ -281,7 +322,12 @@ def _ici_step(net, comm, batch) -> torch.Tensor:
     grads = fill(grads)
     loss = summed[-1].reshape(()).float()
     net._graphs.set_row(net._row_values(net.step))
-    net._update_(grads)
+    net._update_(grads, zero=None if net._zero is None
+                 else (net._zero, comm))
+    if net._zero is not None:
+        from .zero import updater_state_bytes_per_device
+        STATS["updater_state_bytes"] = float(
+            updater_state_bytes_per_device(net))
     net._assign_variables(new_vars)
     net.step += 1
     net._score_raw = loss
@@ -418,9 +464,11 @@ class _Replica:
         data = pickle.loads(self.comm.broadcast_bytes(None, cmd.args[0]))
         op = cmd.op
         if op == OP_SYNC:
-            _load_state(self.net, data)
+            _load_state(self.net, data, _data_comm(self.comm).rank)
         elif op == OP_ICI_STEP:
-            _ici_step(self.net, self.comm, data)
+            _ici_step(self.net, _data_comm(self.comm), data)
+        elif op == OP_ZERO_GATHER:
+            self.net._zero.gather_whole(self.net, _data_comm(self.comm))
         elif op == OP_PA_ROUND:
             _pa_round(self.net, self.comm, data, cmd.args[1])
         elif op == OP_EVAL:
@@ -448,14 +496,33 @@ class _Ranks:
         self._sid = 0
         self._starts = -1
         self.owned = False  # started here: `close` stops the followers
+        self.borrowed = False  # the sid is a tp net's service
 
     def prepare(self, net) -> None:
         """Start the followers, build the net's replicas if needed, and
-        hand them rank 0's state and step."""
+        hand them rank 0's state and step. A tensor-parallel net on this
+        mesh trains through its own service (its ranks hold their
+        slices); on another mesh it raises."""
         dev = net.device
         if self.mesh.device != dev:
             raise ValueError(f"the mesh's rank 0 runs on {self.mesh.device}, "
                              f"the net lives on {dev}")
+        tp = net._tp
+        if tp is not None:
+            if tp.mesh is not self.mesh:
+                raise ValueError("a tensor-parallel net trains under a master "
+                                 "on the mesh it was sharded over")
+            if self._sid and not self.borrowed:
+                self.mesh.detach(self._sid)
+            self._sid, self.borrowed = tp.sid, True
+            self._net_id, self._starts = id(net), self.mesh.starts
+            # the ranks hold their slices; they take the net's step
+            step = int(net.step)
+            self.run(OP_SYNC, {"step": step},
+                     lambda: setattr(tp.graph, "step", step))
+            return
+        if self.borrowed:
+            self._sid, self.borrowed, self._net_id = 0, False, None
         if self.mesh.size == 1:
             return
         if not self.mesh.alive():
@@ -495,9 +562,10 @@ class _Ranks:
         them."""
         if self.owned:
             self.mesh.close()
-        elif self._sid:
+        elif self._sid and not self.borrowed:
             self.mesh.detach(self._sid)
         self._sid = 0
+        self.borrowed = False
         self._net_id = None
         self.owned = False
 
@@ -525,6 +593,7 @@ class IciDataParallelTrainingMaster(TrainingMaster):
         self._ranks: Optional[_Ranks] = None
         self._batches_done = 0
         self._skip = 0
+        self._zero_net = None  # a ZeRO-1 net whose slices the ranks hold
 
     def resume(self, net) -> int:
         """Restore the newest checkpoint into ``net`` (the driver's) and
@@ -552,7 +621,15 @@ class IciDataParallelTrainingMaster(TrainingMaster):
     def execute_training(self, net, iterator) -> None:
         ranks = self._prepare(net)
         comm = ranks.mesh
+        # the batch is padded to a multiple of the whole mesh (JAX :199,
+        # :217-218) and split over its data axis
         n_dev = comm.size
+        data = _data_comm(comm)
+        tp = net._tp
+        target = net if tp is None else tp.graph
+        if net._zero is not None:
+            net._zero.bind(ranks)
+            self._zero_net = net
         # a resumed run skips the batches trained before the restored
         # checkpoint (the iterator replays the same sequence)
         skip, self._skip = self._skip, 0
@@ -569,7 +646,13 @@ class IciDataParallelTrainingMaster(TrainingMaster):
                 batch = _pad_ragged(inputs, labels, fms, lms, n_dev)
             with phase_timer(self.stats, "process_minibatch"):
                 ranks.run(OP_ICI_STEP, batch,
-                          lambda: _ici_step(net, comm, batch))
+                          lambda: _ici_step(target, data, batch))
+                if tp is not None:
+                    tp.stepped()
+                    net.step = target.step
+                    net._score_raw = target._score_raw
+                elif net._zero is not None:
+                    net._zero.stepped()
             for listener in net.listeners:
                 listener.iteration_done(net, net.step)
             self._batches_done += 1
@@ -585,6 +668,13 @@ class IciDataParallelTrainingMaster(TrainingMaster):
         return self.stats
 
     def close(self) -> None:
+        net, self._zero_net = self._zero_net, None
+        if net is not None and net._zero is not None \
+                and net._zero.ranks is self._ranks:
+            # the followers' slices come home before they stop
+            net._zero.whole(net)
+            net._zero.pending = net._zero.full
+            net._zero.ranks = None
         if self._ranks is not None:
             self._ranks.close()
 

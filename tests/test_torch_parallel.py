@@ -512,7 +512,8 @@ def test_cli_train_data_parallel(tmp_path, capsys):
 
 
 def test_refusals_and_stats_trace(tmp_path):
-    """2-D meshes are still refused (ROADMAP A7). Both masters take a
+    """A 2-D mesh builds with JAX's axes and shape, starting no rank (it
+    was refused before ROADMAP A7.2.5). Both masters take a
     ``state_tracker`` (tests/test_torch_statetracker.py runs them), and
     `resume` without one skips nothing on any mesh, starting no rank."""
     tr = object()
@@ -524,8 +525,11 @@ def test_refusals_and_stats_trace(tmp_path):
     m2 = tmesh.default_mesh(2, ["cpu"] * 2)
     assert ttrainer.IciDataParallelTrainingMaster(mesh=m2).resume(None) == 0
     assert not m2.alive()
-    with pytest.raises(NotImplementedError, match="1-D"):
-        tmesh.make_mesh({"data": 2, "model": 2})
+    from deeplearning4j_tpu.parallel.mesh import make_mesh as jmake_mesh
+    m22 = tmesh.make_mesh({"data": 2, "model": 2}, ["cpu"] * 4)
+    j22 = jmake_mesh({"data": 2, "model": 2})
+    assert m22.axis_names == tuple(j22.axis_names)
+    assert m22.shape == dict(j22.shape) and not m22.alive()
     from deeplearning4j_tpu_torch.parallel.stats import SparkTrainingStats
     st = SparkTrainingStats()
     with device_trace(str(tmp_path / "tr"), st):

@@ -554,7 +554,40 @@ non-zero without them, or when any phase fails. Phases:
      sequential stack, and MoE (2 experts at D = 512) against the
      one-process routing, within 1e-4; alone: `python3
      tools/phase33_alone.py` (``--cpu-rehearsal`` on CPU ranks);
- 34. prints the kernels line (the bf16 kernels as rows of their own,
+ 34. the fleet: the flagship (phase 3's net, saved once as a model zip)
+     served by two replica processes on card 0 (`serving/replica.py`,
+     under a `ReplicaSupervisor`; phase 3's settings: 8 slots, chunk 64,
+     block 16, a 129 MiB paged pool, the paged kernel on, the decode
+     graphs captured in each replica's warmup() before it announces), the
+     kernels built by this process beforehand so the replicas only load
+     them, behind a `FleetRouter` with a durable request journal: (a) 16
+     /generate in 4 families (the members of a family share a 256-token
+     head, prompts of 300-700 tokens, 32 new tokens, half seeded
+     sampling; the families' first members at once, then the rest at
+     once): tokens identical to an in-process engine on the card over the
+     same zip, each family on one replica, both replicas used, prefix
+     hits on each replica's second wave, each replica's paged kernel
+     engaged with a split count on every table bucket its steps used
+     and its launches (read from the replica's own counters) 4 x its
+     decode steps, no engine restart, one finish per journaled request;
+     the same wave on a second fleet with int8 pages against the
+     in-process gather-body engine (phase 4's reference); (b) replica r0's
+     decode hung at a step (a failpoint armed over its endpoint) and the
+     replica SIGKILLed there, mid-wave: every request answered with (a)'s
+     tokens, the dispatches failed over, the supervisor's respawned r0
+     ready again; the seconds to failover and to respawn; (c) a router
+     process (`python -m deeplearning4j_tpu_torch.serving.router`) whose
+     4th request hangs between its journal append and its dispatch
+     (``router.dispatch`` armed through DL4J_FAILPOINTS) SIGKILLed there:
+     a restarted router over the same journal replays exactly that
+     request, once, with (a)'s tokens, one terminal record per request
+     id; (d) a rolling drain through the router keeps /readyz at quorum
+     and drains each replica; /fleet federates both replicas; one traced
+     request's rpc spans merge, by `telemetry.TraceAggregator`, under one
+     trace id on the router and on the replica that served it; alone:
+     `python3 tools/phase34_alone.py` (``--cpu-rehearsal`` on CPU
+     replicas);
+ 35. prints the kernels line (the bf16 kernels as rows of their own,
      named "<kernel>_bf16"; the paged rows carry phase 26's masked-wave
      launches as "masked_launches", phase 27a's as
      "speculating_launches" and phase 28's wave C as "tiered_launches",
@@ -567,7 +600,8 @@ non-zero without them, or when any phase fails. Phases:
      "tp_tiered_launches_per_rank" and "ft_launches_per_rank"; the flash
      rows phase 33a's as "tp_train_launches_per_rank", 33b's kernel at
      the shard shape as "shard_case", and the forward row 33e's as
-     "ulysses_launches_per_rank").
+     "ulysses_launches_per_rank"; the paged rows phase 34a's per-replica
+     launches as "fleet_launches_per_replica").
 
 The last line is {"ok": true, "device": {...}}. Every number printed is
 measured in this run; a "[details]" JSON line before the kernels line
@@ -578,6 +612,7 @@ import gc
 import http.client
 import json
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -786,11 +821,11 @@ def divergence(net, reqs, tokens, solo):
     return "; ".join(out)
 
 
-def post(port, body):
+def post(port, body, headers=None):
     req = urllib.request.Request(
         f"http://127.0.0.1:{port}/generate?timeout_ms=900000",
         data=json.dumps(body).encode(),
-        headers={"Content-Type": "application/json"})
+        headers={"Content-Type": "application/json", **(headers or {})})
     with urllib.request.urlopen(req, timeout=900) as r:
         return json.loads(r.read())
 
@@ -6892,6 +6927,587 @@ def phase33(torch, ck, card):
     return out
 
 
+# -- phase 34: the fleet ------------------------------------------------------
+P34_DEV = "cuda"        # "cpu" rehearses phase 34 (tools/phase34_alone.py)
+P34_FAMILIES = 4        # 34a: prompt families of P34_MEMBERS requests each,
+P34_MEMBERS = 4         # sharing PREFIX_HEAD tokens
+P34_PROMPT = (300, 700)  # prompt lengths, the family head included
+P34_SEED = 30           # the families' tokens; its heads split 2 + 2 over
+#                         r0 and r1 by the router's rendezvous hash
+P34_HANG_TIMEOUT_S = 30.0  # a replica's watchdog: two processes share the
+#                            card, and no wave here may trip a restart
+P34_BOOT_S = 900.0      # a replica's spawn, model restore and warmup
+P34_HANG_AT = 5         # 34b: the victim's decode step that hangs until the
+#                         SIGKILL (armed over its failpoint endpoint)
+P34_KV_POOL_MB = None   # None: KV_POOL_MB (the CPU rehearsal shrinks it)
+
+
+def p34_requests(seed=P34_SEED):
+    """P34_FAMILIES families of P34_MEMBERS /generate bodies: each family's
+    members share a PREFIX_HEAD-token head and go on with their own tail to
+    P34_PROMPT tokens in all, NEW_TOKENS new tokens, odd members seeded
+    sampling. Returns (bodies in family order, family of each body)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    bodies, fam = [], []
+    for f in range(P34_FAMILIES):
+        head = [int(t) for t in rng.integers(0, VOCAB, PREFIX_HEAD)]
+        for m in range(P34_MEMBERS):
+            n = int(rng.integers(*P34_PROMPT)) - PREFIX_HEAD
+            body = {"prompt": head + [int(t) for t in
+                                      rng.integers(0, VOCAB, n)],
+                    "max_new_tokens": NEW_TOKENS}
+            if m % 2:
+                body.update(temperature=0.8, top_k=20,
+                            seed=300 + f * P34_MEMBERS + m)
+            bodies.append(body)
+            fam.append(f)
+    return bodies, fam
+
+
+def p34_argv(zpath, kv_dtype=None):
+    """A replica's argv: phase 3's serving settings on P34_DEV, the
+    failpoint endpoint open (34b arms the victim over it)."""
+    argv = ["--model", zpath, "--device", P34_DEV, "--slots", str(SLOTS),
+            "--prefill-chunk", str(CHUNK), "--kv-block", str(KV_BLOCK),
+            "--kv-pool-mb", str(P34_KV_POOL_MB or KV_POOL_MB),
+            "--paged-kernel", "on", "--hang-timeout",
+            str(P34_HANG_TIMEOUT_S), "--failpoint-endpoint"]
+    return argv + (["--kv-dtype", kv_dtype] if kv_dtype else [])
+
+
+def p34_get(url, path):
+    with urllib.request.urlopen(url + path, timeout=60) as r:
+        return json.loads(r.read())
+
+
+def p34_replica_state(url):
+    """One replica's counters, read over HTTP from its own process: the
+    paged kernel block of /debug/engine (per captured table bucket the
+    split count, the decode replays and the kernel launches they added to
+    that process's cuda_kernels.LAUNCHES), prefix hits, restarts, the
+    device it serves on."""
+    dbg = p34_get(url, "/debug/engine")
+    met = p34_get(url, "/metrics")
+    info = p34_get(url, "/info")
+    pk = dbg["paged_kernel"]
+    buckets = {str(nb): b for nb, b in pk["buckets"].items()}
+    return {"mode": pk["mode"], "engaged": pk["engaged"],
+            "buckets": buckets,
+            "replays": sum(b.get("replays", 0) for b in buckets.values()
+                           if isinstance(b, dict)),
+            "launches": sum(b.get("launches", 0) for b in buckets.values()
+                            if isinstance(b, dict)),
+            "prefix_hits": met["counters"].get("prefix_cache_hits_total", 0),
+            "restarts": dbg["supervisor"]["restarts"],
+            "device": info["device"]["type"]}
+
+
+def p34_delta(before, after, failures, tag):
+    """The counts one replica gained between two states, with the
+    kernel's gates: on the card the kernel engaged, each bucket a step
+    used carrying its split count, launches = BLOCKS x replays, no
+    restart."""
+    buckets = {}
+    for nb, b in after["buckets"].items():
+        if not isinstance(b, dict):
+            continue
+        b0 = before["buckets"].get(nb)
+        r0 = b0.get("replays", 0) if isinstance(b0, dict) else 0
+        l0 = b0.get("launches", 0) if isinstance(b0, dict) else 0
+        if b["replays"] > r0:
+            buckets[nb] = {"S": b["S"], "replays": b["replays"] - r0,
+                           "launches": b["launches"] - l0}
+    d = {"decode_steps": after["replays"] - before["replays"],
+         "launches": after["launches"] - before["launches"],
+         "prefix_hits": after["prefix_hits"] - before["prefix_hits"],
+         "restarts": after["restarts"], "buckets_used": buckets}
+    if P34_DEV == "cuda":
+        if not (after["device"] == "cuda" and after["mode"] == "on"
+                and after["engaged"]):
+            failures.append(f"{tag}: the paged kernel is not engaged on the "
+                            f"card: {after}")
+        if d["launches"] != BLOCKS * d["decode_steps"] or any(
+                not b["S"] or b["launches"] != BLOCKS * b["replays"]
+                for b in buckets.values()):
+            failures.append(f"{tag}: launches {d} != {BLOCKS} x decode "
+                            f"steps in every bucket used")
+    if after["restarts"]:
+        failures.append(f"{tag}: the replica's engine restarted "
+                        f"{after['restarts']} times")
+    return d
+
+
+def p34_journal(path):
+    """(accept rids, finish records by rid, fail records by rid), read from
+    offset 0 by a throwaway consumer group."""
+    from deeplearning4j_tpu_torch.serving.durable import DurableLogConsumer
+    c = DurableLogConsumer(path, group=f"audit{time.monotonic_ns()}")
+    accepts, fins, fails = [], {}, {}
+    while True:
+        recs = c.poll(256)
+        if not recs:
+            break
+        for r in recs:
+            if r["t"] == "accept":
+                accepts.append(r["rid"])
+            else:
+                (fins if r["t"] == "finish" else fails).setdefault(
+                    r["rid"], []).append(r)
+    if os.path.exists(c.cursor_path):
+        os.unlink(c.cursor_path)
+    return accepts, fins, fails
+
+
+def p34_journal_gate(path, n, failures, tag):
+    accepts, fins, fails = p34_journal(path)
+    ok = (len(accepts) == n and not fails
+          and all(len(fins.get(r, [])) == 1 for r in accepts))
+    if not ok:
+        failures.append(f"{tag}: journal {len(accepts)} accepts for {n} "
+                        f"requests, finishes {[len(fins.get(r, [])) for r in accepts]}, "
+                        f"fails {list(fails)}")
+    return {"accepts": len(accepts),
+            "terminal_per_rid": sorted({len(fins.get(r, [])) + len(
+                fails.get(r, [])) for r in accepts})}
+
+
+def p34_solo(zpath, bodies, kv_dtype):
+    """The in-process reference on P34_DEV over the same zip, one request
+    at a time: fp32 pages through the paged kernel (the replicas'
+    engine, eager steps), int8 pages through the layer's gather body
+    (paged_kernel "off", phase 4's reference)."""
+    import torch
+    from deeplearning4j_tpu_torch.inference.engine import DecodeScheduler
+    from deeplearning4j_tpu_torch.util.model_serializer import restore_model
+    net = restore_model(zpath, device=P34_DEV)
+    eng = DecodeScheduler(net, VOCAB, n_slots=SLOTS, prefill_chunk=CHUNK,
+                          kv_block=KV_BLOCK,
+                          kv_pool_mb=P34_KV_POOL_MB or KV_POOL_MB,
+                          kv_dtype=kv_dtype,
+                          paged_kernel="off" if kv_dtype else "on",
+                          decode_graphs="off", device=P34_DEV).start()
+    try:
+        out = [eng.submit(b["prompt"], NEW_TOKENS, **sampling_kw(b))
+               .result(timeout=900) for b in bodies]
+    finally:
+        eng.stop()
+    del eng, net
+    gc.collect()
+    if P34_DEV == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def p34_fleet(zpath, wd, kv_dtype, tag):
+    """Two replica processes (not started) under a fleet supervisor."""
+    from deeplearning4j_tpu_torch.inference.metrics import MetricsRegistry
+    from deeplearning4j_tpu_torch.serving.replica import (ReplicaProcess,
+                                                          ReplicaSupervisor)
+    reps = [ReplicaProcess(p34_argv(zpath, kv_dtype), name=f"r{i}",
+                           workdir=os.path.join(wd, tag))
+            for i in range(2)]
+    for r in reps:
+        os.makedirs(r.workdir, exist_ok=True)
+    return ReplicaSupervisor(reps, poll_interval_s=0.25,
+                             boot_timeout_s=P34_BOOT_S,
+                             metrics=MetricsRegistry())
+
+
+def p34_await(sup, n, t0, what):
+    deadline = time.monotonic() + P34_BOOT_S
+    while sup.ready_count() < n:
+        for r in sup.replicas:
+            if r.proc is not None and r.proc.poll() is not None \
+                    and sup.restarts > 8:
+                raise SystemExit(f"phase 34: {what}: replica {r.name} keeps "
+                                 f"dying: " + r._fail_msg("exited"))
+        if time.monotonic() > deadline:
+            raise SystemExit(f"phase 34: {what}: {n} replicas never ready: "
+                             f"{sup.states()}")
+        time.sleep(0.1)
+    return time.monotonic() - t0
+
+
+def p34_router(sup, jpath, quorum=2):
+    from deeplearning4j_tpu_torch.serving.router import FleetRouter
+    return FleetRouter(supervisor=sup, quorum=quorum, kv_block=KV_BLOCK,
+                       journal_path=jpath, scrape_interval_s=0.5,
+                       dispatch_timeout_s=900.0).start()
+
+
+def p34_waves(sup, bodies, fam, want, jpath, failures, tag):
+    """34a: the families' first members at once, then the other members at
+    once, through a fresh router; the gates of the docstring."""
+    router = p34_router(sup, jpath)
+    urls = dict(sup.ready_replicas())
+    try:
+        first = [i for i in range(len(bodies)) if i % P34_MEMBERS == 0]
+        rest = [i for i in range(len(bodies)) if i % P34_MEMBERS]
+        s0 = {n: p34_replica_state(u) for n, u in urls.items()}
+        t0 = time.monotonic()
+        outs = dict(zip(first, post_all(router.port,
+                                        [bodies[i] for i in first])))
+        t1 = time.monotonic()
+        s1 = {n: p34_replica_state(u) for n, u in urls.items()}
+        outs.update(zip(rest, post_all(router.port,
+                                       [bodies[i] for i in rest])))
+        t2 = time.monotonic()
+        s2 = {n: p34_replica_state(u) for n, u in urls.items()}
+    finally:
+        router.stop(stop_replicas=False)
+    toks = [outs[i]["tokens"] for i in range(len(bodies))]
+    where = [outs[i]["router"]["replica"] for i in range(len(bodies))]
+    if toks != want:
+        bad = [i for i, (a, b) in enumerate(zip(toks, want)) if a != b]
+        failures.append(f"{tag}: requests {bad} differ from the in-process "
+                        f"engine's tokens")
+    fam_of = {}
+    for f, w in zip(fam, where):
+        fam_of.setdefault(f, set()).add(w)
+    if any(len(s) != 1 for s in fam_of.values()):
+        failures.append(f"{tag}: a family split across replicas: {fam_of}")
+    if len({next(iter(s)) for s in fam_of.values()}) != 2:
+        failures.append(f"{tag}: the families did not use both replicas: "
+                        f"{fam_of}")
+    per = {}
+    for n in urls:
+        d = p34_delta(s0[n], s2[n], failures, f"{tag} {n}")
+        d["wave2_prefix_hits"] = s2[n]["prefix_hits"] - s1[n]["prefix_hits"]
+        d["requests"] = where.count(n)
+        d["wave2_requests"] = sum(where[i] == n for i in rest)
+        if d["wave2_requests"] and d["wave2_prefix_hits"] < 1:
+            failures.append(f"{tag} {n}: no prefix hit for its families' "
+                            f"second wave: {d}")
+        per[n] = d
+    n_tok = sum(len(t) for t in toks)
+    return {"tokens": n_tok, "wave1_s": t1 - t0, "wave2_s": t2 - t1,
+            "tokens_per_s": n_tok / (t2 - t0), "replica_of_request": where,
+            "families": {f: sorted(s) for f, s in fam_of.items()},
+            "per_replica": per,
+            "launches_per_replica": [per[n]["launches"] for n in sorted(per)],
+            "decode_steps_per_replica": [per[n]["decode_steps"]
+                                         for n in sorted(per)],
+            "journal": p34_journal_gate(jpath, len(bodies), failures, tag)}
+
+
+def p34_replica_kill(sup, bodies, want, jpath, failures):
+    """34b: the victim's decode hangs at its P34_HANG_AT-th step after
+    arming (so the kill lands mid-decode, not by a race), and the victim
+    is SIGKILLed there; the wave must still answer every request with
+    34a's tokens, and the supervisor must bring the victim back."""
+    router = p34_router(sup, jpath, quorum=1)
+    victim = sup.replicas[0]
+    restarts0 = sup.restarts
+    retries0 = router.metrics.counter("router_dispatch_retries_total").value
+    req = urllib.request.Request(
+        victim.base_url + "/admin/failpoints", data=json.dumps(
+            {"name": "dispatch.decode",
+             "spec": f"hang:600000@n:{P34_HANG_AT}"}).encode(),
+        headers={"Content-Type": "application/json"})
+    urllib.request.urlopen(req, timeout=60).read()
+    try:
+        with ThreadPoolExecutor(len(bodies)) as ex:
+            futs = [ex.submit(post_retry, router.port, b) for b in bodies]
+            deadline = time.monotonic() + 300
+            while True:
+                armed = p34_get(victim.base_url, "/admin/failpoints")["armed"]
+                if armed.get("dispatch.decode", {}).get("triggers"):
+                    break
+                if time.monotonic() > deadline:
+                    raise SystemExit("phase 34b: the victim never reached its "
+                                     f"hung decode step: {armed}")
+                time.sleep(0.005)
+            inflight = sum(s is not None for s in p34_get(
+                victim.base_url, "/debug/engine")["slots"])
+            t_kill = time.monotonic()
+            victim.kill()
+            res = [f.result() for f in futs]
+        t_done = time.monotonic()
+        retries = (router.metrics.counter("router_dispatch_retries_total")
+                   .value - retries0)
+    finally:
+        router.stop(stop_replicas=False)
+    toks = [r["tokens"] for r, _ in res]
+    if toks != want:
+        bad = [i for i, (a, b) in enumerate(zip(toks, want)) if a != b]
+        failures.append(f"34b: requests {bad} differ from 34a's tokens")
+    if not retries or not inflight:
+        failures.append(f"34b: nothing failed over ({retries} retries, "
+                        f"{inflight} requests on the victim)")
+    while sup.restarts <= restarts0:
+        if time.monotonic() - t_kill > P34_BOOT_S:
+            raise SystemExit("phase 34b: the supervisor never respawned the "
+                             f"victim: {sup.states()}")
+        time.sleep(0.05)
+    respawn_s = p34_await(sup, 2, t_kill, "34b respawn")
+    state = p34_replica_state(sup.replicas[0].base_url)
+    if P34_DEV == "cuda" and not (state["engaged"]
+                                  and state["device"] == "cuda"):
+        failures.append(f"34b: the respawned replica's kernel is not "
+                        f"engaged: {state}")
+    return {"victim_inflight_at_kill": inflight, "router_retries": retries,
+            "failover_s": t_done - t_kill, "respawn_s": respawn_s,
+            "restarts": sup.restarts - restarts0,
+            "attempts": [a for _, a in res],
+            "journal": p34_journal_gate(jpath, len(bodies), failures, "34b")}
+
+
+def p34_router_proc(wd, urls, jpath, tag, failpoints=None):
+    """The router as its own process over the replicas (attach mode)."""
+    announce = os.path.join(wd, f"router.{tag}.json")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env.pop("DL4J_FAILPOINTS", None)
+    if failpoints:
+        env["DL4J_FAILPOINTS"] = failpoints
+    log = open(os.path.join(wd, f"router.{tag}.log"), "ab")
+    try:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "deeplearning4j_tpu_torch.serving.router",
+             "--replicas", ",".join(urls), "--journal", jpath,
+             "--announce", announce, "--kv-block", str(KV_BLOCK),
+             "--quorum", "1", "--scrape-interval", "0.5"],
+            stdout=log, stderr=log, env=env)
+    finally:
+        log.close()
+    deadline = time.monotonic() + 300
+    while True:
+        if proc.poll() is not None:
+            with open(log.name, "rb") as fh:
+                raise SystemExit(f"phase 34c: the router died: "
+                                 f"{fh.read()[-2000:]!r}")
+        try:
+            with open(announce) as fh:
+                return proc, int(json.load(fh)["port"])
+        except (OSError, ValueError, KeyError):
+            if time.monotonic() > deadline:
+                proc.kill()
+                raise SystemExit("phase 34c: the router never announced")
+            time.sleep(0.05)
+
+
+def p34_router_kill(sup, wd, bodies, want, failures):
+    """34c: a router process whose 4th /generate hangs between its journal
+    append and its dispatch (router.dispatch armed through DL4J_FAILPOINTS)
+    is SIGKILLed there; a new router over the same journal replays exactly
+    that request."""
+    urls = [u for _n, u in sup.ready_replicas()]
+    jpath = os.path.join(wd, "router-kill.journal")
+    proc, port = p34_router_proc(wd, urls, jpath, "a",
+                                 "router.dispatch=hang:600000@n:4")
+    proc2 = None
+    try:
+        for i in range(3):
+            if post(port, bodies[i])["tokens"] != want[i]:
+                failures.append(f"34c: request {i} differs from 34a")
+        box = []
+
+        def hung():
+            try:
+                post(port, bodies[3])
+            except BaseException as e:  # the router dies under it
+                box.append(repr(e))
+
+        th = threading.Thread(target=hung, daemon=True)
+        th.start()
+        deadline = time.monotonic() + 120
+        while len(p34_journal(jpath)[0]) < 4:
+            if time.monotonic() > deadline:
+                raise SystemExit("phase 34c: the 4th accept never landed")
+            time.sleep(0.02)
+        os.kill(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+        accepts, fins, _ = p34_journal(jpath)
+        hung_rid = accepts[3]
+        if hung_rid in fins:
+            failures.append("34c: the hung request finished before the kill")
+        t0 = time.monotonic()
+        proc2, port2 = p34_router_proc(wd, urls, jpath, "b")
+        while True:
+            accepts, fins, fails = p34_journal(jpath)
+            if hung_rid in fins or hung_rid in fails:
+                break
+            if time.monotonic() - t0 > 300:
+                raise SystemExit("phase 34c: the replay never finished")
+            time.sleep(0.05)
+        replay_s = time.monotonic() - t0
+        stats = p34_get(f"http://127.0.0.1:{port2}", "/router/journal")
+    finally:
+        for p in (proc, proc2):
+            if p is not None and p.poll() is None:
+                p.terminate()
+                try:
+                    p.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+    rec = fins.get(hung_rid, [])
+    if not (len(rec) == 1 and rec[0]["replay"]
+            and rec[0]["tokens"] == want[3]):
+        failures.append(f"34c: the replayed request's record {rec} is not one "
+                        f"replayed finish with 34a's tokens")
+    if stats["replayed_total"] != 1 or stats["replay_abandoned_total"]:
+        failures.append(f"34c: journal stats {stats}")
+    out = {"replay_s": replay_s, "stats": stats,
+           "journal": p34_journal_gate(jpath, 4, failures, "34c")}
+    return out
+
+
+def p34_drain_telemetry(sup, wd, bodies, want, failures):
+    """34d: a rolling drain at quorum 1, then the federation and one
+    request's spans merged across the router and its replica."""
+    from deeplearning4j_tpu_torch.inference.trace import FlightRecorder
+    from deeplearning4j_tpu_torch.serving.telemetry import (ClientTracer,
+                                                            TraceAggregator)
+    router = p34_router(sup, os.path.join(wd, "drain.journal"), quorum=1)
+    out = {}
+    try:
+        base = f"http://127.0.0.1:{router.port}"
+        req = urllib.request.Request(base + "/admin/drain", data=b"{}")
+        with urllib.request.urlopen(req, timeout=60) as r:
+            out["drain_status"] = json.loads(r.read())["status"]
+        t0 = time.monotonic()
+        low, not_ready = 2, 0
+        while True:
+            ok, body = router.ready()
+            low = min(low, body["replicas_ready"])
+            if not ok:
+                not_ready += 1
+            if not body["draining"]:
+                break
+            if time.monotonic() - t0 > 600:
+                raise SystemExit("phase 34d: the rolling drain never ended")
+            time.sleep(0.02)
+        out["drain_s"] = time.monotonic() - t0
+        out["min_replicas_ready"] = low
+        p34_await(sup, 2, t0, "34d after the drain")
+        drained = [any(e["name"] == "drain_begin" for e in p34_get(
+            u, "/trace")["events"]) for _n, u in sup.ready_replicas()]
+        if out["drain_status"] != "draining" or not_ready or not all(drained):
+            failures.append(f"34d: drain {out}, /readyz below quorum "
+                            f"{not_ready} times, drained {drained}")
+        # the router rebuilds its federation when the ready set changes
+        # (a drained replica left and came back), on its scrape cadence
+        t1 = time.monotonic()
+        while True:
+            with urllib.request.urlopen(base + "/fleet", timeout=60) as r:
+                fleet = r.read().decode()
+            if "fleet_replicas_up 2" in fleet or time.monotonic() - t1 > 60:
+                break
+            time.sleep(0.1)
+        out["fleet_replicas_up_2"] = "fleet_replicas_up 2" in fleet
+        out["fleet_settle_s"] = time.monotonic() - t1
+        if not out["fleet_replicas_up_2"]:
+            failures.append("34d: /fleet does not federate both replicas")
+        ct = ClientTracer(FlightRecorder(1024))
+        ctx = ct.send("/generate")
+        resp = post(router.port, bodies[0], headers=ct.headers(ctx))
+        ct.done(ctx)
+        if resp["tokens"] != want[0]:
+            failures.append("34d: the traced request differs from 34a")
+        served_by = resp["router"]["replica"]
+        urls = dict(sup.ready_replicas())
+        agg = TraceAggregator([base] + [urls[n] for n in sorted(urls)],
+                              client_recorder=ct.recorder,
+                              names=["router"] + sorted(urls))
+        agg.sync_clocks()
+        agg.poll()
+        trace = agg.merged_chrome_trace()
+        pname = {e["pid"]: e["args"]["name"] for e in trace["traceEvents"]
+                 if e["ph"] == "M" and e["name"] == "process_name"}
+        holders = sorted({pname[e["pid"]] for e in trace["traceEvents"]
+                          if e["ph"] == "B" and e["name"] == "rpc"
+                          and e.get("args", {}).get("trace")
+                          == ctx.request_id})
+        out["trace_id"] = ctx.request_id
+        out["rpc_spans_on"] = holders
+        out["served_by"] = served_by
+        out["merge"] = agg.stats()
+        if holders != sorted(["router", served_by]):
+            failures.append(f"34d: the trace {ctx.request_id} holds rpc spans "
+                            f"on {holders}, want the router and {served_by}")
+    finally:
+        router.stop(stop_replicas=False)
+    return out
+
+
+def phase34(torch, ck, card):
+    """34a-d: see the module docstring."""
+    from deeplearning4j_tpu_torch.models.zoo import transformer_lm
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.model_serializer import write_model
+    t0 = time.monotonic()
+    failures, out = [], {}
+    bodies, fam = p34_requests()
+    with tempfile.TemporaryDirectory() as wd:
+        zpath = os.path.join(wd, "lm.zip")
+        write_model(ComputationGraph(transformer_lm(
+            vocab_size=VOCAB, d_model=D_MODEL, n_heads=HEADS,
+            n_blocks=BLOCKS, rope=True, seed=7), device=P34_DEV).init(),
+            zpath)
+        fleets = {k: p34_fleet(zpath, wd, k, k or "fp32")
+                  for k in (None, "int8")}
+        try:
+            # both fleets boot while this process computes the references
+            for sup in fleets.values():
+                sup.start(wait=False)
+            t1 = time.monotonic()
+            want = p34_solo(zpath, bodies, None)
+            want8 = p34_solo(zpath, bodies, "int8")
+            out["reference_s"] = time.monotonic() - t1
+            out["boot_s"] = {k or "fp32": p34_await(sup, 2, t1, "boot")
+                             for k, sup in fleets.items()}
+            out["a"] = {}
+            for k, w in ((None, want), ("int8", want8)):
+                tag = f"34a {k or 'fp32'}"
+                out["a"][k or "fp32"] = p34_waves(
+                    fleets[k], bodies, fam, w,
+                    os.path.join(wd, f"a-{k or 'fp32'}.journal"), failures,
+                    tag)
+            fleets.pop("int8").stop()
+            sup = fleets[None]
+            out["b"] = p34_replica_kill(sup, bodies, want,
+                                        os.path.join(wd, "b.journal"),
+                                        failures)
+            out["c"] = p34_router_kill(sup, wd, bodies, want, failures)
+            out["d"] = p34_drain_telemetry(sup, wd, bodies, want, failures)
+        finally:
+            for sup in fleets.values():
+                sup.stop()
+    out["seconds"] = time.monotonic() - t0
+    a, a8 = out["a"]["fp32"], out["a"]["int8"]
+    phase(34, f"34a: 16 /generate in 4 families (256-token heads, prompts "
+              f"{[len(b['prompt']) for b in bodies]}) through the router over "
+              f"2 replica processes on {P34_DEV}: tokens identical to the "
+              f"in-process engine; families {a['families']}; per replica "
+              f"decode steps {a['decode_steps_per_replica']}, paged launches "
+              f"{a['launches_per_replica']} (= {BLOCKS} x steps), second-wave "
+              f"prefix hits { {n: d['wave2_prefix_hits'] for n, d in a['per_replica'].items()} }, "
+              f"{a['tokens_per_s']:.2f} tokens/s; int8 fleet identical to the "
+              f"gather-body engine, launches {a8['launches_per_replica']} for "
+              f"steps {a8['decode_steps_per_replica']}; boot {out['boot_s']} s "
+              f"[{card}]")
+    b = out["b"]
+    phase(34, f"34b: r0 SIGKILLed at a hung decode step with "
+              f"{b['victim_inflight_at_kill']} requests in its slots: "
+              f"{b['router_retries']} dispatches failed over, none lost, "
+              f"tokens identical; failover {b['failover_s']:.3f} s, respawned "
+              f"and ready {b['respawn_s']:.3f} s after the kill [{card}]")
+    c = out["c"]
+    phase(34, f"34c: router SIGKILLed between its 4th journal append and "
+              f"its dispatch; the restarted router replayed it in "
+              f"{c['replay_s']:.3f} s, one terminal record per request, "
+              f"tokens identical; {c['stats']}")
+    d = out["d"]
+    phase(34, f"34d: rolling drain {d['drain_s']:.3f} s, /readyz at quorum "
+              f"(fewest ready {d['min_replicas_ready']}); /fleet federates 2 "
+              f"replicas; trace {d['trace_id']} holds rpc spans on "
+              f"{d['rpc_spans_on']}; phase 34 took {out['seconds']:.3f} s "
+              f"[{card}]")
+    if failures:
+        raise SystemExit("phase 34 failed: " + " | ".join(failures))
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -8427,7 +9043,7 @@ def main():
     p31 = phase31(torch, ck, card)
     p32 = phase32(torch, ck, card)
     p33 = phase33(torch, ck, card)
-
+    p34 = phase34(torch, ck, card)
 
     src = "deeplearning4j_tpu_torch/ops/csrc/paged_decode_attention.cu"
     kernels = []
@@ -8465,6 +9081,11 @@ def main():
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
             for k in shards}
     kernels[0]["gqa_tp_launches_per_rank"] = p31["b_gqa"]["tp2"]["launches"]
+    # phase 34a: each replica process's launches over the fleet's waves
+    # (read from the replica's own counters over HTTP)
+    for row, key in ((kernels[0], "fp32"), (kernels[1], "int8")):
+        row["fleet_launches_per_replica"] = p34["a"][key][
+            "launches_per_replica"]
     # phase 32a: the plain steps of a speculating tp = 2 engine; 32b: wave
     # C's steps at tp = 2 over pages promoted from the host tier
     kernels[0]["tp_speculating_launches_per_rank"] = p32["a_paged"][
@@ -8707,8 +9328,9 @@ def main():
          **a3, "serving_26": p26, "serving_27": p27, "tiering_28": p28,
          "training_29": p29, "graphs_30": p30, "parallel_31": p31,
          "tp_spec_tiers_ft_32": p32, "tp_training_33": p33,
+         "fleet_34": p34,
          "elapsed_s": time.monotonic() - t_start}))
-    phase(34, "kernels:")
+    phase(35, "kernels:")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

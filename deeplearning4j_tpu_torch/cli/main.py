@@ -1,6 +1,6 @@
 """Command line — port of the ``train`` (local and data-parallel
-runtimes), ``test``, ``predict`` and ``serve`` commands of
-deeplearning4j_tpu/cli/main.py.
+runtimes), ``test``, ``predict``, ``serve``, ``telemetry`` and ``router``
+commands of deeplearning4j_tpu/cli/main.py.
 
     python -m deeplearning4j_tpu_torch.cli.main train --conf net.json \
         --input data.csv --output model.zip [--epochs N] [--batch B] \
@@ -23,6 +23,15 @@ deeplearning4j_tpu/cli/main.py.
         [--no-supervise] [--hang-timeout S] [--retry-budget N] \
         [--failpoint NAME=SPEC ...] [--failpoint-endpoint] \
         [--device cuda|cpu] [--port P]
+    python -m deeplearning4j_tpu_torch.cli.main telemetry \
+        --targets URL,URL [--out trace.json] [--serve-port P] \
+        [--interval S] [--duration S] [--clock-probes N]
+    python -m deeplearning4j_tpu_torch.cli.main router \
+        (--replicas URL,URL | --spawn N --model model.zip \
+         [--replica-arg=ARG ...] [--device cuda|cpu] [--paged-kernel on|off]) \
+        [--journal j.log] [--port P] [--quorum Q] [--kv-block 16] \
+        [--affinity-blocks K] [--no-admission] [--no-prefix-directory] \
+        [--prefix-fetch]
 
 The config JSON and the model zip are the shared formats (a JAX-written
 config trains here, a zip written here restores in the JAX package, and
@@ -36,8 +45,12 @@ vocabulary is the output layer's width unless ``--vocab-size`` is given);
 records. ``train --runtime data-parallel`` trains through
 `parallel.trainer.IciDataParallelTrainingMaster`; ``serve --tp N
 --decode-graphs off`` decodes tensor-parallel over N ranks
-(`inference/sharding.py`). The telemetry and router commands come with
-later slices.
+(`inference/sharding.py`). ``telemetry`` tails N servers' traces into one
+Perfetto waterfall and federates their metrics (`serving/telemetry.py`;
+``--ui`` raises NotImplementedError until the training UI is ported);
+``router`` fronts N replica processes with the journaled, prefix-affine
+router (`serving/router.py`), spawning them on ``--device`` (cuda by
+default: no card fails before any replica starts) with ``--spawn``.
 """
 from __future__ import annotations
 
@@ -264,6 +277,56 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_telemetry(args) -> int:
+    """The fleet telemetry plane (`serving/telemetry.py`)."""
+    from ..serving import telemetry
+
+    argv = ["--targets", args.targets,
+            "--interval", str(args.interval),
+            "--clock-probes", str(args.clock_probes)]
+    if args.out:
+        argv += ["--out", args.out]
+    if args.serve_port is not None:
+        argv += ["--serve-port", str(args.serve_port)]
+    if args.duration is not None:
+        argv += ["--duration", str(args.duration)]
+    if args.ui:
+        argv += ["--ui", args.ui]
+    return telemetry.main(argv)
+
+
+def cmd_router(args) -> int:
+    """The fleet front end (`serving/router.py`): journaled,
+    prefix-affine routing over N replica processes."""
+    from ..serving import router
+
+    argv = []
+    if args.replicas:
+        argv += ["--replicas", args.replicas]
+    if args.spawn:
+        argv += ["--spawn", str(args.spawn), "--device", args.device]
+        rargs = (["--model", args.model] if args.model else [])
+        rargs += list(args.replica_arg or [])
+        # the = form: a forwarded fragment may itself start with --,
+        # which argparse would otherwise read as the next option
+        argv += [f"--replica-arg={ra}" for ra in rargs]
+    if args.journal:
+        argv += ["--journal", args.journal]
+    argv += ["--port", str(args.port),
+             "--kv-block", str(args.kv_block),
+             "--affinity-blocks", str(args.affinity_blocks),
+             "--quorum", str(args.quorum)]
+    if args.paged_kernel is not None:
+        argv += ["--paged-kernel", args.paged_kernel]
+    if args.no_admission:
+        argv += ["--no-admission"]
+    if args.no_prefix_directory:
+        argv += ["--no-prefix-directory"]
+    if args.prefix_fetch:
+        argv += ["--prefix-fetch"]
+    return router.main(argv)
+
+
 def _add_data_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--input", required=True, help="input CSV path")
     p.add_argument("--batch", type=int, default=32)
@@ -420,6 +483,70 @@ def build_parser() -> argparse.ArgumentParser:
     s.add_argument("--once", action="store_true",
                    help="start, print the banner, stop")
     s.set_defaults(fn=cmd_serve)
+    f = sub.add_parser("telemetry",
+                       help="fleet telemetry: merge N servers' traces into "
+                            "one Perfetto waterfall and federate their "
+                            "metrics and SLO")
+    f.add_argument("--targets", required=True,
+                   help="comma-separated server base URLs")
+    f.add_argument("--out", default=None,
+                   help="write the merged Perfetto trace here at exit")
+    f.add_argument("--serve-port", type=int, default=None,
+                   help="expose GET /fleet, /fleet/summary, /fleet/trace")
+    f.add_argument("--interval", type=float, default=1.0,
+                   help="poll/scrape cadence, seconds")
+    f.add_argument("--duration", type=float, default=None,
+                   help="run this long then exit")
+    f.add_argument("--clock-probes", type=int, default=5,
+                   help="RTT-bounded /trace/clock probes per server")
+    f.add_argument("--ui", default=None,
+                   help="training-UI base URL for the /serving fleet line "
+                        "(not ported yet: raises NotImplementedError)")
+    f.set_defaults(fn=cmd_telemetry)
+    r = sub.add_parser("router",
+                       help="fleet front end: journaled, prefix-affine "
+                            "routing over N engine replica processes")
+    r.add_argument("--replicas", default=None,
+                   help="attach to running replicas (comma-separated base "
+                        "URLs)")
+    r.add_argument("--spawn", type=int, default=0,
+                   help="spawn N replica subprocesses serving --model")
+    r.add_argument("--model", default=None,
+                   help="model zip every spawned replica serves")
+    r.add_argument("--device", default="cuda",
+                   help="the spawned replicas' device: cuda (default; fails "
+                        "without a CUDA device) or cpu")
+    r.add_argument("--replica-arg", action="append", default=[],
+                   help="extra argv forwarded to every spawned replica "
+                        "(repeatable; see python -m "
+                        "deeplearning4j_tpu_torch.serving.replica --help)")
+    r.add_argument("--journal", default=None,
+                   help="durable request-journal path (a SIGKILLed router "
+                        "replays in-flight requests from it)")
+    r.add_argument("--port", type=int, default=0)
+    r.add_argument("--quorum", type=int, default=1,
+                   help="/readyz answers 200 only with >= this many ready "
+                        "replicas")
+    r.add_argument("--kv-block", type=int, default=16,
+                   help="the replicas' KV block size (the affinity hash "
+                        "aligns to it)")
+    r.add_argument("--paged-kernel", choices=["on", "off"], default=None,
+                   help="the paged decode kernel's mode forwarded to every "
+                        "spawned replica (replicas default to 'on')")
+    r.add_argument("--affinity-blocks", type=int, default=1,
+                   help="how many leading prompt blocks the affinity hash "
+                        "covers")
+    r.add_argument("--no-admission", action="store_true",
+                   help="disable SLO-aware admission (route even while the "
+                        "fleet burns)")
+    r.add_argument("--no-prefix-directory", action="store_true",
+                   help="stop tailing replica /prefix/directory feeds "
+                        "(affinity-only routing)")
+    r.add_argument("--prefix-fetch", action="store_true",
+                   help="keep rendezvous placement and have the target pull "
+                        "tiered prefix chains from the holding peer instead "
+                        "of re-routing to it")
+    r.set_defaults(fn=cmd_router)
     return ap
 
 

@@ -509,6 +509,7 @@ class _DecodeRunner:
         self.out: Optional[torch.Tensor] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Dict[str, int] = {}
+        self.replays = 0  # steps run through this runner
 
     def fill(self, ids: np.ndarray, live: np.ndarray, pos: np.ndarray,
              table: Optional[np.ndarray],
@@ -561,6 +562,7 @@ class _ChunkRunner:
         self.out: Optional[torch.Tensor] = None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Dict[str, int] = {}
+        self.replays = 0  # chunks run through this runner
 
     def fill(self, ids: np.ndarray, n_real: int, pos: int, slot: int,
              table_row: Optional[np.ndarray]) -> None:
@@ -2918,6 +2920,7 @@ class DecodeScheduler:
     def _replay(self, r) -> None:
         """Run ``r``'s body: replay its graph (adding its launches), or run
         it eagerly on the CPU; the output lands in ``r.out``."""
+        r.replays += 1
         if r.graph is None:
             r.out = self._body(r)
         else:
@@ -3680,8 +3683,12 @@ class DecodeScheduler:
         launches counted when the bucket's decode graph was captured (the
         eager step on the card always launches it) — False where the
         layer's gather body runs (mode "off", or CPU tensors), None for a
-        bucket not captured yet. The port does not autotune: there is no
-        autotune block."""
+        bucket not captured yet. A captured bucket also carries its decode
+        graph's ``replays`` and the kernel ``launches`` they added to
+        ``cuda_kernels.LAUNCHES`` (replays x the capture's count): a
+        process outside this one (the fleet's router, a smoke script)
+        reads a replica's launches here. The port does not autotune: there
+        is no autotune block."""
         out = {"mode": self.paged_kernel, "engaged": False, "buckets": {}}
         if not self.paged:
             return out
@@ -3690,17 +3697,23 @@ class DecodeScheduler:
                if isinstance(impl, SelfAttentionLayerImpl)} \
             if self._graph else set()
         for nb in self.table_buckets:
+            r = self._runners.get(nb)
             if not on:
                 v = False
             elif self.decode_graphs != "on":
                 v = True
             else:
-                r = self._runners.get(nb)
                 v = None if r is None else bool(
                     r.launches.get("paged_decode_attention"))
-            out["buckets"][nb] = (
-                {"S": {h: ck._paged_splits(self.n_slots, h, nb)
-                       for h in sorted(hkv)}} if v else v)
+            entry = v
+            if v:
+                entry = {"S": {h: ck._paged_splits(self.n_slots, h, nb)
+                               for h in sorted(hkv)}}
+                if r is not None and r.graph is not None:
+                    entry["replays"] = r.replays
+                    entry["launches"] = r.replays * r.launches[
+                        "paged_decode_attention"]
+            out["buckets"][nb] = entry
         out["engaged"] = any(bool(v) for v in out["buckets"].values())
         return out
 

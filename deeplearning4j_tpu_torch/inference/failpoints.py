@@ -18,6 +18,10 @@ these):
   ``pool.alloc``           KVPool block allocation (paged engines)
   ``batcher.flush``        before a MicroBatcher batch dispatch
   ``http.handler``         top of every serving-server POST handler
+  ``router.journal``       before the fleet router appends a request to
+                           its durable journal (`serving/router.py`)
+  ``router.dispatch``      after the journal append, before the router
+                           forwards the request to a replica
   ``tier.spill``           a KV tier's capture of an evicted block
                            (`kvtier.TierManager.offer_spill`)
   ``tier.restore``         the tier worker's staging of a promotion
@@ -45,7 +49,12 @@ Arming: ``arm("dispatch.decode", "crash@n:3")`` — the spec grammar is
 Control planes: programmatic (`arm`/`disarm`), CLI (`serve --failpoint
 name=spec`, repeatable), environment (``DL4J_FAILPOINTS="name=spec;
 name2=spec"`` via :func:`arm_from_env`), and the opt-in HTTP endpoint
-(`POST /admin/failpoints`, `serving/server.py`).
+(`POST /admin/failpoints`, `serving/server.py`). Seams fire only in
+the process that armed them, so a fleet chaos run arms seams inside a
+replica or router subprocess by exporting ``DL4J_FAILPOINTS`` into that
+child's environment: `serving/replica.py`'s and `serving/router.py`'s
+entry points call :func:`arm_from_env` at start-up, and
+``ReplicaProcess(failpoints=...)`` sets the variable for one child.
 
 Disarmed cost is one module-level dict emptiness test: ``fire()``
 returns at once while nothing is armed, so the seams stay in the hot
@@ -69,7 +78,8 @@ __all__ = ["InjectedFault", "InjectedCrash", "InjectedOOM", "InjectedHang",
 # typo'd seam name must not silently never fire)
 SEAMS = ("scheduler.iteration", "dispatch.decode", "dispatch.prefill",
          "dispatch.verify", "pool.alloc", "batcher.flush", "http.handler",
-         "tier.spill", "tier.restore", "directory.publish")
+         "router.journal", "router.dispatch", "tier.spill", "tier.restore",
+         "directory.publish")
 
 
 class InjectedFault(RuntimeError):

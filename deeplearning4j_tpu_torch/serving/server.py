@@ -54,7 +54,12 @@ recording) that the engine, the supervisor and the batchers write.
 Every POST carries an ``X-Request-Id`` response header: a well-formed
 client-supplied id (``[A-Za-z0-9._:-]{1,128}``) becomes the prefix of a
 server-uniquified one, anything else is replaced by a fresh id; error
-bodies quote it.
+bodies quote it. A valid ``X-Graft-Trace`` header (`serving/telemetry.py`:
+fleet trace id, parent span, hop, send time) wins over ``X-Request-Id``:
+its trace id becomes the prefix, and the handler runs inside an ``rpc``
+span carrying the flow edge, so `telemetry.TraceAggregator` joins this
+server's spans to the sender's. A malformed header degrades to the
+``X-Request-Id`` rule, never to a 500.
 
 Endpoints:
   GET  /health            {"status": "ok", "model", "params"}
@@ -158,6 +163,7 @@ from ..inference.supervisor import (AdmissionRejectedError, EngineSupervisor,
 from ..inference.trace import FlightRecorder, new_request_id
 from ..util.device import DeviceLike, resolve_device
 from .streaming import RecordToDataSetConverter
+from .telemetry import TRACE_HEADER, parse_trace_header
 
 __all__ = ["InferenceServer"]
 
@@ -828,8 +834,15 @@ class InferenceServer:
                 # a well-formed client id is kept as the PREFIX of a
                 # server-uniquified id (two live retries sharing one id
                 # must not merge onto one trace track); anything else,
-                # length-capped before matching, gets a fresh id
-                rid = (self.headers.get("X-Request-Id") or "")[:256]
+                # length-capped before matching, gets a fresh id. A valid
+                # X-Graft-Trace header (serving/telemetry.py) WINS the
+                # identity: its fleet trace id becomes the prefix, so one
+                # request keeps one greppable identity across client ->
+                # router -> replica; a malformed one degrades to the
+                # X-Request-Id rule, never a 500
+                ctx = parse_trace_header(self.headers.get(TRACE_HEADER))
+                rid = (ctx.request_id if ctx is not None
+                       else (self.headers.get("X-Request-Id") or "")[:256])
                 rid = (f"{rid}.{new_request_id()}"
                        if _REQUEST_ID_RE.fullmatch(rid)
                        else new_request_id())
@@ -855,6 +868,21 @@ class InferenceServer:
                     return self._send({"error": "shutting_down",
                                        "request_id": rid}, 503,
                                       request_id=rid)
+                if ctx is not None:
+                    # this server's half of the cross-process waterfall:
+                    # an `rpc` span on the request track around the
+                    # handler (closed in the finally, error paths too),
+                    # carrying the flow edge (origin = the sender's span
+                    # id) and the gap since the sender's send time
+                    server.tracer.begin(
+                        "rpc", req=rid,
+                        origin=ctx.parent or ctx.request_id,
+                        parent=ctx.parent or ctx.request_id,
+                        args={"path": url.path, "hop": ctx.hop,
+                              "trace": ctx.request_id,
+                              "net_gap_ms": round(
+                                  (time.time() - ctx.origin_ts) * 1e3,
+                                  3)})
                 try:
                     if url.path == "/admin/drain":
                         if server.supervisor is None:
@@ -989,6 +1017,8 @@ class InferenceServer:
                     self._send({"error": str(e), "request_id": rid}, 400,
                                request_id=rid)
                 finally:
+                    if ctx is not None:
+                        server.tracer.end("rpc", req=rid)
                     if slo_sample and url.path in ("/predict",
                                                    "/predict/csv",
                                                    "/generate"):

@@ -1,26 +1,28 @@
-"""Streaming pipelines: record conversion and train-from-stream — a port of
-`RecordToDataSetConverter`, `QueueDataSetIterator` and
-`StreamingTrainingPipeline` from deeplearning4j_tpu/serving/streaming.py,
-on the port's `datasets/`.
+"""Streaming pipelines: record conversion, train-from-stream and the
+queue-fed inference route — a port of `RecordToDataSetConverter`,
+`QueueDataSetIterator`, `StreamingTrainingPipeline` and `ServeRoute` from
+deeplearning4j_tpu/serving/streaming.py, on the port's `datasets/`.
 
   - `RecordToDataSetConverter` vectorizes CSV-style records into a
     DataSet (the server's ``/predict/csv`` path);
   - `QueueDataSetIterator` is a DataSetIterator fed from a live stream;
   - `StreamingTrainingPipeline` runs ``net.fit_batch`` in a consumer
-    thread over that iterator while producers push records.
+    thread over that iterator while producers push records;
+  - `ServeRoute` is the queue-fed inference route: records in, converter,
+    batched ``net.output``, predictions out to a callback.
 
-Arrays stay numpy on the host; the net moves each batch to its device.
-The JAX module's queue-fed `ServeRoute` is not ported: the server's
-``/predict`` covers its use.
+Arrays stay numpy on the host; the net moves each batch to its device and
+`ServeRoute` copies each batch's predictions back once.
 """
 from __future__ import annotations
 
 import queue
 import threading
 import time
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..datasets.dataset import DataSet
 from ..datasets.iterators import DataSetIterator
@@ -152,5 +154,74 @@ class StreamingTrainingPipeline:
             self._thread.join(timeout)
             if self._thread.is_alive():
                 raise TimeoutError("the training consumer did not finish")
+        if self.error is not None:
+            raise self.error
+
+
+class ServeRoute:
+    """Queue-fed inference route: records in -> converter -> batched
+    ``net.output`` -> ``on_prediction`` callback (the final processor).
+    Batches greedily up to ``max_batch`` records to amortize the device
+    dispatch; each batch's predictions reach ``on_prediction`` as one
+    numpy array (one device->host copy a batch)."""
+
+    def __init__(self, net, converter: RecordToDataSetConverter,
+                 on_prediction: Callable[[np.ndarray], None],
+                 max_batch: int = 256, poll_timeout: float = 2.0):
+        self.net = net
+        self.converter = converter
+        self.on_prediction = on_prediction
+        self.max_batch = max_batch
+        self._queue: "queue.Queue" = queue.Queue()
+        self._timeout = poll_timeout
+        self._thread: Optional[threading.Thread] = None
+        self._stop = False
+        self.error: Optional[BaseException] = None
+
+    def start(self) -> "ServeRoute":
+        from ..inference.batcher import _to_host
+
+        def run():
+            try:
+                while not self._stop:
+                    try:
+                        first = self._queue.get(timeout=self._timeout)
+                    except queue.Empty:
+                        continue
+                    if first is None:
+                        return
+                    batch = [first]
+                    while len(batch) < self.max_batch:
+                        try:
+                            nxt = self._queue.get_nowait()
+                        except queue.Empty:
+                            break
+                        if nxt is None:
+                            self._stop = True
+                            break
+                        batch.append(nxt)
+                    ds = self.converter.convert(batch)
+                    with torch.no_grad():
+                        out = self.net.output(ds.features)
+                    if isinstance(out, (list, tuple)):
+                        out = out[0]  # a ComputationGraph's first output
+                    self.on_prediction(_to_host(out))
+            except BaseException as e:  # reported by send() and stop()
+                self.error = e
+
+        self._thread = threading.Thread(target=run, daemon=True,
+                                        name="serve-route")
+        self._thread.start()
+        return self
+
+    def send(self, record: Sequence) -> None:
+        if self.error is not None:  # fail fast: a dead route takes nothing
+            raise RuntimeError("ServeRoute consumer died") from self.error
+        self._queue.put(list(record))
+
+    def stop(self, timeout: float = 30.0) -> None:
+        self._queue.put(None)
+        if self._thread is not None:
+            self._thread.join(timeout)
         if self.error is not None:
             raise self.error

@@ -587,7 +587,31 @@ non-zero without them, or when any phase fails. Phases:
      trace id on the router and on the replica that served it; alone:
      `python3 tools/phase34_alone.py` (``--cpu-rehearsal`` on CPU
      replicas);
- 35. prints the kernels line (the bf16 kernels as rows of their own,
+ 35. the embeddings stack (deeplearning4j_tpu_torch/nlp, graph/; plain
+     PyTorch steps, no kernel: nothing in the JAX package's nlp/ or graph/
+     reaches a pallas_call), every step a captured CUDA graph: (a)
+     Word2Vec skip-gram negative sampling at bench.py's config (a zipf
+     corpus of V 5000 and 600,000 tokens in 40-token sentences, layer 100,
+     window 5, negative 5, batch 8192, one epoch, seed 1) on the chunk
+     path (the producer thread's 64-batch chunks staged once, the negatives
+     drawn on the card before the replays): one warm fit discarded, the
+     median words/s of 5 fits, a sixth under torch.profiler for the busy
+     share, one batch step's replay ms between CUDA events, each fit 1
+     capture and 64 replays a chunk; each of the first chunk's 64 steps
+     against the port's CPU step from the card's tables before it, on the
+     same batch and draws (EMB_TOL of max(1, max |table|)); the chunk run
+     free on the CPU, again on the card (bitwise? index_add_ adds by
+     atomics) and on the CPU from a start moved by 1e-7, each against its
+     twin (printed, not gated: the chunk parts chaotically at this
+     config); (b) one batch of each other step (HS, CBOW, CBOW + HS,
+     DBOW, DM, GloVe; NS too) on the card against the CPU, eager then
+     replayed, and the fits of tests/test_nlp.py's topic corpus (HS, CBOW
+     with subsampling, CBOW + HS, GloVe, ParagraphVectors DBOW and DM with
+     infer_vector, DeepWalk) with its quality gates; (c) Word2Vec and
+     GloVe over a 2-rank gloo mesh co-located on card 0 against one
+     process (rtol 5e-4, atol 5e-5) and every rank's tables equal; alone:
+     `python3 tools/phase35_alone.py` (``--cpu-rehearsal`` on the CPU);
+ 36. prints the kernels line (the bf16 kernels as rows of their own,
      named "<kernel>_bf16"; the paged rows carry phase 26's masked-wave
      launches as "masked_launches", phase 27a's as
      "speculating_launches" and phase 28's wave C as "tiered_launches",
@@ -7508,6 +7532,541 @@ def phase34(torch, ck, card):
     return out
 
 
+# -- phase 35: the embeddings stack (nlp/, graph/) ------------------------------
+P35_DEV = "cuda"        # "cpu" rehearses phase 35 (tools/phase35_alone.py)
+W2V_V, W2V_TOKENS, W2V_SENT = 5000, 600_000, 40   # bench.py:2213-2222
+W2V_LAYER, W2V_WINDOW, W2V_NEG, W2V_B = 100, 5, 5, 8192
+W2V_FITS = 6            # 35a: the first a warm fit, discarded (bench.py)
+W2V_STEP_REPS = 200     # 35a: replays of one batch step between events
+EMB_TOL = 1e-5          # card against CPU: max |diff| over max(1, max |t|)
+MESH_RTOL, MESH_ATOL = 5e-4, 5e-5   # 35c: tests/test_nlp_distributed.py:44-46
+P35_MESH_TIMEOUT = 120.0
+
+
+def w2v_corpus(V=None, n_tokens=None):
+    """bench.py's synthetic zipf corpus: V words, n_tokens tokens drawn
+    from numpy's generator seeded 0, in W2V_SENT-token sentences."""
+    import numpy as np
+    V, n_tokens = V or W2V_V, n_tokens or W2V_TOKENS
+    rng = np.random.default_rng(0)
+    zipf = 1.0 / np.arange(1, V + 1)
+    zipf /= zipf.sum()
+    tokens = rng.choice(V, size=n_tokens, p=zipf)
+    return [" ".join(f"w{t}" for t in tokens[i:i + W2V_SENT])
+            for i in range(0, n_tokens, W2V_SENT)]
+
+
+def topic_corpus(n=300, seed=7):
+    """tests/test_nlp.py's corpus: two topic clusters of five words."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    animals = ["cat", "dog", "pet", "fur", "paw"]
+    vehicles = ["car", "truck", "road", "wheel", "engine"]
+    out = []
+    for _ in range(n):
+        group = animals if rng.random() < 0.5 else vehicles
+        out.append(" ".join(group[i] for i in rng.integers(0, len(group), 6)))
+    return out
+
+
+class ChunkDraws:
+    """A chunk path's ``draws``: the default generator's draws, the first
+    chunk's kept (``first``); or, with ``fixed``, that table every time."""
+
+    def __init__(self, torch, device, seed, fixed=None):
+        from deeplearning4j_tpu_torch.nlp.word2vec import GeneratorDraws
+        gen = torch.Generator(device=device)
+        gen.manual_seed(seed + 1)
+        self.inner, self.fixed, self.first = GeneratorDraws(gen), fixed, None
+
+    def chunk(self, chunk, shape, high, device):
+        if self.fixed is not None:
+            return self.fixed
+        d = self.inner.chunk(chunk, shape, high, device)
+        if self.first is None:
+            self.first = d.clone()
+        return d
+
+
+def table_err(torch, got, want):
+    """max |got - want| over the tables, and over max(1, max |want|)."""
+    err = max(float((got[k].float().cpu() - want[k].float().cpu()).abs().max())
+              for k in want)
+    scale = max(1.0, max(float(want[k].abs().max()) for k in want))
+    return err, err / scale
+
+
+def w2v_bench_model(sents, dev):
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+    return (Word2Vec.builder().layer_size(W2V_LAYER).window_size(W2V_WINDOW)
+            .negative_sample(W2V_NEG).min_word_frequency(1).epochs(1)
+            .batch_size(W2V_B).seed(1).device(dev).iterate(sents).build())
+
+
+def w2v_cpu_model(torch, first, tables):
+    """A CPU SequenceVectors with copies of ``tables`` and ``first``'s
+    unigram table, for the chunk path's CPU steps."""
+    from deeplearning4j_tpu_torch.nlp.word2vec import (InMemoryLookupTable,
+                                                       SequenceVectors)
+    cpu = SequenceVectors(device="cpu", negative=W2V_NEG, batch_size=W2V_B,
+                          grad_clip=first.grad_clip)
+    cpu.lookup_table = InMemoryLookupTable.of(
+        tables["syn0"].cpu().clone(), None, tables["syn1neg"].cpu().clone())
+    cpu._neg_table = first._neg_table
+    return cpu
+
+
+def w2v_first_chunk(torch, first, rec, failures):
+    """35a's checks on the first chunk of the warm fit: each of its 64
+    batch steps (replays) against the port's CPU step from the card's own
+    tables before it, on the same batch, draws and learning rate (the
+    gate); then the whole chunk run free on the CPU and again on the card
+    from the same start, and on the CPU from a start moved by 1e-7, to
+    show how far the free-running chunk may part (printed, not gated)."""
+    steps, out = rec["steps"], {}
+    worst = {"rel_err": 0.0, "max_abs_err": 0.0, "loss_abs_err": 0.0}
+    for i, (before, batch, lr, loss) in enumerate(steps):
+        after = steps[i + 1][0] if i + 1 < len(steps) else rec["after"]
+        cpu = w2v_cpu_model(torch, first, before)
+        got = cpu._step("neg", tuple(b.cpu() for b in batch), lr.cpu())
+        err, rel = table_err(torch, cpu._tables(), after)
+        lerr = abs(float(got) - float(loss))
+        if rel > worst["rel_err"]:
+            worst.update(rel_err=rel, max_abs_err=err, step=i)
+        worst["loss_abs_err"] = max(worst["loss_abs_err"], lerr)
+        if not (rel <= EMB_TOL
+                and lerr <= EMB_TOL * max(1.0, abs(float(loss)))):
+            failures.append(f"35a first chunk, step {i}: card against CPU "
+                            f"tables {rel}, loss {lerr} (tol {EMB_TOL})")
+    out["steps_checked"] = len(steps)
+    out["per_step"] = worst
+    draw = first.draws.first
+    free = w2v_cpu_model(torch, first, rec["before"])
+    free.draws = ChunkDraws(torch, "cpu", 0, fixed=draw.cpu())
+    free._ensure_scan_state()
+    free._train_chunk(*rec["args"])
+    out["free_cpu_max_abs_diff"] = table_err(torch, free._tables(),
+                                             rec["after"])[0]
+    moved = {k: v.clone() for k, v in rec["before"].items()}
+    moved["syn0"] += 1e-7
+    nudged = w2v_cpu_model(torch, first, moved)
+    nudged.draws = ChunkDraws(torch, "cpu", 0, fixed=draw.cpu())
+    nudged._ensure_scan_state()
+    nudged._train_chunk(*rec["args"])
+    out["cpu_nudged_1e-7_max_abs_diff"] = table_err(
+        torch, nudged._tables(), free._tables())[0]
+    for k, v in first._tables().items():
+        v.copy_(rec["before"][k])
+    rec["steps"] = None  # record nothing more
+    first.draws = ChunkDraws(torch, first.device, 0, fixed=draw)
+    first._train_chunk(*rec["args"])
+    again = {k: v.clone() for k, v in first._tables().items()}
+    out["repeat_bitwise"] = all(torch.equal(again[k], rec["after"][k])
+                                for k in again)
+    out["repeat_max_abs_diff"] = table_err(torch, again, rec["after"])[0]
+    return out
+
+
+def w2v_bench(torch, card, failures):
+    """35a: see the module docstring."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    sents = w2v_corpus()
+    rec, fits, first = {}, [], None
+    for f in range(W2V_FITS + 1):
+        w = w2v_bench_model(sents, P35_DEV)
+        if f == 0:
+            first = w
+            w.draws = ChunkDraws(torch, w.device, w.seed)
+            run, step = w._train_chunk, w._step
+
+            def step_kept(kind, batch, lr, w=w, step=step):
+                keep = rec.get("steps") is not None and "after" not in rec
+                before = ({k: v.clone() for k, v in w._tables().items()}
+                          if keep else None)
+                loss = step(kind, batch, lr)
+                if keep:
+                    rec["steps"].append((before, tuple(b.clone() for b in
+                                                       batch), lr.clone(),
+                                         loss.clone()))
+                return loss
+
+            def chunk_kept(cs, ts, valids, lrs, w=w, run=run):
+                if "args" in rec:
+                    return run(cs, ts, valids, lrs)
+                rec["args"] = tuple(a.copy() for a in (cs, ts, valids, lrs))
+                rec["before"] = {k: v.clone() for k, v in w._tables().items()}
+                rec["steps"] = []
+                losses = run(cs, ts, valids, lrs)
+                rec["after"] = {k: v.clone() for k, v in w._tables().items()}
+                return losses
+            w._train_chunk, w._step = chunk_kept, step_kept
+        profiled = f == W2V_FITS
+        sync(torch, P35_DEV)
+        t0 = time.monotonic()
+        if profiled:
+            # device activity only: the CPU side's tracing would slow the
+            # host, which bounds this loop
+            with profile(activities=[ProfilerActivity.CUDA
+                                     if P35_DEV != "cpu" else
+                                     ProfilerActivity.CPU]) as prof:
+                w.fit()
+                sync(torch, P35_DEV)
+                wall = time.monotonic() - t0
+        else:
+            w.fit()
+            wall = time.monotonic() - t0
+        row = {"words_per_s": w.words_per_sec_, "fit_wall_s": wall,
+               "train_s": W2V_TOKENS / w.words_per_sec_,
+               "chunks": w._chunk_counter, "captures": w.graphs.captures,
+               "replays": w.graphs.replays, "score": w.score_}
+        if profiled:
+            kernels = device_kernels_ms(prof)
+            busy = sum(kernels.values())
+            row.update(device_busy_ms=busy,
+                       device_busy_share=busy / (row["train_s"] * 1e3),
+                       top_kernels_ms=[[k[:80], ms] for k, ms in sorted(
+                           kernels.items(), key=lambda kv: -kv[1])[:6]])
+        fits.append(row)
+        if not np.isfinite(w.score_):
+            failures.append(f"35a fit {f}: loss {w.score_}")
+        if P35_DEV != "cpu" and f > 0 and not (
+                w.graphs.captures == 1 and w._chunk_counter > 0
+                and w.graphs.replays == w.SCAN_BATCHES * w._chunk_counter):
+            failures.append(f"35a fit {f}: {w.graphs.captures} captures, "
+                            f"{w.graphs.replays} replays for "
+                            f"{w._chunk_counter} chunks (want 1 capture and "
+                            f"{w.SCAN_BATCHES} replays a chunk)")
+        last = w
+    out = {"fits": fits[1:W2V_FITS], "warm_fit": fits[0],
+           "profiled_fit": fits[W2V_FITS]}
+    rates = [r["words_per_s"] for r in out["fits"]]
+    out["words_per_s_median"] = statistics.median(rates)
+    out["words_per_s_runs"] = rates
+    p = out["profiled_fit"]
+    # the same device work against the median fit's training wall
+    p["device_busy_share_of_median_fit"] = p["device_busy_ms"] / (
+        1e3 * W2V_TOKENS / out["words_per_s_median"])
+    out["first_chunk"] = fc = w2v_first_chunk(torch, first, rec, failures)
+    # one batch step's replay on the device, between CUDA events
+    draw = first.draws.fixed
+    cs, ts, valids, lrs = (torch.as_tensor(a).to(last.device)
+                           for a in rec["args"])
+    args = (cs[0], ts[0], last._neg_table_dev[draw[0].to(last.device)],
+            valids[0])
+    last._step("neg", args, lrs[0])
+    if P35_DEV != "cpu":
+        r0 = last.graphs.replays
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(W2V_STEP_REPS):
+            last._step("neg", args, lrs[0])
+        end.record()
+        torch.cuda.synchronize()
+        out["replay_ms"] = start.elapsed_time(end) / W2V_STEP_REPS
+        out["timed_replays"] = last.graphs.replays - r0
+    else:
+        out["replay_ms"] = None
+    ps = fc["per_step"]
+    phase(35, f"(a) Word2Vec skip-gram NS at bench.py's config (V={W2V_V}, "
+              f"{W2V_TOKENS} tokens in {W2V_SENT}-token sentences, layer "
+              f"{W2V_LAYER}, window {W2V_WINDOW}, negative {W2V_NEG}, batch "
+              f"{W2V_B}, 1 epoch, seed 1) on {P35_DEV}: median "
+              f"{out['words_per_s_median']} words/s over {len(rates)} fits "
+              f"{rates} (warm fit {fits[0]['words_per_s']} discarded); "
+              f"{fits[1]['chunks']} chunks of {first.SCAN_BATCHES} batches "
+              f"a fit, {fits[1]['captures']} capture, {fits[1]['replays']} "
+              f"replays; one batch step's replay {out['replay_ms']} ms; a "
+              f"fit's device busy {p['device_busy_ms']} ms, busy share "
+              f"{p['device_busy_share']} of the profiled fit's training "
+              f"wall, {p['device_busy_share_of_median_fit']} of the median "
+              f"fit's [{card}]")
+    phase(35, f"(a) the first chunk's {fc['steps_checked']} steps, each "
+              f"from the card's tables against the CPU step on the same "
+              f"batch and draws: worst max |diff| {ps['max_abs_err']} (rel "
+              f"{ps['rel_err']}, tol {EMB_TOL}), losses {ps['loss_abs_err']};"
+              f" run free over the chunk: CPU against card "
+              f"{fc['free_cpu_max_abs_diff']}, card again "
+              f"{fc['repeat_max_abs_diff']} (bitwise "
+              f"{fc['repeat_bitwise']}), CPU from a start moved by 1e-7 "
+              f"{fc['cpu_nudged_1e-7_max_abs_diff']} [{card}]")
+    return out
+
+
+EMB_KINDS = ("neg", "hs", "cbow", "cbow_hs", "dbow", "dm", "glove")
+
+
+def emb_batch(kind, rng, V, B, K=5, P=16, W=5, ND=64):
+    """One random batch of ``kind`` (word2vec.STEP_KINDS' argument order
+    after the tables; glove: i, j, x, valid), the last eighth padding."""
+    import numpy as np
+    c, t = rng.integers(0, V, B), rng.integers(0, V, B)
+    negs = rng.integers(0, V, (B, K))
+    doc = rng.integers(0, ND, B)
+    ctx = rng.integers(0, V, (B, 2 * W))
+    cmask = (rng.random((B, 2 * W)) < 0.7).astype(np.float32)
+    points = rng.integers(0, V - 1, (B, P))
+    codes = rng.integers(0, 2, (B, P)).astype(np.float32)
+    code_mask = (np.arange(P)[None] < rng.integers(1, P + 1, B)[:, None]
+                 ).astype(np.float32)
+    x = rng.random(B).astype(np.float32) * 50 + 0.5
+    valid = np.ones(B, np.float32)
+    pad = slice(B - B // 8, B)
+    for a in (c, t, negs, doc, ctx, points, cmask, codes, code_mask):
+        a[pad] = 0
+    x[pad] = 1.0
+    valid[pad] = 0.0
+    return {"neg": (c, t, negs, valid),
+            "hs": (c, points, codes, code_mask, valid),
+            "cbow": (c, ctx, cmask, negs, valid),
+            "cbow_hs": (ctx, cmask, points, codes, code_mask, valid),
+            "dbow": (doc, t, negs, valid),
+            "dm": (doc, c, ctx, cmask, negs, valid),
+            "glove": (c, t, x, valid)}[kind]
+
+
+def emb_step_model(torch, kind, dev, init):
+    """A model on ``dev`` holding copies of ``init``, and its step."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nlp.glove import Glove
+    from deeplearning4j_tpu_torch.nlp.word2vec import (InMemoryLookupTable,
+                                                       SequenceVectors,
+                                                       _as_batch)
+    if kind == "glove":
+        g = Glove(device=dev)
+        g._glove = {k: torch.tensor(v, device=g.device)
+                    for k, v in init.items()}
+        body = g._glove_body()
+
+        def step(batch, lr):
+            args = tuple(_as_batch(a, g.device) for a in batch)
+            return g.graphs.run("glove", args + (_as_batch(lr, g.device),),
+                                body, list(g._glove.values()))
+        return g, step
+    s = SequenceVectors(device=dev, grad_clip=0.2)
+    s.lookup_table = InMemoryLookupTable.from_numpy(
+        init["syn0"], init["syn1"], init["syn1neg"], device=s.device)
+    s.doc_vectors = torch.tensor(init["doc_vectors"], device=s.device)
+    return s, lambda batch, lr: s._step(kind, batch, lr)
+
+
+def emb_steps_check(torch, card, failures):
+    """35b's one-batch checks: each step kind, two batches (the card's
+    first eager and captured, its second a replay), against the CPU."""
+    import numpy as np
+    V, D, ND = 5000, 100, 64
+    rng = np.random.default_rng(35)
+    shapes = {"syn0": (V, D), "syn1": (V - 1, D), "syn1neg": (V, D),
+              "doc_vectors": (ND, D)}
+    out = {}
+    for kind in EMB_KINDS:
+        if kind == "glove":
+            init = {k: ((rng.random((V, D) if k in ("w", "wc") else V)
+                         - 0.5) / D).astype(np.float32) for k in
+                    ("w", "wc", "b", "bc")}
+            init.update({h: np.ones_like(init[k]) for k, h in zip(
+                ("w", "wc", "b", "bc"), ("hw", "hwc", "hb", "hbc"))})
+        else:
+            init = {k: (rng.standard_normal(s) * 0.1).astype(np.float32)
+                    for k, s in shapes.items()}
+        card_m, card_step = emb_step_model(torch, kind, P35_DEV, init)
+        cpu_m, cpu_step = emb_step_model(torch, kind, "cpu", init)
+        B = W2V_B if kind == "neg" else 2048
+        errs = []
+        for i in range(2):
+            batch = emb_batch(kind, rng, V, B)
+            lr = np.float32(0.05)
+            lc, lh = card_step(batch, lr), cpu_step(batch, lr)
+            err, rel = table_err(torch, card_m._tables(), cpu_m._tables())
+            errs.append({"max_abs_err": err, "rel_err": rel,
+                         "loss_abs_err": abs(float(lc) - float(lh))})
+            if not (rel <= EMB_TOL and abs(float(lc) - float(lh))
+                    <= EMB_TOL * max(1.0, abs(float(lh)))):
+                failures.append(f"35b {kind} step {i}: card against CPU "
+                                f"{errs[-1]} (tol {EMB_TOL})")
+        out[kind] = {"batch": B, "steps": errs,
+                     "captures": card_m.graphs.captures,
+                     "replays": card_m.graphs.replays}
+        if P35_DEV != "cpu" and (card_m.graphs.captures,
+                                 card_m.graphs.replays) != (1, 1):
+            failures.append(f"35b {kind}: {card_m.graphs.captures} captures, "
+                            f"{card_m.graphs.replays} replays (want 1, 1)")
+    return out
+
+
+def emb_fits(torch, card, failures):
+    """35b's fits on tests/test_nlp.py's topic corpus, with its quality
+    checks."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.graph.deepwalk import DeepWalk
+    from deeplearning4j_tpu_torch.graph.graph import Graph
+    from deeplearning4j_tpu_torch.nlp.glove import Glove
+    from deeplearning4j_tpu_torch.nlp.paragraph import ParagraphVectors
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+    dev, out = P35_DEV, {}
+
+    def w2v(corpus, **kw):
+        b = (Word2Vec.builder().window_size(3).min_word_frequency(2)
+             .learning_rate(0.05).device(dev).iterate(corpus))
+        for k, v in kw.items():
+            b = getattr(b, k)(v)
+        return b.build()
+
+    def record(name, m, within, across, extra=None):
+        sv = getattr(m, "_sv", m)
+        r = {"score": getattr(sv, "score_", float("nan")),
+             "within": within, "across": across,
+             "captures": sv.graphs.captures, "replays": sv.graphs.replays,
+             "words_per_s": sv.words_per_sec_, **(extra or {})}
+        out[name] = r
+        ok = np.isfinite(r["score"]) and within > across
+        if dev != "cpu":
+            ok = ok and r["captures"] >= 1 and r["replays"] >= 1
+        if not ok:
+            failures.append(f"35b {name}: {r}")
+
+    m = w2v(topic_corpus(200), layer_size=24, negative_sample=0,
+            use_hierarchic_softmax=True, epochs=10, seed=1).fit()
+    record("hs", m, m.similarity("cat", "dog"), m.similarity("cat", "wheel"))
+    m = w2v(topic_corpus(), layer_size=32, negative_sample=5, epochs=10,
+            seed=42, batch_size=512, cbow=True, sampling=1e-2).fit()
+    record("cbow_subsample", m, m.similarity("cat", "dog"),
+           m.similarity("cat", "truck"))
+    m = w2v(topic_corpus(200), layer_size=24, negative_sample=0,
+            use_hierarchic_softmax=True, epochs=12, seed=9, batch_size=512,
+            cbow=True).fit()
+    record("cbow_hs", m, m.similarity("cat", "dog"),
+           m.similarity("cat", "wheel"))
+    g = (Glove.builder().layer_size(24).window_size(5).min_word_frequency(2)
+         .epochs(40).learning_rate(0.05).seed(3).device(dev)
+         .iterate(topic_corpus(200)).build().fit())
+    record("glove", g, g.similarity("cat", "dog"), g.similarity("cat", "truck"))
+    for dm in (False, True):
+        sents = topic_corpus(200 if not dm else 150)
+        labels = ["animal" if any(w in s for w in ("cat", "dog", "pet", "fur",
+                                                   "paw")) else "vehicle"
+                  for s in sents]
+        pv = (ParagraphVectors.builder().layer_size(24).window_size(3)
+              .min_word_frequency(2).negative_sample(5)
+              .epochs(8 if not dm else 6).seed(11).dm(dm).device(dev)
+              .documents(sents, labels).build().fit())
+        v = pv.infer_vector("dog fur paw")
+        near = pv.nearest_labels("truck road wheel", 1)
+        record("pv_dm" if dm else "pv_dbow", pv,
+               pv.similarity_to_label("cat dog pet", "animal"),
+               pv.similarity_to_label("cat dog pet", "vehicle"),
+               {"nearest_truck_road_wheel": near,
+                "infer_finite": bool(np.isfinite(v).all())})
+        if near != ["vehicle"] or v.shape != (24,) \
+                or not np.isfinite(v).all():
+            failures.append(f"35b pv dm={dm}: nearest {near}, inferred "
+                            f"{v.shape} finite {np.isfinite(v).all()}")
+    gr = Graph(12)
+    for base in (0, 6):
+        for i in range(6):
+            for j in range(i + 1, 6):
+                gr.add_edge(base + i, base + j)
+    gr.add_edge(0, 6)
+    dw = (DeepWalk.builder().vector_size(16).window_size(3).walk_length(20)
+          .walks_per_vertex(8).epochs(5).seed(2).device(dev).build().fit(gr))
+    record("deepwalk", dw, dw.similarity(1, 2), dw.similarity(1, 8))
+    return out
+
+
+def emb_mesh(torch, card, failures):
+    """35c: Word2Vec and GloVe over two gloo ranks co-located on the card
+    against one process."""
+    import numpy as np
+    from deeplearning4j_tpu_torch.nlp.glove import Glove
+    from deeplearning4j_tpu_torch.nlp.word2vec import Word2Vec
+    from deeplearning4j_tpu_torch.parallel import mesh as tmesh
+    dev = P35_DEV
+    mesh = tmesh.default_mesh(2, [dev if dev == "cpu" else "cuda:0"] * 2,
+                              timeout=P35_MESH_TIMEOUT)
+    out = {"backend": mesh.backend}
+
+    def w2v(m=None):
+        b = (Word2Vec.builder().layer_size(24).window_size(3)
+             .negative_sample(4).min_word_frequency(1).epochs(3).seed(11)
+             .batch_size(512).device(dev).iterate(topic_corpus(200)))
+        return (b.use_mesh(m) if m is not None else b).build().fit()
+
+    def glove(m=None):
+        b = (Glove.builder().layer_size(16).window_size(5).epochs(20).seed(3)
+             .batch_size(1024).device(dev).iterate(topic_corpus(200)))
+        return (b.use_mesh(m) if m is not None else b).build().fit()
+    t0 = time.monotonic()
+    try:
+        mesh.start()
+        out["start_s"] = time.monotonic() - t0
+        for name, make, tables in (("word2vec", w2v, ("syn0", "syn1neg")),
+                                   ("glove", glove, ("syn0",))):
+            single = make()
+            tmesh.COUNTS.clear()
+            t1 = time.monotonic()
+            dist = make(mesh)
+            r = {"fit_s": time.monotonic() - t1,
+                 "all_reduce": tmesh.COUNTS["all_reduce"],
+                 "within": dist.similarity("cat", "dog"),
+                 "across": dist.similarity("cat", "truck")}
+            for t in tables:
+                a = getattr(single.lookup_table, t).cpu().numpy()
+                b = getattr(dist.lookup_table, t).cpu().numpy()
+                r[t + "_max_abs_diff"] = float(np.abs(a - b).max())
+                if not np.allclose(b, a, rtol=MESH_RTOL, atol=MESH_ATOL):
+                    failures.append(f"35c {name} {t}: mesh against one "
+                                    f"process max |diff| "
+                                    f"{r[t + '_max_abs_diff']}")
+            rep = "syn0" if name == "word2vec" else "w"
+            mine = (dist.lookup_table.syn0 if name == "word2vec"
+                    else dist._glove["w"]).cpu().numpy()
+            r["replicas_equal"] = all(np.array_equal(x, mine) for x in
+                                      dist.mesh_table_replicas(rep))
+            if not r["replicas_equal"] or not r["within"] > r["across"]:
+                failures.append(f"35c {name}: {r}")
+            out[name] = r
+    finally:
+        mesh.kill()
+    w, g = out["word2vec"], out["glove"]
+    phase(35, f"(c) the mesh: 2 {out['backend']} ranks on {dev}, started in "
+              f"{out['start_s']:.3f} s; Word2Vec against one process: syn0 "
+              f"{w['syn0_max_abs_diff']}, syn1neg "
+              f"{w['syn1neg_max_abs_diff']} (rtol {MESH_RTOL}, atol "
+              f"{MESH_ATOL}), {w['all_reduce']} all-reduces in "
+              f"{w['fit_s']:.3f} s; GloVe w + wc {g['syn0_max_abs_diff']}, "
+              f"{g['all_reduce']} all-reduces; every rank's tables equal: "
+              f"{w['replicas_equal']}, {g['replicas_equal']} [{card}]")
+    return out
+
+
+def phase35(torch, ck, card):
+    """35a-c: see the module docstring."""
+    t0 = time.monotonic()
+    failures, out = [], {}
+    out["a"] = w2v_bench(torch, card, failures)
+    out["b_steps"] = emb_steps_check(torch, card, failures)
+    st = out["b_steps"]
+    phase(35, "(b) one batch of each step on the card against the CPU "
+              "(max |diff| over max(1, max |table|), the eager step then a "
+              "replay): " + ", ".join(
+                  f"{k} {max(s['rel_err'] for s in v['steps']):.3g}"
+                  for k, v in st.items()) + f" (tol {EMB_TOL}) [{card}]")
+    out["b_fits"] = emb_fits(torch, card, failures)
+    phase(35, "(b) fits on the topic corpus (within- against across-topic "
+              "similarity, captures/replays): " + "; ".join(
+                  f"{k} {v['within']:.3f} > {v['across']:.3f} "
+                  f"({v['captures']}/{v['replays']})"
+                  for k, v in out["b_fits"].items()) + f" [{card}]")
+    out["c"] = emb_mesh(torch, card, failures)
+    out["seconds"] = time.monotonic() - t0
+    phase(35, f"phase 35 took {out['seconds']:.3f} s [{card}]")
+    if failures:
+        raise SystemExit("phase 35 failed: " + " | ".join(failures))
+    return out
+
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -9044,6 +9603,7 @@ def main():
     p32 = phase32(torch, ck, card)
     p33 = phase33(torch, ck, card)
     p34 = phase34(torch, ck, card)
+    p35 = phase35(torch, ck, card)
 
     src = "deeplearning4j_tpu_torch/ops/csrc/paged_decode_attention.cu"
     kernels = []
@@ -9328,9 +9888,9 @@ def main():
          **a3, "serving_26": p26, "serving_27": p27, "tiering_28": p28,
          "training_29": p29, "graphs_30": p30, "parallel_31": p31,
          "tp_spec_tiers_ft_32": p32, "tp_training_33": p33,
-         "fleet_34": p34,
+         "fleet_34": p34, "embeddings_35": p35,
          "elapsed_s": time.monotonic() - t_start}))
-    phase(35, "kernels:")
+    phase(36, "kernels:")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
